@@ -3,8 +3,8 @@
 The conf tree and the expt files name components by the reference's
 ``_target_`` strings (``models.fusion.ModalTokenCMFuser``,
 ``torch.nn.Identity``, ...). The port resolves them through its own alias
-table to its own classes. The table holds only what the ported serving path
-builds; any other target raises ``ValueError`` naming it.
+table to its own classes. The table holds only what the ported serving
+paths build; any other target raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -18,6 +18,11 @@ from .config import Config
 _ALIASES: Dict[str, str] = {
     "models.fusion.ModalTokenCMFuser":
         "afft_tpu_torch.models.fusion:ModalTokenCMFuser",
+    "models.fusion.CMFuser": "afft_tpu_torch.models.fusion:CMFuser",
+    "models.fusion.TemporalCMFuser":
+        "afft_tpu_torch.models.fusion:TemporalCMFuser",
+    "models.fusion.TemporalCrossAttentFuser":
+        "afft_tpu_torch.models.fusion:TemporalCrossAttentFuser",
     "models.future_prediction.CMFPEarly":
         "afft_tpu_torch.models.cmfp:CMFPEarly",
     "models.future_prediction.BaseFuturePredictor":
@@ -32,8 +37,8 @@ def resolve_target(target: str) -> Callable:
     spec = _ALIASES.get(target)
     if spec is None:
         raise ValueError(
-            f"_target_ {target!r} is not ported to afft_tpu_torch "
-            f"(ported: {sorted(_ALIASES)})")
+            f"_target_ {target!r} is not ported to afft_tpu_torch (see "
+            f"ROADMAP.md, Open items; ported: {sorted(_ALIASES)})")
     mod_name, attr = spec.split(":")
     return getattr(importlib.import_module(mod_name), attr)
 

@@ -1,7 +1,7 @@
 // Shared device code for the serving kernels of afft_tpu_torch.
 //
-// Every port entry (fused_block.cu, fused_gpt2.cu) is a short sequence of
-// launches on one stream, built from the pieces below:
+// Every port entry (fused_block.cu, fused_gpt2.cu, attention.cu, seq_block.cu)
+// is a short sequence of launches on one stream, built from the pieces below:
 //   * layernorm_rows: one warp per row, fp32 statistics, output in the
 //     working dtype (the rounding the TPU kernels apply before each matmul);
 //   * gemm_bf16 / gemm_f32: C[M,N] = A[M,K] . W + bias with a fused
@@ -9,7 +9,9 @@
 //     (nn.Linear) or (K,N) row-major (HF Conv1D), chosen at compile time,
 //     so neither weight layout is repacked per call;
 //   * small_attention: softmax attention over S <= 32 tokens, one block per
-//     (sequence, head) and one warp per query token.
+//     (sequence, head) and one warp per query token;
+//   * strided_attention: softmax attention of Nq queries over Nk <= 1024 keys
+//     with q, k and v given as separate strided tensors, one warp per query.
 //
 // The bf16 GEMM runs on the tensor cores through nvcuda::wmma (16x16x16,
 // fp32 accumulation) with 128x128x32 shared-memory tiles, double-buffered by
@@ -415,11 +417,129 @@ static void launch_attention(const T* qkv, const float* mask, T* out,
       qkv, mask, out, S, H, hd, scale);
 }
 
+
+// ---------------------------------------------------------------------------
+// Attention of Nq queries over Nk keys, q / k / v given separately: element
+// (seq, token, head, j) of an operand lies at seq * b + token * t + head * h
+// + j, so packed qkv rows, column slices of a packed projection and a
+// (B, Tmax, H, hd) cache are all read where they are. out is contiguous
+// (n_seq, Nq, H, hd). One warp per query; its Nk scores live in shared
+// memory, so any Nq and any Nk <= SA_MAX_KEYS are taken.
+// Scores and softmax in fp32, the scale applied after the dot; the
+// probabilities are divided in fp32 and rounded to T before the
+// probability . v product, which accumulates in fp32. A key whose mask entry
+// is -inf is skipped in both products, so what lies in a masked slot (a
+// cache row not written yet) never reaches the result. A row with every key
+// masked gives zeros, never NaN.
+// ---------------------------------------------------------------------------
+
+constexpr int SA_WARPS = 8;
+constexpr int SA_MAX_KEYS = 1024;  // 8 warps * 1024 floats = 32 KB
+
+struct AttnStrides {
+  long long b, t, h;  // elements between sequences, tokens and heads
+};
+
+template <typename T>
+__global__ void __launch_bounds__(SA_WARPS * 32)
+strided_attention(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ mask,
+                  T* __restrict__ out, int Nq, int Nk, int H, int hd,
+                  AttnStrides qs, AttnStrides ks, AttnStrides vs,
+                  float scale) {
+  extern __shared__ float sa_scores[];  // one row of Nk per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seq = blockIdx.x / H, h = blockIdx.x % H;
+  const int tq = blockIdx.y * (blockDim.x >> 5) + warp;
+  if (tq >= Nq) return;  // no block-wide barrier below
+  float* sc = sa_scores + warp * Nk;
+  const T* qp = q + seq * qs.b + tq * qs.t + h * qs.h;
+  const T* kp = k + seq * ks.b + h * ks.h;
+  const T* vp = v + seq * vs.b + h * vs.h;
+  const float* mrow = mask != nullptr ? mask + (size_t)tq * Nk : nullptr;
+
+  float m = -INFINITY;
+  for (int tk = 0; tk < Nk; ++tk) {
+    const float add = mrow != nullptr ? mrow[tk] : 0.f;
+    float s = -INFINITY;
+    if (add != -INFINITY) {  // the same for every lane of the warp
+      const T* kr = kp + tk * ks.t;
+      float p = 0.f;
+      for (int j = lane; j < hd; j += 32)
+        p = fmaf(to_f32(qp[j]), to_f32(kr[j]), p);
+      s = warp_sum(p) * scale + add;
+    }
+    if (lane == 0) sc[tk] = s;
+    m = fmaxf(m, s);
+  }
+  __syncwarp();
+  if (m == -INFINITY) m = 0.f;  // every key masked: all exp() below are 0
+  float sum = 0.f;
+  for (int tk = lane; tk < Nk; tk += 32) {
+    const float e = expf(sc[tk] - m);
+    sc[tk] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  for (int tk = lane; tk < Nk; tk += 32) {
+    const float p = sum > 0.f ? sc[tk] / sum : 0.f;
+    sc[tk] = to_f32(from_f32<T>(p));
+  }
+  __syncwarp();
+
+  T* o = out + (((size_t)seq * Nq + tq) * H + h) * hd;
+  for (int j = lane; j < hd; j += 32) {
+    float acc = 0.f;
+    for (int tk = 0; tk < Nk; ++tk) {
+      const float p = sc[tk];
+      if (p != 0.f) acc = fmaf(p, to_f32(vp[tk * vs.t + j]), acc);
+    }
+    o[j] = from_f32<T>(acc);
+  }
+}
+
+// Returns cudaErrorInvalidValue for Nk beyond SA_MAX_KEYS (nothing launched).
+template <typename T>
+static cudaError_t launch_strided_attention(const T* q, const T* k,
+                                            const T* v, const float* mask,
+                                            T* out, int n_seq, int Nq, int Nk,
+                                            int H, int hd, AttnStrides qs,
+                                            AttnStrides ks, AttnStrides vs,
+                                            cudaStream_t stream) {
+  if (Nq < 1 || Nk < 1 || Nk > SA_MAX_KEYS) return cudaErrorInvalidValue;
+  const int warps = Nq < SA_WARPS ? Nq : SA_WARPS;
+  const float scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
+  dim3 grid(n_seq * H, cdiv(Nq, warps));
+  strided_attention<T><<<grid, warps * 32, warps * Nk * sizeof(float),
+                         stream>>>(q, k, v, mask, out, Nq, Nk, H, hd, qs, ks,
+                                   vs, scale);
+  return cudaGetLastError();
+}
+
+// The attention stage of a block whose qkv rows are packed [q | k | v] with
+// heads minor: (n_seq * S, 3C) -> (n_seq * S, C).
+template <typename T>
+static cudaError_t launch_packed_attention(const T* qkv, const float* mask,
+                                           T* out, int n_seq, int S, int H,
+                                           int hd, cudaStream_t stream) {
+  const long long C = (long long)H * hd;
+  const AttnStrides st{S * 3 * C, 3 * C, hd};
+  return launch_strided_attention<T>(qkv, qkv + C, qkv + 2 * C, mask, out,
+                                     n_seq, S, S, H, hd, st, st, st, stream);
+}
+
 }  // namespace afft
 
 // Returns from the enclosing entry point with the launch's error, if any.
 #define AFFT_CHECK_LAUNCH()                     \
   do {                                          \
     cudaError_t err_ = cudaGetLastError();      \
+    if (err_ != cudaSuccess) return (int)err_;  \
+  } while (0)
+
+// The same for a launcher that returns its own cudaError_t.
+#define AFFT_CHECK(call)                        \
+  do {                                          \
+    cudaError_t err_ = (call);                  \
     if (err_ != cudaSuccess) return (int)err_;  \
   } while (0)

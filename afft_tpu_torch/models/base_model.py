@@ -61,6 +61,11 @@ class BaseModel(nn.Module):
         """video_data: {mod: (B,T,F) | (B,clips,C,T,H,W) |
         (B,clips,crops,C,T,H,W)}; crops are forwarded one by one and their
         outputs averaged (reference models/base_model.py:68-119)."""
+        if self.training:
+            raise NotImplementedError(
+                "training mode (dropout, drop-path, the backward kernels) "
+                "is not ported yet (ROADMAP.md §A.7, §B.3, §B.4): call "
+                ".eval() to run the inference path")
         per_mod_crops = {}
         for mod, data in video_data.items():
             if data.dim() in (3, 6):

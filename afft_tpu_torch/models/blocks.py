@@ -1,12 +1,18 @@
-"""Eval-mode transformer primitives of the fuser: Attention, MLP, Block.
+"""Eval-mode transformer primitives of the fusers: Attention, MLP, Block,
+DecoderBlock.
 
-Port of afft_tpu/models/blocks.py (attention_apply, mlp_apply, block_apply;
-reference models/transformerblock.py Attention, MLP, Block) as nn.Modules
-with the reference's state-dict names (``norm1``, ``attn.qkv``,
-``attn.proj``, ``norm2``, ``mlp.mlp.0``, ``mlp.mlp.2``). ``Block.forward``
-is the module path, which returns the attention weights; the fuser stack
-sends blocks whose weights are not asked for through ``ops.fused_block``
-instead. Dropout and drop-path are training-time only and not ported yet.
+Port of afft_tpu/models/blocks.py (attention_apply, mlp_apply, block_apply,
+decoder_block_init / decoder_block_apply; reference
+models/transformerblock.py Attention, MLP, Block, DecoderBlock) as
+nn.Modules with the reference's state-dict names (``norm1``, ``attn.qkv``,
+``attn.proj``, ``norm2``, ``mlp.mlp.0``, ``mlp.mlp.2``; ``norm_self``,
+``norm_q``, ``norm_kv``, ``cross_attn.w_q``, ``norm_mlp`` for the decoder
+block). ``Block.forward`` is the module path, which also returns the
+attention weights; when none are asked for, the fusers send their blocks
+through ``ops.fused_block`` and ``ops.fused_seq_block`` instead.
+``DecoderBlock.forward`` returns no weights and is ``ops.fused_decoder_block``
+on the module's own parameters: one arithmetic for the module and the
+CA-Fuser. Dropout and drop-path are training-time only and not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import torch.nn as nn
 
 from . import layers as L
+from ..ops import fused_seq_block as FS
 
 
 class Attention(nn.Module):
@@ -79,3 +86,48 @@ class Block(nn.Module):
         x = x + attn_out
         x = x + self.mlp(self.norm2(x))
         return x, weights
+
+
+class DecoderBlock(nn.Module):
+    """Self-attention, cross-attention into a memory stream, MLP; the same
+    mask gates both attention stages (reference
+    models/transformerblock.py:157-162). The forward is
+    ``ops.fused_decoder_block``, which takes a memory stream of x's own
+    shape (every CA-Fuser's); ``mem_dim`` sizes the parameters as the
+    reference does, and another memory width or length raises there."""
+
+    def __init__(self, dim, mem_dim=None, num_heads=4, mlp_ratio=4.0,
+                 qkv_bias=False, norm_affine=True, norm_eps=1e-6):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm_eps = norm_eps
+
+        def norm(width):
+            return nn.LayerNorm(width, eps=norm_eps,
+                                elementwise_affine=norm_affine)
+        self.norm_self = norm(dim)
+        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.norm_q = norm(dim)
+        self.norm_kv = norm(mem_dim or dim)
+        self.cross_attn = L.CrossAttention(dim, num_heads, mem_dim, qkv_bias)
+        self.norm_mlp = norm(dim)
+        self.mlp = MLP(dim, int(dim * mlp_ratio))
+
+    def reset_parameters(self, gen):
+        """Fuser init: N(0, 0.02) weights, zero biases, unit LayerNorms."""
+        for lin in (self.attn.qkv, self.attn.proj):
+            L.init_normal_linear(lin.weight, lin.bias, 0.02, gen)
+        self.cross_attn.reset_parameters(gen)
+        for lin in (self.mlp.mlp[0], self.mlp.mlp[2]):
+            L.init_normal_linear(lin.weight, lin.bias, 0.02, gen)
+        for norm in (self.norm_self, self.norm_q, self.norm_kv,
+                     self.norm_mlp):
+            L.init_layer_norm(norm)
+
+    def forward(self, x, mem, mask=None, *, impl="kernel"):
+        """x, mem (B, N, C) -> x (B, N, C); ``impl="plain"`` runs the
+        kernel's plain version on any device (the comparison on the card)."""
+        block_fn = (FS.fused_decoder_block if impl == "kernel"
+                    else FS.fused_decoder_block_plain)
+        return block_fn(x, mem, dict(self.named_parameters()), mask,
+                        num_heads=self.num_heads, eps=self.norm_eps)

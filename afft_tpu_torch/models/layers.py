@@ -1,5 +1,5 @@
-"""Primitives shared by the port's modules: the additive attention masks
-and seeded initialisers.
+"""Primitives shared by the port's modules: the additive attention masks,
+the cross-attention layer and seeded initialisers.
 
 The modules build their LayerNorms with an explicit eps (1e-6 in the fuser,
 1e-5 in the GPT-2 predictor); the GELUs (exact erf in the fuser MLP, tanh
@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn as nn
 
+from ..ops.attention import multihead_attention
+
 
 def neg_inf_causal_mask(sz: int, dtype=torch.float32, device=None):
     """Additive causal mask: 0 on/below the diagonal, -inf above."""
@@ -27,6 +29,43 @@ def cross_attention_diag_mask(sz: int, dtype=torch.float32, device=None):
     eye = torch.eye(sz, dtype=torch.bool, device=device)
     return torch.zeros((sz, sz), dtype=dtype, device=device).masked_fill(
         eye, float("-inf"))
+
+
+class CrossAttention(nn.Module):
+    """Attention of x (B, N, C) into a memory stream mem (B, M, C) through
+    separate projections ``w_q``, ``w_k``, ``w_v`` and ``proj`` (port of
+    afft_tpu/models/blocks.py cross_attention_init / cross_attention_apply;
+    reference models/transformerblock.py CrossAttention). The attention
+    itself is ``ops.attention.multihead_attention``: the CUDA kernel on
+    CUDA tensors, its plain version on CPU tensors. Eval mode only.
+
+    This is the general layer: mem may have another length and width than
+    x. The DecoderBlock holds one for its parameters and runs
+    ``ops.fused_decoder_block`` on them, so no served model calls this
+    forward; it stands for callers with unequal streams."""
+
+    def __init__(self, dim, num_heads, mem_dim=None, qkv_bias=False):
+        super().__init__()
+        self.num_heads = num_heads
+        mem_dim = mem_dim or dim
+        self.w_q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.w_k = nn.Linear(mem_dim, dim, bias=qkv_bias)
+        self.w_v = nn.Linear(mem_dim, dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def reset_parameters(self, gen):
+        for lin in (self.w_q, self.w_k, self.w_v, self.proj):
+            init_normal_linear(lin.weight, lin.bias, 0.02, gen)
+
+    def forward(self, x, mem, mask=None):
+        B, N, C = x.shape
+        M = mem.shape[1]
+        hd = C // self.num_heads
+        q = self.w_q(x).reshape(B, N, self.num_heads, hd)
+        k = self.w_k(mem).reshape(B, M, self.num_heads, hd)
+        v = self.w_v(mem).reshape(B, M, self.num_heads, hd)
+        out, _ = multihead_attention(q, k, v, mask)
+        return self.proj(out.reshape(B, N, C))
 
 
 # -- seeded initialisers ------------------------------------------------------

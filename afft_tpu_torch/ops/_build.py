@@ -28,12 +28,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints)
 SIGNATURES = {
     "afft_fused_block": [_I] + [_P] * 19 + [_I] * 5 + [_F, _P],
     "afft_gpt2_attn_half": [_I] + [_P] * 11 + [_I] * 4 + [_F, _P],
     "afft_gpt2_mlp_half": [_I] + [_P] * 10 + [_I] * 3 + [_F, _P],
+    "afft_fused_attention": [_I] + [_P] * 5 + [_I] * 5 + [_L] * 9 + [_P],
+    "afft_fused_seq_block": [_I, _P, _PP] + [_P] * 6 + [_I] * 5 + [_F, _P],
+    "afft_fused_decoder_block": [_I, _P, _P, _PP] + [_P] * 7 + [_I] * 5
+                                + [_F, _P],
 }
 
 _lock = threading.Lock()

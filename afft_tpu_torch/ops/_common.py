@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -12,6 +14,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def ptr_array(tensors):
+    """A host array of device pointers (null for None), for the entry
+    points that take their parameters as one array."""
+    return (ctypes.c_void_p * len(tensors))(*[ptr(t) for t in tensors])
 
 
 def check_operands(name: str, x: torch.Tensor, operands: dict) -> None:
@@ -39,11 +47,12 @@ def check_shape(name: str, key: str, t, shape) -> None:
                          f"expected {tuple(shape)}")
 
 
-def mask_operand(name: str, mask, n: int, device) -> torch.Tensor:
-    """The additive (n, n) mask as contiguous fp32 on the device."""
+def mask_operand(name: str, mask, n: int, device, n_keys=None):
+    """The additive (n, n_keys or n) mask as contiguous fp32 on the
+    device."""
     if mask is None:
         return None
-    check_shape(name, "mask", mask, (n, n))
+    check_shape(name, "mask", mask, (n, n if n_keys is None else n_keys))
     return mask.to(device=device, dtype=torch.float32).contiguous()
 
 
@@ -80,17 +89,12 @@ def add_bias(acc32, bias):
     return acc32 if bias is None else acc32 + bias.float()
 
 
-def attention32(qkv, mask, seq: int, num_heads: int, round_p_to=None):
-    """Softmax attention over ``seq`` tokens of (n * seq, 3C) qkv rows
-    ([q | k | v], heads minor): fp32 scores with max subtraction; the
+def softmax_attention32(q, k, v, mask, round_p_to=None):
+    """softmax(q k^T * hd^-0.5 + mask) v on fp32 (..., Nq | Nk, hd)
+    operands: scores with max subtraction and the division in fp32; the
     probabilities are rounded to ``round_p_to`` before P . V if given.
-    Returns (n * seq, C) fp32."""
-    rows, three_c = qkv.shape
-    C = three_c // 3
-    hd = C // num_heads
-    q, k, v = (qkv.float().reshape(rows // seq, seq, 3, num_heads, hd)
-               .permute(2, 0, 3, 1, 4))                  # 3 x (n, H, S, hd)
-    s = (q @ k.transpose(-1, -2)) * (hd ** -0.5)
+    Returns (out, probabilities), both fp32."""
+    s = (q @ k.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
     if mask is not None:
         s = s + mask.float()
     s = s - s.amax(dim=-1, keepdim=True)
@@ -98,4 +102,17 @@ def attention32(qkv, mask, seq: int, num_heads: int, round_p_to=None):
     p = e / e.sum(dim=-1, keepdim=True)
     if round_p_to is not None:
         p = p.to(round_p_to).float()
-    return (p @ v).permute(0, 2, 1, 3).reshape(rows, C)
+    return p @ v, p
+
+
+def attention32(qkv, mask, seq: int, num_heads: int, round_p_to=None):
+    """Softmax attention over ``seq`` tokens of (n * seq, 3C) qkv rows
+    ([q | k | v], heads minor), as ``softmax_attention32``.
+    Returns (n * seq, C) fp32."""
+    rows, three_c = qkv.shape
+    C = three_c // 3
+    hd = C // num_heads
+    q, k, v = (qkv.float().reshape(rows // seq, seq, 3, num_heads, hd)
+               .permute(2, 0, 3, 1, 4))                  # 3 x (n, H, S, hd)
+    out, _ = softmax_attention32(q, k, v, mask, round_p_to)
+    return out.permute(0, 2, 1, 3).reshape(rows, C)

@@ -37,9 +37,10 @@ def _unpack(params):
             params["mlp.mlp.2.weight"], g("mlp.mlp.2.bias"))
 
 
-def fused_block_plain(x, params, mask=None, *, num_heads: int,
-                      eps: float = 1e-6):
-    """The kernel's arithmetic in PyTorch ops, on any device."""
+def block_plain(x, params, mask, num_heads, eps, round_p):
+    """A pre-LN block on (n, S, C) in PyTorch ops; ``round_p`` rounds the
+    softmax probabilities to x.dtype before P . V (the sequence-block
+    kernel does, this module's kernel keeps them fp32)."""
     R, N, C = x.shape
     dt = x.dtype
     (ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, wfc1, bfc1, wfc2,
@@ -47,12 +48,52 @@ def fused_block_plain(x, params, mask=None, *, num_heads: int,
     x32 = x.reshape(R * N, C).float()
     xn = layer_norm32(x32, ln1g, ln1b, eps).to(dt)
     qkv = add_bias(matmul32(xn, wqkv, False), bqkv).to(dt)
-    attn = attention32(qkv, mask, N, num_heads).to(dt)
+    attn = attention32(qkv, mask, N, num_heads,
+                       round_p_to=dt if round_p else None).to(dt)
     y = x32 + add_bias(matmul32(attn, wproj, False), bproj)
-    yn = layer_norm32(y, ln2g, ln2b, eps).to(dt)
+    return mlp_plain(y, ln2g, ln2b, wfc1, bfc1, wfc2, bfc2, eps,
+                     dt).reshape(R, N, C)
+
+
+def mlp_plain(y, lng, lnb, wfc1, bfc1, wfc2, bfc2, eps, dt):
+    """y + fc2(gelu(fc1(LN(y)))) on the fp32 residual stream y (M, C);
+    returns (M, C) in ``dt``."""
+    yn = layer_norm32(y, lng, lnb, eps).to(dt)
     h1 = F.gelu(add_bias(matmul32(yn, wfc1, False), bfc1)).to(dt)
-    h2 = add_bias(matmul32(h1, wfc2, False), bfc2)
-    return (y + h2).to(dt).reshape(R, N, C)
+    return (y + add_bias(matmul32(h1, wfc2, False), bfc2)).to(dt)
+
+
+def fused_block_plain(x, params, mask=None, *, num_heads: int,
+                      eps: float = 1e-6):
+    """The kernel's arithmetic in PyTorch ops, on any device."""
+    return block_plain(x, params, mask, num_heads, eps, round_p=False)
+
+
+def block_operands(name, x, params, num_heads):
+    """Check a block's tensors against x (n, S, C) for a CUDA launch; returns
+    (the twelve tensors in the kernels' order, hidden)."""
+    C = x.shape[-1]
+    tensors = _unpack(params)
+    (ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, wfc1, bfc1, wfc2,
+     bfc2) = tensors
+    hidden = wfc1.shape[0]
+    hd = C // num_heads
+    if hd * num_heads != C or hd % 8 or hidden % 8:
+        raise ValueError(f"{name}: needs H*hd == C with hd % 8 == 0 and "
+                         f"hidden % 8 == 0 (C={C}, H={num_heads}, "
+                         f"hidden={hidden})")
+    keys = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+            "attn.proj.weight", "attn.proj.bias", "norm2.weight",
+            "norm2.bias", "mlp.mlp.0.weight", "mlp.mlp.0.bias",
+            "mlp.mlp.2.weight", "mlp.mlp.2.bias")
+    shapes = ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,), (C,), (C,),
+              (hidden, C), (hidden,), (C, hidden), (C,))
+    for key, t, shape in zip(keys, tensors, shapes):
+        check_shape(name, key, t, shape)
+    if (ln1g is None) != (ln1b is None) or (ln2g is None) != (ln2b is None):
+        raise ValueError(f"{name}: LayerNorm weight and bias go together")
+    check_operands(name, x, dict(zip(keys, tensors)))
+    return tensors, hidden
 
 
 def fused_block(x, params, mask=None, *, num_heads: int, eps: float = 1e-6):
@@ -68,37 +109,9 @@ def fused_block(x, params, mask=None, *, num_heads: int, eps: float = 1e-6):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     R, N, C = x.shape
-    (ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, wfc1, bfc1, wfc2,
-     bfc2) = _unpack(params)
-    hidden = wfc1.shape[0]
-    hd = C // num_heads
     if not 1 <= N <= MAX_TOKENS:
         raise ValueError(f"{name}: N={N} tokens, the kernel takes 1..8")
-    if hd * num_heads != C or hd % 8 or hidden % 8:
-        raise ValueError(f"{name}: needs H*hd == C with hd % 8 == 0 and "
-                         f"hidden % 8 == 0 (C={C}, H={num_heads}, "
-                         f"hidden={hidden})")
-    for key, t, shape in [("norm1.weight", ln1g, (C,)),
-                          ("norm1.bias", ln1b, (C,)),
-                          ("attn.qkv.weight", wqkv, (3 * C, C)),
-                          ("attn.qkv.bias", bqkv, (3 * C,)),
-                          ("attn.proj.weight", wproj, (C, C)),
-                          ("attn.proj.bias", bproj, (C,)),
-                          ("norm2.weight", ln2g, (C,)),
-                          ("norm2.bias", ln2b, (C,)),
-                          ("mlp.mlp.0.weight", wfc1, (hidden, C)),
-                          ("mlp.mlp.0.bias", bfc1, (hidden,)),
-                          ("mlp.mlp.2.weight", wfc2, (C, hidden)),
-                          ("mlp.mlp.2.bias", bfc2, (C,))]:
-        check_shape(name, key, t, shape)
-    if (ln1g is None) != (ln1b is None) or (ln2g is None) != (ln2b is None):
-        raise ValueError(f"{name}: LayerNorm weight and bias go together")
-    check_operands(name, x, {
-        "norm1.weight": ln1g, "norm1.bias": ln1b, "attn.qkv.weight": wqkv,
-        "attn.qkv.bias": bqkv, "attn.proj.weight": wproj,
-        "attn.proj.bias": bproj, "norm2.weight": ln2g, "norm2.bias": ln2b,
-        "mlp.mlp.0.weight": wfc1, "mlp.mlp.0.bias": bfc1,
-        "mlp.mlp.2.weight": wfc2, "mlp.mlp.2.bias": bfc2})
+    tensors, hidden = block_operands(name, x, params, num_heads)
     mask32 = mask_operand(name, mask, N, x.device)
     out = torch.empty_like(x)
     if R == 0:
@@ -109,10 +122,9 @@ def fused_block(x, params, mask=None, *, num_heads: int, eps: float = 1e-6):
     qkv = torch.empty((M, 3 * C), dtype=dt, device=dev)
     y = torch.empty((M, C), dtype=torch.float32, device=dev)
     h1 = torch.empty((M, hidden), dtype=dt, device=dev)
-    launch(name, "afft_fused_block",
-           DTYPE_CODES[dt], ptr(x), ptr(ln1g), ptr(ln1b), ptr(wqkv), ptr(bqkv),
-           ptr(wproj), ptr(bproj), ptr(ln2g), ptr(ln2b), ptr(wfc1), ptr(bfc1),
-           ptr(wfc2), ptr(bfc2), ptr(mask32), ptr(tmp), ptr(qkv), ptr(y),
-           ptr(h1), ptr(out), R, N, C, num_heads, hidden, eps, device=dev)
+    launch(name, "afft_fused_block", DTYPE_CODES[dt], ptr(x),
+           *[ptr(t) for t in tensors], ptr(mask32), ptr(tmp), ptr(qkv),
+           ptr(y), ptr(h1), ptr(out), R, N, C, num_heads, hidden, eps,
+           device=dev)
     LAUNCHES[name] += 1
     return out

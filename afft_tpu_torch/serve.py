@@ -6,12 +6,15 @@ plus ``tools/serve_bundle.py``: compose an expt file over
 from the config's seed), cast to the serving dtype, and answer requests.
 A request is a dict of per-modality (b, T, F) feature tensors; the requests
 handed to one ``answer`` call are batched into one forward, and each gets
-back ``(values, indices)``, its clips' top-k scores over the action classes.
+back ``(values, indices)``, its clips' top-k scores over the action classes:
+(b, k) for the single-step models, (b, output_len, k) — every anticipated
+step — when ``model.common.fp_output_len`` > 1 (the KV-cache rollout).
 
 Usage:
   python -m afft_tpu_torch.serve -c expts/01_SA-Fuser_ek100_val_Swin.txt \
       [--batch 256] [--num-classes action:3806] [--dtype bfloat16|float32] \
-      [--topk 5] [--requests N] [--weights FILE] [--device cuda|cpu]
+      [--topk 5] [--requests N] [--weights FILE] [--device cuda|cpu] \
+      [--output-len N]
 
 Without ``--weights`` the model serves seeded random weights and says so.
 The default device is the card; without CUDA the command fails unless
@@ -69,6 +72,7 @@ class Server:
         self.topk = topk
         self.target = "action" if "action" in num_classes \
             else next(iter(num_classes))
+        self.output_len = int(cfg.model.common.get("fp_output_len") or 1)
         self.model, self.weights_source = build_model(
             cfg, num_classes, self.dtype, self.device, weights)
 
@@ -77,19 +81,25 @@ class Server:
                 for m, x in feats.items()}
 
     def head_logits(self, outputs):
-        """Model outputs -> fp32 (B, n_classes) next-action logits."""
+        """Model outputs -> fp32 logits: (B, n_classes) for single-step
+        serving, every anticipated step (B, output_len, n_classes) for a
+        multi-step rollout."""
         heads = outputs[f"logits/{self.target}"]
         modk = "all-fused" if "all-fused" in heads else next(iter(heads))
-        return heads[modk][:, 0, :].float()
+        logits = heads[modk]
+        if self.output_len == 1:
+            logits = logits[:, 0, :]
+        return logits.float()
 
     @torch.no_grad()
     def logits(self, feats):
-        """{mod: (B, T, F)} -> fp32 (B, n_classes) next-action logits."""
+        """{mod: (B, T, F)} -> fp32 logits, as ``head_logits``."""
         return self.head_logits(self.model(self.to_device(feats)))
 
     @torch.no_grad()
     def answer(self, requests):
-        """[{mod: (b_i, T, F)}] -> [(values (b_i, k), indices (b_i, k))]."""
+        """[{mod: (b_i, T, F)}] -> [(values, indices)], each (b_i, k), or
+        (b_i, output_len, k) for a multi-step rollout."""
         sizes = [len(next(iter(r.values()))) for r in requests]
         feats = {m: torch.cat([torch.as_tensor(r[m]) for r in requests])
                  for m in requests[0]}
@@ -126,9 +136,14 @@ def main(argv=None):
     ap.add_argument("--weights", default=None,
                     help="reference .pth checkpoint (default: seeded init)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--output-len", type=int, default=None,
+                    help="override model.common.fp_output_len (>1 serves "
+                         "the KV-cache multi-step rollout)")
     args = ap.parse_args(argv)
 
-    cfg = load_config(args.cfg)
+    cfg = load_config(args.cfg, [
+        f"model.common.fp_output_len={args.output_len}"]
+        if args.output_len else ())
     num_classes = {k: int(v) for k, v in
                    (kv.split(":") for kv in args.num_classes.split(","))}
     server = Server(cfg, num_classes, args.dtype, args.device, args.weights,
@@ -147,10 +162,11 @@ def main(argv=None):
     seconds = time.perf_counter() - t0
     print(json.dumps({
         "requests": len(answers), "clips": args.batch, "topk": args.topk,
+        "output_len": server.output_len,
         "device": str(server.device), "dtype": args.dtype,
         "weights": server.weights_source,
         "first_answer_s": seconds,
-        "top1_of_first_clip": int(answers[0][1][0, 0]),
+        "top1_of_first_clip": int(answers[0][1][0].flatten()[0]),
     }), flush=True)
 
 

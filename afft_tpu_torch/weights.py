@@ -77,6 +77,23 @@ def block_from_jax(p, prefix="") -> Dict[str, torch.Tensor]:
     return _tensors(out)
 
 
+def decoder_block_from_jax(p, prefix="") -> Dict[str, torch.Tensor]:
+    """One JAX decoder block (models.blocks.decoder_block_init) ->
+    DecoderBlock state dict."""
+    out = {}
+    _ln(out, _join(prefix, "norm_self"), p["norm_self"])
+    _lin(out, _join(prefix, "attn.qkv"), p["attn"]["qkv"])
+    _lin(out, _join(prefix, "attn.proj"), p["attn"]["proj"])
+    _ln(out, _join(prefix, "norm_q"), p["norm_q"])
+    _ln(out, _join(prefix, "norm_kv"), p["norm_kv"])
+    for k in ("w_q", "w_k", "w_v", "proj"):
+        _lin(out, _join(prefix, f"cross_attn.{k}"), p["cross_attn"][k])
+    _ln(out, _join(prefix, "norm_mlp"), p["norm_mlp"])
+    _lin(out, _join(prefix, "mlp.mlp.0"), p["mlp"]["fc1"])
+    _lin(out, _join(prefix, "mlp.mlp.2"), p["mlp"]["fc2"])
+    return _tensors(out)
+
+
 def gpt2_block_from_jax(p, n_head: int, prefix="") -> Dict[str, torch.Tensor]:
     """One JAX GPT-2 layer (heads-major c_attn) -> GPT2Block state dict."""
     out = {}
@@ -89,19 +106,28 @@ def gpt2_block_from_jax(p, n_head: int, prefix="") -> Dict[str, torch.Tensor]:
     return _tensors(out)
 
 
-def _fuser_from_jax(fuser, p, prefix):
-    from .models.fusion import ModalTokenCMFuser
-    if not isinstance(fuser, ModalTokenCMFuser):
+def fuser_from_jax(fuser, p, prefix="") -> Dict[str, torch.Tensor]:
+    """A JAX fuser's parameters -> the port fuser's state dict (after
+    torch_export.export_fuser)."""
+    from .models import fusion as F
+    if not isinstance(fuser, (F.ModalTokenCMFuser, F.CMFuser,
+                              F.TemporalCMFuser,
+                              F.TemporalCrossAttentFuser)):
         raise ValueError(f"fuser {type(fuser).__name__} is not ported")
+    decoder = isinstance(fuser, F.TemporalCrossAttentFuser)
     out = {}
     for i, blk in enumerate(p["blocks"]):
-        out.update(block_from_jax(blk, f"{prefix}.blocks.{i}"))
-    norm = {}
-    _ln(norm, f"{prefix}.norm", p["norm"])
-    norm[f"{prefix}.modal_token"] = _np(p["modal_token"])
-    if fuser.modal_encoding:
-        norm[f"{prefix}.modality_embedding"] = _np(p["modality_embedding"])
-    out.update(_tensors(norm))
+        convert = decoder_block_from_jax if decoder else block_from_jax
+        out.update(convert(blk, _join(prefix, f"blocks.{i}")))
+    rest = {}
+    _ln(rest, _join(prefix, "norm"), p["norm"])
+    if "position_embeddings" in p:
+        rest[_join(prefix, "position_embeddings.weight")] = _np(
+            p["position_embeddings"]["w"])
+    for name in ("modal_token", "modality_embedding"):
+        if name in p:
+            rest[_join(prefix, name)] = _np(p[name])
+    out.update(_tensors(rest))
     return out
 
 
@@ -132,7 +158,7 @@ def state_dict_from_jax(model, params) -> Dict[str, torch.Tensor]:
             _lin(flat, f"{pre}.mapping.{modk}.mapping.0", mp["fc"])
         if mapping.use_layernorm:
             _ln(flat, f"{pre}.mapping.{modk}.mapping.1", mp["ln"])
-    out.update(_fuser_from_jax(cmfp.fuser, p["fuser"], f"{pre}.fuser"))
+    out.update(fuser_from_jax(cmfp.fuser, p["fuser"], f"{pre}.fuser"))
     for name in ("dim_encoder", "dim_decoder"):
         if p[name] is not None:
             flat[f"{pre}.{name}.weight"] = _np(p[name]["w"]).T

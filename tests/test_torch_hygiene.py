@@ -47,7 +47,10 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_afft_tpu():
     files = _port_files()
-    assert len(files) > 15
+    assert len(files) > 17
+    names = {os.path.relpath(p, PKG) for p in files}
+    assert {"ops/attention.py", "ops/fused_seq_block.py",
+            "models/fusion.py", "models/predictor.py"} <= names
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "afft_tpu")]
@@ -119,7 +122,8 @@ def test_kernel_modules_import_without_nvcc():
            if k not in ("CUDA_HOME", "CUDA_PATH")}
     env["PATH"] = os.path.dirname(sys.executable)
     code = ("import afft_tpu_torch.ops.fused_block, "
-            "afft_tpu_torch.ops.fused_gpt2, sys; "
+            "afft_tpu_torch.ops.fused_gpt2, afft_tpu_torch.ops.attention, "
+            "afft_tpu_torch.ops.fused_seq_block, sys; "
             "assert 'triton' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -127,14 +131,18 @@ def test_kernel_modules_import_without_nvcc():
 
 
 def test_registry_resolves_ported_targets_only():
-    from afft_tpu_torch.models.fusion import ModalTokenCMFuser
-    assert resolve_target("models.fusion.ModalTokenCMFuser") is \
-        ModalTokenCMFuser
+    from afft_tpu_torch.models import fusion
+    for name in ("ModalTokenCMFuser", "CMFuser", "TemporalCMFuser",
+                 "TemporalCrossAttentFuser"):
+        assert resolve_target(f"models.fusion.{name}") is \
+            getattr(fusion, name)
     mapping = instantiate({"_target_": "models.feature_mapping.Linear",
                            "use_layernorm": False}, in_features=8,
                           out_features=8)
     assert mapping.identity
-    for target in ("models.fusion.CMFuser", "torch.optim.SGD",
+    for target in ("models.fusion.MATT",
+                   "models.future_prediction.CMFPScoreFusion",
+                   "models.feature_mapping.GatedLinear", "torch.optim.SGD",
                    "os.system"):
         with pytest.raises(ValueError, match=target.replace(".", r"\.")):
             resolve_target(target)
@@ -153,3 +161,49 @@ def test_flagship_builds_at_full_width():
     assert cmfp.future_predictor.n_head == 4
     assert cmfp.future_predictor.gpt_model.h[0].attn.c_attn.weight.shape \
         == (2048, 6144)
+
+
+@pytest.mark.parametrize("expt,fuser,blocks,n_params", [
+    ("02_SA-Fuser_wo_token_ek100_train.txt", "CMFuser", 6, 388.3e6),
+    ("03_T-SA-Fuser_ek100_train.txt", "TemporalCMFuser", 6, 388.4e6),
+    ("04_CA-Fuser_ek100_train.txt", "TemporalCrossAttentFuser", 3, 363.2e6)])
+def test_fuser_variants_build_at_full_width(expt, fuser, blocks, n_params):
+    """expts 02, 03 and 04 compose over the port's conf and build at full
+    width (on the meta device: no memory)."""
+    cfg = compose(CONF_DIR, read_expt_file(os.path.join(REPO, "expts", expt)))
+    with torch.device("meta"):
+        model = BaseModel(cfg.model, num_classes={"action": 3806})
+    got = model.future_predictor.fuser
+    assert type(got).__name__ == fuser and len(got.blocks) == blocks
+    assert got.num_heads == 4
+    total = sum(p.numel() for p in model.parameters())
+    assert abs(total - n_params) < 0.2e6, total
+
+
+def test_unported_parts_still_raise_naming_the_roadmap():
+    for expt in ("00_RGB_Swin_ek100_train.txt", "05_MATT_ek100_train.txt"):
+        cfg = compose(CONF_DIR,
+                      read_expt_file(os.path.join(REPO, "expts", expt)))
+        with pytest.raises(ValueError, match="not ported"):
+            BaseModel(cfg.model, num_classes={"action": 5})
+    with pytest.raises(ValueError, match=r"ROADMAP\.md"):
+        resolve_target("models.fusion.MATT")
+    cfg = serve.load_config(os.path.join(REPO, "expts",
+                                         "99_synth_smoke_val.txt"))
+    model = BaseModel(cfg.model, num_classes={"action": 5})
+    assert model.training
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
+        model({"rgb": torch.zeros(1, 4, 8)})
+
+
+def test_serve_cli_output_len_serves_the_rollout():
+    proc = subprocess.run(
+        [sys.executable, "-m", "afft_tpu_torch.serve", "-c",
+         "expts/99_synth_smoke_val.txt", "--device", "cpu", "--batch", "3",
+         "--requests", "1", "--dtype", "float32", "--num-classes",
+         "action:11", "--output-len", "3"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["output_len"] == 3 and summary["clips"] == 3
+    assert 0 <= summary["top1_of_first_clip"] < 11

@@ -5,19 +5,30 @@ inputs (``in::``) and outputs (``out::``). The ``sd::`` entries load into
 the port's modules with ``load_state_dict(strict=True)``, no adapter, and
 the outputs match at tests/test_parity.py's tolerance (atol 2e-5, rtol
 1e-5, fp32). Fuser stacks are checked twice: through the attention-weight
-module path, and through ``ops.fused_block`` (its plain version on CPU).
+module path, and through the ``ops`` kernels' wrappers (their plain
+versions on CPU). The predictor's rollout and attention-returning paths and
+the frame-level-token T-SA-Fuser, which no fixture covers, are held against
+the JAX package on the same weights.
 """
 
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from afft_tpu.models import fusion as JF
+from afft_tpu.models.predictor import BaseFuturePredictor as JaxPredictor
+from afft_tpu.train import torch_import as TI
+from afft_tpu_torch import weights as W
 from afft_tpu_torch.models.base_model import BaseModel
 from afft_tpu_torch.models.blocks import Block
 from afft_tpu_torch.models.cmfp import CMFPEarly
-from afft_tpu_torch.models.fusion import ModalTokenCMFuser
+from afft_tpu_torch.models.fusion import (CMFuser, ModalTokenCMFuser,
+                                          TemporalCMFuser,
+                                          TemporalCrossAttentFuser)
 from afft_tpu_torch.models.mapping import LinearMapping
 from afft_tpu_torch.models.predictor import BaseFuturePredictor
 
@@ -133,15 +144,122 @@ def test_fuser_modal_token(name):
 
 
 @torch.no_grad()
-def test_predictor():
+def test_fuser_cm():
+    sd, ins, outs = load_fixture("fuser_cm")
+    fuser = _load(CMFuser(dim=64, depth=2, num_heads=4), sd)
+    y, attn = fuser(_inputs(ins), MODS, need_weights=True)
+    _close(y, outs["y"], "fuser_cm.y")
+    _close(attn, outs["attn"], "fuser_cm.attn")
+    y2, none = fuser(_inputs(ins), MODS)
+    assert none is None
+    _close(y2, outs["y"], "fuser_cm.y via fused_block")
+
+
+@torch.no_grad()
+def test_fuser_temporal():
+    sd, ins, outs = load_fixture("fuser_temporal")
+    fuser = _load(TemporalCMFuser(dim=64, depth=2, num_heads=4,
+                                  modalities={m: 64 for m in MODS},
+                                  modal_encoding=True), sd)
+    y, attn = fuser(_inputs(ins), MODS, need_weights=True)
+    _close(y, outs["y"], "fuser_temporal.y")
+    _close(attn, outs["attn"], "fuser_temporal.attn")
+    y2, none = fuser(_inputs(ins), MODS)  # 18 tokens: fused_seq_block
+    assert none is None
+    _close(y2, outs["y"], "fuser_temporal.y via fused_seq_block")
+
+
+@torch.no_grad()
+def test_fuser_temporal_frame_level_token_matches_jax():
+    """No fixture has the frame-level tokens: the JAX fuser on the same
+    weights is the reference (token slots first, fused = the first T)."""
+    kwargs = dict(dim=64, depth=2, num_heads=4,
+                  modalities={m: 64 for m in MODS}, modal_encoding=True,
+                  frame_level_token=True, temporal_sequence_length=6)
+    jfuser = JF.TemporalCMFuser(**kwargs)
+    params = jfuser.init(jax.random.key(3))
+    fuser = TemporalCMFuser(**kwargs)
+    fuser.load_state_dict(W.fuser_from_jax(
+        fuser, jax.tree.map(np.asarray, params)), strict=True)
+    rng = np.random.default_rng(4)
+    feats = {m: rng.standard_normal((2, 6, 64)).astype(np.float32)
+             for m in MODS}
+    want, want_attn = jfuser.apply(
+        params, {m: jnp.asarray(v) for m, v in feats.items()}, MODS)
+    y, attn = fuser(_inputs(feats), MODS, need_weights=True)
+    _close(y, np.asarray(want), "frame-level token y")
+    _close(attn, np.asarray(want_attn), "frame-level token attn")
+    y2, _ = fuser(_inputs(feats), MODS)
+    _close(y2, np.asarray(want), "frame-level token y via fused_seq_block")
+    with pytest.raises(ValueError, match="frame-level tokens are 6"):
+        fuser({m: v[:, :5] for m, v in _inputs(feats).items()}, MODS)
+
+
+@torch.no_grad()
+def test_fuser_ca():
+    sd, ins, outs = load_fixture("fuser_ca")
+    fuser = _load(TemporalCrossAttentFuser(
+        dim=64, modalities={m: 64 for m in MODS}, num_heads=4), sd)
+    assert len(fuser.blocks) == len(MODS) - 1
+    y, dummy = fuser(_inputs(ins), MODS)
+    _close(y, outs["y"], "fuser_ca.y")
+    assert dummy.shape == (3,) and not dummy.any()
+    # the module path of the decoder blocks gives the same
+    x, *mems = [v + fuser.position_embeddings.weight[:6]
+                for v in _inputs(ins).values()]
+    mask = torch.triu(torch.full((6, 6), float("-inf")), 1)
+    for blk, mem in zip(fuser.blocks, mems):
+        x = blk(x, mem, mask)
+    _close(fuser.norm(x), outs["y"], "fuser_ca.y via DecoderBlock")
+
+
+def _predictor_pair(**kwargs):
+    """(the port's predictor, the JAX predictor, its params) on the
+    predictor fixture's weights."""
     sd, ins, outs = load_fixture("predictor")
     pred = _load(BaseFuturePredictor(in_features=64, inter_dim=64, n_layer=2,
-                                     n_head=2), sd)
-    y1, extra = pred(torch.from_numpy(ins["x"]), output_len=1)
+                                     n_head=2, **kwargs), sd)
+    jpred = JaxPredictor(in_features=64, inter_dim=64, n_layer=2, n_head=2,
+                         **kwargs)
+    return pred, jpred, TI.import_gpt2(sd, "", n_head=2), ins, outs
+
+
+@torch.no_grad()
+def test_predictor():
+    pred, jpred, jparams, ins, outs = _predictor_pair()
+    x = torch.from_numpy(ins["x"])
+    y1, extra = pred(x, output_len=1)
     _close(y1, outs["y1"], "predictor.len1")
     assert extra == {}
-    with pytest.raises(NotImplementedError, match="KV-cache"):
-        pred(torch.from_numpy(ins["x"]), output_len=3)
+    # the KV-cache rollout: against the reference, against the JAX
+    # package's rollout, and against the port's own full re-run
+    y3, extra = pred(x, output_len=3)
+    assert extra == {}
+    _close(y3, outs["y3"], "predictor.len3")
+    want, _ = jpred._apply_kv_cache(jparams, jnp.asarray(ins["x"]), 3)
+    _close(y3, np.asarray(want), "predictor.len3 vs _apply_kv_cache")
+    rerun, _ = pred._apply_full(x, 3)
+    _close(rerun, y3.numpy(), "rollout vs full re-run")
+    plain, _ = pred(x, output_len=3, impl="plain")
+    _close(plain, outs["y3"], "predictor.len3, impl=plain")
+
+
+@pytest.mark.parametrize("output_len", [1, 3])
+@torch.no_grad()
+def test_predictor_output_attentions(output_len):
+    pred, jpred, jparams, ins, _ = _predictor_pair(output_attentions=True)
+    T = ins["x"].shape[1]
+    want, want_extra = jpred.apply(jparams, jnp.asarray(ins["x"]),
+                                   output_len)
+    got, extra = pred(torch.from_numpy(ins["x"]), output_len=output_len)
+    _close(got, np.asarray(want), "hidden")
+    assert set(extra) == {f"gpt2_att_{i}" for i in range(output_len)}
+    for i in range(output_len):
+        key = f"gpt2_att_{i}"
+        assert extra[key].shape == (3, 2, 2, T if i == 0 else 1, T + i)
+        _close(extra[key], np.asarray(want_extra[key]), key)
+    with pytest.raises(TypeError, match="must be a bool"):
+        BaseFuturePredictor(in_features=64, output_attentions="false")
 
 
 @torch.no_grad()
