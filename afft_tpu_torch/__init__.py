@@ -2,8 +2,10 @@
 
 A package of its own beside the JAX one: it imports torch, numpy and yaml,
 never jax and nothing of afft_tpu. Plain tensor code is PyTorch; the TPU
-kernels of the serving path are hand-written CUDA kernels for Hopper
-(``afft_tpu_torch/csrc``, bound in ``afft_tpu_torch/ops``).
+kernels of the serving path and of the fuser block's training are
+hand-written CUDA kernels for Hopper (``afft_tpu_torch/csrc``, bound in
+``afft_tpu_torch/ops``). ``serve.Server`` answers requests;
+``train.runner.Runner`` takes training and eval steps.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``resolve_device`` raises instead of falling back quietly.

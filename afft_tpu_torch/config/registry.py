@@ -3,8 +3,8 @@
 The conf tree and the expt files name components by the reference's
 ``_target_`` strings (``models.fusion.ModalTokenCMFuser``,
 ``torch.nn.Identity``, ...). The port resolves them through its own alias
-table to its own classes. The table holds only what the ported serving
-paths build; any other target raises ``ValueError`` naming it.
+table to its own classes. The table holds only what the ported serving and
+training paths build; any other target raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -30,6 +30,20 @@ _ALIASES: Dict[str, str] = {
     "models.feature_mapping.Linear":
         "afft_tpu_torch.models.mapping:LinearMapping",
     "torch.nn.Identity": "afft_tpu_torch.models.backbones:Identity",
+    # optimizers and schedulers (the opt config groups)
+    "torch.optim.SGD": "afft_tpu_torch.train.optim:sgd",
+    "torch.optim.Adam": "afft_tpu_torch.train.optim:adam",
+    "torch.optim.AdamW": "afft_tpu_torch.train.optim:adamw",
+    "common.scheduler.CosineLR": "afft_tpu_torch.train.optim:cosine_schedule",
+    "common.scheduler.WarmupMultiStepLR":
+        "afft_tpu_torch.train.optim:multistep_schedule",
+    "common.scheduler.Warmup": "afft_tpu_torch.train.optim:warmup_wrap",
+    "torch.optim.lr_scheduler.MultiStepLR":
+        "afft_tpu_torch.train.optim:multistep_schedule",
+    "common.scheduler.ReduceLROnPlateau":
+        "afft_tpu_torch.train.optim:plateau_schedule",
+    "torch.optim.lr_scheduler.ReduceLROnPlateau":
+        "afft_tpu_torch.train.optim:plateau_schedule",
 }
 
 

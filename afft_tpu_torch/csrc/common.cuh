@@ -1,7 +1,8 @@
-// Shared device code for the serving kernels of afft_tpu_torch.
+// Shared device code for the kernels of afft_tpu_torch.
 //
-// Every port entry (fused_block.cu, fused_gpt2.cu, attention.cu, seq_block.cu)
-// is a short sequence of launches on one stream, built from the pieces below:
+// Every port entry (fused_block.cu, fused_gpt2.cu, attention.cu, seq_block.cu,
+// fused_block_train.cu) is a short sequence of launches on one stream, built
+// from the pieces below:
 //   * layernorm_rows: one warp per row, fp32 statistics, output in the
 //     working dtype (the rounding the TPU kernels apply before each matmul);
 //   * gemm_bf16 / gemm_f32: C[M,N] = A[M,K] . W + bias with a fused
@@ -12,6 +13,17 @@
 //     (sequence, head) and one warp per query token;
 //   * strided_attention: softmax attention of Nq queries over Nk <= 1024 keys
 //     with q, k and v given as separate strided tensors, one warp per query.
+// and, for the training kernels:
+//   * drop_scale: the dropout multiplier (0 or 1/keep) of one logical element,
+//     from a counter-based Philox4x32-10 draw computed in registers, so the
+//     forward and the backward regenerate the same mask with none in memory;
+//   * gemm_tn: C[I,J] = A[K,I]^T . B[K,J] in fp32, for the weight gradients
+//     (a reduction over the K = R*N rows of two activation matrices);
+//   * epilogues with dropout and drop-path (EPI_RES_DROP), with the stashed
+//     pre-activation (EPI_PRE_GELU) and with the GELU derivative
+//     (EPI_GELU_BWD);
+//   * column sums over rows in two deterministic stages (bias and LayerNorm
+//     affine gradients) and the LayerNorm backward over rows.
 //
 // The bf16 GEMM runs on the tensor cores through nvcuda::wmma (16x16x16,
 // fp32 accumulation) with 128x128x32 shared-memory tiles, double-buffered by
@@ -103,6 +115,57 @@ static void launch_layernorm(const TIn* x, const TOut* g, const TOut* b,
 }
 
 // ---------------------------------------------------------------------------
+// Dropout masks: a pure function of (two seed words, block index, site,
+// logical element index). Philox4x32-10 with key (seed0, seed1) and counter
+// (index low, index high, block, site); the first output word's top 24 bits
+// are the uniform draw, kept when below the 24-bit threshold. thr = 2^24
+// (rate 0) keeps everything without drawing.
+// ---------------------------------------------------------------------------
+
+struct DropSite {
+  unsigned seed0, seed1, block, site;
+  unsigned thr;  // keep iff (draw >> 8) < thr
+  float inv;     // 1 / keep, the scale of a kept element
+};
+
+constexpr unsigned DROP_KEEP_ALL = 1u << 24;
+
+__device__ __forceinline__ unsigned philox_word0(unsigned k0, unsigned k1,
+                                                 unsigned c0, unsigned c1,
+                                                 unsigned c2, unsigned c3) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+__device__ __forceinline__ float drop_scale(const DropSite& d,
+                                            unsigned long long idx) {
+  if (d.thr >= DROP_KEEP_ALL) return d.inv;
+  const unsigned w = philox_word0(d.seed0, d.seed1, (unsigned)idx,
+                                  (unsigned)(idx >> 32), d.block, d.site);
+  return (w >> 8) < d.thr ? d.inv : 0.f;
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// d/dv [0.5 v (1 + erf(v / sqrt 2))]
+__device__ __forceinline__ float gelu_erf_grad(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * 0.3989422804014327f * expf(-0.5f * v * v);
+}
+
+// ---------------------------------------------------------------------------
 // GEMM epilogues
 // ---------------------------------------------------------------------------
 
@@ -111,12 +174,24 @@ enum Epi {
   EPI_BIAS_RES = 1,    // out = res + (acc + bias)
   EPI_GELU_ERF = 2,    // out = gelu_exact(acc + bias)
   EPI_GELU_TANH = 3,   // out = gelu_new(acc + bias)
+  // training: out = res + row_drop[row / tokens] * (drop[row, col] * (acc +
+  // bias)), also written to out2 in the working dtype when out2 is given
+  EPI_RES_DROP = 4,
+  // training: out2 = acc + bias (the stashed pre-activation, rounded to the
+  // working dtype), out = gelu_exact(acc + bias)
+  EPI_PRE_GELU = 5,
+  // backward: out = acc * gelu_exact'(res), res the stashed pre-activation
+  EPI_GELU_BWD = 6,
 };
 
 struct EpiArgs {
   const void* bias;  // (N,) in the working dtype, or null
-  const void* res;   // (M, N) residual, EPI_BIAS_RES only
+  const void* res;   // (M, N) residual or stashed pre-activation
   void* out;         // (M, N)
+  void* out2;        // (M, N) second output in the working dtype, or null
+  DropSite drop;     // per-element dropout, EPI_RES_DROP only
+  DropSite row_drop; // drop-path of row / tokens, EPI_RES_DROP only
+  int tokens;        // rows of the GEMM per drop-path row
 };
 
 template <typename T, int EPI, typename TRes, typename TOut>
@@ -125,15 +200,26 @@ __device__ __forceinline__ void epilogue(const EpiArgs& ea, int M, int N,
   if (row >= M || col >= N) return;
   float v = acc;
   if (ea.bias != nullptr) v += to_f32(static_cast<const T*>(ea.bias)[col]);
+  const size_t at = (size_t)row * N + col;
   if (EPI == EPI_GELU_ERF) {
-    v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    v = gelu_erf(v);
+  } else if (EPI == EPI_PRE_GELU) {
+    static_cast<T*>(ea.out2)[at] = from_f32<T>(v);
+    v = gelu_erf(v);
+  } else if (EPI == EPI_GELU_BWD) {
+    v *= gelu_erf_grad(to_f32(static_cast<const TRes*>(ea.res)[at]));
+  } else if (EPI == EPI_RES_DROP) {
+    v *= drop_scale(ea.drop, at);
+    v *= drop_scale(ea.row_drop, (unsigned long long)(row / ea.tokens));
+    v = to_f32(static_cast<const TRes*>(ea.res)[at]) + v;
+    if (ea.out2 != nullptr) static_cast<T*>(ea.out2)[at] = from_f32<T>(v);
   } else if (EPI == EPI_GELU_TANH) {
     v = 0.5f * v *
         (1.f + tanhf(0.79788456080286536f * (v + 0.044715f * v * v * v)));
   } else if (EPI == EPI_BIAS_RES) {
-    v = to_f32(static_cast<const TRes*>(ea.res)[(size_t)row * N + col]) + v;
+    v = to_f32(static_cast<const TRes*>(ea.res)[at]) + v;
   }
-  static_cast<TOut*>(ea.out)[(size_t)row * N + col] = from_f32<TOut>(v);
+  static_cast<TOut*>(ea.out)[at] = from_f32<TOut>(v);
 }
 
 // ---------------------------------------------------------------------------
@@ -357,6 +443,321 @@ static void launch_gemm(const bf16* A, const bf16* W, int M, int N, int K,
   dim3 grid(cdiv(N, GB_N), cdiv(M, GB_M));
   gemm_bf16<EPI, B_KN, TRes, TOut><<<grid, GB_THREADS, 0, stream>>>(A, W, M,
                                                                     N, K, ea);
+}
+
+// ---------------------------------------------------------------------------
+// Weight-gradient GEMM: out[I,J] = A^T . B for A (K, I) and B (K, J), both
+// row-major, reduced over the K rows; fp32 output, no epilogue. The bf16
+// version is the tensor-core kernel above with both operands staged as
+// (k, column) tiles (A read as a column-major fragment); the fp32 version is
+// plain FMA. Requires I % 8 == 0, J % 8 == 0 (bf16) and 16-byte aligned
+// operands. One block per 128x128 (64x64) output tile walks all of K: the
+// sum has a fixed order, so the result is the same from run to run. (Not
+// templates, so static: every .cu that includes this header gets its own.)
+// ---------------------------------------------------------------------------
+
+static __global__ void __launch_bounds__(GB_THREADS)
+gemm_tn_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
+             float* __restrict__ out, int I, int J, int K) {
+  using namespace nvcuda;
+  __shared__ __align__(128) unsigned char smem[4 * GB_B_TILE_KN * 2];
+  static_assert(8 * 256 * 4 <= 4 * GB_B_TILE_KN * 2, "epilogue staging fits");
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + 2 * GB_B_TILE_KN;
+  constexpr int LD = GB_N + GB_PAD;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int warp_m = warp >> 2, warp_n = warp & 3;  // 2 x 4 warps
+  const int i0 = blockIdx.y * GB_M, j0 = blockIdx.x * GB_N;
+
+  auto load_tile = [&](int kt, int stage) {
+    const int k0 = kt * GB_K;
+    bf16* as = As + stage * GB_B_TILE_KN;
+    bf16* bs = Bs + stage * GB_B_TILE_KN;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int c = tid + t * GB_THREADS;  // 32 k-rows x 16 chunks of 8
+      const int r = c >> 4, nc = (c & 15) * 8;
+      const int gk = k0 + r;
+      const bool oka = gk < K && i0 + nc < I;
+      cp_async16(as + r * LD + nc, oka ? A + (size_t)gk * I + i0 + nc : A,
+                 oka);
+      const bool okb = gk < K && j0 + nc < J;
+      cp_async16(bs + r * LD + nc, okb ? B + (size_t)gk * J + j0 + nc : B,
+                 okb);
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  const int nk = (K + GB_K - 1) / GB_K;
+  load_tile(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load_tile(kt + 1, (kt + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* as = As + (kt & 1) * GB_B_TILE_KN;
+    const bf16* bs = Bs + (kt & 1) * GB_B_TILE_KN;
+#pragma unroll
+    for (int kk = 0; kk < GB_K; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(fa[i], as + kk * LD + warp_m * 64 + i * 16,
+                               LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], bs + kk * LD + warp_n * 32 + j * 16,
+                               LD);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float* stg = reinterpret_cast<float*>(smem) + warp * 256;
+  const int r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(stg, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int row = i0 + warp_m * 64 + i * 16 + r;
+      const int col = j0 + warp_n * 32 + j * 16 + c0;
+      if (row < I) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (col + e < J) out[(size_t)row * J + col + e] = stg[r * 16 + c0 + e];
+      }
+      __syncwarp();
+    }
+}
+
+static __global__ void __launch_bounds__(GF_THREADS)
+gemm_tn_f32(const float* __restrict__ A, const float* __restrict__ B,
+            float* __restrict__ out, int I, int J, int K) {
+  __shared__ float As[GF_K][GF_M];
+  __shared__ float Bs[GF_K][GF_N];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int i0 = blockIdx.y * GF_M, j0 = blockIdx.x * GF_N;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += GF_K) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int e = tid + t * GF_THREADS;
+      const int k = e >> 6, c = e & 63;
+      const int gk = k0 + k;
+      As[k][c] = (gk < K && i0 + c < I) ? A[(size_t)gk * I + i0 + c] : 0.f;
+      Bs[k][c] = (gk < K && j0 + c < J) ? B[(size_t)gk * J + j0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GF_K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = i0 + ty + 16 * i, col = j0 + tx + 16 * j;
+      if (row < I && col < J) out[(size_t)row * J + col] = acc[i][j];
+    }
+}
+
+static void launch_gemm_tn(const float* A, const float* B, float* out, int I,
+                           int J, int K, cudaStream_t stream) {
+  dim3 grid(cdiv(J, GF_N), cdiv(I, GF_M));
+  gemm_tn_f32<<<grid, GF_THREADS, 0, stream>>>(A, B, out, I, J, K);
+}
+
+static void launch_gemm_tn(const bf16* A, const bf16* B, float* out, int I,
+                           int J, int K, cudaStream_t stream) {
+  dim3 grid(cdiv(J, GB_N), cdiv(I, GB_M));
+  gemm_tn_bf16<<<grid, GB_THREADS, 0, stream>>>(A, B, out, I, J, K);
+}
+
+// ---------------------------------------------------------------------------
+// Column sums over M rows in two stages, both in a fixed order (no atomics:
+// the same bits from run to run). Stage 1: block (32 columns x 8 row lanes)
+// sums one slice of rows into partial[slice, column]; stage 2 adds the
+// slices. colsum: out[c] = sum_m a[m, c]. ln_colsum: with the rows'
+// LayerNorm statistics, out[0, c] = sum_m d[m, c] * xhat[m, c] (the gain's
+// gradient) and out[1, c] = sum_m d[m, c] (the bias's).
+// ---------------------------------------------------------------------------
+
+constexpr int CS_SLICES = 128;  // most slices; partial holds 2 * 128 * C
+
+static inline int colsum_slices(int M) {
+  const int n = cdiv(M, 32);
+  return n < CS_SLICES ? n : CS_SLICES;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+colsum_partial(const T* __restrict__ a, float* __restrict__ partial, int M,
+               int C, int rows_per_slice) {
+  __shared__ float red[8][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * 32 + tx;
+  const int m0 = blockIdx.y * rows_per_slice;
+  const int m1 = min(M, m0 + rows_per_slice);
+  float acc = 0.f;
+  if (c < C)
+    for (int m = m0 + ty; m < m1; m += 8) acc += to_f32(a[(size_t)m * C + c]);
+  red[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += red[i][tx];
+    partial[(size_t)blockIdx.y * C + c] = s;
+  }
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(256)
+ln_colsum_partial(const float* __restrict__ d, const TX* __restrict__ x,
+                  const float* __restrict__ mu, const float* __restrict__ rstd,
+                  float* __restrict__ partial, int M, int C,
+                  int rows_per_slice, int slices) {
+  __shared__ float red_g[8][33];
+  __shared__ float red_b[8][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * 32 + tx;
+  const int m0 = blockIdx.y * rows_per_slice;
+  const int m1 = min(M, m0 + rows_per_slice);
+  float ag = 0.f, ab = 0.f;
+  if (c < C)
+    for (int m = m0 + ty; m < m1; m += 8) {
+      const float dv = d[(size_t)m * C + c];
+      ag += dv * ((to_f32(x[(size_t)m * C + c]) - mu[m]) * rstd[m]);
+      ab += dv;
+    }
+  red_g[ty][tx] = ag;
+  red_b[ty][tx] = ab;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    float sg = 0.f, sb = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sg += red_g[i][tx];
+      sb += red_b[i][tx];
+    }
+    partial[(size_t)blockIdx.y * C + c] = sg;
+    partial[((size_t)slices + blockIdx.y) * C + c] = sb;
+  }
+}
+
+// out[o * C + c] = sum over the slices of partial[(o * slices + s) * C + c]
+static __global__ void colsum_final(const float* __restrict__ partial,
+                             float* __restrict__ out0, float* __restrict__ out1,
+                             int slices, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float* out = blockIdx.y == 0 ? out0 : out1;
+  const float* p = partial + (size_t)blockIdx.y * slices * C;
+  float s = 0.f;
+  for (int i = 0; i < slices; ++i) s += p[(size_t)i * C + c];
+  out[c] = s;
+}
+
+template <typename T>
+static void launch_colsum(const T* a, float* partial, float* out, int M, int C,
+                          cudaStream_t stream) {
+  const int slices = colsum_slices(M);
+  const int rows = cdiv(M, slices);
+  colsum_partial<T><<<dim3(cdiv(C, 32), slices), dim3(32, 8), 0, stream>>>(
+      a, partial, M, C, rows);
+  colsum_final<<<dim3(cdiv(C, 128), 1), 128, 0, stream>>>(partial, out, out,
+                                                         slices, C);
+}
+
+template <typename TX>
+static void launch_ln_colsum(const float* d, const TX* x, const float* mu,
+                             const float* rstd, float* partial, float* dgain,
+                             float* dbias, int M, int C, cudaStream_t stream) {
+  const int slices = colsum_slices(M);
+  const int rows = cdiv(M, slices);
+  ln_colsum_partial<TX><<<dim3(cdiv(C, 32), slices), dim3(32, 8), 0, stream>>>(
+      d, x, mu, rstd, partial, M, C, rows, slices);
+  colsum_final<<<dim3(cdiv(C, 128), 2), 128, 0, stream>>>(partial, dgain,
+                                                         dbias, slices, C);
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm backward over rows, the statistics recomputed from the stashed
+// input x: with dxhat = d * gain,
+//   dx = add + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
+// add being the gradient that reaches x through the residual. One warp per
+// row; the row's mean and rstd are kept for ln_colsum.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(LN_ROWS * 32)
+layernorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ d,
+                   const T* __restrict__ gain, const T* __restrict__ add,
+                   T* __restrict__ dx, float* __restrict__ mu_out,
+                   float* __restrict__ rstd_out, int M, int C, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * LN_ROWS + warp;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * C;
+  const float* dr = d + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f32(xr[c]);
+  const float mu = warp_sum(s) / (float)C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float t = to_f32(xr[c]) - mu;
+    v += t * t;
+  }
+  const float rs = rsqrtf(warp_sum(v) / (float)C + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dxh = dr[c] * (gain != nullptr ? to_f32(gain[c]) : 1.f);
+    s1 += dxh;
+    s2 += dxh * ((to_f32(xr[c]) - mu) * rs);
+  }
+  const float m1 = warp_sum(s1) / (float)C, m2 = warp_sum(s2) / (float)C;
+  const T* ar = add + (size_t)row * C;
+  T* or_ = dx + (size_t)row * C;
+  for (int c = lane; c < C; c += 32) {
+    const float dxh = dr[c] * (gain != nullptr ? to_f32(gain[c]) : 1.f);
+    const float xh = (to_f32(xr[c]) - mu) * rs;
+    or_[c] = from_f32<T>(to_f32(ar[c]) + rs * (dxh - m1 - xh * m2));
+  }
+  if (lane == 0) {
+    mu_out[row] = mu;
+    rstd_out[row] = rs;
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@ Port of afft_tpu/models/base_model.py (reference models/base_model.py
 BaseModel :15-119): backbones (identity over pre-extracted features),
 (B, T, F) feature extraction from video-shaped inputs, and the multi-crop
 merge, which averages every output over the crops. The verb/noun <-> action
-mapping matrices are buffers named ``cls_map_<src>_<dst>``. The forward is
-the inference path.
+mapping matrices are buffers named ``cls_map_<src>_<dst>``. ``forward`` is
+the inference path in eval mode; ``forward_train`` adds what a training
+step needs: the targets, the feature-space mixup hook and the step's
+generator, and returns the outputs beside the (possibly mixed) targets.
 """
 
 from __future__ import annotations
@@ -49,23 +51,40 @@ class BaseModel(nn.Module):
         feats = feats.permute(0, 1, 3, 2)        # (B, clips, T', C)
         return feats.reshape(feats.shape[0], -1, feats.shape[-1])
 
-    def forward_singlecrop(self, data_dict, *, impl="kernel"):
+    def forward_singlecrop(self, data_dict, *, target=None,
+                           target_subclips=None,
+                           target_subclips_ignore_index=None, mixup_fn=None,
+                           impl="kernel", rng=None):
+        """One crop -> (outputs, targets): ``mixup_fn`` mixes the backbone
+        features and turns the targets into soft ones
+        (afft_tpu/models/base_model.py:70-94)."""
         feats_past = {}
         for mod, data in data_dict.items():
             if mod in self.backbones:
                 data = self.backbones[mod](data)
             feats_past[mod] = self._features_from_video(data)
-        return self.future_predictor(feats_past, impl=impl)
+        if mixup_fn is not None:
+            feats_past, target, target_subclips, \
+                target_subclips_ignore_index = mixup_fn(
+                    feats_past, target, target_subclips)
+        outputs = self.future_predictor(feats_past, impl=impl, rng=rng)
+        return outputs, {
+            "target": target, "target_subclips": target_subclips,
+            "target_subclips_ignore_index": target_subclips_ignore_index}
 
-    def forward(self, video_data: Dict, *, impl="kernel"):
+    def forward(self, video_data: Dict, *, impl="kernel", rng=None):
         """video_data: {mod: (B,T,F) | (B,clips,C,T,H,W) |
-        (B,clips,crops,C,T,H,W)}; crops are forwarded one by one and their
-        outputs averaged (reference models/base_model.py:68-119)."""
-        if self.training:
-            raise NotImplementedError(
-                "training mode (dropout, drop-path, the backward kernels) "
-                "is not ported yet (ROADMAP.md §A.7, §B.3, §B.4): call "
-                ".eval() to run the inference path")
+        (B,clips,crops,C,T,H,W)} -> the output dictionary; crops are
+        forwarded one by one and their outputs averaged (reference
+        models/base_model.py:68-119)."""
+        return self.forward_train(video_data, impl=impl, rng=rng)[0]
+
+    def forward_train(self, video_data: Dict, *, target=None,
+                      target_subclips=None,
+                      target_subclips_ignore_index=None, mixup_fn=None,
+                      impl="kernel", rng=None):
+        """As ``forward``, with the targets and the mixup hook; returns
+        (outputs, targets as the first crop left them)."""
         per_mod_crops = {}
         for mod, data in video_data.items():
             if data.dim() in (3, 6):
@@ -76,11 +95,16 @@ class BaseModel(nn.Module):
                 raise NotImplementedError(f"Unsupported size {data.shape}")
         all_mods = sorted(per_mod_crops)
         num_crops = max(len(per_mod_crops[m]) for m in all_mods)
-        outs = [self.forward_singlecrop(
+        crops = [self.forward_singlecrop(
             {m: per_mod_crops[m][ci % len(per_mod_crops[m])]
-             for m in all_mods}, impl=impl) for ci in range(num_crops)]
+             for m in all_mods}, target=target,
+            target_subclips=target_subclips,
+            target_subclips_ignore_index=target_subclips_ignore_index,
+            mixup_fn=mixup_fn, impl=impl, rng=rng)
+            for ci in range(num_crops)]
+        outs, targets = [c[0] for c in crops], crops[0][1]
         if num_crops == 1:
-            return outs[0]
+            return outs[0], targets
         merged = {}
         for key in outs[0]:
             if key == "attentions":  # crop 0's, as the reference
@@ -88,4 +112,4 @@ class BaseModel(nn.Module):
                 continue
             merged[key] = {k: torch.stack([o[key][k] for o in outs]).mean(0)
                            for k in outs[0][key]}
-        return merged
+        return merged, targets

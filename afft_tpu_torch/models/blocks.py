@@ -1,4 +1,4 @@
-"""Eval-mode transformer primitives of the fusers: Attention, MLP, Block,
+"""Transformer primitives of the fusers: Attention, MLP, Block,
 DecoderBlock.
 
 Port of afft_tpu/models/blocks.py (attention_apply, mlp_apply, block_apply,
@@ -12,7 +12,13 @@ attention weights; when none are asked for, the fusers send their blocks
 through ``ops.fused_block`` and ``ops.fused_seq_block`` instead.
 ``DecoderBlock.forward`` returns no weights and is ``ops.fused_decoder_block``
 on the module's own parameters: one arithmetic for the module and the
-CA-Fuser. Dropout and drop-path are training-time only and not ported yet.
+CA-Fuser. In training mode ``Block.forward`` is the plain path of
+``block_apply(train=True)`` (dropout on the attention weights, on the proj and
+MLP outputs, drop-path on both branches, masks drawn by PyTorch from the
+step's ``RngStream``); the fusers take it when attention weights are asked
+for, and otherwise train through ``ops.fused_block_train``. The DecoderBlock
+has no training path (no dropout, no backward kernel): the CA-Fuser raises
+in training mode.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, mask=None):
-        """x (B, N, C) -> (out (B, N, C), weights (B, H, N, N))."""
+    def forward(self, x, mask=None, *, attn_drop=0.0, proj_drop=0.0,
+                rng=None):
+        """x (B, N, C) -> (out (B, N, C), weights (B, H, N, N)); in training
+        mode the weights are returned after their dropout."""
         B, N, C = x.shape
         hd = C // self.num_heads
         q, k, v = (self.qkv(x).reshape(B, N, 3, self.num_heads, hd)
@@ -41,9 +49,9 @@ class Attention(nn.Module):
         attn = (q @ k.transpose(-2, -1)) * (hd ** -0.5)
         if mask is not None:
             attn = attn + mask
-        attn = attn.softmax(dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(B, N, C)
-        return self.proj(out), attn
+        attn = L.dropout(attn.softmax(dim=-1), attn_drop, self.training, rng)
+        out = (attn.to(v.dtype) @ v).transpose(1, 2).reshape(B, N, C)
+        return L.dropout(self.proj(out), proj_drop, self.training, rng), attn
 
 
 class MLP(nn.Module):
@@ -63,8 +71,10 @@ class Block(nn.Module):
     """Pre-LN block: x + attn(LN(x)); x + mlp(LN(x))."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
-                 norm_affine=True, norm_eps=1e-6):
+                 norm_affine=True, norm_eps=1e-6, drop=0.0, attn_drop=0.0,
+                 drop_path=0.0):
         super().__init__()
+        self.drop, self.attn_drop, self.drop_path = drop, attn_drop, drop_path
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps,
                                   elementwise_affine=norm_affine)
         self.attn = Attention(dim, num_heads, qkv_bias)
@@ -80,11 +90,17 @@ class Block(nn.Module):
         L.init_layer_norm(self.norm1)
         L.init_layer_norm(self.norm2)
 
-    def forward(self, x, mask=None):
-        """x (B, N, C) -> (x, attention weights (B, H, N, N))."""
-        attn_out, weights = self.attn(self.norm1(x), mask)
-        x = x + attn_out
-        x = x + self.mlp(self.norm2(x))
+    def forward(self, x, mask=None, *, rng=None):
+        """x (B, N, C) -> (x, attention weights (B, H, N, N)). The single
+        MLP dropout follows fc2 (reference models/transformerblock.py
+        :84-89)."""
+        train = self.training
+        attn_out, weights = self.attn(self.norm1(x), mask,
+                                      attn_drop=self.attn_drop,
+                                      proj_drop=self.drop, rng=rng)
+        x = x + L.drop_path(attn_out, self.drop_path, train, rng)
+        mlp_out = L.dropout(self.mlp(self.norm2(x)), self.drop, train, rng)
+        x = x + L.drop_path(mlp_out, self.drop_path, train, rng)
         return x, weights
 
 

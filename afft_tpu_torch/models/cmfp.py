@@ -43,6 +43,7 @@ class CMFPEarly(nn.Module):
         self.fp_output_len = common["fp_output_len"]
         self.modality_dims = dict(model_cfg["modal_dims"].items())
         self.modal_feature_order = list(model_cfg["modal_feature_order"])
+        self.dropout_rate = model_cfg["dropout"]
         self.modality_cls = common["modality_cls"]
         self.fusion_cls = common["fusion_cls"]
         if not (self.modality_cls or self.fusion_cls):
@@ -67,8 +68,9 @@ class CMFPEarly(nn.Module):
             if self.fusion_cls:
                 heads.append("all-fused")
             self.classifier_keys[cls_type] = heads
-            # reference Sequential(Dropout, Linear): the dropout is
-            # training-time only, the Linear keeps the index ".1"
+            # reference Sequential(Dropout, Linear): the Linear keeps the
+            # index ".1"; the dropout (model.dropout) is applied in
+            # apply_classifier from the step's generator
             shared = nn.Sequential(nn.Identity(),
                                    nn.Linear(self.latent_dim, cls_dim))
             classifiers[cls_type] = nn.ModuleDict({h: shared for h in heads})
@@ -86,11 +88,13 @@ class CMFPEarly(nn.Module):
             heads = self.classifiers[cls_type]
             L.init_torch_linear(heads[next(iter(heads))][1], gen)
 
-    def apply_classifier(self, input_feat: Dict, outputs_prefix=""):
+    def apply_classifier(self, input_feat: Dict, outputs_prefix="",
+                         rng=None):
         out = {}
         for cls_type in self.num_classes:
             out[f"{outputs_prefix}logits/{cls_type}"] = {
-                headk: self.classifiers[cls_type][headk](input_feat[headk])
+                headk: self.classifiers[cls_type][headk](L.dropout(
+                    input_feat[headk], self.dropout_rate, self.training, rng))
                 for headk in self.classifier_keys[cls_type]
                 if headk in input_feat}
         return out
@@ -110,21 +114,22 @@ class CMFPEarly(nn.Module):
             out["all-fused"][modk] = out["all-fused"][modk][:, T - 1:]
         return out
 
-    def forward(self, feats: Dict, *, impl="kernel"):
+    def forward(self, feats: Dict, *, impl="kernel", rng=None):
+        """``rng``: the step's ``layers.RngStream`` (training mode only)."""
         order = [m for m in self.modal_feature_order if m in feats]
         x_hat = {m: self.mapping[m](x) for m, x in feats.items()}
-        z, modality_attns = self.fuser(x_hat, order, impl=impl)
+        z, modality_attns = self.fuser(x_hat, order, impl=impl, rng=rng)
         z_enc = z if self.dim_encoder is None else self.dim_encoder(z)
         z_hat_enc, temporal_attns = self.future_predictor(
-            z_enc, self.fp_output_len, impl=impl)
+            z_enc, self.fp_output_len, impl=impl, rng=rng)
         z_hat = (z_hat_enc if self.dim_decoder is None
                  else self.dim_decoder(z_hat_enc))
 
         out = self.prepare_output({"all-fused": z}, {"all-fused": z_hat},
                                   {"all-fused": z})
         out.update(self.apply_classifier(out["past_futures"],
-                                         PAST_LOGITS_PREFIX))
-        out.update(self.apply_classifier(out["future"]))
+                                         PAST_LOGITS_PREFIX, rng))
+        out.update(self.apply_classifier(out["future"], rng=rng))
         out["attentions"] = {"all-fused": {"modality_attns": modality_attns,
                                            "temporal_attns": temporal_attns}}
         return out

@@ -16,6 +16,15 @@ Without attention weights, each block of a stack runs as a kernel of
 ``ops`` (the CUDA kernel on a CUDA tensor, its plain version on a CPU
 tensor): ``fused_block`` for up to 8 tokens a row, ``fused_seq_block``
 for longer sequences, ``fused_decoder_block`` for the CA-Fuser.
+
+In training mode the per-timestep fusers (``ModalTokenCMFuser``,
+``CMFuser``) send each block through ``ops.fused_block_train`` (forward and
+backward CUDA kernels under autograd; its plain version on a CPU tensor):
+one pair of seed words per stack call, the block's position as its block
+index, the drop-path rate rising linearly over the stack, the final norm
+outside (afft_tpu/models/fusion.py:65-90). With attention weights asked
+for, the blocks run as modules. Training the T-SA-Fuser and the CA-Fuser is
+not ported (ROADMAP.md §A.9) and raises.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch.nn as nn
 from . import layers as L
 from .blocks import Block, DecoderBlock
 from ..ops import fused_block as FB
+from ..ops import fused_block_train as FT
 from ..ops import fused_seq_block as FS
 
 IMPLS = ("kernel", "plain")
@@ -40,13 +50,18 @@ class _BlockStack(nn.Module):
     """A depth-N stack of pre-LN blocks plus the final norm."""
 
     def __init__(self, dim, depth, num_heads, mlp_ratio=4.0, qkv_bias=False,
-                 norm_affine=True, norm_eps=1e-6):
+                 norm_affine=True, norm_eps=1e-6, drop_rate=0.0,
+                 attn_drop_rate=0.0, drop_path_rate=0.0):
         super().__init__()
         self.num_heads = num_heads
         self.norm_eps = norm_eps
+        self.drop_rate = drop_rate
+        self.attn_drop_rate = attn_drop_rate
+        self.dpr = L.drop_path_schedule(drop_path_rate, depth)
         self.blocks = nn.ModuleList([
-            Block(dim, num_heads, mlp_ratio, qkv_bias, norm_affine, norm_eps)
-            for _ in range(depth)])
+            Block(dim, num_heads, mlp_ratio, qkv_bias, norm_affine, norm_eps,
+                  drop=drop_rate, attn_drop=attn_drop_rate, drop_path=dp)
+            for dp in self.dpr])
         self.norm = nn.LayerNorm(dim, eps=norm_eps,
                                  elementwise_affine=norm_affine)
 
@@ -55,19 +70,52 @@ class _BlockStack(nn.Module):
             blk.reset_parameters(gen)
         L.init_layer_norm(self.norm)
 
-    def run_stack(self, x, mask=None, *, need_weights=False, impl="kernel"):
+    def _train_stack(self, x, mask, impl, rng):
+        """The training dispatch: every block through ``fused_block_train``
+        (``impl="plain"``: its plain version on masks from ``draw_masks``,
+        which are the kernels' own)."""
+        R, N, C = x.shape
+        if N > FB.MAX_TOKENS:
+            raise NotImplementedError(
+                f"training a fuser over sequences of {N} tokens (the "
+                "T-SA-Fuser) is not ported (ROADMAP.md §A.9)")
+        rates = (self.attn_drop_rate, self.drop_rate)
+        if rng is None and (any(rates) or any(self.dpr)):
+            raise ValueError("training with a dropout or drop-path rate > 0 "
+                             "needs an RngStream")
+        seeds = (0, 0) if rng is None else rng.seed_words()
+        for bi, (blk, dp) in enumerate(zip(self.blocks, self.dpr)):
+            params = dict(blk.named_parameters())
+            if impl == "kernel":
+                x = FT.fused_block_train(
+                    x, params, mask, seeds, num_heads=self.num_heads,
+                    block_idx=bi, attn_rate=rates[0], drop_rate=rates[1],
+                    dp_rate=dp, eps=self.norm_eps)
+            else:
+                masks = FT.draw_masks(R, N, C, self.num_heads, seeds, bi,
+                                      *rates, dp, device=x.device)
+                x = FT.fused_block_train_plain(
+                    x, params, mask, masks, num_heads=self.num_heads,
+                    eps=self.norm_eps)
+        return self.norm(x), None
+
+    def run_stack(self, x, mask=None, *, need_weights=False, impl="kernel",
+                  rng=None):
         """x (R, N, C) -> (normed x, [per-block weights] or None).
 
         Rows of up to 8 tokens (the per-timestep fusers) go through
         ``fused_block``, longer sequences (the T-SA-Fuser) through
-        ``fused_seq_block``, as the JAX package dispatches them."""
+        ``fused_seq_block``, as the JAX package dispatches them; in
+        training mode through ``fused_block_train``."""
         check_impl(impl)
         if need_weights:
             weights = []
             for blk in self.blocks:
-                x, w = blk(x, mask)
+                x, w = blk(x, mask, rng=rng)
                 weights.append(w)
             return self.norm(x), weights
+        if self.training:
+            return self._train_stack(x, mask, impl, rng)
         if x.shape[1] <= FB.MAX_TOKENS:
             block_fn = (FB.fused_block if impl == "kernel"
                         else FB.fused_block_plain)
@@ -101,14 +149,15 @@ class CMFuser(_BlockStack):
                  qkv_bias=False, qk_scale=None, embd_drop_rate=0.0,
                  drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.0,
                  cross_attn=False, **_ignored):
-        # dropout rates and drop-path are training-time only
-        del qk_scale, embd_drop_rate, drop_rate, attn_drop_rate, \
-            drop_path_rate
-        super().__init__(dim, depth, num_heads, mlp_ratio, qkv_bias)
+        del qk_scale
+        super().__init__(dim, depth, num_heads, mlp_ratio, qkv_bias,
+                         drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
+                         drop_path_rate=drop_path_rate)
+        self.embd_drop_rate = embd_drop_rate
         self.cross_attn = cross_attn
 
     def forward(self, modal_feats, feats_order, *, need_weights=False,
-                impl="kernel"):
+                impl="kernel", rng=None):
         """{mod: (B, T, C)} -> (fused (B, T, C), weights or None)."""
         Bsz, T, C = _same_shape(modal_feats)
         n = len(feats_order)
@@ -116,8 +165,9 @@ class CMFuser(_BlockStack):
         x = x.reshape(Bsz * T, n, C)
         mask = (L.cross_attention_diag_mask(n, device=x.device)
                 if self.cross_attn else None)
+        x = L.dropout(x, self.embd_drop_rate, self.training, rng)
         x, weights = self.run_stack(x, mask, need_weights=need_weights,
-                                    impl=impl)
+                                    impl=impl, rng=rng)
         fused = x.mean(dim=1).reshape(Bsz, T, C)
         attn = _stack_modal_attn(weights, Bsz, T) if need_weights else None
         return fused, attn
@@ -132,11 +182,12 @@ class ModalTokenCMFuser(_BlockStack):
                  norm_elementwise=True, cross_attn=False, modalities=None,
                  modal_encoding=False, frame_level_token=False,
                  temporal_sequence_length=None, **_ignored):
-        # dropout rates and drop-path are training-time only
-        del qk_scale, embd_drop_rate, drop_rate, attn_drop_rate, \
-            drop_path_rate
+        del qk_scale
         super().__init__(dim, depth, num_heads, mlp_ratio, qkv_bias,
-                         norm_affine=norm_elementwise)
+                         norm_affine=norm_elementwise, drop_rate=drop_rate,
+                         attn_drop_rate=attn_drop_rate,
+                         drop_path_rate=drop_path_rate)
+        self.embd_drop_rate = embd_drop_rate
         self.cross_attn = cross_attn
         self.num_mods = len(modalities) + 1  # + the modality-agnostic token
         self.modal_encoding = modal_encoding
@@ -158,7 +209,7 @@ class ModalTokenCMFuser(_BlockStack):
             L.normal_(self.modality_embedding, 0.02, gen)
 
     def forward(self, modal_feats, feats_order, *, need_weights=False,
-                impl="kernel"):
+                impl="kernel", rng=None):
         """{mod: (B, T, C)} -> (fused (B, T, C), weights or None)."""
         Bsz, T, C = _same_shape(modal_feats)
         x = torch.stack([modal_feats[m] for m in feats_order], dim=2)
@@ -175,8 +226,9 @@ class ModalTokenCMFuser(_BlockStack):
             x = x + self.modality_embedding
         mask = (L.cross_attention_diag_mask(self.num_mods, device=x.device)
                 if self.cross_attn else None)
+        x = L.dropout(x, self.embd_drop_rate, self.training, rng)
         x, weights = self.run_stack(x, mask, need_weights=need_weights,
-                                    impl=impl)
+                                    impl=impl, rng=rng)
         fused = x[:, 0, :].reshape(Bsz, T, C)
         attn = _stack_modal_attn(weights, Bsz, T) if need_weights else None
         return fused, attn
@@ -220,9 +272,14 @@ class TemporalCMFuser(_BlockStack):
             L.normal_(self.modality_embedding, 0.02, gen)
 
     def forward(self, modal_feats, feats_order, *, need_weights=False,
-                impl="kernel"):
+                impl="kernel", rng=None):
         """{mod: (B, T, C)} -> (fused (B, T, C), weights (B, depth, H, n*T,
         n*T) or None)."""
+        del rng
+        if self.training:
+            raise NotImplementedError(
+                "training the T-SA-Fuser is not ported (ROADMAP.md §A.9): "
+                "call .eval() to run the inference path")
         Bsz, T, C = _same_shape(modal_feats)
         n = self.num_mods
         x = torch.cat([modal_feats[m] for m in feats_order], dim=1)
@@ -281,10 +338,14 @@ class TemporalCrossAttentFuser(nn.Module):
         L.init_layer_norm(self.norm)
 
     def forward(self, modal_feats, feats_order, *, need_weights=False,
-                impl="kernel"):
+                impl="kernel", rng=None):
         """{mod: (B, T, C)} -> (fused (B, T, C), zeros (B,))."""
-        del need_weights  # the decoder blocks return no weights
+        del need_weights, rng  # the decoder blocks return no weights
         check_impl(impl)
+        if self.training:
+            raise NotImplementedError(
+                "training the CA-Fuser is not ported (ROADMAP.md §A.9): "
+                "call .eval() to run the inference path")
         Bsz, T, C = _same_shape(modal_feats)
         pos = self.position_embeddings.weight[:T]
         x, *mems = [modal_feats[m] + pos for m in feats_order]

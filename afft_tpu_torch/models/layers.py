@@ -1,5 +1,6 @@
 """Primitives shared by the port's modules: the additive attention masks,
-the cross-attention layer and seeded initialisers.
+dropout and drop-path with an explicit generator, the cross-attention layer
+and seeded initialisers.
 
 The modules build their LayerNorms with an explicit eps (1e-6 in the fuser,
 1e-5 in the GPT-2 predictor); the GELUs (exact erf in the fuser MLP, tanh
@@ -29,6 +30,62 @@ def cross_attention_diag_mask(sz: int, dtype=torch.float32, device=None):
     eye = torch.eye(sz, dtype=torch.bool, device=device)
     return torch.zeros((sz, sz), dtype=dtype, device=device).masked_fill(
         eye, float("-inf"))
+
+
+class RngStream:
+    """The randomness of training steps, drawn from explicit generators (the
+    port's counterpart of afft_tpu/models/layers.py RngStream): ``gen``, a
+    generator on the model's device, feeds the dropout and drop-path masks
+    that PyTorch ops draw; ``seed_words`` hands the fuser stack the two seed
+    words from which the training kernels compute their masks. The seed
+    words come from a host generator, so drawing them never waits for the
+    device."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(int(seed))
+        self._host = torch.Generator()
+        self._host.manual_seed(int(seed))
+
+    def seed_words(self):
+        """Two ints in [0, 2^31 - 1), as the JAX fuser stack draws them."""
+        return torch.randint(0, 2 ** 31 - 1, (2,),
+                             generator=self._host).tolist()
+
+
+def _uniform_like(shape, x, rng):
+    if rng is None:
+        raise ValueError("training with a dropout or drop-path rate > 0 "
+                         "needs an RngStream")
+    return torch.rand(shape, generator=rng.gen, device=x.device)
+
+
+def dropout(x, rate: float, train: bool, rng):
+    """Keep with probability 1 - rate and scale by 1 / keep
+    (afft_tpu/models/layers.py:145)."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = _uniform_like(x.shape, x, rng) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x, rate: float, train: bool, rng):
+    """Stochastic depth per sample (afft_tpu/models/layers.py:153)."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.floor(keep + _uniform_like(shape, x, rng)).to(x.dtype)
+    return x / keep * mask
+
+
+def drop_path_schedule(drop_path_rate: float, depth: int):
+    """Stochastic-depth decay: linspace(0, rate, depth) over the blocks
+    (afft_tpu/models/blocks.py:161)."""
+    if depth == 1:
+        return [0.0]
+    return [drop_path_rate * i / (depth - 1) for i in range(depth)]
 
 
 class CrossAttention(nn.Module):

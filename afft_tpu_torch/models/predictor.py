@@ -8,7 +8,16 @@ State-dict names are HF's under ``gpt_model``: ``h.N.ln_1``,
 ``h.N.attn.c_attn`` (Conv1D (in, 3C), packed [q | k | v]), ``h.N.attn.c_proj``,
 ``h.N.ln_2``, ``h.N.mlp.c_fc``, ``h.N.mlp.c_proj``, ``wpe``, ``ln_f``.
 
-Three paths, as in the JAX package:
+In training mode every layer runs in plain PyTorch ops under autograd
+(``_block_train``: ``embd_pdrop`` on the embedded input, ``attn_pdrop`` on
+the attention weights, ``resid_pdrop`` on both residual branches, masks from
+the step's ``RngStream``), as the JAX package leaves them to XLA when the
+compute dtype is fp32. The hand-written training kernels of the GPT-2 layer
+(afft_tpu/ops/pallas_gpt2_train.py, kernel-table rows 11-16) replace this
+path in the next slice (ROADMAP.md §B.4); the serving kernels have no
+backward and raise when a gradient is required.
+
+Three eval-mode paths, as in the JAX package:
 - the single causal pass (``output_len == 1``): each layer runs as
   ``ops.fused_gpt2.fused_gpt2_block`` (two CUDA kernels on a CUDA tensor,
   their plain versions on a CPU tensor);
@@ -85,8 +94,9 @@ class BaseFuturePredictor(nn.Module):
                  output_attentions=False, dimension_mapping=False,
                  n_positions=1024, **_ignored):
         super().__init__()
-        # dropout rates are training-time only
-        del embd_pdrop, resid_pdrop, attn_pdrop
+        self.embd_pdrop = embd_pdrop
+        self.resid_pdrop = resid_pdrop
+        self.attn_pdrop = attn_pdrop
         if dimension_mapping:
             raise ValueError("dimension mapping inside the predictor is "
                              "deprecated (reference "
@@ -141,12 +151,41 @@ class BaseFuturePredictor(nn.Module):
         x = x + self._conv1d(blk.attn.c_proj, attn.reshape(Bsz, T, C))
         return self._mlp(blk, x), weights
 
-    def forward_hidden(self, embeds, *, collect_attn=False, impl="kernel"):
+    def _block_train(self, blk, x, mask, rng):
+        """One layer in training mode, plain ops under autograd
+        (afft_tpu/models/predictor.py:105-126): (x, weights after their
+        dropout (B, H, T, T))."""
+        Bsz, T, C = x.shape
+        hd = C // self.n_head
+        q, k, v = (self._conv1d(blk.attn.c_attn, blk.ln_1(x))
+                   .reshape(Bsz, T, 3, self.n_head, hd).permute(2, 0, 3, 1, 4))
+        # the fp32 mask promotes the scores: softmax and dropout in fp32
+        weights = ((q @ k.transpose(-1, -2)) * (hd ** -0.5)
+                   + mask).softmax(dim=-1)
+        weights = L.dropout(weights, self.attn_pdrop, True, rng)
+        attn = (weights.to(v.dtype) @ v).transpose(1, 2).reshape(Bsz, T, C)
+        x = x + L.dropout(self._conv1d(blk.attn.c_proj, attn),
+                          self.resid_pdrop, True, rng)
+        h = F.gelu(self._conv1d(blk.mlp.c_fc, blk.ln_2(x)),
+                   approximate="tanh")
+        h = self._conv1d(blk.mlp.c_proj, h)
+        return x + L.dropout(h, self.resid_pdrop, True, rng), weights
+
+    def forward_hidden(self, embeds, *, collect_attn=False, impl="kernel",
+                       rng=None):
         """One full causal pass: embeds (B, T, C) -> (last hidden (B, T, C),
         weights (B, n_layer, H, T, T) or None)."""
         T = embeds.shape[1]
         x = embeds + self.gpt_model.wpe.weight[:T]
         mask = L.neg_inf_causal_mask(T, device=x.device)
+        if self.training:
+            x = L.dropout(x, self.embd_pdrop, True, rng)
+            attns = []
+            for blk in self.gpt_model.h:
+                x, w = self._block_train(blk, x, mask, rng)
+                attns.append(w)
+            return self.gpt_model.ln_f(x), (torch.stack(attns, dim=1)
+                                            if collect_attn else None)
         if collect_attn:
             attns = []
             for blk in self.gpt_model.h:
@@ -205,7 +244,7 @@ class BaseFuturePredictor(nn.Module):
         return torch.cat(outputs, dim=1), {}
 
     def _apply_full(self, feats, output_len: int, *, collect_attn=False,
-                    impl="kernel"):
+                    impl="kernel", rng=None):
         """Every step re-runs the whole sequence (the JAX package's
         reference-faithful loop, predictor.py:306-329)."""
         endpoints = {}
@@ -214,7 +253,7 @@ class BaseFuturePredictor(nn.Module):
         for output_id in range(output_len):
             total = embeds.shape[1]
             hidden, attn = self.forward_hidden(
-                embeds, collect_attn=collect_attn, impl=impl)
+                embeds, collect_attn=collect_attn, impl=impl, rng=rng)
             if attn is not None:
                 # (B, n_layer, H, new tokens, total), as reference :409
                 new = T if output_id == 0 else 1
@@ -224,12 +263,16 @@ class BaseFuturePredictor(nn.Module):
                 embeds = torch.cat([embeds, hidden[:, -1:, :]], dim=1)
         return hidden, endpoints
 
-    def forward(self, feats, output_len: int = 1, *, impl="kernel"):
+    def forward(self, feats, output_len: int = 1, *, impl="kernel",
+                rng=None):
         """feats (B, T, C) -> (hidden (B, T + output_len - 1, C), extra
-        endpoints: {} or the ``gpt2_att_{step}`` attention weights)."""
+        endpoints: {} or the ``gpt2_att_{step}`` attention weights). In
+        training mode a multi-step rollout re-runs the whole sequence every
+        step (dropout is drawn per pass), as the JAX package does."""
         check_impl(impl)
-        if output_len > 1 and not self.output_attentions:
+        if output_len > 1 and not self.output_attentions \
+                and not self.training:
             return self._apply_kv_cache(feats, output_len, impl)
         return self._apply_full(feats, output_len,
                                 collect_attn=self.output_attentions,
-                                impl=impl)
+                                impl=impl, rng=rng)

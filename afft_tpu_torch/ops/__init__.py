@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain
-PyTorch version.
+"""Hand-written CUDA kernels of the serving and training paths, each beside
+its plain PyTorch version.
 
 - ``ops.fused_block``: one fuser block (replaces the TPU kernel
   ``afft_tpu/ops/pallas_block.py:fused_block``);
@@ -9,7 +9,11 @@ PyTorch version.
   ``afft_tpu/ops/pallas_attn.py:fused_attention``);
 - ``ops.fused_seq_block``: the T-SA-Fuser block and the CA-Fuser decoder
   block (replace ``afft_tpu/ops/pallas_seq_block.py:fused_seq_block`` and
-  ``:fused_decoder_block``).
+  ``:fused_decoder_block``);
+- ``ops.fused_block_train``: one fuser block in training mode, forward and
+  two backward kernels under autograd, and the dropout-mask generator
+  (replace ``afft_tpu/ops/pallas_block_train.py:fused_block_train`` and
+  ``:draw_masks``).
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches, so a run can
@@ -20,11 +24,13 @@ from __future__ import annotations
 
 from . import attention as _attention
 from . import fused_block as _fused_block
+from . import fused_block_train as _fused_block_train
 from . import fused_gpt2 as _fused_gpt2
 from . import fused_seq_block as _fused_seq_block
 
 _COUNTERS = (_fused_block.LAUNCHES, _fused_gpt2.LAUNCHES,
-             _attention.LAUNCHES, _fused_seq_block.LAUNCHES)
+             _attention.LAUNCHES, _fused_seq_block.LAUNCHES,
+             _fused_block_train.LAUNCHES)
 
 
 def launch_counts() -> dict:

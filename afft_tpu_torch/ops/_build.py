@@ -30,6 +30,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
+_IP = ctypes.POINTER(ctypes.c_int)     # host array of ints
+_FP = ctypes.POINTER(ctypes.c_float)   # host array of floats
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints)
 SIGNATURES = {
@@ -40,6 +42,13 @@ SIGNATURES = {
     "afft_fused_seq_block": [_I, _P, _PP] + [_P] * 6 + [_I] * 5 + [_F, _P],
     "afft_fused_decoder_block": [_I, _P, _P, _PP] + [_P] * 7 + [_I] * 5
                                 + [_F, _P],
+    "afft_block_train_fwd": [_I, _P, _PP, _P, _IP, _IP, _FP, _PP] + [_I] * 5
+                            + [_F, _P],
+    "afft_block_train_bwd_mlp": [_I, _P, _P, _P, _PP, _PP, _IP, _IP, _FP, _PP]
+                                + [_I] * 4 + [_F, _P],
+    "afft_block_train_bwd_attn": [_I, _P, _P, _P, _PP, _PP, _P, _IP, _IP, _FP,
+                                  _PP] + [_I] * 4 + [_F, _P],
+    "afft_draw_masks": [_IP, _IP, _FP, _PP] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

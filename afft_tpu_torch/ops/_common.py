@@ -22,9 +22,24 @@ def ptr_array(tensors):
     return (ctypes.c_void_p * len(tensors))(*[ptr(t) for t in tensors])
 
 
-def check_operands(name: str, x: torch.Tensor, operands: dict) -> None:
+def check_no_grad(name: str, tensors) -> None:
+    """The serving kernels have no backward: raise where autograd would
+    record a gradient through one."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: this kernel has no backward and an operand requires a "
+            "gradient; call it under torch.no_grad(), or train through "
+            "ops.fused_block_train and the model's training mode")
+
+
+def check_operands(name: str, x: torch.Tensor, operands: dict,
+                   differentiable: bool = False) -> None:
     """CUDA operands must share x's device and dtype, be contiguous and
-    16-byte aligned (the GEMMs copy 16-byte chunks)."""
+    16-byte aligned (the GEMMs copy 16-byte chunks); unless the kernel is
+    ``differentiable``, none may require a gradient."""
+    if not differentiable:
+        check_no_grad(name, [x, *operands.values()])
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         "(float32 or bfloat16)")

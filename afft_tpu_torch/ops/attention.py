@@ -30,8 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from ._common import (DTYPE_CODES, check_shape, launch, mask_operand, ptr,
-                      softmax_attention32)
+from ._common import (DTYPE_CODES, check_no_grad, check_shape, launch,
+                      mask_operand, ptr, softmax_attention32)
 
 LAUNCHES = {"fused_attention": 0}
 PLAIN_WEIGHTS_CALLS = {"attention_weights": 0}
@@ -81,6 +81,7 @@ def fused_attention(q, k, v, mask=None):
     B, Nq, Nk, H, hd = _check(name, q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask)[0]
+    check_no_grad(name, (q, k, v))
     if not (Nq >= 1 and 1 <= Nk <= MAX_KEYS):
         raise ValueError(f"{name}: Nq={Nq}, Nk={Nk}; the kernel takes "
                          f"Nq >= 1 and 1 <= Nk <= {MAX_KEYS}")

@@ -69,7 +69,7 @@ def fused_block_plain(x, params, mask=None, *, num_heads: int,
     return block_plain(x, params, mask, num_heads, eps, round_p=False)
 
 
-def block_operands(name, x, params, num_heads):
+def block_operands(name, x, params, num_heads, differentiable=False):
     """Check a block's tensors against x (n, S, C) for a CUDA launch; returns
     (the twelve tensors in the kernels' order, hidden)."""
     C = x.shape[-1]
@@ -92,7 +92,7 @@ def block_operands(name, x, params, num_heads):
         check_shape(name, key, t, shape)
     if (ln1g is None) != (ln1b is None) or (ln2g is None) != (ln2b is None):
         raise ValueError(f"{name}: LayerNorm weight and bias go together")
-    check_operands(name, x, dict(zip(keys, tensors)))
+    check_operands(name, x, dict(zip(keys, tensors)), differentiable)
     return tensors, hidden
 
 

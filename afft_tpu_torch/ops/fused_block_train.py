@@ -1,0 +1,349 @@
+"""One pre-LN fuser block in training mode: CUDA kernels (forward and two
+backward halves), the mask generator, and their plain versions.
+
+Replaces ``afft_tpu/ops/pallas_block_train.py``: ``fused_block_train``
+(``_fwd_kernel``, ``_bwd_mlp_kernel``, ``_bwd_attn_kernel``) and
+``draw_masks`` (``_masks_kernel``). The block is the serving block
+(``ops.fused_block``) with dropout on the attention probabilities, on the
+proj and MLP outputs, and per-row drop-path on both branches.
+
+``fused_block_train`` is differentiable in ``x`` and the block's parameters.
+On CUDA tensors it is a ``torch.autograd.Function``: the forward launches
+``csrc/fused_block_train.cu`` and saves ``x, y, qkv, pre1`` (the residuals
+the TPU kernel stashes, in the working dtype); the backward launches the MLP
+half, then the attention half, and returns ``dx`` and the parameter
+gradients (computed in fp32, handed back in each parameter's dtype; ``None``
+for an absent bias or affine). On CPU tensors it draws the masks with
+``draw_masks_plain`` and runs ``fused_block_train_plain`` under autograd.
+
+Masks. Each dropout multiplier (0 or 1 / keep) is a pure function of (two
+seed words, block index, site, logical element index): a Philox4x32-10 draw
+with key (seed0, seed1) and counter (index low, index high, block, site),
+whose top 24 bits are compared with a 24-bit keep threshold (the TPU
+kernel's thresholds and scales, ``pallas_block_train.py:478-487``). The TPU
+kernel seeds its on-core generator per row tile, so its masks depend on the
+tile size; here a mask depends on nothing but the element's own index, and
+the kernels draw it in registers wherever it is needed, forward and backward.
+Element indices: attention ``((r * H + h) * N + tq) * N + tk``; proj and MLP
+``(r * N + t) * C + c``; drop-path ``r``. ``draw_masks`` exports the five
+masks; ``draw_masks_plain`` is the same generator in torch integer ops and
+equals the kernel bit for bit.
+
+Cast chain (``pallas_block_train.py:200-239``): as ``ops.fused_block``, and
+``y`` is fp32 inside the forward but stashed in the working dtype, ``pre1``
+is stashed rounded and the GELU is taken from the fp32 value in the forward
+and from the stash in the backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ._common import (DTYPE_CODES, add_bias, launch, layer_norm32,
+                      mask_operand, matmul32, ptr, ptr_array)
+from .fused_block import MAX_TOKENS, _unpack, block_operands
+
+LAUNCHES = {"fused_block_train_fwd": 0, "fused_block_train_bwd_mlp": 0,
+            "fused_block_train_bwd_attn": 0, "draw_masks": 0}
+
+# the five mask sites (pallas_block_train.py:56), in the order of every mask
+# tuple: attention, proj, drop-path 1, MLP, drop-path 2; and the rate each
+# draws with: 0 attention | 1 proj and MLP dropout | 2 drop-path
+_RATE_OF_SITE = (0, 1, 2, 1, 2)
+
+_TWO24 = 1 << 24
+_M32 = 0xFFFFFFFF
+COLSUM_SLICES = 128  # csrc/common.cuh CS_SLICES
+
+
+def rates_operands(attn_rate, drop_rate, dp_rate):
+    """Rates -> (24-bit keep thresholds, 1 / keep scales): index 0 the
+    attention probabilities, 1 proj and MLP dropout, 2 drop-path."""
+    keeps = [1.0 - attn_rate, 1.0 - drop_rate, 1.0 - dp_rate]
+    thr = [min(_TWO24, int(round(k * _TWO24))) for k in keeps]
+    inv = [1.0 / k if k > 0 else 0.0 for k in keeps]
+    return thr, inv
+
+
+def _check_seeds(seeds):
+    seeds = [int(s) for s in seeds]
+    if len(seeds) != 2 or not all(0 <= s <= _M32 >> 1 for s in seeds):
+        raise ValueError(f"seeds must be two ints in [0, 2^31), got {seeds}")
+    return seeds
+
+
+# -- the generator in torch integer ops ---------------------------------------
+
+def _mulhilo(const: int, b):
+    """(high, low) 32-bit words of const * b for an int64 tensor b < 2^32,
+    through 16-bit halves so no product leaves int64."""
+    t = (b & 0xFFFF) * const
+    s = (b >> 16) * const + (t >> 16)
+    return s >> 16, ((s & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox_word0(idx, seed0: int, seed1: int, block: int, site: int):
+    """First output word of Philox4x32-10 for each int64 element index."""
+    c0, c1 = idx & _M32, idx >> 32
+    c2 = torch.full_like(idx, block)
+    c3 = torch.full_like(idx, site)
+    k0, k1 = seed0, seed1
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _M32
+        k1 = (k1 + 0xBB67AE85) & _M32
+    return c0
+
+
+def site_mask_plain(n: int, seeds, block_idx: int, site: int, thr: int,
+                    inv: float, device="cpu"):
+    """The multipliers of a site's logical elements 0 .. n - 1, fp32 (n,)."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    draw = philox_word0(idx, seeds[0], seeds[1], block_idx, site) >> 8
+    scale = torch.tensor(inv, dtype=torch.float32, device=device)
+    return torch.where(draw < thr, scale, torch.zeros_like(scale))
+
+
+def _mask_shapes(R, N, C, H):
+    return ((R, H, N, N), (R * N, C), (R,), (R * N, C), (R,))
+
+
+def draw_masks_plain(R, N, C, num_heads, seeds, block_idx, attn_rate,
+                     drop_rate, dp_rate, device="cpu"):
+    """The five masks of one block, already scaled by 1 / keep, fp32:
+    attention (R, H, N, N), proj (R * N, C), drop-path 1 (R), MLP (R * N, C),
+    drop-path 2 (R). The generator in torch ops, on any device."""
+    seeds = _check_seeds(seeds)
+    thr, inv = rates_operands(attn_rate, drop_rate, dp_rate)
+    out = []
+    for site, shape in enumerate(_mask_shapes(R, N, C, num_heads)):
+        n = 1
+        for d in shape:
+            n *= d
+        kind = _RATE_OF_SITE[site]
+        out.append(site_mask_plain(n, seeds, block_idx, site, thr[kind],
+                                   inv[kind], device).reshape(shape))
+    return tuple(out)
+
+
+def _rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate):
+    seeds = _check_seeds(seeds)
+    thr, inv = rates_operands(attn_rate, drop_rate, dp_rate)
+    return ((ctypes.c_int * 3)(seeds[0], seeds[1], int(block_idx)),
+            (ctypes.c_int * 3)(*thr), (ctypes.c_float * 3)(*inv))
+
+
+def draw_masks(R, N, C, num_heads, seeds, block_idx, attn_rate, drop_rate,
+               dp_rate, device="cuda"):
+    """The five masks as ``draw_masks_plain``: the plain version on the CPU,
+    the kernel on a CUDA device."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return draw_masks_plain(R, N, C, num_heads, seeds, block_idx,
+                                attn_rate, drop_rate, dp_rate)
+    if device.type != "cuda":
+        raise ValueError(f"draw_masks: unsupported device {device}")
+    arrays = _rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate)
+    masks = tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                  for shape in _mask_shapes(R, N, C, num_heads))
+    launch("draw_masks", "afft_draw_masks", *arrays, ptr_array(masks), R, N,
+           C, num_heads, device=device)
+    LAUNCHES["draw_masks"] += 1
+    return masks
+
+
+# -- the plain version --------------------------------------------------------
+
+def _token_rows(dp, R, N):
+    """(R,) -> one multiplier for each of a row's N tokens, (R * N, 1)."""
+    return dp.reshape(R, 1).expand(R, N).reshape(R * N, 1)
+
+
+def attn_half_train_plain(x, params, mask, masks, *, num_heads: int,
+                          eps: float = 1e-6):
+    """x (R, N, C) -> (the fp32 residual stream y (R * N, C), qkv as the
+    forward rounds it): LN1, qkv, attention with dropout on the
+    probabilities, proj with dropout and drop-path, + x."""
+    R, N, C = x.shape
+    dt = x.dtype
+    H, hd = num_heads, C // num_heads
+    ln1g, ln1b, wqkv, bqkv, wproj, bproj = _unpack(params)[:6]
+    mattn, mproj, dp1 = masks[:3]
+    x32 = x.reshape(R * N, C).float()
+    xn = layer_norm32(x32, ln1g, ln1b, eps).to(dt)
+    qkv = add_bias(matmul32(xn, wqkv, False), bqkv).to(dt)
+    q, k, v = qkv.float().reshape(R, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    s = (q @ k.transpose(-1, -2)) * (hd ** -0.5)
+    if mask is not None:
+        s = s + mask.float()
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True) * mattn
+    attn = (p @ v).permute(0, 2, 1, 3).reshape(R * N, C).to(dt)
+    proj = add_bias(matmul32(attn, wproj, False), bproj)
+    return x32 + _token_rows(dp1, R, N) * (proj * mproj), qkv
+
+
+def mlp_half_train_plain(y, params, masks, dt, n_tokens: int, *,
+                         eps: float = 1e-6):
+    """The fp32 residual stream y (R * N, C) -> (out (R * N, C) in ``dt``,
+    the fp32 pre-activation): LN2, fc1, exact GELU, fc2 with dropout and
+    drop-path, + y."""
+    ln2g, ln2b, wfc1, bfc1, wfc2, bfc2 = _unpack(params)[6:]
+    mmlp, dp2 = masks[3:]
+    R = y.shape[0] // n_tokens
+    g = layer_norm32(y, ln2g, ln2b, eps).to(dt)
+    pre1 = add_bias(matmul32(g, wfc1, False), bfc1)
+    h1 = F.gelu(pre1).to(dt)
+    h2 = add_bias(matmul32(h1, wfc2, False), bfc2)
+    return (y + _token_rows(dp2, R, n_tokens) * (h2 * mmlp)).to(dt), pre1
+
+
+def fused_block_train_plain(x, params, mask, masks, *, num_heads: int,
+                            eps: float = 1e-6, return_residuals=False):
+    """The training block in differentiable PyTorch ops with the kernel's
+    forward cast chain, given the five explicit masks of ``draw_masks``
+    (the counterpart of ``pallas_block_train.block_reference_with_masks``).
+    Returns (R, N, C) in x.dtype, and with ``return_residuals`` also the
+    stashed ``y, qkv, pre1``. ``torch.autograd`` through it is the plain
+    version of the two backward kernels."""
+    R, N, C = x.shape
+    dt = x.dtype
+    y, qkv = attn_half_train_plain(x, params, mask, masks,
+                                   num_heads=num_heads, eps=eps)
+    out, pre1 = mlp_half_train_plain(y, params, masks, dt, N, eps=eps)
+    out = out.reshape(R, N, C)
+    if return_residuals:
+        return out, y.to(dt), qkv, pre1.to(dt)
+    return out
+
+
+# -- the kernels under autograd -----------------------------------------------
+
+def _new(like, *shape, dtype=None):
+    return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
+
+
+def new_grads(tensors):
+    """fp32 gradient buffers for the present parameters."""
+    return [None if t is None else _new(t, *t.shape, dtype=torch.float32)
+            for t in tensors]
+
+
+def _bwd_scratch(x, C, hidden):
+    M = x.shape[0] * x.shape[1]
+    f32 = torch.float32
+    return (_new(x, M, C), _new(x, M, C), _new(x, M, C, dtype=f32),
+            _new(x, M, dtype=f32), _new(x, M, dtype=f32),
+            _new(x, 2 * COLSUM_SLICES * max(3 * C, hidden), dtype=f32))
+
+
+def block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg):
+    """Kernel 8 on CUDA tensors: (stashed y, dout, stashed pre1) -> dy
+    (R * N, C); writes the fc1, fc2 and norm2 entries of ``grads``."""
+    num_heads, hidden, eps, arrays = cfg
+    R, N, C = x.shape
+    tmp, dh2, dg, mu, rstd, partial = _bwd_scratch(x, C, hidden)
+    h1, dpre1 = _new(x, R * N, hidden), _new(x, R * N, hidden)
+    dy = _new(x, R * N, C)
+    launch("fused_block_train", "afft_block_train_bwd_mlp",
+           DTYPE_CODES[x.dtype], ptr(y), ptr(dout), ptr(pre1),
+           ptr_array(tensors), ptr_array(grads), *arrays,
+           ptr_array([tmp, dh2, h1, dpre1, dg, mu, rstd, partial, dy]),
+           R, N, C, hidden, eps, device=x.device)
+    LAUNCHES["fused_block_train_bwd_mlp"] += 1
+    return dy
+
+
+def block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads, cfg):
+    """Kernel 9 on CUDA tensors: (x, dy, stashed qkv) -> dx (R, N, C);
+    writes the qkv, proj and norm1 entries of ``grads``."""
+    num_heads, hidden, eps, arrays = cfg
+    R, N, C = x.shape
+    tmp, dproj, dattn, mu, rstd, partial = _bwd_scratch(x, C, hidden)
+    dqkv = _new(x, R * N, 3 * C)
+    dx = _new(x, R, N, C)
+    launch("fused_block_train", "afft_block_train_bwd_attn",
+           DTYPE_CODES[x.dtype], ptr(x), ptr(dy), ptr(qkv),
+           ptr_array(tensors), ptr_array(grads), ptr(mask32), *arrays,
+           ptr_array([tmp, dproj, dqkv, dattn, mu, rstd, partial, dx]),
+           R, N, C, num_heads, eps, device=x.device)
+    LAUNCHES["fused_block_train_bwd_attn"] += 1
+    return dx
+
+
+class _FusedBlockTrain(torch.autograd.Function):
+    """Forward: kernel 7; backward: kernels 8 then 9."""
+
+    @staticmethod
+    def forward(ctx, x, mask32, cfg, *tensors):
+        num_heads, hidden, eps, arrays = cfg
+        R, N, C = x.shape
+        M = R * N
+        out, y = _new(x, R, N, C), _new(x, M, C)
+        qkv, pre1 = _new(x, M, 3 * C), _new(x, M, hidden)
+        tmp, h1 = _new(x, M, C), _new(x, M, hidden)
+        # fp32 residual stream; in fp32 the stashed y is that stream
+        y32 = None if x.dtype == torch.float32 \
+            else _new(x, M, C, dtype=torch.float32)
+        launch("fused_block_train", "afft_block_train_fwd",
+               DTYPE_CODES[x.dtype], ptr(x), ptr_array(tensors), ptr(mask32),
+               *arrays, ptr_array([tmp, y32, h1, out, y, qkv, pre1]), R, N,
+               C, num_heads, hidden, eps, device=x.device)
+        LAUNCHES["fused_block_train_fwd"] += 1
+        ctx.save_for_backward(x, y, qkv, pre1, mask32, *tensors)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, y, qkv, pre1, mask32, *tensors = ctx.saved_tensors
+        dout = dout.to(x.dtype).contiguous()
+        grads = new_grads(tensors)
+        dy = block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, ctx.cfg)
+        dx = block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads,
+                                  ctx.cfg)
+        return (dx, None, None,
+                *[None if g is None else g.to(t.dtype)
+                  for g, t in zip(grads, tensors)])
+
+
+def fused_block_train(x, params, mask, seeds, *, num_heads: int,
+                      block_idx: int = 0, attn_rate: float = 0.0,
+                      drop_rate: float = 0.0, dp_rate: float = 0.0,
+                      eps: float = 1e-6):
+    """One fuser block in training mode on x (R, N, C); returns (R, N, C) in
+    x.dtype, differentiable in x and the parameters. ``seeds`` are the
+    step's two seed words (ints in [0, 2^31)), ``block_idx`` the block's
+    position in its stack.
+
+    CPU tensors take the plain version on masks from ``draw_masks_plain``;
+    CUDA tensors launch the kernels."""
+    name = "fused_block_train"
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (R, N, C), got {tuple(x.shape)}")
+    R, N, C = x.shape
+    if x.device.type == "cpu":
+        masks = draw_masks_plain(R, N, C, num_heads, seeds, block_idx,
+                                 attn_rate, drop_rate, dp_rate)
+        return fused_block_train_plain(x, params, mask, masks,
+                                       num_heads=num_heads, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not 1 <= N <= MAX_TOKENS:
+        raise ValueError(f"{name}: N={N} tokens, the kernel takes 1..8")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    tensors, hidden = block_operands(name, x, params, num_heads,
+                                     differentiable=True)
+    mask32 = mask_operand(name, mask, N, x.device)
+    if R == 0:
+        return torch.empty_like(x)
+    arrays = _rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate)
+    return _FusedBlockTrain.apply(x, mask32, (num_heads, hidden, eps, arrays),
+                                  *tensors)

@@ -1,0 +1,240 @@
+"""Train and eval steps of one model and optimizer configuration.
+
+Port of afft_tpu/train/runner.py (reference common/runner.py:178-270 and the
+optimizer / scheduler stepping of train.py:228-290). One ``train_step`` is
+mixup, forward, losses, backward, gradient clipping and the optimizer
+update; the host only computes the schedule's lr. Losses and metrics come
+back as device tensors: nothing is read to the host unless the caller asks
+(``check_nan``).
+
+Precision. With ``compute_dtype=float32`` the model trains as it is. With
+``compute_dtype=bfloat16`` the runner keeps the fp32 master model and a bf16
+copy of it: forward and backward run on the copy (gradients arrive in bf16),
+the optimizer updates the fp32 masters from the upcast gradients, and the
+copy is refreshed from the masters (afft_tpu/train/runner.py:175-188,
+:309-367).
+
+The fuser blocks train through ``ops.fused_block_train`` (CUDA kernels,
+forward and backward); ``impl="plain"`` runs their plain versions on the
+same masks. Entry point: ``Runner.from_config`` on a composed expt config,
+on the card unless the caller passes ``device="cpu"``.
+
+Waiting (ROADMAP.md §A.7): ``grad_accum``, ``master_dtype=bfloat16``,
+``param_shardings``, and the in-step metric accumulator with
+``absorb_accum`` (the metric tracker).
+"""
+
+from __future__ import annotations
+
+import copy
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from .. import resolve_device
+from ..config.registry import instantiate
+from ..models import BaseModel
+from ..models import layers as L
+from . import losses as LO
+from . import optim as O
+from .mixup import MixUp
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """torch.nn.utils.clip_grad_norm_ semantics, in place on fp32 grads;
+    returns the norm (a device tensor)."""
+    norms = torch._foreach_norm(grads)
+    gnorm = torch.linalg.vector_norm(torch.stack(norms))
+    scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
+    torch._foreach_mul_(grads, scale)
+    return gnorm
+
+
+class Runner:
+    """Owns the model, its optimizer and the steps."""
+
+    def __init__(self, model, optimizer: O.Optimizer, groups: Dict,
+                 loss_wts: Dict, mixup: Optional[MixUp] = None,
+                 mixup_backbone: bool = True,
+                 grad_clip: Optional[float] = None,
+                 compute_dtype=torch.float32,
+                 class_weights: Optional[Dict] = None, seed: int = 0,
+                 impl: str = "kernel"):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.loss_wts = dict(loss_wts)
+        self.mixup = mixup
+        self.mixup_backbone = mixup_backbone
+        self.grad_clip = grad_clip
+        self.compute_dtype = compute_dtype
+        self.impl = impl
+        self.class_weights = None if not class_weights else {
+            t: torch.as_tensor(w, dtype=torch.float32, device=self.device)
+            for t, w in class_weights.items()}
+        self.rng = L.RngStream(seed, self.device)
+        self.masters = [p for _, p in model.named_parameters()]
+        self._mixed = compute_dtype != torch.float32
+        if self._mixed:
+            # the compute copy: same modules, parameters in compute_dtype
+            self.net = copy.deepcopy(model).to(compute_dtype)
+            self.compute = [p for _, p in self.net.named_parameters()]
+        else:
+            self.net, self.compute = model, self.masters
+        self.optimizer = optimizer.bind(list(model.named_parameters()),
+                                        groups)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_config(cls, cfg, num_classes: Dict[str, int], *, device="cuda",
+                    iters_per_epoch: int = 1, world_size: int = 1,
+                    weights=None, impl: str = "kernel", compute_dtype=None):
+        """Build the model, parameter groups, optimizer, schedule and mixup
+        of a composed expt config (afft_tpu/train/loop.py:336-369). The
+        model is drawn from ``cfg.seed`` unless ``weights`` (a state dict)
+        is given. ``runner.lr_schedule(iteration, runner.base_lr)`` is the
+        step's lr."""
+        if (cfg.train.get("master_dtype") or "float32") != "float32" \
+                or int(cfg.train.get("grad_accum") or 1) != 1:
+            raise NotImplementedError(
+                "train.master_dtype=bfloat16 and train.grad_accum > 1 are "
+                "not ported (ROADMAP.md §A.7)")
+        device = resolve_device(device)
+        with torch.device(device):
+            model = BaseModel(cfg.model, num_classes=num_classes)
+        seed = int(cfg.get("seed", 42))
+        if weights is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            model.reset_parameters(gen)
+        else:
+            model.load_state_dict(weights, strict=True)
+        groups = O.build_groups(list(model.named_parameters()),
+                                cfg.opt.lr_wd, cfg.opt.lr, cfg.opt.wd)
+        mixup = None
+        if cfg.train.use_mixup:
+            mixup = MixUp(alpha=cfg.train.mixup_alpha,
+                          label_smoothing=dict(
+                              cfg.train.label_smoothing.items()),
+                          num_classes=num_classes)
+        if compute_dtype is None:
+            compute_dtype = cfg.model.get("compute_dtype") or "float32"
+        if isinstance(compute_dtype, str):
+            compute_dtype = DTYPES[compute_dtype]
+        runner = cls(model, instantiate(cfg.opt.optimizer), groups,
+                     loss_wts=dict(cfg.train.loss_wts.items()), mixup=mixup,
+                     mixup_backbone=cfg.train.mixup_backbone,
+                     grad_clip=cfg.opt.grad_clip,
+                     compute_dtype=compute_dtype, seed=seed, impl=impl)
+        runner.base_lr = float(cfg.opt.lr)
+        runner.lr_schedule = O.build_schedule(cfg.opt, iters_per_epoch,
+                                              world_size)
+        return runner
+
+    # ------------------------------------------------------------------
+    def _to_device(self, batch):
+        def move(v, dtype=None):
+            return torch.as_tensor(v).to(self.device, dtype)
+        out = {"data_dict": {m: move(v, self.compute_dtype)
+                             for m, v in batch["data_dict"].items()},
+               "target": {k: move(v, torch.long)
+                          for k, v in batch["target"].items()}}
+        sub = batch.get("target_subclips")
+        out["target_subclips"] = None if sub is None else {
+            k: move(v, torch.long) for k, v in sub.items()}
+        valid = batch.get("valid")
+        if valid is None:
+            n = len(next(iter(out["target"].values())))
+            out["valid"] = torch.ones(n, dtype=torch.bool,
+                                      device=self.device)
+        else:
+            out["valid"] = move(valid, torch.bool)
+        out["mixup_lam"] = batch.get("mixup_lam")
+        return out
+
+    def _forward(self, batch, *, train: bool, use_mixup: bool):
+        data, target = batch["data_dict"], batch["target"]
+        target_subclips, valid = batch["target_subclips"], batch["valid"]
+        mixup_fn, ignore = None, None
+        # batch["mixup_lam"] pins the Beta draw, so that a recorded
+        # trajectory can be replayed exactly
+        lam = batch["mixup_lam"]
+        if use_mixup:
+            mix = functools.partial(self.mixup.mix, lam) if lam is not None \
+                else functools.partial(self.mixup, self.rng.gen)
+            if self.mixup_backbone:
+                mixup_fn = functools.partial(mix, valid=valid)
+            else:  # input-level mixup (reference runner.py:246-253)
+                data, target, target_subclips, ignore = mix(
+                    data, target, target_subclips, valid=valid)
+        return self.net.forward_train(
+            data, target=target, target_subclips=target_subclips,
+            target_subclips_ignore_index=ignore, mixup_fn=mixup_fn,
+            impl=self.impl, rng=self.rng if train else None)
+
+    def _losses(self, outputs, outputs_target, valid, mixup_enable,
+                train=True):
+        losses, metrics = LO.compute_losses_metrics(
+            outputs, outputs_target["target"],
+            outputs_target["target_subclips"], mixup_enable=mixup_enable,
+            target_subclips_ignore_index=outputs_target[
+                "target_subclips_ignore_index"],
+            valid=valid,
+            class_weights=self.class_weights if train else None)
+        return LO.reduce_losses(losses, self.loss_wts), losses, metrics
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch, lr: float, base_lr: float,
+                   check_nan: bool = False):
+        """One iteration on ``batch`` ({"data_dict", "target",
+        "target_subclips", "valid", "mixup_lam"}; numpy or tensors) at the
+        schedule's ``lr``. Returns (losses with ``total_loss``, metrics),
+        device tensors detached from the graph."""
+        batch = self._to_device(batch)
+        use_mixup = self.mixup is not None
+        self.net.train()
+        outputs, outputs_target = self._forward(batch, train=True,
+                                                use_mixup=use_mixup)
+        total, losses, metrics = self._losses(outputs, outputs_target,
+                                              batch["valid"], use_mixup)
+        for p in self.compute:
+            p.grad = None
+        total.backward()
+        if self._mixed:
+            # bf16 gradients of the compute copy -> fp32 on the masters
+            for p, c in zip(self.masters, self.compute):
+                p.grad = None if c.grad is None else c.grad.float()
+                c.grad = None
+        if self.grad_clip is not None:
+            clip_by_global_norm([p.grad for p in self.masters
+                                 if p.grad is not None], self.grad_clip)
+        self.optimizer.step(lr / base_lr)
+        if self._mixed:
+            with torch.no_grad():
+                torch._foreach_copy_(self.compute, self.masters)
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["total_loss"] = total.detach()
+        if check_nan and bool(torch.isnan(losses["total_loss"])):
+            raise ValueError("The loss is NaN!")
+        return losses, metrics
+
+    @torch.no_grad()
+    def eval_step(self, batch):
+        """(losses with ``total_loss``, metrics, fp32 action logits (B, C) of
+        the fused head or the first one, or None)."""
+        batch = self._to_device(batch)
+        self.net.eval()
+        outputs, outputs_target = self._forward(batch, train=False,
+                                                use_mixup=False)
+        total, losses, metrics = self._losses(
+            outputs, outputs_target, batch["valid"], False, train=False)
+        losses = dict(losses)
+        losses["total_loss"] = total
+        action_logits = None
+        if "logits/action" in outputs:
+            heads = outputs["logits/action"]
+            modk = "all-fused" if "all-fused" in heads else next(iter(heads))
+            action_logits = heads[modk][:, 0, :].float()
+        return losses, metrics, action_logits

@@ -12,7 +12,9 @@ of afft_tpu (train/torch_export.py ``export_base_model``):
   with heads minor, so ``c_attn`` is re-interleaved;
 - one shared classifier appears under every head key.
 
-``load_reference_checkpoint`` reads a reference ``.pth``. Either result
+``grads_from_jax`` carries a JAX gradient pytree the same way (the tests
+compare gradients with it). ``load_reference_checkpoint`` reads a reference
+``.pth``. Either result
 loads with ``model.load_state_dict`` and needs no adapter.
 """
 
@@ -173,6 +175,17 @@ def state_dict_from_jax(model, params) -> Dict[str, torch.Tensor]:
         flat[k] = _np(v)
     out.update(_tensors(flat))
     return out
+
+
+def grads_from_jax(model, grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient pytree (the structure of the JAX parameters, numpy
+    leaves) -> {the port's parameter name: gradient in the port's layout}.
+    Every layout change of ``state_dict_from_jax`` is a permutation, so the
+    gradients take the same road: Linear weights transposed, ``c_attn``
+    re-interleaved; a shared classifier's gradient lands under the one name
+    ``model.named_parameters()`` gives it."""
+    sd = state_dict_from_jax(model, grads)
+    return {name: sd[name] for name, _ in model.named_parameters()}
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:

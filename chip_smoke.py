@@ -7,7 +7,11 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. device  - the card's name and power limit (nvidia-smi), TF32 off;
   2. build   - compile afft_tpu_torch/csrc with nvcc for sm_90a;
   3. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
-               fused_attention, fused_seq_block, fused_decoder_block)
+               fused_attention, fused_seq_block, fused_decoder_block; the
+               training block's forward and two backward halves and
+               draw_masks, whose masks equal the generator in torch integer
+               ops bit for bit and whose gradients are held against fp32
+               autograd through the plain version)
                against its plain PyTorch version on the card, in bf16 at the
                shapes of the served paths and in fp32 at a reduced batch,
                and at edge shapes; its time beside the plain version's, a
@@ -25,7 +29,21 @@ Phases, in order; any failure exits non-zero and prints no result:
                clips/s, ms per batch and the device time by kernel group
                (torch.profiler). In fp32 the rollout also equals the full
                re-run of every step on the plain path;
-  5. report  - one JSON line of per-kernel numbers, then the result line.
+  5. train   - the flagship training step (expts/01_SA-Fuser_ek100_train.txt,
+               Runner.train_step at full width, seeded weights, synthetic
+               EK100-shaped batches): three fp32 steps at batch 32 through
+               the training kernels against three through their plain
+               versions on the same masks; then twenty bf16 steps at batch
+               256 over fp32 master weights with the launch counts of every
+               step asserted, a falling loss, ms per step, clips/s, peak
+               memory and one profiled step. The launch counts of the kernels
+               line are those of the twenty bf16 steps alone; the fp32 runs
+               are counted apart. draw_masks is launched by no training step
+               (the masks are regenerated in registers): its entry says so,
+               with 0 launches. The GPT-2 layers train through plain PyTorch
+               ops under autograd, so the bf16 step time is that of a mixed
+               path, as the train line's "gpt2_layers" key says;
+  6. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -524,6 +542,368 @@ def _edge_ok(what, tag, got, want):
     return 1
 
 
+# -- the training kernels (fused_block_train forward, two backward halves,
+#    draw_masks) --------------------------------------------------------------
+
+# The flagship trains with dropout 0.1 at the three fuser sites and drop-path
+# 0.1, which the last block of the stack gets in full (a linear schedule).
+TRAIN_RATES = dict(attn_rate=0.1, drop_rate=0.1, dp_rate=0.1)
+TRAIN_SEEDS = (20240607, 1234567)
+# Gradients against fp32 autograd through the plain version on the same
+# masks, per tensor, as a share of the reference's largest magnitude. bf16:
+# the kernels round dh2, dpre1, dproj and dqkv and take the GELU from the
+# rounded pre1, as the TPU kernels do (each one bf16 ulp, 2^-8), and the
+# parameter gradients sum 20,480 such rows in fp32: 2e-2 covers a few ulps of
+# the largest entry. fp32: only the summation order differs, over up to 4,096
+# terms a product and 2,560 rows a gradient: 1e-4.
+GRAD_TOL = {"bf16": 2e-2, "fp32": 1e-4}
+GRAD_KEYS_MLP = ("norm2.weight", "norm2.bias", "mlp.mlp.0.weight",
+                 "mlp.mlp.0.bias", "mlp.mlp.2.weight", "mlp.mlp.2.bias")
+
+
+def _rel_err(got, want):
+    finite, max_abs, rel = errors(got, want)
+    if not finite:
+        return float("inf"), max_abs
+    return rel, max_abs
+
+
+def check_train_block(tag, dt, R, N, C, H, hidden, gen, *, rates=None,
+                      affine=True, qkv_bias=False, diag_mask=False,
+                      block_idx=5):
+    """One shape of the training block on the card: kernel 10 against
+    draw_masks_plain bit for bit, kernel 7's out / y / qkv / pre1 against the
+    plain version on those masks, kernels 8 + 9's dx and parameter gradients
+    against fp32 autograd through the plain version. Returns the operands and
+    the largest absolute errors by kernel."""
+    import torch
+    from afft_tpu_torch.models.layers import cross_attention_diag_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+
+    rates = TRAIN_RATES if rates is None else rates
+    what = (f"fused_block_train {tag} R={R} N={N} C={C} H={H} hidden={hidden} "
+            f"rates={tuple(rates.values())} affine={affine} qkv_bias="
+            f"{qkv_bias} mask={diag_mask}")
+    p = block_params(C, hidden, dt, gen, affine, qkv_bias)
+    rn = _randn(gen, dt)
+    x, dout = rn(R, N, C), rn(R, N, C)
+    mask = cross_attention_diag_mask(N, device="cuda") if diag_mask else None
+    args = (R, N, C, H, TRAIN_SEEDS, block_idx, *rates.values())
+
+    # kernel 10: the same bits as the generator in torch integer ops
+    masks = FT.draw_masks(*args, device="cuda")
+    plain_masks = FT.draw_masks_plain(*args, device="cuda")
+    torch.cuda.synchronize()
+    for site, (got, want) in enumerate(zip(masks, plain_masks)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: draw_masks site {site} differs "
+                                 "from draw_masks_plain")
+    del plain_masks
+    for got, rate in zip(masks, (rates["attn_rate"], rates["drop_rate"],
+                                 rates["dp_rate"], rates["drop_rate"],
+                                 rates["dp_rate"])):
+        n, kept = got.numel(), float((got > 0).float().mean())
+        sigma = (rate * (1 - rate) / n) ** 0.5
+        if abs(kept - (1 - rate)) > 4 * sigma + 1e-12:
+            raise AssertionError(f"{what}: keep fraction {kept} of {n}, "
+                                 f"expected {1 - rate} +- {4 * sigma:.3g}")
+
+    # kernel 7 against the plain version fed kernel 10's masks
+    xk = x.clone().requires_grad_(True)
+    pk = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    out = FT.fused_block_train(xk, pk, mask, TRAIN_SEEDS, num_heads=H,
+                               block_idx=block_idx, **rates)
+    torch.cuda.synchronize()
+    y, qkv, pre1 = out.grad_fn.saved_tensors[1:4]
+    with torch.no_grad():
+        want = FT.fused_block_train_plain(x, p, mask, masks, num_heads=H,
+                                          return_residuals=True)
+    errs = {"fwd": 0.0, "bwd_mlp": 0.0, "bwd_attn": 0.0}
+    for name, got, ref in zip(("out", "y", "qkv", "pre1"),
+                              (out, y, qkv, pre1), want):
+        rel, max_abs = _rel_err(got.reshape(ref.shape), ref)
+        errs["fwd"] = max(errs["fwd"], max_abs)
+        if not rel <= KERNEL_TOL[tag]:
+            raise AssertionError(f"{what}: forward {name} rel_err={rel:.3g} "
+                                 f"(tol {KERNEL_TOL[tag]:g})")
+    del want
+
+    # kernels 8 + 9 against fp32 autograd through the plain version
+    out.backward(dout)
+    torch.cuda.synchronize()
+    x32 = x.float().requires_grad_(True)
+    p32 = {k: v.float().requires_grad_(True) for k, v in p.items()}
+    ref = FT.fused_block_train_plain(x32, p32, mask, masks, num_heads=H)
+    ref.backward(dout.float())
+    torch.cuda.synchronize()
+    worst = ("", 0.0)
+    for name, got, want in [("dx", xk.grad, x32.grad)] + [
+            (k, pk[k].grad, p32[k].grad) for k in p]:
+        if got is None:
+            raise AssertionError(f"{what}: no gradient for {name}")
+        rel, max_abs = _rel_err(got, want)
+        half = "bwd_mlp" if name in GRAD_KEYS_MLP else "bwd_attn"
+        errs[half] = max(errs[half], max_abs)
+        if rel > worst[1]:
+            worst = (name, rel)
+        if not rel <= GRAD_TOL[tag]:
+            raise AssertionError(f"{what}: gradient {name} rel_err={rel:.3g} "
+                                 f"(tol {GRAD_TOL[tag]:g} of max|ref|)")
+    return dict(x=x, p=p, dout=dout, mask=mask, masks=masks, errs=errs,
+                worst=worst, what=what)
+
+
+def check_train_edge_shapes(gen):
+    """The training kernels at the edges of their limits: 1 to 8 tokens, row
+    counts that fill no tile, head widths 8 / 64 / 256, rates 0 and 0.5,
+    biases and affines on and off, with and without the additive mask; and
+    what drop-path promises: a row dropped in both branches passes x and its
+    gradient through untouched."""
+    import torch
+    from afft_tpu_torch.ops import fused_block_train as FT
+    n = 0
+    half = dict(attn_rate=0.5, drop_rate=0.5, dp_rate=0.5)
+    zero = dict(attn_rate=0.0, drop_rate=0.0, dp_rate=0.0)
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for R, N, C, H, hidden, rates, affine, qkv_bias, diag in (
+                (1, 1, 64, 8, 256, None, True, False, False),
+                (33, 8, 64, 1, 128, half, False, True, True),
+                (1000, 3, 40, 5, 72, zero, True, True, True),
+                (33, 2, 512, 2, 64, half, True, False, False),
+                (130, 5, 96, 4, 384, None, False, False, True),
+                (7, 4, 256, 4, 1024, zero, True, True, False),
+                (64, 6, 128, 2, 512, None, True, False, True),
+                (5, 7, 48, 6, 96, half, True, True, False)):
+            check_train_block(tag, dt, R, N, C, H, hidden, gen, rates=rates,
+                              affine=affine, qkv_bias=qkv_bias,
+                              diag_mask=diag, block_idx=n % 6)
+            n += 1
+        # drop-path: rows whose two multipliers are both 0
+        R, N, C, H, hidden = 512, 5, 64, 4, 256
+        rates = dict(attn_rate=0.1, drop_rate=0.1, dp_rate=0.5)
+        p = block_params(C, hidden, dt, gen)
+        x = _randn(gen, dt)(R, N, C).requires_grad_(True)
+        dout = _randn(gen, dt)(R, N, C)
+        masks = FT.draw_masks(R, N, C, H, TRAIN_SEEDS, 2, *rates.values())
+        dropped = (masks[2] == 0) & (masks[4] == 0)
+        out = FT.fused_block_train(x, p, None, TRAIN_SEEDS, num_heads=H,
+                                   block_idx=2, **rates)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        if not (int(dropped.sum()) > R // 8
+                and torch.equal(out[dropped], x[dropped])
+                and torch.equal(x.grad[dropped], dout[dropped])):
+            raise AssertionError(f"drop-path {tag}: a row dropped in both "
+                                 "branches must give out == x and dx == dout")
+        n += 1
+    log(f"kernels: {n} training edge-shape checks agree with the plain "
+        "versions (masks bit for bit)")
+
+
+def library_train_halves(p, H, eps, rates, dp_masks, mask=None):
+    """The training block as cuBLAS GEMMs + SDPA + F.layer_norm + F.dropout
+    under autograd, in two halves; used nowhere in the port."""
+    import torch.nn.functional as F
+    dp1, dp2 = dp_masks
+
+    def attn_half(x):
+        R, N, C = x.shape
+        h = F.layer_norm(x, (C,), p["norm1.weight"], p["norm1.bias"], eps)
+        q, k, v = (F.linear(h, p["attn.qkv.weight"])
+                   .view(R, N, 3, H, C // H).permute(2, 0, 3, 1, 4))
+        a = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=None if mask is None else mask == 0,
+            dropout_p=rates["attn_rate"])
+        a = F.linear(a.transpose(1, 2).reshape(R, N, C),
+                     p["attn.proj.weight"], p["attn.proj.bias"])
+        return x + dp1 * F.dropout(a, rates["drop_rate"])
+
+    def mlp_half(y):
+        C = y.shape[-1]
+        h = F.layer_norm(y, (C,), p["norm2.weight"], p["norm2.bias"], eps)
+        h = F.gelu(F.linear(h, p["mlp.mlp.0.weight"], p["mlp.mlp.0.bias"]))
+        h = F.linear(h, p["mlp.mlp.2.weight"], p["mlp.mlp.2.bias"])
+        return y + dp2 * F.dropout(h, rates["drop_rate"])
+    return attn_half, mlp_half
+
+
+def train_kernel_work(R, N, C, H, hidden, item):
+    """(flops, bytes) of each training kernel: each input read once, each
+    output written once, the stashed residuals counted where they are
+    written and where they are read; parameter gradients are fp32."""
+    M = R * N
+    wa, wm = 4 * C * C, 2 * C * hidden            # attention / MLP weights
+    small_a, small_m = 6 * C, 3 * C + hidden      # their biases and affines
+    fwd = (2 * M * C * (4 * C + 2 * hidden) + 4 * R * N * N * C,
+           (M * (2 * C + C + 3 * C + hidden) + wa + wm + small_a
+            + small_m) * item + N * N * 4)
+    bwd_mlp = (8 * M * C * hidden,
+               (M * (2 * C + hidden + C) + wm + 2 * C) * item
+               + (wm + small_m) * 4)
+    bwd_attn = (16 * M * C * C + 12 * R * N * N * C,
+                (M * (2 * C + 3 * C + C) + wa + 2 * C) * item
+                + (wa + small_a) * 4 + N * N * 4)
+    masks = (0, (2 * M * C + 2 * R + R * H * N * N) * 4)
+    return {"fused_block_train_fwd": fwd,
+            "fused_block_train_bwd_mlp": bwd_mlp,
+            "fused_block_train_bwd_attn": bwd_attn, "draw_masks": masks}
+
+
+TRAIN_KERNELS = {
+    "fused_block_train_fwd": "afft_tpu/ops/pallas_block_train.py:759",
+    "fused_block_train_bwd_mlp": "afft_tpu/ops/pallas_block_train.py:242",
+    "fused_block_train_bwd_attn": "afft_tpu/ops/pallas_block_train.py:303",
+    "draw_masks": "afft_tpu/ops/pallas_block_train.py:670",
+}
+
+
+def phase_train_kernels(peaks, gen):
+    """Kernels 7-10 at the flagship shape in bf16 (R = 4096 rows of 5 tokens)
+    and at R = 512 in fp32, then their times beside the plain versions', a
+    library composition's and the bound."""
+    import torch
+    from afft_tpu_torch.ops import fused_block_train as FT
+
+    check_train_edge_shapes(gen)
+    N, C, H, hidden, eps = 5, 1024, 4, 4096, 1e-6
+    case = check_train_block("fp32", torch.float32, 512, N, C, H, hidden, gen)
+    log(f"kernel {case['what']}: forward and masks ok, worst gradient "
+        f"{case['worst'][0]} rel_err={case['worst'][1]:.3g} (tol "
+        f"{GRAD_TOL['fp32']:g})")
+    del case
+    torch.cuda.empty_cache()
+    R = 4096
+    case = check_train_block("bf16", torch.bfloat16, R, N, C, H, hidden, gen)
+    log(f"kernel {case['what']}: forward and masks ok, worst gradient "
+        f"{case['worst'][0]} rel_err={case['worst'][1]:.3g} (tol "
+        f"{GRAD_TOL['bf16']:g})")
+    x, p, dout, masks, errs = (case[k] for k in ("x", "p", "dout", "masks",
+                                                  "errs"))
+    rates = TRAIN_RATES
+    block = dict(num_heads=H, block_idx=5, **rates)
+
+    # the kernels, through the wrapper and through autograd
+    def leaves():
+        return (x.clone().requires_grad_(True),
+                {k: v.clone().requires_grad_(True) for k, v in p.items()})
+    xk, pk = leaves()
+    out = FT.fused_block_train(xk, pk, None, TRAIN_SEEDS, **block)
+    saved = out.grad_fn.saved_tensors
+    y, qkv, pre1, tensors = saved[1], saved[2], saved[3], list(saved[5:])
+    cfg = out.grad_fn.cfg
+    grads = FT.new_grads(tensors)
+    dflat = dout.reshape(R * N, C)
+    dy = FT.block_train_bwd_mlp(x, y, dflat, pre1, tensors, grads, cfg)
+    with torch.no_grad():
+        ms = {
+            "fused_block_train_fwd": time_ms(lambda: FT.fused_block_train(
+                x, p, None, TRAIN_SEEDS, **block)),
+            "fused_block_train_bwd_mlp": time_ms(
+                lambda: FT.block_train_bwd_mlp(x, y, dflat, pre1, tensors,
+                                               grads, cfg)),
+            "fused_block_train_bwd_attn": time_ms(
+                lambda: FT.block_train_bwd_attn(x, dy, qkv, None, tensors,
+                                                grads, cfg)),
+            "draw_masks": time_ms(lambda: FT.draw_masks(
+                R, N, C, H, TRAIN_SEEDS, 5, *rates.values())),
+        }
+
+    def fwd_bwd():
+        o = FT.fused_block_train(xk, pk, None, TRAIN_SEEDS, **block)
+        o.backward(dout)
+    whole_ms = time_ms(fwd_bwd, iters=10)
+    del out, saved, y, qkv, pre1, dy, grads
+
+    # the plain versions: forward on the masks, autograd through each half
+    xp, pp = leaves()
+    yp, _ = FT.attn_half_train_plain(xp, pp, None, masks, num_heads=H)
+    yl = yp.detach().requires_grad_(True)
+    op, _ = FT.mlp_half_train_plain(yl, pp, masks, x.dtype, N)
+    mlp_in = [yl] + [pp[k] for k in GRAD_KEYS_MLP]
+    attn_in = [xp] + [pp[k] for k in p if k not in GRAD_KEYS_MLP]
+    dy32 = torch.randn_like(yp)
+    with torch.no_grad():
+        plain_fwd = time_ms(lambda: FT.fused_block_train_plain(
+            x, p, None, masks, num_heads=H), iters=10)
+        plain_masks = time_ms(lambda: FT.draw_masks_plain(
+            R, N, C, H, TRAIN_SEEDS, 5, *rates.values(), device="cuda"),
+            iters=5)
+    plain_ms = {
+        "fused_block_train_fwd": plain_fwd,
+        "fused_block_train_bwd_mlp": time_ms(lambda: torch.autograd.grad(
+            op, mlp_in, dflat, retain_graph=True), iters=10),
+        "fused_block_train_bwd_attn": time_ms(lambda: torch.autograd.grad(
+            yp, attn_in, dy32, retain_graph=True), iters=10),
+        "draw_masks": plain_masks}
+    del yp, yl, op, xp, pp, mlp_in, attn_in, dy32
+    torch.cuda.empty_cache()
+
+    # the library yardstick
+    xl, pl = leaves()
+    attn_half, mlp_half = library_train_halves(
+        pl, H, eps, rates, (masks[2].to(x.dtype).reshape(R, 1, 1),
+                            masks[4].to(x.dtype).reshape(R, 1, 1)))
+    ya = attn_half(xl)
+    yb = ya.detach().requires_grad_(True)
+    ob = mlp_half(yb)
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: mlp_half(attn_half(x)))
+    library_ms = {
+        "fused_block_train_fwd": lib_fwd,
+        "fused_block_train_bwd_mlp": time_ms(lambda: torch.autograd.grad(
+            ob, [yb] + [pl[k] for k in GRAD_KEYS_MLP], dout,
+            retain_graph=True)),
+        "fused_block_train_bwd_attn": time_ms(lambda: torch.autograd.grad(
+            ya, [xl] + [pl[k] for k in p if k not in GRAD_KEYS_MLP], dout,
+            retain_graph=True)),
+        "draw_masks": None}
+
+    def lib_fwd_bwd():
+        o = mlp_half(attn_half(xl))
+        o.backward(dout)
+    lib_whole_ms = time_ms(lib_fwd_bwd, iters=10)
+    del ya, yb, ob, xl, pl
+    with torch.no_grad():
+        ones = torch.ones(R * N, C, device="cuda")
+        bernoulli_ms = time_ms(lambda: torch.nn.functional.dropout(ones, 0.1))
+    torch.cuda.empty_cache()
+
+    work = train_kernel_work(R, N, C, H, hidden, x.element_size())
+    max_abs = {"fused_block_train_fwd": errs["fwd"],
+               "fused_block_train_bwd_mlp": errs["bwd_mlp"],
+               "fused_block_train_bwd_attn": errs["bwd_attn"],
+               "draw_masks": 0.0}
+    results = {}
+    for name, replaces in TRAIN_KERNELS.items():
+        flops, nbytes = work[name]
+        t_ops = flops / peaks["bf16"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        results[name] = dict(
+            name=name, route="cuda",
+            source="afft_tpu_torch/csrc/fused_block_train.cu",
+            replaces=replaces, max_abs_err=max_abs[name], ms=ms[name],
+            plain_ms=plain_ms[name], library_ms=library_ms[name],
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            flops=flops, bytes=nbytes)
+        lib = library_ms[name]
+        log(f"kernel {name} bf16 R={R} kernel_ms={ms[name]:.4f} plain_ms="
+            f"{plain_ms[name]:.4f} library_ms="
+            f"{'null' if lib is None else format(lib, '.4f')} bound_ms="
+            f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) achieved="
+            f"{flops / ms[name] / 1e9:.1f} TFLOP/s "
+            f"{nbytes / ms[name] / 1e6:.1f} GB/s")
+    log(f"kernel fused_block_train bf16 R={R}: forward + backward of one "
+        f"block {whole_ms:.4f} ms through the kernels, {lib_whole_ms:.4f} ms "
+        f"through the library composition; one F.dropout mask of (R*N, C) "
+        f"{bernoulli_ms:.4f} ms beside draw_masks' five")
+    results["fused_block_train_fwd"]["block_fwd_bwd_ms"] = whole_ms
+    results["fused_block_train_fwd"]["library_block_fwd_bwd_ms"] = \
+        lib_whole_ms
+    return results
+
+
 def phase_kernels(peaks):
     import torch
 
@@ -582,28 +962,34 @@ def phase_kernels(peaks):
 
 # -- the main path ------------------------------------------------------------
 
-def profile_forward(fn):
-    """Device ms by kernel group over one forward (torch.profiler), and the
-    device's busy share of the forward's host wall time. Fails when the
-    profiler sees no device work."""
+def profile_forward(fn, what="one bf16 forward", grad=False):
+    """Device ms by kernel group over one call of ``fn`` (torch.profiler),
+    and the device's busy share of the call's host wall time. Fails when
+    the profiler sees no device work."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad(), profile(activities=[
+    with torch.set_grad_enabled(grad), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device work only: a record_function range (the optimizer's step) is
+    # mirrored on the device timeline and would count its kernels twice
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and "#" not in e.name]
     if not kernels:
         raise RuntimeError("the profiler saw no device events")
     groups, names = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         # gemm_bf16<EPI, B_KN, ...>: EPI 0 bias, 1 bias + residual,
-        # 2 exact GELU, 3 gelu_new; B_KN true = Conv1D (GPT-2) weights
+        # 2 exact GELU, 3 gelu_new, 4 residual + dropout + drop-path,
+        # 5 stash + GELU, 6 GELU backward; B_KN true = W read as (K, N):
+        # the GPT-2 Conv1D weights, and the fuser's dX = dY . W products
         m = re.search(r"afft::(\w+)(?:<(\d+), (true|false))?", e.name)
         if m is None:
             group = "other (PyTorch ops)"
@@ -611,11 +997,11 @@ def profile_forward(fn):
             group = m.group(1)
         else:
             group = (f"{m.group(1)}<epi {m.group(2)}, "
-                     f"{'gpt2' if m.group(3) == 'true' else 'fuser'}>")
+                     f"{'W(K,N)' if m.group(3) == 'true' else 'W(N,K)'}>")
         groups[group] = groups.get(group, 0.0) + us
         names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
     busy = sum(groups.values())
-    log(f"profile: one bf16 forward, device busy {busy / 1e3:.3f} ms of "
+    log(f"profile: {what}, device busy {busy / 1e3:.3f} ms of "
         f"{wall_us / 1e3:.3f} ms host wall (busy share "
         f"{busy / wall_us:.3f}, profiler on)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -866,6 +1252,202 @@ def phase_serve():
     return launches, numbers
 
 
+# -- the training path --------------------------------------------------------
+
+TRAIN_EXPT = "01_SA-Fuser_ek100_train.txt"
+TRAIN_CLASSES = {"action": 3806, "verb": 97, "noun": 300}
+TRAIN_BATCH = 256
+TRAIN_STEPS = 20
+TRAIN_DISTINCT_BATCHES = 8
+
+
+def synthetic_batches(cfg, batch, n, seed):
+    """``n`` distinct EK100-shaped training batches on the card: four
+    modalities of N(0, 1) features over 16 frames, action / verb / noun
+    targets, per-frame past targets (a tenth of the rows carry ignored
+    frames and are left out of the mixup, as in the real data)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    T = int(cfg.data_train.num_frames)
+    dims = {m: int(d) for m, d in cfg.model.modal_dims.to_container().items()}
+    out = []
+    for _ in range(n):
+        sub = {t: torch.randint(0, c, (batch, T, 1), generator=gen,
+                                device="cuda")
+               for t, c in TRAIN_CLASSES.items()}
+        ignored = torch.rand(batch, generator=gen, device="cuda") < 0.1
+        for t in sub:
+            sub[t][ignored, :4] = -1
+        out.append({
+            "data_dict": {m: torch.randn(batch, T, d, generator=gen,
+                                         device="cuda")
+                          for m, d in dims.items()},
+            "target": {t: torch.randint(0, c, (batch,), generator=gen,
+                                        device="cuda")
+                       for t, c in TRAIN_CLASSES.items()},
+            "target_subclips": sub})
+    return out
+
+
+def phase_train():
+    """The flagship training step through ``Runner.train_step``; returns
+    (launches of the twenty bf16 steps alone, numbers). The fp32 runs
+    through the kernels and through the plain versions are counted each on
+    its own and reported in the numbers, never merged into the former."""
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.ops import launch_counts, reset_launches
+    from afft_tpu_torch.train.runner import Runner
+
+    cfg = serve.load_config(os.path.join(EXPTS, TRAIN_EXPT))
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    train_names = ("fused_block_train_fwd", "fused_block_train_bwd_mlp",
+                   "fused_block_train_bwd_attn")
+    # the lr of the iterations after the warmup (with one iteration an
+    # epoch the expt's 20 warmup epochs are 20 iterations): the base lr
+    # 1e-3 on its way down the cosine
+    warmup = int(cfg.opt.warmup.num_epochs)
+
+    # (a) fp32: the kernels against their plain versions, same masks
+    t0 = time.perf_counter()
+    kernel = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                                iters_per_epoch=1, compute_dtype="float32")
+    plain = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                               iters_per_epoch=1, compute_dtype="float32",
+                               impl="plain",
+                               weights=kernel.model.state_dict())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in kernel.model.parameters())
+    fuser = kernel.model.future_predictor.fuser
+    log(f"train: {TRAIN_EXPT} built twice in {time.perf_counter() - t0:.2f} "
+        f"s, {n_params / 1e6:.1f} M params, optimizer "
+        f"{type(kernel.optimizer.opt).__name__} nesterov="
+        f"{kernel.optimizer.opt.defaults['nesterov']}, mixup alpha "
+        f"{kernel.mixup.alpha}, fuser dropout {fuser.drop_rate} / "
+        f"{fuser.attn_drop_rate}, drop-path up to {fuser.dpr[-1]}, seeded "
+        f"random weights")
+    batches = synthetic_batches(cfg, FP32_BATCH, 3, seed=1)
+    fp32 = {}
+    zero = dict.fromkeys(launch_counts(), 0)
+    # each run is counted on its own: the kernel run launches kernels 7-9
+    # and never draw_masks, the plain run launches draw_masks alone
+    for key, run, expected in (
+            ("kernel", kernel, dict.fromkeys(train_names, 3 * depth)),
+            ("plain", plain, {"draw_masks": 3 * depth})):
+        reset_launches()
+        fp32[f"loss_{key}"] = [
+            float(run.train_step(batch, run.lr_schedule(warmup + i,
+                                                        run.base_lr),
+                                 run.base_lr)[0]["total_loss"])
+            for i, batch in enumerate(batches)]
+        counts = launch_counts()
+        if counts != {**zero, **expected}:
+            raise AssertionError(f"train fp32 {key}: launches {counts}, "
+                                 f"expected {expected} and 0 of the others")
+        fp32[f"launches_{key}"] = {k: n for k, n in counts.items() if n}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fp32["loss_kernel"],
+                                                  fp32["loss_plain"]))
+    worst = ("", 0.0)
+    sd_k, sd_p = kernel.model.state_dict(), plain.model.state_dict()
+    for name, w in sd_p.items():
+        d = float((sd_k[name] - w).abs().max()) / max(float(w.abs().max()),
+                                                      1e-30)
+        if d > worst[1]:
+            worst = (name, d)
+    fp32.update(loss_rel_diff=rel, weight_rel_diff=worst[1])
+    log(f"train fp32 B={FP32_BATCH}: 3 steps through the kernels and 3 "
+        f"through the plain versions on the same masks: losses "
+        f"{fp32['loss_kernel']} vs {fp32['loss_plain']} (rel diff {rel:.3g}, "
+        f"tol 1e-4); weights after 3 steps differ by at most {worst[1]:.3g} "
+        f"of max|w| ({worst[0]}, tol 1e-4)")
+    if not (all(map(lambda v: v == v and abs(v) < 1e30, fp32["loss_kernel"]))
+            and rel <= 1e-4 and worst[1] <= 1e-4):
+        raise AssertionError("train fp32: the kernel path disagrees with "
+                             "the plain path")
+    del kernel, plain, run, sd_k, sd_p, batches
+    torch.cuda.empty_cache()
+
+    # (b) bf16 compute over fp32 masters, B = 256
+    runner = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                                iters_per_epoch=1, compute_dtype="bfloat16")
+    batches = synthetic_batches(cfg, TRAIN_BATCH, TRAIN_DISTINCT_BATCHES,
+                                seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {**zero, **dict.fromkeys(train_names, depth)}
+    # No host synchronisation inside the loop: the host enqueues ahead of
+    # the card as a training loop does, each step's events lie on the
+    # stream, and the losses are read back after the last step.
+    losses, events, host_ms = [], [], []
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step_losses, _ = runner.train_step(
+            batches[i % len(batches)],
+            runner.lr_schedule(warmup + i, runner.base_lr), runner.base_lr)
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append((start, end))
+        losses.append(step_losses["total_loss"])
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != per_step:
+            raise AssertionError(f"train step {i + 1}: launches {delta}, "
+                                 f"expected {per_step}")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != {k: n * TRAIN_STEPS for k, n in per_step.items()}:
+        raise AssertionError(f"train bf16: launches {launches} over "
+                             f"{TRAIN_STEPS} steps, expected {per_step} a "
+                             "step")
+    losses = [float(v) for v in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    # the last ten steps as one window: start of step 11 to end of step 20
+    window_ms = events[-10][0].elapsed_time(events[-1][1]) / 10
+    host = statistics.median(host_ms[-10:])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(step_ms[-10:])
+    n = len(batches)
+    first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    log(f"train bf16 B={TRAIN_BATCH}: {TRAIN_STEPS} steps over {n} batches, "
+        f"launches per step {dict((k, per_step[k]) for k in train_names)} "
+        f"and 0 of every serving kernel; total loss by step "
+        f"{[round(v, 4) for v in losses]}; mean of steps 1-4 {first:.4f}, of "
+        f"steps {TRAIN_STEPS - 3}-{TRAIN_STEPS} (the same batches) "
+        f"{last:.4f}")
+    log(f"train bf16 B={TRAIN_BATCH}: ms_per_step={ms:.3f} (CUDA events "
+        f"around each step, median of the last 10) clips_per_s="
+        f"{TRAIN_BATCH / ms * 1e3:.1f}; the last 10 steps as one window "
+        f"{window_ms:.3f} ms a step; host_enqueue_ms_per_step={host:.3f} "
+        f"(host clock, no synchronisation); peak_mem_GB={peak_gb:.2f}")
+    if not all(v == v and abs(v) < 1e30 for v in losses):
+        raise AssertionError("train bf16: non-finite loss")
+    if not (last < first and losses[-1] < losses[0]):
+        raise AssertionError("train bf16: the loss did not fall")
+    batch = batches[TRAIN_STEPS % n]
+    lr = runner.lr_schedule(warmup + TRAIN_STEPS, runner.base_lr)
+    profile = profile_forward(
+        lambda: runner.train_step(batch, lr, runner.base_lr),
+        what="one bf16 training step", grad=True)
+    del runner, batches
+    torch.cuda.empty_cache()
+    return launches, {
+        "expt": TRAIN_EXPT, "params": n_params,
+        "gpt2_layers": "plain PyTorch ops under autograd (their training "
+                       "kernels are not ported yet)", "fp32": fp32,
+        "bf16": {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+                 "ms_per_step": ms, "clips_per_s": TRAIN_BATCH / ms * 1e3,
+                 "window_ms_per_step": window_ms,
+                 "host_enqueue_ms_per_step": host,
+                 "peak_mem_GB": peak_gb, "losses": losses,
+                 "launches_per_step": {k: per_step[k] for k in train_names},
+                 "profile": profile}}
+
+
 def main():
     try:
         import torch
@@ -902,24 +1484,42 @@ def main():
 
         # 3. kernels
         kernels = phase_kernels(peaks)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        kernels.update(phase_train_kernels(peaks, gen))
 
         # 4. serve
         launches, serve_numbers = phase_serve()
-        for k in kernels.values():
-            # KeyError if no served path launched the kernel
-            k["launches"] = launches[k["name"]]
         log(json.dumps({"serve": serve_numbers}))
+
+        # 5. train
+        train_launches, train_numbers = phase_train()
+        launches.update({k: n for k, n in train_launches.items() if n})
+        # The training step regenerates its masks in registers and never
+        # launches draw_masks (nor does the TPU package's training step:
+        # there too it serves only the comparisons). Its count on the main
+        # path is therefore 0, said so in its entry; the launches of the
+        # plain run that feeds on it stand beside it under another key.
+        kernels["draw_masks"].update(
+            main_path=False, plain_path_launches=train_numbers["fp32"]
+            ["launches_plain"]["draw_masks"])
+        launches.setdefault("draw_masks", 0)
+        for k in kernels.values():
+            # KeyError if no driven path launched the kernel
+            k["launches"] = launches[k["name"]]
+        log(json.dumps({"train": train_numbers}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 5. report
+    # 6. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
     log(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
+         **{k: e[k] for k in ("main_path", "plain_path_launches") if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
             for label, sub in e.items() if isinstance(sub, dict)}}
         for e in kernels.values()]}))

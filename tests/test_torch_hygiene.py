@@ -5,6 +5,8 @@
 - Entry points run on the card by default and raise without CUDA.
 - Importing the kernel modules needs neither nvcc nor a GPU.
 - The _target_ registry resolves the ported targets and rejects the rest.
+- Training works for the per-timestep fusers and raises, naming the roadmap,
+  for what is not ported; the serving kernels refuse to run under autograd.
 """
 
 import ast
@@ -22,6 +24,8 @@ from afft_tpu_torch.config import CONF_DIR, compose, instantiate, \
     read_expt_file
 from afft_tpu_torch.config.registry import resolve_target
 from afft_tpu_torch.models import BaseModel
+from afft_tpu_torch.models.layers import RngStream
+from afft_tpu_torch.train.runner import Runner
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "afft_tpu_torch")
@@ -47,10 +51,12 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_afft_tpu():
     files = _port_files()
-    assert len(files) > 17
+    assert len(files) > 23
     names = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/attention.py", "ops/fused_seq_block.py",
-            "models/fusion.py", "models/predictor.py"} <= names
+            "models/fusion.py", "models/predictor.py",
+            "ops/fused_block_train.py", "train/losses.py", "train/mixup.py",
+            "train/optim.py", "train/runner.py"} <= names
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "afft_tpu")]
@@ -92,6 +98,16 @@ def test_server_default_device_raises_without_cuda():
         serve.Server(cfg, {"action": 5})
 
 
+def test_runner_default_device_raises_without_cuda():
+    _skip_with_cuda()
+    cfg = serve.load_config(os.path.join(REPO, "expts",
+                                         "99_synth_smoke_val.txt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Runner.from_config(cfg, {"action": 5})
+    runner = Runner.from_config(cfg, {"action": 5}, device="cpu")
+    assert runner.device == torch.device("cpu")
+
+
 def test_serve_cli_default_device_exits_nonzero():
     _skip_with_cuda()
     proc = subprocess.run(
@@ -123,7 +139,9 @@ def test_kernel_modules_import_without_nvcc():
     env["PATH"] = os.path.dirname(sys.executable)
     code = ("import afft_tpu_torch.ops.fused_block, "
             "afft_tpu_torch.ops.fused_gpt2, afft_tpu_torch.ops.attention, "
-            "afft_tpu_torch.ops.fused_seq_block, sys; "
+            "afft_tpu_torch.ops.fused_seq_block, "
+            "afft_tpu_torch.ops.fused_block_train, "
+            "afft_tpu_torch.train.runner, sys; "
             "assert 'triton' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -142,10 +160,13 @@ def test_registry_resolves_ported_targets_only():
     assert mapping.identity
     for target in ("models.fusion.MATT",
                    "models.future_prediction.CMFPScoreFusion",
-                   "models.feature_mapping.GatedLinear", "torch.optim.SGD",
-                   "os.system"):
+                   "models.feature_mapping.GatedLinear",
+                   "torch.optim.RMSprop", "os.system"):
         with pytest.raises(ValueError, match=target.replace(".", r"\.")):
             resolve_target(target)
+    from afft_tpu_torch.train import optim
+    assert resolve_target("torch.optim.SGD") is optim.sgd
+    assert resolve_target("common.scheduler.Warmup") is optim.warmup_wrap
 
 
 def test_flagship_builds_at_full_width():
@@ -188,12 +209,53 @@ def test_unported_parts_still_raise_naming_the_roadmap():
             BaseModel(cfg.model, num_classes={"action": 5})
     with pytest.raises(ValueError, match=r"ROADMAP\.md"):
         resolve_target("models.fusion.MATT")
+    # training mode: the SA-Fuser (flagship, synthetic smoke expt) trains ...
     cfg = serve.load_config(os.path.join(REPO, "expts",
                                          "99_synth_smoke_val.txt"))
     model = BaseModel(cfg.model, num_classes={"action": 5})
     assert model.training
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-        model({"rgb": torch.zeros(1, 4, 8)})
+    feats = {m: torch.zeros(2, 4, 24) for m in ("rgb", "flow")}
+    out = model(feats, rng=RngStream(0))
+    assert out["logits/action"]["all-fused"].shape == (2, 1, 5)
+    assert out["logits/action"]["all-fused"].requires_grad
+    # ... and so does expt 02 (SA-Fuser without token), at a narrow width
+    narrow = ["model.modal_dims={rgb:32, objects:20, audio:32, flow:32}",
+              "model.common_dim=32", "model.fuser.depth=2",
+              "model.common.fp_inter_dim=64", "model.common.fp_layers=2"]
+    wide = {"rgb": 32, "objects": 20, "audio": 32, "flow": 32}
+    for expt, trains in (("02_SA-Fuser_wo_token_ek100_train.txt", True),
+                         ("03_T-SA-Fuser_ek100_train.txt", False),
+                         ("04_CA-Fuser_ek100_train.txt", False)):
+        cfg = serve.load_config(os.path.join(REPO, "expts", expt),
+                                [n for n in narrow
+                                 if "depth" not in n or "04" not in expt])
+        model = BaseModel(cfg.model, num_classes={"action": 5})
+        feats = {m: torch.zeros(2, 10, d) for m, d in wide.items()}
+        if trains:
+            out = model(feats, rng=RngStream(0))
+            assert out["logits/action"]["all-fused"].requires_grad
+        else:   # the T-SA and CA fusers: eval only
+            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
+                model(feats, rng=RngStream(0))
+            assert model.eval()(feats)["logits/action"]["all-fused"].shape \
+                == (2, 1, 5)
+
+
+def test_serving_kernels_refuse_to_run_under_autograd():
+    """The serving kernels have no backward: their operand check raises
+    where a gradient would be recorded (the check runs before a CUDA
+    launch; here it is called as the wrappers call it)."""
+    from afft_tpu_torch.ops._common import check_no_grad, check_operands
+    x = torch.zeros(2, 3, 8)
+    w = torch.zeros(8, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        check_no_grad("fused_block", [x, None, w])
+    with pytest.raises(RuntimeError, match="no backward"):
+        check_operands("gpt2_attn_half", x, {"w": w})
+    with torch.no_grad():
+        check_operands("gpt2_attn_half", x, {"w": w})
+    check_operands("fused_block_train", x, {"w": w}, differentiable=True)
+    check_no_grad("fused_block", [x, w.detach()])
 
 
 def test_serve_cli_output_len_serves_the_rollout():

@@ -178,7 +178,7 @@ def test_fuser_temporal_frame_level_token_matches_jax():
                   frame_level_token=True, temporal_sequence_length=6)
     jfuser = JF.TemporalCMFuser(**kwargs)
     params = jfuser.init(jax.random.key(3))
-    fuser = TemporalCMFuser(**kwargs)
+    fuser = TemporalCMFuser(**kwargs).eval()
     fuser.load_state_dict(W.fuser_from_jax(
         fuser, jax.tree.map(np.asarray, params)), strict=True)
     rng = np.random.default_rng(4)

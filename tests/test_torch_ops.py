@@ -41,7 +41,9 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
 NO_LAUNCHES = {"fused_block": 0, "gpt2_attn_half": 0, "gpt2_mlp_half": 0,
                "fused_attention": 0, "fused_seq_block": 0,
-               "fused_decoder_block": 0}
+               "fused_decoder_block": 0, "fused_block_train_fwd": 0,
+               "fused_block_train_bwd_mlp": 0,
+               "fused_block_train_bwd_attn": 0, "draw_masks": 0}
 
 
 def _perturbed(tree, rng):
