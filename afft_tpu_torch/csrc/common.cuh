@@ -784,12 +784,12 @@ layernorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ d,
 // ---------------------------------------------------------------------------
 // Attention over S <= 32 tokens: one block per (sequence, head), one warp per
 // query. qkv rows are (seq * S + t) with [q | k | v] columns, heads minor.
-// Scores and softmax in fp32; ROUND_P rounds the probabilities to T before
-// the probability . v product (the GPT-2 kernel), else that product is fp32
-// throughout (the fuser kernel).
+// Scores, softmax and the probability . v product in fp32 (the fuser
+// block's; the GPT-2 entries round the probabilities and run
+// staged_attention.cuh).
 // ---------------------------------------------------------------------------
 
-template <typename T, bool ROUND_P>
+template <typename T>
 __global__ void __launch_bounds__(1024)
 small_attention(const T* __restrict__ qkv, const float* __restrict__ mask,
                 T* __restrict__ out, int S, int H, int hd, float scale) {
@@ -815,9 +815,7 @@ small_attention(const T* __restrict__ qkv, const float* __restrict__ mask,
   // masked lanes give exp(-inf) = 0
   const float m = warp_max(mine);
   const float e = lane < S ? expf(mine - m) : 0.f;
-  float p = e / warp_sum(e);
-  if (ROUND_P) p = to_f32(from_f32<T>(p));
-  probs[warp][lane] = p;
+  probs[warp][lane] = e / warp_sum(e);
   __syncwarp();
 
   const T* v = base + 2 * (size_t)C + (size_t)h * hd;
@@ -830,12 +828,12 @@ small_attention(const T* __restrict__ qkv, const float* __restrict__ mask,
   }
 }
 
-template <typename T, bool ROUND_P>
+template <typename T>
 static void launch_attention(const T* qkv, const float* mask, T* out,
                              int n_seq, int S, int H, int hd,
                              cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
-  small_attention<T, ROUND_P><<<n_seq * H, S * 32, 0, stream>>>(
+  small_attention<T><<<n_seq * H, S * 32, 0, stream>>>(
       qkv, mask, out, S, H, hd, scale);
 }
 

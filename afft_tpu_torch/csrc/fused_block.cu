@@ -19,7 +19,7 @@
 // intermediates (qkv, the MLP hidden) do round-trip through HBM/L2, which
 // adds ~0.5 GB of traffic (~0.15 ms at 3.35 TB/s) the TPU kernel avoided.
 //
-// Limits: any R, N <= 8, H * hd = C with hd % 8 == 0, hidden % 8 == 0,
+// Limits: any R, N <= 8, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0,
 // fp32 or bf16; norm affine and qkv bias optional (null pointers).
 
 #include "common.cuh"
@@ -41,7 +41,7 @@ static int run_fused_block(const T* x, const T* ln1g, const T* ln1b,
   launch_gemm<EPI_BIAS, false, T, T>(tmp, wqkv, M, 3 * C, C,
                                      EpiArgs{bqkv, nullptr, qkv}, s);
   AFFT_CHECK_LAUNCH();
-  launch_attention<T, false>(qkv, mask, tmp, R, N, H, C / H, s);
+  launch_attention<T>(qkv, mask, tmp, R, N, H, C / H, s);
   AFFT_CHECK_LAUNCH();
   launch_gemm<EPI_BIAS_RES, false, T, float>(tmp, wproj, M, C, C,
                                              EpiArgs{bproj, x, y}, s);

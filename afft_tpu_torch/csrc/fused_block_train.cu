@@ -20,8 +20,8 @@
 // cores (wmma, fp32 accumulation) with its elementwise work in the epilogue.
 //
 // Limits: any R, 1 <= N <= 8 (the wrapper's: the attention takes 32), H * hd
-// = C with hd % 8 == 0, hidden % 8 == 0, fp32 or bf16; norm affines and the
-// qkv bias optional.
+// = C (any hd), C % 8 == 0, hidden % 8 == 0, fp32 or bf16; norm affines and
+// the qkv bias optional.
 
 #include "train_block.cuh"
 

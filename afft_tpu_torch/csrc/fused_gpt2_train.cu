@@ -28,10 +28,13 @@
 // of 512, hidden 8192, bf16): the forward does 413 GFLOP, the MLP backward 550
 // GFLOP and the attention backward 275 GFLOP of GEMMs against a few hundred MB
 // of compulsory traffic, so all three are bound by the tensor cores (0.42,
-// 0.56 and 0.28 ms at 989 TFLOP/s).
+// 0.56 and 0.28 ms at 989 TFLOP/s). In bf16 the forward's four products run
+// on the wgmma / TMA GEMM (gemm_sm90.cuh) and its attention, with the
+// backward's recomputation of it, is staged through shared memory
+// (staged_attention.cuh); the backward's products stay on common.cuh.
 //
-// Limits: any B, 1 <= T <= 32, H * hd = C with hd % 8 == 0, hidden % 8 == 0,
-// fp32 or bf16.
+// Limits: any B, 1 <= T <= 32, H * hd = C (any hd), C % 8 == 0,
+// hidden % 8 == 0, fp32 or bf16.
 
 #include "train_block.cuh"
 

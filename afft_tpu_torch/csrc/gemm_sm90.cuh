@@ -1,0 +1,434 @@
+// gemm_sm90: the bf16 GEMM of the GPT-2 entries on Hopper's own path,
+// C[M,N] = A[M,K] . W[K,N] with a fused epilogue, for A row-major (K-major)
+// and W the HF Conv1D (in, out) weight, row-major (N contiguous: the
+// MN-major "transposed" wgmma B operand).
+//
+// Replaces gemm_bf16 (common.cuh: nvcuda::wmma 16x16x16, two cp.async stages
+// of 128x128x32 in 40 KB of static shared memory, an epilogue of scalar
+// stores) for the bf16 products of two entries: the serving attention half
+// (fused_gpt2.cu) and the training forward of the GPT-2 layer
+// (train_block.cuh run_fwd<T, true>). At their shapes (M = 4096 rows, K 2048
+// or 8192, N 2048..8192) a product does 34-137 GFLOP against 25-67 MB: it is
+// bound by the tensor cores (989 TFLOP/s bf16), and wmma reached 9-14% of
+// that. What the design does about it:
+//   * wgmma.mma_async m64n256k16, bf16 in, fp32 accumulators in registers
+//     (128 a thread): the only route to the full tensor-core rate;
+//   * TMA tile loads with 128-byte swizzle (A: one 128x64 box; W: four 64x64
+//     boxes, 64 columns being the widest MN-major box a 128-byte swizzle
+//     takes) into a ring of four 48 KB stages of dynamic shared memory, one
+//     full / empty mbarrier pair a stage;
+//   * warp specialisation: one producer warp issues the loads (its
+//     warpgroup gives registers away with setmaxnreg), two consumer
+//     warpgroups each multiply 64 rows of the 128x256 tile, one wgmma group
+//     in flight while the previous stage is released;
+//   * the epilogue stages the fp32 tile through shared memory (over the
+//     drained ring), then each lane takes 8 consecutive columns of a row:
+//     the bias is read once per column, residuals and outputs (and the
+//     out2 stash) move as 16-byte vectors, and the element arithmetic is
+//     common.cuh epilogue()'s, in the same order with the same rounding
+//     points (acc + bias, then dropout / drop-path / residual or the stashed
+//     pre-activation and gelu_new). The dropout multiplier of an element is
+//     drop_scale() of its (row, col) index, so the masks do not change.
+// TMA zero-fills out of bounds, so M, N and K need not be multiples of the
+// tile; the epilogue masks rows and (8-column) column groups. Requires
+// K % 8 == 0, N % 8 == 0 and 16-byte aligned A, W, bias, residual and
+// outputs; the launcher returns cudaErrorInvalidValue otherwise. One block per output tile walks all of K
+// (no split-K, no atomics): the result is the same from run to run.
+//
+// The tensor maps are encoded on the host per call; cuTensorMapEncodeTiled
+// is a driver function, fetched once through cudaGetDriverEntryPoint so the
+// library needs no -lcuda.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the driver's enums (types only)
+
+#include "common.cuh"
+
+namespace afft {
+
+constexpr int GS_M = 128, GS_N = 256, GS_K = 64, GS_STAGES = 4;
+constexpr int GS_THREADS = 384;  // producer warpgroup + two consumers
+constexpr int GS_BOX_N = 64;     // W box width: 128 bytes, the swizzle span
+constexpr int GS_A_BYTES = GS_M * GS_K * 2;                  // 16 KB
+constexpr int GS_B_BOX_BYTES = GS_K * GS_BOX_N * 2;          // 8 KB
+constexpr int GS_STAGE_BYTES = GS_A_BYTES + 4 * GS_B_BOX_BYTES;  // 48 KB
+constexpr int GS_RING_BYTES = GS_STAGES * GS_STAGE_BYTES;
+constexpr int GS_LD = GS_N + 8;  // fp32 staging row: float2 stores of a
+                                 // half-warp (4 rows) hit 32 distinct banks
+constexpr int GS_SMEM = GS_RING_BYTES + 2 * GS_STAGES * 8 + 1024;  // + align
+static_assert(GS_M * GS_LD * 4 <= GS_RING_BYTES, "staging fits the ring");
+static_assert(GS_SMEM <= 227 * 1024, "dynamic shared memory limit");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the barrier's phase differs from ``parity``.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 2-D tensor map (c0 the contiguous coordinate) into shared
+// memory, completing ``bar``'s transaction bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (bytes; stored in 16-byte units).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D(64x256, fp32) += A(64x16, K-major) . B(16x256, MN-major), bf16 operands.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+      "%78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, "
+      "%94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
+      "%123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 8 consecutive bf16 <-> fp32, as one 16-byte access
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __halves2bfloat162(__float2bfloat16(v[2 * i]),
+                              __float2bfloat16(v[2 * i + 1]));
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// The epilogues the GPT-2 entries use (common.cuh epilogue(), element for
+// element) on 8 consecutive columns of one row; b the bias values.
+template <int EPI>
+__device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
+                                          int N, const float* acc,
+                                          const float* b) {
+  static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_RES ||
+                    EPI == EPI_RES_DROP || EPI == EPI_PRE_GELU_TANH,
+                "gemm_sm90 epilogue");
+  const size_t at = (size_t)row * N + col;
+  float v[8], r[8], o2[8];
+  if (EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP)
+    load8(static_cast<const bf16*>(ea.res) + at, r);
+  float keep_row = 1.f;
+  if (EPI == EPI_RES_DROP)
+    keep_row = drop_scale(ea.row_drop, (unsigned long long)(row / ea.tokens));
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float x = acc[e];
+    if (ea.bias != nullptr) x += b[e];
+    if (EPI == EPI_PRE_GELU_TANH) {
+      o2[e] = x;
+      x = gelu_tanh(x);
+    } else if (EPI == EPI_RES_DROP) {
+      x *= drop_scale(ea.drop, at + e);
+      x *= keep_row;
+      x = r[e] + x;
+      o2[e] = x;
+    } else if (EPI == EPI_BIAS_RES) {
+      x = r[e] + x;
+    }
+    v[e] = x;
+  }
+  store8(static_cast<bf16*>(ea.out) + at, v);
+  if ((EPI == EPI_PRE_GELU_TANH || EPI == EPI_RES_DROP) && ea.out2 != nullptr)
+    store8(static_cast<bf16*>(ea.out2) + at, o2);
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(GS_THREADS, 1)
+gemm_sm90(const __grid_constant__ CUtensorMap tmA,
+          const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
+          EpiArgs ea) {
+  extern __shared__ __align__(1024) unsigned char gs_smem[];
+  // 128-byte swizzled tiles must start on 1024-byte boundaries
+  const uint32_t raw = smem_u32(gs_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* stage_f32 = reinterpret_cast<float*>(gs_smem + (base - raw));
+  const uint32_t full = base + GS_RING_BYTES;   // GS_STAGES barriers
+  const uint32_t empty = full + 8 * GS_STAGES;  // GS_STAGES barriers
+  const int nk = (K + GS_K - 1) / GS_K;
+  const int m0 = blockIdx.y * GS_M, n0 = blockIdx.x * GS_N;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GS_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's expect_tx
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty + 8 * s, ph ^ 1u);  // the first round passes
+        const uint32_t dst = base + s * GS_STAGE_BYTES, bar = full + 8 * s;
+        mbar_expect_tx(bar, GS_STAGE_BYTES);
+        tma_load_2d(dst, &tmA, bar, kt * GS_K, m0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tma_load_2d(dst + GS_A_BYTES + j * GS_B_BOX_BYTES, &tmB, bar,
+                      n0 + j * GS_BOX_N, kt * GS_K);
+        if (++s == GS_STAGES) {
+          s = 0;
+          ph ^= 1u;
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: cw = 0 takes rows 0-63 of the tile, 1 rows 64-127
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = (threadIdx.x >> 7) - 1;
+    const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+    int s = 0, prev = 0;
+    uint32_t ph = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(full + 8 * s, ph);
+      const uint32_t a = base + s * GS_STAGE_BYTES + cw * 64 * 128;
+      const uint32_t b = base + s * GS_STAGE_BYTES + GS_A_BYTES;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < GS_K / 16; ++kk)
+        // A: K-major, 128-byte rows, 8-row groups 1024 bytes apart, a k16
+        // step 32 bytes along the row; B: MN-major, 64-column boxes 8 KB
+        // apart (leading), 8-k-row groups 1024 bytes apart (stride), a k16
+        // step 16 rows = 2048 bytes
+        wgmma_m64n256k16(acc, gmma_desc(a + kk * 32, 16, 1024),
+                         gmma_desc(b + kk * 2048, GS_B_BOX_BYTES, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the previous k-tile's group is done: its stage goes back
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (kt > 0 && t == 0) mbar_arrive(empty + 8 * prev);
+      prev = s;
+      if (++s == GS_STAGES) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+    // every wgmma of both consumers has read the ring: stage the fp32 tile
+    // over it. Accumulator layout (m64nNk16): warp w holds rows 16w + lane/4
+    // (+8), register 4j + {0,1} (+{2,3}) columns 8j + 2 (lane % 4) + {0,1}.
+    named_bar_sync(1, 256);
+    const int r0 = cw * 64 + warp * 16 + (lane >> 2), c0 = (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < GS_N / 8; ++j) {
+      *reinterpret_cast<float2*>(stage_f32 + r0 * GS_LD + 8 * j + c0) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(stage_f32 + (r0 + 8) * GS_LD + 8 * j + c0) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    named_bar_sync(2 + cw, 128);  // this consumer's 64 rows are staged
+
+    // lane: columns 8 lane .. 8 lane + 7; warp: rows warp, warp + 4, ...
+    const int col = n0 + 8 * lane;
+    if (col < N) {  // N % 8 == 0: a lane's 8 columns are all in or all out
+      float bias[8];
+      if (ea.bias != nullptr)
+        load8(static_cast<const bf16*>(ea.bias) + col, bias);
+      for (int i = 0; i < 16; ++i) {
+        const int rl = cw * 64 + warp + 4 * i, row = m0 + rl;
+        if (row >= M) break;
+        float v[8];
+        const float4* src =
+            reinterpret_cast<const float4*>(stage_f32 + rl * GS_LD + 8 * lane);
+        const float4 lo = src[0], hi = src[1];
+        v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+        v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+        epilogue8<EPI>(ea, row, col, N, v, bias);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) bf16 matrix read in (box_rows, box_cols) boxes
+// with 128-byte swizzle; out-of-bounds elements read as zeros.
+static bool bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
+                            int cols, int box_rows, int box_cols) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// C = A . W (+ epilogue EPI) for A (M, K) and W (K, N), bf16, outputs and
+// residual bf16. Returns the launch's error.
+template <int EPI>
+static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
+                                    int K, EpiArgs ea, cudaStream_t stream) {
+  // the epilogue moves bias, res, out and out2 as 16-byte vectors too
+  if (M < 1 || N < 8 || K < 8 || N % 8 || K % 8 ||
+      ((uintptr_t)A | (uintptr_t)W | (uintptr_t)ea.bias | (uintptr_t)ea.res |
+       (uintptr_t)ea.out | (uintptr_t)ea.out2) % 16)
+    return cudaErrorInvalidValue;
+  // on every launch: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_sm90<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta, tb;
+  if (!bf16_tensor_map(&ta, A, M, K, GS_M, GS_K) ||
+      !bf16_tensor_map(&tb, W, K, N, GS_K, GS_BOX_N))
+    return cudaErrorInvalidValue;
+  const dim3 grid(cdiv(N, GS_N), cdiv(M, GS_M));
+  gemm_sm90<EPI><<<grid, GS_THREADS, GS_SMEM, stream>>>(ta, tb, M, N, K, ea);
+  return cudaGetLastError();
+}
+
+// C = A . W (+ epilogue) for a Conv1D weight W (K, N): this GEMM in bf16,
+// gemm_f32 (true fp32, for the parity checks) in fp32.
+template <int EPI, typename T>
+static cudaError_t gemm_conv1d(const T* A, const T* W, int M, int N, int K,
+                               EpiArgs ea, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_gemm_sm90<EPI>(A, W, M, N, K, ea, stream);
+  } else {
+    launch_gemm<EPI, true, T, T>(A, W, M, N, K, ea, stream);
+    return cudaGetLastError();
+  }
+}
+
+}  // namespace afft

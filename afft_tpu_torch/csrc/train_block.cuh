@@ -18,7 +18,11 @@
 // qkv, y and pre1 are stashed in the working dtype; the backward takes its
 // LayerNorm statistics from the stashed x / y; dh2, dpre1, dproj and dqkv are
 // rounded to the working dtype before their GEMMs; every product inside the
-// block is the port's GEMM (common.cuh); every parameter gradient is fp32.
+// block is the port's GEMM; every parameter gradient is fp32. In bf16 the
+// GPT-2 layer's forward products run on the wgmma / TMA GEMM
+// (gemm_sm90.cuh), and its attention, forward and the backward's
+// recomputation, is staged through shared memory (staged_attention.cuh);
+// every other product is common.cuh's gemm_bf16 (bf16) or gemm_f32 (fp32).
 //
 // The two layers (template flag GPT2) differ in four places:
 //   weights     fuser: nn.Linear (out, in), read as the (N, K) operand
@@ -47,13 +51,15 @@
 // a fixed order, and the bias and LayerNorm-affine gradients are two-stage
 // column sums: no atomics, so every gradient is the same from run to run.
 //
-// Limits: any R, 1 <= N <= 32, H * hd = C with hd % 8 == 0, hidden % 8 == 0,
-// fp32 or bf16; norm affines and the qkv bias optional (null pointers, and
-// then no gradient is written for them).
+// Limits: any R, 1 <= N <= 32, H * hd = C (any hd), C % 8 == 0,
+// hidden % 8 == 0, fp32 or bf16; norm affines and the qkv bias optional
+// (null pointers, and then no gradient is written for them).
 
 #pragma once
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
+#include "staged_attention.cuh"
 
 namespace afft {
 
@@ -99,12 +105,13 @@ __device__ __forceinline__ float maybe_round(float v) {
 
 // ---------------------------------------------------------------------------
 // Attention over S <= 32 tokens with dropout on the probabilities: one block
-// per (row, head), one warp per query, as small_attention. The probability
-// is scaled by its keep multiplier before P . V (and with ROUND rounded to T
-// after that); scores, softmax and the product's sum are fp32.
+// per (row, head), one warp per query, as small_attention: the fuser
+// block's (the GPT-2 layer's runs staged_attention.cuh). The probability is
+// scaled by its keep multiplier before P . V; scores, softmax and the
+// product's sum are fp32.
 // ---------------------------------------------------------------------------
 
-template <typename T, bool ROUND>
+template <typename T>
 __global__ void __launch_bounds__(1024)
 small_attention_drop(const T* __restrict__ qkv, const float* __restrict__ mask,
                      T* __restrict__ out, int S, int H, int hd, float scale,
@@ -133,7 +140,7 @@ small_attention_drop(const T* __restrict__ qkv, const float* __restrict__ mask,
   if (lane < S)
     p *= drop_scale(drop,
                     (((unsigned long long)seq * H + h) * S + tq) * S + lane);
-  probs[warp][lane] = maybe_round<T, ROUND>(p);
+  probs[warp][lane] = p;
   __syncwarp();
 
   const T* v = base + 2 * (size_t)C + (size_t)h * hd;
@@ -281,6 +288,37 @@ static int fill_masks(const Rates& rt, void* const* bufs, const size_t* n,
 // The three entries
 // ---------------------------------------------------------------------------
 
+// A forward product: the GPT-2 layer's Conv1D weights on gemm_conv1d (the
+// wgmma / TMA GEMM in bf16), the fuser's nn.Linear weights on launch_gemm.
+template <int EPI, bool GPT2, typename TRes, typename TOut, typename T>
+static cudaError_t fwd_gemm(const T* a, const T* w, int M, int N, int K,
+                            EpiArgs ea, cudaStream_t s) {
+  if constexpr (GPT2) {
+    return gemm_conv1d<EPI, T>(a, w, M, N, K, ea, s);
+  } else {
+    launch_gemm<EPI, false, TRes, TOut>(a, w, M, N, K, ea, s);
+    return cudaGetLastError();
+  }
+}
+
+// The attention with dropout on the probabilities, forward and the
+// backward's recomputation (the same kernel, so the backward sees the
+// forward's values): staged for the GPT-2 layer, small_attention_drop for
+// the fuser.
+template <typename T, bool GPT2>
+static cudaError_t attention_drop(const T* qkv, const float* mask, T* out,
+                                  int R, int N, int H, int hd, DropSite drop,
+                                  cudaStream_t s) {
+  if constexpr (GPT2) {
+    launch_staged_attention<T, true>(qkv, mask, out, R, N, H, hd, drop, s);
+  } else {
+    const float scale = (float)(1.0 / sqrt((double)hd));
+    small_attention_drop<T><<<R * H, N * 32, 0, s>>>(
+        qkv, mask, out, N, H, hd, scale, drop);
+  }
+  return cudaGetLastError();
+}
+
 // dX = dY . W^T through a weight read as the forward GEMM reads it: the fuser's
 // (out, in) weight is the (K, N) operand of the backward product, the GPT-2
 // layer's (in, out) weight the (N, K) one.
@@ -317,33 +355,27 @@ static int run_fwd(const T* x, const void* const* pv, const float* mask,
   typedef typename std::conditional<GPT2, T, float>::type TY;
   const bool in_y = GPT2 || std::is_same<T, float>::value;
   TY* yres = in_y ? reinterpret_cast<TY*>(y) : reinterpret_cast<TY*>(y32);
-  const float scale = (float)(1.0 / sqrt((double)(C / H)));
   launch_layernorm<T, T>(x, p[TP_LN1G], p[TP_LN1B], tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS, GPT2, T, T>(tmp, p[TP_WQKV], M, 3 * C, C,
-                                    EpiArgs{p[TP_BQKV], nullptr, qkv}, s);
-  AFFT_CHECK_LAUNCH();
-  small_attention_drop<T, GPT2><<<R * H, N * 32, 0, s>>>(
-      qkv, mask, tmp, N, H, C / H, scale, site_of(rt, SITE_ATTN));
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_RES_DROP, GPT2, T, TY>(
+  AFFT_CHECK((fwd_gemm<EPI_BIAS, GPT2, T, T>(
+      tmp, p[TP_WQKV], M, 3 * C, C, EpiArgs{p[TP_BQKV], nullptr, qkv}, s)));
+  AFFT_CHECK((attention_drop<T, GPT2>(qkv, mask, tmp, R, N, H, C / H,
+                                      site_of(rt, SITE_ATTN), s)));
+  AFFT_CHECK((fwd_gemm<EPI_RES_DROP, GPT2, T, TY>(
       tmp, p[TP_WPROJ], M, C, C,
       EpiArgs{p[TP_BPROJ], x, yres, in_y ? nullptr : y,
               site_of(rt, SITE_PROJ), site_of(rt, SITE_DP1), N},
-      s);
-  AFFT_CHECK_LAUNCH();
+      s)));
   launch_layernorm<TY, T>(yres, p[TP_LN2G], p[TP_LN2B], tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<GPT2 ? EPI_PRE_GELU_TANH : EPI_PRE_GELU, GPT2, T, T>(
+  AFFT_CHECK((fwd_gemm<GPT2 ? EPI_PRE_GELU_TANH : EPI_PRE_GELU, GPT2, T, T>(
       tmp, p[TP_WFC1], M, hidden, C, EpiArgs{p[TP_BFC1], nullptr, h1, pre1},
-      s);
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_RES_DROP, GPT2, TY, T>(
+      s)));
+  AFFT_CHECK((fwd_gemm<EPI_RES_DROP, GPT2, TY, T>(
       h1, p[TP_WFC2], M, C, hidden,
       EpiArgs{p[TP_BFC2], yres, out, nullptr, site_of(rt, SITE_MLP),
               site_of(rt, SITE_DP2), N},
-      s);
-  AFFT_CHECK_LAUNCH();
+      s)));
   return 0;
 }
 
@@ -418,9 +450,8 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
                                             site_of(rt, SITE_PROJ),
                                             site_of(rt, SITE_DP1));
   AFFT_CHECK_LAUNCH();
-  small_attention_drop<T, GPT2><<<R * H, N * 32, 0, s>>>(
-      qkv, mask, tmp, N, H, C / H, scale, site_of(rt, SITE_ATTN));
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((attention_drop<T, GPT2>(qkv, mask, tmp, R, N, H, C / H,
+                                      site_of(rt, SITE_ATTN), s)));
   launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], C, C, M, s);
   AFFT_CHECK_LAUNCH();
   if (gv[TP_BPROJ] != nullptr) {

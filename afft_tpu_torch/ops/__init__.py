@@ -17,7 +17,10 @@ its plain PyTorch version.
 - ``ops.fused_gpt2_train``: one GPT-2 layer in training mode on the same
   autograd Function, and its mask generator (replace
   ``afft_tpu/ops/pallas_gpt2_train.py:fused_gpt2_block_train`` and
-  ``:draw_masks_gpt2``).
+  ``:draw_masks_gpt2``);
+- ``ops.gemm``: one bf16 GEMM with a fused epilogue on the wgmma / TMA GEMM
+  that the GPT-2 entries use, alone (its checks and timings; no model path
+  calls it).
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches, so a run can
@@ -32,10 +35,12 @@ from . import fused_block_train as _fused_block_train
 from . import fused_gpt2 as _fused_gpt2
 from . import fused_gpt2_train as _fused_gpt2_train
 from . import fused_seq_block as _fused_seq_block
+from . import gemm as _gemm
 
 _COUNTERS = (_fused_block.LAUNCHES, _fused_gpt2.LAUNCHES,
              _attention.LAUNCHES, _fused_seq_block.LAUNCHES,
-             _fused_block_train.LAUNCHES, _fused_gpt2_train.LAUNCHES)
+             _fused_block_train.LAUNCHES, _fused_gpt2_train.LAUNCHES,
+             _gemm.LAUNCHES)
 
 
 def launch_counts() -> dict:

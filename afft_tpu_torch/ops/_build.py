@@ -4,7 +4,9 @@
 together) for ``sm_90a`` and links them into
 ``build/afft_tpu_torch/libafft_kernels.so``, a shared library with a plain C
 interface that is loaded with ``ctypes``. The build runs at first use and is
-redone when the hash of the sources and flags changes. Importing this module
+redone when the hash of the sources and flags changes. ``ptxas -v`` reports
+each kernel's registers, shared memory and spills; the compiler's output for
+a source is kept beside the library (``build_log``). Importing this module
 needs neither ``nvcc`` nor a GPU.
 """
 
@@ -23,7 +25,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "afft_tpu_torch")
 LIB_NAME = "libafft_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +51,7 @@ SIGNATURES = {
     "afft_block_train_bwd_attn": [_I, _P, _P, _P, _PP, _PP, _P, _IP, _IP, _FP,
                                   _PP] + [_I] * 4 + [_F, _P],
     "afft_draw_masks": [_IP, _IP, _FP, _PP] + [_I] * 4 + [_P],
+    "afft_gemm": [_I] + [_P] * 6 + [_IP, _IP, _FP] + [_I] * 4 + [_P],
 }
 # the GPT-2 layer's training entries take the fuser block's arguments
 for _kind in ("fwd", "bwd_mlp", "bwd_attn"):
@@ -71,6 +74,12 @@ def source_hash() -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
+
+
+def build_log(source: str) -> str:
+    """Path of the compiler's output for ``source`` (a ``csrc`` file name)
+    from the last build."""
+    return os.path.join(BUILD_DIR, f"{source}.log")
 
 
 def nvcc_path() -> str:
@@ -105,6 +114,8 @@ def build() -> str:
     objs, failures = [], []
     for src, obj, proc in procs:
         out, _ = proc.communicate()
+        with open(build_log(os.path.basename(src)), "w") as f:
+            f.write(out)
         if proc.returncode != 0:
             failures.append(f"{src}:\n{out}")
         objs.append(obj)

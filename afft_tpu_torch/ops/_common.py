@@ -56,6 +56,19 @@ def check_operands(name: str, x: torch.Tensor, operands: dict,
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
+def check_heads(name: str, C: int, num_heads: int, hidden=None) -> int:
+    """The kernels' shape rule: H * hd == C with any head width hd (the
+    attentions read scalars, or 16-byte chunks where rows allow), C % 8 ==
+    0 and hidden % 8 == 0 (the GEMMs move 16-byte rows of K and N). Returns
+    hd."""
+    hd = C // num_heads if num_heads > 0 else 0
+    if hd < 1 or hd * num_heads != C or C % 8 or (hidden is not None
+                                                  and hidden % 8):
+        raise ValueError(f"{name}: needs H*hd == C, C % 8 == 0 and hidden % "
+                         f"8 == 0 (C={C}, H={num_heads}, hidden={hidden})")
+    return hd
+
+
 def check_shape(name: str, key: str, t, shape) -> None:
     if t is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "

@@ -19,9 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._common import (DTYPE_CODES, add_bias, attention32, check_operands,
-                      check_shape, launch, layer_norm32, mask_operand,
-                      matmul32, ptr)
+from ._common import (DTYPE_CODES, add_bias, attention32, check_heads,
+                      check_operands, check_shape, launch, layer_norm32,
+                      mask_operand, matmul32, ptr)
 
 LAUNCHES = {"fused_block": 0}
 
@@ -77,11 +77,7 @@ def block_operands(name, x, params, num_heads, differentiable=False):
     (ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, wfc1, bfc1, wfc2,
      bfc2) = tensors
     hidden = wfc1.shape[0]
-    hd = C // num_heads
-    if hd * num_heads != C or hd % 8 or hidden % 8:
-        raise ValueError(f"{name}: needs H*hd == C with hd % 8 == 0 and "
-                         f"hidden % 8 == 0 (C={C}, H={num_heads}, "
-                         f"hidden={hidden})")
+    check_heads(name, C, num_heads, hidden)
     keys = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
             "attn.proj.weight", "attn.proj.bias", "norm2.weight",
             "norm2.bias", "mlp.mlp.0.weight", "mlp.mlp.0.bias",

@@ -22,9 +22,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._common import (DTYPE_CODES, add_bias, attention32, check_operands,
-                      check_shape, launch, layer_norm32, mask_operand,
-                      matmul32, ptr)
+from ._common import (DTYPE_CODES, add_bias, attention32, check_heads,
+                      check_operands, check_shape, launch, layer_norm32,
+                      mask_operand, matmul32, ptr)
 
 LAUNCHES = {"gpt2_attn_half": 0, "gpt2_mlp_half": 0}
 
@@ -85,12 +85,9 @@ def gpt2_attn_half(x, params, mask, *, num_heads: int, eps: float = 1e-5):
         return gpt2_attn_half_plain(x, params, mask, num_heads=num_heads,
                                     eps=eps)
     B, T, C = x.shape
-    hd = C // num_heads
     if not 1 <= T <= MAX_TOKENS:
         raise ValueError(f"{name}: T={T}, the kernel takes 1..32 tokens")
-    if hd * num_heads != C or hd % 8:
-        raise ValueError(f"{name}: needs H*hd == C with hd % 8 == 0 "
-                         f"(C={C}, H={num_heads})")
+    check_heads(name, C, num_heads)
     if mask is None:
         raise ValueError(f"{name}: the additive (T, T) mask is required")
     ops = {"ln_1.weight": params.get("ln_1.weight"),

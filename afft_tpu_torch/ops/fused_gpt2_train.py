@@ -46,8 +46,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ._common import (add_bias, check_operands, check_shape, launch,
-                      layer_norm32, mask_operand, matmul32, ptr_array)
+from ._common import (add_bias, check_heads, check_operands, check_shape,
+                      launch, layer_norm32, mask_operand, matmul32,
+                      ptr_array)
 from .fused_block_train import (BlockTrainFunction, Layer, check_seeds,
                                 rate_arrays, site_mask_plain)
 from .fused_block_train import rates_operands as _rates_operands
@@ -186,11 +187,7 @@ def gpt2_operands(name, x, params, num_heads):
     C = x.shape[-1]
     tensors = [params[k] if k in _WEIGHTS else params.get(k) for k in KEYS]
     hidden = tensors[8].shape[-1]
-    hd = C // num_heads
-    if hd * num_heads != C or hd % 8 or hidden % 8:
-        raise ValueError(f"{name}: needs H*hd == C with hd % 8 == 0 and "
-                         f"hidden % 8 == 0 (C={C}, H={num_heads}, "
-                         f"hidden={hidden})")
+    check_heads(name, C, num_heads, hidden)
     shapes = ((C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,),
               (C, hidden), (hidden,), (hidden, C), (C,))
     for key, t, shape in zip(KEYS, tensors, shapes):

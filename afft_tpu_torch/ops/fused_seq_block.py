@@ -23,7 +23,7 @@ attention outputs and the GELU output are rounded to the working dtype;
 matmuls take the working dtype with fp32 accumulation; the memory stream is
 normalised from its fp32 upcast.
 
-Kernel limits: any B, 1 <= S <= 1024, H * hd == C with hd % 8 == 0,
+Kernel limits: any B, 1 <= S <= 1024, H * hd == C (any hd), C % 8 == 0,
 hidden % 8 == 0, float32 or bfloat16, contiguous 16-byte aligned operands;
 the mask is an additive (S, S) tensor or None and gates both attention
 stages of the decoder block; mem has x's shape.
@@ -33,9 +33,9 @@ from __future__ import annotations
 
 import torch
 
-from ._common import (DTYPE_CODES, add_bias, attention32, check_operands,
-                      check_shape, launch, layer_norm32, mask_operand,
-                      matmul32, ptr, ptr_array)
+from ._common import (DTYPE_CODES, add_bias, attention32, check_heads,
+                      check_operands, check_shape, launch, layer_norm32,
+                      mask_operand, matmul32, ptr, ptr_array)
 from .attention import MAX_KEYS, attention_plain
 from .fused_block import block_operands, block_plain, mlp_plain
 
@@ -176,11 +176,7 @@ def fused_decoder_block(x, mem, params, mask=None, *, num_heads: int,
     if missing:
         raise KeyError(f"{name}: params lack {missing}")
     hidden = params["mlp.mlp.0.weight"].shape[0]
-    hd = C // num_heads
-    if hd * num_heads != C or hd % 8 or hidden % 8:
-        raise ValueError(f"{name}: needs H*hd == C with hd % 8 == 0 and "
-                         f"hidden % 8 == 0 (C={C}, H={num_heads}, "
-                         f"hidden={hidden})")
+    check_heads(name, C, num_heads, hidden)
     dims = {"C": C, "3C": 3 * C, "hidden": hidden}
     operands = {key: params.get(key) for key, _ in _DECODER_PARAMS}
     for key, shape in _DECODER_PARAMS:

@@ -19,9 +19,11 @@ forward and backward); ``impl="plain"`` runs their plain versions on the
 same masks. Entry point: ``Runner.from_config`` on a composed expt config,
 on the card unless the caller passes ``device="cpu"``.
 
-Waiting (ROADMAP.md §A.7): ``grad_accum``, ``master_dtype=bfloat16``,
-``param_shardings``, and the in-step metric accumulator with
-``absorb_accum`` (the metric tracker).
+Waiting (ROADMAP.md §A.2, §A.7): ``grad_accum``, ``master_dtype=bfloat16``,
+``param_shardings``, ``class_weight_beta``, ``watch_gradients``,
+``zero_sharding``, ``pipeline_stages``, and the in-step metric accumulator
+with ``absorb_accum`` (the metric tracker). ``from_config`` raises for each
+of those keys when a config sets it away from its default.
 """
 
 from __future__ import annotations
@@ -41,6 +43,33 @@ from . import optim as O
 from .mixup import MixUp
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# train.* keys the JAX loop reads and the port does not honour yet, with
+# their defaults (afft_tpu_torch/conf/config.yaml) and the roadmap item
+UNPORTED_TRAIN_KEYS = (
+    ("class_weight_beta", None, "§A.2"),
+    ("watch_gradients", False, "§A.2"),
+    ("zero_sharding", False, "§A.7"),
+    ("pipeline_stages", 0, "§A.7"),
+)
+
+
+def check_train_keys(train_cfg) -> None:
+    """Raise for a train.* key the port does not honour, set away from its
+    default (a config that sets one must not train without it)."""
+    if (train_cfg.get("master_dtype") or "float32") != "float32" \
+            or int(train_cfg.get("grad_accum") or 1) != 1:
+        raise NotImplementedError(
+            "train.master_dtype=bfloat16 and train.grad_accum > 1 are "
+            "not ported (ROADMAP.md §A.7)")
+    for key, default, item in UNPORTED_TRAIN_KEYS:
+        value = train_cfg.get(key)
+        if value is None or value == default:
+            continue
+        if key == "pipeline_stages" and int(value) <= 1:
+            continue  # 0 and 1 run the stack unpipelined, as in JAX
+        raise NotImplementedError(
+            f"train.{key}={value} is not ported (ROADMAP.md {item})")
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -96,11 +125,7 @@ class Runner:
         model is drawn from ``cfg.seed`` unless ``weights`` (a state dict)
         is given. ``runner.lr_schedule(iteration, runner.base_lr)`` is the
         step's lr."""
-        if (cfg.train.get("master_dtype") or "float32") != "float32" \
-                or int(cfg.train.get("grad_accum") or 1) != 1:
-            raise NotImplementedError(
-                "train.master_dtype=bfloat16 and train.grad_accum > 1 are "
-                "not ported (ROADMAP.md §A.7)")
+        check_train_keys(cfg.train)
         device = resolve_device(device)
         with torch.device(device):
             model = BaseModel(cfg.model, num_classes=num_classes)

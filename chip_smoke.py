@@ -5,8 +5,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. device  - the card's name and power limit (nvidia-smi), TF32 off;
-  2. build   - compile afft_tpu_torch/csrc with nvcc for sm_90a;
-  3. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
+  2. build   - compile afft_tpu_torch/csrc with nvcc for sm_90a; ptxas's
+               report (registers, shared memory, spills) of the wgmma / TMA
+               GEMM and the staged attention, and the library's SASS must
+               hold HGMMA (wgmma) instructions where the toolkit has
+               cuobjdump;
+  3. gemm    - the wgmma / TMA GEMM of the GPT-2 entries (ops.gemm) against
+               the fp32 product of its upcast operands for each of its four
+               epilogues, at the flagship's shapes and at edge shapes (M 1 /
+               15 / 4097, N 72 / 136 / 6144, K 24 / 40 / 2048), dropout masks
+               bit for bit; then timed in turns against torch.matmul (the
+               library yardstick), and at the rollout's cached-block shapes
+               against cuBLAS addmm, beside the wmma gemm_bf16's time a
+               launch in the profile of gpt2_mlp_half, an entry that still
+               runs it;
+  4. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
                fused_attention, fused_seq_block, fused_decoder_block; the
                fuser block's and the GPT-2 layer's training entries, forward
                and two backward halves each, and their mask kernels
@@ -18,8 +31,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                shapes of the served and trained paths and in fp32 at a
                reduced batch, and at edge shapes; its time beside the plain
                version's, a cuBLAS + SDPA composition of the same function,
-               and the least time the card could take;
-  4. serve   - the Server on five paths at full width (bf16, batch 256,
+               and the least time the card could take; a profile of the two
+               redesigned GPT-2 entries by kernel group;
+  5. serve   - the Server on five paths at full width (bf16, batch 256,
                seeded weights): the flagship
                expts/01_SA-Fuser_ek100_val_Swin.txt, its multi-step rollout
                (model.common.fp_output_len=4, the KV cache), and expts 02
@@ -31,7 +45,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                clips/s, ms per batch and the device time by kernel group
                (torch.profiler). In fp32 the rollout also equals the full
                re-run of every step on the plain path;
-  5. train   - the flagship training step (expts/01_SA-Fuser_ek100_train.txt,
+  6. train   - the flagship training step (expts/01_SA-Fuser_ek100_train.txt,
                Runner.train_step at full width, seeded weights, synthetic
                EK100-shaped batches): three fp32 steps at batch 32 through
                the training kernels against three through their plain
@@ -45,7 +59,12 @@ Phases, in order; any failure exits non-zero and prints no result:
                draw_masks and draw_masks_gpt2 are launched by no training
                step (the masks are regenerated in registers): their entries
                say so, with 0 launches;
-  6. report  - one JSON line of per-kernel numbers, then the result line.
+  7. expt 99 - the synthetic smoke expt (expts/99_synth_smoke_{val,train}.txt,
+               C 24 with 2 heads of 12, GPT-2 C 32): served, and trained
+               three steps, through the kernels in bf16 and fp32 against the
+               plain path from the same weights, with the launch counts
+               asserted;
+  8. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -76,6 +95,18 @@ PEAKS = {"H100": {"bf16": 989e12, "bytes": 3.35e12}}
 # of the block carries. Bound: 1e-2 of the output's largest magnitude
 # (~2.5 ulps there). fp32: only the summation order differs.
 KERNEL_TOL = {"bf16": 1e-2, "fp32": 1e-5}
+# Expt 99, three training steps at the base lr through the kernels vs the
+# plain versions on the same masks: the largest loss difference, and per
+# tensor the weights' difference over max|w| and over what the steps moved
+# them (max|update|; the zero-initialised biases move by about their own
+# size, so this is the bound that speaks for every tensor). fp32 as the
+# flagship's three steps (summation order only; an H100 reads 0, 4.5e-7,
+# 9.8e-6). bf16: the bf16 gradient bound, 2e-2, on weights and updates, and
+# 1e-3 on a mean loss that one-ulp rounding flips hardly move (an H100
+# reads 2.5e-5, 4.6e-3, 6.3e-3)
+EXPT99_TRAIN_TOL = {
+    "fp32": {"loss_rel": 1e-4, "weight_rel": 1e-4, "update_rel": 1e-3},
+    "bf16": {"loss_rel": 1e-3, "weight_rel": 2e-2, "update_rel": 2e-2}}
 
 
 def log(*args):
@@ -441,7 +472,8 @@ def check_edge_shapes(gen):
     ragged row and column tiles, K not a multiple of the GEMM's k-tile,
     1 and the most tokens (1,024 keys for the attention and the sequence
     blocks), odd sequence lengths, Nq != Nk, head dims that are not
-    multiples of 32, the optional LayerNorm affines, biases and mask; and
+    multiples of 32 or of 8 (hd 12 and 6, expt 99's C 24), the optional
+    LayerNorm affines, biases and mask; and
     the CrossAttention layer, whose attention is the kernel, with a memory
     stream of another length and width."""
     import torch
@@ -457,7 +489,9 @@ def check_edge_shapes(gen):
         for R, N, C, H, hidden, diag, affine, qkv_bias in (
                 (1, 1, 64, 8, 256, False, True, False),
                 (37, 8, 96, 4, 384, True, False, True),
-                (130, 3, 40, 5, 72, True, True, True)):
+                (130, 3, 40, 5, 72, True, True, True),
+                (7, 5, 24, 2, 96, False, True, False),
+                (9, 3, 24, 4, 96, True, True, True)):
             p = block_params(C, hidden, dt, gen, affine, qkv_bias)
             mask = cross_attention_diag_mask(N, device="cuda") if diag \
                 else None
@@ -467,7 +501,8 @@ def check_edge_shapes(gen):
             n += _edge_ok(f"fused_block {tag} R={R} N={N} C={C} H={H} "
                           f"hidden={hidden}", tag, got, want)
         for B, T, C, H, hidden in ((1, 1, 64, 8, 256), (3, 32, 96, 4, 200),
-                                   (5, 7, 40, 5, 72)):
+                                   (5, 7, 40, 5, 72), (3, 10, 24, 2, 96),
+                                   (2, 7, 24, 4, 96)):
             p = gpt2_params(C, hidden, dt, gen)
             mask = neg_inf_causal_mask(T, device="cuda")
             x = rn(B, T, C)
@@ -502,7 +537,9 @@ def check_edge_shapes(gen):
                 (3, 43, 3, 96, 4, 384, False, True),
                 (2, 127, 1, 40, 5, 72, True, True),
                 (2, 32, 4, 1024, 4, 512, True, False),
-                (1, 1024, 1, 64, 4, 128, True, True)):
+                (1, 1024, 1, 64, 4, 128, True, True),
+                (2, 5, 4, 24, 2, 96, True, False),
+                (1, 7, 2, 24, 4, 96, False, True)):
             S = frames * mods
             mask = tiled_causal_mask(frames, mods)
             x, mem = rn(B, S, C), rn(B, S, C)
@@ -705,12 +742,12 @@ def check_gpt2_train_layer(tag, dt, B, T, C, H, hidden, gen, *, rates=None,
 
 def check_train_edge_shapes(gen):
     """The training kernels at the edges of their limits: for the fuser
-    block 1 to 8 tokens, row counts that fill no tile, head widths 8 / 64 /
-    256, rates 0 and 0.5, biases and affines on and off, with and without the
-    additive mask, and what drop-path promises (a row dropped in both
-    branches passes x and its gradient through untouched); for the GPT-2
+    block 1 to 8 tokens, row counts that fill no tile, head widths 6 / 8 /
+    12 / 64 / 256, rates 0 and 0.5, biases and affines on and off, with and
+    without the additive mask, and what drop-path promises (a row dropped in
+    both branches passes x and its gradient through untouched); for the GPT-2
     layer 1, 5, 7, 16, 19 (a rollout pass) and 32 tokens, batches 1, 2, 3, 5
-    and 33, head widths 8 / 64 / 512, rates 0, 0.1 and 0.5."""
+    and 33, head widths 6 / 8 / 12 / 64 / 512, rates 0, 0.1 and 0.5."""
     import torch
     from afft_tpu_torch.ops import fused_block_train as FT
     n = 0
@@ -727,7 +764,9 @@ def check_train_edge_shapes(gen):
                 (130, 5, 96, 4, 384, None, False, False, True),
                 (7, 4, 256, 4, 1024, zero, True, True, False),
                 (64, 6, 128, 2, 512, None, True, False, True),
-                (5, 7, 48, 6, 96, half, True, True, False)):
+                (5, 7, 48, 6, 96, half, True, True, False),
+                (33, 5, 24, 2, 96, None, True, False, False),
+                (7, 3, 24, 4, 96, half, True, True, True)):
             check_train_block(tag, dt, R, N, C, H, hidden, gen, rates=rates,
                               affine=affine, qkv_bias=qkv_bias,
                               diag_mask=diag, block_idx=n % 6)
@@ -755,7 +794,8 @@ def check_train_edge_shapes(gen):
                 (33, 16, 64, 8, 128, gpt2_zero), (3, 19, 512, 1, 256, None),
                 (1, 32, 128, 2, 512, gpt2_half), (33, 32, 256, 4, 1024, None),
                 (5, 7, 40, 5, 72, gpt2_half),
-                (2, 16, 1024, 2, 4096, gpt2_zero)):
+                (2, 16, 1024, 2, 4096, gpt2_zero),
+                (3, 10, 24, 2, 96, None), (5, 7, 24, 4, 96, gpt2_half)):
             check_gpt2_train_layer(tag, dt, B, T, C, H, hidden, gen,
                                    rates=rates, layer_idx=n % 6)
             n += 1
@@ -926,6 +966,11 @@ def time_train_layer(peaks, case, layer):
     ya = attn_half(xl)
     yb = ya.detach().requires_grad_(True)
     ob = mlp_half(yb)
+    redesign = None
+    if names[0] in REDESIGNED:
+        redesign = redesigned_numbers(names[0], tuple(x.shape),
+                                      lambda: layer["kernel"](x, p),
+                                      lambda: mlp_half(attn_half(x)))
     with torch.no_grad():
         library_ms = [time_ms(lambda: mlp_half(attn_half(x)))]
     library_ms += [
@@ -971,6 +1016,8 @@ def time_train_layer(peaks, case, layer):
         f"through the library composition; one F.dropout mask of (rows, C) "
         f"{bernoulli_ms:.4f} ms beside {names[3]}' masks")
     results[names[0]]["block_fwd_bwd_ms"] = whole_ms
+    if redesign is not None:
+        results[names[0]]["redesign"] = redesign
     results[names[0]]["library_block_fwd_bwd_ms"] = lib_whole_ms
     return results
 
@@ -1061,6 +1108,37 @@ def phase_train_kernels(peaks, gen):
     return results
 
 
+# the entries redesigned on the wgmma / TMA GEMM: their one-call profile by
+# kernel group is printed beside their times, and their times back to back
+REDESIGNED = ("gpt2_attn_half", "fused_gpt2_train_fwd")
+
+
+def redesigned_numbers(name, shape, kernel, library):
+    """A redesigned entry beside its library composition: the one-call
+    profile by kernel group, both timed back to back in turns (the host
+    enqueues ahead, as a serving or training loop does), and the host's
+    time to enqueue one call of each (the wrapper's checks, allocations and
+    launches, no synchronisation)."""
+    import torch
+    with torch.no_grad():
+        profile = profile_forward(kernel, what=f"{name} bf16 {shape}")
+        b2b = _in_turns({"kernel": kernel, "library": library})
+        host = {}
+        for key, fn in (("kernel", kernel), ("library", library)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            host[key] = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+    log(f"kernel {name} bf16 {shape}: back to back (mean of 20, in turns) "
+        f"kernel {b2b['kernel']:.4f} ms, library {b2b['library']:.4f} ms; "
+        f"device busy of one call {profile['busy_ms']:.4f} ms; host enqueue "
+        f"a call: kernel {host['kernel']:.4f} ms, library "
+        f"{host['library']:.4f} ms")
+    return {"profile": profile, "back_to_back_ms": b2b, "host_ms": host}
+
+
 def phase_kernels(peaks):
     import torch
 
@@ -1108,6 +1186,9 @@ def phase_kernels(peaks):
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
                 f"achieved={flops / ms / 1e9:.1f} TFLOP/s "
                 f"{nbytes / ms / 1e6:.1f} GB/s")
+            if name in REDESIGNED:
+                numbers["redesign"] = redesigned_numbers(
+                    name, case["shape"], kernel, library)
         if "/" in name:
             main, shape = name.split("/")
             results[main][shape] = numbers
@@ -1115,6 +1196,237 @@ def phase_kernels(peaks):
             results[name] = dict(name=name, route="cuda", source=source,
                                  replaces=replaces, **numbers)
     return results
+
+
+# -- the build and the GEMM of the GPT-2 entries ------------------------------
+
+# the kernels whose ptxas report the build phase prints
+REPORTED_KERNELS = ("gemm_sm90", "staged_attention")
+
+
+def report_build(lib_path):
+    """ptxas's report of the wgmma / TMA GEMM and the staged attention
+    (registers, shared memory, spills), the compiler's warnings, and proof
+    that the wgmma path compiled: the library's SASS holds HGMMA
+    instructions (where the toolkit has cuobjdump). Fails otherwise."""
+    import shutil
+    from afft_tpu_torch.ops import _build
+    seen = set()
+    for src in _build.sources():
+        name = os.path.basename(src)
+        with open(_build.build_log(name)) as f:
+            lines = f.read().splitlines()
+        for i, line in enumerate(lines):
+            if "warning" in line.lower():
+                log(f"build: {name}: {line.strip()}")
+            entry = line.split("'")[1] if "Compiling entry" in line else ""
+            if any(k in entry for k in REPORTED_KERNELS) and \
+                    entry not in seen:
+                seen.add(entry)
+                props = " ".join(x.strip() for x in lines[i + 2:i + 4])
+                log(f"build: ptxas {entry}: {props}")
+    if not any(REPORTED_KERNELS[0] in e for e in seen):
+        raise AssertionError("no ptxas report of gemm_sm90 in the build log")
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                          "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("build: no cuobjdump in the toolkit: the SASS is not checked")
+        return None
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib_path],
+                          capture_output=True, text=True, timeout=300).stdout
+    hgmma = sass.count("HGMMA")
+    log(f"build: {hgmma} HGMMA (wgmma) instructions in the library's SASS")
+    if hgmma == 0:
+        raise AssertionError("the library's SASS holds no HGMMA instruction: "
+                             "the wgmma path did not compile")
+    return hgmma
+
+
+# (M, N, K) of the GPT-2 entries' products at the flagship shape (B 256,
+# T 16, C 2048, hidden 8192): c_attn, c_proj, c_fc, the MLP's c_proj
+GEMM_SHAPES = ((4096, 6144, 2048), (4096, 2048, 2048), (4096, 8192, 2048),
+               (4096, 2048, 8192))
+GEMM_EDGES = ((1, 15, 4097), (72, 136, 6144), (24, 40, 2048))  # M, N, K
+# the rollout's cached GPT-2 block (cuBLAS addmm): prefill and decode rows
+CACHED_SHAPES = ((4096, 6144, 2048), (4096, 2048, 2048), (256, 6144, 2048),
+                 (256, 2048, 2048))
+GEMM_RATES = dict(drop_rate=0.1, dp_rate=0.1, tokens=16, seeds=TRAIN_SEEDS,
+                  block_idx=3)
+
+
+def _check_gemm(G, M, N, K, epi, gen):
+    """One GEMM against the fp32 product of its upcast operands (bf16
+    tolerance: 1e-2 of max|ref|, out and out2). For res_drop also with a
+    zero residual, twice: with the bias shifted by 64 (so no kept element is
+    0) the output's zeros must be the masks' bit for bit; with the bias as
+    drawn every dropped element must be 0, and a kept element may be 0 only
+    where acc + bias is 0 within the fp32 rounding of the K-term sum (bound
+    K * 2^-24 * (sum |a w| + |bias|), from the fp64 product). Returns
+    (worst rel_err, kept elements that were 0)."""
+    import torch
+    rn = _randn(gen, torch.bfloat16)
+    a, w, b, r = rn(M, K), rn(K, N, std=K ** -0.5), rn(N, std=0.1), rn(M, N)
+    got = G.gemm(a, w, epi, b, r, stash=True, **GEMM_RATES)
+    masks = G.drop_masks(M, N, GEMM_RATES["tokens"], TRAIN_SEEDS, 3,
+                         GEMM_RATES["drop_rate"], GEMM_RATES["dp_rate"],
+                         "cuda") if epi == "res_drop" else None
+    want = G.gemm_plain(a, w, epi, b, r, masks, stash=True)
+    torch.cuda.synchronize()
+    worst, kept_zeros = 0.0, 0
+    what = f"gemm {epi} ({M}, {N}, {K})"
+    for which, g, ref in zip(("out", "out2"), got, want):
+        if (g is None) != (ref is None):
+            raise AssertionError(f"{what}: {which} missing")
+        if g is None:
+            continue
+        finite, _, rel = errors(g, ref)
+        worst = max(worst, rel)
+        if not (finite and rel <= KERNEL_TOL["bf16"]):
+            raise AssertionError(f"{what}: {which} rel_err={rel:.3g} "
+                                 f"finite={finite}")
+    if epi == "res_drop":
+        dropped = (masks[0] * masks[1]) == 0
+        zero = torch.zeros_like(r)
+        out, _ = G.gemm(a, w, epi, (b.float() + 64).to(b.dtype), zero,
+                        **GEMM_RATES)
+        if not torch.equal(out == 0, dropped):
+            raise AssertionError(f"{what}: the dropped elements differ from "
+                                 "the masks'")
+        out, _ = G.gemm(a, w, epi, b, zero, **GEMM_RATES)
+        if bool((out[dropped] != 0).any()):
+            raise AssertionError(f"{what}: a dropped element is not 0")
+        kept = (out == 0) & ~dropped
+        kept_zeros = int(kept.sum())
+        if kept_zeros:
+            a64, w64, b64 = a.double(), w.double(), b.double()
+            exact = (a64 @ w64 + b64)[kept].abs()
+            bound = (K * 2.0 ** -24) * (a64.abs() @ w64.abs()
+                                        + b64.abs())[kept]
+            if not bool((exact <= bound).all()):
+                raise AssertionError(f"{what}: a kept element is 0 where acc "
+                                     "+ bias is not")
+            log(f"{what}: with the bias as drawn, {kept_zeros} kept elements "
+                f"are 0; at each |acc + bias| (fp64) <= K * 2^-24 * "
+                f"(sum |a w| + |bias|); {int((exact == 0).sum())} exactly 0")
+            del a64, w64, b64, exact, bound
+    return worst, kept_zeros
+
+
+def _in_turns(fns, iters=20):
+    """Each callable's mean ms over ``iters`` back-to-back calls, timed in
+    the order a, b, ..., ..., b, a; the mean of its two turns."""
+    import torch
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        fn = fns[k]
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end) / iters)
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def entry_gemm_bf16(gen, calls=10):
+    """The wmma gemm_bf16's device ms a launch, read from the profile of
+    ``calls`` calls of gpt2_mlp_half (row 3) at the flagship shape, an entry
+    that still runs it on the Conv1D W (K, N): c_fc (4096, 8192, 2048) with
+    gelu_new (epi 3) and the MLP's c_proj (4096, 2048, 8192) with the
+    residual (epi 1). Returns {(M, N, K): ms}."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from afft_tpu_torch.ops import fused_gpt2 as FG
+    B, T, C, hidden = SERVE_BATCH, 16, 2048, 8192
+    p = gpt2_params(C, hidden, torch.bfloat16, gen)
+    x = _randn(gen, torch.bfloat16)(B, T, C)
+    shapes = {"3": (B * T, hidden, C), "1": (B * T, C, hidden)}
+    with torch.no_grad():
+        for _ in range(3):
+            FG.gpt2_mlp_half(x, p)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                FG.gpt2_mlp_half(x, p)
+            torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        m = re.search(r"gemm_bf16<(\d+), true", e.name)
+        if e.device_type == DeviceType.CUDA and m and m.group(1) in shapes:
+            us.setdefault(shapes[m.group(1)], []).append(
+                e.time_range.elapsed_us())
+    if sorted(len(v) for v in us.values()) != [calls, calls]:
+        raise AssertionError(f"gemm: the profile of gpt2_mlp_half shows "
+                             f"{ {k: len(v) for k, v in us.items()} } "
+                             f"gemm_bf16 launches, not {calls} of each")
+    return {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
+
+
+def phase_gemm(peaks, gen):
+    """The wgmma / TMA GEMM: checks at the flagship's and edge shapes for
+    its four epilogues, then its rate beside the library's in one call, and
+    gemm_bf16's in the profile of an entry that still runs it. Returns the
+    numbers."""
+    import itertools
+    import torch
+    from afft_tpu_torch.ops import gemm as G
+    n, worst, kept_zeros = 0, 0.0, {}
+    shapes = list(GEMM_SHAPES) + list(itertools.product(*GEMM_EDGES))
+    for (M, N, K), epi in itertools.product(shapes, G.EPILOGUES):
+        rel, zeros = _check_gemm(G, M, N, K, epi, gen)
+        worst = max(worst, rel)
+        if zeros:
+            kept_zeros[f"({M}, {N}, {K})"] = zeros
+        n += 1
+    log(f"gemm: {n} checks against the fp32 product agree (worst rel_err "
+        f"{worst:.3g}, tol {KERNEL_TOL['bf16']:g} of max|ref|; res_drop "
+        "masks bit for bit)")
+    torch.cuda.empty_cache()
+
+    wmma = entry_gemm_bf16(gen)
+    rn = _randn(gen, torch.bfloat16)
+    rows = {}
+    for label, shapes, yardstick in (("entries", GEMM_SHAPES, "matmul"),
+                                     ("cached_block", CACHED_SHAPES,
+                                      "addmm")):
+        for M, N, K in shapes:
+            a, w, b = rn(M, K), rn(K, N, std=K ** -0.5), rn(N, std=0.1)
+            fns = {"sm90": lambda: G.gemm(a, w, "bias", b),
+                   yardstick: ((lambda: a @ w) if yardstick == "matmul"
+                               else (lambda: torch.addmm(b, a, w)))}
+            ms = _in_turns(fns)
+            if label == "entries" and (M, N, K) in wmma:
+                ms["gemm_bf16 (gpt2_mlp_half profile)"] = wmma[(M, N, K)]
+            flops = 2 * M * N * K
+            rate = {k: flops / v / 1e9 for k, v in ms.items()}
+            rows[f"{label} ({M}, {N}, {K})"] = {
+                "ms": ms, "tflops": rate,
+                "share_of_peak": {k: v * 1e12 / peaks["bf16"]
+                                  for k, v in rate.items()}}
+            log(f"gemm {label} bf16 (M, N, K)=({M}, {N}, {K}): " + ", ".join(
+                f"{k} {ms[k]:.4f} ms {rate[k]:.1f} TFLOP/s "
+                f"({rate[k] * 1e12 / peaks['bf16']:.1%} of 989)"
+                for k in ms))
+            del a, w, b
+    torch.cuda.empty_cache()
+    # no entry runs gemm_bf16 at c_attn's (4096, 6144, 2048): its rate at
+    # c_fc's (4096, 8192, 2048) has the same M, K and operand layout
+    old = rows["entries (4096, 8192, 2048)"]["tflops"][
+        "gemm_bf16 (gpt2_mlp_half profile)"]
+    for shape in ("(4096, 6144, 2048)", "(4096, 8192, 2048)"):
+        new = rows[f"entries {shape}"]["tflops"]["sm90"]
+        if not new >= 2 * old:
+            raise AssertionError(f"gemm: {new:.1f} TFLOP/s at {shape}, not "
+                                 f"2x gemm_bf16's {old:.1f}")
+    return {"checks": n, "worst_rel_err": worst,
+            "res_drop_kept_zeros": kept_zeros, "timings": rows}
 
 
 # -- the main path ------------------------------------------------------------
@@ -1148,12 +1460,15 @@ def profile_forward(fn, what="one bf16 forward", grad=False):
         # 5 stash + GELU, 6 GELU backward, 7 / 8 the same two with gelu_new;
         # B_KN true = W read as (K, N): the GPT-2 Conv1D weights forward,
         # and the fuser's dX = dY . W products; false: the fuser's Linear
-        # weights forward and the GPT-2 layer's dX products
-        m = re.search(r"afft::(\w+)(?:<(\d+), (true|false))?", e.name)
+        # weights forward and the GPT-2 layer's dX products. gemm_sm90<EPI>:
+        # the wgmma / TMA GEMM (the GPT-2 entries' bf16 forward products)
+        m = re.search(r"afft::(\w+)(?:<(\d+)(?:, (true|false))?)?", e.name)
         if m is None:
             group = "other (PyTorch ops)"
         elif m.group(2) is None:
             group = m.group(1)
+        elif m.group(3) is None:
+            group = f"{m.group(1)}<epi {m.group(2)}>"
         else:
             group = (f"{m.group(1)}<epi {m.group(2)}, "
                      f"{'W(K,N)' if m.group(3) == 'true' else 'W(N,K)'}>")
@@ -1420,9 +1735,9 @@ TRAIN_STEPS = 20
 TRAIN_DISTINCT_BATCHES = 8
 
 
-def synthetic_batches(cfg, batch, n, seed):
-    """``n`` distinct EK100-shaped training batches on the card: four
-    modalities of N(0, 1) features over 16 frames, action / verb / noun
+def synthetic_batches(cfg, batch, n, seed, classes=TRAIN_CLASSES):
+    """``n`` distinct training batches of the expt's shape on the card:
+    N(0, 1) features of each modality over its frames, action / verb / noun
     targets, per-frame past targets (a tenth of the rows carry ignored
     frames and are left out of the mixup, as in the real data)."""
     import torch
@@ -1434,7 +1749,7 @@ def synthetic_batches(cfg, batch, n, seed):
     for _ in range(n):
         sub = {t: torch.randint(0, c, (batch, T, 1), generator=gen,
                                 device="cuda")
-               for t, c in TRAIN_CLASSES.items()}
+               for t, c in classes.items()}
         ignored = torch.rand(batch, generator=gen, device="cuda") < 0.1
         for t in sub:
             sub[t][ignored, :4] = -1
@@ -1444,7 +1759,7 @@ def synthetic_batches(cfg, batch, n, seed):
                           for m, d in dims.items()},
             "target": {t: torch.randint(0, c, (batch,), generator=gen,
                                         device="cuda")
-                       for t, c in TRAIN_CLASSES.items()},
+                       for t, c in classes.items()},
             "target_subclips": sub})
     return out
 
@@ -1614,6 +1929,141 @@ def phase_train():
                  "profile": profile}}
 
 
+# -- the synthetic smoke expt -------------------------------------------------
+
+SMOKE_EXPTS = ("99_synth_smoke_val.txt", "99_synth_smoke_train.txt")
+SMOKE_CLASSES = {"action": 106, "verb": 19, "noun": 51}  # EGTEA's counts
+SMOKE_BATCH = 64
+
+
+def _counts_ok(what, counts, expected):
+    want = {**dict.fromkeys(counts, 0), **expected}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def phase_expt99():
+    """expts/99_synth_smoke_{val,train}.txt on the card: the fuser at C 24
+    with 2 heads of 12 and the GPT-2 predictor at C 32 with 2 heads of 16.
+    Served in bf16 and fp32 against the plain path (one answer's launch
+    counts asserted), and trained: three steps through the kernels against
+    three through the plain versions on the same masks, in fp32 and in
+    bf16, with the launch counts of every step. Returns the numbers."""
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.ops import launch_counts, reset_launches
+    from afft_tpu_torch.train.runner import Runner
+
+    numbers = {}
+    cfg = serve.load_config(os.path.join(EXPTS, SMOKE_EXPTS[0]))
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    modal_dims = {m: int(d) for m, d in
+                  cfg.model.modal_dims.to_container().items()}
+    T = int(cfg.data_eval.num_frames)
+    requests = serve.random_requests(modal_dims, T, SMOKE_BATCH, 2, seed=3)
+    serving = {"fused_block": depth, "gpt2_attn_half": layers,
+               "gpt2_mlp_half": layers}
+    weights = None
+    # bf16: ~20 rounded layers between features and logits; fp32: only the
+    # summation order differs (the flagship's bounds)
+    for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-4)):
+        server = serve.Server(cfg, {"action": SMOKE_CLASSES["action"]}, dtype,
+                              "cuda", weights=weights)
+        weights = server.model.state_dict() if weights is None else weights
+        reset_launches()
+        answers = server.answer(requests)
+        torch.cuda.synchronize()
+        _counts_ok(f"expt 99 serve {dtype}", launch_counts(), serving)
+        feats = server.to_device({m: torch.cat([r[m] for r in requests])
+                                  for m in requests[0]})
+        with torch.no_grad():
+            logits = server.head_logits(server.model(feats))
+            plain = server.head_logits(server.model(feats, impl="plain"))
+        torch.cuda.synchronize()
+        finite, max_abs, rel = errors(logits, plain)
+        log(f"expt99 serve {dtype} B={SMOKE_BATCH}: {len(answers)} answers, "
+            f"launches {serving}, logits max_abs_diff={max_abs:.6g} "
+            f"rel={rel:.3g} (tol {tol:g} of max|logit|) finite={finite}")
+        if not (finite and rel <= tol and len(answers) == 2):
+            raise AssertionError(f"expt 99 serve {dtype}: the kernel path "
+                                 "disagrees with the plain path")
+        numbers[f"serve_{dtype}_rel"] = rel
+        del server
+
+    cfg = serve.load_config(os.path.join(EXPTS, SMOKE_EXPTS[1]))
+    train_names = [n for n, _ in TRAIN_KERNELS["fused_block_train"][:3]]
+    gpt2_names = [n for n, _ in TRAIN_KERNELS["fused_gpt2_train"][:3]]
+    per_step = {**dict.fromkeys(train_names, depth),
+                **dict.fromkeys(gpt2_names, layers)}
+    batches = synthetic_batches(cfg, SMOKE_BATCH, 3, seed=4,
+                                classes=SMOKE_CLASSES)
+    kernel = Runner.from_config(cfg, SMOKE_CLASSES, device="cuda",
+                                iters_per_epoch=1, compute_dtype="float32")
+    plain = Runner.from_config(cfg, SMOKE_CLASSES, device="cuda",
+                               iters_per_epoch=1, compute_dtype="float32",
+                               impl="plain", weights=kernel.model.state_dict())
+    bf16 = Runner.from_config(cfg, SMOKE_CLASSES, device="cuda",
+                              iters_per_epoch=1, compute_dtype="bfloat16",
+                              weights=kernel.model.state_dict())
+    bf16_plain = Runner.from_config(cfg, SMOKE_CLASSES, device="cuda",
+                                    iters_per_epoch=1,
+                                    compute_dtype="bfloat16", impl="plain",
+                                    weights=kernel.model.state_dict())
+    start = {k: v.clone() for k, v in kernel.model.state_dict().items()}
+    masks = {"draw_masks": depth, "draw_masks_gpt2": layers}
+    losses = {}
+    for key, run, expected in (
+            ("fp32_kernel", kernel, per_step),
+            ("fp32_plain", plain, masks),
+            ("bf16_kernel", bf16, per_step),
+            ("bf16_plain", bf16_plain, masks)):
+        losses[key] = []
+        for i, batch in enumerate(batches):
+            reset_launches()
+            # the base lr on every step: the expt's one-epoch cosine reaches
+            # 0 one iteration after its warmup, where no step moves a weight
+            step, _ = run.train_step(batch, run.base_lr, run.base_lr)
+            losses[key].append(float(step["total_loss"]))
+            _counts_ok(f"expt 99 train {key} step {i + 1}", launch_counts(),
+                       expected)
+    diffs = {}
+    for dtype, run_k, run_p in (("fp32", kernel, plain),
+                                ("bf16", bf16, bf16_plain)):
+        got, want = losses[f"{dtype}_kernel"], losses[f"{dtype}_plain"]
+        sd_k, sd_p = run_k.model.state_dict(), run_p.model.state_dict()
+        # per tensor: the weights, and what the three steps moved them
+        upd = {k: float((sd_k[k] - w).abs().max())
+               / max(float((w - start[k]).abs().max()), 1e-30)
+               for k, w in sd_p.items()}
+        worst = max(upd, key=upd.get)
+        moved = sum(not torch.equal(w, start[k]) for k, w in sd_p.items())
+        d = diffs[dtype] = {
+            "finite": all(v == v and abs(v) < 1e30 for v in got),
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
+            "weight_rel": max(float((sd_k[k] - w).abs().max())
+                              / max(float(w.abs().max()), 1e-30)
+                              for k, w in sd_p.items()),
+            "update_rel": upd[worst], "worst_update": worst,
+            "moved": moved}
+        tol = EXPT99_TRAIN_TOL[dtype]
+        log(f"expt99 train {dtype} B={SMOKE_BATCH}: 3 steps through the "
+            f"kernels {got} vs the plain versions {want}: loss rel diff "
+            f"{d['loss_rel']:.3g} (tol {tol['loss_rel']:g}), weights "
+            f"{d['weight_rel']:.3g} of max|w| (tol {tol['weight_rel']:g}), "
+            f"updates {d['update_rel']:.3g} of max|update| (tol "
+            f"{tol['update_rel']:g}; {worst}), per tensor; the steps moved "
+            f"{moved} of {len(sd_p)} tensors; launches per step {per_step}")
+        if not (d["finite"] and moved > len(sd_p) // 2
+                and all(d[k] <= t for k, t in tol.items())):
+            raise AssertionError(f"expt 99 train {dtype}: the kernel path "
+                                 "disagrees with the plain path")
+    numbers.update(train_losses=losses, train_diffs=diffs,
+                   launches_per_step=per_step)
+    del kernel, plain, bf16, bf16_plain, start
+    torch.cuda.empty_cache()
+    return numbers
+
+
 def main():
     try:
         import torch
@@ -1645,20 +2095,27 @@ def main():
         from afft_tpu_torch.ops import _build
         t0 = time.perf_counter()
         _build.library()
+        lib_path = _build.build()
         log(f"build: {time.perf_counter() - t0:.2f} s -> "
-            f"{os.path.relpath(_build.build(), REPO)}")
+            f"{os.path.relpath(lib_path, REPO)}")
+        report_build(lib_path)
 
-        # 3. kernels
+        # 3. gemm
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        log(json.dumps({"gemm": phase_gemm(peaks, gen)}))
+
+        # 4. kernels
         kernels = phase_kernels(peaks)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1)
         kernels.update(phase_train_kernels(peaks, gen))
 
-        # 4. serve
+        # 5. serve
         launches, serve_numbers = phase_serve()
         log(json.dumps({"serve": serve_numbers}))
 
-        # 5. train
+        # 6. train
         train_launches, train_numbers = phase_train()
         launches.update({k: n for k, n in train_launches.items() if n})
         # The training step regenerates its masks in registers and never
@@ -1676,12 +2133,15 @@ def main():
             # KeyError if no driven path launched the kernel
             k["launches"] = launches[k["name"]]
         log(json.dumps({"train": train_numbers}))
+
+        # 7. expt 99
+        log(json.dumps({"expt99": phase_expt99()}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 6. report
+    # 8. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
@@ -1689,7 +2149,8 @@ def main():
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("main_path", "plain_path_launches") if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
-            for label, sub in e.items() if isinstance(sub, dict)}}
+            for label, sub in e.items()
+            if isinstance(sub, dict) and label != "redesign"}}
         for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,214 @@
+"""Repairs of the port's faults against the reference, on the CPU.
+
+- The kernels' shape rule (``ops._common.check_heads``): H * hd == C with any
+  head width, C % 8 == 0, hidden % 8 == 0, as every wrapper of a fused block
+  applies it before a CUDA launch. The synthetic smoke expt (C 24, 2 heads of
+  12) passes it, and one step through ``Runner`` (on the CPU the plain
+  versions run, and no kernel is launched) equals the JAX runner's.
+- ``Runner.from_config`` refuses the train.* keys that the JAX loop reads and
+  the port does not honour yet, naming the roadmap.
+"""
+
+import inspect
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from afft_tpu.config import compose as jax_compose
+from afft_tpu.config import instantiate as jax_instantiate
+from afft_tpu.models import BaseModel as JaxBaseModel
+from afft_tpu.train import optim as JO
+from afft_tpu.train.mixup import MixUp as JaxMixUp
+from afft_tpu.train.runner import Runner as JaxRunner
+from afft_tpu_torch import serve
+from afft_tpu_torch import weights as W
+from afft_tpu_torch.config import read_expt_file
+from afft_tpu_torch.ops import (fused_block, fused_gpt2, fused_gpt2_train,
+                                fused_seq_block, launch_counts,
+                                reset_launches)
+from afft_tpu_torch.ops._common import check_heads
+from afft_tpu_torch.train.runner import Runner
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE_TRAIN = os.path.join(REPO, "expts", "99_synth_smoke_train.txt")
+CLASSES = {"action": 7, "verb": 3, "noun": 5}
+NO_DROPOUT = ["model.dropout=0.0", "model.fuser.embd_drop_rate=0.0",
+              "model.fuser.drop_rate=0.0", "model.fuser.attn_drop_rate=0.0",
+              "model.fuser.drop_path_rate=0.0", "model.common.embd_pdrop=0.0",
+              "model.common.resid_pdrop=0.0", "model.common.attn_pdrop=0.0"]
+
+# each wrapper that applies the rule, and whether it passes the MLP width
+WRAPPERS = {"fused_block": True, "gpt2_attn_half": False,
+            "fused_gpt2_train": True, "fused_decoder_block": True}
+
+
+@pytest.mark.parametrize("C,H,hidden", [(24, 2, 96), (24, 4, 96),
+                                        (32, 2, 128), (2048, 4, 8192)])
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_shape_rule_takes_any_head_width(wrapper, C, H, hidden):
+    got = check_heads(wrapper, C, H, hidden if WRAPPERS[wrapper] else None)
+    assert got == C // H
+
+
+@pytest.mark.parametrize("C,H", [(24, 5), (24, 0), (20, 2), (12, 2)])
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_shape_rule_rejects_heads_that_do_not_divide_c_or_c_off_8(wrapper, C,
+                                                                  H):
+    hidden = 4 * C if WRAPPERS[wrapper] else None
+    with pytest.raises(ValueError, match=wrapper):
+        check_heads(wrapper, C, H, hidden)
+
+
+@pytest.mark.parametrize("wrapper",
+                         [w for w, hidden in WRAPPERS.items() if hidden])
+def test_shape_rule_rejects_an_mlp_width_off_8(wrapper):
+    with pytest.raises(ValueError, match="hidden=100"):
+        check_heads(wrapper, 24, 2, 100)
+
+
+@pytest.mark.parametrize("fn", [fused_block.block_operands,
+                                fused_gpt2.gpt2_attn_half,
+                                fused_gpt2_train.gpt2_operands,
+                                fused_seq_block.fused_decoder_block])
+def test_wrappers_apply_the_shared_rule(fn):
+    src = inspect.getsource(fn)
+    assert "check_heads(" in src and "hd % 8" not in src
+
+
+def _block_params(C, hidden):
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return {"norm1.weight": t(C), "norm1.bias": t(C),
+            "attn.qkv.weight": t(3 * C, C), "attn.proj.weight": t(C, C),
+            "attn.proj.bias": t(C), "norm2.weight": t(C), "norm2.bias": t(C),
+            "mlp.mlp.0.weight": t(hidden, C), "mlp.mlp.0.bias": t(hidden),
+            "mlp.mlp.2.weight": t(C, hidden), "mlp.mlp.2.bias": t(C)}
+
+
+@pytest.mark.parametrize("H", [2, 4])
+def test_block_operands_take_the_smoke_expts_heads(H):
+    """C 24 with 2 heads of 12 (expt 99) or 4 of 6: the operand check that
+    fused_block, fused_block_train and fused_seq_block run before a launch
+    passes; 5 heads do not divide C."""
+    x = torch.zeros(3, 5, 24)
+    params = _block_params(24, 96)
+    tensors, hidden = fused_block.block_operands("fused_block", x, params, H)
+    assert hidden == 96 and len(tensors) == 12
+    with pytest.raises(ValueError, match="H\\*hd == C"):
+        fused_block.block_operands("fused_block", x, params, 5)
+
+
+def test_gpt2_operands_take_the_smoke_expts_heads():
+    rng = np.random.default_rng(1)
+    C, hidden = 32, 128
+    shapes = ((C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,),
+              (C, hidden), (hidden,), (hidden, C), (C,))
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in zip(fused_gpt2_train.KEYS, shapes)}
+    x = torch.zeros(2, 10, C)
+    for H in (2, 4):                      # hd 16, 8; C 24 gives hd 12 / 6
+        tensors, got = fused_gpt2_train.gpt2_operands("fused_gpt2_train", x,
+                                                      params, H)
+        assert got == hidden and len(tensors) == 12
+    with pytest.raises(ValueError, match="H\\*hd == C"):
+        fused_gpt2_train.gpt2_operands("fused_gpt2_train", x, params, 3)
+
+
+def _smoke_batch(cfg, batch=4, seed=0):
+    rng = np.random.default_rng(seed)
+    T = int(cfg.data_train.num_frames)
+    dims = cfg.model.modal_dims.to_container()
+    sub = {t: rng.integers(0, c, (batch, T, 1)) for t, c in CLASSES.items()}
+    sub["action"][1, :3] = -1              # one row with ignored frames
+    return {"data_dict": {m: rng.standard_normal((batch, T, int(d)))
+                          .astype(np.float32) for m, d in dims.items()},
+            "target": {t: rng.integers(0, c, (batch,))
+                       for t, c in CLASSES.items()},
+            "target_subclips": sub, "valid": np.ones((batch,), bool),
+            "mixup_lam": np.float32(0.35)}
+
+
+def test_smoke_expt_trains_one_step_on_the_plain_path():
+    """expts/99_synth_smoke_train.txt (fuser C 24, 2 heads of 12; GPT-2 C 32)
+    builds through Runner.from_config and takes one step on the CPU that
+    equals the JAX runner's from the same weights (carried by
+    ``weights.state_dict_from_jax``), batch and mixup lambda, every dropout
+    rate 0 (the two packages draw different masks): every loss component
+    (rtol 1e-5, atol 1e-6) and the weights after the step (rtol 1e-4, atol
+    2e-5), the tolerances of test_torch_train_slice's five steps. On the CPU
+    the plain versions run and no kernel is launched."""
+    cfg = serve.load_config(SMOKE_TRAIN, NO_DROPOUT)
+    assert int(cfg.model.common_dim) == 24
+    assert int(cfg.model.fuser.num_heads) == 2
+    jcfg = jax_compose(os.path.join(REPO, "afft_tpu", "conf"),
+                       read_expt_file(SMOKE_TRAIN) + NO_DROPOUT)
+    batch, lr = _smoke_batch(cfg), float(cfg.opt.lr)
+
+    jmodel = JaxBaseModel(jcfg.model, num_classes=CLASSES)
+    params = jmodel.init(jax.random.key(3))
+    params0 = jax.tree.map(np.asarray, params)
+    groups = JO.build_group_tree(params, jcfg.opt.lr_wd, jcfg.opt.lr,
+                                 jcfg.opt.wd)
+    joptimizer = jax_instantiate(jcfg.opt.optimizer)
+    jrunner = JaxRunner(
+        jmodel, joptimizer, groups,
+        loss_wts=dict(jcfg.train.loss_wts.items()),
+        mixup=JaxMixUp(alpha=jcfg.train.mixup_alpha,
+                       label_smoothing=dict(
+                           jcfg.train.label_smoothing.items()),
+                       num_classes=CLASSES),
+        mixup_backbone=jcfg.train.mixup_backbone,
+        grad_clip=jcfg.opt.grad_clip, donate=False)
+    params, _, want, _, _ = jrunner.train_step(
+        params, joptimizer.init(params, groups),
+        {**batch, "mixup_lam": jnp.asarray(batch["mixup_lam"])}, lr, lr,
+        jax.random.key(0))
+
+    runner = Runner.from_config(cfg, CLASSES, device="cpu",
+                                iters_per_epoch=1)
+    runner.model.load_state_dict(
+        W.state_dict_from_jax(runner.model, params0), strict=True)
+    assert runner.mixup is not None
+    reset_launches()
+    got, _ = runner.train_step(batch, lr, lr, check_nan=True)
+    assert not any(launch_counts().values())
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    want_sd = W.state_dict_from_jax(runner.model,
+                                    jax.tree.map(np.asarray, params))
+    first_sd = W.state_dict_from_jax(runner.model, params0)
+    got_sd = runner.model.state_dict()
+    assert set(got_sd) == set(want_sd)
+    moved = 0
+    for k, w in want_sd.items():
+        np.testing.assert_allclose(got_sd[k].numpy(), w.numpy(), rtol=1e-4,
+                                   atol=2e-5, err_msg=k)
+        moved += not np.allclose(w.numpy(), first_sd[k].numpy(), atol=1e-6)
+    assert moved > len(want_sd) // 2       # the step did move the weights
+
+
+@pytest.mark.parametrize("override", [
+    "train.class_weight_beta=0.999", "train.watch_gradients=true",
+    "train.zero_sharding=true", "train.pipeline_stages=2"])
+def test_unported_train_keys_raise_naming_the_roadmap(override):
+    cfg = serve.load_config(SMOKE_TRAIN, [override])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
+        Runner.from_config(cfg, CLASSES, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    "train.class_weight_beta=null", "train.watch_gradients=false",
+    "train.zero_sharding=false", "train.pipeline_stages=1"])
+def test_train_keys_at_their_defaults_build(override):
+    """The defaults, and one pipeline stage (the JAX loop pipelines only
+    above 1), are what the port runs."""
+    cfg = serve.load_config(SMOKE_TRAIN, [override])
+    assert Runner.from_config(cfg, CLASSES, device="cpu") is not None

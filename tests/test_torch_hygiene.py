@@ -7,12 +7,16 @@
 - The _target_ registry resolves the ported targets and rejects the rest.
 - Training works for the per-timestep fusers and raises, naming the roadmap,
   for what is not ported; the serving kernels refuse to run under autograd.
+- No CUDA source sums with atomics; the wgmma / TMA GEMM is reached only
+  from the bf16 path of the GPT-2 entries (fp32 stays on gemm_f32).
 """
 
 import ast
 import filecmp
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -142,7 +146,7 @@ def test_kernel_modules_import_without_nvcc():
             "afft_tpu_torch.ops.fused_gpt2, afft_tpu_torch.ops.attention, "
             "afft_tpu_torch.ops.fused_seq_block, "
             "afft_tpu_torch.ops.fused_block_train, "
-            "afft_tpu_torch.ops.fused_gpt2_train, "
+            "afft_tpu_torch.ops.fused_gpt2_train, afft_tpu_torch.ops.gemm, "
             "afft_tpu_torch.train.runner, sys; "
             "assert 'triton' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -271,3 +275,59 @@ def test_serve_cli_output_len_serves_the_rollout():
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["output_len"] == 3 and summary["clips"] == 3
     assert 0 <= summary["top1_of_first_clip"] < 11
+
+
+CSRC = os.path.join(PKG, "csrc")
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _body(src, name):
+    """The brace-delimited body of the function ``name`` defined in src."""
+    m = re.search(rf"^static [\w:<>* ]+\b{name}\(", src, re.M)
+    assert m, name
+    start = src.index("{", m.end())
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise AssertionError(f"unbalanced braces in {name}")
+
+
+@pytest.mark.parametrize("name", sorted(
+    os.path.basename(p) for p in glob.glob(os.path.join(CSRC, "*.cu*"))))
+def test_cuda_sources_sum_without_atomics(name):
+    assert "atomicAdd" not in _source(name)
+
+
+def test_hopper_gemm_only_on_the_bf16_path():
+    """gemm_conv1d sends bf16 to the wgmma / TMA GEMM and fp32 to
+    launch_gemm (gemm_f32); the serving attention half and the GPT-2
+    training forward reach it through gemm_conv1d only, the MLP half and
+    the backward entries not at all."""
+    header = _body(_source("gemm_sm90.cuh"), "gemm_conv1d")
+    bf16_branch, fp32_branch = header.split("} else {")
+    assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
+    assert "launch_gemm_sm90<EPI>" in bf16_branch
+    assert "launch_gemm<" in fp32_branch and "sm90" not in fp32_branch
+
+    gpt2 = _source("fused_gpt2.cu")
+    assert "launch_gemm_sm90" not in gpt2
+    assert _body(gpt2, "run_attn_half").count("gemm_conv1d<") == 2
+    assert "gemm_conv1d" not in _body(gpt2, "run_mlp_half")
+
+    train = _source("train_block.cuh")
+    assert "launch_gemm_sm90" not in train
+    assert train.count("gemm_conv1d<") == 1
+    gpt2_branch, fuser_branch = _body(train, "fwd_gemm").split("} else {")
+    assert "if constexpr (GPT2)" in gpt2_branch
+    assert "gemm_conv1d<EPI, T>" in gpt2_branch
+    assert "launch_gemm<EPI, false" in fuser_branch
+    fwd = _body(train, "run_fwd")
+    assert fwd.count("fwd_gemm<") == 4 and "launch_gemm<" not in fwd
+    for entry in ("run_bwd_mlp", "run_bwd_attn"):
+        assert "fwd_gemm" not in _body(train, entry)
