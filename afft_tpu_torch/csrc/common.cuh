@@ -6,9 +6,10 @@
 //   * layernorm_rows: one warp per row, fp32 statistics, output in the
 //     working dtype (the rounding the TPU kernels apply before each matmul);
 //   * gemm_bf16 / gemm_f32: C[M,N] = A[M,K] . W + bias with a fused
-//     epilogue (GELU, residual add, cast). W is either (N,K) row-major
-//     (nn.Linear) or (K,N) row-major (HF Conv1D), chosen at compile time,
-//     so neither weight layout is repacked per call;
+//     epilogue (GELU, residual add, cast). gemm_f32 reads W as (N,K)
+//     row-major (nn.Linear) or (K,N) row-major (HF Conv1D), chosen at
+//     compile time, so neither weight layout is repacked per call; gemm_bf16
+//     reads (N,K) only (bf16 (K,N) products run on gemm_sm90.cuh);
 //   * small_attention: softmax attention over S <= 32 tokens, one block per
 //     (sequence, head) and one warp per query token;
 //   * strided_attention: softmax attention of Nq queries over Nk <= 1024 keys
@@ -17,18 +18,21 @@
 //   * drop_scale: the dropout multiplier (0 or 1/keep) of one logical element,
 //     from a counter-based Philox4x32-10 draw computed in registers, so the
 //     forward and the backward regenerate the same mask with none in memory;
-//   * gemm_tn: C[I,J] = A[K,I]^T . B[K,J] in fp32, for the weight gradients
-//     (a reduction over the K = R*N rows of two activation matrices);
+//   * gemm_tn_f32: C[I,J] = A[K,I]^T . B[K,J] in fp32, the fp32 weight
+//     gradients (a reduction over the K = R*N rows of two activation
+//     matrices; gemm_sm90.cuh's gemm_tn_sm90 in bf16);
 //   * epilogues with dropout and drop-path (EPI_RES_DROP), with the stashed
 //     pre-activation (EPI_PRE_GELU, EPI_PRE_GELU_TANH) and with the GELU
 //     derivative (EPI_GELU_BWD, EPI_GELU_TANH_BWD);
 //   * column sums over rows in two deterministic stages (bias and LayerNorm
 //     affine gradients) and the LayerNorm backward over rows.
 //
-// The bf16 GEMM runs on the tensor cores through nvcuda::wmma (16x16x16,
-// fp32 accumulation) with 128x128x32 shared-memory tiles, double-buffered by
-// cp.async. The fp32 GEMM is plain FMA (no TF32), so fp32 parity checks
-// compare true fp32 products. wgmma/TMA/warp specialisation are later work.
+// gemm_bf16 runs on the tensor cores through nvcuda::wmma (16x16x16, fp32
+// accumulation) with 128x128x32 shared-memory tiles, double-buffered by
+// cp.async: the products not yet moved to the wgmma / TMA GEMM of
+// gemm_sm90.cuh (the nn.Linear (N, K) weight forward and the GPT-2 layer's
+// backward dX). The fp32 GEMM is plain FMA (no TF32), so fp32 parity checks
+// compare true fp32 products.
 
 #pragma once
 
@@ -250,9 +254,7 @@ __device__ __forceinline__ void epilogue(const EpiArgs& ea, int M, int N,
 constexpr int GB_M = 128, GB_N = 128, GB_K = 32, GB_PAD = 8;
 constexpr int GB_THREADS = 256;
 constexpr int GB_A_TILE = GB_M * (GB_K + GB_PAD);            // elements
-constexpr int GB_B_TILE = GB_N * (GB_K + GB_PAD);            // >= KN tile
-constexpr int GB_B_TILE_KN = GB_K * (GB_N + GB_PAD);
-static_assert(GB_B_TILE_KN <= GB_B_TILE, "KN tile must fit the B stage");
+constexpr int GB_B_TILE = GB_N * (GB_K + GB_PAD);
 constexpr int GB_SMEM = 2 * (GB_A_TILE + GB_B_TILE) * 2;      // bytes
 static_assert(GB_SMEM <= 48 * 1024, "static shared memory limit");
 static_assert(8 * 256 * 4 <= 2 * GB_A_TILE * 2, "epilogue staging fits");
@@ -272,15 +274,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A (M,K) row-major; W (K,N) row-major when B_KN else (N,K) row-major.
-// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned A and W.
-template <int EPI, bool B_KN, typename TRes, typename TOut>
+// A (M,K) row-major; W (N,K) row-major. Requires K % 8 == 0, N % 8 == 0
+// and 16-byte aligned A and W.
+template <int EPI, typename TRes, typename TOut>
 __global__ void __launch_bounds__(GB_THREADS)
 gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ W, int M,
           int N, int K, EpiArgs ea) {
   using namespace nvcuda;
-  typedef typename std::conditional<B_KN, wmma::row_major,
-                                    wmma::col_major>::type BLayout;
   __shared__ __align__(128) unsigned char smem[GB_SMEM];
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + 2 * GB_A_TILE;
@@ -305,19 +305,11 @@ gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ W, int M,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int c = tid + i * GB_THREADS;
-      if (B_KN) {
-        const int r = c >> 4, nc = (c & 15) * 8;  // 32 k-rows x 16 chunks
-        const int gk = k0 + r, gn = n0 + nc;
-        const bool ok = gk < K && gn < N;
-        cp_async16(bs + r * (GB_N + GB_PAD) + nc,
-                   ok ? W + (size_t)gk * N + gn : W, ok);
-      } else {
-        const int r = c >> 2, kc = (c & 3) * 8;  // 128 n-rows x 4 chunks
-        const int gn = n0 + r, gk = k0 + kc;
-        const bool ok = gn < N && gk < K;
-        cp_async16(bs + r * (GB_K + GB_PAD) + kc,
-                   ok ? W + (size_t)gn * K + gk : W, ok);
-      }
+      const int r = c >> 2, kc = (c & 3) * 8;  // 128 n-rows x 4 chunks
+      const int gn = n0 + r, gk = k0 + kc;
+      const bool ok = gn < N && gk < K;
+      cp_async16(bs + r * (GB_K + GB_PAD) + kc,
+                 ok ? W + (size_t)gn * K + gk : W, ok);
     }
   };
 
@@ -340,22 +332,17 @@ gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ W, int M,
 #pragma unroll
     for (int kk = 0; kk < GB_K; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         wmma::load_matrix_sync(
             fa[i], as + (warp_m * 64 + i * 16) * (GB_K + GB_PAD) + kk,
             GB_K + GB_PAD);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nn = warp_n * 32 + j * 16;
-        if (B_KN)
-          wmma::load_matrix_sync(fb[j], bs + kk * (GB_N + GB_PAD) + nn,
-                                 GB_N + GB_PAD);
-        else
-          wmma::load_matrix_sync(fb[j], bs + nn * (GB_K + GB_PAD) + kk,
-                                 GB_K + GB_PAD);
-      }
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(
+            fb[j], bs + (warp_n * 32 + j * 16) * (GB_K + GB_PAD) + kk,
+            GB_K + GB_PAD);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -461,111 +448,20 @@ static void launch_gemm(const float* A, const float* W, int M, int N, int K,
 template <int EPI, bool B_KN, typename TRes, typename TOut>
 static void launch_gemm(const bf16* A, const bf16* W, int M, int N, int K,
                         EpiArgs ea, cudaStream_t stream) {
+  static_assert(!B_KN, "bf16 (K, N) products run on gemm_sm90.cuh");
   dim3 grid(cdiv(N, GB_N), cdiv(M, GB_M));
-  gemm_bf16<EPI, B_KN, TRes, TOut><<<grid, GB_THREADS, 0, stream>>>(A, W, M,
-                                                                    N, K, ea);
+  gemm_bf16<EPI, TRes, TOut><<<grid, GB_THREADS, 0, stream>>>(A, W, M, N, K,
+                                                              ea);
 }
 
 // ---------------------------------------------------------------------------
-// Weight-gradient GEMM: out[I,J] = A^T . B for A (K, I) and B (K, J), both
-// row-major, reduced over the K rows; fp32 output, no epilogue. The bf16
-// version is the tensor-core kernel above with both operands staged as
-// (k, column) tiles (A read as a column-major fragment); the fp32 version is
-// plain FMA. Requires I % 8 == 0, J % 8 == 0 (bf16) and 16-byte aligned
-// operands. One block per 128x128 (64x64) output tile walks all of K: the
-// sum has a fixed order, so the result is the same from run to run. (Not
-// templates, so static: every .cu that includes this header gets its own.)
+// Weight-gradient GEMM in fp32: out[I,J] = A^T . B for A (K, I) and B (K, J),
+// both row-major, reduced over the K rows, plain FMA (the bf16 route is
+// gemm_sm90.cuh's gemm_tn_sm90). One block per 64x64 output tile walks all
+// of K: the sum has a fixed order, so the result is the same from run to
+// run. (Not a template, so static: every .cu that includes this header gets
+// its own.)
 // ---------------------------------------------------------------------------
-
-static __global__ void __launch_bounds__(GB_THREADS)
-gemm_tn_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
-             float* __restrict__ out, int I, int J, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[4 * GB_B_TILE_KN * 2];
-  static_assert(8 * 256 * 4 <= 4 * GB_B_TILE_KN * 2, "epilogue staging fits");
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * GB_B_TILE_KN;
-  constexpr int LD = GB_N + GB_PAD;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp >> 2, warp_n = warp & 3;  // 2 x 4 warps
-  const int i0 = blockIdx.y * GB_M, j0 = blockIdx.x * GB_N;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * GB_K;
-    bf16* as = As + stage * GB_B_TILE_KN;
-    bf16* bs = Bs + stage * GB_B_TILE_KN;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = tid + t * GB_THREADS;  // 32 k-rows x 16 chunks of 8
-      const int r = c >> 4, nc = (c & 15) * 8;
-      const int gk = k0 + r;
-      const bool oka = gk < K && i0 + nc < I;
-      cp_async16(as + r * LD + nc, oka ? A + (size_t)gk * I + i0 + nc : A,
-                 oka);
-      const bool okb = gk < K && j0 + nc < J;
-      cp_async16(bs + r * LD + nc, okb ? B + (size_t)gk * J + j0 + nc : B,
-                 okb);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (K + GB_K - 1) / GB_K;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* as = As + (kt & 1) * GB_B_TILE_KN;
-    const bf16* bs = Bs + (kt & 1) * GB_B_TILE_KN;
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], as + kk * LD + warp_m * 64 + i * 16,
-                               LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * LD + warp_n * 32 + j * 16,
-                               LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  float* stg = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stg, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = i0 + warp_m * 64 + i * 16 + r;
-      const int col = j0 + warp_n * 32 + j * 16 + c0;
-      if (row < I) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (col + e < J) out[(size_t)row * J + col + e] = stg[r * 16 + c0 + e];
-      }
-      __syncwarp();
-    }
-}
 
 static __global__ void __launch_bounds__(GF_THREADS)
 gemm_tn_f32(const float* __restrict__ A, const float* __restrict__ B,
@@ -617,12 +513,6 @@ static void launch_gemm_tn(const float* A, const float* B, float* out, int I,
                            int J, int K, cudaStream_t stream) {
   dim3 grid(cdiv(J, GF_N), cdiv(I, GF_M));
   gemm_tn_f32<<<grid, GF_THREADS, 0, stream>>>(A, B, out, I, J, K);
-}
-
-static void launch_gemm_tn(const bf16* A, const bf16* B, float* out, int I,
-                           int J, int K, cudaStream_t stream) {
-  dim3 grid(cdiv(J, GB_N), cdiv(I, GB_M));
-  gemm_tn_bf16<<<grid, GB_THREADS, 0, stream>>>(A, B, out, I, J, K);
 }
 
 // ---------------------------------------------------------------------------

@@ -17,7 +17,11 @@
 // attention backward 344 GFLOP of GEMMs, each against a few hundred MB of
 // compulsory traffic, so all three are bound by the tensor cores (0.52, 0.69
 // and 0.35 ms at 989 TFLOP/s). The design keeps every product on the tensor
-// cores (wmma, fp32 accumulation) with its elementwise work in the epilogue.
+// cores (fp32 accumulation) with its elementwise work in the epilogue: in
+// bf16 the backward's products (dX reading the (out, in) weight as (K, N),
+// and the weight gradients on its TN route) run on the wgmma / TMA GEMM
+// (gemm_sm90.cuh), the forward's (reading it as (N, K)) on common.cuh's
+// wmma gemm_bf16.
 //
 // Limits: any R, 1 <= N <= 8 (the wrapper's: the attention takes 32), H * hd
 // = C (any hd), C % 8 == 0, hidden % 8 == 0, fp32 or bf16; norm affines and

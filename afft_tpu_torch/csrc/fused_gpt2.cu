@@ -19,11 +19,11 @@
 // Bound on an H100 at the flagship shape (B = 256, T = 16, C = 2048, 4 heads
 // of 512, hidden 8192, bf16): the attention half does ~138 GFLOP against
 // ~67 MB, the MLP half ~275 GFLOP against ~100 MB, both bound by the tensor
-// cores (~0.14 ms and ~0.28 ms at 989 TFLOP/s). In bf16 the attention half's
-// two GEMMs run on the wgmma / TMA GEMM (gemm_sm90.cuh) and its causal
-// attention is staged through shared memory (staged_attention.cuh); the MLP
-// half's GEMMs are still the wmma gemm_bf16 (common.cuh). In fp32 every
-// product is gemm_f32 (true fp32, for the parity checks).
+// cores (~0.14 ms and ~0.28 ms at 989 TFLOP/s). In bf16 every GEMM of both
+// halves runs on the wgmma / TMA GEMM (gemm_sm90.cuh: c_fc with the gelu_new
+// epilogue, the c_projs with the residual), and the causal attention is
+// staged through shared memory (staged_attention.cuh). In fp32 every product
+// is gemm_f32 (true fp32, for the parity checks).
 //
 // Limits: any B, T <= 32, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0,
 // fp32 or bf16.
@@ -43,13 +43,13 @@ static int run_attn_half(const T* x, const T* ln1g, const T* ln1b,
   const int M = B * Tn;
   launch_layernorm<T, T>(x, ln1g, ln1b, tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  AFFT_CHECK((gemm_conv1d<EPI_BIAS, T>(tmp, wqkv, M, 3 * C, C,
-                                        EpiArgs{bqkv, nullptr, qkv}, s)));
+  AFFT_CHECK((gemm_kn<EPI_BIAS, T>(tmp, wqkv, M, 3 * C, C,
+                                    EpiArgs{bqkv, nullptr, qkv}, s)));
   launch_staged_attention<T, false>(qkv, mask, tmp, B, Tn, H, C / H,
                                     DropSite{}, s);
   AFFT_CHECK_LAUNCH();
-  AFFT_CHECK((gemm_conv1d<EPI_BIAS_RES, T>(tmp, wproj, M, C, C,
-                                            EpiArgs{bproj, x, out}, s)));
+  AFFT_CHECK((gemm_kn<EPI_BIAS_RES, T>(tmp, wproj, M, C, C,
+                                        EpiArgs{bproj, x, out}, s)));
   return 0;
 }
 
@@ -60,12 +60,10 @@ static int run_mlp_half(const T* y, const T* ln2g, const T* ln2b,
                         int hidden, float eps, cudaStream_t s) {
   launch_layernorm<T, T>(y, ln2g, ln2b, tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_GELU_TANH, true, T, T>(tmp, wfc, M, hidden, C,
-                                         EpiArgs{bfc, nullptr, h}, s);
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS_RES, true, T, T>(h, wproj, M, C, hidden,
-                                        EpiArgs{bproj, y, out}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((gemm_kn<EPI_GELU_TANH, T>(tmp, wfc, M, hidden, C,
+                                         EpiArgs{bfc, nullptr, h}, s)));
+  AFFT_CHECK((gemm_kn<EPI_BIAS_RES, T>(h, wproj, M, C, hidden,
+                                        EpiArgs{bproj, y, out}, s)));
   return 0;
 }
 

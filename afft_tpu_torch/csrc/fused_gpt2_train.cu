@@ -15,7 +15,7 @@
 // they are stored, gelu_new, y rounded to the working dtype between the
 // halves, the attention's dropped probabilities and its backward's
 // cotangents rounded), and the weight and bias gradients are computed inside
-// the entries by the port's transposed-A GEMM and column sums. The cast chain
+// the entries by the port's TN GEMM and column sums. The cast chain
 // is the TPU kernels' (pallas_gpt2_train.py:84-150, :167-308, :505-528).
 //
 // Masks: Philox4x32-10 of (seed words, layer index, site, element index) at
@@ -28,10 +28,12 @@
 // of 512, hidden 8192, bf16): the forward does 413 GFLOP, the MLP backward 550
 // GFLOP and the attention backward 275 GFLOP of GEMMs against a few hundred MB
 // of compulsory traffic, so all three are bound by the tensor cores (0.42,
-// 0.56 and 0.28 ms at 989 TFLOP/s). In bf16 the forward's four products run
-// on the wgmma / TMA GEMM (gemm_sm90.cuh) and its attention, with the
-// backward's recomputation of it, is staged through shared memory
-// (staged_attention.cuh); the backward's products stay on common.cuh.
+// 0.56 and 0.28 ms at 989 TFLOP/s). In bf16 the forward's four products and
+// the backward's weight gradients (its TN route) run on the wgmma / TMA GEMM
+// (gemm_sm90.cuh), and the attention, with the backward's recomputation of
+// it, is staged through shared memory (staged_attention.cuh); the
+// backward's dX products, which read the Conv1D weight as (N, K), stay on
+// common.cuh's wmma gemm_bf16.
 //
 // Limits: any B, 1 <= T <= 32, H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0, fp32 or bf16.

@@ -1,12 +1,16 @@
-// afft_gemm: one bf16 GEMM C = A . W (+ epilogue) with W the (K, N) Conv1D
-// operand, on the wgmma / TMA GEMM of gemm_sm90.cuh, for the GEMM's own
-// checks and timings (ops/gemm.py). No model path calls it: the entries
-// reach the GEMM from inside their own launch sequences.
+// afft_gemm / afft_gemm_tn: one bf16 GEMM on the wgmma / TMA GEMM of
+// gemm_sm90.cuh, for the GEMM's own checks and timings (ops/gemm.py). No
+// model path calls them: the entries reach the GEMM from inside their own
+// launch sequences.
 //
-// The epilogues are those of the GPT-2 entries: EPI_BIAS, EPI_BIAS_RES,
-// EPI_RES_DROP (dropout at the proj site and drop-path, the training
+// afft_gemm: C = A . W (+ epilogue) with W the (K, N) operand, under the
+// epilogues the entries use: EPI_BIAS (bf16 out, or fp32 with out_f32: the
+// fuser's backward dX), EPI_BIAS_RES, EPI_GELU_TANH (the serving MLP half's
+// c_fc), EPI_RES_DROP (dropout at the proj site and drop-path, the training
 // forward's, drawn from the same seeds / thresholds as the training
-// entries; out2 optional) and EPI_PRE_GELU_TANH (out2 the stash).
+// entries; out2 optional), EPI_PRE_GELU_TANH (out2 the stash) and
+// EPI_GELU_BWD (res the stashed pre-activation: the fuser's dpre1).
+// afft_gemm_tn: the weight gradient out (I, J) fp32 = A^T . B over M rows.
 
 #include "gemm_sm90.cuh"
 #include "train_block.cuh"
@@ -15,7 +19,7 @@ using namespace afft;
 
 // seeds = {seed word 0, seed word 1, block index}; thr / inv as the training
 // entries' (index 1: the element dropout, 2: drop-path over rows / tokens).
-extern "C" int afft_gemm(int epi, const void* a, const void* w,
+extern "C" int afft_gemm(int epi, int out_f32, const void* a, const void* w,
                          const void* bias, const void* res, void* out,
                          void* out2, const int* seeds, const int* thr,
                          const float* inv, int M, int N, int K, int tokens,
@@ -26,15 +30,31 @@ extern "C" int afft_gemm(int epi, const void* a, const void* w,
                    site_of(rt, SITE_DP1), tokens};
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* W = static_cast<const bf16*>(w);
+  if (out_f32)
+    return epi == EPI_BIAS
+               ? (int)launch_gemm_sm90<EPI_BIAS, float>(A, W, M, N, K, ea, s)
+               : (int)cudaErrorInvalidValue;
   switch (epi) {
     case EPI_BIAS:
       return (int)launch_gemm_sm90<EPI_BIAS>(A, W, M, N, K, ea, s);
     case EPI_BIAS_RES:
       return (int)launch_gemm_sm90<EPI_BIAS_RES>(A, W, M, N, K, ea, s);
+    case EPI_GELU_TANH:
+      return (int)launch_gemm_sm90<EPI_GELU_TANH>(A, W, M, N, K, ea, s);
     case EPI_RES_DROP:
       return (int)launch_gemm_sm90<EPI_RES_DROP>(A, W, M, N, K, ea, s);
     case EPI_PRE_GELU_TANH:
       return (int)launch_gemm_sm90<EPI_PRE_GELU_TANH>(A, W, M, N, K, ea, s);
+    case EPI_GELU_BWD:
+      return (int)launch_gemm_sm90<EPI_GELU_BWD>(A, W, M, N, K, ea, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int afft_gemm_tn(const void* a, const void* b, void* out, int I,
+                            int J, int M, void* stream) {
+  return (int)launch_gemm_tn_sm90(static_cast<const bf16*>(a),
+                                  static_cast<const bf16*>(b),
+                                  static_cast<float*>(out), I, J, M,
+                                  static_cast<cudaStream_t>(stream));
 }

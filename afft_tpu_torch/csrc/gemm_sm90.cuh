@@ -1,39 +1,50 @@
-// gemm_sm90: the bf16 GEMM of the GPT-2 entries on Hopper's own path,
-// C[M,N] = A[M,K] . W[K,N] with a fused epilogue, for A row-major (K-major)
-// and W the HF Conv1D (in, out) weight, row-major (N contiguous: the
-// MN-major "transposed" wgmma B operand).
+// gemm_sm90: the bf16 GEMMs on Hopper's own path, two routes on one tile
+// loop:
+//   * C[M,N] = A[M,K] . W[K,N] with a fused epilogue, for A row-major
+//     (K-major) and W row-major (N contiguous: the MN-major "transposed"
+//     wgmma B operand): the HF Conv1D (in, out) weight forward, and the
+//     fuser's nn.Linear (out, in) weight in its backward dX = dY . W;
+//   * the weight gradient out[I,J] = sum_m A[m,I] B[m,J] (gemm_tn_sm90), for
+//     A (M, I) and B (M, J) row-major, both MN-major, fp32 out written whole.
 //
-// Replaces gemm_bf16 (common.cuh: nvcuda::wmma 16x16x16, two cp.async stages
-// of 128x128x32 in 40 KB of static shared memory, an epilogue of scalar
-// stores) for the bf16 products of two entries: the serving attention half
-// (fused_gpt2.cu) and the training forward of the GPT-2 layer
-// (train_block.cuh run_fwd<T, true>). At their shapes (M = 4096 rows, K 2048
-// or 8192, N 2048..8192) a product does 34-137 GFLOP against 25-67 MB: it is
-// bound by the tensor cores (989 TFLOP/s bf16), and wmma reached 9-14% of
-// that. What the design does about it:
+// Takes the place of the wmma GEMM (common.cuh gemm_bf16: nvcuda::wmma
+// 16x16x16, two cp.async stages of 128x128x32 in 40 KB of static shared
+// memory, an epilogue of scalar stores) for the bf16 products of the GPT-2
+// serving halves (fused_gpt2.cu), the GPT-2 training forward
+// (train_block.cuh run_fwd<T, true>), the fuser's training backward dX
+// products and every training weight gradient (train_block.cuh launch_dx,
+// launch_dw). At their shapes (M = 4096 or 20480 rows, K 1024..20480, N
+// 1024..8192) a product does 34-172 GFLOP against 25-130 MB: it is bound by
+// the tensor cores (989 TFLOP/s bf16), and wmma reached 9-20% of that. What
+// the design does about it:
 //   * wgmma.mma_async m64n256k16, bf16 in, fp32 accumulators in registers
 //     (128 a thread): the only route to the full tensor-core rate;
-//   * TMA tile loads with 128-byte swizzle (A: one 128x64 box; W: four 64x64
-//     boxes, 64 columns being the widest MN-major box a 128-byte swizzle
-//     takes) into a ring of four 48 KB stages of dynamic shared memory, one
-//     full / empty mbarrier pair a stage;
+//   * TMA tile loads with 128-byte swizzle into a ring of four 48 KB stages
+//     of dynamic shared memory, one full / empty mbarrier pair a stage.
+//     A K-major A tile is one 128x64 box; an MN-major tile (W, B, and the
+//     weight gradient's A) is 64-column boxes, 64 columns being the widest
+//     MN-major box a 128-byte swizzle takes, read by wgmma with its
+//     transpose bit (A's is allowed for bf16 operands in shared memory);
 //   * warp specialisation: one producer warp issues the loads (its
 //     warpgroup gives registers away with setmaxnreg), two consumer
 //     warpgroups each multiply 64 rows of the 128x256 tile, one wgmma group
 //     in flight while the previous stage is released;
 //   * the epilogue stages the fp32 tile through shared memory (over the
 //     drained ring), then each lane takes 8 consecutive columns of a row:
-//     the bias is read once per column, residuals and outputs (and the
-//     out2 stash) move as 16-byte vectors, and the element arithmetic is
-//     common.cuh epilogue()'s, in the same order with the same rounding
-//     points (acc + bias, then dropout / drop-path / residual or the stashed
-//     pre-activation and gelu_new). The dropout multiplier of an element is
-//     drop_scale() of its (row, col) index, so the masks do not change.
+//     the bias is read once per column, residuals, stashes and outputs move
+//     as 16-byte vectors, and the element arithmetic is common.cuh
+//     epilogue()'s, in the same order with the same rounding points (acc +
+//     bias, then gelu_new, dropout / drop-path / residual, the stashed
+//     pre-activation, or the GELU derivative of the stashed pre-activation).
+//     The dropout multiplier of an element is drop_scale() of its (row, col)
+//     index, so the masks do not change.
 // TMA zero-fills out of bounds, so M, N and K need not be multiples of the
-// tile; the epilogue masks rows and (8-column) column groups. Requires
-// K % 8 == 0, N % 8 == 0 and 16-byte aligned A, W, bias, residual and
-// outputs; the launcher returns cudaErrorInvalidValue otherwise. One block per output tile walks all of K
-// (no split-K, no atomics): the result is the same from run to run.
+// tile (the zero rows of a ragged reduction add nothing); the epilogue masks
+// rows and (8-column) column groups. Requires K % 8 == 0, N % 8 == 0 (I % 8,
+// J % 8 for the weight gradient) and 16-byte aligned operands, bias,
+// residual and outputs; the launchers return cudaErrorInvalidValue
+// otherwise. One block per output tile walks all of K in a fixed order (no
+// split-K, no atomics): the result is the same from run to run.
 //
 // The tensor maps are encoded on the host per call; cuTensorMapEncodeTiled
 // is a driver function, fetched once through cudaGetDriverEntryPoint so the
@@ -120,7 +131,9 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// D(64x256, fp32) += A(64x16, K-major) . B(16x256, MN-major), bf16 operands.
+// D(64x256, fp32) += A(64x16) . B(16x256, MN-major), bf16 operands; A is
+// K-major, or MN-major with TNSP_A (wgmma's transpose bit on A).
+template <int TNSP_A>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -141,7 +154,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       "%108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
       "%123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 1;\n"
+      " %128, %129, p, 1, 1, %131, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -169,10 +182,10 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TNSP_A));
 }
 
-// 8 consecutive bf16 <-> fp32, as one 16-byte access
+// 8 consecutive bf16 <-> fp32, as one 16-byte access; 8 fp32 as two
 __device__ __forceinline__ void load8(const bf16* p, float* v) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -194,18 +207,29 @@ __device__ __forceinline__ void store8(bf16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// The epilogues the GPT-2 entries use (common.cuh epilogue(), element for
-// element) on 8 consecutive columns of one row; b the bias values.
-template <int EPI>
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  float4* q = reinterpret_cast<float4*>(p);
+  q[0] = make_float4(v[0], v[1], v[2], v[3]);
+  q[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The epilogues of the entries on this GEMM (common.cuh epilogue(), element
+// for element) on 8 consecutive columns of one row; b the bias values. The
+// output is bf16, or fp32 with EPI_BIAS (the fuser's fp32 dX products and
+// the weight gradients); residuals and stashes are bf16.
+template <int EPI, typename TOut>
 __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
                                           int N, const float* acc,
                                           const float* b) {
   static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_RES ||
-                    EPI == EPI_RES_DROP || EPI == EPI_PRE_GELU_TANH,
+                    EPI == EPI_GELU_TANH || EPI == EPI_RES_DROP ||
+                    EPI == EPI_PRE_GELU_TANH || EPI == EPI_GELU_BWD,
                 "gemm_sm90 epilogue");
+  static_assert(std::is_same<TOut, bf16>::value || EPI == EPI_BIAS,
+                "an fp32 output takes EPI_BIAS");
   const size_t at = (size_t)row * N + col;
   float v[8], r[8], o2[8];
-  if (EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP)
+  if (EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP || EPI == EPI_GELU_BWD)
     load8(static_cast<const bf16*>(ea.res) + at, r);
   float keep_row = 1.f;
   if (EPI == EPI_RES_DROP)
@@ -214,9 +238,13 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
   for (int e = 0; e < 8; ++e) {
     float x = acc[e];
     if (ea.bias != nullptr) x += b[e];
-    if (EPI == EPI_PRE_GELU_TANH) {
+    if (EPI == EPI_GELU_TANH) {
+      x = gelu_tanh(x);
+    } else if (EPI == EPI_PRE_GELU_TANH) {
       o2[e] = x;
       x = gelu_tanh(x);
+    } else if (EPI == EPI_GELU_BWD) {
+      x *= gelu_erf_grad(r[e]);
     } else if (EPI == EPI_RES_DROP) {
       x *= drop_scale(ea.drop, at + e);
       x *= keep_row;
@@ -227,16 +255,22 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
     }
     v[e] = x;
   }
-  store8(static_cast<bf16*>(ea.out) + at, v);
+  store8(static_cast<TOut*>(ea.out) + at, v);
   if ((EPI == EPI_PRE_GELU_TANH || EPI == EPI_RES_DROP) && ea.out2 != nullptr)
     store8(static_cast<bf16*>(ea.out2) + at, o2);
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(GS_THREADS, 1)
-gemm_sm90(const __grid_constant__ CUtensorMap tmA,
-          const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
-          EpiArgs ea) {
+// One 128x256 output tile, C[m0.., n0..] = A . B over all of K, then the
+// epilogue. A is K-major (M, K) in one 128x64 box a stage, or with A_MN
+// MN-major (K, M) in two 64x64 boxes; B is MN-major (K, N) in four 64x64
+// boxes. Either way consumer cw's 64 rows start 8 KB into the stage. tmA /
+// tmB point at the kernel's __grid_constant__ tensor maps.
+template <int EPI, bool A_MN, typename TOut>
+__device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
+                                               const CUtensorMap* tmB, int M,
+                                               int N, int K,
+                                               const EpiArgs& ea) {
+  static_assert(GS_A_BYTES == 2 * GS_B_BOX_BYTES, "A: two 64-column boxes");
   extern __shared__ __align__(1024) unsigned char gs_smem[];
   // 128-byte swizzled tiles must start on 1024-byte boundaries
   const uint32_t raw = smem_u32(gs_smem);
@@ -266,10 +300,16 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
         mbar_wait(empty + 8 * s, ph ^ 1u);  // the first round passes
         const uint32_t dst = base + s * GS_STAGE_BYTES, bar = full + 8 * s;
         mbar_expect_tx(bar, GS_STAGE_BYTES);
-        tma_load_2d(dst, &tmA, bar, kt * GS_K, m0);
+        if (A_MN) {
+          tma_load_2d(dst, tmA, bar, m0, kt * GS_K);
+          tma_load_2d(dst + GS_B_BOX_BYTES, tmA, bar, m0 + GS_BOX_N,
+                      kt * GS_K);
+        } else {
+          tma_load_2d(dst, tmA, bar, kt * GS_K, m0);
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          tma_load_2d(dst + GS_A_BYTES + j * GS_B_BOX_BYTES, &tmB, bar,
+          tma_load_2d(dst + GS_A_BYTES + j * GS_B_BOX_BYTES, tmB, bar,
                       n0 + j * GS_BOX_N, kt * GS_K);
         if (++s == GS_STAGES) {
           s = 0;
@@ -290,17 +330,22 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
     uint32_t ph = 0;
     for (int kt = 0; kt < nk; ++kt) {
       mbar_wait(full + 8 * s, ph);
-      const uint32_t a = base + s * GS_STAGE_BYTES + cw * 64 * 128;
+      const uint32_t a = base + s * GS_STAGE_BYTES + cw * GS_B_BOX_BYTES;
       const uint32_t b = base + s * GS_STAGE_BYTES + GS_A_BYTES;
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int kk = 0; kk < GS_K / 16; ++kk)
-        // A: K-major, 128-byte rows, 8-row groups 1024 bytes apart, a k16
-        // step 32 bytes along the row; B: MN-major, 64-column boxes 8 KB
-        // apart (leading), 8-k-row groups 1024 bytes apart (stride), a k16
-        // step 16 rows = 2048 bytes
-        wgmma_m64n256k16(acc, gmma_desc(a + kk * 32, 16, 1024),
-                         gmma_desc(b + kk * 2048, GS_B_BOX_BYTES, 1024));
+      for (int kk = 0; kk < GS_K / 16; ++kk) {
+        // MN-major (B, and A with A_MN): 64-column boxes 8 KB apart
+        // (leading), 8-k-row groups 1024 bytes apart (stride), a k16 step
+        // 16 rows = 2048 bytes. K-major A: 128-byte rows, 8-row groups 1024
+        // bytes apart, a k16 step 32 bytes along the row.
+        const uint64_t db = gmma_desc(b + kk * 2048, GS_B_BOX_BYTES, 1024);
+        if (A_MN)
+          wgmma_m64n256k16<1>(
+              acc, gmma_desc(a + kk * 2048, GS_B_BOX_BYTES, 1024), db);
+        else
+          wgmma_m64n256k16<0>(acc, gmma_desc(a + kk * 32, 16, 1024), db);
+      }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // the previous k-tile's group is done: its stage goes back
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
@@ -344,10 +389,29 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
         const float4 lo = src[0], hi = src[1];
         v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
         v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-        epilogue8<EPI>(ea, row, col, N, v, bias);
+        epilogue8<EPI, TOut>(ea, row, col, N, v, bias);
       }
     }
   }
+}
+
+// C = A . W (+ epilogue) for A (M, K) K-major and W (K, N) MN-major.
+template <int EPI, typename TOut>
+__global__ void __launch_bounds__(GS_THREADS, 1)
+gemm_sm90(const __grid_constant__ CUtensorMap tmA,
+          const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
+          EpiArgs ea) {
+  gemm_sm90_tile<EPI, false, TOut>(&tmA, &tmB, M, N, K, ea);
+}
+
+// The weight gradient out (I, J) = A^T . B, fp32, over the M rows of A
+// (M, I) and B (M, J): the tile loop with A MN-major, stored whole.
+static __global__ void __launch_bounds__(GS_THREADS, 1)
+gemm_tn_sm90(const __grid_constant__ CUtensorMap tmA,
+             const __grid_constant__ CUtensorMap tmB, int I, int J, int M,
+             float* out) {
+  gemm_sm90_tile<EPI_BIAS, true, float>(&tmA, &tmB, I, J, M,
+                                        EpiArgs{nullptr, nullptr, out});
 }
 
 // ---------------------------------------------------------------------------
@@ -395,9 +459,9 @@ static bool bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// C = A . W (+ epilogue EPI) for A (M, K) and W (K, N), bf16, outputs and
-// residual bf16. Returns the launch's error.
-template <int EPI>
+// C = A . W (+ epilogue EPI) for A (M, K) and W (K, N), bf16; out TOut (bf16,
+// or fp32 with EPI_BIAS), residual and out2 bf16. Returns the launch's error.
+template <int EPI, typename TOut = bf16>
 static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
                                     int K, EpiArgs ea, cudaStream_t stream) {
   // the epilogue moves bias, res, out and out2 as 16-byte vectors too
@@ -407,28 +471,65 @@ static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
     return cudaErrorInvalidValue;
   // on every launch: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_sm90<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
+      gemm_sm90<EPI, TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      GS_SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
   if (!bf16_tensor_map(&ta, A, M, K, GS_M, GS_K) ||
       !bf16_tensor_map(&tb, W, K, N, GS_K, GS_BOX_N))
     return cudaErrorInvalidValue;
   const dim3 grid(cdiv(N, GS_N), cdiv(M, GS_M));
-  gemm_sm90<EPI><<<grid, GS_THREADS, GS_SMEM, stream>>>(ta, tb, M, N, K, ea);
+  gemm_sm90<EPI, TOut><<<grid, GS_THREADS, GS_SMEM, stream>>>(ta, tb, M, N, K,
+                                                               ea);
   return cudaGetLastError();
 }
 
-// C = A . W (+ epilogue) for a Conv1D weight W (K, N): this GEMM in bf16,
-// gemm_f32 (true fp32, for the parity checks) in fp32.
-template <int EPI, typename T>
-static cudaError_t gemm_conv1d(const T* A, const T* W, int M, int N, int K,
-                               EpiArgs ea, cudaStream_t stream) {
+// out (I, J) fp32 = A^T . B for A (M, I) and B (M, J), bf16 row-major.
+// Returns the launch's error.
+static cudaError_t launch_gemm_tn_sm90(const bf16* A, const bf16* B,
+                                       float* out, int I, int J, int M,
+                                       cudaStream_t stream) {
+  if (M < 1 || I < 8 || J < 8 || I % 8 || J % 8 ||
+      ((uintptr_t)A | (uintptr_t)B | (uintptr_t)out) % 16)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_tn_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta, tb;
+  if (!bf16_tensor_map(&ta, A, M, I, GS_K, GS_BOX_N) ||
+      !bf16_tensor_map(&tb, B, M, J, GS_K, GS_BOX_N))
+    return cudaErrorInvalidValue;
+  const dim3 grid(cdiv(J, GS_N), cdiv(I, GS_M));
+  gemm_tn_sm90<<<grid, GS_THREADS, GS_SMEM, stream>>>(ta, tb, I, J, M, out);
+  return cudaGetLastError();
+}
+
+// C = A . W (+ epilogue) for W read as (K, N): the GPT-2 layer's Conv1D
+// weight forward, the fuser's nn.Linear weight in dX = dY . W. This GEMM in
+// bf16 (TOut bf16, or fp32 with EPI_BIAS); gemm_f32 (true fp32, for the
+// parity checks) in fp32.
+template <int EPI, typename T, typename TOut = T>
+static cudaError_t gemm_kn(const T* A, const T* W, int M, int N, int K,
+                           EpiArgs ea, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_gemm_sm90<EPI>(A, W, M, N, K, ea, stream);
+    return launch_gemm_sm90<EPI, TOut>(A, W, M, N, K, ea, stream);
   } else {
-    launch_gemm<EPI, true, T, T>(A, W, M, N, K, ea, stream);
+    launch_gemm<EPI, true, T, TOut>(A, W, M, N, K, ea, stream);
     return cudaGetLastError();
   }
+}
+
+// The weight gradient out (I, J) = A^T . B over M rows, fp32: the TN route
+// above in bf16, gemm_tn_f32 (common.cuh, true fp32) in fp32.
+static cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int I,
+                           int J, int M, cudaStream_t stream) {
+  return launch_gemm_tn_sm90(A, B, out, I, J, M, stream);
+}
+
+static cudaError_t gemm_tn(const float* A, const float* B, float* out, int I,
+                           int J, int M, cudaStream_t stream) {
+  launch_gemm_tn(A, B, out, I, J, M, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace afft

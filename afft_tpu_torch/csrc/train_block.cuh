@@ -19,10 +19,13 @@
 // LayerNorm statistics from the stashed x / y; dh2, dpre1, dproj and dqkv are
 // rounded to the working dtype before their GEMMs; every product inside the
 // block is the port's GEMM; every parameter gradient is fp32. In bf16 the
-// GPT-2 layer's forward products run on the wgmma / TMA GEMM
-// (gemm_sm90.cuh), and its attention, forward and the backward's
-// recomputation, is staged through shared memory (staged_attention.cuh);
-// every other product is common.cuh's gemm_bf16 (bf16) or gemm_f32 (fp32).
+// wgmma / TMA GEMM (gemm_sm90.cuh) runs the GPT-2 layer's forward products,
+// the fuser's backward dX products (its (out, in) weight read as (K, N)) and
+// every weight gradient (its TN route); the GPT-2 layer's attention, forward
+// and the backward's recomputation, is staged through shared memory
+// (staged_attention.cuh). The fuser's forward products and the GPT-2
+// layer's backward dX (both reading a weight as (N, K)) are still
+// common.cuh's gemm_bf16; in fp32 every product is gemm_f32 / gemm_tn_f32.
 //
 // The two layers (template flag GPT2) differ in four places:
 //   weights     fuser: nn.Linear (out, in), read as the (N, K) operand
@@ -288,13 +291,13 @@ static int fill_masks(const Rates& rt, void* const* bufs, const size_t* n,
 // The three entries
 // ---------------------------------------------------------------------------
 
-// A forward product: the GPT-2 layer's Conv1D weights on gemm_conv1d (the
+// A forward product: the GPT-2 layer's Conv1D weights on gemm_kn (the
 // wgmma / TMA GEMM in bf16), the fuser's nn.Linear weights on launch_gemm.
 template <int EPI, bool GPT2, typename TRes, typename TOut, typename T>
 static cudaError_t fwd_gemm(const T* a, const T* w, int M, int N, int K,
                             EpiArgs ea, cudaStream_t s) {
   if constexpr (GPT2) {
-    return gemm_conv1d<EPI, T>(a, w, M, N, K, ea, s);
+    return gemm_kn<EPI, T>(a, w, M, N, K, ea, s);
   } else {
     launch_gemm<EPI, false, TRes, TOut>(a, w, M, N, K, ea, s);
     return cudaGetLastError();
@@ -319,25 +322,30 @@ static cudaError_t attention_drop(const T* qkv, const float* mask, T* out,
   return cudaGetLastError();
 }
 
-// dX = dY . W^T through a weight read as the forward GEMM reads it: the fuser's
-// (out, in) weight is the (K, N) operand of the backward product, the GPT-2
-// layer's (in, out) weight the (N, K) one.
-template <int EPI, bool GPT2, typename TRes, typename TOut, typename T>
-static void launch_dx(const T* dy, const T* w, int M, int N, int K,
-                      EpiArgs ea, cudaStream_t s) {
-  launch_gemm<EPI, !GPT2, TRes, TOut>(dy, w, M, N, K, ea, s);
+// dX = dY . W^T through a weight read as the forward GEMM reads it: the
+// fuser's (out, in) weight is the (K, N) operand of the backward product
+// (gemm_kn: the wgmma / TMA GEMM in bf16), the GPT-2 layer's (in, out) weight
+// the (N, K) one (gemm_bf16). The residual of the epilogue is in T.
+template <int EPI, bool GPT2, typename TOut, typename T>
+static cudaError_t launch_dx(const T* dy, const T* w, int M, int N, int K,
+                             EpiArgs ea, cudaStream_t s) {
+  if constexpr (GPT2) {
+    launch_gemm<EPI, false, T, TOut>(dy, w, M, N, K, ea, s);
+    return cudaGetLastError();
+  } else {
+    return gemm_kn<EPI, T, TOut>(dy, w, M, N, K, ea, s);
+  }
 }
 
 // The weight gradient in the weight's own layout, from the layer input x
 // (M, in) and the output gradient dy (M, out): (out, in) = dy^T . x for the
-// fuser, (in, out) = x^T . dy for the GPT-2 layer.
+// fuser, (in, out) = x^T . dy for the GPT-2 layer (gemm_tn: the TN route of
+// the wgmma / TMA GEMM in bf16).
 template <bool GPT2, typename T>
-static void launch_dw(const T* x, const T* dy, float* out, int in, int out_n,
-                      int M, cudaStream_t s) {
-  if (GPT2)
-    launch_gemm_tn(x, dy, out, in, out_n, M, s);
-  else
-    launch_gemm_tn(dy, x, out, out_n, in, M, s);
+static cudaError_t launch_dw(const T* x, const T* dy, float* out, int in,
+                             int out_n, int M, cudaStream_t s) {
+  return GPT2 ? gemm_tn(x, dy, out, in, out_n, M, s)
+              : gemm_tn(dy, x, out, out_n, in, M, s);
 }
 
 // Scratch: tmp (M, C), y32 (M, C) fp32 (the fuser's residual stream in bf16;
@@ -401,26 +409,22 @@ static int run_bwd_mlp(const T* y, const T* dout, const T* pre1,
   AFFT_CHECK_LAUNCH();
   gelu_rows<T, GPT2><<<ew_blocks(nh), 256, 0, s>>>(pre1, h1, nh);
   AFFT_CHECK_LAUNCH();
-  launch_dw<GPT2>(h1, dh2, gv[TP_WFC2], hidden, C, M, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_dw<GPT2>(h1, dh2, gv[TP_WFC2], hidden, C, M, s)));
   if (gv[TP_BFC2] != nullptr) {
     launch_colsum<T>(dh2, partial, gv[TP_BFC2], M, C, s);
     AFFT_CHECK_LAUNCH();
   }
   // dpre1 = (dh2 . W2^T) * gelu'(pre1)
-  launch_dx<GPT2 ? EPI_GELU_TANH_BWD : EPI_GELU_BWD, GPT2, T, T>(
-      dh2, p[TP_WFC2], M, hidden, C, EpiArgs{nullptr, pre1, dpre1}, s);
-  AFFT_CHECK_LAUNCH();
-  launch_dw<GPT2>(tmp, dpre1, gv[TP_WFC1], C, hidden, M, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_dx<GPT2 ? EPI_GELU_TANH_BWD : EPI_GELU_BWD, GPT2, T>(
+      dh2, p[TP_WFC2], M, hidden, C, EpiArgs{nullptr, pre1, dpre1}, s)));
+  AFFT_CHECK((launch_dw<GPT2>(tmp, dpre1, gv[TP_WFC1], C, hidden, M, s)));
   if (gv[TP_BFC1] != nullptr) {
     launch_colsum<T>(dpre1, partial, gv[TP_BFC1], M, hidden, s);
     AFFT_CHECK_LAUNCH();
   }
   // dg = dpre1 . W1^T, fp32
-  launch_dx<EPI_BIAS, GPT2, T, float>(dpre1, p[TP_WFC1], M, C, hidden,
-                                      EpiArgs{nullptr, nullptr, dg}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
+      dpre1, p[TP_WFC1], M, C, hidden, EpiArgs{nullptr, nullptr, dg}, s)));
   layernorm_bwd_rows<T><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
       y, dg, p[TP_LN2G], dout, dy, mu, rstd, M, C, eps);
   AFFT_CHECK_LAUNCH();
@@ -452,31 +456,27 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
   AFFT_CHECK_LAUNCH();
   AFFT_CHECK((attention_drop<T, GPT2>(qkv, mask, tmp, R, N, H, C / H,
                                       site_of(rt, SITE_ATTN), s)));
-  launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], C, C, M, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], C, C, M, s)));
   if (gv[TP_BPROJ] != nullptr) {
     launch_colsum<T>(dproj, partial, gv[TP_BPROJ], M, C, s);
     AFFT_CHECK_LAUNCH();
   }
   // dattn = dproj . Wproj^T, fp32
-  launch_dx<EPI_BIAS, GPT2, T, float>(dproj, p[TP_WPROJ], M, C, C,
-                                      EpiArgs{nullptr, nullptr, dattn}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
+      dproj, p[TP_WPROJ], M, C, C, EpiArgs{nullptr, nullptr, dattn}, s)));
   small_attention_drop_bwd<T, GPT2><<<R * H, N * 32, 0, s>>>(
       qkv, mask, dattn, dqkv, N, H, C / H, scale, site_of(rt, SITE_ATTN));
   AFFT_CHECK_LAUNCH();
   launch_layernorm<T, T>(x, p[TP_LN1G], p[TP_LN1B], tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_dw<GPT2>(tmp, dqkv, gv[TP_WQKV], C, 3 * C, M, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_dw<GPT2>(tmp, dqkv, gv[TP_WQKV], C, 3 * C, M, s)));
   if (gv[TP_BQKV] != nullptr) {
     launch_colsum<T>(dqkv, partial, gv[TP_BQKV], M, 3 * C, s);
     AFFT_CHECK_LAUNCH();
   }
   // dxn = dqkv . Wqkv^T, fp32, over dattn's buffer
-  launch_dx<EPI_BIAS, GPT2, T, float>(dqkv, p[TP_WQKV], M, C, 3 * C,
-                                      EpiArgs{nullptr, nullptr, dattn}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
+      dqkv, p[TP_WQKV], M, C, 3 * C, EpiArgs{nullptr, nullptr, dattn}, s)));
   layernorm_bwd_rows<T><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
       x, dattn, p[TP_LN1G], dy, dx, mu, rstd, M, C, eps);
   AFFT_CHECK_LAUNCH();

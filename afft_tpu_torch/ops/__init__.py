@@ -18,9 +18,9 @@ its plain PyTorch version.
   autograd Function, and its mask generator (replace
   ``afft_tpu/ops/pallas_gpt2_train.py:fused_gpt2_block_train`` and
   ``:draw_masks_gpt2``);
-- ``ops.gemm``: one bf16 GEMM with a fused epilogue on the wgmma / TMA GEMM
-  that the GPT-2 entries use, alone (its checks and timings; no model path
-  calls it).
+- ``ops.gemm``: the entries' bf16 wgmma / TMA GEMM alone, C = A . W with a
+  fused epilogue and the weight gradient A^T . B (its checks and timings; no
+  model path calls it).
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches, so a run can

@@ -10,15 +10,19 @@ Phases, in order; any failure exits non-zero and prints no result:
                GEMM and the staged attention, and the library's SASS must
                hold HGMMA (wgmma) instructions where the toolkit has
                cuobjdump;
-  3. gemm    - the wgmma / TMA GEMM of the GPT-2 entries (ops.gemm) against
-               the fp32 product of its upcast operands for each of its four
-               epilogues, at the flagship's shapes and at edge shapes (M 1 /
-               15 / 4097, N 72 / 136 / 6144, K 24 / 40 / 2048), dropout masks
-               bit for bit; then timed in turns against torch.matmul (the
-               library yardstick), and at the rollout's cached-block shapes
-               against cuBLAS addmm, beside the wmma gemm_bf16's time a
-               launch in the profile of gpt2_mlp_half, an entry that still
-               runs it;
+  3. gemm    - the wgmma / TMA GEMM (ops.gemm, ops.gemm_tn) against the
+               fp32 product of its upcast operands: C = A . W for each of
+               its six epilogues and the fp32 output, at the GPT-2 entries'
+               and the fuser backward's shapes and at edge shapes (M 1 / 15
+               / 4097, N 72 / 136 / 6144, K 24 / 40 / 2048), dropout masks
+               bit for bit; its TN route (the weight gradients) at the
+               training entries' shapes and at edge shapes (M 1 / 15 /
+               4097, I 8 / 72 / 136, J 24 / 200 / 264), bit for bit from
+               run to run; then both timed in turns against torch.matmul
+               (the library yardstick), and at the rollout's cached-block
+               shapes against cuBLAS addmm, beside the wmma gemm_bf16's time
+               a launch in the profile of fused_gpt2_train_bwd_mlp (rows 13
+               + 14), an entry that still runs it;
   4. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
                fused_attention, fused_seq_block, fused_decoder_block; the
                fuser block's and the GPT-2 layer's training entries, forward
@@ -31,8 +35,10 @@ Phases, in order; any failure exits non-zero and prints no result:
                shapes of the served and trained paths and in fp32 at a
                reduced batch, and at edge shapes; its time beside the plain
                version's, a cuBLAS + SDPA composition of the same function,
-               and the least time the card could take; a profile of the two
-               redesigned GPT-2 entries by kernel group;
+               and the least time the card could take; a profile by kernel
+               group of the four entries redesigned on the wgmma / TMA GEMM
+               (REDESIGNED); each training backward entry run twice on the
+               same inputs gives the same gradients bit for bit;
   5. serve   - the Server on five paths at full width (bf16, batch 256,
                seeded weights): the flagship
                expts/01_SA-Fuser_ek100_val_Swin.txt, its multi-step rollout
@@ -927,18 +933,35 @@ def time_train_layer(peaks, case, layer):
     tensors, cfg = list(saved[5:]), out.grad_fn.cfg
     grads = FT.new_grads(tensors)
     dy = FT.block_train_bwd_mlp(x, y, dflat, pre1, tensors, grads, cfg)
+
+    def bwd_mlp():
+        return FT.block_train_bwd_mlp(x, y, dflat, pre1, tensors, grads, cfg)
     with torch.no_grad():
         ms = [time_ms(lambda: layer["kernel"](x, p)),
-              time_ms(lambda: FT.block_train_bwd_mlp(x, y, dflat, pre1,
-                                                     tensors, grads, cfg)),
+              time_ms(bwd_mlp),
               time_ms(lambda: FT.block_train_bwd_attn(x, dy, qkv, mask32,
                                                       tensors, grads, cfg)),
               time_ms(layer["draw"])]
+        # every gradient the same from run to run: each backward entry
+        # twice on the same inputs into zeroed buffers, bit for bit
+        for name, bwd, args in (
+                (names[1], FT.block_train_bwd_mlp, (x, y, dflat, pre1)),
+                (names[2], FT.block_train_bwd_attn, (x, dy, qkv, mask32))):
+            runs = []
+            for _ in range(2):
+                g = [None if t is None else torch.zeros(
+                    t.shape, dtype=torch.float32, device="cuda")
+                    for t in tensors]
+                runs.append([bwd(*args, tensors, g, cfg)]
+                            + [t for t in g if t is not None])
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"{name}: two runs on the same inputs "
+                                     "give different gradients")
+            del runs, g
 
     def fwd_bwd():
         layer["kernel"](xk, pk).backward(dout)
     whole_ms = time_ms(fwd_bwd, iters=10)
-    del out, saved, y, qkv, pre1, dy, grads
 
     # the plain versions: forward on the masks, autograd through each half
     xp, pp = leaves()
@@ -966,11 +989,18 @@ def time_train_layer(peaks, case, layer):
     ya = attn_half(xl)
     yb = ya.detach().requires_grad_(True)
     ob = mlp_half(yb)
-    redesign = None
+    redesign = {}
     if names[0] in REDESIGNED:
-        redesign = redesigned_numbers(names[0], tuple(x.shape),
-                                      lambda: layer["kernel"](x, p),
-                                      lambda: mlp_half(attn_half(x)))
+        redesign[names[0]] = redesigned_numbers(
+            names[0], tuple(x.shape), lambda: layer["kernel"](x, p),
+            lambda: mlp_half(attn_half(x)))
+    if names[1] in REDESIGNED:
+        redesign[names[1]] = redesigned_numbers(
+            names[1], tuple(x.shape), bwd_mlp,
+            lambda: torch.autograd.grad(
+                ob, [yb] + [pl[k] for k in mlp_keys], dout,
+                retain_graph=True))
+    del out, saved, y, qkv, pre1, dy, grads
     with torch.no_grad():
         library_ms = [time_ms(lambda: mlp_half(attn_half(x)))]
     library_ms += [
@@ -1016,8 +1046,8 @@ def time_train_layer(peaks, case, layer):
         f"through the library composition; one F.dropout mask of (rows, C) "
         f"{bernoulli_ms:.4f} ms beside {names[3]}' masks")
     results[names[0]]["block_fwd_bwd_ms"] = whole_ms
-    if redesign is not None:
-        results[names[0]]["redesign"] = redesign
+    for name, numbers in redesign.items():
+        results[name]["redesign"] = numbers
     results[names[0]]["library_block_fwd_bwd_ms"] = lib_whole_ms
     return results
 
@@ -1110,7 +1140,8 @@ def phase_train_kernels(peaks, gen):
 
 # the entries redesigned on the wgmma / TMA GEMM: their one-call profile by
 # kernel group is printed beside their times, and their times back to back
-REDESIGNED = ("gpt2_attn_half", "fused_gpt2_train_fwd")
+REDESIGNED = ("gpt2_attn_half", "gpt2_mlp_half", "fused_gpt2_train_fwd",
+              "fused_block_train_bwd_mlp")
 
 
 def redesigned_numbers(name, shape, kernel, library):
@@ -1201,7 +1232,7 @@ def phase_kernels(peaks):
 # -- the build and the GEMM of the GPT-2 entries ------------------------------
 
 # the kernels whose ptxas report the build phase prints
-REPORTED_KERNELS = ("gemm_sm90", "staged_attention")
+REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "staged_attention")
 
 
 def report_build(lib_path):
@@ -1225,8 +1256,10 @@ def report_build(lib_path):
                 seen.add(entry)
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 log(f"build: ptxas {entry}: {props}")
-    if not any(REPORTED_KERNELS[0] in e for e in seen):
-        raise AssertionError("no ptxas report of gemm_sm90 in the build log")
+    for kernel in REPORTED_KERNELS[:2]:
+        if not any(kernel in e for e in seen):
+            raise AssertionError(f"no ptxas report of {kernel} in the build "
+                                 "log")
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cuobjdump = shutil.which("cuobjdump") or os.path.join(home, "bin",
                                                           "cuobjdump")
@@ -1247,7 +1280,17 @@ def report_build(lib_path):
 # T 16, C 2048, hidden 8192): c_attn, c_proj, c_fc, the MLP's c_proj
 GEMM_SHAPES = ((4096, 6144, 2048), (4096, 2048, 2048), (4096, 8192, 2048),
                (4096, 2048, 8192))
+# the fuser's MLP backward dX products (row 8: R 4096 x 5 tokens, C 1024,
+# hidden 4096): dpre1 (gelu_bwd) and dg (fp32 out)
+ROW8_SHAPES = ((20480, 4096, 1024), (20480, 1024, 4096))
 GEMM_EDGES = ((1, 15, 4097), (72, 136, 6144), (24, 40, 2048))  # M, N, K
+# (M, I, J) of the weight gradients: row 8's dW2 (C, hidden) and dW1
+# (hidden, C), row 9's dWqkv and dWproj over M 20,480; the GPT-2 layer's
+# (rows 13-15) dW_fc, dW_proj (MLP), dW_attn, dW_proj over M 4,096
+TN_SHAPES = ((20480, 1024, 4096), (20480, 4096, 1024), (20480, 3072, 1024),
+             (20480, 1024, 1024), (4096, 2048, 8192), (4096, 8192, 2048),
+             (4096, 2048, 6144), (4096, 2048, 2048))
+TN_EDGES = ((1, 15, 4097), (8, 72, 136), (24, 200, 264))  # M, I, J
 # the rollout's cached GPT-2 block (cuBLAS addmm): prefill and decode rows
 CACHED_SHAPES = ((4096, 6144, 2048), (4096, 2048, 2048), (256, 6144, 2048),
                  (256, 2048, 2048))
@@ -1255,26 +1298,32 @@ GEMM_RATES = dict(drop_rate=0.1, dp_rate=0.1, tokens=16, seeds=TRAIN_SEEDS,
                   block_idx=3)
 
 
-def _check_gemm(G, M, N, K, epi, gen):
+def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
     """One GEMM against the fp32 product of its upcast operands (bf16
-    tolerance: 1e-2 of max|ref|, out and out2). For res_drop also with a
-    zero residual, twice: with the bias shifted by 64 (so no kept element is
-    0) the output's zeros must be the masks' bit for bit; with the bias as
-    drawn every dropped element must be 0, and a kept element may be 0 only
-    where acc + bias is 0 within the fp32 rounding of the K-term sum (bound
-    K * 2^-24 * (sum |a w| + |bias|), from the fp64 product). Returns
-    (worst rel_err, kept elements that were 0)."""
+    tolerance: 1e-2 of max|ref|, out and out2, the fp32 out too; for
+    gelu_bwd the residual is the stashed pre-activation). For res_drop also
+    with a zero residual, twice: with the bias shifted by 64 (so no kept
+    element is 0) the output's zeros must be the masks' bit for bit; with
+    the bias as drawn every dropped element must be 0, and a kept element
+    may be 0 only where acc + bias is 0 within the fp32 rounding of the
+    K-term sum (bound K * 2^-24 * (sum |a w| + |bias|), from the fp64
+    product). Returns (worst rel_err, kept elements that were 0)."""
     import torch
     rn = _randn(gen, torch.bfloat16)
     a, w, b, r = rn(M, K), rn(K, N, std=K ** -0.5), rn(N, std=0.1), rn(M, N)
-    got = G.gemm(a, w, epi, b, r, stash=True, **GEMM_RATES)
+    got = G.gemm(a, w, epi, b, r, stash=True, out_dtype=out_dtype,
+                 **GEMM_RATES)
     masks = G.drop_masks(M, N, GEMM_RATES["tokens"], TRAIN_SEEDS, 3,
                          GEMM_RATES["drop_rate"], GEMM_RATES["dp_rate"],
                          "cuda") if epi == "res_drop" else None
-    want = G.gemm_plain(a, w, epi, b, r, masks, stash=True)
+    want = G.gemm_plain(a, w, epi, b, r, masks, stash=True,
+                        out_dtype=out_dtype)
     torch.cuda.synchronize()
     worst, kept_zeros = 0.0, 0
     what = f"gemm {epi} ({M}, {N}, {K})"
+    if got[0].dtype != want[0].dtype:
+        raise AssertionError(f"{what}: out is {got[0].dtype}, not "
+                             f"{want[0].dtype}")
     for which, g, ref in zip(("out", "out2"), got, want):
         if (g is None) != (ref is None):
             raise AssertionError(f"{what}: {which} missing")
@@ -1313,6 +1362,27 @@ def _check_gemm(G, M, N, K, epi, gen):
     return worst, kept_zeros
 
 
+def _check_gemm_tn(G, M, I, J, gen):
+    """The TN route (out = a^T . b, fp32) against the fp32 product of its
+    upcast operands (1e-2 of max|ref|), and a second launch on the same
+    operands bit for bit. Returns the rel_err."""
+    import torch
+    rn = _randn(gen, torch.bfloat16)
+    a, b = rn(M, I), rn(M, J)
+    got, again = G.gemm_tn(a, b), G.gemm_tn(a, b)
+    want = G.gemm_tn_plain(a, b)
+    torch.cuda.synchronize()
+    what = f"gemm_tn (M, I, J)=({M}, {I}, {J})"
+    finite, _, rel = errors(got, want)
+    if not (got.dtype == torch.float32 and finite
+            and rel <= KERNEL_TOL["bf16"]):
+        raise AssertionError(f"{what}: rel_err={rel:.3g} finite={finite} "
+                             f"dtype={got.dtype}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches differ")
+    return rel
+
+
 def _in_turns(fns, iters=20):
     """Each callable's mean ms over ``iters`` back-to-back calls, timed in
     the order a, b, ..., ..., b, a; the mean of its two turns."""
@@ -1335,98 +1405,161 @@ def _in_turns(fns, iters=20):
 
 def entry_gemm_bf16(gen, calls=10):
     """The wmma gemm_bf16's device ms a launch, read from the profile of
-    ``calls`` calls of gpt2_mlp_half (row 3) at the flagship shape, an entry
-    that still runs it on the Conv1D W (K, N): c_fc (4096, 8192, 2048) with
-    gelu_new (epi 3) and the MLP's c_proj (4096, 2048, 8192) with the
-    residual (epi 1). Returns {(M, N, K): ms}."""
+    ``calls`` calls of fused_gpt2_train_bwd_mlp (rows 13 + 14) at the
+    flagship shape, an entry that still runs it for the GPT-2 layer's dX =
+    dY . W^T on the Conv1D W read as (N, K): dpre1 (4096, 8192, 2048) with
+    the gelu_new derivative (epi 8) and dg (4096, 2048, 8192) with an fp32
+    out (epi 0): c_fc's and the MLP c_proj's (M, N, K), the other operand
+    layout. Returns {(M, N, K): ms}."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from afft_tpu_torch.ops import fused_gpt2 as FG
-    B, T, C, hidden = SERVE_BATCH, 16, 2048, 8192
-    p = gpt2_params(C, hidden, torch.bfloat16, gen)
-    x = _randn(gen, torch.bfloat16)(B, T, C)
-    shapes = {"3": (B * T, hidden, C), "1": (B * T, C, hidden)}
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    B, T, C, H, hidden = SERVE_BATCH, 16, 2048, 4, 8192
+    p = {k: v.requires_grad_(True)
+         for k, v in gpt2_params(C, hidden, torch.bfloat16, gen).items()}
+    rn = _randn(gen, torch.bfloat16)
+    x, dout = rn(B, T, C).requires_grad_(True), rn(B * T, C)
+    out = FGT.fused_gpt2_block_train(
+        x, p, neg_inf_causal_mask(T, device="cuda"), TRAIN_SEEDS,
+        num_heads=H, layer_idx=3, **GPT2_RATES)
+    saved = out.grad_fn.saved_tensors
+    y, pre1 = saved[1], saved[3]
+    tensors, cfg = list(saved[5:]), out.grad_fn.cfg
+    grads = FT.new_grads(tensors)
+    shapes = {"8": (B * T, hidden, C), "0": (B * T, C, hidden)}
     with torch.no_grad():
         for _ in range(3):
-            FG.gpt2_mlp_half(x, p)
+            FT.block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                FG.gpt2_mlp_half(x, p)
+                FT.block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg)
             torch.cuda.synchronize()
     us = {}
     for e in prof.events():
-        m = re.search(r"gemm_bf16<(\d+), true", e.name)
+        m = re.search(r"gemm_bf16<(\d+),", e.name)
         if e.device_type == DeviceType.CUDA and m and m.group(1) in shapes:
             us.setdefault(shapes[m.group(1)], []).append(
                 e.time_range.elapsed_us())
     if sorted(len(v) for v in us.values()) != [calls, calls]:
-        raise AssertionError(f"gemm: the profile of gpt2_mlp_half shows "
-                             f"{ {k: len(v) for k, v in us.items()} } "
+        raise AssertionError(f"gemm: the profile of fused_gpt2_train_bwd_mlp "
+                             f"shows { {k: len(v) for k, v in us.items()} } "
                              f"gemm_bf16 launches, not {calls} of each")
+    del out, saved, y, pre1, tensors, grads
     return {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
 
 
+# the wmma yardstick's label in the timings
+WMMA = "gemm_bf16 W(N,K) (fused_gpt2_train_bwd_mlp profile)"
+
+
+def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None):
+    """Each shape's callables timed in turns: ms, TFLOP/s and share of the
+    bf16 peak, logged and returned by row."""
+    import torch
+    rows = {}
+    for shape in shapes:
+        ms = _in_turns(fns_of(*shape))
+        if extra and shape in extra:
+            ms[WMMA] = extra[shape]
+        M, N, K = shape
+        flops = 2 * M * N * K
+        rate = {k: flops / v / 1e9 for k, v in ms.items()}
+        rows[f"{label} {shape}"] = {
+            "ms": ms, "tflops": rate,
+            "share_of_peak": {k: v * 1e12 / peaks["bf16"]
+                              for k, v in rate.items()}}
+        log(f"gemm {label} bf16 {shape}: " + ", ".join(
+            f"{k} {ms[k]:.4f} ms {rate[k]:.1f} TFLOP/s "
+            f"({rate[k] * 1e12 / peaks['bf16']:.1%} of 989)" for k in ms))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_gemm(peaks, gen):
-    """The wgmma / TMA GEMM: checks at the flagship's and edge shapes for
-    its four epilogues, then its rate beside the library's in one call, and
-    gemm_bf16's in the profile of an entry that still runs it. Returns the
-    numbers."""
+    """The wgmma / TMA GEMM: checks at the entries' and edge shapes for its
+    six epilogues and the fp32 output, and of its TN route; then their rates
+    beside the library's in one call, and gemm_bf16's in the profile of an
+    entry that still runs it. Returns the numbers."""
     import itertools
     import torch
     from afft_tpu_torch.ops import gemm as G
     n, worst, kept_zeros = 0, 0.0, {}
-    shapes = list(GEMM_SHAPES) + list(itertools.product(*GEMM_EDGES))
-    for (M, N, K), epi in itertools.product(shapes, G.EPILOGUES):
-        rel, zeros = _check_gemm(G, M, N, K, epi, gen)
+    shapes = (list(GEMM_SHAPES) + list(ROW8_SHAPES)
+              + list(itertools.product(*GEMM_EDGES)))
+    variants = [(epi, None) for epi in G.EPILOGUES] + [
+        ("bias", torch.float32)]
+    for (M, N, K), (epi, out_dtype) in itertools.product(shapes, variants):
+        rel, zeros = _check_gemm(G, M, N, K, epi, gen, out_dtype)
         worst = max(worst, rel)
         if zeros:
             kept_zeros[f"({M}, {N}, {K})"] = zeros
         n += 1
-    log(f"gemm: {n} checks against the fp32 product agree (worst rel_err "
-        f"{worst:.3g}, tol {KERNEL_TOL['bf16']:g} of max|ref|; res_drop "
-        "masks bit for bit)")
+    tn_worst, n_tn = 0.0, 0
+    for M, I, J in list(TN_SHAPES) + list(itertools.product(*TN_EDGES)):
+        tn_worst = max(tn_worst, _check_gemm_tn(G, M, I, J, gen))
+        n_tn += 1
+    log(f"gemm: {n} checks of C = A . W (6 epilogues + the fp32 out) and "
+        f"{n_tn} of the TN route against the fp32 product agree (worst "
+        f"rel_err {worst:.3g} and {tn_worst:.3g}, tol "
+        f"{KERNEL_TOL['bf16']:g} of max|ref|; res_drop masks bit for bit; "
+        "the TN route bit for bit from launch to launch)")
     torch.cuda.empty_cache()
 
     wmma = entry_gemm_bf16(gen)
-    rn = _randn(gen, torch.bfloat16)
-    rows = {}
-    for label, shapes, yardstick in (("entries", GEMM_SHAPES, "matmul"),
-                                     ("cached_block", CACHED_SHAPES,
-                                      "addmm")):
-        for M, N, K in shapes:
-            a, w, b = rn(M, K), rn(K, N, std=K ** -0.5), rn(N, std=0.1)
-            fns = {"sm90": lambda: G.gemm(a, w, "bias", b),
-                   yardstick: ((lambda: a @ w) if yardstick == "matmul"
-                               else (lambda: torch.addmm(b, a, w)))}
-            ms = _in_turns(fns)
-            if label == "entries" and (M, N, K) in wmma:
-                ms["gemm_bf16 (gpt2_mlp_half profile)"] = wmma[(M, N, K)]
-            flops = 2 * M * N * K
-            rate = {k: flops / v / 1e9 for k, v in ms.items()}
-            rows[f"{label} ({M}, {N}, {K})"] = {
-                "ms": ms, "tflops": rate,
-                "share_of_peak": {k: v * 1e12 / peaks["bf16"]
-                                  for k, v in rate.items()}}
-            log(f"gemm {label} bf16 (M, N, K)=({M}, {N}, {K}): " + ", ".join(
-                f"{k} {ms[k]:.4f} ms {rate[k]:.1f} TFLOP/s "
-                f"({rate[k] * 1e12 / peaks['bf16']:.1%} of 989)"
-                for k in ms))
-            del a, w, b
     torch.cuda.empty_cache()
-    # no entry runs gemm_bf16 at c_attn's (4096, 6144, 2048): its rate at
-    # c_fc's (4096, 8192, 2048) has the same M, K and operand layout
-    old = rows["entries (4096, 8192, 2048)"]["tflops"][
-        "gemm_bf16 (gpt2_mlp_half profile)"]
-    for shape in ("(4096, 6144, 2048)", "(4096, 8192, 2048)"):
+    rn = _randn(gen, torch.bfloat16)
+
+    def kn(yardstick, epi="bias", out_dtype=None):
+        # the fuser's dX products (gelu_bwd, the fp32 out) take no bias
+        def fns(M, N, K):
+            a, w, b = rn(M, K), rn(K, N, std=K ** -0.5), rn(N, std=0.1)
+            r = rn(M, N) if epi == "gelu_bwd" else None
+            bias = b if epi == "bias" and out_dtype is None else None
+            lib = ((lambda: a @ w) if yardstick == "matmul"
+                   else (lambda: torch.addmm(b, a, w)))
+            return {"sm90": lambda: G.gemm(a, w, epi, bias, r,
+                                           out_dtype=out_dtype),
+                    yardstick: lib}
+        return fns
+
+    def tn(M, I, J):
+        a, b = rn(M, I), rn(M, J)
+        return {"sm90": lambda: G.gemm_tn(a, b),
+                "matmul (a.t() @ b, bf16 out)": lambda: a.t() @ b}
+
+    rows = _time_gemm_rows(peaks, "entries", GEMM_SHAPES, kn("matmul"),
+                           wmma)
+    rows.update(_time_gemm_rows(peaks, "cached_block", CACHED_SHAPES,
+                                kn("addmm")))
+    rows.update(_time_gemm_rows(peaks, "row8 dpre1 gelu_bwd",
+                                ROW8_SHAPES[:1], kn("matmul", "gelu_bwd")))
+    rows.update(_time_gemm_rows(peaks, "row8 dg fp32 out", ROW8_SHAPES[1:],
+                                kn("matmul", "bias", torch.float32)))
+    rows.update(_time_gemm_rows(
+        peaks, "tn (I, J, M)", [(I, J, M) for M, I, J in TN_SHAPES],
+        lambda I, J, M: tn(M, I, J)))
+    # the wmma rate at c_fc's (M, N, K), read where an entry still runs it
+    old = 2 * 4096 * 8192 * 2048 / wmma[(4096, 8192, 2048)] / 1e9
+    for shape in ((4096, 6144, 2048), (4096, 8192, 2048)):
         new = rows[f"entries {shape}"]["tflops"]["sm90"]
         if not new >= 2 * old:
             raise AssertionError(f"gemm: {new:.1f} TFLOP/s at {shape}, not "
                                  f"2x gemm_bf16's {old:.1f}")
-    return {"checks": n, "worst_rel_err": worst,
-            "res_drop_kept_zeros": kept_zeros, "timings": rows}
+    # the rollout's cached block stays on addmm: gemm_sm90's speed there
+    cached = {str(shape): rows[f"cached_block {shape}"]["ms"]["addmm"]
+              / rows[f"cached_block {shape}"]["ms"]["sm90"]
+              for shape in CACHED_SHAPES}
+    log(f"gemm cached_block: gemm_sm90 runs at {cached} of addmm's speed "
+        "(addmm ms / sm90 ms)")
+    return {"checks": n, "tn_checks": n_tn, "worst_rel_err": worst,
+            "tn_worst_rel_err": tn_worst, "res_drop_kept_zeros": kept_zeros,
+            "wmma_tflops": old, "cached_block_sm90_over_addmm": cached,
+            "timings": rows}
 
 
 # -- the main path ------------------------------------------------------------
@@ -1455,23 +1588,24 @@ def profile_forward(fn, what="one bf16 forward", grad=False):
     groups, names = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        # gemm_bf16<EPI, B_KN, ...>: EPI 0 bias, 1 bias + residual,
-        # 2 exact GELU, 3 gelu_new, 4 residual + dropout + drop-path,
-        # 5 stash + GELU, 6 GELU backward, 7 / 8 the same two with gelu_new;
-        # B_KN true = W read as (K, N): the GPT-2 Conv1D weights forward,
-        # and the fuser's dX = dY . W products; false: the fuser's Linear
-        # weights forward and the GPT-2 layer's dX products. gemm_sm90<EPI>:
-        # the wgmma / TMA GEMM (the GPT-2 entries' bf16 forward products)
-        m = re.search(r"afft::(\w+)(?:<(\d+)(?:, (true|false))?)?", e.name)
+        # gemm_bf16<EPI, TRes, TOut>: the wmma GEMM, W read as (N, K) (the
+        # fuser's Linear weights forward, the GPT-2 layer's dX products);
+        # EPI 0 bias, 1 bias + residual, 2 exact GELU, 3 gelu_new, 4
+        # residual + dropout + drop-path, 5 stash + GELU, 6 GELU backward,
+        # 7 / 8 the same two with gelu_new. gemm_sm90<EPI, TOut>: the wgmma
+        # / TMA GEMM, W read as (K, N) (the GPT-2 entries' bf16 products,
+        # the fuser's dX products); gemm_tn_sm90: its TN route, the weight
+        # gradients. An fp32 TOut is named in the group.
+        m = re.search(r"afft::(\w+)(?:<([^()]*)>)?\(", e.name)
+        args = [] if m is None or m.group(2) is None else [
+            a.strip() for a in m.group(2).split(",")]
         if m is None:
             group = "other (PyTorch ops)"
-        elif m.group(2) is None:
+        elif not args or not args[0].isdigit():
             group = m.group(1)
-        elif m.group(3) is None:
-            group = f"{m.group(1)}<epi {m.group(2)}>"
         else:
-            group = (f"{m.group(1)}<epi {m.group(2)}, "
-                     f"{'W(K,N)' if m.group(3) == 'true' else 'W(N,K)'}>")
+            out = ", fp32 out" if args[-1] == "float" else ""
+            group = f"{m.group(1)}<epi {args[0]}{out}>"
         groups[group] = groups.get(group, 0.0) + us
         names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
     busy = sum(groups.values())

@@ -1,8 +1,12 @@
-"""ops.gemm on the CPU: the plain version of the GEMM that the GPT-2
-entries run on the card (csrc/gemm_sm90.cuh), for each of its four
-epilogues, against the same arithmetic in JAX on the same numpy-made
-operands; its dropout masks are the training forward's proj-site masks.
-The kernels themselves run on the card only (chip_smoke.py's gemm phase).
+"""ops.gemm on the CPU: the plain versions of the Hopper GEMM
+(csrc/gemm_sm90.cuh) that the entries run on the card, for each of its six
+epilogues and the fp32 output, and of its weight-gradient route gemm_tn,
+against the same arithmetic in JAX on the same numpy-made operands: the
+serving MLP half (pallas_gpt2.py) and the fuser's MLP backward products
+(pallas_block_train.py) with their own dimension numbers, at ragged shapes;
+the dropout masks are the training forward's proj-site masks; the wrappers
+refuse what the kernels do not take. The kernels themselves run on the card
+only (chip_smoke.py's gemm phase).
 """
 
 import jax
@@ -11,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from afft_tpu.ops.pallas_block import _dot
+from afft_tpu.ops.pallas_block_train import _gelu_grad
+from afft_tpu.ops.pallas_gpt2 import _gelu_new
 from afft_tpu_torch.ops import fused_block_train as FT
 from afft_tpu_torch.ops import gemm as G
 
@@ -31,8 +38,10 @@ def _jax_epilogue(epi, a, w, b, r, masks):
     """acc + bias and the epilogue in fp32 (jnp), rounded to bf16."""
     f32 = [jnp.asarray(t.float().numpy()) for t in (a, w, b, r)]
     v = jnp.dot(f32[0], f32[1], precision=jax.lax.Precision.HIGHEST) + f32[2]
-    if epi == "pre_gelu_tanh":
+    if epi in ("gelu_tanh", "pre_gelu_tanh"):
         v = jax.nn.gelu(v, approximate=True)
+    elif epi == "gelu_bwd":
+        v = v * _gelu_grad(f32[3])
     elif epi == "res_drop":
         v = f32[3] + (v * jnp.asarray(masks[0].numpy())) * jnp.asarray(
             masks[1].numpy())
@@ -85,13 +94,157 @@ def test_res_drop_masks_are_the_training_forwards_proj_masks():
     assert 0 < int((out == 0).sum()) < out.numel()
 
 
+def _bf16(rng, *shape, std=1.0):
+    return (rng.standard_normal(shape) * std).astype(np.float32).astype(
+        jnp.bfloat16)
+
+
+def _t(x):
+    """A numpy bf16 (or fp32) array as a torch tensor of the same dtype."""
+    x = np.asarray(x)
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(x.astype(np.float32)).bfloat16()
+    return torch.from_numpy(x)
+
+
+def _close_bf16(got, want):
+    # both round one fp32 value to bf16; the summation orders differ, which
+    # may flip a rounding by one ulp (2^-8 relative)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               rtol=2 ** -7, atol=1e-6)
+
+
+def _close_f32(got, want):
+    # fp32 sums of the same exact bf16 products in another order
+    want = np.asarray(want, dtype=np.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+# (rows, C, hidden): rows not a multiple of 128, widths multiples of 8 that
+# are not multiples of 64
+RAGGED = [(150, 40, 72), (33, 24, 96), (257, 136, 200)]
+
+
+@pytest.mark.parametrize("M,C,hidden", RAGGED)
+def test_mlp_half_epilogues_match_pallas_gpt2(M, C, hidden):
+    """The serving MLP half's two products (pallas_gpt2.py:149-152):
+    gelu_new(yn . W_fc + b_fc) rounded, then y + (h . W_proj + b_proj), on
+    the Conv1D (in, out) weights, which both packages keep in that
+    layout."""
+    rng = np.random.default_rng(M + C)
+    yn, y = _bf16(rng, M, C), _bf16(rng, M, C)
+    wfc, bfc = _bf16(rng, C, hidden, std=C ** -0.5), _bf16(rng, hidden,
+                                                          std=0.1)
+    wproj, bproj = _bf16(rng, hidden, C, std=hidden ** -0.5), _bf16(
+        rng, C, std=0.1)
+    h1 = _dot(yn, wfc) + bfc.astype(jnp.float32)
+    h1 = _gelu_new(h1).astype(jnp.bfloat16)
+    want = y.astype(jnp.float32) + _dot(h1, wproj) + bproj.astype(
+        jnp.float32)
+    h, none = G.gemm(_t(yn), _t(wfc), "gelu_tanh", _t(bfc))
+    assert none is None
+    _close_bf16(h, h1)
+    # the second product on JAX's rounded h1, so each check sees one rounding
+    out, _ = G.gemm(_t(h1), _t(wproj), "bias_res", _t(bproj), _t(y))
+    _close_bf16(out, want.astype(jnp.bfloat16))
+
+
+@pytest.mark.parametrize("M,C,hidden", RAGGED)
+def test_mlp_backward_products_match_pallas_block_train(M, C, hidden):
+    """The fuser's MLP backward products (pallas_block_train.py:283-296),
+    jax.lax.dot_general with the kernel's dimension numbers on its (in, out)
+    weights; the port reads the nn.Linear (out, in) weights, their
+    transposes, as the (K, N) operand, and writes each weight gradient in
+    its weight's layout (the fuser's dy^T . x, the GPT-2 layer's x^T . dy)."""
+    rng = np.random.default_rng(M + hidden)
+    f32 = jnp.float32
+    dims_tn = (((0,), (0,)), ((), ()))
+    dims_dx = (((1,), (1,)), ((), ()))
+    h1, g_c = _bf16(rng, M, hidden), _bf16(rng, M, C)
+    dh2, pre1 = _bf16(rng, M, C), _bf16(rng, M, hidden)
+    wfc1 = _bf16(rng, C, hidden, std=C ** -0.5)       # JAX (in, out)
+    wfc2 = _bf16(rng, hidden, C, std=hidden ** -0.5)
+
+    dw2 = jax.lax.dot_general(h1, dh2, dims_tn, preferred_element_type=f32)
+    dh1 = jax.lax.dot_general(dh2, wfc2, dims_dx, preferred_element_type=f32)
+    dpre1 = (dh1 * _gelu_grad(pre1.astype(f32))).astype(jnp.bfloat16)
+    dw1 = jax.lax.dot_general(g_c, dpre1, dims_tn, preferred_element_type=f32)
+    dg = jax.lax.dot_general(dpre1, wfc1, dims_dx, preferred_element_type=f32)
+
+    _close_f32(G.gemm_tn(_t(dh2), _t(h1)), np.asarray(dw2).T)   # fuser
+    _close_f32(G.gemm_tn(_t(h1), _t(dh2)), dw2)                 # GPT-2
+    w2_port = _t(np.ascontiguousarray(np.asarray(wfc2).T))    # (C, hidden)
+    got, _ = G.gemm(_t(dh2), w2_port, "gelu_bwd", res=_t(pre1))
+    _close_bf16(got, dpre1)
+    _close_f32(G.gemm_tn(_t(dpre1), _t(g_c)), np.asarray(dw1).T)
+    w1_port = _t(np.ascontiguousarray(np.asarray(wfc1).T))    # (hidden, C)
+    got, _ = G.gemm(_t(dpre1), w1_port, "bias", out_dtype=torch.float32)
+    _close_f32(got, dg)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    a, w, b, _ = _operands(24, 16, 40, seed=3)
+    before = dict(G.LAUNCHES)
+    out, _ = G.gemm(a, w, "bias", b, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, G.gemm_plain(a, w, "bias", b,
+                                         out_dtype=torch.float32)[0])
+    assert torch.equal(G.gemm_tn(a, a[:, :8]),
+                       G.gemm_tn_plain(a, a[:, :8]))
+    assert G.LAUNCHES == before
+
+
 def test_gemm_refuses_what_the_kernel_does_not_take():
     a, w, b, r = _operands(4, 16, 8, seed=0)
     with pytest.raises(ValueError, match="unknown"):
         G.gemm(a, w, "gelu")
     with pytest.raises(ValueError, match="needs res"):
         G.gemm(a, w, "bias_res", b)
+    with pytest.raises(ValueError, match="needs res"):
+        G.gemm(a, w, "gelu_bwd")
     with pytest.raises(ValueError, match=r"\(M, K\)"):
         G.gemm(a, w.t(), "bias", b)
     with pytest.raises(ValueError, match="bias has shape"):
         G.gemm(a, w, "bias", b[:8])
+    with pytest.raises(ValueError, match="fp32 output"):
+        G.gemm(a, w, "gelu_tanh", b, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("M,N,K", [(4, 16, 12), (4, 12, 8), (4, 4, 8)])
+def test_gemm_refuses_widths_off_the_16_byte_grid(M, N, K):
+    a, w, b, _ = _operands(M, N, K, seed=1)
+    with pytest.raises(ValueError, match="K % 8 == 0, N % 8 == 0"):
+        G.gemm(a, w, "bias", b)
+
+
+@pytest.mark.parametrize("M,I,J", [(4, 12, 16), (4, 16, 20), (0, 16, 16)])
+def test_gemm_tn_refuses_what_the_kernel_does_not_take(M, I, J):
+    a, b = torch.zeros(M, I).bfloat16(), torch.zeros(M, J).bfloat16()
+    with pytest.raises(ValueError, match="I % 8 == 0 and J % 8 == 0"):
+        G.gemm_tn(a, b)
+    with pytest.raises(ValueError, match=r"\(M, I\)"):
+        G.gemm_tn(a, torch.zeros(M + 1, J).bfloat16())
+
+
+def test_kernel_operand_checks_refuse_fp32_and_misaligned_operands():
+    """What the CUDA path checks before it launches: bf16 operands (fp32
+    stays on gemm_f32 / gemm_tn_f32 inside the entries), 16-byte aligned
+    (TMA and the epilogue's vectors), contiguous, of one dtype."""
+    a = torch.zeros(8, 16).bfloat16()
+    with pytest.raises(TypeError, match="bfloat16 only"):
+        G.check_kernel_operands("gemm", a.float(), {"w": a.float()})
+    shifted = torch.zeros(8 * 16 + 1).bfloat16()[1:].view(8, 16)
+    assert shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        G.check_kernel_operands("gemm", a, {"w": shifted})
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        G.check_kernel_operands("gemm_tn", shifted, {"b": a})
+    with pytest.raises(ValueError, match="contiguous"):
+        G.check_kernel_operands("gemm", a, {"w": a.t()})
+    with pytest.raises(TypeError, match="b is torch.float32"):
+        G.check_kernel_operands("gemm_tn", a, {"b": a.float()})
+    G.check_kernel_operands("gemm", a, {"w": a, "bias": None})

@@ -8,7 +8,7 @@
 - Training works for the per-timestep fusers and raises, naming the roadmap,
   for what is not ported; the serving kernels refuse to run under autograd.
 - No CUDA source sums with atomics; the wgmma / TMA GEMM is reached only
-  from the bf16 path of the GPT-2 entries (fp32 stays on gemm_f32).
+  from the bf16 paths (fp32 stays on gemm_f32 / gemm_tn_f32).
 """
 
 import ast
@@ -305,29 +305,42 @@ def test_cuda_sources_sum_without_atomics(name):
 
 
 def test_hopper_gemm_only_on_the_bf16_path():
-    """gemm_conv1d sends bf16 to the wgmma / TMA GEMM and fp32 to
-    launch_gemm (gemm_f32); the serving attention half and the GPT-2
-    training forward reach it through gemm_conv1d only, the MLP half and
-    the backward entries not at all."""
-    header = _body(_source("gemm_sm90.cuh"), "gemm_conv1d")
-    bf16_branch, fp32_branch = header.split("} else {")
+    """gemm_kn sends bf16 to the wgmma / TMA GEMM and fp32 to launch_gemm
+    (gemm_f32), gemm_tn bf16 to its TN route and fp32 to gemm_tn_f32. Both
+    GPT-2 serving halves and the GPT-2 training forward reach the GEMM
+    through gemm_kn only; the training backward through the shared helpers
+    launch_dx (the fuser's (K, N) products) and launch_dw (every weight
+    gradient), and the wmma gemm_tn_bf16 is gone."""
+    header = _source("gemm_sm90.cuh")
+    bf16_branch, fp32_branch = _body(header, "gemm_kn").split("} else {")
     assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
-    assert "launch_gemm_sm90<EPI>" in bf16_branch
+    assert "launch_gemm_sm90<EPI, TOut>" in bf16_branch
     assert "launch_gemm<" in fp32_branch and "sm90" not in fp32_branch
+    assert "launch_gemm_tn_sm90(" in _body(header, "gemm_tn")
+    assert "static cudaError_t gemm_tn(const float*" in header
+    for name in glob.glob(os.path.join(CSRC, "*.cu*")):
+        assert "gemm_tn_bf16" not in _source(os.path.basename(name))
 
     gpt2 = _source("fused_gpt2.cu")
-    assert "launch_gemm_sm90" not in gpt2
-    assert _body(gpt2, "run_attn_half").count("gemm_conv1d<") == 2
-    assert "gemm_conv1d" not in _body(gpt2, "run_mlp_half")
+    assert "launch_gemm" not in gpt2
+    for half in ("run_attn_half", "run_mlp_half"):
+        assert _body(gpt2, half).count("gemm_kn<") == 2
 
     train = _source("train_block.cuh")
-    assert "launch_gemm_sm90" not in train
-    assert train.count("gemm_conv1d<") == 1
+    assert "launch_gemm_sm90" not in train and "launch_gemm_tn" not in train
     gpt2_branch, fuser_branch = _body(train, "fwd_gemm").split("} else {")
     assert "if constexpr (GPT2)" in gpt2_branch
-    assert "gemm_conv1d<EPI, T>" in gpt2_branch
+    assert "gemm_kn<EPI, T>" in gpt2_branch
     assert "launch_gemm<EPI, false" in fuser_branch
     fwd = _body(train, "run_fwd")
     assert fwd.count("fwd_gemm<") == 4 and "launch_gemm<" not in fwd
-    for entry in ("run_bwd_mlp", "run_bwd_attn"):
-        assert "fwd_gemm" not in _body(train, entry)
+    gpt2_branch, fuser_branch = _body(train, "launch_dx").split("} else {")
+    assert "if constexpr (GPT2)" in gpt2_branch
+    assert "launch_gemm<EPI, false" in gpt2_branch
+    assert "gemm_kn<EPI, T, TOut>" in fuser_branch
+    assert _body(train, "launch_dw").count("gemm_tn(") == 2
+    for entry, dx, dw in (("run_bwd_mlp", 2, 2), ("run_bwd_attn", 2, 2)):
+        body = _body(train, entry)
+        assert "fwd_gemm" not in body and "launch_gemm" not in body
+        assert body.count("launch_dx<") == dx
+        assert body.count("launch_dw<") == dw
