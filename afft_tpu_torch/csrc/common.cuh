@@ -9,11 +9,11 @@
 //     epilogue (GELU, residual add, cast). gemm_f32 reads W as (N,K)
 //     row-major (nn.Linear) or (K,N) row-major (HF Conv1D), chosen at
 //     compile time, so neither weight layout is repacked per call; gemm_bf16
-//     reads (N,K) only (bf16 (K,N) products run on gemm_sm90.cuh);
-//   * small_attention: softmax attention over S <= 32 tokens, one block per
-//     (sequence, head) and one warp per query token;
+//     reads (N,K) only (bf16 (K,N) products, and the fuser blocks' serving
+//     (N,K) products, run on gemm_sm90.cuh);
 //   * strided_attention: softmax attention of Nq queries over Nk <= 1024 keys
-//     with q, k and v given as separate strided tensors, one warp per query.
+//     with q, k and v given as separate strided tensors, one warp per query
+//     (the fuser blocks' self-attention runs fuser_attention.cuh).
 // and, for the training kernels:
 //   * drop_scale: the dropout multiplier (0 or 1/keep) of one logical element,
 //     from a counter-based Philox4x32-10 draw computed in registers, so the
@@ -30,8 +30,8 @@
 // gemm_bf16 runs on the tensor cores through nvcuda::wmma (16x16x16, fp32
 // accumulation) with 128x128x32 shared-memory tiles, double-buffered by
 // cp.async: the products not yet moved to the wgmma / TMA GEMM of
-// gemm_sm90.cuh (the nn.Linear (N, K) weight forward and the GPT-2 layer's
-// backward dX). The fp32 GEMM is plain FMA (no TF32), so fp32 parity checks
+// gemm_sm90.cuh (the fuser's training forward, the decoder block's
+// cross-attention stage and the GPT-2 layer's backward dX). The fp32 GEMM is plain FMA (no TF32), so fp32 parity checks
 // compare true fp32 products.
 
 #pragma once
@@ -672,63 +672,6 @@ layernorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ d,
 }
 
 // ---------------------------------------------------------------------------
-// Attention over S <= 32 tokens: one block per (sequence, head), one warp per
-// query. qkv rows are (seq * S + t) with [q | k | v] columns, heads minor.
-// Scores, softmax and the probability . v product in fp32 (the fuser
-// block's; the GPT-2 entries round the probabilities and run
-// staged_attention.cuh).
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(1024)
-small_attention(const T* __restrict__ qkv, const float* __restrict__ mask,
-                T* __restrict__ out, int S, int H, int hd, float scale) {
-  __shared__ float probs[32][33];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int C = H * hd;
-  const size_t ld = 3 * (size_t)C;
-  const T* base = qkv + (size_t)seq * S * ld;
-  const int tq = warp;
-  const T* q = base + tq * ld + (size_t)h * hd;
-
-  float mine = -INFINITY;  // lane tk keeps the score of key tk
-  for (int tk = 0; tk < S; ++tk) {
-    const T* k = base + tk * ld + C + (size_t)h * hd;
-    float p = 0.f;
-    for (int j = lane; j < hd; j += 32) p = fmaf(to_f32(q[j]), to_f32(k[j]), p);
-    p = warp_sum(p);
-    const float s = p * scale + (mask != nullptr ? mask[tq * S + tk] : 0.f);
-    if (lane == tk) mine = s;
-  }
-  // every row keeps at least one finite score, so m is finite and the
-  // masked lanes give exp(-inf) = 0
-  const float m = warp_max(mine);
-  const float e = lane < S ? expf(mine - m) : 0.f;
-  probs[warp][lane] = e / warp_sum(e);
-  __syncwarp();
-
-  const T* v = base + 2 * (size_t)C + (size_t)h * hd;
-  T* o = out + ((size_t)seq * S + tq) * C + (size_t)h * hd;
-  for (int j = lane; j < hd; j += 32) {
-    float acc = 0.f;
-    for (int tk = 0; tk < S; ++tk)
-      acc = fmaf(probs[warp][tk], to_f32(v[tk * ld + j]), acc);
-    o[j] = from_f32<T>(acc);
-  }
-}
-
-template <typename T>
-static void launch_attention(const T* qkv, const float* mask, T* out,
-                             int n_seq, int S, int H, int hd,
-                             cudaStream_t stream) {
-  const float scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
-  small_attention<T><<<n_seq * H, S * 32, 0, stream>>>(
-      qkv, mask, out, S, H, hd, scale);
-}
-
-
-// ---------------------------------------------------------------------------
 // Attention of Nq queries over Nk keys, q / k / v given separately: element
 // (seq, token, head, j) of an operand lies at seq * b + token * t + head * h
 // + j, so packed qkv rows, column slices of a packed projection and a
@@ -824,18 +767,6 @@ static cudaError_t launch_strided_attention(const T* q, const T* k,
                          stream>>>(q, k, v, mask, out, Nq, Nk, H, hd, qs, ks,
                                    vs, scale);
   return cudaGetLastError();
-}
-
-// The attention stage of a block whose qkv rows are packed [q | k | v] with
-// heads minor: (n_seq * S, 3C) -> (n_seq * S, C).
-template <typename T>
-static cudaError_t launch_packed_attention(const T* qkv, const float* mask,
-                                           T* out, int n_seq, int S, int H,
-                                           int hd, cudaStream_t stream) {
-  const long long C = (long long)H * hd;
-  const AttnStrides st{S * 3 * C, 3 * C, hd};
-  return launch_strided_attention<T>(qkv, qkv + C, qkv + 2 * C, mask, out,
-                                     n_seq, S, S, H, hd, st, st, st, stream);
 }
 
 }  // namespace afft

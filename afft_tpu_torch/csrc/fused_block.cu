@@ -13,16 +13,21 @@
 // Bound on an H100 at the flagship shape (R = 4096, N = 5, C = 1024, hidden
 // 4096, bf16): 2 * 20480 * 1024 * 12288 = 516 GFLOP of GEMMs against ~109 MB
 // of compulsory traffic, so it is bound by the tensor cores (~0.52 ms at 989
-// TFLOP/s). The design keeps every GEMM on the tensor cores (wmma, fp32
-// accumulation) with its bias/activation/residual/cast fused into the
-// epilogue, so the elementwise work costs no extra pass over memory; the
-// intermediates (qkv, the MLP hidden) do round-trip through HBM/L2, which
-// adds ~0.5 GB of traffic (~0.15 ms at 3.35 TB/s) the TPU kernel avoided.
+// TFLOP/s). The design keeps every GEMM on the tensor cores with its
+// bias/activation/residual/cast fused into the epilogue, so the elementwise
+// work costs no extra pass over memory: in bf16 the wgmma / TMA GEMM of
+// gemm_sm90.cuh reading the nn.Linear (out, in) weights where they lie, as
+// its K-major B operand (gemm_nk); in fp32 gemm_f32. The attention
+// (fuser_attention.cuh fuser_attention_rows) reads each element of qkv once,
+// 16 bytes at a time, into shared memory. The intermediates (qkv, the MLP
+// hidden) do round-trip through HBM/L2, which adds ~0.5 GB of traffic
+// (~0.15 ms at 3.35 TB/s) the TPU kernel avoided.
 //
 // Limits: any R, N <= 8, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0,
 // fp32 or bf16; norm affine and qkv bias optional (null pointers).
 
-#include "common.cuh"
+#include "fuser_attention.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace afft;
 
@@ -35,25 +40,21 @@ static int run_fused_block(const T* x, const T* ln1g, const T* ln1b,
                            float* y, T* h1, T* out, int R, int N, int C,
                            int H, int hidden, float eps, cudaStream_t s) {
   const int M = R * N;
-  // nn.Linear weights are (out, in): the "NK" operand layout (B_KN = false)
+  // nn.Linear weights are (out, in): the (N, K) operand of gemm_nk
   launch_layernorm<T, T>(x, ln1g, ln1b, tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS, false, T, T>(tmp, wqkv, M, 3 * C, C,
-                                     EpiArgs{bqkv, nullptr, qkv}, s);
-  AFFT_CHECK_LAUNCH();
-  launch_attention<T>(qkv, mask, tmp, R, N, H, C / H, s);
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS_RES, false, T, float>(tmp, wproj, M, C, C,
-                                             EpiArgs{bproj, x, y}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((gemm_nk<EPI_BIAS, T, T, T>(tmp, wqkv, M, 3 * C, C,
+                                         EpiArgs{bqkv, nullptr, qkv}, s)));
+  AFFT_CHECK(launch_fuser_attention_rows<T>(qkv, mask, tmp, R, N, H, C / H,
+                                            s));
+  AFFT_CHECK((gemm_nk<EPI_BIAS_RES, T, T, float>(tmp, wproj, M, C, C,
+                                                 EpiArgs{bproj, x, y}, s)));
   launch_layernorm<float, T>(y, ln2g, ln2b, tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_GELU_ERF, false, T, T>(tmp, wfc1, M, hidden, C,
-                                         EpiArgs{bfc1, nullptr, h1}, s);
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS_RES, false, float, T>(h1, wfc2, M, C, hidden,
-                                             EpiArgs{bfc2, y, out}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((gemm_nk<EPI_GELU_ERF, T, T, T>(tmp, wfc1, M, hidden, C,
+                                             EpiArgs{bfc1, nullptr, h1}, s)));
+  AFFT_CHECK((gemm_nk<EPI_BIAS_RES, T, float, T>(h1, wfc2, M, C, hidden,
+                                                 EpiArgs{bfc2, y, out}, s)));
   return 0;
 }
 

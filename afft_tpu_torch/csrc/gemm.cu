@@ -3,13 +3,18 @@
 // model path calls them: the entries reach the GEMM from inside their own
 // launch sequences.
 //
-// afft_gemm: C = A . W (+ epilogue) with W the (K, N) operand, under the
-// epilogues the entries use: EPI_BIAS (bf16 out, or fp32 with out_f32: the
+// afft_gemm: C = A . W (+ epilogue) under the epilogues the entries use.
+// With W the (K, N) operand: EPI_BIAS (bf16 out, or fp32 with out_f32: the
 // fuser's backward dX), EPI_BIAS_RES, EPI_GELU_TANH (the serving MLP half's
 // c_fc), EPI_RES_DROP (dropout at the proj site and drop-path, the training
 // forward's, drawn from the same seeds / thresholds as the training
 // entries; out2 optional), EPI_PRE_GELU_TANH (out2 the stash) and
-// EPI_GELU_BWD (res the stashed pre-activation: the fuser's dpre1).
+// EPI_GELU_BWD (res the stashed pre-activation: the fuser's dpre1). With
+// w_nk, W the (N, K) operand (the K-major B route, the fuser blocks'
+// serving forward): EPI_BIAS (qkv), EPI_GELU_ERF (fc1) and EPI_BIAS_RES,
+// with a bf16 residual and out, a bf16 residual and an fp32 out (proj into
+// the residual stream y) or an fp32 residual (res_f32) and a bf16 out (fc2
+// adding y).
 // afft_gemm_tn: the weight gradient out (I, J) fp32 = A^T . B over M rows.
 
 #include "gemm_sm90.cuh"
@@ -19,7 +24,8 @@ using namespace afft;
 
 // seeds = {seed word 0, seed word 1, block index}; thr / inv as the training
 // entries' (index 1: the element dropout, 2: drop-path over rows / tokens).
-extern "C" int afft_gemm(int epi, int out_f32, const void* a, const void* w,
+extern "C" int afft_gemm(int epi, int out_f32, int w_nk, int res_f32,
+                         const void* a, const void* w,
                          const void* bias, const void* res, void* out,
                          void* out2, const int* seeds, const int* thr,
                          const float* inv, int M, int N, int K, int tokens,
@@ -30,6 +36,26 @@ extern "C" int afft_gemm(int epi, int out_f32, const void* a, const void* w,
                    site_of(rt, SITE_DP1), tokens};
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* W = static_cast<const bf16*>(w);
+  if (w_nk) {
+    if (epi == EPI_BIAS_RES && res_f32)
+      return out_f32 ? (int)cudaErrorInvalidValue
+                     : (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true, float>(
+                           A, W, M, N, K, ea, s);
+    if (res_f32) return (int)cudaErrorInvalidValue;
+    if (epi == EPI_BIAS_RES)
+      return out_f32 ? (int)launch_gemm_sm90<EPI_BIAS_RES, float, true>(
+                           A, W, M, N, K, ea, s)
+                     : (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true>(
+                           A, W, M, N, K, ea, s);
+    if (out_f32) return (int)cudaErrorInvalidValue;
+    if (epi == EPI_BIAS)
+      return (int)launch_gemm_sm90<EPI_BIAS, bf16, true>(A, W, M, N, K, ea, s);
+    if (epi == EPI_GELU_ERF)
+      return (int)launch_gemm_sm90<EPI_GELU_ERF, bf16, true>(A, W, M, N, K,
+                                                            ea, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (res_f32) return (int)cudaErrorInvalidValue;
   if (out_f32)
     return epi == EPI_BIAS
                ? (int)launch_gemm_sm90<EPI_BIAS, float>(A, W, M, N, K, ea, s)

@@ -1,9 +1,13 @@
-// gemm_sm90: the bf16 GEMMs on Hopper's own path, two routes on one tile
+// gemm_sm90: the bf16 GEMMs on Hopper's own path, three routes on one tile
 // loop:
 //   * C[M,N] = A[M,K] . W[K,N] with a fused epilogue, for A row-major
 //     (K-major) and W row-major (N contiguous: the MN-major "transposed"
 //     wgmma B operand): the HF Conv1D (in, out) weight forward, and the
 //     fuser's nn.Linear (out, in) weight in its backward dX = dY . W;
+//   * C[M,N] = A[M,K] . W[N,K]^T with a fused epilogue, W the nn.Linear
+//     (out, in) weight read where it lies (K contiguous: the K-major wgmma B
+//     operand, no transpose bit): the fuser blocks' forward (fused_block.cu,
+//     seq_block.cu, through gemm_nk);
 //   * the weight gradient out[I,J] = sum_m A[m,I] B[m,J] (gemm_tn_sm90), for
 //     A (M, I) and B (M, J) row-major, both MN-major, fp32 out written whole.
 //
@@ -11,20 +15,23 @@
 // 16x16x16, two cp.async stages of 128x128x32 in 40 KB of static shared
 // memory, an epilogue of scalar stores) for the bf16 products of the GPT-2
 // serving halves (fused_gpt2.cu), the GPT-2 training forward
-// (train_block.cuh run_fwd<T, true>), the fuser's training backward dX
-// products and every training weight gradient (train_block.cuh launch_dx,
-// launch_dw). At their shapes (M = 4096 or 20480 rows, K 1024..20480, N
-// 1024..8192) a product does 34-172 GFLOP against 25-130 MB: it is bound by
+// (train_block.cuh run_fwd<T, true>), the fuser's serving forward (rows 1,
+// 5 and the self-attention / MLP stages of 6), the fuser's training
+// backward dX products and every training weight gradient (train_block.cuh
+// launch_dx, launch_dw). At their shapes (M = 4096 to 20480 rows, K
+// 1024..20480, N 1024..8192) a product does 34-172 GFLOP against 25-130 MB:
+// it is bound by
 // the tensor cores (989 TFLOP/s bf16), and wmma reached 9-20% of that. What
 // the design does about it:
 //   * wgmma.mma_async m64n256k16, bf16 in, fp32 accumulators in registers
 //     (128 a thread): the only route to the full tensor-core rate;
 //   * TMA tile loads with 128-byte swizzle into a ring of four 48 KB stages
 //     of dynamic shared memory, one full / empty mbarrier pair a stage.
-//     A K-major A tile is one 128x64 box; an MN-major tile (W, B, and the
-//     weight gradient's A) is 64-column boxes, 64 columns being the widest
-//     MN-major box a 128-byte swizzle takes, read by wgmma with its
-//     transpose bit (A's is allowed for bf16 operands in shared memory);
+//     A K-major A tile is one 128x64 box, a K-major W (N, K) tile one
+//     256x64 box (256 rows: TMA's largest box); an MN-major tile (W (K, N),
+//     B, and the weight gradient's A) is 64-column boxes, 64 columns being
+//     the widest MN-major box a 128-byte swizzle takes, read by wgmma with
+//     its transpose bit (A's is allowed for bf16 operands in shared memory);
 //   * warp specialisation: one producer warp issues the loads (its
 //     warpgroup gives registers away with setmaxnreg), two consumer
 //     warpgroups each multiply 64 rows of the 128x256 tile, one wgmma group
@@ -34,8 +41,9 @@
 //     the bias is read once per column, residuals, stashes and outputs move
 //     as 16-byte vectors, and the element arithmetic is common.cuh
 //     epilogue()'s, in the same order with the same rounding points (acc +
-//     bias, then gelu_new, dropout / drop-path / residual, the stashed
-//     pre-activation, or the GELU derivative of the stashed pre-activation).
+//     bias, then the exact or tanh GELU, dropout / drop-path / residual, the
+//     stashed pre-activation, or the GELU derivative of the stashed
+//     pre-activation; the residual bf16 or fp32).
 //     The dropout multiplier of an element is drop_scale() of its (row, col)
 //     index, so the masks do not change.
 // TMA zero-fills out of bounds, so M, N and K need not be multiples of the
@@ -131,9 +139,10 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// D(64x256, fp32) += A(64x16) . B(16x256, MN-major), bf16 operands; A is
-// K-major, or MN-major with TNSP_A (wgmma's transpose bit on A).
-template <int TNSP_A>
+// D(64x256, fp32) += A(64x16) . B(16x256), bf16 operands; A is K-major, or
+// MN-major with TNSP_A (wgmma's transpose bit on A); B is MN-major with
+// TNSP_B, else K-major.
+template <int TNSP_A, int TNSP_B>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -154,7 +163,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       "%108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
       "%123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, %131, 1;\n"
+      " %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -182,7 +191,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TNSP_A));
+      : "l"(da), "l"(db), "r"(1), "n"(TNSP_A), "n"(TNSP_B));
 }
 
 // 8 consecutive bf16 <-> fp32, as one 16-byte access; 8 fp32 as two
@@ -195,6 +204,13 @@ __device__ __forceinline__ void load8(const bf16* p, float* v) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
 __device__ __forceinline__ void store8(bf16* p, const float* v) {
@@ -216,21 +232,27 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 // The epilogues of the entries on this GEMM (common.cuh epilogue(), element
 // for element) on 8 consecutive columns of one row; b the bias values. The
 // output is bf16, or fp32 with EPI_BIAS (the fuser's fp32 dX products and
-// the weight gradients); residuals and stashes are bf16.
-template <int EPI, typename TOut>
+// the weight gradients) or EPI_BIAS_RES (the fuser's proj into the fp32
+// residual stream y); the residual is bf16, or fp32 with EPI_BIAS_RES (the
+// fuser's fc2 adding y); stashes are bf16.
+template <int EPI, typename TRes, typename TOut>
 __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
                                           int N, const float* acc,
                                           const float* b) {
   static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_RES ||
-                    EPI == EPI_GELU_TANH || EPI == EPI_RES_DROP ||
-                    EPI == EPI_PRE_GELU_TANH || EPI == EPI_GELU_BWD,
+                    EPI == EPI_GELU_ERF || EPI == EPI_GELU_TANH ||
+                    EPI == EPI_RES_DROP || EPI == EPI_PRE_GELU_TANH ||
+                    EPI == EPI_GELU_BWD,
                 "gemm_sm90 epilogue");
-  static_assert(std::is_same<TOut, bf16>::value || EPI == EPI_BIAS,
-                "an fp32 output takes EPI_BIAS");
+  static_assert(std::is_same<TOut, bf16>::value || EPI == EPI_BIAS ||
+                    EPI == EPI_BIAS_RES,
+                "an fp32 output takes EPI_BIAS or EPI_BIAS_RES");
+  static_assert(std::is_same<TRes, bf16>::value || EPI == EPI_BIAS_RES,
+                "an fp32 residual takes EPI_BIAS_RES");
   const size_t at = (size_t)row * N + col;
   float v[8], r[8], o2[8];
   if (EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP || EPI == EPI_GELU_BWD)
-    load8(static_cast<const bf16*>(ea.res) + at, r);
+    load8(static_cast<const TRes*>(ea.res) + at, r);
   float keep_row = 1.f;
   if (EPI == EPI_RES_DROP)
     keep_row = drop_scale(ea.row_drop, (unsigned long long)(row / ea.tokens));
@@ -238,7 +260,9 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
   for (int e = 0; e < 8; ++e) {
     float x = acc[e];
     if (ea.bias != nullptr) x += b[e];
-    if (EPI == EPI_GELU_TANH) {
+    if (EPI == EPI_GELU_ERF) {
+      x = gelu_erf(x);
+    } else if (EPI == EPI_GELU_TANH) {
       x = gelu_tanh(x);
     } else if (EPI == EPI_PRE_GELU_TANH) {
       o2[e] = x;
@@ -263,14 +287,16 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
 // One 128x256 output tile, C[m0.., n0..] = A . B over all of K, then the
 // epilogue. A is K-major (M, K) in one 128x64 box a stage, or with A_MN
 // MN-major (K, M) in two 64x64 boxes; B is MN-major (K, N) in four 64x64
-// boxes. Either way consumer cw's 64 rows start 8 KB into the stage. tmA /
-// tmB point at the kernel's __grid_constant__ tensor maps.
-template <int EPI, bool A_MN, typename TOut>
+// boxes, or with B_NK K-major (N, K) in one 256x64 box (the same 32 KB).
+// Either way consumer cw's 64 rows start 8 KB into the stage. tmA / tmB
+// point at the kernel's __grid_constant__ tensor maps.
+template <int EPI, bool A_MN, bool B_NK, typename TRes, typename TOut>
 __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
                                                const CUtensorMap* tmB, int M,
                                                int N, int K,
                                                const EpiArgs& ea) {
   static_assert(GS_A_BYTES == 2 * GS_B_BOX_BYTES, "A: two 64-column boxes");
+  static_assert(GS_N * GS_K * 2 == 4 * GS_B_BOX_BYTES, "B: one K-major box");
   extern __shared__ __align__(1024) unsigned char gs_smem[];
   // 128-byte swizzled tiles must start on 1024-byte boundaries
   const uint32_t raw = smem_u32(gs_smem);
@@ -307,10 +333,14 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
         } else {
           tma_load_2d(dst, tmA, bar, kt * GS_K, m0);
         }
+        if (B_NK) {
+          tma_load_2d(dst + GS_A_BYTES, tmB, bar, kt * GS_K, n0);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          tma_load_2d(dst + GS_A_BYTES + j * GS_B_BOX_BYTES, tmB, bar,
-                      n0 + j * GS_BOX_N, kt * GS_K);
+          for (int j = 0; j < 4; ++j)
+            tma_load_2d(dst + GS_A_BYTES + j * GS_B_BOX_BYTES, tmB, bar,
+                        n0 + j * GS_BOX_N, kt * GS_K);
+        }
         if (++s == GS_STAGES) {
           s = 0;
           ph ^= 1u;
@@ -337,14 +367,18 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
       for (int kk = 0; kk < GS_K / 16; ++kk) {
         // MN-major (B, and A with A_MN): 64-column boxes 8 KB apart
         // (leading), 8-k-row groups 1024 bytes apart (stride), a k16 step
-        // 16 rows = 2048 bytes. K-major A: 128-byte rows, 8-row groups 1024
-        // bytes apart, a k16 step 32 bytes along the row.
-        const uint64_t db = gmma_desc(b + kk * 2048, GS_B_BOX_BYTES, 1024);
+        // 16 rows = 2048 bytes. K-major (A, and B with B_NK): 128-byte
+        // rows, 8-row groups 1024 bytes apart, a k16 step 32 bytes along
+        // the row.
+        const uint64_t db =
+            B_NK ? gmma_desc(b + kk * 32, 16, 1024)
+                 : gmma_desc(b + kk * 2048, GS_B_BOX_BYTES, 1024);
         if (A_MN)
-          wgmma_m64n256k16<1>(
+          wgmma_m64n256k16<1, B_NK ? 0 : 1>(
               acc, gmma_desc(a + kk * 2048, GS_B_BOX_BYTES, 1024), db);
         else
-          wgmma_m64n256k16<0>(acc, gmma_desc(a + kk * 32, 16, 1024), db);
+          wgmma_m64n256k16<0, B_NK ? 0 : 1>(
+              acc, gmma_desc(a + kk * 32, 16, 1024), db);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // the previous k-tile's group is done: its stage goes back
@@ -389,19 +423,20 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
         const float4 lo = src[0], hi = src[1];
         v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
         v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-        epilogue8<EPI, TOut>(ea, row, col, N, v, bias);
+        epilogue8<EPI, TRes, TOut>(ea, row, col, N, v, bias);
       }
     }
   }
 }
 
-// C = A . W (+ epilogue) for A (M, K) K-major and W (K, N) MN-major.
-template <int EPI, typename TOut>
+// C = A . W (+ epilogue) for A (M, K) K-major and W (K, N) MN-major, or with
+// B_NK W (N, K) K-major.
+template <int EPI, bool B_NK, typename TRes, typename TOut>
 __global__ void __launch_bounds__(GS_THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap tmA,
           const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
           EpiArgs ea) {
-  gemm_sm90_tile<EPI, false, TOut>(&tmA, &tmB, M, N, K, ea);
+  gemm_sm90_tile<EPI, false, B_NK, TRes, TOut>(&tmA, &tmB, M, N, K, ea);
 }
 
 // The weight gradient out (I, J) = A^T . B, fp32, over the M rows of A
@@ -410,8 +445,8 @@ static __global__ void __launch_bounds__(GS_THREADS, 1)
 gemm_tn_sm90(const __grid_constant__ CUtensorMap tmA,
              const __grid_constant__ CUtensorMap tmB, int I, int J, int M,
              float* out) {
-  gemm_sm90_tile<EPI_BIAS, true, float>(&tmA, &tmB, I, J, M,
-                                        EpiArgs{nullptr, nullptr, out});
+  gemm_sm90_tile<EPI_BIAS, true, false, bf16, float>(
+      &tmA, &tmB, I, J, M, EpiArgs{nullptr, nullptr, out});
 }
 
 // ---------------------------------------------------------------------------
@@ -459,9 +494,12 @@ static bool bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// C = A . W (+ epilogue EPI) for A (M, K) and W (K, N), bf16; out TOut (bf16,
-// or fp32 with EPI_BIAS), residual and out2 bf16. Returns the launch's error.
-template <int EPI, typename TOut = bf16>
+// C = A . W (+ epilogue EPI) for A (M, K) and W (K, N), or with B_NK W
+// (N, K), bf16; out TOut (bf16, or fp32 with EPI_BIAS / EPI_BIAS_RES),
+// residual TRes (bf16, or fp32 with EPI_BIAS_RES), out2 bf16. Returns the
+// launch's error.
+template <int EPI, typename TOut = bf16, bool B_NK = false,
+          typename TRes = bf16>
 static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
                                     int K, EpiArgs ea, cudaStream_t stream) {
   // the epilogue moves bias, res, out and out2 as 16-byte vectors too
@@ -471,16 +509,17 @@ static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
     return cudaErrorInvalidValue;
   // on every launch: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_sm90<EPI, TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      GS_SMEM);
+      gemm_sm90<EPI, B_NK, TRes, TOut>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
   if (!bf16_tensor_map(&ta, A, M, K, GS_M, GS_K) ||
-      !bf16_tensor_map(&tb, W, K, N, GS_K, GS_BOX_N))
+      !(B_NK ? bf16_tensor_map(&tb, W, N, K, GS_N, GS_K)
+             : bf16_tensor_map(&tb, W, K, N, GS_K, GS_BOX_N)))
     return cudaErrorInvalidValue;
   const dim3 grid(cdiv(N, GS_N), cdiv(M, GS_M));
-  gemm_sm90<EPI, TOut><<<grid, GS_THREADS, GS_SMEM, stream>>>(ta, tb, M, N, K,
-                                                               ea);
+  gemm_sm90<EPI, B_NK, TRes, TOut><<<grid, GS_THREADS, GS_SMEM, stream>>>(
+      ta, tb, M, N, K, ea);
   return cudaGetLastError();
 }
 
@@ -515,6 +554,21 @@ static cudaError_t gemm_kn(const T* A, const T* W, int M, int N, int K,
     return launch_gemm_sm90<EPI, TOut>(A, W, M, N, K, ea, stream);
   } else {
     launch_gemm<EPI, true, T, TOut>(A, W, M, N, K, ea, stream);
+    return cudaGetLastError();
+  }
+}
+
+// C = A . W^T (+ epilogue) for W read as (N, K): the fuser blocks' nn.Linear
+// (out, in) weights in their serving forward. This GEMM's K-major B route in
+// bf16 (TOut bf16, or fp32 with EPI_BIAS_RES; TRes bf16, or fp32 with
+// EPI_BIAS_RES); gemm_f32 (true fp32, for the parity checks) in fp32.
+template <int EPI, typename T, typename TRes, typename TOut>
+static cudaError_t gemm_nk(const T* A, const T* W, int M, int N, int K,
+                           EpiArgs ea, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_gemm_sm90<EPI, TOut, true, TRes>(A, W, M, N, K, ea, stream);
+  } else {
+    launch_gemm<EPI, false, TRes, TOut>(A, W, M, N, K, ea, stream);
     return cudaGetLastError();
   }
 }

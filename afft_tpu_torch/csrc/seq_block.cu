@@ -29,17 +29,23 @@
 // ~259 GFLOP against ~67 MB, the decoder block at S = 10 ~86 GFLOP against
 // ~49 MB: both bound by the tensor cores (~0.26 and ~0.09 ms at 989 TFLOP/s).
 // The GEMMs run on the tensor cores with bias, activation, residual and cast
-// fused into their epilogues; the attention stages are a small share of the
-// work and run on the CUDA cores (strided_attention, one warp per query). The
-// decoder block at S = 10 is 14 short launches over 2,560 rows, so launch
-// latency and partly filled GEMM tiles weigh on it.
+// fused into their epilogues. The self-attention and MLP stages (the whole
+// seq block; the decoder's first and last stage) run in bf16 on the wgmma /
+// TMA GEMM of gemm_sm90.cuh, which reads the nn.Linear (out, in) weights
+// where they lie (gemm_nk), and their attention reads each element of qkv
+// once into shared memory (fuser_attention.cuh fuser_attention_seq); the
+// decoder's cross-attention stage keeps the wmma gemm_bf16 and
+// strided_attention (one warp per query). The decoder block at S = 10 is 14
+// short launches over 2,560 rows, so launch latency and partly filled GEMM
+// tiles weigh on it.
 //
 // Limits: any B, 1 <= S <= 1024, H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0, fp32 or bf16; every LayerNorm affine and the qkv / w_q /
 // w_k / w_v biases are optional (null pointers); the decoder's memory
 // stream has x's shape.
 
-#include "common.cuh"
+#include "fuser_attention.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace afft;
 
@@ -64,12 +70,10 @@ static int run_mlp_stage(const float* y, const T* lng, const T* lnb,
                          int hidden, float eps, cudaStream_t s) {
   launch_layernorm<float, T>(y, lng, lnb, tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_GELU_ERF, false, T, T>(tmp, wfc1, M, hidden, C,
-                                         EpiArgs{bfc1, nullptr, h1}, s);
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS_RES, false, float, T>(h1, wfc2, M, C, hidden,
-                                             EpiArgs{bfc2, y, out}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((gemm_nk<EPI_GELU_ERF, T, T, T>(tmp, wfc1, M, hidden, C,
+                                             EpiArgs{bfc1, nullptr, h1}, s)));
+  AFFT_CHECK((gemm_nk<EPI_BIAS_RES, T, float, T>(h1, wfc2, M, C, hidden,
+                                                 EpiArgs{bfc2, y, out}, s)));
   return 0;
 }
 
@@ -83,13 +87,12 @@ static int run_self_attn_stage(const T* x, const T* lng, const T* lnb,
   const int M = B * S;
   launch_layernorm<T, T>(x, lng, lnb, tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS, false, T, T>(tmp, wqkv, M, 3 * C, C,
-                                     EpiArgs{bqkv, nullptr, qkv}, s);
-  AFFT_CHECK_LAUNCH();
-  AFFT_CHECK(launch_packed_attention<T>(qkv, mask, tmp, B, S, H, C / H, s));
-  launch_gemm<EPI_BIAS_RES, false, T, float>(tmp, wproj, M, C, C,
-                                             EpiArgs{bproj, x, y}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((gemm_nk<EPI_BIAS, T, T, T>(tmp, wqkv, M, 3 * C, C,
+                                         EpiArgs{bqkv, nullptr, qkv}, s)));
+  AFFT_CHECK(launch_fuser_attention_seq<T>(qkv, mask, tmp, B, S, H, C / H,
+                                           s));
+  AFFT_CHECK((gemm_nk<EPI_BIAS_RES, T, T, float>(tmp, wproj, M, C, C,
+                                                 EpiArgs{bproj, x, y}, s)));
   return 0;
 }
 

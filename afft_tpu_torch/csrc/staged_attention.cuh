@@ -2,8 +2,9 @@
 // entries (the serving attention half, fused_gpt2.cu, and the training
 // layer, train_block.cuh with GPT2 = true), one block per (sequence, head).
 //
-// Replaces, for those entries, small_attention / small_attention_drop (one
-// warp per query, scalar 2-byte loads, q read again for each key). At the
+// Replaces, for those entries, the one-warp-per-query attentions (scalar
+// 2-byte loads, q read again for each key) that the fuser's training block
+// still runs (small_attention_drop). At the
 // flagship shape (B 256, T 16, 4 heads of 512) the step moves ~67 MB and
 // does ~0.5 GFLOP: bound by bytes (~0.02 ms at 3.35 TB/s). Here q, k and v
 // are staged through shared memory in chunks of 128 head columns (rows

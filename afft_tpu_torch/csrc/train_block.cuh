@@ -108,8 +108,8 @@ __device__ __forceinline__ float maybe_round(float v) {
 
 // ---------------------------------------------------------------------------
 // Attention over S <= 32 tokens with dropout on the probabilities: one block
-// per (row, head), one warp per query, as small_attention: the fuser
-// block's (the GPT-2 layer's runs staged_attention.cuh). The probability is
+// per (row, head), one warp per query: the fuser block's (the GPT-2
+// layer's runs staged_attention.cuh). The probability is
 // scaled by its keep multiplier before P . V; scores, softmax and the
 // product's sum are fp32.
 // ---------------------------------------------------------------------------

@@ -1,27 +1,35 @@
 """The bf16 GEMM of ``csrc/gemm_sm90.cuh`` alone: C = A . W with a fused
-epilogue for a weight read as (K, N), and the weight gradient out = A^T . B;
-the kernels and their plain versions.
+epilogue for a weight read as (K, N) or, on its K-major B route, as (N, K),
+and the weight gradient out = A^T . B; the kernels and their plain
+versions.
 
 The entries run their bf16 products on the wgmma / TMA GEMM from inside
-their own launch sequences: the GPT-2 serving halves (``ops.fused_gpt2``),
-the GPT-2 training forward, the fuser's training backward dX products and
-every training weight gradient (``ops.fused_block_train``,
+their own launch sequences: the fuser blocks' serving forward
+(``ops.fused_block``, ``ops.fused_seq_block``: the nn.Linear (out, in)
+weights as (N, K)), the GPT-2 serving halves (``ops.fused_gpt2``), the
+GPT-2 training forward, the fuser's training backward dX products and every
+training weight gradient (``ops.fused_block_train``,
 ``ops.fused_gpt2_train``). ``gemm`` and ``gemm_tn`` reach that GEMM alone
 (``csrc/gemm.cu``), so that it can be checked and timed on operands of any
 shape. No model path calls them.
 
 Epilogues of ``gemm`` (``csrc/common.cuh`` ``Epi``), on ``acc = A . W`` in
-fp32: ``bias`` acc + bias (bf16 out, or fp32 with ``out_dtype``);
-``bias_res`` res + (acc + bias); ``gelu_tanh`` gelu_new(acc + bias);
-``res_drop`` res + ((acc + bias) * drop) * drop_row, with the element
-dropout of the training forward's proj site and its drop-path over rows of
-``tokens``, also written to out2 with ``stash``; ``pre_gelu_tanh``
-gelu_new(acc + bias), out2 the pre-activation; ``gelu_bwd`` acc *
-gelu_exact'(res), res the stashed pre-activation. Every output but the fp32
-``bias`` is bf16.
+fp32. For W (K, N) (``w_in_out=True``, the Conv1D (in, out) layout):
+``bias`` acc + bias (bf16 out, or fp32 with ``out_dtype``); ``bias_res``
+res + (acc + bias); ``gelu_tanh`` gelu_new(acc + bias); ``res_drop`` res +
+((acc + bias) * drop) * drop_row, with the element dropout of the training
+forward's proj site and its drop-path over rows of ``tokens``, also written
+to out2 with ``stash``; ``pre_gelu_tanh`` gelu_new(acc + bias), out2 the
+pre-activation; ``gelu_bwd`` acc * gelu_exact'(res), res the stashed
+pre-activation; every output but the fp32 ``bias`` is bf16. For W (N, K)
+(``w_in_out=False``, the nn.Linear (out, in) layout): ``bias``,
+``gelu_erf`` gelu_exact(acc + bias) and ``bias_res``, whose residual may be
+fp32 (with a bf16 out: the fuser's fc2 adding the residual stream) and
+whose out may be fp32 (with a bf16 residual: the fuser's proj into it).
 
 Limits of the kernels, which both wrappers apply on every device: K % 8 ==
-0 and N % 8 == 0 (I % 8 and J % 8 for ``gemm_tn``); on CUDA, bf16 operands,
+0 and N % 8 == 0 (I % 8 and J % 8 for ``gemm_tn``), the epilogue and dtype
+combinations above; on CUDA, bf16 operands (the fp32 residual aside),
 contiguous and 16-byte aligned.
 """
 
@@ -36,8 +44,13 @@ from .fused_block_train import rate_arrays, rates_operands, site_mask_plain
 
 LAUNCHES = {"gemm": 0, "gemm_tn": 0}
 
-EPILOGUES = {"bias": 0, "bias_res": 1, "gelu_tanh": 3, "res_drop": 4,
-             "pre_gelu_tanh": 7, "gelu_bwd": 6}
+EPILOGUES = {"bias": 0, "bias_res": 1, "gelu_erf": 2, "gelu_tanh": 3,
+             "res_drop": 4, "pre_gelu_tanh": 7, "gelu_bwd": 6}
+# the epilogues of each weight layout (w_in_out: W read as (K, N))
+ROUTE_EPILOGUES = {
+    True: ("bias", "bias_res", "gelu_tanh", "res_drop", "pre_gelu_tanh",
+           "gelu_bwd"),
+    False: ("bias", "gelu_erf", "bias_res")}
 _NEEDS_RES = ("bias_res", "res_drop", "gelu_bwd")
 # the mask sites of the training forward's proj product (train_block.cuh)
 _SITE_DROP, _SITE_ROW = 1, 2
@@ -63,14 +76,16 @@ def gelu_erf_grad(v):
 
 
 def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,
-               out_dtype=None):
-    """The epilogue in fp32 on the exact products of the bf16 operands;
-    returns (out, out2 or None), out in ``out_dtype`` (default a.dtype),
-    out2 in a.dtype."""
+               out_dtype=None, w_in_out=True):
+    """The epilogue in fp32 on the exact products of the bf16 operands (w
+    read as (K, N), or as (N, K) without ``w_in_out``); returns (out, out2
+    or None), out in ``out_dtype`` (default a.dtype), out2 in a.dtype."""
     dt = a.dtype
-    v = add_bias(matmul32(a, w, True), bias)
+    v = add_bias(matmul32(a, w, w_in_out), bias)
     out2 = None
-    if epi == "gelu_tanh":
+    if epi == "gelu_erf":
+        v = F.gelu(v)
+    elif epi == "gelu_tanh":
         v = F.gelu(v, approximate="tanh")
     elif epi == "pre_gelu_tanh":
         out2 = v.to(dt)
@@ -86,35 +101,61 @@ def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,
     return v.to(out_dtype or dt), out2
 
 
-def check_kernel_operands(name, a, operands):
+def check_kernel_operands(name, a, operands, fp32=None):
     """What the kernels take on CUDA: bf16 operands (the fp32 products run
-    on gemm_f32 / gemm_tn_f32 inside the entries), contiguous and 16-byte
-    aligned, all on a's device."""
+    on gemm_f32 / gemm_tn_f32 inside the entries), but the float32 ones
+    named in ``fp32`` (the fp32 residual), contiguous and 16-byte aligned,
+    all on a's device."""
     if a.dtype != torch.bfloat16:
         raise TypeError(f"{name}: bfloat16 only, got {a.dtype} (the fp32 "
                         "products run on gemm_f32 inside the entries)")
     check_operands(name, a, operands)
+    for key, t in (fp32 or {}).items():
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected "
+                            "torch.float32")
+        if t.device != a.device:
+            raise ValueError(f"{name}: {key} on {t.device}, a on {a.device}")
+        check_operands(name, t, {})
 
 
 def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
          block_idx=0, drop_rate=0.0, dp_rate=0.0, tokens=1, stash=False,
-         out_dtype=None):
-    """C = A . W (+ epilogue) for a (M, K) and w (K, N) in bf16; returns
-    (out, out2 or None). ``out_dtype=torch.float32`` (``bias`` only) writes
-    an fp32 out. CPU tensors take the plain version (on masks from
-    ``drop_masks``); CUDA tensors launch the kernel."""
+         out_dtype=None, w_in_out=True):
+    """C = A . W (+ epilogue) for a (M, K) and w (K, N), or w (N, K) with
+    ``w_in_out=False`` (the K-major B route), in bf16; returns (out, out2 or
+    None). ``out_dtype=torch.float32`` writes an fp32 out (``bias`` on the
+    (K, N) route, ``bias_res`` on the (N, K) route); on the (N, K) route
+    ``bias_res`` also takes an fp32 ``res``. CPU tensors take the plain
+    version (on masks from ``drop_masks``); CUDA tensors launch the
+    kernel."""
     name = "gemm"
     if epi not in EPILOGUES:
         raise ValueError(f"{name}: epi {epi!r} unknown")
-    if out_dtype not in (None, a.dtype) and (
-            out_dtype != torch.float32 or epi != "bias"):
-        raise ValueError(f"{name}: an fp32 output takes the bias epilogue "
-                         f"only (epi {epi!r}, out_dtype {out_dtype})")
-    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
-        raise ValueError(f"{name}: needs a (M, K) and w (K, N), got "
+    layout = "(K, N)" if w_in_out else "(N, K)"
+    if epi not in ROUTE_EPILOGUES[bool(w_in_out)]:
+        raise ValueError(f"{name}: epi {epi!r} does not run on the w "
+                         f"{layout} route")
+    out_f32 = out_dtype not in (None, a.dtype)
+    res_f32 = res is not None and res.dtype == torch.float32 and \
+        a.dtype != torch.float32
+    fp32_epi = "bias" if w_in_out else "bias_res"
+    if out_f32 and (out_dtype != torch.float32 or epi != fp32_epi):
+        raise ValueError(f"{name}: an fp32 output takes the {fp32_epi} "
+                         f"epilogue only on the w {layout} route (epi "
+                         f"{epi!r}, out_dtype {out_dtype})")
+    if res_f32 and (w_in_out or epi != "bias_res" or out_f32):
+        raise ValueError(f"{name}: an fp32 residual takes the bias_res "
+                         "epilogue with a bf16 output, on the w (N, K) route "
+                         f"only (epi {epi!r}, w_in_out {w_in_out})")
+    k_dim = 0 if w_in_out else 1
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[k_dim]:
+        raise ValueError(f"{name}: needs a (M, K) and w {layout}, got "
                          f"{tuple(a.shape)} and {tuple(w.shape)}")
     M, K = a.shape
-    N = w.shape[1]
+    N = w.shape[1 - k_dim]
     if M < 1 or N % 8 or K % 8 or N < 8 or K < 8 or tokens < 1:
         raise ValueError(f"{name}: needs M >= 1, K % 8 == 0, N % 8 == 0 and "
                          f"tokens >= 1 (M={M}, N={N}, K={K}, tokens={tokens})")
@@ -128,16 +169,19 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
         if epi == "res_drop":
             masks = drop_masks(M, N, tokens, seeds, block_idx, drop_rate,
                                dp_rate)
-        return gemm_plain(a, w, epi, bias, res, masks, stash, out_dtype)
+        return gemm_plain(a, w, epi, bias, res, masks, stash, out_dtype,
+                          w_in_out)
     if a.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a.device}")
-    check_kernel_operands(name, a, {"w": w, "bias": bias, "res": res})
-    out_f32 = out_dtype == torch.float32
+    check_kernel_operands(name, a, {"w": w, "bias": bias,
+                                    **({} if res_f32 else {"res": res})},
+                          fp32={"res": res} if res_f32 else None)
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype,
                       device=a.device)
     out2 = torch.empty((M, N), dtype=a.dtype, device=a.device) if (
         epi == "pre_gelu_tanh" or (epi == "res_drop" and stash)) else None
-    launch(name, "afft_gemm", EPILOGUES[epi], int(out_f32), ptr(a), ptr(w),
+    launch(name, "afft_gemm", EPILOGUES[epi], int(out_f32),
+           int(not w_in_out), int(res_f32), ptr(a), ptr(w),
            ptr(bias), ptr(res), ptr(out), ptr(out2),
            *rate_arrays(seeds, block_idx, 0.0, drop_rate, dp_rate), M, N, K,
            tokens, device=a.device)

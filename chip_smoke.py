@@ -7,22 +7,27 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. device  - the card's name and power limit (nvidia-smi), TF32 off;
   2. build   - compile afft_tpu_torch/csrc with nvcc for sm_90a; ptxas's
                report (registers, shared memory, spills) of the wgmma / TMA
-               GEMM and the staged attention, and the library's SASS must
-               hold HGMMA (wgmma) instructions where the toolkit has
-               cuobjdump;
+               GEMM, the staged attention and the fuser attention, and the
+               library's SASS must hold HGMMA (wgmma) instructions where the
+               toolkit has cuobjdump;
   3. gemm    - the wgmma / TMA GEMM (ops.gemm, ops.gemm_tn) against the
-               fp32 product of its upcast operands: C = A . W for each of
-               its six epilogues and the fp32 output, at the GPT-2 entries'
-               and the fuser backward's shapes and at edge shapes (M 1 / 15
-               / 4097, N 72 / 136 / 6144, K 24 / 40 / 2048), dropout masks
-               bit for bit; its TN route (the weight gradients) at the
-               training entries' shapes and at edge shapes (M 1 / 15 /
-               4097, I 8 / 72 / 136, J 24 / 200 / 264), bit for bit from
-               run to run; then both timed in turns against torch.matmul
-               (the library yardstick), and at the rollout's cached-block
-               shapes against cuBLAS addmm, beside the wmma gemm_bf16's time
-               a launch in the profile of fused_gpt2_train_bwd_mlp (rows 13
-               + 14), an entry that still runs it;
+               fp32 product of its upcast operands: C = A . W for W (K, N)
+               under each of its six epilogues and the fp32 output, at the
+               GPT-2 entries' and the fuser backward's shapes and at edge
+               shapes (M 1 / 15 / 4097, N 72 / 136 / 6144, K 24 / 40 /
+               2048), dropout masks bit for bit; its K-major B route (W
+               read as (N, K), the fuser blocks' serving forward) under the
+               fuser's epilogues (bias, exact GELU, the residual add with an
+               fp32 out or an fp32 residual) at rows 1's and 5's product
+               shapes and the same edge shapes, bit for bit from launch to
+               launch; its TN route (the weight gradients) at the training
+               entries' shapes and at edge shapes (M 1 / 15 / 4097, I 8 / 72
+               / 136, J 24 / 200 / 264), bit for bit from run to run; then
+               all timed in turns against torch.matmul (the library
+               yardstick), and at the rollout's cached-block shapes against
+               cuBLAS addmm, beside the wmma gemm_bf16's time a launch in
+               the profiles of fused_gpt2_train_bwd_mlp (rows 13 + 14) and
+               fused_block_train_fwd (row 7), entries that still run it;
   4. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
                fused_attention, fused_seq_block, fused_decoder_block; the
                fuser block's and the GPT-2 layer's training entries, forward
@@ -36,8 +41,12 @@ Phases, in order; any failure exits non-zero and prints no result:
                reduced batch, and at edge shapes; its time beside the plain
                version's, a cuBLAS + SDPA composition of the same function,
                and the least time the card could take; a profile by kernel
-               group of the four entries redesigned on the wgmma / TMA GEMM
-               (REDESIGNED); each training backward entry run twice on the
+               group of the six entries redesigned on the wgmma / TMA GEMM
+               (REDESIGNED), where fused_block and fused_seq_block must
+               launch neither gemm_bf16 nor small_attention nor
+               strided_attention; the fuser attention at its edges (N 1 / 5
+               / 8, S 1 to 1024, hd 6 / 12 / 256, with and without the
+               causal mask); each training backward entry run twice on the
                same inputs gives the same gradients bit for bit;
   5. serve   - the Server on five paths at full width (bf16, batch 256,
                seeded weights): the flagship
@@ -167,14 +176,14 @@ def _norms(p, names, C, rn):
         p[f"{norm}.bias"] = rn(C, std=0.1)
 
 
-def block_params(C, hidden, dt, gen, affine=True, qkv_bias=False):
+def block_params(C, hidden, dt, gen, affine=True, qkv_bias=False, std=0.02):
     rn = _randn(gen, dt)
-    p = {"attn.qkv.weight": rn(3 * C, C, std=0.02),
-         "attn.proj.weight": rn(C, C, std=0.02),
+    p = {"attn.qkv.weight": rn(3 * C, C, std=std),
+         "attn.proj.weight": rn(C, C, std=std),
          "attn.proj.bias": rn(C, std=0.02),
-         "mlp.mlp.0.weight": rn(hidden, C, std=0.02),
+         "mlp.mlp.0.weight": rn(hidden, C, std=std),
          "mlp.mlp.0.bias": rn(hidden, std=0.02),
-         "mlp.mlp.2.weight": rn(C, hidden, std=0.02),
+         "mlp.mlp.2.weight": rn(C, hidden, std=std),
          "mlp.mlp.2.bias": rn(C, std=0.02)}
     if affine:
         _norms(p, ("norm1", "norm2"), C, rn)
@@ -561,6 +570,7 @@ def check_edge_shapes(gen):
                                                  num_heads=H),
                           FS.fused_decoder_block_plain(x, mem, p, mask,
                                                        num_heads=H))
+        n += check_fuser_attention_edges(tag, dt, gen)
         # the layer on the card (w_q / w_k / w_v / proj in cuBLAS around
         # fused_attention) against the same layer on the CPU (all plain)
         layer = CrossAttention(64, 4, mem_dim=40, qkv_bias=True)
@@ -574,6 +584,47 @@ def check_edge_shapes(gen):
         n += _edge_ok(f"CrossAttention {tag} N=7 M=11 mem_dim=40", tag,
                       got.cpu(), want)
     log(f"kernels: {n} edge-shape checks agree with the plain versions")
+
+
+def check_fuser_attention_edges(tag, dt, gen):
+    """The fuser attention (csrc/fuser_attention.cuh) at the edges of its
+    limits, through the blocks that run it: fused_block at N 1 / 5 / 8,
+    fused_seq_block at S 1 / 40 / 63 / 64 / 65 / 128 / 300 / 1024 (one,
+    two, five and 16 key chunks; query tiles of 16 to 64), each at hd 6 / 12
+    / 256 (scalar
+    and 16-byte rows) with and without the (tiled) causal mask. The weights
+    have std C^-1/2, so the attention's share of the block output is of the
+    order of the output itself. Returns the number of checks."""
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block as FB, fused_seq_block as FS
+    rn = _randn(gen, dt)
+    n = 0
+    for hd, H in ((6, 4), (12, 2), (256, 1)):
+        C = hd * H
+        for N in (1, 5, 8):
+            for masked in (False, True):
+                p = block_params(C, 2 * C, dt, gen, std=C ** -0.5)
+                mask = neg_inf_causal_mask(N, device="cuda") if masked \
+                    else None
+                x = rn(37, N, C)
+                n += _edge_ok(f"fuser attention (fused_block) {tag} R=37 "
+                              f"N={N} hd={hd} H={H} masked={masked}", tag,
+                              FB.fused_block(x, p, mask, num_heads=H),
+                              FB.fused_block_plain(x, p, mask, num_heads=H))
+        for frames, mods in ((1, 1), (10, 4), (21, 3), (16, 4), (13, 5),
+                             (32, 4), (75, 4), (256, 4)):
+            S = frames * mods
+            B = 1 if S > 128 else 3
+            for masked in (False, True):
+                p = block_params(C, 2 * C, dt, gen, std=C ** -0.5)
+                mask = tiled_causal_mask(frames, mods) if masked else None
+                x = rn(B, S, C)
+                n += _edge_ok(f"fuser attention (fused_seq_block) {tag} "
+                              f"B={B} S={S} hd={hd} H={H} masked={masked}",
+                              tag, FS.fused_seq_block(x, p, mask, num_heads=H),
+                              FS.fused_seq_block_plain(x, p, mask,
+                                                       num_heads=H))
+    return n
 
 
 def _edge_ok(what, tag, got, want):
@@ -1141,7 +1192,25 @@ def phase_train_kernels(peaks, gen):
 # the entries redesigned on the wgmma / TMA GEMM: their one-call profile by
 # kernel group is printed beside their times, and their times back to back
 REDESIGNED = ("gpt2_attn_half", "gpt2_mlp_half", "fused_gpt2_train_fwd",
-              "fused_block_train_bwd_mlp")
+              "fused_block_train_bwd_mlp", "fused_block", "fused_seq_block")
+# the entries whose one-call profile must show their products on
+# gemm_sm90's (N, K) route and their attention on fuser_attention.cuh, and
+# none of the kernels they ran before
+NK_ENTRIES = ("fused_block", "fused_seq_block")
+OFF_PATH = ("gemm_bf16", "small_attention", "strided_attention")
+
+
+def check_off_path(name, profile):
+    """Fail if the one-call profile of ``name`` shows a kernel of OFF_PATH,
+    or a product off gemm_sm90's (N, K) route."""
+    groups = profile["groups_ms"]
+    bad = [g for g in groups if g.split("<")[0] in OFF_PATH
+           or (g.startswith("gemm_sm90<") and "W(N,K)" not in g)]
+    if bad or not any(g.startswith("gemm_sm90<") for g in groups):
+        raise AssertionError(f"{name}: one call's profile shows {sorted(groups)}"
+                             f"; {bad} are off its path")
+    log(f"kernel {name}: one call launches {sorted(groups)}, none of "
+        f"{OFF_PATH}")
 
 
 def redesigned_numbers(name, shape, kernel, library):
@@ -1220,6 +1289,8 @@ def phase_kernels(peaks):
             if name in REDESIGNED:
                 numbers["redesign"] = redesigned_numbers(
                     name, case["shape"], kernel, library)
+                if name in NK_ENTRIES:
+                    check_off_path(name, numbers["redesign"]["profile"])
         if "/" in name:
             main, shape = name.split("/")
             results[main][shape] = numbers
@@ -1232,12 +1303,13 @@ def phase_kernels(peaks):
 # -- the build and the GEMM of the GPT-2 entries ------------------------------
 
 # the kernels whose ptxas report the build phase prints
-REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "staged_attention")
+REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "staged_attention",
+                    "fuser_attention")
 
 
 def report_build(lib_path):
-    """ptxas's report of the wgmma / TMA GEMM and the staged attention
-    (registers, shared memory, spills), the compiler's warnings, and proof
+    """ptxas's report of the wgmma / TMA GEMM and the staged and fuser
+    attentions (registers, shared memory, spills), the compiler's warnings, and proof
     that the wgmma path compiled: the library's SASS holds HGMMA
     instructions (where the toolkit has cuobjdump). Fails otherwise."""
     import shutil
@@ -1256,7 +1328,7 @@ def report_build(lib_path):
                 seen.add(entry)
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 log(f"build: ptxas {entry}: {props}")
-    for kernel in REPORTED_KERNELS[:2]:
+    for kernel in REPORTED_KERNELS:
         if not any(kernel in e for e in seen):
             raise AssertionError(f"no ptxas report of {kernel} in the build "
                                  "log")
@@ -1296,6 +1368,18 @@ CACHED_SHAPES = ((4096, 6144, 2048), (4096, 2048, 2048), (256, 6144, 2048),
                  (256, 2048, 2048))
 GEMM_RATES = dict(drop_rate=0.1, dp_rate=0.1, tokens=16, seeds=TRAIN_SEEDS,
                   block_idx=3)
+# the fuser blocks' serving products on the (N, K) route (C 1024, hidden
+# 4096): (label, N, K, epilogue, variant) at the rows of rows 1 (R 4096 x 5
+# tokens) and 5 (B 256 x S 40). proj writes the fp32 residual stream y over
+# the bf16 x, fc2 adds y in fp32; the served qkv has no bias.
+NK_PRODUCTS = (("qkv", 3072, 1024, "bias", None),
+               ("proj", 1024, 1024, "bias_res", "out32"),
+               ("fc1", 4096, 1024, "gelu_erf", None),
+               ("fc2", 1024, 4096, "bias_res", "res32"))
+NK_ROWS = (20480, 10240)
+# every (epilogue, variant) the route takes, for the edge shapes
+NK_VARIANTS = (("bias", None), ("gelu_erf", None), ("bias_res", None),
+               ("bias_res", "out32"), ("bias_res", "res32"))
 
 
 def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
@@ -1362,6 +1446,45 @@ def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
     return worst, kept_zeros
 
 
+def _nk_operands(M, N, K, epi, variant, gen, bias=True):
+    """Operands of the (N, K) route: a (M, K), w (N, K), the bias, the
+    residual (fp32 for ``res32``) and the keywords (an fp32 out for
+    ``out32``)."""
+    import torch
+    rn = _randn(gen, torch.bfloat16)
+    a, w = rn(M, K), rn(N, K, std=K ** -0.5)
+    b = rn(N, std=0.1) if bias else None
+    res = None
+    if epi == "bias_res":
+        res = (torch.randn(M, N, generator=gen, device="cuda")
+               if variant == "res32" else rn(M, N))
+    kw = dict(out_dtype=torch.float32 if variant == "out32" else None,
+              w_in_out=False)
+    return a, w, b, res, kw
+
+
+def _check_gemm_nk(G, M, N, K, epi, variant, gen, bias=True):
+    """The (N, K) route against the fp32 product of its upcast operands
+    (1e-2 of max|ref|), and a second launch on the same operands bit for
+    bit. Returns the rel_err."""
+    import torch
+    a, w, b, res, kw = _nk_operands(M, N, K, epi, variant, gen, bias)
+    got, _ = G.gemm(a, w, epi, b, res, **kw)
+    again, _ = G.gemm(a, w, epi, b, res, **kw)
+    want, _ = G.gemm_plain(a, w, epi, b, res, **kw)
+    torch.cuda.synchronize()
+    what = (f"gemm W(N,K) {epi}{'' if variant is None else ' ' + variant} "
+            f"({M}, {N}, {K}){'' if bias else ' no bias'}")
+    finite, _, rel = errors(got, want)
+    if not (got.dtype == want.dtype and finite
+            and rel <= KERNEL_TOL["bf16"]):
+        raise AssertionError(f"{what}: rel_err={rel:.3g} finite={finite} "
+                             f"dtype={got.dtype}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches differ")
+    return rel
+
+
 def _check_gemm_tn(G, M, I, J, gen):
     """The TN route (out = a^T . b, fp32) against the fp32 product of its
     upcast operands (1e-2 of max|ref|), and a second launch on the same
@@ -1403,18 +1526,45 @@ def _in_turns(fns, iters=20):
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
-def entry_gemm_bf16(gen, calls=10):
-    """The wmma gemm_bf16's device ms a launch, read from the profile of
-    ``calls`` calls of fused_gpt2_train_bwd_mlp (rows 13 + 14) at the
-    flagship shape, an entry that still runs it for the GPT-2 layer's dX =
-    dY . W^T on the Conv1D W read as (N, K): dpre1 (4096, 8192, 2048) with
-    the gelu_new derivative (epi 8) and dg (4096, 2048, 8192) with an fp32
-    out (epi 0): c_fc's and the MLP c_proj's (M, N, K), the other operand
-    layout. Returns {(M, N, K): ms}."""
+def _wmma_ms(what, fn, shapes, calls=10):
+    """The wmma gemm_bf16's device ms a launch by (M, N, K), read from the
+    profile of ``calls`` calls of ``fn``, an entry that still runs it:
+    ``shapes`` maps (epilogue, fp32 out) of a gemm_bf16<EPI, TRes, TOut>
+    launch to its (M, N, K), and each must show ``calls`` launches."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        m = re.search(r"gemm_bf16<(\d+), ([^,<>]+), ([^,<>]+)>", e.name)
+        key = m and (m.group(1), m.group(3).strip() == "float")
+        if e.device_type == DeviceType.CUDA and key in shapes:
+            us.setdefault(shapes[key], []).append(e.time_range.elapsed_us())
+    counts = {k: len(v) for k, v in us.items()}
+    if len(us) != len(shapes) or set(counts.values()) != {calls}:
+        raise AssertionError(f"gemm: the profile of {what} shows {counts} "
+                             f"gemm_bf16 launches, not {calls} of each of "
+                             f"{len(shapes)}")
+    return {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
+
+
+def entry_gemm_bf16(gen):
+    """The wmma gemm_bf16 at the GPT-2 layer's dX = dY . W^T on the Conv1D W
+    read as (N, K), in fused_gpt2_train_bwd_mlp (rows 13 + 14) at the
+    flagship shape: dpre1 (4096, 8192, 2048) with the gelu_new derivative
+    (epi 8) and dg (4096, 2048, 8192) with an fp32 out (epi 0): c_fc's and
+    the MLP c_proj's (M, N, K), the other operand layout. Returns {(M, N,
+    K): ms}."""
+    import torch
     from afft_tpu_torch.models.layers import neg_inf_causal_mask
     from afft_tpu_torch.ops import fused_block_train as FT
     from afft_tpu_torch.ops import fused_gpt2_train as FGT
@@ -1430,34 +1580,43 @@ def entry_gemm_bf16(gen, calls=10):
     y, pre1 = saved[1], saved[3]
     tensors, cfg = list(saved[5:]), out.grad_fn.cfg
     grads = FT.new_grads(tensors)
-    shapes = {"8": (B * T, hidden, C), "0": (B * T, C, hidden)}
-    with torch.no_grad():
-        for _ in range(3):
-            FT.block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                FT.block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg)
-            torch.cuda.synchronize()
-    us = {}
-    for e in prof.events():
-        m = re.search(r"gemm_bf16<(\d+),", e.name)
-        if e.device_type == DeviceType.CUDA and m and m.group(1) in shapes:
-            us.setdefault(shapes[m.group(1)], []).append(
-                e.time_range.elapsed_us())
-    if sorted(len(v) for v in us.values()) != [calls, calls]:
-        raise AssertionError(f"gemm: the profile of fused_gpt2_train_bwd_mlp "
-                             f"shows { {k: len(v) for k, v in us.items()} } "
-                             f"gemm_bf16 launches, not {calls} of each")
+    ms = _wmma_ms("fused_gpt2_train_bwd_mlp",
+                  lambda: FT.block_train_bwd_mlp(x, y, dout, pre1, tensors,
+                                                 grads, cfg),
+                  {("8", False): (B * T, hidden, C),
+                   ("0", True): (B * T, C, hidden)})
     del out, saved, y, pre1, tensors, grads
-    return {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
+    return ms
 
 
-# the wmma yardstick's label in the timings
+def entry_gemm_bf16_nk(gen):
+    """The wmma gemm_bf16 at row 1's product shapes, in fused_block_train's
+    forward (row 7: R 4096 x 5 tokens, C 1024, hidden 4096, the flagship's
+    dropout) on the nn.Linear weights read as (N, K): qkv (epi 0), proj
+    (epi 4, fp32 out into y), fc1 (epi 5, with the stash) and fc2 (epi 4
+    over the fp32 y). Three of its epilogues draw dropout masks, the serving
+    ones do not. Returns {(M, N, K): ms}."""
+    import torch
+    from afft_tpu_torch.ops import fused_block_train as FT
+    R, N, C, H, hidden = 4096, 5, 1024, 4, 4096
+    M = R * N
+    p = block_params(C, hidden, torch.bfloat16, gen)
+    x = _randn(gen, torch.bfloat16)(R, N, C)
+    return _wmma_ms(
+        "fused_block_train_fwd",
+        lambda: FT.fused_block_train(x, p, None, TRAIN_SEEDS, num_heads=H,
+                                     block_idx=5, **TRAIN_RATES),
+        {("0", False): (M, 3 * C, C), ("4", True): (M, C, C),
+         ("5", False): (M, hidden, C), ("4", False): (M, C, hidden)})
+
+
+# the wmma yardsticks' labels in the timings
 WMMA = "gemm_bf16 W(N,K) (fused_gpt2_train_bwd_mlp profile)"
+WMMA_NK = "gemm_bf16 W(N,K) (fused_block_train_fwd profile)"
 
 
-def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None):
+def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None,
+                    extra_label=WMMA):
     """Each shape's callables timed in turns: ms, TFLOP/s and share of the
     bf16 peak, logged and returned by row."""
     import torch
@@ -1465,7 +1624,7 @@ def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None):
     for shape in shapes:
         ms = _in_turns(fns_of(*shape))
         if extra and shape in extra:
-            ms[WMMA] = extra[shape]
+            ms[extra_label] = extra[shape]
         M, N, K = shape
         flops = 2 * M * N * K
         rate = {k: flops / v / 1e9 for k, v in ms.items()}
@@ -1491,7 +1650,7 @@ def phase_gemm(peaks, gen):
     n, worst, kept_zeros = 0, 0.0, {}
     shapes = (list(GEMM_SHAPES) + list(ROW8_SHAPES)
               + list(itertools.product(*GEMM_EDGES)))
-    variants = [(epi, None) for epi in G.EPILOGUES] + [
+    variants = [(epi, None) for epi in G.ROUTE_EPILOGUES[True]] + [
         ("bias", torch.float32)]
     for (M, N, K), (epi, out_dtype) in itertools.product(shapes, variants):
         rel, zeros = _check_gemm(G, M, N, K, epi, gen, out_dtype)
@@ -1503,14 +1662,29 @@ def phase_gemm(peaks, gen):
     for M, I, J in list(TN_SHAPES) + list(itertools.product(*TN_EDGES)):
         tn_worst = max(tn_worst, _check_gemm_tn(G, M, I, J, gen))
         n_tn += 1
-    log(f"gemm: {n} checks of C = A . W (6 epilogues + the fp32 out) and "
-        f"{n_tn} of the TN route against the fp32 product agree (worst "
-        f"rel_err {worst:.3g} and {tn_worst:.3g}, tol "
-        f"{KERNEL_TOL['bf16']:g} of max|ref|; res_drop masks bit for bit; "
-        "the TN route bit for bit from launch to launch)")
+    nk_worst, n_nk = 0.0, 0
+    nk_cases = [(M, N, K, epi, variant, label != "qkv")
+                for M in NK_ROWS
+                for label, N, K, epi, variant in NK_PRODUCTS]
+    nk_cases += [(M, N, K, epi, variant, True)
+                 for (M, N, K), (epi, variant) in itertools.product(
+                     itertools.product(*GEMM_EDGES), NK_VARIANTS)]
+    for M, N, K, epi, variant, bias in nk_cases:
+        nk_worst = max(nk_worst, _check_gemm_nk(G, M, N, K, epi, variant,
+                                                gen, bias))
+        n_nk += 1
+    log(f"gemm: {n} checks of C = A . W (6 epilogues + the fp32 out), "
+        f"{n_nk} of the (N, K) route (bias, gelu_erf, bias_res with a bf16 / "
+        f"fp32 residual and out) and {n_tn} of the TN route against the "
+        f"fp32 product agree (worst rel_err {worst:.3g}, {nk_worst:.3g} and "
+        f"{tn_worst:.3g}, tol {KERNEL_TOL['bf16']:g} of max|ref|; res_drop "
+        "masks bit for bit; the (N, K) and TN routes bit for bit from launch "
+        "to launch)")
     torch.cuda.empty_cache()
 
     wmma = entry_gemm_bf16(gen)
+    torch.cuda.empty_cache()
+    wmma_nk = entry_gemm_bf16_nk(gen)
     torch.cuda.empty_cache()
     rn = _randn(gen, torch.bfloat16)
 
@@ -1532,8 +1706,20 @@ def phase_gemm(peaks, gen):
         return {"sm90": lambda: G.gemm_tn(a, b),
                 "matmul (a.t() @ b, bf16 out)": lambda: a.t() @ b}
 
+    def nk(epi, variant, bias):
+        def fns(M, N, K):
+            a, w, b, res, kw = _nk_operands(M, N, K, epi, variant, gen, bias)
+            return {"sm90 W(N,K)": lambda: G.gemm(a, w, epi, b, res, **kw),
+                    "matmul (a @ w.t())": lambda: a @ w.t()}
+        return fns
+
     rows = _time_gemm_rows(peaks, "entries", GEMM_SHAPES, kn("matmul"),
                            wmma)
+    for label, N, K, epi, variant in NK_PRODUCTS:
+        rows.update(_time_gemm_rows(
+            peaks, f"nk {label} {epi}{'' if variant is None else ' ' + variant}",
+            [(M, N, K) for M in NK_ROWS], nk(epi, variant, label != "qkv"),
+            wmma_nk, WMMA_NK))
     rows.update(_time_gemm_rows(peaks, "cached_block", CACHED_SHAPES,
                                 kn("addmm")))
     rows.update(_time_gemm_rows(peaks, "row8 dpre1 gelu_bwd",
@@ -1550,14 +1736,23 @@ def phase_gemm(peaks, gen):
         if not new >= 2 * old:
             raise AssertionError(f"gemm: {new:.1f} TFLOP/s at {shape}, not "
                                  f"2x gemm_bf16's {old:.1f}")
+    # the (N, K) route at row 1's qkv against the wmma GEMM at that shape
+    # and epilogue (row 7's qkv)
+    shape = (NK_ROWS[0], 3072, 1024)
+    qkv = rows[f"nk qkv bias {shape}"]["ms"]
+    if not qkv[WMMA_NK] >= 2 * qkv["sm90 W(N,K)"]:
+        raise AssertionError(f"gemm: the (N, K) route takes "
+                             f"{qkv['sm90 W(N,K)']:.4f} ms at {shape}, not "
+                             f"half of gemm_bf16's {qkv[WMMA_NK]:.4f}")
     # the rollout's cached block stays on addmm: gemm_sm90's speed there
     cached = {str(shape): rows[f"cached_block {shape}"]["ms"]["addmm"]
               / rows[f"cached_block {shape}"]["ms"]["sm90"]
               for shape in CACHED_SHAPES}
     log(f"gemm cached_block: gemm_sm90 runs at {cached} of addmm's speed "
         "(addmm ms / sm90 ms)")
-    return {"checks": n, "tn_checks": n_tn, "worst_rel_err": worst,
-            "tn_worst_rel_err": tn_worst, "res_drop_kept_zeros": kept_zeros,
+    return {"checks": n, "tn_checks": n_tn, "nk_checks": n_nk,
+            "worst_rel_err": worst, "tn_worst_rel_err": tn_worst,
+            "nk_worst_rel_err": nk_worst, "res_drop_kept_zeros": kept_zeros,
             "wmma_tflops": old, "cached_block_sm90_over_addmm": cached,
             "timings": rows}
 
@@ -1592,19 +1787,25 @@ def profile_forward(fn, what="one bf16 forward", grad=False):
         # fuser's Linear weights forward, the GPT-2 layer's dX products);
         # EPI 0 bias, 1 bias + residual, 2 exact GELU, 3 gelu_new, 4
         # residual + dropout + drop-path, 5 stash + GELU, 6 GELU backward,
-        # 7 / 8 the same two with gelu_new. gemm_sm90<EPI, TOut>: the wgmma
-        # / TMA GEMM, W read as (K, N) (the GPT-2 entries' bf16 products,
-        # the fuser's dX products); gemm_tn_sm90: its TN route, the weight
-        # gradients. An fp32 TOut is named in the group.
+        # 7 / 8 the same two with gelu_new. gemm_sm90<EPI, B_NK, TRes,
+        # TOut>: the wgmma / TMA GEMM, W read as (K, N) (the GPT-2 entries'
+        # bf16 products, the fuser's dX products) or, named W(N,K), as (N,
+        # K) (the fuser blocks' serving forward); gemm_tn_sm90: its TN
+        # route, the weight gradients. An fp32 TRes / TOut is named in the
+        # group.
         m = re.search(r"afft::(\w+)(?:<([^()]*)>)?\(", e.name)
         args = [] if m is None or m.group(2) is None else [
             a.strip() for a in m.group(2).split(",")]
         if m is None:
             group = "other (PyTorch ops)"
-        elif not args or not args[0].isdigit():
+        elif not args or not args[0].isdigit() or \
+                not m.group(1).startswith("gemm"):
             group = m.group(1)
         else:
             out = ", fp32 out" if args[-1] == "float" else ""
+            if m.group(1) == "gemm_sm90":  # <EPI, B_NK, TRes, TOut>
+                out = (", W(N,K)" if args[1] == "true" else "") + (
+                    ", fp32 res" if args[2] == "float" else "") + out
             group = f"{m.group(1)}<epi {args[0]}{out}>"
         groups[group] = groups.get(group, 0.0) + us
         names[e.name[:80]] = names.get(e.name[:80], 0.0) + us

@@ -1,8 +1,11 @@
 """ops.gemm on the CPU: the plain versions of the Hopper GEMM
-(csrc/gemm_sm90.cuh) that the entries run on the card, for each of its six
-epilogues and the fp32 output, and of its weight-gradient route gemm_tn,
-against the same arithmetic in JAX on the same numpy-made operands: the
-serving MLP half (pallas_gpt2.py) and the fuser's MLP backward products
+(csrc/gemm_sm90.cuh) that the entries run on the card, for each of its
+epilogues and the fp32 output on the (K, N) weight route, for its (N, K)
+route (the nn.Linear weight read where it lies: bias, the exact GELU, the
+residual add with an fp32 residual or output), and of its weight-gradient
+route gemm_tn, against the same arithmetic in JAX on the same numpy-made
+operands: the fuser block's serving products (pallas_block.py), the serving
+MLP half (pallas_gpt2.py) and the fuser's MLP backward products
 (pallas_block_train.py) with their own dimension numbers, at ragged shapes;
 the dropout masks are the training forward's proj-site masks; the wrappers
 refuse what the kernels do not take. The kernels themselves run on the card
@@ -15,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from afft_tpu.ops.pallas_block import _dot
+from afft_tpu.ops.pallas_block import _dot, _gelu_exact
 from afft_tpu.ops.pallas_block_train import _gelu_grad
 from afft_tpu.ops.pallas_gpt2 import _gelu_new
 from afft_tpu_torch.ops import fused_block_train as FT
@@ -38,7 +41,9 @@ def _jax_epilogue(epi, a, w, b, r, masks):
     """acc + bias and the epilogue in fp32 (jnp), rounded to bf16."""
     f32 = [jnp.asarray(t.float().numpy()) for t in (a, w, b, r)]
     v = jnp.dot(f32[0], f32[1], precision=jax.lax.Precision.HIGHEST) + f32[2]
-    if epi in ("gelu_tanh", "pre_gelu_tanh"):
+    if epi == "gelu_erf":
+        v = jax.nn.gelu(v, approximate=False)
+    elif epi in ("gelu_tanh", "pre_gelu_tanh"):
         v = jax.nn.gelu(v, approximate=True)
     elif epi == "gelu_bwd":
         v = v * _gelu_grad(f32[3])
@@ -52,7 +57,7 @@ def _jax_epilogue(epi, a, w, b, r, masks):
 
 @pytest.mark.parametrize("M,N,K", [(1, 72, 24), (15, 136, 40),
                                    (33, 64, 96)])
-@pytest.mark.parametrize("epi", list(G.EPILOGUES))
+@pytest.mark.parametrize("epi", list(G.ROUTE_EPILOGUES[True]))
 def test_gemm_plain_matches_jax(epi, M, N, K):
     a, w, b, r = _operands(M, N, K, seed=M + N + K)
     kw = dict(seeds=SEEDS, block_idx=2, drop_rate=0.3, dp_rate=0.2,
@@ -72,6 +77,21 @@ def test_gemm_plain_matches_jax(epi, M, N, K):
                                    atol=1e-6)
     else:
         assert out2 is None
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 72, 24), (15, 136, 40),
+                                   (33, 64, 96)])
+@pytest.mark.parametrize("epi", list(G.ROUTE_EPILOGUES[False]))
+def test_nk_route_plain_matches_jax(epi, M, N, K):
+    """The (N, K) route: w given as the (N, K) transpose of the (K, N)
+    operand gives the (K, N) arithmetic, in bf16 throughout."""
+    a, w, b, r = _operands(M, N, K, seed=M + N + K + 1)
+    out, out2 = G.gemm(a, w.t().contiguous(), epi, b, r, w_in_out=False)
+    want = _jax_epilogue(epi, a, w, b, r, None)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert out2 is None
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-6)
 
 
 def test_res_drop_masks_are_the_training_forwards_proj_masks():
@@ -154,6 +174,42 @@ def test_mlp_half_epilogues_match_pallas_gpt2(M, C, hidden):
 
 
 @pytest.mark.parametrize("M,C,hidden", RAGGED)
+def test_nk_route_matches_pallas_block(M, C, hidden):
+    """The fuser block's four serving products (pallas_block.py:141-188):
+    qkv rounded, proj + x into the fp32 residual stream y, fc1 under the
+    exact GELU (_gelu_exact) rounded, fc2 + y rounded; on the JAX (in, out)
+    weights, which the port reads as their nn.Linear (out, in) transposes,
+    the (N, K) operand."""
+    rng = np.random.default_rng(M + 3 * C)
+    f32 = jnp.float32
+    xn, attn, x, yn = (_bf16(rng, M, C) for _ in range(4))
+    wqkv = _bf16(rng, C, 3 * C, std=C ** -0.5)
+    wproj = _bf16(rng, C, C, std=C ** -0.5)
+    wfc1 = _bf16(rng, C, hidden, std=C ** -0.5)
+    wfc2 = _bf16(rng, hidden, C, std=hidden ** -0.5)
+    bqkv, bproj, bfc1, bfc2 = (_bf16(rng, n, std=0.1)
+                               for n in (3 * C, C, hidden, C))
+    qkv = (_dot(xn, wqkv) + bqkv.astype(f32)).astype(jnp.bfloat16)
+    y = x.astype(f32) + (_dot(attn, wproj) + bproj.astype(f32))
+    h1 = _gelu_exact(_dot(yn, wfc1) + bfc1.astype(f32)).astype(jnp.bfloat16)
+    out = (y + (_dot(h1, wfc2) + bfc2.astype(f32))).astype(jnp.bfloat16)
+
+    def nk(w):
+        return _t(np.ascontiguousarray(np.asarray(w).T))
+    got, _ = G.gemm(_t(xn), nk(wqkv), "bias", _t(bqkv), w_in_out=False)
+    _close_bf16(got, qkv)
+    got, _ = G.gemm(_t(attn), nk(wproj), "bias_res", _t(bproj), _t(x),
+                    out_dtype=torch.float32, w_in_out=False)
+    _close_f32(got, y)
+    got, _ = G.gemm(_t(yn), nk(wfc1), "gelu_erf", _t(bfc1), w_in_out=False)
+    _close_bf16(got, h1)
+    # fc2 on JAX's y and h1, so the check sees one rounding
+    got, _ = G.gemm(_t(h1), nk(wfc2), "bias_res", _t(bfc2),
+                    _t(np.array(y)), w_in_out=False)
+    _close_bf16(got, out)
+
+
+@pytest.mark.parametrize("M,C,hidden", RAGGED)
 def test_mlp_backward_products_match_pallas_block_train(M, C, hidden):
     """The fuser's MLP backward products (pallas_block_train.py:283-296),
     jax.lax.dot_general with the kernel's dimension numbers on its (in, out)
@@ -196,6 +252,59 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(G.gemm_tn(a, a[:, :8]),
                        G.gemm_tn_plain(a, a[:, :8]))
     assert G.LAUNCHES == before
+
+
+def test_cpu_tensors_take_the_plain_versions_on_the_nk_route():
+    a, w, b, r = _operands(24, 16, 40, seed=4)
+    w_nk = w.t().contiguous()
+    before = dict(G.LAUNCHES)
+    for epi, res, out_dtype in (("gelu_erf", None, None),
+                                ("bias_res", r, torch.float32),
+                                ("bias_res", r.float(), None)):
+        got, _ = G.gemm(a, w_nk, epi, b, res, out_dtype=out_dtype,
+                        w_in_out=False)
+        want, _ = G.gemm_plain(a, w_nk, epi, b, res, out_dtype=out_dtype,
+                               w_in_out=False)
+        assert got.dtype == (out_dtype or torch.bfloat16)
+        assert torch.equal(got, want)
+    assert G.LAUNCHES == before
+
+
+def test_nk_route_refuses_what_the_kernel_does_not_take():
+    """Each weight layout takes its own epilogues; the fp32 output and the
+    fp32 residual only where the fuser block uses them."""
+    a, w, b, r = _operands(4, 16, 8, seed=2)
+    w_nk = w.t().contiguous()
+    for epi in ("gelu_tanh", "res_drop", "pre_gelu_tanh", "gelu_bwd"):
+        with pytest.raises(ValueError, match=r"w \(N, K\) route"):
+            G.gemm(a, w_nk, epi, b, r, w_in_out=False)
+    with pytest.raises(ValueError, match=r"w \(K, N\) route"):
+        G.gemm(a, w, "gelu_erf", b)
+    with pytest.raises(ValueError, match="fp32 output"):
+        G.gemm(a, w_nk, "bias", b, out_dtype=torch.float32, w_in_out=False)
+    with pytest.raises(ValueError, match="fp32 output"):
+        G.gemm(a, w, "bias_res", b, r, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="fp32 residual"):
+        G.gemm(a, w, "bias_res", b, r.float())
+    with pytest.raises(ValueError, match="fp32 residual"):
+        G.gemm(a, w_nk, "bias_res", b, r.float(), out_dtype=torch.float32,
+               w_in_out=False)
+    with pytest.raises(ValueError, match=r"w \(N, K\), got"):
+        G.gemm(a, w, "bias", b, w_in_out=False)
+    with pytest.raises(ValueError, match="K % 8 == 0, N % 8 == 0"):
+        G.gemm(a[:, :4].contiguous(), w_nk[:, :4].contiguous(), "bias", b,
+               w_in_out=False)
+    # the fp32 residual on CUDA: float32, contiguous and 16-byte aligned
+    r32 = r.float()
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        G.check_kernel_operands("gemm", a, {"w": w_nk}, fp32={"res": r})
+    shifted = torch.zeros(4 * 16 + 1)[1:].view(4, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        G.check_kernel_operands("gemm", a, {"w": w_nk}, fp32={"res": shifted})
+    with pytest.raises(ValueError, match="contiguous"):
+        G.check_kernel_operands("gemm", a, {"w": w_nk},
+                                fp32={"res": r32.t()})
+    G.check_kernel_operands("gemm", a, {"w": w_nk}, fp32={"res": r32})
 
 
 def test_gemm_refuses_what_the_kernel_does_not_take():

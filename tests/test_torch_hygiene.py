@@ -305,21 +305,50 @@ def test_cuda_sources_sum_without_atomics(name):
 
 
 def test_hopper_gemm_only_on_the_bf16_path():
-    """gemm_kn sends bf16 to the wgmma / TMA GEMM and fp32 to launch_gemm
-    (gemm_f32), gemm_tn bf16 to its TN route and fp32 to gemm_tn_f32. Both
-    GPT-2 serving halves and the GPT-2 training forward reach the GEMM
-    through gemm_kn only; the training backward through the shared helpers
+    """gemm_kn and gemm_nk send bf16 to the wgmma / TMA GEMM (gemm_nk to its
+    K-major B route) and fp32 to launch_gemm (gemm_f32), gemm_tn bf16 to its
+    TN route and fp32 to gemm_tn_f32. Both GPT-2 serving halves and the
+    GPT-2 training forward reach the GEMM through gemm_kn only; the fuser
+    blocks' serving forward (fused_block.cu, and seq_block.cu's
+    self-attention and MLP stages) through gemm_nk only, beside the staged
+    fuser attention; the training backward through the shared helpers
     launch_dx (the fuser's (K, N) products) and launch_dw (every weight
-    gradient), and the wmma gemm_tn_bf16 is gone."""
+    gradient). The wmma gemm_tn_bf16, small_attention and the packed
+    strided attention launcher are gone."""
     header = _source("gemm_sm90.cuh")
     bf16_branch, fp32_branch = _body(header, "gemm_kn").split("} else {")
     assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
     assert "launch_gemm_sm90<EPI, TOut>" in bf16_branch
     assert "launch_gemm<" in fp32_branch and "sm90" not in fp32_branch
+    bf16_branch, fp32_branch = _body(header, "gemm_nk").split("} else {")
+    assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
+    assert "launch_gemm_sm90<EPI, TOut, true, TRes>" in bf16_branch
+    assert "launch_gemm<EPI, false, TRes, TOut>" in fp32_branch
+    assert "sm90" not in fp32_branch
     assert "launch_gemm_tn_sm90(" in _body(header, "gemm_tn")
     assert "static cudaError_t gemm_tn(const float*" in header
     for name in glob.glob(os.path.join(CSRC, "*.cu*")):
         assert "gemm_tn_bf16" not in _source(os.path.basename(name))
+
+    for name in glob.glob(os.path.join(CSRC, "*.cu*")):
+        src = _source(os.path.basename(name))
+        assert not re.search(r"\bsmall_attention\b", src), name
+        assert "launch_packed_attention" not in src, name
+    block = _body(_source("fused_block.cu"), "run_fused_block")
+    assert block.count("gemm_nk<") == 4 and "launch_gemm<" not in block
+    assert "launch_fuser_attention_rows<" in block
+    seq = _source("seq_block.cu")
+    for stage, attention in (("run_self_attn_stage",
+                              "launch_fuser_attention_seq<"),
+                             ("run_mlp_stage", None)):
+        body = _body(seq, stage)
+        assert body.count("gemm_nk<") == 2 and "launch_gemm<" not in body
+        assert attention is None or attention in body
+    # the decoder's cross-attention stage keeps gemm_bf16 and
+    # strided_attention
+    decoder = _body(seq, "run_decoder_block")
+    assert decoder.count("launch_gemm<") == 4
+    assert "launch_strided_attention<" in decoder
 
     gpt2 = _source("fused_gpt2.cu")
     assert "launch_gemm" not in gpt2
