@@ -17,15 +17,21 @@
 // attention backward 344 GFLOP of GEMMs, each against a few hundred MB of
 // compulsory traffic, so all three are bound by the tensor cores (0.52, 0.69
 // and 0.35 ms at 989 TFLOP/s). The design keeps every product on the tensor
-// cores (fp32 accumulation) with its elementwise work in the epilogue: in
-// bf16 the backward's products (dX reading the (out, in) weight as (K, N),
-// and the weight gradients on its TN route) run on the wgmma / TMA GEMM
-// (gemm_sm90.cuh), the forward's (reading it as (N, K)) on common.cuh's
-// wmma gemm_bf16.
+// cores (fp32 accumulation) with its elementwise work in the epilogue, and in
+// bf16 every product on the wgmma / TMA GEMM (gemm_sm90.cuh): the forward's
+// four reading the (out, in) weight where it lies, as the K-major (N, K)
+// operand of gemm_nk (dropout, drop-path, the fp32 residual stream y and
+// the stashes of y and pre1 in the epilogues), the backward's dX reading it
+// as (K, N), the weight gradients on its TN route. No product runs on the
+// wmma GEMM. The attention (forward, and its recomputation in the attention
+// backward) is fuser_attention.cuh's rows kernel with dropout: every
+// element of qkv read once, 16 bytes at a time, into shared memory; its
+// bound is bytes (126 MB in, 42 MB out at the flagship shape, ~0.05 ms).
 //
-// Limits: any R, 1 <= N <= 8 (the wrapper's: the attention takes 32), H * hd
-// = C (any hd), C % 8 == 0, hidden % 8 == 0, fp32 or bf16; norm affines and
-// the qkv bias optional.
+// Limits: any R, 1 <= N <= 8 (the attention's), H * hd = C (any hd), C % 8
+// == 0, hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
+// contiguous, 16-byte aligned operands (the wrapper checks them); norm
+// affines and the qkv bias optional.
 
 #include "train_block.cuh"
 

@@ -28,15 +28,18 @@
 // of 512, hidden 8192, bf16): the forward does 413 GFLOP, the MLP backward 550
 // GFLOP and the attention backward 275 GFLOP of GEMMs against a few hundred MB
 // of compulsory traffic, so all three are bound by the tensor cores (0.42,
-// 0.56 and 0.28 ms at 989 TFLOP/s). In bf16 the forward's four products and
-// the backward's weight gradients (its TN route) run on the wgmma / TMA GEMM
-// (gemm_sm90.cuh), and the attention, with the backward's recomputation of
-// it, is staged through shared memory (staged_attention.cuh); the
-// backward's dX products, which read the Conv1D weight as (N, K), stay on
-// common.cuh's wmma gemm_bf16.
+// 0.56 and 0.28 ms at 989 TFLOP/s). In bf16 every product runs on the wgmma
+// / TMA GEMM (gemm_sm90.cuh): the forward's four reading the Conv1D weight
+// as (K, N), the backward's dX (dpre1 with the gelu_new derivative of the
+// stashed pre1 in its epilogue, dg, dattn, dxn with fp32 outs) reading it as
+// (N, K) on the K-major B route gemm_nk, the weight gradients on its TN
+// route; no product runs on the wmma GEMM. The attention, with the
+// backward's recomputation of it, is staged through shared memory
+// (staged_attention.cuh).
 //
 // Limits: any B, 1 <= T <= 32, H * hd = C (any hd), C % 8 == 0,
-// hidden % 8 == 0, fp32 or bf16.
+// hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
+// contiguous, 16-byte aligned operands (the wrapper checks them).
 
 #include "train_block.cuh"
 

@@ -20,7 +20,9 @@
 //     thread a (query, key) pair keeps its partial score in a register
 //     across the chunks, one thread a query takes the softmax, and each
 //     thread computes 16 bytes of P . V. The probabilities stay fp32
-//     (pallas_block.py:164-176).
+//     (pallas_block.py:164-176). Its DROP instance scales them by their
+//     dropout multipliers first: the fuser's training forward and the
+//     recomputation of it in the attention backward (train_block.cuh).
 //   * fuser_attention_seq_mma (rows 5, 6 in bf16, S <= 1024): a block takes
 //     a tile of up to 64 queries of one (sequence, head) and stages q and k
 //     in chunks of 64 keys x 64 head columns; each warp multiplies a strip
@@ -81,11 +83,14 @@ __device__ __forceinline__ void stage_pairs(T* dst, const T* qkv, int g0,
   }
 }
 
-template <typename T>
+// With DROP, each probability is then scaled by its keep multiplier
+// drop_scale(drop, (g * N + tq) * N + tk), g = row * H + head: the fuser's
+// training forward (pallas_block_train.py:156-187), still fp32.
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(FR_THREADS)
 fuser_attention_rows(const T* __restrict__ qkv, const float* __restrict__ mask,
                      T* __restrict__ out, int n_pairs, int N, int H, int hd,
-                     float scale) {
+                     float scale, DropSite drop) {
   constexpr int V = 16 / sizeof(T);
   constexpr int LD = FR_HC + V;  // 16 bytes of padding a row
   __shared__ __align__(16) T qs[FR_TOKENS * LD];  // a q chunk, later v
@@ -116,6 +121,12 @@ fuser_attention_rows(const T* __restrict__ qkv, const float* __restrict__ mask,
     __syncthreads();
   }
   if (scorer) pr[r][tk] = add != -INFINITY ? acc * scale + add : -INFINITY;
+  // the keep multiplier of this thread's (query, key), drawn meanwhile
+  const float keep =
+      DROP && scorer
+          ? drop_scale(drop,
+                       ((unsigned long long)(g0 + r / N) * N + tq) * N + tk)
+          : 1.f;
   __syncthreads();
 
   // softmax, one thread a row; the probabilities are not rounded
@@ -133,6 +144,9 @@ fuser_attention_rows(const T* __restrict__ qkv, const float* __restrict__ mask,
       pr[tid][k] = sum > 0.f ? pr[tid][k] / sum : 0.f;
   }
   __syncthreads();
+  // dropout after the division; the staging barrier below orders it
+  // before P . V reads pr
+  if (DROP && scorer) pr[r][tk] *= keep;
 
   // P . V: a thread takes V consecutive columns of one row (one column
   // where the rows are not 16-byte aligned)
@@ -171,16 +185,19 @@ fuser_attention_rows(const T* __restrict__ qkv, const float* __restrict__ mask,
   }
 }
 
-// Returns cudaErrorInvalidValue for S outside 1..8 (nothing launched).
-template <typename T>
+// With DROP, dropout on the probabilities at ``drop``. Returns
+// cudaErrorInvalidValue for S outside 1..8 (nothing launched).
+template <typename T, bool DROP = false>
 static cudaError_t launch_fuser_attention_rows(const T* qkv, const float* mask,
                                                T* out, int n_seq, int S, int H,
-                                               int hd, cudaStream_t stream) {
+                                               int hd, cudaStream_t stream,
+                                               DropSite drop = DropSite{}) {
   if (S < 1 || S > FR_MAX_N) return cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
   const int pairs = n_seq * H;
-  fuser_attention_rows<T><<<cdiv(pairs, FR_TOKENS / S), FR_THREADS, 0,
-                            stream>>>(qkv, mask, out, pairs, S, H, hd, scale);
+  fuser_attention_rows<T, DROP><<<cdiv(pairs, FR_TOKENS / S), FR_THREADS, 0,
+                                  stream>>>(qkv, mask, out, pairs, S, H, hd,
+                                            scale, drop);
   return cudaGetLastError();
 }
 

@@ -10,11 +10,15 @@
 // forward's, drawn from the same seeds / thresholds as the training
 // entries; out2 optional), EPI_PRE_GELU_TANH (out2 the stash) and
 // EPI_GELU_BWD (res the stashed pre-activation: the fuser's dpre1). With
-// w_nk, W the (N, K) operand (the K-major B route, the fuser blocks'
-// serving forward): EPI_BIAS (qkv), EPI_GELU_ERF (fc1) and EPI_BIAS_RES,
-// with a bf16 residual and out, a bf16 residual and an fp32 out (proj into
-// the residual stream y) or an fp32 residual (res_f32) and a bf16 out (fc2
-// adding y).
+// w_nk, W the (N, K) operand (the K-major B route): the fuser blocks'
+// serving forward, EPI_BIAS (qkv), EPI_GELU_ERF (fc1) and EPI_BIAS_RES;
+// the fuser's training forward, EPI_PRE_GELU (fc1, out2 the stash) and
+// EPI_RES_DROP (out2 optional); the GPT-2 layer's backward dX,
+// EPI_GELU_TANH_BWD (dpre1)
+// and EPI_BIAS with an fp32 out (dg, dattn, dxn). EPI_BIAS_RES takes a
+// bf16 residual and out, and both take a bf16 residual and an fp32 out
+// (proj into the residual stream y) or an fp32 residual (res_f32) and a
+// bf16 out (fc2 adding y).
 // afft_gemm_tn: the weight gradient out (I, J) fp32 = A^T . B over M rows.
 
 #include "gemm_sm90.cuh"
@@ -37,22 +41,42 @@ extern "C" int afft_gemm(int epi, int out_f32, int w_nk, int res_f32,
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* W = static_cast<const bf16*>(w);
   if (w_nk) {
-    if (epi == EPI_BIAS_RES && res_f32)
-      return out_f32 ? (int)cudaErrorInvalidValue
-                     : (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true, float>(
-                           A, W, M, N, K, ea, s);
-    if (res_f32) return (int)cudaErrorInvalidValue;
-    if (epi == EPI_BIAS_RES)
+    if (res_f32 && out_f32) return (int)cudaErrorInvalidValue;
+    if (epi == EPI_BIAS_RES) {
+      if (res_f32)
+        return (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true, float>(
+            A, W, M, N, K, ea, s);
       return out_f32 ? (int)launch_gemm_sm90<EPI_BIAS_RES, float, true>(
                            A, W, M, N, K, ea, s)
                      : (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true>(
                            A, W, M, N, K, ea, s);
-    if (out_f32) return (int)cudaErrorInvalidValue;
+    }
+    if (epi == EPI_RES_DROP) {
+      if (res_f32)
+        return (int)launch_gemm_sm90<EPI_RES_DROP, bf16, true, float>(
+            A, W, M, N, K, ea, s);
+      return out_f32 ? (int)launch_gemm_sm90<EPI_RES_DROP, float, true>(
+                           A, W, M, N, K, ea, s)
+                     : (int)cudaErrorInvalidValue;
+    }
+    if (res_f32) return (int)cudaErrorInvalidValue;
     if (epi == EPI_BIAS)
-      return (int)launch_gemm_sm90<EPI_BIAS, bf16, true>(A, W, M, N, K, ea, s);
-    if (epi == EPI_GELU_ERF)
-      return (int)launch_gemm_sm90<EPI_GELU_ERF, bf16, true>(A, W, M, N, K,
-                                                            ea, s);
+      return out_f32 ? (int)launch_gemm_sm90<EPI_BIAS, float, true>(
+                           A, W, M, N, K, ea, s)
+                     : (int)launch_gemm_sm90<EPI_BIAS, bf16, true>(
+                           A, W, M, N, K, ea, s);
+    if (out_f32) return (int)cudaErrorInvalidValue;
+    switch (epi) {
+      case EPI_GELU_ERF:
+        return (int)launch_gemm_sm90<EPI_GELU_ERF, bf16, true>(A, W, M, N, K,
+                                                              ea, s);
+      case EPI_PRE_GELU:
+        return (int)launch_gemm_sm90<EPI_PRE_GELU, bf16, true>(A, W, M, N, K,
+                                                              ea, s);
+      case EPI_GELU_TANH_BWD:
+        return (int)launch_gemm_sm90<EPI_GELU_TANH_BWD, bf16, true>(
+            A, W, M, N, K, ea, s);
+    }
     return (int)cudaErrorInvalidValue;
   }
   if (res_f32) return (int)cudaErrorInvalidValue;

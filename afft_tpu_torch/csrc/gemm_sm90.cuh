@@ -4,25 +4,26 @@
 //     (K-major) and W row-major (N contiguous: the MN-major "transposed"
 //     wgmma B operand): the HF Conv1D (in, out) weight forward, and the
 //     fuser's nn.Linear (out, in) weight in its backward dX = dY . W;
-//   * C[M,N] = A[M,K] . W[N,K]^T with a fused epilogue, W the nn.Linear
-//     (out, in) weight read where it lies (K contiguous: the K-major wgmma B
-//     operand, no transpose bit): the fuser blocks' forward (fused_block.cu,
-//     seq_block.cu, through gemm_nk);
+//   * C[M,N] = A[M,K] . W[N,K]^T with a fused epilogue, W read where it
+//     lies with K contiguous (the K-major wgmma B operand, no transpose
+//     bit): the nn.Linear (out, in) weight in the fuser blocks' serving and
+//     training forward (fused_block.cu, seq_block.cu, train_block.cuh, all
+//     through gemm_nk), and the HF Conv1D (in, out) weight in the GPT-2
+//     layer's backward dX = dY . W^T;
 //   * the weight gradient out[I,J] = sum_m A[m,I] B[m,J] (gemm_tn_sm90), for
 //     A (M, I) and B (M, J) row-major, both MN-major, fp32 out written whole.
 //
 // Takes the place of the wmma GEMM (common.cuh gemm_bf16: nvcuda::wmma
 // 16x16x16, two cp.async stages of 128x128x32 in 40 KB of static shared
 // memory, an epilogue of scalar stores) for the bf16 products of the GPT-2
-// serving halves (fused_gpt2.cu), the GPT-2 training forward
-// (train_block.cuh run_fwd<T, true>), the fuser's serving forward (rows 1,
-// 5 and the self-attention / MLP stages of 6), the fuser's training
-// backward dX products and every training weight gradient (train_block.cuh
-// launch_dx, launch_dw). At their shapes (M = 4096 to 20480 rows, K
-// 1024..20480, N 1024..8192) a product does 34-172 GFLOP against 25-130 MB:
-// it is bound by
-// the tensor cores (989 TFLOP/s bf16), and wmma reached 9-20% of that. What
-// the design does about it:
+// serving halves (fused_gpt2.cu), the fuser's serving forward (rows 1, 5
+// and the self-attention / MLP stages of 6) and every product of both
+// training layers: forward (train_block.cuh fwd_gemm), backward dX
+// (launch_dx) and weight gradients (launch_dw). Only the decoder block's
+// cross stage (seq_block.cu) still runs gemm_bf16. At their shapes (M =
+// 4096 to 20480 rows, K 1024..20480, N 1024..8192) a product does 34-172
+// GFLOP against 25-130 MB: it is bound by the tensor cores (989 TFLOP/s
+// bf16), and wmma reached 6-20% of that. What the design does about it:
 //   * wgmma.mma_async m64n256k16, bf16 in, fp32 accumulators in registers
 //     (128 a thread): the only route to the full tensor-core rate;
 //   * TMA tile loads with 128-byte swizzle into a ring of four 48 KB stages
@@ -42,8 +43,8 @@
 //     as 16-byte vectors, and the element arithmetic is common.cuh
 //     epilogue()'s, in the same order with the same rounding points (acc +
 //     bias, then the exact or tanh GELU, dropout / drop-path / residual, the
-//     stashed pre-activation, or the GELU derivative of the stashed
-//     pre-activation; the residual bf16 or fp32).
+//     stashed pre-activation, or the exact or tanh GELU derivative of the
+//     stashed pre-activation; the residual bf16 or fp32).
 //     The dropout multiplier of an element is drop_scale() of its (row, col)
 //     index, so the masks do not change.
 // TMA zero-fills out of bounds, so M, N and K need not be multiples of the
@@ -231,27 +232,36 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 
 // The epilogues of the entries on this GEMM (common.cuh epilogue(), element
 // for element) on 8 consecutive columns of one row; b the bias values. The
-// output is bf16, or fp32 with EPI_BIAS (the fuser's fp32 dX products and
-// the weight gradients) or EPI_BIAS_RES (the fuser's proj into the fp32
-// residual stream y); the residual is bf16, or fp32 with EPI_BIAS_RES (the
-// fuser's fc2 adding y); stashes are bf16.
+// output is bf16, or fp32 with EPI_BIAS (the fp32 dX products and the
+// weight gradients), EPI_BIAS_RES (the fuser's serving proj into the fp32
+// residual stream y) or EPI_RES_DROP over a bf16 residual (its training
+// proj into y, y stashed in bf16); the residual is bf16, or fp32 with
+// EPI_BIAS_RES or EPI_RES_DROP into a bf16 output (the fuser's fc2 adding
+// y); stashes are bf16.
 template <int EPI, typename TRes, typename TOut>
 __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
                                           int N, const float* acc,
                                           const float* b) {
+  constexpr bool out_bf16 = std::is_same<TOut, bf16>::value;
+  constexpr bool res_bf16 = std::is_same<TRes, bf16>::value;
   static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_RES ||
                     EPI == EPI_GELU_ERF || EPI == EPI_GELU_TANH ||
-                    EPI == EPI_RES_DROP || EPI == EPI_PRE_GELU_TANH ||
-                    EPI == EPI_GELU_BWD,
+                    EPI == EPI_RES_DROP || EPI == EPI_PRE_GELU ||
+                    EPI == EPI_PRE_GELU_TANH || EPI == EPI_GELU_BWD ||
+                    EPI == EPI_GELU_TANH_BWD,
                 "gemm_sm90 epilogue");
-  static_assert(std::is_same<TOut, bf16>::value || EPI == EPI_BIAS ||
-                    EPI == EPI_BIAS_RES,
-                "an fp32 output takes EPI_BIAS or EPI_BIAS_RES");
-  static_assert(std::is_same<TRes, bf16>::value || EPI == EPI_BIAS_RES,
-                "an fp32 residual takes EPI_BIAS_RES");
+  static_assert(out_bf16 || EPI == EPI_BIAS || EPI == EPI_BIAS_RES ||
+                    (EPI == EPI_RES_DROP && res_bf16),
+                "an fp32 output takes EPI_BIAS, EPI_BIAS_RES or "
+                "EPI_RES_DROP over a bf16 residual");
+  static_assert(res_bf16 || EPI == EPI_BIAS_RES ||
+                    (EPI == EPI_RES_DROP && out_bf16),
+                "an fp32 residual takes EPI_BIAS_RES or EPI_RES_DROP into a "
+                "bf16 output");
   const size_t at = (size_t)row * N + col;
   float v[8], r[8], o2[8];
-  if (EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP || EPI == EPI_GELU_BWD)
+  if (EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP || EPI == EPI_GELU_BWD ||
+      EPI == EPI_GELU_TANH_BWD)
     load8(static_cast<const TRes*>(ea.res) + at, r);
   float keep_row = 1.f;
   if (EPI == EPI_RES_DROP)
@@ -264,11 +274,16 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
       x = gelu_erf(x);
     } else if (EPI == EPI_GELU_TANH) {
       x = gelu_tanh(x);
+    } else if (EPI == EPI_PRE_GELU) {
+      o2[e] = x;
+      x = gelu_erf(x);
     } else if (EPI == EPI_PRE_GELU_TANH) {
       o2[e] = x;
       x = gelu_tanh(x);
     } else if (EPI == EPI_GELU_BWD) {
       x *= gelu_erf_grad(r[e]);
+    } else if (EPI == EPI_GELU_TANH_BWD) {
+      x *= gelu_tanh_grad(r[e]);
     } else if (EPI == EPI_RES_DROP) {
       x *= drop_scale(ea.drop, at + e);
       x *= keep_row;
@@ -280,7 +295,9 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
     v[e] = x;
   }
   store8(static_cast<TOut*>(ea.out) + at, v);
-  if ((EPI == EPI_PRE_GELU_TANH || EPI == EPI_RES_DROP) && ea.out2 != nullptr)
+  if ((EPI == EPI_PRE_GELU || EPI == EPI_PRE_GELU_TANH ||
+       EPI == EPI_RES_DROP) &&
+      ea.out2 != nullptr)
     store8(static_cast<bf16*>(ea.out2) + at, o2);
 }
 
@@ -495,9 +512,8 @@ static bool bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
 }
 
 // C = A . W (+ epilogue EPI) for A (M, K) and W (K, N), or with B_NK W
-// (N, K), bf16; out TOut (bf16, or fp32 with EPI_BIAS / EPI_BIAS_RES),
-// residual TRes (bf16, or fp32 with EPI_BIAS_RES), out2 bf16. Returns the
-// launch's error.
+// (N, K), bf16; out TOut and residual TRes bf16 or fp32 as epilogue8
+// takes them, out2 bf16. Returns the launch's error.
 template <int EPI, typename TOut = bf16, bool B_NK = false,
           typename TRes = bf16>
 static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
@@ -559,9 +575,10 @@ static cudaError_t gemm_kn(const T* A, const T* W, int M, int N, int K,
 }
 
 // C = A . W^T (+ epilogue) for W read as (N, K): the fuser blocks' nn.Linear
-// (out, in) weights in their serving forward. This GEMM's K-major B route in
-// bf16 (TOut bf16, or fp32 with EPI_BIAS_RES; TRes bf16, or fp32 with
-// EPI_BIAS_RES); gemm_f32 (true fp32, for the parity checks) in fp32.
+// (out, in) weights in their serving and training forward, the GPT-2
+// layer's Conv1D (in, out) weights in its backward dX. This GEMM's K-major B
+// route in bf16 (TOut and TRes as epilogue8 takes them); gemm_f32 (true
+// fp32, for the parity checks) in fp32.
 template <int EPI, typename T, typename TRes, typename TOut>
 static cudaError_t gemm_nk(const T* A, const T* W, int M, int N, int K,
                            EpiArgs ea, cudaStream_t stream) {

@@ -2,9 +2,9 @@
 // entries (the serving attention half, fused_gpt2.cu, and the training
 // layer, train_block.cuh with GPT2 = true), one block per (sequence, head).
 //
-// Replaces, for those entries, the one-warp-per-query attentions (scalar
-// 2-byte loads, q read again for each key) that the fuser's training block
-// still runs (small_attention_drop). At the
+// Replaces, for those entries, a one-warp-per-query attention (scalar
+// 2-byte loads, q read again for each key; the fuser's training forward
+// ran one until it moved to fuser_attention.cuh). At the
 // flagship shape (B 256, T 16, 4 heads of 512) the step moves ~67 MB and
 // does ~0.5 GFLOP: bound by bytes (~0.02 ms at 3.35 TB/s). Here q, k and v
 // are staged through shared memory in chunks of 128 head columns (rows
@@ -17,12 +17,12 @@
 // head width allows (hd a multiple of 8 in bf16, 4 in fp32), else one
 // element at a time, so any hd is taken.
 //
-// Arithmetic as small_attention_drop: scores and softmax in fp32, the scale
-// applied after the dot, the row's max subtracted; with DROP the
-// probability times its keep multiplier (drop_scale at the element index
-// ((seq * H + h) * S + tq) * S + tk), rounded to T before P . V (the GPT-2
-// cast chain), whose sum runs over the keys in order in fp32. Only the
-// score's summation order differs (sequential over hd here).
+// Arithmetic as the fuser's (fuser_attention.cuh): scores and softmax in
+// fp32, the scale applied after the dot, the row's max subtracted; with
+// DROP the probability times its keep multiplier (drop_scale at the element
+// index ((seq * H + h) * S + tq) * S + tk), rounded to T before P . V (the
+// GPT-2 cast chain), whose sum runs over the keys in order in fp32. Only
+// the score's summation order differs (sequential over hd here).
 
 #pragma once
 

@@ -2,7 +2,7 @@
 // fused_block_train.cu (the fuser block) and fused_gpt2_train.cu (the GPT-2
 // layer of the future predictor). Each entry is a sequence of launches on
 // one stream with the intermediates in HBM / L2:
-//   forward       LN1 -> qkv GEMM (stashed) -> attention over N <= 32 tokens
+//   forward       LN1 -> qkv GEMM (stashed) -> attention over N tokens
 //                 with dropout on the probabilities -> proj GEMM (dropout,
 //                 drop-path, + x: the residual stream y and its stash) -> LN2
 //                 -> fc1 GEMM (stashes pre1, GELU) -> fc2 GEMM (dropout,
@@ -18,14 +18,15 @@
 // qkv, y and pre1 are stashed in the working dtype; the backward takes its
 // LayerNorm statistics from the stashed x / y; dh2, dpre1, dproj and dqkv are
 // rounded to the working dtype before their GEMMs; every product inside the
-// block is the port's GEMM; every parameter gradient is fp32. In bf16 the
-// wgmma / TMA GEMM (gemm_sm90.cuh) runs the GPT-2 layer's forward products,
-// the fuser's backward dX products (its (out, in) weight read as (K, N)) and
-// every weight gradient (its TN route); the GPT-2 layer's attention, forward
-// and the backward's recomputation, is staged through shared memory
-// (staged_attention.cuh). The fuser's forward products and the GPT-2
-// layer's backward dX (both reading a weight as (N, K)) are still
-// common.cuh's gemm_bf16; in fp32 every product is gemm_f32 / gemm_tn_f32.
+// block is the port's GEMM; every parameter gradient is fp32. In bf16 every
+// product runs on the wgmma / TMA GEMM (gemm_sm90.cuh): a weight read as
+// (K, N) (the GPT-2 layer's forward, the fuser's backward dX), as (N, K) on
+// its K-major B route gemm_nk (the fuser's forward, the GPT-2 layer's
+// backward dX), and every weight gradient on its TN route. The attention,
+// forward and the backward's recomputation, is staged through shared
+// memory: staged_attention.cuh for the GPT-2 layer, fuser_attention.cuh's
+// rows kernel with dropout for the fuser. In fp32 every product is
+// gemm_f32 / gemm_tn_f32.
 //
 // The two layers (template flag GPT2) differ in four places:
 //   weights     fuser: nn.Linear (out, in), read as the (N, K) operand
@@ -54,13 +55,17 @@
 // a fixed order, and the bias and LayerNorm-affine gradients are two-stage
 // column sums: no atomics, so every gradient is the same from run to run.
 //
-// Limits: any R, 1 <= N <= 32, H * hd = C (any hd), C % 8 == 0,
-// hidden % 8 == 0, fp32 or bf16; norm affines and the qkv bias optional
-// (null pointers, and then no gradient is written for them).
+// Limits: any R, 1 <= N <= 8 for the fuser (its attention's) and 1 <= N <=
+// 32 for the GPT-2 layer, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0
+// (gemm_sm90's K % 8 and N % 8), fp32 or bf16; in bf16 every operand of a
+// product 16-byte aligned (the GEMM returns cudaErrorInvalidValue
+// otherwise); norm affines and the qkv bias optional (null pointers, and
+// then no gradient is written for them).
 
 #pragma once
 
 #include "common.cuh"
+#include "fuser_attention.cuh"
 #include "gemm_sm90.cuh"
 #include "staged_attention.cuh"
 
@@ -107,57 +112,8 @@ __device__ __forceinline__ float maybe_round(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Attention over S <= 32 tokens with dropout on the probabilities: one block
-// per (row, head), one warp per query: the fuser block's (the GPT-2
-// layer's runs staged_attention.cuh). The probability is
-// scaled by its keep multiplier before P . V; scores, softmax and the
-// product's sum are fp32.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(1024)
-small_attention_drop(const T* __restrict__ qkv, const float* __restrict__ mask,
-                     T* __restrict__ out, int S, int H, int hd, float scale,
-                     DropSite drop) {
-  __shared__ float probs[32][33];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int C = H * hd;
-  const size_t ld = 3 * (size_t)C;
-  const T* base = qkv + (size_t)seq * S * ld;
-  const int tq = warp;
-  const T* q = base + tq * ld + (size_t)h * hd;
-
-  float mine = -INFINITY;  // lane tk keeps the score of key tk
-  for (int tk = 0; tk < S; ++tk) {
-    const T* k = base + tk * ld + C + (size_t)h * hd;
-    float p = 0.f;
-    for (int j = lane; j < hd; j += 32) p = fmaf(to_f32(q[j]), to_f32(k[j]), p);
-    p = warp_sum(p);
-    const float s = p * scale + (mask != nullptr ? mask[tq * S + tk] : 0.f);
-    if (lane == tk) mine = s;
-  }
-  const float m = warp_max(mine);
-  const float e = lane < S ? expf(mine - m) : 0.f;
-  float p = e / warp_sum(e);
-  if (lane < S)
-    p *= drop_scale(drop,
-                    (((unsigned long long)seq * H + h) * S + tq) * S + lane);
-  probs[warp][lane] = p;
-  __syncwarp();
-
-  const T* v = base + 2 * (size_t)C + (size_t)h * hd;
-  T* o = out + ((size_t)seq * S + tq) * C + (size_t)h * hd;
-  for (int j = lane; j < hd; j += 32) {
-    float acc = 0.f;
-    for (int tk = 0; tk < S; ++tk)
-      acc = fmaf(probs[warp][tk], to_f32(v[tk * ld + j]), acc);
-    o[j] = from_f32<T>(acc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Its backward: from the stashed qkv and dao = d(attention output) (fp32;
+// The attention backward over S <= 32 tokens, one block per (row, head), one
+// warp per query: from the stashed qkv and dao = d(attention output) (fp32;
 // with ROUND read rounded to T), recompute p and the keep multipliers, then
 //   dv[tk] = sum_tq (p * keep)[tq, tk] * dao[tq]
 //   dp[tq, tk] = (dao[tq] . v[tk]) * keep[tq, tk]
@@ -291,47 +247,46 @@ static int fill_masks(const Rates& rt, void* const* bufs, const size_t* n,
 // The three entries
 // ---------------------------------------------------------------------------
 
-// A forward product: the GPT-2 layer's Conv1D weights on gemm_kn (the
-// wgmma / TMA GEMM in bf16), the fuser's nn.Linear weights on launch_gemm.
+// A forward product on the wgmma / TMA GEMM in bf16: the GPT-2 layer's
+// Conv1D (in, out) weights as its (K, N) operand (gemm_kn), the fuser's
+// nn.Linear (out, in) weights as its (N, K) one (gemm_nk).
 template <int EPI, bool GPT2, typename TRes, typename TOut, typename T>
 static cudaError_t fwd_gemm(const T* a, const T* w, int M, int N, int K,
                             EpiArgs ea, cudaStream_t s) {
   if constexpr (GPT2) {
     return gemm_kn<EPI, T>(a, w, M, N, K, ea, s);
   } else {
-    launch_gemm<EPI, false, TRes, TOut>(a, w, M, N, K, ea, s);
-    return cudaGetLastError();
+    return gemm_nk<EPI, T, TRes, TOut>(a, w, M, N, K, ea, s);
   }
 }
 
 // The attention with dropout on the probabilities, forward and the
 // backward's recomputation (the same kernel, so the backward sees the
-// forward's values): staged for the GPT-2 layer, small_attention_drop for
-// the fuser.
+// forward's values): staged for the GPT-2 layer (p * keep rounded), the
+// fuser attention's rows kernel with its dropout for the fuser (fp32
+// probabilities, N <= 8).
 template <typename T, bool GPT2>
 static cudaError_t attention_drop(const T* qkv, const float* mask, T* out,
                                   int R, int N, int H, int hd, DropSite drop,
                                   cudaStream_t s) {
   if constexpr (GPT2) {
     launch_staged_attention<T, true>(qkv, mask, out, R, N, H, hd, drop, s);
+    return cudaGetLastError();
   } else {
-    const float scale = (float)(1.0 / sqrt((double)hd));
-    small_attention_drop<T><<<R * H, N * 32, 0, s>>>(
-        qkv, mask, out, N, H, hd, scale, drop);
+    return launch_fuser_attention_rows<T, true>(qkv, mask, out, R, N, H, hd,
+                                                s, drop);
   }
-  return cudaGetLastError();
 }
 
-// dX = dY . W^T through a weight read as the forward GEMM reads it: the
-// fuser's (out, in) weight is the (K, N) operand of the backward product
-// (gemm_kn: the wgmma / TMA GEMM in bf16), the GPT-2 layer's (in, out) weight
-// the (N, K) one (gemm_bf16). The residual of the epilogue is in T.
+// dX = dY . W^T through a weight read where it lies, on the wgmma / TMA
+// GEMM in bf16: the fuser's (out, in) weight is the (K, N) operand of the
+// backward product (gemm_kn), the GPT-2 layer's (in, out) weight the (N, K)
+// one (gemm_nk). The residual of the epilogue is in T.
 template <int EPI, bool GPT2, typename TOut, typename T>
 static cudaError_t launch_dx(const T* dy, const T* w, int M, int N, int K,
                              EpiArgs ea, cudaStream_t s) {
   if constexpr (GPT2) {
-    launch_gemm<EPI, false, T, TOut>(dy, w, M, N, K, ea, s);
-    return cudaGetLastError();
+    return gemm_nk<EPI, T, T, TOut>(dy, w, M, N, K, ea, s);
   } else {
     return gemm_kn<EPI, T, TOut>(dy, w, M, N, K, ea, s);
   }

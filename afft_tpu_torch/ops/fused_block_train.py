@@ -17,6 +17,17 @@ gradients (computed in fp32, handed back in each parameter's dtype; ``None``
 for an absent bias or affine). On CPU tensors it draws the masks with
 ``draw_masks_plain`` and runs ``fused_block_train_plain`` under autograd.
 
+In bf16 every product of the three entries runs on the Hopper GEMM
+(``csrc/gemm_sm90.cuh``): the forward reads the nn.Linear (out, in) weights
+where they lie, as its K-major (N, K) operand, the backward's dX reads them
+as (K, N), the weight gradients take its TN route; the attention (forward,
+and its recomputation in the attention backward) is
+``csrc/fuser_attention.cuh``'s rows kernel with dropout. So a CUDA call
+takes the GEMM's operand rules, which ``block_operands`` applies and raises
+on: C and hidden multiples of 8 (K % 8, N % 8), one dtype (bf16, or fp32
+for the parity checks, on the fp32 GEMM), contiguous and 16-byte aligned
+tensors; at most 8 tokens.
+
 Masks. Each dropout multiplier (0 or 1 / keep) is a pure function of (two
 seed words, block index, site, logical element index): a Philox4x32-10 draw
 with key (seed0, seed1) and counter (index low, index high, block, site),
@@ -166,19 +177,16 @@ def _token_rows(dp, R, N):
     return dp.reshape(R, 1).expand(R, N).reshape(R * N, 1)
 
 
-def attn_half_train_plain(x, params, mask, masks, *, num_heads: int,
-                          eps: float = 1e-6):
-    """x (R, N, C) -> (the fp32 residual stream y (R * N, C), qkv as the
-    forward rounds it): LN1, qkv, attention with dropout on the
-    probabilities, proj with dropout and drop-path, + x."""
-    R, N, C = x.shape
-    dt = x.dtype
-    H, hd = num_heads, C // num_heads
-    ln1g, ln1b, wqkv, bqkv, wproj, bproj = _unpack(params)[:6]
-    mattn, mproj, dp1 = masks[:3]
-    x32 = x.reshape(R * N, C).float()
-    xn = layer_norm32(x32, ln1g, ln1b, eps).to(dt)
-    qkv = add_bias(matmul32(xn, wqkv, False), bqkv).to(dt)
+def attention_drop_plain(qkv, mask, mattn, n_tokens: int, num_heads: int):
+    """The training attention on (R * N, 3C) qkv rows ([q | k | v], heads
+    minor) in the working dtype: softmax(q k^T * hd^-0.5 + mask) in fp32,
+    each probability scaled by its multiplier in ``mattn`` (R, H, N, N),
+    unrounded, before P . V (pallas_block_train.py:156-187). Returns
+    (R * N, C) fp32."""
+    rows, three_c = qkv.shape
+    R, N, H = rows // n_tokens, n_tokens, num_heads
+    C = three_c // 3
+    hd = C // H
     q, k, v = qkv.float().reshape(R, N, 3, H, hd).permute(2, 0, 3, 1, 4)
     s = (q @ k.transpose(-1, -2)) * (hd ** -0.5)
     if mask is not None:
@@ -186,7 +194,22 @@ def attn_half_train_plain(x, params, mask, masks, *, num_heads: int,
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     p = e / e.sum(dim=-1, keepdim=True) * mattn
-    attn = (p @ v).permute(0, 2, 1, 3).reshape(R * N, C).to(dt)
+    return (p @ v).permute(0, 2, 1, 3).reshape(R * N, C)
+
+
+def attn_half_train_plain(x, params, mask, masks, *, num_heads: int,
+                          eps: float = 1e-6):
+    """x (R, N, C) -> (the fp32 residual stream y (R * N, C), qkv as the
+    forward rounds it): LN1, qkv, attention with dropout on the
+    probabilities, proj with dropout and drop-path, + x."""
+    R, N, C = x.shape
+    dt = x.dtype
+    ln1g, ln1b, wqkv, bqkv, wproj, bproj = _unpack(params)[:6]
+    mattn, mproj, dp1 = masks[:3]
+    x32 = x.reshape(R * N, C).float()
+    xn = layer_norm32(x32, ln1g, ln1b, eps).to(dt)
+    qkv = add_bias(matmul32(xn, wqkv, False), bqkv).to(dt)
+    attn = attention_drop_plain(qkv, mask, mattn, N, num_heads).to(dt)
     proj = add_bias(matmul32(attn, wproj, False), bproj)
     return x32 + _token_rows(dp1, R, N) * (proj * mproj), qkv
 

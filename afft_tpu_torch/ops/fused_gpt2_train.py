@@ -26,6 +26,15 @@ computes those eight products in XLA, outside its kernels). On CPU tensors
 it draws the masks with ``draw_masks_gpt2_plain`` and runs
 ``fused_gpt2_block_train_plain`` under autograd.
 
+In bf16 every product runs on the Hopper GEMM (``csrc/gemm_sm90.cuh``):
+the forward reads the Conv1D (in, out) weights as its (K, N) operand, the
+backward's dX (dpre1, dg, dattn, dxn) reads them where they lie as its
+K-major (N, K) operand, the weight gradients take its TN route. So a CUDA
+call takes the GEMM's operand rules, which ``gpt2_operands`` applies and
+raises on: C and hidden multiples of 8 (K % 8, N % 8), one dtype (bf16, or
+fp32 for the parity checks, on the fp32 GEMM), contiguous and 16-byte
+aligned tensors; at most 32 tokens.
+
 Masks: those of ``ops.fused_block_train`` (Philox4x32-10 of the two seed
 words, the layer index, the site and the logical element index) at the TPU
 kernel's sites 0 (attention), 1 (proj) and 3 (MLP). Element indices:

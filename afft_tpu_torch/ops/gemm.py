@@ -6,10 +6,12 @@ versions.
 The entries run their bf16 products on the wgmma / TMA GEMM from inside
 their own launch sequences: the fuser blocks' serving forward
 (``ops.fused_block``, ``ops.fused_seq_block``: the nn.Linear (out, in)
-weights as (N, K)), the GPT-2 serving halves (``ops.fused_gpt2``), the
-GPT-2 training forward, the fuser's training backward dX products and every
-training weight gradient (``ops.fused_block_train``,
-``ops.fused_gpt2_train``). ``gemm`` and ``gemm_tn`` reach that GEMM alone
+weights as (N, K)), the GPT-2 serving halves (``ops.fused_gpt2``), and
+every product of both training layers (``ops.fused_block_train``,
+``ops.fused_gpt2_train``): the fuser's forward and the GPT-2 layer's
+backward dX with W as (N, K), the GPT-2 layer's forward and the fuser's
+backward dX with W as (K, N), the weight gradients on the TN route.
+``gemm`` and ``gemm_tn`` reach that GEMM alone
 (``csrc/gemm.cu``), so that it can be checked and timed on operands of any
 shape. No model path calls them.
 
@@ -22,10 +24,15 @@ forward's proj site and its drop-path over rows of ``tokens``, also written
 to out2 with ``stash``; ``pre_gelu_tanh`` gelu_new(acc + bias), out2 the
 pre-activation; ``gelu_bwd`` acc * gelu_exact'(res), res the stashed
 pre-activation; every output but the fp32 ``bias`` is bf16. For W (N, K)
-(``w_in_out=False``, the nn.Linear (out, in) layout): ``bias``,
-``gelu_erf`` gelu_exact(acc + bias) and ``bias_res``, whose residual may be
-fp32 (with a bf16 out: the fuser's fc2 adding the residual stream) and
-whose out may be fp32 (with a bf16 residual: the fuser's proj into it).
+(``w_in_out=False``, the nn.Linear (out, in) layout, and the Conv1D weight
+in its backward dX): ``bias`` (bf16 out, or fp32: the GPT-2 layer's dg,
+dattn, dxn), ``gelu_erf`` gelu_exact(acc + bias), ``pre_gelu``
+gelu_exact(acc + bias) with out2 the pre-activation (the fuser's training
+fc1), ``gelu_tanh_bwd`` acc * gelu_new'(res) (the GPT-2 layer's dpre1),
+and ``bias_res`` and ``res_drop``, whose residual may be fp32 (with a bf16
+out: the fuser's fc2 adding the residual stream) or whose out may be fp32
+(with a bf16 residual: the fuser's proj into it); ``res_drop`` takes only
+those two forms there, the training forward's.
 
 Limits of the kernels, which both wrappers apply on every device: K % 8 ==
 0 and N % 8 == 0 (I % 8 and J % 8 for ``gemm_tn``), the epilogue and dtype
@@ -45,13 +52,21 @@ from .fused_block_train import rate_arrays, rates_operands, site_mask_plain
 LAUNCHES = {"gemm": 0, "gemm_tn": 0}
 
 EPILOGUES = {"bias": 0, "bias_res": 1, "gelu_erf": 2, "gelu_tanh": 3,
-             "res_drop": 4, "pre_gelu_tanh": 7, "gelu_bwd": 6}
+             "res_drop": 4, "pre_gelu": 5, "gelu_bwd": 6, "pre_gelu_tanh": 7,
+             "gelu_tanh_bwd": 8}
 # the epilogues of each weight layout (w_in_out: W read as (K, N))
 ROUTE_EPILOGUES = {
     True: ("bias", "bias_res", "gelu_tanh", "res_drop", "pre_gelu_tanh",
            "gelu_bwd"),
-    False: ("bias", "gelu_erf", "bias_res")}
-_NEEDS_RES = ("bias_res", "res_drop", "gelu_bwd")
+    False: ("bias", "gelu_erf", "bias_res", "pre_gelu", "gelu_tanh_bwd",
+            "res_drop")}
+# the epilogues that take an fp32 out on each route, and those that take
+# an fp32 residual (the (N, K) route's, into a bf16 out)
+FP32_OUT_EPILOGUES = {True: ("bias",), False: ("bias", "bias_res",
+                                               "res_drop")}
+FP32_RES_EPILOGUES = ("bias_res", "res_drop")
+_NEEDS_RES = ("bias_res", "res_drop", "gelu_bwd", "gelu_tanh_bwd")
+_STASHES = ("pre_gelu", "pre_gelu_tanh")
 # the mask sites of the training forward's proj product (train_block.cuh)
 _SITE_DROP, _SITE_ROW = 1, 2
 
@@ -75,6 +90,14 @@ def gelu_erf_grad(v):
             + v * 0.3989422804014327 * torch.exp(-0.5 * v * v))
 
 
+def gelu_tanh_grad(v):
+    """The derivative of gelu_new in fp32 (common.cuh gelu_tanh_grad,
+    pallas_gpt2_train.py:157-164)."""
+    t = torch.tanh(0.79788456080286536 * (v + 0.044715 * v * v * v))
+    du = 0.79788456080286536 * (1.0 + 3 * 0.044715 * v * v)
+    return 0.5 * (1.0 + t) + 0.5 * v * (1.0 - t * t) * du
+
+
 def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,
                out_dtype=None, w_in_out=True):
     """The epilogue in fp32 on the exact products of the bf16 operands (w
@@ -85,6 +108,9 @@ def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,
     out2 = None
     if epi == "gelu_erf":
         v = F.gelu(v)
+    elif epi == "pre_gelu":
+        out2 = v.to(dt)
+        v = F.gelu(v)
     elif epi == "gelu_tanh":
         v = F.gelu(v, approximate="tanh")
     elif epi == "pre_gelu_tanh":
@@ -92,6 +118,8 @@ def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,
         v = F.gelu(v, approximate="tanh")
     elif epi == "gelu_bwd":
         v = v * gelu_erf_grad(res.float())
+    elif epi == "gelu_tanh_bwd":
+        v = v * gelu_tanh_grad(res.float())
     elif epi == "res_drop":
         v = res.float() + (v * masks[0]) * masks[1]
         if stash:
@@ -127,10 +155,10 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
     """C = A . W (+ epilogue) for a (M, K) and w (K, N), or w (N, K) with
     ``w_in_out=False`` (the K-major B route), in bf16; returns (out, out2 or
     None). ``out_dtype=torch.float32`` writes an fp32 out (``bias`` on the
-    (K, N) route, ``bias_res`` on the (N, K) route); on the (N, K) route
-    ``bias_res`` also takes an fp32 ``res``. CPU tensors take the plain
-    version (on masks from ``drop_masks``); CUDA tensors launch the
-    kernel."""
+    (K, N) route; ``bias``, ``bias_res`` and ``res_drop`` on the (N, K)
+    route); on the (N, K) route ``bias_res`` and ``res_drop`` also take an
+    fp32 ``res`` into a bf16 out. CPU tensors take the plain version (on
+    masks from ``drop_masks``); CUDA tensors launch the kernel."""
     name = "gemm"
     if epi not in EPILOGUES:
         raise ValueError(f"{name}: epi {epi!r} unknown")
@@ -141,15 +169,20 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
     out_f32 = out_dtype not in (None, a.dtype)
     res_f32 = res is not None and res.dtype == torch.float32 and \
         a.dtype != torch.float32
-    fp32_epi = "bias" if w_in_out else "bias_res"
-    if out_f32 and (out_dtype != torch.float32 or epi != fp32_epi):
-        raise ValueError(f"{name}: an fp32 output takes the {fp32_epi} "
-                         f"epilogue only on the w {layout} route (epi "
+    fp32_epis = FP32_OUT_EPILOGUES[bool(w_in_out)]
+    if out_f32 and (out_dtype != torch.float32 or epi not in fp32_epis):
+        raise ValueError(f"{name}: an fp32 output takes the {fp32_epis} "
+                         f"epilogues only on the w {layout} route (epi "
                          f"{epi!r}, out_dtype {out_dtype})")
-    if res_f32 and (w_in_out or epi != "bias_res" or out_f32):
-        raise ValueError(f"{name}: an fp32 residual takes the bias_res "
-                         "epilogue with a bf16 output, on the w (N, K) route "
-                         f"only (epi {epi!r}, w_in_out {w_in_out})")
+    if res_f32 and (w_in_out or epi not in FP32_RES_EPILOGUES or out_f32):
+        raise ValueError(f"{name}: an fp32 residual takes the "
+                         f"{FP32_RES_EPILOGUES} epilogues with a bf16 "
+                         "output, on the w (N, K) route only (epi "
+                         f"{epi!r}, w_in_out {w_in_out})")
+    if not w_in_out and epi == "res_drop" and not (out_f32 or res_f32):
+        raise ValueError(f"{name}: res_drop on the w (N, K) route takes an "
+                         "fp32 output or an fp32 residual (the fuser's "
+                         "training proj and fc2)")
     k_dim = 0 if w_in_out else 1
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[k_dim]:
         raise ValueError(f"{name}: needs a (M, K) and w {layout}, got "
@@ -179,7 +212,7 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype,
                       device=a.device)
     out2 = torch.empty((M, N), dtype=a.dtype, device=a.device) if (
-        epi == "pre_gelu_tanh" or (epi == "res_drop" and stash)) else None
+        epi in _STASHES or (epi == "res_drop" and stash)) else None
     launch(name, "afft_gemm", EPILOGUES[epi], int(out_f32),
            int(not w_in_out), int(res_f32), ptr(a), ptr(w),
            ptr(bias), ptr(res), ptr(out), ptr(out2),

@@ -16,18 +16,23 @@ Phases, in order; any failure exits non-zero and prints no result:
                GPT-2 entries' and the fuser backward's shapes and at edge
                shapes (M 1 / 15 / 4097, N 72 / 136 / 6144, K 24 / 40 /
                2048), dropout masks bit for bit; its K-major B route (W
-               read as (N, K), the fuser blocks' serving forward) under the
-               fuser's epilogues (bias, exact GELU, the residual add with an
+               read as (N, K)) under the epilogues of the fuser blocks'
+               serving forward (bias, exact GELU, the residual add with an
                fp32 out or an fp32 residual) at rows 1's and 5's product
-               shapes and the same edge shapes, bit for bit from launch to
-               launch; its TN route (the weight gradients) at the training
-               entries' shapes and at edge shapes (M 1 / 15 / 4097, I 8 / 72
-               / 136, J 24 / 200 / 264), bit for bit from run to run; then
-               all timed in turns against torch.matmul (the library
-               yardstick), and at the rollout's cached-block shapes against
-               cuBLAS addmm, beside the wmma gemm_bf16's time a launch in
-               the profiles of fused_gpt2_train_bwd_mlp (rows 13 + 14) and
-               fused_block_train_fwd (row 7), entries that still run it;
+               shapes, of the fuser's training forward (exact GELU with the
+               pre-activation stash, the residual add with dropout and
+               drop-path into the fp32 residual stream with y's stash or
+               over it) at row 7's and of the GPT-2 layer's backward dX
+               (the gelu_new derivative, fp32 outs) at rows 13 + 14's and
+               15's, and at the same edge shapes, dropout masks bit for bit,
+               bit for bit from launch to launch; its TN route (the weight
+               gradients) at the training entries' shapes and at edge
+               shapes (M 1 / 15 / 4097, I 8 / 72 / 136, J 24 / 200 / 264),
+               bit for bit from run to run; then all timed in turns against
+               torch.matmul (the library yardstick), and at the rollout's
+               cached-block shapes against cuBLAS addmm, beside the wmma
+               gemm_bf16's time a launch in the profile of its last caller,
+               the decoder block's cross stage (fused_decoder_block, row 6);
   4. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
                fused_attention, fused_seq_block, fused_decoder_block; the
                fuser block's and the GPT-2 layer's training entries, forward
@@ -41,13 +46,17 @@ Phases, in order; any failure exits non-zero and prints no result:
                reduced batch, and at edge shapes; its time beside the plain
                version's, a cuBLAS + SDPA composition of the same function,
                and the least time the card could take; a profile by kernel
-               group of the six entries redesigned on the wgmma / TMA GEMM
-               (REDESIGNED), where fused_block and fused_seq_block must
-               launch neither gemm_bf16 nor small_attention nor
-               strided_attention; the fuser attention at its edges (N 1 / 5
-               / 8, S 1 to 1024, hd 6 / 12 / 256, with and without the
-               causal mask); each training backward entry run twice on the
-               same inputs gives the same gradients bit for bit;
+               group of the nine entries redesigned on the wgmma / TMA GEMM
+               (REDESIGNED), where fused_block, fused_seq_block and
+               fused_block_train_fwd must launch no gemm_bf16 and none of
+               the attentions they ran before (OFF_PATH), nor
+               fused_gpt2_train_bwd_mlp and fused_gpt2_train_bwd_attn
+               gemm_bf16, and every product of the five must run on
+               gemm_sm90's (N, K) route or its TN route; the fuser
+               attention at its edges (N 1 / 5 / 8, S 1 to 1024, hd 6 / 12 /
+               256, with and without the causal mask); each training
+               backward entry run twice on the same inputs gives the same
+               gradients bit for bit;
   5. serve   - the Server on five paths at full width (bf16, batch 256,
                seeded weights): the flagship
                expts/01_SA-Fuser_ek100_val_Swin.txt, its multi-step rollout
@@ -1051,6 +1060,17 @@ def time_train_layer(peaks, case, layer):
             lambda: torch.autograd.grad(
                 ob, [yb] + [pl[k] for k in mlp_keys], dout,
                 retain_graph=True))
+    if names[2] in REDESIGNED:
+        redesign[names[2]] = redesigned_numbers(
+            names[2], tuple(x.shape),
+            lambda: FT.block_train_bwd_attn(x, dy, qkv, mask32, tensors,
+                                            grads, cfg),
+            lambda: torch.autograd.grad(
+                ya, [xl] + [pl[k] for k in p if k not in mlp_keys], dout,
+                retain_graph=True))
+    for name, numbers in redesign.items():
+        if name in OFF_PATH:
+            check_off_path(name, numbers["profile"])
     del out, saved, y, qkv, pre1, dy, grads
     with torch.no_grad():
         library_ms = [time_ms(lambda: mlp_half(attn_half(x)))]
@@ -1192,25 +1212,34 @@ def phase_train_kernels(peaks, gen):
 # the entries redesigned on the wgmma / TMA GEMM: their one-call profile by
 # kernel group is printed beside their times, and their times back to back
 REDESIGNED = ("gpt2_attn_half", "gpt2_mlp_half", "fused_gpt2_train_fwd",
-              "fused_block_train_bwd_mlp", "fused_block", "fused_seq_block")
+              "fused_block_train_bwd_mlp", "fused_block", "fused_seq_block",
+              "fused_block_train_fwd", "fused_gpt2_train_bwd_mlp",
+              "fused_gpt2_train_bwd_attn")
 # the entries whose one-call profile must show their products on
-# gemm_sm90's (N, K) route and their attention on fuser_attention.cuh, and
-# none of the kernels they ran before
-NK_ENTRIES = ("fused_block", "fused_seq_block")
-OFF_PATH = ("gemm_bf16", "small_attention", "strided_attention")
+# gemm_sm90's (N, K) route (and the weight gradients on its TN route), and
+# none of the kernels they ran before: the fuser blocks' serving forward
+# (rows 1, 5) and the fuser's training forward (row 7) with their attention
+# on fuser_attention.cuh, the GPT-2 layer's backward dX (rows 13 + 14, 15)
+OFF_PATH = {
+    "fused_block": ("gemm_bf16", "small_attention", "strided_attention"),
+    "fused_seq_block": ("gemm_bf16", "small_attention", "strided_attention"),
+    "fused_block_train_fwd": ("gemm_bf16", "small_attention_drop"),
+    "fused_gpt2_train_bwd_mlp": ("gemm_bf16",),
+    "fused_gpt2_train_bwd_attn": ("gemm_bf16",),
+}
 
 
 def check_off_path(name, profile):
-    """Fail if the one-call profile of ``name`` shows a kernel of OFF_PATH,
-    or a product off gemm_sm90's (N, K) route."""
+    """Fail if the one-call profile of ``name`` shows a kernel of its
+    OFF_PATH, or a product off gemm_sm90's (N, K) route."""
     groups = profile["groups_ms"]
-    bad = [g for g in groups if g.split("<")[0] in OFF_PATH
+    bad = [g for g in groups if g.split("<")[0] in OFF_PATH[name]
            or (g.startswith("gemm_sm90<") and "W(N,K)" not in g)]
     if bad or not any(g.startswith("gemm_sm90<") for g in groups):
         raise AssertionError(f"{name}: one call's profile shows {sorted(groups)}"
                              f"; {bad} are off its path")
     log(f"kernel {name}: one call launches {sorted(groups)}, none of "
-        f"{OFF_PATH}")
+        f"{OFF_PATH[name]}")
 
 
 def redesigned_numbers(name, shape, kernel, library):
@@ -1289,7 +1318,7 @@ def phase_kernels(peaks):
             if name in REDESIGNED:
                 numbers["redesign"] = redesigned_numbers(
                     name, case["shape"], kernel, library)
-                if name in NK_ENTRIES:
+                if name in OFF_PATH:
                     check_off_path(name, numbers["redesign"]["profile"])
         if "/" in name:
             main, shape = name.split("/")
@@ -1377,9 +1406,31 @@ NK_PRODUCTS = (("qkv", 3072, 1024, "bias", None),
                ("fc1", 4096, 1024, "gelu_erf", None),
                ("fc2", 1024, 4096, "bias_res", "res32"))
 NK_ROWS = (20480, 10240)
+# the training entries' products on the (N, K) route, (label, M, N, K,
+# epilogue, variant): row 7's (the fuser's training forward at R 4096 x 5
+# tokens; qkv is the serving one's) with dropout, drop-path and the stashes
+# of y and pre1, and the GPT-2 layer's backward dX at B 256 x T 16 (C 2048,
+# hidden 8192; no bias): rows 13 + 14's dpre1 and dg, row 15's dattn and dxn
+NK_TRAIN_PRODUCTS = (
+    ("row7 proj", 20480, 1024, 1024, "res_drop", "out32"),
+    ("row7 fc1", 20480, 4096, 1024, "pre_gelu", None),
+    ("row7 fc2", 20480, 1024, 4096, "res_drop", "res32"),
+    ("row13 dpre1", 4096, 8192, 2048, "gelu_tanh_bwd", None),
+    ("row14 dg", 4096, 2048, 8192, "bias", "out32"),
+    ("row15 dattn", 4096, 2048, 2048, "bias", "out32"),
+    ("row15 dxn", 4096, 2048, 6144, "bias", "out32"))
 # every (epilogue, variant) the route takes, for the edge shapes
 NK_VARIANTS = (("bias", None), ("gelu_erf", None), ("bias_res", None),
-               ("bias_res", "out32"), ("bias_res", "res32"))
+               ("bias_res", "out32"), ("bias_res", "res32"),
+               ("bias", "out32"), ("pre_gelu", None),
+               ("gelu_tanh_bwd", None), ("res_drop", "out32"),
+               ("res_drop", "res32"))
+# the (N, K) route's dropout: the fuser's training forward, 5 tokens a row
+NK_RATES = dict(GEMM_RATES, tokens=5)
+# the decoder block's cross stage (row 6, expt 04: B 256 x S 10, C 1024),
+# the wmma gemm_bf16's last caller: q, k and v (epi 0) and the cross proj
+# (epi 1, fp32 residual and out), each (M, N, K) = (2560, 1024, 1024)
+CROSS_SHAPE = (2560, 1024, 1024)
 
 
 def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
@@ -1448,41 +1499,67 @@ def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
 
 def _nk_operands(M, N, K, epi, variant, gen, bias=True):
     """Operands of the (N, K) route: a (M, K), w (N, K), the bias, the
-    residual (fp32 for ``res32``) and the keywords (an fp32 out for
-    ``out32``)."""
+    residual (fp32 for ``res32``; for gelu_tanh_bwd the stashed
+    pre-activation) and the keywords (an fp32 out for ``out32``; the
+    dropout rates and y's stash for res_drop)."""
     import torch
     rn = _randn(gen, torch.bfloat16)
     a, w = rn(M, K), rn(N, K, std=K ** -0.5)
     b = rn(N, std=0.1) if bias else None
     res = None
-    if epi == "bias_res":
+    if epi in ("bias_res", "res_drop", "gelu_tanh_bwd"):
         res = (torch.randn(M, N, generator=gen, device="cuda")
                if variant == "res32" else rn(M, N))
     kw = dict(out_dtype=torch.float32 if variant == "out32" else None,
               w_in_out=False)
+    if epi == "res_drop":
+        kw.update(NK_RATES, stash=True)
     return a, w, b, res, kw
 
 
 def _check_gemm_nk(G, M, N, K, epi, variant, gen, bias=True):
     """The (N, K) route against the fp32 product of its upcast operands
-    (1e-2 of max|ref|), and a second launch on the same operands bit for
-    bit. Returns the rel_err."""
+    (1e-2 of max|ref|, out and the stash out2), and a second launch on the
+    same operands bit for bit. For res_drop also with a zero residual and
+    the bias shifted by 64 (so no kept element is 0): the output's zeros
+    must be the masks' bit for bit. Returns the rel_err."""
     import torch
     a, w, b, res, kw = _nk_operands(M, N, K, epi, variant, gen, bias)
-    got, _ = G.gemm(a, w, epi, b, res, **kw)
-    again, _ = G.gemm(a, w, epi, b, res, **kw)
-    want, _ = G.gemm_plain(a, w, epi, b, res, **kw)
+    got = G.gemm(a, w, epi, b, res, **kw)
+    again = G.gemm(a, w, epi, b, res, **kw)
+    masks = None
+    if epi == "res_drop":
+        masks = G.drop_masks(M, N, NK_RATES["tokens"], TRAIN_SEEDS,
+                             NK_RATES["block_idx"], NK_RATES["drop_rate"],
+                             NK_RATES["dp_rate"], "cuda")
+    want = G.gemm_plain(a, w, epi, b, res, masks,
+                        stash=kw.get("stash", False),
+                        out_dtype=kw["out_dtype"], w_in_out=False)
     torch.cuda.synchronize()
     what = (f"gemm W(N,K) {epi}{'' if variant is None else ' ' + variant} "
             f"({M}, {N}, {K}){'' if bias else ' no bias'}")
-    finite, _, rel = errors(got, want)
-    if not (got.dtype == want.dtype and finite
-            and rel <= KERNEL_TOL["bf16"]):
-        raise AssertionError(f"{what}: rel_err={rel:.3g} finite={finite} "
-                             f"dtype={got.dtype}")
-    if not torch.equal(got, again):
+    worst = 0.0
+    for which, g, ref in zip(("out", "out2"), got, want):
+        if (g is None) != (ref is None):
+            raise AssertionError(f"{what}: {which} missing")
+        if g is None:
+            continue
+        finite, _, rel = errors(g, ref)
+        worst = max(worst, rel)
+        if not (g.dtype == ref.dtype and finite
+                and rel <= KERNEL_TOL["bf16"]):
+            raise AssertionError(f"{what}: {which} rel_err={rel:.3g} "
+                                 f"finite={finite} dtype={g.dtype}")
+    if not all(torch.equal(g, h) for g, h in zip(got, again)
+               if g is not None):
         raise AssertionError(f"{what}: two launches differ")
-    return rel
+    if epi == "res_drop":
+        out, _ = G.gemm(a, w, epi, (b.float() + 64).to(b.dtype),
+                        torch.zeros_like(res), **kw)
+        if not torch.equal(out == 0, (masks[0] * masks[1]) == 0):
+            raise AssertionError(f"{what}: the dropped elements differ from "
+                                 "the masks'")
+    return worst
 
 
 def _check_gemm_tn(G, M, I, J, gen):
@@ -1526,11 +1603,11 @@ def _in_turns(fns, iters=20):
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
-def _wmma_ms(what, fn, shapes, calls=10):
-    """The wmma gemm_bf16's device ms a launch by (M, N, K), read from the
+def _wmma_ms(what, fn, launches, calls=10):
+    """The wmma gemm_bf16's device ms a launch by epilogue, read from the
     profile of ``calls`` calls of ``fn``, an entry that still runs it:
-    ``shapes`` maps (epilogue, fp32 out) of a gemm_bf16<EPI, TRes, TOut>
-    launch to its (M, N, K), and each must show ``calls`` launches."""
+    ``launches`` maps (epilogue, fp32 out) of a gemm_bf16<EPI, TRes, TOut>
+    launch to its launches a call, and each must show that many a call."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -1547,76 +1624,65 @@ def _wmma_ms(what, fn, shapes, calls=10):
     for e in prof.events():
         m = re.search(r"gemm_bf16<(\d+), ([^,<>]+), ([^,<>]+)>", e.name)
         key = m and (m.group(1), m.group(3).strip() == "float")
-        if e.device_type == DeviceType.CUDA and key in shapes:
-            us.setdefault(shapes[key], []).append(e.time_range.elapsed_us())
+        if e.device_type == DeviceType.CUDA and key in launches:
+            us.setdefault(key, []).append(e.time_range.elapsed_us())
     counts = {k: len(v) for k, v in us.items()}
-    if len(us) != len(shapes) or set(counts.values()) != {calls}:
-        raise AssertionError(f"gemm: the profile of {what} shows {counts} "
-                             f"gemm_bf16 launches, not {calls} of each of "
-                             f"{len(shapes)}")
+    if counts != {k: n * calls for k, n in launches.items()}:
+        raise AssertionError(f"gemm: the profile of {calls} calls of {what} "
+                             f"shows {counts} gemm_bf16 launches, not "
+                             f"{launches} a call")
     return {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
 
 
+def _device_ms(fn, calls=20):
+    """The device's time a call of ``fn``: every kernel it launches in
+    ``calls`` calls, summed (torch.profiler), over ``calls``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    if not us:
+        raise RuntimeError("the profiler saw no device events")
+    return sum(us) / calls / 1e3
+
+
 def entry_gemm_bf16(gen):
-    """The wmma gemm_bf16 at the GPT-2 layer's dX = dY . W^T on the Conv1D W
-    read as (N, K), in fused_gpt2_train_bwd_mlp (rows 13 + 14) at the
-    flagship shape: dpre1 (4096, 8192, 2048) with the gelu_new derivative
-    (epi 8) and dg (4096, 2048, 8192) with an fp32 out (epi 0): c_fc's and
-    the MLP c_proj's (M, N, K), the other operand layout. Returns {(M, N,
-    K): ms}."""
+    """The wmma gemm_bf16 in its last caller, the decoder block's cross
+    stage (row 6: fused_decoder_block, expt 04's B 256 x S 10, C 1024), on
+    the nn.Linear weights read as (N, K): q, k and v (epi 0, bf16) and the
+    cross proj (epi 1, fp32 residual and out), each at CROSS_SHAPE. Returns
+    {label: ms a launch}."""
     import torch
     from afft_tpu_torch.models.layers import neg_inf_causal_mask
-    from afft_tpu_torch.ops import fused_block_train as FT
-    from afft_tpu_torch.ops import fused_gpt2_train as FGT
-    B, T, C, H, hidden = SERVE_BATCH, 16, 2048, 4, 8192
-    p = {k: v.requires_grad_(True)
-         for k, v in gpt2_params(C, hidden, torch.bfloat16, gen).items()}
+    from afft_tpu_torch.ops import fused_seq_block as FS
+    B, S, C, H, hidden = SERVE_BATCH, 10, 1024, 4, 4096
+    p = decoder_params(C, hidden, torch.bfloat16, gen)
     rn = _randn(gen, torch.bfloat16)
-    x, dout = rn(B, T, C).requires_grad_(True), rn(B * T, C)
-    out = FGT.fused_gpt2_block_train(
-        x, p, neg_inf_causal_mask(T, device="cuda"), TRAIN_SEEDS,
-        num_heads=H, layer_idx=3, **GPT2_RATES)
-    saved = out.grad_fn.saved_tensors
-    y, pre1 = saved[1], saved[3]
-    tensors, cfg = list(saved[5:]), out.grad_fn.cfg
-    grads = FT.new_grads(tensors)
-    ms = _wmma_ms("fused_gpt2_train_bwd_mlp",
-                  lambda: FT.block_train_bwd_mlp(x, y, dout, pre1, tensors,
-                                                 grads, cfg),
-                  {("8", False): (B * T, hidden, C),
-                   ("0", True): (B * T, C, hidden)})
-    del out, saved, y, pre1, tensors, grads
-    return ms
+    x, mem = rn(B, S, C), rn(B, S, C)
+    mask = neg_inf_causal_mask(S, device="cuda")
+    ms = _wmma_ms("fused_decoder_block",
+                  lambda: FS.fused_decoder_block(x, mem, p, mask,
+                                                 num_heads=H),
+                  {("0", False): 3, ("1", True): 1})
+    return {"bias": ms[("0", False)],
+            "bias_res fp32 res, fp32 out": ms[("1", True)]}
 
 
-def entry_gemm_bf16_nk(gen):
-    """The wmma gemm_bf16 at row 1's product shapes, in fused_block_train's
-    forward (row 7: R 4096 x 5 tokens, C 1024, hidden 4096, the flagship's
-    dropout) on the nn.Linear weights read as (N, K): qkv (epi 0), proj
-    (epi 4, fp32 out into y), fc1 (epi 5, with the stash) and fc2 (epi 4
-    over the fp32 y). Three of its epilogues draw dropout masks, the serving
-    ones do not. Returns {(M, N, K): ms}."""
-    import torch
-    from afft_tpu_torch.ops import fused_block_train as FT
-    R, N, C, H, hidden = 4096, 5, 1024, 4, 4096
-    M = R * N
-    p = block_params(C, hidden, torch.bfloat16, gen)
-    x = _randn(gen, torch.bfloat16)(R, N, C)
-    return _wmma_ms(
-        "fused_block_train_fwd",
-        lambda: FT.fused_block_train(x, p, None, TRAIN_SEEDS, num_heads=H,
-                                     block_idx=5, **TRAIN_RATES),
-        {("0", False): (M, 3 * C, C), ("4", True): (M, C, C),
-         ("5", False): (M, hidden, C), ("4", False): (M, C, hidden)})
-
-
-# the wmma yardsticks' labels in the timings
-WMMA = "gemm_bf16 W(N,K) (fused_gpt2_train_bwd_mlp profile)"
-WMMA_NK = "gemm_bf16 W(N,K) (fused_block_train_fwd profile)"
+# the wmma yardstick's label in the timings
+WMMA = "gemm_bf16 W(N,K) (fused_decoder_block profile)"
 
 
 def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None,
-                    extra_label=WMMA):
+                    extra_label=None):
     """Each shape's callables timed in turns: ms, TFLOP/s and share of the
     bf16 peak, logged and returned by row."""
     import torch
@@ -1641,9 +1707,10 @@ def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None,
 
 def phase_gemm(peaks, gen):
     """The wgmma / TMA GEMM: checks at the entries' and edge shapes for its
-    six epilogues and the fp32 output, and of its TN route; then their rates
-    beside the library's in one call, and gemm_bf16's in the profile of an
-    entry that still runs it. Returns the numbers."""
+    six (K, N) epilogues and the fp32 output, its (N, K) route's serving and
+    training epilogues, and its TN route; then their rates beside the
+    library's in one call, and gemm_bf16's in the profile of its last
+    caller. Returns the numbers."""
     import itertools
     import torch
     from afft_tpu_torch.ops import gemm as G
@@ -1666,6 +1733,8 @@ def phase_gemm(peaks, gen):
     nk_cases = [(M, N, K, epi, variant, label != "qkv")
                 for M in NK_ROWS
                 for label, N, K, epi, variant in NK_PRODUCTS]
+    nk_cases += [(M, N, K, epi, variant, label.startswith("row7"))
+                 for label, M, N, K, epi, variant in NK_TRAIN_PRODUCTS]
     nk_cases += [(M, N, K, epi, variant, True)
                  for (M, N, K), (epi, variant) in itertools.product(
                      itertools.product(*GEMM_EDGES), NK_VARIANTS)]
@@ -1674,8 +1743,10 @@ def phase_gemm(peaks, gen):
                                                 gen, bias))
         n_nk += 1
     log(f"gemm: {n} checks of C = A . W (6 epilogues + the fp32 out), "
-        f"{n_nk} of the (N, K) route (bias, gelu_erf, bias_res with a bf16 / "
-        f"fp32 residual and out) and {n_tn} of the TN route against the "
+        f"{n_nk} of the (N, K) route ({len(NK_VARIANTS)} epilogue forms: "
+        "bias with a bf16 / fp32 out, gelu_erf, pre_gelu, gelu_tanh_bwd, "
+        "bias_res and res_drop with a bf16 / fp32 residual and out) and "
+        f"{n_tn} of the TN route against the "
         f"fp32 product agree (worst rel_err {worst:.3g}, {nk_worst:.3g} and "
         f"{tn_worst:.3g}, tol {KERNEL_TOL['bf16']:g} of max|ref|; res_drop "
         "masks bit for bit; the (N, K) and TN routes bit for bit from launch "
@@ -1683,8 +1754,6 @@ def phase_gemm(peaks, gen):
     torch.cuda.empty_cache()
 
     wmma = entry_gemm_bf16(gen)
-    torch.cuda.empty_cache()
-    wmma_nk = entry_gemm_bf16_nk(gen)
     torch.cuda.empty_cache()
     rn = _randn(gen, torch.bfloat16)
 
@@ -1713,13 +1782,32 @@ def phase_gemm(peaks, gen):
                     "matmul (a @ w.t())": lambda: a @ w.t()}
         return fns
 
-    rows = _time_gemm_rows(peaks, "entries", GEMM_SHAPES, kn("matmul"),
-                           wmma)
+    rows = _time_gemm_rows(peaks, "entries", GEMM_SHAPES, kn("matmul"))
     for label, N, K, epi, variant in NK_PRODUCTS:
         rows.update(_time_gemm_rows(
             peaks, f"nk {label} {epi}{'' if variant is None else ' ' + variant}",
-            [(M, N, K) for M in NK_ROWS], nk(epi, variant, label != "qkv"),
-            wmma_nk, WMMA_NK))
+            [(M, N, K) for M in NK_ROWS], nk(epi, variant, label != "qkv")))
+    for label, M, N, K, epi, variant in NK_TRAIN_PRODUCTS:
+        rows.update(_time_gemm_rows(
+            peaks, f"nk {label} {epi}{'' if variant is None else ' ' + variant}",
+            [(M, N, K)], nk(epi, variant, label.startswith("row7"))))
+    # at the cross stage's shape a launch takes less device time than the
+    # host needs to launch one, so every column there is the device's time a
+    # call, as the wmma's (torch.profiler)
+    ms = {k: _device_ms(fn) for k, fn in
+          nk("bias", None, True)(*CROSS_SHAPE).items()}
+    ms[WMMA] = wmma["bias"]
+    flops = 2 * CROSS_SHAPE[0] * CROSS_SHAPE[1] * CROSS_SHAPE[2]
+    rate = {k: flops / v / 1e9 for k, v in ms.items()}
+    rows[f"nk cross q/k/v bias {CROSS_SHAPE}"] = {
+        "ms": ms, "tflops": rate, "device_time": True,
+        "share_of_peak": {k: v * 1e12 / peaks["bf16"]
+                          for k, v in rate.items()}}
+    log(f"gemm nk cross q/k/v bias bf16 {CROSS_SHAPE}, device ms a call: "
+        + ", ".join(f"{k} {ms[k]:.4f} ms {rate[k]:.1f} TFLOP/s" for k in ms))
+    ms = wmma["bias_res fp32 res, fp32 out"]
+    log(f"gemm cross proj bias_res fp32 res, fp32 out bf16 {CROSS_SHAPE}: "
+        f"{WMMA} {ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s")
     rows.update(_time_gemm_rows(peaks, "cached_block", CACHED_SHAPES,
                                 kn("addmm")))
     rows.update(_time_gemm_rows(peaks, "row8 dpre1 gelu_bwd",
@@ -1729,21 +1817,21 @@ def phase_gemm(peaks, gen):
     rows.update(_time_gemm_rows(
         peaks, "tn (I, J, M)", [(I, J, M) for M, I, J in TN_SHAPES],
         lambda I, J, M: tn(M, I, J)))
-    # the wmma rate at c_fc's (M, N, K), read where an entry still runs it
-    old = 2 * 4096 * 8192 * 2048 / wmma[(4096, 8192, 2048)] / 1e9
+    # the wmma rate at the cross stage's q / k / v, read in its last caller
+    old = flops / wmma["bias"] / 1e9
     for shape in ((4096, 6144, 2048), (4096, 8192, 2048)):
         new = rows[f"entries {shape}"]["tflops"]["sm90"]
         if not new >= 2 * old:
             raise AssertionError(f"gemm: {new:.1f} TFLOP/s at {shape}, not "
                                  f"2x gemm_bf16's {old:.1f}")
-    # the (N, K) route at row 1's qkv against the wmma GEMM at that shape
-    # and epilogue (row 7's qkv)
-    shape = (NK_ROWS[0], 3072, 1024)
-    qkv = rows[f"nk qkv bias {shape}"]["ms"]
-    if not qkv[WMMA_NK] >= 2 * qkv["sm90 W(N,K)"]:
+    # the (N, K) route against the wmma GEMM at the cross stage's shape
+    # and epilogue
+    cross = rows[f"nk cross q/k/v bias {CROSS_SHAPE}"]["ms"]
+    if not cross[WMMA] >= 2 * cross["sm90 W(N,K)"]:
         raise AssertionError(f"gemm: the (N, K) route takes "
-                             f"{qkv['sm90 W(N,K)']:.4f} ms at {shape}, not "
-                             f"half of gemm_bf16's {qkv[WMMA_NK]:.4f}")
+                             f"{cross['sm90 W(N,K)']:.4f} ms at "
+                             f"{CROSS_SHAPE}, not half of gemm_bf16's "
+                             f"{cross[WMMA]:.4f}")
     # the rollout's cached block stays on addmm: gemm_sm90's speed there
     cached = {str(shape): rows[f"cached_block {shape}"]["ms"]["addmm"]
               / rows[f"cached_block {shape}"]["ms"]["sm90"]
@@ -1753,7 +1841,8 @@ def phase_gemm(peaks, gen):
     return {"checks": n, "tn_checks": n_tn, "nk_checks": n_nk,
             "worst_rel_err": worst, "tn_worst_rel_err": tn_worst,
             "nk_worst_rel_err": nk_worst, "res_drop_kept_zeros": kept_zeros,
-            "wmma_tflops": old, "cached_block_sm90_over_addmm": cached,
+            "wmma_tflops": old, "wmma_ms": wmma,
+            "cached_block_sm90_over_addmm": cached,
             "timings": rows}
 
 
@@ -1761,23 +1850,31 @@ def phase_gemm(peaks, gen):
 
 def profile_forward(fn, what="one bf16 forward", grad=False):
     """Device ms by kernel group over one call of ``fn`` (torch.profiler),
-    and the device's busy share of the call's host wall time. Fails when
-    the profiler sees no device work."""
+    and the device's busy share of the call's host wall time. The profiler
+    now and then hands back a trace without its device events; such a call
+    is traced once more, and a second empty trace fails."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.set_grad_enabled(grad), profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device work only: a record_function range (the optimizer's step) is
-    # mirrored on the device timeline and would count its kernels twice
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.name]
+    for attempt in range(2):
+        with torch.set_grad_enabled(grad), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device work only: a record_function range (the optimizer's step)
+        # is mirrored on the device timeline and would count its kernels
+        # twice
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and "#" not in e.name]
+        if kernels:
+            break
+        log(f"profile: {what}: the trace holds no device events "
+            f"(attempt {attempt + 1} of 2)")
     if not kernels:
         raise RuntimeError("the profiler saw no device events")
     groups, names = {}, {}

@@ -1,15 +1,18 @@
 """ops.gemm on the CPU: the plain versions of the Hopper GEMM
 (csrc/gemm_sm90.cuh) that the entries run on the card, for each of its
 epilogues and the fp32 output on the (K, N) weight route, for its (N, K)
-route (the nn.Linear weight read where it lies: bias, the exact GELU, the
-residual add with an fp32 residual or output), and of its weight-gradient
-route gemm_tn, against the same arithmetic in JAX on the same numpy-made
-operands: the fuser block's serving products (pallas_block.py), the serving
-MLP half (pallas_gpt2.py) and the fuser's MLP backward products
-(pallas_block_train.py) with their own dimension numbers, at ragged shapes;
-the dropout masks are the training forward's proj-site masks; the wrappers
-refuse what the kernels do not take. The kernels themselves run on the card
-only (chip_smoke.py's gemm phase).
+route (the weight read where it lies: bias with a bf16 or fp32 out, the
+exact GELU with or without the pre-activation stash, the gelu_new
+derivative, the residual add and the residual add with dropout, each with
+an fp32 residual or output), and of its weight-gradient route gemm_tn,
+against the same arithmetic in JAX on the same numpy-made operands: the
+fuser block's serving products (pallas_block.py) and training forward
+products (pallas_block_train.py), the serving MLP half (pallas_gpt2.py),
+and the MLP backward products of the fuser (pallas_block_train.py) and of
+the GPT-2 layer (pallas_gpt2_train.py) with their own dimension numbers, at
+ragged shapes; the dropout masks are the training forward's proj-site
+masks; the wrappers refuse what the kernels do not take. The kernels
+themselves run on the card only (chip_smoke.py's gemm phase).
 """
 
 import jax
@@ -21,6 +24,7 @@ import torch
 from afft_tpu.ops.pallas_block import _dot, _gelu_exact
 from afft_tpu.ops.pallas_block_train import _gelu_grad
 from afft_tpu.ops.pallas_gpt2 import _gelu_new
+from afft_tpu.ops.pallas_gpt2_train import _gelu_new_grad
 from afft_tpu_torch.ops import fused_block_train as FT
 from afft_tpu_torch.ops import gemm as G
 
@@ -41,12 +45,14 @@ def _jax_epilogue(epi, a, w, b, r, masks):
     """acc + bias and the epilogue in fp32 (jnp), rounded to bf16."""
     f32 = [jnp.asarray(t.float().numpy()) for t in (a, w, b, r)]
     v = jnp.dot(f32[0], f32[1], precision=jax.lax.Precision.HIGHEST) + f32[2]
-    if epi == "gelu_erf":
+    if epi in ("gelu_erf", "pre_gelu"):
         v = jax.nn.gelu(v, approximate=False)
     elif epi in ("gelu_tanh", "pre_gelu_tanh"):
         v = jax.nn.gelu(v, approximate=True)
     elif epi == "gelu_bwd":
         v = v * _gelu_grad(f32[3])
+    elif epi == "gelu_tanh_bwd":
+        v = v * _gelu_new_grad(f32[3])
     elif epi == "res_drop":
         v = f32[3] + (v * jnp.asarray(masks[0].numpy())) * jnp.asarray(
             masks[1].numpy())
@@ -84,20 +90,39 @@ def test_gemm_plain_matches_jax(epi, M, N, K):
 @pytest.mark.parametrize("epi", list(G.ROUTE_EPILOGUES[False]))
 def test_nk_route_plain_matches_jax(epi, M, N, K):
     """The (N, K) route: w given as the (N, K) transpose of the (K, N)
-    operand gives the (K, N) arithmetic, in bf16 throughout."""
+    operand gives the (K, N) arithmetic, in bf16 throughout; res_drop on
+    the training forward's proj-site masks, pre_gelu and res_drop with
+    their stashes."""
     a, w, b, r = _operands(M, N, K, seed=M + N + K + 1)
-    out, out2 = G.gemm(a, w.t().contiguous(), epi, b, r, w_in_out=False)
-    want = _jax_epilogue(epi, a, w, b, r, None)
-    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
-    assert out2 is None
+    # res_drop in its proj form, into the fp32 residual stream: its fp32
+    # out is within one bf16 rounding of JAX's rounded value
+    out_dtype = torch.float32 if epi == "res_drop" else None
+    kw = dict(seeds=SEEDS, block_idx=2, drop_rate=0.3, dp_rate=0.2,
+              tokens=4, out_dtype=out_dtype)
+    out, out2 = G.gemm(a, w.t().contiguous(), epi, b, r, stash=True,
+                       w_in_out=False, **kw)
+    masks = G.drop_masks(M, N, 4, SEEDS, 2, 0.3, 0.2)
+    want = _jax_epilogue(epi, a, w, b, r, masks)
+    assert out.dtype == (out_dtype or torch.bfloat16)
+    assert out.shape == (M, N)
     np.testing.assert_allclose(out.float().numpy(), want, rtol=2 ** -7,
                                atol=1e-6)
+    if epi in ("pre_gelu", "res_drop"):
+        pre = want if epi == "res_drop" else _jax_epilogue("bias", a, w, b,
+                                                          r, None)
+        np.testing.assert_allclose(out2.float().numpy(), pre, rtol=2 ** -7,
+                                   atol=1e-6)
+    else:
+        assert out2 is None
 
 
-def test_res_drop_masks_are_the_training_forwards_proj_masks():
+@pytest.mark.parametrize("route", ["kn", "nk out32", "nk res32"])
+def test_res_drop_masks_are_the_training_forwards_proj_masks(route):
     """The GEMM draws at the proj site (1) and the first drop-path site (2)
     of the training block: its masks equal draw_masks_plain's, and the
-    elements it drops are exactly the zeros of their product."""
+    elements it drops are exactly the zeros of their product, on the (K,
+    N) route and on both (N, K) forms of the fuser's training forward (proj
+    into the fp32 residual stream, fc2 adding it)."""
     R, N_TOK, C, H = 6, 4, 16, 2
     M = R * N_TOK
     masks = FT.draw_masks_plain(R, N_TOK, C, H, SEEDS, 3, 0.0, 0.3, 0.5)
@@ -105,11 +130,18 @@ def test_res_drop_masks_are_the_training_forwards_proj_masks():
     assert torch.equal(elem, masks[1])
     assert torch.equal(rows[:, 0], masks[2].repeat_interleave(N_TOK))
     a, w, b, _ = _operands(M, C, 24, seed=5)
+    zero = torch.zeros(M, C)
+    kw = {}
+    if route != "kn":
+        w, kw = w.t().contiguous(), dict(w_in_out=False)
+        if route == "nk out32":
+            kw["out_dtype"] = torch.float32
     # a zero residual and the bias shifted by 64: no kept element is 0
     out, _ = G.gemm(a, w, "res_drop", (b.float() + 64).bfloat16(),
-                    torch.zeros(M, C).bfloat16(),
+                    zero if route == "nk res32" else zero.bfloat16(),
                     seeds=SEEDS, block_idx=3, drop_rate=0.3, dp_rate=0.5,
-                    tokens=N_TOK)
+                    tokens=N_TOK, **kw)
+    assert out.dtype == kw.get("out_dtype", torch.bfloat16)
     assert torch.equal(out == 0, (elem * rows) == 0)
     assert 0 < int((out == 0).sum()) < out.numel()
 
@@ -173,13 +205,17 @@ def test_mlp_half_epilogues_match_pallas_gpt2(M, C, hidden):
     _close_bf16(out, want.astype(jnp.bfloat16))
 
 
+@pytest.mark.parametrize("forward", ["serving", "training"])
 @pytest.mark.parametrize("M,C,hidden", RAGGED)
-def test_nk_route_matches_pallas_block(M, C, hidden):
-    """The fuser block's four serving products (pallas_block.py:141-188):
-    qkv rounded, proj + x into the fp32 residual stream y, fc1 under the
-    exact GELU (_gelu_exact) rounded, fc2 + y rounded; on the JAX (in, out)
-    weights, which the port reads as their nn.Linear (out, in) transposes,
-    the (N, K) operand."""
+def test_nk_route_matches_pallas_block(M, C, hidden, forward):
+    """The fuser block's four forward products: serving
+    (pallas_block.py:141-188), qkv rounded, proj + x into the fp32 residual
+    stream y, fc1 under the exact GELU (_gelu_exact) rounded, fc2 + y
+    rounded; training (pallas_block_train.py:217-238), proj and fc2 with
+    their dropout and drop-path (here both on the proj-site masks the GEMM
+    draws), y stashed rounded, fc1 with the pre-activation stashed rounded.
+    On the JAX (in, out) weights, which the port reads as their nn.Linear
+    (out, in) transposes, the (N, K) operand."""
     rng = np.random.default_rng(M + 3 * C)
     f32 = jnp.float32
     xn, attn, x, yn = (_bf16(rng, M, C) for _ in range(4))
@@ -189,33 +225,56 @@ def test_nk_route_matches_pallas_block(M, C, hidden):
     wfc2 = _bf16(rng, hidden, C, std=hidden ** -0.5)
     bqkv, bproj, bfc1, bfc2 = (_bf16(rng, n, std=0.1)
                                for n in (3 * C, C, hidden, C))
+    train = forward == "training"
+    tokens, rates = 5, dict(seeds=SEEDS, block_idx=4, drop_rate=0.3,
+                            dp_rate=0.2)
+    elem, rows = G.drop_masks(M, C, tokens, SEEDS, 4, 0.3, 0.2)
+    mproj, dp = jnp.asarray(elem.numpy()), jnp.asarray(rows.numpy())
+
+    def branch(v):
+        return dp * (v * mproj) if train else v
     qkv = (_dot(xn, wqkv) + bqkv.astype(f32)).astype(jnp.bfloat16)
-    y = x.astype(f32) + (_dot(attn, wproj) + bproj.astype(f32))
-    h1 = _gelu_exact(_dot(yn, wfc1) + bfc1.astype(f32)).astype(jnp.bfloat16)
-    out = (y + (_dot(h1, wfc2) + bfc2.astype(f32))).astype(jnp.bfloat16)
+    y = x.astype(f32) + branch(_dot(attn, wproj) + bproj.astype(f32))
+    pre1 = _dot(yn, wfc1) + bfc1.astype(f32)
+    h1 = _gelu_exact(pre1).astype(jnp.bfloat16)
+    out = (y + branch(_dot(h1, wfc2) + bfc2.astype(f32))).astype(
+        jnp.bfloat16)
 
     def nk(w):
         return _t(np.ascontiguousarray(np.asarray(w).T))
+    kw = dict(w_in_out=False, **(dict(tokens=tokens, **rates) if train
+                                 else {}))
     got, _ = G.gemm(_t(xn), nk(wqkv), "bias", _t(bqkv), w_in_out=False)
     _close_bf16(got, qkv)
-    got, _ = G.gemm(_t(attn), nk(wproj), "bias_res", _t(bproj), _t(x),
-                    out_dtype=torch.float32, w_in_out=False)
+    got, stash = G.gemm(_t(attn), nk(wproj), "res_drop" if train else
+                        "bias_res", _t(bproj), _t(x), stash=train,
+                        out_dtype=torch.float32, **kw)
     _close_f32(got, y)
-    got, _ = G.gemm(_t(yn), nk(wfc1), "gelu_erf", _t(bfc1), w_in_out=False)
+    if train:
+        _close_bf16(stash, y.astype(jnp.bfloat16))
+    got, stash = G.gemm(_t(yn), nk(wfc1), "pre_gelu" if train else
+                        "gelu_erf", _t(bfc1), **kw)
     _close_bf16(got, h1)
+    if train:
+        _close_bf16(stash, pre1.astype(jnp.bfloat16))
     # fc2 on JAX's y and h1, so the check sees one rounding
-    got, _ = G.gemm(_t(h1), nk(wfc2), "bias_res", _t(bfc2),
-                    _t(np.array(y)), w_in_out=False)
+    got, _ = G.gemm(_t(h1), nk(wfc2), "res_drop" if train else "bias_res",
+                    _t(bfc2), _t(np.array(y)), **kw)
     _close_bf16(got, out)
 
 
+@pytest.mark.parametrize("layer", ["fuser", "gpt2"])
 @pytest.mark.parametrize("M,C,hidden", RAGGED)
-def test_mlp_backward_products_match_pallas_block_train(M, C, hidden):
-    """The fuser's MLP backward products (pallas_block_train.py:283-296),
-    jax.lax.dot_general with the kernel's dimension numbers on its (in, out)
-    weights; the port reads the nn.Linear (out, in) weights, their
-    transposes, as the (K, N) operand, and writes each weight gradient in
-    its weight's layout (the fuser's dy^T . x, the GPT-2 layer's x^T . dy)."""
+def test_mlp_backward_products_match_pallas_block_train(M, C, hidden, layer):
+    """The MLP backward products, jax.lax.dot_general with the kernels'
+    dimension numbers on their (in, out) weights: the fuser's
+    (pallas_block_train.py:283-296), where the port reads the nn.Linear
+    (out, in) weights, their transposes, as the (K, N) operand, and the
+    GPT-2 layer's (pallas_gpt2_train.py:180-183, 206-208: dpre1 under the
+    gelu_new derivative, dg in fp32), where the port reads the Conv1D (in,
+    out) weights where they lie as the (N, K) operand. Each weight gradient
+    comes out in its weight's layout (the fuser's dy^T . x, the GPT-2
+    layer's x^T . dy)."""
     rng = np.random.default_rng(M + hidden)
     f32 = jnp.float32
     dims_tn = (((0,), (0,)), ((), ()))
@@ -224,13 +283,24 @@ def test_mlp_backward_products_match_pallas_block_train(M, C, hidden):
     dh2, pre1 = _bf16(rng, M, C), _bf16(rng, M, hidden)
     wfc1 = _bf16(rng, C, hidden, std=C ** -0.5)       # JAX (in, out)
     wfc2 = _bf16(rng, hidden, C, std=hidden ** -0.5)
+    gelu_grad = _gelu_grad if layer == "fuser" else _gelu_new_grad
 
     dw2 = jax.lax.dot_general(h1, dh2, dims_tn, preferred_element_type=f32)
     dh1 = jax.lax.dot_general(dh2, wfc2, dims_dx, preferred_element_type=f32)
-    dpre1 = (dh1 * _gelu_grad(pre1.astype(f32))).astype(jnp.bfloat16)
+    dpre1 = (dh1 * gelu_grad(pre1.astype(f32))).astype(jnp.bfloat16)
     dw1 = jax.lax.dot_general(g_c, dpre1, dims_tn, preferred_element_type=f32)
     dg = jax.lax.dot_general(dpre1, wfc1, dims_dx, preferred_element_type=f32)
 
+    if layer == "gpt2":
+        _close_f32(G.gemm_tn(_t(h1), _t(dh2)), dw2)
+        got, _ = G.gemm(_t(dh2), _t(wfc2), "gelu_tanh_bwd", res=_t(pre1),
+                        w_in_out=False)
+        _close_bf16(got, dpre1)
+        _close_f32(G.gemm_tn(_t(g_c), _t(dpre1)), dw1)
+        got, _ = G.gemm(_t(dpre1), _t(wfc1), "bias",
+                        out_dtype=torch.float32, w_in_out=False)
+        _close_f32(got, dg)
+        return
     _close_f32(G.gemm_tn(_t(dh2), _t(h1)), np.asarray(dw2).T)   # fuser
     _close_f32(G.gemm_tn(_t(h1), _t(dh2)), dw2)                 # GPT-2
     w2_port = _t(np.ascontiguousarray(np.asarray(wfc2).T))    # (C, hidden)
@@ -260,11 +330,19 @@ def test_cpu_tensors_take_the_plain_versions_on_the_nk_route():
     before = dict(G.LAUNCHES)
     for epi, res, out_dtype in (("gelu_erf", None, None),
                                 ("bias_res", r, torch.float32),
-                                ("bias_res", r.float(), None)):
+                                ("bias_res", r.float(), None),
+                                ("bias", None, torch.float32),
+                                ("pre_gelu", None, None),
+                                ("gelu_tanh_bwd", r, None),
+                                ("res_drop", r, torch.float32),
+                                ("res_drop", r.float(), None)):
         got, _ = G.gemm(a, w_nk, epi, b, res, out_dtype=out_dtype,
                         w_in_out=False)
-        want, _ = G.gemm_plain(a, w_nk, epi, b, res, out_dtype=out_dtype,
-                               w_in_out=False)
+        # gemm's default rates keep every element: masks of ones
+        masks = G.drop_masks(24, 16, 1, (0, 0), 0, 0.0, 0.0) \
+            if epi == "res_drop" else None
+        want, _ = G.gemm_plain(a, w_nk, epi, b, res, masks,
+                               out_dtype=out_dtype, w_in_out=False)
         assert got.dtype == (out_dtype or torch.bfloat16)
         assert torch.equal(got, want)
     assert G.LAUNCHES == before
@@ -272,23 +350,34 @@ def test_cpu_tensors_take_the_plain_versions_on_the_nk_route():
 
 def test_nk_route_refuses_what_the_kernel_does_not_take():
     """Each weight layout takes its own epilogues; the fp32 output and the
-    fp32 residual only where the fuser block uses them."""
+    fp32 residual only where the fuser block and the GPT-2 layer's
+    backward use them."""
     a, w, b, r = _operands(4, 16, 8, seed=2)
     w_nk = w.t().contiguous()
-    for epi in ("gelu_tanh", "res_drop", "pre_gelu_tanh", "gelu_bwd"):
+    for epi in ("gelu_tanh", "pre_gelu_tanh", "gelu_bwd"):
         with pytest.raises(ValueError, match=r"w \(N, K\) route"):
             G.gemm(a, w_nk, epi, b, r, w_in_out=False)
-    with pytest.raises(ValueError, match=r"w \(K, N\) route"):
-        G.gemm(a, w, "gelu_erf", b)
-    with pytest.raises(ValueError, match="fp32 output"):
-        G.gemm(a, w_nk, "bias", b, out_dtype=torch.float32, w_in_out=False)
+    for epi in ("gelu_erf", "pre_gelu", "gelu_tanh_bwd"):
+        with pytest.raises(ValueError, match=r"w \(K, N\) route"):
+            G.gemm(a, w, epi, b, r)
+    for epi in ("gelu_erf", "pre_gelu", "gelu_tanh_bwd"):
+        with pytest.raises(ValueError, match="fp32 output"):
+            G.gemm(a, w_nk, epi, b, r, out_dtype=torch.float32,
+                   w_in_out=False)
     with pytest.raises(ValueError, match="fp32 output"):
         G.gemm(a, w, "bias_res", b, r, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="fp32 output"):
+        G.gemm(a, w, "res_drop", b, r, out_dtype=torch.float32)
     with pytest.raises(ValueError, match="fp32 residual"):
         G.gemm(a, w, "bias_res", b, r.float())
+    for epi in ("bias_res", "res_drop"):
+        with pytest.raises(ValueError, match="fp32 residual"):
+            G.gemm(a, w_nk, epi, b, r.float(), out_dtype=torch.float32,
+                   w_in_out=False)
     with pytest.raises(ValueError, match="fp32 residual"):
-        G.gemm(a, w_nk, "bias_res", b, r.float(), out_dtype=torch.float32,
-               w_in_out=False)
+        G.gemm(a, w_nk, "gelu_tanh_bwd", b, r.float(), w_in_out=False)
+    with pytest.raises(ValueError, match="res_drop on the w"):
+        G.gemm(a, w_nk, "res_drop", b, r, w_in_out=False)
     with pytest.raises(ValueError, match=r"w \(N, K\), got"):
         G.gemm(a, w, "bias", b, w_in_out=False)
     with pytest.raises(ValueError, match="K % 8 == 0, N % 8 == 0"):

@@ -310,11 +310,17 @@ def test_hopper_gemm_only_on_the_bf16_path():
     TN route and fp32 to gemm_tn_f32. Both GPT-2 serving halves and the
     GPT-2 training forward reach the GEMM through gemm_kn only; the fuser
     blocks' serving forward (fused_block.cu, and seq_block.cu's
-    self-attention and MLP stages) through gemm_nk only, beside the staged
-    fuser attention; the training backward through the shared helpers
-    launch_dx (the fuser's (K, N) products) and launch_dw (every weight
-    gradient). The wmma gemm_tn_bf16, small_attention and the packed
-    strided attention launcher are gone."""
+    self-attention and MLP stages) and training forward (train_block.cuh
+    fwd_gemm's fuser branch) through gemm_nk only, beside the staged fuser
+    attention (the training forward's with its dropout, through
+    attention_drop); the training backward through the shared helpers
+    launch_dx (the fuser's (K, N) products on gemm_kn, the GPT-2 layer's (N,
+    K) products on gemm_nk) and launch_dw (every weight gradient). The wmma
+    launch_gemm< is left only in the decoder block's cross stage
+    (seq_block.cu run_decoder_block) and the fp32 branches of gemm_kn /
+    gemm_nk. The wmma gemm_tn_bf16, small_attention, the training forward's
+    small_attention_drop and the packed strided attention launcher are
+    gone."""
     header = _source("gemm_sm90.cuh")
     bf16_branch, fp32_branch = _body(header, "gemm_kn").split("} else {")
     assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
@@ -333,7 +339,13 @@ def test_hopper_gemm_only_on_the_bf16_path():
     for name in glob.glob(os.path.join(CSRC, "*.cu*")):
         src = _source(os.path.basename(name))
         assert not re.search(r"\bsmall_attention\b", src), name
+        assert not re.search(r"\bsmall_attention_drop\b", src), name
         assert "launch_packed_attention" not in src, name
+        # the wmma GEMM's launcher: the decoder's cross stage (4, below)
+        # and the fp32 branches of gemm_kn and gemm_nk
+        expected = {"seq_block.cu": 4, "gemm_sm90.cuh": 2}
+        assert src.count("launch_gemm<") == expected.get(
+            os.path.basename(name), 0), name
     block = _body(_source("fused_block.cu"), "run_fused_block")
     assert block.count("gemm_nk<") == 4 and "launch_gemm<" not in block
     assert "launch_fuser_attention_rows<" in block
@@ -357,15 +369,22 @@ def test_hopper_gemm_only_on_the_bf16_path():
 
     train = _source("train_block.cuh")
     assert "launch_gemm_sm90" not in train and "launch_gemm_tn" not in train
+    assert "launch_gemm<" not in train
     gpt2_branch, fuser_branch = _body(train, "fwd_gemm").split("} else {")
     assert "if constexpr (GPT2)" in gpt2_branch
     assert "gemm_kn<EPI, T>" in gpt2_branch
-    assert "launch_gemm<EPI, false" in fuser_branch
+    assert "gemm_nk<EPI, T, TRes, TOut>" in fuser_branch
     fwd = _body(train, "run_fwd")
     assert fwd.count("fwd_gemm<") == 4 and "launch_gemm<" not in fwd
+    assert fwd.count("attention_drop<") == 1
+    gpt2_branch, fuser_branch = _body(train, "attention_drop").split(
+        "} else {")
+    assert "launch_staged_attention<T, true>" in gpt2_branch
+    assert "launch_fuser_attention_rows<T, true>" in fuser_branch
+    assert _body(train, "run_bwd_attn").count("attention_drop<") == 1
     gpt2_branch, fuser_branch = _body(train, "launch_dx").split("} else {")
     assert "if constexpr (GPT2)" in gpt2_branch
-    assert "launch_gemm<EPI, false" in gpt2_branch
+    assert "gemm_nk<EPI, T, T, TOut>" in gpt2_branch
     assert "gemm_kn<EPI, T, TOut>" in fuser_branch
     assert _body(train, "launch_dw").count("gemm_tn(") == 2
     for entry, dx, dw in (("run_bwd_mlp", 2, 2), ("run_bwd_attn", 2, 2)):

@@ -25,6 +25,7 @@ from afft_tpu.ops import pallas_block_train as PBT
 from afft_tpu_torch import weights as W
 from afft_tpu_torch.ops import fused_block as FB
 from afft_tpu_torch.ops import fused_block_train as FT
+from afft_tpu_torch.ops import fused_gpt2_train as FGT
 from afft_tpu_torch.ops import launch_counts, reset_launches
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -253,6 +254,43 @@ def test_random_explicit_masks_match_jax_reference(N, C, H, R, diag):
     _assert_grads(grads, gp, "random masks vs block_reference_with_masks")
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("N", [1, 5, 8])
+def test_attention_with_dropout_matches_pallas_attention_fwd(N, masked):
+    """The training attention (fp32 probabilities scaled by their keep
+    multipliers before P . V; the kernel's plain version,
+    ``attention_drop_plain``) against ``pallas_block_train._attention_fwd``
+    on the same qkv and masks, at the token counts the kernel takes (1 to
+    8), with and without the causal mask. The JAX kernel's keep bits are
+    made from the port's mask: 0 where kept, 2^24 - 1 where dropped."""
+    R, C, H = 6, 16, 2
+    hd = C // H
+    rng = np.random.default_rng(N + 10 * masked)
+    qkv = rng.standard_normal((R * N, 3 * C)).astype(np.float32)
+    mattn = FT.draw_masks_plain(R, N, C, H, SEEDS, 1, 0.3, 0.0, 0.0)[0]
+    mask = np.triu(np.full((N, N), -np.inf, np.float32), 1) if masked \
+        else np.zeros((N, N), np.float32)
+    thr, inv = FT.rates_operands(0.3, 0.0, 0.0)
+    wa = PBT._attn_bits_width(H, N)
+    bits = np.zeros((R, wa), np.int32)
+    # column (tq * N + tk) * H + h of the JAX kernel's bits
+    bits[:, :N * N * H] = np.where(
+        mattn.numpy().transpose(0, 2, 3, 1).reshape(R, N * N * H) > 0, 0,
+        (1 << 24) - 1)
+    tok = qkv.reshape(R, N, 3 * C)
+    q, k, v = ([jnp.asarray(tok[:, t, i * C:(i + 1) * C]) for t in range(N)]
+               for i in range(3))
+    want = PBT._attention_fwd(q, k, v, jnp.asarray(mask), jnp.asarray(bits),
+                              jnp.asarray(thr, jnp.int32),
+                              jnp.asarray(inv, jnp.float32), n_tokens=N,
+                              num_heads=H, head_dim=hd)
+    want = np.stack([np.asarray(o) for o in want], axis=1).reshape(R * N, C)
+    got = FT.attention_drop_plain(torch.tensor(qkv), torch.tensor(mask)
+                                  if masked else None, mattn, N, H)
+    assert 0 < float((mattn == 0).float().mean()) < 1
+    np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+
+
 # -- the mask generator -------------------------------------------------------
 
 ARGS = dict(R=64, N=5, C=48, num_heads=4)
@@ -357,3 +395,48 @@ def test_fused_block_train_checks_its_operands():
                              (1, 2 ** 31), num_heads=4)
     assert FT.rates_operands(0.1, 0.0, 1.0) == (
         [15099494, 1 << 24, 0], [1 / 0.9, 1.0, 0.0])
+
+
+def _layer_params(layer, C, hidden):
+    """Zero tensors of one training layer in its wrapper's layout."""
+    if layer == "fuser":
+        shapes = {"norm1.weight": (C,), "norm1.bias": (C,),
+                  "attn.qkv.weight": (3 * C, C), "attn.proj.weight": (C, C),
+                  "attn.proj.bias": (C,), "norm2.weight": (C,),
+                  "norm2.bias": (C,), "mlp.mlp.0.weight": (hidden, C),
+                  "mlp.mlp.0.bias": (hidden,),
+                  "mlp.mlp.2.weight": (C, hidden), "mlp.mlp.2.bias": (C,)}
+    else:
+        shapes = dict(zip(FGT.KEYS, (
+            (C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,),
+            (C, hidden), (hidden,), (hidden, C), (C,))))
+    return {k: torch.zeros(v) for k, v in shapes.items()}
+
+
+@pytest.mark.parametrize("layer", ["fuser", "gpt2"])
+def test_training_wrappers_apply_the_gemm_operand_rules(layer):
+    """What both training wrappers check before a CUDA launch, where every
+    bf16 product runs on gemm_sm90 (the fuser's forward and the GPT-2
+    layer's backward dX on its (N, K) route): K % 8 and N % 8 (C and hidden
+    multiples of 8), one dtype, contiguous and 16-byte aligned operands."""
+    check = (FB.block_operands if layer == "fuser"
+             else FGT.gpt2_operands)
+    x = torch.zeros(2, 3, 32)
+    tensors, hidden = check("t", x, _layer_params(layer, 32, 128), 4)
+    assert hidden == 128 and len(tensors) == 12
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        check("t", torch.zeros(2, 3, 20), _layer_params(layer, 20, 80), 4)
+    with pytest.raises(ValueError, match="hidden % 8 == 0"):
+        check("t", x, _layer_params(layer, 32, 124), 4)
+    shifted = torch.zeros(2 * 3 * 32 + 1)[1:].view(2, 3, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check("t", shifted, _layer_params(layer, 32, 128), 4)
+    p = _layer_params(layer, 32, 128)
+    key = "attn.proj.weight" if layer == "fuser" else "attn.c_proj.weight"
+    p[key] = p[key].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        check("t", x, p, 4)
+    p = _layer_params(layer, 32, 128)
+    p[key] = p[key].bfloat16()
+    with pytest.raises(TypeError, match="torch.bfloat16"):
+        check("t", x, p, 4)
