@@ -2,18 +2,16 @@
 //
 // Every port entry (fused_block.cu, fused_gpt2.cu, attention.cu, seq_block.cu,
 // fused_block_train.cu and fused_gpt2_train.cu through train_block.cuh) is a
-// short sequence of launches on one stream, built from the pieces below:
+// short sequence of launches on one stream, built from the pieces below, the
+// wgmma / TMA GEMM of gemm_sm90.cuh (every bf16 product) and the attentions
+// of staged_attention.cuh and fuser_attention.cuh:
 //   * layernorm_rows: one warp per row, fp32 statistics, output in the
 //     working dtype (the rounding the TPU kernels apply before each matmul);
-//   * gemm_bf16 / gemm_f32: C[M,N] = A[M,K] . W + bias with a fused
-//     epilogue (GELU, residual add, cast). gemm_f32 reads W as (N,K)
-//     row-major (nn.Linear) or (K,N) row-major (HF Conv1D), chosen at
-//     compile time, so neither weight layout is repacked per call; gemm_bf16
-//     reads (N,K) only (bf16 (K,N) products, and the fuser blocks' serving
-//     (N,K) products, run on gemm_sm90.cuh);
-//   * strided_attention: softmax attention of Nq queries over Nk <= 1024 keys
-//     with q, k and v given as separate strided tensors, one warp per query
-//     (the fuser blocks' self-attention runs fuser_attention.cuh).
+//   * gemm_f32: C[M,N] = A[M,K] . W + bias with a fused epilogue (GELU,
+//     residual add, cast), the fp32 products: W read as (N,K) row-major
+//     (nn.Linear) or (K,N) row-major (HF Conv1D), chosen at compile time,
+//     so neither weight layout is repacked per call. Plain FMA (no TF32),
+//     so fp32 parity checks compare true fp32 products;
 // and, for the training kernels:
 //   * drop_scale: the dropout multiplier (0 or 1/keep) of one logical element,
 //     from a counter-based Philox4x32-10 draw computed in registers, so the
@@ -23,23 +21,16 @@
 //     matrices; gemm_sm90.cuh's gemm_tn_sm90 in bf16);
 //   * epilogues with dropout and drop-path (EPI_RES_DROP), with the stashed
 //     pre-activation (EPI_PRE_GELU, EPI_PRE_GELU_TANH) and with the GELU
-//     derivative (EPI_GELU_BWD, EPI_GELU_TANH_BWD);
+//     derivative (EPI_GELU_BWD, EPI_GELU_TANH_BWD), element for element as
+//     gemm_sm90.cuh's epilogue8 applies them to 8 columns;
 //   * column sums over rows in two deterministic stages (bias and LayerNorm
 //     affine gradients) and the LayerNorm backward over rows.
-//
-// gemm_bf16 runs on the tensor cores through nvcuda::wmma (16x16x16, fp32
-// accumulation) with 128x128x32 shared-memory tiles, double-buffered by
-// cp.async: the products not yet moved to the wgmma / TMA GEMM of
-// gemm_sm90.cuh (the fuser's training forward, the decoder block's
-// cross-attention stage and the GPT-2 layer's backward dX). The fp32 GEMM is plain FMA (no TF32), so fp32 parity checks
-// compare true fp32 products.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -248,132 +239,6 @@ __device__ __forceinline__ void epilogue(const EpiArgs& ea, int M, int N,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core GEMM (wmma), 128x128x32 tiles, 8 warps of 64x32
-// ---------------------------------------------------------------------------
-
-constexpr int GB_M = 128, GB_N = 128, GB_K = 32, GB_PAD = 8;
-constexpr int GB_THREADS = 256;
-constexpr int GB_A_TILE = GB_M * (GB_K + GB_PAD);            // elements
-constexpr int GB_B_TILE = GB_N * (GB_K + GB_PAD);
-constexpr int GB_SMEM = 2 * (GB_A_TILE + GB_B_TILE) * 2;      // bytes
-static_assert(GB_SMEM <= 48 * 1024, "static shared memory limit");
-static_assert(8 * 256 * 4 <= 2 * GB_A_TILE * 2, "epilogue staging fits");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// A (M,K) row-major; W (N,K) row-major. Requires K % 8 == 0, N % 8 == 0
-// and 16-byte aligned A and W.
-template <int EPI, typename TRes, typename TOut>
-__global__ void __launch_bounds__(GB_THREADS)
-gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ W, int M,
-          int N, int K, EpiArgs ea) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[GB_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * GB_A_TILE;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp >> 2, warp_n = warp & 3;  // 2 x 4 warps
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * GB_K;
-    bf16* as = As + stage * GB_A_TILE;
-    bf16* bs = Bs + stage * GB_B_TILE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GB_THREADS;  // 512 chunks of 8 elements
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gr = m0 + r, gk = k0 + kc;
-      const bool ok = gr < M && gk < K;
-      cp_async16(as + r * (GB_K + GB_PAD) + kc,
-                 ok ? A + (size_t)gr * K + gk : A, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GB_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 8;  // 128 n-rows x 4 chunks
-      const int gn = n0 + r, gk = k0 + kc;
-      const bool ok = gn < N && gk < K;
-      cp_async16(bs + r * (GB_K + GB_PAD) + kc,
-                 ok ? W + (size_t)gn * K + gk : W, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (K + GB_K - 1) / GB_K;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* as = As + (kt & 1) * GB_A_TILE;
-    const bf16* bs = Bs + (kt & 1) * GB_B_TILE;
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(
-            fa[i], as + (warp_m * 64 + i * 16) * (GB_K + GB_PAD) + kk,
-            GB_K + GB_PAD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(
-            fb[j], bs + (warp_n * 32 + j * 16) * (GB_K + GB_PAD) + kk,
-            GB_K + GB_PAD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // epilogue: each warp stages one 16x16 fp32 fragment at a time
-  float* stg = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stg, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + warp_m * 64 + i * 16 + r;
-      const int col = n0 + warp_n * 32 + j * 16 + c0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        epilogue<bf16, EPI, TRes, TOut>(ea, M, N, row, col + e,
-                                        stg[r * 16 + c0 + e]);
-      __syncwarp();
-    }
-}
-
-// ---------------------------------------------------------------------------
 // fp32 GEMM: plain FMA, 64x64x16 tiles, 4x4 outputs per thread
 // ---------------------------------------------------------------------------
 
@@ -443,15 +308,6 @@ static void launch_gemm(const float* A, const float* W, int M, int N, int K,
   dim3 grid(cdiv(N, GF_N), cdiv(M, GF_M));
   gemm_f32<EPI, B_KN, TRes, TOut><<<grid, GF_THREADS, 0, stream>>>(A, W, M, N,
                                                                    K, ea);
-}
-
-template <int EPI, bool B_KN, typename TRes, typename TOut>
-static void launch_gemm(const bf16* A, const bf16* W, int M, int N, int K,
-                        EpiArgs ea, cudaStream_t stream) {
-  static_assert(!B_KN, "bf16 (K, N) products run on gemm_sm90.cuh");
-  dim3 grid(cdiv(N, GB_N), cdiv(M, GB_M));
-  gemm_bf16<EPI, TRes, TOut><<<grid, GB_THREADS, 0, stream>>>(A, W, M, N, K,
-                                                              ea);
 }
 
 // ---------------------------------------------------------------------------
@@ -669,104 +525,6 @@ layernorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ d,
     mu_out[row] = mu;
     rstd_out[row] = rs;
   }
-}
-
-// ---------------------------------------------------------------------------
-// Attention of Nq queries over Nk keys, q / k / v given separately: element
-// (seq, token, head, j) of an operand lies at seq * b + token * t + head * h
-// + j, so packed qkv rows, column slices of a packed projection and a
-// (B, Tmax, H, hd) cache are all read where they are. out is contiguous
-// (n_seq, Nq, H, hd). One warp per query; its Nk scores live in shared
-// memory, so any Nq and any Nk <= SA_MAX_KEYS are taken.
-// Scores and softmax in fp32, the scale applied after the dot; the
-// probabilities are divided in fp32 and rounded to T before the
-// probability . v product, which accumulates in fp32. A key whose mask entry
-// is -inf is skipped in both products, so what lies in a masked slot (a
-// cache row not written yet) never reaches the result. A row with every key
-// masked gives zeros, never NaN.
-// ---------------------------------------------------------------------------
-
-constexpr int SA_WARPS = 8;
-constexpr int SA_MAX_KEYS = 1024;  // 8 warps * 1024 floats = 32 KB
-
-struct AttnStrides {
-  long long b, t, h;  // elements between sequences, tokens and heads
-};
-
-template <typename T>
-__global__ void __launch_bounds__(SA_WARPS * 32)
-strided_attention(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ mask,
-                  T* __restrict__ out, int Nq, int Nk, int H, int hd,
-                  AttnStrides qs, AttnStrides ks, AttnStrides vs,
-                  float scale) {
-  extern __shared__ float sa_scores[];  // one row of Nk per warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int tq = blockIdx.y * (blockDim.x >> 5) + warp;
-  if (tq >= Nq) return;  // no block-wide barrier below
-  float* sc = sa_scores + warp * Nk;
-  const T* qp = q + seq * qs.b + tq * qs.t + h * qs.h;
-  const T* kp = k + seq * ks.b + h * ks.h;
-  const T* vp = v + seq * vs.b + h * vs.h;
-  const float* mrow = mask != nullptr ? mask + (size_t)tq * Nk : nullptr;
-
-  float m = -INFINITY;
-  for (int tk = 0; tk < Nk; ++tk) {
-    const float add = mrow != nullptr ? mrow[tk] : 0.f;
-    float s = -INFINITY;
-    if (add != -INFINITY) {  // the same for every lane of the warp
-      const T* kr = kp + tk * ks.t;
-      float p = 0.f;
-      for (int j = lane; j < hd; j += 32)
-        p = fmaf(to_f32(qp[j]), to_f32(kr[j]), p);
-      s = warp_sum(p) * scale + add;
-    }
-    if (lane == 0) sc[tk] = s;
-    m = fmaxf(m, s);
-  }
-  __syncwarp();
-  if (m == -INFINITY) m = 0.f;  // every key masked: all exp() below are 0
-  float sum = 0.f;
-  for (int tk = lane; tk < Nk; tk += 32) {
-    const float e = expf(sc[tk] - m);
-    sc[tk] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  for (int tk = lane; tk < Nk; tk += 32) {
-    const float p = sum > 0.f ? sc[tk] / sum : 0.f;
-    sc[tk] = to_f32(from_f32<T>(p));
-  }
-  __syncwarp();
-
-  T* o = out + (((size_t)seq * Nq + tq) * H + h) * hd;
-  for (int j = lane; j < hd; j += 32) {
-    float acc = 0.f;
-    for (int tk = 0; tk < Nk; ++tk) {
-      const float p = sc[tk];
-      if (p != 0.f) acc = fmaf(p, to_f32(vp[tk * vs.t + j]), acc);
-    }
-    o[j] = from_f32<T>(acc);
-  }
-}
-
-// Returns cudaErrorInvalidValue for Nk beyond SA_MAX_KEYS (nothing launched).
-template <typename T>
-static cudaError_t launch_strided_attention(const T* q, const T* k,
-                                            const T* v, const float* mask,
-                                            T* out, int n_seq, int Nq, int Nk,
-                                            int H, int hd, AttnStrides qs,
-                                            AttnStrides ks, AttnStrides vs,
-                                            cudaStream_t stream) {
-  if (Nq < 1 || Nk < 1 || Nk > SA_MAX_KEYS) return cudaErrorInvalidValue;
-  const int warps = Nq < SA_WARPS ? Nq : SA_WARPS;
-  const float scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
-  dim3 grid(n_seq * H, cdiv(Nq, warps));
-  strided_attention<T><<<grid, warps * 32, warps * Nk * sizeof(float),
-                         stream>>>(q, k, v, mask, out, Nq, Nk, H, hd, qs, ks,
-                                   vs, scale);
-  return cudaGetLastError();
 }
 
 }  // namespace afft

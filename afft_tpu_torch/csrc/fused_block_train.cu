@@ -22,11 +22,11 @@
 // four reading the (out, in) weight where it lies, as the K-major (N, K)
 // operand of gemm_nk (dropout, drop-path, the fp32 residual stream y and
 // the stashes of y and pre1 in the epilogues), the backward's dX reading it
-// as (K, N), the weight gradients on its TN route. No product runs on the
-// wmma GEMM. The attention (forward, and its recomputation in the attention
-// backward) is fuser_attention.cuh's rows kernel with dropout: every
-// element of qkv read once, 16 bytes at a time, into shared memory; its
-// bound is bytes (126 MB in, 42 MB out at the flagship shape, ~0.05 ms).
+// as (K, N), the weight gradients on its TN route. The attention (forward,
+// and its recomputation in the attention backward) is fuser_attention.cuh's
+// rows kernel with dropout: every element of qkv read once, 16 bytes at a
+// time, into shared memory; its bound is bytes (126 MB in, 42 MB out at the
+// flagship shape, ~0.05 ms).
 //
 // Limits: any R, 1 <= N <= 8 (the attention's), H * hd = C (any hd), C % 8
 // == 0, hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16

@@ -33,9 +33,8 @@
 // as (K, N), the backward's dX (dpre1 with the gelu_new derivative of the
 // stashed pre1 in its epilogue, dg, dattn, dxn with fp32 outs) reading it as
 // (N, K) on the K-major B route gemm_nk, the weight gradients on its TN
-// route; no product runs on the wmma GEMM. The attention, with the
-// backward's recomputation of it, is staged through shared memory
-// (staged_attention.cuh).
+// route. The attention, with the backward's recomputation of it, is staged
+// through shared memory (staged_attention.cuh).
 //
 // Limits: any B, 1 <= T <= 32, H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16

@@ -1,48 +1,67 @@
-// fuser_attention: the self-attention of the fuser blocks' serving forward,
-// softmax(q . k^T * hd^-0.5 + mask) . v over packed qkv rows (seq * S + t)
-// with [q | k | v] columns, heads minor: (n_seq * S, 3C) -> (n_seq * S, C).
+// fuser_attention: the attentions of the fuser blocks' serving forward and
+// of the attention over separate q, k, v.
 //
-// Replaces, for fused_block.cu (row 1: afft_tpu/ops/pallas_block.py
-// _block_kernel) and seq_block.cu (row 5: pallas_seq_block.py
-// _seq_block_kernel, and the self-attention stage of row 6), the attention
-// that ran one warp per query with 2-byte loads and a serial loop over the
-// keys, each query re-reading every key and value row of its (sequence,
-// head) through L1 / L2. At the served shapes the step is bound by bytes:
-// row 1 (R 4096 x 5 tokens, C 1024, bf16) reads 126 MB of qkv and writes 42
-// MB (~0.05 ms at 3.35 TB/s) for ~0.2 GFLOP; row 5 (B 256, S 40, hd 256)
-// reads 63 MB and writes 21 MB (~0.025 ms) for 1.7 GFLOP (17 GFLOP at S
-// 128). Here every element of q, k and v is read from device memory once,
-// 16 bytes at a time where the rows allow (hd a multiple of 8 in bf16, of 4
-// in fp32; else one element at a time, so any hd is taken), into shared
-// memory, and both products run from there:
-//   * fuser_attention_rows (row 1, S <= 8): a block stages up to 32 tokens
-//     of consecutive (row, head) pairs in chunks of 128 head columns; one
-//     thread a (query, key) pair keeps its partial score in a register
-//     across the chunks, one thread a query takes the softmax, and each
-//     thread computes 16 bytes of P . V. The probabilities stay fp32
+// Replaces the attentions of the TPU kernels of row 1 (afft_tpu/ops/
+// pallas_block.py _block_kernel, for fused_block.cu), row 4 (pallas_attn.py
+// _attn_kernel: the KV-cache rollout and CrossAttention, for attention.cu),
+// row 5 (pallas_seq_block.py _seq_block_kernel) and row 6 (its
+// _decoder_block_kernel's self-attention and cross-attention,
+// pallas_seq_block.py:104-132; both for seq_block.cu). At the served shapes
+// the step is bound by bytes: row 1 (R 4096 x 5 tokens, C 1024, bf16) reads
+// 126 MB of qkv and writes 42 MB (~0.05 ms at 3.35 TB/s); row 5 (B 256, S
+// 40, hd 256) reads 63 MB and writes 21 MB (~0.025 ms) for 1.7 GFLOP (17
+// GFLOP at S 128); row 4 at the rollout (B 256, 4 heads of 512) reads and
+// writes 67 MB at prefill (16 queries, 19 cache slots; ~0.020 ms) and 38 MB
+// a decode step (one query; ~0.011 ms). Every element of q, k and v is read
+// from device memory once a tile, 16 bytes at a time where the rows allow
+// (hd a multiple of 8 in bf16, of 4 in fp32, with row strides to match;
+// else one element at a time, so any hd is taken), into shared memory, and
+// both products run from there:
+//   * fuser_attention_rows (row 1, S <= 8, packed qkv): a block stages up to
+//     32 tokens of consecutive (row, head) pairs in chunks of 128 head
+//     columns; one thread a (query, key) pair keeps its partial score in a
+//     register across the chunks, one thread a query takes the softmax, and
+//     each thread computes 16 bytes of P . V. The probabilities stay fp32
 //     (pallas_block.py:164-176). Its DROP instance scales them by their
 //     dropout multipliers first: the fuser's training forward and the
 //     recomputation of it in the attention backward (train_block.cuh).
-//   * fuser_attention_seq_mma (rows 5, 6 in bf16, S <= 1024): a block takes
-//     a tile of up to 64 queries of one (sequence, head) and stages q and k
-//     in chunks of 64 keys x 64 head columns; each warp multiplies a strip
-//     of 16 queries by MT 8-key tiles on the tensor cores
-//     (mma.sync.m16n8k16, bf16 in, fp32 accumulate). Every score of the
+//   * fuser_attention_seq_mma (rows 4, 5, 6 in bf16, Nk <= 1024): q, k and
+//     v are three strided operands (sequence, token and head strides: packed
+//     qkv rows, a column slice of a packed projection, (B, Tmax, H, hd)
+//     caches, three (M, C) buffers), nothing is copied first. A block takes
+//     a tile of up to 64 queries of one (sequence, head). The tile's mask is
+//     read once into the score buffer, which tells which keys some query of
+//     the tile sees: a 64-key chunk that no query sees is neither read nor
+//     multiplied (half the chunks of a causal tile at S 1024, the unwritten
+//     cache slots of the rollout), and a key row no query sees is staged as
+//     zeros, so what lies in a masked slot never reaches the result. Only
+//     the rows of queries and keys that exist are staged. The chunks (64
+//     keys x 128 or 64 head columns) of q and k, then of v, stream through
+//     a ring of cp.async copies, one or two in flight while one is
+//     multiplied: one barrier a chunk, and up to 64 keys (the rollout's 19,
+//     the decoder's 10, row 5's 40) k and v are read from device memory
+//     once a block. Each warp multiplies a strip of 16 queries by MT 8-key
+//     tiles on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32
+//     accumulate; v's fragments through ldmatrix.trans). Every score of the
 //     tile stays in shared memory, so the softmax is exact over all keys;
-//     the probabilities are rounded to bf16 before P . V
-//     (pallas_seq_block.py:90-99), so they enter the second product, which
-//     runs the same way over 64-key chunks of v, exactly. The tile is 16
-//     or 32 queries up to 16 or 32 keys and 64 up to 256 keys (k and v read
-//     once up to 64 keys), then 32 and 16, so the scores fit the shared
-//     memory.
-//   * fuser_attention_seq_f32 (the same in fp32, for the parity checks):
-//     tiles of 16 queries, q, k and v staged as fp32, each thread one query
-//     x 4 keys (columns) of fp32 FMA on the CUDA cores.
+//     the probabilities are rounded to bf16 before P . V (pallas_attn.py:
+//     64-70, pallas_seq_block.py:90-99), so they enter the second product
+//     exactly. The tile is 16 queries up to 16 queries (a decode step's one
+//     query takes a 16-row tile: the step is bound by its k and v bytes) or
+//     beyond 512 keys, 32 up to 32 queries or beyond 256 keys, else 64, so
+//     the scores fit the shared memory. At the rollout's shapes what bounds
+//     a block is its work per chunk (barriers, index arithmetic), not the
+//     copies in flight: wider chunks and more blocks an SM are what moved
+//     its time (PERF.md).
+//   * fuser_attention_seq_f32 (the same operands in fp32, for the parity
+//     checks and the fp32 serving path): tiles of 16 queries staged
+//     synchronously as fp32, each thread one query x 4 keys (columns) of fp32
+//     FMA on the CUDA cores.
 // Scores and softmax in fp32, the scale applied after the dot, the row's
-// max subtracted. A key whose mask entry is -inf scores -inf (its dot
-// product is not used); a row whose keys are all masked gives zeros. Only
-// the sums' order differs from the plain version (fused_block.py
-// attention32).
+// max subtracted, the probabilities divided in fp32. A key whose mask entry
+// is -inf scores -inf (its dot product is not used); a row whose keys are
+// all masked gives zeros. Only the sums' order differs from the plain
+// versions (ops/_common.py softmax_attention32).
 
 #pragma once
 
@@ -202,21 +221,89 @@ static cudaError_t launch_fuser_attention_rows(const T* qkv, const float* mask,
 }
 
 // ---------------------------------------------------------------------------
-// rows 5 and 6: S <= 1024 tokens, probabilities rounded to T
+// the sequence attention: Nq queries over 1 <= Nk <= 1024 keys, q / k / v
+// strided, probabilities rounded to T (rows 4, 5, 6)
 // ---------------------------------------------------------------------------
+
+// Element (seq, token, head, j) of an operand lies at seq * b + token * t +
+// head * h + j: packed qkv rows, column slices of a packed projection and
+// (B, Tmax, H, hd) caches are all read where they are.
+struct AttnStrides {
+  long long b, t, h;  // elements between sequences, tokens and heads
+};
 
 constexpr int FS_THREADS = 256;  // 8 warps
 constexpr int FS_KC = 64;        // keys a chunk
-constexpr int FS_HC = 64;        // head columns a chunk
+constexpr int FS_HC = 64;        // head columns a chunk (fp32)
 constexpr int FS_MAX_KEYS = 1024;
+constexpr int FS_MAX_CHUNKS = FS_MAX_KEYS / FS_KC;
+// blocks an SM holds: 64 registers a thread. More blocks in flight beat a
+// few spilled registers (4 against 2 blocks: 20% less time at the
+// rollout's shapes, NVIDIA H100 80GB HBM3)
+constexpr int FS_MIN_BLOCKS = 4;
 
-// Softmax of rows 0 .. QT of sc (row stride SP; keys past S hold -inf), one
-// warp a row: fp32, the max subtracted, divided, rounded to T.
+// 16 bytes from device memory into shared memory without passing through
+// registers; with pred false nothing is read and the 16 bytes are zeroed
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The tile's mask, read from device memory once: sc[r][k] (row stride SP)
+// = the additive mask of query q0 + r and key k (0 without a mask), -inf
+// past Nk, for the tile's queries (the rows past Nq are left as they are:
+// their scores are never used); live[k] = some query of the tile sees key
+// k; chunks[] the 64-key chunks that hold a live key, in order. Returns
+// their number (every thread); ends with a barrier. kend is a multiple of
+// 64, so a warp's 32 keys take the same trips of the loop.
+__device__ __forceinline__ int stage_mask(float* sc, int QT, int SP, int kend,
+                                          const float* mask, int q0, int Nq,
+                                          int Nk, unsigned char* live,
+                                          unsigned char* live32, int* chunks,
+                                          int* n_chunks) {
+  const int tid = threadIdx.x, rows = min(QT, Nq - q0);
+  for (int k = tid; k < kend; k += FS_THREADS) {
+    bool l = false;
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      float m = -INFINITY;
+      if (k < Nk) m = mask != nullptr ? mask[(size_t)(q0 + r) * Nk + k] : 0.f;
+      sc[r * SP + k] = m;
+      l |= m != -INFINITY;
+    }
+    live[k] = l;
+    const bool any = __any_sync(0xffffffffu, l);
+    if ((tid & 31) == 0) live32[k >> 5] = any;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int c = 0; c < kend / FS_KC; ++c)
+      if (live32[2 * c] | live32[2 * c + 1]) chunks[n++] = c;
+    *n_chunks = n;
+  }
+  __syncthreads();
+  return *n_chunks;
+}
+
+// Softmax of rows 0 .. rows of sc (row stride SP; keys past Nk hold -inf),
+// one warp a row: fp32, the max subtracted, divided, rounded to T. A masked
+// key's probability is 0.
 template <typename T>
-__device__ __forceinline__ void softmax_rows(float* sc, int QT, int SP,
+__device__ __forceinline__ void softmax_rows(float* sc, int rows, int SP,
                                              int kend) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < QT; r += FS_THREADS / 32) {
+  for (int r = warp; r < rows; r += FS_THREADS / 32) {
     float* row = sc + r * SP;
     float m = -INFINITY;
     for (int k = lane; k < kend; k += 32) m = fmaxf(m, row[k]);
@@ -236,14 +323,9 @@ __device__ __forceinline__ void softmax_rows(float* sc, int QT, int SP,
   }
 }
 
-// The score of query q and key k from their fp32 dot: scaled, masked, -inf
-// past S or where the mask is -inf.
-__device__ __forceinline__ float masked_score(float dot, const float* mask,
-                                              int q, int k, int S,
-                                              float scale) {
-  if (q >= S || k >= S) return -INFINITY;
-  const float add = mask != nullptr ? mask[(size_t)q * S + k] : 0.f;
-  return add != -INFINITY ? dot * scale + add : -INFINITY;
+// The score of a (query, key) from its fp32 dot and its mask entry m.
+__device__ __forceinline__ float masked_score(float dot, float m, float scale) {
+  return m != -INFINITY ? dot * scale + m : -INFINITY;
 }
 
 // D(16x8, fp32) += A(16x16, row) . B(16x8, col), bf16 operands
@@ -256,181 +338,279 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The B fragment of a 16 x 8 tile of a row-major (keys x columns) operand
+// in shared memory: lane l gives row l % 16's 8 columns; the transposing
+// load hands each lane keys 2t, 2t + 1 (b[0]) and 2t + 8, 2t + 9 (b[1]) of
+// column g, as mma_16816 takes them.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&b)[2],
+                                                  const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(s));
+}
+
 // two consecutive bf16 as one register (the lower column in the low half)
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pair_of(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 __device__ __forceinline__ uint32_t pair_of(float lo, float hi) {
-  return pair_of(__float2bfloat16(lo), __float2bfloat16(hi));
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
 }
 
-constexpr int FM_LD = FS_HC + 8;  // bf16 row stride: 16 bytes of padding,
-                                  // so the 8 rows of a fragment load fall in
-                                  // 8 different bank quads
-
-// Rows r0 .. r0 + n of one bf16 operand (row stride ld, column offset folded
-// into src), columns 0 .. FS_HC, into dst (row stride FM_LD): zeros at or
-// past S and at or past column w, so every 16-column step of the products
-// reads zeros there.
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
-                                           size_t ld, int r0, int n, int S,
+// Rows r0 .. r0 + n of one bf16 operand (row t at src + t * ld, the chunk's
+// column offset folded into src), columns 0 .. HC, into dst (row stride HC
+// + 8: 16 bytes of padding, so the 8 rows of a fragment load fall in 8
+// different bank quads): cp.async 16-byte copies where vec (every row and
+// chunk start 16-byte aligned), else element by element. A row at or past
+// ``rows``, or whose key is not live, and the columns at or past w are
+// zeros (and are not read), so every 16-column step of the products reads
+// zeros there. Rows past n are left as they are: the callers stage only the
+// q rows of queries and the k rows of keys that exist (a product row or
+// column past them is never used), and the v rows up to the last 16-key
+// step.
+template <int HC>
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src,
+                                           long long ld, int r0, int n,
+                                           int rows, const unsigned char* live,
                                            int w, bool vec) {
+  constexpr int LD = HC + 8;
   if (vec) {  // w % 8 == 0
-    for (int i = threadIdx.x; i < n * (FS_HC / 8); i += FS_THREADS) {
-      const int r = i / (FS_HC / 8), c = (i % (FS_HC / 8)) * 8;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < S && c < w)
-        u = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c);
-      *reinterpret_cast<uint4*>(dst + r * FM_LD + c) = u;
+    for (int i = threadIdx.x; i < n * (HC / 8); i += FS_THREADS) {
+      const int r = i / (HC / 8), c = (i % (HC / 8)) * 8, t = r0 + r;
+      const bool ok = t < rows && c < w && (live == nullptr || live[t]);
+      cp_async16(dst + r * LD + c, ok ? src + t * ld + c : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < n * FS_HC; i += FS_THREADS) {
-      const int r = i / FS_HC, c = i % FS_HC;
-      dst[r * FM_LD + c] = r0 + r < S && c < w
-                               ? src[(size_t)(r0 + r) * ld + c]
-                               : __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < n * HC; i += FS_THREADS) {
+      const int r = i / HC, c = i % HC, t = r0 + r;
+      const bool ok = t < rows && c < w && (live == nullptr || live[t]);
+      dst[r * LD + c] = ok ? src[t * ld + c] : __float2bfloat16(0.f);
     }
   }
 }
 
-// One block a (sequence, head, tile of 16 * MT queries), bf16. Warp w takes
-// the 16 queries of strip w / (8 / MT) and MT of the 8-wide key (column)
-// tiles, from tile (w % (8 / MT)) * MT on. Dynamic shared memory:
-// fuser_attention_seq_mma_smem(MT, S) bytes.
-template <int MT>
-__global__ void __launch_bounds__(FS_THREADS)
-fuser_attention_seq_mma(const bf16* __restrict__ qkv,
+// One block a (sequence, head, tile of QT = 16 * MT queries), bf16. Warp w
+// takes the 16 queries of strip w / (8 / MT) and MT of the 8-wide key (or
+// column) tiles of each 64-wide group, from tile (w % (8 / MT)) * MT on.
+// Scores: the chunks (live key chunk of 64, HC head columns) of q and k
+// stream through a ring of NST stages of cp.async copies, NST - 1 in flight
+// while one is multiplied (one barrier a chunk); every score stays in
+// shared memory. P . V: the chunks (HC head columns, live key chunk) of v
+// stream through the same ring. The chunks are walked with cursors, not
+// divisions: at the rollout's shapes the block is bound by its work per
+// chunk (index arithmetic, barriers), not by the copies in flight.
+// Dynamic shared memory: fuser_attention_seq_mma_smem<MT, NST, HC>(Nk)
+// bytes.
+template <int MT, int NST, int HC>
+__global__ void __launch_bounds__(FS_THREADS, FS_MIN_BLOCKS)
+fuser_attention_seq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, AttnStrides qs,
+                        AttnStrides ks, AttnStrides vs,
                         const float* __restrict__ mask, bf16* __restrict__ out,
-                        int S, int H, int hd, float scale) {
+                        int Nq, int Nk, int H, int hd, float scale, bool vec) {
   constexpr int QT = 16 * MT, WPM = 8 / MT;  // queries; warps a strip
+  constexpr int LD = HC + 8;                   // bf16 row stride
+  constexpr int STAGE = (QT + FS_KC) * LD;     // a q chunk, a k or v chunk
+  constexpr int NG = HC / 64;                  // 64-column groups a chunk
   extern __shared__ __align__(16) float fs_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(fs_smem);    // [QT][FM_LD]: a q chunk
-  bf16* ks = qs + QT * FM_LD;                     // [FS_KC][FM_LD]: k, or v
-  float* sc = reinterpret_cast<float*>(ks + FS_KC * FM_LD);  // [QT][SP]
-  const int nkc = (S + FS_KC - 1) / FS_KC, kend = nkc * FS_KC;
+  __shared__ int chunks[FS_MAX_CHUNKS], n_chunks;
+  __shared__ unsigned char live32[FS_MAX_KEYS / 32];
+  bf16* stages = reinterpret_cast<bf16*>(fs_smem);
+  const int nkc = (Nk + FS_KC - 1) / FS_KC, kend = nkc * FS_KC;
   const int SP = kend + 1;
-  const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int C = H * hd, q0 = blockIdx.y * QT;
-  const size_t ld = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)seq * S * ld + (size_t)h * hd;
-  const bool vec = hd % 8 == 0;  // then every row and chunk start is aligned
+  float* sc = reinterpret_cast<float*>(stages + NST * STAGE);  // [QT][SP]
+  unsigned char* live = reinterpret_cast<unsigned char*>(sc + QT * SP);
+  const int seq = blockIdx.x / H, h = blockIdx.x % H, q0 = blockIdx.y * QT;
+  const bf16* qb = q + seq * qs.b + h * qs.h;
+  const bf16* kb = k + seq * ks.b + h * ks.h;
+  const bf16* vb = v + seq * vs.b + h * vs.h;
+  const int nhc = (hd + HC - 1) / HC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // the fragments' row and pair
   const int m0 = (warp / WPM) * 16;       // the warp's strip in the tile
-  const int n0 = (warp % WPM) * MT * 8;   // its first key (column) in 64
+  const int n0 = (warp % WPM) * MT * 8;   // its first key / column in 64
+  const int nq = min(QT, Nq - q0);        // the tile's queries
 
-  // 1. the tile's scores against every key, 64 keys at a time
-  for (int kc = 0; kc < nkc; ++kc) {
-    const int k0 = kc * FS_KC;
-    float acc[MT][4];
+  // the q chunk of the first item does not depend on the mask: its copies
+  // are in flight while the mask is read
+  load_chunk<HC>(stages, qb, qs.t, q0, nq, Nq, nullptr, min(HC, hd), vec);
+  const int nlive = stage_mask(sc, QT, SP, kend, mask, q0, Nq, Nk, live,
+                               live32, chunks, &n_chunks);
+
+  // 1. the tile's scores against the live key chunks; item (ci, cc) = (key
+  // chunk chunks[ci], head columns cc * HC), cc fastest
+  const int n1 = nlive * nhc;
+  int ici = 0, icc = 0;  // the next item to issue
+  auto issue1 = [&](int buf, bool with_q) {
+    bf16* st = stages + buf * STAGE;
+    const int c0 = icc * HC, w = min(HC, hd - c0), k0 = chunks[ici] * FS_KC;
+    if (with_q) load_chunk<HC>(st, qb + c0, qs.t, q0, nq, Nq, nullptr, w, vec);
+    load_chunk<HC>(st + QT * LD, kb + c0, ks.t, k0, min(FS_KC, Nk - k0), Nk,
+                   live, w, vec);
+    if (++icc == nhc) icc = 0, ++ici;
+  };
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < n1) issue1(i, i > 0);
+    cp_async_commit();
+  }
+  float acc[MT][4];
 #pragma unroll
-    for (int j = 0; j < MT; ++j)
+  for (int j = 0; j < MT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    for (int c0 = 0; c0 < hd; c0 += FS_HC) {
-      const int w = min(FS_HC, hd - c0);
-      __syncthreads();  // the previous chunk is read
-      stage_bf16(qs, base + c0, ld, q0, QT, S, w, vec);
-      stage_bf16(ks, base + C + c0, ld, k0, FS_KC, S, w, vec);
-      __syncthreads();
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  int ci = 0, cc = 0;  // the item multiplied
+  for (int i = 0; i < n1; ++i) {
+    cp_async_wait<NST - 2>();  // item i has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; item i - 1 is multiplied
+    if (i + NST - 1 < n1) issue1((i + NST - 1) % NST, true);
+    cp_async_commit();
+    const bf16* qsm = stages + (i % NST) * STAGE;
+    const bf16* ksm = qsm + QT * LD;
+    const int k0 = chunks[ci] * FS_KC, w = min(HC, hd - cc * HC);
+    if (k0 + n0 < Nk) {  // else every key of the warp's tiles is past Nk
       for (int kk = 0; kk < (w + 15) / 16; ++kk) {
-        const bf16* qa = qs + (m0 + g) * FM_LD + kk * 16 + 2 * t;
-        const uint32_t a[4] = {ld_pair(qa), ld_pair(qa + 8 * FM_LD),
-                               ld_pair(qa + 8), ld_pair(qa + 8 * FM_LD + 8)};
+        const bf16* qa = qsm + (m0 + g) * LD + kk * 16 + 2 * t;
+        const uint32_t a[4] = {ld_pair(qa), ld_pair(qa + 8 * LD),
+                               ld_pair(qa + 8), ld_pair(qa + 8 * LD + 8)};
 #pragma unroll
         for (int j = 0; j < MT; ++j) {
-          const bf16* kb = ks + (n0 + j * 8 + g) * FM_LD + kk * 16 + 2 * t;
-          const uint32_t b[2] = {ld_pair(kb), ld_pair(kb + 8)};
+          const bf16* kp = ksm + (n0 + j * 8 + g) * LD + kk * 16 + 2 * t;
+          const uint32_t b[2] = {ld_pair(kp), ld_pair(kp + 8)};
           mma_16816(acc[j], a, b);
         }
       }
     }
-    // accumulator e: row m0 + g (+ 8 for e >= 2), key n0 + 8j + 2t (+ 1)
+    if (++cc == nhc) {
+      // accumulator e: row m0 + g (+ 8 for e >= 2), key n0 + 8j + 2t (+ 1)
 #pragma unroll
-    for (int j = 0; j < MT; ++j)
+      for (int j = 0; j < MT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + g + (e >> 1) * 8, k = k0 + n0 + j * 8 + 2 * t +
-                                                 (e & 1);
-        sc[r * SP + k] = masked_score(acc[j][e], mask, q0 + r, k, S, scale);
-      }
+        for (int e = 0; e < 4; ++e) {
+          float* s = sc + (m0 + g + (e >> 1) * 8) * SP + k0 + n0 + j * 8 +
+                     2 * t + (e & 1);
+          *s = masked_score(acc[j][e], *s, scale);
+          acc[j][e] = 0.f;
+        }
+      cc = 0, ++ci;
+    }
   }
-  __syncthreads();
+  cp_async_wait<0>();
+  __syncthreads();  // every score is written; the ring is free
 
-  // 2. softmax
-  softmax_rows<bf16>(sc, QT, SP, kend);
+  // 3. P . V; item (cc, ci) = (head columns cc * HC, key chunk chunks[ci]),
+  // ci fastest, v into the ring's k slots, its first chunks in flight
+  // during the softmax
+  const int n3 = nlive * nhc;
+  ici = 0, icc = 0;
+  auto issue3 = [&](int buf) {
+    const int c0 = icc * HC, k0 = chunks[ici] * FS_KC;
+    load_chunk<HC>(stages + buf * STAGE + QT * LD, vb + c0, vs.t, k0,
+                   min(FS_KC, (Nk - k0 + 15) / 16 * 16), Nk, live,
+                   min(HC, hd - c0), vec);
+    if (++ici == nlive) ici = 0, ++icc;
+  };
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < n3) issue3(i);
+    cp_async_commit();
+  }
 
-  // 3. P . V, 64 head columns at a time, over every key chunk in order; the
-  // probabilities are bf16 values, so packing them is exact
-  bf16* obase = out + (size_t)seq * S * C + (size_t)h * hd;
-  for (int c0 = 0; c0 < hd; c0 += FS_HC) {
-    const int w = min(FS_HC, hd - c0);
-    float o[MT][4];
+  // 2. softmax; the probabilities are bf16 values, so packing them is exact
+  softmax_rows<bf16>(sc, nq, SP, kend);
+
+  bf16* ob = out + ((size_t)seq * Nq * H + h) * hd;
+  const size_t orow = (size_t)H * hd;  // elements between output rows
+  float o[NG][MT][4];
+  ci = 0, cc = 0;
+  for (int i = 0; i < n3; ++i) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // also orders the softmax before the first P . V
+    if (i + NST - 1 < n3) issue3((i + NST - 1) % NST);
+    cp_async_commit();
+    const bf16* vsm = stages + (i % NST) * STAGE + QT * LD;
+    const int k0 = chunks[ci] * FS_KC;
+    const int c0 = cc * HC, w = min(HC, hd - c0);
+    if (ci == 0) {
 #pragma unroll
-    for (int j = 0; j < MT; ++j)
+      for (int gi = 0; gi < NG; ++gi)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-    for (int kc = 0; kc < nkc; ++kc) {
-      const int k0 = kc * FS_KC;
-      __syncthreads();  // the softmax, or the previous chunk, is done
-      stage_bf16(ks, base + 2 * (size_t)C + c0, ld, k0, FS_KC, S, w, vec);
-      __syncthreads();
+        for (int j = 0; j < MT; ++j)
 #pragma unroll
-      for (int kk = 0; kk < FS_KC / 16; ++kk) {
-        const float* pa = sc + (m0 + g) * SP + k0 + kk * 16 + 2 * t;
-        const uint32_t a[4] = {pair_of(pa[0], pa[1]),
-                               pair_of(pa[8 * SP], pa[8 * SP + 1]),
-                               pair_of(pa[8], pa[9]),
-                               pair_of(pa[8 * SP + 8], pa[8 * SP + 9])};
+          for (int e = 0; e < 4; ++e) o[gi][j][e] = 0.f;
+    }
+    const int ksteps = min(FS_KC / 16, (Nk - k0 + 15) / 16);
+    for (int kk = 0; kk < ksteps; ++kk) {
+      const float* pa = sc + (m0 + g) * SP + k0 + kk * 16 + 2 * t;
+      const uint32_t a[4] = {pair_of(pa[0], pa[1]),
+                             pair_of(pa[8 * SP], pa[8 * SP + 1]),
+                             pair_of(pa[8], pa[9]),
+                             pair_of(pa[8 * SP + 8], pa[8 * SP + 9])};
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) {
+        if (gi * 64 + n0 >= w) break;  // the warp's columns are past hd
 #pragma unroll
         for (int j = 0; j < MT; ++j) {
-          // B (keys x columns): keys 2t, 2t + 1 (+ 8) of column n0 + 8j + g
-          const bf16* vb = ks + (kk * 16 + 2 * t) * FM_LD + n0 + j * 8 + g;
-          const uint32_t b[2] = {pair_of(vb[0], vb[FM_LD]),
-                                 pair_of(vb[8 * FM_LD], vb[9 * FM_LD])};
-          mma_16816(o[j], a, b);
+          uint32_t b[2];
+          ldmatrix_x2_trans(b, vsm + (kk * 16 + (lane & 15)) * LD + gi * 64 +
+                                   n0 + j * 8);
+          mma_16816(o[gi][j], a, b);
         }
       }
     }
+    if (++ci == nlive) {
+      // accumulator e: row m0 + g (+ 8 for e >= 2), column gi * 64 + n0 +
+      // 8j + 2t (+ 1)
 #pragma unroll
-    for (int j = 0; j < MT; ++j)
+      for (int gi = 0; gi < NG; ++gi)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = q0 + m0 + g + (e >> 1) * 8;
-        const int c = n0 + j * 8 + 2 * t + (e & 1);
-        if (q < S && c < w)
-          obase[(size_t)q * C + c0 + c] = __float2bfloat16(o[j][e]);
-      }
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int qr = m0 + g + hr * 8;
+            const int c = gi * 64 + n0 + j * 8 + 2 * t;
+            if (qr >= nq || c >= w) continue;
+            bf16* dst = ob + (q0 + qr) * orow + c0 + c;
+            const float lo = o[gi][j][2 * hr], hi = o[gi][j][2 * hr + 1];
+            if (vec) {  // c is even and hd a multiple of 8
+              *reinterpret_cast<__nv_bfloat162*>(dst) =
+                  __floats2bfloat162_rn(lo, hi);
+            } else {
+              dst[0] = __float2bfloat16(lo);
+              if (c + 1 < w) dst[1] = __float2bfloat16(hi);
+            }
+          }
+      ci = 0, ++cc;
+    }
   }
+  // a tile whose keys are all masked has no item: its rows are zeros
+  if (nlive == 0)
+    for (int i = threadIdx.x; i < nq * hd; i += FS_THREADS)
+      ob[(q0 + i / hd) * orow + i % hd] = __float2bfloat16(0.f);
 }
 
-static inline size_t fuser_attention_seq_mma_smem(int MT, int S) {
-  const int QT = 16 * MT;
-  return (size_t)(QT + FS_KC) * FM_LD * sizeof(bf16) +
-         (size_t)QT * (cdiv(S, FS_KC) * FS_KC + 1) * sizeof(float);
+template <int MT, int NST, int HC>
+static inline size_t fuser_attention_seq_mma_smem(int Nk) {
+  const int kend = cdiv(Nk, FS_KC) * FS_KC;
+  return (size_t)NST * (16 * MT + FS_KC) * (HC + 8) * sizeof(bf16) +
+         (size_t)16 * MT * (kend + 1) * sizeof(float) + kend;
 }
 
-template <int MT>
-static cudaError_t launch_fuser_attention_seq_mma(const bf16* qkv,
-                                                  const float* mask, bf16* out,
-                                                  int n_seq, int S, int H,
-                                                  int hd,
-                                                  cudaStream_t stream) {
-  const size_t smem = fuser_attention_seq_mma_smem(MT, S);
+template <int MT, int NST, int HC>
+static cudaError_t launch_fuser_attention_seq_mma(
+    const bf16* q, const bf16* k, const bf16* v, AttnStrides qs,
+    AttnStrides ks, AttnStrides vs, const float* mask, bf16* out, int n_seq,
+    int Nq, int Nk, int H, int hd, bool vec, cudaStream_t stream) {
+  const size_t smem = fuser_attention_seq_mma_smem<MT, NST, HC>(Nk);
   const cudaError_t err = cudaFuncSetAttribute(
-      fuser_attention_seq_mma<MT>,
+      fuser_attention_seq_mma<MT, NST, HC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
-  const dim3 grid(n_seq * H, cdiv(S, 16 * MT));
-  fuser_attention_seq_mma<MT><<<grid, FS_THREADS, smem, stream>>>(
-      qkv, mask, out, S, H, hd, scale);
+  const dim3 grid(n_seq * H, cdiv(Nq, 16 * MT));
+  fuser_attention_seq_mma<MT, NST, HC><<<grid, FS_THREADS, smem, stream>>>(
+      q, k, v, qs, ks, vs, mask, out, Nq, Nk, H, hd, scale, vec);
   return cudaGetLastError();
 }
 
@@ -440,18 +620,20 @@ constexpr int FF_QT = 16;            // queries a block
 constexpr int FF_QLD = FF_QT + 4;    // row stride of the transposed q chunk
 constexpr int FF_KLD = FS_KC + 4;    // row stride of a staged k / v chunk
 
-// Rows r0 .. r0 + n of one fp32 operand (row stride ld, column offset
-// folded into src), columns 0 .. w, into dst: at [c * dld + r] with TRANS,
-// else [r * dld + c]. Rows at or past S are zeros.
+// Rows r0 .. r0 + n of one fp32 operand (row t at src + t * ld, the chunk's
+// column offset folded into src), columns 0 .. w, into dst: at
+// [c * dld + r] with TRANS, else [r * dld + c]. A row at or past ``rows``,
+// or whose key is not live, is zeros (and is not read).
 template <bool TRANS>
 __device__ __forceinline__ void stage_f32(float* dst, int dld, const float* src,
-                                          size_t ld, int r0, int n, int S,
+                                          long long ld, int r0, int n,
+                                          int rows, const unsigned char* live,
                                           int w, bool vec) {
   const int step = vec ? 4 : 1, per_row = w / step;
   for (int i = threadIdx.x; i < n * per_row; i += FS_THREADS) {
-    const int r = i / per_row, c = (i % per_row) * step;
-    const bool in = r0 + r < S;
-    const float* s = src + (size_t)(r0 + r) * ld + c;
+    const int r = i / per_row, c = (i % per_row) * step, tr = r0 + r;
+    const bool in = tr < rows && (live == nullptr || live[tr]);
+    const float* s = src + tr * ld + c;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
     if (in && vec)
       unpack16<float>(*reinterpret_cast<const uint4*>(s), f);
@@ -467,42 +649,53 @@ __device__ __forceinline__ void stage_f32(float* dst, int dld, const float* src,
 }
 
 // One block a (sequence, head, tile of 16 queries); thread (ty, tx) takes
-// query ty and keys (columns) 4 tx .. 4 tx + 3 of a chunk. Dynamic shared
-// memory: fuser_attention_seq_f32_smem(S) bytes. (Not a template, so static:
+// query ty and keys (columns) 4 tx .. 4 tx + 3 of a chunk; the chunks are
+// staged synchronously (the parity path). Dynamic shared memory:
+// fuser_attention_seq_f32_smem(Nk) bytes. (Not a template, so static:
 // every .cu that includes this header gets its own.)
 static __global__ void __launch_bounds__(FS_THREADS)
-fuser_attention_seq_f32(const float* __restrict__ qkv,
+fuser_attention_seq_f32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, AttnStrides qs,
+                        AttnStrides ks, AttnStrides vs,
                         const float* __restrict__ mask,
-                        float* __restrict__ out, int S, int H, int hd,
-                        float scale) {
+                        float* __restrict__ out, int Nq, int Nk, int H, int hd,
+                        float scale, bool vec) {
   extern __shared__ __align__(16) float fs_smem[];
-  float* qs = fs_smem;                  // [FS_HC][FF_QLD]: q, transposed
-  float* ks = qs + FS_HC * FF_QLD;      // [FS_HC][FF_KLD]: k, transposed;
+  __shared__ int chunks[FS_MAX_CHUNKS], n_chunks;
+  __shared__ unsigned char live32[FS_MAX_KEYS / 32];
+  float* qsm = fs_smem;                 // [FS_HC][FF_QLD]: q, transposed
+  float* ksm = qsm + FS_HC * FF_QLD;    // [FS_HC][FF_KLD]: k, transposed;
                                         // later [FS_KC][FF_KLD] v
-  float* sc = ks + FS_HC * FF_KLD;      // [FF_QT][SP]: scores, probabilities
-  const int nkc = (S + FS_KC - 1) / FS_KC, kend = nkc * FS_KC;
+  float* sc = ksm + FS_HC * FF_KLD;     // [FF_QT][SP]: scores, probabilities
+  const int nkc = (Nk + FS_KC - 1) / FS_KC, kend = nkc * FS_KC;
   const int SP = kend + 1;
+  unsigned char* live = reinterpret_cast<unsigned char*>(sc + FF_QT * SP);
   const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int C = H * hd, q0 = blockIdx.y * FF_QT;
-  const size_t ld = 3 * (size_t)C;
-  const float* base = qkv + (size_t)seq * S * ld + (size_t)h * hd;
-  const bool vec = hd % 4 == 0;  // then every row and chunk start is aligned
+  const int q0 = blockIdx.y * FF_QT;
+  const float* qb = q + seq * qs.b + h * qs.h;
+  const float* kb = k + seq * ks.b + h * ks.h;
+  const float* vb = v + seq * vs.b + h * vs.h;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int nlive = stage_mask(sc, FF_QT, SP, kend, mask, q0, Nq, Nk, live,
+                               live32, chunks, &n_chunks);
 
-  // 1. the tile's scores against every key, 64 keys at a time
-  for (int kc = 0; kc < nkc; ++kc) {
-    const int k0 = kc * FS_KC;
+  // 1. the tile's scores against the live key chunks
+  for (int ci = 0; ci < nlive; ++ci) {
+    const int k0 = chunks[ci] * FS_KC;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int c0 = 0; c0 < hd; c0 += FS_HC) {
       const int w = min(FS_HC, hd - c0);
       __syncthreads();  // the previous chunk is read
-      stage_f32<true>(qs, FF_QLD, base + c0, ld, q0, FF_QT, S, w, vec);
-      stage_f32<true>(ks, FF_KLD, base + C + c0, ld, k0, FS_KC, S, w, vec);
+      stage_f32<true>(qsm, FF_QLD, qb + c0, qs.t, q0, FF_QT, Nq, nullptr, w,
+                      vec);
+      stage_f32<true>(ksm, FF_KLD, kb + c0, ks.t, k0, FS_KC, Nk, live, w,
+                      vec);
       __syncthreads();
       for (int c = 0; c < w; ++c) {
-        const float a = qs[c * FF_QLD + ty];
+        const float a = qsm[c * FF_QLD + ty];
         const float4 b =
-            *reinterpret_cast<const float4*>(ks + c * FF_KLD + tx * 4);
+            *reinterpret_cast<const float4*>(ksm + c * FF_KLD + tx * 4);
         acc[0] = fmaf(a, b.x, acc[0]);
         acc[1] = fmaf(a, b.y, acc[1]);
         acc[2] = fmaf(a, b.z, acc[2]);
@@ -510,79 +703,103 @@ fuser_attention_seq_f32(const float* __restrict__ qkv,
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sc[ty * SP + k0 + tx * 4 + j] =
-          masked_score(acc[j], mask, q0 + ty, k0 + tx * 4 + j, S, scale);
+    for (int j = 0; j < 4; ++j) {
+      float* s = sc + ty * SP + k0 + tx * 4 + j;
+      *s = masked_score(acc[j], *s, scale);
+    }
   }
   __syncthreads();
 
   // 2. softmax
-  softmax_rows<float>(sc, FF_QT, SP, kend);
+  softmax_rows<float>(sc, min(FF_QT, Nq - q0), SP, kend);
 
-  // 3. P . V, 64 head columns at a time, over every key chunk in order
-  float* obase = out + (size_t)seq * S * C + (size_t)h * hd;
+  // 3. P . V, 64 head columns at a time, over every live key chunk in order
+  float* ob = out + ((size_t)seq * Nq * H + h) * hd;
+  const size_t orow = (size_t)H * hd;
   for (int c0 = 0; c0 < hd; c0 += FS_HC) {
     const int w = min(FS_HC, hd - c0);
     float o[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kc = 0; kc < nkc; ++kc) {
-      const int k0 = kc * FS_KC;
+    for (int ci = 0; ci < nlive; ++ci) {
+      const int k0 = chunks[ci] * FS_KC;
       __syncthreads();  // the softmax, or the previous chunk, is done
-      stage_f32<false>(ks, FF_KLD, base + 2 * (size_t)C + c0, ld, k0, FS_KC,
-                       S, w, vec);
+      stage_f32<false>(ksm, FF_KLD, vb + c0, vs.t, k0, FS_KC, Nk, live, w,
+                       vec);
       __syncthreads();
-      for (int k = 0; k < FS_KC; ++k) {
-        const float p = sc[ty * SP + k0 + k];
-        const float4 v =
-            *reinterpret_cast<const float4*>(ks + k * FF_KLD + tx * 4);
-        o[0] = fmaf(p, v.x, o[0]);
-        o[1] = fmaf(p, v.y, o[1]);
-        o[2] = fmaf(p, v.z, o[2]);
-        o[3] = fmaf(p, v.w, o[3]);
+      for (int kk = 0; kk < FS_KC; ++kk) {
+        const float p = sc[ty * SP + k0 + kk];
+        const float4 vv =
+            *reinterpret_cast<const float4*>(ksm + kk * FF_KLD + tx * 4);
+        o[0] = fmaf(p, vv.x, o[0]);
+        o[1] = fmaf(p, vv.y, o[1]);
+        o[2] = fmaf(p, vv.z, o[2]);
+        o[3] = fmaf(p, vv.w, o[3]);
       }
     }
-    const int q = q0 + ty;
+    const int qr = q0 + ty;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (q < S && tx * 4 + j < w)
-        obase[(size_t)q * C + c0 + tx * 4 + j] = o[j];
+      if (qr < Nq && tx * 4 + j < w) ob[qr * orow + c0 + tx * 4 + j] = o[j];
   }
 }
 
-static inline size_t fuser_attention_seq_f32_smem(int S) {
-  return ((size_t)FS_HC * (FF_QLD + FF_KLD) +
-          (size_t)FF_QT * (cdiv(S, FS_KC) * FS_KC + 1)) *
-         sizeof(float);
+static inline size_t fuser_attention_seq_f32_smem(int Nk) {
+  const int kend = cdiv(Nk, FS_KC) * FS_KC;
+  return ((size_t)FS_HC * (FF_QLD + FF_KLD) + (size_t)FF_QT * (kend + 1)) *
+             sizeof(float) + kend;
 }
 
-// bf16 on the tensor cores, a tile of 16 or 32 queries up to 16 or 32 keys
-// and of 64 up to 256 keys (k and v read once up to 64 keys), then 32 and 16
-// (the tile's scores stay <= 64 KB); fp32 on the CUDA cores, 16 queries a
-// tile. Returns cudaErrorInvalidValue for S outside 1..1024 (nothing
-// launched).
+// Every row and chunk start of the three operands is 16-byte aligned.
 template <typename T>
-static cudaError_t launch_fuser_attention_seq(const T* qkv, const float* mask,
-                                              T* out, int n_seq, int S, int H,
-                                              int hd, cudaStream_t stream) {
-  if (S < 1 || S > FS_MAX_KEYS) return cudaErrorInvalidValue;
+static bool attn_rows_aligned(const T* q, const T* k, const T* v,
+                              AttnStrides qs, AttnStrides ks, AttnStrides vs,
+                              int hd) {
+  constexpr long long V = 16 / sizeof(T);
+  const auto on_grid = [](const AttnStrides& s) {
+    return s.b % V == 0 && s.t % V == 0 && s.h % V == 0;
+  };
+  return hd % V == 0 && on_grid(qs) && on_grid(ks) && on_grid(vs) &&
+         ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+}
+
+// out (n_seq, Nq, H, hd), contiguous = softmax(q . k^T * hd^-0.5 + mask) . v
+// for q (n_seq, Nq, H, hd) and k, v (n_seq, Nk, H, hd) given by their
+// strides (unit stride along hd), mask fp32 (Nq, Nk) or null. bf16 on the
+// tensor cores: a tile of 16 queries up to 16 queries or beyond 512 keys
+// (chunks of 128 head columns, two stages: the rollout's prefill and
+// decode, the decoder block at S 10), of 32 up to 32 queries or beyond 256
+// keys (64 columns, three stages), else of 64 (64 columns, two stages), so
+// the tile's scores stay <= 64 KB and 4 blocks fit an SM; fp32 on the CUDA
+// cores, 16 queries a tile. Returns cudaErrorInvalidValue for Nq < 1 or Nk
+// outside 1..1024 (nothing launched).
+template <typename T>
+static cudaError_t launch_fuser_attention_seq(const T* q, const T* k,
+                                              const T* v, AttnStrides qs,
+                                              AttnStrides ks, AttnStrides vs,
+                                              const float* mask, T* out,
+                                              int n_seq, int Nq, int Nk,
+                                              int H, int hd,
+                                              cudaStream_t stream) {
+  if (Nq < 1 || Nk < 1 || Nk > FS_MAX_KEYS) return cudaErrorInvalidValue;
+  const bool vec = attn_rows_aligned<T>(q, k, v, qs, ks, vs, hd);
   if constexpr (std::is_same<T, bf16>::value) {
-    if (S <= 16 || S > 512)
-      return launch_fuser_attention_seq_mma<1>(qkv, mask, out, n_seq, S, H,
-                                               hd, stream);
-    if (S <= 32 || S > 256)
-      return launch_fuser_attention_seq_mma<2>(qkv, mask, out, n_seq, S, H,
-                                               hd, stream);
-    return launch_fuser_attention_seq_mma<4>(qkv, mask, out, n_seq, S, H, hd,
-                                             stream);
+    if (Nq <= 16 || Nk > 512)
+      return launch_fuser_attention_seq_mma<1, 2, 128>(
+          q, k, v, qs, ks, vs, mask, out, n_seq, Nq, Nk, H, hd, vec, stream);
+    if (Nq <= 32 || Nk > 256)
+      return launch_fuser_attention_seq_mma<2, 3, 64>(
+          q, k, v, qs, ks, vs, mask, out, n_seq, Nq, Nk, H, hd, vec, stream);
+    return launch_fuser_attention_seq_mma<4, 2, 64>(
+        q, k, v, qs, ks, vs, mask, out, n_seq, Nq, Nk, H, hd, vec, stream);
   } else {
-    const size_t smem = fuser_attention_seq_f32_smem(S);
+    const size_t smem = fuser_attention_seq_f32_smem(Nk);
     const cudaError_t err = cudaFuncSetAttribute(
         fuser_attention_seq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
     const float scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
-    const dim3 grid(n_seq * H, cdiv(S, FF_QT));
+    const dim3 grid(n_seq * H, cdiv(Nq, FF_QT));
     fuser_attention_seq_f32<<<grid, FS_THREADS, smem, stream>>>(
-        qkv, mask, out, S, H, hd, scale);
+        q, k, v, qs, ks, vs, mask, out, Nq, Nk, H, hd, scale, vec);
     return cudaGetLastError();
   }
 }

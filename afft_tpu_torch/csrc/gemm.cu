@@ -18,7 +18,9 @@
 // and EPI_BIAS with an fp32 out (dg, dattn, dxn). EPI_BIAS_RES takes a
 // bf16 residual and out, and both take a bf16 residual and an fp32 out
 // (proj into the residual stream y) or an fp32 residual (res_f32) and a
-// bf16 out (fc2 adding y).
+// bf16 out (fc2 adding y); EPI_BIAS_RES also an fp32 residual and an fp32
+// out, which may be the residual itself (the decoder block's cross proj,
+// y += cross . Wcproj^T + b).
 // afft_gemm_tn: the weight gradient out (I, J) fp32 = A^T . B over M rows.
 
 #include "gemm_sm90.cuh"
@@ -41,16 +43,19 @@ extern "C" int afft_gemm(int epi, int out_f32, int w_nk, int res_f32,
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* W = static_cast<const bf16*>(w);
   if (w_nk) {
-    if (res_f32 && out_f32) return (int)cudaErrorInvalidValue;
     if (epi == EPI_BIAS_RES) {
       if (res_f32)
-        return (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true, float>(
-            A, W, M, N, K, ea, s);
+        return out_f32
+                   ? (int)launch_gemm_sm90<EPI_BIAS_RES, float, true, float>(
+                         A, W, M, N, K, ea, s)
+                   : (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true, float>(
+                         A, W, M, N, K, ea, s);
       return out_f32 ? (int)launch_gemm_sm90<EPI_BIAS_RES, float, true>(
                            A, W, M, N, K, ea, s)
                      : (int)launch_gemm_sm90<EPI_BIAS_RES, bf16, true>(
                            A, W, M, N, K, ea, s);
     }
+    if (res_f32 && out_f32) return (int)cudaErrorInvalidValue;
     if (epi == EPI_RES_DROP) {
       if (res_f32)
         return (int)launch_gemm_sm90<EPI_RES_DROP, bf16, true, float>(

@@ -13,17 +13,13 @@
 //   * the weight gradient out[I,J] = sum_m A[m,I] B[m,J] (gemm_tn_sm90), for
 //     A (M, I) and B (M, J) row-major, both MN-major, fp32 out written whole.
 //
-// Takes the place of the wmma GEMM (common.cuh gemm_bf16: nvcuda::wmma
-// 16x16x16, two cp.async stages of 128x128x32 in 40 KB of static shared
-// memory, an epilogue of scalar stores) for the bf16 products of the GPT-2
-// serving halves (fused_gpt2.cu), the fuser's serving forward (rows 1, 5
-// and the self-attention / MLP stages of 6) and every product of both
-// training layers: forward (train_block.cuh fwd_gemm), backward dX
-// (launch_dx) and weight gradients (launch_dw). Only the decoder block's
-// cross stage (seq_block.cu) still runs gemm_bf16. At their shapes (M =
-// 4096 to 20480 rows, K 1024..20480, N 1024..8192) a product does 34-172
-// GFLOP against 25-130 MB: it is bound by the tensor cores (989 TFLOP/s
-// bf16), and wmma reached 6-20% of that. What the design does about it:
+// Runs every bf16 product of the port's entries: the GPT-2 serving halves
+// (fused_gpt2.cu), the fuser's serving forward (rows 1, 5 and every stage of
+// 6: seq_block.cu) and every product of both training layers: forward
+// (train_block.cuh fwd_gemm), backward dX (launch_dx) and weight gradients
+// (launch_dw). At their shapes (M = 2560 to 20480 rows, K 1024..20480, N
+// 1024..8192) a product does 5-172 GFLOP against 8-130 MB: it is bound by
+// the tensor cores (989 TFLOP/s bf16). What the design does about it:
 //   * wgmma.mma_async m64n256k16, bf16 in, fp32 accumulators in registers
 //     (128 a thread): the only route to the full tensor-core rate;
 //   * TMA tile loads with 128-byte swizzle into a ring of four 48 KB stages
@@ -237,7 +233,10 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 // residual stream y) or EPI_RES_DROP over a bf16 residual (its training
 // proj into y, y stashed in bf16); the residual is bf16, or fp32 with
 // EPI_BIAS_RES or EPI_RES_DROP into a bf16 output (the fuser's fc2 adding
-// y); stashes are bf16.
+// y), or both fp32 with EPI_BIAS_RES (the decoder block's cross proj adding
+// into y); stashes are bf16. res may be out (y += ...): the thread that
+// loads res + at stores out + at in the same call, and output tiles are
+// disjoint, so no element is read after it is written.
 template <int EPI, typename TRes, typename TOut>
 __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
                                           int N, const float* acc,

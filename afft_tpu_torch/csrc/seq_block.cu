@@ -8,7 +8,7 @@
 // equal-length memory stream, MLP). On the TPU each is one pallas_call with
 // the block's 25-32 MB of bf16 weights resident in VMEM; an SM has 227 KB of
 // shared memory, so here each is a sequence of launches on one stream, built
-// from common.cuh:
+// from common.cuh, gemm_sm90.cuh and fuser_attention.cuh:
 //   seq block (7 launches): LN1 -> qkv GEMM (+bias, rounded) -> attention over
 //     S tokens with the (S, S) mask -> proj GEMM (+bias, + x, into fp32 y) ->
 //     LN2 on fp32 y -> fc1 GEMM (+bias, exact-erf GELU, rounded) -> fc2 GEMM
@@ -28,16 +28,15 @@
 // block at S = 40 does 2 * 10240 * 1024 * 12288 + 4 * 256 * 40 * 40 * 1024 =
 // ~259 GFLOP against ~67 MB, the decoder block at S = 10 ~86 GFLOP against
 // ~49 MB: both bound by the tensor cores (~0.26 and ~0.09 ms at 989 TFLOP/s).
-// The GEMMs run on the tensor cores with bias, activation, residual and cast
-// fused into their epilogues. The self-attention and MLP stages (the whole
-// seq block; the decoder's first and last stage) run in bf16 on the wgmma /
-// TMA GEMM of gemm_sm90.cuh, which reads the nn.Linear (out, in) weights
-// where they lie (gemm_nk), and their attention reads each element of qkv
-// once into shared memory (fuser_attention.cuh fuser_attention_seq); the
-// decoder's cross-attention stage keeps the wmma gemm_bf16 and
-// strided_attention (one warp per query). The decoder block at S = 10 is 14
-// short launches over 2,560 rows, so launch latency and partly filled GEMM
-// tiles weigh on it.
+// Every stage runs in bf16 on the wgmma / TMA GEMM of gemm_sm90.cuh, which
+// reads the nn.Linear (out, in) weights where they lie (gemm_nk), with bias,
+// activation, residual and cast fused into its epilogues (the cross proj
+// adds into the fp32 residual stream in place), and on the sequence
+// attention of fuser_attention.cuh (fuser_attention_seq: mma.sync tensor
+// cores, cp.async staging), which reads q, k and v where they lie: the
+// self-attention in the packed qkv rows, the cross-attention in three (M, C)
+// buffers. The decoder block at S = 10 is 14 short launches over 2,560 rows,
+// so launch latency and partly filled GEMM tiles weigh on it.
 //
 // Limits: any B, 1 <= S <= 1024, H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0, fp32 or bf16; every LayerNorm affine and the qkv / w_q /
@@ -89,8 +88,11 @@ static int run_self_attn_stage(const T* x, const T* lng, const T* lnb,
   AFFT_CHECK_LAUNCH();
   AFFT_CHECK((gemm_nk<EPI_BIAS, T, T, T>(tmp, wqkv, M, 3 * C, C,
                                          EpiArgs{bqkv, nullptr, qkv}, s)));
-  AFFT_CHECK(launch_fuser_attention_seq<T>(qkv, mask, tmp, B, S, H, C / H,
-                                           s));
+  // q, k and v in place in the packed rows: columns 0, C and 2C
+  const int hd = C / H;
+  const AttnStrides st{(long long)S * 3 * C, 3 * C, hd};
+  AFFT_CHECK(launch_fuser_attention_seq<T>(qkv, qkv + C, qkv + 2 * C, st, st,
+                                           st, mask, tmp, B, S, S, H, hd, s));
   AFFT_CHECK((gemm_nk<EPI_BIAS_RES, T, T, float>(tmp, wproj, M, C, C,
                                                  EpiArgs{bproj, x, y}, s)));
   return 0;
@@ -132,24 +134,21 @@ static int run_decoder_block(const T* x, const T* mem, const void* const* pv,
   AFFT_CHECK_LAUNCH();
   launch_layernorm<T, T>(mem, p[DP_LNKG], p[DP_LNKB], tmp2, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS, false, T, T>(tmp, p[DP_WQ], M, C, C,
-                                     EpiArgs{p[DP_BQ], nullptr, qb}, s);
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS, false, T, T>(tmp2, p[DP_WK], M, C, C,
-                                     EpiArgs{p[DP_BK], nullptr, kb}, s);
-  AFFT_CHECK_LAUNCH();
-  launch_gemm<EPI_BIAS, false, T, T>(tmp2, p[DP_WV], M, C, C,
-                                     EpiArgs{p[DP_BV], nullptr, vb}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((gemm_nk<EPI_BIAS, T, T, T>(tmp, p[DP_WQ], M, C, C,
+                                         EpiArgs{p[DP_BQ], nullptr, qb}, s)));
+  AFFT_CHECK((gemm_nk<EPI_BIAS, T, T, T>(tmp2, p[DP_WK], M, C, C,
+                                         EpiArgs{p[DP_BK], nullptr, kb}, s)));
+  AFFT_CHECK((gemm_nk<EPI_BIAS, T, T, T>(tmp2, p[DP_WV], M, C, C,
+                                         EpiArgs{p[DP_BV], nullptr, vb}, s)));
   const int hd = C / H;
   const AttnStrides st{(long long)S * C, C, hd};
-  AFFT_CHECK(launch_strided_attention<T>(qb, kb, vb, mask, tmp, B, S, S, H,
-                                         hd, st, st, st, s));
-  // x2 = x1 + proj(cross), in place: each element of y is read and then
-  // written by the same thread of the epilogue
-  launch_gemm<EPI_BIAS_RES, false, float, float>(
-      tmp, p[DP_WCPROJ], M, C, C, EpiArgs{p[DP_BCPROJ], y, y}, s);
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK(launch_fuser_attention_seq<T>(qb, kb, vb, st, st, st, mask, tmp,
+                                           B, S, S, H, hd, s));
+  // x2 = x1 + proj(cross), fp32, in place: epilogue8 loads each residual
+  // element and stores its output in the same thread and call, and output
+  // tiles are disjoint, so no element is read after it is written
+  AFFT_CHECK((gemm_nk<EPI_BIAS_RES, T, float, float>(
+      tmp, p[DP_WCPROJ], M, C, C, EpiArgs{p[DP_BCPROJ], y, y}, s)));
   return run_mlp_stage<T>(y, p[DP_LNMG], p[DP_LNMB], p[DP_WFC1], p[DP_BFC1],
                           p[DP_WFC2], p[DP_BFC2], tmp, h1, out, M, C, hidden,
                           eps, s);

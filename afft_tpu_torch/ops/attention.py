@@ -5,9 +5,14 @@ Replaces ``afft_tpu/ops/pallas_attn.py:fused_attention`` and the dispatch of
 KV-cache rollout of the predictor (new tokens against a preallocated cache)
 and the cross-attention of the CA-Fuser's module path.
 
-``fused_attention`` launches the kernel (``csrc/attention.cu``, one launch)
-on CUDA tensors and runs ``attention_plain`` on CPU tensors. The kernel
-never forms the (B, H, Nq, Nk) weights, so a caller that asks for them
+``fused_attention`` launches the kernel (``csrc/attention.cu``, one launch
+of the sequence attention of ``csrc/fuser_attention.cuh``, which the fuser
+blocks' self-attention and the decoder block's cross-attention run too: in
+bf16 a block takes a (sequence, head) and a tile of up to 64 queries
+(16 at the rollout), reads the tile's mask once, streams q and k, then v, through a ring of cp.async
+copies into shared memory and multiplies them on the tensor cores) on CUDA
+tensors, and runs ``attention_plain`` on CPU tensors. The kernel never
+forms the (B, H, Nq, Nk) weights, so a caller that asks for them
 (``return_weights=True``) gets the plain version on any device; that
 dispatch is part of the function, as in the JAX package, and is counted in
 ``PLAIN_WEIGHTS_CALLS``.
@@ -22,8 +27,12 @@ Kernel limits: q (B, Nq, H, hd), k and v (B, Nk, H, hd) with Nq >= 1,
 one dtype. q, k and v may be strided views (a column slice of a packed qkv
 projection, a (B, Tmax, H, hd) cache): the kernel takes their sequence,
 token and head strides and only needs unit stride along hd; nothing is
-copied. The mask is an additive (Nq, Nk) tensor or None; -inf entries are
-skipped, and every row must keep one finite entry.
+copied. The mask is an additive (Nq, Nk) tensor or None. A key that no
+query of a tile sees is never read (the rollout's unwritten cache slots),
+so what lies there does not reach the result; a query whose keys are all
+masked gets zeros from the kernel (NaN from the plain version, as from the
+JAX package), so every row should keep one finite entry. A CUDA operand
+the kernel does not take raises; nothing falls back.
 """
 
 from __future__ import annotations

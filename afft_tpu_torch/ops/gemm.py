@@ -5,8 +5,9 @@ versions.
 
 The entries run their bf16 products on the wgmma / TMA GEMM from inside
 their own launch sequences: the fuser blocks' serving forward
-(``ops.fused_block``, ``ops.fused_seq_block``: the nn.Linear (out, in)
-weights as (N, K)), the GPT-2 serving halves (``ops.fused_gpt2``), and
+(``ops.fused_block``, ``ops.fused_seq_block``, every stage of
+``fused_decoder_block`` included: the nn.Linear (out, in) weights as (N,
+K)), the GPT-2 serving halves (``ops.fused_gpt2``), and
 every product of both training layers (``ops.fused_block_train``,
 ``ops.fused_gpt2_train``): the fuser's forward and the GPT-2 layer's
 backward dX with W as (N, K), the GPT-2 layer's forward and the fuser's
@@ -31,13 +32,15 @@ gelu_exact(acc + bias) with out2 the pre-activation (the fuser's training
 fc1), ``gelu_tanh_bwd`` acc * gelu_new'(res) (the GPT-2 layer's dpre1),
 and ``bias_res`` and ``res_drop``, whose residual may be fp32 (with a bf16
 out: the fuser's fc2 adding the residual stream) or whose out may be fp32
-(with a bf16 residual: the fuser's proj into it); ``res_drop`` takes only
-those two forms there, the training forward's.
+(with a bf16 residual: the fuser's proj into it); ``bias_res`` also with
+both fp32, into ``out`` given as the residual itself (the decoder block's
+cross proj, y += cross . Wcproj^T + b, in place); ``res_drop`` takes only
+the two mixed forms there, the training forward's.
 
 Limits of the kernels, which both wrappers apply on every device: K % 8 ==
 0 and N % 8 == 0 (I % 8 and J % 8 for ``gemm_tn``), the epilogue and dtype
-combinations above; on CUDA, bf16 operands (the fp32 residual aside),
-contiguous and 16-byte aligned.
+combinations above; on CUDA, bf16 operands (the fp32 residual and out
+aside), contiguous and 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -60,11 +63,13 @@ ROUTE_EPILOGUES = {
            "gelu_bwd"),
     False: ("bias", "gelu_erf", "bias_res", "pre_gelu", "gelu_tanh_bwd",
             "res_drop")}
-# the epilogues that take an fp32 out on each route, and those that take
-# an fp32 residual (the (N, K) route's, into a bf16 out)
+# the epilogues that take an fp32 out on each route, those that take an
+# fp32 residual (the (N, K) route's, into a bf16 out), and those that take
+# both (the decoder block's cross proj adding into y, in place)
 FP32_OUT_EPILOGUES = {True: ("bias",), False: ("bias", "bias_res",
                                                "res_drop")}
 FP32_RES_EPILOGUES = ("bias_res", "res_drop")
+FP32_RES_OUT_EPILOGUES = ("bias_res",)
 _NEEDS_RES = ("bias_res", "res_drop", "gelu_bwd", "gelu_tanh_bwd")
 _STASHES = ("pre_gelu", "pre_gelu_tanh")
 # the mask sites of the training forward's proj product (train_block.cuh)
@@ -99,10 +104,11 @@ def gelu_tanh_grad(v):
 
 
 def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,
-               out_dtype=None, w_in_out=True):
+               out_dtype=None, w_in_out=True, out=None):
     """The epilogue in fp32 on the exact products of the bf16 operands (w
     read as (K, N), or as (N, K) without ``w_in_out``); returns (out, out2
-    or None), out in ``out_dtype`` (default a.dtype), out2 in a.dtype."""
+    or None), out in ``out_dtype`` (default a.dtype), out2 in a.dtype. With
+    ``out`` the result is written into it (which may be ``res``)."""
     dt = a.dtype
     v = add_bias(matmul32(a, w, w_in_out), bias)
     out2 = None
@@ -126,7 +132,11 @@ def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,
             out2 = v.to(dt)
     elif epi == "bias_res":
         v = res.float() + v
-    return v.to(out_dtype or dt), out2
+    v = v.to(out_dtype or dt)
+    if out is not None:
+        out.copy_(v)
+        v = out
+    return v, out2
 
 
 def check_kernel_operands(name, a, operands, fp32=None):
@@ -151,14 +161,17 @@ def check_kernel_operands(name, a, operands, fp32=None):
 
 def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
          block_idx=0, drop_rate=0.0, dp_rate=0.0, tokens=1, stash=False,
-         out_dtype=None, w_in_out=True):
+         out_dtype=None, w_in_out=True, out=None):
     """C = A . W (+ epilogue) for a (M, K) and w (K, N), or w (N, K) with
     ``w_in_out=False`` (the K-major B route), in bf16; returns (out, out2 or
     None). ``out_dtype=torch.float32`` writes an fp32 out (``bias`` on the
     (K, N) route; ``bias``, ``bias_res`` and ``res_drop`` on the (N, K)
     route); on the (N, K) route ``bias_res`` and ``res_drop`` also take an
-    fp32 ``res`` into a bf16 out. CPU tensors take the plain version (on
-    masks from ``drop_masks``); CUDA tensors launch the kernel."""
+    fp32 ``res`` into a bf16 out, and ``bias_res`` an fp32 ``res`` into an
+    fp32 out. ``out`` (M, N) of the output's dtype receives the result; it
+    may be ``res`` itself (the decoder block's cross proj, y += ...). CPU
+    tensors take the plain version (on masks from ``drop_masks``); CUDA
+    tensors launch the kernel."""
     name = "gemm"
     if epi not in EPILOGUES:
         raise ValueError(f"{name}: epi {epi!r} unknown")
@@ -174,10 +187,12 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
         raise ValueError(f"{name}: an fp32 output takes the {fp32_epis} "
                          f"epilogues only on the w {layout} route (epi "
                          f"{epi!r}, out_dtype {out_dtype})")
-    if res_f32 and (w_in_out or epi not in FP32_RES_EPILOGUES or out_f32):
+    if res_f32 and (w_in_out or epi not in FP32_RES_EPILOGUES or (
+            out_f32 and epi not in FP32_RES_OUT_EPILOGUES)):
         raise ValueError(f"{name}: an fp32 residual takes the "
                          f"{FP32_RES_EPILOGUES} epilogues with a bf16 "
-                         "output, on the w (N, K) route only (epi "
+                         f"output ({FP32_RES_OUT_EPILOGUES} also with an "
+                         "fp32 output), on the w (N, K) route only (epi "
                          f"{epi!r}, w_in_out {w_in_out})")
     if not w_in_out and epi == "res_drop" and not (out_f32 or res_f32):
         raise ValueError(f"{name}: res_drop on the w (N, K) route takes an "
@@ -197,20 +212,31 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
             raise ValueError(f"{name}: epilogue {epi} needs res")
         check_shape(name, "res", res, (M, N))
     check_shape(name, "bias", bias, (N,))
+    out_dt = torch.float32 if out_f32 else a.dtype
+    if out is not None:
+        check_shape(name, "out", out, (M, N))
+        if out.dtype != out_dt or out.device != a.device:
+            raise ValueError(f"{name}: out is {out.dtype} on {out.device}, "
+                             f"expected {out_dt} on {a.device}")
     if a.device.type == "cpu":
         masks = None
         if epi == "res_drop":
             masks = drop_masks(M, N, tokens, seeds, block_idx, drop_rate,
                                dp_rate)
         return gemm_plain(a, w, epi, bias, res, masks, stash, out_dtype,
-                          w_in_out)
+                          w_in_out, out)
     if a.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a.device}")
+    fp32 = {"res": res} if res_f32 else {}
+    if out_f32 and out is not None:
+        fp32["out"] = out
     check_kernel_operands(name, a, {"w": w, "bias": bias,
-                                    **({} if res_f32 else {"res": res})},
-                          fp32={"res": res} if res_f32 else None)
-    out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype,
-                      device=a.device)
+                                    **({} if res_f32 else {"res": res}),
+                                    **({} if out_f32 or out is None
+                                       else {"out": out})},
+                          fp32=fp32)
+    if out is None:
+        out = torch.empty((M, N), dtype=out_dt, device=a.device)
     out2 = torch.empty((M, N), dtype=a.dtype, device=a.device) if (
         epi in _STASHES or (epi == "res_drop" and stash)) else None
     launch(name, "afft_gemm", EPILOGUES[epi], int(out_f32),

@@ -25,14 +25,19 @@ Phases, in order; any failure exits non-zero and prints no result:
                over it) at row 7's and of the GPT-2 layer's backward dX
                (the gelu_new derivative, fp32 outs) at rows 13 + 14's and
                15's, and at the same edge shapes, dropout masks bit for bit,
-               bit for bit from launch to launch; its TN route (the weight
+               bit for bit from launch to launch; the decoder block's cross
+               proj (the residual add with an fp32 residual and an fp32 out
+               written into the residual, in place) at its shape and the
+               edge shapes, bit for bit against a second launch and against
+               the same form out of place; its TN route (the weight
                gradients) at the training entries' shapes and at edge
                shapes (M 1 / 15 / 4097, I 8 / 72 / 136, J 24 / 200 / 264),
                bit for bit from run to run; then all timed in turns against
                torch.matmul (the library yardstick), and at the rollout's
-               cached-block shapes against cuBLAS addmm, beside the wmma
-               gemm_bf16's time a launch in the profile of its last caller,
-               the decoder block's cross stage (fused_decoder_block, row 6);
+               cached-block shapes against cuBLAS addmm; the wgmma GEMM
+               must keep 2x the rate, and half the time at the cross
+               stage's shape, of the deleted wmma GEMM's last readings
+               (WMMA_TFLOPS, WMMA_MS);
   4. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
                fused_attention, fused_seq_block, fused_decoder_block; the
                fuser block's and the GPT-2 layer's training entries, forward
@@ -46,17 +51,25 @@ Phases, in order; any failure exits non-zero and prints no result:
                reduced batch, and at edge shapes; its time beside the plain
                version's, a cuBLAS + SDPA composition of the same function,
                and the least time the card could take; a profile by kernel
-               group of the nine entries redesigned on the wgmma / TMA GEMM
-               (REDESIGNED), where fused_block, fused_seq_block and
-               fused_block_train_fwd must launch no gemm_bf16 and none of
-               the attentions they ran before (OFF_PATH), nor
-               fused_gpt2_train_bwd_mlp and fused_gpt2_train_bwd_attn
-               gemm_bf16, and every product of the five must run on
-               gemm_sm90's (N, K) route or its TN route; the fuser
-               attention at its edges (N 1 / 5 / 8, S 1 to 1024, hd 6 / 12 /
-               256, with and without the causal mask); each training
-               backward entry run twice on the same inputs gives the same
-               gradients bit for bit;
+               group of the entries redesigned on the wgmma / TMA GEMM and
+               the sequence attention (REDESIGNED), where fused_block,
+               fused_seq_block, fused_decoder_block and
+               fused_block_train_fwd must launch none of the kernels they
+               ran before (OFF_PATH: gemm_bf16, the one-warp-per-query
+               attentions), nor fused_gpt2_train_bwd_mlp and
+               fused_gpt2_train_bwd_attn gemm_bf16, and every product of
+               the six must run on gemm_sm90's (N, K) route or its TN
+               route; fused_attention (prefill and decode) must launch the
+               sequence attention alone, and fused_decoder_block its
+               products, its two attentions and its LayerNorms alone
+               (ONLY_ON); the fuser attention at its edges (N 1 / 5 / 8, S
+               1 to 1024, hd 6 / 12 / 256, with and without the causal
+               mask) and the attention over separate q, k, v at its own
+               (Nq 1 / 16 / 32 / 1024 x Nk 1 / 19 / 64 / 65 / 1024 x hd
+               6 / 12 / 256 / 512, no mask, causal or the rollout's cache
+               mask with NaN in the unwritten slots, q a packed slice);
+               each training backward entry run twice on the same inputs
+               gives the same gradients bit for bit;
   5. serve   - the Server on five paths at full width (bf16, batch 256,
                seeded weights): the flagship
                expts/01_SA-Fuser_ek100_val_Swin.txt, its multi-step rollout
@@ -68,7 +81,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                top-1 flips of both paths against the plain path in fp32;
                clips/s, ms per batch and the device time by kernel group
                (torch.profiler). In fp32 the rollout also equals the full
-               re-run of every step on the plain path;
+               re-run of every step on the plain path. No path's profile
+               may show a kernel the port has deleted (RETIRED);
   6. train   - the flagship training step (expts/01_SA-Fuser_ek100_train.txt,
                Runner.train_step at full width, seeded weights, synthetic
                EK100-shaped batches): three fp32 steps at batch 32 through
@@ -94,6 +108,7 @@ Imports torch and afft_tpu_torch only (no JAX).
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -580,6 +595,7 @@ def check_edge_shapes(gen):
                           FS.fused_decoder_block_plain(x, mem, p, mask,
                                                        num_heads=H))
         n += check_fuser_attention_edges(tag, dt, gen)
+        n += check_attention_edges(tag, dt, gen)
         # the layer on the card (w_q / w_k / w_v / proj in cuBLAS around
         # fused_attention) against the same layer on the CPU (all plain)
         layer = CrossAttention(64, 4, mem_dim=40, qkv_bias=True)
@@ -633,6 +649,59 @@ def check_fuser_attention_edges(tag, dt, gen):
                               tag, FS.fused_seq_block(x, p, mask, num_heads=H),
                               FS.fused_seq_block_plain(x, p, mask,
                                                        num_heads=H))
+    return n
+
+
+# the attention's edges: queries, keys, head widths
+ATTN_EDGE_NQ = (1, 16, 32, 1024)
+ATTN_EDGE_NK = (1, 19, 64, 65, 1024)
+ATTN_EDGE_HD = (6, 12, 256, 512)
+
+
+def check_attention_edges(tag, dt, gen):
+    """The attention over separate q, k, v (fused_attention: the sequence
+    attention of csrc/fuser_attention.cuh) at the edges of its limits: Nq 1 /
+    16 / 32 / 1024 against Nk 1 / 19 / 64 / 65 / 1024 (one and two key
+    chunks, the rollout's 19 slots, the 1,024-key limit; query tiles of 16,
+    32 and 64), each at hd 6 / 12 / 256 / 512 (rows read element by element,
+    and as 16-byte copies), q a column slice of a packed qkv and k, v (B,
+    Tmax, H, hd) caches, under no mask, the causal mask (query i sees keys
+    j <= i) and, where Nq <= Nk, the rollout's cache mask, whose last (up to
+    2) unwritten slots hold NaN in the caches the kernel reads and finite
+    values in those of the plain version: a masked slot that reached either
+    product would make the result NaN. Returns the number of checks."""
+    import torch
+    from afft_tpu_torch.ops import attention as FA
+    rn = _randn(gen, dt)
+    n = 0
+    for n_q in ATTN_EDGE_NQ:
+        for n_k in ATTN_EDGE_NK:
+            B, H = (1, 1) if max(n_q, n_k) == 1024 else (2, 2)
+            key = torch.arange(n_k, device="cuda")[None, :]
+            query = torch.arange(n_q, device="cuda")[:, None]
+            zeros = torch.zeros((n_q, n_k), device="cuda")
+            kinds = [("none", None, 0),
+                     ("causal", zeros.masked_fill(key > query, -math.inf),
+                      0)]
+            if n_q <= n_k:
+                junk = min(2, n_k - n_q)
+                pos = n_k - n_q - junk
+                kinds.append(("cache", zeros.masked_fill(
+                    key > pos + query, -math.inf), junk))
+            for hd in ATTN_EDGE_HD:
+                q = rn(B, n_q, 3, H, hd)[:, :, 0]
+                k, v = rn(B, n_k, H, hd), rn(B, n_k, H, hd)
+                for kind, mask, junk in kinds:
+                    kc, vc = k, v
+                    if junk:
+                        kc, vc = k.clone(), v.clone()
+                        kc[:, n_k - junk:] = math.nan
+                        vc[:, n_k - junk:] = math.nan
+                    n += _edge_ok(f"fused_attention {tag} B={B} Nq={n_q} "
+                                  f"Nk={n_k} H={H} hd={hd} mask={kind} "
+                                  f"(q a packed slice, {junk} NaN slots)",
+                                  tag, FA.fused_attention(q, kc, vc, mask),
+                                  FA.attention_plain(q, k, v, mask)[0])
     return n
 
 
@@ -1209,35 +1278,58 @@ def phase_train_kernels(peaks, gen):
     return results
 
 
-# the entries redesigned on the wgmma / TMA GEMM: their one-call profile by
-# kernel group is printed beside their times, and their times back to back
+# the entries redesigned on the wgmma / TMA GEMM and the sequence attention:
+# their one-call profile by kernel group is printed beside their times, and
+# their times back to back
 REDESIGNED = ("gpt2_attn_half", "gpt2_mlp_half", "fused_gpt2_train_fwd",
               "fused_block_train_bwd_mlp", "fused_block", "fused_seq_block",
               "fused_block_train_fwd", "fused_gpt2_train_bwd_mlp",
-              "fused_gpt2_train_bwd_attn")
-# the entries whose one-call profile must show their products on
-# gemm_sm90's (N, K) route (and the weight gradients on its TN route), and
-# none of the kernels they ran before: the fuser blocks' serving forward
-# (rows 1, 5) and the fuser's training forward (row 7) with their attention
-# on fuser_attention.cuh, the GPT-2 layer's backward dX (rows 13 + 14, 15)
+              "fused_gpt2_train_bwd_attn", "fused_attention",
+              "fused_attention/decode", "fused_decoder_block")
+# the entries whose one-call profile must show none of the kernels they ran
+# before, and their products on gemm_sm90's (N, K) route (the weight
+# gradients on its TN route): the fuser blocks' serving forward (rows 1, 5,
+# 6) and the fuser's training forward (row 7) with their attention on
+# fuser_attention.cuh, the GPT-2 layer's backward dX (rows 13 + 14, 15), the
+# attention over separate q, k, v (row 4, prefill and decode)
 OFF_PATH = {
     "fused_block": ("gemm_bf16", "small_attention", "strided_attention"),
     "fused_seq_block": ("gemm_bf16", "small_attention", "strided_attention"),
     "fused_block_train_fwd": ("gemm_bf16", "small_attention_drop"),
     "fused_gpt2_train_bwd_mlp": ("gemm_bf16",),
     "fused_gpt2_train_bwd_attn": ("gemm_bf16",),
+    "fused_attention": ("strided_attention",),
+    "fused_attention/decode": ("strided_attention",),
+    "fused_decoder_block": ("gemm_bf16", "strided_attention"),
 }
+# the entries whose one-call profile may show only these kernel groups
+# (prefixes), each of which it must show
+ONLY_ON = {
+    "fused_attention": ("fuser_attention_seq_mma",),
+    "fused_attention/decode": ("fuser_attention_seq_mma",),
+    "fused_decoder_block": ("gemm_sm90<", "fuser_attention_seq_mma",
+                            "layernorm_rows"),
+}
+# kernels deleted from the port: no served path's profile may show them
+RETIRED = ("gemm_bf16", "strided_attention", "small_attention",
+           "small_attention_drop")
 
 
 def check_off_path(name, profile):
     """Fail if the one-call profile of ``name`` shows a kernel of its
-    OFF_PATH, or a product off gemm_sm90's (N, K) route."""
+    OFF_PATH or a product off gemm_sm90's (N, K) route, or (ONLY_ON) a
+    kernel outside its list or not every kernel of it; an entry off ONLY_ON
+    must show gemm_sm90."""
     groups = profile["groups_ms"]
     bad = [g for g in groups if g.split("<")[0] in OFF_PATH[name]
            or (g.startswith("gemm_sm90<") and "W(N,K)" not in g)]
-    if bad or not any(g.startswith("gemm_sm90<") for g in groups):
+    need = ONLY_ON.get(name, ("gemm_sm90<",))
+    if name in ONLY_ON:
+        bad += [g for g in groups if not g.startswith(need) and g not in bad]
+    missing = [k for k in need if not any(g.startswith(k) for g in groups)]
+    if bad or missing:
         raise AssertionError(f"{name}: one call's profile shows {sorted(groups)}"
-                             f"; {bad} are off its path")
+                             f"; {bad} are off its path, {missing} missing")
     log(f"kernel {name}: one call launches {sorted(groups)}, none of "
         f"{OFF_PATH[name]}")
 
@@ -1427,10 +1519,16 @@ NK_VARIANTS = (("bias", None), ("gelu_erf", None), ("bias_res", None),
                ("res_drop", "res32"))
 # the (N, K) route's dropout: the fuser's training forward, 5 tokens a row
 NK_RATES = dict(GEMM_RATES, tokens=5)
-# the decoder block's cross stage (row 6, expt 04: B 256 x S 10, C 1024),
-# the wmma gemm_bf16's last caller: q, k and v (epi 0) and the cross proj
-# (epi 1, fp32 residual and out), each (M, N, K) = (2560, 1024, 1024)
+# the decoder block's cross stage (row 6, expt 04: B 256 x S 10, C 1024): q,
+# k and v (bias) and the cross proj (bias_res, fp32 residual and out, in
+# place), each (M, N, K) = (2560, 1024, 1024)
 CROSS_SHAPE = (2560, 1024, 1024)
+# The deleted wmma GEMM (gemm_bf16) at the cross stage's q / k / v, its last
+# caller, in that caller's profile (device time a launch): its last
+# readings, commit 6260448, NVIDIA H100 80GB HBM3 at 700 W. The wgmma GEMM
+# must keep 2x its rate at the GPT-2 entries' shapes and half its time at
+# CROSS_SHAPE.
+WMMA_TFLOPS, WMMA_MS = 78.3, 0.0686
 
 
 def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
@@ -1562,6 +1660,35 @@ def _check_gemm_nk(G, M, N, K, epi, variant, gen, bias=True):
     return worst
 
 
+def _check_gemm_nk_inplace(G, M, N, K, gen):
+    """The (N, K) route's bias_res with an fp32 residual and an fp32 out
+    written into the residual itself (the decoder block's cross proj, y +=
+    cross . Wcproj^T + b) against the fp32 product of its upcast operands
+    (1e-2 of max|ref|), and against the same form out of place and a second
+    launch on a fresh copy of y, both bit for bit. Returns the rel_err."""
+    import torch
+    a, w, b, y, kw = _nk_operands(M, N, K, "bias_res", "res32", gen)
+    kw["out_dtype"] = torch.float32
+    want, _ = G.gemm_plain(a, w, "bias_res", b, y, **kw)
+    apart, _ = G.gemm(a, w, "bias_res", b, y, **kw)
+    runs = []
+    for _ in range(2):
+        yy = y.clone()
+        got, _ = G.gemm(a, w, "bias_res", b, yy, out=yy, **kw)
+        if got.data_ptr() != yy.data_ptr():
+            raise AssertionError("gemm: out= was not written in place")
+        runs.append(yy)
+    torch.cuda.synchronize()
+    what = f"gemm W(N,K) bias_res fp32 res and out, in place ({M}, {N}, {K})"
+    finite, _, rel = errors(runs[0], want)
+    if not (finite and rel <= KERNEL_TOL["bf16"]):
+        raise AssertionError(f"{what}: rel_err={rel:.3g} finite={finite}")
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], apart)):
+        raise AssertionError(f"{what}: two launches, or in place and out of "
+                             "place, differ")
+    return rel
+
+
 def _check_gemm_tn(G, M, I, J, gen):
     """The TN route (out = a^T . b, fp32) against the fp32 product of its
     upcast operands (1e-2 of max|ref|), and a second launch on the same
@@ -1603,37 +1730,6 @@ def _in_turns(fns, iters=20):
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
-def _wmma_ms(what, fn, launches, calls=10):
-    """The wmma gemm_bf16's device ms a launch by epilogue, read from the
-    profile of ``calls`` calls of ``fn``, an entry that still runs it:
-    ``launches`` maps (epilogue, fp32 out) of a gemm_bf16<EPI, TRes, TOut>
-    launch to its launches a call, and each must show that many a call."""
-    import re
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    us = {}
-    for e in prof.events():
-        m = re.search(r"gemm_bf16<(\d+), ([^,<>]+), ([^,<>]+)>", e.name)
-        key = m and (m.group(1), m.group(3).strip() == "float")
-        if e.device_type == DeviceType.CUDA and key in launches:
-            us.setdefault(key, []).append(e.time_range.elapsed_us())
-    counts = {k: len(v) for k, v in us.items()}
-    if counts != {k: n * calls for k, n in launches.items()}:
-        raise AssertionError(f"gemm: the profile of {calls} calls of {what} "
-                             f"shows {counts} gemm_bf16 launches, not "
-                             f"{launches} a call")
-    return {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
-
-
 def _device_ms(fn, calls=20):
     """The device's time a call of ``fn``: every kernel it launches in
     ``calls`` calls, summed (torch.profiler), over ``calls``."""
@@ -1653,32 +1749,6 @@ def _device_ms(fn, calls=20):
     if not us:
         raise RuntimeError("the profiler saw no device events")
     return sum(us) / calls / 1e3
-
-
-def entry_gemm_bf16(gen):
-    """The wmma gemm_bf16 in its last caller, the decoder block's cross
-    stage (row 6: fused_decoder_block, expt 04's B 256 x S 10, C 1024), on
-    the nn.Linear weights read as (N, K): q, k and v (epi 0, bf16) and the
-    cross proj (epi 1, fp32 residual and out), each at CROSS_SHAPE. Returns
-    {label: ms a launch}."""
-    import torch
-    from afft_tpu_torch.models.layers import neg_inf_causal_mask
-    from afft_tpu_torch.ops import fused_seq_block as FS
-    B, S, C, H, hidden = SERVE_BATCH, 10, 1024, 4, 4096
-    p = decoder_params(C, hidden, torch.bfloat16, gen)
-    rn = _randn(gen, torch.bfloat16)
-    x, mem = rn(B, S, C), rn(B, S, C)
-    mask = neg_inf_causal_mask(S, device="cuda")
-    ms = _wmma_ms("fused_decoder_block",
-                  lambda: FS.fused_decoder_block(x, mem, p, mask,
-                                                 num_heads=H),
-                  {("0", False): 3, ("1", True): 1})
-    return {"bias": ms[("0", False)],
-            "bias_res fp32 res, fp32 out": ms[("1", True)]}
-
-
-# the wmma yardstick's label in the timings
-WMMA = "gemm_bf16 W(N,K) (fused_decoder_block profile)"
 
 
 def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None,
@@ -1708,9 +1778,10 @@ def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None,
 def phase_gemm(peaks, gen):
     """The wgmma / TMA GEMM: checks at the entries' and edge shapes for its
     six (K, N) epilogues and the fp32 output, its (N, K) route's serving and
-    training epilogues, and its TN route; then their rates beside the
-    library's in one call, and gemm_bf16's in the profile of its last
-    caller. Returns the numbers."""
+    training epilogues (and the decoder block's cross proj, bias_res with an
+    fp32 residual and out, in place), and its TN route; then their rates
+    beside the library's in one call, held to the deleted wmma GEMM's last
+    readings. Returns the numbers."""
     import itertools
     import torch
     from afft_tpu_torch.ops import gemm as G
@@ -1742,19 +1813,22 @@ def phase_gemm(peaks, gen):
         nk_worst = max(nk_worst, _check_gemm_nk(G, M, N, K, epi, variant,
                                                 gen, bias))
         n_nk += 1
+    ip_worst, n_ip = 0.0, 0
+    for M, N, K in [CROSS_SHAPE] + list(itertools.product(*GEMM_EDGES)):
+        ip_worst = max(ip_worst, _check_gemm_nk_inplace(G, M, N, K, gen))
+        n_ip += 1
     log(f"gemm: {n} checks of C = A . W (6 epilogues + the fp32 out), "
         f"{n_nk} of the (N, K) route ({len(NK_VARIANTS)} epilogue forms: "
         "bias with a bf16 / fp32 out, gelu_erf, pre_gelu, gelu_tanh_bwd, "
-        "bias_res and res_drop with a bf16 / fp32 residual and out) and "
+        "bias_res and res_drop with a bf16 / fp32 residual and out), "
+        f"{n_ip} of its bias_res with an fp32 residual and out in place, and "
         f"{n_tn} of the TN route against the "
-        f"fp32 product agree (worst rel_err {worst:.3g}, {nk_worst:.3g} and "
-        f"{tn_worst:.3g}, tol {KERNEL_TOL['bf16']:g} of max|ref|; res_drop "
-        "masks bit for bit; the (N, K) and TN routes bit for bit from launch "
-        "to launch)")
+        f"fp32 product agree (worst rel_err {worst:.3g}, {nk_worst:.3g}, "
+        f"{ip_worst:.3g} and {tn_worst:.3g}, tol {KERNEL_TOL['bf16']:g} of "
+        "max|ref|; res_drop masks bit for bit; the (N, K) and TN routes bit "
+        "for bit from launch to launch, in place as out of place)")
     torch.cuda.empty_cache()
 
-    wmma = entry_gemm_bf16(gen)
-    torch.cuda.empty_cache()
     rn = _randn(gen, torch.bfloat16)
 
     def kn(yardstick, epi="bias", out_dtype=None):
@@ -1793,21 +1867,27 @@ def phase_gemm(peaks, gen):
             [(M, N, K)], nk(epi, variant, label.startswith("row7"))))
     # at the cross stage's shape a launch takes less device time than the
     # host needs to launch one, so every column there is the device's time a
-    # call, as the wmma's (torch.profiler)
-    ms = {k: _device_ms(fn) for k, fn in
-          nk("bias", None, True)(*CROSS_SHAPE).items()}
-    ms[WMMA] = wmma["bias"]
+    # call (torch.profiler)
+    a, w, b, y, kw = _nk_operands(*CROSS_SHAPE, "bias_res", "res32", gen)
+    kw["out_dtype"] = torch.float32
+    cross_fns = {
+        "q/k/v bias": nk("bias", None, True)(*CROSS_SHAPE),
+        "proj bias_res fp32 res and out, in place": {
+            "sm90 W(N,K)": lambda: G.gemm(a, w, "bias_res", b, y, out=y,
+                                          **kw),
+            "matmul (a @ w.t())": lambda: a @ w.t()}}
     flops = 2 * CROSS_SHAPE[0] * CROSS_SHAPE[1] * CROSS_SHAPE[2]
-    rate = {k: flops / v / 1e9 for k, v in ms.items()}
-    rows[f"nk cross q/k/v bias {CROSS_SHAPE}"] = {
-        "ms": ms, "tflops": rate, "device_time": True,
-        "share_of_peak": {k: v * 1e12 / peaks["bf16"]
-                          for k, v in rate.items()}}
-    log(f"gemm nk cross q/k/v bias bf16 {CROSS_SHAPE}, device ms a call: "
-        + ", ".join(f"{k} {ms[k]:.4f} ms {rate[k]:.1f} TFLOP/s" for k in ms))
-    ms = wmma["bias_res fp32 res, fp32 out"]
-    log(f"gemm cross proj bias_res fp32 res, fp32 out bf16 {CROSS_SHAPE}: "
-        f"{WMMA} {ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s")
+    for label, fns in cross_fns.items():
+        ms = {k: _device_ms(fn) for k, fn in fns.items()}
+        rate = {k: flops / v / 1e9 for k, v in ms.items()}
+        rows[f"nk cross {label} {CROSS_SHAPE}"] = {
+            "ms": ms, "tflops": rate, "device_time": True,
+            "share_of_peak": {k: v * 1e12 / peaks["bf16"]
+                              for k, v in rate.items()}}
+        log(f"gemm nk cross {label} bf16 {CROSS_SHAPE}, device ms a call: "
+            + ", ".join(f"{k} {ms[k]:.4f} ms {rate[k]:.1f} TFLOP/s"
+                        for k in ms))
+    del a, w, b, y
     rows.update(_time_gemm_rows(peaks, "cached_block", CACHED_SHAPES,
                                 kn("addmm")))
     rows.update(_time_gemm_rows(peaks, "row8 dpre1 gelu_bwd",
@@ -1817,21 +1897,17 @@ def phase_gemm(peaks, gen):
     rows.update(_time_gemm_rows(
         peaks, "tn (I, J, M)", [(I, J, M) for M, I, J in TN_SHAPES],
         lambda I, J, M: tn(M, I, J)))
-    # the wmma rate at the cross stage's q / k / v, read in its last caller
-    old = flops / wmma["bias"] / 1e9
+    # held to the deleted wmma GEMM's last readings (WMMA_TFLOPS, WMMA_MS)
     for shape in ((4096, 6144, 2048), (4096, 8192, 2048)):
         new = rows[f"entries {shape}"]["tflops"]["sm90"]
-        if not new >= 2 * old:
+        if not new >= 2 * WMMA_TFLOPS:
             raise AssertionError(f"gemm: {new:.1f} TFLOP/s at {shape}, not "
-                                 f"2x gemm_bf16's {old:.1f}")
-    # the (N, K) route against the wmma GEMM at the cross stage's shape
-    # and epilogue
-    cross = rows[f"nk cross q/k/v bias {CROSS_SHAPE}"]["ms"]
-    if not cross[WMMA] >= 2 * cross["sm90 W(N,K)"]:
-        raise AssertionError(f"gemm: the (N, K) route takes "
-                             f"{cross['sm90 W(N,K)']:.4f} ms at "
-                             f"{CROSS_SHAPE}, not half of gemm_bf16's "
-                             f"{cross[WMMA]:.4f}")
+                                 f"2x the wmma GEMM's {WMMA_TFLOPS}")
+    cross = rows[f"nk cross q/k/v bias {CROSS_SHAPE}"]["ms"]["sm90 W(N,K)"]
+    if not cross <= WMMA_MS / 2:
+        raise AssertionError(f"gemm: the (N, K) route takes {cross:.4f} ms "
+                             f"at {CROSS_SHAPE}, not half of the wmma "
+                             f"GEMM's {WMMA_MS}")
     # the rollout's cached block stays on addmm: gemm_sm90's speed there
     cached = {str(shape): rows[f"cached_block {shape}"]["ms"]["addmm"]
               / rows[f"cached_block {shape}"]["ms"]["sm90"]
@@ -1841,7 +1917,8 @@ def phase_gemm(peaks, gen):
     return {"checks": n, "tn_checks": n_tn, "nk_checks": n_nk,
             "worst_rel_err": worst, "tn_worst_rel_err": tn_worst,
             "nk_worst_rel_err": nk_worst, "res_drop_kept_zeros": kept_zeros,
-            "wmma_tflops": old, "wmma_ms": wmma,
+            "inplace_checks": n_ip, "inplace_worst_rel_err": ip_worst,
+            "wmma_floor": {"tflops": WMMA_TFLOPS, "ms": WMMA_MS},
             "cached_block_sm90_over_addmm": cached,
             "timings": rows}
 
@@ -1880,16 +1957,15 @@ def profile_forward(fn, what="one bf16 forward", grad=False):
     groups, names = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        # gemm_bf16<EPI, TRes, TOut>: the wmma GEMM, W read as (N, K) (the
-        # fuser's Linear weights forward, the GPT-2 layer's dX products);
-        # EPI 0 bias, 1 bias + residual, 2 exact GELU, 3 gelu_new, 4
-        # residual + dropout + drop-path, 5 stash + GELU, 6 GELU backward,
-        # 7 / 8 the same two with gelu_new. gemm_sm90<EPI, B_NK, TRes,
-        # TOut>: the wgmma / TMA GEMM, W read as (K, N) (the GPT-2 entries'
-        # bf16 products, the fuser's dX products) or, named W(N,K), as (N,
-        # K) (the fuser blocks' serving forward); gemm_tn_sm90: its TN
-        # route, the weight gradients. An fp32 TRes / TOut is named in the
-        # group.
+        # gemm_sm90<EPI, B_NK, TRes, TOut>: the wgmma / TMA GEMM, W read as
+        # (K, N) (the GPT-2 entries' forward products, the fuser's dX
+        # products) or, named W(N,K), as (N, K) (the fuser blocks' forward
+        # products, the GPT-2 layer's dX products); EPI 0 bias, 1 bias +
+        # residual, 2 exact GELU, 3 gelu_new, 4 residual + dropout +
+        # drop-path, 5 stash + GELU, 6 GELU backward, 7 / 8 the same two
+        # with gelu_new; gemm_tn_sm90: its TN route, the weight gradients.
+        # An fp32 TRes / TOut is named in the group. A kernel of the fp32
+        # path (gemm_f32<EPI, ...>) is grouped the same way.
         m = re.search(r"afft::(\w+)(?:<([^()]*)>)?\(", e.name)
         args = [] if m is None or m.group(2) is None else [
             a.strip() for a in m.group(2).split(",")]
@@ -2069,6 +2145,10 @@ def serve_path(label, expt, overrides, expected_fn):
         f"{SERVE_BATCH / forward_ms * 1e3:.1f} peak_mem_GB="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     profile = profile_forward(lambda: server.model(feats))
+    retired = [g for g in profile["groups_ms"] if g.split("<")[0] in RETIRED]
+    if retired:
+        raise AssertionError(f"{label}: one forward launches {retired}, "
+                             "kernels the port no longer has")
     del server, feats
 
     # witness for the bf16 top-1 flips: the same weights (the bf16 model is

@@ -205,7 +205,7 @@ def test_mlp_half_epilogues_match_pallas_gpt2(M, C, hidden):
     _close_bf16(out, want.astype(jnp.bfloat16))
 
 
-@pytest.mark.parametrize("forward", ["serving", "training"])
+@pytest.mark.parametrize("forward", ["serving", "training", "decoder_cross"])
 @pytest.mark.parametrize("M,C,hidden", RAGGED)
 def test_nk_route_matches_pallas_block(M, C, hidden, forward):
     """The fuser block's four forward products: serving
@@ -213,9 +213,13 @@ def test_nk_route_matches_pallas_block(M, C, hidden, forward):
     stream y, fc1 under the exact GELU (_gelu_exact) rounded, fc2 + y
     rounded; training (pallas_block_train.py:217-238), proj and fc2 with
     their dropout and drop-path (here both on the proj-site masks the GEMM
-    draws), y stashed rounded, fc1 with the pre-activation stashed rounded.
-    On the JAX (in, out) weights, which the port reads as their nn.Linear
-    (out, in) transposes, the (N, K) operand."""
+    draws), y stashed rounded, fc1 with the pre-activation stashed rounded;
+    the CA decoder block's cross stage (pallas_seq_block.py:104-132,
+    183-186), w_q, w_k, w_v rounded after their bias, and x2 = x1 + (cross
+    . W_cproj + b) in fp32, which the port writes into x1 in place (out is
+    res), bit for bit what it writes out of place. On the JAX (in, out)
+    weights, which the port reads as their nn.Linear (out, in) transposes,
+    the (N, K) operand."""
     rng = np.random.default_rng(M + 3 * C)
     f32 = jnp.float32
     xn, attn, x, yn = (_bf16(rng, M, C) for _ in range(4))
@@ -231,6 +235,28 @@ def test_nk_route_matches_pallas_block(M, C, hidden, forward):
     elem, rows = G.drop_masks(M, C, tokens, SEEDS, 4, 0.3, 0.2)
     mproj, dp = jnp.asarray(elem.numpy()), jnp.asarray(rows.numpy())
 
+    def nk(w):
+        return _t(np.ascontiguousarray(np.asarray(w).T))
+    if forward == "decoder_cross":
+        # qn = xn, kn = yn, cross = attn; x1 the fp32 residual stream
+        x1 = rng.standard_normal((M, C)).astype(np.float32)
+        for a, w, b in ((xn, wqkv[:, :C], bqkv[:C]),
+                        (yn, wqkv[:, C:2 * C], bqkv[C:2 * C]),
+                        (yn, wqkv[:, 2 * C:], bqkv[2 * C:])):
+            got, _ = G.gemm(_t(a), nk(w), "bias", _t(b), w_in_out=False)
+            _close_bf16(got, (_dot(a, w) + b.astype(f32)).astype(
+                jnp.bfloat16))
+        x2 = x1 + (_dot(attn, wproj) + bproj.astype(f32))
+        y = _t(x1.copy())
+        kw = dict(out_dtype=torch.float32, w_in_out=False)
+        apart, _ = G.gemm(_t(attn), nk(wproj), "bias_res", _t(bproj), y,
+                          **kw)
+        got, _ = G.gemm(_t(attn), nk(wproj), "bias_res", _t(bproj), y,
+                        out=y, **kw)
+        assert got is y and torch.equal(y, apart)
+        _close_f32(y, x2)
+        return
+
     def branch(v):
         return dp * (v * mproj) if train else v
     qkv = (_dot(xn, wqkv) + bqkv.astype(f32)).astype(jnp.bfloat16)
@@ -240,8 +266,6 @@ def test_nk_route_matches_pallas_block(M, C, hidden, forward):
     out = (y + branch(_dot(h1, wfc2) + bfc2.astype(f32))).astype(
         jnp.bfloat16)
 
-    def nk(w):
-        return _t(np.ascontiguousarray(np.asarray(w).T))
     kw = dict(w_in_out=False, **(dict(tokens=tokens, **rates) if train
                                  else {}))
     got, _ = G.gemm(_t(xn), nk(wqkv), "bias", _t(bqkv), w_in_out=False)
@@ -331,6 +355,7 @@ def test_cpu_tensors_take_the_plain_versions_on_the_nk_route():
     for epi, res, out_dtype in (("gelu_erf", None, None),
                                 ("bias_res", r, torch.float32),
                                 ("bias_res", r.float(), None),
+                                ("bias_res", r.float(), torch.float32),
                                 ("bias", None, torch.float32),
                                 ("pre_gelu", None, None),
                                 ("gelu_tanh_bwd", r, None),
@@ -350,8 +375,9 @@ def test_cpu_tensors_take_the_plain_versions_on_the_nk_route():
 
 def test_nk_route_refuses_what_the_kernel_does_not_take():
     """Each weight layout takes its own epilogues; the fp32 output and the
-    fp32 residual only where the fuser block and the GPT-2 layer's
-    backward use them."""
+    fp32 residual only where the fuser block, the decoder block's cross
+    proj and the GPT-2 layer's backward use them; ``out`` only of the
+    output's shape and dtype."""
     a, w, b, r = _operands(4, 16, 8, seed=2)
     w_nk = w.t().contiguous()
     for epi in ("gelu_tanh", "pre_gelu_tanh", "gelu_bwd"):
@@ -370,10 +396,13 @@ def test_nk_route_refuses_what_the_kernel_does_not_take():
         G.gemm(a, w, "res_drop", b, r, out_dtype=torch.float32)
     with pytest.raises(ValueError, match="fp32 residual"):
         G.gemm(a, w, "bias_res", b, r.float())
-    for epi in ("bias_res", "res_drop"):
-        with pytest.raises(ValueError, match="fp32 residual"):
-            G.gemm(a, w_nk, epi, b, r.float(), out_dtype=torch.float32,
-                   w_in_out=False)
+    with pytest.raises(ValueError, match="fp32 residual"):
+        G.gemm(a, w_nk, "res_drop", b, r.float(), out_dtype=torch.float32,
+               w_in_out=False)
+    for out in (r, torch.zeros(4, 8)):
+        with pytest.raises(ValueError, match="out"):
+            G.gemm(a, w_nk, "bias_res", b, r.float(),
+                   out_dtype=torch.float32, w_in_out=False, out=out)
     with pytest.raises(ValueError, match="fp32 residual"):
         G.gemm(a, w_nk, "gelu_tanh_bwd", b, r.float(), w_in_out=False)
     with pytest.raises(ValueError, match="res_drop on the w"):

@@ -315,12 +315,14 @@ def test_hopper_gemm_only_on_the_bf16_path():
     attention (the training forward's with its dropout, through
     attention_drop); the training backward through the shared helpers
     launch_dx (the fuser's (K, N) products on gemm_kn, the GPT-2 layer's (N,
-    K) products on gemm_nk) and launch_dw (every weight gradient). The wmma
-    launch_gemm< is left only in the decoder block's cross stage
-    (seq_block.cu run_decoder_block) and the fp32 branches of gemm_kn /
-    gemm_nk. The wmma gemm_tn_bf16, small_attention, the training forward's
-    small_attention_drop and the packed strided attention launcher are
-    gone."""
+    K) products on gemm_nk) and launch_dw (every weight gradient). The
+    decoder block (seq_block.cu run_decoder_block) runs its four cross
+    products on gemm_nk and both its attentions on the sequence attention,
+    which attention.cu launches too. launch_gemm< (gemm_f32) is left only in
+    the fp32 branches of gemm_kn / gemm_nk. The wmma GEMM (gemm_bf16,
+    nvcuda::wmma) and its gemm_tn_bf16, small_attention, the training
+    forward's small_attention_drop, strided_attention and the packed
+    attention launcher are gone."""
     header = _source("gemm_sm90.cuh")
     bf16_branch, fp32_branch = _body(header, "gemm_kn").split("} else {")
     assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
@@ -341,9 +343,11 @@ def test_hopper_gemm_only_on_the_bf16_path():
         assert not re.search(r"\bsmall_attention\b", src), name
         assert not re.search(r"\bsmall_attention_drop\b", src), name
         assert "launch_packed_attention" not in src, name
-        # the wmma GEMM's launcher: the decoder's cross stage (4, below)
-        # and the fp32 branches of gemm_kn and gemm_nk
-        expected = {"seq_block.cu": 4, "gemm_sm90.cuh": 2}
+        for gone in ("gemm_bf16", "strided_attention", "nvcuda::wmma",
+                     "wmma::", "<mma.h>"):
+            assert gone not in src, (name, gone)
+        # gemm_f32's launcher: the fp32 branches of gemm_kn and gemm_nk
+        expected = {"gemm_sm90.cuh": 2}
         assert src.count("launch_gemm<") == expected.get(
             os.path.basename(name), 0), name
     block = _body(_source("fused_block.cu"), "run_fused_block")
@@ -356,11 +360,21 @@ def test_hopper_gemm_only_on_the_bf16_path():
         body = _body(seq, stage)
         assert body.count("gemm_nk<") == 2 and "launch_gemm<" not in body
         assert attention is None or attention in body
-    # the decoder's cross-attention stage keeps gemm_bf16 and
-    # strided_attention
+    # the decoder block: its self-attention stage (one attention launch)
+    # and its cross stage, four products on gemm_nk (the cross proj adding
+    # into the fp32 residual stream in place) and the second attention
     decoder = _body(seq, "run_decoder_block")
-    assert decoder.count("launch_gemm<") == 4
-    assert "launch_strided_attention<" in decoder
+    assert decoder.count("gemm_nk<") == 4 and "launch_gemm<" not in decoder
+    assert "gemm_nk<EPI_BIAS_RES, T, float, float>" in decoder
+    assert decoder.count("run_self_attn_stage<") == 1
+    self_attn = _body(seq, "run_self_attn_stage")
+    assert (decoder.count("launch_fuser_attention_seq<")
+            + self_attn.count("launch_fuser_attention_seq<")) == 2
+    # row 4: one launch of the same attention
+    attention = _source("attention.cu")
+    assert attention.count("launch_fuser_attention_seq<") == 2  # fp32, bf16
+    assert "launch_" not in attention.replace(
+        "launch_fuser_attention_seq<", "")
 
     gpt2 = _source("fused_gpt2.cu")
     assert "launch_gemm" not in gpt2

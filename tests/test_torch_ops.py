@@ -200,10 +200,17 @@ def _cache_mask(n_q, n_k, pos):
     return np.where(key_pos <= query_pos, 0.0, -np.inf).astype(np.float32)
 
 
-@pytest.mark.parametrize("n_q,n_k,mask_kind", [
-    (6, 6, None), (6, 6, "causal"), (1, 19, "cache"), (16, 19, "cache")])
-def test_attention_matches_jax(n_q, n_k, mask_kind):
-    B, H, hd = 4, 2, 128  # the TPU kernel wants hd % 128 == 0
+@pytest.mark.parametrize("n_q,n_k,mask_kind,hd", [
+    pytest.param(6, 6, None, 128, id="6-6-None"),
+    pytest.param(6, 6, "causal", 128, id="6-6-causal"),
+    pytest.param(1, 19, "cache", 128, id="1-19-cache"),
+    pytest.param(16, 19, "cache", 128, id="16-19-cache"),
+    # the CA decoder's cross-attention (row 6: S 10, heads of 256)
+    pytest.param(10, 10, "causal", 256, id="10-10-causal-256"),
+    # more queries than keys
+    pytest.param(24, 7, None, 128, id="24-7-None")])
+def test_attention_matches_jax(n_q, n_k, mask_kind, hd):
+    B, H = 4, 2  # the TPU kernel wants hd % 128 == 0
     rng = np.random.default_rng(11)
     q = rng.standard_normal((B, n_q, H, hd)).astype(np.float32)
     k = rng.standard_normal((B, n_k, H, hd)).astype(np.float32)
