@@ -33,8 +33,10 @@
 // as (K, N), the backward's dX (dpre1 with the gelu_new derivative of the
 // stashed pre1 in its epilogue, dg, dattn, dxn with fp32 outs) reading it as
 // (N, K) on the K-major B route gemm_nk, the weight gradients on its TN
-// route. The attention, with the backward's recomputation of it, is staged
-// through shared memory (staged_attention.cuh).
+// route (one slice over M at these shapes). The forward attention is staged
+// through shared memory (staged_attention.cuh); the attention backward
+// (attention_bwd.cuh, ROUND) recomputes its output for dWproj and takes dqkv
+// in the same pass.
 //
 // Limits: any B, 1 <= T <= 32, H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16

@@ -23,8 +23,9 @@
 //     register across the chunks, one thread a query takes the softmax, and
 //     each thread computes 16 bytes of P . V. The probabilities stay fp32
 //     (pallas_block.py:164-176). Its DROP instance scales them by their
-//     dropout multipliers first: the fuser's training forward and the
-//     recomputation of it in the attention backward (train_block.cuh).
+//     dropout multipliers first: the fuser's training forward
+//     (train_block.cuh), whose output attention_bwd.cuh recomputes bit for
+//     bit in the attention backward.
 //   * fuser_attention_seq_mma (rows 4, 5, 6 in bf16, Nk <= 1024): q, k and
 //     v are three strided operands (sequence, token and head strides: packed
 //     qkv rows, a column slice of a packed projection, (B, Tmax, H, hd)

@@ -21,7 +21,10 @@
 // bf16 out (fc2 adding y); EPI_BIAS_RES also an fp32 residual and an fp32
 // out, which may be the residual itself (the decoder block's cross proj,
 // y += cross . Wcproj^T + b).
-// afft_gemm_tn: the weight gradient out (I, J) fp32 = A^T . B over M rows.
+// afft_gemm_tn: the weight gradient out (I, J) fp32 = A^T . B over M rows,
+// over ``slices`` slices of M (0: as many as tn_slices gives; scratch holds
+// slices * I * J fp32 when there are more than one); afft_gemm_tn_slices:
+// that count.
 
 #include "gemm_sm90.cuh"
 #include "train_block.cuh"
@@ -106,10 +109,15 @@ extern "C" int afft_gemm(int epi, int out_f32, int w_nk, int res_f32,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int afft_gemm_tn(const void* a, const void* b, void* out, int I,
-                            int J, int M, void* stream) {
-  return (int)launch_gemm_tn_sm90(static_cast<const bf16*>(a),
-                                  static_cast<const bf16*>(b),
-                                  static_cast<float*>(out), I, J, M,
-                                  static_cast<cudaStream_t>(stream));
+extern "C" int afft_gemm_tn(const void* a, const void* b, void* out,
+                            void* scratch, int I, int J, int M, int slices,
+                            void* stream) {
+  return (int)launch_gemm_tn_sm90(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<float*>(out), I, J, M, static_cast<cudaStream_t>(stream),
+      slices > 0 ? slices : tn_slices(I, J, M), static_cast<float*>(scratch));
+}
+
+extern "C" int afft_gemm_tn_slices(int I, int J, int M) {
+  return tn_slices(I, J, M);
 }

@@ -48,8 +48,13 @@
 // rows and (8-column) column groups. Requires K % 8 == 0, N % 8 == 0 (I % 8,
 // J % 8 for the weight gradient) and 16-byte aligned operands, bias,
 // residual and outputs; the launchers return cudaErrorInvalidValue
-// otherwise. One block per output tile walks all of K in a fixed order (no
-// split-K, no atomics): the result is the same from run to run.
+// otherwise. One block per output tile walks all of K in a fixed order, no
+// atomics: the result is the same from run to run. The TN route alone may
+// split its reduction over M (tn_slices) where its output tiles would leave
+// most SMs idle (the fuser's dWproj: 32 tiles on 132 SMs): a grid over
+// (tile, slice of M), each slice writing its fp32 partial tile into the
+// caller's scratch, then a fixed-order sum of the slices into out; still the
+// same from run to run, and one slice is the unsplit route, bit for bit.
 //
 // The tensor maps are encoded on the host per call; cuTensorMapEncodeTiled
 // is a driver function, fetched once through cudaGetDriverEntryPoint so the
@@ -300,16 +305,17 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
     store8(static_cast<bf16*>(ea.out2) + at, o2);
 }
 
-// One 128x256 output tile, C[m0.., n0..] = A . B over all of K, then the
-// epilogue. A is K-major (M, K) in one 128x64 box a stage, or with A_MN
-// MN-major (K, M) in two 64x64 boxes; B is MN-major (K, N) in four 64x64
-// boxes, or with B_NK K-major (N, K) in one 256x64 box (the same 32 KB).
-// Either way consumer cw's 64 rows start 8 KB into the stage. tmA / tmB
-// point at the kernel's __grid_constant__ tensor maps.
+// One 128x256 output tile, C[m0.., n0..] = A . B over the k-tiles kt0 ..
+// kt1 - 1 of K (all of them but in a TN slice), then the epilogue. A is
+// K-major (M, K) in one 128x64 box a stage, or with A_MN MN-major (K, M) in
+// two 64x64 boxes; B is MN-major (K, N) in four 64x64 boxes, or with B_NK
+// K-major (N, K) in one 256x64 box (the same 32 KB). Either way consumer
+// cw's 64 rows start 8 KB into the stage. tmA / tmB point at the kernel's
+// __grid_constant__ tensor maps.
 template <int EPI, bool A_MN, bool B_NK, typename TRes, typename TOut>
 __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
                                                const CUtensorMap* tmB, int M,
-                                               int N, int K,
+                                               int N, int kt0, int kt1,
                                                const EpiArgs& ea) {
   static_assert(GS_A_BYTES == 2 * GS_B_BOX_BYTES, "A: two 64-column boxes");
   static_assert(GS_N * GS_K * 2 == 4 * GS_B_BOX_BYTES, "B: one K-major box");
@@ -320,7 +326,6 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
   float* stage_f32 = reinterpret_cast<float*>(gs_smem + (base - raw));
   const uint32_t full = base + GS_RING_BYTES;   // GS_STAGES barriers
   const uint32_t empty = full + 8 * GS_STAGES;  // GS_STAGES barriers
-  const int nk = (K + GS_K - 1) / GS_K;
   const int m0 = blockIdx.y * GS_M, n0 = blockIdx.x * GS_N;
 
   if (threadIdx.x == 0) {
@@ -338,7 +343,7 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
     if (threadIdx.x == 0) {
       int s = 0;
       uint32_t ph = 0;
-      for (int kt = 0; kt < nk; ++kt) {
+      for (int kt = kt0; kt < kt1; ++kt) {
         mbar_wait(empty + 8 * s, ph ^ 1u);  // the first round passes
         const uint32_t dst = base + s * GS_STAGE_BYTES, bar = full + 8 * s;
         mbar_expect_tx(bar, GS_STAGE_BYTES);
@@ -374,7 +379,7 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
 
     int s = 0, prev = 0;
     uint32_t ph = 0;
-    for (int kt = 0; kt < nk; ++kt) {
+    for (int kt = kt0; kt < kt1; ++kt) {
       mbar_wait(full + 8 * s, ph);
       const uint32_t a = base + s * GS_STAGE_BYTES + cw * GS_B_BOX_BYTES;
       const uint32_t b = base + s * GS_STAGE_BYTES + GS_A_BYTES;
@@ -399,7 +404,7 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // the previous k-tile's group is done: its stage goes back
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      if (kt > 0 && t == 0) mbar_arrive(empty + 8 * prev);
+      if (kt > kt0 && t == 0) mbar_arrive(empty + 8 * prev);
       prev = s;
       if (++s == GS_STAGES) {
         s = 0;
@@ -452,17 +457,39 @@ __global__ void __launch_bounds__(GS_THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap tmA,
           const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
           EpiArgs ea) {
-  gemm_sm90_tile<EPI, false, B_NK, TRes, TOut>(&tmA, &tmB, M, N, K, ea);
+  gemm_sm90_tile<EPI, false, B_NK, TRes, TOut>(&tmA, &tmB, M, N, 0,
+                                                (K + GS_K - 1) / GS_K, ea);
 }
 
 // The weight gradient out (I, J) = A^T . B, fp32, over the M rows of A
-// (M, I) and B (M, J): the tile loop with A MN-major, stored whole.
+// (M, I) and B (M, J): the tile loop with A MN-major, stored whole. Slice
+// blockIdx.z takes the k-tiles (64 rows each) z * per .. (z + 1) * per - 1
+// and writes its partial tile to out + z * I * J.
 static __global__ void __launch_bounds__(GS_THREADS, 1)
 gemm_tn_sm90(const __grid_constant__ CUtensorMap tmA,
              const __grid_constant__ CUtensorMap tmB, int I, int J, int M,
-             float* out) {
+             int per, float* out) {
+  const int kt0 = blockIdx.z * per;
+  const int kt1 = min((M + GS_K - 1) / GS_K, kt0 + per);
   gemm_sm90_tile<EPI_BIAS, true, false, bf16, float>(
-      &tmA, &tmB, I, J, M, EpiArgs{nullptr, nullptr, out});
+      &tmA, &tmB, I, J, kt0, kt1,
+      EpiArgs{nullptr, nullptr, out + (size_t)blockIdx.z * I * J});
+}
+
+// out[i] = part[0][i] + part[1][i] + ... + part[S - 1][i] in slice order,
+// n4 float4s a slice
+static __global__ void sum_slices(const float4* __restrict__ part,
+                                  float4* __restrict__ out, size_t n4,
+                                  int S) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 a = part[i];
+    for (int z = 1; z < S; ++z) {
+      const float4 b = part[(size_t)z * n4 + i];
+      a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+    }
+    out[i] = a;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -538,13 +565,47 @@ static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
   return cudaGetLastError();
 }
 
-// out (I, J) fp32 = A^T . B for A (M, I) and B (M, J), bf16 row-major.
-// Returns the launch's error.
+// The slices over M of the TN route for an (I, J) output over M rows on the
+// current device: 1, unless the output tiles fill less than half the SMs;
+// then the count up to TN_MAX_SLICES that fills the SMs' waves best (tiles
+// * slices blocks over whole waves of one block an SM; the fewest on a
+// tie), each slice keeping at least TN_MIN_KTILES k-tiles (64 rows). On an
+// H100 (132 SMs) at the flagship's shapes: 4 for the fuser's dWproj (32
+// tiles over 20,480 rows: about 0.20 -> 0.075 ms), 1 for every other weight
+// gradient (96 to 512 tiles; at 96, the fuser's dWqkv, 2 to 8 slices all
+// took longer than one).
+constexpr int TN_MAX_SLICES = 8, TN_MIN_KTILES = 32;
+
+static int tn_slices(int I, int J, int M) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      sms < 1)
+    return 1;
+  const int tiles = cdiv(J, GS_N) * cdiv(I, GS_M), nk = cdiv(M, GS_K);
+  if (2 * tiles >= sms) return 1;
+  const auto fill = [&](int s) {
+    const int blocks = tiles * s;
+    return (double)blocks / ((double)cdiv(blocks, sms) * sms);
+  };
+  int best = 1;
+  for (int s = 2; s <= TN_MAX_SLICES && nk / s >= TN_MIN_KTILES; ++s)
+    if (fill(s) > fill(best)) best = s;
+  return best;
+}
+
+// out (I, J) fp32 = A^T . B for A (M, I) and B (M, J), bf16 row-major, over
+// ``slices`` slices of M (the partial tiles in scratch, slices * I * J fp32;
+// one slice needs none). Returns the launch's error.
 static cudaError_t launch_gemm_tn_sm90(const bf16* A, const bf16* B,
                                        float* out, int I, int J, int M,
-                                       cudaStream_t stream) {
-  if (M < 1 || I < 8 || J < 8 || I % 8 || J % 8 ||
-      ((uintptr_t)A | (uintptr_t)B | (uintptr_t)out) % 16)
+                                       cudaStream_t stream, int slices = 1,
+                                       float* scratch = nullptr) {
+  if (M < 1 || I < 8 || J < 8 || I % 8 || J % 8 || slices < 1 ||
+      (slices > 1 && scratch == nullptr) ||
+      ((uintptr_t)A | (uintptr_t)B | (uintptr_t)out | (uintptr_t)scratch) %
+          16)
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       gemm_tn_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
@@ -553,8 +614,20 @@ static cudaError_t launch_gemm_tn_sm90(const bf16* A, const bf16* B,
   if (!bf16_tensor_map(&ta, A, M, I, GS_K, GS_BOX_N) ||
       !bf16_tensor_map(&tb, B, M, J, GS_K, GS_BOX_N))
     return cudaErrorInvalidValue;
-  const dim3 grid(cdiv(J, GS_N), cdiv(I, GS_M));
-  gemm_tn_sm90<<<grid, GS_THREADS, GS_SMEM, stream>>>(ta, tb, I, J, M, out);
+  const int nk = cdiv(M, GS_K), per = cdiv(nk, slices);
+  slices = cdiv(nk, per);  // no empty slice
+  const dim3 grid(cdiv(J, GS_N), cdiv(I, GS_M), slices);
+  gemm_tn_sm90<<<grid, GS_THREADS, GS_SMEM, stream>>>(
+      ta, tb, I, J, M, per, slices > 1 ? scratch : out);
+  if (slices > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const size_t n4 = (size_t)I * J / 4;
+    const size_t blocks = (n4 + 255) / 256;
+    sum_slices<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(scratch),
+        reinterpret_cast<float4*>(out), n4, slices);
+  }
   return cudaGetLastError();
 }
 
@@ -590,14 +663,20 @@ static cudaError_t gemm_nk(const T* A, const T* W, int M, int N, int K,
 }
 
 // The weight gradient out (I, J) = A^T . B over M rows, fp32: the TN route
-// above in bf16, gemm_tn_f32 (common.cuh, true fp32) in fp32.
+// above in bf16, split over M as tn_slices says when the caller gives
+// scratch (tn_slices(I, J, M) * I * J fp32), else one slice; gemm_tn_f32
+// (common.cuh, true fp32) in fp32, which needs no scratch.
 static cudaError_t gemm_tn(const bf16* A, const bf16* B, float* out, int I,
-                           int J, int M, cudaStream_t stream) {
-  return launch_gemm_tn_sm90(A, B, out, I, J, M, stream);
+                           int J, int M, cudaStream_t stream,
+                           float* scratch = nullptr) {
+  return launch_gemm_tn_sm90(A, B, out, I, J, M, stream,
+                             scratch != nullptr ? tn_slices(I, J, M) : 1,
+                             scratch);
 }
 
 static cudaError_t gemm_tn(const float* A, const float* B, float* out, int I,
-                           int J, int M, cudaStream_t stream) {
+                           int J, int M, cudaStream_t stream,
+                           float* /*scratch*/ = nullptr) {
   launch_gemm_tn(A, B, out, I, J, M, stream);
   return cudaGetLastError();
 }

@@ -11,10 +11,12 @@
 //                 stashes -> dW2, db2 -> dpre1 = (dh2 . W2^T) * gelu'(pre1) ->
 //                 dW1, db1 -> dg = dpre1 . W1^T -> LayerNorm backward (dy)
 //                 and its affine gradients;
-//   backward, attention  dproj = dy * masks -> attention recomputed from the
-//                 stashed qkv -> dWproj, dbproj -> dattn = dproj . Wproj^T ->
-//                 attention backward (dqkv) -> dWqkv, dbqkv -> dxn = dqkv .
-//                 Wqkv^T -> LayerNorm backward (dx) and its affine gradients.
+//   backward, attention  dproj = dy * masks -> dattn = dproj . Wproj^T ->
+//                 attention backward from the stashed qkv (dqkv, and the
+//                 forward's attention output O recomputed on the way) ->
+//                 dWproj from O, dbproj -> LN1 recomputed -> dWqkv, dbqkv ->
+//                 dxn = dqkv . Wqkv^T -> LayerNorm backward (dx) and its
+//                 affine gradients.
 // qkv, y and pre1 are stashed in the working dtype; the backward takes its
 // LayerNorm statistics from the stashed x / y; dh2, dpre1, dproj and dqkv are
 // rounded to the working dtype before their GEMMs; every product inside the
@@ -22,11 +24,13 @@
 // product runs on the wgmma / TMA GEMM (gemm_sm90.cuh): a weight read as
 // (K, N) (the GPT-2 layer's forward, the fuser's backward dX), as (N, K) on
 // its K-major B route gemm_nk (the fuser's forward, the GPT-2 layer's
-// backward dX), and every weight gradient on its TN route. The attention,
-// forward and the backward's recomputation, is staged through shared
+// backward dX), and every weight gradient on its TN route (split over M,
+// into the wrapper's scratch, where its output tiles leave most SMs idle:
+// the attention backward's). The forward attention is staged through shared
 // memory: staged_attention.cuh for the GPT-2 layer, fuser_attention.cuh's
-// rows kernel with dropout for the fuser. In fp32 every product is
-// gemm_f32 / gemm_tn_f32.
+// rows kernel with dropout for the fuser; the attention backward of both is
+// attention_bwd.cuh, which recomputes the forward's output O bit for bit
+// for dWproj. In fp32 every product is gemm_f32 / gemm_tn_f32.
 //
 // The two layers (template flag GPT2) differ in four places:
 //   weights     fuser: nn.Linear (out, in), read as the (N, K) operand
@@ -41,7 +45,8 @@
 //   attention   fuser: p * keep in fp32 before P . V, and the backward in
 //               fp32; GPT-2: p * keep rounded before P . V, the backward's
 //               d(attention output), p * keep and ds rounded
-//               (pallas_gpt2_train.py:118, :283, :284, :288).
+//               (pallas_gpt2_train.py:118, :283, :284, :288); each layer's
+//               forward softmax (attention_bwd.cuh ROUND).
 //
 // Masks: each is a pure function of (two seed words, block index, site,
 // logical element index), drawn in registers where it is used (common.cuh
@@ -52,8 +57,10 @@
 // has no drop-path (its rate is 0: nothing drawn).
 //
 // Weight gradients reduce over all rows inside one block per output tile, in
-// a fixed order, and the bias and LayerNorm-affine gradients are two-stage
-// column sums: no atomics, so every gradient is the same from run to run.
+// a fixed order (or over fixed slices of the rows, whose partial tiles are
+// then summed in slice order), and the bias and LayerNorm-affine gradients
+// are two-stage column sums: no atomics, so every gradient is the same from
+// run to run.
 //
 // Limits: any R, 1 <= N <= 8 for the fuser (its attention's) and 1 <= N <=
 // 32 for the GPT-2 layer, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0
@@ -64,6 +71,7 @@
 
 #pragma once
 
+#include "attention_bwd.cuh"
 #include "common.cuh"
 #include "fuser_attention.cuh"
 #include "gemm_sm90.cuh"
@@ -104,87 +112,6 @@ static Rates rates_of(const int* seeds, const int* thr, const float* inv) {
     r.inv[i] = inv[i];
   }
   return r;
-}
-
-template <typename T, bool ROUND>
-__device__ __forceinline__ float maybe_round(float v) {
-  return ROUND ? to_f32(from_f32<T>(v)) : v;
-}
-
-// ---------------------------------------------------------------------------
-// The attention backward over S <= 32 tokens, one block per (row, head), one
-// warp per query: from the stashed qkv and dao = d(attention output) (fp32;
-// with ROUND read rounded to T), recompute p and the keep multipliers, then
-//   dv[tk] = sum_tq (p * keep)[tq, tk] * dao[tq]
-//   dp[tq, tk] = (dao[tq] . v[tk]) * keep[tq, tk]
-//   ds = p * (dp - sum_tk dp * p)
-//   dq[tq] = scale * sum_tk ds[tq, tk] * k[tk]
-//   dk[tk] = scale * sum_tq ds[tq, tk] * q[tq]
-// into the packed dqkv (rows, 3C) in the working dtype; with ROUND, p * keep
-// and ds are rounded to T before their products. Warp t first holds query
-// t, then writes token t's dq, dk and dv.
-// ---------------------------------------------------------------------------
-
-template <typename T, bool ROUND>
-__global__ void __launch_bounds__(1024)
-small_attention_drop_bwd(const T* __restrict__ qkv,
-                         const float* __restrict__ mask,
-                         const float* __restrict__ dao, T* __restrict__ dqkv,
-                         int S, int H, int hd, float scale, DropSite drop) {
-  __shared__ float pd[32][33];  // p * keep
-  __shared__ float ds[32][33];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int C = H * hd;
-  const size_t ld = 3 * (size_t)C;
-  const T* base = qkv + (size_t)seq * S * ld + (size_t)h * hd;
-  const float* gbase = dao + (size_t)seq * S * C + (size_t)h * hd;
-  const int tq = warp;
-  const T* q = base + tq * ld;
-  const float* g = gbase + (size_t)tq * C;
-
-  float mine = -INFINITY, dpd = 0.f;
-  for (int tk = 0; tk < S; ++tk) {
-    const T* k = base + tk * ld + C;
-    const T* v = base + tk * ld + 2 * (size_t)C;
-    float sc = 0.f, dv = 0.f;
-    for (int j = lane; j < hd; j += 32) {
-      sc = fmaf(to_f32(q[j]), to_f32(k[j]), sc);
-      dv = fmaf(maybe_round<T, ROUND>(g[j]), to_f32(v[j]), dv);
-    }
-    sc = warp_sum(sc);
-    dv = warp_sum(dv);
-    if (lane == tk) {
-      mine = sc * scale + (mask != nullptr ? mask[tq * S + tk] : 0.f);
-      dpd = dv;
-    }
-  }
-  const float m = warp_max(mine);
-  const float e = lane < S ? expf(mine - m) : 0.f;
-  const float p = e / warp_sum(e);
-  const float keep =
-      lane < S ? drop_scale(drop, (((unsigned long long)seq * H + h) * S + tq) *
-                                          S + lane)
-               : 0.f;
-  const float dp = dpd * keep;
-  const float sdot = warp_sum(lane < S ? dp * p : 0.f);
-  pd[tq][lane] = maybe_round<T, ROUND>(p * keep);
-  ds[tq][lane] = lane < S ? maybe_round<T, ROUND>(p * (dp - sdot)) : 0.f;
-  __syncthreads();
-
-  const int t = warp;
-  T* dq = dqkv + ((size_t)seq * S + t) * ld + (size_t)h * hd;
-  for (int j = lane; j < hd; j += 32) {
-    float aq = 0.f, ak = 0.f, av = 0.f;
-    for (int u = 0; u < S; ++u) {
-      aq += ds[t][u] * to_f32(base[u * ld + C + j]);
-      ak += ds[u][t] * to_f32(base[u * ld + j]);
-      av += pd[u][t] * maybe_round<T, ROUND>(gbase[(size_t)u * C + j]);
-    }
-    dq[j] = from_f32<T>(aq * scale);
-    dq[C + j] = from_f32<T>(ak * scale);
-    dq[2 * (size_t)C + j] = from_f32<T>(av);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -260,11 +187,10 @@ static cudaError_t fwd_gemm(const T* a, const T* w, int M, int N, int K,
   }
 }
 
-// The attention with dropout on the probabilities, forward and the
-// backward's recomputation (the same kernel, so the backward sees the
-// forward's values): staged for the GPT-2 layer (p * keep rounded), the
-// fuser attention's rows kernel with its dropout for the fuser (fp32
-// probabilities, N <= 8).
+// The forward attention with dropout on the probabilities: staged for the
+// GPT-2 layer (p * keep rounded), the fuser attention's rows kernel with its
+// dropout for the fuser (fp32 probabilities, N <= 8). attention_bwd
+// recomputes its output with the same arithmetic.
 template <typename T, bool GPT2>
 static cudaError_t attention_drop(const T* qkv, const float* mask, T* out,
                                   int R, int N, int H, int hd, DropSite drop,
@@ -295,12 +221,14 @@ static cudaError_t launch_dx(const T* dy, const T* w, int M, int N, int K,
 // The weight gradient in the weight's own layout, from the layer input x
 // (M, in) and the output gradient dy (M, out): (out, in) = dy^T . x for the
 // fuser, (in, out) = x^T . dy for the GPT-2 layer (gemm_tn: the TN route of
-// the wgmma / TMA GEMM in bf16).
+// the wgmma / TMA GEMM in bf16, split over M into ``scratch`` where
+// tn_slices says so; one slice without scratch).
 template <bool GPT2, typename T>
 static cudaError_t launch_dw(const T* x, const T* dy, float* out, int in,
-                             int out_n, int M, cudaStream_t s) {
-  return GPT2 ? gemm_tn(x, dy, out, in, out_n, M, s)
-              : gemm_tn(dy, x, out, out_n, in, M, s);
+                             int out_n, int M, cudaStream_t s,
+                             float* scratch = nullptr) {
+  return GPT2 ? gemm_tn(x, dy, out, in, out_n, M, s, scratch)
+              : gemm_tn(dy, x, out, out_n, in, M, s, scratch);
 }
 
 // Scratch: tmp (M, C), y32 (M, C) fp32 (the fuser's residual stream in bf16;
@@ -392,39 +320,39 @@ static int run_bwd_mlp(const T* y, const T* dout, const T* pre1,
 }
 
 // Scratch of the attention backward: tmp, dproj (M, C) T; dqkv (M, 3C) T;
-// dattn (M, C) fp32 (reused for dxn); mu, rstd, partial as above. Writes the
-// gradients TP_LN1G .. TP_BPROJ.
+// dattn (M, C) fp32 (reused for dxn); mu, rstd, partial as above; tn the TN
+// route's partial tiles (tn_slices(I, J, M) * I * J fp32 for each weight
+// gradient's (I, J), or null: one slice). Writes the gradients TP_LN1G ..
+// TP_BPROJ.
 template <typename T, bool GPT2>
 static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
                         const void* const* pv, float* const* gv,
                         const float* mask, const Rates& rt, T* tmp, T* dproj,
                         T* dqkv, float* dattn, float* mu, float* rstd,
-                        float* partial, T* dx, int R, int N, int C, int H,
-                        float eps, cudaStream_t s) {
+                        float* partial, float* tn, T* dx, int R, int N, int C,
+                        int H, float eps, cudaStream_t s) {
   const T* const* p = reinterpret_cast<const T* const*>(pv);
   const int M = R * N;
   const size_t n = (size_t)M * C;
-  const float scale = (float)(1.0 / sqrt((double)(C / H)));
   drop_grad<T><<<ew_blocks(n), 256, 0, s>>>(dy, dproj, n, C, N,
                                             site_of(rt, SITE_PROJ),
                                             site_of(rt, SITE_DP1));
   AFFT_CHECK_LAUNCH();
-  AFFT_CHECK((attention_drop<T, GPT2>(qkv, mask, tmp, R, N, H, C / H,
-                                      site_of(rt, SITE_ATTN), s)));
-  AFFT_CHECK((launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], C, C, M, s)));
+  // dattn = dproj . Wproj^T, fp32
+  AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
+      dproj, p[TP_WPROJ], M, C, C, EpiArgs{nullptr, nullptr, dattn}, s)));
+  // dqkv, and the forward's attention output O into tmp
+  AFFT_CHECK((launch_attention_bwd<T, GPT2>(qkv, mask, dattn, dqkv, tmp, R, N,
+                                            H, C / H, site_of(rt, SITE_ATTN),
+                                            s)));
+  AFFT_CHECK((launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], C, C, M, s, tn)));
   if (gv[TP_BPROJ] != nullptr) {
     launch_colsum<T>(dproj, partial, gv[TP_BPROJ], M, C, s);
     AFFT_CHECK_LAUNCH();
   }
-  // dattn = dproj . Wproj^T, fp32
-  AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
-      dproj, p[TP_WPROJ], M, C, C, EpiArgs{nullptr, nullptr, dattn}, s)));
-  small_attention_drop_bwd<T, GPT2><<<R * H, N * 32, 0, s>>>(
-      qkv, mask, dattn, dqkv, N, H, C / H, scale, site_of(rt, SITE_ATTN));
-  AFFT_CHECK_LAUNCH();
   launch_layernorm<T, T>(x, p[TP_LN1G], p[TP_LN1B], tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  AFFT_CHECK((launch_dw<GPT2>(tmp, dqkv, gv[TP_WQKV], C, 3 * C, M, s)));
+  AFFT_CHECK((launch_dw<GPT2>(tmp, dqkv, gv[TP_WQKV], C, 3 * C, M, s, tn)));
   if (gv[TP_BQKV] != nullptr) {
     launch_colsum<T>(dqkv, partial, gv[TP_BQKV], M, 3 * C, s);
     AFFT_CHECK_LAUNCH();
@@ -500,7 +428,7 @@ static int train_bwd_mlp(int dtype, const void* y, const void* dout,
 }
 
 // bufs: tmp, dproj, dqkv, dattn, mu, rstd, partial scratch (run_bwd_attn);
-// dx (R, N, C) output.
+// dx (R, N, C) output; tn scratch (run_bwd_attn; may be null).
 template <bool GPT2>
 static int train_bwd_attn(int dtype, const void* x, const void* dy,
                           const void* qkv, const void* const* params,
@@ -517,7 +445,7 @@ static int train_bwd_attn(int dtype, const void* x, const void* dy,
         (const T*)x, (const T*)dy, (const T*)qkv, params, gv,
         (const float*)mask, rt, (T*)bufs[0], (T*)bufs[1], (T*)bufs[2],
         (float*)bufs[3], (float*)bufs[4], (float*)bufs[5], (float*)bufs[6],
-        (T*)bufs[7], R, N, C, H, eps, s);
+        (float*)bufs[8], (T*)bufs[7], R, N, C, H, eps, s);
   });
 }
 

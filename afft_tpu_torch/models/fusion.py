@@ -24,7 +24,7 @@ one pair of seed words per stack call, the block's position as its block
 index, the drop-path rate rising linearly over the stack, the final norm
 outside (afft_tpu/models/fusion.py:65-90). With attention weights asked
 for, the blocks run as modules. Training the T-SA-Fuser and the CA-Fuser is
-not ported (ROADMAP.md §A.9) and raises.
+not ported (ROADMAP.md §A.5) and raises.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class _BlockStack(nn.Module):
         if N > FB.MAX_TOKENS:
             raise NotImplementedError(
                 f"training a fuser over sequences of {N} tokens (the "
-                "T-SA-Fuser) is not ported (ROADMAP.md §A.9)")
+                "T-SA-Fuser) is not ported (ROADMAP.md §A.5)")
         rates = (self.attn_drop_rate, self.drop_rate)
         if rng is None and (any(rates) or any(self.dpr)):
             raise ValueError("training with a dropout or drop-path rate > 0 "
@@ -278,7 +278,7 @@ class TemporalCMFuser(_BlockStack):
         del rng
         if self.training:
             raise NotImplementedError(
-                "training the T-SA-Fuser is not ported (ROADMAP.md §A.9): "
+                "training the T-SA-Fuser is not ported (ROADMAP.md §A.5): "
                 "call .eval() to run the inference path")
         Bsz, T, C = _same_shape(modal_feats)
         n = self.num_mods
@@ -344,7 +344,7 @@ class TemporalCrossAttentFuser(nn.Module):
         check_impl(impl)
         if self.training:
             raise NotImplementedError(
-                "training the CA-Fuser is not ported (ROADMAP.md §A.9): "
+                "training the CA-Fuser is not ported (ROADMAP.md §A.5): "
                 "call .eval() to run the inference path")
         Bsz, T, C = _same_shape(modal_feats)
         pos = self.position_embeddings.weight[:T]

@@ -51,8 +51,13 @@ SIGNATURES = {
     "afft_block_train_bwd_attn": [_I, _P, _P, _P, _PP, _PP, _P, _IP, _IP, _FP,
                                   _PP] + [_I] * 4 + [_F, _P],
     "afft_draw_masks": [_IP, _IP, _FP, _PP] + [_I] * 4 + [_P],
+    "afft_attention_drop": [_I, _I, _P, _P, _P, _IP, _IP, _FP] + [_I] * 4
+                           + [_P],
+    "afft_attention_drop_bwd": [_I, _I] + [_P] * 5 + [_IP, _IP, _FP]
+                               + [_I] * 4 + [_P],
     "afft_gemm": [_I] * 4 + [_P] * 6 + [_IP, _IP, _FP] + [_I] * 4 + [_P],
-    "afft_gemm_tn": [_P] * 3 + [_I] * 3 + [_P],
+    "afft_gemm_tn": [_P] * 4 + [_I] * 4 + [_P],
+    "afft_gemm_tn_slices": [_I] * 3,
 }
 # the GPT-2 layer's training entries take the fuser block's arguments
 for _kind in ("fwd", "bwd_mlp", "bwd_attn"):

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +95,24 @@ def launch(name: str, entry: str, *args, device) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _tn_slices(I: int, J: int, M: int, index: int) -> int:
+    with torch.cuda.device(index):
+        return int(_build.library().afft_gemm_tn_slices(I, J, M))
+
+
+def tn_slices(I: int, J: int, M: int, device) -> int:
+    """The slices over M that the Hopper GEMM's TN route takes for the
+    weight gradient (I, J) over M rows on a CUDA ``device``
+    (``csrc/gemm_sm90.cuh`` ``tn_slices``): 1, but where its output tiles
+    would leave most of the card's SMs idle. A caller that gives the route
+    scratch gives it ``slices * I * J`` fp32."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _tn_slices(I, J, M, index)
 
 
 # -- plain versions of the pieces (fp32 arithmetic on the working dtype) ----

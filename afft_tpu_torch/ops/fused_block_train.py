@@ -20,9 +20,13 @@ for an absent bias or affine). On CPU tensors it draws the masks with
 In bf16 every product of the three entries runs on the Hopper GEMM
 (``csrc/gemm_sm90.cuh``): the forward reads the nn.Linear (out, in) weights
 where they lie, as its K-major (N, K) operand, the backward's dX reads them
-as (K, N), the weight gradients take its TN route; the attention (forward,
-and its recomputation in the attention backward) is
-``csrc/fuser_attention.cuh``'s rows kernel with dropout. So a CUDA call
+as (K, N), the weight gradients take its TN route (the attention branch's
+split over M into scratch this module allocates, ``_common.tn_slices``);
+the forward attention is ``csrc/fuser_attention.cuh``'s rows kernel with
+dropout, the attention backward ``csrc/attention_bwd.cuh``, which also
+recomputes the forward's attention output for dWproj (``attention_drop``
+and ``attention_drop_bwd`` reach those two kernels alone, for their checks;
+``attention_drop_bwd_plain`` is the backward's plain version). So a CUDA call
 takes the GEMM's operand rules, which ``block_operands`` applies and raises
 on: C and hidden multiples of 8 (K % 8, N % 8), one dtype (bf16, or fp32
 for the parity checks, on the fp32 GEMM), contiguous and 16-byte aligned
@@ -55,12 +59,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ._common import (DTYPE_CODES, add_bias, launch, layer_norm32,
-                      mask_operand, matmul32, ptr, ptr_array)
+from ._common import (DTYPE_CODES, add_bias, check_heads, check_operands,
+                      launch, layer_norm32, mask_operand, matmul32, ptr,
+                      ptr_array, tn_slices)
 from .fused_block import MAX_TOKENS, _unpack, block_operands
 
 LAUNCHES = {"fused_block_train_fwd": 0, "fused_block_train_bwd_mlp": 0,
-            "fused_block_train_bwd_attn": 0, "draw_masks": 0}
+            "fused_block_train_bwd_attn": 0, "draw_masks": 0,
+            "attention_drop": 0, "attention_drop_bwd": 0}
 
 # the five mask sites (pallas_block_train.py:56), in the order of every mask
 # tuple: attention, proj, drop-path 1, MLP, drop-path 2; and the rate each
@@ -177,24 +183,153 @@ def _token_rows(dp, R, N):
     return dp.reshape(R, 1).expand(R, N).reshape(R * N, 1)
 
 
-def attention_drop_plain(qkv, mask, mattn, n_tokens: int, num_heads: int):
-    """The training attention on (R * N, 3C) qkv rows ([q | k | v], heads
-    minor) in the working dtype: softmax(q k^T * hd^-0.5 + mask) in fp32,
-    each probability scaled by its multiplier in ``mattn`` (R, H, N, N),
-    unrounded, before P . V (pallas_block_train.py:156-187). Returns
-    (R * N, C) fp32."""
+def _heads(t, R, N, H):
+    """(R * N, H * hd) rows -> (R, H, N, hd)."""
+    return t.reshape(R, N, H, -1).permute(0, 2, 1, 3)
+
+
+def _rows(t):
+    """(R, H, N, hd) -> (R * N, H * hd) rows."""
+    R, H, N, hd = t.shape
+    return t.permute(0, 2, 1, 3).reshape(R * N, H * hd)
+
+
+def _probabilities(qkv, mask, n_tokens: int, num_heads: int):
+    """(q, k, v) as (R, H, N, hd) fp32 and softmax(q k^T * hd^-0.5 + mask)
+    in fp32."""
     rows, three_c = qkv.shape
     R, N, H = rows // n_tokens, n_tokens, num_heads
-    C = three_c // 3
-    hd = C // H
-    q, k, v = qkv.float().reshape(R, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-    s = (q @ k.transpose(-1, -2)) * (hd ** -0.5)
+    q, k, v = (_heads(t, R, N, H) for t in qkv.float().chunk(3, dim=1))
+    s = (q @ k.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
     if mask is not None:
         s = s + mask.float()
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
-    p = e / e.sum(dim=-1, keepdim=True) * mattn
-    return (p @ v).permute(0, 2, 1, 3).reshape(R * N, C)
+    return q, k, v, e / e.sum(dim=-1, keepdim=True)
+
+
+def attention_drop_plain(qkv, mask, mattn, n_tokens: int, num_heads: int,
+                         round_to=None):
+    """The training attention on (R * N, 3C) qkv rows ([q | k | v], heads
+    minor) in the working dtype: softmax(q k^T * hd^-0.5 + mask) in fp32,
+    each probability scaled by its multiplier in ``mattn`` (R, H, N, N),
+    unrounded (the fuser, pallas_block_train.py:156-187) or rounded to
+    ``round_to`` (the GPT-2 layer, pallas_gpt2_train.py:113-120), before
+    P . V. Returns (R * N, C) fp32."""
+    _, _, v, p = _probabilities(qkv, mask, n_tokens, num_heads)
+    pd = p * mattn
+    if round_to is not None:
+        pd = pd.to(round_to).float()
+    return _rows(pd @ v)
+
+
+def attention_drop_bwd_plain(qkv, mask, mattn, dao, n_tokens: int,
+                             num_heads: int, round_to=None):
+    """The attention backward of both training layers (the plain version of
+    ``csrc/attention_bwd.cuh``): from the qkv rows and masks of
+    ``attention_drop_plain`` and dao = d(attention output) (R * N, C),
+    returns (the forward's output O (R * N, C), the packed dqkv (R * N,
+    3C)), both fp32: dv = (p * keep)^T . dao, dp = (dao . v^T) * keep, ds =
+    p * (dp - sum dp * p), dq = ds . k * hd^-0.5, dk = ds^T . q * hd^-0.5.
+    With ``round_to`` (the GPT-2 layer's working dtype) dao is read rounded
+    and p * keep and ds are rounded before their products
+    (pallas_gpt2_train.py:283-288); without it every step is fp32
+    (pallas_block_train.py:397-430)."""
+    def rnd(t):
+        return t if round_to is None else t.to(round_to).float()
+    q, k, v, p = _probabilities(qkv, mask, n_tokens, num_heads)
+    R, H, N, hd = q.shape
+    pd = rnd(p * mattn)
+    g = _heads(rnd(dao.float()), R, N, H)
+    dp = (g @ v.transpose(-1, -2)) * mattn
+    ds = rnd(p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+    scale = hd ** -0.5
+    dqkv = torch.cat([_rows((ds @ k) * scale),
+                      _rows((ds.transpose(-1, -2) @ q) * scale),
+                      _rows(pd.transpose(-1, -2) @ g)], dim=1)
+    return _rows(pd @ v), dqkv
+
+
+def _attention_operands(name, qkv, mask, dao, n_tokens, num_heads, gpt2):
+    """Check the attention kernels' operands; returns (R, hd, the fp32
+    mask or None)."""
+    rows, three_c = qkv.shape if qkv.dim() == 2 else (0, 0)
+    limit = 32 if gpt2 else MAX_TOKENS
+    if qkv.dim() != 2 or three_c % 3 or not 1 <= n_tokens <= limit \
+            or rows % n_tokens:
+        raise ValueError(f"{name}: needs qkv (R * N, 3C) with 1 <= N <= "
+                         f"{limit}, got {tuple(qkv.shape)}, N={n_tokens}")
+    hd = check_heads(name, three_c // 3, num_heads)
+    if dao is not None:
+        if tuple(dao.shape) != (rows, three_c // 3) \
+                or dao.dtype != torch.float32:
+            raise ValueError(f"{name}: dao must be fp32 {(rows, three_c // 3)}"
+                             f", got {dao.dtype} {tuple(dao.shape)}")
+    return rows // n_tokens, hd, mask_operand(name, mask, n_tokens,
+                                              qkv.device)
+
+
+def attention_drop(qkv, mask, seeds, *, n_tokens: int, num_heads: int,
+                   block_idx: int = 0, attn_rate: float = 0.0,
+                   gpt2: bool = False):
+    """The training layers' forward attention alone, with dropout at the
+    attention site of ``seeds`` / ``block_idx``: (R * N, C) in qkv.dtype.
+    ``gpt2`` takes the GPT-2 layer's arithmetic (p * keep rounded), else the
+    fuser's. CPU tensors take ``attention_drop_plain`` on the masks of
+    ``draw_masks_plain``; CUDA tensors launch the kernel the entries launch
+    (``staged_attention`` / ``fuser_attention_rows``). No model path calls
+    it: the entries launch the kernel inside their own sequences."""
+    name = "attention_drop"
+    R, hd, mask32 = _attention_operands(name, qkv, mask, None, n_tokens,
+                                        num_heads, gpt2)
+    C, dt = qkv.shape[1] // 3, qkv.dtype
+    if qkv.device.type == "cpu":
+        mattn = draw_masks_plain(R, n_tokens, C, num_heads, seeds, block_idx,
+                                 attn_rate, 0.0, 0.0)[0]
+        return attention_drop_plain(qkv, mask, mattn, n_tokens, num_heads,
+                                    dt if gpt2 else None).to(dt)
+    check_operands(name, qkv, {})
+    out = torch.empty((R * n_tokens, C), dtype=dt, device=qkv.device)
+    launch(name, "afft_attention_drop", DTYPE_CODES[dt], int(gpt2), ptr(qkv),
+           ptr(mask32), ptr(out),
+           *rate_arrays(seeds, block_idx, attn_rate, 0.0, 0.0), R, n_tokens,
+           num_heads, hd, device=qkv.device)
+    LAUNCHES[name] += 1
+    return out
+
+
+def attention_drop_bwd(qkv, mask, dao, seeds, *, n_tokens: int,
+                       num_heads: int, block_idx: int = 0,
+                       attn_rate: float = 0.0, gpt2: bool = False):
+    """The training layers' attention backward alone: from qkv (R * N, 3C)
+    and dao (R * N, C) fp32, (the forward's output O (R * N, C), dqkv (R *
+    N, 3C)) in qkv.dtype, with the arithmetic of ``attention_drop``. CPU
+    tensors take ``attention_drop_bwd_plain``; CUDA tensors launch
+    ``csrc/attention_bwd.cuh``, the kernel the two attention-backward
+    entries launch inside their own sequences (no model path calls this)."""
+    name = "attention_drop_bwd"
+    R, hd, mask32 = _attention_operands(name, qkv, mask, dao, n_tokens,
+                                        num_heads, gpt2)
+    C, dt = qkv.shape[1] // 3, qkv.dtype
+    if qkv.device.type == "cpu":
+        mattn = draw_masks_plain(R, n_tokens, C, num_heads, seeds, block_idx,
+                                 attn_rate, 0.0, 0.0)[0]
+        out, dqkv = attention_drop_bwd_plain(qkv, mask, mattn, dao, n_tokens,
+                                             num_heads, dt if gpt2 else None)
+        return out.to(dt), dqkv.to(dt)
+    check_operands(name, qkv, {})
+    if dao.device != qkv.device or not dao.is_contiguous() \
+            or dao.data_ptr() % 16:
+        raise ValueError(f"{name}: dao must be contiguous, 16-byte aligned "
+                         f"and on {qkv.device}")
+    out = torch.empty((R * n_tokens, C), dtype=dt, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    launch(name, "afft_attention_drop_bwd", DTYPE_CODES[dt], int(gpt2),
+           ptr(qkv), ptr(mask32), ptr(dao), ptr(dqkv), ptr(out),
+           *rate_arrays(seeds, block_idx, attn_rate, 0.0, 0.0), R, n_tokens,
+           num_heads, hd, device=qkv.device)
+    LAUNCHES[name] += 1
+    return out, dqkv
 
 
 def attn_half_train_plain(x, params, mask, masks, *, num_heads: int,
@@ -301,6 +436,18 @@ def block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg):
     return dy
 
 
+def tn_scratch(x, shapes, M):
+    """Scratch for the TN route's partial tiles over M rows: enough for the
+    slices of each (I, J) weight gradient of ``shapes`` (either
+    orientation), or None where each takes one slice (and in fp32, whose
+    weight gradients need none)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    sizes = [s * I * J for I, J in shapes
+             if (s := tn_slices(I, J, M, x.device)) > 1]
+    return _new(x, max(sizes), dtype=torch.float32) if sizes else None
+
+
 def block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads, cfg):
     """The attention backward (kernel 9, or the layer's of ``cfg``) on
     CUDA tensors: (x, dy, stashed qkv) -> dx (R, N, C); writes the qkv, proj
@@ -310,10 +457,12 @@ def block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads, cfg):
     tmp, dproj, dattn, mu, rstd, partial = _bwd_scratch(x, C, hidden)
     dqkv = _new(x, R * N, 3 * C)
     dx = _new(x, R, N, C)
+    # dWproj (C, C) and dWqkv (3C, C) or (C, 3C)
+    tn = tn_scratch(x, ((C, C), (3 * C, C), (C, 3 * C)), R * N)
     launch(layer.name, f"afft_{layer.entry}_bwd_attn",
            DTYPE_CODES[x.dtype], ptr(x), ptr(dy), ptr(qkv),
            ptr_array(tensors), ptr_array(grads), ptr(mask32), *arrays,
-           ptr_array([tmp, dproj, dqkv, dattn, mu, rstd, partial, dx]),
+           ptr_array([tmp, dproj, dqkv, dattn, mu, rstd, partial, dx, tn]),
            R, N, C, num_heads, eps, device=x.device)
     layer.counts[f"{layer.name}_bwd_attn"] += 1
     return dx

@@ -58,7 +58,8 @@ import torch.nn.functional as F
 from ._common import (add_bias, check_heads, check_operands, check_shape,
                       launch, layer_norm32, mask_operand, matmul32,
                       ptr_array)
-from .fused_block_train import (BlockTrainFunction, Layer, check_seeds,
+from .fused_block_train import (BlockTrainFunction, Layer,
+                                attention_drop_plain, check_seeds,
                                 rate_arrays, site_mask_plain)
 from .fused_block_train import rates_operands as _rates_operands
 from .fused_gpt2 import MAX_TOKENS
@@ -135,20 +136,13 @@ def gpt2_attn_half_train_plain(x, params, mask, masks, *, num_heads: int,
     with dropout, + x."""
     B, T, C = x.shape
     dt = x.dtype
-    H, hd = num_heads, C // num_heads
     g = params.get
     x32 = x.reshape(B * T, C).float()
     xn = layer_norm32(x32, g("ln_1.weight"), g("ln_1.bias"), eps).to(dt)
     qkv = add_bias(matmul32(xn, params["attn.c_attn.weight"], True),
                    g("attn.c_attn.bias")).to(dt)
-    q, k, v = qkv.float().reshape(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
-    s = (q @ k.transpose(-1, -2)) * (hd ** -0.5)
-    if mask is not None:
-        s = s + mask.float()
-    s = s - s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s)
-    p = (e / e.sum(dim=-1, keepdim=True) * masks[0]).to(dt).float()
-    attn = (p @ v).permute(0, 2, 1, 3).reshape(B * T, C).to(dt)
+    attn = attention_drop_plain(qkv, mask, masks[0], T, num_heads,
+                                round_to=dt).to(dt)
     proj = add_bias(matmul32(attn, params["attn.c_proj.weight"], True),
                     g("attn.c_proj.bias"))
     return (x32 + proj * masks[1]).to(dt), qkv

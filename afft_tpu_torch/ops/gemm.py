@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ._common import (add_bias, check_operands, check_shape, launch,
-                      matmul32, ptr)
+                      matmul32, ptr, tn_slices)
 from .fused_block_train import rate_arrays, rates_operands, site_mask_plain
 
 LAUNCHES = {"gemm": 0, "gemm_tn": 0}
@@ -253,10 +253,13 @@ def gemm_tn_plain(a, b):
     return a.float().t() @ b.float()
 
 
-def gemm_tn(a, b):
+def gemm_tn(a, b, slices=None):
     """The weight gradient out (I, J) = a^T . b, fp32, for a (M, I) and b
-    (M, J) in bf16, reduced over the M rows. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    (M, J) in bf16, reduced over the M rows: on the card in ``slices``
+    slices of M (default ``_common.tn_slices``, what the training entries
+    take where they give the route scratch), their partial tiles summed in
+    slice order. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     name = "gemm_tn"
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"{name}: needs a (M, I) and b (M, J), got "
@@ -266,13 +269,19 @@ def gemm_tn(a, b):
     if M < 1 or I % 8 or J % 8 or I < 8 or J < 8:
         raise ValueError(f"{name}: needs M >= 1, I % 8 == 0 and J % 8 == 0 "
                          f"(M={M}, I={I}, J={J})")
+    if slices is not None and slices < 1:
+        raise ValueError(f"{name}: slices must be >= 1, got {slices}")
     if a.device.type == "cpu":
         return gemm_tn_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a.device}")
     check_kernel_operands(name, a, {"b": b})
+    if slices is None:
+        slices = tn_slices(I, J, M, a.device)
     out = torch.empty((I, J), dtype=torch.float32, device=a.device)
-    launch(name, "afft_gemm_tn", ptr(a), ptr(b), ptr(out), I, J, M,
-           device=a.device)
+    scratch = torch.empty((slices, I, J), dtype=torch.float32,
+                          device=a.device) if slices > 1 else None
+    launch(name, "afft_gemm_tn", ptr(a), ptr(b), ptr(out), ptr(scratch), I,
+           J, M, slices, device=a.device)
     LAUNCHES[name] += 1
     return out

@@ -32,7 +32,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                the same form out of place; its TN route (the weight
                gradients) at the training entries' shapes and at edge
                shapes (M 1 / 15 / 4097, I 8 / 72 / 136, J 24 / 200 / 264),
-               bit for bit from run to run; then all timed in turns against
+               bit for bit from run to run, and split over M (the slices
+               each training shape takes, printed; every split form at the
+               shapes that split and at ragged edges, against the fp32
+               product and bit for bit; timed whole, as the rule splits
+               and in 4 slices); then all timed in turns against
                torch.matmul (the library yardstick), and at the rollout's
                cached-block shapes against cuBLAS addmm; the wgmma GEMM
                must keep 2x the rate, and half the time at the cross
@@ -45,7 +49,13 @@ Phases, in order; any failure exits non-zero and prints no result:
                draw_masks and draw_masks_gpt2, whose masks equal the
                generator in torch integer ops bit for bit and whose
                gradients are held against fp32 autograd through the plain
-               version)
+               version; first the attention backward of both training
+               layers alone, csrc/attention_bwd.cuh, against its plain
+               version at the training edges (fuser N 1-8, GPT-2 T 1-32,
+               hd 6-512, rates 0 / 0.1 / 0.5, masked or not, fp32 and bf16)
+               and the flagship shapes, bit for bit on relaunch, its O bit
+               for bit the forward attention kernel's, and its device time
+               against its byte bound)
                against its plain PyTorch version on the card, in bf16 at the
                shapes of the served and trained paths and in fp32 at a
                reduced batch, and at edge shapes; its time beside the plain
@@ -56,10 +66,12 @@ Phases, in order; any failure exits non-zero and prints no result:
                fused_seq_block, fused_decoder_block and
                fused_block_train_fwd must launch none of the kernels they
                ran before (OFF_PATH: gemm_bf16, the one-warp-per-query
-               attentions), nor fused_gpt2_train_bwd_mlp and
-               fused_gpt2_train_bwd_attn gemm_bf16, and every product of
-               the six must run on gemm_sm90's (N, K) route or its TN
-               route; fused_attention (prefill and decode) must launch the
+               attentions), nor fused_gpt2_train_bwd_mlp gemm_bf16, and
+               every product of the six must run on gemm_sm90's (N, K)
+               route or its TN route; both attention backwards
+               (fused_block_train_bwd_attn, fused_gpt2_train_bwd_attn) must
+               launch attention_bwd and neither the one-warp-per-query
+               backward nor the forward attention; fused_attention (prefill and decode) must launch the
                sequence attention alone, and fused_decoder_block its
                products, its two attentions and its LayerNorms alone
                (ONLY_ON); the fuser attention at its edges (N 1 / 5 / 8, S
@@ -91,7 +103,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                256 over fp32 master weights with the launch counts of every
                step asserted (the fuser blocks' and the GPT-2 layers'
                training entries, 0 of every serving kernel), a falling loss,
-               ms per step, clips/s, peak memory and one profiled step. The
+               ms per step, clips/s, peak memory and one profiled step,
+               which may show no kernel the port has deleted. The
                launch counts of the kernels line are those of the twenty
                bf16 steps alone; the fp32 runs are counted apart.
                draw_masks and draw_masks_gpt2 are launched by no training
@@ -938,6 +951,115 @@ def check_train_edge_shapes(gen):
         "versions (masks bit for bit)")
 
 
+# The attention backward of both training layers (csrc/attention_bwd.cuh,
+# inside rows 9 and 15) at the training edges: the fuser's token counts with
+# its arithmetic, the GPT-2 layer's (causal, p * keep and ds rounded) with
+# its, each head width at a head count that keeps C % 8 == 0
+ATTN_BWD_EDGE_N = {False: (1, 2, 3, 5, 8), True: (1, 5, 7, 16, 19, 32)}
+ATTN_BWD_EDGE_HD = {6: 4, 8: 3, 12: 2, 64: 3, 256: 2, 512: 2}  # hd: H
+ATTN_BWD_RATES = (0.0, 0.1, 0.5)
+# the flagship shapes: (label, R, N, H, hd, gpt2, causal)
+ATTN_BWD_SHAPES = (("row 9", 4096, 5, 4, 256, False, False),
+                   ("row 15", 256, 16, 4, 512, True, True))
+
+
+def _check_attention_bwd(R, N, H, hd, dt, gpt2, rate, causal, gen):
+    """The attention backward kernel against its plain version (O and dqkv
+    within KERNEL_TOL of max|ref|), bit for bit on a second launch, and its
+    O bit for bit the forward attention kernel's output on the same qkv and
+    seeds (the entries' dWproj takes it in place of the forward's). Returns
+    the largest absolute error."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+    C = H * hd
+    rn = _randn(gen, dt)
+    qkv = rn(R * N, 3 * C)
+    dao = _randn(gen, torch.float32)(R * N, C)
+    mask = neg_inf_causal_mask(N, device="cuda") if causal else None
+    kw = dict(n_tokens=N, num_heads=H, block_idx=4, attn_rate=rate,
+              gpt2=gpt2)
+    (o, dqkv), (o2, dqkv2) = (FT.attention_drop_bwd(qkv, mask, dao,
+                                                    TRAIN_SEEDS, **kw)
+                              for _ in range(2))
+    fwd = FT.attention_drop(qkv, mask, TRAIN_SEEDS, **kw)
+    torch.cuda.synchronize()
+    mattn = FT.draw_masks_plain(R, N, C, H, TRAIN_SEEDS, 4, rate, 0.0, 0.0,
+                                device="cuda")[0]
+    want = FT.attention_drop_bwd_plain(qkv, mask, mattn, dao, N, H,
+                                       dt if gpt2 else None)
+    tag = "bf16" if dt == torch.bfloat16 else "fp32"
+    what = (f"attention_bwd {tag} R={R} N={N} H={H} hd={hd} "
+            f"{'gpt2' if gpt2 else 'fuser'} rate={rate} causal={causal}")
+    worst = 0.0
+    for name, got, ref in zip(("O", "dqkv"), (o, dqkv), want):
+        finite, max_abs, rel = errors(got, ref)
+        worst = max(worst, max_abs)
+        if not (finite and rel <= KERNEL_TOL[tag]):
+            raise AssertionError(f"{what}: {name} rel_err={rel:.3g} "
+                                 f"finite={finite}")
+    if not (torch.equal(o, o2) and torch.equal(dqkv, dqkv2)):
+        raise AssertionError(f"{what}: two launches differ")
+    if not torch.equal(o, fwd):
+        raise AssertionError(f"{what}: O differs from the forward attention "
+                             "kernel's output")
+    return worst
+
+
+def check_attention_bwd(peaks, gen):
+    """The attention backward kernel at its edges and at the flagship
+    shapes (bf16, and fp32 at an eighth of the rows) against its plain
+    version, bit for bit on relaunch and O against the forward kernel; then
+    its device time a launch at the flagship shapes against its byte bound
+    (qkv and the fp32 dao read once, dqkv and O written once). Returns the
+    numbers."""
+    import itertools
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+    n, worst = 0, 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for gpt2, Ns in ATTN_BWD_EDGE_N.items():
+            for N in Ns:
+                for (hd, H), rate in itertools.product(
+                        ATTN_BWD_EDGE_HD.items(), ATTN_BWD_RATES):
+                    causal = rate == 0.1 or (gpt2 and rate == 0.0)
+                    worst = max(worst, _check_attention_bwd(
+                        5 + N % 3, N, H, hd, dt, gpt2, rate, causal, gen))
+                    n += 1
+    numbers = {}
+    for label, R, N, H, hd, gpt2, causal in ATTN_BWD_SHAPES:
+        for dt, rows in ((torch.bfloat16, R), (torch.float32, R // 8)):
+            worst = max(worst, _check_attention_bwd(
+                rows, N, H, hd, dt, gpt2, 0.1, causal, gen))
+            n += 1
+        C = H * hd
+        qkv = _randn(gen, torch.bfloat16)(R * N, 3 * C)
+        dao = _randn(gen, torch.float32)(R * N, C)
+        mask = neg_inf_causal_mask(N, device="cuda") if causal else None
+        kw = dict(n_tokens=N, num_heads=H, block_idx=4, attn_rate=0.1,
+                  gpt2=gpt2)
+        ms = _device_ms(lambda: FT.attention_drop_bwd(qkv, mask, dao,
+                                                      TRAIN_SEEDS, **kw))
+        fwd_ms = _device_ms(lambda: FT.attention_drop(qkv, mask,
+                                                      TRAIN_SEEDS, **kw))
+        nbytes = _nbytes(qkv, dao) + _nbytes(qkv) + R * N * C * 2
+        bound = nbytes / peaks["bytes"] * 1e3
+        numbers[label] = {"device_ms": ms, "bound_ms": bound, "bytes": nbytes,
+                          "forward_attention_device_ms": fwd_ms}
+        log(f"kernel attention_bwd {label} bf16 (R, N, H, hd)=({R}, {N}, {H}, "
+            f"{hd}): device {ms:.4f} ms a launch against the byte bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {nbytes / ms / 1e6:.1f} "
+            f"GB/s); the forward attention alone {fwd_ms:.4f} ms")
+        del qkv, dao
+    log(f"kernel attention_bwd: {n} checks against the plain version agree "
+        f"(largest abs err {worst:.3g}; tol {KERNEL_TOL['bf16']:g} / "
+        f"{KERNEL_TOL['fp32']:g} of max|ref|), each bit for bit on a second "
+        "launch, O bit for bit the forward attention kernel's output")
+    torch.cuda.empty_cache()
+    return {"checks": n, "worst_abs_err": worst, "flagship": numbers}
+
+
 def library_train_halves(p, H, eps, rates, dp_masks, mask=None):
     """The training block as cuBLAS GEMMs + SDPA + F.layer_norm + F.dropout
     under autograd, in two halves; used nowhere in the port."""
@@ -1209,6 +1331,7 @@ def phase_train_kernels(peaks, gen):
     from afft_tpu_torch.ops import fused_block_train as FT
     from afft_tpu_torch.ops import fused_gpt2_train as FGT
 
+    log(json.dumps({"attention_bwd": check_attention_bwd(peaks, gen)}))
     check_train_edge_shapes(gen)
     results = {}
 
@@ -1285,23 +1408,35 @@ REDESIGNED = ("gpt2_attn_half", "gpt2_mlp_half", "fused_gpt2_train_fwd",
               "fused_block_train_bwd_mlp", "fused_block", "fused_seq_block",
               "fused_block_train_fwd", "fused_gpt2_train_bwd_mlp",
               "fused_gpt2_train_bwd_attn", "fused_attention",
-              "fused_attention/decode", "fused_decoder_block")
+              "fused_attention/decode", "fused_decoder_block",
+              "fused_block_train_bwd_attn")
 # the entries whose one-call profile must show none of the kernels they ran
 # before, and their products on gemm_sm90's (N, K) route (the weight
-# gradients on its TN route): the fuser blocks' serving forward (rows 1, 5,
-# 6) and the fuser's training forward (row 7) with their attention on
-# fuser_attention.cuh, the GPT-2 layer's backward dX (rows 13 + 14, 15), the
-# attention over separate q, k, v (row 4, prefill and decode)
+# gradients on its TN route; KN_PRODUCTS: the (K, N) route too): the fuser
+# blocks' serving forward (rows 1, 5, 6) and the fuser's training forward
+# (row 7) with their attention on fuser_attention.cuh, the GPT-2 layer's
+# backward dX (rows 13 + 14, 15), the attention over separate q, k, v (row 4,
+# prefill and decode), and both attention backwards (rows 9, 15) on
+# attention_bwd.cuh, which also gives dWproj the forward's output: neither
+# the one-warp-per-query backward nor the forward attention again
 OFF_PATH = {
     "fused_block": ("gemm_bf16", "small_attention", "strided_attention"),
     "fused_seq_block": ("gemm_bf16", "small_attention", "strided_attention"),
     "fused_block_train_fwd": ("gemm_bf16", "small_attention_drop"),
     "fused_gpt2_train_bwd_mlp": ("gemm_bf16",),
-    "fused_gpt2_train_bwd_attn": ("gemm_bf16",),
+    "fused_gpt2_train_bwd_attn": ("gemm_bf16", "small_attention_drop_bwd",
+                                  "staged_attention"),
+    "fused_block_train_bwd_attn": ("gemm_bf16", "small_attention_drop_bwd",
+                                   "fuser_attention_rows"),
     "fused_attention": ("strided_attention",),
     "fused_attention/decode": ("strided_attention",),
     "fused_decoder_block": ("gemm_bf16", "strided_attention"),
 }
+# the entries whose products read W as (K, N) too: the fuser's backward dX
+KN_PRODUCTS = ("fused_block_train_bwd_attn",)
+# kernels an entry's one-call profile must show besides gemm_sm90
+SHOWS = {"fused_block_train_bwd_attn": ("attention_bwd",),
+         "fused_gpt2_train_bwd_attn": ("attention_bwd",)}
 # the entries whose one-call profile may show only these kernel groups
 # (prefixes), each of which it must show
 ONLY_ON = {
@@ -1310,20 +1445,22 @@ ONLY_ON = {
     "fused_decoder_block": ("gemm_sm90<", "fuser_attention_seq_mma",
                             "layernorm_rows"),
 }
-# kernels deleted from the port: no served path's profile may show them
+# kernels deleted from the port: no served path's profile, nor the profiled
+# training step, may show them
 RETIRED = ("gemm_bf16", "strided_attention", "small_attention",
-           "small_attention_drop")
+           "small_attention_drop", "small_attention_drop_bwd")
 
 
 def check_off_path(name, profile):
     """Fail if the one-call profile of ``name`` shows a kernel of its
-    OFF_PATH or a product off gemm_sm90's (N, K) route, or (ONLY_ON) a
-    kernel outside its list or not every kernel of it; an entry off ONLY_ON
-    must show gemm_sm90."""
+    OFF_PATH or a product off gemm_sm90's (N, K) route (but for
+    KN_PRODUCTS), or (ONLY_ON) a kernel outside its list or not every kernel
+    of it; an entry off ONLY_ON must show gemm_sm90 and its SHOWS."""
     groups = profile["groups_ms"]
     bad = [g for g in groups if g.split("<")[0] in OFF_PATH[name]
-           or (g.startswith("gemm_sm90<") and "W(N,K)" not in g)]
-    need = ONLY_ON.get(name, ("gemm_sm90<",))
+           or (g.startswith("gemm_sm90<") and "W(N,K)" not in g
+               and name not in KN_PRODUCTS)]
+    need = ONLY_ON.get(name, ("gemm_sm90<",) + SHOWS.get(name, ()))
     if name in ONLY_ON:
         bad += [g for g in groups if not g.startswith(need) and g not in bad]
     missing = [k for k in need if not any(g.startswith(k) for g in groups)]
@@ -1424,8 +1561,8 @@ def phase_kernels(peaks):
 # -- the build and the GEMM of the GPT-2 entries ------------------------------
 
 # the kernels whose ptxas report the build phase prints
-REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "staged_attention",
-                    "fuser_attention")
+REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "sum_slices",
+                    "staged_attention", "fuser_attention", "attention_bwd")
 
 
 def report_build(lib_path):
@@ -1484,6 +1621,12 @@ TN_SHAPES = ((20480, 1024, 4096), (20480, 4096, 1024), (20480, 3072, 1024),
              (20480, 1024, 1024), (4096, 2048, 8192), (4096, 8192, 2048),
              (4096, 2048, 6144), (4096, 2048, 2048))
 TN_EDGES = ((1, 15, 4097), (8, 72, 136), (24, 200, 264))  # M, I, J
+# the TN route split over M (tn_slices; 4 slices for row 9's dWproj on an
+# H100): ragged row counts, each also forced to 2 and 3 slices
+TN_SPLIT_EDGES = ((8200, 1024, 1024), (20481, 3072, 1024), (4160, 256, 512))
+# the split route against the fp32 product: a sum over up to 20,481 rows in
+# fp32 in another order, far inside one bf16 ulp of the largest entry
+TN_SPLIT_TOL = 2.0 ** -7
 # the rollout's cached GPT-2 block (cuBLAS addmm): prefill and decode rows
 CACHED_SHAPES = ((4096, 6144, 2048), (4096, 2048, 2048), (256, 6144, 2048),
                  (256, 2048, 2048))
@@ -1710,6 +1853,25 @@ def _check_gemm_tn(G, M, I, J, gen):
     return rel
 
 
+def _check_tn_split(G, M, I, J, slices, gen):
+    """The TN route over ``slices`` slices of M against the fp32 product
+    (TN_SPLIT_TOL of max|ref|), bit for bit on a second launch. Returns the
+    rel_err."""
+    import torch
+    rn = _randn(gen, torch.bfloat16)
+    a, b = rn(M, I), rn(M, J)
+    got, again = (G.gemm_tn(a, b, slices=slices) for _ in range(2))
+    want = G.gemm_tn_plain(a, b)
+    torch.cuda.synchronize()
+    what = f"gemm_tn (M, I, J)=({M}, {I}, {J}) over {slices} slices"
+    finite, _, rel = errors(got, want)
+    if not (finite and rel <= TN_SPLIT_TOL):
+        raise AssertionError(f"{what}: rel_err={rel:.3g} finite={finite}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches differ")
+    return rel
+
+
 def _in_turns(fns, iters=20):
     """Each callable's mean ms over ``iters`` back-to-back calls, timed in
     the order a, b, ..., ..., b, a; the mean of its two turns."""
@@ -1800,6 +1962,22 @@ def phase_gemm(peaks, gen):
     for M, I, J in list(TN_SHAPES) + list(itertools.product(*TN_EDGES)):
         tn_worst = max(tn_worst, _check_gemm_tn(G, M, I, J, gen))
         n_tn += 1
+    # the split over M: the slices each training shape takes, then every
+    # split form at the shapes that split and at ragged edges
+    tn_slices = {f"({M}, {I}, {J})": G.tn_slices(I, J, M, "cuda")
+                 for M, I, J in TN_SHAPES}
+    split_worst, n_split = 0.0, 0
+    for M, I, J in [sh for sh in TN_SHAPES
+                    if G.tn_slices(sh[1], sh[2], sh[0], "cuda") > 1] \
+            + list(TN_SPLIT_EDGES):
+        for slices in sorted({G.tn_slices(I, J, M, "cuda"), 2, 3}):
+            split_worst = max(split_worst,
+                              _check_tn_split(G, M, I, J, slices, gen))
+            n_split += 1
+    log(f"gemm: the TN route's slices over M by (M, I, J): {tn_slices}; "
+        f"{n_split} split checks against the fp32 product (worst rel_err "
+        f"{split_worst:.3g}, tol {TN_SPLIT_TOL:g} of max|ref|), each bit "
+        "for bit on a second launch")
     nk_worst, n_nk = 0.0, 0
     nk_cases = [(M, N, K, epi, variant, label != "qkv")
                 for M in NK_ROWS
@@ -1846,7 +2024,11 @@ def phase_gemm(peaks, gen):
 
     def tn(M, I, J):
         a, b = rn(M, I), rn(M, J)
+        # as the slice rule says, whole, and in four slices of M (what the
+        # rule declines for every shape but row 9's dWproj)
         return {"sm90": lambda: G.gemm_tn(a, b),
+                "sm90 one slice": lambda: G.gemm_tn(a, b, slices=1),
+                "sm90 4 slices": lambda: G.gemm_tn(a, b, slices=4),
                 "matmul (a.t() @ b, bf16 out)": lambda: a.t() @ b}
 
     def nk(epi, variant, bias):
@@ -1916,6 +2098,8 @@ def phase_gemm(peaks, gen):
         "(addmm ms / sm90 ms)")
     return {"checks": n, "tn_checks": n_tn, "nk_checks": n_nk,
             "worst_rel_err": worst, "tn_worst_rel_err": tn_worst,
+            "tn_slices": tn_slices, "tn_split_checks": n_split,
+            "tn_split_worst_rel_err": split_worst,
             "nk_worst_rel_err": nk_worst, "res_drop_kept_zeros": kept_zeros,
             "inplace_checks": n_ip, "inplace_worst_rel_err": ip_worst,
             "wmma_floor": {"tflops": WMMA_TFLOPS, "ms": WMMA_MS},
@@ -1928,13 +2112,17 @@ def phase_gemm(peaks, gen):
 def profile_forward(fn, what="one bf16 forward", grad=False):
     """Device ms by kernel group over one call of ``fn`` (torch.profiler),
     and the device's busy share of the call's host wall time. The profiler
-    now and then hands back a trace without its device events; such a call
-    is traced once more, and a second empty trace fails."""
+    now and then hands back a trace without its device events, at times
+    twice in a row; such a call is traced again, up to four times in all,
+    after a short pause, and a fourth empty trace fails."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(2):
+    attempts = 4
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.5)
         with torch.set_grad_enabled(grad), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1951,7 +2139,7 @@ def profile_forward(fn, what="one bf16 forward", grad=False):
         if kernels:
             break
         log(f"profile: {what}: the trace holds no device events "
-            f"(attempt {attempt + 1} of 2)")
+            f"(attempt {attempt + 1} of {attempts})")
     if not kernels:
         raise RuntimeError("the profiler saw no device events")
     groups, names = {}, {}
@@ -2424,6 +2612,10 @@ def phase_train():
     profile = profile_forward(
         lambda: runner.train_step(batch, lr, runner.base_lr),
         what="one bf16 training step", grad=True)
+    retired = [g for g in profile["groups_ms"] if g.split("<")[0] in RETIRED]
+    if retired:
+        raise AssertionError(f"train bf16: the profiled step shows {retired}"
+                             ", which the port has deleted")
     del runner, batches
     torch.cuda.empty_cache()
     return launches, {

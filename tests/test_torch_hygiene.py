@@ -315,14 +315,17 @@ def test_hopper_gemm_only_on_the_bf16_path():
     attention (the training forward's with its dropout, through
     attention_drop); the training backward through the shared helpers
     launch_dx (the fuser's (K, N) products on gemm_kn, the GPT-2 layer's (N,
-    K) products on gemm_nk) and launch_dw (every weight gradient). The
+    K) products on gemm_nk) and launch_dw (every weight gradient), its
+    attention through attention_bwd.cuh alone, which also gives dWproj its
+    operand (no forward attention launched again). The
     decoder block (seq_block.cu run_decoder_block) runs its four cross
     products on gemm_nk and both its attentions on the sequence attention,
     which attention.cu launches too. launch_gemm< (gemm_f32) is left only in
     the fp32 branches of gemm_kn / gemm_nk. The wmma GEMM (gemm_bf16,
     nvcuda::wmma) and its gemm_tn_bf16, small_attention, the training
-    forward's small_attention_drop, strided_attention and the packed
-    attention launcher are gone."""
+    forward's small_attention_drop, the training backward's
+    small_attention_drop_bwd, strided_attention and the packed attention
+    launcher are gone."""
     header = _source("gemm_sm90.cuh")
     bf16_branch, fp32_branch = _body(header, "gemm_kn").split("} else {")
     assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
@@ -342,6 +345,7 @@ def test_hopper_gemm_only_on_the_bf16_path():
         src = _source(os.path.basename(name))
         assert not re.search(r"\bsmall_attention\b", src), name
         assert not re.search(r"\bsmall_attention_drop\b", src), name
+        assert "small_attention_drop_bwd" not in src, name
         assert "launch_packed_attention" not in src, name
         for gone in ("gemm_bf16", "strided_attention", "nvcuda::wmma",
                      "wmma::", "<mma.h>"):
@@ -395,7 +399,9 @@ def test_hopper_gemm_only_on_the_bf16_path():
         "} else {")
     assert "launch_staged_attention<T, true>" in gpt2_branch
     assert "launch_fuser_attention_rows<T, true>" in fuser_branch
-    assert _body(train, "run_bwd_attn").count("attention_drop<") == 1
+    bwd_attn = _body(train, "run_bwd_attn")
+    assert "attention_drop<" not in bwd_attn
+    assert bwd_attn.count("launch_attention_bwd<T, GPT2>") == 1
     gpt2_branch, fuser_branch = _body(train, "launch_dx").split("} else {")
     assert "if constexpr (GPT2)" in gpt2_branch
     assert "gemm_nk<EPI, T, T, TOut>" in gpt2_branch

@@ -44,6 +44,7 @@ NO_LAUNCHES = {"fused_block": 0, "gpt2_attn_half": 0, "gpt2_mlp_half": 0,
                "fused_decoder_block": 0, "fused_block_train_fwd": 0,
                "fused_block_train_bwd_mlp": 0,
                "fused_block_train_bwd_attn": 0, "draw_masks": 0,
+               "attention_drop": 0, "attention_drop_bwd": 0,
                "fused_gpt2_train_fwd": 0, "fused_gpt2_train_bwd_mlp": 0,
                "fused_gpt2_train_bwd_attn": 0, "draw_masks_gpt2": 0,
                "gemm": 0, "gemm_tn": 0}
