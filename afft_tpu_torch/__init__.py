@@ -5,7 +5,10 @@ never jax and nothing of afft_tpu. Plain tensor code is PyTorch; the TPU
 kernels of the serving path and of the fuser block's training are
 hand-written CUDA kernels for Hopper (``afft_tpu_torch/csrc``, bound in
 ``afft_tpu_torch/ops``). ``serve.Server`` answers requests;
-``train.runner.Runner`` takes training and eval steps.
+``train.runner.Runner`` takes training and eval steps; ``python -m
+afft_tpu_torch.run -c expts/X.txt -m train`` trains an expt through the data
+pipeline (``data``), the epoch loop, checkpoints and metric tracker
+(``train.loop``).
 
 Entry points run on the card unless the caller asks for the CPU:
 ``resolve_device`` raises instead of falling back quietly.

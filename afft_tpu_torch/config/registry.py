@@ -2,9 +2,10 @@
 
 The conf tree and the expt files name components by the reference's
 ``_target_`` strings (``models.fusion.ModalTokenCMFuser``,
-``torch.nn.Identity``, ...). The port resolves them through its own alias
-table to its own classes. The table holds only what the ported serving and
-training paths build; any other target raises ``ValueError`` naming it.
+``torch.nn.Identity``, ``datasets.epic_kitchens.EPICKitchens``, ...). The
+port resolves them through its own alias table to its own classes. The
+table holds only what the ported serving, training and data paths build;
+any other target raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ _ALIASES: Dict[str, str] = {
     "models.feature_mapping.Linear":
         "afft_tpu_torch.models.mapping:LinearMapping",
     "torch.nn.Identity": "afft_tpu_torch.models.backbones:Identity",
+    # data layer (reference datasets/*)
+    "datasets.epic_kitchens.EPICKitchens": "afft_tpu_torch.data.epic:EPICKitchens",
+    "datasets.base_video_dataset.convert_to_anticipation":
+        "afft_tpu_torch.data.anticipation:convert_to_anticipation",
+    "datasets.reader_fns.EpicRULSTMFeatsReader":
+        "afft_tpu_torch.data.readers:EpicRULSTMFeatsReader",
+    "datasets.reader_fns.DefaultReader":
+        "afft_tpu_torch.data.readers:DefaultReader",
     # optimizers and schedulers (the opt config groups)
     "torch.optim.SGD": "afft_tpu_torch.train.optim:sgd",
     "torch.optim.Adam": "afft_tpu_torch.train.optim:adam",

@@ -1,0 +1,114 @@
+"""Device-resident feature cache: no per-batch host->device traffic.
+
+Port of afft_tpu/data/device_cache.py. Pre-extracted feature datasets are
+small next to the card's memory (EK100 val: ~1 GB of bf16 clips; train:
+~7 GB), so every planned clip is gathered once through the packed store
+(host side, vectorized), the (N, T, F) tensor of each modality is copied to
+the device once, and batches become a device-side ``index_select`` driven
+by a small index tensor.
+
+Needs the clip plan (deterministic clip strategies) and no host-side
+augmentation. There is no fallback: a dataset the cache cannot hold raises,
+and the int8 storage option is not ported yet (ROADMAP.md §A.6).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .loader import shard_indices
+
+log = logging.getLogger(__name__)
+
+CHUNK = 512  # clips gathered on the host per copy while the cache is built
+
+
+class DeviceFeatureCache:
+    """Materialized clips resident on ``device``, indexed per batch there."""
+
+    def __init__(self, dataset, device, dtype=torch.bfloat16):
+        if dtype in ("int8", torch.int8, np.int8):
+            raise NotImplementedError(
+                "data_on_device_dtype=int8 is not ported (ROADMAP.md §A.6)")
+        if not getattr(dataset, "supports_batch_load", lambda: False)():
+            raise ValueError("data_on_device needs the precomputed clip plan "
+                             "(a deterministic sample_strategy and packed "
+                             "feature stores)")
+        if any(t is not None for t in dataset.transforms.values()):
+            raise ValueError("data_on_device cannot apply host-side "
+                             "transforms (e.g. ZeroMask); set "
+                             "data_train.zero_mask_rate=0")
+        self.dataset = dataset
+        self.device = torch.device(device)
+        plan = dataset._plan
+        n = len(dataset)
+        # chunks are written into a preallocated tensor: collecting every
+        # chunk and concatenating would hold ~2x the cache during the build
+        self.features: Dict[str, torch.Tensor] = {}
+        for mod in dataset.reader_fn:
+            feats = None
+            for lo in range(0, n, CHUNK):
+                idx = np.arange(lo, min(lo + CHUNK, n))
+                host = np.asarray(dataset.load_batch(idx)["data_dict"][mod],
+                                  np.float32)
+                if feats is None:
+                    feats = torch.empty((n,) + host.shape[1:], dtype=dtype,
+                                        device=self.device)
+                feats[lo:lo + len(idx)] = torch.from_numpy(host).to(
+                    self.device).to(dtype)
+            self.features[mod] = feats
+        self.nbytes = sum(f.numel() * f.element_size()
+                          for f in self.features.values())
+        log.info("device feature cache: %d clips, %.2f GB on %s", n,
+                 self.nbytes / 1e9, self.device)
+
+        self.targets = {t: plan["target"][t] for t in dataset.label_type}
+        self.labels = plan.get("labels")
+        self.uid = np.asarray(plan["uid"])
+
+    def batch(self, indices: np.ndarray) -> Dict:
+        """Batch dict with device-side feature gathers (a small index
+        upload); targets stay host arrays, as the host loader gives them."""
+        indices = np.asarray(indices)
+        idx = torch.from_numpy(indices.astype(np.int64))
+        if self.device.type == "cuda":
+            # pinned: a copy from pageable memory would wait for the stream
+            # to drain, and the host could never run ahead of the card
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        batch = {
+            "data_dict": {m: f.index_select(0, idx)
+                          for m, f in self.features.items()},
+            "target": {t: v[indices] for t, v in self.targets.items()},
+            "uid": self.uid[indices],
+            "idx": indices.astype(np.int64),
+            "valid": np.ones(len(indices), bool),
+        }
+        if self.labels is not None:
+            batch["target_subclips"] = {
+                t: v[indices][:, :, None] for t, v in self.labels.items()}
+        return batch
+
+    def iter_batches(self, batch_size: int, shuffle=False, seed=0, epoch=0,
+                     shard_id=0, num_shards=1, pad_final=True,
+                     sample_weights=None):
+        """The host loader's batches (same index order, same padding and
+        ``valid`` mask), gathered on the device."""
+        indices = shard_indices(len(self.dataset), shuffle, seed, epoch,
+                                shard_id, num_shards,
+                                weights=sample_weights)
+        n_batches = int(np.ceil(len(indices) / batch_size))
+        for b in range(n_batches):
+            chunk = indices[b * batch_size:(b + 1) * batch_size]
+            if pad_final and len(chunk) < batch_size:
+                full = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:],
+                                      batch_size - len(chunk))])
+                batch = self.batch(full)
+                batch["valid"] = np.arange(batch_size) < len(chunk)
+            else:
+                batch = self.batch(chunk)
+            yield batch

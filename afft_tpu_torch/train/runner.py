@@ -19,11 +19,20 @@ forward and backward); ``impl="plain"`` runs their plain versions on the
 same masks. Entry point: ``Runner.from_config`` on a composed expt config,
 on the card unless the caller passes ``device="cpu"``.
 
-Waiting (ROADMAP.md §A.2, §A.7): ``grad_accum``, ``master_dtype=bfloat16``,
-``param_shardings``, ``class_weight_beta``, ``watch_gradients``,
-``zero_sharding``, ``pipeline_stages``, and the in-step metric accumulator
-with ``absorb_accum`` (the metric tracker). ``from_config`` raises for each
-of those keys when a config sets it away from its default.
+Metrics accumulate on the device: a step given a ``MetricAccum`` adds its
+losses, scalar metrics and MT5R hits to it, and ``absorb_accum`` reads it
+into the ``MetricTracker`` once an epoch (afft_tpu/train/runner.py:113-172).
+``watch_gradients`` adds the global gradient and parameter norms to the
+metrics; ``class_weights`` weight the training loss only.
+
+Host batches are copied to the card from pinned memory without blocking
+(a copy from pageable memory waits until the stream has run everything
+queued before it).
+
+Waiting (ROADMAP.md §A.7): ``grad_accum``, ``master_dtype=bfloat16``,
+``param_shardings``, ``zero_sharding``, ``pipeline_stages``.
+``from_config`` raises for each of those keys when a config sets it away
+from its default.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import copy
 import functools
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -47,8 +57,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # train.* keys the JAX loop reads and the port does not honour yet, with
 # their defaults (afft_tpu_torch/conf/config.yaml) and the roadmap item
 UNPORTED_TRAIN_KEYS = (
-    ("class_weight_beta", None, "§A.2"),
-    ("watch_gradients", False, "§A.2"),
     ("zero_sharding", False, "§A.7"),
     ("pipeline_stages", 0, "§A.7"),
 )
@@ -72,6 +80,12 @@ def check_train_keys(train_cfg) -> None:
             f"train.{key}={value} is not ported (ROADMAP.md {item})")
 
 
+def global_norm(tensors):
+    """sqrt of the sum of squares over every tensor, in fp32."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm([t.float() for t in tensors])))
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """torch.nn.utils.clip_grad_norm_ semantics, in place on fp32 grads;
     returns the norm (a device tensor)."""
@@ -80,6 +94,53 @@ def clip_by_global_norm(grads, max_norm: float):
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return gnorm
+
+
+class MetricAccum:
+    """An epoch's metrics, summed on the device (the JAX runner's in-step
+    accumulator, afft_tpu/train/runner.py:113-146): each scalar loss or
+    metric times the batch's valid rows, the valid count, and per MT5R
+    metric the per-class top-5 hits and samples. Nothing is read back until
+    ``Runner.absorb_accum``."""
+
+    def __init__(self, num_classes: Dict[str, int]):
+        self.num_classes = num_classes
+        self.scalars: Dict[str, torch.Tensor] = {}
+        self.mt5r: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.count = None
+
+    def _classes_for(self, metric_name: str) -> int:
+        found = None
+        for t, c in self.num_classes.items():
+            if t in metric_name:
+                found = c
+        if found is None:
+            raise ValueError(f"no target in metric name {metric_name!r}")
+        return found
+
+    def add(self, losses: Dict, metrics: Dict, valid) -> None:
+        n = valid.sum().float()
+        self.count = n if self.count is None else self.count + n
+        for k, v in {**losses, **metrics}.items():
+            if isinstance(v, dict):
+                continue
+            v = v.detach().float() * n
+            self.scalars[k] = v if k not in self.scalars \
+                else self.scalars[k] + v
+        for k, payload in metrics.items():
+            if not isinstance(payload, dict):
+                continue
+            C = self._classes_for(k)
+            labels = payload["labels"].reshape(-1)
+            keep = payload["valid"].reshape(-1)
+            tp = (payload["top5"] == labels[:, None]).any(dim=-1) & keep
+            # -1 counts for the last class, as the JAX scatter indexes it
+            idx = torch.where(labels < 0, labels + C, labels)
+            state = self.mt5r.setdefault(k, {
+                "tps": torch.zeros(C, device=labels.device),
+                "nums": torch.zeros(C, device=labels.device)})
+            state["tps"].index_add_(0, idx, tp.float())
+            state["nums"].index_add_(0, idx, keep.float())
 
 
 class Runner:
@@ -91,7 +152,7 @@ class Runner:
                  grad_clip: Optional[float] = None,
                  compute_dtype=torch.float32,
                  class_weights: Optional[Dict] = None, seed: int = 0,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", watch_gradients: bool = False):
         self.model = model
         self.device = next(model.parameters()).device
         self.loss_wts = dict(loss_wts)
@@ -100,6 +161,7 @@ class Runner:
         self.grad_clip = grad_clip
         self.compute_dtype = compute_dtype
         self.impl = impl
+        self.watch_gradients = watch_gradients
         self.class_weights = None if not class_weights else {
             t: torch.as_tensor(w, dtype=torch.float32, device=self.device)
             for t, w in class_weights.items()}
@@ -119,16 +181,25 @@ class Runner:
     @classmethod
     def from_config(cls, cfg, num_classes: Dict[str, int], *, device="cuda",
                     iters_per_epoch: int = 1, world_size: int = 1,
-                    weights=None, impl: str = "kernel", compute_dtype=None):
+                    weights=None, impl: str = "kernel", compute_dtype=None,
+                    class_mappings=None, class_weights=None):
         """Build the model, parameter groups, optimizer, schedule and mixup
         of a composed expt config (afft_tpu/train/loop.py:336-369). The
         model is drawn from ``cfg.seed`` unless ``weights`` (a state dict)
-        is given. ``runner.lr_schedule(iteration, runner.base_lr)`` is the
-        step's lr."""
+        is given; ``class_mappings`` become its verb / noun <-> action
+        buffers. ``train.class_weight_beta`` needs ``class_weights`` ({target:
+        (C,)}, from the train split's class counts: ``data.stats``, as the
+        loop computes them). ``runner.lr_schedule(iteration,
+        runner.base_lr)`` is the step's lr."""
         check_train_keys(cfg.train)
+        if cfg.train.get("class_weight_beta") is not None \
+                and not class_weights:
+            raise ValueError("train.class_weight_beta needs the class "
+                             "weights of the train split (class_weights=)")
         device = resolve_device(device)
         with torch.device(device):
-            model = BaseModel(cfg.model, num_classes=num_classes)
+            model = BaseModel(cfg.model, num_classes=num_classes,
+                              class_mappings=class_mappings)
         seed = int(cfg.get("seed", 42))
         if weights is None:
             gen = torch.Generator(device=device)
@@ -152,7 +223,9 @@ class Runner:
                      loss_wts=dict(cfg.train.loss_wts.items()), mixup=mixup,
                      mixup_backbone=cfg.train.mixup_backbone,
                      grad_clip=cfg.opt.grad_clip,
-                     compute_dtype=compute_dtype, seed=seed, impl=impl)
+                     compute_dtype=compute_dtype, seed=seed, impl=impl,
+                     class_weights=class_weights,
+                     watch_gradients=bool(cfg.train.get("watch_gradients")))
         runner.base_lr = float(cfg.opt.lr)
         runner.lr_schedule = O.build_schedule(cfg.opt, iters_per_epoch,
                                               world_size)
@@ -160,8 +233,18 @@ class Runner:
 
     # ------------------------------------------------------------------
     def _to_device(self, batch):
+        pin = self.device.type == "cuda"
+
         def move(v, dtype=None):
-            return torch.as_tensor(v).to(self.device, dtype)
+            t = torch.as_tensor(v)
+            if pin and t.device.type == "cpu":
+                # pinned, so the copy neither waits for the stream nor
+                # blocks the host (a pageable copy does both); the loop's
+                # loader pins its batches on its own thread
+                if not t.is_pinned():
+                    t = t.pin_memory()
+                t = t.to(self.device, non_blocking=True)
+            return t.to(self.device, dtype)
         out = {"data_dict": {m: move(v, self.compute_dtype)
                              for m, v in batch["data_dict"].items()},
                "target": {k: move(v, torch.long)
@@ -212,11 +295,12 @@ class Runner:
 
     # ------------------------------------------------------------------
     def train_step(self, batch, lr: float, base_lr: float,
-                   check_nan: bool = False):
+                   check_nan: bool = False,
+                   accum: Optional[MetricAccum] = None):
         """One iteration on ``batch`` ({"data_dict", "target",
         "target_subclips", "valid", "mixup_lam"}; numpy or tensors) at the
         schedule's ``lr``. Returns (losses with ``total_loss``, metrics),
-        device tensors detached from the graph."""
+        device tensors detached from the graph; ``accum`` gets both."""
         batch = self._to_device(batch)
         use_mixup = self.mixup is not None
         self.net.train()
@@ -232,6 +316,23 @@ class Runner:
             for p, c in zip(self.masters, self.compute):
                 p.grad = None if c.grad is None else c.grad.float()
                 c.grad = None
+        if self.watch_gradients:
+            # the reference's wandb.watch(model) (train.py:416) as norms in
+            # the metric stream (afft_tpu/train/runner.py:330-341): the
+            # global norm, per top-level module, and of the parameters
+            metrics = dict(metrics)
+            by_module: Dict[str, list] = {}
+            for (name, _), p in zip(self.model.named_parameters(),
+                                    self.masters):
+                if p.grad is not None:
+                    by_module.setdefault(name.split(".")[0], []).append(
+                        p.grad)
+            metrics["grad_norm"] = global_norm(
+                [g for gs in by_module.values() for g in gs])
+            metrics["param_norm"] = global_norm(
+                [p.detach() for p in self.masters])
+            for key, grads in by_module.items():
+                metrics[f"grad_norm_{key}"] = global_norm(grads)
         if self.grad_clip is not None:
             clip_by_global_norm([p.grad for p in self.masters
                                  if p.grad is not None], self.grad_clip)
@@ -241,14 +342,17 @@ class Runner:
                 torch._foreach_copy_(self.compute, self.masters)
         losses = {k: v.detach() for k, v in losses.items()}
         losses["total_loss"] = total.detach()
+        if accum is not None:
+            accum.add(losses, metrics, batch["valid"])
         if check_nan and bool(torch.isnan(losses["total_loss"])):
             raise ValueError("The loss is NaN!")
         return losses, metrics
 
     @torch.no_grad()
-    def eval_step(self, batch):
+    def eval_step(self, batch, accum: Optional[MetricAccum] = None):
         """(losses with ``total_loss``, metrics, fp32 action logits (B, C) of
-        the fused head or the first one, or None)."""
+        the fused head or the first one, or None); ``accum`` gets the
+        losses and metrics."""
         batch = self._to_device(batch)
         self.net.eval()
         outputs, outputs_target = self._forward(batch, train=False,
@@ -257,9 +361,64 @@ class Runner:
             outputs, outputs_target, batch["valid"], False, train=False)
         losses = dict(losses)
         losses["total_loss"] = total
+        if accum is not None:
+            accum.add(losses, metrics, batch["valid"])
         action_logits = None
         if "logits/action" in outputs:
             heads = outputs["logits/action"]
             modk = "all-fused" if "all-fused" in heads else next(iter(heads))
             action_logits = heads[modk][:, 0, :].float()
         return losses, metrics, action_logits
+
+    # ------------------------------------------------------------------
+    def new_accum(self) -> MetricAccum:
+        return MetricAccum(self.model.future_predictor.num_classes)
+
+    @staticmethod
+    def absorb_accum(metric_tracker, accum: Optional[MetricAccum],
+                     is_training: bool) -> None:
+        """The epoch's one readback into the host MetricTracker's meters
+        (afft_tpu/train/runner.py:148-172)."""
+        if accum is None or accum.count is None:
+            return
+        names = list(accum.scalars)
+        host = torch.stack([accum.count] + [accum.scalars[k] for k in names]
+                           ).cpu().numpy()
+        count = float(host[0])
+        if count == 0:
+            return
+        metrics = metric_tracker._metrics(is_training)
+        prefix = "train_" if is_training else "val_"
+        for key, total in zip(names, host[1:]):
+            name = prefix + key
+            if name not in metrics:
+                metric_tracker.add_metric(name, is_training)
+            meter = metrics[name]
+            meter.sum = float(meter.sum) + float(total)
+            meter.count += count
+        for key, state in accum.mt5r.items():
+            name = prefix + key
+            if name not in metrics:
+                metric_tracker.add_metric(name, is_training)
+            meter = metrics[name]
+            meter.tps = np.asarray(meter.tps) + state["tps"].cpu().numpy()
+            meter.nums = np.asarray(meter.nums) + \
+                state["nums"].cpu().numpy()
+
+    @torch.no_grad()
+    def load_model_state(self, state: Dict) -> None:
+        """Load a state dict into the fp32 masters (strict) and refresh the
+        compute copy from them."""
+        self.model.load_state_dict(state, strict=True)
+        if self._mixed:
+            torch._foreach_copy_(self.compute, self.masters)
+
+    def rng_state(self) -> Dict:
+        """The training randomness (masks, mixup draws) as it stands, for a
+        checkpoint: resuming from it continues the same streams."""
+        return {"gen": self.rng.gen.get_state(),
+                "host": self.rng._host.get_state()}
+
+    def load_rng_state(self, state: Dict) -> None:
+        self.rng.gen.set_state(state["gen"])
+        self.rng._host.set_state(state["host"])

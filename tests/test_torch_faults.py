@@ -6,7 +6,10 @@
   12) passes it, and one step through ``Runner`` (on the CPU the plain
   versions run, and no kernel is launched) equals the JAX runner's.
 - ``Runner.from_config`` refuses the train.* keys that the JAX loop reads and
-  the port does not honour yet, naming the roadmap.
+  the port does not honour yet, naming the roadmap; ``class_weight_beta``
+  and ``watch_gradients`` are honoured, each held against the JAX runner.
+- Host batches reach the runner's device through pinned, non-blocking
+  copies with their contents unchanged.
 """
 
 import inspect
@@ -196,7 +199,7 @@ def test_smoke_expt_trains_one_step_on_the_plain_path():
 
 
 @pytest.mark.parametrize("override", [
-    "train.class_weight_beta=0.999", "train.watch_gradients=true",
+    "train.grad_accum=2", "train.master_dtype=bfloat16",
     "train.zero_sharding=true", "train.pipeline_stages=2"])
 def test_unported_train_keys_raise_naming_the_roadmap(override):
     cfg = serve.load_config(SMOKE_TRAIN, [override])
@@ -212,3 +215,119 @@ def test_train_keys_at_their_defaults_build(override):
     above 1), are what the port runs."""
     cfg = serve.load_config(SMOKE_TRAIN, [override])
     assert Runner.from_config(cfg, CLASSES, device="cpu") is not None
+
+
+def _jax_runner(jcfg, params, **kw):
+    model = JaxBaseModel(jcfg.model, num_classes=CLASSES)
+    groups = JO.build_group_tree(params, jcfg.opt.lr_wd, jcfg.opt.lr,
+                                 jcfg.opt.wd)
+    optimizer = jax_instantiate(jcfg.opt.optimizer)
+    runner = JaxRunner(
+        model, optimizer, groups, loss_wts=dict(jcfg.train.loss_wts.items()),
+        mixup=JaxMixUp(alpha=jcfg.train.mixup_alpha,
+                       label_smoothing=dict(
+                           jcfg.train.label_smoothing.items()),
+                       num_classes=CLASSES),
+        mixup_backbone=jcfg.train.mixup_backbone,
+        grad_clip=jcfg.opt.grad_clip, donate=False, **kw)
+    return runner, optimizer.init(params, groups)
+
+
+def _jax_smoke(overrides=()):
+    cfg = serve.load_config(SMOKE_TRAIN, NO_DROPOUT + list(overrides))
+    jcfg = jax_compose(os.path.join(REPO, "afft_tpu", "conf"),
+                       read_expt_file(SMOKE_TRAIN) + NO_DROPOUT
+                       + list(overrides))
+    params = JaxBaseModel(jcfg.model, num_classes=CLASSES).init(
+        jax.random.key(3))
+    return cfg, jcfg, params
+
+
+def test_runner_class_weights_train_only():
+    """train.class_weight_beta: the class weights weigh the training loss
+    and not the eval loss, as in the JAX runner (tests/test_train.py
+    test_runner_class_weights_train_only): one step's losses with weights,
+    and eval losses with and without them, against the JAX runner's from
+    the same weights, batch and mixup lambda."""
+    cfg, jcfg, params = _jax_smoke(["train.class_weight_beta=0.999"])
+    with pytest.raises(ValueError, match="class weights"):
+        Runner.from_config(cfg, CLASSES, device="cpu")
+    rng = np.random.default_rng(5)
+    weights = {t: rng.uniform(0.2, 3.0, c).astype(np.float32)
+               for t, c in CLASSES.items()}
+    batch = _smoke_batch(cfg)
+    sd = W.state_dict_from_jax(
+        Runner.from_config(cfg, CLASSES, device="cpu",
+                           class_weights=weights).model,
+        jax.tree.map(np.asarray, params))
+    got = {}
+    for name, cw in (("weighted", weights), ("plain", None)):
+        jrunner, opt_state = _jax_runner(jcfg, params, class_weights=cw)
+        _, _, want, _, _ = jrunner.train_step(
+            params, opt_state,
+            {**batch, "mixup_lam": jnp.asarray(batch["mixup_lam"])},
+            0.0, float(cfg.opt.lr), jax.random.key(0))
+        want_eval = jrunner.eval_step(params, batch)[0]
+        runner = Runner.from_config(
+            cfg if cw else serve.load_config(SMOKE_TRAIN, NO_DROPOUT),
+            CLASSES, device="cpu", class_weights=cw, weights=sd)
+        train_losses, _ = runner.train_step(batch, 0.0, float(cfg.opt.lr))
+        eval_losses = runner.eval_step(batch)[0]
+        for k, v in want.items():
+            np.testing.assert_allclose(float(train_losses[k]), float(v),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+        for k, v in want_eval.items():
+            np.testing.assert_allclose(float(eval_losses[k]), float(v),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+        got[name] = (train_losses, eval_losses)
+    key = "cls_action_all-fused"
+    assert abs(float(got["weighted"][0][key])
+               - float(got["plain"][0][key])) > 1e-4
+    assert float(got["weighted"][1][key]) == float(got["plain"][1][key])
+
+
+def test_watch_gradients_metrics():
+    """train.watch_gradients: the global gradient norm (before clipping),
+    the parameter norm and the norm per top-level module join the metrics,
+    equal to the JAX runner's (tests/test_train.py
+    test_watch_gradients_metrics) from the same weights and batch."""
+    cfg, jcfg, params = _jax_smoke(["train.watch_gradients=true"])
+    batch = _smoke_batch(cfg)
+    jrunner, opt_state = _jax_runner(jcfg, params, watch_gradients=True)
+    _, _, _, want, _ = jrunner.train_step(
+        params, opt_state,
+        {**batch, "mixup_lam": jnp.asarray(batch["mixup_lam"])},
+        float(cfg.opt.lr), float(cfg.opt.lr), jax.random.key(0))
+    runner = Runner.from_config(cfg, CLASSES, device="cpu")
+    assert runner.watch_gradients
+    runner.model.load_state_dict(
+        W.state_dict_from_jax(runner.model, jax.tree.map(np.asarray,
+                                                         params)))
+    _, got = runner.train_step(batch, float(cfg.opt.lr), float(cfg.opt.lr))
+    norms = [k for k in want if k.startswith(("grad_norm", "param_norm"))]
+    assert {"grad_norm", "param_norm",
+            "grad_norm_future_predictor"} <= set(norms)
+    for k in norms:
+        assert float(got[k]) > 0
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+
+
+def test_host_batches_reach_the_device_unchanged():
+    """Runner._to_device (pinned, non-blocking copies on a card): the
+    contents, shapes and dtypes of a host batch are unchanged on the
+    runner's device, and ``valid`` defaults to all rows."""
+    cfg = serve.load_config(SMOKE_TRAIN)
+    runner = Runner.from_config(cfg, CLASSES, device="cpu")
+    batch = _smoke_batch(cfg)
+    moved = runner._to_device(batch)
+    for m, v in batch["data_dict"].items():
+        assert moved["data_dict"][m].dtype == torch.float32
+        np.testing.assert_array_equal(moved["data_dict"][m].numpy(), v)
+    for key in ("target", "target_subclips"):
+        for t, v in batch[key].items():
+            assert moved[key][t].dtype == torch.long
+            np.testing.assert_array_equal(moved[key][t].numpy(), v)
+    np.testing.assert_array_equal(moved["valid"].numpy(), batch["valid"])
+    del batch["valid"]
+    assert runner._to_device(batch)["valid"].all()

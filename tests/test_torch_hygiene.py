@@ -1,8 +1,11 @@
 """Rules of the port that hold without a GPU.
 
-- No file of afft_tpu_torch, and not chip_smoke.py, imports jax or afft_tpu.
-- afft_tpu_torch/conf is a byte-for-byte copy of afft_tpu/conf.
-- Entry points run on the card by default and raise without CUDA.
+- No file of afft_tpu_torch, and not chip_smoke.py, imports jax, afft_tpu,
+  ml_dtypes or lmdb; importing the data pipeline loads none of them.
+- afft_tpu_torch/conf is a byte-for-byte copy of afft_tpu/conf; the port's
+  LMDB reader source is native/lmdb_reader.cpp but for its binding's path.
+- Entry points run on the card by default and raise without CUDA; the
+  launcher trains expt 99 end to end with ``--device cpu``.
 - Importing the kernel modules needs neither nvcc nor a GPU.
 - The _target_ registry resolves the ported targets and rejects the rest.
 - Training works for the per-timestep fusers and raises, naming the roadmap,
@@ -20,6 +23,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -61,11 +65,28 @@ def test_port_imports_neither_jax_nor_afft_tpu():
             "models/fusion.py", "models/predictor.py",
             "ops/fused_block_train.py", "ops/fused_gpt2_train.py",
             "train/losses.py", "train/mixup.py", "train/optim.py",
-            "train/runner.py"} <= names
+            "train/runner.py", "train/loop.py", "train/checkpoint.py",
+            "train/metrics.py", "data/readers.py", "data/dataset.py",
+            "data/loader.py", "data/device_cache.py", "data/lmdb_native.py",
+            "run.py", "tools/make_accept_dataset.py"} <= names
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
-           if m.split(".")[0] in ("jax", "jaxlib", "afft_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "afft_tpu", "ml_dtypes",
+                                  "lmdb")]
     assert not bad, bad
+
+
+def test_data_pipeline_imports_neither_jax_nor_afft_tpu():
+    code = ("import sys, afft_tpu_torch.data, afft_tpu_torch.data.stats, "
+            "afft_tpu_torch.data.device_cache, "
+            "afft_tpu_torch.data.lmdb_native, afft_tpu_torch.train.loop, "
+            "afft_tpu_torch.tools.make_accept_dataset; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'afft_tpu', 'ml_dtypes', 'lmdb')]; "
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def _assert_same_tree(cmp):
@@ -81,6 +102,18 @@ def _assert_same_tree(cmp):
 def test_conf_is_a_byte_identical_copy():
     _assert_same_tree(filecmp.dircmp(os.path.join(REPO, "afft_tpu", "conf"),
                                      CONF_DIR, ignore=["__pycache__"]))
+
+
+def test_lmdb_reader_is_a_copy_of_the_native_one():
+    """The port's LMDB reader source equals native/lmdb_reader.cpp, apart
+    from the path of the module that binds it, so the two cannot drift."""
+    with open(os.path.join(REPO, "native", "lmdb_reader.cpp")) as f:
+        native = f.read()
+    with open(os.path.join(PKG, "native", "lmdb_reader.cpp")) as f:
+        port = f.read()
+    assert "afft_tpu_torch/data/lmdb_native.py" in port
+    assert port.replace("afft_tpu_torch/data/lmdb_native.py",
+                        "afft_tpu/data/lmdb_native.py") == native
 
 
 def _skip_with_cuda():
@@ -121,6 +154,45 @@ def test_serve_cli_default_device_exits_nonzero():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+def test_launcher_default_device_exits_nonzero(tmp_path):
+    _skip_with_cuda()
+    proc = subprocess.run(
+        [sys.executable, "-m", "afft_tpu_torch.run", "-c",
+         os.path.join(REPO, "expts", "99_synth_smoke_train.txt"), "-m",
+         "train"], cwd=tmp_path, env={**os.environ, "PYTHONPATH": REPO},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not (tmp_path / "checkpoints").exists()
+
+
+def test_launcher_trains_the_smoke_expt_on_cpu(tmp_path):
+    """python -m afft_tpu_torch.run -c expts/99_synth_smoke_train.txt -m
+    train --device cpu: two epochs, best and last checkpoints, a finite
+    loss per epoch; a second run with train.resume=true continues."""
+    (tmp_path / "tests").symlink_to(os.path.join(REPO, "tests"))
+    cmd = [sys.executable, "-m", "afft_tpu_torch.run", "-c",
+           os.path.join(REPO, "expts", "99_synth_smoke_train.txt"), "-m",
+           "train", "--device", "cpu", "use_wandb=false"]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out, = (tmp_path / "checkpoints").glob("*synth-smoke")
+    assert (out / "checkpoint_best").is_file()
+    assert (out / "checkpoint_last").is_file()
+    epochs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert [e["_step"] for e in epochs] == [1, 2]
+    assert all(np.isfinite(e["train_total_loss"]) for e in epochs)
+    proc = subprocess.run(cmd + ["train.resume=true", "train.num_epochs=3"],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Resumed from" in proc.stderr
+    epochs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert [e["_step"] for e in epochs] == [1, 2, 3]
 
 
 def test_serve_cli_on_cpu_answers_and_marks_random_init():
