@@ -8,7 +8,9 @@ hand-written CUDA kernels for Hopper (``afft_tpu_torch/csrc``, bound in
 ``train.runner.Runner`` takes training and eval steps; ``python -m
 afft_tpu_torch.run -c expts/X.txt -m train`` trains an expt through the data
 pipeline (``data``), the epoch loop, checkpoints and metric tracker
-(``train.loop``).
+(``train.loop``), ``-m test`` evaluates or exports its logits (``eval``),
+``python -m afft_tpu_torch.challenge`` packages them, and ``-n N`` runs
+either on N data-parallel processes (``parallel``).
 
 Entry points run on the card unless the caller asks for the CPU:
 ``resolve_device`` raises instead of falling back quietly.

@@ -114,13 +114,16 @@ static void launch_layernorm(const TIn* x, const TOut* g, const TOut* b,
 // logical element index). Philox4x32-10 with key (seed0, seed1) and counter
 // (index low, index high, block, site); the first output word's top 24 bits
 // are the uniform draw, kept when below the 24-bit threshold. thr = 2^24
-// (rate 0) keeps everything without drawing.
+// (rate 0) keeps everything without drawing. ``base`` is added to every
+// local index: a process of a data-parallel step holds rows r0 .. of the
+// global batch, and its elements are the global batch's from r0's first on.
 // ---------------------------------------------------------------------------
 
 struct DropSite {
   unsigned seed0, seed1, block, site;
-  unsigned thr;  // keep iff (draw >> 8) < thr
-  float inv;     // 1 / keep, the scale of a kept element
+  unsigned thr;             // keep iff (draw >> 8) < thr
+  float inv;                // 1 / keep, the scale of a kept element
+  unsigned long long base;  // logical index of this process's element 0
 };
 
 constexpr unsigned DROP_KEEP_ALL = 1u << 24;
@@ -145,6 +148,7 @@ __device__ __forceinline__ unsigned philox_word0(unsigned k0, unsigned k1,
 __device__ __forceinline__ float drop_scale(const DropSite& d,
                                             unsigned long long idx) {
   if (d.thr >= DROP_KEEP_ALL) return d.inv;
+  idx += d.base;
   const unsigned w = philox_word0(d.seed0, d.seed1, (unsigned)idx,
                                   (unsigned)(idx >> 32), d.block, d.site);
   return (w >> 8) < d.thr ? d.inv : 0.f;

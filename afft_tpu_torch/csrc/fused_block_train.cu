@@ -85,7 +85,7 @@ extern "C" int afft_draw_masks(const int* seeds, const int* thr,
   const size_t n[5] = {(size_t)R * H * N * N, (size_t)R * N * C, (size_t)R,
                        (size_t)R * N * C, (size_t)R};
   const int sites[5] = {SITE_ATTN, SITE_PROJ, SITE_DP1, SITE_MLP, SITE_DP2};
-  return fill_masks(rates_of(seeds, thr, inv), bufs, n, sites, 5,
+  return fill_masks(rates_of(seeds, thr, inv, N, C, H), bufs, n, sites, 5,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -103,7 +103,8 @@ extern "C" int afft_attention_drop(int dtype, int gpt2, const void* qkv,
                                    const float* inv, int R, int N, int H,
                                    int hd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropSite d = site_of(rates_of(seeds, thr, inv), SITE_ATTN);
+  const DropSite d = site_of(rates_of(seeds, thr, inv, N, H * hd, H),
+                             SITE_ATTN);
   const float* m = static_cast<const float*>(mask);
   return by_dtype(dtype, [&](auto tag) {
     typedef typename std::remove_pointer<decltype(tag)>::type T;
@@ -121,7 +122,8 @@ extern "C" int afft_attention_drop_bwd(int dtype, int gpt2, const void* qkv,
                                        const float* inv, int R, int N, int H,
                                        int hd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropSite d = site_of(rates_of(seeds, thr, inv), SITE_ATTN);
+  const DropSite d = site_of(rates_of(seeds, thr, inv, N, H * hd, H),
+                             SITE_ATTN);
   const float* m = static_cast<const float*>(mask);
   const float* g = static_cast<const float*>(dao);
   return by_dtype(dtype, [&](auto tag) {

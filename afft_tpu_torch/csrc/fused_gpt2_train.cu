@@ -91,6 +91,6 @@ extern "C" int afft_draw_masks_gpt2(const int* seeds, const int* thr,
   const size_t n[3] = {(size_t)B * H * T * T, (size_t)B * T * C,
                        (size_t)B * T * C};
   const int sites[3] = {SITE_ATTN, SITE_PROJ, SITE_MLP};
-  return fill_masks(rates_of(seeds, thr, inv), bufs, n, sites, 3,
+  return fill_masks(rates_of(seeds, thr, inv, T, C, H), bufs, n, sites, 3,
                     static_cast<cudaStream_t>(stream));
 }

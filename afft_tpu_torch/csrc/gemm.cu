@@ -31,8 +31,9 @@
 
 using namespace afft;
 
-// seeds = {seed word 0, seed word 1, block index}; thr / inv as the training
-// entries' (index 1: the element dropout, 2: drop-path over rows / tokens).
+// seeds = {seed word 0, seed word 1, block index, first global row}; thr /
+// inv as the training entries' (index 1: the element dropout, 2: drop-path
+// over rows / tokens; a drop-path row is ``tokens`` rows of N elements).
 extern "C" int afft_gemm(int epi, int out_f32, int w_nk, int res_f32,
                          const void* a, const void* w,
                          const void* bias, const void* res, void* out,
@@ -40,7 +41,7 @@ extern "C" int afft_gemm(int epi, int out_f32, int w_nk, int res_f32,
                          const float* inv, int M, int N, int K, int tokens,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Rates rt = rates_of(seeds, thr, inv);
+  const Rates rt = rates_of(seeds, thr, inv, tokens, N, 0);
   const EpiArgs ea{bias, res, out, out2, site_of(rt, SITE_PROJ),
                    site_of(rt, SITE_DP1), tokens};
   const bf16* A = static_cast<const bf16*>(a);

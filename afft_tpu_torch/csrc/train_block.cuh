@@ -87,10 +87,14 @@ enum TrainParam {
   TP_WFC1, TP_BFC1, TP_WFC2, TP_BFC2
 };
 
-// seeds[0..1] the step's seed words, seeds[2] the block index; thr / inv:
-// 0 attention probabilities, 1 proj and MLP dropout, 2 drop-path.
+// seeds[0..1] the step's seed words, seeds[2] the block index, seeds[3] the
+// first row (r0) of the global batch that this call holds; thr / inv: 0
+// attention probabilities, 1 proj and MLP dropout, 2 drop-path. ``per_row``:
+// each site's elements in one row (N tokens of C channels, H heads).
 struct Rates {
   unsigned seed0, seed1, block;
+  unsigned long long row0;
+  unsigned long long per_row[5];
   unsigned thr[3];
   float inv[3];
 };
@@ -99,14 +103,23 @@ static DropSite site_of(const Rates& r, int site) {
   const int kind = site == SITE_ATTN ? 0
                    : (site == SITE_PROJ || site == SITE_MLP) ? 1 : 2;
   return DropSite{r.seed0, r.seed1, r.block, (unsigned)site, r.thr[kind],
-                  r.inv[kind]};
+                  r.inv[kind], r.row0 * r.per_row[site]};
 }
 
-static Rates rates_of(const int* seeds, const int* thr, const float* inv) {
+// H may be 0 where the attention site is not drawn (its offset is then 0).
+static Rates rates_of(const int* seeds, const int* thr, const float* inv,
+                      int N, int C, int H) {
   Rates r;
   r.seed0 = (unsigned)seeds[0];
   r.seed1 = (unsigned)seeds[1];
   r.block = (unsigned)seeds[2];
+  r.row0 = (unsigned long long)(unsigned)seeds[3];
+  const unsigned long long tokens = (unsigned long long)N * C;
+  r.per_row[SITE_ATTN] = (unsigned long long)H * N * N;
+  r.per_row[SITE_PROJ] = tokens;
+  r.per_row[SITE_DP1] = 1;
+  r.per_row[SITE_MLP] = tokens;
+  r.per_row[SITE_DP2] = 1;
   for (int i = 0; i < 3; ++i) {
     r.thr[i] = (unsigned)thr[i];
     r.inv[i] = inv[i];
@@ -375,9 +388,10 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
 // The C entries' bodies: dtype 0 = float32, 1 = bfloat16; params the twelve
 // tensors in TrainParam order (host array of device pointers, null for an
 // absent one) in that dtype; mask fp32 (N, N) or null; seeds = {seed word 0,
-// seed word 1, block index}, thr / inv the three 24-bit keep thresholds and
-// 1 / keep scales (host arrays); bufs a host array of device pointers. Each
-// returns the first launch error (cudaError_t), 0 on success.
+// seed word 1, block index, first global row}, thr / inv the three 24-bit
+// keep thresholds and 1 / keep scales (host arrays); bufs a host array of
+// device pointers. Each returns the first launch error (cudaError_t), 0 on
+// success.
 // ---------------------------------------------------------------------------
 
 // f((T*)nullptr) for the working dtype T of ``dtype``.
@@ -396,7 +410,7 @@ static int train_fwd(int dtype, const void* x, const void* const* params,
                      const float* inv, void* const* bufs, int R, int N, int C,
                      int H, int hidden, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Rates rt = rates_of(seeds, thr, inv);
+  const Rates rt = rates_of(seeds, thr, inv, N, C, H);
   return by_dtype(dtype, [&](auto tag) {
     typedef typename std::remove_pointer<decltype(tag)>::type T;
     return run_fwd<T, GPT2>((const T*)x, params, (const float*)mask, rt,
@@ -415,7 +429,8 @@ static int train_bwd_mlp(int dtype, const void* y, const void* dout,
                          const float* inv, void* const* bufs, int R, int N,
                          int C, int hidden, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Rates rt = rates_of(seeds, thr, inv);
+  // the MLP half draws no attention mask: H is not needed
+  const Rates rt = rates_of(seeds, thr, inv, N, C, 0);
   float* const* gv = reinterpret_cast<float* const*>(grads);
   return by_dtype(dtype, [&](auto tag) {
     typedef typename std::remove_pointer<decltype(tag)>::type T;
@@ -437,7 +452,7 @@ static int train_bwd_attn(int dtype, const void* x, const void* dy,
                           void* const* bufs, int R, int N, int C, int H,
                           float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Rates rt = rates_of(seeds, thr, inv);
+  const Rates rt = rates_of(seeds, thr, inv, N, C, H);
   float* const* gv = reinterpret_cast<float* const*>(grads);
   return by_dtype(dtype, [&](auto tag) {
     typedef typename std::remove_pointer<decltype(tag)>::type T;

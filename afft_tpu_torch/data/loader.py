@@ -5,7 +5,8 @@ DataLoader + DistributedSampler): a thread-pooled, prefetching batch loader
 producing fixed-shape numpy batches, which ``Runner`` copies to the card
 from pinned memory. Per-process sharding replicates DistributedSampler
 semantics (wrap-around padding to equal shards, per-epoch seeded shuffle via
-``set_epoch``-style epoch keys), for data parallelism (ROADMAP.md §A.4).
+``set_epoch``-style epoch keys): each process of a data-parallel run
+(``parallel.mesh``) loads its own shard.
 
 Fixed shapes: the final partial batch is padded and carries a ``valid`` mask
 that the losses and metrics honour, so every batch of an epoch has one shape.

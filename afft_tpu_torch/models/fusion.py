@@ -84,16 +84,17 @@ class _BlockStack(nn.Module):
             raise ValueError("training with a dropout or drop-path rate > 0 "
                              "needs an RngStream")
         seeds = (0, 0) if rng is None else rng.seed_words()
+        row0 = 0 if rng is None else rng.row_offset(R)
         for bi, (blk, dp) in enumerate(zip(self.blocks, self.dpr)):
             params = dict(blk.named_parameters())
             if impl == "kernel":
                 x = FT.fused_block_train(
                     x, params, mask, seeds, num_heads=self.num_heads,
                     block_idx=bi, attn_rate=rates[0], drop_rate=rates[1],
-                    dp_rate=dp, eps=self.norm_eps)
+                    dp_rate=dp, eps=self.norm_eps, row0=row0)
             else:
                 masks = FT.draw_masks(R, N, C, self.num_heads, seeds, bi,
-                                      *rates, dp, device=x.device)
+                                      *rates, dp, device=x.device, row0=row0)
                 x = FT.fused_block_train_plain(
                     x, params, mask, masks, num_heads=self.num_heads,
                     eps=self.norm_eps)

@@ -39,25 +39,46 @@ class RngStream:
     that PyTorch ops draw; ``seed_words`` hands the fuser stack the two seed
     words from which the training kernels compute their masks. The seed
     words come from a host generator, so drawing them never waits for the
-    device."""
+    device.
 
-    def __init__(self, seed: int, device="cpu"):
+    Data parallelism: a step on ``world`` processes is the one-process step
+    over the global batch, the processes' equal local batches in rank order.
+    Every process holds the same generators (one seed), so each draw is the
+    global batch's: ``_uniform_like`` draws the global rows and keeps this
+    rank's, and the training kernels start their masks at ``row_offset``."""
+
+    def __init__(self, seed: int, device="cpu", rank: int = 0,
+                 world: int = 1):
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(int(seed))
         self._host = torch.Generator()
         self._host.manual_seed(int(seed))
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world} processes")
+        self.rank, self.world = int(rank), int(world)
 
     def seed_words(self):
         """Two ints in [0, 2^31 - 1), as the JAX fuser stack draws them."""
         return torch.randint(0, 2 ** 31 - 1, (2,),
                              generator=self._host).tolist()
 
+    def row_offset(self, local_rows: int) -> int:
+        """The global batch's row that this rank's first row is."""
+        return self.rank * int(local_rows)
+
 
 def _uniform_like(shape, x, rng):
+    """U[0, 1) of ``shape`` (rows first): this rank's rows of one draw over
+    the global batch."""
     if rng is None:
         raise ValueError("training with a dropout or drop-path rate > 0 "
                          "needs an RngStream")
-    return torch.rand(shape, generator=rng.gen, device=x.device)
+    if rng.world == 1:
+        return torch.rand(shape, generator=rng.gen, device=x.device)
+    rows = shape[0]
+    draw = torch.rand((rows * rng.world,) + tuple(shape[1:]),
+                      generator=rng.gen, device=x.device)
+    return draw[rng.rank * rows:(rng.rank + 1) * rows]
 
 
 def dropout(x, rate: float, train: bool, rng):

@@ -186,16 +186,18 @@ class BaseFuturePredictor(nn.Module):
             raise ValueError("training with a dropout rate > 0 needs an "
                              "RngStream")
         seeds = (0, 0) if rng is None else rng.seed_words()
+        row0 = 0 if rng is None else rng.row_offset(x.shape[0])
         for li, blk in enumerate(self.gpt_model.h):
             params = dict(blk.named_parameters())
             if impl == "kernel":
                 x = FGT.fused_gpt2_block_train(
                     x, params, mask, seeds, num_heads=self.n_head,
                     layer_idx=li, attn_rate=rates[0], resid_rate=rates[1],
-                    eps=LN_EPS)
+                    eps=LN_EPS, row0=row0)
             else:
                 masks = FGT.draw_masks_gpt2(*x.shape, self.n_head, seeds, li,
-                                            *rates, device=x.device)
+                                            *rates, device=x.device,
+                                            row0=row0)
                 x = FGT.fused_gpt2_block_train_plain(
                     x, params, mask, masks, num_heads=self.n_head, eps=LN_EPS)
         return x

@@ -99,7 +99,14 @@ def nvcc_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels if the sources changed; return the library path."""
+    """Compile the kernels if the sources changed; return the library path.
+
+    Several processes may build at once (the ranks of a data-parallel run,
+    each at its first launch): each compiles into objects and a library
+    file named by its pid and swaps the library in with ``os.replace``, and
+    the hash stamp is written after the swap, so a process sees either a
+    whole library of these sources or a stale stamp (and builds again). The
+    last swap wins, with the same content."""
     digest = source_hash()
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = lib_path + ".hash"

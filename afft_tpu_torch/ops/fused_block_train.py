@@ -41,9 +41,11 @@ kernel seeds its on-core generator per row tile, so its masks depend on the
 tile size; here a mask depends on nothing but the element's own index, and
 the kernels draw it in registers wherever it is needed, forward and backward.
 Element indices: attention ``((r * H + h) * N + tq) * N + tk``; proj and MLP
-``(r * N + t) * C + c``; drop-path ``r``. ``draw_masks`` exports the five
-masks; ``draw_masks_plain`` is the same generator in torch integer ops and
-equals the kernel bit for bit.
+``(r * N + t) * C + c``; drop-path ``r``, where r is the row of the global
+batch: a process of a data-parallel step holding rows ``row0 ..`` of it
+passes ``row0``, and its masks are those rows' masks of the one-process
+step. ``draw_masks`` exports the five masks; ``draw_masks_plain`` is the
+same generator in torch integer ops and equals the kernel bit for bit.
 
 Cast chain (``pallas_block_train.py:200-239``): as ``ops.fused_block``, and
 ``y`` is fp32 inside the forward but stashed in the working dtype, ``pre1``
@@ -54,6 +56,7 @@ and from the stash in the backward.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -120,9 +123,10 @@ def philox_word0(idx, seed0: int, seed1: int, block: int, site: int):
 
 
 def site_mask_plain(n: int, seeds, block_idx: int, site: int, thr: int,
-                    inv: float, device="cpu"):
-    """The multipliers of a site's logical elements 0 .. n - 1, fp32 (n,)."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+                    inv: float, device="cpu", offset: int = 0):
+    """The multipliers of a site's logical elements offset .. offset + n -
+    1, fp32 (n,)."""
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     draw = philox_word0(idx, seeds[0], seeds[1], block_idx, site) >> 8
     scale = torch.tensor(inv, dtype=torch.float32, device=device)
     return torch.where(draw < thr, scale, torch.zeros_like(scale))
@@ -132,42 +136,61 @@ def _mask_shapes(R, N, C, H):
     return ((R, H, N, N), (R * N, C), (R,), (R * N, C), (R,))
 
 
-def draw_masks_plain(R, N, C, num_heads, seeds, block_idx, attn_rate,
-                     drop_rate, dp_rate, device="cpu"):
-    """The five masks of one block, already scaled by 1 / keep, fp32:
-    attention (R, H, N, N), proj (R * N, C), drop-path 1 (R), MLP (R * N, C),
-    drop-path 2 (R). The generator in torch ops, on any device."""
-    seeds = check_seeds(seeds)
-    thr, inv = rates_operands(attn_rate, drop_rate, dp_rate)
+def masks_plain(shapes, sites, rate_of_site, seeds, block_idx, thr, inv,
+                row0, device):
+    """One mask per site, each of its shape (R, elements of a row), starting
+    at the global batch's row ``row0``."""
     out = []
-    for site, shape in enumerate(_mask_shapes(R, N, C, num_heads)):
-        n = 1
-        for d in shape:
-            n *= d
-        kind = _RATE_OF_SITE[site]
+    for site, kind, shape in zip(sites, rate_of_site, shapes):
+        n = math.prod(shape)
+        offset = row0 * (n // shape[0]) if shape[0] else 0
         out.append(site_mask_plain(n, seeds, block_idx, site, thr[kind],
-                                   inv[kind], device).reshape(shape))
+                                   inv[kind], device, offset).reshape(shape))
     return tuple(out)
 
 
-def rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate):
+def draw_masks_plain(R, N, C, num_heads, seeds, block_idx, attn_rate,
+                     drop_rate, dp_rate, device="cpu", row0: int = 0):
+    """The five masks of one block, already scaled by 1 / keep, fp32:
+    attention (R, H, N, N), proj (R * N, C), drop-path 1 (R), MLP (R * N, C),
+    drop-path 2 (R), of rows ``row0 .. row0 + R - 1`` of the global batch.
+    The generator in torch ops, on any device."""
     seeds = check_seeds(seeds)
     thr, inv = rates_operands(attn_rate, drop_rate, dp_rate)
-    return ((ctypes.c_int * 3)(seeds[0], seeds[1], int(block_idx)),
+    shapes = _mask_shapes(R, N, C, num_heads)
+    masks = masks_plain([(R, math.prod(s) // max(R, 1)) for s in shapes],
+                        range(5), _RATE_OF_SITE, seeds, block_idx, thr, inv,
+                        check_row0(row0), device)
+    return tuple(m.reshape(shape) for m, shape in zip(masks, shapes))
+
+
+def check_row0(row0) -> int:
+    row0 = int(row0)
+    if not 0 <= row0 <= _M32 >> 1:
+        raise ValueError(f"row0 must be in [0, 2^31), got {row0}")
+    return row0
+
+
+def rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate, row0=0):
+    seeds = check_seeds(seeds)
+    thr, inv = rates_operands(attn_rate, drop_rate, dp_rate)
+    return ((ctypes.c_int * 4)(seeds[0], seeds[1], int(block_idx),
+                               check_row0(row0)),
             (ctypes.c_int * 3)(*thr), (ctypes.c_float * 3)(*inv))
 
 
 def draw_masks(R, N, C, num_heads, seeds, block_idx, attn_rate, drop_rate,
-               dp_rate, device="cuda"):
+               dp_rate, device="cuda", row0: int = 0):
     """The five masks as ``draw_masks_plain``: the plain version on the CPU,
     the kernel on a CUDA device."""
     device = torch.device(device)
     if device.type == "cpu":
         return draw_masks_plain(R, N, C, num_heads, seeds, block_idx,
-                                attn_rate, drop_rate, dp_rate)
+                                attn_rate, drop_rate, dp_rate, row0=row0)
     if device.type != "cuda":
         raise ValueError(f"draw_masks: unsupported device {device}")
-    arrays = rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate)
+    arrays = rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate,
+                         row0)
     masks = tuple(torch.empty(shape, dtype=torch.float32, device=device)
                   for shape in _mask_shapes(R, N, C, num_heads))
     launch("draw_masks", "afft_draw_masks", *arrays, ptr_array(masks), R, N,
@@ -509,11 +532,12 @@ class BlockTrainFunction(torch.autograd.Function):
 def fused_block_train(x, params, mask, seeds, *, num_heads: int,
                       block_idx: int = 0, attn_rate: float = 0.0,
                       drop_rate: float = 0.0, dp_rate: float = 0.0,
-                      eps: float = 1e-6):
+                      eps: float = 1e-6, row0: int = 0):
     """One fuser block in training mode on x (R, N, C); returns (R, N, C) in
     x.dtype, differentiable in x and the parameters. ``seeds`` are the
     step's two seed words (ints in [0, 2^31)), ``block_idx`` the block's
-    position in its stack.
+    position in its stack, ``row0`` the global batch's row that x's first
+    row is (a data-parallel step's rank offset; its masks follow from it).
 
     CPU tensors take the plain version on masks from ``draw_masks_plain``;
     CUDA tensors launch the kernels."""
@@ -523,7 +547,7 @@ def fused_block_train(x, params, mask, seeds, *, num_heads: int,
     R, N, C = x.shape
     if x.device.type == "cpu":
         masks = draw_masks_plain(R, N, C, num_heads, seeds, block_idx,
-                                 attn_rate, drop_rate, dp_rate)
+                                 attn_rate, drop_rate, dp_rate, row0=row0)
         return fused_block_train_plain(x, params, mask, masks,
                                        num_heads=num_heads, eps=eps)
     if x.device.type != "cuda":
@@ -537,7 +561,8 @@ def fused_block_train(x, params, mask, seeds, *, num_heads: int,
     mask32 = mask_operand(name, mask, N, x.device)
     if R == 0:
         return torch.empty_like(x)
-    arrays = rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate)
+    arrays = rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate,
+                         row0)
     return BlockTrainFunction.apply(x, mask32,
                                     (num_heads, hidden, eps, arrays, FUSER),
                                     *tensors)

@@ -50,8 +50,6 @@ fp32 value in the forward and from the stash in the backward.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
@@ -59,8 +57,8 @@ from ._common import (add_bias, check_heads, check_operands, check_shape,
                       launch, layer_norm32, mask_operand, matmul32,
                       ptr_array)
 from .fused_block_train import (BlockTrainFunction, Layer,
-                                attention_drop_plain, check_seeds,
-                                rate_arrays, site_mask_plain)
+                                attention_drop_plain, check_row0,
+                                check_seeds, masks_plain, rate_arrays)
 from .fused_block_train import rates_operands as _rates_operands
 from .fused_gpt2 import MAX_TOKENS
 
@@ -95,30 +93,32 @@ def mask_shapes(B, T, C, num_heads):
 
 
 def draw_masks_gpt2_plain(B, T, C, num_heads, seeds, layer_idx, attn_rate,
-                          resid_rate, device="cpu"):
+                          resid_rate, device="cpu", row0: int = 0):
     """The three masks of one layer, already scaled by 1 / keep, fp32:
-    attention (B, H, T, T), proj (B * T, C), MLP (B * T, C). The generator
-    in torch ops, on any device."""
+    attention (B, H, T, T), proj (B * T, C), MLP (B * T, C), of rows ``row0
+    .. row0 + B - 1`` of the global batch. The generator in torch ops, on
+    any device."""
     seeds = check_seeds(seeds)
     thr, inv = rates_operands(attn_rate, resid_rate)
-    return tuple(
-        site_mask_plain(math.prod(shape), seeds, layer_idx, site, thr[kind],
-                        inv[kind], device).reshape(shape)
-        for site, kind, shape in zip(SITES, _RATE_OF_SITE,
-                                     mask_shapes(B, T, C, num_heads)))
+    shapes = mask_shapes(B, T, C, num_heads)
+    # proj and MLP masks as (B, T * C): a row of the batch first
+    masks = masks_plain((shapes[0], (B, T * C), (B, T * C)), SITES,
+                        _RATE_OF_SITE, seeds, layer_idx, thr, inv,
+                        check_row0(row0), device)
+    return tuple(m.reshape(shape) for m, shape in zip(masks, shapes))
 
 
 def draw_masks_gpt2(B, T, C, num_heads, seeds, layer_idx, attn_rate,
-                    resid_rate, device="cuda"):
+                    resid_rate, device="cuda", row0: int = 0):
     """The three masks as ``draw_masks_gpt2_plain``: the plain version on
     the CPU, the kernel on a CUDA device."""
     device = torch.device(device)
     if device.type == "cpu":
         return draw_masks_gpt2_plain(B, T, C, num_heads, seeds, layer_idx,
-                                     attn_rate, resid_rate)
+                                     attn_rate, resid_rate, row0=row0)
     if device.type != "cuda":
         raise ValueError(f"draw_masks_gpt2: unsupported device {device}")
-    arrays = rate_arrays(seeds, layer_idx, attn_rate, resid_rate, 0.0)
+    arrays = rate_arrays(seeds, layer_idx, attn_rate, resid_rate, 0.0, row0)
     masks = tuple(torch.empty(shape, dtype=torch.float32, device=device)
                   for shape in mask_shapes(B, T, C, num_heads))
     launch("draw_masks_gpt2", "afft_draw_masks_gpt2", *arrays,
@@ -204,10 +204,12 @@ def gpt2_operands(name, x, params, num_heads):
 
 def fused_gpt2_block_train(x, params, mask, seeds, *, num_heads: int,
                            layer_idx: int = 0, attn_rate: float = 0.0,
-                           resid_rate: float = 0.0, eps: float = 1e-5):
+                           resid_rate: float = 0.0, eps: float = 1e-5,
+                           row0: int = 0):
     """One GPT-2 layer in training mode on x (B, T, C); returns (B, T, C) in
     x.dtype, differentiable in x and the parameters. ``seeds`` are two
-    ints in [0, 2^31), ``layer_idx`` the layer's position in its stack.
+    ints in [0, 2^31), ``layer_idx`` the layer's position in its stack,
+    ``row0`` the global batch's row that x's first row is.
 
     CPU tensors take the plain version on masks from
     ``draw_masks_gpt2_plain``; CUDA tensors launch the kernels."""
@@ -217,7 +219,7 @@ def fused_gpt2_block_train(x, params, mask, seeds, *, num_heads: int,
     B, T, C = x.shape
     if x.device.type == "cpu":
         masks = draw_masks_gpt2_plain(B, T, C, num_heads, seeds, layer_idx,
-                                      attn_rate, resid_rate)
+                                      attn_rate, resid_rate, row0=row0)
         return fused_gpt2_block_train_plain(x, params, mask, masks,
                                             num_heads=num_heads, eps=eps)
     if x.device.type != "cuda":
@@ -230,7 +232,7 @@ def fused_gpt2_block_train(x, params, mask, seeds, *, num_heads: int,
     mask32 = mask_operand(name, mask, T, x.device)
     if B == 0:
         return torch.empty_like(x)
-    arrays = rate_arrays(seeds, layer_idx, attn_rate, resid_rate, 0.0)
+    arrays = rate_arrays(seeds, layer_idx, attn_rate, resid_rate, 0.0, row0)
     return BlockTrainFunction.apply(x, mask32,
                                     (num_heads, hidden, eps, arrays, GPT2),
                                     *tensors)

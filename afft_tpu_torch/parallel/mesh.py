@@ -1,0 +1,231 @@
+"""Process group, device choice and the collectives of data parallelism.
+
+Port of afft_tpu/parallel/mesh.py. The JAX package runs one process per
+host over a device mesh; the port runs one process per card, as the
+reference does (torchrun, an NCCL process group, DistributedSampler-style
+shards; reference run.py:42-44, common/utils.py:148-192):
+
+- ``init_distributed`` reads the torchrun environment (``RANK``,
+  ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) or a
+  multi-task SLURM step (``_slurm_rendezvous``) and joins the process group:
+  NCCL on CUDA, gloo on the CPU, and gloo where several ranks share one card
+  (an explicit ``cuda:K``: NCCL refuses two ranks on one device). Ranks other
+  than 0 log errors only.
+- ``--device cuda`` gives each rank ``cuda:LOCAL_RANK``; an explicit index
+  pins every rank to that card.
+- The collectives below act on tensors where they lie. Over gloo a CUDA
+  tensor goes through a host copy (gloo's CUDA support differs by op), bf16
+  and bool are gathered as their bytes. Without a process group each is the
+  identity, so one process runs the same code. A collective that fails
+  raises: nothing here falls back to a local result.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import subprocess
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# the process group's own timeout: a rank that dies mid-collective fails
+# the others within this time instead of hanging them
+TIMEOUT = timedelta(minutes=30)
+
+
+def _slurm_rendezvous():
+    """SLURM-launched rendezvous (reference common/utils.py:157-172), as
+    afft_tpu/parallel/mesh.py:24-56: (coordinator "host:port", tasks, task
+    id) under a multi-task SLURM step without explicit coordinator variables,
+    else None. The coordinator is task 0's node on a port derived from the
+    job id, so concurrent jobs on a shared node do not collide."""
+    if "SLURM_PROCID" not in os.environ or "SLURM_NTASKS" not in os.environ:
+        return None
+    ntasks = int(os.environ["SLURM_NTASKS"])
+    if ntasks <= 1:
+        return None
+    nodelist = os.environ.get("SLURM_STEP_NODELIST",
+                              os.environ.get("SLURM_JOB_NODELIST", ""))
+    # expand "prefix[a-b,c],other" -> first hostname; scontrol is the
+    # canonical expander but may be absent inside containers
+    try:
+        first = subprocess.run(
+            ["scontrol", "show", "hostnames", nodelist],
+            capture_output=True, text=True, timeout=10,
+        ).stdout.split()[0]
+    except (OSError, IndexError, subprocess.TimeoutExpired):
+        m = re.match(r"([^\[,]+)(?:\[([^\]\-,]+))?", nodelist)
+        if not m or not m.group(1):
+            return None
+        first = m.group(1) + (m.group(2) or "")
+    port = 12300 + int(os.environ.get("SLURM_JOB_ID", "0")) % 20000
+    return (f"{first}:{port}", ntasks, int(os.environ["SLURM_PROCID"]))
+
+
+def rank_device(device, local_rank: int) -> torch.device:
+    """This rank's device: ``cuda`` is ``cuda:LOCAL_RANK``, ``cuda:K`` pins
+    every rank to card K, ``cpu`` is the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", local_rank)
+    return dev
+
+
+def init_distributed(device="cuda", logger=None) -> dict:
+    """Join the process group the launcher describes, if any; returns
+    {"rank", "world_size", "local_rank", "distributed", "device",
+    "backend"}. ``distributed`` is whether a process group exists (torchrun
+    with one process makes one too). ``device`` is a resolved device
+    string or torch.device; see ``rank_device``."""
+    env = os.environ
+    rank, world, local_rank, init = 0, 1, 0, None
+    if int(env.get("WORLD_SIZE") or 1) > 1 and "MASTER_ADDR" not in env:
+        raise RuntimeError(
+            f"WORLD_SIZE={env['WORLD_SIZE']} without MASTER_ADDR / "
+            "MASTER_PORT: start the processes through torchrun (python -m "
+            "afft_tpu_torch.run -n N)")
+    if "WORLD_SIZE" in env and "MASTER_ADDR" in env:
+        rank, world = int(env.get("RANK", 0)), int(env["WORLD_SIZE"])
+        local_rank = int(env.get("LOCAL_RANK", 0))
+        init = "env://"
+    else:
+        slurm = _slurm_rendezvous()
+        if slurm is not None:
+            coordinator, world, rank = slurm
+            local_rank = int(env.get("SLURM_LOCALID", 0))
+            init = f"tcp://{coordinator}"
+    dev = rank_device(device, local_rank)
+    backend = None
+    if init is not None and not dist.is_initialized():
+        local_world = int(env.get("LOCAL_WORLD_SIZE",
+                                  env.get("SLURM_NTASKS_PER_NODE", 1)))
+        pinned = torch.device(device).index is not None
+        shared = dev.type == "cuda" and pinned and local_world > 1
+        backend = "nccl" if dev.type == "cuda" and not shared else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=init, world_size=world,
+                                rank=rank, timeout=TIMEOUT)
+        if shared:
+            logging.getLogger(__name__).info(
+                "%d ranks share %s: gloo process group", local_world, dev)
+    elif dist.is_initialized():
+        backend = dist.get_backend()
+        rank, world = dist.get_rank(), dist.get_world_size()
+    info = {"rank": rank, "world_size": world, "local_rank": local_rank,
+            "distributed": dist.is_initialized(), "device": dev,
+            "backend": backend}
+    if world > 1 and rank != 0:
+        # non-master processes log errors only
+        # (reference utils.setup_for_distributed, common/utils.py:97-116)
+        logging.getLogger().setLevel(logging.ERROR)
+    if logger is not None:
+        logger.info("process %d of %d on %s (%s)", rank, world, dev,
+                    backend or "no process group")
+    return info
+
+
+def active() -> bool:
+    """Whether a process group exists (the collectives below act)."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank_and_world():
+    """(this process's rank, the process count); (0, 1) without a group."""
+    if not active():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _comm_device(t: torch.Tensor) -> torch.device:
+    """Where a collective on ``t`` runs: NCCL on the card (the current one
+    for a host tensor), gloo on the host."""
+    if dist.get_backend() != "nccl":
+        return torch.device("cpu")
+    return t.device if t.is_cuda else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum of ``t`` over every rank, on t's device (t is
+    not changed)."""
+    if not active():
+        return t
+    buf = t.detach().to(_comm_device(t), copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    return buf.to(t.device)
+
+
+def all_reduce_sum_(tensors) -> None:
+    """Sum each tensor of ``tensors`` over every rank, in place."""
+    if not active():
+        return
+    for t in tensors:
+        dev = _comm_device(t)
+        if dev == t.device:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        else:
+            buf = t.to(dev)
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+            t.copy_(buf)
+
+
+def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated on dim 0 in rank
+    order, on t's device. bf16 and fp16 travel as their bytes, bool as
+    uint8."""
+    if not active():
+        return t
+    _, world = rank_and_world()
+    src = t.detach().contiguous()
+    if src.dtype == torch.bool:
+        src = src.to(torch.uint8)
+    elif src.dtype in (torch.bfloat16, torch.float16):
+        src = src.view(torch.uint8)  # the last dim doubles
+    src = src.to(_comm_device(t))
+    parts = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(parts, src)
+    out = torch.cat(parts).to(t.device)
+    if t.dtype == torch.bool:
+        return out.bool()
+    return out.view(t.dtype)
+
+
+def barrier() -> None:
+    if active():
+        dist.barrier()
+
+
+def gather_from_all(array) -> np.ndarray:
+    """Every rank's array (equal rank, first dimensions may differ)
+    concatenated on axis 0 in rank order, on every rank (reference
+    utils.gather_from_all, common/utils.py:207-232)."""
+    array = np.ascontiguousarray(array)
+    if not active():
+        return array
+    t = torch.from_numpy(array)
+    sizes = all_gather_cat(torch.tensor([t.shape[0]])).tolist()
+    pad = max(sizes) - t.shape[0]
+    if pad:
+        t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+    parts = all_gather_cat(t).numpy()
+    rows = max(sizes)
+    return np.concatenate([parts[r * rows:r * rows + k]
+                           for r, k in enumerate(sizes)], axis=0)
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether ``flag`` is set on any rank (one decision for all ranks)."""
+    if not active():
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int64)
+    return bool(all_reduce_sum(t).item() > 0)
+
+
+def shutdown() -> None:
+    if active():
+        dist.destroy_process_group()

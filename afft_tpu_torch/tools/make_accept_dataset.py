@@ -51,11 +51,26 @@ WINDOW = (510, 30)         # class signal in [start-17 s, start-1 s]
 
 def make_accept_dataset(root, n_train_videos=32, n_val_videos=2, seed=0,
                         clips_per_video=None):
-    clips_per_video = clips_per_video or CLIPS_PER_VIDEO
     root = Path(root)
-    annot_dir = root / "annotations"
-    if (annot_dir / "done").exists():
+    if (root / "annotations" / "done").exists():
         return root
+    videos = write_annotations(root, n_train_videos, n_val_videos, seed,
+                               clips_per_video)
+    write_features(root, videos)
+    (root / "annotations" / "done").write_text("ok")
+    n_clips = sum(len(v[1]) for v in videos.values())
+    print(f"accept dataset: {n_clips} clips, {len(videos)} videos, "
+          f"{N_ACTIVE} active classes -> {root}")
+    return root
+
+
+def write_annotations(root, n_train_videos=32, n_val_videos=2, seed=0,
+                      clips_per_video=None):
+    """The set's annotation csvs under ``root/annotations`` (all that the
+    challenge tool reads); returns {video: (length, clip starts, labels)}
+    for ``write_features``."""
+    clips_per_video = clips_per_video or CLIPS_PER_VIDEO
+    annot_dir = Path(root) / "annotations"
     annot_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
 
@@ -90,7 +105,12 @@ def make_accept_dataset(root, n_train_videos=32, n_val_videos=2, seed=0,
         with open(annot_dir / name, "w") as f:
             for r in chunk:
                 f.write(",".join(str(x) for x in r) + "\n")
+    return videos
 
+
+def write_features(root, videos):
+    """The bf16 packed feature stores under ``root/features_packed``."""
+    root = Path(root)
     # class prototypes per modality; frames inside a clip's observed window
     # carry the prototype of the NEAREST upcoming clip start
     for mod, dim in MODAL_DIMS.items():
@@ -119,11 +139,6 @@ def make_accept_dataset(root, n_train_videos=32, n_val_videos=2, seed=0,
 
         PackedFeatureStore.write_blocks(root / "features_packed" / mod,
                                         blocks(), dtype="bfloat16")
-
-    (annot_dir / "done").write_text("ok")
-    print(f"accept dataset: {sum(len(r) for r in rows.values())} clips, "
-          f"{n_videos} videos, {N_ACTIVE} active classes -> {root}")
-    return root
 
 
 def main(argv=None):

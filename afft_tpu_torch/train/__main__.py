@@ -1,10 +1,10 @@
 """Training entry point (the port's counterpart of train.py).
 
-Usage: python -m afft_tpu_torch.train [--device cuda|cpu] <overrides>
-(normally through ``python -m afft_tpu_torch.run -m train``). The overrides
-compose over ``afft_tpu_torch/conf`` as hydra's would. The default device
-is the card; without CUDA the command fails unless ``--device cpu`` is
-given.
+Usage: python -m afft_tpu_torch.train [--device cuda|cuda:K|cpu]
+<overrides> (normally through ``python -m afft_tpu_torch.run -m train``;
+under torchrun every process runs it, data parallel). The overrides compose
+over ``afft_tpu_torch/conf`` as hydra's would. The default device is the
+card; without CUDA the command fails unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -29,10 +29,14 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         sys.exit(f"error: {e}")
+    from ..parallel import mesh
     from .loop import main as train_main
     cfg = compose(CONF_DIR, args.overrides)
     print(cfg.to_yaml())
-    return train_main(cfg, device=device)
+    try:
+        return train_main(cfg, device=device)
+    finally:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

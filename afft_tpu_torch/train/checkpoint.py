@@ -15,6 +15,10 @@ payload per path wins, errors surface on the next save or ``wait``.
 ``init_from_model`` merges checkpoints or reference ``.pth`` files into a
 state dict by name and shape, optionally filtered by module prefix
 (reference train.py:55-103).
+
+Data parallelism: every rank holds the same state, so only rank 0 writes;
+``wait_for_pending_saves`` makes the other ranks wait until its files are on
+disk. Loading (``init_from_model``, resume) runs on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..parallel import mesh
 from ..weights import load_reference_checkpoint
 
 CKPT_BEST_DIRNAME = "checkpoint_best"
@@ -135,8 +140,12 @@ _ASYNC_SAVER = _AsyncSaver()
 
 def wait_for_pending_saves():
     """Block until every async checkpoint write is on disk (call at the end
-    of training); re-raises any writer failure."""
-    _ASYNC_SAVER.wait()
+    of training, on every rank: the others wait for rank 0's writes);
+    re-raises any writer failure."""
+    try:
+        _ASYNC_SAVER.wait()
+    finally:
+        mesh.barrier()
 
 
 def to_host(tree):
@@ -158,7 +167,9 @@ def save_checkpoint(path, model_state: Dict, optimizer_state: Dict,
     """Save a checkpoint (host copies are taken here, so the caller's
     tensors may change right after). ``block=False`` hands the disk write
     to the background writer; call :func:`wait_for_pending_saves` before
-    exiting."""
+    exiting. In a data-parallel run ranks other than 0 write nothing."""
+    if mesh.rank_and_world()[0] != 0:
+        return
     payload = {
         "model": to_host(model_state),
         "optimizer": to_host(optimizer_state),

@@ -2,9 +2,15 @@
 
 Port of afft_tpu/train/loop.py (reference train.py: main :293-425,
 run_one_epoch :228-290, get_dataloader :106-153, create_ckpt_path
-:170-186). One process on one device: the card unless the caller asks for
-the CPU. A config that needs more than one process raises (data
-parallelism is ROADMAP.md §A.4).
+:170-186). One process a device: the card unless the caller asks for the
+CPU. Under torchrun (or a multi-task SLURM step) the processes train data
+parallel (``parallel.mesh``; ``Runner`` takes the global batch's step):
+each loads its shard of the train and validation sets (the strided,
+wrap-padded shards of ``data.loader.shard_indices``), the schedule counts
+the process count as ``world_size``, preemption is decided across all ranks
+at an epoch's end, validation meters are summed over the ranks, only rank 0
+writes checkpoints and ``metrics.jsonl``, and all ranks leave each epoch
+together.
 
 - Each iteration is ``Runner.train_step`` at the per-iteration schedule's
   lr; losses are read back only at the logging cadence (``LOG_EVERY``,
@@ -24,7 +30,8 @@ parallelism is ROADMAP.md §A.4).
   device-paced; host clock on the CPU), ``host_ms_per_iter`` (median host
   time of a step's call), ``window_ms`` (the epoch from its first
   iteration's start to its last step's end, stalls included) and
-  ``clips_per_s`` (the epoch's valid clips over ``window_ms``).
+  ``clips_per_s`` (the epoch's valid clips over ``window_ms``), rank 0's
+  in a data-parallel run.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from .. import resolve_device
 from ..data.dataset import ConcatClipDataset, ZeroMaskFeats
 from ..data.loader import BatchLoader, get_dataset
 from ..ops import launch_counts, reset_launches
+from ..parallel import mesh
 from ..utils.logging import ExperimentLogger, ProfilerHook, human_format
 from .checkpoint import (CKPT_BEST_DIRNAME, CKPT_LAST_DIRNAME,
                          init_from_model, load_checkpoint, save_checkpoint,
@@ -68,18 +76,12 @@ def get_transforms(cfg, train: bool):
     return {m: None for m in mods}
 
 
-def check_single_process():
-    """Raise when the environment launches more than one process."""
-    for var in ("WORLD_SIZE", "SLURM_NTASKS"):
-        if int(os.environ.get(var) or 1) > 1:
-            raise NotImplementedError(
-                f"{var}={os.environ[var]}: training in more than one "
-                "process (data parallelism) is not ported (ROADMAP.md §A.4)")
-
-
 def create_ckpt_path(cfg, interactive=True):
     """Reference train.py:170-186 naming scheme. A finished experiment is
-    not run again unless ``train.resume=true`` or ``+overwrite=true``."""
+    not run again unless ``train.resume=true`` or ``+overwrite=true`` (every
+    rank decides on what it sees before rank 0 removes anything; only a
+    one-process run asks)."""
+    rank, world = mesh.rank_and_world()
     expt_name = cfg.get("experiment_name")
     fusion_method = cfg.model.fuser._target_.split(".")[-1]
     fp_method = cfg.model.CMFP._target_.split(".")[-1]
@@ -94,21 +96,27 @@ def create_ckpt_path(cfg, interactive=True):
         # reference train.py:179-185 asks; non-interactive runs must opt in
         # via +overwrite=true
         confirmed = bool(cfg.get("overwrite", False))
-        if not confirmed and interactive and os.isatty(0):
+        if not confirmed and interactive and world == 1 and os.isatty(0):
             ans = input("This experiment already exists. Override? (y/N) ")
             confirmed = ans.strip().lower() in ("y", "yes")
         if not confirmed:
             raise ValueError(
                 "This experiment is already done. Rename it, set "
                 "train.resume=true, or pass +overwrite=true.")
-        if os.path.isdir(best):
-            shutil.rmtree(best)
-        else:
-            os.remove(best)
+        mesh.barrier()
+        if rank == 0:
+            if os.path.isdir(best):
+                shutil.rmtree(best)
+            else:
+                os.remove(best)
+    mesh.barrier()
     return experiment_name, ckpt_path
 
 
-def build_dataloaders(cfg, pin_memory: bool = False):
+def build_dataloaders(cfg, pin_memory: bool = False, shard_id: int = 0,
+                      num_shards: int = 1):
+    """(train set, its loader, val set, its loader): this rank's shards of
+    both, ``train.batch_size`` clips a batch on each rank."""
     transforms_train = get_transforms(cfg, train=True)
     transforms_val = get_transforms(cfg, train=False)
     datasets_train = [
@@ -137,12 +145,14 @@ def build_dataloaders(cfg, pin_memory: bool = False):
     loader_train = BatchLoader(
         dataset_train, batch_size=batch, shuffle=True, seed=cfg.seed,
         num_workers=cfg.workers, sample_weights=sample_weights,
-        pin_memory=pin_memory)
+        pin_memory=pin_memory, shard_id=shard_id, num_shards=num_shards)
     loader_val = BatchLoader(
         dataset_val, batch_size=eval_batch, shuffle=False, seed=cfg.seed,
-        num_workers=cfg.workers, pin_memory=pin_memory)
-    log.info("train %d clips / val %d clips; batch %d", len(dataset_train),
-             len(dataset_val), batch)
+        num_workers=cfg.workers, pin_memory=pin_memory, shard_id=shard_id,
+        num_shards=num_shards)
+    log.info("train %d clips / val %d clips; global batch %d over %d "
+             "processes", len(dataset_train), len(dataset_val),
+             batch * num_shards, num_shards)
     return dataset_train, loader_train, dataset_val, loader_val
 
 
@@ -250,21 +260,26 @@ def run_one_epoch(runner, loader, metric_tracker, *, is_training,
 
 
 def main(cfg, device="cuda", interactive: bool = True):
-    """Train ``cfg`` (a composed config) on ``device``; returns the best
-    value of ``cfg.primary_metric``."""
-    device = resolve_device(device)
-    check_single_process()
+    """Train ``cfg`` (a composed config) on ``device`` (``cuda``: each rank
+    its ``LOCAL_RANK``'s card; ``cuda:K`` pins every rank to card K);
+    returns the best value of ``cfg.primary_metric``."""
+    resolve_device(device)
+    dist_info = mesh.init_distributed(device, log)
+    device = dist_info["device"]
+    rank, world = dist_info["rank"], dist_info["world_size"]
+    is_master = rank == 0
     preempt_ev = _install_preemption_handler()
     reset_launches()  # the run's own kernel launches, logged at the end
     experiment_name, ckpt_path = create_ckpt_path(cfg, interactive)
     np.random.seed(cfg.seed)
 
     dataset_train, loader_train, dataset_val, loader_val = \
-        build_dataloaders(cfg, pin_memory=device.type == "cuda")
+        build_dataloaders(cfg, pin_memory=device.type == "cuda",
+                          shard_id=rank, num_shards=world)
     num_classes = {k: len(v) for k, v in dataset_train.classes.items()}
     runner = Runner.from_config(
         cfg, num_classes, device=device, iters_per_epoch=len(loader_train),
-        class_mappings=dataset_train.class_mappings,
+        world_size=world, class_mappings=dataset_train.class_mappings,
         class_weights=class_weights_for(cfg, dataset_train, num_classes))
     lr_schedule, base_lr = runner.lr_schedule, runner.base_lr
     n_params = sum(p.numel() for p in runner.model.parameters())
@@ -277,7 +292,7 @@ def main(cfg, device="cuda", interactive: bool = True):
     exp_logger = ExperimentLogger(
         ckpt_path, cfg.get("project_name", "Anticipation"), experiment_name,
         use_wandb=bool(cfg.get("use_wandb", True)),
-        config=cfg.to_container(resolve=True))
+        config=cfg.to_container(resolve=True)) if is_master else None
 
     if cfg.get("init_from_model"):
         paths = cfg.init_from_model
@@ -323,10 +338,11 @@ def main(cfg, device="cuda", interactive: bool = True):
         if cache_train is not None:
             return (cache_train.iter_batches(
                         loader_train.batch_size, shuffle=True, seed=cfg.seed,
-                        epoch=epoch,
+                        epoch=epoch, shard_id=rank, num_shards=world,
                         sample_weights=loader_train.sample_weights),
                     cache_val.iter_batches(loader_val.batch_size,
-                                           shuffle=False))
+                                           shuffle=False, shard_id=rank,
+                                           num_shards=world))
         loader_train.set_epoch(epoch)
         return loader_train, loader_val
 
@@ -339,18 +355,21 @@ def main(cfg, device="cuda", interactive: bool = True):
         metric_tracker.reset()
 
         epoch_start_step = step_counter
+        # several processes never stop mid-epoch (a rank leaving its
+        # collectives would hang the others): they decide at its end
         step_counter, timing = run_one_epoch(
             runner, epoch_train_loader, metric_tracker, is_training=True,
             lr_schedule=lr_schedule, base_lr=base_lr,
             step_counter=step_counter, profiler=profiler,
-            preempt=preempt_ev)
+            preempt=preempt_ev if world == 1 else None)
         _, val_timing = run_one_epoch(runner, epoch_val_loader,
                                       metric_tracker, is_training=False)
         train_iters += timing.get("iters", 0)
         val_batches += val_timing.get("iters", 0)
         # a preempted epoch's metrics are partial: it crowns no best
         # checkpoint, and resume redoes it
-        interrupted = preempt_ev is not None and preempt_ev.is_set()
+        interrupted = world == 1 and preempt_ev is not None \
+            and preempt_ev.is_set()
 
         observe = getattr(lr_schedule, "observe", None)
         if observe is not None:
@@ -381,6 +400,8 @@ def main(cfg, device="cuda", interactive: bool = True):
                             schedule_state=sched_state,
                             rng_state=runner.rng_state(), block=blocking)
 
+        # the meters are summed over the ranks, so every rank takes these
+        # decisions alike; save_checkpoint writes on rank 0 alone
         log.info(metric_tracker.to_string(is_training=True))
         log.info(metric_tracker.to_string(is_training=False))
         if is_best:
@@ -391,13 +412,14 @@ def main(cfg, device="cuda", interactive: bool = True):
         if is_every:
             save(os.path.join(ckpt_path, f"checkpoint_epoch{epoch + 1}"),
                  epoch + 1, step_counter, block)
-        if not interrupted:
+        if not interrupted and exp_logger is not None:
             exp_logger.log({
                 **metric_tracker.get_all_data(is_training=True),
                 **metric_tracker.get_all_data(is_training=False),
                 "lr": lr, **timing,
             }, step=epoch + 1)
-        if preempt_ev is not None and preempt_ev.is_set():
+        # one decision for every rank, which also leaves the epoch together
+        if mesh.any_rank(preempt_ev is not None and preempt_ev.is_set()):
             # one final resume checkpoint, then a clean exit. A mid-epoch
             # interrupt records (epoch, epoch-start step) so resume redoes
             # the partial epoch; an epoch-boundary one whose checkpoint_last
@@ -413,13 +435,15 @@ def main(cfg, device="cuda", interactive: bool = True):
             break
     profiler.close()
     wait_for_pending_saves()
-    exp_logger.summary(cfg.primary_metric, best_metric)
     run = {"device": str(device), "train_iters": train_iters,
-           "val_batches": val_batches, "launches": launch_counts()}
+           "val_batches": val_batches, "launches": launch_counts(),
+           "world_size": world}
     if cache_train is not None:
         run["device_cache_bytes"] = {"train": cache_train.nbytes,
                                      "val": cache_val.nbytes}
-    exp_logger.summary("run", run)
+    if exp_logger is not None:
+        exp_logger.summary(cfg.primary_metric, best_metric)
+        exp_logger.summary("run", run)
     log.info("run: %s", json.dumps(run))
     log.info("Best %s: %s", cfg.primary_metric, best_metric)
     return best_metric

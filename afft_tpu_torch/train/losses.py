@@ -9,6 +9,14 @@ here reads a value back to the host.
 Losses come back per key (cls_* / past_cls_* / past_reg_*);
 ``reduce_losses`` weights and sums them with the reference's prefix-matched
 loss weights (common/runner.py:171-213).
+
+Data parallelism: every mean divides by its denominator over the global
+batch (one small all-reduce of the denominator for each term, through
+``parallel.mesh``; the identity in one process), so each scalar here is this
+rank's share of the one-process value over the global batch: the shares sum
+to it, and the gradients of the shares sum to its gradient. A mean of the
+ranks' own means would be wrong as soon as ``valid`` or the class weights
+differ between ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 PAST_LOGITS_PREFIX = "past_"
 
@@ -37,8 +47,10 @@ def cross_entropy_one_hot(logits, tgt):
 
 
 def _masked_mean(x, mask):
+    """This rank's share of the mean of x over the global batch's kept
+    rows."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / mask.sum().clamp(min=1.0)
+    return (x * mask).sum() / mesh.all_reduce_sum(mask.sum()).clamp(min=1.0)
 
 
 def topk_correct(logits, labels, k):
@@ -97,7 +109,8 @@ def future_action_terms(logits, tgt_val, mixup_enable, valid,
         w = torch.where(tgt_val >= 0, class_weights[tgt_val.clamp(min=0)],
                         torch.zeros((), device=logits.device))
         w = w * valid.float()
-        loss = (loss.mean(dim=1) * w).sum() / w.sum().clamp(min=1e-12)
+        loss = (loss.mean(dim=1) * w).sum() / \
+            mesh.all_reduce_sum(w.sum()).clamp(min=1e-12)
     else:
         loss = _masked_mean(loss.mean(dim=1), valid)
     top5 = preds[:, seq, :].topk(min(5, C), dim=-1).indices

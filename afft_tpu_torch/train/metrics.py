@@ -4,9 +4,9 @@ Port of afft_tpu/train/metrics.py (reference common/metric_tracking.py:
 meters, MetricTracker; common/utils.py:19-86: RULSTM topk_accuracy /
 topk_recall, torch accuracy). Meter state lives in numpy on the host, or in
 device tensors for the MT5R payloads of a step, read once when the value is
-queried. The cross-process reduction (the reference's dist.all_reduce,
-common/metric_tracking.py:31-40) waits for data parallelism (ROADMAP.md
-§A.4): with one process it has nothing to do.
+queried. ``synchronize_between_processes`` sums every meter's state over
+the processes of a data-parallel run (the reference's dist.all_reduce,
+common/metric_tracking.py:31-40; afft_tpu/train/metrics.py:205-211).
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 
 def _host(x) -> np.ndarray:
@@ -216,14 +218,19 @@ class MetricTracker:
             metrics[key].update(value, batch_size)
 
     def synchronize_between_processes(self, is_training):
-        """All-reduce of the meter state across processes: one process
-        holds all of it; more wait for data parallelism."""
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "metric all-reduce across processes is not ported "
-                "(ROADMAP.md §A.4)")
+        """SUM all-reduce of every meter's ``sync_payload`` over the
+        processes (one all-reduce of their concatenation, in name order);
+        nothing to do in one process."""
+        if not mesh.active():
+            return
+        meters = [m for _, m in sorted(self._metrics(is_training).items())]
+        payloads = [m.sync_payload() for m in meters]
+        flat = torch.from_numpy(np.concatenate(payloads or [np.zeros(0)]))
+        summed = mesh.all_reduce_sum(flat).numpy()
+        at = 0
+        for meter, payload in zip(meters, payloads):
+            meter.load_sync(summed[at:at + len(payload)])
+            at += len(payload)
 
     def reset(self):
         for m in self.training_metrics.values():

@@ -29,6 +29,15 @@ Host batches are copied to the card from pinned memory without blocking
 (a copy from pageable memory waits until the stream has run everything
 queued before it).
 
+Data parallelism (a process group from ``parallel.mesh``): a step on R
+processes computes the one-process step over the global batch, the ranks'
+equal local batches concatenated in rank order (row i on rank r is global
+row r * B_local + i, as afft_tpu/parallel/mesh.py:105-129 ``shard_batch``
+assembles it). Four places would differ under a per-rank step, each marked
+"DP (n)" below: (1) the gradients, (2) the loss normalisation, (3) mixup and
+(4) dropout and drop-path. Every rank starts from the same weights and the
+same generators, so every rank takes the same update.
+
 Waiting (ROADMAP.md §A.7): ``grad_accum``, ``master_dtype=bfloat16``,
 ``param_shardings``, ``zero_sharding``, ``pipeline_stages``.
 ``from_config`` raises for each of those keys when a config sets it away
@@ -48,11 +57,15 @@ from .. import resolve_device
 from ..config.registry import instantiate
 from ..models import BaseModel
 from ..models import layers as L
+from ..parallel import mesh
 from . import losses as LO
 from . import optim as O
 from .mixup import MixUp
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# elements of fp32 gradient reduced by one all-reduce (256 MB)
+GRAD_BUCKET = 1 << 26
 
 # train.* keys the JAX loop reads and the port does not honour yet, with
 # their defaults (afft_tpu_torch/conf/config.yaml) and the roadmap item
@@ -94,6 +107,80 @@ def clip_by_global_norm(grads, max_norm: float):
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return gnorm
+
+
+def _buckets(tensors, limit: int):
+    """Consecutive groups of ``tensors`` of at most ``limit`` elements (a
+    larger tensor alone)."""
+    bucket, size = [], 0
+    for t in tensors:
+        if bucket and size + t.numel() > limit:
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.numel()
+    if bucket:
+        yield bucket
+
+
+def reduce_gradients(grads) -> None:
+    """DP (1): sum the fp32 gradients of the masters over the ranks, in
+    place, in buckets of ``GRAD_BUCKET`` elements: one flat buffer a bucket,
+    one all-reduce each. With the losses normalised over the global batch
+    (DP (2)) the sum is the gradient of the global step.
+
+    An explicit all-reduce and not DistributedDataParallel: DDP reduces the
+    gradients of the module it wraps, which in bf16 is the compute copy, so
+    it would sum bf16 gradients before their upcast; and it hooks
+    ``forward``, while a step runs ``forward_train`` through the fused
+    autograd Functions. Reducing after the upcast also lets
+    ``watch_gradients`` and ``clip_by_global_norm`` read the global
+    gradient."""
+    if not mesh.active():
+        return
+    for bucket in _buckets(grads, GRAD_BUCKET):
+        flat = torch._utils._flatten_dense_tensors(bucket)
+        mesh.all_reduce_sum_([flat])
+        for g, summed in zip(bucket, torch._utils._unflatten_dense_tensors(
+                flat, bucket)):
+            g.copy_(summed)
+
+
+def global_mix(mix, x_video, labels, labels_subclips, valid=None):
+    """DP (3): mixup over the global batch. The pre-mix rows of every rank
+    are gathered (the backbones are the identity, so they are the input
+    features and carry no gradient), the partner permutation, the mixable
+    rows and the one lambda (the same generator on every rank) are the
+    global batch's, and this rank keeps its own rows of the result."""
+    rank, world = mesh.rank_and_world()
+    rows = next(iter(x_video.values())).shape[0]
+    gather = mesh.all_gather_cat
+
+    def every(d):
+        return None if d is None else {k: gather(v) for k, v in d.items()}
+    out = mix(every(x_video), every(labels), every(labels_subclips),
+              valid=None if valid is None else gather(valid))
+    own = slice(rank * rows, (rank + 1) * rows)
+    return tuple(None if d is None else {k: v[own] for k, v in d.items()}
+                 for d in out)
+
+
+def global_scalars(total, losses: Dict, metrics: Dict):
+    """DP (2): the reported total, losses and scalar metrics as the global
+    batch's: each rank holds its share of every mean (``losses``), and one
+    all-reduce sums the shares. Without a process group, the values as they
+    are, detached."""
+    keys = [k for k, v in metrics.items() if not isinstance(v, dict)]
+    vals = [total] + list(losses.values()) + [metrics[k] for k in keys]
+    if mesh.active():
+        summed = mesh.all_reduce_sum(
+            torch.stack([v.detach().float() for v in vals])).unbind()
+    else:
+        summed = [v.detach() for v in vals]
+    total = summed[0]
+    losses = dict(zip(losses, summed[1:1 + len(losses)]))
+    metrics = {**metrics, **dict(zip(keys, summed[1 + len(losses):]))}
+    return total, losses, metrics
 
 
 class MetricAccum:
@@ -165,7 +252,9 @@ class Runner:
         self.class_weights = None if not class_weights else {
             t: torch.as_tensor(w, dtype=torch.float32, device=self.device)
             for t, w in class_weights.items()}
-        self.rng = L.RngStream(seed, self.device)
+        # DP (4): the same generators on every rank; each draw is the
+        # global batch's, of which a rank keeps its own rows
+        self.rng = L.RngStream(seed, self.device, *mesh.rank_and_world())
         self.masters = [p for _, p in model.named_parameters()]
         self._mixed = compute_dtype != torch.float32
         if self._mixed:
@@ -272,6 +361,8 @@ class Runner:
         if use_mixup:
             mix = functools.partial(self.mixup.mix, lam) if lam is not None \
                 else functools.partial(self.mixup, self.rng.gen)
+            if mesh.active():
+                mix = functools.partial(global_mix, mix)  # DP (3)
             if self.mixup_backbone:
                 mixup_fn = functools.partial(mix, valid=valid)
             else:  # input-level mixup (reference runner.py:246-253)
@@ -316,6 +407,9 @@ class Runner:
             for p, c in zip(self.masters, self.compute):
                 p.grad = None if c.grad is None else c.grad.float()
                 c.grad = None
+        # DP (1), before the norms and the clipping read the gradient
+        reduce_gradients(p.grad for p in self.masters if p.grad is not None)
+        total, losses, metrics = global_scalars(total, losses, metrics)
         if self.watch_gradients:
             # the reference's wandb.watch(model) (train.py:416) as norms in
             # the metric stream (afft_tpu/train/runner.py:330-341): the
@@ -340,8 +434,7 @@ class Runner:
         if self._mixed:
             with torch.no_grad():
                 torch._foreach_copy_(self.compute, self.masters)
-        losses = {k: v.detach() for k, v in losses.items()}
-        losses["total_loss"] = total.detach()
+        losses["total_loss"] = total
         if accum is not None:
             accum.add(losses, metrics, batch["valid"])
         if check_nan and bool(torch.isnan(losses["total_loss"])):
@@ -359,7 +452,7 @@ class Runner:
                                                 use_mixup=False)
         total, losses, metrics = self._losses(
             outputs, outputs_target, batch["valid"], False, train=False)
-        losses = dict(losses)
+        total, losses, metrics = global_scalars(total, losses, metrics)
         losses["total_loss"] = total
         if accum is not None:
             accum.add(losses, metrics, batch["valid"])

@@ -140,7 +140,29 @@ Phases, in order; any failure exits non-zero and prints no result:
                the bare Runner.train_step at the same batch, timed in a
                turn just before and one just after the uninterrupted run;
                whether ml_dtypes imports on the machine;
-  9. report  - one JSON line of per-kernel numbers, then the result line.
+  9. eval    - the eval CLI on phase 8's checkpoint (full width, bf16, the
+               eval set in CUDA memory): ``python -m afft_tpu_torch.run -c
+               expts/98_synth_accept_val.txt -m test`` in the accuracies
+               mode and with ``+save_name`` (npz where h5py does not
+               import); the exported logits against the plain path on the
+               same checkpoint (bf16 at 5e-2 of max|logit| with the top-1
+               form; the kernels against the plain path in fp32 at 1e-4),
+               the accuracies mode against the challenge's numbers from the
+               exported file, ``python -m afft_tpu_torch.challenge``
+               packaging it, the serving kernels 6 times a batch each
+               (eval_launches in the kernels line), clips/s over the eval's
+               window;
+ 10. dp      - ``-n 1`` through torchrun over NCCL: a cut-set epoch bit for
+               bit the one-process run (phase 8's host-loader run); the
+               training layers at a data-parallel rank's row offset against
+               their plain versions, their masks bit for bit the
+               one-process masks of those rows; two processes on the one
+               card over gloo (``--device cuda:0``), 32 clips each, against
+               one process at 64 over the same global batches of the
+               flagship: losses within 2e-2 relative, the training kernels
+               launched on each rank, step times logged (one card: no
+               multi-GPU number);
+ 11. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -172,6 +194,10 @@ PEAKS = {"H100": {"bf16": 989e12, "bytes": 3.35e12}}
 # of the block carries. Bound: 1e-2 of the output's largest magnitude
 # (~2.5 ulps there). fp32: only the summation order differs.
 KERNEL_TOL = {"bf16": 1e-2, "fp32": 1e-5}
+# torch.profiler now and then hands back a trace without its device events,
+# at times twice or three times in a row: such a trace is taken again, up to
+# this many times in all
+PROFILE_ATTEMPTS = 6
 # Expt 99, three training steps at the base lr through the kernels vs the
 # plain versions on the same masks: the largest loss difference, and per
 # tensor the weights' difference over max|w| and over what the steps moved
@@ -852,38 +878,40 @@ def _check_train_layer(what, tag, x, p, dout, masks, mlp_keys, kernel, plain):
 
 def check_train_block(tag, dt, R, N, C, H, hidden, gen, *, rates=None,
                       affine=True, qkv_bias=False, diag_mask=False,
-                      block_idx=5):
+                      block_idx=5, row0=0):
     """One shape of the training block on the card: kernel 10 against
     draw_masks_plain bit for bit, kernel 7's out / y / qkv / pre1 against the
     plain version on those masks, kernels 8 + 9's dx and parameter gradients
-    against fp32 autograd through the plain version."""
+    against fp32 autograd through the plain version. ``row0``: the rows are
+    those of a data-parallel rank from the global batch's row0 on."""
     from afft_tpu_torch.models.layers import cross_attention_diag_mask
     from afft_tpu_torch.ops import fused_block_train as FT
 
     rates = TRAIN_RATES if rates is None else rates
     what = (f"fused_block_train {tag} R={R} N={N} C={C} H={H} hidden={hidden} "
             f"rates={tuple(rates.values())} affine={affine} qkv_bias="
-            f"{qkv_bias} mask={diag_mask}")
+            f"{qkv_bias} mask={diag_mask}" + (f" row0={row0}" if row0 else ""))
     p = block_params(C, hidden, dt, gen, affine, qkv_bias)
     rn = _randn(gen, dt)
     x, dout = rn(R, N, C), rn(R, N, C)
     mask = cross_attention_diag_mask(N, device="cuda") if diag_mask else None
     args = (R, N, C, H, TRAIN_SEEDS, block_idx, *rates.values())
-    masks = FT.draw_masks(*args, device="cuda")
-    _check_masks(what, masks, FT.draw_masks_plain(*args, device="cuda"),
+    masks = FT.draw_masks(*args, device="cuda", row0=row0)
+    _check_masks(what, masks, FT.draw_masks_plain(*args, device="cuda",
+                                                  row0=row0),
                  [rates[k] for k in ("attn_rate", "drop_rate", "dp_rate",
                                      "drop_rate", "dp_rate")])
     return _check_train_layer(
         what, tag, x, p, dout, masks, GRAD_KEYS_MLP,
         lambda x, p: FT.fused_block_train(x, p, mask, TRAIN_SEEDS,
                                           num_heads=H, block_idx=block_idx,
-                                          **rates),
+                                          row0=row0, **rates),
         lambda x, p, **kw: FT.fused_block_train_plain(x, p, mask, masks,
                                                       num_heads=H, **kw))
 
 
 def check_gpt2_train_layer(tag, dt, B, T, C, H, hidden, gen, *, rates=None,
-                           layer_idx=3):
+                           layer_idx=3, row0=0):
     """One shape of the GPT-2 training layer on the card: row 16
     (draw_masks_gpt2) against draw_masks_gpt2_plain bit for bit, the forward
     entry (rows 11 + 12) against the plain version on those masks, the MLP
@@ -894,21 +922,23 @@ def check_gpt2_train_layer(tag, dt, B, T, C, H, hidden, gen, *, rates=None,
 
     rates = GPT2_RATES if rates is None else rates
     what = (f"fused_gpt2_train {tag} B={B} T={T} C={C} H={H} hidden={hidden} "
-            f"rates={tuple(rates.values())}")
+            f"rates={tuple(rates.values())}" + (f" row0={row0}" if row0
+                                                else ""))
     p = gpt2_params(C, hidden, dt, gen)
     rn = _randn(gen, dt)
     x, dout = rn(B, T, C), rn(B, T, C)
     mask = neg_inf_causal_mask(T, device="cuda")
     args = (B, T, C, H, TRAIN_SEEDS, layer_idx, *rates.values())
-    masks = FGT.draw_masks_gpt2(*args, device="cuda")
-    _check_masks(what, masks, FGT.draw_masks_gpt2_plain(*args, device="cuda"),
+    masks = FGT.draw_masks_gpt2(*args, device="cuda", row0=row0)
+    _check_masks(what, masks, FGT.draw_masks_gpt2_plain(*args, device="cuda",
+                                                        row0=row0),
                  [rates["attn_rate"], rates["resid_rate"],
                   rates["resid_rate"]])
     return _check_train_layer(
         what, tag, x, p, dout, masks, GPT2_GRAD_KEYS_MLP,
         lambda x, p: FGT.fused_gpt2_block_train(
             x, p, mask, TRAIN_SEEDS, num_heads=H, layer_idx=layer_idx,
-            **rates),
+            row0=row0, **rates),
         lambda x, p, **kw: FGT.fused_gpt2_block_train_plain(
             x, p, mask, masks, num_heads=H, **kw))
 
@@ -1065,9 +1095,11 @@ def check_attention_bwd(peaks, gen):
         kw = dict(n_tokens=N, num_heads=H, block_idx=4, attn_rate=0.1,
                   gpt2=gpt2)
         ms = _device_ms(lambda: FT.attention_drop_bwd(qkv, mask, dao,
-                                                      TRAIN_SEEDS, **kw))
+                                                      TRAIN_SEEDS, **kw),
+                        what=f"attention_drop_bwd {label}")
         fwd_ms = _device_ms(lambda: FT.attention_drop(qkv, mask,
-                                                      TRAIN_SEEDS, **kw))
+                                                      TRAIN_SEEDS, **kw),
+                            what=f"attention_drop {label}")
         nbytes = _nbytes(qkv, dao) + _nbytes(qkv) + R * N * C * 2
         bound = nbytes / peaks["bytes"] * 1e3
         numbers[label] = {"device_ms": ms, "bound_ms": bound, "bytes": nbytes,
@@ -1917,9 +1949,13 @@ def _in_turns(fns, iters=20):
     return {k: sum(v) / len(v) for k, v in times.items()}
 
 
-def _device_ms(fn, calls=20):
+def _device_ms(fn, calls=20, what="a timed call"):
     """The device's time a call of ``fn``: every kernel it launches in
-    ``calls`` calls, summed (torch.profiler), over ``calls``."""
+    ``calls`` calls, summed (torch.profiler), over ``calls``. A trace that
+    comes back without its device events (see ``profile_forward``) is
+    taken again after a short pause, up to ``PROFILE_ATTEMPTS`` times in
+    all; after the last empty one the calls are timed with CUDA events
+    instead (launch gaps included), and the log says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1927,15 +1963,29 @@ def _device_ms(fn, calls=20):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    if not us:
-        raise RuntimeError("the profiler saw no device events")
-    return sum(us) / calls / 1e3
+        for attempt in range(PROFILE_ATTEMPTS):
+            if attempt:
+                time.sleep(0.5 * attempt)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+            if us:
+                return sum(us) / calls / 1e3
+            log(f"device ms: {what}: the trace holds no device events "
+                f"(attempt {attempt + 1} of {PROFILE_ATTEMPTS})")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+    ms = start.elapsed_time(end) / calls
+    log(f"device ms: {what}: timed with CUDA events instead: {ms:.4f} ms")
+    return ms
 
 
 def _time_gemm_rows(peaks, label, shapes, fns_of, extra=None,
@@ -2137,17 +2187,17 @@ def phase_gemm(peaks, gen):
 def profile_forward(fn, what="one bf16 forward", grad=False):
     """Device ms by kernel group over one call of ``fn`` (torch.profiler),
     and the device's busy share of the call's host wall time. The profiler
-    now and then hands back a trace without its device events, at times
-    twice in a row; such a call is traced again, up to four times in all,
-    after a short pause, and a fourth empty trace fails."""
+    now and then hands back a trace without its device events; such a call
+    is traced again after a pause that grows with each attempt, up to
+    ``PROFILE_ATTEMPTS`` times in all, and the last empty trace fails."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    attempts = 4
+    attempts = PROFILE_ATTEMPTS
     for attempt in range(attempts):
         if attempt:
-            time.sleep(0.5)
+            time.sleep(0.5 * attempt)
         with torch.set_grad_enabled(grad), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2806,6 +2856,24 @@ BARE_STEPS = 20
 SERVE_NAMES = ("fused_block", "gpt2_attn_half", "gpt2_mlp_half")
 
 
+def _logged_run(cmd, workdir, name, timeout):
+    """Run ``cmd`` in ``workdir`` with its output in ``<workdir>/<name>.log``;
+    a failed run fails the phase. Returns (log text, seconds)."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, f"{name}.log"), "w") as out:
+        proc = subprocess.run(cmd, cwd=workdir, env=env, stdout=out,
+                              stderr=subprocess.STDOUT, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"{name}.log")) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: exit code {proc.returncode}\n"
+                             f"{text[-4000:]}")
+    return text, seconds
+
+
 def _launch(workdir, name, overrides):
     """One run of ``python -m afft_tpu_torch.run -c expts/<LAUNCH_EXPT> -m
     train`` in ``workdir``; returns (its checkpoint directory, its epochs'
@@ -2814,19 +2882,7 @@ def _launch(workdir, name, overrides):
     cmd = [sys.executable, "-m", "afft_tpu_torch.run", "-c",
            os.path.join(EXPTS, LAUNCH_EXPT), "-m", "train",
            *LAUNCH_OVERRIDES, *overrides]
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
-    t0 = time.perf_counter()
-    with open(os.path.join(workdir, f"{name}.log"), "w") as out:
-        proc = subprocess.run(cmd, cwd=workdir, env=env, stdout=out,
-                              stderr=subprocess.STDOUT,
-                              timeout=LAUNCH_TIMEOUT)
-    seconds = time.perf_counter() - t0
-    with open(os.path.join(workdir, f"{name}.log")) as f:
-        tail = f.read()[-4000:]
-    if proc.returncode != 0:
-        raise AssertionError(f"launcher {name}: exit code {proc.returncode}"
-                             f"\n{tail}")
+    _, seconds = _logged_run(cmd, workdir, name, LAUNCH_TIMEOUT)
     exp = [l for l in overrides if l.startswith("experiment_name=")][0]
     ckpt_dir = os.path.join(workdir, "checkpoints",
                             "CMFPEarly_ModalTokenCMFuser_rgb_objects_audio_"
@@ -3115,6 +3171,338 @@ def phase_launcher():
         "resume_bit_for_bit": True}
 
 
+# -- the eval CLI: the launcher's checkpoint evaluated and exported ----------
+
+EVAL_EXPT = "98_synth_accept_val.txt"
+EVAL_MODEL = "CMFPEarly_ModalTokenCMFuser_rgb_objects_audio_flow_launch-whole"
+EVAL_TIMEOUT = 300  # seconds an eval or challenge run may take
+
+
+def _eval_run(workdir, name, overrides):
+    """``python -m afft_tpu_torch.run -c expts/<EVAL_EXPT> -m test`` in
+    ``workdir``; returns the run's ``eval run:`` record."""
+    text, seconds = _logged_run(
+        [sys.executable, "-m", "afft_tpu_torch.run", "-c",
+         os.path.join(EXPTS, EVAL_EXPT), "-m", "test", *LAUNCH_OVERRIDES,
+         *overrides], workdir, name, EVAL_TIMEOUT)
+    lines = [l for l in text.splitlines() if "eval run: " in l]
+    if len(lines) != 1:
+        raise AssertionError(f"{name}: no eval run record\n{text[-4000:]}")
+    run = json.loads(lines[0].split("eval run: ", 1)[1])
+    run["seconds"] = seconds
+    log(f"eval {name}: exit 0 in {seconds:.1f} s on {run['device']}: "
+        f"{run['clips']} clips in {run['batches']} batches, window_ms="
+        f"{run['window_ms']:.3f} clips_per_s={run['clips_per_s']:.1f} "
+        "(valid clips over the window from the first batch's start to the "
+        "last logits read back)")
+    return run
+
+
+def _eval_logits(cfg, dataset, state, impl, dtype):
+    """The eval set's logits through ``Runner.eval_step`` on the card from
+    ``state``, through ``impl`` in ``dtype``."""
+    import torch
+    from afft_tpu_torch.eval import evaluate as PE
+    from afft_tpu_torch.train.runner import Runner
+    classes = {k: len(v) for k, v in dataset.classes.items()}
+    runner = Runner.from_config(cfg, classes, device="cuda", impl=impl,
+                                compute_dtype=dtype,
+                                class_mappings=dataset.class_mappings)
+    runner.load_model_state(state)
+    logits, idx, _ = PE.collect_logits(runner, PE.eval_loader(cfg, dataset,
+                                                              "cuda"))
+    del runner
+    torch.cuda.empty_cache()
+    return torch.from_numpy(logits), idx
+
+
+def phase_eval():
+    """The eval CLI on the launcher's checkpoint (phase 8's uninterrupted
+    run, full width, bf16, the eval set in CUDA memory): ``python -m
+    afft_tpu_torch.run -c expts/98_synth_accept_val.txt -m test`` in the
+    accuracies mode and with ``+save_name`` (the logits file: npz, as this
+    machine has no h5py); the exported logits against the plain path on
+    the same checkpoint (bf16 at 5e-2 of max|logit| with the top-1 form,
+    and the kernels against the plain path in fp32 at 1e-4); the accuracies
+    mode against the challenge's numbers from the exported file; the
+    challenge tool (``python -m afft_tpu_torch.challenge``) packages it; the
+    serving kernels launched 6 times a batch each. Returns (the export
+    run's launches, numbers)."""
+    import numpy as np
+    import torch
+    from afft_tpu_torch import challenge as PCHALLENGE
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.config import read_expt_file
+    from afft_tpu_torch.data.loader import get_dataset
+    from afft_tpu_torch.eval import challenge as PC
+    from afft_tpu_torch.train.checkpoint import load_checkpoint
+    from afft_tpu_torch.train.loop import get_transforms
+
+    workdir = os.path.join(REPO, "build", "launcher")
+    init = f"init_from_model={EVAL_MODEL}/checkpoint_best"
+    accs_run = _eval_run(workdir, "eval-accuracies", (init, "save_name=null"))
+    export = _eval_run(workdir, "eval-export", (init, "save_name=test.h5"))
+    path = export["logits_file"]
+    (res,) = PC.gen_load_resfiles(os.path.dirname(path), "test")
+    exported = torch.from_numpy(res["logits/action_all-fused"])
+    log(f"eval: exported {tuple(exported.shape)} logits to "
+        f"{os.path.relpath(path, REPO)}")
+
+    cfg = serve.load_config(os.path.join(EXPTS, EVAL_EXPT),
+                            (f"cwd={workdir}", init, *LAUNCH_OVERRIDES))
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    batches = export["batches"]
+    _counts_ok("eval export", export["launches"], {
+        "fused_block": depth * batches, "gpt2_attn_half": layers * batches,
+        "gpt2_mlp_half": layers * batches})
+    dataset = get_dataset(cfg.dataset_eval, cfg.data_eval,
+                          get_transforms(cfg, train=False))
+    state = load_checkpoint(os.path.join(workdir, "checkpoints", EVAL_MODEL,
+                                         "checkpoint_best"))["model"]
+    numbers = {}
+    plain, idx = _eval_logits(cfg, dataset, state, "plain", "bfloat16")
+    if not (len(idx) == len(exported) and
+            (idx == np.arange(len(idx))).all()):
+        raise AssertionError("eval: the exported rows are not the eval set "
+                             "in dataset order")
+    for dtype, rel, got in (("bfloat16", 5e-2, exported),
+                            ("float32", 1e-4, None)):
+        if got is None:
+            got = _eval_logits(cfg, dataset, state, "kernel", dtype)[0]
+            plain = _eval_logits(cfg, dataset, state, "plain", dtype)[0]
+        max_abs = (got - plain).abs().max().item()
+        scale = plain.abs().max().item()
+        ok = bool(got.isfinite().all()) and max_abs <= rel * scale
+        text = ""
+        if dtype == "bfloat16":
+            top1_ok, text = top1_report(got, plain, need_decided=False)
+            ok = ok and top1_ok
+        log(f"eval: {dtype} logits of {len(got)} clips, "
+            f"{'the exported file' if dtype == 'bfloat16' else 'kernels'} "
+            f"vs the plain path on the same checkpoint: max_abs_diff="
+            f"{max_abs:.6g} (tol {rel * scale:.6g} = {rel:g} * max|logit| "
+            f"{scale:.4g}) {text}")
+        if not ok:
+            raise AssertionError(f"eval: {dtype} logits disagree with the "
+                                 "plain path's")
+        numbers[f"{dtype}_max_abs_diff"] = max_abs
+    del plain, state
+    torch.cuda.empty_cache()
+
+    # the accuracies mode equals the challenge's numbers from the file
+    overrides = [l for l in read_expt_file(os.path.join(EXPTS, EVAL_EXPT))
+                 if l.startswith("dataset")]
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        ds = PCHALLENGE.get_dataset(overrides, "test")
+    finally:
+        os.chdir(cwd)
+    from_file, _ = PC.marginalize_verb_noun(
+        exported.numpy(), ds, compute_manyshot_unseen_tail=True)
+    accs = accs_run["accuracies"]
+    for k, v in from_file.items():
+        same = (math.isnan(v) and math.isnan(accs[k])) or \
+            abs(accs[k] - v) <= 1e-6 * max(1.0, abs(v))
+        if not same:
+            raise AssertionError(f"eval: the accuracies mode's {k} "
+                                 f"{accs[k]} differs from the file's {v}")
+    _, chall_s = _logged_run(
+        [sys.executable, "-m", "afft_tpu_torch.challenge", "--prefix_h5",
+         "test", "--models", EVAL_MODEL, "--weights", "1", "--override",
+         *overrides], workdir, "challenge", EVAL_TIMEOUT)
+    with open(os.path.join(workdir, "logits", "test.json")) as f:
+        sub = json.load(f)
+    n_total = len(ds) + (0 if ds.discarded_df is None
+                         else len(ds.discarded_df))
+    if len(sub["results"]) != n_total or not os.path.exists(
+            os.path.join(workdir, "logits", "submit.zip")):
+        raise AssertionError("eval: the challenge tool's submission is not "
+                             "whole")
+    keys = ("vtop1", "vtop5", "ntop1", "ntop5", "atop1", "atop5", "amt5r")
+    log(f"eval: accuracies mode = the challenge's numbers from the exported "
+        f"file: {{{', '.join(f'{k}: {accs[k]:.2f}' for k in keys)}}}; "
+        f"the challenge tool packaged {len(sub['results'])} results in "
+        f"{chall_s:.1f} s; serving launches of the export "
+        f"{ {k: n for k, n in export['launches'].items() if n} } = "
+        f"{depth} / {layers} a batch over {batches} batches")
+    numbers.update({
+        "clips": export["clips"], "batches": batches,
+        "clips_per_s_export": export["clips_per_s"],
+        "clips_per_s_accuracies": accs_run["clips_per_s"],
+        "window_ms_export": export["window_ms"],
+        "run_s": {"accuracies": accs_run["seconds"],
+                  "export": export["seconds"], "challenge": chall_s},
+        "accuracies": {k: accs[k] for k in keys}})
+    return export["launches"], numbers
+
+
+# -- data parallelism: torchrun on the card ----------------------------------
+
+DP_GLOBAL_BATCH, DP_STEPS = 64, 3
+DP_CLASSES = {"action": 3806}
+
+
+def _rounded(values, digits=1):
+    return [round(v, digits) for v in values]
+
+
+def _dp_torchrun(nproc, module_args):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}", "-m", *module_args]
+
+
+def phase_dp():
+    """Data parallelism on the one card. (i) ``-n 1`` through torchrun on
+    NCCL: a cut-set epoch (phase 8's host-loader run, data_on_device=false)
+    equals, bit for bit, the one-process run without torchrun (weights and
+    momentum). (ii) two processes on the card over gloo (``--device
+    cuda:0``; NCCL refuses two ranks on one device), 32 clips each, against
+    one process at 64, over the same global batches of the full-width
+    flagship with its dropout, drop-path and mixup: losses within 2e-2
+    relative, the training kernels launched on each rank; before it the
+    training layers at rank 1's row offset against their plain versions
+    and their masks against the one-process masks of those rows, bit for
+    bit. One card measures no multi-GPU scaling: the step times are logged
+    as what they are."""
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.config import read_expt_file
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    from afft_tpu_torch.tools import dp_check as D
+    from afft_tpu_torch.train import optim as O
+    from afft_tpu_torch.train.checkpoint import load_checkpoint
+
+    workdir = os.path.join(REPO, "build", "launcher")
+    expt = os.path.join(EXPTS, LAUNCH_EXPT)
+    cfg = serve.load_config(expt)
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    fuser, common = cfg.model.fuser, cfg.model.common
+    numbers = {}
+
+    # (i) one process through torchrun on NCCL against phase 8's run
+    text, secs = _logged_run(
+        _dp_torchrun(1, ["afft_tpu_torch.train", "--device", "cuda",
+                         *read_expt_file(expt), *LAUNCH_OVERRIDES,
+                         "experiment_name=launch-torchrun",
+                         "train.num_epochs=1", "data_on_device=false"]),
+        workdir, "torchrun-n1", LAUNCH_TIMEOUT)
+    if "process 0 of 1 on cuda:0 (nccl)" not in text:
+        raise AssertionError("dp: torchrun -n 1 did not join an NCCL group")
+    ckpts = os.path.join(workdir, "checkpoints", "CMFPEarly_ModalTokenCMFuser"
+                         "_rgb_objects_audio_flow_")
+    a = load_checkpoint(ckpts + "launch-torchrun/checkpoint_last")
+    b = load_checkpoint(ckpts + "launch-host/checkpoint_last")
+    equal = sum(torch.equal(a["model"][k], v) for k, v in b["model"].items())
+    moms = [(a["optimizer"]["state"][i]["momentum_buffer"],
+             st["momentum_buffer"]) for i, st in b["optimizer"]["state"]
+            .items()]
+    mom_equal = sum(torch.equal(x, y) for x, y in moms)
+    log(f"dp (i): torchrun -n 1 over NCCL, one cut-set epoch in {secs:.1f} "
+        f"s: {equal} of {len(b['model'])} tensors and {mom_equal} of "
+        f"{len(moms)} momentum buffers bit for bit the one-process run's "
+        f"(phase 8, host loader); epoch / step {a['epoch']} / {a['step']} "
+        f"vs {b['epoch']} / {b['step']}")
+    if not (equal == len(b["model"]) and mom_equal == len(moms)
+            and (a["epoch"], a["step"]) == (b["epoch"], b["step"])):
+        raise AssertionError("dp: torchrun -n 1 differs from one process")
+    del a, b, moms
+    numbers["n1_bit_for_bit"] = True
+    numbers["n1_run_s"] = secs
+
+    # the training layers at rank 1's rows of the (ii) global batch
+    half = DP_GLOBAL_BATCH // 2
+    T, C = int(cfg.data_train.num_frames), int(cfg.model.common_dim)
+    n_tokens = len(cfg.model.modal_dims.to_container()) + 1
+    inter = int(common.fp_inter_dim)
+    rates = dict(attn_rate=float(fuser.attn_drop_rate),
+                 drop_rate=float(fuser.drop_rate),
+                 dp_rate=float(fuser.drop_path_rate))
+    g_rates = dict(attn_rate=float(common.attn_pdrop),
+                   resid_rate=float(common.resid_pdrop))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    R = half * T
+    for what, full, part in (
+            ("draw_masks", FT.draw_masks(
+                2 * R, n_tokens, C, int(fuser.num_heads), TRAIN_SEEDS, 5,
+                *rates.values(), device="cuda"),
+             FT.draw_masks(R, n_tokens, C, int(fuser.num_heads), TRAIN_SEEDS,
+                           5, *rates.values(), device="cuda", row0=R)),
+            ("draw_masks_gpt2", FGT.draw_masks_gpt2(
+                2 * half, T, inter, int(common.fp_heads), TRAIN_SEEDS, 3,
+                *g_rates.values(), device="cuda"),
+             FGT.draw_masks_gpt2(half, T, inter, int(common.fp_heads),
+                                 TRAIN_SEEDS, 3, *g_rates.values(),
+                                 device="cuda", row0=half))):
+        for m_full, m_part in zip(full, part):
+            rows = m_part.shape[0]
+            if not torch.equal(m_full[m_full.shape[0] - rows:], m_part):
+                raise AssertionError(f"dp: {what} at a row offset differs "
+                                     "from the one-process masks")
+    for case in (check_train_block("bf16", torch.bfloat16, R, n_tokens, C,
+                                   int(fuser.num_heads), 4 * C, gen,
+                                   rates=rates, row0=R),
+                 check_gpt2_train_layer("bf16", torch.bfloat16, half, T,
+                                        inter, int(common.fp_heads),
+                                        4 * inter, gen, rates=g_rates,
+                                        row0=half)):
+        log(f"dp: {case['what']}: masks bit for bit the one-process "
+            f"masks of those rows; max_abs_err {case['errs']}")
+        del case
+    torch.cuda.empty_cache()
+
+    # (ii) two processes on the one card over gloo against one process
+    sched = O.build_schedule(cfg.opt, 2, 1)
+    job = {"kind": "train", "name": "flagship", "expt": expt,
+           "overrides": list(LAUNCH_OVERRIDES), "classes": DP_CLASSES,
+           "batch": DP_GLOBAL_BATCH, "steps": DP_STEPS, "seed": 9,
+           "lrs": [sched(i, float(cfg.opt.lr)) for i in range(DP_STEPS)],
+           "invalid": [DP_GLOBAL_BATCH - 1], "keep_state": False}
+    out = os.path.join(workdir, "dp-out")
+    spec = os.path.join(workdir, "dp-spec.json")
+    with open(spec, "w") as f:
+        json.dump({"device": "cuda:0", "out": out, "jobs": [job]}, f)
+    _, secs = _logged_run(_dp_torchrun(2, ["afft_tpu_torch.tools.dp_check",
+                                           spec]),
+                          workdir, "dp-gloo", LAUNCH_TIMEOUT)
+    ranks = [torch.load(os.path.join(out, f"flagship.rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    one = D.run_train(job, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(ranks[0]["losses"], one["losses"])):
+        for k, v in want.items():
+            worst = max(worst, abs(got[k] - v) / max(abs(v), 1e-12))
+    expected = {n: depth * DP_STEPS for n, _ in
+                TRAIN_KERNELS["fused_block_train"][:3]}
+    expected.update({n: layers * DP_STEPS for n, _ in
+                     TRAIN_KERNELS["fused_gpt2_train"][:3]})
+    for rec in ranks:
+        _counts_ok(f"dp rank {rec['rank']}", rec["launches"], expected)
+    log(f"dp (ii): 2 processes over gloo on cuda:0, {half} clips each, vs "
+        f"one at {DP_GLOBAL_BATCH}, {DP_STEPS} steps: total loss by step "
+        f"{[round(l['total_loss'], 5) for l in ranks[0]['losses']]} vs "
+        f"{[round(l['total_loss'], 5) for l in one['losses']]}, largest "
+        f"relative difference of any loss {worst:.3g} (tol 2e-2); "
+        f"training launches on each rank {expected}; step ms (host, to "
+        f"the device's end) rank 0 {_rounded(ranks[0]['step_ms'])} rank 1 "
+        f"{_rounded(ranks[1]['step_ms'])}, one process "
+        f"{_rounded(one['step_ms'])}: two processes on one "
+        "card through host copies, not a multi-GPU number")
+    if not worst <= 2e-2:
+        raise AssertionError(f"dp: two processes' losses differ from one "
+                             f"process's by {worst:.3g}")
+    numbers.update({
+        "gloo_two_ranks_run_s": secs, "loss_rel_diff": worst,
+        "step_ms_rank0": ranks[0]["step_ms"],
+        "step_ms_rank1": ranks[1]["step_ms"],
+        "step_ms_one_process": one["step_ms"],
+        "launches_per_rank": expected})
+    return numbers
+
+
 def main():
     try:
         import torch
@@ -3193,19 +3581,29 @@ def main():
         for k in kernels.values():
             k["launcher_launches"] = launcher_launches[k["name"]]
         log(json.dumps({"launcher": launcher_numbers}))
+
+        # 9. eval (the eval CLI on the launcher's checkpoint)
+        eval_launches, eval_numbers = phase_eval()
+        for k in kernels.values():
+            k["eval_launches"] = eval_launches[k["name"]]
+        log(json.dumps({"eval": eval_numbers}))
+
+        # 10. dp (torchrun: -n 1 over NCCL, two processes over gloo)
+        log(json.dumps({"dp": phase_dp()}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 9. report
+    # 11. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
     log(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("main_path", "plain_path_launches",
-                              "launcher_launches") if k in e},
+                              "launcher_launches", "eval_launches")
+            if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
             for label, sub in e.items()
             if isinstance(sub, dict) and label != "redesign"}}

@@ -11,8 +11,9 @@ package's, on the CPU.
   random scores (fp32, 1e-6), and the runner's device accumulator against
   the host meters;
 - the loop's guards: a finished experiment is not rerun without
-  ``train.resume`` / ``+overwrite``, more than one process and ``-m test``
-  raise naming the roadmap;
+  ``train.resume`` / ``+overwrite``; the launcher starts ``-n 2`` through
+  torchrun and ``-m test`` as the eval CLI, and a process count without a
+  rendezvous raises;
 - an epoch's clips/s counts its valid clips over its whole window;
 - the port's accept-set generator writes files byte-identical to
   tools/make_accept_dataset.py's.
@@ -133,15 +134,29 @@ def test_a_finished_experiment_needs_resume_or_overwrite(workdir):
 
 
 def test_more_than_one_process_and_test_mode_raise(workdir, monkeypatch):
+    """Data parallelism and the eval CLI are ported: ``-n 2`` starts two
+    processes through torchrun, ``-m test`` runs the eval CLI. What still
+    raises is a process count without a rendezvous to join."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A\.4"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         PLOOP.main(compose(CONF_DIR, read_expt_file(SMOKE_TRAIN)),
                    device="cpu", interactive=False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A\.4"):
-        RUN.main(["-c", SMOKE_TRAIN, "-m", "train", "-n", "2",
-                  "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A\.3"):
-        RUN.main(["-c", SMOKE_TRAIN, "-m", "test", "--device", "cpu"])
+    monkeypatch.delenv("WORLD_SIZE")
+    calls = []
+    monkeypatch.setattr(RUN.subprocess, "call",
+                        lambda cmd: calls.append(cmd) or 0)
+    assert RUN.main(["-c", SMOKE_TRAIN, "-m", "train", "-n", "2",
+                     "--device", "cpu", "workers=1"]) == 0
+    (cmd,) = calls
+    assert cmd[1:6] == ["-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node=2", "-m"]
+    assert cmd[6:9] == ["afft_tpu_torch.train", "--device", "cpu"]
+    assert cmd[9:] == read_expt_file(SMOKE_TRAIN) + ["workers=1"]
+    import afft_tpu_torch.eval.__main__ as EVAL_MAIN
+    monkeypatch.setattr(EVAL_MAIN, "main", lambda argv: ("eval", argv))
+    assert RUN.main(["-c", SMOKE_TRAIN, "-m", "test", "--device", "cpu"]) \
+        == ("eval", ["--device", "cpu"] + read_expt_file(SMOKE_TRAIN))
 
 
 class _SleepyEvalRunner:
