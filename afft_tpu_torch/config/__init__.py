@@ -17,3 +17,12 @@ def read_expt_file(path):
             if args:
                 res.append(args)
     return res
+
+
+def expt_lines_without(path, prefixes):
+    """``read_expt_file(path)`` without the lines that start with one of
+    ``prefixes``: the keys that another choice of module does not take
+    (MATT takes none of a block fuser's ``model.fuser.*``, the CA-Fuser
+    no ``model.fuser.depth``)."""
+    prefixes = tuple(prefixes)
+    return [ln for ln in read_expt_file(path) if not ln.startswith(prefixes)]

@@ -24,12 +24,23 @@ _ALIASES: Dict[str, str] = {
         "afft_tpu_torch.models.fusion:TemporalCMFuser",
     "models.fusion.TemporalCrossAttentFuser":
         "afft_tpu_torch.models.fusion:TemporalCrossAttentFuser",
+    "models.fusion.MATT": "afft_tpu_torch.models.fusion:MATT",
     "models.future_prediction.CMFPEarly":
         "afft_tpu_torch.models.cmfp:CMFPEarly",
+    "models.future_prediction.IndividualFuturePrediction":
+        "afft_tpu_torch.models.cmfp:IndividualFuturePrediction",
+    "models.future_prediction.CMFPScoreFusion":
+        "afft_tpu_torch.models.cmfp:CMFPScoreFusion",
     "models.future_prediction.BaseFuturePredictor":
         "afft_tpu_torch.models.predictor:BaseFuturePredictor",
     "models.feature_mapping.Linear":
         "afft_tpu_torch.models.mapping:LinearMapping",
+    "models.feature_mapping.GatedLinear":
+        "afft_tpu_torch.models.mapping:GatedLinearMapping",
+    "models.feature_mapping.NonLinear":
+        "afft_tpu_torch.models.mapping:NonLinearMapping",
+    "models.feature_mapping.GatedEmbeddingUnit":
+        "afft_tpu_torch.models.mapping:GatedEmbeddingUnit",
     "torch.nn.Identity": "afft_tpu_torch.models.backbones:Identity",
     # data layer (reference datasets/*)
     "datasets.epic_kitchens.EPICKitchens": "afft_tpu_torch.data.epic:EPICKitchens",

@@ -104,9 +104,12 @@ def store_append(endpoints, output_dir, save_file_name):
 
 def action_head(runner) -> str:
     """The head whose logits the eval reports (``Runner.eval_step``'s):
-    the fused one, else the first."""
-    heads = runner.model.future_predictor.classifier_keys.get(
-        "action", ["all-fused"])
+    the fused one, else the first (afft_tpu/eval/evaluate.py:53-54), of the
+    heads the model's ``logits/action`` holds (score fusion: the fused
+    head alone)."""
+    cmfp = runner.model.future_predictor
+    heads = (cmfp.logit_heads("action") if "action" in cmfp.num_classes
+             else ["all-fused"])
     return "all-fused" if "all-fused" in heads else heads[0]
 
 

@@ -8,9 +8,13 @@ Port of afft_tpu/models/fusion.py (reference models/fusion.py):
 - ``TemporalCMFuser`` (T-SA-Fuser, :121-215): joint temporal and modal
   attention over (B, n*T, C) with a causal mask tiled over the modalities;
 - ``TemporalCrossAttentFuser`` (CA-Fuser, :218-270): the first modality is
-  the query stream; decoder block i cross-attends into modality i + 1.
+  the query stream; decoder block i cross-attends into modality i + 1;
+- ``MATT`` (:35-58, RULSTM's modality attention): an MLP over the
+  concatenated modalities, softmax over them; the score-fusion CMFP's
+  weights.
 State-dict names are the reference's: ``blocks.N.*``, ``norm``,
-``modal_token``, ``modality_embedding``, ``position_embeddings.weight``.
+``modal_token``, ``modality_embedding``, ``position_embeddings.weight``,
+``matt.0`` / ``matt.3`` / ``matt.6``.
 
 Without attention weights, each block of a stack runs as a kernel of
 ``ops`` (the CUDA kernel on a CUDA tensor, its plain version on a CPU
@@ -23,8 +27,14 @@ backward CUDA kernels under autograd; its plain version on a CPU tensor):
 one pair of seed words per stack call, the block's position as its block
 index, the drop-path rate rising linearly over the stack, the final norm
 outside (afft_tpu/models/fusion.py:65-90). With attention weights asked
-for, the blocks run as modules. Training the T-SA-Fuser and the CA-Fuser is
-not ported (ROADMAP.md §A.5) and raises.
+for, the blocks run as modules. The T-SA-Fuser's sequences are longer than
+that kernel takes: its blocks train as modules under autograd (the XLA
+branch of the JAX stack, :120-129), their attention through
+``layers.attention``, so row 4's kernel runs where no attention
+dropout is in force. The CA-Fuser trains its decoder blocks as modules the
+same way (:346-409). Every dropout and drop-path draws through
+``layers.dropout`` / ``layers.drop_path`` (the global batch's rows under
+data parallelism).
 """
 
 from __future__ import annotations
@@ -71,18 +81,19 @@ class _BlockStack(nn.Module):
         L.init_layer_norm(self.norm)
 
     def _train_stack(self, x, mask, impl, rng):
-        """The training dispatch: every block through ``fused_block_train``
-        (``impl="plain"``: its plain version on masks from ``draw_masks``,
-        which are the kernels' own)."""
+        """The training dispatch: rows of up to 8 tokens through
+        ``fused_block_train`` (``impl="plain"``: its plain version on masks
+        from ``draw_masks``, which are the kernels' own); longer sequences
+        (the T-SA-Fuser) through the blocks as modules under autograd."""
         R, N, C = x.shape
-        if N > FB.MAX_TOKENS:
-            raise NotImplementedError(
-                f"training a fuser over sequences of {N} tokens (the "
-                "T-SA-Fuser) is not ported (ROADMAP.md §A.5)")
         rates = (self.attn_drop_rate, self.drop_rate)
         if rng is None and (any(rates) or any(self.dpr)):
             raise ValueError("training with a dropout or drop-path rate > 0 "
                              "needs an RngStream")
+        if N > FB.MAX_TOKENS:
+            for blk in self.blocks:
+                x, _ = blk(x, mask, rng=rng, need_weights=False, impl=impl)
+            return self.norm(x), None
         seeds = (0, 0) if rng is None else rng.seed_words()
         row0 = 0 if rng is None else rng.row_offset(R)
         for bi, (blk, dp) in enumerate(zip(self.blocks, self.dpr)):
@@ -107,7 +118,7 @@ class _BlockStack(nn.Module):
         Rows of up to 8 tokens (the per-timestep fusers) go through
         ``fused_block``, longer sequences (the T-SA-Fuser) through
         ``fused_seq_block``, as the JAX package dispatches them; in
-        training mode through ``fused_block_train``."""
+        training mode as ``_train_stack`` dispatches them."""
         check_impl(impl)
         if need_weights:
             weights = []
@@ -245,10 +256,11 @@ class TemporalCMFuser(_BlockStack):
                  modalities=None, modal_encoding=True,
                  frame_level_token=False, temporal_sequence_length=None,
                  max_position_embeddings=64, **_ignored):
-        # dropout rates and drop-path are training-time only
-        del qk_scale, embd_drop_rate, drop_rate, attn_drop_rate, \
-            drop_path_rate
-        super().__init__(dim, depth, num_heads, mlp_ratio, qkv_bias)
+        del qk_scale
+        super().__init__(dim, depth, num_heads, mlp_ratio, qkv_bias,
+                         drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
+                         drop_path_rate=drop_path_rate)
+        self.embd_drop_rate = embd_drop_rate
         self.num_mods = len(modalities) + (1 if frame_level_token else 0)
         self.modal_encoding = modal_encoding
         self.frame_level_token = frame_level_token
@@ -276,11 +288,6 @@ class TemporalCMFuser(_BlockStack):
                 impl="kernel", rng=None):
         """{mod: (B, T, C)} -> (fused (B, T, C), weights (B, depth, H, n*T,
         n*T) or None)."""
-        del rng
-        if self.training:
-            raise NotImplementedError(
-                "training the T-SA-Fuser is not ported (ROADMAP.md §A.5): "
-                "call .eval() to run the inference path")
         Bsz, T, C = _same_shape(modal_feats)
         n = self.num_mods
         x = torch.cat([modal_feats[m] for m in feats_order], dim=1)
@@ -299,8 +306,9 @@ class TemporalCMFuser(_BlockStack):
         if self.modal_encoding:
             x = x + self.modality_embedding.repeat_interleave(T, dim=0)
         mask = L.neg_inf_causal_mask(T, device=x.device).repeat(n, n)
+        x = L.dropout(x, self.embd_drop_rate, self.training, rng)
         x, weights = self.run_stack(x, mask, need_weights=need_weights,
-                                    impl=impl)
+                                    impl=impl, rng=rng)
         if self.frame_level_token:
             fused = x[:, :T, :]
         else:  # mean over the modality copies of each frame slot
@@ -320,15 +328,18 @@ class TemporalCrossAttentFuser(nn.Module):
                  qkv_bias=False, qk_scale=None, embd_drop_rate=0.0,
                  drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.0,
                  max_position_embeddings=128, **_ignored):
-        # dropout rates and drop-path are training-time only
-        del qk_scale, embd_drop_rate, drop_rate, attn_drop_rate, \
-            drop_path_rate
+        del qk_scale
         super().__init__()
         self.num_heads = num_heads
+        self.embd_drop_rate = embd_drop_rate
+        self.drop_rate = drop_rate
+        self.attn_drop_rate = attn_drop_rate
+        self.dpr = L.drop_path_schedule(drop_path_rate, len(modalities) - 1)
         self.blocks = nn.ModuleList([
             DecoderBlock(dim, None, num_heads, mlp_ratio, qkv_bias,
-                         norm_eps=self.NORM_EPS)
-            for _ in range(len(modalities) - 1)])
+                         norm_eps=self.NORM_EPS, drop=drop_rate,
+                         attn_drop=attn_drop_rate, drop_path=dp)
+            for dp in self.dpr])
         self.norm = nn.LayerNorm(dim, eps=self.NORM_EPS)
         self.position_embeddings = nn.Embedding(max_position_embeddings, dim)
 
@@ -340,17 +351,55 @@ class TemporalCrossAttentFuser(nn.Module):
 
     def forward(self, modal_feats, feats_order, *, need_weights=False,
                 impl="kernel", rng=None):
-        """{mod: (B, T, C)} -> (fused (B, T, C), zeros (B,))."""
-        del need_weights, rng  # the decoder blocks return no weights
+        """{mod: (B, T, C)} -> (fused (B, T, C), zeros (B,)). In training
+        mode the embedding dropout falls on every stream and the decoder
+        blocks run their training path."""
+        del need_weights  # the decoder blocks return no weights
         check_impl(impl)
-        if self.training:
-            raise NotImplementedError(
-                "training the CA-Fuser is not ported (ROADMAP.md §A.5): "
-                "call .eval() to run the inference path")
         Bsz, T, C = _same_shape(modal_feats)
         pos = self.position_embeddings.weight[:T]
-        x, *mems = [modal_feats[m] + pos for m in feats_order]
+        x, *mems = [L.dropout(modal_feats[m] + pos, self.embd_drop_rate,
+                              self.training, rng) for m in feats_order]
         mask = L.neg_inf_causal_mask(T, device=x.device)
+        if self.training and rng is None and (
+                self.drop_rate or self.attn_drop_rate or any(self.dpr)):
+            raise ValueError("training with a dropout or drop-path rate > 0 "
+                             "needs an RngStream")
         for blk, mem in zip(self.blocks, mems):
-            x = blk(x, mem, mask, impl=impl)
+            x = blk(x, mem, mask, impl=impl, rng=rng)
         return self.norm(x), x.new_zeros((Bsz,))
+
+
+class MATT(nn.Module):
+    """RULSTM modality attention: Linear -> ReLU -> Dropout -> Linear ->
+    ReLU -> Dropout -> Linear over the concatenated modalities (widths
+    in, in / 4, in / 8, n), softmax over the modalities. ``in`` is
+    ``dim * n`` when ``dim`` is set, else the sum of the modality widths.
+    The Sequential keeps the reference's indices (``matt.0``, ``matt.3``,
+    ``matt.6``); the two dropouts draw from the step's ``RngStream``."""
+
+    def __init__(self, modal_dims, dim=None, drop_rate=0.8, **_ignored):
+        super().__init__()
+        n = len(modal_dims)
+        in_size = dim * n if dim else sum(int(d) for d in
+                                          modal_dims.values())
+        self.num_modality = n
+        self.drop_rate = drop_rate
+        self.matt = nn.Sequential(
+            nn.Linear(in_size, in_size // 4), nn.ReLU(), nn.Identity(),
+            nn.Linear(in_size // 4, in_size // 8), nn.ReLU(), nn.Identity(),
+            nn.Linear(in_size // 8, n))
+
+    def reset_parameters(self, gen):
+        for i in (0, 3, 6):
+            L.init_torch_linear(self.matt[i], gen)
+
+    def forward(self, modal_feats, feats_order, *, impl="kernel", rng=None):
+        """{mod: (B, T, C_mod)} -> modality weights (B, T, n), in
+        ``feats_order``."""
+        del impl  # no kernel: the JAX package runs XLA here
+        x = torch.cat([modal_feats[m] for m in feats_order], dim=2)
+        for i in (0, 3):
+            x = L.dropout(torch.relu(self.matt[i](x)), self.drop_rate,
+                          self.training, rng)
+        return self.matt[6](x).softmax(dim=-1)

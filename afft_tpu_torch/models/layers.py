@@ -1,6 +1,8 @@
 """Primitives shared by the port's modules: the additive attention masks,
-dropout and drop-path with an explicit generator, the cross-attention layer
-and seeded initialisers.
+dropout and drop-path with an explicit generator, the fusers' attention
+site (``attention``: row 4's kernel under autograd where the JAX package
+takes its Pallas kernel, the plain arithmetic elsewhere), the
+cross-attention layer and seeded initialisers.
 
 The modules build their LayerNorms with an explicit eps (1e-6 in the fuser,
 1e-5 in the GPT-2 predictor); the GELUs (exact erf in the fuser MLP, tanh
@@ -16,7 +18,7 @@ import math
 import torch
 import torch.nn as nn
 
-from ..ops.attention import multihead_attention
+from ..ops import attention as FA
 
 
 def neg_inf_causal_mask(sz: int, dtype=torch.float32, device=None):
@@ -109,18 +111,43 @@ def drop_path_schedule(drop_path_rate: float, depth: int):
     return [drop_path_rate * i / (depth - 1) for i in range(depth)]
 
 
+def attention(q, k, v, mask=None, *, attn_drop=0.0, train=False, rng=None,
+              return_weights=False, impl="kernel"):
+    """An attention site of the fusers: q (B, Nq, H, hd), k, v (B, Nk, H,
+    hd) -> (out (B, Nq, H, hd), weights (B, H, Nq, Nk) after their dropout,
+    or None). Where the JAX package takes its Pallas kernel
+    (``ops.attention.uses_kernel``) this is ``ops.attention``'s
+    ``multihead_attention``: the differentiable ``FusedAttentionFn``
+    (``impl="plain"``: the kernel's plain version, for the comparison on
+    the card); elsewhere the plain arithmetic of the fuser's attention under
+    autograd: scores in the operands' dtype, the fp32 mask promoting them,
+    softmax, the weights' dropout drawn here."""
+    if FA.uses_kernel(attn_drop=attn_drop, train=train,
+                      return_weights=return_weights):
+        return FA.multihead_attention(q, k, v, mask, impl=impl)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    weights = (q @ k.transpose(-2, -1)) * (q.shape[-1] ** -0.5)
+    if mask is not None:
+        weights = weights + mask
+    weights = dropout(weights.softmax(dim=-1), attn_drop, train, rng)
+    out = (weights.to(v.dtype) @ v).permute(0, 2, 1, 3)
+    return out, (weights if return_weights else None)
+
+
 class CrossAttention(nn.Module):
     """Attention of x (B, N, C) into a memory stream mem (B, M, C) through
     separate projections ``w_q``, ``w_k``, ``w_v`` and ``proj`` (port of
     afft_tpu/models/blocks.py cross_attention_init / cross_attention_apply;
-    reference models/transformerblock.py CrossAttention). The attention
-    itself is ``ops.attention.multihead_attention``: the CUDA kernel on
-    CUDA tensors, its plain version on CPU tensors. Eval mode only.
+    reference models/transformerblock.py CrossAttention). The attention is
+    ``attention``: ``fused_attention`` (the CUDA kernel on CUDA tensors,
+    its plain version on CPU tensors) unless attention dropout is in force;
+    in training mode under autograd, with the dropouts of
+    ``cross_attention_apply`` (:60-76): on the attention weights and on the
+    projected output.
 
     This is the general layer: mem may have another length and width than
-    x. The DecoderBlock holds one for its parameters and runs
-    ``ops.fused_decoder_block`` on them, so no served model calls this
-    forward; it stands for callers with unequal streams."""
+    x. In eval mode the DecoderBlock runs ``ops.fused_decoder_block`` on
+    this layer's parameters; its training path calls this forward."""
 
     def __init__(self, dim, num_heads, mem_dim=None, qkv_bias=False):
         super().__init__()
@@ -135,15 +162,18 @@ class CrossAttention(nn.Module):
         for lin in (self.w_q, self.w_k, self.w_v, self.proj):
             init_normal_linear(lin.weight, lin.bias, 0.02, gen)
 
-    def forward(self, x, mem, mask=None):
+    def forward(self, x, mem, mask=None, *, attn_drop=0.0, proj_drop=0.0,
+                rng=None, impl="kernel"):
         B, N, C = x.shape
         M = mem.shape[1]
         hd = C // self.num_heads
         q = self.w_q(x).reshape(B, N, self.num_heads, hd)
         k = self.w_k(mem).reshape(B, M, self.num_heads, hd)
         v = self.w_v(mem).reshape(B, M, self.num_heads, hd)
-        out, _ = multihead_attention(q, k, v, mask)
-        return self.proj(out.reshape(B, N, C))
+        out, _ = attention(q, k, v, mask, attn_drop=attn_drop,
+                           train=self.training, rng=rng, impl=impl)
+        out = self.proj(out.reshape(B, N, C))
+        return dropout(out, proj_drop, self.training, rng)
 
 
 # -- seeded initialisers ------------------------------------------------------

@@ -33,6 +33,18 @@ so what lies there does not reach the result; a query whose keys are all
 masked gets zeros from the kernel (NaN from the plain version, as from the
 JAX package), so every row should keep one finite entry. A CUDA operand
 the kernel does not take raises; nothing falls back.
+
+Training (``uses_kernel``, the counterpart of the dispatch of
+``afft_tpu/ops/attention.py:85-108``): a site that asks for no weights and
+has no attention dropout in force (rate 0, or eval mode) runs
+``FusedAttentionFn``, an autograd Function whose forward is
+``fused_attention`` (the kernel on CUDA tensors, within its limits or
+raising) and whose backward is the plain formula recomputed in fp32 from
+q, k, v and the mask under autograd, as ``_fused_attention_ad``'s VJP runs
+the XLA formula (:60-82). ``multihead_attention`` is the dispatch; the
+fusers' ``models.layers.attention`` runs its plain arithmetic (the weights'
+dropout) where ``uses_kernel`` says no. The bare kernel keeps refusing
+operands that require a gradient.
 """
 
 from __future__ import annotations
@@ -110,11 +122,47 @@ def fused_attention(q, k, v, mask=None):
     return out
 
 
-def multihead_attention(q, k, v, mask=None, *, return_weights=False):
-    """(out, weights or None): the kernel path, or the plain version when
-    the caller asks for the weights, which the kernel never forms."""
-    if return_weights:
+def multihead_attention(q, k, v, mask=None, *, return_weights=False,
+                        impl="kernel"):
+    """(out, weights or None): the plain version when the caller asks for
+    the weights, which the kernel never forms; else ``FusedAttentionFn``
+    (the kernel, differentiable; ``impl="plain"``: the kernel's plain
+    version). A site with attention dropout in force asks
+    ``uses_kernel`` first and runs its own arithmetic where it says no."""
+    if not uses_kernel(return_weights=return_weights):
         _check("multihead_attention", q, k, v)
         PLAIN_WEIGHTS_CALLS["attention_weights"] += 1
         return attention_plain(q, k, v, mask, return_weights=True)
-    return fused_attention(q, k, v, mask), None
+    if impl == "plain":
+        return attention_plain(q, k, v, mask)[0], None
+    return FusedAttentionFn.apply(q, k, v, mask), None
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """``fused_attention`` forward; the backward recomputes the plain
+    formula in fp32 from the saved q, k, v and mask and differentiates it
+    (the mask gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return fused_attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            q32, k32, v32 = (t.permute(0, 2, 1, 3) for t in ins)
+            out, _ = softmax_attention32(q32, k32, v32, mask)
+            grads = torch.autograd.grad(out.permute(0, 2, 1, 3), ins,
+                                        g.float())
+        return (*(d.to(t.dtype) for d, t in zip(grads, (q, k, v))), None)
+
+
+def uses_kernel(*, attn_drop=0.0, train=False, return_weights=False) -> bool:
+    """Where an attention site takes ``FusedAttentionFn``: no weights asked
+    for and no attention dropout in force (JAX's ``needs_fallback`` without
+    its platform and Pallas shape terms; beyond this kernel's limits it
+    raises, as every kernel of the port does)."""
+    return not return_weights and not (train and attn_drop > 0.0)

@@ -10,7 +10,10 @@ of afft_tpu (train/torch_export.py ``export_base_model``):
 - the GPT-2 Conv1D weights stay (in, out), but the JAX ``c_attn`` packs qkv
   heads-major, [h0: (q, k, v), h1: ...]; HF and the port pack [q | k | v]
   with heads minor, so ``c_attn`` is re-interleaved;
-- one shared classifier appears under every head key.
+- one shared classifier appears under every head key;
+- every CMFP (early, individual, score fusion), fuser (MATT included) and
+  mapping (linear, gated linear, non-linear, gated embedding unit) is
+  carried name for name as ``torch_export.export_cmfp`` writes it.
 
 ``grads_from_jax`` carries a JAX gradient pytree the same way (the tests
 compare gradients with it). ``load_reference_checkpoint`` reads a reference
@@ -112,6 +115,11 @@ def fuser_from_jax(fuser, p, prefix="") -> Dict[str, torch.Tensor]:
     """A JAX fuser's parameters -> the port fuser's state dict (after
     torch_export.export_fuser)."""
     from .models import fusion as F
+    if isinstance(fuser, F.MATT):
+        out = {}
+        for i, name in ((0, "fc1"), (3, "fc2"), (6, "fc3")):
+            _lin(out, _join(prefix, f"matt.{i}"), p[name])
+        return _tensors(out)
     if not isinstance(fuser, (F.ModalTokenCMFuser, F.CMFuser,
                               F.TemporalCMFuser,
                               F.TemporalCrossAttentFuser)):
@@ -144,36 +152,71 @@ def _gpt2_from_jax(p, n_head, prefix):
     return out
 
 
+def mapping_from_jax(mapping, p, prefix="") -> Dict[str, torch.Tensor]:
+    """A JAX mapping's parameters -> the port mapping's state dict (after
+    torch_export.export_mapping)."""
+    from .models import mapping as M
+    out = {}
+    if isinstance(mapping, M.LinearMapping):
+        if not mapping.identity:
+            _lin(out, _join(prefix, "mapping.0"), p["fc"])
+        if mapping.use_layernorm:
+            _ln(out, _join(prefix, "mapping.1"), p["ln"])
+    elif isinstance(mapping, M.GatedEmbeddingUnit):
+        _lin(out, _join(prefix, "fc"), p["fc"])
+        _lin(out, _join(prefix, "cg.fc"), p["cg"]["fc"])
+    elif isinstance(mapping, (M.GatedLinearMapping, M.NonLinearMapping)):
+        _lin(out, _join(prefix, "mapping.0"), p["fc"])
+        if isinstance(mapping, M.GatedLinearMapping):
+            _lin(out, _join(prefix, "mapping.1.fc"), p["cg"]["fc"])
+        if mapping.use_layernorm:
+            _ln(out, _join(prefix, "mapping.2"), p["ln"])
+    else:
+        raise ValueError(f"mapping {type(mapping).__name__} is not ported")
+    return _tensors(out)
+
+
+def cmfp_from_jax(cmfp, p, prefix="") -> Dict[str, torch.Tensor]:
+    """A JAX CMFP's parameters -> the port CMFP's state dict (after
+    torch_export.export_cmfp)."""
+    from .models.cmfp import CMFPEarly
+    out, flat = {}, {}
+    if cmfp.uses_mapping:
+        for modk, mapping in cmfp.mapping.items():
+            out.update(mapping_from_jax(mapping, p["mapping"][modk],
+                                        _join(prefix, f"mapping.{modk}")))
+    if cmfp.uses_fuser:
+        out.update(fuser_from_jax(cmfp.fuser, p["fuser"],
+                                  _join(prefix, "fuser")))
+    for name in ("dim_encoder", "dim_decoder"):
+        codecs = ({"": p[name]} if isinstance(cmfp, CMFPEarly)
+                  else {f".{m}": c for m, c in p[name].items()})
+        for key, codec in codecs.items():
+            if codec is not None:
+                flat[_join(prefix, f"{name}{key}.weight")] = \
+                    _np(codec["w"]).T
+    preds = p["future_predictor"]
+    n_head = next(iter(cmfp.predictors().values())).n_head
+    for name, pred in preds.items():
+        sub = "future_predictor" if name == "shared" \
+            else f"future_predictor.{name}"
+        out.update(_gpt2_from_jax(pred, n_head, _join(prefix, sub)))
+    for cls_type, heads in p["classifiers"].items():
+        for headk in cmfp.classifier_keys[cls_type]:
+            _lin(flat, _join(prefix, f"classifiers.{cls_type}.{headk}.1"),
+                 heads["shared"] if cmfp.common_classifier
+                 else heads[headk])
+    out.update(_tensors(flat))
+    return out
+
+
 def state_dict_from_jax(model, params) -> Dict[str, torch.Tensor]:
     """JAX BaseModel params (numpy leaves) -> the port BaseModel's state
     dict, in the reference layout of ``torch_export.export_base_model``."""
-    from .models.cmfp import CMFPEarly
-    cmfp = model.future_predictor
-    if not isinstance(cmfp, CMFPEarly):
-        raise ValueError(f"CMFP {type(cmfp).__name__} is not ported")
-    p = params["future_predictor"]
-    pre = "future_predictor"
-    out, flat = {}, {}
-    for modk, mapping in cmfp.mapping.items():
-        mp = p["mapping"][modk]
-        if not mapping.identity:
-            _lin(flat, f"{pre}.mapping.{modk}.mapping.0", mp["fc"])
-        if mapping.use_layernorm:
-            _ln(flat, f"{pre}.mapping.{modk}.mapping.1", mp["ln"])
-    out.update(fuser_from_jax(cmfp.fuser, p["fuser"], f"{pre}.fuser"))
-    for name in ("dim_encoder", "dim_decoder"):
-        if p[name] is not None:
-            flat[f"{pre}.{name}.weight"] = _np(p[name]["w"]).T
-    out.update(_gpt2_from_jax(p["future_predictor"]["shared"],
-                              cmfp.future_predictor.n_head,
-                              f"{pre}.future_predictor"))
-    for cls_type, heads in p["classifiers"].items():
-        for headk in cmfp.classifier_keys[cls_type]:
-            _lin(flat, f"{pre}.classifiers.{cls_type}.{headk}.1",
-                 heads["shared"])
-    for k, v in params.get("buffers", {}).items():
-        flat[k] = _np(v)
-    out.update(_tensors(flat))
+    out = cmfp_from_jax(model.future_predictor, params["future_predictor"],
+                        "future_predictor")
+    out.update(_tensors({k: _np(v) for k, v in
+                         params.get("buffers", {}).items()}))
     return out
 
 

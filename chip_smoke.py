@@ -123,8 +123,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                layers at the launcher's own shapes (bf16, batch 64: the
                fuser at 1024 rows of 5 tokens, the GPT-2 layer at (64, 16,
                2048)) against their plain versions; validation runs the
-               serving kernels at batch 256, phase 4's shapes. Then two
-               epochs, resumed for a third, and three in one run, the
+               serving kernels at batch 256, phase 4's shapes. Then one
+               epoch, resumed for a second, and two in one run, the
                features in CUDA memory (data_on_device), and one epoch
                from the host loader (data_on_device=false: pinned
                batches). Each run exits 0, the uninterrupted one with a
@@ -162,7 +162,32 @@ Phases, in order; any failure exits non-zero and prints no result:
                flagship: losses within 2e-2 relative, the training kernels
                launched on each rank, step times logged (one card: no
                multi-GPU number);
- 11. report  - one JSON line of per-kernel numbers, then the result line.
+ 11. variants - the variant models at full width: expts 00
+               (IndividualFuturePrediction, one GPT-2 predictor) and 05
+               (CMFPScoreFusion with MATT, four predictors) served through
+               Server.answer at batch 256 bf16 (6 / 24 launches of each
+               GPT-2 half and nothing else; logits against the plain path
+               as phase 5's); expts 00, 03 (T-SA-Fuser), 04 (CA-Fuser) and
+               05 trained at their rates through Runner.train_step: two
+               fp32 steps at batch 8 through the kernels against two
+               through the plain versions on the same masks (gradients
+               within 1e-4 of max|grad| per tensor), the kernels of the
+               bf16 steps at their own shapes against their plain versions
+               first (the GPT-2 training layer at (64, 10, 2048) with the
+               expts' rates; fused_attention and its training route at the
+               T-SA and CA attention sites), then ten bf16 steps at
+               batch 64 over fp32 masters with every step's launches
+               asserted (6 / 24 of each GPT-2 training entry, 0 of every
+               other kernel) and a falling loss; 03 and 04 again at
+               attention dropout 0, where the fuser's attention runs
+               fused_attention under autograd (6 launches a step), then
+               timed in turns against the same sites forced onto the plain
+               ops under autograd; expt
+               05's model through the launcher for one epoch on phase 8's
+               cut accept set, then -m test on its checkpoint, which
+               reloads with its logits through the kernels against the
+               plain path (variants_launches in the kernels line);
+ 12. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -2331,9 +2356,11 @@ def serve_path(label, expt, overrides, expected_fn):
     server = serve.Server(cfg, num_classes, "bfloat16", "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in server.model.parameters())
-    fuser = server.model.future_predictor.fuser
+    cmfp = server.model.future_predictor
+    fuser = getattr(cmfp, "fuser", None)
     log(f"serve {label}: {expt} {overrides} built in "
-        f"{time.perf_counter() - t0:.2f} s, {type(fuser).__name__}, "
+        f"{time.perf_counter() - t0:.2f} s, {type(cmfp).__name__} + "
+        f"{type(fuser).__name__}, {len(cmfp.predictors())} predictor(s), "
         f"{n_params / 1e6:.1f} M params, T={T}, output_len={out_len}, bf16, "
         f"weights {server.weights_source}")
     requests = serve.random_requests(modal_dims, T, SERVE_BATCH,
@@ -2345,7 +2372,7 @@ def serve_path(label, expt, overrides, expected_fn):
     torch.cuda.synchronize()
     launches = launch_counts()
     expected = dict.fromkeys(launches, 0)
-    expected.update(expected_fn(len(fuser.blocks),
+    expected.update(expected_fn(len(getattr(fuser, "blocks", ())),
                                 int(cfg.model.common.fp_layers),
                                 len(modal_dims)))
     log(f"serve {label}: {len(answers)} requests answered, launches "
@@ -2849,7 +2876,9 @@ LAUNCH_EXPT = "98_synth_accept_train.txt"
 # the accept set at full widths (rgb 1024 / objects 352 / audio 1024 / flow
 # 1024, T 16, 3,806 actions, 64 active), cut to fewer videos and clips
 LAUNCH_SET = {"n_train_videos": 16, "n_val_videos": 1, "clips_per_video": 128}
-LAUNCH_EPOCHS = 3      # 2, then resumed for the third; and 3 in one run
+# 1, then resumed for the second; and 2 in one run (3 before the variants
+# phase joined the smoke: cut to keep the whole near 600 s)
+LAUNCH_EPOCHS = 2
 LAUNCH_TIMEOUT = 600   # seconds a launcher run may take
 LAUNCH_OVERRIDES = ("workers=4", "use_wandb=false")
 BARE_STEPS = 20
@@ -2948,13 +2977,58 @@ def _launch_counts_ok(name, run, depth, layers):
     return {k: n for k, n in run["launches"].items() if n}
 
 
+def _checkpoint_logits_ok(cfg, num_classes, state, where, seed=5):
+    """A reloaded checkpoint's logits through the kernels against the plain
+    path on seeded features of the expt's shape: bf16 at the eval batch as
+    validation runs it (5e-2 of max|logit| and the top-1 form; a model
+    trained to chance gives near-flat logits, most rows ties at bf16's
+    resolution, so the decided rows are few and their share is not asked
+    for), and fp32 at FP32_BATCH (1e-4: only the summation order differs,
+    the sharp check)."""
+    import torch
+    from afft_tpu_torch import serve
+    eval_batch = int(cfg.eval.batch_size)
+    T = int(cfg.data_eval.num_frames)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    val_feats = {m: torch.randn(eval_batch, T, int(v), generator=gen,
+                                device="cuda")
+                 for m, v in cfg.model.modal_dims.to_container().items()}
+    for dtype, n, rel in (("bfloat16", eval_batch, 5e-2),
+                          ("float32", FP32_BATCH, 1e-4)):
+        server = serve.Server(cfg, num_classes, dtype, "cuda",
+                              weights=state)
+        feats = server.to_device({m: v[:n] for m, v in val_feats.items()})
+        with torch.no_grad():
+            logits = server.head_logits(server.model(feats))
+            plain = server.head_logits(server.model(feats, impl="plain"))
+        max_abs = (logits - plain).abs().max().item()
+        scale = plain.abs().max().item()
+        ok = bool(logits.isfinite().all()) and max_abs <= rel * scale
+        agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean()
+        text = f"top1_agree={agree.item():.4f}"
+        if dtype == "bfloat16":
+            top1_ok, text = top1_report(logits, plain, need_decided=False)
+            ok = ok and top1_ok
+        log(f"launcher: {where} reloads; {dtype} B={n} logits through "
+            f"the kernels vs the plain path: max_abs_diff={max_abs:.6g} "
+            f"(tol {rel * scale:.6g} = {rel:g} * max|logit| "
+            f"{scale:.4g}); {text}")
+        if not ok:
+            raise AssertionError(f"launcher: {where}: the kernels' "
+                                 f"{dtype} logits disagree with the "
+                                 "plain path's")
+        del server, feats
+    torch.cuda.empty_cache()
+
+
 def phase_launcher():
     """The port's own entry point trains the full-width flagship on a
     cut-down accept set: the port's generator writes the set, the training
     layers are held against their plain versions at the launcher's shapes,
     then ``python -m afft_tpu_torch.run -c expts/98_synth_accept_train.txt
-    -m train`` runs as a subprocess for two epochs, again with
-    train.resume=true for a third, once for three epochs in one run (with a
+    -m train`` runs as a subprocess for one epoch, again with
+    train.resume=true for a second, once for two epochs in one run (with a
     turn of the bare Runner.train_step at the same batch just before and
     one just after it), and for one epoch from the host loader
     (data_on_device=false). Asserted: exit 0, a finite loss that falls,
@@ -3076,43 +3150,9 @@ def phase_launcher():
                     (whole_dir, "checkpoint_last"),
                     (part_dir, "checkpoint_last")):
         ckpts[(d, name)] = load_checkpoint(os.path.join(d, name))
-    eval_batch = int(cfg.eval.batch_size)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    val_feats = {m: torch.randn(eval_batch, T, int(v), generator=gen,
-                                device="cuda")
-                 for m, v in cfg.model.modal_dims.to_container().items()}
     for (d, name), ck in ckpts.items():
-        where = f"{os.path.basename(d)}/{name}"
-        # bf16 as validation runs it. A model trained to chance gives
-        # near-flat logits, most rows ties at bf16's resolution, so the
-        # decided rows are few and their share is not asked for here; fp32,
-        # where only the summation order differs, is the sharp check
-        for dtype, n, rel in (("bfloat16", eval_batch, 5e-2),
-                              ("float32", FP32_BATCH, 1e-4)):
-            server = serve.Server(cfg, num_classes, dtype, "cuda",
-                                  weights=ck["model"])
-            feats = server.to_device({m: v[:n] for m, v in val_feats.items()})
-            with torch.no_grad():
-                logits = server.head_logits(server.model(feats))
-                plain = server.head_logits(server.model(feats, impl="plain"))
-            max_abs = (logits - plain).abs().max().item()
-            scale = plain.abs().max().item()
-            ok = bool(logits.isfinite().all()) and max_abs <= rel * scale
-            agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean()
-            text = f"top1_agree={agree.item():.4f}"
-            if dtype == "bfloat16":
-                top1_ok, text = top1_report(logits, plain, need_decided=False)
-                ok = ok and top1_ok
-            log(f"launcher: {where} reloads; {dtype} B={n} logits through "
-                f"the kernels vs the plain path: max_abs_diff={max_abs:.6g} "
-                f"(tol {rel * scale:.6g} = {rel:g} * max|logit| "
-                f"{scale:.4g}); {text}")
-            if not ok:
-                raise AssertionError(f"launcher: {where}: the kernels' "
-                                     f"{dtype} logits disagree with the "
-                                     "plain path's")
-            del server, feats
+        _checkpoint_logits_ok(cfg, num_classes, ck["model"],
+                              f"{os.path.basename(d)}/{name}")
     a = ckpts[(part_dir, "checkpoint_last")]
     b = ckpts[(whole_dir, "checkpoint_last")]
     diff = {k: float((a["model"][k].double() - v.double()).abs().max())
@@ -3122,7 +3162,8 @@ def phase_launcher():
              st["momentum_buffer"]) for i, st in b["optimizer"]["state"]
             .items()]
     mom_equal = sum(torch.equal(x, y) for x, y in moms)
-    log(f"launcher: resumed (2 + 1 epochs) vs uninterrupted (3): "
+    log(f"launcher: resumed ({LAUNCH_EPOCHS - 1} + 1 epochs) vs "
+        f"uninterrupted ({LAUNCH_EPOCHS}): "
         f"{equal} of {len(diff)} tensors bit for bit, max abs diff "
         f"{max(diff.values()):.3g}; momentum {mom_equal} of {len(moms)} bit "
         f"for bit; epoch / step {a['epoch']} / {a['step']} vs "
@@ -3131,7 +3172,7 @@ def phase_launcher():
             and (a["epoch"], a["step"]) == (b["epoch"], b["step"])):
         raise AssertionError("launcher: the resumed run differs from the "
                              "uninterrupted one")
-    del ckpts, a, b, val_feats
+    del ckpts, a, b
     torch.cuda.empty_cache()
 
     last = epochs[-1]
@@ -3178,13 +3219,13 @@ EVAL_MODEL = "CMFPEarly_ModalTokenCMFuser_rgb_objects_audio_flow_launch-whole"
 EVAL_TIMEOUT = 300  # seconds an eval or challenge run may take
 
 
-def _eval_run(workdir, name, overrides):
-    """``python -m afft_tpu_torch.run -c expts/<EVAL_EXPT> -m test`` in
-    ``workdir``; returns the run's ``eval run:`` record."""
+def _eval_run(workdir, name, overrides, expt=None):
+    """``python -m afft_tpu_torch.run -c expts/<EVAL_EXPT> -m test`` (or
+    ``-c expt``) in ``workdir``; returns the run's ``eval run:`` record."""
     text, seconds = _logged_run(
         [sys.executable, "-m", "afft_tpu_torch.run", "-c",
-         os.path.join(EXPTS, EVAL_EXPT), "-m", "test", *LAUNCH_OVERRIDES,
-         *overrides], workdir, name, EVAL_TIMEOUT)
+         expt or os.path.join(EXPTS, EVAL_EXPT), "-m", "test",
+         *LAUNCH_OVERRIDES, *overrides], workdir, name, EVAL_TIMEOUT)
     lines = [l for l in text.splitlines() if "eval run: " in l]
     if len(lines) != 1:
         raise AssertionError(f"{name}: no eval run record\n{text[-4000:]}")
@@ -3503,6 +3544,486 @@ def phase_dp():
     return numbers
 
 
+# -- the variant models: expts 00 and 05 served and trained, 03 and 04 trained
+
+# label, expt file, overrides, launches of one forward as a function of
+# (fuser depth, GPT-2 layers, modalities): one GPT-2 per modality
+VARIANT_SERVED = [
+    ("expt00_individual", "00_RGB_TSN_ek100_train.txt", [],
+     lambda d, n, m: {"gpt2_attn_half": n * m, "gpt2_mlp_half": n * m}),
+    ("expt05_matt", "05_MATT_ek100_train.txt", [],
+     lambda d, n, m: {"gpt2_attn_half": n * m, "gpt2_mlp_half": n * m}),
+]
+VARIANT_TRAINED = ("00_RGB_TSN_ek100_train.txt",
+                   "03_T-SA-Fuser_ek100_train.txt",
+                   "04_CA-Fuser_ek100_train.txt", "05_MATT_ek100_train.txt")
+VARIANT_FP32_BATCH = 8
+VARIANT_BATCH = 64
+VARIANT_STEPS = 10
+VARIANT_DISTINCT_BATCHES = 2
+# fp32, kernels vs plain on the same masks: only the summation order
+# differs; per tensor, over the tensor's own max|gradient|
+VARIANT_GRAD_TOL = 1e-4
+# expt 05's model on the launcher's expt (its block fuser's lines dropped:
+# MATT takes none of them)
+VARIANT_LAUNCH_MODEL = ("model/fuser=MATT", "model/CMFP=scorefusion",
+                        "model.common.share_classifiers=false",
+                        "model.common.share_predictors=false",
+                        "model.common.modality_cls=true",
+                        "model.common.fusion_cls=false",
+                        "model.fuser.drop_rate=0.8")
+VARIANT_LAUNCH_DIR = "CMFPScoreFusion_MATT_rgb_objects_audio_flow_variant05"
+
+
+# the attention-route timing: turns in this order (ABBA twice), each of
+# VARIANT_TURN_STEPS bf16 steps, timed by the median of its last 6
+VARIANT_TURNS = ("kernel", "plain", "plain", "kernel") * 2
+VARIANT_TURN_STEPS = 8
+
+
+def _variant_layer_checks(cfgs):
+    """The kernels of the variants' bf16 training steps at those steps' own
+    shapes (batch VARIANT_BATCH, the expts' frames): the GPT-2 training
+    layer (rows 11-16) at each distinct (T, C, H, attn / resid pdrop) of
+    ``cfgs``, as phase 8 holds the launcher's; row 4 (``fused_attention``,
+    bf16 and fp32, KERNEL_TOL of max|ref|) against ``attention_plain`` at
+    the T-SA-Fuser's self-attention (n*T tokens under the causal mask tiled
+    over the modalities, q, k, v slices of one packed qkv) and the
+    CA-Fuser's self-attention (T tokens, packed) and cross-attention (T
+    tokens, separate q, k, v), both under the causal mask; there also the
+    gradients of its training route (``FusedAttentionFn``: the kernel's
+    forward, the plain formula's backward) against fp32 autograd through
+    the plain version (GRAD_TOL of max|ref|). Returns the numbers."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import attention as FA
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    B, numbers = VARIANT_BATCH, {"gpt2_train": [], "attention": []}
+    gpt2 = sorted({(int(c.data_train.num_frames),
+                    int(c.model.common.fp_inter_dim),
+                    int(c.model.common.fp_heads),
+                    float(c.model.common.attn_pdrop),
+                    float(c.model.common.resid_pdrop)) for c in cfgs})
+    for T, C, H, attn, resid in gpt2:
+        case = check_gpt2_train_layer(
+            "bf16", torch.bfloat16, B, T, C, H, 4 * C, gen,
+            rates=dict(attn_rate=attn, resid_rate=resid))
+        _log_case(case, "bf16")
+        log(f"variants shapes: {case['what']}: max_abs_err {case['errs']}")
+        numbers["gpt2_train"].append({"what": case["what"],
+                                      "max_abs_err": case["errs"],
+                                      "worst_grad": case["worst"]})
+        del case
+    sites = []
+    for c in cfgs:
+        kind = c.model.fuser._target_.split(".")[-1] if "fuser" in c.model \
+            else None
+        n, T = len(c.model.modal_dims.to_container()), \
+            int(c.data_train.num_frames)
+        if kind == "TemporalCMFuser":
+            sites.append(("T-SA self", n * T, True,
+                          neg_inf_causal_mask(T, device="cuda").repeat(n, n),
+                          c))
+        elif kind == "TemporalCrossAttentFuser":
+            causal = neg_inf_causal_mask(T, device="cuda")
+            sites += [("CA self", T, True, causal, c),
+                      ("CA cross", T, False, causal, c)]
+    for site, S, packed, mask, c in sites:
+        H = int(c.model.fuser.num_heads)
+        hd = int(c.model.fuser.dim) // H
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            rn = _randn(gen, dt)
+            if packed:   # leaves: one (B, S, 3, H, hd) qkv
+                leaves = [rn(B, S, 3, H, hd)]
+
+                def split(ins):
+                    return ins[0][:, :, 0], ins[0][:, :, 1], ins[0][:, :, 2]
+            else:
+                leaves = [rn(B, S, H, hd) for _ in range(3)]
+
+                def split(ins):
+                    return ins
+            what = (f"fused_attention {tag} {site} B={B} N={S} H={H} "
+                    f"hd={hd} (causal mask{', tiled' if S > T else ''}; "
+                    f"q, k, v {'packed' if packed else 'separate'})")
+            q, k, v = split(leaves)
+            _edge_ok(what, tag, FA.fused_attention(q, k, v, mask),
+                     FA.attention_plain(q, k, v, mask)[0])
+            dout = rn(B, S, H, hd)
+            ins = [t.clone().requires_grad_(True) for t in leaves]
+            FA.FusedAttentionFn.apply(*split(ins), mask).backward(dout)
+            ref_ins = [t.float().requires_grad_(True) for t in leaves]
+            FA.attention_plain(*split(ref_ins), mask)[0].backward(
+                dout.float())
+            torch.cuda.synchronize()
+            worst = max(_rel_err(a.grad, b.grad)[0]
+                        for a, b in zip(ins, ref_ins))
+            log(f"variants shapes: {what}: forward within "
+                f"{KERNEL_TOL[tag]:g}; FusedAttentionFn gradients worst "
+                f"rel_err {worst:.3g} (tol {GRAD_TOL[tag]:g} of max|ref|)")
+            if not worst <= GRAD_TOL[tag]:
+                raise AssertionError(f"{what}: FusedAttentionFn gradients "
+                                     f"rel_err {worst:.3g}")
+            numbers["attention"].append({"what": what, "grad_rel": worst})
+            del leaves, ins, ref_ins, dout
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _attn_route_turns(cfg0, label, classes, sites):
+    """``cfg0`` (attention dropout 0) at VARIANT_BATCH bf16 on one runner,
+    timed in VARIANT_TURNS after two untimed steps:
+    "kernel" as shipped (the fuser's attention sites through
+    ``FusedAttentionFn``: row 4's forward, the plain formula's fp32
+    backward), "plain" with ``ops.attention.uses_kernel`` forced to say no
+    (the same sites as the plain ops under autograd, the same arithmetic at
+    rate 0). Each turn VARIANT_TURN_STEPS steps; its ms (CUDA events over
+    a step) and host enqueue ms are the medians of its last 6. Launches of
+    row 4 asserted: ``sites`` a step, 0 when forced plain. Returns the
+    numbers."""
+    import torch
+    from afft_tpu_torch.ops import (attention as FA, launch_counts,
+                                    reset_launches)
+    from afft_tpu_torch.train.runner import Runner
+    runner = Runner.from_config(cfg0, classes, device="cuda",
+                                iters_per_epoch=1, compute_dtype="bfloat16")
+    batches = synthetic_batches(cfg0, VARIANT_BATCH, VARIANT_DISTINCT_BATCHES,
+                                seed=13, classes=classes)
+    warmup = int(cfg0.opt.warmup.num_epochs)
+    lr = runner.lr_schedule(warmup, runner.base_lr)
+    shipped, step = FA.uses_kernel, 0
+
+    def forced_plain(**_):
+        return False
+
+    turns = {"kernel": [], "plain": []}
+    for route in ("warm-up",) + VARIANT_TURNS:
+        FA.uses_kernel = forced_plain if route == "plain" else shipped
+        try:
+            reset_launches()
+            ms, host = [], []
+            for _ in range(2 if route == "warm-up" else VARIANT_TURN_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                runner.train_step(batches[step % len(batches)], lr,
+                                  runner.base_lr)
+                end.record()
+                host.append((time.perf_counter() - t0) * 1e3)
+                ms.append((start, end))
+                step += 1
+            torch.cuda.synchronize()
+            got = launch_counts()["fused_attention"]
+        finally:
+            FA.uses_kernel = shipped
+        if route == "warm-up":
+            continue
+        want = sites * VARIANT_TURN_STEPS if route == "kernel" else 0
+        if got != want:
+            raise AssertionError(f"variants {label} {route} turn: "
+                                 f"fused_attention launched {got} times, "
+                                 f"expected {want}")
+        turns[route].append({
+            "ms": statistics.median(a.elapsed_time(b) for a, b in ms[-6:]),
+            "host_ms": statistics.median(host[-6:])})
+    log(f"variants train {label} B={VARIANT_BATCH} bf16, the attention "
+        f"sites' route in turns {'/'.join(VARIANT_TURNS)} (ms a step, "
+        f"CUDA events / host enqueue, median of the last 6 of "
+        f"{VARIANT_TURN_STEPS}): kernel "
+        f"{[(round(t['ms'], 3), round(t['host_ms'], 3)) for t in turns['kernel']]}"
+        f", plain "
+        f"{[(round(t['ms'], 3), round(t['host_ms'], 3)) for t in turns['plain']]}")
+    del runner, batches
+    torch.cuda.empty_cache()
+    return turns
+
+
+def _gpt2_per_step(cfg):
+    """GPT-2 layers a training step runs: every layer of every
+    predictor."""
+    common = cfg.model.common
+    shared = common.share_predictors or \
+        cfg.model.CMFP._target_.endswith("CMFPEarly")
+    preds = 1 if shared else len(cfg.model.modal_dims.to_container())
+    return int(common.fp_layers) * preds
+
+
+def _grad_rel(run_k, run_p):
+    """Per tensor max|g_kernel - g_plain| over max|g_plain|: the worst
+    (value, tensor)."""
+    worst = (0.0, "")
+    for (name, pk), pp in zip(run_k.model.named_parameters(),
+                              run_p.masters):
+        if pp.grad is None:
+            if pk.grad is not None:
+                raise AssertionError(f"{name}: a gradient on one path only")
+            continue
+        rel = float((pk.grad - pp.grad).abs().max()) / max(
+            float(pp.grad.abs().max()), 1e-30)
+        if rel > worst[0]:
+            worst = (rel, name)
+    return worst
+
+
+def _variant_fp32(cfg, label, classes, expected_kernel, expected_plain):
+    """Two fp32 steps at VARIANT_FP32_BATCH through the kernels and two
+    through their plain versions on the same masks: losses, gradients after
+    each step (per tensor, VARIANT_GRAD_TOL of max|grad|), launch counts of
+    each run. Returns the numbers."""
+    import torch
+    from afft_tpu_torch.ops import launch_counts, reset_launches
+    from afft_tpu_torch.train.runner import Runner
+    kernel = Runner.from_config(cfg, classes, device="cuda",
+                                iters_per_epoch=1, compute_dtype="float32")
+    plain = Runner.from_config(cfg, classes, device="cuda",
+                               iters_per_epoch=1, compute_dtype="float32",
+                               impl="plain",
+                               weights=kernel.model.state_dict())
+    batches = synthetic_batches(cfg, VARIANT_FP32_BATCH, 2, seed=11,
+                                classes=classes)
+    warmup = int(cfg.opt.warmup.num_epochs)
+    out = {"loss_kernel": [], "loss_plain": [], "grad_rel": []}
+    for i, batch in enumerate(batches):
+        lr = kernel.lr_schedule(warmup + i, kernel.base_lr)
+        for key, run, expected in (("kernel", kernel, expected_kernel),
+                                   ("plain", plain, expected_plain)):
+            reset_launches()
+            loss = float(run.train_step(batch, lr, run.base_lr)[0]
+                         ["total_loss"])
+            _counts_ok(f"variants train {label} fp32 {key} step {i + 1}",
+                       launch_counts(), expected)
+            out[f"loss_{key}"].append(loss)
+        out["grad_rel"].append(_grad_rel(kernel, plain))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["loss_kernel"],
+                                                  out["loss_plain"]))
+    worst = max(out["grad_rel"])
+    log(f"variants train {label} fp32 B={VARIANT_FP32_BATCH}: 2 steps "
+        f"through the kernels {out['loss_kernel']} vs the plain versions "
+        f"{out['loss_plain']} on the same masks (loss rel diff {rel:.3g}); "
+        f"gradients per tensor, worst by step "
+        f"{[(f'{v:.3g}', n) for v, n in out['grad_rel']]} of max|grad| "
+        f"(tol {VARIANT_GRAD_TOL:g}); launches a step {expected_kernel} / "
+        f"plain {expected_plain}")
+    if not (all(math.isfinite(v) for v in out["loss_kernel"])
+            and rel <= VARIANT_GRAD_TOL and worst[0] <= VARIANT_GRAD_TOL):
+        raise AssertionError(f"variants train {label} fp32: the kernel path "
+                             "disagrees with the plain path")
+    del kernel, plain, batches
+    torch.cuda.empty_cache()
+    return {"loss_rel": rel, "grad_rel_worst": worst[0],
+            "grad_rel_tensor": worst[1], "losses": out["loss_kernel"]}
+
+
+def _variant_bf16(cfg, label, classes, per_step):
+    """VARIANT_STEPS bf16 steps at VARIANT_BATCH over fp32 masters, every
+    step's launches asserted, a falling loss over VARIANT_DISTINCT_BATCHES
+    batches; returns (launches, numbers)."""
+    import torch
+    from afft_tpu_torch.ops import launch_counts, reset_launches
+    from afft_tpu_torch.train.runner import Runner
+    runner = Runner.from_config(cfg, classes, device="cuda",
+                                iters_per_epoch=1, compute_dtype="bfloat16")
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    batches = synthetic_batches(cfg, VARIANT_BATCH, VARIANT_DISTINCT_BATCHES,
+                                seed=12, classes=classes)
+    warmup = int(cfg.opt.warmup.num_epochs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events, host_ms = [], [], []
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    for i in range(VARIANT_STEPS):
+        before = launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step, _ = runner.train_step(
+            batches[i % len(batches)],
+            runner.lr_schedule(warmup + i, runner.base_lr), runner.base_lr)
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append((start, end))
+        losses.append(step["total_loss"])
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        _counts_ok(f"variants train {label} bf16 step {i + 1}", delta,
+                   per_step)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = [float(v) for v in losses]
+    k = VARIANT_DISTINCT_BATCHES
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    ms = statistics.median(a.elapsed_time(b) for a, b in events[-5:])
+    host = statistics.median(host_ms[-5:])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"variants train {label} bf16 B={VARIANT_BATCH}: {n_params / 1e6:.1f}"
+        f" M params, {VARIANT_STEPS} steps over {k} batches, launches per "
+        f"step { {n: c for n, c in per_step.items()} } and 0 of every other "
+        f"kernel; total loss by step {[round(v, 4) for v in losses]} (mean "
+        f"of the first {k} {first:.4f}, of the last {k} {last:.4f}); "
+        f"ms_per_step={ms:.3f} (CUDA events, median of the last 5) "
+        f"clips_per_s={VARIANT_BATCH / ms * 1e3:.1f} host_enqueue_ms="
+        f"{host:.3f} peak_mem_GB={peak_gb:.2f}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"variants train {label} bf16: non-finite loss")
+    if not last < first:
+        raise AssertionError(f"variants train {label} bf16: the loss did not "
+                             "fall")
+    del runner, batches
+    torch.cuda.empty_cache()
+    return launches, {"params": n_params, "ms_per_step": ms,
+                      "clips_per_s": VARIANT_BATCH / ms * 1e3,
+                      "host_enqueue_ms": host, "peak_mem_GB": peak_gb,
+                      "losses": losses}
+
+
+def _variant_expt_file(src, dst, drop_prefix, extra):
+    """``src``'s lines without those starting with ``drop_prefix``, then
+    ``extra``, written to ``dst``."""
+    from afft_tpu_torch.config import expt_lines_without
+    with open(dst, "w") as f:
+        f.write("\n".join(expt_lines_without(src, (drop_prefix,))
+                          + list(extra)) + "\n")
+    return dst
+
+
+def _variant_launcher():
+    """Expt 05's model through ``python -m afft_tpu_torch.run -c
+    <98_synth_accept_train with expt 05's model lines> -m train`` for one
+    epoch on phase 8's cut accept set, then ``-m test`` on its
+    checkpoint_best; the checkpoint reloads and its logits through the
+    kernels agree with the plain path's. Returns (the training run's
+    launches, numbers)."""
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.tools.make_accept_dataset import (N_CLASSES,
+                                                          make_accept_dataset)
+    from afft_tpu_torch.train.checkpoint import load_checkpoint
+    workdir = os.path.join(REPO, "build", "launcher")
+    if not os.path.isdir(os.path.join(workdir, ".accept_data")):
+        os.makedirs(workdir, exist_ok=True)
+        make_accept_dataset(os.path.join(workdir, ".accept_data"),
+                            **LAUNCH_SET)
+    train_expt = _variant_expt_file(
+        os.path.join(EXPTS, LAUNCH_EXPT),
+        os.path.join(workdir, "variant05_train.txt"), "model.fuser.",
+        VARIANT_LAUNCH_MODEL)
+    val_expt = _variant_expt_file(
+        os.path.join(EXPTS, EVAL_EXPT),
+        os.path.join(workdir, "variant05_val.txt"), "model.fuser.",
+        VARIANT_LAUNCH_MODEL)
+    _, seconds = _logged_run(
+        [sys.executable, "-m", "afft_tpu_torch.run", "-c", train_expt, "-m",
+         "train", *LAUNCH_OVERRIDES, "experiment_name=variant05",
+         "train.num_epochs=1", "+overwrite=true"], workdir, "variant05-train",
+        LAUNCH_TIMEOUT)
+    ckpt_dir = os.path.join(workdir, "checkpoints", VARIANT_LAUNCH_DIR)
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+        epoch = [json.loads(line) for line in f][-1]
+    with open(os.path.join(ckpt_dir, "summary.jsonl")) as f:
+        run = [json.loads(line) for line in f][-1]["run"]
+    cfg = serve.load_config(train_expt, [f"cwd={workdir}"])
+    layers = _gpt2_per_step(cfg)
+    _counts_ok("variants launcher", run["launches"], {
+        **{n: layers * run["train_iters"]
+           for n, _ in TRAIN_KERNELS["fused_gpt2_train"][:3]},
+        "gpt2_attn_half": layers * run["val_batches"],
+        "gpt2_mlp_half": layers * run["val_batches"]})
+    loss = epoch["train_total_loss"]
+    log(f"variants launcher: expt 05's model ({' '.join(VARIANT_LAUNCH_MODEL)}"
+        f") on {LAUNCH_EXPT}: one epoch, exit 0 in {seconds:.1f} s, "
+        f"{run['train_iters']} iterations and {run['val_batches']} "
+        f"validation batches on {run['device']}; train loss {loss}, window "
+        f"{_window_ms(epoch):.3f} ms an iteration, median ms_per_iter="
+        f"{epoch['ms_per_iter']:.3f} host_ms_per_iter="
+        f"{epoch['host_ms_per_iter']:.3f} clips_per_s="
+        f"{epoch['clips_per_s']:.1f}; launches {run['launches']}")
+    if not math.isfinite(loss):
+        raise AssertionError("variants launcher: non-finite loss")
+    test = _eval_run(workdir, "variant05-test", (
+        f"init_from_model={VARIANT_LAUNCH_DIR}/checkpoint_best",
+        "save_name=null"), expt=val_expt)
+    _counts_ok("variants launcher -m test", test["launches"], {
+        "gpt2_attn_half": layers * test["batches"],
+        "gpt2_mlp_half": layers * test["batches"]})
+    state = load_checkpoint(os.path.join(ckpt_dir, "checkpoint_best"))
+    _checkpoint_logits_ok(cfg, {"action": N_CLASSES}, state["model"],
+                          f"{VARIANT_LAUNCH_DIR}/checkpoint_best")
+    return run["launches"], {
+        "train_s": seconds, "train_loss": loss,
+        "window_ms_per_iter": _window_ms(epoch),
+        "ms_per_iter": epoch["ms_per_iter"],
+        "host_ms_per_iter": epoch["host_ms_per_iter"],
+        "clips_per_s": epoch["clips_per_s"], "test_s": test["seconds"],
+        "test_clips_per_s": test["clips_per_s"],
+        "accuracies": {k: test["accuracies"][k] for k in
+                       ("atop1", "atop5", "amt5r")}}
+
+
+def phase_variants():
+    """Expts 00 (IndividualFuturePrediction) and 05 (CMFPScoreFusion with
+    MATT) served at full width through ``Server.answer``; expts 00, 03,
+    04 and 05 trained through ``Runner.train_step`` (fp32 kernels against
+    plain, then bf16 steps), 03 and 04 again at attention dropout 0 (row 4
+    under autograd, both again); expt 05's model trained and tested through
+    the launcher. Returns ({kernel: launches summed over the phase's
+    counted runs: the served answers, the bf16 steps and the launcher's
+    training run; not the fp32 comparisons}, numbers)."""
+    import torch
+    from afft_tpu_torch import serve
+
+    launches, numbers = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for label, expt, overrides, expected_fn in VARIANT_SERVED:
+        counted, numbers[label] = serve_path(label, expt, overrides,
+                                             expected_fn)
+        add(counted)
+        torch.cuda.empty_cache()
+
+    gpt2 = [n for n, _ in TRAIN_KERNELS["fused_gpt2_train"][:3]]
+    classes = TRAIN_CLASSES
+    cfgs = {expt: serve.load_config(os.path.join(EXPTS, expt))
+            for expt in VARIANT_TRAINED}
+    numbers["shapes"] = _variant_layer_checks(list(cfgs.values()))
+    for expt, cfg in cfgs.items():
+        label = expt.split("_ek100")[0]
+        per_step = dict.fromkeys(gpt2, _gpt2_per_step(cfg))
+        plain_step = {"draw_masks_gpt2": _gpt2_per_step(cfg)}
+        t0 = time.perf_counter()
+        fp32 = _variant_fp32(cfg, label, classes, per_step, plain_step)
+        counted, bf16 = _variant_bf16(cfg, label, classes, per_step)
+        add(counted)
+        numbers[label] = {"fp32": fp32, "bf16": bf16}
+        if "fuser" in cfg.model and cfg.model.fuser._target_.split(".")[-1] \
+                in ("TemporalCMFuser", "TemporalCrossAttentFuser"):
+            # attention dropout 0: row 4's kernel at every attention site
+            # of the fuser, its backward the plain formula
+            cfg0 = serve.load_config(os.path.join(EXPTS, expt),
+                                     ["model.fuser.attn_drop_rate=0.0"])
+            sites = (int(cfg0.model.fuser.depth) if "depth" in cfg0.model.fuser
+                     else 2 * (len(cfg0.model.modal_dims.to_container()) - 1))
+            with_attn = {**per_step, "fused_attention": sites}
+            numbers[label]["attn_drop_0"] = {
+                "fp32": _variant_fp32(cfg0, f"{label} attn_drop 0", classes,
+                                      with_attn, plain_step),
+                "fused_attention_a_step": sites}
+            counted, numbers[label]["attn_drop_0"]["bf16"] = _variant_bf16(
+                cfg0, f"{label} attn_drop 0", classes, with_attn)
+            add(counted)
+            numbers[label]["attn_drop_0"]["turns"] = _attn_route_turns(
+                cfg0, f"{label} attn_drop 0", classes, sites)
+        numbers[label]["seconds"] = time.perf_counter() - t0
+    counted, numbers["launcher"] = _variant_launcher()
+    add(counted)
+    return launches, numbers
+
+
 def main():
     try:
         import torch
@@ -3590,19 +4111,29 @@ def main():
 
         # 10. dp (torchrun: -n 1 over NCCL, two processes over gloo)
         log(json.dumps({"dp": phase_dp()}))
+
+        # 11. variants (expts 00 and 05 served and trained, 03 and 04
+        # trained, expt 05's model through the launcher)
+        t0 = time.perf_counter()
+        variant_launches, variant_numbers = phase_variants()
+        for k in kernels.values():
+            k["variants_launches"] = variant_launches.get(k["name"], 0)
+        variant_numbers["seconds"] = time.perf_counter() - t0
+        log(json.dumps({"variants": variant_numbers}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 11. report
+    # 12. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
     log(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("main_path", "plain_path_launches",
-                              "launcher_launches", "eval_launches")
+                              "launcher_launches", "eval_launches",
+                              "variants_launches")
             if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
             for label, sub in e.items()

@@ -19,6 +19,10 @@ references run in this process, which has no process group.
   tests/test_torch_train_slice.py).
 - (d) the metric meters after ``synchronize_between_processes`` equal one
   tracker fed both ranks' updates; only rank 0 writes checkpoint files.
+- (f) as (b) for the T-SA-Fuser and for ``CMFPScoreFusion`` with MATT
+  (its dropout 0.8), at the smoke expt's widths: the losses of 4 steps on 2
+  ranks within 1e-5 relative of one process over the same global batches
+  (the global-batch rule for their dropouts and drop-path).
 - (e) ``python -m afft_tpu_torch.run -c expts/99_synth_smoke_train.txt -m
   train -n 2 --device cpu`` for one epoch exits 0 with one writer of
   metrics.jsonl, and ``-m test -n 2`` exports the logits of one process.
@@ -43,7 +47,8 @@ from afft_tpu.train.mixup import MixUp as JaxMixUp
 from afft_tpu.train.runner import Runner as JaxRunner
 from afft_tpu_torch import run as RUN
 from afft_tpu_torch import weights as W
-from afft_tpu_torch.config import CONF_DIR, compose, read_expt_file
+from afft_tpu_torch.config import (CONF_DIR, compose, expt_lines_without,
+                                   read_expt_file)
 from afft_tpu_torch.eval import challenge as PC
 from afft_tpu_torch.tools import dp_check as D
 from afft_tpu_torch.train import optim as O
@@ -91,17 +96,39 @@ def _torchrun(nproc, *args):
             f"--nproc_per_node={nproc}", *args]
 
 
-def _lrs(overrides):
-    cfg = compose(CONF_DIR, read_expt_file(SMOKE_TRAIN) + overrides)
+def _lrs(overrides, expt=SMOKE_TRAIN):
+    cfg = compose(CONF_DIR, read_expt_file(expt) + overrides)
     sched = O.build_schedule(cfg.opt, 2, 1)
     return [sched(i, float(cfg.opt.lr)) for i in range(STEPS)]
 
 
-def _train_job(name, overrides, **more):
-    return {"kind": "train", "name": name, "expt": SMOKE_TRAIN,
+def _train_job(name, overrides, expt=SMOKE_TRAIN, **more):
+    return {"kind": "train", "name": name, "expt": expt,
             "overrides": overrides, "classes": CLASSES,
             "batch": GLOBAL_BATCH, "steps": STEPS, "seed": 3,
-            "lrs": _lrs(overrides), "invalid": [GLOBAL_BATCH - 1], **more}
+            "lrs": _lrs(overrides, expt), "invalid": [GLOBAL_BATCH - 1],
+            **more}
+
+
+# (f): the smoke expt with another fuser / CMFP, the fuser lines that the
+# choice does not take left out, and the rates on
+VARIANTS = {
+    "tsa": (["model/fuser=T-SA-Fuser"], (), RATES),
+    "matt": (["model/fuser=MATT", "model/CMFP=scorefusion",
+              "model.common.fusion_cls=false",
+              "model.common.share_predictors=false",
+              "model.common.share_classifiers=false"], ("model.fuser.",),
+             [r for r in RATES if not r.startswith("model.fuser.")]
+             + ["model.fuser.drop_rate=0.8", "model.dropout=0.2"]),
+}
+
+
+def _variant_job(work, variant):
+    choices, dropped, rates = VARIANTS[variant]
+    expt = work / f"variant_{variant}.txt"
+    expt.write_text("\n".join(
+        expt_lines_without(SMOKE_TRAIN, dropped) + choices) + "\n")
+    return _train_job(f"f_{variant}", rates, expt=str(expt))
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +158,8 @@ def two_ranks(tmp_path_factory, jax_init):
         _train_job("b", RATES),
         _train_job("c", NO_DROPOUT, weights=jax_init[3], lam=LAMS),
         {"kind": "meters", "name": "d", "classes": {"action": 11},
-         "ckpt_dir": str(work / "ckpt")}]
+         "ckpt_dir": str(work / "ckpt")},
+        *(_variant_job(work, v) for v in sorted(VARIANTS))]
     spec = {"device": "cpu", "out": str(work / "out"), "jobs": jobs}
     with open(work / "spec.json", "w") as f:
         json.dump(spec, f)
@@ -171,6 +199,28 @@ def test_two_ranks_equal_one_process_with_dropout_and_mixup(two_ranks):
     # the rates acted: without them the first step's loss differs
     plain = D.run_train({**jobs["b"], "overrides": NO_DROPOUT, "steps": 1},
                         torch.device("cpu"))
+    assert plain["losses"][0]["total_loss"] != \
+        one["losses"][0]["total_loss"]
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_variant_two_ranks_equal_one_process_with_dropout(two_ranks,
+                                                          variant):
+    records, jobs, _ = two_ranks
+    job = jobs[f"f_{variant}"]
+    rank0, rank1 = records[job["name"]]
+    assert rank0["world"] == 2 and rank0["losses"] == rank1["losses"]
+    one = D.run_train({**job, "keep_state": False}, torch.device("cpu"))
+    assert one["world"] == 1
+    for i, (got, want) in enumerate(zip(rank0["losses"], one["losses"])):
+        assert set(got) == set(want) and "total_loss" in got
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=0,
+                                       err_msg=f"step {i} {k}")
+    # the rates acted: without them the first step's loss differs
+    zero = [r.split("=")[0] + "=0.0" for r in job["overrides"]]
+    plain = D.run_train({**job, "overrides": zero, "steps": 1,
+                         "keep_state": False}, torch.device("cpu"))
     assert plain["losses"][0]["total_loss"] != \
         one["losses"][0]["total_loss"]
 

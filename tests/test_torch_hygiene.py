@@ -227,18 +227,26 @@ def test_kernel_modules_import_without_nvcc():
 
 
 def test_registry_resolves_ported_targets_only():
-    from afft_tpu_torch.models import fusion
+    from afft_tpu_torch.models import cmfp, fusion, mapping as maps
     for name in ("ModalTokenCMFuser", "CMFuser", "TemporalCMFuser",
-                 "TemporalCrossAttentFuser"):
+                 "TemporalCrossAttentFuser", "MATT"):
         assert resolve_target(f"models.fusion.{name}") is \
             getattr(fusion, name)
+    for name in ("CMFPEarly", "IndividualFuturePrediction",
+                 "CMFPScoreFusion"):
+        assert resolve_target(f"models.future_prediction.{name}") is \
+            getattr(cmfp, name)
+    for name, cls in (("GatedLinear", maps.GatedLinearMapping),
+                      ("NonLinear", maps.NonLinearMapping),
+                      ("GatedEmbeddingUnit", maps.GatedEmbeddingUnit)):
+        assert resolve_target(f"models.feature_mapping.{name}") is cls
     mapping = instantiate({"_target_": "models.feature_mapping.Linear",
                            "use_layernorm": False}, in_features=8,
                           out_features=8)
     assert mapping.identity
-    for target in ("models.fusion.MATT",
-                   "models.future_prediction.CMFPScoreFusion",
-                   "models.feature_mapping.GatedLinear",
+    for target in ("models.fusion.RULSTM",
+                   "models.future_prediction.CMFPLate",
+                   "models.feature_mapping.Conv",
                    "torch.optim.RMSprop", "os.system"):
         with pytest.raises(ValueError, match=target.replace(".", r"\.")):
             resolve_target(target)
@@ -280,13 +288,24 @@ def test_fuser_variants_build_at_full_width(expt, fuser, blocks, n_params):
 
 
 def test_unported_parts_still_raise_naming_the_roadmap():
-    for expt in ("00_RGB_Swin_ek100_train.txt", "05_MATT_ek100_train.txt"):
+    """Expts 00 and 05 build at full width with the JAX package's parameter
+    counts (on the meta device: no memory); every fuser trains, expts 03
+    and 04 included; an unknown ``_target_`` still raises naming
+    ROADMAP.md."""
+    for expt, cmfp, n_params in (
+            ("00_RGB_Swin_ek100_train.txt", "IndividualFuturePrediction",
+             312.346334e6),
+            ("00_RGB_TSN_ek100_train.txt", "IndividualFuturePrediction",
+             312.346334e6),
+            ("05_MATT_ek100_train.txt", "CMFPScoreFusion", 1249.15782e6)):
         cfg = compose(CONF_DIR,
                       read_expt_file(os.path.join(REPO, "expts", expt)))
-        with pytest.raises(ValueError, match="not ported"):
-            BaseModel(cfg.model, num_classes={"action": 5})
+        with torch.device("meta"):
+            model = BaseModel(cfg.model, num_classes={"action": 3806})
+        assert type(model.future_predictor).__name__ == cmfp
+        assert sum(p.numel() for p in model.parameters()) == n_params
     with pytest.raises(ValueError, match=r"ROADMAP\.md"):
-        resolve_target("models.fusion.MATT")
+        resolve_target("models.fusion.NoSuchFuser")
     # training mode: the SA-Fuser (flagship, synthetic smoke expt) trains ...
     cfg = serve.load_config(os.path.join(REPO, "expts",
                                          "99_synth_smoke_val.txt"))
@@ -296,27 +315,24 @@ def test_unported_parts_still_raise_naming_the_roadmap():
     out = model(feats, rng=RngStream(0))
     assert out["logits/action"]["all-fused"].shape == (2, 1, 5)
     assert out["logits/action"]["all-fused"].requires_grad
-    # ... and so does expt 02 (SA-Fuser without token), at a narrow width
+    # ... and so do expts 02, 03 (T-SA-Fuser) and 04 (CA-Fuser), at a
+    # narrow width
     narrow = ["model.modal_dims={rgb:32, objects:20, audio:32, flow:32}",
               "model.common_dim=32", "model.fuser.depth=2",
               "model.common.fp_inter_dim=64", "model.common.fp_layers=2"]
     wide = {"rgb": 32, "objects": 20, "audio": 32, "flow": 32}
-    for expt, trains in (("02_SA-Fuser_wo_token_ek100_train.txt", True),
-                         ("03_T-SA-Fuser_ek100_train.txt", False),
-                         ("04_CA-Fuser_ek100_train.txt", False)):
+    for expt in ("02_SA-Fuser_wo_token_ek100_train.txt",
+                 "03_T-SA-Fuser_ek100_train.txt",
+                 "04_CA-Fuser_ek100_train.txt"):
         cfg = serve.load_config(os.path.join(REPO, "expts", expt),
                                 [n for n in narrow
                                  if "depth" not in n or "04" not in expt])
         model = BaseModel(cfg.model, num_classes={"action": 5})
         feats = {m: torch.zeros(2, 10, d) for m, d in wide.items()}
-        if trains:
-            out = model(feats, rng=RngStream(0))
-            assert out["logits/action"]["all-fused"].requires_grad
-        else:   # the T-SA and CA fusers: eval only
-            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-                model(feats, rng=RngStream(0))
-            assert model.eval()(feats)["logits/action"]["all-fused"].shape \
-                == (2, 1, 5)
+        out = model(feats, rng=RngStream(0))
+        assert out["logits/action"]["all-fused"].requires_grad
+        assert model.eval()(feats)["logits/action"]["all-fused"].shape \
+            == (2, 1, 5)
 
 
 def test_serving_kernels_refuse_to_run_under_autograd():

@@ -429,7 +429,8 @@ def test_fuser_training_dispatch():
     """The SA-Fuser in training mode: the kernel wrapper and the plain
     implementation see the same masks (on the CPU both are the plain
     version), the seed words come once per stack call, attention weights
-    come from the module path, and the T-SA and CA fusers refuse."""
+    come from the module path, and the T-SA and CA fusers train (their
+    blocks as modules under autograd)."""
     from afft_tpu_torch.models import layers as L
     from afft_tpu_torch.models.fusion import (ModalTokenCMFuser,
                                               TemporalCMFuser,
@@ -456,8 +457,8 @@ def test_fuser_training_dispatch():
                        fuser(feats, order, rng=L.RngStream(1))[0])
     for cls in (TemporalCMFuser, TemporalCrossAttentFuser):
         other = cls(32, modalities=mods, num_heads=4)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-            other(feats, order, rng=L.RngStream(0))
+        y, _ = other(feats, order, rng=L.RngStream(0))
+        assert y.shape == (4, 6, 32) and y.requires_grad
 
 
 def test_predictor_training_path():
