@@ -8,8 +8,16 @@ the device once, and batches become a device-side ``index_select`` driven
 by a small index tensor.
 
 Needs the clip plan (deterministic clip strategies) and no host-side
-augmentation. There is no fallback: a dataset the cache cannot hold raises,
-and the int8 storage option is not ported yet (ROADMAP.md §A.6).
+augmentation. There is no fallback: a dataset the cache cannot hold raises.
+
+``dtype="int8"`` halves the cache's bytes against bf16 (port of
+afft_tpu/data/device_cache.py:64-134): each frame is quantized
+symmetrically, ``q = rint(x / s)`` with ``s = max|x| / 127`` over the
+frame's features, the (N, T, F) int8 payload and the fp32 (N, T) scales
+both live on the device, and a batch's gather dequantizes there in fp32
+before one rounding to bf16. The frames are quantized by the packed
+store's own ``PackedFeatureStore._quantize_rows``; an all-zero frame keeps
+the payload 0 and so stays exactly zero.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 
 from .loader import shard_indices
+from .readers import PackedFeatureStore
 
 log = logging.getLogger(__name__)
 
@@ -31,9 +40,7 @@ class DeviceFeatureCache:
     """Materialized clips resident on ``device``, indexed per batch there."""
 
     def __init__(self, dataset, device, dtype=torch.bfloat16):
-        if dtype in ("int8", torch.int8, np.int8):
-            raise NotImplementedError(
-                "data_on_device_dtype=int8 is not ported (ROADMAP.md §A.6)")
+        self.quantized = dtype in ("int8", torch.int8, np.int8)
         if not getattr(dataset, "supports_batch_load", lambda: False)():
             raise ValueError("data_on_device needs the precomputed clip plan "
                              "(a deterministic sample_strategy and packed "
@@ -49,26 +56,56 @@ class DeviceFeatureCache:
         # chunks are written into a preallocated tensor: collecting every
         # chunk and concatenating would hold ~2x the cache during the build
         self.features: Dict[str, torch.Tensor] = {}
+        # int8 only: {mod: fp32 (N, T)}, kept fp32 beside the payload (bf16
+        # scales would add ~0.4% error to every feature)
+        self.scales: Dict[str, torch.Tensor] = {}
+        store = torch.int8 if self.quantized else dtype
         for mod in dataset.reader_fn:
-            feats = None
+            feats = scales = None
             for lo in range(0, n, CHUNK):
                 idx = np.arange(lo, min(lo + CHUNK, n))
                 host = np.asarray(dataset.load_batch(idx)["data_dict"][mod],
                                   np.float32)
                 if feats is None:
-                    feats = torch.empty((n,) + host.shape[1:], dtype=dtype,
+                    feats = torch.empty((n,) + host.shape[1:], dtype=store,
                                         device=self.device)
-                feats[lo:lo + len(idx)] = torch.from_numpy(host).to(
-                    self.device).to(dtype)
+                    if self.quantized:
+                        scales = torch.empty((n,) + host.shape[1:-1],
+                                             dtype=torch.float32,
+                                             device=self.device)
+                rows = slice(lo, lo + len(idx))
+                if self.quantized:
+                    q, scale = PackedFeatureStore._quantize_rows(
+                        host.reshape(-1, host.shape[-1]))
+                    feats[rows] = torch.from_numpy(q.reshape(host.shape)).to(
+                        self.device)
+                    scales[rows] = torch.from_numpy(
+                        scale.reshape(host.shape[:-1])).to(self.device)
+                else:
+                    feats[rows] = torch.from_numpy(host).to(
+                        self.device).to(dtype)
             self.features[mod] = feats
-        self.nbytes = sum(f.numel() * f.element_size()
-                          for f in self.features.values())
-        log.info("device feature cache: %d clips, %.2f GB on %s", n,
-                 self.nbytes / 1e9, self.device)
+            if self.quantized:
+                self.scales[mod] = scales
+        self.nbytes = sum(t.numel() * t.element_size() for t in
+                          [*self.features.values(), *self.scales.values()])
+        log.info("device feature cache: %d clips, %.2f GB on %s%s", n,
+                 self.nbytes / 1e9, self.device,
+                 " (int8)" if self.quantized else "")
 
         self.targets = {t: plan["target"][t] for t in dataset.label_type}
         self.labels = plan.get("labels")
         self.uid = np.asarray(plan["uid"])
+
+    def take(self, mod: str, idx: torch.Tensor) -> torch.Tensor:
+        """One modality's rows ``idx`` (a device index tensor); int8 rows are
+        dequantized in fp32, then rounded once to bf16 (the JAX ``take``,
+        :125-134)."""
+        rows = self.features[mod].index_select(0, idx)
+        if not self.quantized:
+            return rows
+        scale = self.scales[mod].index_select(0, idx)
+        return (rows.float() * scale[..., None]).to(torch.bfloat16)
 
     def batch(self, indices: np.ndarray) -> Dict:
         """Batch dict with device-side feature gathers (a small index
@@ -80,8 +117,7 @@ class DeviceFeatureCache:
             # to drain, and the host could never run ahead of the card
             idx = idx.pin_memory().to(self.device, non_blocking=True)
         batch = {
-            "data_dict": {m: f.index_select(0, idx)
-                          for m, f in self.features.items()},
+            "data_dict": {m: self.take(m, idx) for m in self.features},
             "target": {t: v[indices] for t, v in self.targets.items()},
             "uid": self.uid[indices],
             "idx": indices.astype(np.int64),

@@ -25,14 +25,17 @@ CLS_MAP_PREFIX = "cls_map_"
 class BaseModel(nn.Module):
     def __init__(self, model_cfg, num_classes: Dict[str, int],
                  class_mappings: Optional[Dict[Tuple[str, str], object]]
-                 = None):
+                 = None, fuser_need_weights: bool = False):
+        """``fuser_need_weights``: passed to the CMFP, whose fuser then
+        returns its attention weights (afft_tpu/models/base_model.py:26,35;
+        ``visualize_attention``)."""
         super().__init__()
         backbones_cfg = model_cfg["common"].get("backbones") or {}
         self.backbones = nn.ModuleDict({mod: instantiate(bc)
                                         for mod, bc in backbones_cfg.items()})
         self.future_predictor = instantiate(
             model_cfg["CMFP"], model_cfg=model_cfg, num_classes=num_classes,
-            _recursive_=False)
+            fuser_need_weights=fuser_need_weights, _recursive_=False)
         for (src, dst), mapping in (class_mappings or {}).items():
             self.register_buffer(f"{CLS_MAP_PREFIX}{src}_{dst}",
                                  torch.as_tensor(mapping))

@@ -54,8 +54,14 @@ class _CMFPBase(nn.Module):
     uses_fuser = True
     uses_mapping = True
 
-    def __init__(self, model_cfg, num_classes: Dict[str, int]):
+    def __init__(self, model_cfg, num_classes: Dict[str, int],
+                 fuser_need_weights: bool = False):
+        """``fuser_need_weights``: the fuser also returns its attention
+        weights (``visualize_attention``; it then runs its plain path). Only
+        a CMFP that fuses before predicting has such weights to return; the
+        others ignore the flag."""
         super().__init__()
+        self.fuser_need_weights = fuser_need_weights
         common = model_cfg["common"]
         self.num_classes = dict(num_classes)
         self.latent_dim = common["in_features"]
@@ -218,13 +224,14 @@ class CMFPEarly(_CMFPBase):
     (reference :228-291). Shared classifier and predictor are implied
     (:235-242)."""
 
-    def __init__(self, model_cfg, num_classes: Dict[str, int]):
+    def __init__(self, model_cfg, num_classes: Dict[str, int],
+                 fuser_need_weights: bool = False):
         # early fusion implies a shared classifier and predictor (reference
         # :235-242 sets the same flags on the shared config object)
         common = model_cfg["common"]
         common["share_classifiers"] = True
         common["share_predictors"] = True
-        super().__init__(model_cfg, num_classes)
+        super().__init__(model_cfg, num_classes, fuser_need_weights)
 
     def _init_dim_codec(self):
         """The fused features are at the latent width: one codec
@@ -240,7 +247,9 @@ class CMFPEarly(_CMFPBase):
         """``rng``: the step's ``layers.RngStream`` (training mode only)."""
         order = self.feats_order(feats)
         x_hat = self.feature_mapping(feats)
-        z, modality_attns = self.fuser(x_hat, order, impl=impl, rng=rng)
+        z, modality_attns = self.fuser(
+            x_hat, order, need_weights=self.fuser_need_weights, impl=impl,
+            rng=rng)
         z_hat_enc, temporal_attns = self._predict(
             None, _apply_codec(self.dim_encoder, z), impl=impl, rng=rng)
         z_hat = _apply_codec(self.dim_decoder, z_hat_enc)
@@ -261,11 +270,12 @@ class IndividualFuturePrediction(_CMFPBase):
     uses_fuser = False
     uses_mapping = False
 
-    def __init__(self, model_cfg, num_classes: Dict[str, int]):
+    def __init__(self, model_cfg, num_classes: Dict[str, int],
+                 fuser_need_weights: bool = False):
         if model_cfg["common"]["fusion_cls"]:
             raise ValueError("fusion_cls must be off for individual "
                              "prediction")
-        super().__init__(model_cfg, num_classes)
+        super().__init__(model_cfg, num_classes, fuser_need_weights)
 
     def forward(self, z: Dict, *, impl="kernel", rng=None):
         z_hat, _ = self._predict_each(z, impl=impl, rng=rng)
@@ -280,12 +290,13 @@ class CMFPScoreFusion(_CMFPBase):
     """RULSTM-style late fusion: per-modality predictions and logits, fused
     by MATT weights (reference :294-351)."""
 
-    def __init__(self, model_cfg, num_classes: Dict[str, int]):
+    def __init__(self, model_cfg, num_classes: Dict[str, int],
+                 fuser_need_weights: bool = False):
         if model_cfg["common"]["fusion_cls"]:
             raise ValueError("fusion_cls is not used by score fusion: the "
                              "scores are fused directly")
         model_cfg["common"]["modality_cls"] = True
-        super().__init__(model_cfg, num_classes)
+        super().__init__(model_cfg, num_classes, fuser_need_weights)
 
     def logit_heads(self, cls_type: str) -> list:
         return ["all-fused"]

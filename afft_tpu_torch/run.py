@@ -5,7 +5,9 @@
 files and ``_target_`` strings as run.py), appends the overrides given after
 it and runs the entry point: ``-m train`` the training loop
 (``afft_tpu_torch.train``), ``-m test`` the eval CLI (``afft_tpu_torch.eval``:
-accuracies, or the logits export with ``+save_name``). On the card unless
+accuracies, or the logits export with ``+save_name``), ``-m
+visualize_attention`` the attention dumps
+(``afft_tpu_torch.visualize_attention``; one process). On the card unless
 ``--device cpu`` is given. With ``-n 1`` the entry point runs in this
 process; with ``-n N`` above 1 the launcher starts N processes through
 ``torch.distributed.run`` on this host, as the reference does (reference
@@ -22,7 +24,8 @@ import sys
 from .config import read_expt_file
 
 ENTRY_POINTS = {"train": "afft_tpu_torch.train",
-                "test": "afft_tpu_torch.eval"}
+                "test": "afft_tpu_torch.eval",
+                "visualize_attention": "afft_tpu_torch.visualize_attention"}
 
 
 def parse_args(argv=None):
@@ -56,6 +59,11 @@ def main(argv=None):
     print('>> Running "{} {}"'.format(args.mode, " ".join(overrides)),
           flush=True)
     entry_args = ["--device", args.device, *overrides]
+    if args.mode == "visualize_attention":
+        if args.nproc_per_node > 1:
+            raise ValueError("-m visualize_attention runs in one process")
+        from .visualize_attention import main as entry
+        return entry(entry_args)
     if args.nproc_per_node > 1:
         cmd = torchrun_command(ENTRY_POINTS[args.mode], args.nproc_per_node,
                                entry_args)

@@ -19,6 +19,12 @@ Usage:
 Without ``--weights`` the model serves seeded random weights and says so.
 The default device is the card; without CUDA the command fails unless
 ``--device cpu`` is given.
+
+``Server.serving_fn`` is the serving graph's function over device tensors
+(``build_serving_fn`` of tools/export_serving.py): int8 input dequantized
+on the device, dense fp32 logits or top-k. ``serving.graphs`` captures it
+in one CUDA graph per batch bucket, ``tools.export_serving`` writes it as a
+bundle and ``tools.serve_concurrent`` batches single clips over it.
 """
 
 from __future__ import annotations
@@ -36,7 +42,15 @@ from .models import BaseModel
 from .weights import load_reference_checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+INPUT_DTYPES = ("native", "int8")
 RANDOM_INIT = "RANDOM-INIT (no checkpoint; not a deployment artifact)"
+
+
+def dequantize(q, scales, dtype):
+    """int8 (B, T, F) features with fp32 (B, T) per-frame scales -> ``dtype``
+    in the JAX graph's order (tools/export_serving.py:93-97): both cast to
+    ``dtype``, then multiplied."""
+    return q.to(dtype) * scales[..., None].to(dtype)
 
 
 def build_model(cfg, num_classes, dtype, device, weights=None):
@@ -73,6 +87,9 @@ class Server:
         self.target = "action" if "action" in num_classes \
             else next(iter(num_classes))
         self.output_len = int(cfg.model.common.get("fp_output_len") or 1)
+        self.modal_dims = {m: int(d) for m, d in
+                           cfg.model.modal_dims.to_container().items()}
+        self.n_frames = int(cfg.data_eval.num_frames)
         self.model, self.weights_source = build_model(
             cfg, num_classes, self.dtype, self.device, weights)
 
@@ -90,6 +107,32 @@ class Server:
         if self.output_len == 1:
             logits = logits[:, 0, :]
         return logits.float()
+
+    def serving_fn(self, input_dtype="native", topk=0):
+        """The serving graph's function (``build_serving_fn``'s ``fwd``):
+        ``fn(feats)``, or ``fn(feats_q, scales)`` for ``input_dtype="int8"``
+        (int8 (B, T, F) features and fp32 (B, T) scales per modality,
+        dequantized on the device), over tensors on the server's device ->
+        fp32 logits as ``head_logits``, or (values, indices) of the top
+        ``topk`` classes. No host work and no host sync: ``GraphServer``
+        captures it."""
+        if input_dtype not in INPUT_DTYPES:
+            raise ValueError(f"input_dtype {input_dtype!r}: one of "
+                             f"{INPUT_DTYPES}")
+        if topk < 0:
+            raise ValueError(f"topk {topk}: 0 (dense logits) or more")
+
+        @torch.no_grad()
+        def head(feats):
+            logits = self.head_logits(self.model(feats))
+            return tuple(torch.topk(logits, topk, dim=-1)) if topk \
+                else logits
+
+        if input_dtype == "native":
+            return head
+        return lambda feats_q, scales: head(
+            {m: dequantize(q, scales[m], self.dtype)
+             for m, q in feats_q.items()})
 
     @torch.no_grad()
     def logits(self, feats):
@@ -151,9 +194,7 @@ def main(argv=None):
     if args.weights is None:
         print(f"WARNING: serving {RANDOM_INIT}: weights drawn from seed "
               f"{cfg.get('seed', 42)}", flush=True)
-    modal_dims = {m: int(d) for m, d in
-                  cfg.model.modal_dims.to_container().items()}
-    requests = random_requests(modal_dims, int(cfg.data_eval.num_frames),
+    requests = random_requests(server.modal_dims, server.n_frames,
                                args.batch, args.requests)
     t0 = time.perf_counter()
     answers = server.answer(requests)

@@ -187,7 +187,39 @@ Phases, in order; any failure exits non-zero and prints no result:
                cut accept set, then -m test on its checkpoint, which
                reloads with its logits through the kernels against the
                plain path (variants_launches in the kernels line);
- 12. report  - one JSON line of per-kernel numbers, then the result line.
+ 12. serving extras - bundles through the port's own tools
+               (afft_tpu_torch.tools.export_serving / serve_bundle): the
+               flagship (bf16, dense logits, buckets 8 / 64 / 256, seeded
+               weights), its rollout (fp_output_len 4, bucket 256) and the
+               flagship with int8 transport and top-5 (8 / 64 / 256), each
+               bucket one CUDA graph (afft_tpu_torch.serving.graphs) whose
+               replay equals the eager kernel forward at the same padded
+               batch bit for bit and holds against the plain path on the
+               same (dequantized) features (5e-2 of max|logit| and the
+               top-1 form, as phase 4); the launches counted at each
+               capture (6 / 6 / 6; 6 fused_block + 24 fused_attention on
+               the rollout; serving_graph_launches in the kernels line), a
+               profile of one replay of each bucket showing each kernel as
+               often as the eager forward's; int8 + top-5 against the
+               native bf16
+               logits within 5% of max|logit|; per bucket the answer (pinned
+               int8 in, top-5 out) and the forward on device features
+               (serving_latency at 1 / 8 / 32 / 64 / 256, the rollout and
+               expt 00 at 8 / 256, each graph's replay held against the
+               plain path too), graph against eager in turns, the device's
+               busy share, capture seconds and pool bytes; the concurrent server (serve_concurrent
+               BundleServer) in a short --sweep (closed loop at 512 clients,
+               open loops at 0.25 / 0.5 / 0.75 of its rate: p50 / p95 / p99,
+               batch_hist), every request answered, a malformed request
+               failing its batch alone. Then on phase 8's cut set and
+               checkpoint: the int8 device cache (half the bf16 payload, the
+               gather within half a quantization step plus bf16 rounding of
+               the bf16 cache's, all-zero frames 0), ``-m test`` with
+               data_on_device_dtype=int8 (exit 0, 6 / 6 / 6 a batch), and
+               ``-m visualize_attention`` (exit 0, the JAX entry point's
+               dump keys, attention rows summing to 1 within bf16
+               rounding);
+ 13. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -2209,12 +2241,16 @@ def phase_gemm(peaks, gen):
 
 # -- the main path ------------------------------------------------------------
 
-def profile_forward(fn, what="one bf16 forward", grad=False):
+def profile_forward(fn, what="one bf16 forward", grad=False, want=None):
     """Device ms by kernel group over one call of ``fn`` (torch.profiler),
-    and the device's busy share of the call's host wall time. The profiler
-    now and then hands back a trace without its device events; such a call
-    is traced again after a pause that grows with each attempt, up to
-    ``PROFILE_ATTEMPTS`` times in all, and the last empty trace fails."""
+    the device's busy share of the call's host wall time, and the call's
+    launches of each afft kernel (``kernels``, by full name). The profiler
+    now and then hands back a trace without its device events, or without
+    some of them; such a call is traced again after a pause that grows with
+    each attempt, up to ``PROFILE_ATTEMPTS`` times in all, and the last
+    such trace fails. A trace counts as whole when it holds device events
+    and, where ``want`` ({afft kernel name: launches}) is given, its afft
+    kernels are exactly ``want``."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -2236,12 +2272,25 @@ def profile_forward(fn, what="one bf16 forward", grad=False):
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
                    and "#" not in e.name]
-        if kernels:
+        counts = {}
+        for e in kernels:
+            if "afft::" in e.name:
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if kernels and (want is None or counts == want):
             break
-        log(f"profile: {what}: the trace holds no device events "
-            f"(attempt {attempt + 1} of {attempts})")
-    if not kernels:
-        raise RuntimeError("the profiler saw no device events")
+        if kernels:
+            lost = {k[:60]: n - counts.get(k, 0) for k, n in want.items()
+                    if counts.get(k, 0) != n}
+            log(f"profile: {what}: the trace's afft kernels are "
+                f"{sum(counts.values())} launches, not the "
+                f"{sum(want.values())} wanted; short by {lost}, names not "
+                f"wanted {[k[:60] for k in counts if k not in want]} "
+                f"(attempt {attempt + 1} of {attempts})")
+        else:
+            log(f"profile: {what}: the trace holds no device events "
+                f"(attempt {attempt + 1} of {attempts})")
+    else:
+        raise RuntimeError(f"{what}: no whole trace from the profiler")
     groups, names = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -2282,7 +2331,8 @@ def profile_forward(fn, what="one bf16 forward", grad=False):
         log(f"profile:     other {us / 1e3:8.3f} ms  {n}")
     return {"busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3,
             "busy_share": busy / wall_us,
-            "groups_ms": {g: us / 1e3 for g, us in groups.items()}}
+            "groups_ms": {g: us / 1e3 for g, us in groups.items()},
+            "kernels": counts}
 
 
 def top1_report(logits, plain, need_decided=True):
@@ -4024,6 +4074,489 @@ def phase_variants():
     return launches, numbers
 
 
+# -- serving extras: CUDA graphs per bucket, the concurrent server, int8 -----
+
+GRAPH_BUCKETS = (8, 64, 256)
+ROLLOUT_BUCKET = 256
+LATENCY_BATCHES = (1, 8, 32, 64, 256)
+LATENCY_ITERS = 10
+EXPT00_BATCHES = (8, 256)
+ROLLOUT_BATCHES = (8, 256)
+ANSWER_ITERS = 10
+SWEEP_SECONDS = 2.0
+SERVING_DIR = os.path.join(REPO, "build", "serving")
+# int8 transport + top-k against the native bf16 path's dense logits, per
+# clip: max |top-k score - the dense logit of its class| over max|logit|,
+# the bound tests/test_serve_concurrent.py:180 holds the JAX bundle to
+INT8_REL_TOL = 0.05
+# softmax rows of a bf16 model: each weight is rounded to bf16 (at most
+# 2^-8 of itself), so a row's sum is 1 within 2^-8 of the weights' sum
+ATTN_ROW_TOL = 2.0 ** -8
+
+
+def _pinned(batch):
+    return tuple({m: x.pin_memory() for m, x in part.items()}
+                 for part in batch)
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _host_turns(fns, iters):
+    """Each callable's mean host ms over ``iters`` calls (each ends with its
+    result on the host), in turns a, b, b, a; the mean of its two turns."""
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        fns[k]()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fns[k]()
+        times[k].append((time.perf_counter() - t0) / iters * 1e3)
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def _hold_plain(label, server, feats, out):
+    """Hold a served output against the plain path's logits on the same
+    device features ({mod: (B, T, F)} in the serving dtype), as
+    ``serve_path`` holds the served forward: finite, within 5e-2 of
+    max|logit|, and the bf16 top-1 form. ``out`` is the dense fp32 logits,
+    or the top-k (values, indices): its values are held against the plain
+    logits of the classes it names, and its first index is its pick. A
+    batch of fewer than 64 rows is too small to ask that half its rows be
+    decided; every row's pick must still lie within 2 ulps of the plain
+    top-1. Returns the numbers."""
+    import torch
+    with torch.no_grad():
+        plain = server.head_logits(server.model(feats, impl="plain"))
+    plain = plain.reshape(-1, plain.shape[-1])
+    if isinstance(out, tuple):
+        vals, idx = (o.reshape(-1, o.shape[-1]) for o in out)
+        ref = plain.gather(1, idx)
+        # the top-k as dense rows, -inf elsewhere: their argmax is the pick
+        dense = torch.full_like(plain, float("-inf")).scatter(1, idx, vals)
+    else:
+        vals = dense = out.reshape(-1, out.shape[-1])
+        ref = plain
+    finite = bool(vals.isfinite().all())
+    max_abs = (vals - ref).abs().max().item()
+    tol = 5e-2 * plain.abs().max().item()
+    top1_ok, text = top1_report(dense, plain, need_decided=len(plain) >= 64)
+    log(f"{label}: vs the plain path on the same features, {len(plain)} "
+        f"rows: finite={finite} max_abs_diff={max_abs:.6g} (tol {tol:.6g} "
+        f"= 5e-2 * max|logit|); {text}")
+    if not (finite and max_abs <= tol and top1_ok):
+        raise AssertionError(f"{label}: the served output strays from the "
+                             "plain path")
+    return {"max_abs_diff": max_abs, "tol": tol}
+
+
+def _hold_graphs_plain(label, graphs):
+    """Every bucket of a ``GraphServer`` whose static inputs hold a batch
+    already (``serving_latency.measure``'s): one replay held against the
+    plain path on those inputs (``_hold_plain``)."""
+    import torch
+    held = {}
+    for b in graphs.buckets:
+        with graphs.stream_context():
+            out = tuple(o.clone() for o in _as_tuple(graphs.replay(b)))
+        graphs.stream.synchronize()
+        out = out if len(out) > 1 else out[0]
+        held[str(b)] = _hold_plain(f"{label} B={b}", graphs.server,
+                                   graphs.inputs[b][0], out)
+    torch.cuda.synchronize()
+    return held
+
+
+def _graph_bundle(label, lines, buckets, expected, **kw):
+    """Export a bundle of ``lines`` at ``buckets`` (bf16, seeded weights
+    unless ``weights``), load it on the card (one CUDA graph a bucket) and
+    hold every bucket's replay against the eager kernel forward at the same
+    padded batch, bit for bit, and against the plain path on the same
+    (dequantized) features (``_hold_plain``); the launches counted at each
+    capture must be ``expected``, and a profile of one replay of each bucket
+    must show the afft kernels of a profile of one eager forward, each as
+    often. The two profiles give the device's busy share of each. Returns
+    (graph server, eager server, meta, numbers)."""
+    import shutil
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.ops import launch_counts, reset_launches
+    from afft_tpu_torch.serving.graphs import EagerBucketServer
+    from afft_tpu_torch.tools.export_serving import export_bundle
+    from afft_tpu_torch.tools.serve_bundle import (load_bundle_buckets,
+                                                   random_batch)
+
+    out = os.path.join(SERVING_DIR, label)
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    export_bundle(lines, out, {"action": 3806}, list(buckets), "bfloat16",
+                  log=log, device="cuda", **kw)
+    export_s = time.perf_counter() - t0
+    # the main path: counts set to 0 just before the load (build, warm-up,
+    # capture), read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    runner, meta = load_bundle_buckets(out, "cuda", log=log)
+    load_s = time.perf_counter() - t0
+    counted = launch_counts()
+    eager = EagerBucketServer(runner.server, runner.buckets,
+                              input_dtype=runner.input_dtype,
+                              topk=runner.topk)
+    full = dict.fromkeys(counted, 0)
+    full.update(expected)
+    numbers = {"export_s": export_s, "cold_start_s": load_s,
+               "capture_s": dict(runner.capture_s),
+               "pool_bytes": dict(runner.pool_bytes),
+               "capture_launches": dict(runner.capture_launches),
+               "load_launches": {k: n for k, n in counted.items() if n},
+               "plain": {}, "busy": {}}
+    for b in runner.buckets:
+        got = dict.fromkeys(counted, 0)
+        got.update(runner.capture_launches[b])
+        if got != full:
+            raise AssertionError(f"{label} bucket {b}: launches counted at "
+                                 f"capture {runner.capture_launches[b]}, "
+                                 f"expected {expected}")
+        batch = _pinned(random_batch(meta, b, seed=b))
+        with runner.stream_context():
+            graph = tuple(o.clone() for o in _as_tuple(runner.run(b, *batch)))
+        runner.stream.synchronize()
+        with torch.no_grad():
+            ref = _as_tuple(eager.run(b, *batch))
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, e) for g, e in zip(graph, ref))
+        log(f"{label} bucket {b}: replay vs the eager kernel forward at the "
+            f"same padded batch: bit for bit {same}; outputs "
+            f"{[tuple(o.shape) for o in graph]}, finite "
+            f"{bool(graph[0].float().isfinite().all())}")
+        if not same or not bool(graph[0].float().isfinite().all()):
+            raise AssertionError(f"{label} bucket {b}: graph replay differs "
+                                 "from the eager forward")
+        feats = {m: x.to("cuda") for m, x in batch[0].items()}
+        if runner.int8:
+            feats = {m: serve.dequantize(q, batch[1][m].to("cuda"),
+                                         runner.server.dtype)
+                     for m, q in feats.items()}
+        numbers["plain"][str(b)] = _hold_plain(
+            f"{label} bucket {b}", runner.server, feats,
+            graph if len(graph) > 1 else graph[0])
+        prof = {"eager": profile_forward(lambda: eager.fn(*runner.inputs[b]),
+                                         f"{label} b{b} eager forward")}
+        prof["graph"] = profile_forward(lambda: runner.replay(b),
+                                        f"{label} b{b} graph replay",
+                                        want=prof["eager"]["kernels"])
+        numbers["busy"][str(b)] = {
+            k: {"busy_ms": v["busy_ms"], "wall_ms": v["wall_ms"],
+                "busy_share": v["busy_share"]} for k, v in prof.items()}
+        numbers["replay_kernels"] = {
+            k[:80]: n for k, n in prof["graph"]["kernels"].items()}
+        log(f"{label} bucket {b}: a profile of one replay shows the eager "
+            f"forward's {sum(prof['graph']['kernels'].values())} launches "
+            f"of {len(prof['graph']['kernels'])} afft kernels")
+    return runner, eager, meta, numbers
+
+
+def phase_serving_graphs():
+    """Bundles on the card: the flagship (dense logits, buckets 8 / 64 /
+    256), its rollout (``fp_output_len`` 4, one bucket) and the flagship
+    with int8 transport and top-5 (8 / 64 / 256), each bucket a CUDA graph
+    held against the eager kernel forward and the plain path; int8 against
+    the native bf16 path; per bucket the answer (host in, top-k out) and
+    the forward on device features, graph against eager in turns, the
+    device's busy share, capture seconds and pool bytes; ``serving_latency``
+    at 1 / 8 / 32 / 64 / 256 (the rollout and expt 00 at 8 / 256), each of
+    its graphs held against the plain path; the concurrent server's sweep
+    and a malformed request. Returns
+    ({kernel: {graph: launches counted at its capture}}, numbers)."""
+    import numpy as np
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.config import read_expt_file
+    from afft_tpu_torch.data.readers import PackedFeatureStore
+    from afft_tpu_torch.tools import serve_concurrent as SC
+    from afft_tpu_torch.tools import serving_latency
+    from afft_tpu_torch.tools.export_serving import BUNDLE_WEIGHTS
+    from afft_tpu_torch.tools.serve_bundle import random_batch
+
+    lines = read_expt_file(FLAGSHIP)
+    cfg = serve.load_config(FLAGSHIP)
+    dims = (int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers),
+            len(cfg.model.modal_dims.to_container()))
+    numbers, graph_launches = {}, {}
+
+    def record(label, runner):
+        for b, counts in runner.capture_launches.items():
+            for k, n in counts.items():
+                graph_launches.setdefault(k, {})[f"{label} b{b}"] = n
+
+    flag, flag_eager, _, numbers["flagship"] = _graph_bundle(
+        "flagship", lines, GRAPH_BUCKETS, SERVED_PATHS[0][3](*dims))
+    record("flagship", flag)
+    roll, _, _, numbers["rollout"] = _graph_bundle(
+        "rollout", lines + [f"model.common.fp_output_len={ROLLOUT_LEN}"],
+        (ROLLOUT_BUCKET,), SERVED_PATHS[1][3](*dims))
+    record("rollout", roll)
+    numbers["rollout_latency_ms"], lat = serving_latency.measure(
+        roll.server, ROLLOUT_BATCHES, LATENCY_ITERS, log=log)
+    numbers["rollout_latency_plain"] = _hold_graphs_plain("rollout latency",
+                                                          lat)
+    del roll, lat
+    torch.cuda.empty_cache()
+    weights = torch.load(os.path.join(SERVING_DIR, "flagship",
+                                      BUNDLE_WEIGHTS), map_location="cpu")
+    i8, i8_eager, i8_meta, numbers["int8_top5"] = _graph_bundle(
+        "int8_top5", lines, GRAPH_BUCKETS, SERVED_PATHS[0][3](*dims),
+        input_dtype="int8", topk=5, weights=weights)
+    record("int8_top5", i8)
+
+    # int8 transport against the native bf16 path, the same weights and clips
+    b = GRAPH_BUCKETS[-1]
+    rng = np.random.default_rng(11)
+    x = {m: rng.standard_normal((b, i8.n_frames, d), dtype=np.float32)
+         for m, d in i8.modal_dims.items()}
+    q, s = {}, {}
+    for m, v in x.items():
+        qm, sm = PackedFeatureStore._quantize_rows(v.reshape(-1, v.shape[-1]))
+        q[m] = torch.from_numpy(qm.reshape(v.shape)).pin_memory()
+        s[m] = torch.from_numpy(sm.reshape(v.shape[:2])).pin_memory()
+    with flag.stream_context():
+        dense = flag.run(b, {m: torch.from_numpy(v).bfloat16().pin_memory()
+                             for m, v in x.items()}).clone()
+    with i8.stream_context():
+        vals, idx = (o.clone() for o in i8.run(b, q, s))
+    torch.cuda.synchronize()
+    rel = ((vals - dense.gather(1, idx)).abs().amax(1)
+           / dense.abs().amax(1)).max().item()
+    top1 = (idx[:, 0] == dense.argmax(1)).float().mean().item()
+    T, F = i8.n_frames, sum(i8.modal_dims.values())
+    log(f"int8 transport + top-5 vs the native bf16 dense logits, B={b}: "
+        f"max over clips of |top-k score - its dense logit| / max|logit| = "
+        f"{rel:.6g} (tol {INT8_REL_TOL}, tests/test_serve_concurrent.py:180)"
+        f"; top-1 agreement {top1:.4f}; feature bytes a clip over the link "
+        f"{T * F + 4 * T * len(x)} (int8 + scales) vs {2 * T * F} (bf16)")
+    if not rel < INT8_REL_TOL:
+        raise AssertionError("int8 transport strays from the native path")
+    numbers["int8_vs_native"] = {"rel": rel, "top1_agree": top1}
+
+    # per bucket: the answer (host int8 in, top-5 out), graph vs eager
+    answer = {}
+    for b in i8.buckets:
+        batch = _pinned(random_batch(i8_meta, b, seed=b))
+        hosts = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                      for o in i8.outputs[b])
+
+        def graph(b=b, batch=batch, hosts=hosts):
+            with i8.stream_context():
+                for h, o in zip(hosts, i8.run(b, *batch)):
+                    h.copy_(o, non_blocking=True)
+            i8.stream.synchronize()
+
+        def eager(b=b, batch=batch):
+            with torch.no_grad():
+                for o in i8_eager.run(b, *batch):
+                    o.cpu()
+
+        answer[str(b)] = _host_turns({"graph": graph, "eager": eager},
+                                     ANSWER_ITERS)
+        log(f"int8_top5 bucket {b}: answer ms (pinned int8 + scales in, "
+            f"top-5 on the host) graph {answer[str(b)]['graph']:.3f}, eager "
+            f"{answer[str(b)]['eager']:.3f}")
+    numbers["answer_ms"] = answer
+
+    # per bucket: the forward on device features, graph vs eager in turns
+    # (serving_latency), and the device's busy share of one call
+    latency, lat_graphs = serving_latency.measure(
+        flag.server, LATENCY_BATCHES, LATENCY_ITERS, log=log)
+    numbers["latency_ms"] = latency
+    numbers["latency_capture_s"] = dict(lat_graphs.capture_s)
+    numbers["latency_plain"] = _hold_graphs_plain("flagship latency",
+                                                  lat_graphs)
+    del lat_graphs
+    # expt 00 (12 launches a forward, the most host-bound served path)
+    _, expt00, _, expected00 = VARIANT_SERVED[0]
+    cfg00 = serve.load_config(os.path.join(EXPTS, expt00))
+    want00 = expected00(0, int(cfg00.model.common.fp_layers),
+                        len(cfg00.model.modal_dims.to_container()))
+    numbers["expt00_latency_ms"], g00 = serving_latency.measure(
+        serve.Server(cfg00, {"action": 3806}, "bfloat16", "cuda"),
+        EXPT00_BATCHES, LATENCY_ITERS, log=log)
+    for b, counts in g00.capture_launches.items():
+        if counts != want00:
+            raise AssertionError(f"expt 00 bucket {b}: launches counted at "
+                                 f"capture {counts}, expected {want00}")
+    numbers["expt00_latency_plain"] = _hold_graphs_plain("expt00 latency",
+                                                         g00)
+    record("expt00", g00)
+    del g00, flag, flag_eager, i8, i8_eager
+    torch.cuda.empty_cache()
+
+    # the concurrent server over the int8 + top-5 bundle
+    server = SC.BundleServer(os.path.join(SERVING_DIR, "int8_top5"),
+                             max_wait_ms=2.0, max_inflight=2, device="cuda",
+                             log=log)
+    sweep = []
+    try:
+        def report(res):
+            res["batch_hist"] = {str(k): v for k, v in
+                                 server.batch_hist.items() if v}
+            for k in server.batch_hist:
+                server.batch_hist[k] = 0
+            # the host's seconds by stage and thread since the last report;
+            # the scheduler thread's busy share of that wall
+            res["host_s"] = server.take_host_times()
+            res["scheduler_busy_share"] = sum(
+                res["host_s"][k] for k in ("assemble", "quantize", "stage",
+                                           "replay")) / res["host_s"]["wall_s"]
+            log(f"serve_concurrent: {json.dumps(res)}")
+            sweep.append(res)
+
+        SC.sweep(server, SWEEP_SECONDS, report)
+        rng = np.random.default_rng(12)
+        good = SC._random_clip(server.meta, rng)
+        first = [server.submit(good) for _ in range(5)]
+        first = [f.result(timeout=120)[0] for f in first]
+        bad = server.submit({m: np.zeros((server.meta["num_frames"], d + 1),
+                                         np.float32)
+                             for m, d in server.meta["modal_dims"].items()})
+        try:
+            bad.result(timeout=120)
+            raise AssertionError("a malformed request was answered")
+        except ValueError as e:
+            log(f"serve_concurrent: the malformed request failed its batch: "
+                f"{e}")
+        after = [server.submit(good) for _ in range(5)]
+        outs = [f.result(timeout=120)[0] for f in after]
+        # one clip, ten answers around the failed batch: all the same
+        same = all(np.array_equal(o[0], first[0][0]) and
+                   np.array_equal(o[1], first[0][1]) for o in first + outs)
+        log(f"serve_concurrent: 5 answers before and 5 after it, one clip: "
+            f"top-5 {first[0][1].tolist()}, all equal {same}")
+        if not same:
+            raise AssertionError("the server's answers to one clip differ")
+    finally:
+        server.close()
+    numbers["sweep"] = sweep
+    return graph_launches, numbers
+
+
+def _fresh_process(phase):
+    """``phase()`` of this script in a process of its own (its output
+    joins this one's), returning its result. Phase 12's graphs run there:
+    late in a long smoke process, a trace of a graph replay came back
+    without the replay's first ~30 kernels, every attempt, while every
+    fresh process traced it whole."""
+    import torch
+    torch.cuda.empty_cache()  # the card's memory for the other process
+    out = os.path.join(SERVING_DIR, f"{phase}.json")
+    os.makedirs(SERVING_DIR, exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as CS; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            f"res = CS.{phase}(); "
+            "json.dump(res, open(sys.argv[2], 'w'))")
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, "-c", code, REPO, out],
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase}: its process exited with "
+                             f"{proc.returncode}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def phase_serving_data():
+    """On phase 8's cut set and checkpoint: the int8 device cache against the
+    bf16 one (half the payload; the gather within the int8 bound), ``-m
+    test`` with ``data_on_device_dtype=int8`` and ``-m
+    visualize_attention`` (its dumps' keys and rows). Returns numbers."""
+    import shutil
+    import numpy as np
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.data.device_cache import DeviceFeatureCache
+    from afft_tpu_torch.data.loader import get_dataset
+    from afft_tpu_torch.train.loop import get_transforms
+
+    workdir = os.path.join(REPO, "build", "launcher")
+    init = f"init_from_model={EVAL_MODEL}/checkpoint_best"
+    cfg = serve.load_config(os.path.join(EXPTS, EVAL_EXPT),
+                            (f"cwd={workdir}", init, *LAUNCH_OVERRIDES))
+    dataset = get_dataset(cfg.dataset_eval, cfg.data_eval,
+                          get_transforms(cfg, train=False))
+    bf16 = DeviceFeatureCache(dataset, "cuda")
+    int8 = DeviceFeatureCache(dataset, "cuda", dtype="int8")
+    payload = sum(f.numel() for f in int8.features.values())
+    if 2 * payload != bf16.nbytes:
+        raise AssertionError("the int8 payload is not half the bf16 cache")
+    indices = np.arange(len(dataset))
+    idx = torch.from_numpy(indices).cuda()
+    host = dataset.load_batch(indices)["data_dict"]
+    worst, zeros = 0.0, 0
+    for m in int8.features:
+        x = torch.from_numpy(np.asarray(host[m], np.float32)).cuda()
+        g8, g16 = int8.take(m, idx).float(), bf16.take(m, idx).float()
+        step = x.abs().amax(-1, keepdim=True) / 127.0
+        bound = 0.5 * step * (1 + 1e-6) + 2.0 ** -8 * (g8.abs() + x.abs())
+        worst = max(worst, ((g8 - g16).abs() / bound.clamp_min(1e-30))
+                    .max().item())
+        zero = (x == 0).all(-1)
+        zeros += int(zero.sum())
+        if bool((g8[zero] != 0).any()):
+            raise AssertionError(f"{m}: an all-zero frame is not zero")
+    log(f"device cache int8 on {len(dataset)} clips: {int8.nbytes} bytes "
+        f"({payload} payload + scales) vs bf16 {bf16.nbytes}; worst |int8 - "
+        f"bf16| over its bound (half a step + bf16 rounding) {worst:.4f} "
+        "(<= 1); all-zero frames "
+        f"{zeros}, each exactly 0")
+    if not worst <= 1.0:
+        raise AssertionError("the int8 cache strays beyond its bound")
+    numbers = {"cache": {"clips": len(dataset), "int8_bytes": int8.nbytes,
+                         "int8_payload_bytes": payload,
+                         "bf16_bytes": bf16.nbytes,
+                         "worst_over_bound": worst, "zero_frames": zeros}}
+    del bf16, int8
+    torch.cuda.empty_cache()
+    run = _eval_run(workdir, "eval-int8",
+                    (init, "save_name=null", "data_on_device_dtype=int8"))
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    _counts_ok("eval int8", run["launches"], {
+        "fused_block": depth * run["batches"],
+        "gpt2_attn_half": layers * run["batches"],
+        "gpt2_mlp_half": layers * run["batches"]})
+    numbers["eval_int8"] = {k: run[k] for k in ("clips", "batches",
+                                                "clips_per_s", "seconds")}
+
+    out_dir = os.path.join(workdir, "attention_maps")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    _, vis_s = _logged_run(
+        [sys.executable, "-m", "afft_tpu_torch.run", "-c",
+         os.path.join(EXPTS, EVAL_EXPT), "-m", "visualize_attention",
+         *LAUNCH_OVERRIDES, init, f"+attn_out_dir={out_dir}",
+         "+attn_max_batches=1"], workdir, "visualize", EVAL_TIMEOUT)
+    dump = np.load(os.path.join(out_dir, "batch_0000.npz"),
+                   allow_pickle=False)
+    want = {"uids", "all-fused/modality_attns",
+            "all-fused/temporal_attns/gpt2_att_0"}
+    if set(dump.files) != want or dump["uids"].dtype.kind != "U":
+        raise AssertionError(f"visualize: dump keys {dump.files}, expected "
+                             f"{sorted(want)} with unicode uids")
+    rows = {k: float(np.abs(dump[k].astype(np.float64).sum(-1) - 1).max())
+            for k in want - {"uids"}}
+    log(f"visualize_attention: exit 0 in {vis_s:.1f} s; dump keys "
+        f"{sorted(dump.files)}, shapes "
+        f"{ {k: dump[k].shape for k in dump.files} }; max |row sum - 1| "
+        f"{rows} (tol {ATTN_ROW_TOL:.6g}: bf16 weights); png "
+        f"{os.path.exists(os.path.join(out_dir, 'modality_attention.png'))}")
+    if not all(v <= ATTN_ROW_TOL for v in rows.values()):
+        raise AssertionError("visualize: attention rows do not sum to 1")
+    numbers["visualize"] = {"seconds": vis_s, "max_row_err": rows}
+    return numbers
+
+
 def main():
     try:
         import torch
@@ -4120,12 +4653,23 @@ def main():
             k["variants_launches"] = variant_launches.get(k["name"], 0)
         variant_numbers["seconds"] = time.perf_counter() - t0
         log(json.dumps({"variants": variant_numbers}))
+
+        # 12. serving extras (bundles as CUDA graphs per bucket, int8
+        # transport and top-k, the concurrent server; the int8 device cache,
+        # -m test on it and -m visualize_attention on phase 8's checkpoint)
+        t0 = time.perf_counter()
+        graph_launches, extras = _fresh_process("phase_serving_graphs")
+        extras.update(phase_serving_data())
+        for k in kernels.values():
+            k["serving_graph_launches"] = graph_launches.get(k["name"], {})
+        extras["seconds"] = time.perf_counter() - t0
+        log(json.dumps({"serving_extras": extras}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 12. report
+    # 13. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
@@ -4133,11 +4677,12 @@ def main():
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("main_path", "plain_path_launches",
                               "launcher_launches", "eval_launches",
-                              "variants_launches")
+                              "variants_launches", "serving_graph_launches")
             if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
             for label, sub in e.items()
-            if isinstance(sub, dict) and label != "redesign"}}
+            if isinstance(sub, dict)
+            and label not in ("redesign", "serving_graph_launches")}}
         for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

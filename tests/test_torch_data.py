@@ -10,7 +10,8 @@ and against the reference fixtures, on the CPU.
   byte-identical and read back to equal values by the other (no
   ``ml_dtypes`` in the port);
 - the port's native LMDB reader equals ``afft_tpu.data.lmdb_native``;
-- the device cache on ``device="cpu"`` equals the loader; int8 raises;
+- the device cache on ``device="cpu"`` equals the loader; its int8
+  storage equals the JAX package's int8 cache;
 - class statistics equal the JAX package's.
 """
 
@@ -372,8 +373,9 @@ def test_native_lmdb_reader_equals_the_jax_one(tmp_path):
 def test_device_cache_on_cpu_equals_the_loader(synth):
     """The device cache (here on the CPU) serves the loader's batches in the
     loader's order, features rounded to bf16 as it stores them, with the
-    same padding and valid mask; int8 storage raises naming the roadmap."""
-    port, _ = synth["training1.csv"]
+    same padding and valid mask; its int8 storage gathers what the JAX
+    package's int8 cache gathers (``_int8_cache_equals_the_jax_cache``)."""
+    port, jax_ds = synth["training1.csv"]
     cache = DeviceFeatureCache(port, "cpu")
     assert cache.nbytes == sum(f.numel() * 2 for f in cache.features.values())
     got = list(cache.iter_batches(7, shuffle=True, seed=3, epoch=2))
@@ -391,8 +393,61 @@ def test_device_cache_on_cpu_equals_the_loader(synth):
                                           w[key]["action"])
         np.testing.assert_array_equal(g["idx"], w["idx"])
         np.testing.assert_array_equal(g["valid"], w["valid"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A\.6"):
-        DeviceFeatureCache(port, "cpu", dtype="int8")
+    _int8_cache_equals_the_jax_cache(port, jax_ds, cache)
+
+
+def _int8_cache_equals_the_jax_cache(port, jax_ds, bf16_cache):
+    """int8 storage on the CPU against afft_tpu's int8 DeviceFeatureCache:
+    the same batches within one bf16 ulp (both dequantize in fp32 and round
+    once to bf16), all-zero frames exactly 0, the payload half the bf16
+    cache's bytes (plus the fp32 (N, T) scales)."""
+    from afft_tpu.data.device_cache import DeviceFeatureCache as JaxCache
+    cache = DeviceFeatureCache(port, "cpu", dtype="int8")
+    jax_cache = JaxCache(jax_ds, dtype="int8")
+    payload = sum(f.numel() for f in cache.features.values())
+    assert all(f.dtype == torch.int8 for f in cache.features.values())
+    assert 2 * payload == bf16_cache.nbytes
+    assert cache.nbytes == payload + sum(
+        s.numel() * 4 for s in cache.scales.values())
+    rng = np.random.default_rng(4)
+    indices = rng.permutation(len(port))[:13]
+    got, want = cache.batch(indices), jax_cache.batch(indices)
+    for m in MODS:
+        g = got["data_dict"][m]
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy()
+        w = np.asarray(want["data_dict"][m].astype(np.float32))
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
+        assert (np.abs(g - w) <= ulp).all(), m
+        host = np.asarray(port.load_batch(indices)["data_dict"][m])
+        zero = (host == 0).all(axis=-1)
+        assert (g[zero] == 0).all()
+        # int8 bound: half a quantization step of the frame, then bf16
+        step = np.abs(host).max(axis=-1, keepdims=True) / 127.0
+        assert (np.abs(g - host) <= 0.5 * step + np.abs(host) * 2 ** -8
+                + 1e-7).all(), m
+    np.testing.assert_array_equal(got["uid"], want["uid"])
+
+    class ZeroFrames:
+        """``port`` with frame 2 of every clip blanked to all zeros."""
+
+        def __getattr__(self, name):
+            return getattr(port, name)
+
+        def __len__(self):
+            return len(port)
+
+        def load_batch(self, idx):
+            batch = dict(port.load_batch(idx))
+            batch["data_dict"] = {m: np.array(v) for m, v in
+                                  batch["data_dict"].items()}
+            for v in batch["data_dict"].values():
+                v[:, 2] = 0
+            return batch
+
+    blank = DeviceFeatureCache(ZeroFrames(), "cpu", dtype="int8")
+    for m, g in blank.batch(indices)["data_dict"].items():
+        assert (g[:, 2] == 0).all() and (g[:, 1] != 0).any(), m
 
 
 def test_class_statistics_equal_the_jax_package(synth):
