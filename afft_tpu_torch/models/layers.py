@@ -13,6 +13,7 @@ afft_tpu/models/layers.py (not the same numbers).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -67,6 +68,24 @@ class RngStream:
     def row_offset(self, local_rows: int) -> int:
         """The global batch's row that this rank's first row is."""
         return self.rank * int(local_rows)
+
+    @contextlib.contextmanager
+    def microbatch(self, index: int, count: int):
+        """Draws for microbatch ``index`` of ``count`` (``train.grad_accum``):
+        each rank's local batch is cut into ``count`` equal chunks, and the
+        step's global batch is ordered microbatch-major (chunk 0 of every
+        rank in rank order, then chunk 1, ...). Inside, a draw covers that
+        whole global batch and keeps the rows of this rank's chunk
+        ``index``, and the training kernels' masks start at its first
+        row. With the generators reset to the step's start before each
+        microbatch, every row gets the mask it gets in one pass over the
+        batch so ordered."""
+        rank, world = self.rank, self.world
+        self.rank, self.world = index * world + rank, count * world
+        try:
+            yield self
+        finally:
+            self.rank, self.world = rank, world
 
 
 def _uniform_like(shape, x, rng):

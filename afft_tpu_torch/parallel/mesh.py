@@ -32,6 +32,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+# elements of fp32 gradient that one collective moves (256 MB): the
+# buckets of data parallelism and of ZeRO-1
+GRAD_BUCKET = 1 << 26
+
 # the process group's own timeout: a rank that dies mid-collective fails
 # the others within this time instead of hanging them
 TIMEOUT = timedelta(minutes=30)
@@ -193,6 +197,50 @@ def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
     if t.dtype == torch.bool:
         return out.bool()
     return out.view(t.dtype)
+
+
+def reduce_scatter_sum(flat: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the elementwise sum of ``flat`` (1-D, its length
+    a multiple of the process count) over every rank: NCCL's
+    reduce-scatter; gloo has none, so an all-reduce and the rank's slice,
+    the same numbers. Without a process group, ``flat``."""
+    if not active():
+        return flat
+    rank, world = rank_and_world()
+    size = flat.numel() // world
+    if dist.get_backend() == "nccl" and flat.is_cuda:
+        out = torch.empty(size, dtype=flat.dtype, device=flat.device)
+        dist.reduce_scatter_tensor(out, flat.contiguous())
+        return out
+    return all_reduce_sum(flat)[rank * size:(rank + 1) * size]
+
+
+def all_gather_flat(local: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``local`` (1-D, equal lengths) concatenated in rank
+    order: NCCL's all-gather into one tensor, else ``all_gather_cat``."""
+    if not active():
+        return local
+    if dist.get_backend() == "nccl" and local.is_cuda:
+        _, world = rank_and_world()
+        out = torch.empty(local.numel() * world, dtype=local.dtype,
+                          device=local.device)
+        dist.all_gather_into_tensor(out, local.contiguous())
+        return out
+    return all_gather_cat(local)
+
+
+def buckets(tensors, limit: int):
+    """Consecutive groups of ``tensors`` of at most ``limit`` elements (a
+    larger tensor alone)."""
+    bucket, size = [], 0
+    for t in tensors:
+        if bucket and size + t.numel() > limit:
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.numel()
+    if bucket:
+        yield bucket
 
 
 def barrier() -> None:

@@ -9,7 +9,7 @@ function in one process for the reference:
 
 SPEC.json: {"device": "cpu" | "cuda" | "cuda:K", "out": directory, "jobs":
 [job, ...]}. Each job writes ``<out>/<name>.rank<r>.pt`` (torch.save of a
-dict) on every rank:
+dict, with the process group's ``"backend"``) on every rank:
 
 - ``{"kind": "train", "name", "expt", "overrides", "classes", "batch",
   "steps", "seed", "lrs", "weights": state-dict file or null, "lam": [λ a
@@ -18,7 +18,17 @@ dict) on every rank:
   from ``seed``; each rank takes its contiguous share (``batch / world``
   rows). Writes the losses of every step, each step's host time to its
   end (the device synchronised), the final state dict (rank 0, unless
-  ``"keep_state": false``) and the kernel launches of this rank.
+  ``"keep_state"`` is false, or ``"host"``: held in this process for a
+  later job's ``"against"`` and not written), the optimizer-state bytes and
+  the kernel launches of this rank. Optional keys: ``"against": name``
+  compares rank 0's final state, every element of every tensor, with that
+  earlier job's held one (``"state_diff"``, the largest |difference|, and
+  ``"state_scale"``, the held state's max|w|); ``"save": {"path", "after"}``
+  writes a checkpoint after that many steps (every rank takes part:
+  ZeRO-1 gathers its state); ``"resume": {"path", "after"}`` loads one and
+  runs the steps after it; ``"order": R`` (one process, ``grad_accum`` M)
+  orders each global batch microbatch-major as R processes split it
+  (``microbatch_major``).
 - ``{"kind": "eval", "name", "expt", "overrides", "batch", "seed"}``: the
   expt's eval set through ``eval.evaluate.collect_logits`` on this rank's
   shard, merged over the ranks, and through the whole set on every rank.
@@ -68,6 +78,24 @@ def make_batches(cfg, classes, batch: int, steps: int, seed: int,
     return out
 
 
+def microbatch_major(batch, ranks: int, chunks: int):
+    """A global batch reordered as ``chunks`` microbatches over ``ranks``
+    processes form it (``train.grad_accum``): chunk 0 of every rank's
+    contiguous share in rank order, then chunk 1, ... One process at
+    ``grad_accum=chunks`` over the result takes the step that ``ranks``
+    processes take over ``batch``."""
+    def take(v):
+        if isinstance(v, dict):
+            return {k: take(x) for k, x in v.items()}
+        if v is None or np.ndim(v) == 0:
+            return v
+        b = len(v) // (ranks * chunks)
+        order = [r * chunks * b + m * b + i for m in range(chunks)
+                 for r in range(ranks) for i in range(b)]
+        return v[order]
+    return {k: take(v) for k, v in batch.items()}
+
+
 def shard(batch, rank: int, world: int):
     """This rank's contiguous rows of a global batch."""
     def take(v):
@@ -78,6 +106,10 @@ def shard(batch, rank: int, world: int):
         rows = len(v) // world
         return v[rank * rows:(rank + 1) * rows]
     return {k: take(v) for k, v in batch.items()}
+
+
+# rank 0's final states of the jobs with ``"keep_state": "host"``, by name
+_HELD = {}
 
 
 def _cfg(job):
@@ -103,9 +135,21 @@ def run_train(job, device):
     batches = make_batches(cfg, classes, job["batch"], job["steps"],
                            job["seed"], job.get("invalid", ()))
     cuda = runner.device.type == "cuda"
+    first = 0
+    if job.get("resume"):
+        from ..train import checkpoint as CK
+        ckpt = CK.load_checkpoint(job["resume"]["path"])
+        runner.load_model_state(ckpt["model"])
+        runner.optimizer.load_state_dict(ckpt["optimizer"])
+        runner.load_rng_state(ckpt["rng"])
+        first = job["resume"]["after"]
     reset_launches()
     losses, step_ms = [], []
     for i, batch in enumerate(batches):
+        if i < first:
+            continue
+        if job.get("order") and world == 1:
+            batch = microbatch_major(batch, job["order"], runner.grad_accum)
         local = shard(batch, rank, world)
         if job.get("lam") is not None:
             local["mixup_lam"] = np.float32(job["lam"][i])
@@ -116,11 +160,32 @@ def run_train(job, device):
         if cuda:
             torch.cuda.synchronize(runner.device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    return {"losses": losses, "launches": launch_counts(), "rank": rank,
-            "world": world, "step_ms": step_ms,
-            "state": {k: v.detach().cpu() for k, v in
-                      runner.model.state_dict().items()}
-            if rank == 0 and job.get("keep_state", True) else None}
+        if job.get("save") and i + 1 == job["save"]["after"]:
+            from ..train import checkpoint as CK
+            CK.save_checkpoint(job["save"]["path"],
+                               runner.model.state_dict(),
+                               runner.optimizer.state_dict(), 0, i + 1, 0.0,
+                               rng_state=runner.rng_state())
+            CK.wait_for_pending_saves()
+    record = {"losses": losses, "launches": launch_counts(), "rank": rank,
+              "world": world, "step_ms": step_ms,
+              "state_bytes": runner.optimizer.state_bytes(), "state": None}
+    keep = job.get("keep_state", True)
+    if rank == 0 and (keep or job.get("against")):
+        state = {k: v.detach().cpu()
+                 for k, v in runner.model.state_dict().items()}
+        if job.get("against"):
+            other = _HELD[job["against"]]
+            record["state_diff"] = max(
+                float((state[k].float() - v.float()).abs().max())
+                for k, v in other.items())
+            record["state_scale"] = max(float(v.float().abs().max())
+                                        for v in other.values())
+        if keep == "host":
+            _HELD[job["name"]] = state
+        elif keep:
+            record["state"] = state
+    return record
 
 
 def run_eval(job, device):
@@ -195,7 +260,8 @@ def main(argv=None):
     os.makedirs(spec["out"], exist_ok=True)
     try:
         for job in spec["jobs"]:
-            record = JOBS[job["kind"]](job, info["device"])
+            record = {**JOBS[job["kind"]](job, info["device"]),
+                      "backend": info["backend"]}
             torch.save(record, os.path.join(
                 spec["out"], f"{job['name']}.rank{info['rank']}.pt"))
     finally:

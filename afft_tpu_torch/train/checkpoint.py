@@ -11,7 +11,10 @@ training actually resumes (the reference never reloads optimizer or epoch).
 Writes are atomic (write a sibling, swap by renames; a crash leaves the
 previous checkpoint under ``.old-tmp``, which ``load_checkpoint``
 recovers) and may run on a background thread (``block=False``): newest
-payload per path wins, errors surface on the next save or ``wait``.
+payload per path wins, errors surface on the next save or ``wait``. One
+payload saved to several paths (an epoch that is both the best and the
+last) is written once; the other paths are hard links to that file, which
+a later write of either path replaces without touching the other.
 ``init_from_model`` merges checkpoints or reference ``.pth`` files into a
 state dict by name and shape, optionally filtered by module prefix
 (reference train.py:55-103).
@@ -46,20 +49,17 @@ _OLD_SUFFIX = ".old-tmp"
 _NEW_SUFFIX = ".new-tmp"
 
 
-def _write_and_swap(path: Path, payload: dict, epoch):
-    """Write to ``<path>.new-tmp``, then swap it in by renames, so a
-    complete checkpoint is on disk at every instant; a crash between the
-    two renames leaves it under ``<path>.old-tmp``, which load_checkpoint
-    recovers (afft_tpu/train/checkpoint.py:43-68)."""
+def _swap_in(path: Path, fill, epoch, how=""):
+    """``fill(<path>.new-tmp)``, then swap it in by renames, so a complete
+    checkpoint is on disk at every instant; a crash between the two renames
+    leaves it under ``<path>.old-tmp``, which load_checkpoint recovers
+    (afft_tpu/train/checkpoint.py:43-68)."""
     new_tmp = path.with_name(path.name + _NEW_SUFFIX)
     old_tmp = path.with_name(path.name + _OLD_SUFFIX)
     path.parent.mkdir(parents=True, exist_ok=True)
     if new_tmp.exists():  # a stale one from a crash
         new_tmp.unlink()
-    with open(new_tmp, "wb") as f:
-        torch.save(payload, f)
-        f.flush()
-        os.fsync(f.fileno())
+    fill(new_tmp)
     if old_tmp.exists():
         old_tmp.unlink()
     if path.exists():
@@ -67,7 +67,26 @@ def _write_and_swap(path: Path, payload: dict, epoch):
     new_tmp.rename(path)
     if old_tmp.exists():
         old_tmp.unlink()
-    logging.info("Stored checkpoint at epoch %s to %s", epoch, path)
+    logging.info("Stored checkpoint at epoch %s to %s%s", epoch, path, how)
+
+
+def _write_and_swap(path: Path, payload: dict, epoch):
+    """Write ``payload`` to ``path`` atomically."""
+    def fill(tmp):
+        with open(tmp, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+    _swap_in(path, fill, epoch)
+
+
+def _save_to(paths, payload: dict, epoch):
+    """``payload`` to ``paths[0]``; each further path swaps in a hard link
+    to that file."""
+    _write_and_swap(paths[0], payload, epoch)
+    for path in paths[1:]:
+        _swap_in(path, lambda tmp: os.link(paths[0], tmp), epoch,
+                 " (a hard link)")
 
 
 class _AsyncSaver:
@@ -77,25 +96,39 @@ class _AsyncSaver:
 
     def __init__(self):
         self._cv = threading.Condition()
-        self._pending: Dict[Path, tuple] = {}
-        self._order: List[Path] = []
+        # keyed by the tuple of paths one payload goes to
+        self._pending: Dict[tuple, tuple] = {}
+        self._order: List[tuple] = []
         self._thread = None
+        self._last_thread = None  # the newest worker, joined by wait()
         self._busy = False
         self._errors: List = []  # every failed (path, exc), not just first
 
-    def submit(self, path: Path, payload: dict, epoch):
+    def submit(self, paths: tuple, payload: dict, epoch):
         with self._cv:
             # queue before surfacing an earlier failure: a stale error must
-            # never drop the caller's new payload
-            if path not in self._pending:
-                self._order.append(path)
-            self._pending[path] = (payload, epoch)
+            # never drop the caller's new payload. A path is in at most one
+            # queued entry: the new payload takes its paths out of older
+            # entries, which keep their other paths
+            for key in list(self._order):
+                rest = tuple(p for p in key if p not in paths)
+                if rest != key:
+                    queued = self._pending.pop(key)
+                    at = self._order.index(key)
+                    if rest:
+                        self._order[at] = rest
+                        self._pending[rest] = queued
+                    else:
+                        del self._order[at]
+            self._order.append(paths)
+            self._pending[paths] = (payload, epoch)
             if self._thread is None:
                 # liveness is this attribute, changed only under the lock
                 # (the worker clears it in its exit decision)
                 self._thread = threading.Thread(target=self._run,
                                                 name="ckpt-writer",
                                                 daemon=True)
+                self._last_thread = self._thread
                 self._thread.start()
             self._cv.notify_all()
             self._raise_pending_error()
@@ -108,19 +141,31 @@ class _AsyncSaver:
                     self._thread = None
                     self._cv.notify_all()
                     return
-                path = self._order.pop(0)
-                payload, epoch = self._pending.pop(path)
+                paths = self._order.pop(0)
+                payload, epoch = self._pending.pop(paths)
                 self._busy = True
             try:
-                _write_and_swap(path, payload, epoch)
+                _save_to(paths, payload, epoch)
             except BaseException as e:  # surfaced on next submit()/wait()
                 with self._cv:
-                    self._errors.append((str(path), e))
+                    self._errors.append((", ".join(map(str, paths)), e))
                 # keep draining: saves to other paths are still attempted
+            finally:
+                # the payload's host copies are freed before this thread can
+                # report itself idle
+                del payload
 
     def wait(self):
+        """Until every queued payload is on disk and the writer thread has
+        ended: a process may exit right after (a thread still running
+        through tensor destructors while the interpreter shuts down aborts
+        it)."""
         with self._cv:
             self._cv.wait_for(lambda: not self._order and not self._busy)
+            worker = self._last_thread
+        if worker is not None and worker is not threading.current_thread():
+            worker.join()
+        with self._cv:
             self._raise_pending_error()
 
     def has_pending(self) -> bool:
@@ -164,10 +209,12 @@ def save_checkpoint(path, model_state: Dict, optimizer_state: Dict,
                     epoch: int, step: int, best_metric: float,
                     schedule_state: Optional[dict] = None,
                     rng_state: Optional[dict] = None, block: bool = True):
-    """Save a checkpoint (host copies are taken here, so the caller's
-    tensors may change right after). ``block=False`` hands the disk write
-    to the background writer; call :func:`wait_for_pending_saves` before
-    exiting. In a data-parallel run ranks other than 0 write nothing."""
+    """Save a checkpoint to ``path``, or to each of a list of paths (written
+    once, the others hard links). Host copies are taken here, so the
+    caller's tensors may change right after. ``block=False`` hands the disk
+    write to the background writer; call :func:`wait_for_pending_saves`
+    before exiting. In a data-parallel run ranks other than 0 write
+    nothing."""
     if mesh.rank_and_world()[0] != 0:
         return
     payload = {
@@ -182,16 +229,17 @@ def save_checkpoint(path, model_state: Dict, optimizer_state: Dict,
         payload["schedule"] = dict(schedule_state)
     if rng_state is not None:
         payload["rng"] = to_host(rng_state)
-    path = Path(path).absolute()
+    paths = tuple(Path(p).absolute() for p in (
+        path if isinstance(path, (list, tuple)) else [path]))
     if block and not _ASYNC_SAVER.has_pending():
-        _write_and_swap(path, payload, epoch)
+        _save_to(paths, payload, epoch)
     elif block:
-        # a background save may be writing this very path: go through the
+        # a background save may be writing these very paths: go through the
         # one writer thread (serialized, newest wins) and wait
-        _ASYNC_SAVER.submit(path, payload, epoch)
+        _ASYNC_SAVER.submit(paths, payload, epoch)
         _ASYNC_SAVER.wait()
     else:
-        _ASYNC_SAVER.submit(path, payload, epoch)
+        _ASYNC_SAVER.submit(paths, payload, epoch)
 
 
 def load_checkpoint(path) -> Dict:

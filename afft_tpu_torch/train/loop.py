@@ -21,7 +21,11 @@ together.
   ``train.save_last_every`` epochs and at the end, ``checkpoint_epochN``
   every ``train.checkpoint_every``. ``train.resume=true`` continues from
   ``checkpoint_last`` (weights, optimizer, schedule state and the training
-  randomness); SIGTERM checkpoints and exits at the next safe point.
+  randomness); SIGTERM checkpoints and exits at the next safe point. A
+  checkpoint is resumed whatever the options it was written under: weights
+  and optimizer state are cast to the run's master and state dtypes (bf16
+  masters from fp32 ones and back, afft_tpu/train/loop.py:401-412), and
+  ZeRO-1 checkpoints hold whole tensors.
 - ``data_on_device=true`` serves batches from a device-resident feature
   cache (``data.device_cache``) or raises; it never falls back to the host
   loader.
@@ -285,6 +289,11 @@ def main(cfg, device="cuda", interactive: bool = True):
     n_params = sum(p.numel() for p in runner.model.parameters())
     log.info("Model: %s with %s params on %s", experiment_name,
              human_format(n_params), device)
+    log.info("training: grad_accum %d, %s masters, optimizer state in %s, "
+             "%s", runner.grad_accum, runner.master_dtype,
+             runner.optimizer.state_dtype or "the masters' dtype",
+             f"ZeRO-1 over {world} processes" if runner.zero is not None
+             else "the optimizer state on every process")
 
     profiler = ProfilerHook(cfg.get("profile_dir"),
                             int(cfg.get("profile_start_step", 10)),
@@ -312,7 +321,7 @@ def main(cfg, device="cuda", interactive: bool = True):
             or os.path.exists(last_path + ".old-tmp")):
         ckpt = load_checkpoint(last_path)
         runner.load_model_state(ckpt["model"])
-        runner.optimizer.opt.load_state_dict(ckpt["optimizer"])
+        runner.optimizer.load_state_dict(ckpt["optimizer"])
         start_epoch = int(ckpt["epoch"])
         step_counter = int(ckpt["step"])
         best_metric = float(ckpt["best_metric"])
@@ -395,7 +404,7 @@ def main(cfg, device="cuda", interactive: bool = True):
 
         def save(path, ck_epoch, ck_step, blocking):
             save_checkpoint(path, runner.model.state_dict(),
-                            runner.optimizer.opt.state_dict(), ck_epoch,
+                            runner.optimizer.state_dict(), ck_epoch,
                             ck_step, best_metric,
                             schedule_state=sched_state,
                             rng_state=runner.rng_state(), block=blocking)
@@ -404,14 +413,14 @@ def main(cfg, device="cuda", interactive: bool = True):
         # decisions alike; save_checkpoint writes on rank 0 alone
         log.info(metric_tracker.to_string(is_training=True))
         log.info(metric_tracker.to_string(is_training=False))
-        if is_best:
-            save(os.path.join(ckpt_path, CKPT_BEST_DIRNAME), epoch + 1,
-                 step_counter, block)
-        if is_last:
-            save(last_path, epoch + 1, step_counter, block)
-        if is_every:
-            save(os.path.join(ckpt_path, f"checkpoint_epoch{epoch + 1}"),
-                 epoch + 1, step_counter, block)
+        # one payload, written once: the epoch's other names link to it
+        paths = [path for path, due in (
+            (os.path.join(ckpt_path, CKPT_BEST_DIRNAME), is_best),
+            (last_path, is_last),
+            (os.path.join(ckpt_path, f"checkpoint_epoch{epoch + 1}"),
+             is_every)) if due]
+        if paths:
+            save(paths, epoch + 1, step_counter, block)
         if not interrupted and exp_logger is not None:
             exp_logger.log({
                 **metric_tracker.get_all_data(is_training=True),

@@ -65,14 +65,18 @@ class MixUp:
 
     def __call__(self, gen: torch.Generator, x_video: Dict, labels: Dict,
                  labels_subclips: Optional[Dict], valid=None):
-        """Draw lambda ~ Beta(alpha, alpha) from ``gen`` (two Gamma draws
-        on the generator's device) and mix."""
+        """Draw lambda (``draw``) and mix."""
+        return self.mix(self.draw(gen), x_video, labels, labels_subclips,
+                        valid)
+
+    def draw(self, gen: torch.Generator):
+        """lambda ~ Beta(alpha, alpha) from ``gen`` (two Gamma draws on the
+        generator's device), a 0-d fp32 tensor."""
         # float64: at alpha = 0.1 a float32 Gamma draw can underflow to 0
         shape = torch.full((2,), float(self.alpha), dtype=torch.float64,
                            device=gen.device)
         g = torch._standard_gamma(shape, generator=gen)
-        lam = (g[0] / (g[0] + g[1]).clamp(min=1e-300)).float()
-        return self.mix(lam, x_video, labels, labels_subclips, valid)
+        return (g[0] / (g[0] + g[1]).clamp(min=1e-300)).float()
 
     def mix(self, lam, x_video: Dict, labels: Dict,
             labels_subclips: Optional[Dict], valid=None):

@@ -12,7 +12,10 @@ Precision. With ``compute_dtype=float32`` the model trains as it is. With
 copy of it: forward and backward run on the copy (gradients arrive in bf16),
 the optimizer updates the fp32 masters from the upcast gradients, and the
 copy is refreshed from the masters (afft_tpu/train/runner.py:175-188,
-:309-367).
+:309-367). With ``train.master_dtype=bfloat16`` too, the bf16 weights are
+the masters: no fp32 copy, the update runs in fp32 and is written back with
+stochastic rounding, its bits from the runner's own generator (``sr_gen``,
+seeded alike on every rank and apart from the dropout streams).
 
 The fuser blocks train through ``ops.fused_block_train`` (CUDA kernels,
 forward and backward); ``impl="plain"`` runs their plain versions on the
@@ -36,12 +39,28 @@ row r * B_local + i, as afft_tpu/parallel/mesh.py:105-129 ``shard_batch``
 assembles it). Four places would differ under a per-rank step, each marked
 "DP (n)" below: (1) the gradients, (2) the loss normalisation, (3) mixup and
 (4) dropout and drop-path. Every rank starts from the same weights and the
-same generators, so every rank takes the same update.
+same generators, so every rank takes the same update. ``train.zero_sharding``
+(ZeRO-1, ``parallel.sharding``) reduce-scatters the gradients instead, each
+rank updates its slice and holds only its slice's optimizer state, and the
+updated weights are all-gathered.
 
-Waiting (ROADMAP.md §A.7): ``grad_accum``, ``master_dtype=bfloat16``,
-``param_shardings``, ``zero_sharding``, ``pipeline_stages``.
-``from_config`` raises for each of those keys when a config sets it away
-from its default.
+Gradient accumulation (``train.grad_accum`` = M,
+afft_tpu/train/runner.py:246-307): each rank cuts its local batch into M
+equal chunks; microbatch m is chunk m of every rank, and under the global
+batch rule it is the global batch of one forward and backward. A step on R
+ranks is thus one process's step over the global batch ordered
+microbatch-major (``layers.RngStream.microbatch``). The fp32 gradients sum
+weighted by each microbatch's valid rows over the step's, so a microbatch
+without valid rows adds nothing; the losses and scalar metrics combine the
+same way, and clip, reduction and update run once a step. Mixup draws one
+lambda for each microbatch and pairs rows within it; dropout and drop-path
+masks are drawn by the row's place in the whole step's global batch, so
+with mixup off M microbatches on one process equal one pass. As in the JAX
+package, a loss with its own denominator (class weights, ignored past
+frames) combines as microbatch means weighted by valid rows.
+
+``train.pipeline_stages`` > 1 (GPipe) is not ported yet (ROADMAP.md §A.7
+(e)): ``from_config`` raises for it.
 """
 
 from __future__ import annotations
@@ -64,33 +83,23 @@ from .mixup import MixUp
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# elements of fp32 gradient reduced by one all-reduce (256 MB)
-GRAD_BUCKET = 1 << 26
-
-# train.* keys the JAX loop reads and the port does not honour yet, with
-# their defaults (afft_tpu_torch/conf/config.yaml) and the roadmap item
-UNPORTED_TRAIN_KEYS = (
-    ("zero_sharding", False, "§A.7"),
-    ("pipeline_stages", 0, "§A.7"),
-)
+# the stochastic-rounding generator's seed offset from the run's seed
+# (afft_tpu/train/runner.py:347-351 folds the same sentinel into its key)
+SR_SEED = 0x5A7E57A6
 
 
 def check_train_keys(train_cfg) -> None:
     """Raise for a train.* key the port does not honour, set away from its
     default (a config that sets one must not train without it)."""
-    if (train_cfg.get("master_dtype") or "float32") != "float32" \
-            or int(train_cfg.get("grad_accum") or 1) != 1:
+    stages = train_cfg.get("pipeline_stages")
+    if stages is not None and int(stages) > 1:
+        # 0 and 1 run the stack unpipelined, as in JAX
         raise NotImplementedError(
-            "train.master_dtype=bfloat16 and train.grad_accum > 1 are "
-            "not ported (ROADMAP.md §A.7)")
-    for key, default, item in UNPORTED_TRAIN_KEYS:
-        value = train_cfg.get(key)
-        if value is None or value == default:
-            continue
-        if key == "pipeline_stages" and int(value) <= 1:
-            continue  # 0 and 1 run the stack unpipelined, as in JAX
-        raise NotImplementedError(
-            f"train.{key}={value} is not ported (ROADMAP.md {item})")
+            f"train.pipeline_stages={stages} (GPipe) is not ported "
+            "(ROADMAP.md §A.7 (e))")
+    accum = train_cfg.get("grad_accum")
+    if accum is not None and int(accum) < 1:
+        raise ValueError(f"train.grad_accum={accum}: it must be 1 or more")
 
 
 def global_norm(tensors):
@@ -99,35 +108,27 @@ def global_norm(tensors):
         torch._foreach_norm([t.float() for t in tensors])))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sharded: bool = False):
     """torch.nn.utils.clip_grad_norm_ semantics, in place on fp32 grads;
-    returns the norm (a device tensor)."""
+    returns the norm (a device tensor). ``sharded``: each rank holds a
+    slice of the gradient (ZeRO-1), and the norm is the square root of the
+    slices' square sums summed over the ranks."""
     norms = torch._foreach_norm(grads)
-    gnorm = torch.linalg.vector_norm(torch.stack(norms))
+    if sharded:
+        gnorm = mesh.all_reduce_sum(
+            torch.stack(norms).float().square().sum()).sqrt()
+    else:
+        gnorm = torch.linalg.vector_norm(torch.stack(norms))
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return gnorm
 
 
-def _buckets(tensors, limit: int):
-    """Consecutive groups of ``tensors`` of at most ``limit`` elements (a
-    larger tensor alone)."""
-    bucket, size = [], 0
-    for t in tensors:
-        if bucket and size + t.numel() > limit:
-            yield bucket
-            bucket, size = [], 0
-        bucket.append(t)
-        size += t.numel()
-    if bucket:
-        yield bucket
-
-
 def reduce_gradients(grads) -> None:
     """DP (1): sum the fp32 gradients of the masters over the ranks, in
-    place, in buckets of ``GRAD_BUCKET`` elements: one flat buffer a bucket,
-    one all-reduce each. With the losses normalised over the global batch
-    (DP (2)) the sum is the gradient of the global step.
+    place, in buckets of ``mesh.GRAD_BUCKET`` elements: one flat buffer
+    and one all-reduce a bucket. With the losses normalised over the global
+    batch (DP (2)) the sum is the gradient of the global step.
 
     An explicit all-reduce and not DistributedDataParallel: DDP reduces the
     gradients of the module it wraps, which in bf16 is the compute copy, so
@@ -138,7 +139,7 @@ def reduce_gradients(grads) -> None:
     gradient."""
     if not mesh.active():
         return
-    for bucket in _buckets(grads, GRAD_BUCKET):
+    for bucket in mesh.buckets(grads, mesh.GRAD_BUCKET):
         flat = torch._utils._flatten_dense_tensors(bucket)
         mesh.all_reduce_sum_([flat])
         for g, summed in zip(bucket, torch._utils._unflatten_dense_tensors(
@@ -239,7 +240,12 @@ class Runner:
                  grad_clip: Optional[float] = None,
                  compute_dtype=torch.float32,
                  class_weights: Optional[Dict] = None, seed: int = 0,
-                 impl: str = "kernel", watch_gradients: bool = False):
+                 impl: str = "kernel", watch_gradients: bool = False,
+                 master_dtype=torch.float32, grad_accum: int = 1,
+                 zero_sharding: bool = False):
+        if master_dtype != torch.float32 and master_dtype != compute_dtype:
+            raise ValueError("train.master_dtype=bfloat16 requires "
+                             "model.compute_dtype=bfloat16")
         self.model = model
         self.device = next(model.parameters()).device
         self.loss_wts = dict(loss_wts)
@@ -247,6 +253,8 @@ class Runner:
         self.mixup_backbone = mixup_backbone
         self.grad_clip = grad_clip
         self.compute_dtype = compute_dtype
+        self.master_dtype = master_dtype
+        self.grad_accum = int(grad_accum)
         self.impl = impl
         self.watch_gradients = watch_gradients
         self.class_weights = None if not class_weights else {
@@ -255,9 +263,15 @@ class Runner:
         # DP (4): the same generators on every rank; each draw is the
         # global batch's, of which a rank keeps its own rows
         self.rng = L.RngStream(seed, self.device, *mesh.rank_and_world())
+        self.sr_gen = None
+        if master_dtype != torch.float32:
+            # bf16 masters: the weights are the compute copy
+            model.to(master_dtype)
+            self.sr_gen = torch.Generator(device=self.device)
+            self.sr_gen.manual_seed(int(seed) + SR_SEED)
         self.masters = [p for _, p in model.named_parameters()]
-        self._mixed = compute_dtype != torch.float32
-        if self._mixed:
+        self._copy = compute_dtype != master_dtype
+        if self._copy:
             # the compute copy: same modules, parameters in compute_dtype
             self.net = copy.deepcopy(model).to(compute_dtype)
             self.compute = [p for _, p in self.net.named_parameters()]
@@ -265,6 +279,14 @@ class Runner:
             self.net, self.compute = model, self.masters
         self.optimizer = optimizer.bind(list(model.named_parameters()),
                                         groups)
+        position = {id(p): i for i, p in enumerate(self.masters)}
+        # the masters' index of each parameter the optimizer updates
+        self._opt_index = [position[id(p)] for p in self.optimizer.params]
+        self.zero = None
+        if zero_sharding:
+            from ..parallel.sharding import Zero1
+            self.zero = Zero1(self.masters)
+            self.optimizer.shard(self.zero, self._opt_index)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -273,7 +295,10 @@ class Runner:
                     weights=None, impl: str = "kernel", compute_dtype=None,
                     class_mappings=None, class_weights=None):
         """Build the model, parameter groups, optimizer, schedule and mixup
-        of a composed expt config (afft_tpu/train/loop.py:336-369). The
+        of a composed expt config (afft_tpu/train/loop.py:336-369), with
+        the ``train.grad_accum``, ``train.master_dtype``,
+        ``train.zero_sharding`` and ``opt.optimizer.state_dtype`` options
+        (ZeRO-1 over the process group that exists when it is called). The
         model is drawn from ``cfg.seed`` unless ``weights`` (a state dict)
         is given; ``class_mappings`` become its verb / noun <-> action
         buffers. ``train.class_weight_beta`` needs ``class_weights`` ({target:
@@ -314,7 +339,11 @@ class Runner:
                      grad_clip=cfg.opt.grad_clip,
                      compute_dtype=compute_dtype, seed=seed, impl=impl,
                      class_weights=class_weights,
-                     watch_gradients=bool(cfg.train.get("watch_gradients")))
+                     watch_gradients=bool(cfg.train.get("watch_gradients")),
+                     master_dtype=DTYPES[cfg.train.get("master_dtype")
+                                         or "float32"],
+                     grad_accum=int(cfg.train.get("grad_accum") or 1),
+                     zero_sharding=bool(cfg.train.get("zero_sharding")))
         runner.base_lr = float(cfg.opt.lr)
         runner.lr_schedule = O.build_schedule(cfg.opt, iters_per_epoch,
                                               world_size)
@@ -391,48 +420,50 @@ class Runner:
         """One iteration on ``batch`` ({"data_dict", "target",
         "target_subclips", "valid", "mixup_lam"}; numpy or tensors) at the
         schedule's ``lr``. Returns (losses with ``total_loss``, metrics),
-        device tensors detached from the graph; ``accum`` gets both."""
+        device tensors detached from the graph; ``accum`` gets both.
+        ``mixup_lam`` pins lambda: one value, or one a microbatch."""
         batch = self._to_device(batch)
         use_mixup = self.mixup is not None
         self.net.train()
-        outputs, outputs_target = self._forward(batch, train=True,
-                                                use_mixup=use_mixup)
-        total, losses, metrics = self._losses(outputs, outputs_target,
-                                              batch["valid"], use_mixup)
+        # the last step's gradients go before this step's activations come
+        for p in self.masters + self.compute:
+            p.grad = None
+        if self.grad_accum == 1:
+            outputs, outputs_target = self._forward(batch, train=True,
+                                                    use_mixup=use_mixup)
+            total, losses, metrics = self._losses(
+                outputs, outputs_target, batch["valid"], use_mixup)
+            total.backward()
+            grads = self._fp32_grads()
+        else:
+            total, losses, metrics, grads = self._accumulate(batch,
+                                                             use_mixup)
         for p in self.compute:
             p.grad = None
-        total.backward()
-        if self._mixed:
-            # bf16 gradients of the compute copy -> fp32 on the masters
-            for p, c in zip(self.masters, self.compute):
-                p.grad = None if c.grad is None else c.grad.float()
-                c.grad = None
+        if self.master_dtype == torch.float32 and self.zero is None:
+            # fp32 masters keep the step's whole gradient in .grad, reduced
+            # and clipped in place (as clip_grad_norm_ leaves it); the
+            # optimizer step reads it and does not change it
+            for p, g in zip(self.masters, grads):
+                p.grad = g
         # DP (1), before the norms and the clipping read the gradient
-        reduce_gradients(p.grad for p in self.masters if p.grad is not None)
+        if self.zero is None:
+            reduce_gradients(g for g in grads if g is not None)
+        else:
+            grads = self.zero.reduce_scatter(grads)  # this rank's pieces
         total, losses, metrics = global_scalars(total, losses, metrics)
         if self.watch_gradients:
-            # the reference's wandb.watch(model) (train.py:416) as norms in
-            # the metric stream (afft_tpu/train/runner.py:330-341): the
-            # global norm, per top-level module, and of the parameters
-            metrics = dict(metrics)
-            by_module: Dict[str, list] = {}
-            for (name, _), p in zip(self.model.named_parameters(),
-                                    self.masters):
-                if p.grad is not None:
-                    by_module.setdefault(name.split(".")[0], []).append(
-                        p.grad)
-            metrics["grad_norm"] = global_norm(
-                [g for gs in by_module.values() for g in gs])
-            metrics["param_norm"] = global_norm(
-                [p.detach() for p in self.masters])
-            for key, grads in by_module.items():
-                metrics[f"grad_norm_{key}"] = global_norm(grads)
+            metrics = {**metrics, **self._norms(grads)}
         if self.grad_clip is not None:
-            clip_by_global_norm([p.grad for p in self.masters
-                                 if p.grad is not None], self.grad_clip)
-        self.optimizer.step(lr / base_lr)
-        if self._mixed:
-            with torch.no_grad():
+            clip_by_global_norm([g for g in grads if g is not None],
+                                self.grad_clip, sharded=self.zero is not None)
+        self.optimizer.step(lr / base_lr,
+                            [grads[i] for i in self._opt_index],
+                            gen=self.sr_gen)
+        with torch.no_grad():
+            if self.zero is not None:
+                self.zero.all_gather()
+            if self._copy:
                 torch._foreach_copy_(self.compute, self.masters)
         losses["total_loss"] = total
         if accum is not None:
@@ -440,6 +471,116 @@ class Runner:
         if check_nan and bool(torch.isnan(losses["total_loss"])):
             raise ValueError("The loss is NaN!")
         return losses, metrics
+
+    def _accumulate(self, batch, use_mixup):
+        """``train.grad_accum`` = M: M forward and backward passes over the
+        local batch's M chunks (the class docstring's rule). Returns this
+        rank's share of the total, losses and scalar metrics (the
+        microbatches' shares weighted by their valid rows, for
+        ``global_scalars`` to sum), the metrics' MT5R payloads stitched back
+        to the local batch's rows, and the fp32 gradients aligned with the
+        masters."""
+        M, valid = self.grad_accum, batch["valid"]
+        rows = valid.shape[0]
+        if rows % M:
+            raise ValueError(f"train.grad_accum={M} must divide the batch "
+                             f"of {rows} rows (a process)")
+        b = rows // M
+        # the step's valid rows by microbatch, over every rank
+        counts = mesh.all_reduce_sum(valid.reshape(M, b).sum(1).float())
+        weights = counts / counts.sum().clamp(min=1.0)
+        lams = batch["mixup_lam"]
+        if lams is None and use_mixup:
+            lams = [self.mixup.draw(self.rng.gen) for _ in range(M)]
+        elif lams is not None and np.ndim(lams) == 0:
+            lams = [lams] * M
+        start = (self.rng.gen.get_state(), self.rng._host.get_state())
+        # bf16 gradients are summed in fp32 here, an fp32 model's in its own
+        # .grad by autograd
+        upcast = self.compute_dtype != torch.float32
+        grads, shares, payloads = None, [], []
+        for m in range(M):
+            part = slice(m * b, (m + 1) * b)
+
+            def cut(d):
+                return None if d is None else {k: v[part]
+                                               for k, v in d.items()}
+            micro = {"data_dict": cut(batch["data_dict"]),
+                     "target": cut(batch["target"]),
+                     "target_subclips": cut(batch["target_subclips"]),
+                     "valid": valid[part],
+                     "mixup_lam": None if lams is None else lams[m]}
+            # every microbatch draws over the step's whole global batch
+            self.rng.gen.set_state(start[0])
+            self.rng._host.set_state(start[1])
+            with self.rng.microbatch(m, M):
+                outputs, outputs_target = self._forward(
+                    micro, train=True, use_mixup=use_mixup)
+            total, losses, metrics = self._losses(
+                outputs, outputs_target, micro["valid"], use_mixup)
+            (total * weights[m]).backward()
+            if upcast:
+                if m == 0:
+                    grads = self._fp32_grads()
+                else:
+                    # one multi-tensor add of the bf16 gradients into the
+                    # fp32 sums: no copy of them
+                    torch._foreach_add_(
+                        [g for g in grads if g is not None],
+                        [c.grad for c in self.compute if c.grad is not None])
+                for c in self.compute:
+                    c.grad = None
+            scalars = {"": total, **losses,
+                       **{k: v for k, v in metrics.items()
+                          if not isinstance(v, dict)}}
+            shares.append({k: v.detach().float() * weights[m]
+                           for k, v in scalars.items()})
+            payloads.append({k: v for k, v in metrics.items()
+                             if isinstance(v, dict)})
+        if not upcast:
+            grads = [c.grad for c in self.compute]
+        combined = {k: sum(s[k] for s in shares) for k in shares[0]}
+        total = combined.pop("")
+        losses = {k: combined[k] for k in losses}
+        metrics = {k: combined[k] if k in combined else
+                   {f: torch.cat([p[k][f] for p in payloads])
+                    for f in payloads[0][k]} for k in metrics}
+        return total, losses, metrics, grads
+
+    def _fp32_grads(self):
+        """The compute copy's gradients in fp32, aligned with the masters
+        (None where there is none): an fp32 model's own, else upcast copies
+        (views of one flat buffer)."""
+        have = [c.grad for c in self.compute if c.grad is not None]
+        if self.compute_dtype == torch.float32 or not have:
+            return [c.grad for c in self.compute]
+        up = iter(O.upcast(have)[1])
+        return [None if c.grad is None else next(up) for c in self.compute]
+
+    def _norms(self, grads):
+        """``watch_gradients``: the reference's wandb.watch(model)
+        (train.py:416) as norms in the metric stream
+        (afft_tpu/train/runner.py:330-341): the global gradient norm before
+        clipping, per top-level module, and the parameters' norm. Under
+        ZeRO-1 each rank's pieces give square sums that one all-reduce
+        adds up."""
+        modules: Dict[str, int] = {}
+        which, present = [], []
+        for (name, _), g in zip(self.model.named_parameters(), grads):
+            if g is not None:
+                which.append(modules.setdefault(name.split(".")[0],
+                                                len(modules)))
+                present.append(g)
+        squares = torch.stack(torch._foreach_norm(present)).float().square()
+        sums = torch.zeros(len(modules), device=squares.device).index_add_(
+            0, torch.tensor(which, device=squares.device), squares)
+        if self.zero is not None:
+            sums = mesh.all_reduce_sum(sums)
+        out = {"grad_norm": sums.sum().sqrt(),
+               "param_norm": global_norm([p.detach() for p in self.masters])}
+        for key, j in modules.items():
+            out[f"grad_norm_{key}"] = sums[j].sqrt()
+        return out
 
     @torch.no_grad()
     def eval_step(self, batch, accum: Optional[MetricAccum] = None):
@@ -500,18 +641,25 @@ class Runner:
 
     @torch.no_grad()
     def load_model_state(self, state: Dict) -> None:
-        """Load a state dict into the fp32 masters (strict) and refresh the
-        compute copy from them."""
+        """Load a state dict into the masters (strict; each tensor cast to
+        the masters' dtype, so fp32 and bf16-master checkpoints load either
+        way) and refresh the compute copy from them."""
         self.model.load_state_dict(state, strict=True)
-        if self._mixed:
+        if self._copy:
             torch._foreach_copy_(self.compute, self.masters)
 
     def rng_state(self) -> Dict:
-        """The training randomness (masks, mixup draws) as it stands, for a
-        checkpoint: resuming from it continues the same streams."""
-        return {"gen": self.rng.gen.get_state(),
-                "host": self.rng._host.get_state()}
+        """The training randomness (masks, mixup draws, stochastic
+        rounding) as it stands, for a checkpoint: resuming from it continues
+        the same streams."""
+        state = {"gen": self.rng.gen.get_state(),
+                 "host": self.rng._host.get_state()}
+        if self.sr_gen is not None:
+            state["sr"] = self.sr_gen.get_state()
+        return state
 
     def load_rng_state(self, state: Dict) -> None:
         self.rng.gen.set_state(state["gen"])
         self.rng._host.set_state(state["host"])
+        if self.sr_gen is not None and "sr" in state:
+            self.sr_gen.set_state(state["sr"])

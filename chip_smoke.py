@@ -219,11 +219,34 @@ Phases, in order; any failure exits non-zero and prints no result:
                ``-m visualize_attention`` (exit 0, the JAX entry point's
                dump keys, attention rows summing to 1 within bf16
                rounding);
- 13. report  - one JSON line of per-kernel numbers, then the result line.
+ 13. options - the training options at full width: the flagship
+               (expts/01_SA-Fuser_ek100_train.txt, bf16 over fp32 masters,
+               B=256) at train.grad_accum 1 / 2 / 4 (the first step with
+               mixup off, the expt's dropout on, its gradients per
+               parameter within 2e-2 of max|grad| of one pass; then timed
+               steps: ms a step, the optimizer step's ms and peak memory,
+               every step's launches asserted at 6·M of each training
+               entry); bf16 masters with bf16 optimizer state
+               (train.master_dtype, opt.optimizer.state_dtype), SGD-nesterov
+               and Adam, ten steps with a falling loss, timed beside the fp32
+               masters; stochastic_round_bf16 on the card (bit for bit the
+               host's, exact values unchanged, unbiased within 1e-3 ulp over
+               2^24 draws); the launcher on phase 8's cut set at grad_accum=2
+               with bf16 masters, one epoch resumed for a second (bf16
+               checkpoint), then -m test on it against the plain path as
+               phase 9; ZeRO-1 (train.zero_sharding) against plain data
+               parallelism, 3 steps of expt 98, in one process through
+               torchrun over NCCL (its reduce-scatter and all-gather) and
+               on two processes on the one card over gloo: losses and every
+               element of the weights within 1e-5, each rank holding 1/R of
+               the optimizer state (options_launches in the kernels line;
+               one card: no multi-GPU number);
+ 14. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
 
+import gc
 import json
 import math
 import os
@@ -2648,8 +2671,8 @@ def phase_train():
     fuser = kernel.model.future_predictor.fuser
     log(f"train: {TRAIN_EXPT} built twice in {time.perf_counter() - t0:.2f} "
         f"s, {n_params / 1e6:.1f} M params, optimizer "
-        f"{type(kernel.optimizer.opt).__name__} nesterov="
-        f"{kernel.optimizer.opt.defaults['nesterov']}, mixup alpha "
+        f"{type(kernel.optimizer).__name__} nesterov="
+        f"{kernel.optimizer.defaults['nesterov']}, mixup alpha "
         f"{kernel.mixup.alpha}, fuser dropout {fuser.drop_rate} / "
         f"{fuser.attn_drop_rate}, drop-path up to {fuser.dpr[-1]}, seeded "
         f"random weights")
@@ -4557,6 +4580,415 @@ def phase_serving_data():
     return numbers
 
 
+# -- training options: grad_accum, bf16 masters, stochastic rounding, ZeRO-1
+
+OPTIONS_ACCUM = (1, 2, 4)
+OPTIONS_WARMUP_STEPS, OPTIONS_TIMED_STEPS = 2, 6
+OPTIONS_BF16_STEPS = 10
+# bf16 gradients of M microbatches against one pass: per parameter, over
+# its own max|grad| (the bf16 gradient bound of PERF.md §2)
+OPTIONS_GRAD_TOL = 2e-2
+# the stochastic rounding's mean over SR_DRAWS draws, in ulps
+SR_DRAWS, SR_TOL = 1 << 24, 1e-3
+OPTIONS_ZERO_STEPS = 3
+
+
+def _timed_steps(runner, batches, lrs, per_step):
+    """Steps of ``runner`` with CUDA events around each and around each
+    optimizer step, the launches of every step asserted against
+    ``per_step``; no host synchronisation until the end. Returns (losses,
+    median ms a step, median ms of the optimizer's step, peak GB)."""
+    import torch
+    from afft_tpu_torch.ops import launch_counts
+    opt_events = []
+    step = runner.optimizer.step
+    gc.collect()
+
+    def timed_step(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args, **kwargs)
+        end.record()
+        opt_events.append((start, end))
+        return out
+    runner.optimizer.step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events = [], []
+    for i, lr in enumerate(lrs):
+        before = launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, _ = runner.train_step(batches[i % len(batches)], lr,
+                                   runner.base_lr)
+        end.record()
+        events.append((start, end))
+        losses.append(out["total_loss"])
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        _counts_ok(f"options step {i + 1}", delta, per_step)
+    torch.cuda.synchronize()
+    # the instance attribute goes (it would hold the optimizer, and so
+    # the weights, in a reference cycle past the runner's deletion)
+    del runner.optimizer.step
+    skip = min(OPTIONS_WARMUP_STEPS, len(lrs) - 1)
+    return ([float(v) for v in losses],
+            statistics.median(a.elapsed_time(b) for a, b in events[skip:]),
+            statistics.median(a.elapsed_time(b)
+                              for a, b in opt_events[skip:]),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _update_bytes(runner):
+    """Bytes one optimizer step must move (its bound's): each parameter
+    read and written, its fp32 gradient read, its state read and written.
+    The step's own fp32 working copies and the rounding's random bits are
+    not counted."""
+    total = 0
+    for p, st in zip(runner.optimizer.params, runner.optimizer.state):
+        total += 2 * p.numel() * p.element_size() + 4 * p.numel()
+        total += sum(2 * t.numel() * t.element_size() for t in st.values())
+    return total
+
+
+def _stochastic_rounding_on_card():
+    """``stochastic_round_bf16`` on the card: bit for bit its result on the
+    host from the same bits; exactly representable values unchanged
+    whatever the bits; and unbiased: for values at chosen fractions of an
+    ulp between two bf16 neighbours, the share of SR_DRAWS draws that round
+    away lies within SR_TOL of the fraction."""
+    import torch
+    from afft_tpu_torch.train import optim as O
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    x = torch.randn(1 << 20, device="cuda", generator=gen) * 10
+    bits = O.random_bits(x.shape, gen)
+    card = O.stochastic_round_bf16(x, bits)
+    host = O.stochastic_round_bf16(x.cpu(), bits.cpu())
+    if not torch.equal(card.cpu().view(torch.int16), host.view(torch.int16)):
+        raise AssertionError("options: stochastic rounding on the card "
+                             "differs from the host's")
+    exact = torch.tensor([1.0, -2.0, 0.5, 0.0, 3.0, float("inf"),
+                          -float("inf"), 2.0 ** -100], device="cuda")
+    many = exact.expand(4096, -1)
+    if not torch.equal(O.stochastic_round_bf16(many,
+                                               O.random_bits(many.shape,
+                                                             gen)),
+                       many.to(torch.bfloat16)):
+        raise AssertionError("options: stochastic rounding changed an "
+                             "exactly representable value")
+    lo = torch.tensor([1.0, -3.0, 0.15625, 1000.0, 7.0, -0.01171875],
+                      device="cuda")
+    ulp = 2.0 ** (torch.floor(torch.log2(lo.abs())) - 7)  # bf16's spacing
+    frac = torch.tensor([0.5, 0.25, 0.9, 0.01, 0.3333, 0.75],
+                        device="cuda")
+    value = lo + torch.sign(lo) * frac * ulp
+    away = torch.zeros(len(lo), dtype=torch.int64, device="cuda")
+    chunk = 1 << 21
+    for _ in range(SR_DRAWS // chunk):
+        rounded = O.stochastic_round_bf16(
+            value.expand(chunk, -1), O.random_bits((chunk, len(lo)), gen))
+        away += (rounded.float() != lo).sum(0)
+    exact_frac = ((value - lo) / (torch.sign(lo) * ulp)).double().cpu()
+    err = (away.double().cpu() / SR_DRAWS - exact_frac).abs()
+    log(f"options: stochastic rounding on the card: 2^20 values bit for bit "
+        f"the host's; 8 exact values unchanged over 4096 draws; share of "
+        f"{SR_DRAWS} draws rounding away vs the fraction of an ulp "
+        f"{[round(v, 6) for v in exact_frac.tolist()]}: error "
+        f"{[f'{v:.2e}' for v in err.tolist()]} ulp (tol {SR_TOL:g})")
+    if not (err <= SR_TOL).all():
+        raise AssertionError("options: stochastic rounding is biased")
+    return {"draws": SR_DRAWS, "max_err_ulp": float(err.max())}
+
+
+def phase_options():
+    """13. The training options through ``Runner.train_step`` and the
+    launcher: gradient accumulation, bf16 masters with stochastic rounding
+    and bf16 optimizer state, ZeRO-1. Returns (the launches of its
+    in-process training steps and its launcher run, numbers)."""
+    import numpy as np
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.config import CONF_DIR, compose, expt_lines_without
+    from afft_tpu_torch.data.loader import get_dataset
+    from afft_tpu_torch.eval import challenge as PC
+    from afft_tpu_torch.ops import launch_counts, reset_launches
+    from afft_tpu_torch.train import optim as O
+    from afft_tpu_torch.train.checkpoint import load_checkpoint
+    from afft_tpu_torch.train.loop import get_transforms
+    from afft_tpu_torch.train.runner import Runner
+
+    numbers, launches = {}, {}
+    expt = os.path.join(EXPTS, TRAIN_EXPT)
+    cfg = serve.load_config(expt)
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    entries = [n for n, _ in TRAIN_KERNELS["fused_block_train"][:3]] + \
+        [n for n, _ in TRAIN_KERNELS["fused_gpt2_train"][:3]]
+    warmup = int(cfg.opt.warmup.num_epochs)
+    batches = synthetic_batches(cfg, TRAIN_BATCH, 2, seed=21,
+                                classes=TRAIN_CLASSES)
+    reset_launches()
+    zero = dict.fromkeys(launch_counts(), 0)
+
+    def per_step(m):
+        return {**zero, **{n: m * (depth if n.startswith("fused_block")
+                                   else layers) for n in entries}}
+
+    # (a) grad_accum M = 1 / 2 / 4, bf16 over fp32 masters, B = 256: the
+    # first step with mixup off against M = 1's gradients (the expt's
+    # dropout on: masks by the row's place in the step's batch), then
+    # timed steps as the expt trains (mixup on)
+    accum, first = {}, None
+    for m in OPTIONS_ACCUM:
+        runner = Runner.from_config(
+            serve.load_config(expt, [f"train.grad_accum={m}"]),
+            TRAIN_CLASSES, device="cuda", iters_per_epoch=1,
+            compute_dtype="bfloat16")
+        mixup, runner.mixup = runner.mixup, None
+        lr = runner.lr_schedule(warmup, runner.base_lr)
+        reset_launches()
+        runner.train_step(batches[0], lr, runner.base_lr)
+        _counts_ok(f"options grad_accum={m}", launch_counts(), per_step(m))
+        grads = [p.grad.detach().to("cpu", copy=True)
+                 for p in runner.masters]
+        if first is None:
+            first, worst = grads, (0.0, "")
+        else:
+            worst = (0.0, "")
+            for (name, _), g, g1 in zip(runner.model.named_parameters(),
+                                        grads, first):
+                rel = float((g - g1).abs().max()) / max(
+                    float(g1.abs().max()), 1e-30)
+                worst = max(worst, (rel, name))
+            if not worst[0] <= OPTIONS_GRAD_TOL:
+                raise AssertionError(
+                    f"options: grad_accum={m} gradients differ from one "
+                    f"pass's by {worst[0]:.3g} of max|grad| ({worst[1]})")
+        del grads
+        runner.mixup = mixup
+        reset_launches()
+        steps = OPTIONS_WARMUP_STEPS + OPTIONS_TIMED_STEPS
+        losses, ms, opt_ms, peak = _timed_steps(
+            runner, batches, [runner.lr_schedule(warmup + 1 + i,
+                                                 runner.base_lr)
+                              for i in range(steps)], per_step(m))
+        for k, n in launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        accum[m] = {"ms_per_step": ms, "optimizer_ms": opt_ms,
+                    "peak_mem_GB": peak, "grad_rel_diff_vs_M1": worst[0],
+                    "launches_per_step": {n: per_step(m)[n]
+                                          for n in entries}}
+        if m == 1:
+            accum[m]["update_bytes"] = _update_bytes(runner)
+        log(f"options grad_accum={m} B={TRAIN_BATCH} (microbatches of "
+            f"{TRAIN_BATCH // m}): first step's gradients vs one pass, mixup "
+            f"off: max {worst[0]:.3g} of max|grad| ({worst[1] or 'M=1'}; "
+            f"tol {OPTIONS_GRAD_TOL:g}); {OPTIONS_TIMED_STEPS} timed steps "
+            f"after {OPTIONS_WARMUP_STEPS}: ms_per_step={ms:.3f} "
+            f"optimizer_ms={opt_ms:.3f} peak_mem_GB={peak:.3f}; launches "
+            f"per step {m} x {depth} / {layers} of each training entry")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"options grad_accum={m}: non-finite loss")
+        del runner
+        torch.cuda.empty_cache()
+    del first
+    numbers["grad_accum"] = accum
+
+    # (b) bf16 masters (and bf16 optimizer state) at M = 1: SGD-nesterov as
+    # the expt, then Adam (its lr a tenth); ten steps on one batch, mixup
+    # off, the loss falling
+    masters = {}
+    fp32 = accum[1]
+    for label, drop, more in (
+            ("sgd_nesterov", (), []),
+            ("adam", ("opt.optimizer.nesterov",),
+             ["opt/optimizer=adam", f"opt.lr={float(cfg.opt.lr) / 10}"])):
+        runner = Runner.from_config(
+            compose(CONF_DIR, expt_lines_without(expt, drop) + [
+                "model.compute_dtype=bfloat16",
+                "train.master_dtype=bfloat16",
+                "opt.optimizer.state_dtype=bfloat16", *more]),
+            TRAIN_CLASSES, device="cuda", iters_per_epoch=1)
+        if not (runner.masters[0].dtype == torch.bfloat16
+                and runner.compute is runner.masters):
+            raise AssertionError("options: bf16 masters were not built")
+        runner.mixup = None
+        reset_launches()
+        losses, ms, opt_ms, peak = _timed_steps(
+            runner, batches[:1], [runner.lr_schedule(warmup + i,
+                                                     runner.base_lr)
+                                  for i in range(OPTIONS_BF16_STEPS)],
+            per_step(1))
+        for k, n in launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        state = {str(t.dtype) for st in runner.optimizer.state
+                 for t in st.values()}
+        masters[label] = {"ms_per_step": ms, "optimizer_ms": opt_ms,
+                          "peak_mem_GB": peak, "losses": losses,
+                          "update_bytes": _update_bytes(runner),
+                          "state_dtypes": sorted(state)}
+        log(f"options bf16 masters, {label}, B={TRAIN_BATCH}: total loss by "
+            f"step {[round(v, 4) for v in losses]}; ms_per_step={ms:.3f} "
+            f"optimizer_ms={opt_ms:.3f} peak_mem_GB={peak:.3f} (fp32 "
+            f"masters: {fp32['ms_per_step']:.3f} / "
+            f"{fp32['optimizer_ms']:.3f} / {fp32['peak_mem_GB']:.3f}); "
+            f"update bytes {masters[label]['update_bytes']} (fp32 masters "
+            f"{fp32['update_bytes']}); state {sorted(state)}")
+        if not (all(math.isfinite(v) for v in losses)
+                and sum(losses[-3:]) < sum(losses[:3])
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"options bf16 masters {label}: the loss "
+                                 f"did not fall: {losses}")
+        if state != {"torch.bfloat16"}:
+            raise AssertionError(f"options: state dtypes {state}")
+        del runner
+        torch.cuda.empty_cache()
+    numbers["bf16_masters"] = masters
+    del batches
+
+    # (c) stochastic rounding on the card
+    numbers["stochastic_rounding"] = _stochastic_rounding_on_card()
+
+    # (d) the launcher: phase 8's cut set, one epoch at grad_accum=2 with
+    # bf16 masters, resumed for a second; -m test on its checkpoint
+    workdir = os.path.join(REPO, "build", "launcher")
+    lcfg = serve.load_config(os.path.join(EXPTS, LAUNCH_EXPT))
+    ldepth = int(lcfg.model.fuser.depth)
+    llayers = int(lcfg.model.common.fp_layers)
+    name = ("experiment_name=launch-options", "train.grad_accum=2",
+            "model.compute_dtype=bfloat16", "train.master_dtype=bfloat16")
+    opt_dir, _, run_a, secs_a = _launch(workdir, "options-parts", name + (
+        "train.num_epochs=1",))
+    _, epochs, run_b, secs_b = _launch(workdir, "options-resume", name + (
+        "train.num_epochs=2", "train.resume=true"))
+    for label, run in (("options-parts", run_a), ("options-resume", run_b)):
+        _counts_ok(f"launcher {label}", run["launches"], {
+            **{n: 2 * (ldepth if n.startswith("fused_block") else llayers)
+               * run["train_iters"] for n in entries},
+            "fused_block": ldepth * run["val_batches"],
+            "gpt2_attn_half": llayers * run["val_batches"],
+            "gpt2_mlp_half": llayers * run["val_batches"]})
+        for k, n in run["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    ck = load_checkpoint(os.path.join(opt_dir, "checkpoint_last"))
+    dtypes = {str(v.dtype) for v in ck["model"].values()
+              if v.is_floating_point()}
+    if ck["epoch"] != 2 or dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"options launcher: checkpoint epoch "
+                             f"{ck['epoch']}, dtypes {dtypes}")
+    losses = [e["train_total_loss"] for e in epochs]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"options launcher: losses {losses}")
+    init = "init_from_model=" + os.path.basename(opt_dir) + "/checkpoint_last"
+    export = _eval_run(workdir, "options-eval", (init,
+                                                 "save_name=options.h5"))
+    (res,) = PC.gen_load_resfiles(os.path.dirname(export["logits_file"]),
+                                  "options")
+    exported = torch.from_numpy(res["logits/action_all-fused"])
+    ecfg = serve.load_config(os.path.join(EXPTS, EVAL_EXPT),
+                             (f"cwd={workdir}", init, *LAUNCH_OVERRIDES))
+    dataset = get_dataset(ecfg.dataset_eval, ecfg.data_eval,
+                          get_transforms(ecfg, train=False))
+    plain, idx = _eval_logits(ecfg, dataset, ck["model"], "plain",
+                              "bfloat16")
+    max_abs = (exported - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    top1_ok, text = top1_report(exported, plain, need_decided=False)
+    log(f"options launcher: {LAUNCH_EXPT} at grad_accum=2 with bf16 masters "
+        f"on phase 8's cut set: 1 epoch in {secs_a:.1f} s, resumed for a "
+        f"second in {secs_b:.1f} s, train loss by epoch {losses}; the "
+        f"checkpoint holds bf16 weights; -m test on it: {len(exported)} "
+        f"clips, bf16 logits vs the plain path on the same checkpoint "
+        f"max_abs_diff={max_abs:.6g} (tol {5e-2 * scale:.6g} = 5e-2 * "
+        f"max|logit| {scale:.4g}) {text}")
+    if not (bool(exported.isfinite().all()) and max_abs <= 5e-2 * scale
+            and top1_ok and (idx == np.arange(len(idx))).all()):
+        raise AssertionError("options launcher: the exported logits "
+                             "disagree with the plain path's")
+    numbers["launcher"] = {
+        "run_s": [secs_a, secs_b], "train_loss_by_epoch": losses,
+        "window_ms_per_iter_by_epoch": [_window_ms(e) for e in epochs],
+        "eval_max_abs_diff": max_abs}
+    del ck, plain
+    torch.cuda.empty_cache()
+
+    # (e) ZeRO-1 against plain data parallelism over the same global
+    # batches, every element of every weight compared in the process that
+    # ran both: (i) one process through torchrun on NCCL (at world 1 the
+    # NCCL reduce-scatter and all-gather still run); (ii) two processes on
+    # the one card over gloo
+    sched = O.build_schedule(lcfg.opt, 2, 1)
+    zero1 = {}
+    for tag, nproc, device in (("nccl-n1", 1, "cuda"),
+                               ("gloo", 2, "cuda:0")):
+        jobs = [{"kind": "train", "name": f"zero-{z}", "expt": os.path.join(
+                     EXPTS, LAUNCH_EXPT),
+                 "overrides": [*LAUNCH_OVERRIDES,
+                               f"train.zero_sharding={z}"],
+                 "classes": DP_CLASSES, "batch": DP_GLOBAL_BATCH,
+                 "steps": OPTIONS_ZERO_STEPS, "seed": 9,
+                 "lrs": [sched(i, float(lcfg.opt.lr))
+                         for i in range(OPTIONS_ZERO_STEPS)],
+                 "invalid": [DP_GLOBAL_BATCH - 1],
+                 **({"keep_state": "host"} if z == "false" else
+                    {"keep_state": False, "against": "zero-false"})}
+                for z in ("false", "true")]
+        out = os.path.join(workdir, f"zero-{tag}-out")
+        spec = os.path.join(workdir, f"zero-{tag}-spec.json")
+        with open(spec, "w") as f:
+            json.dump({"device": device, "out": out, "jobs": jobs}, f)
+        _, secs = _logged_run(_dp_torchrun(
+            nproc, ["afft_tpu_torch.tools.dp_check", spec]),
+            workdir, f"zero-{tag}", LAUNCH_TIMEOUT)
+        recs = {z: [torch.load(os.path.join(out, f"zero-{z}.rank{r}.pt"),
+                               weights_only=False) for r in range(nproc)]
+                for z in ("false", "true")}
+        plain_dp, sharded = recs["false"][0], recs["true"][0]
+        backend = {r["backend"] for z in recs for r in recs[z]}
+        want = {"nccl"} if tag.startswith("nccl") else {"gloo"}
+        if backend != want or sharded["world"] != nproc:
+            raise AssertionError(f"options ZeRO-1 {tag}: backend {backend}, "
+                                 f"world {sharded['world']}")
+        loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                       for a, b in zip(sharded["losses"], plain_dp["losses"])
+                       for k in b)
+        weight_rel = sharded["state_diff"] / sharded["state_scale"]
+        state_bytes = {z: [r["state_bytes"] for r in recs[z]] for z in recs}
+        log(f"options ZeRO-1 {tag}: {nproc} process(es) over "
+            f"{', '.join(sorted(backend))} on "
+            f"the card, {DP_GLOBAL_BATCH // nproc} clips each, "
+            f"{OPTIONS_ZERO_STEPS} steps of {LAUNCH_EXPT}, against plain data "
+            f"parallelism: total loss by step "
+            f"{[round(l['total_loss'], 5) for l in sharded['losses']]} vs "
+            f"{[round(l['total_loss'], 5) for l in plain_dp['losses']]}, "
+            f"largest relative difference of any loss {loss_rel:.3g} (tol "
+            f"1e-5); weights, every element of every tensor, "
+            f"{weight_rel:.3g} of max|w| (tol 1e-5); optimizer-state bytes "
+            f"per rank {state_bytes['true']} vs {state_bytes['false']}; step "
+            f"ms rank 0 {_rounded(sharded['step_ms'])} vs "
+            f"{_rounded(plain_dp['step_ms'])} (one card: not a multi-GPU "
+            f"number); {secs:.1f} s")
+        if not (loss_rel <= 1e-5 and weight_rel <= 1e-5):
+            raise AssertionError(f"options: ZeRO-1 ({tag}) differs from "
+                                 f"plain data parallelism")
+        if not (sum(state_bytes["true"]) == state_bytes["false"][0]
+                and max(state_bytes["true"]) <= state_bytes["false"][0]
+                // nproc + 64):
+            raise AssertionError(f"options: ZeRO-1 ({tag}) state bytes "
+                                 f"{state_bytes}")
+        zero1[tag] = {
+            "loss_rel_diff": loss_rel, "weight_rel_diff": weight_rel,
+            "state_bytes_per_rank": state_bytes["true"],
+            "plain_state_bytes_per_rank": state_bytes["false"],
+            "step_ms_rank0": sharded["step_ms"],
+            "plain_step_ms_rank0": plain_dp["step_ms"], "run_s": secs}
+    numbers["zero1"] = zero1
+    del recs, plain_dp, sharded
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def main():
     try:
         import torch
@@ -4664,12 +5096,21 @@ def main():
             k["serving_graph_launches"] = graph_launches.get(k["name"], {})
         extras["seconds"] = time.perf_counter() - t0
         log(json.dumps({"serving_extras": extras}))
+
+        # 13. training options (grad_accum, bf16 masters and optimizer
+        # state, stochastic rounding, the launcher with them, ZeRO-1)
+        t0 = time.perf_counter()
+        options_launches, options = phase_options()
+        for k in kernels.values():
+            k["options_launches"] = options_launches.get(k["name"], 0)
+        options["seconds"] = time.perf_counter() - t0
+        log(json.dumps({"options": options}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 13. report
+    # 14. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
@@ -4677,7 +5118,8 @@ def main():
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("main_path", "plain_path_launches",
                               "launcher_launches", "eval_launches",
-                              "variants_launches", "serving_graph_launches")
+                              "variants_launches", "serving_graph_launches",
+                              "options_launches")
             if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
             for label, sub in e.items()

@@ -8,6 +8,8 @@ the CPU.
   between the swap's renames is recovered from ``.old-tmp``;
 - the async writer coalesces saves to one path (newest wins), and a failed
   write surfaces on ``wait``;
+- one payload saved to several paths is written once, the others hard
+  links that a later save replaces alone;
 - ``init_from_model`` merges by name and shape with a prefix filter, from
   the port's checkpoints and from reference ``.pth`` files; a file of
   another layout version is refused;
@@ -56,7 +58,7 @@ def _batch(cfg, seed=0, n=4):
 
 def _save(path, runner, epoch=1, **kw):
     CK.save_checkpoint(path, runner.model.state_dict(),
-                       runner.optimizer.opt.state_dict(), epoch, 4 * epoch,
+                       runner.optimizer.state_dict(), epoch, 4 * epoch,
                        0.5, rng_state=runner.rng_state(), **kw)
 
 
@@ -72,7 +74,7 @@ def test_round_trip_gives_identical_logits(tmp_path):
     assert (ckpt["epoch"], ckpt["step"], ckpt["best_metric"],
             ckpt["schedule"]) == (1, 4, 0.5, {"scale": 0.1})
     other.load_model_state(ckpt["model"])
-    other.optimizer.opt.load_state_dict(ckpt["optimizer"])
+    other.optimizer.load_state_dict(ckpt["optimizer"])
     assert torch.equal(other.eval_step(batch)[2], want)
     # the same file serves --weights and the JAX package's torch import
     sd = load_reference_checkpoint(str(tmp_path / "ck"))
@@ -140,6 +142,41 @@ def test_async_saves_coalesce_and_errors_surface(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="async checkpoint save failed"):
         CK.wait_for_pending_saves()
     CK.wait_for_pending_saves()  # the error is reported once
+
+
+def test_one_payload_to_several_paths_is_written_once(tmp_path,
+                                                      monkeypatch):
+    """An epoch that is both the best and the last is written once: the
+    other path is a hard link to it, which a later save of either path
+    replaces without touching the other; queued saves that share a path
+    leave each path with its newest payload."""
+    _, runner = _runner()
+    best, last = tmp_path / "best", tmp_path / "last"
+    _save([best, last], runner, epoch=1)
+    assert os.stat(best).st_ino == os.stat(last).st_ino
+    _save(last, runner, epoch=2)
+    assert os.stat(best).st_ino != os.stat(last).st_ino
+    assert CK.load_checkpoint(best)["epoch"] == 1
+    assert CK.load_checkpoint(last)["epoch"] == 2
+
+    writes, gate = [], threading.Event()
+    real = CK._write_and_swap
+
+    def slow(path, payload, epoch):
+        gate.wait(10)
+        writes.append((path.name, epoch))
+        real(path, payload, epoch)
+
+    monkeypatch.setattr(CK, "_write_and_swap", slow)
+    _save(tmp_path / "x", runner, epoch=0, block=False)
+    _save([best, last], runner, epoch=3, block=False)
+    _save(last, runner, epoch=4, block=False)
+    _save(best, runner, epoch=5, block=False)
+    gate.set()
+    CK.wait_for_pending_saves()
+    assert CK.load_checkpoint(best)["epoch"] == 5
+    assert CK.load_checkpoint(last)["epoch"] == 4
+    assert ("best", 3) not in writes and ("last", 3) not in writes
 
 
 def test_init_from_model_filters_by_prefix(tmp_path):

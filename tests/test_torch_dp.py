@@ -16,7 +16,11 @@ references run in this process, which has no process group.
   same 4 steps on one process at 2·b.
 - (c) as (b) with every dropout rate 0 and the mixup λ pinned: the
   2-process steps equal the JAX runner's at 2·b (the tolerances of
-  tests/test_torch_train_slice.py).
+  tests/test_torch_train_slice.py). (zc) and (zcb) are (c) under ZeRO-1,
+  with fp32 and with bf16 optimizer state, against the JAX runner under
+  its ``train.zero_sharding`` (``shard_opt_state`` on a 2-device mesh,
+  the weights pinned replicated, as afft_tpu/train/loop.py places them) and
+  the same ``state_dtype``, at the same tolerances.
 - (d) the metric meters after ``synchronize_between_processes`` equal one
   tracker fed both ranks' updates; only rank 0 writes checkpoint files.
 - (f) as (b) for the T-SA-Fuser and for ``CMFPScoreFusion`` with MATT
@@ -26,6 +30,16 @@ references run in this process, which has no process group.
 - (e) ``python -m afft_tpu_torch.run -c expts/99_synth_smoke_train.txt -m
   train -n 2 --device cpu`` for one epoch exits 0 with one writer of
   metrics.jsonl, and ``-m test -n 2`` exports the logits of one process.
+- (g) as (b) at ``train.grad_accum=2``, with a ragged ``valid`` in which one
+  rank's chunk has no valid row: the 2-process steps equal one process at
+  ``grad_accum=2`` over the same global batches ordered microbatch-major
+  (``dp_check.microbatch_major``), at (b)'s bound.
+- (z) ZeRO-1 (``train.zero_sharding=true``) on 2 processes against plain
+  data parallelism, as (b), with fp32 and with bf16 optimizer state, and
+  at ``grad_accum=2`` against (g): losses
+  and weights at (b)'s bound, each rank holding half the state; its
+  checkpoint after 2 steps, resumed in one process for the other 2, lands
+  where the 2 processes did.
 """
 
 import json
@@ -38,10 +52,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from afft_tpu.config import compose as jax_compose
 from afft_tpu.config import instantiate as jax_instantiate
 from afft_tpu.models import BaseModel as JaxBaseModel
+from afft_tpu.parallel.mesh import make_mesh, replicate_tree, shard_batch
+from afft_tpu.parallel.sharding import shard_opt_state
 from afft_tpu.train import optim as JO
 from afft_tpu.train.mixup import MixUp as JaxMixUp
 from afft_tpu.train.runner import Runner as JaxRunner
@@ -67,6 +84,10 @@ NO_DROPOUT = ["model.dropout=0.0", "model.fuser.embd_drop_rate=0.0",
               "model.fuser.drop_rate=0.0", "model.fuser.attn_drop_rate=0.0",
               "model.fuser.drop_path_rate=0.0", "model.common.embd_pdrop=0.0",
               "model.common.resid_pdrop=0.0", "model.common.attn_pdrop=0.0"]
+BF16_STATE = "opt.optimizer.state_dtype=bfloat16"
+ZERO = "train.zero_sharding=true"
+# the jobs held against the JAX runner: (c), and (c) under ZeRO-1
+JAX_HELD = {"c": [], "zc": [ZERO], "zcb": [ZERO, BF16_STATE]}
 GLOBAL_BATCH, STEPS = 8, 4
 LAMS = [0.3, 0.45, 0.6, 0.75]
 RUN_TIMEOUT = 300  # seconds a spawned run may take
@@ -156,9 +177,17 @@ def two_ranks(tmp_path_factory, jax_init):
         {"kind": "eval", "name": "a", "expt": SMOKE_VAL,
          "overrides": ["save_name=null"], "batch": 3, "seed": 0},
         _train_job("b", RATES),
-        _train_job("c", NO_DROPOUT, weights=jax_init[3], lam=LAMS),
+        *(_train_job(name, NO_DROPOUT + more, weights=jax_init[3], lam=LAMS)
+          for name, more in JAX_HELD.items()),
         {"kind": "meters", "name": "d", "classes": {"action": 11},
          "ckpt_dir": str(work / "ckpt")},
+        _train_job("g", RATES + ["train.grad_accum=2"], invalid=[2, 3, 7]),
+        _train_job("z", RATES + ["train.zero_sharding=true"],
+                   save={"path": str(work / "zero.ckpt"), "after": 2}),
+        _train_job("zb", RATES + ["train.zero_sharding=true", BF16_STATE]),
+        _train_job("pb", RATES + [BF16_STATE]),
+        _train_job("zg", RATES + ["train.zero_sharding=true",
+                                  "train.grad_accum=2"], invalid=[2, 3, 7]),
         *(_variant_job(work, v) for v in sorted(VARIANTS))]
     spec = {"device": "cpu", "out": str(work / "out"), "jobs": jobs}
     with open(work / "spec.json", "w") as f:
@@ -225,15 +254,25 @@ def test_variant_two_ranks_equal_one_process_with_dropout(two_ranks,
         one["losses"][0]["total_loss"]
 
 
+@pytest.mark.parametrize("name", list(JAX_HELD),
+                         ids=["plain_dp", "zero1", "zero1_bf16_state"])
 def test_two_ranks_equal_the_jax_runner_with_randomness_pinned(two_ranks,
-                                                               jax_init):
+                                                               jax_init,
+                                                               name):
     records, jobs, _ = two_ranks
-    rank0 = records["c"][0]
-    jcfg, jmodel, params, _ = jax_init
+    rank0 = records[name][0]
+    _, jmodel, params, _ = jax_init
+    jcfg = jax_compose(os.path.join(REPO, "afft_tpu/conf"),
+                       read_expt_file(SMOKE_TRAIN) + jobs[name]["overrides"])
     groups = JO.build_group_tree(params, jcfg.opt.lr_wd, jcfg.opt.lr,
                                  jcfg.opt.wd)
     joptimizer = jax_instantiate(jcfg.opt.optimizer)
     opt_state = joptimizer.init(params, groups)
+    if ZERO in jobs[name]["overrides"]:
+        assert bool(jcfg.train.zero_sharding)
+        if BF16_STATE in jobs[name]["overrides"]:
+            assert {x.dtype for x in jax.tree.leaves(opt_state["momentum"])
+                    } == {jnp.dtype(jnp.bfloat16)}
     jrunner = JaxRunner(
         jmodel, joptimizer, groups,
         loss_wts=dict(jcfg.train.loss_wts.items()),
@@ -243,13 +282,26 @@ def test_two_ranks_equal_the_jax_runner_with_randomness_pinned(two_ranks,
                        num_classes=CLASSES),
         mixup_backbone=jcfg.train.mixup_backbone,
         grad_clip=jcfg.opt.grad_clip, donate=False)
+    zmesh = None
+    if jcfg.train.zero_sharding:
+        # ZeRO-1 as the JAX loop runs it, over two devices
+        zmesh = make_mesh(jax.devices()[:2])
+        params = replicate_tree(zmesh, params)
+        opt_state = shard_opt_state(zmesh, opt_state)
+        repl = NamedSharding(zmesh, PartitionSpec())
+        jrunner.param_shardings = jax.tree.map(lambda _: repl, params)
+        assert any(m.addressable_shards[0].data.shape != m.shape
+                   for m in jax.tree.leaves(opt_state["momentum"]))
     tcfg = compose(CONF_DIR, read_expt_file(SMOKE_TRAIN) + NO_DROPOUT)
     batches = D.make_batches(tcfg, CLASSES, GLOBAL_BATCH, STEPS, 3,
                              [GLOBAL_BATCH - 1])
     for i, batch in enumerate(batches):
+        if zmesh is not None:
+            batch = shard_batch(zmesh, {k: v for k, v in batch.items()
+                                        if v is not None})
         jbatch = {**batch, "mixup_lam": jnp.asarray(LAMS[i], jnp.float32)}
         params, opt_state, losses, _, _ = jrunner.train_step(
-            params, opt_state, jbatch, jobs["c"]["lrs"][i], jcfg.opt.lr,
+            params, opt_state, jbatch, jobs[name]["lrs"][i], jcfg.opt.lr,
             jax.random.key(i))
         got = rank0["losses"][i]
         assert set(got) == set(losses)
@@ -261,6 +313,74 @@ def test_two_ranks_equal_the_jax_runner_with_randomness_pinned(two_ranks,
     for k, v in want.items():
         np.testing.assert_allclose(rank0["state"][k].numpy(), v.numpy(),
                                    atol=2e-5, rtol=1e-4, err_msg=k)
+
+
+def _assert_runs_agree(got, want, what):
+    """Losses within 1e-5 relative and the final weights within 1e-5 of
+    max|p|: (b)'s bound."""
+    assert len(got["losses"]) == len(want["losses"]) > 0
+    for i, (a, b) in enumerate(zip(got["losses"], want["losses"])):
+        assert set(a) == set(b) and "total_loss" in a
+        for k, v in b.items():
+            np.testing.assert_allclose(a[k], v, rtol=1e-5, atol=0,
+                                       err_msg=f"{what}: step {i} {k}")
+    scale = max(float(v.abs().max()) for v in want["state"].values())
+    for k, v in want["state"].items():
+        np.testing.assert_allclose(got["state"][k].float().numpy(),
+                                   v.float().numpy(), atol=1e-5 * scale,
+                                   rtol=0, err_msg=f"{what}: {k}")
+
+
+def test_two_ranks_at_grad_accum_equal_one_process_in_microbatch_order(
+        two_ranks):
+    records, jobs, _ = two_ranks
+    rank0, rank1 = records["g"]
+    assert rank0["world"] == 2 and rank0["losses"] == rank1["losses"]
+    one = D.run_train({**jobs["g"], "order": 2}, torch.device("cpu"))
+    assert one["world"] == 1
+    _assert_runs_agree(rank0, one, "grad_accum=2")
+    # in rank order (not microbatch-major) the one process takes other
+    # microbatches, and other steps
+    other = D.run_train({**jobs["g"], "steps": 1}, torch.device("cpu"))
+    assert other["losses"][0]["total_loss"] != one["losses"][0]["total_loss"]
+
+
+@pytest.mark.parametrize("zero, plain", [("z", "b"), ("zb", "pb"),
+                                         ("zg", "g"), ("zc", "c")],
+                         ids=["fp32_state", "bf16_state", "grad_accum",
+                              "pinned"])
+def test_zero1_equals_plain_data_parallelism(two_ranks, zero, plain):
+    records = two_ranks[0]
+    z0, z1 = records[zero]
+    p0, p1 = records[plain]
+    assert z0["world"] == 2 and z0["losses"] == z1["losses"]
+    _assert_runs_agree(z0, p0, f"ZeRO-1 {zero}")
+    # the state is split between the ranks: each holds about half (a
+    # bucket's slice is rounded up to whole elements), together all of it
+    assert p0["state_bytes"] == p1["state_bytes"] > 0
+    assert z0["state_bytes"] + z1["state_bytes"] == p0["state_bytes"]
+    for rec in (z0, z1):
+        assert abs(rec["state_bytes"] - p0["state_bytes"] / 2) <= 16
+
+
+def test_zero1_checkpoint_resumes_in_one_process(two_ranks):
+    records, jobs, work = two_ranks
+    ckpt = torch.load(work / "zero.ckpt", weights_only=False)
+    # the optimizer state was gathered into whole tensors, one a parameter
+    params = Runner.from_config(compose(CONF_DIR, read_expt_file(
+        SMOKE_TRAIN) + RATES), CLASSES, device="cpu").optimizer.params
+    state = ckpt["optimizer"]["state"]
+    assert sorted(state) == list(range(len(params)))
+    for i, p in enumerate(params):
+        mom = state[i]["momentum_buffer"]
+        assert mom.dtype == torch.float32 and mom.shape == p.shape, i
+    job = {k: v for k, v in jobs["z"].items() if k != "save"}
+    one = D.run_train({**job, "overrides": RATES,
+                       "resume": {"path": str(work / "zero.ckpt"),
+                                  "after": 2}}, torch.device("cpu"))
+    z0 = records["z"][0]
+    _assert_runs_agree(one, {**z0, "losses": z0["losses"][2:]},
+                       "ZeRO-1 checkpoint resumed in one process")
 
 
 def test_synchronized_meters_and_one_checkpoint_writer(two_ranks):

@@ -199,20 +199,33 @@ def test_smoke_expt_trains_one_step_on_the_plain_path():
 
 
 @pytest.mark.parametrize("override", [
-    "train.grad_accum=2", "train.master_dtype=bfloat16",
-    "train.zero_sharding=true", "train.pipeline_stages=2"])
+    "train.pipeline_stages=2", "train.pipeline_stages=4",
+    "train.master_dtype=bfloat16", "train.grad_accum=0"])
 def test_unported_train_keys_raise_naming_the_roadmap(override):
+    """GPipe is the one train.* key still unported and raises naming the
+    roadmap; bf16 masters without bf16 compute and a grad_accum below 1
+    are refused as the JAX loop refuses them."""
     cfg = serve.load_config(SMOKE_TRAIN, [override])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-        Runner.from_config(cfg, CLASSES, device="cpu")
+    if override.startswith("train.pipeline_stages"):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md §A\.7 \(e\)"):
+            Runner.from_config(cfg, CLASSES, device="cpu")
+    elif override.startswith("train.master_dtype"):
+        with pytest.raises(ValueError, match="compute_dtype=bfloat16"):
+            Runner.from_config(cfg, CLASSES, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="grad_accum"):
+            Runner.from_config(cfg, CLASSES, device="cpu")
 
 
 @pytest.mark.parametrize("override", [
     "train.class_weight_beta=null", "train.watch_gradients=false",
-    "train.zero_sharding=false", "train.pipeline_stages=1"])
+    "train.zero_sharding=false", "train.pipeline_stages=1",
+    "train.grad_accum=2", "train.zero_sharding=true"])
 def test_train_keys_at_their_defaults_build(override):
-    """The defaults, and one pipeline stage (the JAX loop pipelines only
-    above 1), are what the port runs."""
+    """The defaults, one pipeline stage (the JAX loop pipelines only
+    above 1), gradient accumulation and ZeRO-1 (one process: its own
+    slice is everything) are what the port runs."""
     cfg = serve.load_config(SMOKE_TRAIN, [override])
     assert Runner.from_config(cfg, CLASSES, device="cpu") is not None
 

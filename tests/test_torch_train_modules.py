@@ -263,7 +263,7 @@ def test_optimizers_match_jax_over_five_steps(name):
     assert groups["head.b"] == O.GroupSpec(0.02, 0.01, False)
     assert groups["frozen.w"].frozen
     opt = factory(**kw).bind(list(params.items()), groups)
-    assert len(opt.opt.param_groups) == 2
+    assert len(opt.param_groups) == 2
     for g, f in zip(grads, factors):
         for k, p in params.items():
             p.grad = torch.tensor(g[k])
@@ -287,8 +287,13 @@ def test_build_groups_prefix_rules():
     assert groups[names[1][0]] == O.GroupSpec(0.1, 0.01, False)
     assert all(g.lr == 0.3 for g in O.build_groups(
         names, [["__all__", 0.3, 0.0]], 0.1, 0.01).values())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-        O.sgd(state_dtype="bfloat16")
+    # opt.optimizer.state_dtype builds, and stores the state in it
+    params = [(n[0], torch.nn.Parameter(torch.ones(3))) for n in names]
+    opt = O.sgd(state_dtype="bfloat16").bind(
+        params, O.build_groups(params, None, 0.1, 0.01))
+    opt.step(1.0, [torch.full((3,), 0.5) for _ in params])
+    assert {st["momentum_buffer"].dtype for st in opt.state} == \
+        {torch.bfloat16}
 
 
 # -- schedules ----------------------------------------------------------------
@@ -359,15 +364,15 @@ def test_registry_builds_the_configured_optimizer_and_schedule():
         "opt/optimizer=sgd", "opt.optimizer.nesterov=true",
         "opt.warmup.num_epochs=2", "opt.scheduler.num_epochs=3"])
     opt = instantiate(cfg.opt.optimizer)
-    assert isinstance(opt, O.Optimizer) and opt._kwargs["nesterov"] is True
+    assert isinstance(opt, O.SGD) and opt.defaults["nesterov"] is True
     sched = O.build_schedule(cfg.opt, iters_per_epoch=5)
     want = JO.warmup_wrap(JO.cosine_schedule(3, 5, eta_min=1e-6),
                           init_lr_ratio=0.01, num_epochs=2, iters_per_epoch=5)
     assert _trace(sched, 30, 1e-3) == _trace(want, 30, 1e-3)
-    for group, cls in (("adam", torch.optim.Adam),
-                       ("adamW", torch.optim.AdamW)):
+    for group, decoupled in (("adam", False), ("adamW", True)):
         cfg = compose(CONF_DIR, [f"opt/optimizer={group}"])
-        assert instantiate(cfg.opt.optimizer)._factory is cls
+        opt = instantiate(cfg.opt.optimizer)
+        assert isinstance(opt, O.Adam) and opt.decoupled is decoupled
 
 
 # -- dropout, drop-path and the training-mode modules -------------------------
