@@ -161,9 +161,10 @@ def collect_logits(runner, loader, timing=None):
         raise ValueError("eval loader yielded no batches (empty dataset?)")
     logits = np.concatenate(chunks, axis=0)
     idx = np.concatenate(idxs, axis=0)
-    if mesh.rank_and_world()[1] > 1:
-        logits = mesh.gather_from_all(logits)
-        idx = mesh.gather_from_all(idx)
+    grid = runner.grid
+    if grid.replicas > 1:
+        logits = mesh.gather_from_all(logits, grid.data_group)
+        idx = mesh.gather_from_all(idx, grid.data_group)
     logits, idx = _merge_shards(logits, idx)
     return logits, idx, modk
 
@@ -243,8 +244,10 @@ def main(cfg, device="cuda"):
     loader = eval_loader(cfg, dataset_test, device, shard_id, num_shards)
 
     num_classes = {k: len(v) for k, v in dataset_test.classes.items()}
+    # every layer in each process, as the JAX package evaluates
     runner = Runner.from_config(cfg, num_classes, device=device,
-                                class_mappings=dataset_test.class_mappings)
+                                class_mappings=dataset_test.class_mappings,
+                                pipeline=False)
     if cfg.get("init_from_model") is None:
         raise ValueError("Checkpoint is required for test "
                          "(init_from_model).")

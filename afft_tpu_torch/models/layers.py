@@ -48,7 +48,11 @@ class RngStream:
     over the global batch, the processes' equal local batches in rank order.
     Every process holds the same generators (one seed), so each draw is the
     global batch's: ``_uniform_like`` draws the global rows and keeps this
-    rank's, and the training kernels start their masks at ``row_offset``."""
+    rank's, and the training kernels start their masks at ``row_offset``.
+    Under pipeline parallelism ``rank`` and ``world`` are the data replica
+    and the replica count (``parallel.mesh.Grid``'s ``data`` and
+    ``replicas``): the stages of one replica hold the same rows and draw
+    alike."""
 
     def __init__(self, seed: int, device="cpu", rank: int = 0,
                  world: int = 1):
@@ -65,9 +69,12 @@ class RngStream:
         return torch.randint(0, 2 ** 31 - 1, (2,),
                              generator=self._host).tolist()
 
-    def row_offset(self, local_rows: int) -> int:
-        """The global batch's row that this rank's first row is."""
-        return self.rank * int(local_rows)
+    def row_offset(self, local_rows: int, part: int = 0,
+                   parts: int = 1) -> int:
+        """The global batch's row that this rank's first row is, or the
+        first row of ``part`` of ``parts`` equal parts of its rows (a
+        pipeline microbatch)."""
+        return self.rank * int(local_rows) + part * (int(local_rows) // parts)
 
     @contextlib.contextmanager
     def microbatch(self, index: int, count: int):

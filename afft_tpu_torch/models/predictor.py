@@ -32,6 +32,16 @@ Three eval-mode paths, as in the JAX package:
   ``ops.attention.fused_attention`` (the CUDA kernel on CUDA tensors);
 - ``output_attentions=True``: the full re-run of every step on the plain
   path, which returns the attention weights as ``gpt2_att_{step}``.
+
+Pipeline parallelism (``train.pipeline_stages``, ``parallel.pipeline``):
+``pipeline(ctx)`` keeps the layers of this process's stage and drops the
+others' (their weights live on the other stages' processes; state-dict names
+keep the global layer index). The training layers and the single causal pass
+then run as ``parallel.pipeline.run_stack``: this stage's layers on each
+microbatch, each training layer at its global index and the microbatch's
+first global row, so the masks are the unpipelined pass's. A multi-step eval
+rollout re-runs the sequence through the stages (the KV cache holds every
+layer on one process), and the attention weights are refused.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from .fusion import check_impl
 from ..ops import attention as FA
 from ..ops import fused_gpt2 as FG
 from ..ops import fused_gpt2_train as FGT
+from ..parallel import pipeline as P
 
 LN_EPS = 1e-5
 
@@ -118,10 +129,32 @@ class BaseFuturePredictor(nn.Module):
         self.n_inner = 4 * inter_dim
         self.gpt_model = GPT2Model(inter_dim, n_layer, self.n_inner,
                                    n_positions)
+        self.pipeline_ctx = None
+
+    def pipeline(self, ctx):
+        """Run the layers over ``ctx``'s stages (``parallel.pipeline``):
+        keep this stage's, drop the other stages' modules."""
+        if self.output_attentions:
+            raise ValueError("model.common.fp_output_attentions needs every "
+                             "predictor layer in one process: train without "
+                             "pipeline parallelism")
+        self.pipeline_ctx = ctx
+        for i in range(self.n_layer):
+            if i not in ctx.layers:
+                self.gpt_model.h[i] = nn.Module()
+
+    def _layers(self):
+        """(global index, layer) of the layers this process runs."""
+        ctx = self.pipeline_ctx
+        return [(i, blk) for i, blk in enumerate(self.gpt_model.h)
+                if ctx is None or i in ctx.layers]
 
     def reset_parameters(self, gen):
         """GPT-2 init: N(0, 0.02), residual projections N(0, 0.02 /
         sqrt(2 n_layer)), zero biases, unit LayerNorms."""
+        if self.pipeline_ctx is not None:
+            raise RuntimeError("draw the weights before pipelining: each "
+                               "stage keeps its share of one draw")
         std = 0.02
         proj_std = std / math.sqrt(2 * self.n_layer)
         for blk in self.gpt_model.h:
@@ -186,21 +219,34 @@ class BaseFuturePredictor(nn.Module):
             raise ValueError("training with a dropout rate > 0 needs an "
                              "RngStream")
         seeds = (0, 0) if rng is None else rng.seed_words()
-        row0 = 0 if rng is None else rng.row_offset(x.shape[0])
-        for li, blk in enumerate(self.gpt_model.h):
-            params = dict(blk.named_parameters())
-            if impl == "kernel":
-                x = FGT.fused_gpt2_block_train(
-                    x, params, mask, seeds, num_heads=self.n_head,
-                    layer_idx=li, attn_rate=rates[0], resid_rate=rates[1],
-                    eps=LN_EPS, row0=row0)
-            else:
-                masks = FGT.draw_masks_gpt2(*x.shape, self.n_head, seeds, li,
-                                            *rates, device=x.device,
-                                            row0=row0)
-                x = FGT.fused_gpt2_block_train_plain(
-                    x, params, mask, masks, num_heads=self.n_head, eps=LN_EPS)
-        return x
+        rows, parts = x.shape[0], 1
+        if self.pipeline_ctx is not None:
+            parts = self.pipeline_ctx.microbatches
+
+        def stage(h, part):
+            """This process's layers on ``part`` of ``parts`` of the
+            batch."""
+            row0 = part * (rows // parts) if rng is None \
+                else rng.row_offset(rows, part, parts)
+            for li, blk in self._layers():
+                params = dict(blk.named_parameters())
+                if impl == "kernel":
+                    h = FGT.fused_gpt2_block_train(
+                        h, params, mask, seeds, num_heads=self.n_head,
+                        layer_idx=li, attn_rate=rates[0],
+                        resid_rate=rates[1], eps=LN_EPS, row0=row0)
+                else:
+                    masks = FGT.draw_masks_gpt2(
+                        *h.shape, self.n_head, seeds, li, *rates,
+                        device=h.device, row0=row0)
+                    h = FGT.fused_gpt2_block_train_plain(
+                        h, params, mask, masks, num_heads=self.n_head,
+                        eps=LN_EPS)
+            return h
+        if self.pipeline_ctx is None:
+            return stage(x, 0)
+        return P.run_stack(self.pipeline_ctx, x, stage, [
+            p for _, blk in self._layers() for p in blk.parameters()])
 
     def forward_hidden(self, embeds, *, collect_attn=False, impl="kernel",
                        rng=None):
@@ -209,6 +255,9 @@ class BaseFuturePredictor(nn.Module):
         T = embeds.shape[1]
         x = embeds + self.gpt_model.wpe.weight[:T]
         mask = L.neg_inf_causal_mask(T, device=x.device)
+        if collect_attn and self.pipeline_ctx is not None:
+            raise ValueError("the attention weights need every predictor "
+                             "layer in one process (pipeline parallelism)")
         if self.training:
             x = L.dropout(x, self.embd_pdrop, True, rng)
             if not collect_attn:
@@ -227,9 +276,16 @@ class BaseFuturePredictor(nn.Module):
             return self.gpt_model.ln_f(x), torch.stack(attns, dim=1)
         layer_fn = (FG.fused_gpt2_block if impl == "kernel"
                     else FG.fused_gpt2_block_plain)
-        for blk in self.gpt_model.h:
-            x = layer_fn(x, dict(blk.named_parameters()), mask,
-                         num_heads=self.n_head, eps=LN_EPS)
+
+        def stage(h, part=0):
+            for _, blk in self._layers():
+                h = layer_fn(h, dict(blk.named_parameters()), mask,
+                             num_heads=self.n_head, eps=LN_EPS)
+            return h
+        if self.pipeline_ctx is not None:
+            x = P.run_stack(self.pipeline_ctx, x, stage)
+        else:
+            x = stage(x)
         return self.gpt_model.ln_f(x), None
 
     # -- KV-cache decode (multi-step rollouts) ---------------------------
@@ -304,7 +360,7 @@ class BaseFuturePredictor(nn.Module):
         step (dropout is drawn per pass), as the JAX package does."""
         check_impl(impl)
         if output_len > 1 and not self.output_attentions \
-                and not self.training:
+                and not self.training and self.pipeline_ctx is None:
             return self._apply_kv_cache(feats, output_len, impl)
         return self._apply_full(feats, output_len,
                                 collect_attn=self.output_attentions,

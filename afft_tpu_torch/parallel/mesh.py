@@ -13,11 +13,21 @@ shards; reference run.py:42-44, common/utils.py:148-192):
   than 0 log errors only.
 - ``--device cuda`` gives each rank ``cuda:LOCAL_RANK``; an explicit index
   pins every rank to that card.
-- The collectives below act on tensors where they lie. Over gloo a CUDA
-  tensor goes through a host copy (gloo's CUDA support differs by op), bf16
-  and bool are gathered as their bytes. Without a process group each is the
-  identity, so one process runs the same code. A collective that fails
-  raises: nothing here falls back to a local result.
+- The collectives below act on tensors where they lie, over the world or
+  over the ``group`` they are given. Over gloo a CUDA tensor goes through a
+  host copy (gloo's CUDA support differs by op), bf16 and bool are gathered
+  as their bytes. Without a process group each is the identity, so one
+  process runs the same code. A collective that fails raises: nothing here
+  falls back to a local result.
+- Pipeline parallelism (``train.pipeline_stages`` = S > 1) lays the R
+  processes out as a grid (``grid``, the counterpart of
+  afft_tpu/parallel/pipeline.py:252-262 ``make_mesh_data_pipe``): rank r is
+  data replica r // S and stage r % S. The data group (the ranks of one
+  stage) carries what data parallelism carries; the pipe group (the ranks
+  of one replica) carries the activations between stages (``send`` /
+  ``recv``, ``broadcast``). The runner holds its grid (``grid``) and
+  passes its data group to every reduction it makes; without pipelining
+  the data group is the world.
 """
 
 from __future__ import annotations
@@ -138,11 +148,60 @@ def active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def rank_and_world():
-    """(this process's rank, the process count); (0, 1) without a group."""
+def rank_and_world(group=None):
+    """(this process's rank, the process count) in ``group`` (the world by
+    default); (0, 1) without a process group."""
     if not active():
         return 0, 1
-    return dist.get_rank(), dist.get_world_size()
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+class Grid:
+    """The data x pipe layout of the processes for S stages: rank r is data
+    replica ``data`` = r // S of ``replicas`` = R / S and stage ``stage`` =
+    r % S; ``data_group`` holds the ranks of this stage, ``pipe_group``
+    those of this replica (``pipe_ranks``, in stage order). One stage: every
+    rank a replica, the data group the world (None)."""
+
+    def __init__(self, stages: int):
+        rank, world = rank_and_world()
+        if stages < 1 or world % stages:
+            raise ValueError(f"train.pipeline_stages={stages} must divide "
+                             f"the process count {world}")
+        self.stages, self.replicas = stages, world // stages
+        self.data, self.stage = divmod(rank, stages)
+        self.pipe_ranks = [self.data * stages + s for s in range(stages)]
+        self.data_group = self.pipe_group = None
+        if stages > 1 and world > 1:
+            # every rank creates every group, in one order
+            data = [dist.new_group([d * stages + s
+                                    for d in range(self.replicas)])
+                    for s in range(stages)]
+            pipe = [dist.new_group([d * stages + s for s in range(stages)])
+                    for d in range(self.replicas)]
+            self.data_group = data[self.stage]
+            self.pipe_group = pipe[self.data]
+
+
+_GRIDS = {}       # stages -> Grid: a process makes each grid's groups once
+
+
+def grid(stages: int) -> Grid:
+    """The grid of ``stages`` stages (0 and 1: no pipelining). The groups
+    of a pipelined grid are made on its first use, by every rank together,
+    and kept for the process."""
+    if stages <= 1:
+        return Grid(1)
+    if stages not in _GRIDS:
+        _GRIDS[stages] = Grid(stages)
+    return _GRIDS[stages]
+
+
+def _alone(group) -> bool:
+    """Whether a collective over ``group`` has nothing to do: no process
+    group, or a group of one rank (a data group of one replica)."""
+    return not active() or (group is not None
+                            and dist.get_world_size(group) == 1)
 
 
 def _comm_device(t: torch.Tensor) -> torch.device:
@@ -154,79 +213,116 @@ def _comm_device(t: torch.Tensor) -> torch.device:
         "cuda", torch.cuda.current_device())
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The elementwise sum of ``t`` over every rank, on t's device (t is
-    not changed)."""
-    if not active():
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise sum of ``t`` over the ranks of ``group``, on t's
+    device (t is not changed)."""
+    if _alone(group):
         return t
     buf = t.detach().to(_comm_device(t), copy=True)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(t.device)
 
 
-def all_reduce_sum_(tensors) -> None:
-    """Sum each tensor of ``tensors`` over every rank, in place."""
-    if not active():
+def all_reduce_sum_(tensors, group=None) -> None:
+    """Sum each tensor of ``tensors`` over the ranks of ``group``, in
+    place."""
+    if _alone(group):
         return
     for t in tensors:
         dev = _comm_device(t)
         if dev == t.device:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         else:
             buf = t.to(dev)
-            dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
             t.copy_(buf)
 
 
-def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (equal shapes) concatenated on dim 0 in rank
-    order, on t's device. bf16 and fp16 travel as their bytes, bool as
-    uint8."""
-    if not active():
-        return t
-    _, world = rank_and_world()
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as gloo moves it whatever its dtype: bool as uint8, bf16 and
+    fp16 as their bytes (the last dim doubles)."""
     src = t.detach().contiguous()
     if src.dtype == torch.bool:
-        src = src.to(torch.uint8)
-    elif src.dtype in (torch.bfloat16, torch.float16):
-        src = src.view(torch.uint8)  # the last dim doubles
-    src = src.to(_comm_device(t))
+        return src.to(torch.uint8)
+    if src.dtype in (torch.bfloat16, torch.float16):
+        return src.view(torch.uint8)
+    return src
+
+
+def _from_bytes(buf: torch.Tensor, dtype) -> torch.Tensor:
+    return buf.bool() if dtype == torch.bool else buf.view(dtype)
+
+
+def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated on dim 0 in the rank
+    order of ``group``, on t's device. bf16 and fp16 travel as their bytes,
+    bool as uint8."""
+    if _alone(group):
+        return t
+    _, world = rank_and_world(group)
+    src = _as_bytes(t).to(_comm_device(t))
     parts = [torch.empty_like(src) for _ in range(world)]
-    dist.all_gather(parts, src)
-    out = torch.cat(parts).to(t.device)
-    if t.dtype == torch.bool:
-        return out.bool()
-    return out.view(t.dtype)
+    dist.all_gather(parts, src, group=group)
+    return _from_bytes(torch.cat(parts).to(t.device), t.dtype)
 
 
-def reduce_scatter_sum(flat: torch.Tensor) -> torch.Tensor:
+def reduce_scatter_sum(flat: torch.Tensor, group=None) -> torch.Tensor:
     """This rank's slice of the elementwise sum of ``flat`` (1-D, its length
-    a multiple of the process count) over every rank: NCCL's
+    a multiple of the group's size) over the ranks of ``group``: NCCL's
     reduce-scatter; gloo has none, so an all-reduce and the rank's slice,
     the same numbers. Without a process group, ``flat``."""
-    if not active():
+    if _alone(group):
         return flat
-    rank, world = rank_and_world()
+    rank, world = rank_and_world(group)
     size = flat.numel() // world
     if dist.get_backend() == "nccl" and flat.is_cuda:
         out = torch.empty(size, dtype=flat.dtype, device=flat.device)
-        dist.reduce_scatter_tensor(out, flat.contiguous())
+        dist.reduce_scatter_tensor(out, flat.contiguous(), group=group)
         return out
-    return all_reduce_sum(flat)[rank * size:(rank + 1) * size]
+    return all_reduce_sum(flat, group)[rank * size:(rank + 1) * size]
 
 
-def all_gather_flat(local: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``local`` (1-D, equal lengths) concatenated in rank
-    order: NCCL's all-gather into one tensor, else ``all_gather_cat``."""
-    if not active():
+def all_gather_flat(local: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``local`` (1-D, equal lengths) concatenated in the rank
+    order of ``group``: NCCL's all-gather into one tensor, else
+    ``all_gather_cat``."""
+    if _alone(group):
         return local
     if dist.get_backend() == "nccl" and local.is_cuda:
-        _, world = rank_and_world()
+        _, world = rank_and_world(group)
         out = torch.empty(local.numel() * world, dtype=local.dtype,
                           device=local.device)
-        dist.all_gather_into_tensor(out, local.contiguous())
+        dist.all_gather_into_tensor(out, local.contiguous(), group=group)
         return out
-    return all_gather_cat(local)
+    return all_gather_cat(local, group)
+
+
+def send(t: torch.Tensor, dst: int) -> None:
+    """``t`` to rank ``dst`` (a global rank), which ``recv``s it: NCCL's
+    send of a CUDA tensor, else through a host copy (gloo has no CUDA
+    point-to-point), bf16 as its bytes."""
+    dev = _comm_device(t)
+    dist.send(_as_bytes(t).to(dev), dst)
+
+
+def recv(shape, dtype, device, src: int) -> torch.Tensor:
+    """The tensor of ``shape`` and ``dtype`` that rank ``src`` ``send``s,
+    on ``device``."""
+    like = torch.empty(shape, dtype=dtype, device=device)
+    buf = torch.empty_like(_as_bytes(like), device=_comm_device(like))
+    dist.recv(buf, src)
+    return _from_bytes(buf.to(device), dtype)
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Rank ``src``'s (a global rank) ``t`` on every rank of ``group``, on
+    t's device: every rank passes a tensor of the shape and dtype that
+    ``src`` holds; the others' values are not read."""
+    if _alone(group):
+        return t
+    buf = _as_bytes(t).to(_comm_device(t), copy=True)
+    dist.broadcast(buf, src, group=group)
+    return _from_bytes(buf.to(t.device), t.dtype)
 
 
 def buckets(tensors, limit: int):
@@ -248,32 +344,34 @@ def barrier() -> None:
         dist.barrier()
 
 
-def gather_from_all(array) -> np.ndarray:
+def gather_from_all(array, group=None) -> np.ndarray:
     """Every rank's array (equal rank, first dimensions may differ)
-    concatenated on axis 0 in rank order, on every rank (reference
-    utils.gather_from_all, common/utils.py:207-232)."""
+    concatenated on axis 0 in the rank order of ``group``, on every rank of
+    it (reference utils.gather_from_all, common/utils.py:207-232)."""
     array = np.ascontiguousarray(array)
     if not active():
         return array
     t = torch.from_numpy(array)
-    sizes = all_gather_cat(torch.tensor([t.shape[0]])).tolist()
+    sizes = all_gather_cat(torch.tensor([t.shape[0]]), group).tolist()
     pad = max(sizes) - t.shape[0]
     if pad:
         t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
-    parts = all_gather_cat(t).numpy()
+    parts = all_gather_cat(t, group).numpy()
     rows = max(sizes)
     return np.concatenate([parts[r * rows:r * rows + k]
                            for r, k in enumerate(sizes)], axis=0)
 
 
-def any_rank(flag: bool) -> bool:
-    """Whether ``flag`` is set on any rank (one decision for all ranks)."""
+def any_rank(flag: bool, group=None) -> bool:
+    """Whether ``flag`` is set on any rank of ``group`` (one decision for
+    all of them)."""
     if not active():
         return bool(flag)
     t = torch.tensor([int(bool(flag))], dtype=torch.int64)
-    return bool(all_reduce_sum(t).item() > 0)
+    return bool(all_reduce_sum(t, group).item() > 0)
 
 
 def shutdown() -> None:
+    _GRIDS.clear()
     if active():
         dist.destroy_process_group()

@@ -25,6 +25,11 @@ bucket's padding, and the collectives are one per bucket. The update is
 elementwise, so a piece takes the same update as the whole tensor would.
 ``gather`` assembles whole state tensors for a checkpoint, which is then the
 one plain data parallelism or one process writes, and loads anywhere.
+
+Under pipeline parallelism the processes that share the slicing are those of
+one data group (the ranks of one stage, the runner's ``grid.data_group``),
+each with its own parameter list: the layers its stage owns and the
+replicated rest.
 """
 
 from __future__ import annotations
@@ -38,11 +43,13 @@ from . import mesh
 
 class Zero1:
     """The slicing of ``params`` (contiguous tensors of one dtype, the
-    optimizer's order) over the process group, this process's pieces."""
+    optimizer's order) over the ranks of ``group`` (the world by default),
+    this process's pieces."""
 
-    def __init__(self, params, limit: int = mesh.GRAD_BUCKET):
+    def __init__(self, params, limit: int = mesh.GRAD_BUCKET, group=None):
         self.params = list(params)
-        self.rank, self.world = mesh.rank_and_world()
+        self.group = group
+        self.rank, self.world = mesh.rank_and_world(group)
         index = {id(p): i for i, p in enumerate(self.params)}
         # per bucket: (parameter indices, their offsets, slice length)
         self.buckets = []
@@ -104,7 +111,7 @@ class Zero1:
                 continue
             dev = self.params[idx[0]].device
             mine = mesh.reduce_scatter_sum(
-                self._flat(b, grads, torch.float32, dev))
+                self._flat(b, grads, torch.float32, dev), self.group)
             for i in idx:
                 if grads[i] is not None:
                     _, _, lo, hi, at = self.where[i]
@@ -120,7 +127,7 @@ class Zero1:
             for i in idx:
                 pieces[i] = self.piece_view(i)
             full = mesh.all_gather_flat(self._local(b, pieces, p0.dtype,
-                                                    p0.device))
+                                                    p0.device), self.group)
             for i in idx:
                 _, off, _, _, _ = self.where[i]
                 p = self.params[i]
@@ -137,7 +144,7 @@ class Zero1:
                 continue
             ref = pieces[have[0]]
             full = mesh.all_gather_flat(self._local(b, pieces, ref.dtype,
-                                                    ref.device))
+                                                    ref.device), self.group)
             for i in have:
                 _, off, _, _, _ = self.where[i]
                 p = self.params[i]

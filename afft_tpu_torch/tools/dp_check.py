@@ -16,22 +16,36 @@ dict, with the process group's ``"backend"``) on every rank:
   step] or null, "invalid": [global rows whose valid is False]}``:
   ``Runner.train_step`` on ``steps`` global batches of ``batch`` rows made
   from ``seed``; each rank takes its contiguous share (``batch / world``
-  rows). Writes the losses of every step, each step's host time to its
+  rows). Writes the losses of every step (``"norms"``: the gradient and
+  parameter norms of ``train.watch_gradients``), each step's host time to its
   end (the device synchronised), the final state dict (rank 0, unless
   ``"keep_state"`` is false, or ``"host"``: held in this process for a
   later job's ``"against"`` and not written), the optimizer-state bytes and
   the kernel launches of this rank. Optional keys: ``"against": name``
   compares rank 0's final state, every element of every tensor, with that
-  earlier job's held one (``"state_diff"``, the largest |difference|, and
-  ``"state_scale"``, the held state's max|w|); ``"save": {"path", "after"}``
-  writes a checkpoint after that many steps (every rank takes part:
-  ZeRO-1 gathers its state); ``"resume": {"path", "after"}`` loads one and
+  earlier job's held one (``"state_diffs"``, each tensor's largest
+  |difference| by name; ``"state_diff"``, the largest of them, and
+  ``"state_scale"``, the held state's max|w|); ``"against_file": path``
+  does the same with a state dict saved by another process; ``"save":
+  {"path", "after"}`` writes a checkpoint after that many steps (every
+  rank takes part: ZeRO-1 and the pipeline's stages gather their state);
+  ``"resume": {"path", "after"}`` loads one and
   runs the steps after it; ``"order": R`` (one process, ``grad_accum`` M)
   orders each global batch microbatch-major as R processes split it
-  (``microbatch_major``).
+  (``microbatch_major``). Under ``train.pipeline_stages`` = S the shares
+  are the D = R / S data replicas', the state (and the checkpoint) is the
+  unpipelined layout gathered from the stages, and each rank also records
+  its stage, replica, parameter names and the sums of its replicated
+  weights (``replicated_sums``).
 - ``{"kind": "eval", "name", "expt", "overrides", "batch", "seed"}``: the
   expt's eval set through ``eval.evaluate.collect_logits`` on this rank's
   shard, merged over the ranks, and through the whole set on every rank.
+- ``{"kind": "stack", "name", "stages", "micro", "layers", "batch",
+  "tokens", "width", "heads", "weights": state-dict file, "seed"}``: the
+  GPT-2 training layers (dropout 0) of a predictor of that size through
+  the S-stage GPipe schedule (``parallel.pipeline``) on x (batch, tokens,
+  width) N(0, 1) from ``seed``: the output, the input's gradient and this
+  stage's parameter gradients of sum(out²).
 - ``{"kind": "meters", "name", "classes", "ckpt_dir"}``: a
   ``MetricTracker`` fed rank-dependent values and synchronised, and
   ``save_checkpoint`` into ``ckpt_dir`` (only rank 0 writes).
@@ -120,17 +134,20 @@ def _cfg(job):
 def run_train(job, device):
     """The ``train`` job on this process (a rank's share, or the whole
     batch without a process group); returns its record."""
-    from ..train.runner import Runner
+    from ..parallel import pipeline as P
+    from ..train.runner import Runner, pipeline_stages
     rank, world = mesh.rank_and_world()
     cfg = _cfg(job)
     classes = job["classes"]
-    if job["batch"] % world:
-        raise ValueError(f"batch {job['batch']} over {world} processes")
+    grid = mesh.grid(pipeline_stages(cfg.train))
+    replica, replicas = grid.data, grid.replicas
+    if job["batch"] % replicas:
+        raise ValueError(f"batch {job['batch']} over {replicas} replicas")
     weights = None
     if job.get("weights"):
         weights = torch.load(job["weights"], map_location="cpu")
     runner = Runner.from_config(cfg, classes, device=device,
-                                iters_per_epoch=2, world_size=world,
+                                iters_per_epoch=2, world_size=replicas,
                                 weights=weights)
     batches = make_batches(cfg, classes, job["batch"], job["steps"],
                            job["seed"], job.get("invalid", ()))
@@ -139,48 +156,64 @@ def run_train(job, device):
     if job.get("resume"):
         from ..train import checkpoint as CK
         ckpt = CK.load_checkpoint(job["resume"]["path"])
-        runner.load_model_state(ckpt["model"])
-        runner.optimizer.load_state_dict(ckpt["optimizer"])
+        runner.load_checkpoint_state(ckpt["model"], ckpt["optimizer"])
         runner.load_rng_state(ckpt["rng"])
         first = job["resume"]["after"]
     reset_launches()
-    losses, step_ms = [], []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(runner.device)
+    losses, norms, step_ms = [], [], []
     for i, batch in enumerate(batches):
         if i < first:
             continue
         if job.get("order") and world == 1:
             batch = microbatch_major(batch, job["order"], runner.grad_accum)
-        local = shard(batch, rank, world)
+        local = shard(batch, replica, replicas)
         if job.get("lam") is not None:
             local["mixup_lam"] = np.float32(job["lam"][i])
         t0 = time.perf_counter()
-        step, _ = runner.train_step(local, job["lrs"][i], runner.base_lr,
-                                    check_nan=True)
+        step, metrics = runner.train_step(local, job["lrs"][i],
+                                          runner.base_lr, check_nan=True)
         losses.append({k: float(v) for k, v in step.items()})
+        norms.append({k: float(v) for k, v in metrics.items()
+                      if "_norm" in k and not isinstance(v, dict)})
         if cuda:
             torch.cuda.synchronize(runner.device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if job.get("save") and i + 1 == job["save"]["after"]:
             from ..train import checkpoint as CK
-            CK.save_checkpoint(job["save"]["path"],
-                               runner.model.state_dict(),
-                               runner.optimizer.state_dict(), 0, i + 1, 0.0,
-                               rng_state=runner.rng_state())
+            model_state, opt_state = runner.checkpoint_state()
+            CK.save_checkpoint(job["save"]["path"], model_state, opt_state,
+                               0, i + 1, 0.0, rng_state=runner.rng_state())
             CK.wait_for_pending_saves()
-    record = {"losses": losses, "launches": launch_counts(), "rank": rank,
-              "world": world, "step_ms": step_ms,
-              "state_bytes": runner.optimizer.state_bytes(), "state": None}
+    named = list(runner.model.named_parameters())
+    record = {"losses": losses, "norms": norms,
+              "launches": launch_counts(), "rank": rank,
+              "world": world, "replicas": replicas, "step_ms": step_ms,
+              "state_bytes": runner.optimizer.state_bytes(), "state": None,
+              "params": [n for n, _ in named],
+              "replicated_sums": [float(p.detach().double().sum())
+                                  for n, p in named
+                                  if P.layer_of(n) is None]}
+    if cuda:
+        record["peak_bytes"] = torch.cuda.max_memory_allocated(runner.device)
+    if runner.pipeline is not None:
+        record.update(stage=runner.pipeline.stage,
+                      replica=runner.pipeline.grid.data)
     keep = job.get("keep_state", True)
-    if rank == 0 and (keep or job.get("against")):
-        state = {k: v.detach().cpu()
-                 for k, v in runner.model.state_dict().items()}
-        if job.get("against"):
-            other = _HELD[job["against"]]
-            record["state_diff"] = max(
-                float((state[k].float() - v.float()).abs().max())
-                for k, v in other.items())
-            record["state_scale"] = max(float(v.float().abs().max())
-                                        for v in other.values())
+    against = job.get("against") or job.get("against_file")
+    model_state = runner.model_state() if keep or against else None
+    if rank == 0 and (keep or against):
+        state = {k: v.detach().cpu() for k, v in model_state.items()}
+        if against:
+            other = _HELD[against] if job.get("against") else torch.load(
+                against, map_location="cpu")
+            diffs = {k: float((state[k].float() - v.float()).abs().max())
+                     for k, v in other.items()}
+            record.update(state_diffs=diffs,
+                          state_diff=max(diffs.values()),
+                          state_scale=max(float(v.float().abs().max())
+                                          for v in other.values()))
         if keep == "host":
             _HELD[job["name"]] = state
         elif keep:
@@ -195,15 +228,20 @@ def run_eval(job, device):
     from ..eval.evaluate import _forward_all, collect_logits
     from ..train.loop import DATASET_EVAL_CFG_KEY, get_transforms
     from ..train.runner import Runner
-    rank, world = mesh.rank_and_world()
+    rank, _ = mesh.rank_and_world()
     cfg = _cfg(job)
     dataset = get_dataset(cfg[DATASET_EVAL_CFG_KEY], cfg.data_eval,
                           get_transforms(cfg, train=False))
     classes = {k: len(v) for k, v in dataset.classes.items()}
     runner = Runner.from_config(cfg, classes, device=device,
                                 class_mappings=dataset.class_mappings)
+    if job.get("weights"):
+        runner.load_model_state(torch.load(job["weights"],
+                                           map_location="cpu"))
+    replica, replicas = runner.grid.data, runner.grid.replicas
     sharded = BatchLoader(dataset, batch_size=job["batch"], shuffle=False,
-                          num_workers=1, shard_id=rank, num_shards=world)
+                          num_workers=1, shard_id=replica,
+                          num_shards=replicas)
     logits, idx, _ = collect_logits(runner, sharded)
     # every rank forwards the whole set too (its steps all-reduce their
     # loss denominators, so all ranks take them together)
@@ -214,6 +252,40 @@ def run_eval(job, device):
             "whole": np.concatenate([p[0] for p in parts]),
             "whole_idx": np.concatenate([p[2] for p in parts]),
             "uids": np.concatenate([p[1] for p in parts]), "rank": rank}
+
+
+def run_stack(job, device):
+    """The ``stack`` job: (output, input gradient, this stage's parameter
+    gradients by state-dict name) of sum(out²) through the pipelined
+    training layers."""
+    from ..models import layers as L
+    from ..models.predictor import BaseFuturePredictor
+    from ..parallel import pipeline as P
+    reset_launches()
+    C, n_layer = job["width"], job["layers"]
+    pred = BaseFuturePredictor(C, inter_dim=C, n_layer=n_layer,
+                               n_head=job["heads"], embd_pdrop=0.0,
+                               resid_pdrop=0.0, attn_pdrop=0.0).to(device)
+    weights = torch.load(job["weights"], map_location="cpu")
+    names = [n for n, _ in pred.named_parameters()]
+    ctx = P.PipelineCtx(job["stages"], job["micro"], n_layer, names=names,
+                        keys=list(pred.state_dict()))
+    pred.pipeline(ctx)
+    state = P.local_model_state(ctx, weights)
+    missing = pred.load_state_dict(state, strict=False).missing_keys
+    if any(P.layer_of(k) is not None for k in missing):
+        raise ValueError(f"the stack's weights lack {missing}")
+    pred.train()
+    x = torch.from_numpy(np.random.default_rng(job["seed"]).standard_normal(
+        (job["batch"], job["tokens"], C)).astype(np.float32)).to(device)
+    x.requires_grad_()
+    mask = L.neg_inf_causal_mask(job["tokens"], device=x.device)
+    out = pred._train_layers(x, mask, "kernel", None)
+    (out ** 2).sum().backward()
+    return {"out": out.detach().cpu(), "dx": x.grad.cpu(),
+            "grads": {n: p.grad.cpu() for n, p in pred.named_parameters()
+                      if P.layer_of(n) is not None},
+            "stage": ctx.stage, "launches": launch_counts()}
 
 
 def meter_updates(rank: int, classes):
@@ -248,7 +320,8 @@ def run_meters(job, device):
             "world": world}
 
 
-JOBS = {"train": run_train, "eval": run_eval, "meters": run_meters}
+JOBS = {"train": run_train, "eval": run_eval, "meters": run_meters,
+        "stack": run_stack}
 
 
 def main(argv=None):

@@ -36,6 +36,12 @@ together.
   iteration's start to its last step's end, stalls included) and
   ``clips_per_s`` (the epoch's valid clips over ``window_ms``), rank 0's
   in a data-parallel run.
+- ``train.pipeline_stages`` = S > 1 (GPipe, ``parallel.pipeline``): the
+  processes form D = R / S data replicas of S stages. The loaders shard by
+  the data replica over D, so the stages of one replica see the same
+  batches, the schedule counts D as ``world_size``, and checkpoints are
+  written in the unpipelined layout and resumed into either layout
+  (``Runner.checkpoint_state`` / ``load_checkpoint_state``).
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from .checkpoint import (CKPT_BEST_DIRNAME, CKPT_LAST_DIRNAME,
                          init_from_model, load_checkpoint, save_checkpoint,
                          wait_for_pending_saves)
 from .metrics import MetricTracker
-from .runner import Runner
+from .runner import Runner, check_train_keys, pipeline_stages
 
 DATASET_TRAIN_CFG_KEY = "dataset_train"
 DATASET_EVAL_CFG_KEY = "dataset_eval"
@@ -274,16 +280,21 @@ def main(cfg, device="cuda", interactive: bool = True):
     is_master = rank == 0
     preempt_ev = _install_preemption_handler()
     reset_launches()  # the run's own kernel launches, logged at the end
+    # the data x pipe grid (every rank a data replica without pipelining)
+    check_train_keys(cfg.train, cfg.model)
+    stages = pipeline_stages(cfg.train)
+    grid = mesh.grid(stages)
+    replica, replicas = grid.data, grid.replicas
     experiment_name, ckpt_path = create_ckpt_path(cfg, interactive)
     np.random.seed(cfg.seed)
 
     dataset_train, loader_train, dataset_val, loader_val = \
         build_dataloaders(cfg, pin_memory=device.type == "cuda",
-                          shard_id=rank, num_shards=world)
+                          shard_id=replica, num_shards=replicas)
     num_classes = {k: len(v) for k, v in dataset_train.classes.items()}
     runner = Runner.from_config(
         cfg, num_classes, device=device, iters_per_epoch=len(loader_train),
-        world_size=world, class_mappings=dataset_train.class_mappings,
+        world_size=replicas, class_mappings=dataset_train.class_mappings,
         class_weights=class_weights_for(cfg, dataset_train, num_classes))
     lr_schedule, base_lr = runner.lr_schedule, runner.base_lr
     n_params = sum(p.numel() for p in runner.model.parameters())
@@ -292,8 +303,14 @@ def main(cfg, device="cuda", interactive: bool = True):
     log.info("training: grad_accum %d, %s masters, optimizer state in %s, "
              "%s", runner.grad_accum, runner.master_dtype,
              runner.optimizer.state_dtype or "the masters' dtype",
-             f"ZeRO-1 over {world} processes" if runner.zero is not None
+             f"ZeRO-1 over {replicas} processes" if runner.zero is not None
              else "the optimizer state on every process")
+    if runner.pipeline is not None:
+        log.info("pipeline parallelism: %d data replicas x %d stages, %d "
+                 "microbatches; stage %d holds predictor layers %d-%d",
+                 replicas, stages, runner.pipeline.microbatches,
+                 runner.pipeline.stage, runner.pipeline.layers.start,
+                 runner.pipeline.layers.stop - 1)
 
     profiler = ProfilerHook(cfg.get("profile_dir"),
                             int(cfg.get("profile_start_step", 10)),
@@ -311,7 +328,7 @@ def main(cfg, device="cuda", interactive: bool = True):
         state, _ = init_from_model(runner.model.state_dict(), paths,
                                    cfg.train.modules_to_keep, log)
         runner.load_model_state(state)
-    metric_tracker = MetricTracker(num_classes)
+    metric_tracker = MetricTracker(num_classes, grid.data_group)
 
     start_epoch, step_counter, best_metric = 0, 0, 0.0
     last_path = os.path.join(ckpt_path, CKPT_LAST_DIRNAME)
@@ -320,8 +337,7 @@ def main(cfg, device="cuda", interactive: bool = True):
             # crash between the swap renames: load_checkpoint recovers it
             or os.path.exists(last_path + ".old-tmp")):
         ckpt = load_checkpoint(last_path)
-        runner.load_model_state(ckpt["model"])
-        runner.optimizer.load_state_dict(ckpt["optimizer"])
+        runner.load_checkpoint_state(ckpt["model"], ckpt["optimizer"])
         start_epoch = int(ckpt["epoch"])
         step_counter = int(ckpt["step"])
         best_metric = float(ckpt["best_metric"])
@@ -347,11 +363,11 @@ def main(cfg, device="cuda", interactive: bool = True):
         if cache_train is not None:
             return (cache_train.iter_batches(
                         loader_train.batch_size, shuffle=True, seed=cfg.seed,
-                        epoch=epoch, shard_id=rank, num_shards=world,
+                        epoch=epoch, shard_id=replica, num_shards=replicas,
                         sample_weights=loader_train.sample_weights),
                     cache_val.iter_batches(loader_val.batch_size,
-                                           shuffle=False, shard_id=rank,
-                                           num_shards=world))
+                                           shuffle=False, shard_id=replica,
+                                           num_shards=replicas))
         loader_train.set_epoch(epoch)
         return loader_train, loader_val
 
@@ -403,8 +419,8 @@ def main(cfg, device="cuda", interactive: bool = True):
             best_metric = primary
 
         def save(path, ck_epoch, ck_step, blocking):
-            save_checkpoint(path, runner.model.state_dict(),
-                            runner.optimizer.state_dict(), ck_epoch,
+            model_state, opt_state = runner.checkpoint_state()
+            save_checkpoint(path, model_state, opt_state, ck_epoch,
                             ck_step, best_metric,
                             schedule_state=sched_state,
                             rng_state=runner.rng_state(), block=blocking)
@@ -446,7 +462,8 @@ def main(cfg, device="cuda", interactive: bool = True):
     wait_for_pending_saves()
     run = {"device": str(device), "train_iters": train_iters,
            "val_batches": val_batches, "launches": launch_counts(),
-           "world_size": world}
+           "world_size": world, "pipeline_stages": stages,
+           "data_replicas": replicas}
     if cache_train is not None:
         run["device_cache_bytes"] = {"train": cache_train.nbytes,
                                      "val": cache_val.nbytes}

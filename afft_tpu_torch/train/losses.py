@@ -11,12 +11,13 @@ Losses come back per key (cls_* / past_cls_* / past_reg_*);
 loss weights (common/runner.py:171-213).
 
 Data parallelism: every mean divides by its denominator over the global
-batch (one small all-reduce of the denominator for each term, through
-``parallel.mesh``; the identity in one process), so each scalar here is this
-rank's share of the one-process value over the global batch: the shares sum
-to it, and the gradients of the shares sum to its gradient. A mean of the
-ranks' own means would be wrong as soon as ``valid`` or the class weights
-differ between ranks.
+batch (one small all-reduce of the denominator for each term over the
+data ranks ``group``, through ``parallel.mesh``; the world by default, the
+identity in one process), so each scalar here is this rank's share of the
+one-process value over the global batch: the shares sum to it, and the
+gradients of the shares sum to its gradient. A mean of the ranks' own
+means would be wrong as soon as ``valid`` or the class weights differ
+between ranks.
 """
 
 from __future__ import annotations
@@ -46,11 +47,12 @@ def cross_entropy_one_hot(logits, tgt):
     return -(tgt * F.log_softmax(logits.float(), dim=-1)).sum(dim=-1)
 
 
-def _masked_mean(x, mask):
+def _masked_mean(x, mask, group=None):
     """This rank's share of the mean of x over the global batch's kept
-    rows."""
+    rows (the batch of the ranks of ``group``)."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / mesh.all_reduce_sum(mask.sum()).clamp(min=1.0)
+    return (x * mask).sum() / mesh.all_reduce_sum(
+        mask.sum(), group).clamp(min=1.0)
 
 
 def topk_correct(logits, labels, k):
@@ -60,7 +62,7 @@ def topk_correct(logits, labels, k):
 
 
 def future_action_terms(logits, tgt_val, mixup_enable, valid,
-                        class_weights=None):
+                        class_weights=None, group=None):
     """Future-action loss and accuracy payload (reference runner.py:54-92).
 
     logits: (B, T', C) with T' >= 1; tgt_val: (B,) int or (B, C) soft.
@@ -99,10 +101,10 @@ def future_action_terms(logits, tgt_val, mixup_enable, valid,
     flat_labels = labels.repeat_interleave(Tp)
     flat_preds = preds.reshape(-1, C)
     acc1 = _masked_mean(topk_correct(flat_preds, flat_labels, 1).float(),
-                        flat_valid) * 100.0
+                        flat_valid, group) * 100.0
     acc5 = _masked_mean(
         topk_correct(flat_preds, flat_labels, min(5, C)).float(),
-        flat_valid) * 100.0
+        flat_valid, group) * 100.0
     if class_weights is not None and not mixup_enable:
         # torch weighted mean: sum_i w[y_i] ce_i / sum_i w[y_i]; ignored
         # rows weigh 0 in numerator and denominator
@@ -110,15 +112,15 @@ def future_action_terms(logits, tgt_val, mixup_enable, valid,
                         torch.zeros((), device=logits.device))
         w = w * valid.float()
         loss = (loss.mean(dim=1) * w).sum() / \
-            mesh.all_reduce_sum(w.sum()).clamp(min=1e-12)
+            mesh.all_reduce_sum(w.sum(), group).clamp(min=1e-12)
     else:
-        loss = _masked_mean(loss.mean(dim=1), valid)
+        loss = _masked_mean(loss.mean(dim=1), valid, group)
     top5 = preds[:, seq, :].topk(min(5, C), dim=-1).indices
     return loss, acc1, acc5, top5, labels
 
 
 def past_action_loss(past_logits, past_target, mixup_enable, valid,
-                     past_target_ignore_index=None):
+                     past_target_ignore_index=None, group=None):
     """Past-frame classification loss (reference runner.py:94-110)."""
     B = past_logits.shape[0]
     C = past_logits.shape[-1]
@@ -128,25 +130,27 @@ def past_action_loss(past_logits, past_target, mixup_enable, valid,
                                    past_target.reshape(-1, C))
         keep = ~past_target_ignore_index.reshape(-1)
         keep = keep & valid.repeat_interleave(past_logits.shape[1])
-        return _masked_mean(ce, keep)
+        return _masked_mean(ce, keep, group)
     # index targets: zeros at ignored, mean over ALL elements (torch
     # reduction='none' then mean; reference _reduce_loss)
     tgt = past_target.reshape(B, -1)
     ce = cross_entropy_index(past_logits.reshape(-1, C), tgt.reshape(-1))
-    return _masked_mean(ce.reshape(B, -1).mean(dim=1), valid)
+    return _masked_mean(ce.reshape(B, -1).mean(dim=1), valid, group)
 
 
 def compute_losses_metrics(outputs: Dict, target: Dict,
                            target_subclips: Optional[Dict], *,
                            mixup_enable: bool = False,
                            target_subclips_ignore_index: Optional[Dict] = None,
-                           valid=None, class_weights: Optional[Dict] = None):
+                           valid=None, class_weights: Optional[Dict] = None,
+                           group=None):
     """BasicLossAccuracy.forward (reference runner.py:112-168).
 
     ``class_weights`` optionally maps a target name to (C,) per-class
     weights for that target's future-action CE (``cls_*`` terms only).
     Returns (losses, metrics); the mt5r payloads are dicts of device
-    tensors (top-5 ids, labels, valid)."""
+    tensors (top-5 ids, labels, valid). ``group``: the data ranks whose
+    batches make the global batch (the world by default)."""
     losses, metrics = {}, {}
     some_logits = next(iter(outputs[f"logits/{next(iter(target))}"].values()))
     B = some_logits.shape[0]
@@ -157,7 +161,8 @@ def compute_losses_metrics(outputs: Dict, target: Dict,
         cw = None if class_weights is None else class_weights.get(tgt_type)
         for modk, logits in outputs[f"logits/{tgt_type}"].items():
             loss, acc1, acc5, top5, m_labels = future_action_terms(
-                logits, tgt_val, mixup_enable, valid, class_weights=cw)
+                logits, tgt_val, mixup_enable, valid, class_weights=cw,
+                group=group)
             losses[f"cls_{tgt_type}_{modk}"] = loss
             metrics[f"acc1_{tgt_type}_{modk}"] = acc1
             metrics[f"acc5_{tgt_type}_{modk}"] = acc5
@@ -171,7 +176,7 @@ def compute_losses_metrics(outputs: Dict, target: Dict,
                     target_subclips_ignore_index[tgt_type]
                 losses[f"past_cls_{tgt_type}_{modk}"] = past_action_loss(
                     past_logits, target_subclips[tgt_type], mixup_enable,
-                    valid, ignore)
+                    valid, ignore, group)
 
     # feature regression, independent of the target
     if "orig_past" in outputs and "past_futures" in outputs:
@@ -180,7 +185,8 @@ def compute_losses_metrics(outputs: Dict, target: Dict,
                 continue
             diff = (updated[:, 1:] - outputs["orig_past"][modk][:, 1:]).float()
             per_sample = (diff ** 2).mean(dim=tuple(range(1, diff.dim())))
-            losses[f"past_reg_{modk}"] = _masked_mean(per_sample, valid)
+            losses[f"past_reg_{modk}"] = _masked_mean(per_sample, valid,
+                                                      group)
 
     return losses, metrics
 

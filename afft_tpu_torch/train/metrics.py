@@ -180,12 +180,16 @@ class MeanTopKRecallMeter:
 class MetricTracker:
     """Tracks named meters; 'mt5r' metrics get recall meters sized from the
     matching target's class count (reference common/metric_tracking.py:91-185).
+    ``group``: the processes whose meters ``synchronize_between_processes``
+    sums (the world by default; the data group under pipeline parallelism,
+    whose stages hold the same meters).
     """
 
-    def __init__(self, num_classes: Dict[str, int]):
+    def __init__(self, num_classes: Dict[str, int], group=None):
         self.training_metrics: Dict = {}
         self.validation_metrics: Dict = {}
         self.num_classes = num_classes
+        self.group = group
 
     def _get_num_classes(self, name):
         num = None
@@ -219,14 +223,14 @@ class MetricTracker:
 
     def synchronize_between_processes(self, is_training):
         """SUM all-reduce of every meter's ``sync_payload`` over the
-        processes (one all-reduce of their concatenation, in name order);
-        nothing to do in one process."""
+        processes of ``group``, one all-reduce of their concatenation, in
+        name order; nothing to do in one process."""
         if not mesh.active():
             return
         meters = [m for _, m in sorted(self._metrics(is_training).items())]
         payloads = [m.sync_payload() for m in meters]
         flat = torch.from_numpy(np.concatenate(payloads or [np.zeros(0)]))
-        summed = mesh.all_reduce_sum(flat).numpy()
+        summed = mesh.all_reduce_sum(flat, self.group).numpy()
         at = 0
         for meter, payload in zip(meters, payloads):
             meter.load_sync(summed[at:at + len(payload)])

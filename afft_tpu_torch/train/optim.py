@@ -47,10 +47,14 @@ class GroupSpec:
 
 
 def build_groups(named_params, lr_wd: Optional[List], overall_lr: float,
-                 overall_wd: float) -> Dict[str, GroupSpec]:
+                 overall_wd: float, stages: int = 1) -> Dict[str, GroupSpec]:
     """{parameter name: GroupSpec} from (prefix, lr, wd) rules (reference
     train.py:189-225). Prefixes match the '.'-joined parameter names, with
-    or without a leading ``model.``; ``__all__`` matches everything."""
+    or without a leading ``model.``; ``__all__`` matches everything. Under
+    pipeline parallelism (``stages`` > 1, the whole model's parameters) a
+    rule that gives a predictor's layers different groups raises, as the
+    JAX loop refuses it (``parallel.pipeline.check_uniform_layer_groups``).
+    """
     rules = []
     for names, lr, wd in (lr_wd or []):
         if not isinstance(names, (list, tuple)):
@@ -64,7 +68,28 @@ def build_groups(named_params, lr_wd: Optional[List], overall_lr: float,
                 return GroupSpec(lr, wd, lr == 0.0)
         return GroupSpec(overall_lr, overall_wd, overall_lr == 0.0)
 
-    return {name: spec_for(name) for name, _ in named_params}
+    groups = {name: spec_for(name) for name, _ in named_params}
+    if stages > 1:
+        from ..parallel.pipeline import check_uniform_layer_groups
+        check_uniform_layer_groups(groups)
+    return groups
+
+
+def group_layout(names, groups: Dict[str, GroupSpec]):
+    """The optimizer's parameter groups over ``names``: [(GroupSpec, [names
+    in order])], one for each distinct (lr, wd), in the order the specs
+    first appear in ``groups``, frozen parameters left out. Over a pipeline
+    stage's names (``groups`` of the whole model) the groups come in the
+    canonical order, each with the stage's share of its parameters."""
+    order: Dict[GroupSpec, int] = {}
+    for spec in groups.values():
+        order.setdefault(spec, len(order))
+    by_spec: Dict[GroupSpec, list] = {}
+    for n in names:
+        spec = groups[n]
+        if not spec.frozen:
+            by_spec.setdefault(spec, []).append(n)
+    return sorted(by_spec.items(), key=lambda item: order[item[0]])
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +149,7 @@ class Optimizer:
     (afft_tpu/train/optim.py:80-200).
 
     ``bind(named_params, groups)`` builds one parameter group for each
-    distinct (lr, wd) and leaves frozen parameters out; ``step(lr_factor,
+    distinct (lr, wd) and leaves frozen parameters out (``group_layout``); ``step(lr_factor,
     grads)`` scales every group's base lr and updates each parameter whose
     gradient (fp32, in ``grads``, aligned with ``params``) is not None, as
     torch.optim skips a parameter without ``.grad``. The state is stored in
@@ -150,15 +175,16 @@ class Optimizer:
         self.zero = None
 
     def bind(self, named_params, groups: Dict[str, GroupSpec]):
-        by_spec: Dict[GroupSpec, list] = {}
-        for name, p in named_params:
-            spec = groups[name]
-            if not spec.frozen:
-                by_spec.setdefault(spec, []).append(p)
-        self.param_groups = [{"params": ps, "lr": spec.lr, "base_lr": spec.lr,
+        named_params = list(named_params)
+        params = dict(named_params)
+        layout = group_layout([n for n, _ in named_params], groups)
+        self.param_groups = [{"params": [params[n] for n in names],
+                              "lr": spec.lr, "base_lr": spec.lr,
                               "weight_decay": spec.wd, **self.defaults}
-                             for spec, ps in by_spec.items()]
+                             for spec, names in layout]
         self.params = [p for g in self.param_groups for p in g["params"]]
+        # the parameters' names, aligned with ``params``
+        self.names = [n for _, names in layout for n in names]
         # per parameter: updates taken so far, and its state (of its piece
         # under ZeRO-1)
         self.steps = [0] * len(self.params)

@@ -59,8 +59,17 @@ with mixup off M microbatches on one process equal one pass. As in the JAX
 package, a loss with its own denominator (class weights, ignored past
 frames) combines as microbatch means weighted by valid rows.
 
-``train.pipeline_stages`` > 1 (GPipe) is not ported yet (ROADMAP.md §A.7
-(e)): ``from_config`` raises for it.
+Pipeline parallelism (``train.pipeline_stages`` = S > 1, GPipe;
+``parallel.pipeline`` states the rules): the R processes form D = R / S data
+replicas of S stages; each stage holds its share of the GPT-2 predictor's
+layers and their optimizer state, and the rest of the model on every stage.
+Everything data parallelism does above, DP (1)-(4), the microbatches of
+``train.grad_accum`` and ZeRO-1, acts over the data group (the D ranks of
+one stage) as it acts over the world without pipelining: a pipelined step
+on D replicas is the one-process step over their global batch. The global
+norms of clipping and ``watch_gradients`` add each stage's layers once and
+the replicated rest once. ``checkpoint_state`` / ``load_checkpoint_state``
+read and write the unpipelined layout.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from ..config.registry import instantiate
 from ..models import BaseModel
 from ..models import layers as L
 from ..parallel import mesh
+from ..parallel import pipeline as P
 from . import losses as LO
 from . import optim as O
 from .mixup import MixUp
@@ -88,47 +98,75 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SR_SEED = 0x5A7E57A6
 
 
-def check_train_keys(train_cfg) -> None:
-    """Raise for a train.* key the port does not honour, set away from its
-    default (a config that sets one must not train without it)."""
-    stages = train_cfg.get("pipeline_stages")
-    if stages is not None and int(stages) > 1:
-        # 0 and 1 run the stack unpipelined, as in JAX
-        raise NotImplementedError(
-            f"train.pipeline_stages={stages} (GPipe) is not ported "
-            "(ROADMAP.md §A.7 (e))")
+def pipeline_stages(train_cfg) -> int:
+    """``train.pipeline_stages``; 0 and 1 (unpipelined, as in JAX) are 1."""
+    return max(int(train_cfg.get("pipeline_stages") or 0), 1)
+
+
+def check_train_keys(train_cfg, model_cfg=None) -> None:
+    """Raise for a train.* value the port refuses, as the JAX loop refuses
+    it, from the config alone: a ``grad_accum`` below 1; under pipelining
+    (``pipeline_stages`` > 1) a predictor depth ``fp_layers`` that the
+    stages do not divide, or a microbatch count below 1. The process count
+    is checked where the grid is made (``parallel.mesh.Grid``)."""
     accum = train_cfg.get("grad_accum")
     if accum is not None and int(accum) < 1:
         raise ValueError(f"train.grad_accum={accum}: it must be 1 or more")
+    stages = pipeline_stages(train_cfg)
+    if stages > 1:
+        micro = train_cfg.get("pipeline_microbatches")
+        if micro is not None and int(micro) < 1:
+            raise ValueError(f"train.pipeline_microbatches={micro}: it must "
+                             "be 1 or more")
+        layers = None if model_cfg is None \
+            else model_cfg.get("common", {}).get("fp_layers")
+        if layers is not None and int(layers) % stages:
+            raise ValueError(f"fp_layers={layers} must divide over "
+                             f"pipeline_stages={stages}")
 
 
-def global_norm(tensors):
-    """sqrt of the sum of squares over every tensor, in fp32."""
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm([t.float() for t in tensors])))
-
-
-def clip_by_global_norm(grads, max_norm: float, sharded: bool = False):
-    """torch.nn.utils.clip_grad_norm_ semantics, in place on fp32 grads;
-    returns the norm (a device tensor). ``sharded``: each rank holds a
-    slice of the gradient (ZeRO-1), and the norm is the square root of the
-    slices' square sums summed over the ranks."""
-    norms = torch._foreach_norm(grads)
+def global_square_sums(norms, slots, n_slots: int, group=None,
+                       sharded: bool = False, owned=None, pipe=None):
+    """(n_slots,) sums of the whole model's squares: each tensor's norm
+    (``norms``, 0-d device tensors) squared and added to its slot
+    (``slots``), in a fixed order and with no host copy. ``sharded``: each
+    rank holds slices (ZeRO-1), summed over the data ranks ``group``.
+    ``owned`` (bools, the tensors of a pipeline stage's own layers): those
+    are summed over the pipe group ``pipe``, the replicated rest counted
+    once."""
+    rows = [False] * len(slots) if owned is None else [bool(o) for o in owned]
+    parts = [[[] for _ in range(n_slots)] for _ in range(2)]
+    for norm, slot, own in zip(norms, slots, rows):
+        parts[own][slot].append(norm)
+    zero = norms[0].new_zeros((), dtype=torch.float32)
+    sums = torch.stack([torch.stack([
+        torch.stack(p).float().square().sum() if p else zero for p in row])
+        for row in parts])
     if sharded:
-        gnorm = mesh.all_reduce_sum(
-            torch.stack(norms).float().square().sum()).sqrt()
-    else:
-        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        sums = mesh.all_reduce_sum(sums, group)
+    if owned is not None:
+        sums = torch.stack([sums[0], mesh.all_reduce_sum(sums[1], pipe)])
+    return sums.sum(0)
+
+
+def clip_by_global_norm(grads, max_norm: float, group=None,
+                        sharded: bool = False, owned=None, pipe=None):
+    """torch.nn.utils.clip_grad_norm_ semantics, in place on fp32 grads;
+    returns the norm (a device tensor), from ``global_square_sums`` of the
+    tensors' norms (its ``group``, ``sharded``, ``owned`` and ``pipe``)."""
+    gnorm = global_square_sums(torch._foreach_norm(grads), [0] * len(grads),
+                               1, group, sharded, owned, pipe)[0].sqrt()
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return gnorm
 
 
-def reduce_gradients(grads) -> None:
-    """DP (1): sum the fp32 gradients of the masters over the ranks, in
-    place, in buckets of ``mesh.GRAD_BUCKET`` elements: one flat buffer
-    and one all-reduce a bucket. With the losses normalised over the global
-    batch (DP (2)) the sum is the gradient of the global step.
+def reduce_gradients(grads, group=None) -> None:
+    """DP (1): sum the fp32 gradients of the masters over the data ranks
+    ``group`` (the world by default), in place, in buckets of
+    ``mesh.GRAD_BUCKET`` elements: one flat buffer and one all-reduce a
+    bucket. With the losses normalised over the global batch (DP (2)) the
+    sum is the gradient of the global step.
 
     An explicit all-reduce and not DistributedDataParallel: DDP reduces the
     gradients of the module it wraps, which in bf16 is the compute copy, so
@@ -137,45 +175,48 @@ def reduce_gradients(grads) -> None:
     autograd Functions. Reducing after the upcast also lets
     ``watch_gradients`` and ``clip_by_global_norm`` read the global
     gradient."""
-    if not mesh.active():
+    if mesh.rank_and_world(group)[1] == 1:
         return
     for bucket in mesh.buckets(grads, mesh.GRAD_BUCKET):
         flat = torch._utils._flatten_dense_tensors(bucket)
-        mesh.all_reduce_sum_([flat])
+        mesh.all_reduce_sum_([flat], group)
         for g, summed in zip(bucket, torch._utils._unflatten_dense_tensors(
                 flat, bucket)):
             g.copy_(summed)
 
 
-def global_mix(mix, x_video, labels, labels_subclips, valid=None):
-    """DP (3): mixup over the global batch. The pre-mix rows of every rank
-    are gathered (the backbones are the identity, so they are the input
-    features and carry no gradient), the partner permutation, the mixable
-    rows and the one lambda (the same generator on every rank) are the
-    global batch's, and this rank keeps its own rows of the result."""
-    rank, world = mesh.rank_and_world()
+def global_mix(grid, mix, x_video, labels, labels_subclips, valid=None):
+    """DP (3): mixup over the global batch of the data replicas of
+    ``grid``. The pre-mix rows of every replica are gathered (the backbones
+    are the identity, so they are the input features and carry no
+    gradient), the partner permutation, the mixable rows and the one lambda
+    (the same generator on every rank) are the global batch's, and this
+    rank keeps its own rows of the result."""
     rows = next(iter(x_video.values())).shape[0]
-    gather = mesh.all_gather_cat
+    group = grid.data_group
+
+    def gather(t):
+        return mesh.all_gather_cat(t, group)
 
     def every(d):
         return None if d is None else {k: gather(v) for k, v in d.items()}
     out = mix(every(x_video), every(labels), every(labels_subclips),
               valid=None if valid is None else gather(valid))
-    own = slice(rank * rows, (rank + 1) * rows)
+    own = slice(grid.data * rows, (grid.data + 1) * rows)
     return tuple(None if d is None else {k: v[own] for k, v in d.items()}
                  for d in out)
 
 
-def global_scalars(total, losses: Dict, metrics: Dict):
+def global_scalars(total, losses: Dict, metrics: Dict, group=None):
     """DP (2): the reported total, losses and scalar metrics as the global
     batch's: each rank holds its share of every mean (``losses``), and one
-    all-reduce sums the shares. Without a process group, the values as they
-    are, detached."""
+    all-reduce over the data ranks ``group`` sums the shares. Without a
+    process group, the values as they are, detached."""
     keys = [k for k, v in metrics.items() if not isinstance(v, dict)]
     vals = [total] + list(losses.values()) + [metrics[k] for k in keys]
     if mesh.active():
         summed = mesh.all_reduce_sum(
-            torch.stack([v.detach().float() for v in vals])).unbind()
+            torch.stack([v.detach().float() for v in vals]), group).unbind()
     else:
         summed = [v.detach() for v in vals]
     total = summed[0]
@@ -242,7 +283,11 @@ class Runner:
                  class_weights: Optional[Dict] = None, seed: int = 0,
                  impl: str = "kernel", watch_gradients: bool = False,
                  master_dtype=torch.float32, grad_accum: int = 1,
-                 zero_sharding: bool = False):
+                 zero_sharding: bool = False,
+                 pipeline: Optional[P.PipelineCtx] = None):
+        """``pipeline``: the model was split over its stages
+        (``parallel.pipeline.split_model``) and ``groups`` cover the whole
+        model."""
         if master_dtype != torch.float32 and master_dtype != compute_dtype:
             raise ValueError("train.master_dtype=bfloat16 requires "
                              "model.compute_dtype=bfloat16")
@@ -260,9 +305,15 @@ class Runner:
         self.class_weights = None if not class_weights else {
             t: torch.as_tensor(w, dtype=torch.float32, device=self.device)
             for t, w in class_weights.items()}
+        self.pipeline = pipeline
+        # the data x pipe grid: every reduction of data parallelism below
+        # runs over its data group (the world without pipelining)
+        self.grid = mesh.grid(1) if pipeline is None else pipeline.grid
+        self.groups = groups
         # DP (4): the same generators on every rank; each draw is the
-        # global batch's, of which a rank keeps its own rows
-        self.rng = L.RngStream(seed, self.device, *mesh.rank_and_world())
+        # global batch's, of which a data replica keeps its own rows
+        self.rng = L.RngStream(seed, self.device, self.grid.data,
+                               self.grid.replicas)
         self.sr_gen = None
         if master_dtype != torch.float32:
             # bf16 masters: the weights are the compute copy
@@ -282,10 +333,14 @@ class Runner:
         position = {id(p): i for i, p in enumerate(self.masters)}
         # the masters' index of each parameter the optimizer updates
         self._opt_index = [position[id(p)] for p in self.optimizer.params]
+        # a pipeline stage's own layers (their norms add over the stages)
+        self._owned = None if pipeline is None else [
+            P.layer_of(name) is not None
+            for name, _ in model.named_parameters()]
         self.zero = None
         if zero_sharding:
             from ..parallel.sharding import Zero1
-            self.zero = Zero1(self.masters)
+            self.zero = Zero1(self.masters, group=self.grid.data_group)
             self.optimizer.shard(self.zero, self._opt_index)
 
     # ------------------------------------------------------------------
@@ -293,19 +348,25 @@ class Runner:
     def from_config(cls, cfg, num_classes: Dict[str, int], *, device="cuda",
                     iters_per_epoch: int = 1, world_size: int = 1,
                     weights=None, impl: str = "kernel", compute_dtype=None,
-                    class_mappings=None, class_weights=None):
+                    class_mappings=None, class_weights=None,
+                    pipeline: bool = True):
         """Build the model, parameter groups, optimizer, schedule and mixup
         of a composed expt config (afft_tpu/train/loop.py:336-369), with
         the ``train.grad_accum``, ``train.master_dtype``,
-        ``train.zero_sharding`` and ``opt.optimizer.state_dtype`` options
-        (ZeRO-1 over the process group that exists when it is called). The
-        model is drawn from ``cfg.seed`` unless ``weights`` (a state dict)
-        is given; ``class_mappings`` become its verb / noun <-> action
+        ``train.zero_sharding``, ``train.pipeline_stages`` /
+        ``pipeline_microbatches`` and ``opt.optimizer.state_dtype`` options
+        (ZeRO-1 and the pipeline's grid over the process group that exists
+        when it is called; ``pipeline=False`` runs every layer in each
+        process whatever the config says, as evaluation does). ``world_size``
+        is the schedule's: the data replicas. The model is drawn from
+        ``cfg.seed`` unless ``weights`` (a state dict of the whole model) is
+        given; ``class_mappings`` become its verb / noun <-> action
         buffers. ``train.class_weight_beta`` needs ``class_weights`` ({target:
         (C,)}, from the train split's class counts: ``data.stats``, as the
         loop computes them). ``runner.lr_schedule(iteration,
         runner.base_lr)`` is the step's lr."""
-        check_train_keys(cfg.train)
+        check_train_keys(cfg.train, cfg.model)
+        stages = pipeline_stages(cfg.train) if pipeline else 1
         if cfg.train.get("class_weight_beta") is not None \
                 and not class_weights:
             raise ValueError("train.class_weight_beta needs the class "
@@ -321,8 +382,18 @@ class Runner:
             model.reset_parameters(gen)
         else:
             model.load_state_dict(weights, strict=True)
-        groups = O.build_groups(list(model.named_parameters()),
-                                cfg.opt.lr_wd, cfg.opt.lr, cfg.opt.wd)
+        named = list(model.named_parameters())
+        groups = O.build_groups(named, cfg.opt.lr_wd, cfg.opt.lr, cfg.opt.wd,
+                                stages=stages)
+        ctx = None
+        if stages > 1:
+            ctx = P.PipelineCtx(
+                stages, int(cfg.train.get("pipeline_microbatches")
+                            or stages),
+                int(cfg.model.common.fp_layers),
+                names=[n for n, _ in named], keys=list(model.state_dict()))
+            P.split_model(model, ctx)
+        del named
         mixup = None
         if cfg.train.use_mixup:
             mixup = MixUp(alpha=cfg.train.mixup_alpha,
@@ -343,7 +414,8 @@ class Runner:
                      master_dtype=DTYPES[cfg.train.get("master_dtype")
                                          or "float32"],
                      grad_accum=int(cfg.train.get("grad_accum") or 1),
-                     zero_sharding=bool(cfg.train.get("zero_sharding")))
+                     zero_sharding=bool(cfg.train.get("zero_sharding")),
+                     pipeline=ctx)
         runner.base_lr = float(cfg.opt.lr)
         runner.lr_schedule = O.build_schedule(cfg.opt, iters_per_epoch,
                                               world_size)
@@ -391,7 +463,7 @@ class Runner:
             mix = functools.partial(self.mixup.mix, lam) if lam is not None \
                 else functools.partial(self.mixup, self.rng.gen)
             if mesh.active():
-                mix = functools.partial(global_mix, mix)  # DP (3)
+                mix = functools.partial(global_mix, self.grid, mix)  # DP (3)
             if self.mixup_backbone:
                 mixup_fn = functools.partial(mix, valid=valid)
             else:  # input-level mixup (reference runner.py:246-253)
@@ -410,7 +482,8 @@ class Runner:
             target_subclips_ignore_index=outputs_target[
                 "target_subclips_ignore_index"],
             valid=valid,
-            class_weights=self.class_weights if train else None)
+            class_weights=self.class_weights if train else None,
+            group=self.grid.data_group)
         return LO.reduce_losses(losses, self.loss_wts), losses, metrics
 
     # ------------------------------------------------------------------
@@ -423,6 +496,14 @@ class Runner:
         device tensors detached from the graph; ``accum`` gets both.
         ``mixup_lam`` pins lambda: one value, or one a microbatch."""
         batch = self._to_device(batch)
+        if self.pipeline is not None:
+            rows, parts = len(batch["valid"]), \
+                self.grad_accum * self.pipeline.microbatches
+            if rows % parts:
+                raise ValueError(
+                    f"a local batch of {rows} rows does not divide into "
+                    f"train.grad_accum={self.grad_accum} x "
+                    f"pipeline_microbatches={self.pipeline.microbatches}")
         use_mixup = self.mixup is not None
         self.net.train()
         # the last step's gradients go before this step's activations come
@@ -448,15 +529,20 @@ class Runner:
                 p.grad = g
         # DP (1), before the norms and the clipping read the gradient
         if self.zero is None:
-            reduce_gradients(g for g in grads if g is not None)
+            reduce_gradients((g for g in grads if g is not None),
+                             self.grid.data_group)
         else:
             grads = self.zero.reduce_scatter(grads)  # this rank's pieces
-        total, losses, metrics = global_scalars(total, losses, metrics)
+        total, losses, metrics = global_scalars(total, losses, metrics,
+                                                self.grid.data_group)
         if self.watch_gradients:
             metrics = {**metrics, **self._norms(grads)}
         if self.grad_clip is not None:
-            clip_by_global_norm([g for g in grads if g is not None],
-                                self.grad_clip, sharded=self.zero is not None)
+            have = [i for i, g in enumerate(grads) if g is not None]
+            clip_by_global_norm(
+                [grads[i] for i in have], self.grad_clip,
+                self.grid.data_group, self.zero is not None,
+                **self._pipe_split(have))
         self.optimizer.step(lr / base_lr,
                             [grads[i] for i in self._opt_index],
                             gen=self.sr_gen)
@@ -487,7 +573,8 @@ class Runner:
                              f"of {rows} rows (a process)")
         b = rows // M
         # the step's valid rows by microbatch, over every rank
-        counts = mesh.all_reduce_sum(valid.reshape(M, b).sum(1).float())
+        counts = mesh.all_reduce_sum(valid.reshape(M, b).sum(1).float(),
+                                     self.grid.data_group)
         weights = counts / counts.sum().clamp(min=1.0)
         lams = batch["mixup_lam"]
         if lams is None and use_mixup:
@@ -557,27 +644,43 @@ class Runner:
         up = iter(O.upcast(have)[1])
         return [None if c.grad is None else next(up) for c in self.compute]
 
+    def _pipe_split(self, index):
+        """``global_square_sums``' pipeline arguments for the tensors at
+        ``index`` of the masters: which are the stage's own, and the pipe
+        group; none without pipelining."""
+        if self._owned is None:
+            return {}
+        return {"owned": [self._owned[i] for i in index],
+                "pipe": self.pipeline.grid.pipe_group}
+
     def _norms(self, grads):
         """``watch_gradients``: the reference's wandb.watch(model)
         (train.py:416) as norms in the metric stream
         (afft_tpu/train/runner.py:330-341): the global gradient norm before
         clipping, per top-level module, and the parameters' norm. Under
         ZeRO-1 each rank's pieces give square sums that one all-reduce
-        adds up."""
+        adds up; under pipelining the stages' own layers add up over the
+        pipe group."""
         modules: Dict[str, int] = {}
-        which, present = [], []
-        for (name, _), g in zip(self.model.named_parameters(), grads):
+        which, present, index = [], [], []
+        for i, ((name, _), g) in enumerate(zip(self.model.named_parameters(),
+                                               grads)):
             if g is not None:
                 which.append(modules.setdefault(name.split(".")[0],
                                                 len(modules)))
                 present.append(g)
-        squares = torch.stack(torch._foreach_norm(present)).float().square()
-        sums = torch.zeros(len(modules), device=squares.device).index_add_(
-            0, torch.tensor(which, device=squares.device), squares)
-        if self.zero is not None:
-            sums = mesh.all_reduce_sum(sums)
-        out = {"grad_norm": sums.sum().sqrt(),
-               "param_norm": global_norm([p.detach() for p in self.masters])}
+                index.append(i)
+        sums = global_square_sums(torch._foreach_norm(present), which,
+                                  len(modules),
+                                  self.grid.data_group, self.zero is not None,
+                                  **self._pipe_split(index))
+        # the masters are whole on every rank, ZeRO-1 or not
+        param_norm = global_square_sums(
+            torch._foreach_norm([p.detach() for p in self.masters], 2,
+                                dtype=torch.float32),
+            [0] * len(self.masters), 1,
+            **self._pipe_split(range(len(self.masters))))[0].sqrt()
+        out = {"grad_norm": sums.sum().sqrt(), "param_norm": param_norm}
         for key, j in modules.items():
             out[f"grad_norm_{key}"] = sums[j].sqrt()
         return out
@@ -593,7 +696,8 @@ class Runner:
                                                 use_mixup=False)
         total, losses, metrics = self._losses(
             outputs, outputs_target, batch["valid"], False, train=False)
-        total, losses, metrics = global_scalars(total, losses, metrics)
+        total, losses, metrics = global_scalars(total, losses, metrics,
+                                                self.grid.data_group)
         losses["total_loss"] = total
         if accum is not None:
             accum.add(losses, metrics, batch["valid"])
@@ -643,10 +747,42 @@ class Runner:
     def load_model_state(self, state: Dict) -> None:
         """Load a state dict into the masters (strict; each tensor cast to
         the masters' dtype, so fp32 and bf16-master checkpoints load either
-        way) and refresh the compute copy from them."""
+        way) and refresh the compute copy from them. A pipeline stage takes
+        its part of a whole model's state dict."""
+        if self.pipeline is not None:
+            state = P.local_model_state(self.pipeline, state)
         self.model.load_state_dict(state, strict=True)
         if self._copy:
             torch._foreach_copy_(self.compute, self.masters)
+
+    def model_state(self) -> Dict:
+        """The model state dict in the unpipelined layout: under pipelining
+        every stage's layers gathered to rank 0 (every rank calls it
+        together; the others get their own part)."""
+        state = self.model.state_dict()
+        if self.pipeline is not None:
+            state = P.canonical_model_state(self.pipeline, state)
+        return state
+
+    def checkpoint_state(self):
+        """(model state dict, optimizer state dict) in the unpipelined
+        layout: whole tensors under ZeRO-1, every layer under pipelining
+        (gathered to rank 0, which alone writes). Every rank must call it
+        together."""
+        opt = self.optimizer.state_dict()
+        if self.pipeline is not None:
+            opt = P.canonical_optimizer_state(self.pipeline, self.optimizer,
+                                              opt, self.groups)
+        return self.model_state(), opt
+
+    def load_checkpoint_state(self, model: Dict, optimizer: Dict) -> None:
+        """The counterpart of ``checkpoint_state``: a checkpoint written by
+        any run, pipelined or not, sharded or not."""
+        self.load_model_state(model)
+        if self.pipeline is not None:
+            optimizer = P.local_optimizer_state(self.pipeline, self.optimizer,
+                                                optimizer, self.groups)
+        self.optimizer.load_state_dict(optimizer)
 
     def rng_state(self) -> Dict:
         """The training randomness (masks, mixup draws, stochastic

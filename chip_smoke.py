@@ -241,7 +241,31 @@ Phases, in order; any failure exits non-zero and prints no result:
                element of the weights within 1e-5, each rank holding 1/R of
                the optimizer state (options_launches in the kernels line;
                one card: no multi-GPU number);
- 14. report  - one JSON line of per-kernel numbers, then the result line.
+ 14. pipeline - GPipe (train.pipeline_stages) with the stages as gloo
+               processes on the one card (--device cuda:0): the GPT-2
+               training layers at a stage's global layer index and a
+               microbatch's first global row against their plain versions,
+               every layer's masks at 2 and 4 microbatches bit for bit the
+               one-process masks of those rows; the flagship at full width
+               (expts/01_SA-Fuser_ek100_train.txt, bf16 over fp32 masters,
+               its dropout, drop-path and mixup) on 2 stages at M 2 and 4,
+               64 clips a step, 3 steps, against one unpipelined process
+               over the same batches (losses within 2e-2 relative, each
+               tensor's weights within 2e-2 of what the one process's
+               steps moved that tensor, L/S x M launches of each GPT-2
+               training entry a step on each rank, the replicated weights
+               alike on both); data2 x pipe2 on four processes (expt 98)
+               against one process over the same batches in bf16 (the
+               same bounds) and in fp32 (losses within 1e-4, each tensor
+               within 1e-3 of its update), and with ZeRO-1 against plain
+               data parallelism (losses and weights within 1e-5, each
+               rank's optimizer-state bytes); the launcher on
+               expts/99_synth_smoke_pipe.txt (-n 2, one epoch and a resumed
+               second), -m test in one process on its checkpoint, held
+               against the pipelined eval of it (pipeline_launches in the
+               kernels line; step times and peak memory per rank are
+               one-card stand-ins, no pipeline speed);
+ 15. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -4989,6 +5013,437 @@ def phase_options():
     return launches, numbers
 
 
+# -- pipeline parallelism: GPipe stages as processes on the one card ---------
+
+PIPE_STAGES = 2
+PIPE_MICRO = (2, 4)
+PIPE_BATCH, PIPE_STEPS = 64, 3
+# a pipelined step against one process over the same batches: the losses,
+# and each tensor's largest difference, past what storing its fp32 weights
+# rounds in the steps (an ulp of its max|w| a step), over what the one
+# process's steps moved that tensor (update_rel), expt 99's
+# kernels-against-plain bounds (EXPT99_TRAIN_TOL). The floor matters where
+# a warmup step moves a weight by a few ulps (LayerNorm weights near 1).
+# bf16: each microbatch's and each replica's gradient is rounded to bf16 on
+# its own, where one pass rounds the batch's once; the losses within phase
+# 10's 2e-2. fp32: the summation order only
+PIPE_TOL = {"bf16": {"loss_rel": 2e-2,
+                     "update_rel": EXPT99_TRAIN_TOL["bf16"]["update_rel"]},
+            "fp32": {k: EXPT99_TRAIN_TOL["fp32"][k]
+                     for k in ("loss_rel", "update_rel")}}
+PIPE_EXPT = "99_synth_smoke_pipe.txt"
+PIPE_DIR = os.path.join(REPO, "build", "pipeline")
+
+
+def _pipe_job(name, expt, overrides, classes, lrs, **more):
+    return {"kind": "train", "name": name, "expt": expt,
+            "overrides": list(overrides), "classes": classes,
+            "batch": PIPE_BATCH, "steps": PIPE_STEPS, "seed": 9, "lrs": lrs,
+            "invalid": [PIPE_BATCH - 1], **more}
+
+
+def _pipe_records(name, spec_jobs, nproc):
+    """Run ``spec_jobs`` through dp_check on ``nproc`` gloo processes on the
+    card; ({job: [record by rank]}, seconds)."""
+    import torch
+    out = os.path.join(PIPE_DIR, f"{name}-out")
+    spec = os.path.join(PIPE_DIR, f"{name}-spec.json")
+    with open(spec, "w") as f:
+        json.dump({"device": "cuda:0", "out": out, "jobs": spec_jobs}, f)
+    _, secs = _logged_run(_dp_torchrun(nproc, ["afft_tpu_torch.tools.dp_check",
+                                               spec]),
+                          PIPE_DIR, name, LAUNCH_TIMEOUT)
+    return {j["name"]: [torch.load(os.path.join(out, f"{j['name']}.rank{r}"
+                                                ".pt"), weights_only=False)
+                        for r in range(nproc)] for j in spec_jobs}, secs
+
+
+def _loss_rel(got, want):
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+               for a, b in zip(got, want) for k in b)
+
+
+def _one_process(job, cfg, classes, path):
+    """The train ``job`` in this process, its final state saved to ``path``
+    for the pipelined jobs' ``against_file``; (its record, by tensor name
+    (max|update| over the job's steps, the rounding floor: ``PIPE_STEPS``
+    ulps of its max|w| in fp32))."""
+    import numpy as np
+    import torch
+    from afft_tpu_torch.tools import dp_check as D
+    from afft_tpu_torch.train.runner import Runner
+    init = Runner.from_config(cfg, classes, device="cuda")
+    start = {k: v.detach().cpu() for k, v in init.model.state_dict().items()}
+    del init
+    torch.cuda.empty_cache()
+    record = D.run_train(job, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    spans = {k: (float((v.float() - start[k].float()).abs().max()),
+                  PIPE_STEPS * float(np.spacing(
+                      np.float32(v.float().abs().max()))))
+             for k, v in record["state"].items()}
+    torch.save(record.pop("state"), path)
+    return record, spans
+
+
+def _per_tensor(record, spans):
+    """Each tensor's largest difference from the one process
+    (``record["state_diffs"]``) past its rounding floor, over its own
+    max|update| (``spans``: ``_one_process``'s), worst first: [(ratio,
+    name), ...]. A tensor the steps left alone must not differ past it."""
+    return sorted(((max(d - spans[k][1], 0.0) / max(spans[k][0], 1e-30), k)
+                   for k, d in record["state_diffs"].items()), reverse=True)
+
+
+def _worst(ranked, n=3):
+    return ", ".join(f"{r:.3g} ({k})" for r, k in ranked[:n])
+
+
+def _held(rec, ref, spans, tol):
+    """Rank 0's ``rec`` of a job with ``against_file`` against the one
+    process ``ref`` and its ``spans`` (``_one_process``): (whether within
+    ``tol``, numbers, the log's words)."""
+    loss = _loss_rel(rec["losses"], ref["losses"])
+    ranked = _per_tensor(rec, spans)
+    raw = max((d / max(spans[k][0], 1e-30), k)
+              for k, d in rec["state_diffs"].items())
+    moved = sum(u > 0 for u, _ in spans.values())
+    update = max(u for u, _ in spans.values())
+    ok = (loss <= tol["loss_rel"] and ranked[0][0] <= tol["update_rel"]
+          and moved > len(spans) // 2)
+    words = (
+        f"total loss by step "
+        f"{[round(l['total_loss'], 5) for l in rec['losses']]} vs one "
+        f"process {[round(l['total_loss'], 5) for l in ref['losses']]}, "
+        f"largest relative difference of any loss {loss:.3g} (tol "
+        f"{tol['loss_rel']}); each tensor's largest difference past "
+        f"{PIPE_STEPS} ulps of its max|w| over its own max|update| in the "
+        f"one process, worst {_worst(ranked)} (tol {tol['update_rel']}; "
+        f"without the floor {_worst([raw], 1)}; the steps moved {moved} of "
+        f"{len(spans)} tensors); over all tensors the largest difference "
+        f"{rec['state_diff']:.3g} = {rec['state_diff'] / update:.3g} of the "
+        f"largest update element {update:.3g}")
+    return ok, {"loss_rel_diff": loss, "worst_tensors_of_update": ranked[:5],
+                "worst_tensor_without_floor": raw,
+                "weight_diff_of_update": rec["state_diff"] / update}, words
+
+
+def _stage_launches(what, rec, per_stage, depth, micro, steps):
+    """A rank's launches: each of its stage's layers once a microbatch per
+    training entry, the replicated fuser's depth once a step, no other
+    kernel."""
+    expected = {n: depth * steps for n, _ in
+                TRAIN_KERNELS["fused_block_train"][:3]}
+    expected.update({n: per_stage * micro * steps for n, _ in
+                     TRAIN_KERNELS["fused_gpt2_train"][:3]})
+    _counts_ok(what, rec["launches"], expected)
+    return expected
+
+
+def phase_pipeline():
+    """14. GPipe (train.pipeline_stages) on the one card, ranks as stages
+    over gloo (``--device cuda:0``). (i) The flagship at full width
+    (expts/01_SA-Fuser_ek100_train.txt in bf16 over fp32 masters, its
+    dropout, drop-path and mixup), 2 stages of 3 layers at 2 and 4
+    microbatches, 64 clips a step, 3 steps, against one unpipelined process
+    over the same global batches: losses within 2e-2 relative, each tensor's
+    largest difference within 2e-2 of that tensor's max|update| in the one
+    process, each stage's launches L/S x M a step per GPT-2 training entry,
+    the replicated weights alike on both ranks; before it the GPT-2 training
+    layers at a stage's global layer index and a microbatch's first global
+    row against their plain versions, every stage's masks bit for bit the
+    one-process masks of those rows. (ii) data2 x pipe2 on four processes:
+    expt 98 against one process over the same batches in bf16 (the same
+    bounds) and in fp32 (losses within 1e-4, each tensor within 1e-3 of its
+    update: the summation order only, so a tensor or a microbatch left out
+    shows), and with ZeRO-1 against plain data parallelism on the same grid
+    (losses and every weight within 1e-5), each rank's optimizer-state
+    bytes. (iii) The launcher: expts/99_synth_smoke_pipe.txt -m train -n 2
+    for one epoch and resumed for a second, -m test on its checkpoint in one
+    process, whose logits the pipelined eval of that checkpoint (2 gloo
+    processes, with (i)'s jobs) equals within 1e-4 of max|logit|. (iii)
+    runs first. Step times and peak memory
+    per rank are one-card stand-ins: both stages share the H100, so they
+    measure no pipeline speed. Returns (launches by kernel of each run,
+    numbers)."""
+    import numpy as np
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.eval import challenge as PC
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    from afft_tpu_torch.train import optim as O
+    from afft_tpu_torch.train.checkpoint import load_checkpoint
+
+    os.makedirs(PIPE_DIR, exist_ok=True)
+    link = os.path.join(PIPE_DIR, "tests")
+    if not os.path.exists(link):
+        os.symlink(os.path.join(REPO, "tests"), link)
+    numbers, launches = {}, {}
+    bf16 = "model.compute_dtype=bfloat16"
+    expt = os.path.join(EXPTS, TRAIN_EXPT)
+    cfg = serve.load_config(expt, [bf16])
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    per = layers // PIPE_STAGES
+    common = cfg.model.common
+    T, inter, H = (int(cfg.data_train.num_frames), int(common.fp_inter_dim),
+                   int(common.fp_heads))
+    g_rates = dict(attn_rate=float(common.attn_pdrop),
+                   resid_rate=float(common.resid_pdrop))
+
+    t_phase = time.perf_counter()
+
+    # (iii) the launcher: 2 stages, one epoch and a resumed second; -m test
+    # in one process (the pipelined eval of that checkpoint runs with (i))
+    pexpt = os.path.join(EXPTS, PIPE_EXPT)
+    run = [sys.executable, "-m", "afft_tpu_torch.run", "-c", pexpt,
+           *LAUNCH_OVERRIDES]
+    train = run + ["-m", "train", "-n", str(PIPE_STAGES), "--device",
+                   "cuda:0"]
+    name = "CMFPEarly_ModalTokenCMFuser_rgb_flow_synth-smoke-pipe"
+    ckpt_dir = os.path.join(PIPE_DIR, "checkpoints", name)
+    _, secs_a = _logged_run(train + ["train.num_epochs=1", "+overwrite=true"],
+                            PIPE_DIR, "launch-pipe", LAUNCH_TIMEOUT)
+    text, secs_b = _logged_run(train + ["train.resume=true"], PIPE_DIR,
+                               "launch-pipe-resume", LAUNCH_TIMEOUT)
+    if "Resumed from" not in text:
+        raise AssertionError("pipeline launcher: the second run did not "
+                             "resume")
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    with open(os.path.join(ckpt_dir, "summary.jsonl")) as f:
+        summary = [json.loads(line) for line in f][-1]["run"]
+    losses = [e["train_total_loss"] for e in epochs]
+    pcfg = serve.load_config(pexpt)
+    pper = int(pcfg.model.common.fp_layers) // PIPE_STAGES
+    pmicro = int(pcfg.train.get("pipeline_microbatches") or PIPE_STAGES)
+    want = {n: pper * pmicro * summary["train_iters"] for n, _ in
+            TRAIN_KERNELS["fused_gpt2_train"][:3]}
+    want.update({n: pper * pmicro * summary["val_batches"]
+                 for n in ("gpt2_attn_half", "gpt2_mlp_half")})
+    got = {n: summary["launches"][n] for n in want}
+    if not (len(epochs) == 2 and all(math.isfinite(v) for v in losses)
+            and summary["pipeline_stages"] == PIPE_STAGES and got == want):
+        raise AssertionError(f"pipeline launcher: epochs {len(epochs)}, "
+                             f"losses {losses}, launches {got} vs {want}")
+    launches["launcher_rank0"] = [summary["launches"]]
+    ck = load_checkpoint(os.path.join(ckpt_dir, "checkpoint_last"))
+    model_path = os.path.join(PIPE_DIR, "pipe_model.pt")
+    torch.save(ck["model"], model_path)
+    export = _eval_run(PIPE_DIR, "pipe-test",
+                       (f"init_from_model={name}/checkpoint_last",
+                        "+save_name=pipe.h5"), expt=pexpt)
+    if export["world_size"] != 1:
+        raise AssertionError("pipeline: -m test did not run in one process")
+    (res,) = PC.gen_load_resfiles(os.path.dirname(export["logits_file"]),
+                                  "pipe")
+    exported = res["logits/action_all-fused"]
+
+    # (i) first the stages' layers at their global layer index and their
+    # microbatches' first global rows
+    for micro in PIPE_MICRO:
+        b = PIPE_BATCH // micro
+        for li in range(layers):
+            full = FGT.draw_masks_gpt2(PIPE_BATCH, T, inter, H, TRAIN_SEEDS,
+                                       li, *g_rates.values(), device="cuda")
+            for m in range(micro):
+                part = FGT.draw_masks_gpt2(b, T, inter, H, TRAIN_SEEDS, li,
+                                           *g_rates.values(), device="cuda",
+                                           row0=m * b)
+                for m_full, m_part in zip(full, part):
+                    rows = m_part.shape[0]
+                    if not torch.equal(m_full[m * rows:(m + 1) * rows],
+                                       m_part):
+                        raise AssertionError(
+                            f"pipeline: layer {li} microbatch {m} of "
+                            f"{micro}: masks differ from the one-process "
+                            "masks of those rows")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    for micro, li, m in ((2, per, 1), (4, layers - 1, 3)):
+        b = PIPE_BATCH // micro
+        case = check_gpt2_train_layer("bf16", torch.bfloat16, b, T, inter, H,
+                                      4 * inter, gen, rates=g_rates,
+                                      layer_idx=li, row0=m * b)
+        log(f"pipeline: stage {li // per}'s layer {li}, microbatch {m} of "
+            f"{micro}: {case['what']}: masks bit for bit the one-process "
+            f"masks of those rows; max_abs_err {case['errs']}")
+        del case
+    torch.cuda.empty_cache()
+    log(f"pipeline: the masks of all {layers} layers at microbatches "
+        f"{PIPE_MICRO} of {PIPE_BATCH} rows bit for bit the one-process "
+        "masks of those rows")
+
+    # (i) the flagship: one process, then 2 stages at 2 and 4 microbatches
+    sched = O.build_schedule(cfg.opt, 2, 1)
+    lrs = [sched(i, float(cfg.opt.lr)) for i in range(PIPE_STEPS)]
+    one_path = os.path.join(PIPE_DIR, "one_state.pt")
+    one, spans = _one_process(
+        _pipe_job("one", expt, [bf16], TRAIN_CLASSES, lrs), cfg,
+        TRAIN_CLASSES, one_path)
+    jobs = [_pipe_job(f"flagship-m{micro}", expt,
+                      [bf16, f"train.pipeline_stages={PIPE_STAGES}",
+                       f"train.pipeline_microbatches={micro}"],
+                      TRAIN_CLASSES, lrs, keep_state=False,
+                      against_file=one_path) for micro in PIPE_MICRO]
+    # with them, (iii)'s checkpoint through the pipelined eval
+    recs, secs = _pipe_records("flagship", jobs + [
+        {"kind": "eval", "name": "val", "expt": pexpt,
+         "overrides": list(LAUNCH_OVERRIDES), "batch": 8, "seed": 0,
+         "weights": model_path}], PIPE_STAGES)
+    os.remove(one_path)
+    flagship = {"one_process_step_ms": one["step_ms"],
+                "one_process_peak_gb": one["peak_bytes"] / 2 ** 30,
+                "one_process_losses": [l["total_loss"] for l in one["losses"]],
+                "largest_update": max(u for u, _ in spans.values()),
+                "run_s": secs}
+    for micro, job in zip(PIPE_MICRO, jobs):
+        ranks = recs[job["name"]]
+        ok, held, words = _held(ranks[0], one, spans, PIPE_TOL["bf16"])
+        for rec in ranks:
+            expected = _stage_launches(
+                f"pipeline flagship M={micro} rank {rec['rank']}", rec, per,
+                depth, micro, PIPE_STEPS)
+            launches[f"flagship_m{micro}"] = launches.get(
+                f"flagship_m{micro}", []) + [rec["launches"]]
+        alike = ranks[0]["replicated_sums"] == ranks[1]["replicated_sums"]
+        bubble = (PIPE_STAGES - 1) / (micro + PIPE_STAGES - 1)
+        log(f"pipeline (i) flagship, {PIPE_STAGES} stages x M={micro} over "
+            f"gloo on cuda:0, {PIPE_BATCH} clips a step, {PIPE_STEPS} steps: "
+            f"{words} = {ranks[0]['state_diff'] / ranks[0]['state_scale']:.3g}"
+            f" of max|w|; replicated weights alike on both ranks: {alike}; "
+            f"launches per rank {expected}; step ms (host, to the device's "
+            f"end) rank 0 {_rounded(ranks[0]['step_ms'])} rank 1 "
+            f"{_rounded(ranks[1]['step_ms'])} vs one process "
+            f"{_rounded(one['step_ms'])}, peak GB "
+            f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in ranks]} vs "
+            f"{one['peak_bytes'] / 2 ** 30:.2f}; the bubble's reckoned share "
+            f"(S - 1)/(M + S - 1) = {bubble:.3f}. Both stages share one "
+            "card through host copies: one-card stand-ins, no pipeline "
+            "speed")
+        if not (ok and alike):
+            raise AssertionError(f"pipeline: the flagship at M={micro} "
+                                 "differs from one process")
+        flagship[f"m{micro}"] = {
+            **held,
+            "weight_diff_of_max_w": (ranks[0]["state_diff"]
+                                     / ranks[0]["state_scale"]),
+            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "peak_gb_by_rank": [r["peak_bytes"] / 2 ** 30 for r in ranks],
+            "bubble_share_reckoned": bubble, "launches_per_rank": expected}
+    numbers["flagship"] = flagship
+
+    piped = recs["val"][0]["merged"]
+    max_abs = float(np.abs(piped - exported).max())
+    scale = float(np.abs(exported).max())
+    log(f"pipeline (iii) launcher: {PIPE_EXPT} -m train -n {PIPE_STAGES} on "
+        f"cuda:0, one epoch in {secs_a:.1f} s and resumed for a second in "
+        f"{secs_b:.1f} s, train loss by epoch {losses}, launches on rank 0 "
+        f"{got}; -m test in one process on its checkpoint_last: "
+        f"{len(exported)} clips; the pipelined eval of that checkpoint on "
+        f"{PIPE_STAGES} processes (with (i)) vs the exported logits: "
+        f"max_abs_diff={max_abs:.3g} (tol {1e-4 * scale:.3g} = 1e-4 * "
+        f"max|logit| {scale:.4g})")
+    if not (np.isfinite(exported).all() and max_abs <= 1e-4 * scale
+            and (recs["val"][0]["merged_idx"]
+                 == np.arange(len(exported))).all()):
+        raise AssertionError("pipeline: the one-process logits disagree "
+                             "with the pipelined eval's")
+    numbers["launcher"] = {"run_s": [secs_a, secs_b],
+                           "train_loss_by_epoch": losses,
+                           "launches_rank0": got,
+                           "eval_max_abs_diff": max_abs,
+                           "eval_run_s": export["seconds"]}
+    os.remove(model_path)
+    del recs
+    torch.cuda.empty_cache()
+
+    # (ii) data2 x pipe2 on four processes: plain data parallelism against
+    # one process in bf16 (the expt's) and in fp32, ZeRO-1 against plain
+    # data parallelism on the same grid
+    lexpt = os.path.join(EXPTS, LAUNCH_EXPT)
+    lcfg = serve.load_config(lexpt)
+    lsched = O.build_schedule(lcfg.opt, 2, 1)
+    llrs = [lsched(i, float(lcfg.opt.lr)) for i in range(PIPE_STEPS)]
+    fp32 = ["model.compute_dtype=float32"]
+    lone, lspans, lpaths = {}, {}, {}
+    for dt, more in (("bf16", []), ("fp32", fp32)):
+        lpaths[dt] = os.path.join(PIPE_DIR, f"one98_{dt}_state.pt")
+        lone[dt], lspans[dt] = _one_process(
+            _pipe_job(f"one98-{dt}", lexpt, [*LAUNCH_OVERRIDES, *more],
+                      DP_CLASSES, llrs),
+            serve.load_config(lexpt, more), DP_CLASSES, lpaths[dt])
+    grid = [f"train.pipeline_stages={PIPE_STAGES}", *LAUNCH_OVERRIDES]
+    jobs = [_pipe_job("plain", lexpt, grid, DP_CLASSES, llrs,
+                      keep_state="host", against_file=lpaths["bf16"]),
+            _pipe_job("zero", lexpt, grid + ["train.zero_sharding=true"],
+                      DP_CLASSES, llrs, keep_state=False, against="plain"),
+            _pipe_job("plain-fp32", lexpt, grid + fp32, DP_CLASSES, llrs,
+                      keep_state=False, against_file=lpaths["fp32"])]
+    recs, secs = _pipe_records("data2xpipe2", jobs, 2 * PIPE_STAGES)
+    for path in lpaths.values():
+        os.remove(path)
+    lper = int(lcfg.model.common.fp_layers) // PIPE_STAGES
+    for job in jobs:
+        for rec in recs[job["name"]]:
+            _stage_launches(f"pipeline data2xpipe2 {job['name']} rank "
+                            f"{rec['rank']}", rec, lper,
+                            int(lcfg.model.fuser.depth), PIPE_STAGES,
+                            PIPE_STEPS)
+    numbers["data2xpipe2"] = {"run_s": secs}
+    for dt, name in (("bf16", "plain"), ("fp32", "plain-fp32")):
+        ranks = recs[name]
+        ok, held, words = _held(ranks[0], lone[dt], lspans[dt],
+                                PIPE_TOL[dt])
+        log(f"pipeline (ii) data2 x pipe2 {dt}, 4 processes over gloo on "
+            f"cuda:0, {LAUNCH_EXPT}, {PIPE_BATCH} clips a step "
+            f"({PIPE_BATCH // 2} a replica), {PIPE_STEPS} steps, plain data "
+            f"parallelism vs one process over the same batches: {words}; "
+            f"step ms rank 0 {_rounded(ranks[0]['step_ms'])} vs one process "
+            f"{_rounded(lone[dt]['step_ms'])} (one card: not a multi-GPU "
+            "number)")
+        if not ok:
+            raise AssertionError(f"pipeline: data2 x pipe2 in {dt} differs "
+                                 "from one process")
+        numbers["data2xpipe2"][f"one_process_{dt}"] = {
+            **held, "step_ms_rank0": ranks[0]["step_ms"],
+            "one_process_step_ms": lone[dt]["step_ms"]}
+    plain, zero = recs["plain"], recs["zero"]
+    worst = _loss_rel(zero[0]["losses"], plain[0]["losses"])
+    weight_rel = zero[0]["state_diff"] / zero[0]["state_scale"]
+    launches["data2xpipe2_zero"] = [r["launches"] for r in zero]
+    bytes_plain = [r["state_bytes"] for r in plain]
+    bytes_zero = [r["state_bytes"] for r in zero]
+    log(f"pipeline (ii) data2 x pipe2, 4 processes over gloo on cuda:0, "
+        f"{LAUNCH_EXPT}, {PIPE_BATCH} clips a step ({PIPE_BATCH // 2} a "
+        f"replica), {PIPE_STEPS} steps: ZeRO-1 vs plain data parallelism on "
+        f"the same grid: total loss by step "
+        f"{[round(l['total_loss'], 5) for l in zero[0]['losses']]} vs "
+        f"{[round(l['total_loss'], 5) for l in plain[0]['losses']]}, largest "
+        f"relative difference {worst:.3g} (tol 1e-5); weights {weight_rel:.3g}"
+        f" of max|w| (tol 1e-5); optimizer-state bytes by rank (stage = rank "
+        f"% 2: its layers and the replicated rest) plain {bytes_plain}, "
+        f"ZeRO-1 {bytes_zero}; step ms rank 0 "
+        f"{_rounded(zero[0]['step_ms'])} vs {_rounded(plain[0]['step_ms'])}"
+        f"; peak GB {[round(r['peak_bytes'] / 2 ** 30, 2) for r in zero]} "
+        f"(one card: not a multi-GPU number); {secs:.1f} s")
+    if not (worst <= 1e-5 and weight_rel <= 1e-5
+            and all(2 * z <= p + 64 for z, p in zip(bytes_zero, bytes_plain))
+            and [r["stage"] for r in zero] == [0, 1, 0, 1]):
+        raise AssertionError("pipeline: ZeRO-1 over data2 x pipe2 differs "
+                             "from plain data parallelism")
+    numbers["data2xpipe2"].update({
+        "loss_rel_diff": worst, "weight_rel_diff": weight_rel,
+        "state_bytes_plain": bytes_plain, "state_bytes_zero1": bytes_zero,
+        "step_ms_rank0": zero[0]["step_ms"],
+        "plain_step_ms_rank0": plain[0]["step_ms"],
+        "peak_gb_by_rank": [r["peak_bytes"] / 2 ** 30 for r in zero]})
+    del recs, plain, zero
+    torch.cuda.empty_cache()
+
+    numbers["seconds"] = time.perf_counter() - t_phase
+    return launches, numbers
+
+
 def main():
     try:
         import torch
@@ -5105,12 +5560,22 @@ def main():
             k["options_launches"] = options_launches.get(k["name"], 0)
         options["seconds"] = time.perf_counter() - t0
         log(json.dumps({"options": options}))
+
+        # 14. pipeline parallelism (GPipe stages as gloo processes on the
+        # card: the flagship against one process, data2 x pipe2 with
+        # ZeRO-1, the launcher and -m test on its checkpoint)
+        pipeline_launches, pipeline = phase_pipeline()
+        for k in kernels.values():
+            k["pipeline_launches"] = {
+                run: [counts.get(k["name"], 0) for counts in by_rank]
+                for run, by_rank in pipeline_launches.items()}
+        log(json.dumps({"pipeline": pipeline}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 14. report
+    # 15. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
@@ -5119,12 +5584,13 @@ def main():
          **{k: e[k] for k in ("main_path", "plain_path_launches",
                               "launcher_launches", "eval_launches",
                               "variants_launches", "serving_graph_launches",
-                              "options_launches")
+                              "options_launches", "pipeline_launches")
             if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
             for label, sub in e.items()
             if isinstance(sub, dict)
-            and label not in ("redesign", "serving_graph_launches")}}
+            and label not in ("redesign", "serving_graph_launches",
+                              "pipeline_launches")}}
         for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -198,17 +198,34 @@ def test_smoke_expt_trains_one_step_on_the_plain_path():
     assert moved > len(want_sd) // 2       # the step did move the weights
 
 
+PER_LAYER_RULE = ("opt.lr_wd=[[future_predictor.future_predictor.gpt_model"
+                  ".h.1,0.0,0.0]] train.pipeline_stages=2")
+
+
 @pytest.mark.parametrize("override", [
     "train.pipeline_stages=2", "train.pipeline_stages=4",
-    "train.master_dtype=bfloat16", "train.grad_accum=0"])
+    "train.master_dtype=bfloat16", "train.grad_accum=0", PER_LAYER_RULE])
 def test_unported_train_keys_raise_naming_the_roadmap(override):
-    """GPipe is the one train.* key still unported and raises naming the
-    roadmap; bf16 masters without bf16 compute and a grad_accum below 1
-    are refused as the JAX loop refuses them."""
-    cfg = serve.load_config(SMOKE_TRAIN, [override])
-    if override.startswith("train.pipeline_stages"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md §A\.7 \(e\)"):
+    """The train.* values the JAX loop refuses raise alike: two pipeline
+    stages in one process (the stages must divide the process count), four
+    stages over the smoke expt's 2 predictor layers (checked from the
+    config, before the process count), a per-layer opt.lr_wd rule under
+    pipelining (JAX's message), bf16 masters without bf16 compute and a
+    grad_accum below 1."""
+    cfg = serve.load_config(SMOKE_TRAIN, override.split())
+    if override == "train.pipeline_stages=2":
+        with pytest.raises(ValueError, match="must divide the process "
+                           "count 1"):
+            Runner.from_config(cfg, CLASSES, device="cpu")
+    elif override == "train.pipeline_stages=4":
+        with pytest.raises(ValueError, match=r"fp_layers=2 must divide "
+                           r"over pipeline_stages=4"):
+            Runner.from_config(cfg, CLASSES, device="cpu")
+    elif override == PER_LAYER_RULE:
+        with pytest.raises(ValueError, match=r"opt\.lr_wd assigns different "
+                           r"lr/wd groups to individual predictor layers "
+                           r"\(future_predictor\.future_predictor\.gpt_model"
+                           r"\.h\.1\)"):
             Runner.from_config(cfg, CLASSES, device="cpu")
     elif override.startswith("train.master_dtype"):
         with pytest.raises(ValueError, match="compute_dtype=bfloat16"):
