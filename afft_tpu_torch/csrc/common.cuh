@@ -117,6 +117,10 @@ static void launch_layernorm(const TIn* x, const TOut* g, const TOut* b,
 // (rate 0) keeps everything without drawing. ``base`` is added to every
 // local index: a process of a data-parallel step holds rows r0 .. of the
 // global batch, and its elements are the global batch's from r0's first on.
+// A tensor-parallel shard of the attention holds H of a row's Hg heads: its
+// local index i of row (i / span) is moved on by (i / span) * gap, gap the
+// other ranks' heads of a row ((Hg - H) N^2 elements), and base adds the
+// rank's first head; span 0 (every other site) moves nothing.
 // ---------------------------------------------------------------------------
 
 struct DropSite {
@@ -124,6 +128,8 @@ struct DropSite {
   unsigned thr;             // keep iff (draw >> 8) < thr
   float inv;                // 1 / keep, the scale of a kept element
   unsigned long long base;  // logical index of this process's element 0
+  unsigned long long span;  // local elements a row (0: no remap)
+  unsigned long long gap;   // the other ranks' elements a row
 };
 
 constexpr unsigned DROP_KEEP_ALL = 1u << 24;
@@ -148,6 +154,7 @@ __device__ __forceinline__ unsigned philox_word0(unsigned k0, unsigned k1,
 __device__ __forceinline__ float drop_scale(const DropSite& d,
                                             unsigned long long idx) {
   if (d.thr >= DROP_KEEP_ALL) return d.inv;
+  if (d.span != 0) idx += idx / d.span * d.gap;
   idx += d.base;
   const unsigned w = philox_word0(d.seed0, d.seed1, (unsigned)idx,
                                   (unsigned)(idx >> 32), d.block, d.site);
@@ -232,7 +239,8 @@ __device__ __forceinline__ void epilogue(const EpiArgs& ea, int M, int N,
   } else if (EPI == EPI_RES_DROP) {
     v *= drop_scale(ea.drop, at);
     v *= drop_scale(ea.row_drop, (unsigned long long)(row / ea.tokens));
-    v = to_f32(static_cast<const TRes*>(ea.res)[at]) + v;
+    // a tensor-parallel partial sum of a rank other than 0 has no residual
+    if (ea.res != nullptr) v = to_f32(static_cast<const TRes*>(ea.res)[at]) + v;
     if (ea.out2 != nullptr) static_cast<T*>(ea.out2)[at] = from_f32<T>(v);
   } else if (EPI == EPI_GELU_TANH) {
     v = gelu_tanh(v);
@@ -487,15 +495,16 @@ static void launch_ln_colsum(const float* d, const TX* x, const float* mu,
 // LayerNorm backward over rows, the statistics recomputed from the stashed
 // input x: with dxhat = d * gain,
 //   dx = add + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
-// add being the gradient that reaches x through the residual. One warp per
-// row; the row's mean and rstd are kept for ln_colsum.
+// add being the gradient that reaches x through the residual (null: none,
+// a tensor-parallel partial sum of a rank other than 0; dx is then an fp32
+// TO). One warp per row; the row's mean and rstd are kept for ln_colsum.
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename TO = T>
 __global__ void __launch_bounds__(LN_ROWS * 32)
 layernorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ d,
                    const T* __restrict__ gain, const T* __restrict__ add,
-                   T* __restrict__ dx, float* __restrict__ mu_out,
+                   TO* __restrict__ dx, float* __restrict__ mu_out,
                    float* __restrict__ rstd_out, int M, int C, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * LN_ROWS + warp;
@@ -518,12 +527,13 @@ layernorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ d,
     s2 += dxh * ((to_f32(xr[c]) - mu) * rs);
   }
   const float m1 = warp_sum(s1) / (float)C, m2 = warp_sum(s2) / (float)C;
-  const T* ar = add + (size_t)row * C;
-  T* or_ = dx + (size_t)row * C;
+  const T* ar = add != nullptr ? add + (size_t)row * C : nullptr;
+  TO* or_ = dx + (size_t)row * C;
   for (int c = lane; c < C; c += 32) {
     const float dxh = dr[c] * (gain != nullptr ? to_f32(gain[c]) : 1.f);
     const float xh = (to_f32(xr[c]) - mu) * rs;
-    or_[c] = from_f32<T>(to_f32(ar[c]) + rs * (dxh - m1 - xh * m2));
+    or_[c] = from_f32<TO>((ar != nullptr ? to_f32(ar[c]) : 0.f) +
+                          rs * (dxh - m1 - xh * m2));
   }
   if (lane == 0) {
     mu_out[row] = mu;

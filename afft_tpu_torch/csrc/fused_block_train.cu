@@ -40,16 +40,17 @@
 
 using namespace afft;
 
-// Arguments: train_block.cuh (train_fwd, train_bwd_mlp, train_bwd_attn).
+// Arguments: train_block.cuh (train_fwd, train_bwd_mlp, train_bwd_attn;
+// shard: its shard mode, the fuser's MLP columns).
 extern "C" int afft_block_train_fwd(int dtype, const void* x,
                                     const void* const* params,
                                     const void* mask, const int* seeds,
                                     const int* thr, const float* inv,
-                                    void* const* bufs, int R, int N, int C,
-                                    int H, int hidden, float eps,
-                                    void* stream) {
-  return train_fwd<false>(dtype, x, params, mask, seeds, thr, inv, bufs, R, N,
-                          C, H, hidden, eps, stream);
+                                    const int* shard, void* const* bufs,
+                                    int R, int N, int C, int H, int hidden,
+                                    float eps, void* stream) {
+  return train_fwd<false>(dtype, x, params, mask, seeds, thr, inv, shard,
+                          bufs, R, N, C, H, hidden, eps, stream);
 }
 
 extern "C" int afft_block_train_bwd_mlp(int dtype, const void* y,
@@ -57,11 +58,11 @@ extern "C" int afft_block_train_bwd_mlp(int dtype, const void* y,
                                         const void* const* params,
                                         void* const* grads, const int* seeds,
                                         const int* thr, const float* inv,
-                                        void* const* bufs, int R, int N,
-                                        int C, int hidden, float eps,
-                                        void* stream) {
+                                        const int* shard, void* const* bufs,
+                                        int R, int N, int C, int hidden,
+                                        float eps, void* stream) {
   return train_bwd_mlp<false>(dtype, y, dout, pre1, params, grads, seeds, thr,
-                              inv, bufs, R, N, C, hidden, eps, stream);
+                              inv, shard, bufs, R, N, C, hidden, eps, stream);
 }
 
 extern "C" int afft_block_train_bwd_attn(int dtype, const void* x,
@@ -69,11 +70,13 @@ extern "C" int afft_block_train_bwd_attn(int dtype, const void* x,
                                          const void* const* params,
                                          void* const* grads, const void* mask,
                                          const int* seeds, const int* thr,
-                                         const float* inv, void* const* bufs,
-                                         int R, int N, int C, int H,
-                                         float eps, void* stream) {
+                                         const float* inv, const int* shard,
+                                         void* const* bufs, int R, int N,
+                                         int C, int H, float eps,
+                                         void* stream) {
   return train_bwd_attn<false>(dtype, x, dy, qkv, params, grads, mask, seeds,
-                               thr, inv, bufs, R, N, C, H, eps, stream);
+                               thr, inv, shard, bufs, R, N, C, H, eps,
+                               stream);
 }
 
 // The five masks of one block, each already scaled by 1 / keep, fp32:

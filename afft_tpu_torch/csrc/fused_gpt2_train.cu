@@ -46,17 +46,18 @@
 
 using namespace afft;
 
-// Arguments: train_block.cuh (train_fwd, train_bwd_mlp, train_bwd_attn),
-// with R = B samples of N = T tokens.
+// Arguments: train_block.cuh (train_fwd, train_bwd_mlp, train_bwd_attn;
+// shard: its shard mode, the layer's heads and MLP columns), with R = B
+// samples of N = T tokens.
 extern "C" int afft_gpt2_train_fwd(int dtype, const void* x,
                                    const void* const* params,
                                    const void* mask, const int* seeds,
                                    const int* thr, const float* inv,
-                                   void* const* bufs, int B, int T, int C,
-                                   int H, int hidden, float eps,
-                                   void* stream) {
-  return train_fwd<true>(dtype, x, params, mask, seeds, thr, inv, bufs, B, T,
-                         C, H, hidden, eps, stream);
+                                   const int* shard, void* const* bufs,
+                                   int B, int T, int C, int H, int hidden,
+                                   float eps, void* stream) {
+  return train_fwd<true>(dtype, x, params, mask, seeds, thr, inv, shard,
+                         bufs, B, T, C, H, hidden, eps, stream);
 }
 
 extern "C" int afft_gpt2_train_bwd_mlp(int dtype, const void* y,
@@ -64,10 +65,11 @@ extern "C" int afft_gpt2_train_bwd_mlp(int dtype, const void* y,
                                        const void* const* params,
                                        void* const* grads, const int* seeds,
                                        const int* thr, const float* inv,
-                                       void* const* bufs, int B, int T, int C,
-                                       int hidden, float eps, void* stream) {
+                                       const int* shard, void* const* bufs,
+                                       int B, int T, int C, int hidden,
+                                       float eps, void* stream) {
   return train_bwd_mlp<true>(dtype, y, dout, pre1, params, grads, seeds, thr,
-                             inv, bufs, B, T, C, hidden, eps, stream);
+                             inv, shard, bufs, B, T, C, hidden, eps, stream);
 }
 
 extern "C" int afft_gpt2_train_bwd_attn(int dtype, const void* x,
@@ -75,11 +77,12 @@ extern "C" int afft_gpt2_train_bwd_attn(int dtype, const void* x,
                                         const void* const* params,
                                         void* const* grads, const void* mask,
                                         const int* seeds, const int* thr,
-                                        const float* inv, void* const* bufs,
-                                        int B, int T, int C, int H, float eps,
+                                        const float* inv, const int* shard,
+                                        void* const* bufs, int B, int T,
+                                        int C, int H, float eps,
                                         void* stream) {
   return train_bwd_attn<true>(dtype, x, dy, qkv, params, grads, mask, seeds,
-                              thr, inv, bufs, B, T, C, H, eps, stream);
+                              thr, inv, shard, bufs, B, T, C, H, eps, stream);
 }
 
 // The three masks of one layer, each already scaled by 1 / keep, fp32:

@@ -235,11 +235,12 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 // for element) on 8 consecutive columns of one row; b the bias values. The
 // output is bf16, or fp32 with EPI_BIAS (the fp32 dX products and the
 // weight gradients), EPI_BIAS_RES (the fuser's serving proj into the fp32
-// residual stream y) or EPI_RES_DROP over a bf16 residual (its training
-// proj into y, y stashed in bf16); the residual is bf16, or fp32 with
-// EPI_BIAS_RES or EPI_RES_DROP into a bf16 output (the fuser's fc2 adding
-// y), or both fp32 with EPI_BIAS_RES (the decoder block's cross proj adding
-// into y); stashes are bf16. res may be out (y += ...): the thread that
+// residual stream y) or EPI_RES_DROP (its training proj into y, y stashed in
+// bf16; a tensor-parallel shard's partial sum of a row-parallel product);
+// the residual is bf16, or fp32 with EPI_BIAS_RES or EPI_RES_DROP (the
+// fuser's fc2 adding y, the decoder block's cross proj adding into y), and
+// EPI_RES_DROP's may be null (a partial sum of a rank other than 0);
+// stashes are bf16. res may be out (y += ...): the thread that
 // loads res + at stores out + at in the same call, and output tiles are
 // disjoint, so no element is read after it is written.
 template <int EPI, typename TRes, typename TOut>
@@ -255,18 +256,24 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
                     EPI == EPI_GELU_TANH_BWD,
                 "gemm_sm90 epilogue");
   static_assert(out_bf16 || EPI == EPI_BIAS || EPI == EPI_BIAS_RES ||
-                    (EPI == EPI_RES_DROP && res_bf16),
+                    EPI == EPI_RES_DROP,
                 "an fp32 output takes EPI_BIAS, EPI_BIAS_RES or "
-                "EPI_RES_DROP over a bf16 residual");
-  static_assert(res_bf16 || EPI == EPI_BIAS_RES ||
-                    (EPI == EPI_RES_DROP && out_bf16),
-                "an fp32 residual takes EPI_BIAS_RES or EPI_RES_DROP into a "
-                "bf16 output");
+                "EPI_RES_DROP");
+  static_assert(res_bf16 || EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP,
+                "an fp32 residual takes EPI_BIAS_RES or EPI_RES_DROP");
   const size_t at = (size_t)row * N + col;
   float v[8], r[8], o2[8];
-  if (EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP || EPI == EPI_GELU_BWD ||
-      EPI == EPI_GELU_TANH_BWD)
+  if (EPI == EPI_BIAS_RES || EPI == EPI_GELU_BWD || EPI == EPI_GELU_TANH_BWD)
     load8(static_cast<const TRes*>(ea.res) + at, r);
+  if (EPI == EPI_RES_DROP) {
+    // a tensor-parallel partial sum of a rank other than 0 has no residual
+    if (ea.res != nullptr) {
+      load8(static_cast<const TRes*>(ea.res) + at, r);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) r[e] = 0.f;
+    }
+  }
   float keep_row = 1.f;
   if (EPI == EPI_RES_DROP)
     keep_row = drop_scale(ea.row_drop, (unsigned long long)(row / ea.tokens));

@@ -62,6 +62,29 @@
 // are two-stage column sums: no atomics, so every gradient is the same from
 // run to run.
 //
+// Tensor-parallel shard mode (Shard, count > 1; Megatron's column- and
+// row-parallel products): this call holds rank ``rank``'s shard of a layer
+// split over ``count`` model ranks: hidden / count MLP columns (fc1's
+// outputs, fc2's inputs) and, with ``heads``, H of the layer's count * H
+// heads (qkv's columns [q | k | v] of those heads, proj's input rows), the
+// attention width A = C / count. LayerNorms, biases of the row-parallel
+// products and the residual stream stay whole (C). It relies on linearity
+// and so never splits an entry at a LayerNorm: the row-parallel product's
+// output goes through its dropout masks as a partial sum, and the LayerNorm
+// backward turns a partial dx-hat into a partial dx (and partial affine
+// gradients). So each entry runs whole on its shard and writes an fp32
+// partial sum where it would write its last output (the forward's out, or
+// the GPT-2 attention half's y; the backward's dy, and the GPT-2 attention
+// backward's dx); only rank 0 adds the row-parallel bias and the residual
+// (or the pass-through gradient). The caller sums the partials over the
+// model ranks (one all-reduce an entry) and rounds once, which gives the
+// one-rank result up to the order of the sum. The GPT-2 forward then runs
+// its two halves as two calls (``part``), the sum of y in between; the
+// fuser's attention stays whole (no ``heads``): its forward sums once at the
+// end, its attention backward runs unsharded on the summed dy. Masks are the
+// whole layer's: the proj and MLP sites index the whole C, and the attention
+// site maps a local head to the global one (DropSite span / gap).
+//
 // Limits: any R, 1 <= N <= 8 for the fuser (its attention's) and 1 <= N <=
 // 32 for the GPT-2 layer, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0
 // (gemm_sm90's K % 8 and N % 8), fp32 or bf16; in bf16 every operand of a
@@ -95,27 +118,72 @@ struct Rates {
   unsigned seed0, seed1, block;
   unsigned long long row0;
   unsigned long long per_row[5];
+  // the attention site's head remap of a shard (DropSite span / gap) and
+  // its first head's offset
+  unsigned long long head_span, head_gap, head_shift;
   unsigned thr[3];
   float inv[3];
 };
 
+// A call's tensor-parallel shard (see above): rank ``rank`` of ``count``
+// (1: the whole layer); ``part`` of the forward: PART_BOTH, or the GPT-2
+// layer's PART_ATTN / PART_MLP alone; ``heads``: the attention's heads are
+// split too (the GPT-2 layer's).
+enum Part { PART_BOTH = 0, PART_ATTN = 1, PART_MLP = 2 };
+
+struct Shard {
+  int rank, count, part, heads;
+  bool on() const { return count > 1; }
+  bool lead() const { return rank == 0; }
+  // the attention width of this shard, of the layer's C
+  int width(int C) const { return on() && heads ? C / count : C; }
+};
+
+// ``s``: {rank, count, part, heads} (a host array), or null: the whole layer.
+static Shard shard_of(const int* s) {
+  return s != nullptr ? Shard{s[0], s[1], s[2], s[3]} : Shard{0, 1, 0, 0};
+}
+
+// Whether a shard of a layer of width C with H local heads and ``hidden``
+// MLP columns is one the entries take.
+static bool shard_ok(const Shard& sh, bool gpt2, int C, int H) {
+  if (!sh.on()) return sh.part == PART_BOTH;
+  if (sh.rank < 0 || sh.rank >= sh.count) return false;
+  if (gpt2) return sh.heads && sh.part != PART_BOTH && C % sh.count == 0 &&
+                   (C / sh.count) % H == 0;
+  return !sh.heads && sh.part == PART_BOTH;
+}
+
 static DropSite site_of(const Rates& r, int site) {
   const int kind = site == SITE_ATTN ? 0
                    : (site == SITE_PROJ || site == SITE_MLP) ? 1 : 2;
-  return DropSite{r.seed0, r.seed1, r.block, (unsigned)site, r.thr[kind],
-                  r.inv[kind], r.row0 * r.per_row[site]};
+  DropSite d{r.seed0, r.seed1, r.block, (unsigned)site, r.thr[kind],
+             r.inv[kind], r.row0 * r.per_row[site], 0, 0};
+  if (site == SITE_ATTN) {
+    d.base += r.head_shift;
+    d.span = r.head_span;
+    d.gap = r.head_gap;
+  }
+  return d;
 }
 
-// H may be 0 where the attention site is not drawn (its offset is then 0).
+// H may be 0 where the attention site is not drawn (its offset is then 0);
+// under a shard with ``heads`` H is the local heads, count * H the layer's.
 static Rates rates_of(const int* seeds, const int* thr, const float* inv,
-                      int N, int C, int H) {
+                      int N, int C, int H, Shard sh = Shard{0, 1, 0, 0}) {
   Rates r;
   r.seed0 = (unsigned)seeds[0];
   r.seed1 = (unsigned)seeds[1];
   r.block = (unsigned)seeds[2];
   r.row0 = (unsigned long long)(unsigned)seeds[3];
   const unsigned long long tokens = (unsigned long long)N * C;
-  r.per_row[SITE_ATTN] = (unsigned long long)H * N * N;
+  const unsigned long long nn = (unsigned long long)N * N;
+  const bool split = sh.on() && sh.heads;
+  const unsigned long long hg = (unsigned long long)H * (split ? sh.count : 1);
+  r.per_row[SITE_ATTN] = hg * nn;
+  r.head_span = split ? (unsigned long long)H * nn : 0;
+  r.head_gap = split ? (hg - H) * nn : 0;
+  r.head_shift = split ? (unsigned long long)sh.rank * H * nn : 0;
   r.per_row[SITE_PROJ] = tokens;
   r.per_row[SITE_DP1] = 1;
   r.per_row[SITE_MLP] = tokens;
@@ -194,10 +262,29 @@ template <int EPI, bool GPT2, typename TRes, typename TOut, typename T>
 static cudaError_t fwd_gemm(const T* a, const T* w, int M, int N, int K,
                             EpiArgs ea, cudaStream_t s) {
   if constexpr (GPT2) {
+    // a shard's fp32 partial sum over a working-dtype residual
+    if constexpr (!std::is_same<TOut, T>::value)
+      return gemm_kn<EPI, T, TOut>(a, w, M, N, K, ea, s);
     return gemm_kn<EPI, T>(a, w, M, N, K, ea, s);
   } else {
     return gemm_nk<EPI, T, TRes, TOut>(a, w, M, N, K, ea, s);
   }
+}
+
+// The product that ends a half (proj, fc2: dropout, drop-path and the
+// residual in its epilogue) into TOut, or with ``partial`` (a shard's
+// row-parallel product) the fp32 partial sum of this rank's rows of the
+// weight into ``part``, the bias and the residual added on rank 0 only.
+template <bool GPT2, typename TRes, typename TOut, typename T>
+static cudaError_t row_fwd_gemm(const Shard& sh, bool partial, const T* a,
+                                const T* w, int M, int N, int K, EpiArgs ea,
+                                float* part, cudaStream_t s) {
+  if (!partial)
+    return fwd_gemm<EPI_RES_DROP, GPT2, TRes, TOut>(a, w, M, N, K, ea, s);
+  if (!sh.lead()) ea.bias = ea.res = nullptr;
+  ea.out = part;
+  ea.out2 = nullptr;
+  return fwd_gemm<EPI_RES_DROP, GPT2, TRes, float>(a, w, M, N, K, ea, s);
 }
 
 // The forward attention with dropout on the probabilities: staged for the
@@ -246,51 +333,63 @@ static cudaError_t launch_dw(const T* x, const T* dy, float* out, int in,
 
 // Scratch: tmp (M, C), y32 (M, C) fp32 (the fuser's residual stream in bf16;
 // unused otherwise), h1 (M, hidden); outputs out (R, N, C), y (M, C), qkv
-// (M, 3C), pre1 (M, hidden).
+// (M, 3A), pre1 (M, hidden). Under a shard ``out`` is the fp32 partial sum
+// (M, C) of the call's last product: the GPT-2 attention half's y (PART_ATTN:
+// y and pre1 unused) or the block's output; the GPT-2 MLP half (PART_MLP)
+// reads the summed, rounded y from ``y`` (qkv unused).
 template <typename T, bool GPT2>
 static int run_fwd(const T* x, const void* const* pv, const float* mask,
-                   const Rates& rt, T* tmp, float* y32, T* h1, T* out, T* y,
-                   T* qkv, T* pre1, int R, int N, int C, int H, int hidden,
-                   float eps, cudaStream_t s) {
+                   const Rates& rt, const Shard& sh, T* tmp, float* y32,
+                   T* h1, T* out, T* y, T* qkv, T* pre1, int R, int N, int C,
+                   int H, int hidden, float eps, cudaStream_t s) {
   const T* const* p = reinterpret_cast<const T* const*>(pv);
-  const int M = R * N;
+  const int M = R * N, A = sh.width(C);
+  float* part = reinterpret_cast<float*>(out);
   // the residual stream between the halves: rounded for GPT-2, fp32 for the
   // fuser (in fp32 the stashed y is that stream)
   typedef typename std::conditional<GPT2, T, float>::type TY;
   const bool in_y = GPT2 || std::is_same<T, float>::value;
   TY* yres = in_y ? reinterpret_cast<TY*>(y) : reinterpret_cast<TY*>(y32);
-  launch_layernorm<T, T>(x, p[TP_LN1G], p[TP_LN1B], tmp, M, C, eps, s);
-  AFFT_CHECK_LAUNCH();
-  AFFT_CHECK((fwd_gemm<EPI_BIAS, GPT2, T, T>(
-      tmp, p[TP_WQKV], M, 3 * C, C, EpiArgs{p[TP_BQKV], nullptr, qkv}, s)));
-  AFFT_CHECK((attention_drop<T, GPT2>(qkv, mask, tmp, R, N, H, C / H,
-                                      site_of(rt, SITE_ATTN), s)));
-  AFFT_CHECK((fwd_gemm<EPI_RES_DROP, GPT2, T, TY>(
-      tmp, p[TP_WPROJ], M, C, C,
-      EpiArgs{p[TP_BPROJ], x, yres, in_y ? nullptr : y,
-              site_of(rt, SITE_PROJ), site_of(rt, SITE_DP1), N},
-      s)));
+  if (sh.part != PART_MLP) {
+    launch_layernorm<T, T>(x, p[TP_LN1G], p[TP_LN1B], tmp, M, C, eps, s);
+    AFFT_CHECK_LAUNCH();
+    AFFT_CHECK((fwd_gemm<EPI_BIAS, GPT2, T, T>(
+        tmp, p[TP_WQKV], M, 3 * A, C, EpiArgs{p[TP_BQKV], nullptr, qkv}, s)));
+    AFFT_CHECK((attention_drop<T, GPT2>(qkv, mask, tmp, R, N, H, A / H,
+                                        site_of(rt, SITE_ATTN), s)));
+    // the proj over this shard's heads: a partial sum in the GPT-2 layer's
+    // attention half alone
+    AFFT_CHECK((row_fwd_gemm<GPT2, T, TY>(
+        sh, sh.part == PART_ATTN, tmp, p[TP_WPROJ], M, C, A,
+        EpiArgs{p[TP_BPROJ], x, yres, in_y ? nullptr : y,
+                site_of(rt, SITE_PROJ), site_of(rt, SITE_DP1), N},
+        part, s)));
+    if (sh.part == PART_ATTN) return 0;
+  }
   launch_layernorm<TY, T>(yres, p[TP_LN2G], p[TP_LN2B], tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
   AFFT_CHECK((fwd_gemm<GPT2 ? EPI_PRE_GELU_TANH : EPI_PRE_GELU, GPT2, T, T>(
       tmp, p[TP_WFC1], M, hidden, C, EpiArgs{p[TP_BFC1], nullptr, h1, pre1},
       s)));
-  AFFT_CHECK((fwd_gemm<EPI_RES_DROP, GPT2, TY, T>(
-      h1, p[TP_WFC2], M, C, hidden,
+  // fc2 over this shard's MLP columns: a partial sum under any shard
+  AFFT_CHECK((row_fwd_gemm<GPT2, TY, T>(
+      sh, sh.on(), h1, p[TP_WFC2], M, C, hidden,
       EpiArgs{p[TP_BFC2], yres, out, nullptr, site_of(rt, SITE_MLP),
               site_of(rt, SITE_DP2), N},
-      s)));
+      part, s)));
   return 0;
 }
 
 // Scratch of the MLP backward: tmp, dh2 (M, C) T; h1, dpre1 (M, hidden) T;
 // dg (M, C) fp32; mu, rstd (M) fp32; partial (2 * CS_SLICES * max(3C, hidden))
 // fp32. Gradients gv (TrainParam order, fp32, null where the parameter is
-// absent): this entry writes TP_LN2G .. TP_BFC2.
+// absent): this entry writes TP_LN2G .. TP_BFC2. Under a shard dy is the
+// fp32 partial sum (M, C) and the LN2 affine gradients are partial sums.
 template <typename T, bool GPT2>
 static int run_bwd_mlp(const T* y, const T* dout, const T* pre1,
                        const void* const* pv, float* const* gv,
-                       const Rates& rt, T* tmp, T* dh2, T* h1, T* dpre1,
+                       const Rates& rt, const Shard& sh, T* tmp, T* dh2,
+                       T* h1, T* dpre1,
                        float* dg, float* mu, float* rstd, float* partial,
                        T* dy, int R, int N, int C, int hidden, float eps,
                        cudaStream_t s) {
@@ -321,8 +420,15 @@ static int run_bwd_mlp(const T* y, const T* dout, const T* pre1,
   // dg = dpre1 . W1^T, fp32
   AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
       dpre1, p[TP_WFC1], M, C, hidden, EpiArgs{nullptr, nullptr, dg}, s)));
-  layernorm_bwd_rows<T><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
-      y, dg, p[TP_LN2G], dout, dy, mu, rstd, M, C, eps);
+  if (sh.on()) {
+    // this shard's partial dy (fp32); rank 0 adds the pass-through dout
+    layernorm_bwd_rows<T, float><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
+        y, dg, p[TP_LN2G], sh.lead() ? dout : nullptr,
+        reinterpret_cast<float*>(dy), mu, rstd, M, C, eps);
+  } else {
+    layernorm_bwd_rows<T><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
+        y, dg, p[TP_LN2G], dout, dy, mu, rstd, M, C, eps);
+  }
   AFFT_CHECK_LAUNCH();
   if (gv[TP_LN2G] != nullptr) {
     launch_ln_colsum<T>(dg, y, mu, rstd, partial, gv[TP_LN2G], gv[TP_LN2B], M,
@@ -336,16 +442,18 @@ static int run_bwd_mlp(const T* y, const T* dout, const T* pre1,
 // dattn (M, C) fp32 (reused for dxn); mu, rstd, partial as above; tn the TN
 // route's partial tiles (tn_slices(I, J, M) * I * J fp32 for each weight
 // gradient's (I, J), or null: one slice). Writes the gradients TP_LN1G ..
-// TP_BPROJ.
+// TP_BPROJ. Under a shard (the GPT-2 layer's heads) dx is the fp32 partial
+// sum (R, N, C), the LN1 affine gradients partial sums; qkv and dqkv are (M,
+// 3A), dattn holds (M, A) and then dxn (M, C).
 template <typename T, bool GPT2>
 static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
                         const void* const* pv, float* const* gv,
-                        const float* mask, const Rates& rt, T* tmp, T* dproj,
-                        T* dqkv, float* dattn, float* mu, float* rstd,
-                        float* partial, float* tn, T* dx, int R, int N, int C,
-                        int H, float eps, cudaStream_t s) {
+                        const float* mask, const Rates& rt, const Shard& sh,
+                        T* tmp, T* dproj, T* dqkv, float* dattn, float* mu,
+                        float* rstd, float* partial, float* tn, T* dx, int R,
+                        int N, int C, int H, float eps, cudaStream_t s) {
   const T* const* p = reinterpret_cast<const T* const*>(pv);
-  const int M = R * N;
+  const int M = R * N, A = sh.width(C);
   const size_t n = (size_t)M * C;
   drop_grad<T><<<ew_blocks(n), 256, 0, s>>>(dy, dproj, n, C, N,
                                             site_of(rt, SITE_PROJ),
@@ -353,28 +461,35 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
   AFFT_CHECK_LAUNCH();
   // dattn = dproj . Wproj^T, fp32
   AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
-      dproj, p[TP_WPROJ], M, C, C, EpiArgs{nullptr, nullptr, dattn}, s)));
+      dproj, p[TP_WPROJ], M, A, C, EpiArgs{nullptr, nullptr, dattn}, s)));
   // dqkv, and the forward's attention output O into tmp
   AFFT_CHECK((launch_attention_bwd<T, GPT2>(qkv, mask, dattn, dqkv, tmp, R, N,
-                                            H, C / H, site_of(rt, SITE_ATTN),
+                                            H, A / H, site_of(rt, SITE_ATTN),
                                             s)));
-  AFFT_CHECK((launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], C, C, M, s, tn)));
+  AFFT_CHECK((launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], A, C, M, s, tn)));
   if (gv[TP_BPROJ] != nullptr) {
     launch_colsum<T>(dproj, partial, gv[TP_BPROJ], M, C, s);
     AFFT_CHECK_LAUNCH();
   }
   launch_layernorm<T, T>(x, p[TP_LN1G], p[TP_LN1B], tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
-  AFFT_CHECK((launch_dw<GPT2>(tmp, dqkv, gv[TP_WQKV], C, 3 * C, M, s, tn)));
+  AFFT_CHECK((launch_dw<GPT2>(tmp, dqkv, gv[TP_WQKV], C, 3 * A, M, s, tn)));
   if (gv[TP_BQKV] != nullptr) {
-    launch_colsum<T>(dqkv, partial, gv[TP_BQKV], M, 3 * C, s);
+    launch_colsum<T>(dqkv, partial, gv[TP_BQKV], M, 3 * A, s);
     AFFT_CHECK_LAUNCH();
   }
   // dxn = dqkv . Wqkv^T, fp32, over dattn's buffer
   AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
-      dqkv, p[TP_WQKV], M, C, 3 * C, EpiArgs{nullptr, nullptr, dattn}, s)));
-  layernorm_bwd_rows<T><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
-      x, dattn, p[TP_LN1G], dy, dx, mu, rstd, M, C, eps);
+      dqkv, p[TP_WQKV], M, C, 3 * A, EpiArgs{nullptr, nullptr, dattn}, s)));
+  if (sh.on()) {
+    // this shard's partial dx (fp32); rank 0 adds the pass-through dy
+    layernorm_bwd_rows<T, float><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
+        x, dattn, p[TP_LN1G], sh.lead() ? dy : nullptr,
+        reinterpret_cast<float*>(dx), mu, rstd, M, C, eps);
+  } else {
+    layernorm_bwd_rows<T><<<cdiv(M, LN_ROWS), LN_ROWS * 32, 0, s>>>(
+        x, dattn, p[TP_LN1G], dy, dx, mu, rstd, M, C, eps);
+  }
   AFFT_CHECK_LAUNCH();
   if (gv[TP_LN1G] != nullptr) {
     launch_ln_colsum<T>(dattn, x, mu, rstd, partial, gv[TP_LN1G],
@@ -389,9 +504,11 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
 // tensors in TrainParam order (host array of device pointers, null for an
 // absent one) in that dtype; mask fp32 (N, N) or null; seeds = {seed word 0,
 // seed word 1, block index, first global row}, thr / inv the three 24-bit
-// keep thresholds and 1 / keep scales (host arrays); bufs a host array of
-// device pointers. Each returns the first launch error (cudaError_t), 0 on
-// success.
+// keep thresholds and 1 / keep scales (host arrays); shard = {rank, count,
+// part, heads} (shard_of; null: the whole layer; H is then the local
+// heads); bufs a host array of device pointers. Each returns the first
+// launch error (cudaError_t), 0 on success; cudaErrorInvalidValue for a
+// shard the entry does not take.
 // ---------------------------------------------------------------------------
 
 // f((T*)nullptr) for the working dtype T of ``dtype``.
@@ -403,17 +520,21 @@ static int by_dtype(int dtype, F&& f) {
 }
 
 // bufs: tmp (M, C), y32 (M, C) fp32 (the fuser in bf16 only), h1 (M, hidden)
-// scratch; out (R, N, C), y (M, C), qkv (M, 3C), pre1 (M, hidden) outputs.
+// scratch; out (R, N, C) (fp32 (M, C) under a shard), y (M, C), qkv (M, 3A),
+// pre1 (M, hidden) outputs (run_fwd).
 template <bool GPT2>
 static int train_fwd(int dtype, const void* x, const void* const* params,
                      const void* mask, const int* seeds, const int* thr,
-                     const float* inv, void* const* bufs, int R, int N, int C,
-                     int H, int hidden, float eps, void* stream) {
+                     const float* inv, const int* shard, void* const* bufs,
+                     int R, int N, int C, int H, int hidden, float eps,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Rates rt = rates_of(seeds, thr, inv, N, C, H);
+  const Shard sh = shard_of(shard);
+  if (!shard_ok(sh, GPT2, C, H)) return (int)cudaErrorInvalidValue;
+  const Rates rt = rates_of(seeds, thr, inv, N, C, H, sh);
   return by_dtype(dtype, [&](auto tag) {
     typedef typename std::remove_pointer<decltype(tag)>::type T;
-    return run_fwd<T, GPT2>((const T*)x, params, (const float*)mask, rt,
+    return run_fwd<T, GPT2>((const T*)x, params, (const float*)mask, rt, sh,
                             (T*)bufs[0], (float*)bufs[1], (T*)bufs[2],
                             (T*)bufs[3], (T*)bufs[4], (T*)bufs[5],
                             (T*)bufs[6], R, N, C, H, hidden, eps, s);
@@ -421,21 +542,26 @@ static int train_fwd(int dtype, const void* x, const void* const* params,
 }
 
 // bufs: tmp, dh2, h1, dpre1, dg, mu, rstd, partial scratch (run_bwd_mlp);
-// dy (M, C) output. grads: fp32 outputs in TrainParam order.
+// dy (M, C) output (fp32 under a shard). grads: fp32 outputs in TrainParam
+// order.
 template <bool GPT2>
 static int train_bwd_mlp(int dtype, const void* y, const void* dout,
                          const void* pre1, const void* const* params,
                          void* const* grads, const int* seeds, const int* thr,
-                         const float* inv, void* const* bufs, int R, int N,
-                         int C, int hidden, float eps, void* stream) {
+                         const float* inv, const int* shard,
+                         void* const* bufs, int R, int N, int C, int hidden,
+                         float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Shard sh = shard_of(shard);
   // the MLP half draws no attention mask: H is not needed
+  if (!shard_ok({sh.rank, sh.count, PART_BOTH, 0}, false, C, 1))
+    return (int)cudaErrorInvalidValue;
   const Rates rt = rates_of(seeds, thr, inv, N, C, 0);
   float* const* gv = reinterpret_cast<float* const*>(grads);
   return by_dtype(dtype, [&](auto tag) {
     typedef typename std::remove_pointer<decltype(tag)>::type T;
     return run_bwd_mlp<T, GPT2>(
-        (const T*)y, (const T*)dout, (const T*)pre1, params, gv, rt,
+        (const T*)y, (const T*)dout, (const T*)pre1, params, gv, rt, sh,
         (T*)bufs[0], (T*)bufs[1], (T*)bufs[2], (T*)bufs[3], (float*)bufs[4],
         (float*)bufs[5], (float*)bufs[6], (float*)bufs[7], (T*)bufs[8], R, N,
         C, hidden, eps, s);
@@ -443,22 +569,27 @@ static int train_bwd_mlp(int dtype, const void* y, const void* dout,
 }
 
 // bufs: tmp, dproj, dqkv, dattn, mu, rstd, partial scratch (run_bwd_attn);
-// dx (R, N, C) output; tn scratch (run_bwd_attn; may be null).
+// dx (R, N, C) output (fp32 under a shard); tn scratch (run_bwd_attn; may
+// be null). A shard here splits the heads (the GPT-2 layer's).
 template <bool GPT2>
 static int train_bwd_attn(int dtype, const void* x, const void* dy,
                           const void* qkv, const void* const* params,
                           void* const* grads, const void* mask,
                           const int* seeds, const int* thr, const float* inv,
-                          void* const* bufs, int R, int N, int C, int H,
-                          float eps, void* stream) {
+                          const int* shard, void* const* bufs, int R, int N,
+                          int C, int H, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Rates rt = rates_of(seeds, thr, inv, N, C, H);
+  const Shard sh = shard_of(shard);
+  if (sh.on() && !(GPT2 && sh.heads && sh.rank >= 0 && sh.rank < sh.count &&
+                   C % sh.count == 0 && (C / sh.count) % H == 0))
+    return (int)cudaErrorInvalidValue;
+  const Rates rt = rates_of(seeds, thr, inv, N, C, H, sh);
   float* const* gv = reinterpret_cast<float* const*>(grads);
   return by_dtype(dtype, [&](auto tag) {
     typedef typename std::remove_pointer<decltype(tag)>::type T;
     return run_bwd_attn<T, GPT2>(
         (const T*)x, (const T*)dy, (const T*)qkv, params, gv,
-        (const float*)mask, rt, (T*)bufs[0], (T*)bufs[1], (T*)bufs[2],
+        (const float*)mask, rt, sh, (T*)bufs[0], (T*)bufs[1], (T*)bufs[2],
         (float*)bufs[3], (float*)bufs[4], (float*)bufs[5], (float*)bufs[6],
         (float*)bufs[8], (T*)bufs[7], R, N, C, H, eps, s);
   });

@@ -47,6 +47,7 @@ from .blocks import Block, DecoderBlock
 from ..ops import fused_block as FB
 from ..ops import fused_block_train as FT
 from ..ops import fused_seq_block as FS
+from ..ops._common import shard_reason
 
 IMPLS = ("kernel", "plain")
 
@@ -74,11 +75,28 @@ class _BlockStack(nn.Module):
             for dp in self.dpr])
         self.norm = nn.LayerNorm(dim, eps=norm_eps,
                                  elementwise_affine=norm_affine)
+        # parallel.sharding.TensorParallel, when the blocks' MLPs are
+        # sharded over a model group
+        self.tensor_parallel = None
 
     def reset_parameters(self, gen):
         for blk in self.blocks:
             blk.reset_parameters(gen)
         L.init_layer_norm(self.norm)
+
+    def tp_blocks(self, count: int):
+        """The blocks tensor parallelism may shard over ``count`` model
+        ranks (``parallel.sharding.plan_model``): (index, block, why it
+        stays whole or None, the prefixes of the norms whose gradients a
+        shard leaves partial). Their MLP shards; the blocks of rows of up
+        to 8 tokens (the SA-Fusers) run on the kernels' shard mode."""
+        rows = isinstance(self, (CMFuser, ModalTokenCMFuser))
+        for i, blk in enumerate(self.blocks):
+            hidden, C = blk.mlp.mlp[0].weight.shape
+            why = shard_reason(C, self.num_heads, hidden, count,
+                               split_heads=False) if rows \
+                else "its blocks train as modules (not the kernels)"
+            yield i, blk, why, ("norm2.",)
 
     def _train_stack(self, x, mask, impl, rng):
         """The training dispatch: rows of up to 8 tokens through
@@ -90,7 +108,11 @@ class _BlockStack(nn.Module):
         if rng is None and (any(rates) or any(self.dpr)):
             raise ValueError("training with a dropout or drop-path rate > 0 "
                              "needs an RngStream")
+        tp = self.tensor_parallel
         if N > FB.MAX_TOKENS:
+            if tp is not None and any(tp.sharded(b) for b in self.blocks):
+                raise ValueError("tensor parallelism shards the blocks of "
+                                 "rows of up to 8 tokens only")
             for blk in self.blocks:
                 x, _ = blk(x, mask, rng=rng, need_weights=False, impl=impl)
             return self.norm(x), None
@@ -98,14 +120,22 @@ class _BlockStack(nn.Module):
         row0 = 0 if rng is None else rng.row_offset(R)
         for bi, (blk, dp) in enumerate(zip(self.blocks, self.dpr)):
             params = dict(blk.named_parameters())
+            # a sharded block: this model rank's MLP columns (tensor
+            # parallelism), the output summed over the model group
+            shard = tp.shard() if tp is not None and tp.sharded(blk) else None
             if impl == "kernel":
                 x = FT.fused_block_train(
                     x, params, mask, seeds, num_heads=self.num_heads,
                     block_idx=bi, attn_rate=rates[0], drop_rate=rates[1],
-                    dp_rate=dp, eps=self.norm_eps, row0=row0)
+                    dp_rate=dp, eps=self.norm_eps, row0=row0, shard=shard)
+                continue
+            masks = FT.draw_masks(R, N, C, self.num_heads, seeds, bi,
+                                  *rates, dp, device=x.device, row0=row0)
+            if shard is not None:
+                x = FT.fused_block_train_shard_plain(
+                    x, params, mask, masks, num_heads=self.num_heads,
+                    shard=shard, eps=self.norm_eps)
             else:
-                masks = FT.draw_masks(R, N, C, self.num_heads, seeds, bi,
-                                      *rates, dp, device=x.device, row0=row0)
                 x = FT.fused_block_train_plain(
                     x, params, mask, masks, num_heads=self.num_heads,
                     eps=self.norm_eps)
@@ -120,6 +150,12 @@ class _BlockStack(nn.Module):
         ``fused_seq_block``, as the JAX package dispatches them; in
         training mode as ``_train_stack`` dispatches them."""
         check_impl(impl)
+        if self.tensor_parallel is not None and (need_weights
+                                                 or not self.training):
+            raise ValueError("evaluation and the attention weights need "
+                             "whole fuser blocks: gather the model "
+                             "(runner.model_state()) and run it in one "
+                             "process")
         if need_weights:
             weights = []
             for blk in self.blocks:

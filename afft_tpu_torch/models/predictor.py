@@ -42,6 +42,18 @@ microbatch, each training layer at its global index and the microbatch's
 first global row, so the masks are the unpipelined pass's. A multi-step eval
 rollout re-runs the sequence through the stages (the KV cache holds every
 layer on one process), and the attention weights are refused.
+
+Tensor parallelism (``parallel.sharding.tensor_parallel`` sets
+``tensor_parallel``): the sharded layers hold this model rank's heads and
+MLP columns and train through ``fused_gpt2_block_train``'s shard mode, the
+layer's output summed over the model group. With ``seq_ctx``
+(``parallel.sharding.SeqCtx``, afft_tpu/models/predictor.py:135-147) the
+residual stream between the layers is this rank's T-shard: the embedded
+input is split over T before the first layer and gathered after the last,
+and each layer keeps its input and y for the backward as T-shards.
+Evaluation, the attention weights and the KV-cache rollout need whole
+layers and are refused under tensor parallelism; sequence parallelism and
+pipelining exclude each other, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,7 +69,9 @@ from .fusion import check_impl
 from ..ops import attention as FA
 from ..ops import fused_gpt2 as FG
 from ..ops import fused_gpt2_train as FGT
+from ..ops._common import shard_reason
 from ..parallel import pipeline as P
+from ..parallel import sharding as SH
 
 LN_EPS = 1e-5
 
@@ -130,6 +144,19 @@ class BaseFuturePredictor(nn.Module):
         self.gpt_model = GPT2Model(inter_dim, n_layer, self.n_inner,
                                    n_positions)
         self.pipeline_ctx = None
+        self.tensor_parallel = None
+        self.seq_ctx = None
+
+    def tp_blocks(self, count: int):
+        """The layers tensor parallelism may shard over ``count`` model
+        ranks (``parallel.sharding.plan_model``): (index, layer, why it
+        stays whole or None, the prefixes of the norms whose gradients a
+        shard leaves partial) for each layer this process holds."""
+        C = self.gpt_model.wpe.weight.shape[1]
+        why = shard_reason(C, self.n_head, self.n_inner, count)
+        for i, blk in enumerate(self.gpt_model.h):
+            if hasattr(blk, "attn"):    # not another pipeline stage's layer
+                yield i, blk, why, ("ln_1.", "ln_2.")
 
     def pipeline(self, ctx):
         """Run the layers over ``ctx``'s stages (``parallel.pipeline``):
@@ -222,6 +249,8 @@ class BaseFuturePredictor(nn.Module):
         rows, parts = x.shape[0], 1
         if self.pipeline_ctx is not None:
             parts = self.pipeline_ctx.microbatches
+        tp = self.tensor_parallel
+        sp = self._seq_parallel(x.shape[1])
 
         def stage(h, part):
             """This process's layers on ``part`` of ``parts`` of the
@@ -230,28 +259,60 @@ class BaseFuturePredictor(nn.Module):
                 else rng.row_offset(rows, part, parts)
             for li, blk in self._layers():
                 params = dict(blk.named_parameters())
+                shard = tp.shard(sp) if tp is not None and tp.sharded(blk) \
+                    else None
                 if impl == "kernel":
                     h = FGT.fused_gpt2_block_train(
                         h, params, mask, seeds, num_heads=self.n_head,
                         layer_idx=li, attn_rate=rates[0],
-                        resid_rate=rates[1], eps=LN_EPS, row0=row0)
+                        resid_rate=rates[1], eps=LN_EPS, row0=row0,
+                        shard=shard)
+                    continue
+                B, T, C = h.shape
+                masks = FGT.draw_masks_gpt2(
+                    B, T * (shard.count if sp else 1), C, self.n_head,
+                    seeds, li, *rates, device=h.device, row0=row0)
+                if shard is not None:
+                    h = FGT.fused_gpt2_block_train_shard_plain(
+                        h, params, mask, masks, num_heads=self.n_head,
+                        shard=shard, eps=LN_EPS)
                 else:
-                    masks = FGT.draw_masks_gpt2(
-                        *h.shape, self.n_head, seeds, li, *rates,
-                        device=h.device, row0=row0)
                     h = FGT.fused_gpt2_block_train_plain(
                         h, params, mask, masks, num_heads=self.n_head,
                         eps=LN_EPS)
             return h
+        if sp:
+            group = self.seq_ctx.group
+            return SH.join_seq(stage(SH.split_seq(x, group), 0), group)
         if self.pipeline_ctx is None:
             return stage(x, 0)
         return P.run_stack(self.pipeline_ctx, x, stage, [
             p for _, blk in self._layers() for p in blk.parameters()])
 
+    def _seq_parallel(self, T: int) -> bool:
+        """Whether the training layers run T-sharded (``seq_ctx``): every
+        layer sharded and T dividing over the model ranks."""
+        if self.seq_ctx is None:
+            return False
+        if self.pipeline_ctx is not None:
+            raise ValueError("seq_ctx and pipeline_ctx are mutually "
+                             "exclusive")
+        tp = self.tensor_parallel
+        if tp is None or not all(tp.sharded(blk) for _, blk in self._layers()):
+            raise ValueError("sequence parallelism needs every predictor "
+                             "layer tensor-parallel")
+        return self.seq_ctx.applies(T)
+
     def forward_hidden(self, embeds, *, collect_attn=False, impl="kernel",
                        rng=None):
         """One full causal pass: embeds (B, T, C) -> (last hidden (B, T, C),
         weights (B, n_layer, H, T, T) or None)."""
+        if self.tensor_parallel is not None and (collect_attn
+                                                 or not self.training):
+            raise ValueError("evaluation and the attention weights need "
+                             "whole predictor layers: gather the model "
+                             "(runner.model_state()) and run it in one "
+                             "process")
         T = embeds.shape[1]
         x = embeds + self.gpt_model.wpe.weight[:T]
         mask = L.neg_inf_causal_mask(T, device=x.device)
@@ -360,7 +421,8 @@ class BaseFuturePredictor(nn.Module):
         step (dropout is drawn per pass), as the JAX package does."""
         check_impl(impl)
         if output_len > 1 and not self.output_attentions \
-                and not self.training and self.pipeline_ctx is None:
+                and not self.training and self.pipeline_ctx is None \
+                and self.tensor_parallel is None:
             return self._apply_kv_cache(feats, output_len, impl)
         return self._apply_full(feats, output_len,
                                 collect_attn=self.output_attentions,

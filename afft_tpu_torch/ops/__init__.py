@@ -51,7 +51,13 @@ def launch_counts() -> dict:
     return out
 
 
+def tp_launch_counts() -> dict:
+    """The training entries' launches in shard mode (tensor parallelism)
+    since the last reset; each is in ``launch_counts`` too."""
+    return dict(_fused_block_train.TP_LAUNCHES)
+
+
 def reset_launches() -> None:
-    for counter in _COUNTERS:
+    for counter in _COUNTERS + (_fused_block_train.TP_LAUNCHES,):
         for name in counter:
             counter[name] = 0

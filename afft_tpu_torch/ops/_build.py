@@ -44,12 +44,13 @@ SIGNATURES = {
     "afft_fused_seq_block": [_I, _P, _PP] + [_P] * 6 + [_I] * 5 + [_F, _P],
     "afft_fused_decoder_block": [_I, _P, _P, _PP] + [_P] * 7 + [_I] * 5
                                 + [_F, _P],
-    "afft_block_train_fwd": [_I, _P, _PP, _P, _IP, _IP, _FP, _PP] + [_I] * 5
-                            + [_F, _P],
-    "afft_block_train_bwd_mlp": [_I, _P, _P, _P, _PP, _PP, _IP, _IP, _FP, _PP]
-                                + [_I] * 4 + [_F, _P],
+    # the training entries' shard argument (_IP after inv) may be null
+    "afft_block_train_fwd": [_I, _P, _PP, _P, _IP, _IP, _FP, _IP, _PP]
+                            + [_I] * 5 + [_F, _P],
+    "afft_block_train_bwd_mlp": [_I, _P, _P, _P, _PP, _PP, _IP, _IP, _FP,
+                                 _IP, _PP] + [_I] * 4 + [_F, _P],
     "afft_block_train_bwd_attn": [_I, _P, _P, _P, _PP, _PP, _P, _IP, _IP, _FP,
-                                  _PP] + [_I] * 4 + [_F, _P],
+                                  _IP, _PP] + [_I] * 4 + [_F, _P],
     "afft_draw_masks": [_IP, _IP, _FP, _PP] + [_I] * 4 + [_P],
     "afft_attention_drop": [_I, _I, _P, _P, _P, _IP, _IP, _FP] + [_I] * 4
                            + [_P],

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +69,62 @@ def check_heads(name: str, C: int, num_heads: int, hidden=None) -> int:
         raise ValueError(f"{name}: needs H*hd == C, C % 8 == 0 and hidden % "
                          f"8 == 0 (C={C}, H={num_heads}, hidden={hidden})")
     return hd
+
+
+class Shard(NamedTuple):
+    """A training layer's tensor-parallel shard: model rank ``rank`` of
+    ``count``; ``comm`` the model group's collectives, which the shard-mode
+    layers place between their launches (``parallel.sharding.ModelComm``:
+    ``all_reduce``, ``gather_tokens`` and ``scatter_tokens`` for the
+    kernels, Megatron's differentiable ``f`` / ``g`` and their sequence
+    forms ``f_seq`` / ``g_seq`` for the plain versions); ``sp``: the layer's
+    input and output are this rank's T-shard."""
+    rank: int
+    count: int
+    comm: object = None
+    sp: bool = False
+
+    def array(self, part: int, heads: bool):
+        """The entries' ``shard`` argument {rank, count, part, heads}."""
+        return (ctypes.c_int * 4)(self.rank, self.count, int(part),
+                                  int(heads))
+
+
+def shard_reason(C: int, heads: int, hidden: int, count: int,
+                 split_heads: bool = True) -> Optional[str]:
+    """Why a layer of width C, ``heads`` heads and ``hidden`` MLP columns
+    cannot run sharded over ``count`` model ranks (None: it can):
+    ``check_heads``'s rule on the local widths, with the heads
+    (``split_heads``) and the MLP columns split evenly. Stricter than the
+    JAX package's placement, which shards any dimension that divides: a
+    layer whose C / tp or hidden / tp is not a multiple of 8 stays whole
+    here."""
+    if hidden % count or (hidden // count) % 8:
+        return f"hidden / tp = {hidden} / {count} is not a multiple of 8"
+    if split_heads:
+        if heads % count:
+            return f"the {heads} heads do not divide over tp = {count}"
+        if C % count or (C // count) % 8:
+            return f"C / tp = {C} / {count} is not a multiple of 8"
+    return None
+
+
+def check_shard(name: str, C: int, heads: int, hidden: int, count: int,
+                split_heads: bool = True) -> None:
+    """Raise where ``shard_reason`` refuses the shard (a CUDA call)."""
+    reason = shard_reason(C, heads, hidden, count, split_heads)
+    if reason is not None:
+        raise ValueError(f"{name}: no shard mode for this layer: {reason}")
+
+
+def lead_only(t, rank: int):
+    """``t`` on model rank 0; elsewhere zeros whose gradient is ``t``'s, so
+    that a replicated tensor added into a partial sum on rank 0 only (a
+    row-parallel bias) gets its whole gradient on every rank, as the
+    kernels compute it."""
+    if t is None or rank == 0:
+        return t
+    return t - t.detach()
 
 
 def check_shape(name: str, key: str, t, shape) -> None:

@@ -63,13 +63,22 @@ import torch
 import torch.nn.functional as F
 
 from ._common import (DTYPE_CODES, add_bias, check_heads, check_operands,
-                      launch, layer_norm32, mask_operand, matmul32, ptr,
-                      ptr_array, tn_slices)
+                      check_shard, launch, layer_norm32, lead_only,
+                      mask_operand, matmul32, ptr, ptr_array, tn_slices)
 from .fused_block import MAX_TOKENS, _unpack, block_operands
 
 LAUNCHES = {"fused_block_train_fwd": 0, "fused_block_train_bwd_mlp": 0,
             "fused_block_train_bwd_attn": 0, "draw_masks": 0,
             "attention_drop": 0, "attention_drop_bwd": 0}
+
+# the launches in shard mode (tensor parallelism) of both training layers'
+# entries, by entry; each is counted in its layer's LAUNCHES too
+TP_LAUNCHES = {f"{name}_{entry}": 0
+               for name in ("fused_block_train", "fused_gpt2_train")
+               for entry in ("fwd", "bwd_mlp", "bwd_attn")}
+
+# csrc/train_block.cuh Part: the forward's halves
+PART_BOTH, PART_ATTN, PART_MLP = 0, 1, 2
 
 # the five mask sites (pallas_block_train.py:56), in the order of every mask
 # tuple: attention, proj, drop-path 1, MLP, drop-path 2; and the rate each
@@ -387,6 +396,45 @@ def mlp_half_train_plain(y, params, masks, dt, n_tokens: int, *,
     return (y + _token_rows(dp2, R, n_tokens) * (h2 * mmlp)).to(dt), pre1
 
 
+def mlp_half_shard_plain(y, params, masks, dt, n_tokens: int, rank: int, *,
+                         eps: float = 1e-6):
+    """``mlp_half_train_plain`` on model rank ``rank``'s shard of the MLP
+    (fc1's rows, fc2's columns: ``parallel.sharding``): the fp32 partial sum
+    (R * N, C) of fc2 through the masks, the residual y and fc2's bias added
+    on rank 0 only. Summed over the ranks and rounded it is the whole MLP
+    half's output. The bias's gradient is the whole one on every rank
+    (``lead_only``), as the kernel computes it."""
+    ln2g, ln2b, wfc1, bfc1, wfc2, bfc2 = _unpack(params)[6:]
+    mmlp, dp2 = masks[3:]
+    R = y.shape[0] // n_tokens
+    g = layer_norm32(y, ln2g, ln2b, eps).to(dt)
+    h1 = F.gelu(add_bias(matmul32(g, wfc1, False), bfc1)).to(dt)
+    h2 = add_bias(matmul32(h1, wfc2, False), lead_only(bfc2, rank))
+    part = _token_rows(dp2, R, n_tokens) * (h2 * mmlp)
+    return y + part if rank == 0 else part
+
+
+def fused_block_train_shard_plain(x, params, mask, masks, *, num_heads: int,
+                                  shard, eps: float = 1e-6):
+    """The training block on model rank ``shard.rank``'s shard in
+    differentiable PyTorch ops: the attention half whole, the MLP half's
+    partial sum (``mlp_half_shard_plain``) summed over the model group
+    (``shard.comm.g``; Megatron's g) and rounded. The input reaches the MLP
+    half through ``shard.comm.f`` (Megatron's f: the gradient summed over
+    the group). ``attn_half_train_plain`` and ``mlp_half_shard_plain`` give
+    the partial sum without a process group."""
+    R, N, C = x.shape
+    dt = x.dtype
+    if shard.sp:
+        raise ValueError("fused_block_train: sequence parallelism covers "
+                         "the GPT-2 predictor only")
+    y, _ = attn_half_train_plain(x, params, mask, masks,
+                                 num_heads=num_heads, eps=eps)
+    y = shard.comm.f(y)
+    part = mlp_half_shard_plain(y, params, masks, dt, N, shard.rank, eps=eps)
+    return shard.comm.g(part).to(dt).reshape(R, N, C)
+
+
 def fused_block_train_plain(x, params, mask, masks, *, num_heads: int,
                             eps: float = 1e-6, return_residuals=False):
     """The training block in differentiable PyTorch ops with the kernel's
@@ -441,21 +489,30 @@ class Layer(NamedTuple):
 FUSER = Layer("fused_block_train", "block_train", LAUNCHES, True)
 
 
-def block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg):
+def _count(layer, entry, shard):
+    layer.counts[f"{layer.name}_{entry}"] += 1
+    if shard is not None:
+        TP_LAUNCHES[f"{layer.name}_{entry}"] += 1
+
+
+def block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg, shard=None):
     """The MLP backward (kernel 8, or the layer's of ``cfg``) on CUDA
     tensors: (stashed y, dout, stashed pre1) -> dy (R * N, C); writes the
-    fc1, fc2 and norm2 entries of ``grads``."""
+    fc1, fc2 and norm2 entries of ``grads``. With ``shard`` (a ``Shard``)
+    the entry's shard mode: dy is this rank's fp32 partial sum and the norm2
+    gradients partial sums."""
     num_heads, hidden, eps, arrays, layer = cfg
     R, N, C = x.shape
     tmp, dh2, dg, mu, rstd, partial = _bwd_scratch(x, C, hidden)
     h1, dpre1 = _new(x, R * N, hidden), _new(x, R * N, hidden)
-    dy = _new(x, R * N, C)
+    dy = _new(x, R * N, C, dtype=None if shard is None else torch.float32)
     launch(layer.name, f"afft_{layer.entry}_bwd_mlp",
            DTYPE_CODES[x.dtype], ptr(y), ptr(dout), ptr(pre1),
            ptr_array(tensors), ptr_array(grads), *arrays,
+           None if shard is None else shard.array(PART_BOTH, False),
            ptr_array([tmp, dh2, h1, dpre1, dg, mu, rstd, partial, dy]),
            R, N, C, hidden, eps, device=x.device)
-    layer.counts[f"{layer.name}_bwd_mlp"] += 1
+    _count(layer, "bwd_mlp", shard)
     return dy
 
 
@@ -471,23 +528,29 @@ def tn_scratch(x, shapes, M):
     return _new(x, max(sizes), dtype=torch.float32) if sizes else None
 
 
-def block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads, cfg):
+def block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads, cfg,
+                         shard=None):
     """The attention backward (kernel 9, or the layer's of ``cfg``) on
     CUDA tensors: (x, dy, stashed qkv) -> dx (R, N, C); writes the qkv, proj
-    and norm1 entries of ``grads``."""
+    and norm1 entries of ``grads``. With ``shard`` the entry's shard mode
+    over the heads (the GPT-2 layer's; ``cfg``'s heads are the local ones):
+    dx is this rank's fp32 partial sum and the norm1 gradients partial
+    sums."""
     num_heads, hidden, eps, arrays, layer = cfg
     R, N, C = x.shape
+    A = qkv.shape[1] // 3
     tmp, dproj, dattn, mu, rstd, partial = _bwd_scratch(x, C, hidden)
-    dqkv = _new(x, R * N, 3 * C)
-    dx = _new(x, R, N, C)
-    # dWproj (C, C) and dWqkv (3C, C) or (C, 3C)
-    tn = tn_scratch(x, ((C, C), (3 * C, C), (C, 3 * C)), R * N)
+    dqkv = _new(x, R * N, 3 * A)
+    dx = _new(x, R, N, C, dtype=None if shard is None else torch.float32)
+    # dWproj (C, A) or (A, C) and dWqkv (3A, C) or (C, 3A)
+    tn = tn_scratch(x, ((C, A), (A, C), (3 * A, C), (C, 3 * A)), R * N)
     launch(layer.name, f"afft_{layer.entry}_bwd_attn",
            DTYPE_CODES[x.dtype], ptr(x), ptr(dy), ptr(qkv),
            ptr_array(tensors), ptr_array(grads), ptr(mask32), *arrays,
+           None if shard is None else shard.array(PART_BOTH, True),
            ptr_array([tmp, dproj, dqkv, dattn, mu, rstd, partial, dx, tn]),
            R, N, C, num_heads, eps, device=x.device)
-    layer.counts[f"{layer.name}_bwd_attn"] += 1
+    _count(layer, "bwd_attn", shard)
     return dx
 
 
@@ -509,8 +572,8 @@ class BlockTrainFunction(torch.autograd.Function):
             if layer.fp32_stream and x.dtype != torch.float32 else None
         launch(layer.name, f"afft_{layer.entry}_fwd",
                DTYPE_CODES[x.dtype], ptr(x), ptr_array(tensors), ptr(mask32),
-               *arrays, ptr_array([tmp, y32, h1, out, y, qkv, pre1]), R, N,
-               C, num_heads, hidden, eps, device=x.device)
+               *arrays, None, ptr_array([tmp, y32, h1, out, y, qkv, pre1]),
+               R, N, C, num_heads, hidden, eps, device=x.device)
         layer.counts[f"{layer.name}_fwd"] += 1
         ctx.save_for_backward(x, y, qkv, pre1, mask32, *tensors)
         ctx.cfg = cfg
@@ -529,15 +592,145 @@ class BlockTrainFunction(torch.autograd.Function):
                   for g, t in zip(grads, tensors)])
 
 
+def train_fwd_shard(x, mask32, cfg, tensors, shard, part, y=None):
+    """One forward launch of a layer's entry in shard mode on CUDA tensors
+    (``cfg`` as ``BlockTrainFunction``'s, this shard's heads and hidden
+    width): ``part`` PART_ATTN (the GPT-2 attention half: the fp32 partial
+    sum of y and the local qkv), PART_MLP (the GPT-2 MLP half on the summed,
+    rounded ``y``: the partial output and pre1) or PART_BOTH (the fuser
+    block, MLP split: the partial output, y, qkv and pre1). Returns {"part":
+    fp32 (R * N, C), and the stashes it writes}."""
+    num_heads, hidden, eps, arrays, layer = cfg
+    R, N, C = x.shape
+    M, dt = R * N, x.dtype
+    gpt2 = not layer.fp32_stream
+    A = C // shard.count if gpt2 else C
+    out = {"part": _new(x, M, C, dtype=torch.float32)}
+    tmp, h1, qkv, pre1, y32 = _new(x, M, C), None, None, None, None
+    if part != PART_MLP:
+        out["qkv"] = qkv = _new(x, M, 3 * A)
+    if part != PART_ATTN:
+        h1 = _new(x, M, hidden)
+        out["pre1"] = pre1 = _new(x, M, hidden)
+    if part == PART_BOTH:
+        out["y"] = y = _new(x, M, C)
+        if dt != torch.float32:
+            y32 = _new(x, M, C, dtype=torch.float32)
+    launch(layer.name, f"afft_{layer.entry}_fwd", DTYPE_CODES[dt], ptr(x),
+           ptr_array(tensors), ptr(mask32), *arrays, shard.array(part, gpt2),
+           ptr_array([tmp, y32, h1, out["part"], y, qkv, pre1]), R, N, C,
+           num_heads, hidden, eps, device=x.device)
+    _count(layer, "fwd", shard)
+    return out
+
+
+def _own_tokens(t, shard):
+    """This rank's T-shard of a replicated (R, N, C)."""
+    n = t.shape[1] // shard.count
+    return t[:, shard.rank * n:(shard.rank + 1) * n].contiguous()
+
+
+class ShardTrainFunction(torch.autograd.Function):
+    """Both training layers in the entries' shard mode (tensor parallelism,
+    ``csrc/train_block.cuh``) under autograd, the collectives over
+    the model group between the launches (``shard.comm``); ``cfg`` as
+    ``BlockTrainFunction``'s with this shard's heads and hidden width.
+
+    - GPT-2 layer (heads and MLP split): forward: the attention half's
+      partial y, summed over the group and rounded, then the MLP half's
+      partial output, summed and rounded; backward: the MLP entry's partial
+      dy, summed and rounded, then the attention entry's partial dx, summed
+      and rounded.
+    - Fuser block (MLP split): forward: the whole entry, its partial output
+      summed and rounded; backward: the MLP entry's partial dy, summed and
+      rounded, then the attention entry whole.
+
+    Megatron's f and g are these sums: each is g in the forward (the
+    row-parallel output's sum) and f's all-reduce in the backward (a sum of
+    partial input gradients). Under sequence parallelism (``shard.sp``) the
+    layer's input and output are this rank's T-shard: the input is
+    all-gathered over T and the output reduce-scattered over T (the
+    backward the other way round); between the halves the T-shards would
+    be gathered again at once, so that sum stays an all-reduce. The layer
+    keeps its input and y as T-shards for the backward, which gathers them
+    again. The norm affine gradients left partial are summed by the caller
+    (the runner, over the model group)."""
+
+    @staticmethod
+    def forward(ctx, x, mask32, cfg, shard, *tensors):
+        layer, comm = cfg[4], shard.comm
+        x_in = x
+        if shard.sp:
+            x = comm.gather_tokens(x).contiguous()
+        R, N, C = x.shape
+        if not layer.fp32_stream:
+            # the GPT-2 layer: the halves, y summed between them
+            first = train_fwd_shard(x, mask32, cfg, tensors, shard,
+                                    PART_ATTN)
+            qkv = first["qkv"]
+            y = comm.all_reduce(first.pop("part")).to(x.dtype)
+            second = train_fwd_shard(x, mask32, cfg, tensors, shard,
+                                     PART_MLP, y)
+            part, pre1 = second["part"], second["pre1"]
+        else:
+            run = train_fwd_shard(x, mask32, cfg, tensors, shard, PART_BOTH)
+            part, y, qkv, pre1 = (run[k] for k in ("part", "y", "qkv",
+                                                   "pre1"))
+        out = part.reshape(R, N, C)
+        if shard.sp:
+            out = comm.scatter_tokens(out)
+            # the stashes of C channels a token kept as T-shards
+            x, y = x_in, _own_tokens(y.reshape(R, N, C), shard)
+        else:
+            out = comm.all_reduce(out)
+        ctx.save_for_backward(x, y, qkv, pre1, mask32, *tensors)
+        ctx.cfg, ctx.shard = cfg, shard
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, y, qkv, pre1, mask32, *tensors = ctx.saved_tensors
+        shard, comm = ctx.shard, ctx.shard.comm
+        gpt2 = not ctx.cfg[4].fp32_stream
+        dout = dout.to(x.dtype)
+        if shard.sp:
+            dout = comm.gather_tokens(dout)
+            x = comm.gather_tokens(x).contiguous()
+            y = comm.gather_tokens(y).reshape(
+                -1, x.shape[-1]).contiguous()
+        dout = dout.contiguous()
+        grads = new_grads(tensors)
+        dy = block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, ctx.cfg,
+                                 shard)
+        dy = comm.all_reduce(dy).to(x.dtype)
+        if gpt2:
+            dx = block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads,
+                                      ctx.cfg, shard)
+            dx = comm.scatter_tokens(dx) if shard.sp \
+                else comm.all_reduce(dx)
+            dx = dx.to(x.dtype)
+        else:
+            dx = block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads,
+                                      ctx.cfg)
+        return (dx, None, None, None,
+                *[None if g is None else g.to(t.dtype)
+                  for g, t in zip(grads, tensors)])
+
+
 def fused_block_train(x, params, mask, seeds, *, num_heads: int,
                       block_idx: int = 0, attn_rate: float = 0.0,
                       drop_rate: float = 0.0, dp_rate: float = 0.0,
-                      eps: float = 1e-6, row0: int = 0):
+                      eps: float = 1e-6, row0: int = 0, shard=None):
     """One fuser block in training mode on x (R, N, C); returns (R, N, C) in
     x.dtype, differentiable in x and the parameters. ``seeds`` are the
     step's two seed words (ints in [0, 2^31)), ``block_idx`` the block's
     position in its stack, ``row0`` the global batch's row that x's first
     row is (a data-parallel step's rank offset; its masks follow from it).
+
+    ``shard`` (an ``ops._common.Shard``): ``params`` hold model rank
+    ``shard.rank``'s shard of the MLP (``parallel.sharding.shard_state``);
+    the call is the whole block's on every rank of the model group, the
+    norm2 gradients partial sums.
 
     CPU tensors take the plain version on masks from ``draw_masks_plain``;
     CUDA tensors launch the kernels."""
@@ -548,6 +741,10 @@ def fused_block_train(x, params, mask, seeds, *, num_heads: int,
     if x.device.type == "cpu":
         masks = draw_masks_plain(R, N, C, num_heads, seeds, block_idx,
                                  attn_rate, drop_rate, dp_rate, row0=row0)
+        if shard is not None:
+            return fused_block_train_shard_plain(
+                x, params, mask, masks, num_heads=num_heads, shard=shard,
+                eps=eps)
         return fused_block_train_plain(x, params, mask, masks,
                                        num_heads=num_heads, eps=eps)
     if x.device.type != "cuda":
@@ -563,6 +760,15 @@ def fused_block_train(x, params, mask, seeds, *, num_heads: int,
         return torch.empty_like(x)
     arrays = rate_arrays(seeds, block_idx, attn_rate, drop_rate, dp_rate,
                          row0)
+    if shard is not None:
+        if shard.sp:
+            raise ValueError(f"{name}: sequence parallelism covers the GPT-2 "
+                             "predictor only")
+        check_shard(name, C, num_heads, hidden * shard.count,
+                       shard.count, split_heads=False)
+        return ShardTrainFunction.apply(
+            x, mask32, (num_heads, hidden, eps, arrays, FUSER), shard,
+            *tensors)
     return BlockTrainFunction.apply(x, mask32,
                                     (num_heads, hidden, eps, arrays, FUSER),
                                     *tensors)

@@ -54,11 +54,12 @@ import torch
 import torch.nn.functional as F
 
 from ._common import (add_bias, check_heads, check_operands, check_shape,
-                      launch, layer_norm32, mask_operand, matmul32,
-                      ptr_array)
+                      check_shard, launch, layer_norm32, lead_only,
+                      mask_operand, matmul32, ptr_array)
 from .fused_block_train import (BlockTrainFunction, Layer,
-                                attention_drop_plain, check_row0,
-                                check_seeds, masks_plain, rate_arrays)
+                                ShardTrainFunction, attention_drop_plain,
+                                check_row0, check_seeds, masks_plain,
+                                rate_arrays)
 from .fused_block_train import rates_operands as _rates_operands
 from .fused_gpt2 import MAX_TOKENS
 
@@ -182,16 +183,97 @@ def fused_gpt2_block_train_plain(x, params, mask, masks, *, num_heads: int,
     return out
 
 
+# -- the shard mode's plain version (tensor parallelism) ----------------------
+
+def gpt2_attn_half_shard_plain(x, params, mask, masks, *, num_heads: int,
+                               rank: int, eps: float = 1e-5):
+    """``gpt2_attn_half_train_plain`` on model rank ``rank``'s shard
+    (``parallel.sharding``: c_attn's columns [q | k | v] of heads rank *
+    H_l .. (rank + 1) * H_l - 1, c_proj's rows of them; ``num_heads`` the
+    layer's H, ``masks`` the whole layer's): (the fp32 partial sum (B * T,
+    C) of y, the local qkv as the forward rounds it). The residual x and
+    c_proj's bias are added on rank 0 only; summed over the ranks and
+    rounded it is the whole half's y."""
+    B, T, C = x.shape
+    dt = x.dtype
+    g = params.get
+    A = params["attn.c_proj.weight"].shape[0]
+    local = num_heads * A // C
+    x32 = x.reshape(B * T, C).float()
+    xn = layer_norm32(x32, g("ln_1.weight"), g("ln_1.bias"), eps).to(dt)
+    qkv = add_bias(matmul32(xn, params["attn.c_attn.weight"], True),
+                   g("attn.c_attn.bias")).to(dt)
+    mattn = masks[0][:, rank * local:(rank + 1) * local]
+    attn = attention_drop_plain(qkv, mask, mattn, T, local,
+                                round_to=dt).to(dt)
+    proj = add_bias(matmul32(attn, params["attn.c_proj.weight"], True),
+                    lead_only(g("attn.c_proj.bias"), rank))
+    part = proj * masks[1]
+    return (x32 + part if rank == 0 else part), qkv
+
+
+def gpt2_mlp_half_shard_plain(y, params, masks, *, rank: int,
+                              eps: float = 1e-5):
+    """``gpt2_mlp_half_train_plain`` on rank ``rank``'s MLP columns: the
+    fp32 partial sum (B * T, C) of the half's output (y and the bias of
+    mlp.c_proj on rank 0 only)."""
+    dt = y.dtype
+    g = params.get
+    y32 = y.float()
+    yn = layer_norm32(y32, g("ln_2.weight"), g("ln_2.bias"), eps).to(dt)
+    pre1 = add_bias(matmul32(yn, params["mlp.c_fc.weight"], True),
+                    g("mlp.c_fc.bias"))
+    h1 = F.gelu(pre1, approximate="tanh").to(dt)
+    h2 = add_bias(matmul32(h1, params["mlp.c_proj.weight"], True),
+                  lead_only(g("mlp.c_proj.bias"), rank))
+    part = h2 * masks[2]
+    return y32 + part if rank == 0 else part
+
+
+def fused_gpt2_block_train_shard_plain(x, params, mask, masks, *,
+                                       num_heads: int, shard,
+                                       eps: float = 1e-5):
+    """The training layer on model rank ``shard.rank``'s shard in
+    differentiable PyTorch ops, the plain version of the entries' shard mode
+    (``ShardTrainFunction``): Megatron's f (``shard.comm.f``: identity,
+    the gradient summed over the model group) before each half, its partial
+    sum, g (``shard.comm.g``: the sum over the group, identity backward)
+    and one rounding after it. Under sequence parallelism
+    (``shard.sp``) x and the result are T-shards: the first f is an
+    all-gather over T (a reduce-scatter backward) and the last g a
+    reduce-scatter over T (an all-gather backward). ``masks`` are the whole
+    layer's (``draw_masks_gpt2``). The two halves alone
+    (``gpt2_attn_half_shard_plain``, ``gpt2_mlp_half_shard_plain``) give
+    the partial sums without a process group."""
+    B, T, C = x.shape
+    dt = x.dtype
+    comm = shard.comm
+    x = comm.f_seq(x) if shard.sp else comm.f(x)
+    T = x.shape[1]
+    part, _ = gpt2_attn_half_shard_plain(x, params, mask, masks,
+                                         num_heads=num_heads,
+                                         rank=shard.rank, eps=eps)
+    y = comm.f(comm.g(part).to(dt))
+    part = gpt2_mlp_half_shard_plain(y, params, masks, rank=shard.rank,
+                                     eps=eps).reshape(B, T, C)
+    out = comm.g_seq(part) if shard.sp else comm.g(part)
+    return out.to(dt)
+
+
 # -- the kernels under autograd -----------------------------------------------
 
-def gpt2_operands(name, x, params, num_heads):
-    """Check a layer's tensors against x (B, T, C) for a CUDA launch;
-    returns (the twelve tensors in the kernels' order, hidden)."""
+def gpt2_operands(name, x, params, num_heads, count: int = 1):
+    """Check a layer's tensors against x (B, T, C) for a CUDA launch
+    (``count`` > 1: a shard of ``num_heads`` local heads, of width A = C /
+    count); returns (the twelve tensors in the kernels' order, hidden)."""
     C = x.shape[-1]
+    A = C // count
     tensors = [params[k] if k in _WEIGHTS else params.get(k) for k in KEYS]
     hidden = tensors[8].shape[-1]
-    check_heads(name, C, num_heads, hidden)
-    shapes = ((C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,),
+    if count > 1:
+        check_shard(name, C, num_heads * count, hidden * count, count)
+    check_heads(name, A, num_heads, hidden)
+    shapes = ((C,), (C,), (C, 3 * A), (3 * A,), (A, C), (C,), (C,), (C,),
               (C, hidden), (hidden,), (hidden, C), (C,))
     for key, t, shape in zip(KEYS, tensors, shapes):
         check_shape(name, key, t, shape)
@@ -205,11 +287,17 @@ def gpt2_operands(name, x, params, num_heads):
 def fused_gpt2_block_train(x, params, mask, seeds, *, num_heads: int,
                            layer_idx: int = 0, attn_rate: float = 0.0,
                            resid_rate: float = 0.0, eps: float = 1e-5,
-                           row0: int = 0):
+                           row0: int = 0, shard=None):
     """One GPT-2 layer in training mode on x (B, T, C); returns (B, T, C) in
     x.dtype, differentiable in x and the parameters. ``seeds`` are two
     ints in [0, 2^31), ``layer_idx`` the layer's position in its stack,
     ``row0`` the global batch's row that x's first row is.
+
+    ``shard`` (an ``ops._common.Shard``): ``params`` hold model rank
+    ``shard.rank``'s shard (``parallel.sharding.shard_state``; ``num_heads``
+    stays the layer's H), the call is the whole layer's on every rank of
+    the model group, and the ln_1 / ln_2 gradients are partial sums. Under
+    ``shard.sp`` x and the result are this rank's T-shard (B, T / count, C).
 
     CPU tensors take the plain version on masks from
     ``draw_masks_gpt2_plain``; CUDA tensors launch the kernels."""
@@ -217,9 +305,15 @@ def fused_gpt2_block_train(x, params, mask, seeds, *, num_heads: int,
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (B, T, C), got {tuple(x.shape)}")
     B, T, C = x.shape
+    if shard is not None and shard.sp:
+        T *= shard.count
     if x.device.type == "cpu":
         masks = draw_masks_gpt2_plain(B, T, C, num_heads, seeds, layer_idx,
                                       attn_rate, resid_rate, row0=row0)
+        if shard is not None:
+            return fused_gpt2_block_train_shard_plain(
+                x, params, mask, masks, num_heads=num_heads, shard=shard,
+                eps=eps)
         return fused_gpt2_block_train_plain(x, params, mask, masks,
                                             num_heads=num_heads, eps=eps)
     if x.device.type != "cuda":
@@ -228,11 +322,16 @@ def fused_gpt2_block_train(x, params, mask, seeds, *, num_heads: int,
         raise ValueError(f"{name}: T={T}, the kernel takes 1..32 tokens")
     if not x.is_contiguous():
         x = x.contiguous()
-    tensors, hidden = gpt2_operands(name, x, params, num_heads)
+    count = 1 if shard is None else shard.count
+    local = num_heads // count
+    tensors, hidden = gpt2_operands(name, x, params, local, count)
     mask32 = mask_operand(name, mask, T, x.device)
     if B == 0:
         return torch.empty_like(x)
     arrays = rate_arrays(seeds, layer_idx, attn_rate, resid_rate, 0.0, row0)
+    if shard is not None:
+        return ShardTrainFunction.apply(
+            x, mask32, (local, hidden, eps, arrays, GPT2), shard, *tensors)
     return BlockTrainFunction.apply(x, mask32,
                                     (num_heads, hidden, eps, arrays, GPT2),
                                     *tensors)

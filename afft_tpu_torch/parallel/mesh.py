@@ -28,6 +28,13 @@ shards; reference run.py:42-44, common/utils.py:148-192):
   ``recv``, ``broadcast``). The runner holds its grid (``grid``) and
   passes its data group to every reduction it makes; without pipelining
   the data group is the world.
+- Tensor parallelism adds a model axis, innermost (the counterpart of
+  afft_tpu/parallel/sharding.py:49-67 ``make_mesh_2d`` / ``make_mesh_3d``,
+  which reshape the devices to (data, pipe, model)): rank r = (d · S + s) ·
+  tp + m. The model group (the tp ranks of one replica's stage) carries the
+  partial sums of the sharded layers (``parallel.sharding``). A grid may
+  cover some of the processes only (``ranks``), so that several layouts run
+  in one set of processes.
 """
 
 from __future__ import annotations
@@ -157,44 +164,72 @@ def rank_and_world(group=None):
 
 
 class Grid:
-    """The data x pipe layout of the processes for S stages: rank r is data
-    replica ``data`` = r // S of ``replicas`` = R / S and stage ``stage`` =
-    r % S; ``data_group`` holds the ranks of this stage, ``pipe_group``
-    those of this replica (``pipe_ranks``, in stage order). One stage: every
-    rank a replica, the data group the world (None)."""
+    """The data x pipe x model layout of the processes ``ranks`` (the world
+    by default) for S = ``stages`` stages and tp = ``model`` model ranks:
+    the i-th of them is data replica ``data`` = i // (S · tp) of
+    ``replicas``, stage ``stage`` = (i // tp) % S and model rank ``model`` =
+    i % tp. ``data_group`` holds the ranks of this (stage, model rank),
+    ``pipe_group`` those of this (replica, model rank) (``pipe_ranks``, in
+    stage order, global ranks), ``model_group`` those of this (replica,
+    stage). On the world with one stage and one model rank every rank is a
+    replica and the data group is the world (None); a group of one rank is
+    None too where the grid covers the world. A process outside ``ranks``
+    (``member`` false) takes part in making the groups and nothing else."""
 
-    def __init__(self, stages: int):
+    def __init__(self, stages: int, model: int = 1, ranks=None):
         rank, world = rank_and_world()
-        if stages < 1 or world % stages:
-            raise ValueError(f"train.pipeline_stages={stages} must divide "
-                             f"the process count {world}")
-        self.stages, self.replicas = stages, world // stages
-        self.data, self.stage = divmod(rank, stages)
-        self.pipe_ranks = [self.data * stages + s for s in range(stages)]
-        self.data_group = self.pipe_group = None
-        if stages > 1 and world > 1:
+        whole = ranks is None
+        ranks = list(range(world)) if whole else [int(r) for r in ranks]
+        n = len(ranks)
+        if stages < 1 or model < 1 or n % (stages * model):
+            what = f"train.pipeline_stages={stages}" + (
+                f" x model={model}" if model != 1 else "")
+            raise ValueError(f"{what} must divide the process count {n}")
+        self.stages, self.model_size = stages, model
+        self.replicas = n // (stages * model)
+        self.ranks, self.member = ranks, rank in ranks
+        i = ranks.index(rank) if self.member else 0
+        self.data, rest = divmod(i, stages * model)
+        self.stage, self.model = divmod(rest, model)
+
+        def at(d, s, m):
+            return ranks[(d * stages + s) * model + m]
+        self.pipe_ranks = [at(self.data, s, self.model)
+                           for s in range(stages)]
+        self.data_group = self.pipe_group = self.model_group = None
+        if world > 1 and (stages > 1 or model > 1 or not whole):
             # every rank creates every group, in one order
-            data = [dist.new_group([d * stages + s
-                                    for d in range(self.replicas)])
-                    for s in range(stages)]
-            pipe = [dist.new_group([d * stages + s for s in range(stages)])
-                    for d in range(self.replicas)]
-            self.data_group = data[self.stage]
-            self.pipe_group = pipe[self.data]
+            data = {(s, m): dist.new_group([at(d, s, m)
+                                            for d in range(self.replicas)])
+                    for s in range(stages) for m in range(model)}
+            self.data_group = data[self.stage, self.model]
+            if stages > 1:
+                pipe = {(d, m): dist.new_group([at(d, s, m)
+                                                for s in range(stages)])
+                        for d in range(self.replicas) for m in range(model)}
+                self.pipe_group = pipe[self.data, self.model]
+            if model > 1:
+                groups = {(d, s): dist.new_group([at(d, s, m)
+                                                  for m in range(model)])
+                          for d in range(self.replicas)
+                          for s in range(stages)}
+                self.model_group = groups[self.data, self.stage]
 
 
-_GRIDS = {}       # stages -> Grid: a process makes each grid's groups once
+# (stages, model) -> Grid: a process makes each grid's groups once
+_GRIDS = {}
 
 
-def grid(stages: int) -> Grid:
-    """The grid of ``stages`` stages (0 and 1: no pipelining). The groups
-    of a pipelined grid are made on its first use, by every rank together,
-    and kept for the process."""
-    if stages <= 1:
+def grid(stages: int, model: int = 1) -> Grid:
+    """The grid of the world over ``stages`` stages (0 and 1: no
+    pipelining) and ``model`` model ranks. The groups of a grid are made on
+    its first use, by every rank together, and kept for the process."""
+    stages = max(int(stages), 1)
+    if stages == 1 and model == 1:
         return Grid(1)
-    if stages not in _GRIDS:
-        _GRIDS[stages] = Grid(stages)
-    return _GRIDS[stages]
+    if (stages, model) not in _GRIDS:
+        _GRIDS[stages, model] = Grid(stages, model)
+    return _GRIDS[stages, model]
 
 
 def _alone(group) -> bool:
@@ -264,6 +299,29 @@ def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(world)]
     dist.all_gather(parts, src, group=group)
     return _from_bytes(torch.cat(parts).to(t.device), t.dtype)
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated along ``dim`` in the
+    rank order of ``group`` (sequence parallelism's all-gather over T)."""
+    if _alone(group):
+        return t
+    moved = t.movedim(dim, 0).contiguous()
+    return all_gather_cat(moved, group).movedim(0, dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's slice along ``dim`` (its length a multiple of the
+    group's size) of the elementwise sum of ``t`` over ``group``, through
+    ``reduce_scatter_sum`` (sequence parallelism's reduce-scatter over
+    T)."""
+    if _alone(group):
+        return t
+    _, world = rank_and_world(group)
+    moved = t.movedim(dim, 0).contiguous()
+    part = reduce_scatter_sum(moved.flatten(), group)
+    return part.view(moved.shape[0] // world,
+                     *moved.shape[1:]).movedim(0, dim).contiguous()
 
 
 def reduce_scatter_sum(flat: torch.Tensor, group=None) -> torch.Tensor:

@@ -116,17 +116,22 @@ def check_uniform_layer_groups(groups: Dict) -> None:
 class PipelineCtx:
     """One pipelined run's handle (the counterpart of JAX's
     ``PipelineCtx``): the stage count, the microbatch count, the grid of
-    this process (``mesh.grid``), the layers this stage owns of an
+    this process (``mesh.grid``, or a given one with a model axis: the
+    stages of one model rank exchange its shards' activations), the layers
+    this stage owns of an
     ``n_layer`` stack, and the canonical names of the whole model (its
     parameter names ``names`` and state-dict keys ``keys``, in order) that
     the checkpoints are written in."""
 
     def __init__(self, stages: int, microbatches: int, n_layer: int,
-                 names=(), keys=()):
+                 names=(), keys=(), grid=None):
         if n_layer % stages:
             raise ValueError(f"fp_layers={n_layer} must divide over "
                              f"pipeline_stages={stages}")
-        self.grid = mesh.grid(stages)
+        self.grid = mesh.grid(stages) if grid is None else grid
+        if self.grid.stages != stages:
+            raise ValueError(f"a grid of {self.grid.stages} stages for "
+                             f"pipeline_stages={stages}")
         self.stages, self.microbatches = int(stages), int(microbatches)
         per = n_layer // stages
         self.stage = self.grid.stage
@@ -303,8 +308,10 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def canonical_model_state(ctx: PipelineCtx, local: Dict) -> Dict:
     """The unpipelined model state dict (every layer, the canonical key
     order) on rank 0, from each stage's ``local`` one; every rank of replica
-    0 takes part. Other ranks get ``local`` back (they write nothing)."""
-    if ctx.grid.data != 0:
+    0 takes part (under tensor parallelism those of model rank 0, after the
+    model group's gather). Other ranks get ``local`` back (they write
+    nothing)."""
+    if ctx.grid.data != 0 or ctx.grid.model != 0:
         return local
     parts = _gather_stages(ctx, {k: v for k, v in local.items()
                                  if layer_of(k) is not None})
@@ -330,8 +337,8 @@ def canonical_optimizer_state(ctx: PipelineCtx, optimizer, local: Dict,
     """The unpipelined optimizer state dict (torch.optim's layout, indices
     in the canonical parameter order) on rank 0, from this stage's
     ``local`` one (``optimizer.state_dict()``, whole tensors); every rank of
-    replica 0 takes part."""
-    if ctx.grid.data != 0:
+    replica 0 (and model rank 0) takes part."""
+    if ctx.grid.data != 0 or ctx.grid.model != 0:
         return local
     by_name = {optimizer.names[int(i)]: entry
                for i, entry in local["state"].items()}

@@ -36,7 +36,17 @@ dict, with the process group's ``"backend"``) on every rank:
   are the D = R / S data replicas', the state (and the checkpoint) is the
   unpipelined layout gathered from the stages, and each rank also records
   its stage, replica, parameter names and the sums of its replicated
-  weights (``replicated_sums``).
+  weights (``replicated_sums``). ``"tp": T`` (and ``"sp": true``) lays the
+  processes out as ``parallel.sharding.make_mesh_3d(R / (T · S), T, S)``:
+  tensor parallelism over T model ranks (with sequence parallelism); the
+  shares are the replicas', the state is gathered over the model group,
+  and each rank records its model rank, the bytes of its parameters
+  (``param_bytes``), its launches in shard mode (``tp_launches``) and a
+  digest of the bytes of each tensor it holds whole
+  (``replicated_digests``: equal on the ranks of a model group).
+  ``"plant": "unsummed_norm_grads"`` plants a tensor-parallel fault for the
+  checks to catch: the LayerNorm gradients that the sharded layers leave
+  partial are not summed over the model group.
 - ``{"kind": "eval", "name", "expt", "overrides", "batch", "seed"}``: the
   expt's eval set through ``eval.evaluate.collect_logits`` on this rank's
   shard, merged over the ranks, and through the whole set on every rank.
@@ -53,6 +63,7 @@ dict, with the process group's ``"backend"``) on every rank:
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -63,7 +74,7 @@ import torch
 
 from .. import resolve_device
 from ..config import CONF_DIR, compose, read_expt_file
-from ..ops import launch_counts, reset_launches
+from ..ops import launch_counts, reset_launches, tp_launch_counts
 from ..parallel import mesh
 
 
@@ -135,11 +146,14 @@ def run_train(job, device):
     """The ``train`` job on this process (a rank's share, or the whole
     batch without a process group); returns its record."""
     from ..parallel import pipeline as P
+    from ..parallel import sharding as SH
     from ..train.runner import Runner, pipeline_stages
     rank, world = mesh.rank_and_world()
     cfg = _cfg(job)
     classes = job["classes"]
-    grid = mesh.grid(pipeline_stages(cfg.train))
+    stages, tp = pipeline_stages(cfg.train), int(job.get("tp") or 1)
+    grid = SH.make_mesh_3d(world // (tp * stages), tp, stages) if tp > 1 \
+        else mesh.grid(stages)
     replica, replicas = grid.data, grid.replicas
     if job["batch"] % replicas:
         raise ValueError(f"batch {job['batch']} over {replicas} replicas")
@@ -148,7 +162,11 @@ def run_train(job, device):
         weights = torch.load(job["weights"], map_location="cpu")
     runner = Runner.from_config(cfg, classes, device=device,
                                 iters_per_epoch=2, world_size=replicas,
-                                weights=weights)
+                                weights=weights,
+                                grid=grid if tp > 1 else None,
+                                seq_parallel=bool(job.get("sp")))
+    if job.get("plant") == "unsummed_norm_grads":
+        runner._partial = None
     batches = make_batches(cfg, classes, job["batch"], job["steps"],
                            job["seed"], job.get("invalid", ()))
     cuda = runner.device.type == "cuda"
@@ -188,15 +206,22 @@ def run_train(job, device):
             CK.wait_for_pending_saves()
     named = list(runner.model.named_parameters())
     record = {"losses": losses, "norms": norms,
-              "launches": launch_counts(), "rank": rank,
+              "launches": launch_counts(), "tp_launches": tp_launch_counts(),
+              "rank": rank,
               "world": world, "replicas": replicas, "step_ms": step_ms,
               "state_bytes": runner.optimizer.state_bytes(), "state": None,
+              "model_rank": runner.grid.model,
+              "param_bytes": sum(p.numel() * p.element_size()
+                                 for p in runner.model.parameters()),
               "params": [n for n, _ in named],
               "replicated_sums": [float(p.detach().double().sum())
                                   for n, p in named
                                   if P.layer_of(n) is None]}
     if cuda:
         record["peak_bytes"] = torch.cuda.max_memory_allocated(runner.device)
+    if runner.tp is not None:
+        record["replicated_digests"] = {n: _digest(p) for n, p in named
+                                        if n not in runner.tp.specs}
     if runner.pipeline is not None:
         record.update(stage=runner.pipeline.stage,
                       replica=runner.pipeline.grid.data)
@@ -219,6 +244,12 @@ def run_train(job, device):
         elif keep:
             record["state"] = state
     return record
+
+
+def _digest(t: torch.Tensor) -> str:
+    """A digest of the bytes of ``t``."""
+    raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+    return hashlib.sha1(raw.numpy().tobytes()).hexdigest()
 
 
 def run_eval(job, device):

@@ -70,6 +70,24 @@ on D replicas is the one-process step over their global batch. The global
 norms of clipping and ``watch_gradients`` add each stage's layers once and
 the replicated rest once. ``checkpoint_state`` / ``load_checkpoint_state``
 read and write the unpipelined layout.
+
+Tensor parallelism (a ``grid`` with a model axis, ``parallel.sharding``
+``make_mesh_2d`` / ``make_mesh_3d``; set by the caller, as no config key
+sets it in the JAX package either; ``seq_parallel`` adds the GPT-2
+predictor's ``SeqCtx``): the tp ranks of a replica hold the shards of one
+model (``parallel.sharding.tensor_parallel``), see the same rows and draw
+the same dropout, drop-path and mixup bits (the replica's ``row0``, never
+the world rank's), and compute the rest of the model alike. Everything data
+parallelism does acts over the data group (the replicas of one model rank
+and stage). A sharded layer leaves its LayerNorms' gradients as partial
+sums, summed over the model group before anything reads them; the global
+norms add each shard once over the model group and a replicated tensor
+once. Under sequence parallelism no replicated parameter is read on a
+T-shard (each layer gathers T before its kernels and the stream is
+gathered before ``ln_f``), so nothing more is summed. ZeRO-1 slices each
+rank's local tensors over its data group. The checkpoint stays the
+one-process file (the shards gathered over the model group) and loads at
+any (data, model, pipe) layout.
 """
 
 from __future__ import annotations
@@ -87,6 +105,7 @@ from ..models import BaseModel
 from ..models import layers as L
 from ..parallel import mesh
 from ..parallel import pipeline as P
+from ..parallel import sharding as SH
 from . import losses as LO
 from . import optim as O
 from .mixup import MixUp
@@ -126,36 +145,48 @@ def check_train_keys(train_cfg, model_cfg=None) -> None:
 
 
 def global_square_sums(norms, slots, n_slots: int, group=None,
-                       sharded: bool = False, owned=None, pipe=None):
+                       sharded: bool = False, owned=None, pipe=None,
+                       split=None, model=None):
     """(n_slots,) sums of the whole model's squares: each tensor's norm
     (``norms``, 0-d device tensors) squared and added to its slot
     (``slots``), in a fixed order and with no host copy. ``sharded``: each
     rank holds slices (ZeRO-1), summed over the data ranks ``group``.
     ``owned`` (bools, the tensors of a pipeline stage's own layers): those
-    are summed over the pipe group ``pipe``, the replicated rest counted
-    once."""
-    rows = [False] * len(slots) if owned is None else [bool(o) for o in owned]
-    parts = [[[] for _ in range(n_slots)] for _ in range(2)]
-    for norm, slot, own in zip(norms, slots, rows):
-        parts[own][slot].append(norm)
+    are summed over the pipe group ``pipe``; ``split`` (bools, the
+    tensor-parallel shards): those over the model group ``model``; the
+    replicated rest is counted once."""
+    kinds = [0] * len(slots)
+    for flags, bit in ((owned, 1), (split, 2)):
+        if flags is not None:
+            kinds = [k | (bit if f else 0) for k, f in zip(kinds, flags)]
+    parts = [[[] for _ in range(n_slots)] for _ in range(4)]
+    for norm, slot, kind in zip(norms, slots, kinds):
+        parts[kind][slot].append(norm)
     zero = norms[0].new_zeros((), dtype=torch.float32)
     sums = torch.stack([torch.stack([
         torch.stack(p).float().square().sum() if p else zero for p in row])
         for row in parts])
     if sharded:
         sums = mesh.all_reduce_sum(sums, group)
-    if owned is not None:
-        sums = torch.stack([sums[0], mesh.all_reduce_sum(sums[1], pipe)])
-    return sums.sum(0)
+    rows = list(sums.unbind())
+    for kind in (1, 2, 3):
+        if kind & 1 and owned is not None:
+            rows[kind] = mesh.all_reduce_sum(rows[kind], pipe)
+        if kind & 2 and split is not None:
+            rows[kind] = mesh.all_reduce_sum(rows[kind], model)
+    return torch.stack(rows).sum(0)
 
 
 def clip_by_global_norm(grads, max_norm: float, group=None,
-                        sharded: bool = False, owned=None, pipe=None):
+                        sharded: bool = False, owned=None, pipe=None,
+                        split=None, model=None):
     """torch.nn.utils.clip_grad_norm_ semantics, in place on fp32 grads;
     returns the norm (a device tensor), from ``global_square_sums`` of the
-    tensors' norms (its ``group``, ``sharded``, ``owned`` and ``pipe``)."""
+    tensors' norms (its ``group``, ``sharded``, ``owned``, ``pipe``,
+    ``split`` and ``model``)."""
     gnorm = global_square_sums(torch._foreach_norm(grads), [0] * len(grads),
-                               1, group, sharded, owned, pipe)[0].sqrt()
+                               1, group, sharded, owned, pipe, split,
+                               model)[0].sqrt()
     scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return gnorm
@@ -284,10 +315,15 @@ class Runner:
                  impl: str = "kernel", watch_gradients: bool = False,
                  master_dtype=torch.float32, grad_accum: int = 1,
                  zero_sharding: bool = False,
-                 pipeline: Optional[P.PipelineCtx] = None):
+                 pipeline: Optional[P.PipelineCtx] = None,
+                 grid: Optional[mesh.Grid] = None,
+                 tensor_parallel: Optional[SH.TensorParallel] = None):
         """``pipeline``: the model was split over its stages
         (``parallel.pipeline.split_model``) and ``groups`` cover the whole
-        model."""
+        model. ``grid``: the process layout (default: the pipeline's, or
+        the world's data parallelism); ``tensor_parallel``: the model was
+        sharded over the grid's model group
+        (``parallel.sharding.tensor_parallel``)."""
         if master_dtype != torch.float32 and master_dtype != compute_dtype:
             raise ValueError("train.master_dtype=bfloat16 requires "
                              "model.compute_dtype=bfloat16")
@@ -306,9 +342,13 @@ class Runner:
             t: torch.as_tensor(w, dtype=torch.float32, device=self.device)
             for t, w in class_weights.items()}
         self.pipeline = pipeline
-        # the data x pipe grid: every reduction of data parallelism below
-        # runs over its data group (the world without pipelining)
-        self.grid = mesh.grid(1) if pipeline is None else pipeline.grid
+        self.tp = tensor_parallel
+        # the data x pipe x model grid: every reduction of data parallelism
+        # below runs over its data group (the world without pipelining or
+        # tensor parallelism)
+        if grid is None:
+            grid = mesh.grid(1) if pipeline is None else pipeline.grid
+        self.grid = grid
         self.groups = groups
         # DP (4): the same generators on every rank; each draw is the
         # global batch's, of which a data replica keeps its own rows
@@ -337,6 +377,14 @@ class Runner:
         self._owned = None if pipeline is None else [
             P.layer_of(name) is not None
             for name, _ in model.named_parameters()]
+        # the tensor-parallel shards (their norms add over the model group)
+        # and the gradients a sharded layer leaves partial
+        self._split = self._partial = None
+        if tensor_parallel is not None:
+            names = [name for name, _ in model.named_parameters()]
+            self._split = [n in tensor_parallel.specs for n in names]
+            self._partial = [i for i, n in enumerate(names)
+                             if n in tensor_parallel.partial]
         self.zero = None
         if zero_sharding:
             from ..parallel.sharding import Zero1
@@ -349,7 +397,8 @@ class Runner:
                     iters_per_epoch: int = 1, world_size: int = 1,
                     weights=None, impl: str = "kernel", compute_dtype=None,
                     class_mappings=None, class_weights=None,
-                    pipeline: bool = True):
+                    pipeline: bool = True, grid=None,
+                    seq_parallel: bool = False):
         """Build the model, parameter groups, optimizer, schedule and mixup
         of a composed expt config (afft_tpu/train/loop.py:336-369), with
         the ``train.grad_accum``, ``train.master_dtype``,
@@ -357,16 +406,29 @@ class Runner:
         ``pipeline_microbatches`` and ``opt.optimizer.state_dtype`` options
         (ZeRO-1 and the pipeline's grid over the process group that exists
         when it is called; ``pipeline=False`` runs every layer in each
-        process whatever the config says, as evaluation does). ``world_size``
-        is the schedule's: the data replicas. The model is drawn from
-        ``cfg.seed`` unless ``weights`` (a state dict of the whole model) is
-        given; ``class_mappings`` become its verb / noun <-> action
-        buffers. ``train.class_weight_beta`` needs ``class_weights`` ({target:
-        (C,)}, from the train split's class counts: ``data.stats``, as the
-        loop computes them). ``runner.lr_schedule(iteration,
+        process whatever the config says, as evaluation does). ``grid``
+        (``parallel.sharding.make_mesh_2d`` / ``make_mesh_3d``): the layout
+        instead, its stages the config's; a model axis of 2 or more ranks
+        shards the model over it (tensor parallelism), and
+        ``seq_parallel`` adds sequence parallelism to the GPT-2 predictor.
+        ``world_size`` is the schedule's: the data replicas. The model is
+        drawn from ``cfg.seed`` unless ``weights`` (a state dict of the
+        whole model) is given; ``class_mappings`` become its verb / noun
+        <-> action buffers. ``train.class_weight_beta`` needs
+        ``class_weights`` ({target: (C,)}, from the train split's class
+        counts: ``data.stats``, as the loop computes them). ``runner.lr_schedule(iteration,
         runner.base_lr)`` is the step's lr."""
         check_train_keys(cfg.train, cfg.model)
         stages = pipeline_stages(cfg.train) if pipeline else 1
+        if grid is not None and grid.stages != stages:
+            raise ValueError(f"a grid of {grid.stages} stages for "
+                             f"train.pipeline_stages={stages}")
+        if seq_parallel and (grid is None or grid.model_size < 2):
+            raise ValueError("sequence parallelism needs a grid with a "
+                             "model axis (make_mesh_2d(dp, tp), tp >= 2)")
+        if seq_parallel and stages > 1:
+            raise ValueError("seq_ctx and pipeline_ctx are mutually "
+                             "exclusive")
         if cfg.train.get("class_weight_beta") is not None \
                 and not class_weights:
             raise ValueError("train.class_weight_beta needs the class "
@@ -391,9 +453,13 @@ class Runner:
                 stages, int(cfg.train.get("pipeline_microbatches")
                             or stages),
                 int(cfg.model.common.fp_layers),
-                names=[n for n, _ in named], keys=list(model.state_dict()))
+                names=[n for n, _ in named], keys=list(model.state_dict()),
+                grid=grid)
             P.split_model(model, ctx)
         del named
+        tp = None
+        if grid is not None and grid.model_size > 1:
+            tp = SH.tensor_parallel(model, grid, seq_parallel)
         mixup = None
         if cfg.train.use_mixup:
             mixup = MixUp(alpha=cfg.train.mixup_alpha,
@@ -415,7 +481,7 @@ class Runner:
                                          or "float32"],
                      grad_accum=int(cfg.train.get("grad_accum") or 1),
                      zero_sharding=bool(cfg.train.get("zero_sharding")),
-                     pipeline=ctx)
+                     pipeline=ctx, grid=grid, tensor_parallel=tp)
         runner.base_lr = float(cfg.opt.lr)
         runner.lr_schedule = O.build_schedule(cfg.opt, iters_per_epoch,
                                               world_size)
@@ -521,6 +587,12 @@ class Runner:
                                                              use_mixup)
         for p in self.compute:
             p.grad = None
+        if self._partial:
+            # a sharded layer's LayerNorm gradients: partial sums over the
+            # model group
+            mesh.all_reduce_sum_([grads[i] for i in self._partial
+                                  if grads[i] is not None],
+                                 self.grid.model_group)
         if self.master_dtype == torch.float32 and self.zero is None:
             # fp32 masters keep the step's whole gradient in .grad, reduced
             # and clipped in place (as clip_grad_norm_ leaves it); the
@@ -542,7 +614,7 @@ class Runner:
             clip_by_global_norm(
                 [grads[i] for i in have], self.grad_clip,
                 self.grid.data_group, self.zero is not None,
-                **self._pipe_split(have))
+                **self._split_args(have))
         self.optimizer.step(lr / base_lr,
                             [grads[i] for i in self._opt_index],
                             gen=self.sr_gen)
@@ -644,14 +716,20 @@ class Runner:
         up = iter(O.upcast(have)[1])
         return [None if c.grad is None else next(up) for c in self.compute]
 
-    def _pipe_split(self, index):
-        """``global_square_sums``' pipeline arguments for the tensors at
-        ``index`` of the masters: which are the stage's own, and the pipe
-        group; none without pipelining."""
-        if self._owned is None:
-            return {}
-        return {"owned": [self._owned[i] for i in index],
-                "pipe": self.pipeline.grid.pipe_group}
+    def _split_args(self, index):
+        """``global_square_sums``' pipeline and tensor-parallel arguments
+        for the tensors at ``index`` of the masters: which are the stage's
+        own and the pipe group, which are shards and the model group; none
+        without either."""
+        index = list(index)
+        out = {}
+        if self._owned is not None:
+            out.update(owned=[self._owned[i] for i in index],
+                       pipe=self.grid.pipe_group)
+        if self._split is not None:
+            out.update(split=[self._split[i] for i in index],
+                       model=self.grid.model_group)
+        return out
 
     def _norms(self, grads):
         """``watch_gradients``: the reference's wandb.watch(model)
@@ -660,7 +738,8 @@ class Runner:
         clipping, per top-level module, and the parameters' norm. Under
         ZeRO-1 each rank's pieces give square sums that one all-reduce
         adds up; under pipelining the stages' own layers add up over the
-        pipe group."""
+        pipe group, under tensor parallelism the shards over the model
+        group."""
         modules: Dict[str, int] = {}
         which, present, index = [], [], []
         for i, ((name, _), g) in enumerate(zip(self.model.named_parameters(),
@@ -673,13 +752,13 @@ class Runner:
         sums = global_square_sums(torch._foreach_norm(present), which,
                                   len(modules),
                                   self.grid.data_group, self.zero is not None,
-                                  **self._pipe_split(index))
+                                  **self._split_args(index))
         # the masters are whole on every rank, ZeRO-1 or not
         param_norm = global_square_sums(
             torch._foreach_norm([p.detach() for p in self.masters], 2,
                                 dtype=torch.float32),
             [0] * len(self.masters), 1,
-            **self._pipe_split(range(len(self.masters))))[0].sqrt()
+            **self._split_args(range(len(self.masters))))[0].sqrt()
         out = {"grad_norm": sums.sum().sqrt(), "param_norm": param_norm}
         for key, j in modules.items():
             out[f"grad_norm_{key}"] = sums[j].sqrt()
@@ -748,28 +827,56 @@ class Runner:
         """Load a state dict into the masters (strict; each tensor cast to
         the masters' dtype, so fp32 and bf16-master checkpoints load either
         way) and refresh the compute copy from them. A pipeline stage takes
-        its part of a whole model's state dict."""
+        its part of a whole model's state dict, a tensor-parallel rank its
+        shards."""
         if self.pipeline is not None:
             state = P.local_model_state(self.pipeline, state)
+        if self.tp is not None:
+            state = SH.shard_state(self.tp, state)
         self.model.load_state_dict(state, strict=True)
         if self._copy:
             torch._foreach_copy_(self.compute, self.masters)
 
     def model_state(self) -> Dict:
-        """The model state dict in the unpipelined layout: under pipelining
-        every stage's layers gathered to rank 0 (every rank calls it
-        together; the others get their own part)."""
+        """The model state dict in the one-process layout: under tensor
+        parallelism the shards gathered over the model group, under
+        pipelining every stage's layers gathered to rank 0 (every rank calls
+        it together; the others get their own part)."""
         state = self.model.state_dict()
+        if self.tp is not None:
+            state = SH.canonical_state(self.tp, state)
         if self.pipeline is not None:
             state = P.canonical_model_state(self.pipeline, state)
         return state
 
+    def _tp_optimizer_state(self, opt: Dict, gather: bool) -> Dict:
+        """The optimizer state dict (indices in this rank's order) with each
+        shard's state tensors gathered over the model group (``gather``),
+        or whole ones cut to this rank's shards."""
+        state = {}
+        for i, entry in opt["state"].items():
+            spec = self.tp.specs.get(self.optimizer.names[int(i)])
+            state[i] = dict(entry)
+            for k, v in entry.items():
+                if spec is None or not torch.is_tensor(v) or v.dim() == 0:
+                    continue
+                if gather:
+                    parts = mesh.all_gather_cat(v.contiguous()[None],
+                                                self.grid.model_group)
+                    state[i][k] = SH.unshard_tensor(list(parts), spec)
+                else:
+                    state[i][k] = SH.shard_tensor(v, spec, self.tp.rank,
+                                                  self.tp.count)
+        return {**opt, "state": state}
+
     def checkpoint_state(self):
-        """(model state dict, optimizer state dict) in the unpipelined
-        layout: whole tensors under ZeRO-1, every layer under pipelining
-        (gathered to rank 0, which alone writes). Every rank must call it
-        together."""
+        """(model state dict, optimizer state dict) in the one-process
+        layout: whole tensors under ZeRO-1 and tensor parallelism, every
+        layer under pipelining (gathered to rank 0, which alone writes).
+        Every rank must call it together."""
         opt = self.optimizer.state_dict()
+        if self.tp is not None:
+            opt = self._tp_optimizer_state(opt, gather=True)
         if self.pipeline is not None:
             opt = P.canonical_optimizer_state(self.pipeline, self.optimizer,
                                               opt, self.groups)
@@ -777,11 +884,14 @@ class Runner:
 
     def load_checkpoint_state(self, model: Dict, optimizer: Dict) -> None:
         """The counterpart of ``checkpoint_state``: a checkpoint written by
-        any run, pipelined or not, sharded or not."""
+        any run, pipelined or not, sharded (ZeRO-1, tensor parallelism) or
+        not."""
         self.load_model_state(model)
         if self.pipeline is not None:
             optimizer = P.local_optimizer_state(self.pipeline, self.optimizer,
                                                 optimizer, self.groups)
+        if self.tp is not None:
+            optimizer = self._tp_optimizer_state(optimizer, gather=False)
         self.optimizer.load_state_dict(optimizer)
 
     def rng_state(self) -> Dict:

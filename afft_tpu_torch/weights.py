@@ -16,8 +16,13 @@ of afft_tpu (train/torch_export.py ``export_base_model``):
   carried name for name as ``torch_export.export_cmfp`` writes it.
 
 ``grads_from_jax`` carries a JAX gradient pytree the same way (the tests
-compare gradients with it). ``load_reference_checkpoint`` reads a reference
-``.pth``. Either result
+compare gradients with it). ``tp_state_from_jax`` goes one step further, to
+a tensor-parallel rank's shards (``parallel.sharding.shard_state``; back to
+the whole state is ``parallel.sharding.canonical_state``, a gather over the
+model group): the split is head-aligned on the port's [q | k | v]
+``c_attn``, so rank m's columns are its heads' of each of q, k and v, the
+same heads as JAX's shard m of its heads-major packing.
+``load_reference_checkpoint`` reads a reference ``.pth``. Either result
 loads with ``model.load_state_dict`` and needs no adapter.
 """
 
@@ -218,6 +223,14 @@ def state_dict_from_jax(model, params) -> Dict[str, torch.Tensor]:
     out.update(_tensors({k: _np(v) for k, v in
                          params.get("buffers", {}).items()}))
     return out
+
+
+def tp_state_from_jax(model, params, tp) -> Dict[str, torch.Tensor]:
+    """The state dict of ``params`` (whole JAX params of ``model``'s
+    config) as model rank ``tp.rank`` of a ``parallel.sharding
+    .TensorParallel`` placement holds it."""
+    from .parallel.sharding import shard_state
+    return shard_state(tp, state_dict_from_jax(model, params))
 
 
 def grads_from_jax(model, grads) -> Dict[str, torch.Tensor]:

@@ -81,7 +81,14 @@ Phases, in order; any failure exits non-zero and prints no result:
                6 / 12 / 256 / 512, no mask, causal or the rollout's cache
                mask with NaN in the unwritten slots, q a packed slice);
                each training backward entry run twice on the same inputs
-               gives the same gradients bit for bit;
+               gives the same gradients bit for bit; then the training
+               entries in shard mode (tensor parallelism, rows 7, 8 and
+               11-15 at tp = 2, row 9 whole), in bf16 at the flagship's
+               shapes and in fp32 at a reduced batch: each model rank's
+               partial sums and stashes against the plain version on the
+               same shard, the sums over the ranks against the unsharded
+               kernel, rank 0's local work timed beside the plain shard
+               version and its bound (the "tp" item of their entries);
   5. serve   - the Server on five paths at full width (bf16, batch 256,
                seeded weights): the flagship
                expts/01_SA-Fuser_ek100_val_Swin.txt, its multi-step rollout
@@ -265,7 +272,21 @@ Phases, in order; any failure exits non-zero and prints no result:
                against the pipelined eval of it (pipeline_launches in the
                kernels line; step times and peak memory per rank are
                one-card stand-ins, no pipeline speed);
- 15. report  - one JSON line of per-kernel numbers, then the result line.
+ 15. tp      - tensor and sequence parallelism with the model ranks as gloo
+               processes on the one card (--device cuda:0): the flagship at
+               full width (expts/01_SA-Fuser_ek100_train.txt, bf16 over fp32
+               masters, its dropout, drop-path and mixup) at data1 x model2,
+               64 clips a step, 3 steps, against phase 14's one process over
+               the same batches (losses within 1e-3 relative, each tensor
+               within 2e-2 of its update), each rank's parameter and
+               optimizer-state bytes (about half of one process's), peak
+               memory, and the launches in shard mode of every training
+               entry asserted (tp_launches in the kernels line); then
+               ``python -m afft_tpu_torch.tools.dryrun_multichip -n 8``:
+               every mode of the JAX driver's dry run on 8 processes on the
+               card, the 3-axis loss within rtol 1e-3 of one process's (one
+               card: no TP speed);
+ 16. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -1560,6 +1581,354 @@ def phase_train_kernels(peaks, gen):
     del case, masks
     torch.cuda.empty_cache()
     return results
+
+
+# -- the training kernels in shard mode (tensor parallelism) ------------------
+
+# the flagship's model ranks in the shard checks and phase 15
+TP = 2
+
+
+def _tp_local(p, prefix, rank, count=TP):
+    """Model rank ``rank``'s tensors of a layer's ``p`` (its names under the
+    state-dict ``prefix`` decide the split: parallel.sharding.TP_RULES)."""
+    from afft_tpu_torch.parallel import sharding as SH
+    out = {}
+    for k, v in p.items():
+        spec = SH.spec_for_path(prefix + k)
+        out[k] = v if spec is None else SH.shard_tensor(v, spec, rank, count)
+    return out
+
+
+def tp_kernel_work(R, N, C, H, hidden, item, pairs, tp, heads):
+    """(flops, bytes) of one model rank's shard-mode entries (forward, MLP
+    backward, attention backward) over R rows of N tokens: the attention
+    width A = C / tp where the heads split (the GPT-2 layer's), else C;
+    hidden / tp MLP columns; each input read once, each output written
+    once (the partial sums fp32), the stashes where written and read, the
+    parameter gradients fp32. The fuser's attention backward runs whole
+    (train_kernel_work's)."""
+    M = R * N
+    A, h = (C // tp if heads else C), hidden // tp
+    wa, wm = 4 * C * A, 2 * C * h
+    small = 6 * C + 3 * C + h
+    fwd_flops = 2 * M * C * (4 * A + 2 * h) + 4 * R * pairs * A
+    if heads:
+        # both halves: x, qkv, y's partial, y, pre1, the output's partial
+        fwd_bytes = (M * (C + 3 * A + C + h) + wa + wm + small) * item \
+            + 2 * M * C * 4 + N * N * 4
+    else:
+        fwd_bytes = (M * (C + C + 3 * A + h) + wa + wm + small) * item \
+            + M * C * 4 + N * N * 4
+    bwd_mlp = (8 * M * C * h,
+               (M * (2 * C + h) + wm + 2 * C) * item + M * C * 4
+               + (wm + 3 * C + h) * 4)
+    bwd_attn = (16 * M * C * A + 12 * R * pairs * A,
+                (M * (2 * C + 3 * A) + wa + 2 * C) * item + M * C * 4
+                + (wa + 6 * C) * 4 + N * N * 4)
+    return (fwd_flops, fwd_bytes), bwd_mlp, bwd_attn
+
+
+def _tp_hold(what, label, got, want, tol, errs, key):
+    rel, max_abs = _rel_err(got, want)
+    errs[key] = max(errs.get(key, 0.0), max_abs)
+    errs[f"{key}_rel"] = max(errs.get(f"{key}_rel", 0.0), rel)
+    if not rel <= tol:
+        raise AssertionError(f"{what}: {label} rel_err={rel:.3g} (tol "
+                             f"{tol:g})")
+
+
+def check_tp_layer(tag, dt, gpt2, R, N, C, H, hidden, gen, peaks=None):
+    """A training layer's three entries in shard mode at TP model ranks
+    (no process group: each rank's launch in turn): each rank's partial
+    sums and stashes against the plain version on the same shard (the
+    forward at KERNEL_TOL, the partial dy / dx and the shard's gradients
+    against fp32 autograd through the plain shard halves at GRAD_TOL), and
+    the sum of the partials over the ranks against the unsharded kernel
+    (the forward's y and output, dy, dx and each gradient: the shards'
+    concatenation, the norms' partial sums, the whole biases, at
+    KERNEL_TOL). With ``peaks``, rank 0's entries are timed beside the plain
+    shard version and the bound of the local work. Returns (largest
+    absolute errors by entry, timings or None)."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block as FB
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    from afft_tpu_torch.ops._common import Shard
+    from afft_tpu_torch.parallel import sharding as SH
+
+    name = "fused_gpt2_train" if gpt2 else "fused_block_train"
+    what = (f"{name} shard mode tp={TP} {tag} R={R} N={N} C={C} H={H} "
+            f"hidden={hidden}")
+    rn = _randn(gen, dt)
+    x, dout = rn(R, N, C), rn(R, N, C)
+    dflat = dout.reshape(R * N, C)
+    if gpt2:
+        p = gpt2_params(C, hidden, dt, gen)
+        rates, prefix = GPT2_RATES, "gpt_model.h.3."
+        mask = neg_inf_causal_mask(N, device="cuda")
+        masks = FGT.draw_masks_gpt2(R, N, C, H, TRAIN_SEEDS, 3,
+                                    *rates.values(), device="cuda")
+        arrays = FT.rate_arrays(TRAIN_SEEDS, 3, rates["attn_rate"],
+                                rates["resid_rate"], 0.0)
+        kernel = lambda x, p: FGT.fused_gpt2_block_train(  # noqa: E731
+            x, p, mask, TRAIN_SEEDS, num_heads=H, layer_idx=3, **rates)
+        layer, heads, mlp_keys = FGT.GPT2, H // TP, GPT2_GRAD_KEYS_MLP
+    else:
+        p = block_params(C, hidden, dt, gen)
+        rates, prefix, mask = TRAIN_RATES, "fuser.blocks.5.", None
+        masks = FT.draw_masks(R, N, C, H, TRAIN_SEEDS, 5, *rates.values(),
+                              device="cuda")
+        arrays = FT.rate_arrays(TRAIN_SEEDS, 5, *rates.values())
+        kernel = lambda x, p: FT.fused_block_train(  # noqa: E731
+            x, p, mask, TRAIN_SEEDS, num_heads=H, block_idx=5, **rates)
+        layer, heads, mlp_keys = FT.FUSER, H, GRAD_KEYS_MLP
+    mask32 = None if mask is None else mask.float().contiguous()
+    cfg = (heads, hidden // TP, 1e-5 if gpt2 else 1e-6, arrays, layer)
+    ftol, gtol = KERNEL_TOL[tag], GRAD_TOL[tag]
+
+    # the unsharded kernel: output, gradients, its stashes and its dy
+    xk = x.clone().requires_grad_(True)
+    pk = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    out_ref = kernel(xk, pk)
+    saved = out_ref.grad_fn.saved_tensors
+    y_ref, pre1_ref, full_cfg = saved[1], saved[3], out_ref.grad_fn.cfg
+    full_tensors = list(saved[5:])
+    dy_ref = FT.block_train_bwd_mlp(x, y_ref, dflat, pre1_ref, full_tensors,
+                                    FT.new_grads(full_tensors), full_cfg)
+    out_ref.backward(dout)
+    torch.cuda.synchronize()
+
+    def operands(pm):
+        if gpt2:
+            return FGT.gpt2_operands(name, x, pm, heads, TP)[0]
+        return FB.block_operands(name, x, pm, H, differentiable=True)[0]
+
+    errs, locals_, runs = {}, [], []
+    for m in range(TP):
+        pm = _tp_local(p, prefix, m)
+        locals_.append((pm, operands(pm), Shard(m, TP)))
+    # the forward: each rank's partials against the plain shard version
+    if gpt2:
+        ysum = None
+        for m, (pm, tensors, shard) in enumerate(locals_):
+            a = FT.train_fwd_shard(x, mask32, cfg, tensors, shard,
+                                   FT.PART_ATTN)
+            with torch.no_grad():
+                part, qkv = FGT.gpt2_attn_half_shard_plain(
+                    x, pm, mask, masks, num_heads=H, rank=m)
+            _tp_hold(what, f"rank {m} y partial", a["part"], part, ftol,
+                     errs, "fwd")
+            _tp_hold(what, f"rank {m} qkv", a["qkv"], qkv, ftol, errs, "fwd")
+            ysum = a["part"] if ysum is None else ysum + a["part"]
+            runs.append({"qkv": a["qkv"]})
+        y = ysum.to(dt)
+        _tp_hold(what, "y summed over the ranks", y, y_ref, ftol, errs,
+                 "fwd")
+        osum = None
+        for m, (pm, tensors, shard) in enumerate(locals_):
+            b = FT.train_fwd_shard(x, mask32, cfg, tensors, shard,
+                                   FT.PART_MLP, y)
+            with torch.no_grad():
+                part = FGT.gpt2_mlp_half_shard_plain(y, pm, masks, rank=m)
+            _tp_hold(what, f"rank {m} output partial", b["part"], part, ftol,
+                     errs, "fwd")
+            osum = b["part"] if osum is None else osum + b["part"]
+            runs[m].update(pre1=b["pre1"], y=y)
+    else:
+        osum = None
+        for m, (pm, tensors, shard) in enumerate(locals_):
+            a = FT.train_fwd_shard(x, mask32, cfg, tensors, shard,
+                                   FT.PART_BOTH)
+            with torch.no_grad():
+                y32, qkv = FT.attn_half_train_plain(x, pm, mask, masks,
+                                                    num_heads=H)
+                part = FT.mlp_half_shard_plain(y32, pm, masks, dt, N, m)
+            _tp_hold(what, f"rank {m} output partial", a["part"], part, ftol,
+                     errs, "fwd")
+            _tp_hold(what, f"rank {m} y", a["y"], y32, ftol, errs, "fwd")
+            osum = a["part"] if osum is None else osum + a["part"]
+            runs.append(a)
+        y = runs[0]["y"]
+    _tp_hold(what, "output summed over the ranks", osum.to(dt).reshape(
+        out_ref.shape), out_ref, ftol, errs, "fwd")
+
+    # the MLP backward: each rank's partial dy and MLP gradients against
+    # autograd through the plain shard half, the sum against the unsharded
+    grads, dysum = [], None
+    for m, (pm, tensors, shard) in enumerate(locals_):
+        g = FT.new_grads(tensors)
+        dy = FT.block_train_bwd_mlp(x, runs[m]["y"], dflat, runs[m]["pre1"],
+                                    tensors, g, cfg, shard)
+        y32 = runs[m]["y"].detach().float().clone().requires_grad_(True)
+        p32 = {k: v.detach().float().clone().requires_grad_(True)
+               for k, v in pm.items()}
+        part = (FGT.gpt2_mlp_half_shard_plain(y32, p32, masks, rank=m)
+                if gpt2 else FT.mlp_half_shard_plain(y32, p32, masks,
+                                                     torch.float32, N, m))
+        part.backward(dflat.float())
+        _tp_hold(what, f"rank {m} dy partial", dy, y32.grad, gtol, errs,
+                 "bwd_mlp")
+        keys = [k for k in mlp_keys if k in pm]
+        for k, got in zip(FGT.KEYS if gpt2 else FB_KEYS, g):
+            if k in keys:
+                _tp_hold(what, f"rank {m} gradient {k}", got, p32[k].grad,
+                         gtol, errs, "bwd_mlp")
+        grads.append(g)
+        dysum = dy if dysum is None else dysum + dy
+    _tp_hold(what, "dy summed over the ranks", dysum, dy_ref, ftol, errs,
+             "bwd_mlp")
+    dy = dysum.to(dt)
+
+    # the attention backward: the GPT-2 layer's on each rank's heads, the
+    # fuser's whole on the summed dy
+    if gpt2:
+        dxsum = None
+        for m, (pm, tensors, shard) in enumerate(locals_):
+            dx = FT.block_train_bwd_attn(x, dy, runs[m]["qkv"], mask32,
+                                         tensors, grads[m], cfg, shard)
+            x32 = x.detach().float().clone().requires_grad_(True)
+            p32 = {k: v.detach().float().clone().requires_grad_(True)
+                   for k, v in pm.items()}
+            part, _ = FGT.gpt2_attn_half_shard_plain(x32, p32, mask, masks,
+                                                     num_heads=H, rank=m)
+            part.backward(dy.float())
+            _tp_hold(what, f"rank {m} dx partial", dx.reshape(x.shape),
+                     x32.grad, gtol, errs, "bwd_attn")
+            for k, got in zip(FGT.KEYS, grads[m]):
+                if k not in mlp_keys:
+                    _tp_hold(what, f"rank {m} gradient {k}", got,
+                             p32[k].grad, gtol, errs, "bwd_attn")
+            dxsum = dx if dxsum is None else dxsum + dx
+        dx = dxsum
+    else:
+        pm, tensors, _ = locals_[0]
+        dx = FT.block_train_bwd_attn(x, dy, runs[0]["qkv"], mask32, tensors,
+                                     grads[0], cfg)
+        for g in grads[1:]:
+            for i in range(len(g)):
+                if FB_KEYS[i] not in mlp_keys:
+                    g[i] = grads[0][i]
+    _tp_hold(what, "dx summed over the ranks", dx.reshape(x.shape),
+             xk.grad, ftol, errs, "bwd_attn")
+    # every gradient: the shards joined, the norms' partials summed
+    keys = FGT.KEYS if gpt2 else FB_KEYS
+    for i, k in enumerate(keys):
+        if grads[0][i] is None:
+            continue
+        spec = SH.spec_for_path(prefix + k)
+        if spec is not None:
+            got = SH.unshard_tensor([g[i] for g in grads], spec)
+        elif k.startswith(("ln_", "norm")) and (gpt2 or k.startswith(
+                "norm2")):
+            got = sum(g[i] for g in grads)
+        else:
+            got = grads[0][i]
+        _tp_hold(what, f"gradient {k} over the ranks", got, pk[k].grad,
+                 ftol, errs, "bwd_mlp" if k in mlp_keys else "bwd_attn")
+    log(f"kernel {what}: each rank against the plain shard version and the "
+        f"sums against the unsharded kernel ok; max_abs_err {errs}")
+    if peaks is None:
+        return errs, None
+
+    # rank 0's local work: its entries' times, the plain shard version's
+    pm, tensors, shard = locals_[0]
+    r0 = runs[0]
+    with torch.no_grad():
+        if gpt2:
+            fwd = lambda: (FT.train_fwd_shard(  # noqa: E731
+                x, mask32, cfg, tensors, shard, FT.PART_ATTN),
+                FT.train_fwd_shard(x, mask32, cfg, tensors, shard,
+                                   FT.PART_MLP, y))
+            fwd_plain = lambda: (FGT.gpt2_attn_half_shard_plain(  # noqa
+                x, pm, mask, masks, num_heads=H, rank=0),
+                FGT.gpt2_mlp_half_shard_plain(y, pm, masks, rank=0))
+        else:
+            fwd = lambda: FT.train_fwd_shard(  # noqa: E731
+                x, mask32, cfg, tensors, shard, FT.PART_BOTH)
+            fwd_plain = lambda: FT.mlp_half_shard_plain(  # noqa: E731
+                FT.attn_half_train_plain(x, pm, mask, masks,
+                                         num_heads=H)[0], pm, masks, dt, N, 0)
+        g = FT.new_grads(tensors)
+        ms = [time_ms(fwd),
+              time_ms(lambda: FT.block_train_bwd_mlp(
+                  x, r0["y"], dflat, r0["pre1"], tensors, g, cfg, shard)),
+              time_ms(lambda: FT.block_train_bwd_attn(
+                  x, dy, r0["qkv"], mask32, tensors, g, cfg,
+                  shard if gpt2 else None))]
+        plain_ms = [time_ms(fwd_plain, iters=10)]
+    yl = r0["y"].detach().float().requires_grad_(True)
+    pl = {k: v.detach().requires_grad_(True) for k, v in pm.items()}
+    part = (FGT.gpt2_mlp_half_shard_plain(yl, pl, masks, rank=0) if gpt2
+            else FT.mlp_half_shard_plain(yl, pl, masks, dt, N, 0))
+    xl = x.detach().requires_grad_(True)
+    if gpt2:
+        apart, _ = FGT.gpt2_attn_half_shard_plain(xl, pl, mask, masks,
+                                                  num_heads=H, rank=0)
+    else:
+        apart, _ = FT.attn_half_train_plain(xl, pl, mask, masks, num_heads=H)
+    plain_ms += [time_ms(lambda: torch.autograd.grad(
+                     part, [yl] + [pl[k] for k in mlp_keys if k in pl],
+                     dflat.float(), retain_graph=True), iters=10),
+                 time_ms(lambda: torch.autograd.grad(
+                     apart, [xl] + [pl[k] for k in pl if k not in mlp_keys],
+                     dy.float().reshape(apart.shape), retain_graph=True),
+                     iters=10)]
+    pairs = N * (N + 1) // 2 if gpt2 else N * N
+    work = tp_kernel_work(R, N, C, H, hidden, dt.itemsize, pairs, TP, gpt2)
+    if not gpt2:
+        work = work[:2] + (train_kernel_work(R, N, C, H, hidden, dt.itemsize,
+                                             pairs, 2 * R)[2],)
+    max_abs = (errs["fwd"], errs["bwd_mlp"], errs["bwd_attn"])
+    out = {}
+    for i, (entry, _) in enumerate(TRAIN_KERNELS[name][:3]):
+        flops, nbytes = work[i]
+        t_ops = flops / peaks["bf16"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        out[entry] = dict(max_abs_err=max_abs[i], ms=ms[i],
+                          plain_ms=plain_ms[i], library_ms=None,
+                          bound_ms=max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes", flops=flops, bytes=nbytes,
+                          shape=[R, N, C], heads_local=heads,
+                          hidden_local=hidden // TP,
+                          whole=not gpt2 and i == 2)
+        log(f"kernel {entry} shard mode tp={TP} rank 0 {tag} {(R, N, C)}: "
+            f"kernel_ms={ms[i]:.4f} plain_ms={plain_ms[i]:.4f} bound_ms="
+            f"{out[entry]['bound_ms']:.4f} ({out[entry]['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+            f"{out[entry]['bound_ms'] / ms[i]:.2f} of the bound"
+            + (" (the fuser's attention backward runs whole)"
+               if out[entry]["whole"] else ""))
+    return errs, out
+
+
+FB_KEYS = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+           "attn.proj.weight", "attn.proj.bias", "norm2.weight",
+           "norm2.bias", "mlp.mlp.0.weight", "mlp.mlp.0.bias",
+           "mlp.mlp.2.weight", "mlp.mlp.2.bias")
+
+
+def phase_tp_kernels(peaks, gen):
+    """The training entries in shard mode (rows 7, 8 and 11-15 at tp = 2;
+    row 9 runs whole): the fuser block at R = 4096 rows of 5 tokens, C 1024,
+    hidden 4096 and the GPT-2 layer at B = 256 samples of 16 tokens, C 2048,
+    4 heads, hidden 8192, in bf16 (timed: rank 0's local work) and in fp32
+    at a reduced batch (check_tp_layer). Returns {entry: numbers}."""
+    import torch
+    out = {}
+    for gpt2, shape, small in ((False, (4096, 5, 1024, 4, 4096), 512),
+                               (True, (256, 16, 2048, 4, 8192), 32)):
+        R, N, C, H, hidden = shape
+        check_tp_layer("fp32", torch.float32, gpt2, small, N, C, H, hidden,
+                       gen)
+        torch.cuda.empty_cache()
+        _, timed = check_tp_layer("bf16", torch.bfloat16, gpt2, R, N, C, H,
+                                  hidden, gen, peaks)
+        out.update(timed)
+        torch.cuda.empty_cache()
+    return out
 
 
 # the entries redesigned on the wgmma / TMA GEMM and the sequence attention:
@@ -5290,7 +5659,9 @@ def phase_pipeline():
         {"kind": "eval", "name": "val", "expt": pexpt,
          "overrides": list(LAUNCH_OVERRIDES), "batch": 8, "seed": 0,
          "weights": model_path}], PIPE_STAGES)
-    os.remove(one_path)
+    # the one process stays the reference of phase 15 (its state file too)
+    reference = {"record": one, "spans": spans, "path": one_path,
+                 "lrs": lrs}
     flagship = {"one_process_step_ms": one["step_ms"],
                 "one_process_peak_gb": one["peak_bytes"] / 2 ** 30,
                 "one_process_losses": [l["total_loss"] for l in one["losses"]],
@@ -5441,6 +5812,183 @@ def phase_pipeline():
     torch.cuda.empty_cache()
 
     numbers["seconds"] = time.perf_counter() - t_phase
+    return launches, numbers, reference
+
+
+# -- 15. tensor and sequence parallelism --------------------------------------
+
+TP_DIR = os.path.join(REPO, "build", "tp")
+TP_DRYRUN_N = 8
+TP_DRYRUN_TIMEOUT = 600   # seconds the dry run may take
+# the flagship at data1 x model2 against one process: each tensor as phase
+# 14 holds it (_held); the losses within 1e-3 relative (one rounding of
+# each partial sum, in another order than one process's sum)
+TP_TOL = {"loss_rel": 1e-3, "update_rel": PIPE_TOL["bf16"]["update_rel"]}
+# the dry run's modes at n = 8, in the JAX driver's order
+TP_DRYRUN_MODES = ("pure-DP)", "2-D data4xmodel2)", "2-D data4xmodel2+SP)",
+                   "DP+ZeRO-1)", "pure-DP x grad_accum=2)",
+                   "pipeline 4-stage 8-layer)",
+                   "data4xpipe2 (train.pipeline_stages))",
+                   "3-axis single-device reference)",
+                   "3-axis data2xmodel2xpipe2)",
+                   "3-axis data x model x pipe): loss matches")
+
+
+def _tp_expected(depth, layers, steps):
+    """A data1 x model2 rank's launches in shard mode: each GPT-2 layer's
+    forward halves (2), MLP and attention backward, each fuser block's
+    forward and MLP backward, a step; the fuser's attention backward runs
+    whole (counted in launches, not here)."""
+    return {"fused_gpt2_train_fwd": 2 * layers * steps,
+            "fused_gpt2_train_bwd_mlp": layers * steps,
+            "fused_gpt2_train_bwd_attn": layers * steps,
+            "fused_block_train_fwd": depth * steps,
+            "fused_block_train_bwd_mlp": depth * steps,
+            "fused_block_train_bwd_attn": 0}
+
+
+def phase_tp(reference):
+    """15. Tensor and sequence parallelism on the one card, ranks as gloo
+    processes (``--device cuda:0``). (i) The flagship at full width
+    (expts/01_SA-Fuser_ek100_train.txt in bf16 over fp32 masters, its
+    dropout, drop-path and mixup) at data1 x model2
+    (``parallel.sharding.make_mesh_2d(1, 2)``), 64 clips a step, 3 steps,
+    against phase 14's one process over the same global batches: losses
+    within 1e-3 relative, each tensor as phase 14 holds it, every tensor a
+    rank holds whole the same byte for byte on both ranks; each rank's
+    parameter and optimizer-state bytes beside the one process's, its peak
+    memory, and every training entry's launches in shard mode a step. The
+    same run with a planted fault (``dp_check``'s ``unsummed_norm_grads``:
+    the sharded layers' LayerNorm gradients left partial) must fail both
+    holds; its reading stands beside the sound run's margin. (ii)
+    ``python -m afft_tpu_torch.tools.dryrun_multichip -n 8`` on the card:
+    every mode of the JAX driver, the 3-axis loss within rtol 1e-3 of one
+    process's. Both ranks share one card through host copies: no TP speed.
+    Returns (shard-mode launches by run and rank, numbers)."""
+    import torch
+    from afft_tpu_torch import serve
+
+    t_phase = time.perf_counter()
+    os.makedirs(TP_DIR, exist_ok=True)
+    link = os.path.join(TP_DIR, "tests")
+    if not os.path.exists(link):
+        os.symlink(os.path.join(REPO, "tests"), link)
+    bf16 = "model.compute_dtype=bfloat16"
+    expt = os.path.join(EXPTS, TRAIN_EXPT)
+    cfg = serve.load_config(expt, [bf16])
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    one, spans = reference["record"], reference["spans"]
+    job = _pipe_job("flagship-tp2", expt, [bf16], TRAIN_CLASSES,
+                    reference["lrs"], tp=2, keep_state=False,
+                    against_file=reference["path"])
+    planted = {**job, "name": "flagship-tp2-planted",
+               "plant": "unsummed_norm_grads"}
+    out = os.path.join(TP_DIR, "flagship-out")
+    spec = os.path.join(TP_DIR, "flagship-spec.json")
+    with open(spec, "w") as f:
+        json.dump({"device": "cuda:0", "out": out, "jobs": [job, planted]},
+                  f)
+    _, secs = _logged_run(_dp_torchrun(2, ["afft_tpu_torch.tools.dp_check",
+                                           spec]), TP_DIR, "flagship",
+                          LAUNCH_TIMEOUT)
+    ranks, franks = ([torch.load(os.path.join(out, f"{j['name']}.rank{r}.pt"),
+                                 weights_only=False) for r in range(2)]
+                     for j in (job, planted))
+    os.remove(reference["path"])
+    ok, held, words = _held(ranks[0], one, spans, TP_TOL)
+    alike = ranks[0]["replicated_digests"] == ranks[1]["replicated_digests"]
+    fok, fheld, fwords = _held(franks[0], one, spans, TP_TOL)
+    parted = sorted(k for k, v in franks[0]["replicated_digests"].items()
+                    if v != franks[1]["replicated_digests"][k])
+    fault = {"worst_tensors_of_update": fheld["worst_tensors_of_update"],
+             "loss_rel_diff": fheld["loss_rel_diff"],
+             "worst_of_limit": (fheld["worst_tensors_of_update"][0][0]
+                                / TP_TOL["update_rel"]),
+             "whole_tensors_parted": len(parted),
+             "whole_tensors": len(franks[0]["replicated_digests"]),
+             "sound_margin": (TP_TOL["update_rel"]
+                              / held["worst_tensors_of_update"][0][0])}
+    del franks
+    expected = _tp_expected(depth, layers, PIPE_STEPS)
+    for rec in ranks:
+        got = {k: rec["tp_launches"][k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"tp: rank {rec['rank']} launched {got} in "
+                                 f"shard mode, expected {expected}")
+        # every launch: the shard-mode ones and the fuser's attention
+        # backward whole, no other kernel
+        _counts_ok(f"tp rank {rec['rank']}", rec["launches"], {
+            **expected, "fused_block_train_bwd_attn": depth * PIPE_STEPS})
+    share_params = [r["param_bytes"] / one["param_bytes"] for r in ranks]
+    share_state = [r["state_bytes"] / one["state_bytes"] for r in ranks]
+    log(f"tp (i) flagship, data1 x model2 over gloo on cuda:0, {PIPE_BATCH} "
+        f"clips a step, {PIPE_STEPS} steps, vs one process over the same "
+        f"batches: {words}; parameter bytes by rank "
+        f"{[r['param_bytes'] for r in ranks]} = {_rounded(share_params, 3)} "
+        f"of one process's {one['param_bytes']}, optimizer-state bytes "
+        f"{[r['state_bytes'] for r in ranks]} = {_rounded(share_state, 3)} of "
+        f"{one['state_bytes']}; peak GB "
+        f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in ranks]} vs "
+        f"{one['peak_bytes'] / 2 ** 30:.2f}; shard-mode launches per rank in "
+        f"{PIPE_STEPS} steps {expected}; step ms rank 0 "
+        f"{_rounded(ranks[0]['step_ms'])} vs one process "
+        f"{_rounded(one['step_ms'])} (both ranks share one card through host "
+        f"copies: no TP speed); whole tensors alike on both ranks: {alike} "
+        f"({len(ranks[0]['replicated_digests'])} tensors); {secs:.1f} s for "
+        f"this and the planted run")
+    log(f"tp (i) planted fault (the sharded layers' LayerNorm gradients "
+        f"left unsummed over the model group), same run: {fwords}; worst "
+        f"tensor {fault['worst_of_limit']:.3g} times the limit "
+        f"{TP_TOL['update_rel']}; whole tensors parted between the ranks "
+        f"{len(parted)} of {fault['whole_tensors']}; the sound run's worst "
+        f"tensor leaves a margin of {fault['sound_margin']:.3g} times")
+    if not (ok and alike and max(share_params) < 0.6
+            and max(share_state) < 0.6):
+        raise AssertionError("tp: the flagship at data1 x model2 differs "
+                             "from one process, its ranks' whole tensors "
+                             "differ, or a rank holds more than its shards")
+    if fok or not parted:
+        raise AssertionError("tp: the planted fault passed a hold: the "
+                             "checks cannot see it")
+    numbers = {"flagship_data1xmodel2": {
+        **held, "run_s": secs,
+        "param_bytes_by_rank": [r["param_bytes"] for r in ranks],
+        "param_share_of_one_process": share_params,
+        "state_bytes_by_rank": [r["state_bytes"] for r in ranks],
+        "state_share_of_one_process": share_state,
+        "peak_gb_by_rank": [r["peak_bytes"] / 2 ** 30 for r in ranks],
+        "step_ms_by_rank": [r["step_ms"] for r in ranks],
+        "one_process_step_ms": one["step_ms"],
+        "tp_launches_per_rank": expected, "whole_tensors_alike": alike,
+        "planted_fault": fault}}
+    launches = {"flagship_data1xmodel2": [r["tp_launches"] for r in ranks]}
+    del ranks
+    torch.cuda.empty_cache()
+
+    # (ii) the dry run: every mode on 8 processes on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "afft_tpu_torch.tools.dryrun_multichip", "-n",
+         str(TP_DRYRUN_N)], cwd=REPO, capture_output=True, text=True,
+        timeout=TP_DRYRUN_TIMEOUT)
+    dry_s = time.perf_counter() - t0
+    with open(os.path.join(TP_DIR, "dryrun.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith("dryrun_multichip(")]
+    for line in lines:
+        log(f"tp (ii) {line}")
+    want = list(TP_DRYRUN_MODES)
+    if proc.returncode != 0 or len(lines) != len(want) or not all(
+            m in l for l, m in zip(lines, want)):
+        raise AssertionError(f"tp: dryrun_multichip -n {TP_DRYRUN_N} failed "
+                             f"(rc {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    numbers["dryrun_multichip"] = {"n": TP_DRYRUN_N, "run_s": dry_s,
+                                   "lines": lines}
+    log(f"tp (ii) dryrun_multichip -n {TP_DRYRUN_N} on the card: every mode "
+        f"ok in {dry_s:.1f} s")
+    numbers["seconds"] = time.perf_counter() - t_phase
     return launches, numbers
 
 
@@ -5490,6 +6038,9 @@ def main():
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1)
         kernels.update(phase_train_kernels(peaks, gen))
+        # rows 7, 8 and 11-15 in shard mode (tensor parallelism, tp = 2)
+        for name, numbers in phase_tp_kernels(peaks, gen).items():
+            kernels[name]["tp"] = numbers
 
         # 5. serve
         launches, serve_numbers = phase_serve()
@@ -5564,18 +6115,28 @@ def main():
         # 14. pipeline parallelism (GPipe stages as gloo processes on the
         # card: the flagship against one process, data2 x pipe2 with
         # ZeRO-1, the launcher and -m test on its checkpoint)
-        pipeline_launches, pipeline = phase_pipeline()
+        pipeline_launches, pipeline, reference = phase_pipeline()
         for k in kernels.values():
             k["pipeline_launches"] = {
                 run: [counts.get(k["name"], 0) for counts in by_rank]
                 for run, by_rank in pipeline_launches.items()}
         log(json.dumps({"pipeline": pipeline}))
+
+        # 15. tensor and sequence parallelism (model ranks as gloo processes
+        # on the card: the flagship at data1 x model2 against phase 14's one
+        # process, the dry run of every parallel layout on 8 processes)
+        tp_launches, tp = phase_tp(reference)
+        for k in kernels.values():
+            k["tp_launches"] = {
+                run: [counts.get(k["name"], 0) for counts in by_rank]
+                for run, by_rank in tp_launches.items()}
+        log(json.dumps({"tp": tp}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 15. report
+    # 16. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
@@ -5584,13 +6145,14 @@ def main():
          **{k: e[k] for k in ("main_path", "plain_path_launches",
                               "launcher_launches", "eval_launches",
                               "variants_launches", "serving_graph_launches",
-                              "options_launches", "pipeline_launches")
+                              "options_launches", "pipeline_launches",
+                              "tp_launches")
             if k in e},
          **{label: {k: sub[k] for k in keys[5:]}
             for label, sub in e.items()
             if isinstance(sub, dict)
             and label not in ("redesign", "serving_graph_launches",
-                              "pipeline_launches")}}
+                              "pipeline_launches", "tp_launches")}}
         for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
