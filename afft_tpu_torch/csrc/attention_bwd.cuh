@@ -62,7 +62,9 @@
 // change O's summation order, and the fuser's operands are fp32). No
 // atomics: the outputs are the same bit for bit from run to run.
 //
-// Limits: 1 <= N <= 32, H * hd = C (any hd), fp32 or bf16; rows of N
+// Limits: 1 <= N <= 32 with ROUND (the GPT-2 layer), 1 <= N <= 8 without
+// (the fuser: past 8 tokens its forward and backward take the long route,
+// long_attention.cu), H * hd = C (any hd), fp32 or bf16; rows of N
 // consecutive tokens.
 
 #pragma once
@@ -495,7 +497,7 @@ attention_bwd(const T* __restrict__ qkv, const float* __restrict__ mask,
 
 // O (n_seq * N, C) and dqkv (n_seq * N, 3C) from qkv, the optional (N, N)
 // mask and the fp32 dao; ROUND the GPT-2 layer's arithmetic. Returns
-// cudaErrorInvalidValue for N outside 1..32 (nothing launched).
+// cudaErrorInvalidValue for N outside 1..ab_max_n (nothing launched).
 template <typename T, bool ROUND, int NMAX>
 static cudaError_t launch_attention_bwd_n(const T* qkv, const float* mask,
                                           const float* dao, T* dqkv, T* out,
@@ -528,23 +530,39 @@ static cudaError_t launch_attention_bwd_n(const T* qkv, const float* mask,
   return cudaGetLastError();
 }
 
+// The longest N of each layer's short route: the fuser's ends at 8 tokens
+// (its forward's rows kernel; past it both take long_attention), the GPT-2
+// layer's (ROUND) at 32.
+template <bool ROUND>
+constexpr int ab_max_n() {
+  return ROUND ? AB_MAX_N : 8;
+}
+
 template <typename T, bool ROUND>
 static cudaError_t launch_attention_bwd(const T* qkv, const float* mask,
                                         const float* dao, T* dqkv, T* out,
                                         int n_seq, int N, int H, int hd,
                                         DropSite drop, cudaStream_t stream) {
-  if (N < 1 || N > AB_MAX_N || hd < 1 || H < 1) return cudaErrorInvalidValue;
+  if (N < 1 || N > ab_max_n<ROUND>() || hd < 1 || H < 1)
+    return cudaErrorInvalidValue;
   if (N <= 4)
     return launch_attention_bwd_n<T, ROUND, 4>(qkv, mask, dao, dqkv, out,
                                                n_seq, N, H, hd, drop, stream);
-  if (N <= 8)
+  if constexpr (ROUND) {
+    if (N <= 8)
+      return launch_attention_bwd_n<T, ROUND, 8>(qkv, mask, dao, dqkv, out,
+                                                 n_seq, N, H, hd, drop,
+                                                 stream);
+    if (N <= 16)
+      return launch_attention_bwd_n<T, ROUND, 16>(qkv, mask, dao, dqkv, out,
+                                                  n_seq, N, H, hd, drop,
+                                                  stream);
+    return launch_attention_bwd_n<T, ROUND, 32>(qkv, mask, dao, dqkv, out,
+                                                n_seq, N, H, hd, drop, stream);
+  } else {
     return launch_attention_bwd_n<T, ROUND, 8>(qkv, mask, dao, dqkv, out,
                                                n_seq, N, H, hd, drop, stream);
-  if (N <= 16)
-    return launch_attention_bwd_n<T, ROUND, 16>(qkv, mask, dao, dqkv, out,
-                                                n_seq, N, H, hd, drop, stream);
-  return launch_attention_bwd_n<T, ROUND, 32>(qkv, mask, dao, dqkv, out,
-                                              n_seq, N, H, hd, drop, stream);
+  }
 }
 
 }  // namespace afft

@@ -19,12 +19,14 @@
 // gemm_sm90.cuh reading the nn.Linear (out, in) weights where they lie, as
 // its K-major B operand (gemm_nk); in fp32 gemm_f32. The attention
 // (fuser_attention.cuh fuser_attention_rows) reads each element of qkv once,
-// 16 bytes at a time, into shared memory. The intermediates (qkv, the MLP
+// 16 bytes at a time, into shared memory; past 8 tokens it runs on the long
+// route (long_attention.cuh, fp32 probabilities). The intermediates (qkv, the MLP
 // hidden) do round-trip through HBM/L2, which adds ~0.5 GB of traffic
 // (~0.15 ms at 3.35 TB/s) the TPU kernel avoided.
 //
-// Limits: any R, N <= 8, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0,
-// fp32 or bf16; norm affine and qkv bias optional (null pointers).
+// Limits: any R and N (past 8 tokens hd <= LA_MAX_HD), H * hd = C (any hd),
+// C % 8 == 0, hidden % 8 == 0, fp32 or bf16; norm affine and qkv bias
+// optional (null pointers).
 
 #include "fuser_attention.cuh"
 #include "gemm_sm90.cuh"
@@ -45,8 +47,13 @@ static int run_fused_block(const T* x, const T* ln1g, const T* ln1b,
   AFFT_CHECK_LAUNCH();
   AFFT_CHECK((gemm_nk<EPI_BIAS, T, T, T>(tmp, wqkv, M, 3 * C, C,
                                          EpiArgs{bqkv, nullptr, qkv}, s)));
-  AFFT_CHECK(launch_fuser_attention_rows<T>(qkv, mask, tmp, R, N, H, C / H,
-                                            s));
+  if (N <= FR_MAX_N) {
+    AFFT_CHECK(launch_fuser_attention_rows<T>(qkv, mask, tmp, R, N, H, C / H,
+                                              s));
+  } else {  // the long route: fp32 probabilities, as the rows kernel's
+    AFFT_CHECK((launch_long_attention<T, false, false>(
+        packed_long_attn<T>(qkv, mask, tmp, R, N, H, C / H, DropSite{}), s)));
+  }
   AFFT_CHECK((gemm_nk<EPI_BIAS_RES, T, T, float>(tmp, wproj, M, C, C,
                                                  EpiArgs{bproj, x, y}, s)));
   launch_layernorm<float, T>(y, ln2g, ln2b, tmp, M, C, eps, s);

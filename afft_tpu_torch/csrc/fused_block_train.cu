@@ -31,8 +31,9 @@
 // (attention_bwd.cuh) recomputes its output bit for bit for dWproj and
 // takes dqkv in the same pass (bound by 377 MB, ~0.11 ms).
 //
-// Limits: any R, 1 <= N <= 8 (the attention's), H * hd = C (any hd), C % 8
-// == 0, hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
+// Limits: any R and N (past 8 tokens the attention's long route,
+// long_attention.cuh: hd <= LA_MAX_HD), H * hd = C (any hd), C % 8 == 0,
+// hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
 // contiguous, 16-byte aligned operands (the wrapper checks them); norm
 // affines and the qkv bias optional.
 
@@ -90,53 +91,4 @@ extern "C" int afft_draw_masks(const int* seeds, const int* thr,
   const int sites[5] = {SITE_ATTN, SITE_PROJ, SITE_DP1, SITE_MLP, SITE_DP2};
   return fill_masks(rates_of(seeds, thr, inv, N, C, H), bufs, n, sites, 5,
                     static_cast<cudaStream_t>(stream));
-}
-
-// The training attention alone, for its checks and timings (no model path
-// calls these: the entries launch it inside their own sequences). gpt2
-// selects the layer's arithmetic: 1 the GPT-2 layer's (staged_attention,
-// attention_bwd ROUND), 0 the fuser's. qkv (R * N, 3 * H * hd), mask fp32
-// (N, N) or null, dao fp32 (R * N, H * hd); seeds / thr / inv as the
-// entries' (the attention site, rate 0). afft_attention_drop: the forward,
-// out (R * N, H * hd); afft_attention_drop_bwd: dqkv (R * N, 3 * H * hd)
-// and the recomputed forward output out.
-extern "C" int afft_attention_drop(int dtype, int gpt2, const void* qkv,
-                                   const void* mask, void* out,
-                                   const int* seeds, const int* thr,
-                                   const float* inv, int R, int N, int H,
-                                   int hd, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropSite d = site_of(rates_of(seeds, thr, inv, N, H * hd, H),
-                             SITE_ATTN);
-  const float* m = static_cast<const float*>(mask);
-  return by_dtype(dtype, [&](auto tag) {
-    typedef typename std::remove_pointer<decltype(tag)>::type T;
-    const T* q = static_cast<const T*>(qkv);
-    T* o = static_cast<T*>(out);
-    return (int)(gpt2 ? attention_drop<T, true>(q, m, o, R, N, H, hd, d, s)
-                      : attention_drop<T, false>(q, m, o, R, N, H, hd, d, s));
-  });
-}
-
-extern "C" int afft_attention_drop_bwd(int dtype, int gpt2, const void* qkv,
-                                       const void* mask, const void* dao,
-                                       void* dqkv, void* out,
-                                       const int* seeds, const int* thr,
-                                       const float* inv, int R, int N, int H,
-                                       int hd, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropSite d = site_of(rates_of(seeds, thr, inv, N, H * hd, H),
-                             SITE_ATTN);
-  const float* m = static_cast<const float*>(mask);
-  const float* g = static_cast<const float*>(dao);
-  return by_dtype(dtype, [&](auto tag) {
-    typedef typename std::remove_pointer<decltype(tag)>::type T;
-    const T* q = static_cast<const T*>(qkv);
-    T* dq = static_cast<T*>(dqkv);
-    T* o = static_cast<T*>(out);
-    return (int)(gpt2 ? launch_attention_bwd<T, true>(q, m, g, dq, o, R, N, H,
-                                                      hd, d, s)
-                      : launch_attention_bwd<T, false>(q, m, g, dq, o, R, N,
-                                                       H, hd, d, s));
-  });
 }

@@ -22,14 +22,16 @@
 // cores (~0.14 ms and ~0.28 ms at 989 TFLOP/s). In bf16 every GEMM of both
 // halves runs on the wgmma / TMA GEMM (gemm_sm90.cuh: c_fc with the gelu_new
 // epilogue, the c_projs with the residual), and the causal attention is
-// staged through shared memory (staged_attention.cuh). In fp32 every product
-// is gemm_f32 (true fp32, for the parity checks).
+// staged through shared memory (staged_attention.cuh) up to 32 tokens, past
+// that on the long route (long_attention.cuh). In fp32 every product is
+// gemm_f32 (true fp32, for the parity checks).
 //
-// Limits: any B, T <= 32, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0,
-// fp32 or bf16.
+// Limits: any B and T (past 32 tokens hd <= LA_MAX_HD), H * hd = C (any
+// hd), C % 8 == 0, hidden % 8 == 0, fp32 or bf16.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "long_attention.cuh"
 #include "staged_attention.cuh"
 
 using namespace afft;
@@ -45,9 +47,15 @@ static int run_attn_half(const T* x, const T* ln1g, const T* ln1b,
   AFFT_CHECK_LAUNCH();
   AFFT_CHECK((gemm_kn<EPI_BIAS, T>(tmp, wqkv, M, 3 * C, C,
                                     EpiArgs{bqkv, nullptr, qkv}, s)));
-  launch_staged_attention<T, false>(qkv, mask, tmp, B, Tn, H, C / H,
-                                    DropSite{}, s);
-  AFFT_CHECK_LAUNCH();
+  if (Tn <= AS_MAX_N) {
+    launch_staged_attention<T, false>(qkv, mask, tmp, B, Tn, H, C / H,
+                                      DropSite{}, s);
+    AFFT_CHECK_LAUNCH();
+  } else {  // the long route: the probabilities rounded, as staged's
+    AFFT_CHECK((launch_long_attention<T, true, false>(
+        packed_long_attn<T>(qkv, mask, tmp, B, Tn, H, C / H, DropSite{}),
+        s)));
+  }
   AFFT_CHECK((gemm_kn<EPI_BIAS_RES, T>(tmp, wproj, M, C, C,
                                         EpiArgs{bproj, x, out}, s)));
   return 0;

@@ -38,7 +38,8 @@
 // (attention_bwd.cuh, ROUND) recomputes its output for dWproj and takes dqkv
 // in the same pass.
 //
-// Limits: any B, 1 <= T <= 32, H * hd = C (any hd), C % 8 == 0,
+// Limits: any B and T (past 32 tokens the attention's long route,
+// long_attention.cuh: hd <= LA_MAX_HD), H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
 // contiguous, 16-byte aligned operands (the wrapper checks them).
 

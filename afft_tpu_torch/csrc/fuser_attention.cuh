@@ -17,7 +17,8 @@
 // (hd a multiple of 8 in bf16, of 4 in fp32, with row strides to match;
 // else one element at a time, so any hd is taken), into shared memory, and
 // both products run from there:
-//   * fuser_attention_rows (row 1, S <= 8, packed qkv): a block stages up to
+//   * fuser_attention_rows (row 1, S <= 8, packed qkv; past 8 tokens the
+//     entries take long_attention.cuh): a block stages up to
 //     32 tokens of consecutive (row, head) pairs in chunks of 128 head
 //     columns; one thread a (query, key) pair keeps its partial score in a
 //     register across the chunks, one thread a query takes the softmax, and
@@ -26,7 +27,8 @@
 //     dropout multipliers first: the fuser's training forward
 //     (train_block.cuh), whose output attention_bwd.cuh recomputes bit for
 //     bit in the attention backward.
-//   * fuser_attention_seq_mma (rows 4, 5, 6 in bf16, Nk <= 1024): q, k and
+//   * fuser_attention_seq_mma (rows 4, 5, 6 in bf16, Nk <= 1024; past that
+//     the long route of long_attention.cuh): q, k and
 //     v are three strided operands (sequence, token and head strides: packed
 //     qkv rows, a column slice of a packed projection, (B, Tmax, H, hd)
 //     caches, three (M, C) buffers), nothing is copied first. A block takes
@@ -67,6 +69,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "long_attention.cuh"    // AttnStrides, the route past 1,024 keys
 #include "staged_attention.cuh"  // unpack16, pack16, dot_rows
 
 namespace afft {
@@ -222,16 +225,13 @@ static cudaError_t launch_fuser_attention_rows(const T* qkv, const float* mask,
 }
 
 // ---------------------------------------------------------------------------
-// the sequence attention: Nq queries over 1 <= Nk <= 1024 keys, q / k / v
-// strided, probabilities rounded to T (rows 4, 5, 6)
+// the sequence attention: Nq queries over 1 <= Nk <= 1024 keys (past that,
+// long_attention.cuh), q / k / v strided, probabilities rounded to T (rows
+// 4, 5, 6)
 // ---------------------------------------------------------------------------
 
-// Element (seq, token, head, j) of an operand lies at seq * b + token * t +
-// head * h + j: packed qkv rows, column slices of a packed projection and
-// (B, Tmax, H, hd) caches are all read where they are.
-struct AttnStrides {
-  long long b, t, h;  // elements between sequences, tokens and heads
-};
+// AttnStrides (long_attention.cuh): the operands' sequence, token and head
+// strides.
 
 constexpr int FS_THREADS = 256;  // 8 warps
 constexpr int FS_KC = 64;        // keys a chunk
@@ -770,8 +770,9 @@ static bool attn_rows_aligned(const T* q, const T* k, const T* v,
 // decode, the decoder block at S 10), of 32 up to 32 queries or beyond 256
 // keys (64 columns, three stages), else of 64 (64 columns, two stages), so
 // the tile's scores stay <= 64 KB and 4 blocks fit an SM; fp32 on the CUDA
-// cores, 16 queries a tile. Returns cudaErrorInvalidValue for Nq < 1 or Nk
-// outside 1..1024 (nothing launched).
+// cores, 16 queries a tile. Past 1,024 keys the long route
+// (long_attention.cuh, the probabilities rounded to T as here). Returns
+// cudaErrorInvalidValue for Nq < 1 or Nk < 1 (nothing launched).
 template <typename T>
 static cudaError_t launch_fuser_attention_seq(const T* q, const T* k,
                                               const T* v, AttnStrides qs,
@@ -780,7 +781,16 @@ static cudaError_t launch_fuser_attention_seq(const T* q, const T* k,
                                               int n_seq, int Nq, int Nk,
                                               int H, int hd,
                                               cudaStream_t stream) {
-  if (Nq < 1 || Nk < 1 || Nk > FS_MAX_KEYS) return cudaErrorInvalidValue;
+  if (Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+  if (Nk > FS_MAX_KEYS) {
+    LongAttn a{};
+    a.q = q, a.k = k, a.v = v;
+    a.qs = qs, a.ks = ks, a.vs = vs;
+    a.mask = mask, a.out = out;
+    a.n_seq = n_seq, a.Nq = Nq, a.Nk = Nk, a.H = H, a.hd = hd;
+    a.scale = (float)(1.0 / sqrt((double)hd));  // hd ** -0.5
+    return launch_long_attention<T, true, false>(a, stream);
+  }
   const bool vec = attn_rows_aligned<T>(q, k, v, qs, ks, vs, hd);
   if constexpr (std::is_same<T, bf16>::value) {
     if (Nq <= 16 || Nk > 512)

@@ -38,8 +38,9 @@
 // buffers. The decoder block at S = 10 is 14 short launches over 2,560 rows,
 // so launch latency and partly filled GEMM tiles weigh on it.
 //
-// Limits: any B, 1 <= S <= 1024, H * hd = C (any hd), C % 8 == 0,
-// hidden % 8 == 0, fp32 or bf16; every LayerNorm affine and the qkv / w_q /
+// Limits: any B and S >= 1 (past 1,024 tokens both attentions take the long
+// route of long_attention.cuh, hd <= LA_MAX_HD), H * hd = C (any hd), C % 8
+// == 0, hidden % 8 == 0, fp32 or bf16; every LayerNorm affine and the qkv / w_q /
 // w_k / w_v biases are optional (null pointers); the decoder's memory
 // stream has x's shape.
 

@@ -1,4 +1,5 @@
-// staged_attention: softmax attention over S <= 32 tokens for the GPT-2
+// staged_attention: softmax attention over S <= 32 tokens (past that,
+// long_attention.cuh) for the GPT-2
 // entries (the serving attention half, fused_gpt2.cu, and the training
 // layer, train_block.cuh with GPT2 = true), one block per (sequence, head).
 //
@@ -32,6 +33,7 @@ namespace afft {
 
 constexpr int AS_THREADS = 256;  // 8 warps
 constexpr int AS_HC = 128;       // head columns a chunk
+constexpr int AS_MAX_N = 32;     // past it the entries take long_attention
 
 // 16 bytes of T as fp32, and back (round to nearest even, as from_f32)
 template <typename T>

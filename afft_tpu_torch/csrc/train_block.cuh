@@ -30,7 +30,10 @@
 // memory: staged_attention.cuh for the GPT-2 layer, fuser_attention.cuh's
 // rows kernel with dropout for the fuser; the attention backward of both is
 // attention_bwd.cuh, which recomputes the forward's output O bit for bit
-// for dWproj. In fp32 every product is gemm_f32 / gemm_tn_f32.
+// for dWproj. Past 8 tokens (the fuser) or 32 (GPT-2) the attention and its
+// backward take the long route (long_attention.cuh), whose backward
+// recomputes its own forward's O bit for bit. In fp32 every product is
+// gemm_f32 / gemm_tn_f32.
 //
 // The two layers (template flag GPT2) differ in four places:
 //   weights     fuser: nn.Linear (out, in), read as the (N, K) operand
@@ -85,8 +88,9 @@
 // whole layer's: the proj and MLP sites index the whole C, and the attention
 // site maps a local head to the global one (DropSite span / gap).
 //
-// Limits: any R, 1 <= N <= 8 for the fuser (its attention's) and 1 <= N <=
-// 32 for the GPT-2 layer, H * hd = C (any hd), C % 8 == 0, hidden % 8 == 0
+// Limits: any R, N >= 1 (past short_tokens hd <= LA_MAX_HD, and the
+// attention backward needs its stats / dsum scratch), H * hd = C (any hd),
+// C % 8 == 0, hidden % 8 == 0
 // (gemm_sm90's K % 8 and N % 8), fp32 or bf16; in bf16 every operand of a
 // product 16-byte aligned (the GEMM returns cudaErrorInvalidValue
 // otherwise); norm affines and the qkv bias optional (null pointers, and
@@ -98,6 +102,7 @@
 #include "common.cuh"
 #include "fuser_attention.cuh"
 #include "gemm_sm90.cuh"
+#include "long_attention.cuh"
 #include "staged_attention.cuh"
 
 namespace afft {
@@ -287,14 +292,26 @@ static cudaError_t row_fwd_gemm(const Shard& sh, bool partial, const T* a,
   return fwd_gemm<EPI_RES_DROP, GPT2, TRes, float>(a, w, M, N, K, ea, s);
 }
 
+// The longest N each layer's short attention kernels take: past it the
+// forward and the backward both take the long route (long_attention.cuh),
+// whose backward recomputes the long forward's output.
+template <bool GPT2>
+constexpr int short_tokens() {
+  return GPT2 ? AS_MAX_N : FR_MAX_N;
+}
+
 // The forward attention with dropout on the probabilities: staged for the
 // GPT-2 layer (p * keep rounded), the fuser attention's rows kernel with its
-// dropout for the fuser (fp32 probabilities, N <= 8). attention_bwd
-// recomputes its output with the same arithmetic.
+// dropout for the fuser (fp32 probabilities), up to short_tokens; past it
+// the long route with the same cast chain. attention_bwd and the long
+// backward recompute its output with the same arithmetic.
 template <typename T, bool GPT2>
 static cudaError_t attention_drop(const T* qkv, const float* mask, T* out,
                                   int R, int N, int H, int hd, DropSite drop,
                                   cudaStream_t s) {
+  if (N > short_tokens<GPT2>())
+    return launch_long_attention<T, GPT2, true>(
+        packed_long_attn<T>(qkv, mask, out, R, N, H, hd, drop), s);
   if constexpr (GPT2) {
     launch_staged_attention<T, true>(qkv, mask, out, R, N, H, hd, drop, s);
     return cudaGetLastError();
@@ -302,6 +319,30 @@ static cudaError_t attention_drop(const T* qkv, const float* mask, T* out,
     return launch_fuser_attention_rows<T, true>(qkv, mask, out, R, N, H, hd,
                                                 s, drop);
   }
+}
+
+// Its backward: dqkv, and the forward's output O into out (bit for bit).
+// Past short_tokens the long backward, with stats (R * H * N, 2) and dsum
+// (R * H * N) fp32 scratch (cudaErrorInvalidValue without them).
+template <typename T, bool GPT2>
+static cudaError_t attention_drop_bwd(const T* qkv, const float* mask,
+                                      const float* dao, T* dqkv, T* out,
+                                      float* stats, float* dsum, int R, int N,
+                                      int H, int hd, DropSite drop,
+                                      cudaStream_t s) {
+  if (N <= short_tokens<GPT2>())
+    return launch_attention_bwd<T, GPT2>(qkv, mask, dao, dqkv, out, R, N, H,
+                                         hd, drop, s);
+  LongAttn a = packed_long_attn<T>(qkv, mask, out, R, N, H, hd, drop);
+  const long long A = (long long)H * hd;
+  a.stats = stats;
+  a.dao = dao;
+  a.dsum = dsum;
+  a.dq = dqkv;
+  a.dk = dqkv + A;
+  a.dv = dqkv + 2 * A;
+  a.dqs = a.dks = a.dvs = a.qs;
+  return launch_long_attention_bwd<T, GPT2, true>(a, s);
 }
 
 // dX = dY . W^T through a weight read where it lies, on the wgmma / TMA
@@ -441,7 +482,9 @@ static int run_bwd_mlp(const T* y, const T* dout, const T* pre1,
 // Scratch of the attention backward: tmp, dproj (M, C) T; dqkv (M, 3C) T;
 // dattn (M, C) fp32 (reused for dxn); mu, rstd, partial as above; tn the TN
 // route's partial tiles (tn_slices(I, J, M) * I * J fp32 for each weight
-// gradient's (I, J), or null: one slice). Writes the gradients TP_LN1G ..
+// gradient's (I, J), or null: one slice); stats (R * H * N, 2) and dsum (R *
+// H * N) fp32 past short_tokens (the long backward's), else null. Writes the
+// gradients TP_LN1G ..
 // TP_BPROJ. Under a shard (the GPT-2 layer's heads) dx is the fp32 partial
 // sum (R, N, C), the LN1 affine gradients partial sums; qkv and dqkv are (M,
 // 3A), dattn holds (M, A) and then dxn (M, C).
@@ -450,8 +493,9 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
                         const void* const* pv, float* const* gv,
                         const float* mask, const Rates& rt, const Shard& sh,
                         T* tmp, T* dproj, T* dqkv, float* dattn, float* mu,
-                        float* rstd, float* partial, float* tn, T* dx, int R,
-                        int N, int C, int H, float eps, cudaStream_t s) {
+                        float* rstd, float* partial, float* tn, float* stats,
+                        float* dsum, T* dx, int R, int N, int C, int H,
+                        float eps, cudaStream_t s) {
   const T* const* p = reinterpret_cast<const T* const*>(pv);
   const int M = R * N, A = sh.width(C);
   const size_t n = (size_t)M * C;
@@ -463,9 +507,9 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
   AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
       dproj, p[TP_WPROJ], M, A, C, EpiArgs{nullptr, nullptr, dattn}, s)));
   // dqkv, and the forward's attention output O into tmp
-  AFFT_CHECK((launch_attention_bwd<T, GPT2>(qkv, mask, dattn, dqkv, tmp, R, N,
-                                            H, A / H, site_of(rt, SITE_ATTN),
-                                            s)));
+  AFFT_CHECK((attention_drop_bwd<T, GPT2>(qkv, mask, dattn, dqkv, tmp, stats,
+                                          dsum, R, N, H, A / H,
+                                          site_of(rt, SITE_ATTN), s)));
   AFFT_CHECK((launch_dw<GPT2>(tmp, dproj, gv[TP_WPROJ], A, C, M, s, tn)));
   if (gv[TP_BPROJ] != nullptr) {
     launch_colsum<T>(dproj, partial, gv[TP_BPROJ], M, C, s);
@@ -569,8 +613,9 @@ static int train_bwd_mlp(int dtype, const void* y, const void* dout,
 }
 
 // bufs: tmp, dproj, dqkv, dattn, mu, rstd, partial scratch (run_bwd_attn);
-// dx (R, N, C) output (fp32 under a shard); tn scratch (run_bwd_attn; may
-// be null). A shard here splits the heads (the GPT-2 layer's).
+// dx (R, N, C) output (fp32 under a shard); tn, stats, dsum scratch
+// (run_bwd_attn; may be null). A shard here splits the heads (the GPT-2
+// layer's).
 template <bool GPT2>
 static int train_bwd_attn(int dtype, const void* x, const void* dy,
                           const void* qkv, const void* const* params,
@@ -591,7 +636,8 @@ static int train_bwd_attn(int dtype, const void* x, const void* dy,
         (const T*)x, (const T*)dy, (const T*)qkv, params, gv,
         (const float*)mask, rt, sh, (T*)bufs[0], (T*)bufs[1], (T*)bufs[2],
         (float*)bufs[3], (float*)bufs[4], (float*)bufs[5], (float*)bufs[6],
-        (float*)bufs[8], (T*)bufs[7], R, N, C, H, eps, s);
+        (float*)bufs[8], (float*)bufs[9], (float*)bufs[10], (T*)bufs[7], R, N,
+        C, H, eps, s);
   });
 }
 

@@ -420,6 +420,12 @@ class BaseFuturePredictor(nn.Module):
         training mode a multi-step rollout re-runs the whole sequence every
         step (dropout is drawn per pass), as the JAX package does."""
         check_impl(impl)
+        n_positions = self.gpt_model.wpe.weight.shape[0]
+        if feats.shape[1] + output_len - 1 > n_positions:
+            raise ValueError(
+                f"the predictor takes at most n_positions = {n_positions} "
+                f"tokens; T {feats.shape[1]} + output_len {output_len} - 1 "
+                "passes it")
         if output_len > 1 and not self.output_attentions \
                 and not self.training and self.pipeline_ctx is None \
                 and self.tensor_parallel is None:

@@ -29,6 +29,7 @@ show that the main path went through the kernels.
 
 from __future__ import annotations
 
+from . import _common
 from . import attention as _attention
 from . import fused_block as _fused_block
 from . import fused_block_train as _fused_block_train
@@ -57,7 +58,15 @@ def tp_launch_counts() -> dict:
     return dict(_fused_block_train.TP_LAUNCHES)
 
 
+def long_launch_counts() -> dict:
+    """The launches since the last reset whose attention took the long
+    route (``_common.check_length``), by wrapper; each is in
+    ``launch_counts`` too."""
+    return dict(_common.LONG_LAUNCHES)
+
+
 def reset_launches() -> None:
-    for counter in _COUNTERS + (_fused_block_train.TP_LAUNCHES,):
+    for counter in _COUNTERS + (_fused_block_train.TP_LAUNCHES,
+                                _common.LONG_LAUNCHES):
         for name in counter:
             counter[name] = 0

@@ -54,7 +54,7 @@ SIGNATURES = {
     "afft_draw_masks": [_IP, _IP, _FP, _PP] + [_I] * 4 + [_P],
     "afft_attention_drop": [_I, _I, _P, _P, _P, _IP, _IP, _FP] + [_I] * 4
                            + [_P],
-    "afft_attention_drop_bwd": [_I, _I] + [_P] * 5 + [_IP, _IP, _FP]
+    "afft_attention_drop_bwd": [_I, _I] + [_P] * 7 + [_IP, _IP, _FP]
                                + [_I] * 4 + [_P],
     "afft_gemm": [_I] * 4 + [_P] * 6 + [_IP, _IP, _FP] + [_I] * 4 + [_P],
     "afft_gemm_tn": [_P] * 4 + [_I] * 4 + [_P],

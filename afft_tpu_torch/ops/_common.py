@@ -71,6 +71,51 @@ def check_heads(name: str, C: int, num_heads: int, hidden=None) -> int:
     return hd
 
 
+# The longest sequence each short attention kernel takes: the fuser blocks'
+# rows kernel (csrc/fuser_attention.cuh FR_MAX_N, rows 1, 7, 9), the GPT-2
+# entries' staged attention (staged_attention.cuh AS_MAX_N, rows 2, 11, 15)
+# and the sequence attention over keys (fuser_attention.cuh FS_MAX_KEYS,
+# rows 4-6). Past it an entry takes the long route (long_attention.cuh).
+SHORT_LENGTH = {"fuser": 8, "gpt2": 32, "keys": 1024}
+LONG_MAX_HD = 768            # long_attention.cuh LA_MAX_HD
+LONG_MAX_QUERIES = 65535 * 16  # the long route's grid
+
+# The launches whose attention took the long route, by wrapper (each is in
+# its wrapper's own count too).
+LONG_LAUNCHES = dict.fromkeys((
+    "fused_block", "gpt2_attn_half", "fused_attention", "fused_seq_block",
+    "fused_decoder_block", "fused_block_train_fwd",
+    "fused_block_train_bwd_attn", "fused_gpt2_train_fwd",
+    "fused_gpt2_train_bwd_attn", "attention_drop", "attention_drop_bwd"), 0)
+
+
+def long_route(kind: str, n: int) -> bool:
+    """Whether an attention of ``kind`` over n tokens (keys for "keys")
+    takes the long route."""
+    return n > SHORT_LENGTH[kind]
+
+
+def check_length(name: str, kind: str, n: int, hd: int,
+                 n_queries=None) -> bool:
+    """The kernels' length rule, beside ``check_heads``: any length n >= 1
+    of tokens (``kind`` "fuser" or "gpt2") or keys ("keys"); past
+    ``SHORT_LENGTH[kind]`` the long route, which takes hd <=
+    ``LONG_MAX_HD`` (its shared memory) and up to ``LONG_MAX_QUERIES``
+    queries (``n_queries``, else n). Returns whether the long route
+    applies."""
+    if n < 1:
+        raise ValueError(f"{name}: needs at least one token, got {n}")
+    if not long_route(kind, n):
+        return False
+    queries = n if n_queries is None else n_queries
+    if hd > LONG_MAX_HD or queries > LONG_MAX_QUERIES:
+        raise ValueError(
+            f"{name}: past {SHORT_LENGTH[kind]} the long attention route "
+            f"takes hd <= {LONG_MAX_HD} and <= {LONG_MAX_QUERIES} queries "
+            f"(hd={hd}, queries={queries})")
+    return True
+
+
 class Shard(NamedTuple):
     """A training layer's tensor-parallel shard: model rank ``rank`` of
     ``count``; ``comm`` the model group's collectives, which the shard-mode

@@ -9,11 +9,13 @@ and the cross-attention of the CA-Fuser's module path.
 of the sequence attention of ``csrc/fuser_attention.cuh``, which the fuser
 blocks' self-attention and the decoder block's cross-attention run too: in
 bf16 a block takes a (sequence, head) and a tile of up to 64 queries
-(16 at the rollout), reads the tile's mask once, streams q and k, then v, through a ring of cp.async
-copies into shared memory and multiplies them on the tensor cores) on CUDA
-tensors, and runs ``attention_plain`` on CPU tensors. The kernel never
-forms the (B, H, Nq, Nk) weights, so a caller that asks for them
-(``return_weights=True``) gets the plain version on any device; that
+(16 at the rollout), reads the tile's mask once, streams q and k, then v,
+through a ring of cp.async copies into shared memory and multiplies them on
+the tensor cores; past 1,024 keys the long route of
+``csrc/long_attention.cuh``) on CUDA tensors, and runs ``attention_plain``
+on CPU tensors. The kernel never forms the (B, H, Nq, Nk) weights, so a
+caller that asks for them (``return_weights=True``) gets the plain version
+on any device; that
 dispatch is part of the function, as in the JAX package, and is counted in
 ``PLAIN_WEIGHTS_CALLS``.
 
@@ -23,9 +25,11 @@ rounded to the input dtype before the probability . v product, which
 accumulates in fp32; the output has q's dtype.
 
 Kernel limits: q (B, Nq, H, hd), k and v (B, Nk, H, hd) with Nq >= 1,
-1 <= Nk <= 1024 and any hd, float32 or bfloat16, all three on one device in
-one dtype. q, k and v may be strided views (a column slice of a packed qkv
-projection, a (B, Tmax, H, hd) cache): the kernel takes their sequence,
+Nk >= 1 and any hd (past 1,024 keys the long route of
+``csrc/long_attention.cuh``, the rule of ``_common.check_length``),
+float32 or bfloat16, all three on one device in one dtype. q, k and v may
+be strided views (a column slice of a packed qkv projection, a (B, Tmax,
+H, hd) cache): the kernel takes their sequence,
 token and head strides and only needs unit stride along hd; nothing is
 copied. The mask is an additive (Nq, Nk) tensor or None. A key that no
 query of a tile sees is never read (the rollout's unwritten cache slots),
@@ -51,13 +55,13 @@ from __future__ import annotations
 
 import torch
 
-from ._common import (DTYPE_CODES, check_no_grad, check_shape, launch,
-                      mask_operand, ptr, softmax_attention32)
+from ._common import (DTYPE_CODES, LONG_LAUNCHES, check_length,
+                      check_no_grad,
+                      check_shape, launch, mask_operand, ptr,
+                      softmax_attention32)
 
 LAUNCHES = {"fused_attention": 0}
 PLAIN_WEIGHTS_CALLS = {"attention_weights": 0}
-
-MAX_KEYS = 1024
 
 
 def attention_plain(q, k, v, mask=None, *, return_weights=False):
@@ -103,9 +107,9 @@ def fused_attention(q, k, v, mask=None):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask)[0]
     check_no_grad(name, (q, k, v))
-    if not (Nq >= 1 and 1 <= Nk <= MAX_KEYS):
-        raise ValueError(f"{name}: Nq={Nq}, Nk={Nk}; the kernel takes "
-                         f"Nq >= 1 and 1 <= Nk <= {MAX_KEYS}")
+    if Nq < 1:
+        raise ValueError(f"{name}: Nq={Nq}; the kernel takes Nq >= 1")
+    long = check_length(name, "keys", Nk, hd, n_queries=Nq)
     for key, t in (("q", q), ("k", k), ("v", v)):
         if hd > 1 and t.stride(3) != 1:
             raise ValueError(f"{name}: {key} must have unit stride along "
@@ -119,6 +123,7 @@ def fused_attention(q, k, v, mask=None):
            ptr(k), ptr(v), ptr(mask32), ptr(out), B, Nq, Nk, H, hd, *strides,
            device=q.device)
     LAUNCHES[name] += 1
+    LONG_LAUNCHES[name] += long
     return out
 
 

@@ -19,13 +19,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._common import (DTYPE_CODES, add_bias, attention32, check_heads,
-                      check_operands, check_shape, launch, layer_norm32,
-                      mask_operand, matmul32, ptr)
+from ._common import (DTYPE_CODES, LONG_LAUNCHES, SHORT_LENGTH, add_bias,
+                      attention32, check_heads, check_length, check_operands,
+                      check_shape, launch, layer_norm32, mask_operand,
+                      matmul32, ptr)
 
 LAUNCHES = {"fused_block": 0}
 
-MAX_TOKENS = 8
+# The fusers' dispatch (models/fusion.py), as the JAX package's
+# (pallas_block.py supported): rows of up to 8 tokens go through this block,
+# longer sequences through fused_seq_block. The kernel itself takes any N.
+MAX_TOKENS = SHORT_LENGTH["fuser"]
 
 
 def _unpack(params):
@@ -105,8 +109,7 @@ def fused_block(x, params, mask=None, *, num_heads: int, eps: float = 1e-6):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     R, N, C = x.shape
-    if not 1 <= N <= MAX_TOKENS:
-        raise ValueError(f"{name}: N={N} tokens, the kernel takes 1..8")
+    long = check_length(name, "fuser", N, check_heads(name, C, num_heads))
     tensors, hidden = block_operands(name, x, params, num_heads)
     mask32 = mask_operand(name, mask, N, x.device)
     out = torch.empty_like(x)
@@ -123,4 +126,5 @@ def fused_block(x, params, mask=None, *, num_heads: int, eps: float = 1e-6):
            ptr(y), ptr(h1), ptr(out), R, N, C, num_heads, hidden, eps,
            device=dev)
     LAUNCHES[name] += 1
+    LONG_LAUNCHES[name] += long
     return out

@@ -24,13 +24,16 @@ as (K, N), the weight gradients take its TN route (the attention branch's
 split over M into scratch this module allocates, ``_common.tn_slices``);
 the forward attention is ``csrc/fuser_attention.cuh``'s rows kernel with
 dropout, the attention backward ``csrc/attention_bwd.cuh``, which also
-recomputes the forward's attention output for dWproj (``attention_drop``
-and ``attention_drop_bwd`` reach those two kernels alone, for their checks;
-``attention_drop_bwd_plain`` is the backward's plain version). So a CUDA call
-takes the GEMM's operand rules, which ``block_operands`` applies and raises
-on: C and hidden multiples of 8 (K % 8, N % 8), one dtype (bf16, or fp32
-for the parity checks, on the fp32 GEMM), contiguous and 16-byte aligned
-tensors; at most 8 tokens.
+recomputes the forward's attention output for dWproj; past 8 tokens (32 for
+the GPT-2 layer) both take the long route of ``csrc/long_attention.cuh``,
+whose backward needs stats / dsum scratch (``long_scratch``) and recomputes
+its own forward's output (``attention_drop`` and ``attention_drop_bwd``
+reach those kernels alone, for their checks; ``attention_drop_bwd_plain``
+is the backward's plain version). So a CUDA call takes the GEMM's operand
+rules, which ``block_operands`` applies and raises on: C and hidden
+multiples of 8 (K % 8, N % 8), one dtype (bf16, or fp32 for the parity
+checks, on the fp32 GEMM), contiguous and 16-byte aligned tensors; and the
+length rule of ``_common.check_length``.
 
 Masks. Each dropout multiplier (0 or 1 / keep) is a pure function of (two
 seed words, block index, site, logical element index): a Philox4x32-10 draw
@@ -62,10 +65,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ._common import (DTYPE_CODES, add_bias, check_heads, check_operands,
-                      check_shard, launch, layer_norm32, lead_only,
-                      mask_operand, matmul32, ptr, ptr_array, tn_slices)
-from .fused_block import MAX_TOKENS, _unpack, block_operands
+from ._common import (DTYPE_CODES, LONG_LAUNCHES, add_bias, check_heads,
+                      check_length, check_operands, check_shard, launch,
+                      layer_norm32, lead_only, long_route, mask_operand,
+                      matmul32, ptr, ptr_array, tn_slices)
+from .fused_block import _unpack, block_operands
 
 LAUNCHES = {"fused_block_train_fwd": 0, "fused_block_train_bwd_mlp": 0,
             "fused_block_train_bwd_attn": 0, "draw_masks": 0,
@@ -282,16 +286,32 @@ def attention_drop_bwd_plain(qkv, mask, mattn, dao, n_tokens: int,
     return _rows(pd @ v), dqkv
 
 
+def _kind(gpt2: bool) -> str:
+    """A training layer's kind in the length rule (``check_length``)."""
+    return "gpt2" if gpt2 else "fuser"
+
+
+def long_scratch(like, R, N, H, gpt2):
+    """The long route's backward scratch of a layer over (R, N) tokens and H
+    heads: (stats (R * H * N, 2), dsum (R * H * N)) fp32, allocated through
+    PyTorch (so a captured graph owns them), or (None, None) where the
+    short kernels take N."""
+    if not long_route(_kind(gpt2), N):
+        return None, None
+    return (torch.empty((R * H * N, 2), dtype=torch.float32,
+                        device=like.device),
+            torch.empty(R * H * N, dtype=torch.float32, device=like.device))
+
+
 def _attention_operands(name, qkv, mask, dao, n_tokens, num_heads, gpt2):
     """Check the attention kernels' operands; returns (R, hd, the fp32
     mask or None)."""
     rows, three_c = qkv.shape if qkv.dim() == 2 else (0, 0)
-    limit = 32 if gpt2 else MAX_TOKENS
-    if qkv.dim() != 2 or three_c % 3 or not 1 <= n_tokens <= limit \
-            or rows % n_tokens:
-        raise ValueError(f"{name}: needs qkv (R * N, 3C) with 1 <= N <= "
-                         f"{limit}, got {tuple(qkv.shape)}, N={n_tokens}")
+    if qkv.dim() != 2 or three_c % 3 or n_tokens < 1 or rows % n_tokens:
+        raise ValueError(f"{name}: needs qkv (R * N, 3C) with N >= 1, got "
+                         f"{tuple(qkv.shape)}, N={n_tokens}")
     hd = check_heads(name, three_c // 3, num_heads)
+    check_length(name, _kind(gpt2), n_tokens, hd)
     if dao is not None:
         if tuple(dao.shape) != (rows, three_c // 3) \
                 or dao.dtype != torch.float32:
@@ -309,8 +329,9 @@ def attention_drop(qkv, mask, seeds, *, n_tokens: int, num_heads: int,
     ``gpt2`` takes the GPT-2 layer's arithmetic (p * keep rounded), else the
     fuser's. CPU tensors take ``attention_drop_plain`` on the masks of
     ``draw_masks_plain``; CUDA tensors launch the kernel the entries launch
-    (``staged_attention`` / ``fuser_attention_rows``). No model path calls
-    it: the entries launch the kernel inside their own sequences."""
+    (``staged_attention`` / ``fuser_attention_rows``; past 32 / 8 tokens
+    ``long_attention``). No model path calls it: the entries launch the
+    kernel inside their own sequences."""
     name = "attention_drop"
     R, hd, mask32 = _attention_operands(name, qkv, mask, None, n_tokens,
                                         num_heads, gpt2)
@@ -327,6 +348,7 @@ def attention_drop(qkv, mask, seeds, *, n_tokens: int, num_heads: int,
            *rate_arrays(seeds, block_idx, attn_rate, 0.0, 0.0), R, n_tokens,
            num_heads, hd, device=qkv.device)
     LAUNCHES[name] += 1
+    LONG_LAUNCHES[name] += long_route(_kind(gpt2), n_tokens)
     return out
 
 
@@ -337,7 +359,8 @@ def attention_drop_bwd(qkv, mask, dao, seeds, *, n_tokens: int,
     and dao (R * N, C) fp32, (the forward's output O (R * N, C), dqkv (R *
     N, 3C)) in qkv.dtype, with the arithmetic of ``attention_drop``. CPU
     tensors take ``attention_drop_bwd_plain``; CUDA tensors launch
-    ``csrc/attention_bwd.cuh``, the kernel the two attention-backward
+    ``csrc/attention_bwd.cuh`` (past 8 / 32 tokens the long route of
+    ``csrc/long_attention.cuh``), the kernels the two attention-backward
     entries launch inside their own sequences (no model path calls this)."""
     name = "attention_drop_bwd"
     R, hd, mask32 = _attention_operands(name, qkv, mask, dao, n_tokens,
@@ -356,11 +379,13 @@ def attention_drop_bwd(qkv, mask, dao, seeds, *, n_tokens: int,
                          f"and on {qkv.device}")
     out = torch.empty((R * n_tokens, C), dtype=dt, device=qkv.device)
     dqkv = torch.empty_like(qkv)
+    stats, dsum = long_scratch(qkv, R, n_tokens, num_heads, gpt2)
     launch(name, "afft_attention_drop_bwd", DTYPE_CODES[dt], int(gpt2),
-           ptr(qkv), ptr(mask32), ptr(dao), ptr(dqkv), ptr(out),
-           *rate_arrays(seeds, block_idx, attn_rate, 0.0, 0.0), R, n_tokens,
-           num_heads, hd, device=qkv.device)
+           ptr(qkv), ptr(mask32), ptr(dao), ptr(dqkv), ptr(out), ptr(stats),
+           ptr(dsum), *rate_arrays(seeds, block_idx, attn_rate, 0.0, 0.0),
+           R, n_tokens, num_heads, hd, device=qkv.device)
     LAUNCHES[name] += 1
+    LONG_LAUNCHES[name] += stats is not None
     return out, dqkv
 
 
@@ -489,10 +514,14 @@ class Layer(NamedTuple):
 FUSER = Layer("fused_block_train", "block_train", LAUNCHES, True)
 
 
-def _count(layer, entry, shard):
-    layer.counts[f"{layer.name}_{entry}"] += 1
+def _count(layer, entry, shard, n_tokens):
+    key = f"{layer.name}_{entry}"
+    layer.counts[key] += 1
+    if key in LONG_LAUNCHES:
+        LONG_LAUNCHES[key] += long_route(_kind(not layer.fp32_stream),
+                                         n_tokens)
     if shard is not None:
-        TP_LAUNCHES[f"{layer.name}_{entry}"] += 1
+        TP_LAUNCHES[key] += 1
 
 
 def block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg, shard=None):
@@ -512,7 +541,7 @@ def block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg, shard=None):
            None if shard is None else shard.array(PART_BOTH, False),
            ptr_array([tmp, dh2, h1, dpre1, dg, mu, rstd, partial, dy]),
            R, N, C, hidden, eps, device=x.device)
-    _count(layer, "bwd_mlp", shard)
+    _count(layer, "bwd_mlp", shard, N)
     return dy
 
 
@@ -544,13 +573,15 @@ def block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads, cfg,
     dx = _new(x, R, N, C, dtype=None if shard is None else torch.float32)
     # dWproj (C, A) or (A, C) and dWqkv (3A, C) or (C, 3A)
     tn = tn_scratch(x, ((C, A), (A, C), (3 * A, C), (C, 3 * A)), R * N)
+    stats, dsum = long_scratch(x, R, N, num_heads, not layer.fp32_stream)
     launch(layer.name, f"afft_{layer.entry}_bwd_attn",
            DTYPE_CODES[x.dtype], ptr(x), ptr(dy), ptr(qkv),
            ptr_array(tensors), ptr_array(grads), ptr(mask32), *arrays,
            None if shard is None else shard.array(PART_BOTH, True),
-           ptr_array([tmp, dproj, dqkv, dattn, mu, rstd, partial, dx, tn]),
+           ptr_array([tmp, dproj, dqkv, dattn, mu, rstd, partial, dx, tn,
+                      stats, dsum]),
            R, N, C, num_heads, eps, device=x.device)
-    _count(layer, "bwd_attn", shard)
+    _count(layer, "bwd_attn", shard, N)
     return dx
 
 
@@ -574,7 +605,7 @@ class BlockTrainFunction(torch.autograd.Function):
                DTYPE_CODES[x.dtype], ptr(x), ptr_array(tensors), ptr(mask32),
                *arrays, None, ptr_array([tmp, y32, h1, out, y, qkv, pre1]),
                R, N, C, num_heads, hidden, eps, device=x.device)
-        layer.counts[f"{layer.name}_fwd"] += 1
+        _count(layer, "fwd", None, N)
         ctx.save_for_backward(x, y, qkv, pre1, mask32, *tensors)
         ctx.cfg = cfg
         return out
@@ -620,7 +651,7 @@ def train_fwd_shard(x, mask32, cfg, tensors, shard, part, y=None):
            ptr_array(tensors), ptr(mask32), *arrays, shard.array(part, gpt2),
            ptr_array([tmp, y32, h1, out["part"], y, qkv, pre1]), R, N, C,
            num_heads, hidden, eps, device=x.device)
-    _count(layer, "fwd", shard)
+    _count(layer, "fwd", shard, N)
     return out
 
 
@@ -749,8 +780,7 @@ def fused_block_train(x, params, mask, seeds, *, num_heads: int,
                                        num_heads=num_heads, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if not 1 <= N <= MAX_TOKENS:
-        raise ValueError(f"{name}: N={N} tokens, the kernel takes 1..8")
+    check_length(name, "fuser", N, check_heads(name, C, num_heads))
     if not x.is_contiguous():
         x = x.contiguous()
     tensors, hidden = block_operands(name, x, params, num_heads,

@@ -22,13 +22,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._common import (DTYPE_CODES, add_bias, attention32, check_heads,
-                      check_operands, check_shape, launch, layer_norm32,
-                      mask_operand, matmul32, ptr)
+from ._common import (DTYPE_CODES, LONG_LAUNCHES, add_bias, attention32,
+                      check_heads, check_length, check_operands, check_shape,
+                      launch, layer_norm32, mask_operand, matmul32, ptr)
 
 LAUNCHES = {"gpt2_attn_half": 0, "gpt2_mlp_half": 0}
-
-MAX_TOKENS = 32
 
 
 def gpt2_attn_half_plain(x, params, mask, *, num_heads: int,
@@ -85,9 +83,7 @@ def gpt2_attn_half(x, params, mask, *, num_heads: int, eps: float = 1e-5):
         return gpt2_attn_half_plain(x, params, mask, num_heads=num_heads,
                                     eps=eps)
     B, T, C = x.shape
-    if not 1 <= T <= MAX_TOKENS:
-        raise ValueError(f"{name}: T={T}, the kernel takes 1..32 tokens")
-    check_heads(name, C, num_heads)
+    long = check_length(name, "gpt2", T, check_heads(name, C, num_heads))
     if mask is None:
         raise ValueError(f"{name}: the additive (T, T) mask is required")
     ops = {"ln_1.weight": params.get("ln_1.weight"),
@@ -119,6 +115,7 @@ def gpt2_attn_half(x, params, mask, *, num_heads: int, eps: float = 1e-5):
            ptr(ops["attn.c_proj.bias"]), ptr(mask32), ptr(tmp), ptr(qkv),
            ptr(out), B, T, C, num_heads, eps, device=dev)
     LAUNCHES[name] += 1
+    LONG_LAUNCHES[name] += long
     return out
 
 

@@ -33,7 +33,8 @@ K-major (N, K) operand, the weight gradients take its TN route. So a CUDA
 call takes the GEMM's operand rules, which ``gpt2_operands`` applies and
 raises on: C and hidden multiples of 8 (K % 8, N % 8), one dtype (bf16, or
 fp32 for the parity checks, on the fp32 GEMM), contiguous and 16-byte
-aligned tensors; at most 32 tokens.
+aligned tensors; and the length rule of ``_common.check_length`` (past 32
+tokens the attention and its backward take ``csrc/long_attention.cuh``).
 
 Masks: those of ``ops.fused_block_train`` (Philox4x32-10 of the two seed
 words, the layer index, the site and the logical element index) at the TPU
@@ -53,15 +54,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._common import (add_bias, check_heads, check_operands, check_shape,
-                      check_shard, launch, layer_norm32, lead_only,
-                      mask_operand, matmul32, ptr_array)
+from ._common import (add_bias, check_heads, check_length, check_operands,
+                      check_shape, check_shard, launch, layer_norm32,
+                      lead_only, mask_operand, matmul32, ptr_array)
 from .fused_block_train import (BlockTrainFunction, Layer,
                                 ShardTrainFunction, attention_drop_plain,
                                 check_row0, check_seeds, masks_plain,
                                 rate_arrays)
 from .fused_block_train import rates_operands as _rates_operands
-from .fused_gpt2 import MAX_TOKENS
 
 LAUNCHES = {"fused_gpt2_train_fwd": 0, "fused_gpt2_train_bwd_mlp": 0,
             "fused_gpt2_train_bwd_attn": 0, "draw_masks_gpt2": 0}
@@ -318,13 +318,12 @@ def fused_gpt2_block_train(x, params, mask, seeds, *, num_heads: int,
                                             num_heads=num_heads, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if not 1 <= T <= MAX_TOKENS:
-        raise ValueError(f"{name}: T={T}, the kernel takes 1..32 tokens")
     if not x.is_contiguous():
         x = x.contiguous()
     count = 1 if shard is None else shard.count
     local = num_heads // count
     tensors, hidden = gpt2_operands(name, x, params, local, count)
+    check_length(name, "gpt2", T, C // num_heads)
     mask32 = mask_operand(name, mask, T, x.device)
     if B == 0:
         return torch.empty_like(x)

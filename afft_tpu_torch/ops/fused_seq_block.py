@@ -23,25 +23,26 @@ attention outputs and the GELU output are rounded to the working dtype;
 matmuls take the working dtype with fp32 accumulation; the memory stream is
 normalised from its fp32 upcast.
 
-Kernel limits: any B, 1 <= S <= 1024, H * hd == C (any hd), C % 8 == 0,
-hidden % 8 == 0, float32 or bfloat16, contiguous 16-byte aligned operands;
-the mask is an additive (S, S) tensor or None and gates both attention
-stages of the decoder block; mem has x's shape.
+Kernel limits: any B and S >= 1 (past 1,024 tokens both attentions take
+the long route of ``csrc/long_attention.cuh``: ``_common.check_length``),
+H * hd == C (any hd), C % 8 == 0, hidden % 8 == 0, float32 or bfloat16,
+contiguous 16-byte aligned operands; the mask is an additive (S, S)
+tensor or None and gates both attention stages of the decoder block; mem
+has x's shape.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._common import (DTYPE_CODES, add_bias, attention32, check_heads,
-                      check_operands, check_shape, launch, layer_norm32,
-                      mask_operand, matmul32, ptr, ptr_array)
-from .attention import MAX_KEYS, attention_plain
+from ._common import (DTYPE_CODES, LONG_LAUNCHES, add_bias, attention32,
+                      check_heads, check_length, check_operands, check_shape,
+                      launch, layer_norm32, mask_operand, matmul32, ptr,
+                      ptr_array)
+from .attention import attention_plain
 from .fused_block import block_operands, block_plain, mlp_plain
 
 LAUNCHES = {"fused_seq_block": 0, "fused_decoder_block": 0}
-
-MAX_TOKENS = MAX_KEYS
 
 # the decoder kernel's parameter order (csrc/seq_block.cu, DecParam) with the
 # shape of each tensor in terms of C and hidden
@@ -70,10 +71,9 @@ def _check_x(name, x):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _check_seq(name, S):
-    if not 1 <= S <= MAX_TOKENS:
-        raise ValueError(f"{name}: S={S} tokens, the kernel takes "
-                         f"1..{MAX_TOKENS}")
+def _check_seq(name, S, C, num_heads):
+    """The length rule over S keys; whether the long route applies."""
+    return check_length(name, "keys", S, check_heads(name, C, num_heads))
 
 
 def _scratch(x, hidden, n_tmp=1):
@@ -104,7 +104,7 @@ def fused_seq_block(x, params, mask=None, *, num_heads: int,
         return fused_seq_block_plain(x, params, mask, num_heads=num_heads,
                                      eps=eps)
     B, S, C = x.shape
-    _check_seq(name, S)
+    long = _check_seq(name, S, C, num_heads)
     tensors, hidden = block_operands(name, x, params, num_heads)
     mask32 = mask_operand(name, mask, S, x.device)
     out = torch.empty_like(x)
@@ -116,6 +116,7 @@ def fused_seq_block(x, params, mask=None, *, num_heads: int,
            ptr(h1), ptr(out), B, S, C, num_heads, hidden, eps,
            device=x.device)
     LAUNCHES[name] += 1
+    LONG_LAUNCHES[name] += long
     return out
 
 
@@ -171,7 +172,7 @@ def fused_decoder_block(x, mem, params, mask=None, *, num_heads: int,
         return fused_decoder_block_plain(x, mem, params, mask,
                                          num_heads=num_heads, eps=eps)
     B, S, C = x.shape
-    _check_seq(name, S)
+    long = _check_seq(name, S, C, num_heads)
     missing = sorted(_REQUIRED - set(params))
     if missing:
         raise KeyError(f"{name}: params lack {missing}")
@@ -198,4 +199,5 @@ def fused_decoder_block(x, mem, params, mask=None, *, num_heads: int,
            ptr(tmp), ptr(tmp2), ptr(qkv), ptr(y), ptr(h1), ptr(out), B, S, C,
            num_heads, hidden, eps, device=x.device)
     LAUNCHES[name] += 1
+    LONG_LAUNCHES[name] += long
     return out

@@ -286,7 +286,30 @@ Phases, in order; any failure exits non-zero and prints no result:
                every mode of the JAX driver's dry run on 8 processes on the
                card, the 3-axis loss within rtol 1e-3 of one process's (one
                card: no TP speed);
- 16. report  - one JSON line of per-kernel numbers, then the result line.
+ 16. long    - every sequence length the JAX package answers, on the long
+               attention route (csrc/long_attention.cuh; past 8 fuser tokens,
+               32 GPT-2 tokens, 1,024 keys): (a) the flagship served at a
+               64-frame context, B 64 bf16, through serve.Server's served
+               function (6 gpt2_attn_half launches a forward on the long
+               route; logits against the plain path at 5e-2 of max|logit|
+               with the top-1 form; a CUDA graph at bucket 64 replayed bit
+               for bit the eager forward); (b) trained at 48 frames: one
+               step's gradients against impl="plain" at B 8 (fp32 every
+               tensor within 1e-4 of its max|grad|, bf16 the GPT-2
+               predictor's within 2e-2), then 5 bf16 steps at B 64 with
+               falling losses; (c) its rollout in
+               training (T 16, fp_output_len 20: 35 tokens in the last
+               pass), 3 bf16 steps at B 32; every step's launches and long
+               launches asserted; (d) every long route at full width
+               against its plain version (KERNEL_TOL, gradients GRAD_TOL):
+               rows 2 and 11-15 at C 2048, T 33 / 64 / 256 / 1,024 (B * T
+               4,096 bf16, 512 fp32), rows 11-15 in shard mode at tp = 2, T
+               64, rows 1, 7, 9 at C 1024, N 9 / 12 / 16, row 4 at 16
+               queries over 1,025 / 2,048 keys, rows 5 and 6 at S 1,280 /
+               2,048; its keep pattern bit for bit the plain generator's;
+               each long attention timed beside its plain version, SDPA and
+               its bound (``long_*`` items of its row's entry);
+ 17. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -2092,7 +2115,8 @@ def phase_kernels(peaks):
 
 # the kernels whose ptxas report the build phase prints
 REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "sum_slices",
-                    "staged_attention", "fuser_attention", "attention_bwd")
+                    "staged_attention", "fuser_attention", "attention_bwd",
+                    "long_attention")
 
 
 def report_build(lib_path):
@@ -4217,12 +4241,15 @@ def _gpt2_per_step(cfg):
     return int(common.fp_layers) * preds
 
 
-def _grad_rel(run_k, run_p):
+def _grad_rel(run_k, run_p, where=None):
     """Per tensor max|g_kernel - g_plain| over max|g_plain|: the worst
-    (value, tensor)."""
+    (value, tensor), over the tensors whose names ``where`` takes (all
+    without it)."""
     worst = (0.0, "")
     for (name, pk), pp in zip(run_k.model.named_parameters(),
                               run_p.masters):
+        if where is not None and not where(name):
+            continue
         if pp.grad is None:
             if pk.grad is not None:
                 raise AssertionError(f"{name}: a gradient on one path only")
@@ -5992,6 +6019,586 @@ def phase_tp(reference):
     return launches, numbers
 
 
+
+# -- 16. long contexts: the long attention route ------------------------------
+
+LONG_SERVE_T = 64        # the flagship served at a 64-frame context
+LONG_TRAIN_T = 48        # and trained at 48 frames
+LONG_ROLLOUT = 20        # fp_output_len at T 16: 35 tokens in the last pass
+LONG_BATCH = 64
+LONG_ROLLOUT_BATCH = 32
+LONG_STEPS = 5
+LONG_ROLLOUT_STEPS = 3
+LONG_GRAD_BATCH = 8
+LONG_GPT2_T = (33, 64, 256, 1024)   # rows 2 and 11-15, B * T = 4096 in bf16
+LONG_GPT2_ROWS = 4096
+LONG_FP32_ROWS = 512               # B * T of the fp32 checks
+LONG_FUSER_N = (9, 12, 16)          # rows 1, 7 and 9
+LONG_FUSER_R = (1024, 128)          # rows of N tokens: bf16, fp32
+LONG_KEYS = (1025, 2048)            # row 4: 16 queries over Nk cache slots
+LONG_SEQ_S = (1280, 2048)           # rows 5 and 6
+# each long route's row: the kernels-line entry it stands under
+LONG_ROWS = {"fused_block": "1", "gpt2_attn_half": "2",
+             "fused_attention": "4", "fused_seq_block": "5",
+             "fused_decoder_block": "6", "fused_block_train_fwd": "7",
+             "fused_block_train_bwd_attn": "9", "fused_gpt2_train_fwd": "11",
+             "fused_gpt2_train_bwd_attn": "15"}
+
+
+def _long_work(B, H, pairs, Nq, Nk, hd, item, backward=False):
+    """(flops, bytes) of one attention at any length: the products of the
+    visible (query, key) pairs of each (sequence, head) (``pairs``); q, k,
+    v read and out written once; the backward's dao (fp32) read and dq /
+    dk / dv and O written once."""
+    if not backward:
+        return (4 * B * H * pairs * hd,
+                B * H * hd * (2 * Nq + 2 * Nk) * item)
+    return (8 * B * H * pairs * hd,
+            B * H * hd * ((Nq + 2 * Nk) * item + 4 * Nq
+                          + (Nq + 2 * Nk) * item + Nq * item))
+
+
+def _long_numbers(peaks, what, fn, plain, library, work, err):
+    """One long route's times (the route alone, its plain version, one
+    PyTorch call computing the same function) and its bound."""
+    import torch
+    with torch.no_grad():
+        ms = time_ms(fn, iters=10, warmup=2)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+    library_ms = time_ms(library, iters=10, warmup=2)
+    flops, nbytes = work
+    t_ops, t_bytes = flops / peaks["bf16"] * 1e3, nbytes / peaks["bytes"] * 1e3
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=library_ms, flops=flops, bytes=nbytes)
+    log(f"long {what}: ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms="
+        f"{library_ms:.4f} bound_ms={out['bound_ms']:.4f} "
+        f"({out['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
+        f"MB; {out['bound_ms'] / ms:.3f} of the bound) max_abs_err={err:.3g}")
+    return out
+
+
+def _sdpa_heads(q, k, v, causal, mask=None, grad=None):
+    """F.scaled_dot_product_attention over (B, H, N, hd) operands (the
+    yardstick); with ``grad`` the call is its backward."""
+    import torch
+    import torch.nn.functional as F
+    keep = None if mask is None else mask == 0
+    if grad is None:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, is_causal=causal)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep,
+                                         is_causal=causal)
+    return lambda: torch.autograd.grad(out, leaves, grad,
+                                       retain_graph=True)
+
+
+def _long_keep_pattern(gen):
+    """The long route's dropout keep pattern, read off its output: q = k =
+    0 makes every probability 1 / (keys visible), v's rows are one-hot, so
+    O[q][k] = p * keep(q, k); the pattern (and each value) equals
+    draw_masks_plain's / draw_masks_gpt2_plain's at the same site bit for
+    bit."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    n = 0
+    for gpt2, N in ((False, 12), (True, 40)):
+        R, H, hd = 3, 2, 48
+        C = H * hd
+        qkv = torch.zeros(R * N, 3 * C, device="cuda")
+        eye = torch.eye(N, hd, device="cuda")
+        for r in range(R):
+            for h in range(H):
+                qkv[r * N:(r + 1) * N, 2 * C + h * hd:2 * C + (h + 1) * hd] \
+                    = eye
+        mask = neg_inf_causal_mask(N, device="cuda") if gpt2 else None
+        out = FT.attention_drop(qkv, mask, TRAIN_SEEDS, n_tokens=N,
+                                num_heads=H, block_idx=3, attn_rate=0.5,
+                                gpt2=gpt2)
+        if gpt2:
+            mattn = FGT.draw_masks_gpt2_plain(R, N, C, H, TRAIN_SEEDS, 3,
+                                              0.5, 0.0, device="cuda")[0]
+        else:
+            mattn = FT.draw_masks_plain(R, N, C, H, TRAIN_SEEDS, 3, 0.5,
+                                        0.0, 0.0, device="cuda")[0]
+        got = out.reshape(R, N, H, hd).permute(0, 2, 1, 3)[..., :N]
+        visible = torch.ones(N, N, device="cuda") if mask is None \
+            else mask.isfinite().float()
+        p = visible / visible.sum(-1, keepdim=True)
+        if not (torch.equal(got != 0, (mattn != 0) & (visible != 0))
+                and torch.equal(got, p * mattn)):
+            raise AssertionError(f"long route keep pattern (gpt2={gpt2} "
+                                 f"N={N}): differs from the plain "
+                                 "generator's")
+        n += int((mattn != 0).sum())
+    log(f"long keep pattern: fuser N 12 and GPT-2 T 40 at rate 0.5, {n} kept "
+        "elements, bit for bit draw_masks_plain / draw_masks_gpt2_plain's")
+    return n
+
+
+def _long_gpt2_rows(peaks, gen, kernels):
+    """Rows 2, 11-15 at C 2048, 4 heads of 512 and T 33 / 64 / 256 / 1,024
+    (B * T = 4,096 in bf16, 512 in fp32): the attention half and the
+    training layer against their plain versions, the long attention
+    forward and backward alone timed beside their plain versions, SDPA and
+    their bounds; then rows 11-15 in shard mode at tp = 2, T 64."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2 as FG
+    C, H, hidden, eps = 2048, 4, 8192, 1e-5
+    hd = C // H
+    for T in LONG_GPT2_T:
+        mask = neg_inf_causal_mask(T, device="cuda")
+        pairs = T * (T + 1) // 2
+        worst = {"attn_half": 0.0, "train": 0.0}
+        for dt, rows in ((torch.float32, LONG_FP32_ROWS),
+                         (torch.bfloat16, LONG_GPT2_ROWS)):
+            tag = "bf16" if dt == torch.bfloat16 else "fp32"
+            B = max(1, rows // T)
+            p = gpt2_params(C, hidden, dt, gen)
+            x = _randn(gen, dt)(B, T, C)
+            with torch.no_grad():
+                fin, max_abs, rel = errors(
+                    FG.gpt2_attn_half(x, p, mask, num_heads=H, eps=eps),
+                    FG.gpt2_attn_half_plain(x, p, mask, num_heads=H,
+                                            eps=eps))
+            if not (fin and rel <= KERNEL_TOL[tag]):
+                raise AssertionError(f"long gpt2_attn_half {tag} T={T}: "
+                                     f"rel_err={rel:.3g}")
+            worst["attn_half"] = max(worst["attn_half"], max_abs)
+            del p, x
+            case = check_gpt2_train_layer(tag, dt, B, T, C, H, hidden, gen)
+            worst["train"] = max(worst["train"], *case["errs"].values())
+            log(f"long fused_gpt2_train {tag} (B, T)=({B}, {T}): forward "
+                f"and masks ok, worst gradient {case['worst'][0]} rel_err="
+                f"{case['worst'][1]:.3g} (tol {GRAD_TOL[tag]:g})")
+            del case
+            torch.cuda.empty_cache()
+        # the long attention alone, bf16, the layer's arithmetic (GPT-2)
+        B = LONG_GPT2_ROWS // T
+        qkv = _randn(gen, torch.bfloat16)(B * T, 3 * C)
+        dao = _randn(gen, torch.float32)(B * T, C)
+        kw = dict(n_tokens=T, num_heads=H, block_idx=4, attn_rate=0.1,
+                  gpt2=True)
+        # the attention site's mask is the same generator in both layers
+        mattn = FT.draw_masks_plain(B, T, C, H, TRAIN_SEEDS, 4, 0.1, 0.0,
+                                    0.0, device="cuda")[0]
+        err = _check_attention_bwd(B, T, H, hd, torch.bfloat16, True, 0.1,
+                                   True, gen)
+        q, k, v = qkv.view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
+        g = dao.to(torch.bfloat16).view(B, T, H, hd).transpose(1, 2)
+        fwd = _long_numbers(
+            peaks, f"row 2 / 11 attention bf16 (B, T)=({B}, {T})",
+            lambda: FT.attention_drop(qkv, mask, TRAIN_SEEDS, **kw),
+            lambda: FT.attention_drop_plain(qkv, mask, mattn, T, H,
+                                            torch.bfloat16),
+            _sdpa_heads(q, k, v, True),
+            _long_work(B, H, pairs, T, T, hd, 2), err)
+        bwd = _long_numbers(
+            peaks, f"row 15 attention backward bf16 (B, T)=({B}, {T})",
+            lambda: FT.attention_drop_bwd(qkv, mask, dao, TRAIN_SEEDS, **kw),
+            lambda: FT.attention_drop_bwd_plain(qkv, mask, mattn, dao, T, H,
+                                                torch.bfloat16),
+            _sdpa_heads(q, k, v, True, grad=g),
+            _long_work(B, H, pairs, T, T, hd, 2, backward=True), err)
+        label = f"long_t{T}"
+        kernels["gpt2_attn_half"][label] = {
+            **fwd, "max_abs_err": worst["attn_half"], "shape": [B, T, C]}
+        kernels["fused_gpt2_train_fwd"][label] = {
+            **fwd, "max_abs_err": worst["train"], "shape": [B, T, C]}
+        kernels["fused_gpt2_train_bwd_attn"][label] = {
+            **bwd, "max_abs_err": worst["train"], "shape": [B, T, C]}
+        del qkv, dao, mattn, q, k, v, g
+        torch.cuda.empty_cache()
+    # rows 11-15 in shard mode, tp = 2: the long route on 2 of 4 heads
+    for dt, B in ((torch.float32, LONG_FP32_ROWS // 64),
+                  (torch.bfloat16, LONG_GPT2_ROWS // 64)):
+        check_tp_layer("bf16" if dt == torch.bfloat16 else "fp32", dt, True,
+                       B, 64, C, H, hidden, gen)
+        torch.cuda.empty_cache()
+    log("long rows 11-15 shard mode tp=2 T=64: each rank against the plain "
+        "shard version, the sums over the ranks against the unsharded "
+        "kernel: ok")
+
+
+def _long_fuser_rows(peaks, gen, kernels):
+    """Rows 1, 7 and 9 at C 1024, 4 heads of 256 and N 9 / 12 / 16 (R 1,024
+    rows in bf16, 128 in fp32): the serving block and the training block
+    against their plain versions, the long attention (the fuser's fp32
+    probabilities) forward and backward alone timed."""
+    import torch
+    from afft_tpu_torch.ops import fused_block as FB
+    from afft_tpu_torch.ops import fused_block_train as FT
+    C, H, hidden, eps = 1024, 4, 4096, 1e-6
+    hd = C // H
+    for N in LONG_FUSER_N:
+        worst = {"block": 0.0, "train": 0.0}
+        for dt, R in ((torch.float32, LONG_FUSER_R[1]),
+                      (torch.bfloat16, LONG_FUSER_R[0])):
+            tag = "bf16" if dt == torch.bfloat16 else "fp32"
+            p = block_params(C, hidden, dt, gen)
+            x = _randn(gen, dt)(R, N, C)
+            with torch.no_grad():
+                fin, max_abs, rel = errors(
+                    FB.fused_block(x, p, None, num_heads=H, eps=eps),
+                    FB.fused_block_plain(x, p, None, num_heads=H, eps=eps))
+            if not (fin and rel <= KERNEL_TOL[tag]):
+                raise AssertionError(f"long fused_block {tag} N={N}: "
+                                     f"rel_err={rel:.3g}")
+            worst["block"] = max(worst["block"], max_abs)
+            del p, x
+            case = check_train_block(tag, dt, R, N, C, H, hidden, gen)
+            worst["train"] = max(worst["train"], *case["errs"].values())
+            log(f"long fused_block_train {tag} (R, N)=({R}, {N}): forward "
+                f"and masks ok, worst gradient {case['worst'][0]} rel_err="
+                f"{case['worst'][1]:.3g} (tol {GRAD_TOL[tag]:g})")
+            del case
+            torch.cuda.empty_cache()
+        R = LONG_FUSER_R[0]
+        qkv = _randn(gen, torch.bfloat16)(R * N, 3 * C)
+        dao = _randn(gen, torch.float32)(R * N, C)
+        kw = dict(n_tokens=N, num_heads=H, block_idx=4, attn_rate=0.1,
+                  gpt2=False)
+        mattn = FT.draw_masks_plain(R, N, C, H, TRAIN_SEEDS, 4, 0.1, 0.0,
+                                    0.0, device="cuda")[0]
+        err = _check_attention_bwd(R, N, H, hd, torch.bfloat16, False, 0.1,
+                                   False, gen)
+        q, k, v = qkv.view(R, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        g = dao.to(torch.bfloat16).view(R, N, H, hd).transpose(1, 2)
+        fwd = _long_numbers(
+            peaks, f"row 1 / 7 attention bf16 (R, N)=({R}, {N})",
+            lambda: FT.attention_drop(qkv, None, TRAIN_SEEDS, **kw),
+            lambda: FT.attention_drop_plain(qkv, None, mattn, N, H),
+            _sdpa_heads(q, k, v, False),
+            _long_work(R, H, N * N, N, N, hd, 2), err)
+        bwd = _long_numbers(
+            peaks, f"row 9 attention backward bf16 (R, N)=({R}, {N})",
+            lambda: FT.attention_drop_bwd(qkv, None, dao, TRAIN_SEEDS, **kw),
+            lambda: FT.attention_drop_bwd_plain(qkv, None, mattn, dao, N, H),
+            _sdpa_heads(q, k, v, False, grad=g),
+            _long_work(R, H, N * N, N, N, hd, 2, backward=True), err)
+        label = f"long_n{N}"
+        kernels["fused_block"][label] = {
+            **fwd, "max_abs_err": worst["block"], "shape": [R, N, C]}
+        kernels["fused_block_train_fwd"][label] = {
+            **fwd, "max_abs_err": worst["train"], "shape": [R, N, C]}
+        kernels["fused_block_train_bwd_attn"][label] = {
+            **bwd, "max_abs_err": worst["train"], "shape": [R, N, C]}
+        del qkv, dao, mattn, q, k, v, g
+        torch.cuda.empty_cache()
+
+
+def _long_seq_rows(peaks, gen, kernels):
+    """Row 4 at 16 queries over Nk 1,025 / 2,048 cache slots (B 64, 4 heads
+    of 512; the rollout's cache mask) and rows 5 and 6 at S 1,280 / 2,048
+    (B 4 in bf16, 1 in fp32; C 1024, 4 heads): each against its plain
+    version; the attention alone (fused_attention: the same long instance
+    the blocks launch) timed beside SDPA."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import attention as FA
+    from afft_tpu_torch.ops import fused_seq_block as FS
+    H = 4
+    for Nk in LONG_KEYS:
+        worst, hd = 0.0, 512
+        for dt, B in ((torch.float32, 8), (torch.bfloat16, 64)):
+            tag = "bf16" if dt == torch.bfloat16 else "fp32"
+            q, kc, vc, mask = rollout_operands(B, 16, Nk - 16, Nk, H, hd, dt,
+                                               gen)
+            with torch.no_grad():
+                fin, max_abs, rel = errors(
+                    FA.fused_attention(q, kc, vc, mask),
+                    FA.attention_plain(q, kc, vc, mask)[0])
+            if not (fin and rel <= KERNEL_TOL[tag]):
+                raise AssertionError(f"long fused_attention {tag} Nk={Nk}: "
+                                     f"rel_err={rel:.3g}")
+            worst = max(worst, max_abs)
+        flops, nbytes = attention_work(q, kc, vc, mask)
+        kernels["fused_attention"][f"long_nk{Nk}"] = {**_long_numbers(
+            peaks, f"row 4 bf16 (B, Nq, Nk)=({B}, 16, {Nk})",
+            lambda: FA.fused_attention(q, kc, vc, mask),
+            lambda: FA.attention_plain(q, kc, vc, mask)[0],
+            _sdpa_heads(q.transpose(1, 2), kc.transpose(1, 2),
+                        vc.transpose(1, 2), False, mask),
+            (flops, nbytes), worst), "shape": [B, 16, Nk, H, hd]}
+        del q, kc, vc, mask
+        torch.cuda.empty_cache()
+    C, hidden, eps = 1024, 4096, 1e-6
+    hd = C // H
+    for S in LONG_SEQ_S:
+        mask = tiled_causal_mask(S // 4, 4)
+        causal = neg_inf_causal_mask(S, device="cuda")
+        worst = {"seq": 0.0, "dec": 0.0}
+        for dt, B in ((torch.float32, 1), (torch.bfloat16, 4)):
+            tag = "bf16" if dt == torch.bfloat16 else "fp32"
+            rn = _randn(gen, dt)
+            x, mem = rn(B, S, C), rn(B, S, C)
+            p = block_params(C, hidden, dt, gen)
+            pd = decoder_params(C, hidden, dt, gen)
+            with torch.no_grad():
+                for key, got, want in (
+                        ("seq", FS.fused_seq_block(x, p, mask, num_heads=H,
+                                                   eps=eps),
+                         FS.fused_seq_block_plain(x, p, mask, num_heads=H,
+                                                  eps=eps)),
+                        ("dec", FS.fused_decoder_block(x, mem, pd, causal,
+                                                       num_heads=H, eps=eps),
+                         FS.fused_decoder_block_plain(x, mem, pd, causal,
+                                                      num_heads=H,
+                                                      eps=eps))):
+                    fin, max_abs, rel = errors(got, want)
+                    if not (fin and rel <= KERNEL_TOL[tag]):
+                        raise AssertionError(
+                            f"long {key} block {tag} S={S}: rel_err="
+                            f"{rel:.3g}")
+                    worst[key] = max(worst[key], max_abs)
+            del x, mem, p, pd
+            torch.cuda.empty_cache()
+        B = 4
+        qkv = _randn(gen, torch.bfloat16)(B, S, 3, H, hd)
+        q, k, v = qkv.unbind(2)          # packed rows, read in place
+        for key, name, m, pairs in (
+                ("seq", "fused_seq_block", mask, int(mask.isfinite().sum())),
+                ("dec", "fused_decoder_block", causal, S * (S + 1) // 2)):
+            kernels[name][f"long_s{S}"] = {**_long_numbers(
+                peaks, f"row {LONG_ROWS[name]} attention bf16 (B, S)=({B}, "
+                f"{S})",
+                lambda: FA.fused_attention(q, k, v, m),
+                lambda: FA.attention_plain(q, k, v, m)[0],
+                _sdpa_heads(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), False, m),
+                _long_work(B, H, pairs, S, S, hd, 2), worst[key]),
+                "shape": [B, S, C]}
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+
+
+def _long_serve():
+    """(a) The flagship served at a 64-frame context, B 64 bf16, through
+    ``serve.Server``'s served function: the GPT-2 attention half on the
+    long route (6 launches a forward); logits against the plain path; one
+    CUDA graph of the forward at bucket 64 replayed, bit for bit the eager
+    kernel forward. Returns (main-path long launches, numbers)."""
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.ops import (launch_counts, long_launch_counts,
+                                    reset_launches)
+    from afft_tpu_torch.serving.graphs import GraphServer
+    cfg = serve.load_config(FLAGSHIP,
+                            [f"data_eval.num_frames={LONG_SERVE_T}"])
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    server = serve.Server(cfg, {"action": 3806}, "bfloat16", "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(64)
+    feats = {m: torch.randn(LONG_BATCH, LONG_SERVE_T, int(d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+             for m, d in cfg.model.modal_dims.to_container().items()}
+    fn = server.serving_fn("native", 0)
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    with torch.no_grad():
+        out = fn(feats)
+    torch.cuda.synchronize()
+    expected = {"fused_block": depth, "gpt2_attn_half": layers,
+                "gpt2_mlp_half": layers}
+    _counts_ok("long serve T=64", launch_counts(), expected)
+    long = long_launch_counts()
+    _counts_ok("long serve T=64 (long route)", long,
+               {"gpt2_attn_half": layers})
+    numbers = {"plain": _hold_plain(f"long serve T={LONG_SERVE_T} "
+                                    f"B={LONG_BATCH}", server, feats, out)}
+    with torch.no_grad():
+        numbers["forward_ms"] = time_ms(lambda: fn(feats), iters=10)
+    graphs = GraphServer(server, [LONG_BATCH])
+    if graphs.capture_launches[LONG_BATCH] != expected:
+        raise AssertionError(f"long serve graph: launches at capture "
+                             f"{graphs.capture_launches[LONG_BATCH]}")
+    with graphs.stream_context():
+        replay = graphs.run(LONG_BATCH, feats).clone()
+    graphs.stream.synchronize()
+    with torch.no_grad():
+        eager = fn(feats)
+    torch.cuda.synchronize()
+    same = torch.equal(replay, eager)
+    log(f"long serve T={LONG_SERVE_T} B={LONG_BATCH}: launches {expected} "
+        f"({layers} gpt2_attn_half on the long route), forward "
+        f"{numbers['forward_ms']:.3f} ms; CUDA graph at bucket {LONG_BATCH}: "
+        f"replay bit for bit the eager forward: {same}")
+    if not same:
+        raise AssertionError("long serve: graph replay differs from the "
+                             "eager forward")
+    numbers["graph_bit_for_bit"] = same
+    del graphs, server, feats
+    torch.cuda.empty_cache()
+    return {k: n for k, n in long.items() if n}, numbers
+
+
+def _long_train():
+    """(b) The flagship trained at 48 frames: one step's gradients through
+    the kernels against ``impl="plain"`` at B 8 (fp32: every tensor within
+    1e-4 of its max|grad|; bf16: the GPT-2 predictor's within 2e-2, every
+    tensor's reported), then 5 bf16 steps at B 64 with finite, falling
+    losses; (c) the rollout in training (T 16,
+    fp_output_len 20: 35 tokens in the last pass), 3 bf16 steps at B 32.
+    Every step's launches asserted. Returns (main-path long launches,
+    numbers)."""
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.ops import (launch_counts, long_launch_counts,
+                                    reset_launches)
+    from afft_tpu_torch.train.runner import Runner
+    expt = os.path.join(EXPTS, TRAIN_EXPT)
+    cfg = serve.load_config(expt, [f"data_train.num_frames={LONG_TRAIN_T}"])
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    warmup = int(cfg.opt.warmup.num_epochs)
+    fuser_names = [n for n, _ in TRAIN_KERNELS["fused_block_train"][:3]]
+    gpt2_names = [n for n, _ in TRAIN_KERNELS["fused_gpt2_train"][:3]]
+
+    def per_step(passes, long_passes):
+        return ({**dict.fromkeys(fuser_names, depth),
+                 **dict.fromkeys(gpt2_names, layers * passes)},
+                {"fused_gpt2_train_fwd": layers * long_passes,
+                 "fused_gpt2_train_bwd_attn": layers * long_passes})
+
+    numbers, long_total = {}, {}
+    expected, expected_long = per_step(1, 1)
+    batch = synthetic_batches(cfg, LONG_GRAD_BATCH, 1, seed=48)[0]
+    for dt, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        kernel = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                                    iters_per_epoch=1, compute_dtype=dt)
+        plain = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                                   iters_per_epoch=1, compute_dtype=dt,
+                                   impl="plain",
+                                   weights=kernel.model.state_dict())
+        lr = kernel.lr_schedule(warmup, kernel.base_lr)
+        reset_launches()
+        loss_k = float(kernel.train_step(batch, lr, kernel.base_lr)[0]
+                       ["total_loss"])
+        _counts_ok(f"long train T=48 {dt} kernels", launch_counts(),
+                   expected)
+        _counts_ok(f"long train T=48 {dt} kernels (long route)",
+                   long_launch_counts(), expected_long)
+        loss_p = float(plain.train_step(batch, lr, plain.base_lr)[0]
+                       ["total_loss"])
+        worst = _grad_rel(kernel, plain)
+        # fp32: every tensor; bf16: the GPT-2 predictor's, the layers on the
+        # long route (the fuser's short-route tensors read up to 2.02e-2 in
+        # bf16 against the plain path, a reading of the whole model's bf16
+        # rounding that this phase reports and does not hold)
+        held = worst if dt == "float32" else _grad_rel(
+            kernel, plain, lambda name: ".gpt_model." in name)
+        log(f"long train T={LONG_TRAIN_T} {dt} B={LONG_GRAD_BATCH}: one step "
+            f"through the kernels (loss {loss_k:.6f}) and through the plain "
+            f"versions ({loss_p:.6f}) on the same masks: gradients per "
+            f"tensor within {worst[0]:.3g} of max|grad| ({worst[1]}); held: "
+            f"{held[0]:.3g} ({held[1]}; tol {tol:g})")
+        if not (math.isfinite(loss_k) and held[0] <= tol):
+            raise AssertionError(f"long train T=48 {dt}: the kernel path's "
+                                 "gradients stray from the plain path's")
+        numbers[f"grad_rel_{dt}"] = {"all": list(worst), "held": list(held)}
+        del kernel, plain
+        torch.cuda.empty_cache()
+    for label, over, B, steps, passes, long_passes in (
+            ("t48", [f"data_train.num_frames={LONG_TRAIN_T}"], LONG_BATCH,
+             LONG_STEPS, 1, 1),
+            ("rollout35", [f"model.common.fp_output_len={LONG_ROLLOUT}"],
+             LONG_ROLLOUT_BATCH, LONG_ROLLOUT_STEPS, LONG_ROLLOUT,
+             LONG_ROLLOUT + 16 - 1 - 32)):
+        cfg = serve.load_config(expt, over)
+        runner = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                                    iters_per_epoch=1,
+                                    compute_dtype="bfloat16")
+        batches = synthetic_batches(cfg, B, 2, seed=16)
+        expected, expected_long = per_step(passes, long_passes)
+        losses, events = [], []
+        # the main path: counts set to 0 just before, read just after
+        reset_launches()
+        for i in range(steps):
+            before, before_long = launch_counts(), long_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(runner.train_step(
+                batches[i % 2], runner.lr_schedule(warmup + i,
+                                                   runner.base_lr),
+                runner.base_lr)[0]["total_loss"])
+            end.record()
+            events.append((start, end))
+            _counts_ok(f"long train {label} step {i + 1}",
+                       {k: v - before[k] for k, v in launch_counts().items()},
+                       expected)
+            _counts_ok(f"long train {label} step {i + 1} (long route)",
+                       {k: v - before_long[k]
+                        for k, v in long_launch_counts().items()},
+                       expected_long)
+        torch.cuda.synchronize()
+        for k, n in long_launch_counts().items():
+            long_total[k] = long_total.get(k, 0) + n
+        losses = [float(v) for v in losses]
+        ms = statistics.median(a.elapsed_time(b) for a, b in events[1:])
+        log(f"long train {label} bf16 B={B}: {steps} steps, launches a step "
+            f"{expected} (long route {expected_long}), losses "
+            f"{[round(v, 4) for v in losses]}, {ms:.2f} ms a step (median "
+            f"after the first)")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"long train {label}: non-finite loss")
+        if label == "t48" and not (losses[-1] + losses[-2]) / 2 < losses[0]:
+            raise AssertionError("long train t48: the loss did not fall")
+        numbers[label] = {"losses": losses, "ms_per_step": ms,
+                          "launches_per_step": expected,
+                          "long_launches_per_step": expected_long}
+        del runner, batches
+        torch.cuda.empty_cache()
+    return {k: n for k, n in long_total.items() if n}, numbers
+
+
+def phase_long(peaks, kernels):
+    """16. Long contexts on the long attention route (ROADMAP §C.3): (a)
+    the flagship served at T 64, (b) trained at T 48, (c) its rollout in
+    training over 35 tokens, each through the entry points a user calls;
+    (d) every long route at full width against its plain version, its
+    keep pattern bit for bit, each timed beside its plain version, SDPA
+    and its bound, under its row's entry in ``kernels`` (``long_*``). Each
+    row's entry gets ``long_launches``: its launches on the long route in
+    (a)-(c), the main paths (rows 2, 11, 15), or in (d)'s checks alone
+    (``long_kernel_level_launches``, rows 1, 4-7, 9). Returns numbers."""
+    import torch
+    from afft_tpu_torch.ops import long_launch_counts, reset_launches
+    t0 = time.perf_counter()
+    serve_long, serve_numbers = _long_serve()
+    train_long, train_numbers = _long_train()
+    main = dict(serve_long)
+    for k, n in train_long.items():
+        main[k] = main.get(k, 0) + n
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    reset_launches()
+    keep = _long_keep_pattern(gen)
+    _long_gpt2_rows(peaks, gen, kernels)
+    _long_fuser_rows(peaks, gen, kernels)
+    _long_seq_rows(peaks, gen, kernels)
+    checks = long_launch_counts()
+    for name in LONG_ROWS:
+        kernels[name]["long_launches"] = main.get(name, 0)
+        kernels[name]["long_kernel_level_launches"] = checks.get(name, 0)
+    for name in ("gpt2_attn_half", "fused_gpt2_train_fwd",
+                 "fused_gpt2_train_bwd_attn"):
+        if not main.get(name):
+            raise AssertionError(f"long: {name} never took the long route "
+                                 "on a main path")
+    seconds = time.perf_counter() - t0
+    log(f"long: main-path launches on the long route {main}; kernel-level "
+        f"{ {k: n for k, n in checks.items() if n} }; phase {seconds:.1f} s")
+    return {"serve": serve_numbers, "train": train_numbers,
+            "keep_elements": keep, "main_path_long_launches": main,
+            "seconds": seconds}
+
+
 def main():
     try:
         import torch
@@ -6131,12 +6738,17 @@ def main():
                 run: [counts.get(k["name"], 0) for counts in by_rank]
                 for run, by_rank in tp_launches.items()}
         log(json.dumps({"tp": tp}))
+
+        # 16. long contexts (the long attention route: the flagship served
+        # at T 64, trained at T 48 and over a 35-token rollout; every long
+        # route at full width against its plain version)
+        log(json.dumps({"long": phase_long(peaks, kernels)}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
         log("FAIL")
         return 1
 
-    # 16. report
+    # 17. report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # a kernel's further shapes are the dict-valued items of its entry
@@ -6146,9 +6758,10 @@ def main():
                               "launcher_launches", "eval_launches",
                               "variants_launches", "serving_graph_launches",
                               "options_launches", "pipeline_launches",
-                              "tp_launches")
+                              "tp_launches", "long_launches",
+                              "long_kernel_level_launches")
             if k in e},
-         **{label: {k: sub[k] for k in keys[5:]}
+         **{label: {k: sub[k] for k in keys[5:] + ("shape",) if k in sub}
             for label, sub in e.items()
             if isinstance(sub, dict)
             and label not in ("redesign", "serving_graph_launches",

@@ -236,13 +236,35 @@ def test_cpu_wrappers_take_the_plain_versions_on_drawn_masks(gpt2):
 @pytest.mark.parametrize("case", ["fuser_n9", "gpt2_n33", "dao_bf16",
                                   "dao_shape", "heads"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(case):
-    """The shape rules, applied on every device: at most 8 tokens for the
-    fuser's arithmetic and 32 for the GPT-2 layer's, an fp32 dao of the
-    attention output's shape, H * hd == C."""
+    """The shape rules, applied on every device: an fp32 dao of the
+    attention output's shape, H * hd == C. Any length is taken: past 8
+    tokens for the fuser's arithmetic and 32 for the GPT-2 layer's the
+    kernels take the long route, and on the CPU the wrappers return their
+    plain versions' results (``fuser_n9``, ``gpt2_n33``)."""
     N, H, gpt2, C = {"fuser_n9": (9, 2, False, 16),
                      "gpt2_n33": (33, 2, True, 16)}.get(case, (4, 2, True, 16))
     if case == "heads":
         H = 3
+    if case in ("fuser_n9", "gpt2_n33"):
+        rng = np.random.default_rng(N)
+        qkv = torch.tensor(rng.standard_normal((2 * N, 3 * C)),
+                           dtype=torch.float32)
+        dao = torch.tensor(rng.standard_normal((2 * N, C)),
+                           dtype=torch.float32)
+        mask = torch.full((N, N), float("-inf")).triu(1) if gpt2 else None
+        mattn = FT.draw_masks_plain(2, N, C, H, SEEDS, 0, 0.0, 0.0, 0.0)[0]
+        fwd = FT.attention_drop(qkv, mask, SEEDS, n_tokens=N, num_heads=H,
+                                gpt2=gpt2)
+        out, dqkv = FT.attention_drop_bwd(qkv, mask, dao, SEEDS, n_tokens=N,
+                                          num_heads=H, gpt2=gpt2)
+        round_to = torch.float32 if gpt2 else None
+        want_o, want = FT.attention_drop_bwd_plain(qkv, mask, mattn, dao, N,
+                                                   H, round_to)
+        assert fwd.shape == out.shape == (2 * N, C)
+        assert torch.equal(fwd, FT.attention_drop_plain(qkv, mask, mattn, N,
+                                                        H, round_to))
+        assert torch.equal(out, want_o) and torch.equal(dqkv, want)
+        return
     qkv = torch.zeros(2 * N, 3 * C)
     dao = torch.zeros(2 * N, C)
     if case == "dao_bf16":
@@ -252,7 +274,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     with pytest.raises(ValueError):
         FT.attention_drop_bwd(qkv, None, dao, SEEDS, n_tokens=N, num_heads=H,
                               gpt2=gpt2)
-    if case in ("fuser_n9", "gpt2_n33", "heads"):
+    if case == "heads":
         with pytest.raises(ValueError):
             FT.attention_drop(qkv, None, SEEDS, n_tokens=N, num_heads=H,
                               gpt2=gpt2)

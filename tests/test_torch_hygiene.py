@@ -413,7 +413,8 @@ def test_hopper_gemm_only_on_the_bf16_path():
     nvcuda::wmma) and its gemm_tn_bf16, small_attention, the training
     forward's small_attention_drop, the training backward's
     small_attention_drop_bwd, strided_attention and the packed attention
-    launcher are gone."""
+    launcher are gone. Past the short kernels' lengths the training
+    attention and its backward take the long route (long_attention.cuh)."""
     header = _source("gemm_sm90.cuh")
     bf16_branch, fp32_branch = _body(header, "gemm_kn").split("} else {")
     assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
@@ -489,7 +490,15 @@ def test_hopper_gemm_only_on_the_bf16_path():
     assert "launch_fuser_attention_rows<T, true>" in fuser_branch
     bwd_attn = _body(train, "run_bwd_attn")
     assert "attention_drop<" not in bwd_attn
-    assert bwd_attn.count("launch_attention_bwd<T, GPT2>") == 1
+    assert bwd_attn.count("attention_drop_bwd<T, GPT2>") == 1
+    # the attention backward: attention_bwd.cuh up to the short length,
+    # past it the long route's backward (which recomputes its own O)
+    short, long = _body(train, "attention_drop_bwd").split(
+        "LongAttn a =")
+    assert short.count("launch_attention_bwd<T, GPT2>") == 1
+    assert long.count("launch_long_attention_bwd<T, GPT2, true>") == 1
+    assert "launch_long_attention<T, GPT2, true>" in _body(
+        train, "attention_drop")
     gpt2_branch, fuser_branch = _body(train, "launch_dx").split("} else {")
     assert "if constexpr (GPT2)" in gpt2_branch
     assert "gemm_nk<EPI, T, T, TOut>" in gpt2_branch
