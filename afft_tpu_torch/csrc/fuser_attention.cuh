@@ -70,6 +70,7 @@
 
 #include "common.cuh"
 #include "long_attention.cuh"    // AttnStrides, the route past 1,024 keys
+#include "mma_tiles.cuh"         // cp.async, mma.sync and fragment loads
 #include "staged_attention.cuh"  // unpack16, pack16, dot_rows
 
 namespace afft {
@@ -243,23 +244,6 @@ constexpr int FS_MAX_CHUNKS = FS_MAX_KEYS / FS_KC;
 // rollout's shapes, NVIDIA H100 80GB HBM3)
 constexpr int FS_MIN_BLOCKS = 4;
 
-// 16 bytes from device memory into shared memory without passing through
-// registers; with pred false nothing is read and the 16 bytes are zeroed
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The tile's mask, read from device memory once: sc[r][k] (row stride SP)
 // = the additive mask of query q0 + r and key k (0 without a mask), -inf
 // past Nk, for the tile's queries (the rows past Nq are left as they are:
@@ -329,70 +313,6 @@ __device__ __forceinline__ float masked_score(float dot, float m, float scale) {
   return m != -INFINITY ? dot * scale + m : -INFINITY;
 }
 
-// D(16x8, fp32) += A(16x16, row) . B(16x8, col), bf16 operands
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The B fragment of a 16 x 8 tile of a row-major (keys x columns) operand
-// in shared memory: lane l gives row l % 16's 8 columns; the transposing
-// load hands each lane keys 2t, 2t + 1 (b[0]) and 2t + 8, 2t + 9 (b[1]) of
-// column g, as mma_16816 takes them.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&b)[2],
-                                                  const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(s));
-}
-
-// two consecutive bf16 as one register (the lower column in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pair_of(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-
-// Rows r0 .. r0 + n of one bf16 operand (row t at src + t * ld, the chunk's
-// column offset folded into src), columns 0 .. HC, into dst (row stride HC
-// + 8: 16 bytes of padding, so the 8 rows of a fragment load fall in 8
-// different bank quads): cp.async 16-byte copies where vec (every row and
-// chunk start 16-byte aligned), else element by element. A row at or past
-// ``rows``, or whose key is not live, and the columns at or past w are
-// zeros (and are not read), so every 16-column step of the products reads
-// zeros there. Rows past n are left as they are: the callers stage only the
-// q rows of queries and the k rows of keys that exist (a product row or
-// column past them is never used), and the v rows up to the last 16-key
-// step.
-template <int HC>
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src,
-                                           long long ld, int r0, int n,
-                                           int rows, const unsigned char* live,
-                                           int w, bool vec) {
-  constexpr int LD = HC + 8;
-  if (vec) {  // w % 8 == 0
-    for (int i = threadIdx.x; i < n * (HC / 8); i += FS_THREADS) {
-      const int r = i / (HC / 8), c = (i % (HC / 8)) * 8, t = r0 + r;
-      const bool ok = t < rows && c < w && (live == nullptr || live[t]);
-      cp_async16(dst + r * LD + c, ok ? src + t * ld + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * HC; i += FS_THREADS) {
-      const int r = i / HC, c = i % HC, t = r0 + r;
-      const bool ok = t < rows && c < w && (live == nullptr || live[t]);
-      dst[r * LD + c] = ok ? src[t * ld + c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
 // One block a (sequence, head, tile of QT = 16 * MT queries), bf16. Warp w
 // takes the 16 queries of strip w / (8 / MT) and MT of the 8-wide key (or
 // column) tiles of each 64-wide group, from tile (w % (8 / MT)) * MT on.
@@ -437,38 +357,35 @@ fuser_attention_seq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // the q chunk of the first item does not depend on the mask: its copies
   // are in flight while the mask is read
-  load_chunk<HC>(stages, qb, qs.t, q0, nq, Nq, nullptr, min(HC, hd), vec);
+  stage_rows<FS_THREADS>(stages, LD, qb, qs.t, q0, nq, 0, Nq - 1, nullptr, HC,
+                         min(HC, hd), vec);
   const int nlive = stage_mask(sc, QT, SP, kend, mask, q0, Nq, Nk, live,
                                live32, chunks, &n_chunks);
 
   // 1. the tile's scores against the live key chunks; item (ci, cc) = (key
-  // chunk chunks[ci], head columns cc * HC), cc fastest
+  // chunk chunks[ci], head columns cc * HC), cc fastest; the items' q and
+  // k chunks stream through the ring (mma_tiles.cuh), the k rows of keys
+  // that are not live staged as zeros
   const int n1 = nlive * nhc;
   int ici = 0, icc = 0;  // the next item to issue
-  auto issue1 = [&](int buf, bool with_q) {
+  auto issue1 = [&](int i, int buf) {
     bf16* st = stages + buf * STAGE;
     const int c0 = icc * HC, w = min(HC, hd - c0), k0 = chunks[ici] * FS_KC;
-    if (with_q) load_chunk<HC>(st, qb + c0, qs.t, q0, nq, Nq, nullptr, w, vec);
-    load_chunk<HC>(st + QT * LD, kb + c0, ks.t, k0, min(FS_KC, Nk - k0), Nk,
-                   live, w, vec);
+    if (i > 0)  // item 0's q chunk is staged above
+      stage_rows<FS_THREADS>(st, LD, qb + c0, qs.t, q0, nq, 0, Nq - 1,
+                             nullptr, HC, w, vec);
+    stage_rows<FS_THREADS>(st + QT * LD, LD, kb + c0, ks.t, k0,
+                           min(FS_KC, Nk - k0), 0, Nk - 1, live, HC, w, vec);
     if (++icc == nhc) icc = 0, ++ici;
   };
-  for (int i = 0; i < NST - 1; ++i) {
-    if (i < n1) issue1(i, i > 0);
-    cp_async_commit();
-  }
   float acc[MT][4];
 #pragma unroll
   for (int j = 0; j < MT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   int ci = 0, cc = 0;  // the item multiplied
-  for (int i = 0; i < n1; ++i) {
-    cp_async_wait<NST - 2>();  // item i has landed (this thread's copies)
-    __syncthreads();           // ... everyone's; item i - 1 is multiplied
-    if (i + NST - 1 < n1) issue1((i + NST - 1) % NST, true);
-    cp_async_commit();
-    const bf16* qsm = stages + (i % NST) * STAGE;
+  auto use1 = [&](int, int buf) {
+    const bf16* qsm = stages + buf * STAGE;
     const bf16* ksm = qsm + QT * LD;
     const int k0 = chunks[ci] * FS_KC, w = min(HC, hd - cc * HC);
     if (k0 + n0 < Nk) {  // else every key of the warp's tiles is past Nk
@@ -497,26 +414,22 @@ fuser_attention_seq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       cc = 0, ++ci;
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every score is written; the ring is free
+  };
+  ring_run<NST>(n1, issue1, use1);  // every score is written; the ring is free
 
   // 3. P . V; item (cc, ci) = (head columns cc * HC, key chunk chunks[ci]),
   // ci fastest, v into the ring's k slots, its first chunks in flight
   // during the softmax
   const int n3 = nlive * nhc;
   ici = 0, icc = 0;
-  auto issue3 = [&](int buf) {
+  auto issue3 = [&](int, int buf) {
     const int c0 = icc * HC, k0 = chunks[ici] * FS_KC;
-    load_chunk<HC>(stages + buf * STAGE + QT * LD, vb + c0, vs.t, k0,
-                   min(FS_KC, (Nk - k0 + 15) / 16 * 16), Nk, live,
-                   min(HC, hd - c0), vec);
+    stage_rows<FS_THREADS>(stages + buf * STAGE + QT * LD, LD, vb + c0, vs.t,
+                           k0, min(FS_KC, (Nk - k0 + 15) / 16 * 16), 0,
+                           Nk - 1, live, HC, min(HC, hd - c0), vec);
     if (++ici == nlive) ici = 0, ++icc;
   };
-  for (int i = 0; i < NST - 1; ++i) {
-    if (i < n3) issue3(i);
-    cp_async_commit();
-  }
+  ring_fill<NST>(n3, issue3);
 
   // 2. softmax; the probabilities are bf16 values, so packing them is exact
   softmax_rows<bf16>(sc, nq, SP, kend);
@@ -525,12 +438,10 @@ fuser_attention_seq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t orow = (size_t)H * hd;  // elements between output rows
   float o[NG][MT][4];
   ci = 0, cc = 0;
-  for (int i = 0; i < n3; ++i) {
-    cp_async_wait<NST - 2>();
-    __syncthreads();  // also orders the softmax before the first P . V
-    if (i + NST - 1 < n3) issue3((i + NST - 1) % NST);
-    cp_async_commit();
-    const bf16* vsm = stages + (i % NST) * STAGE + QT * LD;
+  // the ring's barrier before the first item also orders the softmax
+  // before the first P . V
+  auto use3 = [&](int, int buf) {
+    const bf16* vsm = stages + buf * STAGE + QT * LD;
     const int k0 = chunks[ci] * FS_KC;
     const int c0 = cc * HC, w = min(HC, hd - c0);
     if (ci == 0) {
@@ -584,7 +495,8 @@ fuser_attention_seq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
       ci = 0, ++cc;
     }
-  }
+  };
+  ring_drain<NST>(n3, issue3, use3);
   // a tile whose keys are all masked has no item: its rows are zeros
   if (nlive == 0)
     for (int i = threadIdx.x; i < nq * hd; i += FS_THREADS)
@@ -747,19 +659,6 @@ static inline size_t fuser_attention_seq_f32_smem(int Nk) {
   const int kend = cdiv(Nk, FS_KC) * FS_KC;
   return ((size_t)FS_HC * (FF_QLD + FF_KLD) + (size_t)FF_QT * (kend + 1)) *
              sizeof(float) + kend;
-}
-
-// Every row and chunk start of the three operands is 16-byte aligned.
-template <typename T>
-static bool attn_rows_aligned(const T* q, const T* k, const T* v,
-                              AttnStrides qs, AttnStrides ks, AttnStrides vs,
-                              int hd) {
-  constexpr long long V = 16 / sizeof(T);
-  const auto on_grid = [](const AttnStrides& s) {
-    return s.b % V == 0 && s.t % V == 0 && s.h % V == 0;
-  };
-  return hd % V == 0 && on_grid(qs) && on_grid(ks) && on_grid(vs) &&
-         ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
 }
 
 // out (n_seq, Nq, H, hd), contiguous = softmax(q . k^T * hd^-0.5 + mask) . v

@@ -14,67 +14,102 @@
 // kernels keep every score of a tile in shared memory, which bounds their
 // length; here nothing grows with the length but the grid.
 //
-// Forward (long_attention), one block a (sequence, head, tile of 16
-// queries), 256 threads, thread (r, c) = (tid / 16, tid % 16):
-//   1. the tile's q rows are staged once (fp32, all head columns); the key
-//      tiles of 16 stream through shared memory and each thread takes the
-//      score of query r and key c; each query keeps a running max and sum
-//      of its exponentials (the online softmax), its 16 lanes reducing a
-//      tile by a butterfly;
-//   2. a second sweep over the key tiles forms each probability exactly as
-//      the plain version does, p = exp(s - max) / sum (times the dropout
-//      multiplier, rounded to T under ROUND), so p enters P . V as the
-//      plain version forms it and needs no rescaling of O; thread (r, c)
-//      keeps O's columns c, c + 16, ... (up to 512 columns a sweep; wider
-//      heads take more sweeps) in registers, a sequential fp32 sum over the
-//      keys in order.
-// Shared memory is 3 x 16 rows of the head width (fp32) and a 16 x 16
-// probability tile, whatever the length. Every score is a sequential fp32
-// FMA chain over the head columns in order, and every other step is
-// written with explicit rounding (fmaf, __fmul_rn, __fadd_rn, __fdiv_rn),
-// so any kernel here that recomputes a score or a probability gets the
-// same bits.
+// Two families, chosen by dtype and cast chain inside launch_long_attention
+// / launch_long_attention_bwd (no fallback: a form is reached by its types):
 //
-// Training mode (DROP): the dropout multiplier of (query tq, key tk) is
-// drop_scale(drop, ((seq * H + h) * Nq + tq) * Nk + tk), a 64-bit logical
-// index, so a tensor-parallel shard's span / gap remap (common.cuh) holds.
-// ROUND selects the cast chain: the probabilities (times their multipliers)
-// rounded to T before P . V (the GPT-2 layer, and the sequence attention of
-// rows 4-6), or kept fp32 (the fuser).
+// * The tensor-core forms (T = bf16 with ROUND: rows 2, 4, 5, 6, 11 and
+//   15): long_attention_mma, long_attention_mma_dkdv, long_attention_mma_dq.
+//   Every product is mma.sync.m16n8k16 (bf16 in, fp32 accumulate, v's and
+//   the other right-hand operands' fragments through ldmatrix.trans,
+//   mma_tiles.cuh); the operands stream through rings of cp.async copies,
+//   16 bytes at a time where the rows allow (else element by element, so any
+//   hd is taken; the head columns are padded to the mma's k of 16 with
+//   zeros). Shared memory depends on hd, never on the lengths.
+//   - Forward: one block a (sequence, head, tile of 16 or 32 queries),
+//     its q rows resident. The softmax takes two passes, which keeps the
+//     plain version's rounding point: pass 1 streams the key chunks (64
+//     keys x 128 head columns) for each query's max m and sum l (online,
+//     each warp over its keys, the warps' partials combined in a fixed
+//     order); pass 2 rebuilds each chunk's scores on the same fragments in
+//     the same order and forms p = exp(s - m) / l, times its keep
+//     multiplier, rounded to bf16 into a shared P tile, then O += P . V over
+//     16-key items of v. O stays in registers, split over the warps: a warp
+//     keeps 16 queries x 64 columns (32 registers, so two blocks fit an
+//     SM); a tile of 32 queries takes hd <= 256 in one sweep of O, 16
+//     queries hd <= 512 (the tile is chosen so), and hd 768 takes two
+//     sweeps (each rebuilding the scores). Two passes
+//     cost 1.5x the products of a one-pass online softmax and need no
+//     rescaling of O.
+//   - Backward: three launches, no atomics. (1) The forward's own instance
+//     again: O bit for bit (dWproj's operand), the stash (m, l), D =
+//     rowsum(dao . O) (dao rounded to bf16, as the plain version reads it)
+//     and dao rounded to bf16 into dQ's place, the other two kernels'
+//     operand. (2) dK / dV: one block a tile of 16 keys (k, v resident),
+//     looping over the 64-query chunks that see some key of it: S = q . k^T
+//     and dP = dao . v^T on the forward's fragments in the forward's column
+//     order (so P is the forward's bit for bit), dS = p (dP keep - D)
+//     rounded, then dV += (P keep)^T . dao and dK += dS^T . q through
+//     transposed shared tiles. Two 16 x hd fp32 accumulators split over 8
+//     warps (64 registers at hd 512, two blocks an SM; hd 768 takes two
+//     sweeps, rebuilding the scores). (3) dQ over query tiles (as the
+//     forward's, dQ kept as O), looping over key chunks: dQ += dS . k,
+//     written over the block's own copy of dao. Every gradient is the same
+//     bit for bit from run to run.
+//   - Chunks: each tile first reads its rows of the (Nq, Nk) mask for the
+//     first and last key (query) it sees; the chunks outside that range are
+//     neither staged nor multiplied: the causal upper triangle, the
+//     rollout's unwritten cache slots. The rows outside it are staged as
+//     zeros, so NaN in an unwritten slot never reaches a result; a masked
+//     pair's probability and dS are selected as exactly 0; a query whose
+//     keys are all masked gives zeros. A key inside the range that no query
+//     of the tile sees (a mask with holes; none of the entries' masks) is
+//     staged as it lies.
+//   - Dropout (DROP): the keep multiplier of (query tq, key tk) is
+//     drop_scale(drop, ((seq * H + h) * Nq + tq) * Nk + tk), a 64-bit
+//     logical index drawn from each thread's fragment coordinates, so a
+//     tensor-parallel shard's span / gap remap (common.cuh) holds and the
+//     keep pattern is the plain version's bit for bit.
+//   - Bound on an H100: operations 4 . pairs . hd forward and 8 . pairs .
+//     hd backward (pairs: the visible (query, key) pairs of all sequences
+//     and heads; at T 1,024, C 2,048, 4 heads, B 4, causal: 17.2 / 34.4
+//     GFLOP, 0.017 / 0.035 ms at 989 TFLOP/s) against bytes (q, k, v read
+//     and out written once; the backward's fp32 dao read and dq, dk, dv and
+//     O written once: 0.020 / 0.045 ms at 3.35 TB/s). Under DROP, Philox
+//     adds about 57 SASS integer instructions a visible pair and kernel
+//     (tools/philox_bound.py): 0.48 G a kernel at T 1,024, ~0.03 ms of
+//     integer issue. The kernels run 1.5x (forward), 2.5x (backward) the
+//     bound's products: the second pass, the backward's recomputed forward
+//     and scores. PERF.md has their times.
 //
-// Backward (launch_long_attention_bwd), three launches on the stream:
-//   1. the forward kernel again on the same operands and masks: O bit for
-//      bit the forward's (the same instance recomputes it in the forward's
-//      order; O is dWproj's operand), the stash of each query's row max and
-//      sum (fp32, per (sequence, head)) and D = rowsum(dao . O) over O's
-//      fp32 sums (dao rounded to T under ROUND);
-//   2. long_attention_dkdv: a block a tile of 16 keys, looping over every
-//      query tile: P rebuilt from the stash, dp = (dao . v) * keep, ds =
-//      p (dp - D) (rounded under ROUND), dK = scale ds^T . q and dV = (p *
-//      keep)^T . dao summed in registers over the queries in order;
-//   3. long_attention_dq: a block a tile of 16 queries, looping over every
-//      key tile: dQ = scale ds . k.
-// No atomics: every gradient is the same bit for bit from run to run.
+// * The CUDA-core forms (long_attention_f32rows, _dkdv, _dq): fp32, and the
+//   fuser's ROUND = false chain (rows 1, 7, 9: fp32 probabilities, whose
+//   1e-5 parity tolerance TF32 tensor cores cannot meet in fp32, and whose
+//   rows launch 0 times on the served and trained paths). One block a
+//   (sequence, head, tile of 16 queries), 256 threads, thread (r, c) =
+//   (tid / 16, tid % 16): the tile's q rows staged once (fp32, all head
+//   columns); the key tiles of 16 stream through shared memory, each thread
+//   the score of query r and key c; a first sweep keeps each query's running
+//   max and sum, a second forms p = exp(s - max) / sum as the plain version
+//   does (times the dropout multiplier, rounded to T under ROUND), and
+//   thread (r, c) keeps O's columns c, c + 16, ... (up to 512 columns a
+//   sweep) in registers. Every score is a sequential fp32 FMA chain over the
+//   head columns in order, every other step explicitly rounded, so the
+//   backward's kernels recompute the same bits. Their backward: the forward
+//   again (O, the stash, D), then long_attention_f32rows_dkdv (a tile of 16
+//   keys over every query tile) and long_attention_f32rows_dq (a tile of 16
+//   queries over every key tile). A masked key scores -inf and a zero
+//   coefficient is skipped in every product. Products on the CUDA cores
+//   from shared memory: PERF.md has their times.
+//
 // With ROUND, D sums (p * keep) rounded (the O of P . V) where the plain
 // version sums p * keep unrounded: a difference of bf16 rounding in ds.
 //
-// A key whose mask entry is -inf scores -inf (its dot is not computed) and
-// contributes nothing: a zero coefficient is skipped in every product, so
-// what lies in a masked row (NaN in an unwritten cache slot) never reaches
-// a result; a query whose keys are all masked gives zeros.
-//
-// Bound on an H100: at long lengths by operations (4 . B . H . Nq . Nk . hd
-// FLOPs forward; at T 1,024, C 2,048, 4 heads, B 4: 34 GFLOP, 0.035 ms at
-// 989 TFLOP/s). This first version runs its products on the CUDA cores in
-// fp32, from shared memory, and computes the scores twice in the forward
-// (and five times in the backward); the tensor cores (mma.sync / wgmma) are
-// later work (ROADMAP §B.2). PERF.md has its times.
-//
-// Limits: any lengths (Nq, Nk >= 1; the grid's y takes cdiv(Nq, 16) <=
-// 65,535), 1 <= hd <= LA_MAX_HD (the backward's shared memory), fp32 or
-// bf16, any strides with unit stride along hd.
+// Limits: any lengths (Nq, Nk >= 1; a grid's y takes cdiv(Nq, 16) and
+// cdiv(Nk, 16) <= 65,535), 1 <= hd <= LA_MAX_HD (shared memory), any
+// strides with unit stride along hd.
 
 #include "long_attention.cuh"
+#include "mma_tiles.cuh"
 
 namespace afft {
 
@@ -163,7 +198,7 @@ static size_t la_lds(int hd) { return (size_t)hd + 1; }
 
 template <typename T, bool ROUND, bool DROP>
 __global__ void __launch_bounds__(LA_THREADS)
-long_attention(LongAttn a) {
+long_attention_f32rows(LongAttn a) {
   extern __shared__ __align__(16) float la_smem[];
   const int hd = a.hd, lds = hd + 1;
   float* qsm = la_smem;             // [16][lds] the tile's queries
@@ -250,19 +285,16 @@ long_attention(LongAttn a) {
 }
 
 template <typename T, bool ROUND, bool DROP>
-cudaError_t launch_long_attention(const LongAttn& a, cudaStream_t stream) {
-  if (a.Nq < 1 || a.Nk < 1 || a.hd < 1 || a.hd > LA_MAX_HD ||
-      (a.Nq + LA_TILE - 1) / LA_TILE > 65535)
-    return cudaErrorInvalidValue;
-  if (a.n_seq * a.H == 0) return cudaSuccess;
+static cudaError_t launch_long_f32rows(const LongAttn& a,
+                                       cudaStream_t stream) {
   const size_t smem =
       (3 * LA_TILE * la_lds(a.hd) + LA_TILE * LA_PLD) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      long_attention<T, ROUND, DROP>,
+      long_attention_f32rows<T, ROUND, DROP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_seq * a.H, (a.Nq + LA_TILE - 1) / LA_TILE);
-  long_attention<T, ROUND, DROP><<<grid, LA_THREADS, smem, stream>>>(a);
+  long_attention_f32rows<T, ROUND, DROP><<<grid, LA_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -299,7 +331,7 @@ __device__ __forceinline__ void la_pair_grad(const LongAttn& a, int seq,
 // One block a tile of 16 keys: dK and dV over every query tile.
 template <typename T, bool ROUND, bool DROP>
 __global__ void __launch_bounds__(LA_THREADS)
-long_attention_dkdv(LongAttn a) {
+long_attention_f32rows_dkdv(LongAttn a) {
   extern __shared__ __align__(16) float la_smem[];
   const int hd = a.hd, lds = hd + 1;
   float* ksm = la_smem;              // [16][lds] this block's keys
@@ -374,7 +406,7 @@ long_attention_dkdv(LongAttn a) {
 // One block a tile of 16 queries: dQ over every key tile.
 template <typename T, bool ROUND, bool DROP>
 __global__ void __launch_bounds__(LA_THREADS)
-long_attention_dq(LongAttn a) {
+long_attention_f32rows_dq(LongAttn a) {
   extern __shared__ __align__(16) float la_smem[];
   const int hd = a.hd, lds = hd + 1;
   float* qsm = la_smem;              // [16][lds] this block's queries
@@ -430,6 +462,902 @@ long_attention_dq(LongAttn a) {
   }
 }
 
+// The CUDA-core backward: the forward kernel again (O, the stash, D), then
+// dK / dV over key tiles and dQ over query tiles.
+template <typename T, bool ROUND, bool DROP>
+static cudaError_t launch_long_f32rows_bwd(const LongAttn& a,
+                                           cudaStream_t stream) {
+  cudaError_t err = launch_long_f32rows<T, ROUND, DROP>(a, stream);
+  if (err != cudaSuccess) return err;
+  const size_t rows = 4 * LA_TILE * la_lds(a.hd) * sizeof(float);
+  const size_t smem_kv = rows + 2 * LA_TILE * LA_PLD * sizeof(float);
+  const size_t smem_q = rows + LA_TILE * LA_PLD * sizeof(float);
+  err = cudaFuncSetAttribute(long_attention_f32rows_dkdv<T, ROUND, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_kv);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(long_attention_f32rows_dq<T, ROUND, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return err;
+  const dim3 gk(a.n_seq * a.H, (a.Nk + LA_TILE - 1) / LA_TILE);
+  long_attention_f32rows_dkdv<T, ROUND, DROP>
+      <<<gk, LA_THREADS, smem_kv, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gq(a.n_seq * a.H, (a.Nq + LA_TILE - 1) / LA_TILE);
+  long_attention_f32rows_dq<T, ROUND, DROP>
+      <<<gq, LA_THREADS, smem_q, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the tensor-core forms: bf16 with the probabilities rounded (ROUND)
+// ---------------------------------------------------------------------------
+
+constexpr int LM_THREADS = 256;      // 8 warps
+constexpr int LM_KC = 64;            // keys a chunk (queries in dK / dV)
+constexpr int LM_HC = 128;           // head columns of a forward score item
+constexpr int LM_HC2 = 64;           // of a backward score item (2 operands)
+constexpr int LM_NT = 8;             // 8-column tiles of O / dQ a warp keeps
+constexpr int LM_NTK = 8;            // of dK and of dV a warp keeps
+constexpr int LM_KT = LA_TILE;       // keys a dK / dV block
+constexpr int LM_KCW = 8 * LM_NTK * 8;  // head columns a dK / dV sweep
+constexpr int LM_PLD = LM_KC + 8;    // row stride of a P or dS tile
+constexpr int LM_NQ = LM_KC / 16;    // 16-row output items a chunk
+// ring stages (two blocks an SM at <= 128 registers: more blocks in flight
+// moved the time, deeper rings did not; NVIDIA H100 80GB HBM3, PERF.md)
+constexpr int LM_NST = 3;            // forward
+constexpr int LM_NST_DQ = 2;         // dQ
+constexpr int LM_NST_KV = 2;         // dK / dV
+
+// A block of MT (1 or 2) 16-query strips; WPM warps share a strip; an
+// output sweep covers CW head columns (a warp keeps 16 x 8 LM_NT of O: 32
+// registers). Two blocks an SM (<= 128 registers).
+template <int MT>
+struct LmTile {
+  static constexpr int QT = 16 * MT, WPM = 8 / MT, CW = 8 * LM_NT * WPM;
+};
+
+// head columns padded to the mma's k of 16 (the padding staged as zeros)
+__host__ __device__ __forceinline__ int lm_hdp(int hd) {
+  return (hd + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int lm_max(int x, int y) {
+  return x > y ? x : y;
+}
+__host__ __device__ __forceinline__ int lm_min(int x, int y) {
+  return x < y ? x : y;
+}
+// the row stride of a 16-row output item over a sweep of cw columns
+__host__ __device__ __forceinline__ int lm_old(int cw, int hdp) {
+  return lm_min(cw, hdp) + 8;
+}
+
+// acc[j] += A . B_j^T over ksteps 16-column steps, in column order: A the
+// 16 rows at a (row stride lda), B_j the 8 rows at b + 8 j ldb (row stride
+// ldb), both along the columns; tiles j >= nt are left as they are.
+template <int NT>
+__device__ __forceinline__ void lm_mma_abt(float (&acc)[NT][4], const bf16* a,
+                                           int lda, const bf16* b, int ldb,
+                                           int ksteps, int nt) {
+#pragma unroll 2
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t af[4];
+    ldmatrix_a(af, a + kk * 16, lda);
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {  // two tiles a load
+      const int j = 2 * jj;
+      if (j + 1 < nt) {
+        uint32_t b0[2], b1[2];
+        ldmatrix_b2(b0, b1, b + 8 * j * ldb + kk * 16, ldb);
+        mma_16816(acc[j], af, b0);
+        mma_16816(acc[j + 1], af, b1);
+      } else if (j < nt) {
+        uint32_t b0[2];
+        ldmatrix_b1(b0, b + 8 * j * ldb + kk * 16, ldb);
+        mma_16816(acc[j], af, b0);
+      }
+    }
+    if constexpr (NT % 2 == 1) {
+      if (NT - 1 < nt) {
+        uint32_t b0[2];
+        ldmatrix_b1(b0, b + 8 * (NT - 1) * ldb + kk * 16, ldb);
+        mma_16816(acc[NT - 1], af, b0);
+      }
+    }
+  }
+}
+
+// acc[j] += A . B[:, 8 j .. 8 j + 8] over ksteps 16-row steps of B: A the
+// 16 rows at a (row stride lda, along k), B row-major at b (row stride ldb),
+// its fragments through ldmatrix.trans; tiles j >= nt are left as they are.
+template <int NT>
+__device__ __forceinline__ void lm_mma_ab(float (&acc)[NT][4], const bf16* a,
+                                          int lda, const bf16* b, int ldb,
+                                          int ksteps, int nt) {
+  const int lane = threadIdx.x & 31;
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t af[4];
+    ldmatrix_a(af, a + kk * 16, lda);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        uint32_t bf[2];
+        ldmatrix_x2_trans(bf, b + (kk * 16 + (lane & 15)) * ldb + 8 * j);
+        mma_16816(acc[j], af, bf);
+      }
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void lm_zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// The score of (query qi, key ki) from its fp32 dot: explicitly rounded,
+// so every kernel here gets the same bits from the same dot
+__device__ __forceinline__ float lm_score(const LongAttn& a, int qi, int ki,
+                                          float dot) {
+  const float mk = la_mask(a, qi, ki);
+  return mk == -INFINITY ? -INFINITY
+                         : __fadd_rn(__fmul_rn(dot, a.scale), mk);
+}
+
+// p = exp(s - m) / l from the query's stash, 0 for a masked pair
+__device__ __forceinline__ float lm_prob(float s, float m, float l) {
+  return s != -INFINITY ? __fdiv_rn(expf(__fsub_rn(s, m)), l) : 0.f;
+}
+
+// The first and last key some query q0 .. q0 + nq of a tile sees (every key
+// without a mask); hi < lo where it sees none. Block-wide; with a mask it
+// ends with a barrier.
+__device__ __forceinline__ void lm_key_range(const LongAttn& a, int q0,
+                                             int nq, int* range, int& lo,
+                                             int& hi) {
+  lo = 0, hi = a.Nk - 1;
+  if (a.mask == nullptr) return;
+  if (threadIdx.x == 0) range[0] = 0x7fffffff, range[1] = -1;
+  __syncthreads();
+  int l = 0x7fffffff, h = -1;
+  const float* mt = a.mask + (size_t)q0 * a.Nk;  // the tile's rows
+  const int total = nq * a.Nk;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < total; i += LM_THREADS)
+    if (mt[i] != -INFINITY) {
+      const int k = i % a.Nk;
+      l = min(l, k), h = max(h, k);
+    }
+  l = __reduce_min_sync(0xffffffffu, l);
+  h = __reduce_max_sync(0xffffffffu, h);
+  if ((threadIdx.x & 31) == 0) atomicMin(&range[0], l), atomicMax(&range[1], h);
+  __syncthreads();
+  lo = range[0], hi = range[1];
+}
+
+// The first and last query that sees some key k0 .. k0 + nk of a tile
+__device__ __forceinline__ void lm_query_range(const LongAttn& a, int k0,
+                                               int nk, int* range, int& lo,
+                                               int& hi) {
+  lo = 0, hi = a.Nq - 1;
+  if (a.mask == nullptr) return;
+  if (threadIdx.x == 0) range[0] = 0x7fffffff, range[1] = -1;
+  __syncthreads();
+  int l = 0x7fffffff, h = -1;
+  for (int r = threadIdx.x; r < a.Nq; r += LM_THREADS) {
+    const float* mr = a.mask + (size_t)r * a.Nk + k0;
+    for (int c = 0; c < nk; ++c)
+      if (mr[c] != -INFINITY) {
+        l = min(l, r), h = max(h, r);
+        break;
+      }
+  }
+  l = __reduce_min_sync(0xffffffffu, l);
+  h = __reduce_max_sync(0xffffffffu, h);
+  if ((threadIdx.x & 31) == 0) atomicMin(&range[0], l), atomicMax(&range[1], h);
+  __syncthreads();
+  lo = range[0], hi = range[1];
+}
+
+// -- forward ----------------------------------------------------------------
+
+template <int MT>
+static size_t lm_fwd_smem(int hd) {
+  using Tile = LmTile<MT>;
+  const int hdp = lm_hdp(hd);
+  const int stage = lm_max(LM_KC * (LM_HC + 8), 16 * lm_old(Tile::CW, hdp));
+  return ((size_t)Tile::QT * (hdp + 8) + LM_NST * (size_t)stage +
+          (size_t)Tile::QT * LM_PLD) * sizeof(bf16) +
+         (size_t)Tile::QT * Tile::WPM * 2 * sizeof(float);
+}
+
+// One block a (sequence, head, tile of QT = 16 MT queries), 8 warps. Warp w
+// takes the 16 queries of strip w / WPM; of a 64-key chunk's scores it takes
+// the MT 8-key tiles from 8 MT (w % WPM) on, of an output sweep the LM_NT
+// 8-column tiles from 8 LM_NT (w % WPM) on. The tile's q rows stay in shared
+// memory; the items stream through a ring of LM_NST stages: the score items (a
+// chunk's k rows, LM_HC head columns), then the output items (16 of its v
+// rows, the sweep's columns). Pass 1 takes each query's max m and sum l
+// over the chunks (online, each warp over its keys, the WPM partials
+// combined in order); pass 2, once a sweep, rebuilds each chunk's scores
+// and forms p = exp(s - m) / l (times its keep multiplier) rounded to bf16
+// into a shared P tile, then O += P . V. With a.stats / a.dao / a.dsum the
+// stash (m, l), D = rowsum(dao . O) and, with a.dq, dao rounded to bf16 in
+// dQ's place (the backward's operand, read there before dQ overwrites it).
+template <int MT, bool DROP>
+__global__ void __launch_bounds__(LM_THREADS, 2)
+long_attention_mma(LongAttn a, bool vec) {
+  using Tile = LmTile<MT>;
+  constexpr int QT = Tile::QT, WPM = Tile::WPM, CW = Tile::CW, NST = LM_NST;
+  constexpr int KLD = LM_HC + 8;
+  extern __shared__ __align__(16) unsigned char lm_smem[];
+  __shared__ int range[2];
+  const int hd = a.hd, hdp = lm_hdp(hd), QLD = hdp + 8;
+  const int VLD = lm_old(CW, hdp);
+  const int STAGE = lm_max(LM_KC * KLD, 16 * VLD);
+  bf16* qsm = reinterpret_cast<bf16*>(lm_smem);  // [QT][QLD] the tile's q
+  bf16* ring = qsm + QT * QLD;                     // NST stages
+  bf16* psm = ring + NST * STAGE;                  // [QT][LM_PLD] P
+  float* part = reinterpret_cast<float*>(psm + QT * LM_PLD);  // [QT][WPM][2]
+  const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int q0 = blockIdx.y * QT, nq = min(QT, a.Nq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp / WPM) * 16, kp = warp % WPM;
+  const int n0 = kp * 8 * MT, oc0 = kp * 8 * LM_NT;
+  const bool rows = m0 < nq;  // the warp's strip holds a query
+  const bf16* qb = static_cast<const bf16*>(a.q) + seq * a.qs.b + h * a.qs.h;
+  const bf16* kb = static_cast<const bf16*>(a.k) + seq * a.ks.b + h * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + seq * a.vs.b + h * a.vs.h;
+  bf16* out = static_cast<bf16*>(a.out);
+  bf16* dqc = static_cast<bf16*>(a.dq);
+  const size_t srow = ((size_t)seq * a.H + h) * a.Nq;  // stash of query 0
+  const size_t obase = ((size_t)seq * a.Nq * a.H + h) * hd;
+  const size_t orow = (size_t)a.H * hd;  // elements between output rows
+  stage_rows<LM_THREADS>(qsm, QLD, qb, a.qs.t, q0, QT, 0, a.Nq - 1, nullptr,
+                         hdp, hd, vec);
+  int klo, khi;
+  lm_key_range(a, q0, nq, range, klo, khi);
+  const int c_lo = klo / LM_KC;
+  const int nch = khi >= klo ? khi / LM_KC - c_lo + 1 : 0;
+  const int nhc = (hdp + LM_HC - 1) / LM_HC, nsw = (hdp + CW - 1) / CW;
+  const int ipc = nhc + LM_NQ, n1 = nch * nhc, n = n1 + nsw * nch * ipc;
+
+  // item i: chunk ci of sweep sw (-1: pass 1); x < nhc the chunk's k
+  // columns x LM_HC .., else its v rows 16 (x - nhc) .. over the sweep
+  auto decode = [&](int i, int& ci, int& sw, int& x) {
+    if (i < n1) {
+      ci = i / nhc, x = i - ci * nhc, sw = -1;
+      return;
+    }
+    int j = i - n1;
+    sw = j / (nch * ipc);
+    j -= sw * nch * ipc;
+    ci = j / ipc, x = j - ci * ipc;
+  };
+  auto issue = [&](int i, int buf) {
+    int ci, sw, x;
+    decode(i, ci, sw, x);
+    bf16* st = ring + buf * STAGE;
+    const int k0 = (c_lo + ci) * LM_KC;
+    if (x < nhc) {
+      const int c0 = x * LM_HC;
+      stage_rows<LM_THREADS>(st, KLD, kb + c0, a.ks.t, k0, LM_KC, klo, khi,
+                             nullptr, lm_min(LM_HC, hdp - c0), hd - c0, vec);
+    } else {
+      const int c0 = sw * CW;
+      stage_rows<LM_THREADS>(st, VLD, vb + c0, a.vs.t, k0 + 16 * (x - nhc), 16,
+                             klo, khi, nullptr, lm_min(CW, hdp - c0), hd - c0,
+                             vec);
+    }
+  };
+
+  float acc[MT][4], o[LM_NT][4];
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
+  float dpart[2] = {0.f, 0.f};
+  bool combined = false;
+
+  // a chunk's scores are whole: pass 1 updates the warp's (m, l), pass 2
+  // writes the chunk's P
+  auto scores = [&](int ci, int sw, int k0) {
+    float s[MT][4];
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = lm_score(a, q0 + m0 + g + (e >> 1) * 8,
+                           k0 + n0 + 8 * j + 2 * t + (e & 1), acc[j][e]);
+    if (sw < 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m_run[hr], mx);
+        float es = 0.f;
+        if (mn != -INFINITY) {
+#pragma unroll
+          for (int j = 0; j < MT; ++j)
+#pragma unroll
+            for (int e = 2 * hr; e < 2 * hr + 2; ++e)
+              if (s[j][e] != -INFINITY)
+                es = __fadd_rn(es, expf(__fsub_rn(s[j][e], mn)));
+        }
+        es = __fadd_rn(es, __shfl_xor_sync(0xffffffffu, es, 1));
+        es = __fadd_rn(es, __shfl_xor_sync(0xffffffffu, es, 2));
+        if (mn != -INFINITY) {
+          l_run[hr] = __fadd_rn(
+              m_run[hr] != -INFINITY
+                  ? __fmul_rn(l_run[hr], expf(__fsub_rn(m_run[hr], mn)))
+                  : 0.f,
+              es);
+          m_run[hr] = mn;
+        }
+        if (ci == nch - 1 && t == 0) {  // the warp's partial, for pass 2
+          float* pr = part + ((m0 + g + 8 * hr) * WPM + kp) * 2;
+          pr[0] = m_run[hr], pr[1] = l_run[hr];
+        }
+      }
+      return;
+    }
+    if (!combined) {  // every partial was written before the last barrier
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = m0 + g + 8 * hr;
+        const float* pr = part + r * WPM * 2;
+        float m = -INFINITY, l = 0.f;
+        for (int w = 0; w < WPM; ++w) m = fmaxf(m, pr[2 * w]);
+        if (m != -INFINITY)
+          for (int w = 0; w < WPM; ++w)
+            if (pr[2 * w] != -INFINITY)
+              l = __fadd_rn(l, __fmul_rn(pr[2 * w + 1],
+                                         expf(__fsub_rn(pr[2 * w], m))));
+        m_row[hr] = m, l_row[hr] = l;
+        if (a.stats != nullptr && kp == 0 && t == 0 && q0 + r < a.Nq) {
+          a.stats[2 * (srow + q0 + r)] = m;
+          a.stats[2 * (srow + q0 + r) + 1] = l;
+        }
+      }
+      combined = true;
+    }
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qi = q0 + m0 + g + 8 * hr, ki = k0 + n0 + 8 * j + 2 * t;
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] = lm_prob(s[j][2 * hr + e], m_row[hr], l_row[hr]);
+          if (DROP && p[e] != 0.f)
+            p[e] = __fmul_rn(p[e], la_keep<DROP>(a, seq, h, qi, ki + e));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(
+            psm + (m0 + g + 8 * hr) * LM_PLD + n0 + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(p[0], p[1]);
+      }
+  };
+
+  // the sweep's columns of O: out (bf16); with dao, D's partial sums and
+  // dao rounded into dQ's place
+  auto write_sweep = [&](int sw, int nt) {
+#pragma unroll
+    for (int j = 0; j < LM_NT; ++j) {
+      if (j >= nt) continue;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qi = q0 + m0 + g + 8 * hr;
+        const int col = sw * CW + oc0 + 8 * j + 2 * t;
+        if (qi >= a.Nq) continue;
+        const size_t at = obase + (size_t)qi * orow + col;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (col + e >= hd) continue;
+          const float ov = o[j][2 * hr + e];
+          out[at + e] = __float2bfloat16(ov);
+          if (a.dao != nullptr) {
+            const bf16 gr = __float2bfloat16(a.dao[at + e]);
+            dpart[hr] = fmaf(__bfloat162float(gr), ov, dpart[hr]);
+            if (dqc != nullptr)
+              dqc[seq * a.dqs.b + qi * a.dqs.t + h * a.dqs.h + col + e] = gr;
+          }
+        }
+      }
+    }
+  };
+
+  auto use = [&](int i, int buf) {
+    int ci, sw, x;
+    decode(i, ci, sw, x);
+    const bf16* st = ring + buf * STAGE;
+    const int k0 = (c_lo + ci) * LM_KC;
+    if (x < nhc) {
+      if (x == 0) lm_zero(acc);
+      const int c0 = x * LM_HC;
+      // a warp whose keys all lie outside [klo, khi] keeps zeros: its
+      // scores are masked
+      if (rows && k0 + n0 <= khi && k0 + n0 + 8 * MT > klo)
+        lm_mma_abt<MT>(acc, qsm + m0 * QLD + c0, QLD, st + n0 * KLD, KLD,
+                       lm_min(LM_HC, hdp - c0) / 16, MT);
+      if (x == nhc - 1) scores(ci, sw, k0);
+    } else {
+      const int xq = x - nhc;
+      if (ci == 0 && xq == 0) lm_zero(o);
+      const int nt = max(0, min(LM_NT, (hdp - sw * CW - oc0) / 8));
+      if (rows && nt > 0)
+        lm_mma_ab<LM_NT>(o, psm + m0 * LM_PLD + 16 * xq, LM_PLD, st + oc0,
+                         VLD, 1, nt);
+      if (ci == nch - 1 && xq == LM_NQ - 1) write_sweep(sw, nt);
+    }
+  };
+  ring_run<NST>(n, issue, use);
+
+  if (nch == 0) {  // no query of the tile sees a key: zeros
+    for (int i = threadIdx.x; i < nq * hd; i += LM_THREADS) {
+      const int r = i / hd, c = i - r * hd, qi = q0 + r;
+      const size_t at = obase + (size_t)qi * orow + c;
+      out[at] = __float2bfloat16(0.f);
+      if (a.dao != nullptr && dqc != nullptr)
+        dqc[seq * a.dqs.b + qi * a.dqs.t + h * a.dqs.h + c] =
+            __float2bfloat16(a.dao[at]);
+    }
+    if (a.stats != nullptr)
+      for (int r = threadIdx.x; r < nq; r += LM_THREADS) {
+        a.stats[2 * (srow + q0 + r)] = -INFINITY;
+        a.stats[2 * (srow + q0 + r) + 1] = 0.f;
+      }
+  }
+  if (a.dsum != nullptr && a.dao != nullptr) {
+    // D: this thread's columns, its quad's, then the WPM warps' in order
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      dpart[hr] = __fadd_rn(dpart[hr],
+                            __shfl_xor_sync(0xffffffffu, dpart[hr], 1));
+      dpart[hr] = __fadd_rn(dpart[hr],
+                            __shfl_xor_sync(0xffffffffu, dpart[hr], 2));
+      if (t == 0) part[(m0 + g + 8 * hr) * WPM + kp] = dpart[hr];
+    }
+    __syncthreads();
+    if (threadIdx.x < nq) {
+      float d = 0.f;
+      for (int w = 0; w < WPM; ++w)
+        d = __fadd_rn(d, part[threadIdx.x * WPM + w]);
+      a.dsum[srow + q0 + threadIdx.x] = d;
+    }
+  }
+}
+
+template <int MT, bool DROP>
+static cudaError_t lm_launch_fwd(const LongAttn& a, bool vec,
+                                 cudaStream_t stream) {
+  const size_t smem = lm_fwd_smem<MT>(a.hd);
+  const cudaError_t err = cudaFuncSetAttribute(
+      long_attention_mma<MT, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_seq * a.H, cdiv(a.Nq, LmTile<MT>::QT));
+  long_attention_mma<MT, DROP><<<grid, LM_THREADS, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+// The forward's tile: 16 queries up to 16 queries or past 256 head columns
+// (hd 512 in one sweep of O), else 32 (hd 256 in one sweep), as dQ's.
+template <bool DROP>
+static cudaError_t launch_long_mma(const LongAttn& a, bool vec,
+                                   cudaStream_t stream) {
+  return a.Nq <= 16 || lm_hdp(a.hd) > 256
+             ? lm_launch_fwd<1, DROP>(a, vec, stream)
+             : lm_launch_fwd<2, DROP>(a, vec, stream);
+}
+
+// Every row and 16-byte column group of q, k, v (and, with dq, of dQ's
+// place, the backward's copy of dao) starts 16-byte aligned.
+static bool lm_rows_aligned(const LongAttn& a, bool with_dq) {
+  const bf16* q = static_cast<const bf16*>(a.q);
+  bool ok = attn_rows_aligned<bf16>(q, static_cast<const bf16*>(a.k),
+                                    static_cast<const bf16*>(a.v), a.qs, a.ks,
+                                    a.vs, a.hd);
+  if (with_dq)
+    ok = ok && attn_rows_aligned<bf16>(static_cast<const bf16*>(a.dq), q, q,
+                                       a.dqs, a.qs, a.qs, a.hd);
+  return ok;
+}
+
+// -- backward ---------------------------------------------------------------
+
+template <int MT>
+static size_t lm_dq_smem(int hd) {
+  using Tile = LmTile<MT>;
+  const int hdp = lm_hdp(hd);
+  const int stage =
+      lm_max(2 * LM_KC * (LM_HC2 + 8), 16 * lm_old(Tile::CW, hdp));
+  return (2 * (size_t)Tile::QT * (hdp + 8) + LM_NST_DQ * (size_t)stage +
+          (size_t)Tile::QT * LM_PLD) * sizeof(bf16);
+}
+
+// dQ: one block a (sequence, head, tile of 16 MT queries), its q rows and
+// dao rows (rounded, from dQ's place) in shared memory; the items stream
+// through a ring of 2 stages: a chunk's score items (LM_HC2 head columns of
+// its k and v rows: S = q . k^T and dao . v^T on the forward's fragments in
+// the forward's column order), then its output items (16 of its k rows over
+// the sweep's columns). dS = p (dp - D) (dp = dao . v^T * keep), rounded,
+// into a shared tile; dQ += dS . k; dQ = scale * dQ, rounded, overwrites
+// the block's own dao rows.
+template <int MT, bool DROP>
+__global__ void __launch_bounds__(LM_THREADS, 2)
+long_attention_mma_dq(LongAttn a, bool vec) {
+  using Tile = LmTile<MT>;
+  constexpr int QT = Tile::QT, WPM = Tile::WPM, CW = Tile::CW;
+  constexpr int NST = LM_NST_DQ;
+  constexpr int KLD = LM_HC2 + 8;
+  extern __shared__ __align__(16) unsigned char lm_smem[];
+  __shared__ int range[2];
+  const int hd = a.hd, hdp = lm_hdp(hd), QLD = hdp + 8;
+  const int VLD = lm_old(CW, hdp);
+  const int STAGE = lm_max(2 * LM_KC * KLD, 16 * VLD);
+  bf16* qsm = reinterpret_cast<bf16*>(lm_smem);  // [QT][QLD] q
+  bf16* gsm = qsm + QT * QLD;                      // [QT][QLD] dao, rounded
+  bf16* ring = gsm + QT * QLD;                     // NST stages
+  bf16* dssm = ring + NST * STAGE;                 // [QT][LM_PLD] dS
+  const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int q0 = blockIdx.y * QT, nq = min(QT, a.Nq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp / WPM) * 16, kp = warp % WPM;
+  const int n0 = kp * 8 * MT, oc0 = kp * 8 * LM_NT;
+  const bool rows = m0 < nq;
+  const bf16* qb = static_cast<const bf16*>(a.q) + seq * a.qs.b + h * a.qs.h;
+  const bf16* kb = static_cast<const bf16*>(a.k) + seq * a.ks.b + h * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + seq * a.vs.b + h * a.vs.h;
+  bf16* dqb = static_cast<bf16*>(a.dq) + seq * a.dqs.b + h * a.dqs.h;
+  const size_t srow = ((size_t)seq * a.H + h) * a.Nq;
+  stage_rows<LM_THREADS>(qsm, QLD, qb, a.qs.t, q0, QT, 0, a.Nq - 1, nullptr,
+                         hdp, hd, vec);
+  stage_rows<LM_THREADS>(gsm, QLD, dqb, a.dqs.t, q0, QT, 0, a.Nq - 1, nullptr,
+                         hdp, hd, vec);
+  int klo, khi;
+  lm_key_range(a, q0, nq, range, klo, khi);
+  const int c_lo = klo / LM_KC;
+  const int nch = khi >= klo ? khi / LM_KC - c_lo + 1 : 0;
+  const int nhc = (hdp + LM_HC2 - 1) / LM_HC2, nsw = (hdp + CW - 1) / CW;
+  const int ipc = nhc + LM_NQ, n = nsw * nch * ipc;
+  // the stash of the thread's two queries
+  float m_r[2], l_r[2], d_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + m0 + g + 8 * hr;
+    const bool in = qi < a.Nq;
+    m_r[hr] = in ? a.stats[2 * (srow + qi)] : -INFINITY;
+    l_r[hr] = in ? a.stats[2 * (srow + qi) + 1] : 0.f;
+    d_r[hr] = in ? a.dsum[srow + qi] : 0.f;
+  }
+
+  auto decode = [&](int i, int& ci, int& sw, int& x) {
+    sw = i / (nch * ipc);
+    const int j = i - sw * nch * ipc;
+    ci = j / ipc, x = j - ci * ipc;
+  };
+  auto issue = [&](int i, int buf) {
+    int ci, sw, x;
+    decode(i, ci, sw, x);
+    bf16* st = ring + buf * STAGE;
+    const int k0 = (c_lo + ci) * LM_KC;
+    if (x < nhc) {
+      const int c0 = x * LM_HC2, w = lm_min(LM_HC2, hdp - c0);
+      stage_rows<LM_THREADS>(st, KLD, kb + c0, a.ks.t, k0, LM_KC, klo, khi,
+                             nullptr, w, hd - c0, vec);
+      stage_rows<LM_THREADS>(st + LM_KC * KLD, KLD, vb + c0, a.vs.t, k0, LM_KC,
+                             klo, khi, nullptr, w, hd - c0, vec);
+    } else {
+      const int c0 = sw * CW;
+      stage_rows<LM_THREADS>(st, VLD, kb + c0, a.ks.t, k0 + 16 * (x - nhc), 16,
+                             klo, khi, nullptr, lm_min(CW, hdp - c0), hd - c0,
+                             vec);
+    }
+  };
+
+  float acc_s[MT][4], acc_p[MT][4], dq[LM_NT][4];
+  auto use = [&](int i, int buf) {
+    int ci, sw, x;
+    decode(i, ci, sw, x);
+    const bf16* st = ring + buf * STAGE;
+    const int k0 = (c_lo + ci) * LM_KC;
+    if (x < nhc) {
+      if (x == 0) lm_zero(acc_s), lm_zero(acc_p);
+      const int c0 = x * LM_HC2, ks = lm_min(LM_HC2, hdp - c0) / 16;
+      if (rows && k0 + n0 <= khi && k0 + n0 + 8 * MT > klo) {
+        lm_mma_abt<MT>(acc_s, qsm + m0 * QLD + c0, QLD, st + n0 * KLD, KLD,
+                       ks, MT);
+        lm_mma_abt<MT>(acc_p, gsm + m0 * QLD + c0, QLD,
+                       st + (LM_KC + n0) * KLD, KLD, ks, MT);
+      }
+      if (x == nhc - 1) {
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int qi = q0 + m0 + g + 8 * hr, ki = k0 + n0 + 8 * j + 2 * t;
+            float ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float s = lm_score(a, qi, ki + e, acc_s[j][2 * hr + e]);
+              ds[e] = 0.f;  // a masked pair: exactly 0, whatever dp holds
+              if (s != -INFINITY) {
+                const float p = lm_prob(s, m_r[hr], l_r[hr]);
+                const float dpr = acc_p[j][2 * hr + e];
+                const float dp =
+                    DROP ? __fmul_rn(dpr, la_keep<DROP>(a, seq, h, qi, ki + e))
+                         : dpr;
+                ds[e] = __fmul_rn(p, __fsub_rn(dp, d_r[hr]));
+              }
+            }
+            *reinterpret_cast<__nv_bfloat162*>(
+                dssm + (m0 + g + 8 * hr) * LM_PLD + n0 + 8 * j + 2 * t) =
+                __floats2bfloat162_rn(ds[0], ds[1]);
+          }
+      }
+    } else {
+      const int xq = x - nhc;
+      if (ci == 0 && xq == 0) lm_zero(dq);
+      const int nt = max(0, min(LM_NT, (hdp - sw * CW - oc0) / 8));
+      if (rows && nt > 0)
+        lm_mma_ab<LM_NT>(dq, dssm + m0 * LM_PLD + 16 * xq, LM_PLD, st + oc0,
+                         VLD, 1, nt);
+      if (ci == nch - 1 && xq == LM_NQ - 1) {
+#pragma unroll
+        for (int j = 0; j < LM_NT; ++j) {
+          if (j >= nt) continue;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int qi = q0 + m0 + g + 8 * hr;
+            const int col = sw * CW + oc0 + 8 * j + 2 * t;
+            if (qi >= a.Nq) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (col + e < hd)
+                dqb[qi * a.dqs.t + col + e] =
+                    __float2bfloat16(__fmul_rn(dq[j][2 * hr + e], a.scale));
+          }
+        }
+      }
+    }
+  };
+  ring_run<NST>(n, issue, use);
+  if (nch == 0)  // no query of the tile sees a key: dQ is zeros
+    for (int i = threadIdx.x; i < nq * hd; i += LM_THREADS) {
+      const int r = i / hd, c = i - r * hd;
+      dqb[(q0 + r) * a.dqs.t + c] = __float2bfloat16(0.f);
+    }
+}
+
+static size_t lm_dkdv_smem(int hd) {
+  const int hdp = lm_hdp(hd);
+  const int stage =
+      lm_max(2 * LM_KC * (LM_HC2 + 8), 2 * 16 * lm_old(LM_KCW, hdp));
+  return (2 * (size_t)LM_KT * (hdp + 8) + LM_NST_KV * (size_t)stage +
+          2 * (size_t)LM_KT * LM_PLD) * sizeof(bf16);
+}
+
+// dK and dV: one block a (sequence, head, tile of 16 keys), its k and v rows
+// in shared memory; the items stream through a ring of 2 stages over the
+// chunks of 64 queries that see some key of the tile: a chunk's score items
+// (LM_HC2 head columns of its q rows and dao rows: S = q . k^T and dP = dao
+// . v^T on the forward's fragments in the forward's column order; warp w
+// takes query strip w / 2, key tile w % 2), then its output items (16 of
+// its dao and q rows over the sweep's columns; warp w takes the LM_NTK
+// 8-column tiles from 8 LM_NTK w on). P (times keep, rounded) and dS
+// (rounded) go transposed into shared tiles; dV += (P keep)^T . dao, dK +=
+// dS^T . q, dK = scale * dK.
+template <bool DROP>
+__global__ void __launch_bounds__(LM_THREADS, 2)
+long_attention_mma_dkdv(LongAttn a, bool vec) {
+  constexpr int NST = LM_NST_KV, KLD = LM_HC2 + 8, CW = LM_KCW;
+  extern __shared__ __align__(16) unsigned char lm_smem[];
+  __shared__ int range[2];
+  const int hd = a.hd, hdp = lm_hdp(hd), RLD = hdp + 8;
+  const int OLD = lm_old(CW, hdp);
+  const int STAGE = lm_max(2 * LM_KC * KLD, 2 * 16 * OLD);
+  bf16* ksm = reinterpret_cast<bf16*>(lm_smem);  // [16][RLD] the tile's k
+  bf16* vsm = ksm + LM_KT * RLD;                   // [16][RLD] its v
+  bf16* ring = vsm + LM_KT * RLD;                  // NST stages
+  bf16* ptsm = ring + NST * STAGE;                 // [16 keys][LM_PLD] P^T
+  bf16* dstsm = ptsm + LM_KT * LM_PLD;             // [16 keys][LM_PLD] dS^T
+  const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int k0 = blockIdx.y * LM_KT, nk = min(LM_KT, a.Nk - k0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qs0 = (warp >> 1) * 16, n0 = (warp & 1) * 8;
+  const int oc0 = warp * 8 * LM_NTK;
+  const bf16* qb = static_cast<const bf16*>(a.q) + seq * a.qs.b + h * a.qs.h;
+  const bf16* kb = static_cast<const bf16*>(a.k) + seq * a.ks.b + h * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + seq * a.vs.b + h * a.vs.h;
+  const bf16* gb = static_cast<const bf16*>(a.dq) + seq * a.dqs.b +
+                   h * a.dqs.h;  // dao, rounded, in dQ's place
+  const size_t srow = ((size_t)seq * a.H + h) * a.Nq;
+  stage_rows<LM_THREADS>(ksm, RLD, kb, a.ks.t, k0, LM_KT, 0, a.Nk - 1, nullptr,
+                         hdp, hd, vec);
+  stage_rows<LM_THREADS>(vsm, RLD, vb, a.vs.t, k0, LM_KT, 0, a.Nk - 1, nullptr,
+                         hdp, hd, vec);
+  int qlo, qhi;
+  lm_query_range(a, k0, nk, range, qlo, qhi);
+  const int c_lo = qlo / LM_KC;
+  const int nch = qhi >= qlo ? qhi / LM_KC - c_lo + 1 : 0;
+  const int nhc = (hdp + LM_HC2 - 1) / LM_HC2, nsw = (hdp + CW - 1) / CW;
+  const int ipc = nhc + LM_NQ, n = nsw * nch * ipc;
+
+  auto decode = [&](int i, int& ci, int& sw, int& x) {
+    sw = i / (nch * ipc);
+    const int j = i - sw * nch * ipc;
+    ci = j / ipc, x = j - ci * ipc;
+  };
+  auto issue = [&](int i, int buf) {
+    int ci, sw, x;
+    decode(i, ci, sw, x);
+    bf16* st = ring + buf * STAGE;
+    const int r0 = (c_lo + ci) * LM_KC;  // the chunk's first query
+    if (x < nhc) {
+      const int c0 = x * LM_HC2, w = lm_min(LM_HC2, hdp - c0);
+      stage_rows<LM_THREADS>(st, KLD, qb + c0, a.qs.t, r0, LM_KC, qlo, qhi,
+                             nullptr, w, hd - c0, vec);
+      stage_rows<LM_THREADS>(st + LM_KC * KLD, KLD, gb + c0, a.dqs.t, r0, LM_KC,
+                             qlo, qhi, nullptr, w, hd - c0, vec);
+    } else {
+      const int c0 = sw * CW, w = lm_min(CW, hdp - c0);
+      const int rq = r0 + 16 * (x - nhc);
+      stage_rows<LM_THREADS>(st, OLD, gb + c0, a.dqs.t, rq, 16, qlo, qhi,
+                             nullptr, w, hd - c0, vec);
+      stage_rows<LM_THREADS>(st + 16 * OLD, OLD, qb + c0, a.qs.t, rq, 16, qlo,
+                             qhi, nullptr, w, hd - c0, vec);
+    }
+  };
+
+  float acc_s[1][4], acc_p[1][4], dk[LM_NTK][4], dv[LM_NTK][4];
+  auto use = [&](int i, int buf) {
+    int ci, sw, x;
+    decode(i, ci, sw, x);
+    const bf16* st = ring + buf * STAGE;
+    const int r0 = (c_lo + ci) * LM_KC;
+    if (x < nhc) {
+      if (x == 0) lm_zero(acc_s), lm_zero(acc_p);
+      const int c0 = x * LM_HC2, ks = lm_min(LM_HC2, hdp - c0) / 16;
+      if (n0 < nk && r0 + qs0 <= qhi && r0 + qs0 + 16 > qlo) {
+        lm_mma_abt<1>(acc_s, st + qs0 * KLD, KLD, ksm + n0 * RLD + c0, RLD,
+                      ks, 1);
+        lm_mma_abt<1>(acc_p, st + (LM_KC + qs0) * KLD, KLD,
+                      vsm + n0 * RLD + c0, RLD, ks, 1);
+      }
+      if (x == nhc - 1) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int qr = qs0 + g + 8 * hr, qi = r0 + qr;
+          const bool in = qi < a.Nq;
+          const float m = in ? a.stats[2 * (srow + qi)] : -INFINITY;
+          const float l = in ? a.stats[2 * (srow + qi) + 1] : 0.f;
+          const float d = in ? a.dsum[srow + qi] : 0.f;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kr = n0 + 2 * t + e, ki = k0 + kr;
+            const float s = lm_score(a, qi, ki, acc_s[0][2 * hr + e]);
+            float pk = 0.f, ds = 0.f;  // a masked pair: exactly 0
+            if (s != -INFINITY) {
+              const float p = lm_prob(s, m, l);
+              const float keep = la_keep<DROP>(a, seq, h, qi, ki);
+              const float dpr = acc_p[0][2 * hr + e];
+              pk = DROP ? __fmul_rn(p, keep) : p;
+              ds = __fmul_rn(p, __fsub_rn(DROP ? __fmul_rn(dpr, keep) : dpr,
+                                          d));
+            }
+            ptsm[kr * LM_PLD + qr] = __float2bfloat16(pk);
+            dstsm[kr * LM_PLD + qr] = __float2bfloat16(ds);
+          }
+        }
+      }
+    } else {
+      const int xq = x - nhc;
+      if (ci == 0 && xq == 0) lm_zero(dk), lm_zero(dv);
+      const int nt = max(0, min(LM_NTK, (hdp - sw * CW - oc0) / 8));
+      if (nt > 0) {
+        lm_mma_ab<LM_NTK>(dv, ptsm + 16 * xq, LM_PLD, st + oc0, OLD, 1, nt);
+        lm_mma_ab<LM_NTK>(dk, dstsm + 16 * xq, LM_PLD, st + 16 * OLD + oc0,
+                          OLD, 1, nt);
+      }
+      if (ci == nch - 1 && xq == LM_NQ - 1) {
+#pragma unroll
+        for (int j = 0; j < LM_NTK; ++j) {
+          if (j >= nt) continue;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int ki = k0 + g + 8 * hr;
+            const int col = sw * CW + oc0 + 8 * j + 2 * t;
+            if (ki >= a.Nk) continue;
+            bf16* dkr = static_cast<bf16*>(a.dk) + seq * a.dks.b +
+                        ki * a.dks.t + h * a.dks.h + col;
+            bf16* dvr = static_cast<bf16*>(a.dv) + seq * a.dvs.b +
+                        ki * a.dvs.t + h * a.dvs.h + col;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (col + e < hd) {
+                dkr[e] = __float2bfloat16(__fmul_rn(dk[j][2 * hr + e],
+                                                    a.scale));
+                dvr[e] = __float2bfloat16(dv[j][2 * hr + e]);
+              }
+          }
+        }
+      }
+    }
+  };
+  ring_run<NST>(n, issue, use);
+  if (nch == 0)  // no query sees a key of the tile: dK and dV are zeros
+    for (int i = threadIdx.x; i < nk * hd; i += LM_THREADS) {
+      const int r = i / hd, c = i - r * hd, ki = k0 + r;
+      static_cast<bf16*>(a.dk)[seq * a.dks.b + ki * a.dks.t + h * a.dks.h +
+                               c] = __float2bfloat16(0.f);
+      static_cast<bf16*>(a.dv)[seq * a.dvs.b + ki * a.dvs.t + h * a.dvs.h +
+                               c] = __float2bfloat16(0.f);
+    }
+}
+
+template <int MT, bool DROP>
+static cudaError_t lm_launch_dq(const LongAttn& a, bool vec,
+                                cudaStream_t stream) {
+  const size_t smem = lm_dq_smem<MT>(a.hd);
+  const cudaError_t err = cudaFuncSetAttribute(
+      long_attention_mma_dq<MT, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_seq * a.H, cdiv(a.Nq, LmTile<MT>::QT));
+  long_attention_mma_dq<MT, DROP><<<grid, LM_THREADS, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+// The backward: (1) the forward's own instance again (O bit for bit, the
+// stash, D, dao rounded into dQ's place), (2) dK / dV over key tiles, (3) dQ
+// over query tiles (16 queries up to 16 or past 256 head columns, else
+// 32), which overwrites the copy of dao.
+template <bool DROP>
+static cudaError_t launch_long_mma_bwd(const LongAttn& a,
+                                       cudaStream_t stream) {
+  const bool vec = lm_rows_aligned(a, true);
+  cudaError_t err = launch_long_mma<DROP>(a, vec, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = lm_dkdv_smem(a.hd);
+  err = cudaFuncSetAttribute(long_attention_mma_dkdv<DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 gk(a.n_seq * a.H, cdiv(a.Nk, LM_KT));
+  long_attention_mma_dkdv<DROP><<<gk, LM_THREADS, smem, stream>>>(a, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return a.Nq <= 16 || lm_hdp(a.hd) > 256
+             ? lm_launch_dq<1, DROP>(a, vec, stream)
+             : lm_launch_dq<2, DROP>(a, vec, stream);
+}
+
+// ---------------------------------------------------------------------------
+// the entries' launches: the route by dtype and cast chain
+// ---------------------------------------------------------------------------
+
+template <typename T, bool ROUND, bool DROP>
+cudaError_t launch_long_attention(const LongAttn& a, cudaStream_t stream) {
+  if (a.Nq < 1 || a.Nk < 1 || a.hd < 1 || a.hd > LA_MAX_HD ||
+      (a.Nq + LA_TILE - 1) / LA_TILE > 65535)
+    return cudaErrorInvalidValue;
+  if (a.n_seq * a.H == 0) return cudaSuccess;
+  if constexpr (std::is_same<T, bf16>::value && ROUND)
+    return launch_long_mma<DROP>(a, lm_rows_aligned(a, false), stream);
+  else
+    return launch_long_f32rows<T, ROUND, DROP>(a, stream);
+}
+
 // The backward of launch_long_attention<T, ROUND, DROP> on the same fields:
 // a.out receives O again (bit for bit), a.stats and a.dsum are scratch (the
 // caller's, n_seq * H * Nq x 2 and x 1 fp32), a.dao the fp32 gradient of
@@ -438,28 +1366,15 @@ template <typename T, bool ROUND, bool DROP>
 cudaError_t launch_long_attention_bwd(const LongAttn& a,
                                       cudaStream_t stream) {
   if (a.stats == nullptr || a.dao == nullptr || a.dsum == nullptr ||
+      a.Nq < 1 || a.Nk < 1 || a.hd < 1 || a.hd > LA_MAX_HD ||
+      (a.Nq + LA_TILE - 1) / LA_TILE > 65535 ||
       (a.Nk + LA_TILE - 1) / LA_TILE > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_long_attention<T, ROUND, DROP>(a, stream);
-  if (err != cudaSuccess || a.n_seq * a.H == 0) return err;
-  const size_t rows = 4 * LA_TILE * la_lds(a.hd) * sizeof(float);
-  const size_t smem_kv = rows + 2 * LA_TILE * LA_PLD * sizeof(float);
-  const size_t smem_q = rows + LA_TILE * LA_PLD * sizeof(float);
-  err = cudaFuncSetAttribute(long_attention_dkdv<T, ROUND, DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_kv);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(long_attention_dq<T, ROUND, DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
-  if (err != cudaSuccess) return err;
-  const dim3 gk(a.n_seq * a.H, (a.Nk + LA_TILE - 1) / LA_TILE);
-  long_attention_dkdv<T, ROUND, DROP><<<gk, LA_THREADS, smem_kv, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 gq(a.n_seq * a.H, (a.Nq + LA_TILE - 1) / LA_TILE);
-  long_attention_dq<T, ROUND, DROP><<<gq, LA_THREADS, smem_q, stream>>>(a);
-  return cudaGetLastError();
+  if (a.n_seq * a.H == 0) return cudaSuccess;
+  if constexpr (std::is_same<T, bf16>::value && ROUND)
+    return launch_long_mma_bwd<DROP>(a, stream);
+  else
+    return launch_long_f32rows_bwd<T, ROUND, DROP>(a, stream);
 }
 
 // Every form the entries launch: the sequence attention (ROUND, rows 4-6)

@@ -87,4 +87,17 @@ static LongAttn packed_long_attn(const T* qkv, const float* mask, T* out,
   return a;
 }
 
+// Every row and chunk start of the three operands is 16-byte aligned.
+template <typename T>
+static bool attn_rows_aligned(const T* q, const T* k, const T* v,
+                              AttnStrides qs, AttnStrides ks, AttnStrides vs,
+                              int hd) {
+  constexpr long long V = 16 / sizeof(T);
+  const auto on_grid = [](const AttnStrides& s) {
+    return s.b % V == 0 && s.t % V == 0 && s.h % V == 0;
+  };
+  return hd % V == 0 && on_grid(qs) && on_grid(ks) && on_grid(vs) &&
+         ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+}
+
 }  // namespace afft

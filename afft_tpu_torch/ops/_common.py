@@ -78,7 +78,7 @@ def check_heads(name: str, C: int, num_heads: int, hidden=None) -> int:
 # rows 4-6). Past it an entry takes the long route (long_attention.cuh).
 SHORT_LENGTH = {"fuser": 8, "gpt2": 32, "keys": 1024}
 LONG_MAX_HD = 768            # long_attention.cuh LA_MAX_HD
-LONG_MAX_QUERIES = 65535 * 16  # the long route's grid
+LONG_MAX_QUERIES = 65535 * 16  # 16-query tiles (LA_TILE) in a grid's y
 
 # The launches whose attention took the long route, by wrapper (each is in
 # its wrapper's own count too).

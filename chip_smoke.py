@@ -308,7 +308,18 @@ Phases, in order; any failure exits non-zero and prints no result:
                queries over 1,025 / 2,048 keys, rows 5 and 6 at S 1,280 /
                2,048; its keep pattern bit for bit the plain generator's;
                each long attention timed beside its plain version, SDPA and
-               its bound (``long_*`` items of its row's entry);
+               its bound (``long_*`` items of its row's entry). The bf16
+               forms with rounded probabilities (rows 2, 4, 5, 6, 11, 15)
+               are the tensor-core kernels (long_attention_mma and its
+               backward): ptxas must report no spill; (a) and (b) are
+               profiled and must launch them and no CUDA-core long kernel;
+               their edges (hd 12 / 24 / 256 / 512 / 768, Nq and Nk 33 /
+               65 / 1,025 / 2,048, no mask, causal, the cache mask with
+               NaN in the unwritten slots; the GPT-2 backward bit for bit
+               on relaunch, its O the forward's) agree with the plain
+               versions; each is held to a quarter of the CUDA-core
+               route's time at T >= 256 and S >= 1,280
+               (``LONG_CUDA_CORE_MS``);
  17. report  - one JSON line of per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
@@ -2116,14 +2127,18 @@ def phase_kernels(peaks):
 # the kernels whose ptxas report the build phase prints
 REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "sum_slices",
                     "staged_attention", "fuser_attention", "attention_bwd",
-                    "long_attention")
+                    "long_attention", "long_attention_mma")
+# kernels whose ptxas report must show no spill
+NO_SPILL_KERNELS = ("long_attention_mma",)
 
 
 def report_build(lib_path):
-    """ptxas's report of the wgmma / TMA GEMM and the staged and fuser
-    attentions (registers, shared memory, spills), the compiler's warnings, and proof
+    """ptxas's report of the wgmma / TMA GEMM and the staged, fuser and long
+    attentions (registers, shared memory, spills), the compiler's warnings,
+    no spill in the tensor-core long route (``NO_SPILL_KERNELS``), and proof
     that the wgmma path compiled: the library's SASS holds HGMMA
     instructions (where the toolkit has cuobjdump). Fails otherwise."""
+    import re
     import shutil
     from afft_tpu_torch.ops import _build
     seen = set()
@@ -2140,6 +2155,11 @@ def report_build(lib_path):
                 seen.add(entry)
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 log(f"build: ptxas {entry}: {props}")
+                spilled = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                      props)]
+                if any(k in entry for k in NO_SPILL_KERNELS) and \
+                        (not spilled or any(spilled)):
+                    raise AssertionError(f"ptxas: {entry} spills ({props})")
     for kernel in REPORTED_KERNELS:
         if not any(kernel in e for e in seen):
             raise AssertionError(f"no ptxas report of {kernel} in the build "
@@ -6037,6 +6057,30 @@ LONG_FUSER_N = (9, 12, 16)          # rows 1, 7 and 9
 LONG_FUSER_R = (1024, 128)          # rows of N tokens: bf16, fp32
 LONG_KEYS = (1025, 2048)            # row 4: 16 queries over Nk cache slots
 LONG_SEQ_S = (1280, 2048)           # rows 5 and 6
+# the tensor-core forms' edges (bf16): the GPT-2 training attention at N
+# tokens, each head width at a head count that keeps C % 8 == 0, and the
+# sequence attention (row 4's route past 1,024 keys) at (Nq, Nk)
+LONG_EDGE_N = (33, 65, 1025)
+LONG_EDGE_HD = {12: 2, 24: 1, 256: 1, 512: 1, 768: 1}  # hd: H
+LONG_EDGE_KEYS = ((33, 1025), (65, 1025), (1025, 1025), (1025, 2048))
+LONG_EDGE_JUNK = 7          # unwritten cache slots (NaN) of the cache mask
+# The CUDA-core long route's readings at these shapes (this phase's (d)
+# before the tensor-core forms, bf16; NVIDIA H100 80GB HBM3, 700 W): the
+# tensor-core forms must take at most LONG_FLOOR_SHARE of them (a floor
+# against a route that was not redesigned, not a target)
+LONG_CUDA_CORE_MS = {("fwd", 256): 2.226, ("fwd", 1024): 8.236,
+                ("bwd", 256): 10.974, ("bwd", 1024): 40.955,
+                ("row5", 1280): 5.778, ("row5", 2048): 13.861,
+                ("row6", 1280): 5.233, ("row6", 2048): 13.545}
+LONG_FLOOR_SHARE = 0.25
+# the kernels the served and trained long paths must launch, by part of
+# their name, and their launches a GPT-2 layer (the training step's forward
+# kernel twice: the forward and the backward's first launch); and the
+# CUDA-core long kernels they must not launch
+LONG_MMA = {"serve": {"long_attention_mma<": 1},
+            "train": {"long_attention_mma<": 2, "long_attention_mma_dkdv<": 1,
+                      "long_attention_mma_dq<": 1}}
+LONG_CUDA_CORE = "long_attention_f32rows"
 # each long route's row: the kernels-line entry it stands under
 LONG_ROWS = {"fused_block": "1", "gpt2_attn_half": "2",
              "fused_attention": "4", "fused_seq_block": "5",
@@ -6079,6 +6123,122 @@ def _long_numbers(peaks, what, fn, plain, library, work, err):
     return out
 
 
+def _long_floor(key, numbers, floors):
+    """Hold a tensor-core form's time (``numbers["ms"]``, measured here) to
+    LONG_FLOOR_SHARE of the CUDA-core route's reading of the same shape
+    (``LONG_CUDA_CORE_MS[key]``, a constant); records the time, the floor
+    and that reading under ``floors`` (phase 16's own JSON, not the kernels
+    line)."""
+    floor = LONG_FLOOR_SHARE * LONG_CUDA_CORE_MS[key]
+    floors["_".join(map(str, key))] = {
+        "ms": numbers["ms"], "floor_ms": floor,
+        "cuda_core_constant_ms": LONG_CUDA_CORE_MS[key]}
+    log(f"long floor {key}: {numbers['ms']:.4f} ms against {floor:.4f} "
+        f"({LONG_FLOOR_SHARE:g} of the CUDA-core route's "
+        f"{LONG_CUDA_CORE_MS[key]})")
+    if not numbers["ms"] <= floor:
+        raise AssertionError(f"long {key}: {numbers['ms']:.4f} ms, past "
+                             f"the floor {floor:.4f} ms")
+
+
+def _long_profile(fn, what, want, grad=False):
+    """One call of a main path of (a) / (b) profiled from a whole trace: a
+    trace that holds the tensor-core long kernels as often as the launch
+    counters say (``want``: {part of a kernel's name: launches}) and whose
+    afft kernels, by full name, an earlier such trace of the same call held
+    each as often. The profiler now and then loses some of a trace's device
+    events: in the runs seen, the served forward's first 57 launches (2 of
+    its 6 long ones among them) in several traces in a row, or two of its
+    GEMMs in one. A loss passes only if it spares every long launch and
+    repeats exactly, so the check of the long kernels and the recorded
+    profile cover a whole trace. Returns that trace's numbers."""
+    seen = []
+    attempts = 2 * PROFILE_ATTEMPTS
+    for attempt in range(attempts):
+        prof = profile_forward(fn, what, grad)
+        got = {part: sum(n for name, n in prof["kernels"].items()
+                         if part in name) for part in want}
+        if got == want and prof["kernels"] in seen:
+            return prof
+        log(f"long profile {what}: {sum(prof['kernels'].values())} afft "
+            f"launches, the long ones {got} of {want}; "
+            f"{'a first such trace' if got == want else 'events lost'} "
+            f"(attempt {attempt + 1} of {attempts})")
+        if got == want:
+            seen.append(prof["kernels"])
+    raise AssertionError(f"long profile {what}: no whole trace")
+
+
+def _long_profile_ok(what, kernels, want):
+    """A main path's profile (``profile_forward``'s kernels by full name)
+    shows each tensor-core long kernel of ``want`` and no CUDA-core long
+    kernel."""
+    names = list(kernels)
+    missing = [w for w in want if not any(w in n for n in names)]
+    old = [n for n in names if LONG_CUDA_CORE in n]
+    long = {n[:60]: c for n, c in kernels.items() if "long_attention" in n}
+    log(f"long profile {what}: {long}")
+    if missing or old:
+        raise AssertionError(f"long profile {what}: missing {missing}, "
+                             f"CUDA-core long kernels {old}")
+
+
+def _long_edges(gen):
+    """The tensor-core forms at their edges, bf16: the GPT-2 training
+    attention forward and backward (``_check_attention_bwd``: O and dqkv
+    against the plain version, bit for bit on relaunch, O bit for bit the
+    forward kernel's output) at N 33 / 65 / 1,025 x hd 12 / 24 / 256 / 512
+    / 768, causal and unmasked, at rate 0.1; the sequence attention
+    (``fused_attention``, row 4's route past 1,024 keys; q a packed slice,
+    k / v caches) at (Nq, Nk) in LONG_EDGE_KEYS x the same head widths
+    under no mask, the causal mask and, where Nq < Nk, the rollout's cache
+    mask whose LONG_EDGE_JUNK unwritten slots hold NaN in the caches the
+    kernel reads (finite in the plain version's). Returns (checks, worst
+    absolute error)."""
+    import torch
+    from afft_tpu_torch.ops import attention as FA
+    n, worst = 0, 0.0
+    dt = torch.bfloat16
+    for N in LONG_EDGE_N:
+        for hd, H in LONG_EDGE_HD.items():
+            for causal in (True, False):
+                worst = max(worst, _check_attention_bwd(
+                    2 if N < 1024 else 1, N, H, hd, dt, True, 0.1, causal,
+                    gen))
+                n += 1
+    rn = _randn(gen, dt)
+    for n_q, n_k in LONG_EDGE_KEYS:
+        key = torch.arange(n_k, device="cuda")[None, :]
+        query = torch.arange(n_q, device="cuda")[:, None]
+        zeros = torch.zeros((n_q, n_k), device="cuda")
+        kinds = [("none", None, 0),
+                 ("causal", zeros.masked_fill(key > query, -math.inf), 0)]
+        if n_q + LONG_EDGE_JUNK <= n_k:
+            pos = n_k - n_q - LONG_EDGE_JUNK
+            kinds.append(("cache", zeros.masked_fill(key > pos + query,
+                                                     -math.inf),
+                          LONG_EDGE_JUNK))
+        for hd in LONG_EDGE_HD:
+            B, H = 2, 2
+            q = rn(B, n_q, 3, H, hd)[:, :, 0]
+            k, v = rn(B, n_k, H, hd), rn(B, n_k, H, hd)
+            for kind, mask, junk in kinds:
+                kc, vc = k, v
+                if junk:
+                    kc, vc = k.clone(), v.clone()
+                    kc[:, n_k - junk:] = math.nan
+                    vc[:, n_k - junk:] = math.nan
+                got = FA.fused_attention(q, kc, vc, mask)
+                want = FA.attention_plain(q, k, v, mask)[0]
+                n += _edge_ok(f"long fused_attention bf16 B={B} Nq={n_q} "
+                              f"Nk={n_k} H={H} hd={hd} mask={kind} ({junk} "
+                              "NaN slots)", "bf16", got, want)
+                worst = max(worst, errors(got, want)[1])
+    log(f"long edges: {n} checks of the tensor-core forms against their "
+        f"plain versions (worst absolute error {worst:.3g})")
+    return n, worst
+
+
 def _sdpa_heads(q, k, v, causal, mask=None, grad=None):
     """F.scaled_dot_product_attention over (B, H, N, hd) operands (the
     yardstick); with ``grad`` the call is its backward."""
@@ -6098,19 +6258,21 @@ def _sdpa_heads(q, k, v, causal, mask=None, grad=None):
 def _long_keep_pattern(gen):
     """The long route's dropout keep pattern, read off its output: q = k =
     0 makes every probability 1 / (keys visible), v's rows are one-hot, so
-    O[q][k] = p * keep(q, k); the pattern (and each value) equals
+    O[q][k] = p * keep(q, k) (rounded to bf16 in the bf16 GPT-2 chain, the
+    tensor-core form); the pattern (and each value) equals
     draw_masks_plain's / draw_masks_gpt2_plain's at the same site bit for
-    bit."""
+    bit: the fuser's form in fp32, the GPT-2 layer's in fp32 and bf16."""
     import torch
     from afft_tpu_torch.models.layers import neg_inf_causal_mask
     from afft_tpu_torch.ops import fused_block_train as FT
     from afft_tpu_torch.ops import fused_gpt2_train as FGT
     n = 0
-    for gpt2, N in ((False, 12), (True, 40)):
+    for gpt2, N, dt in ((False, 12, torch.float32), (True, 40, torch.float32),
+                        (True, 40, torch.bfloat16)):
         R, H, hd = 3, 2, 48
         C = H * hd
-        qkv = torch.zeros(R * N, 3 * C, device="cuda")
-        eye = torch.eye(N, hd, device="cuda")
+        qkv = torch.zeros(R * N, 3 * C, device="cuda", dtype=dt)
+        eye = torch.eye(N, hd, device="cuda", dtype=dt)
         for r in range(R):
             for h in range(H):
                 qkv[r * N:(r + 1) * N, 2 * C + h * hd:2 * C + (h + 1) * hd] \
@@ -6130,22 +6292,24 @@ def _long_keep_pattern(gen):
             else mask.isfinite().float()
         p = visible / visible.sum(-1, keepdim=True)
         if not (torch.equal(got != 0, (mattn != 0) & (visible != 0))
-                and torch.equal(got, p * mattn)):
+                and torch.equal(got.float(), (p * mattn).to(dt).float())):
             raise AssertionError(f"long route keep pattern (gpt2={gpt2} "
-                                 f"N={N}): differs from the plain "
+                                 f"N={N} {dt}): differs from the plain "
                                  "generator's")
         n += int((mattn != 0).sum())
-    log(f"long keep pattern: fuser N 12 and GPT-2 T 40 at rate 0.5, {n} kept "
-        "elements, bit for bit draw_masks_plain / draw_masks_gpt2_plain's")
+    log(f"long keep pattern: fuser N 12 (fp32) and GPT-2 T 40 (fp32, bf16) "
+        f"at rate 0.5, {n} kept elements, bit for bit draw_masks_plain / "
+        "draw_masks_gpt2_plain's")
     return n
 
 
-def _long_gpt2_rows(peaks, gen, kernels):
+def _long_gpt2_rows(peaks, gen, kernels, floors):
     """Rows 2, 11-15 at C 2048, 4 heads of 512 and T 33 / 64 / 256 / 1,024
     (B * T = 4,096 in bf16, 512 in fp32): the attention half and the
     training layer against their plain versions, the long attention
     forward and backward alone timed beside their plain versions, SDPA and
-    their bounds; then rows 11-15 in shard mode at tp = 2, T 64."""
+    their bounds, and held to their floors (``_long_floor``, into
+    ``floors``); then rows 11-15 in shard mode at tp = 2, T 64."""
     import torch
     from afft_tpu_torch.models.layers import neg_inf_causal_mask
     from afft_tpu_torch.ops import fused_block_train as FT
@@ -6206,6 +6370,9 @@ def _long_gpt2_rows(peaks, gen, kernels):
                                                 torch.bfloat16),
             _sdpa_heads(q, k, v, True, grad=g),
             _long_work(B, H, pairs, T, T, hd, 2, backward=True), err)
+        if ("fwd", T) in LONG_CUDA_CORE_MS:
+            _long_floor(("fwd", T), fwd, floors)
+            _long_floor(("bwd", T), bwd, floors)
         label = f"long_t{T}"
         kernels["gpt2_attn_half"][label] = {
             **fwd, "max_abs_err": worst["attn_half"], "shape": [B, T, C]}
@@ -6293,12 +6460,13 @@ def _long_fuser_rows(peaks, gen, kernels):
         torch.cuda.empty_cache()
 
 
-def _long_seq_rows(peaks, gen, kernels):
+def _long_seq_rows(peaks, gen, kernels, floors):
     """Row 4 at 16 queries over Nk 1,025 / 2,048 cache slots (B 64, 4 heads
     of 512; the rollout's cache mask) and rows 5 and 6 at S 1,280 / 2,048
     (B 4 in bf16, 1 in fp32; C 1024, 4 heads): each against its plain
     version; the attention alone (fused_attention: the same long instance
-    the blocks launch) timed beside SDPA."""
+    the blocks launch) timed beside SDPA, rows 5 and 6 held to their floors
+    (``_long_floor``, into ``floors``)."""
     import torch
     from afft_tpu_torch.models.layers import neg_inf_causal_mask
     from afft_tpu_torch.ops import attention as FA
@@ -6365,15 +6533,16 @@ def _long_seq_rows(peaks, gen, kernels):
         for key, name, m, pairs in (
                 ("seq", "fused_seq_block", mask, int(mask.isfinite().sum())),
                 ("dec", "fused_decoder_block", causal, S * (S + 1) // 2)):
-            kernels[name][f"long_s{S}"] = {**_long_numbers(
+            numbers = _long_numbers(
                 peaks, f"row {LONG_ROWS[name]} attention bf16 (B, S)=({B}, "
                 f"{S})",
                 lambda: FA.fused_attention(q, k, v, m),
                 lambda: FA.attention_plain(q, k, v, m)[0],
                 _sdpa_heads(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), False, m),
-                _long_work(B, H, pairs, S, S, hd, 2), worst[key]),
-                "shape": [B, S, C]}
+                _long_work(B, H, pairs, S, S, hd, 2), worst[key])
+            _long_floor((f"row{LONG_ROWS[name]}", S), numbers, floors)
+            kernels[name][f"long_s{S}"] = {**numbers, "shape": [B, S, C]}
         del qkv, q, k, v
         torch.cuda.empty_cache()
 
@@ -6414,6 +6583,13 @@ def _long_serve():
                                     f"B={LONG_BATCH}", server, feats, out)}
     with torch.no_grad():
         numbers["forward_ms"] = time_ms(lambda: fn(feats), iters=10)
+    prof = _long_profile(lambda: fn(feats), f"long serve T={LONG_SERVE_T} "
+                         f"B={LONG_BATCH} forward",
+                         {k: n * layers for k, n in LONG_MMA["serve"].items()})
+    _long_profile_ok(f"serve T={LONG_SERVE_T}", prof["kernels"],
+                     LONG_MMA["serve"])
+    numbers["profile"] = {k: prof[k] for k in ("busy_ms", "wall_ms",
+                                                "groups_ms")}
     graphs = GraphServer(server, [LONG_BATCH])
     if graphs.capture_launches[LONG_BATCH] != expected:
         raise AssertionError(f"long serve graph: launches at capture "
@@ -6539,6 +6715,19 @@ def _long_train():
         torch.cuda.synchronize()
         for k, n in long_launch_counts().items():
             long_total[k] = long_total.get(k, 0) + n
+        profile = None
+        if label == "t48":  # one more step, traced: the tensor-core forms
+            prof = _long_profile(
+                lambda: runner.train_step(
+                    batches[0], runner.lr_schedule(warmup, runner.base_lr),
+                    runner.base_lr),
+                f"long train T={LONG_TRAIN_T} B={B} step",
+                {k: n * layers for k, n in LONG_MMA["train"].items()},
+                grad=True)
+            _long_profile_ok(f"train T={LONG_TRAIN_T}", prof["kernels"],
+                             LONG_MMA["train"])
+            profile = {k: prof[k] for k in ("busy_ms", "wall_ms",
+                                            "groups_ms")}
         losses = [float(v) for v in losses]
         ms = statistics.median(a.elapsed_time(b) for a, b in events[1:])
         log(f"long train {label} bf16 B={B}: {steps} steps, launches a step "
@@ -6551,21 +6740,27 @@ def _long_train():
             raise AssertionError("long train t48: the loss did not fall")
         numbers[label] = {"losses": losses, "ms_per_step": ms,
                           "launches_per_step": expected,
-                          "long_launches_per_step": expected_long}
+                          "long_launches_per_step": expected_long,
+                          "profile": profile}
         del runner, batches
         torch.cuda.empty_cache()
     return {k: n for k, n in long_total.items() if n}, numbers
 
 
 def phase_long(peaks, kernels):
-    """16. Long contexts on the long attention route (ROADMAP §C.3): (a)
-    the flagship served at T 64, (b) trained at T 48, (c) its rollout in
-    training over 35 tokens, each through the entry points a user calls;
-    (d) every long route at full width against its plain version, its
-    keep pattern bit for bit, each timed beside its plain version, SDPA
-    and its bound, under its row's entry in ``kernels`` (``long_*``). Each
-    row's entry gets ``long_launches``: its launches on the long route in
-    (a)-(c), the main paths (rows 2, 11, 15), or in (d)'s checks alone
+    """16. Long contexts on the long attention route (ROADMAP §C.3, §B.2):
+    (a) the flagship served at T 64, (b) trained at T 48, (c) its rollout in
+    training over 35 tokens, each through the entry points a user calls,
+    the profiles of (a) and (b) showing the tensor-core forms and no
+    CUDA-core long kernel; (d) every long route at full width against
+    its plain version, the tensor-core forms at their edges
+    (``_long_edges``), its keep pattern bit for bit, each timed beside
+    its plain version, SDPA and its bound, under its row's entry in
+    ``kernels`` (``long_*``), the tensor-core forms held to a quarter of
+    the CUDA-core route's times (``floors`` of the numbers returned: the
+    times beside the constants). Each row's entry gets
+    ``long_launches``: its launches on the long route in (a)-(c), the
+    main paths (rows 2, 11, 15), or in (d)'s checks alone
     (``long_kernel_level_launches``, rows 1, 4-7, 9). Returns numbers."""
     import torch
     from afft_tpu_torch.ops import long_launch_counts, reset_launches
@@ -6579,9 +6774,11 @@ def phase_long(peaks, kernels):
     gen.manual_seed(16)
     reset_launches()
     keep = _long_keep_pattern(gen)
-    _long_gpt2_rows(peaks, gen, kernels)
+    edges, edge_worst = _long_edges(gen)
+    floors = {}
+    _long_gpt2_rows(peaks, gen, kernels, floors)
     _long_fuser_rows(peaks, gen, kernels)
-    _long_seq_rows(peaks, gen, kernels)
+    _long_seq_rows(peaks, gen, kernels, floors)
     checks = long_launch_counts()
     for name in LONG_ROWS:
         kernels[name]["long_launches"] = main.get(name, 0)
@@ -6595,8 +6792,9 @@ def phase_long(peaks, kernels):
     log(f"long: main-path launches on the long route {main}; kernel-level "
         f"{ {k: n for k, n in checks.items() if n} }; phase {seconds:.1f} s")
     return {"serve": serve_numbers, "train": train_numbers,
-            "keep_elements": keep, "main_path_long_launches": main,
-            "seconds": seconds}
+            "keep_elements": keep, "edge_checks": edges,
+            "edge_worst_abs_err": edge_worst, "floors": floors,
+            "main_path_long_launches": main, "seconds": seconds}
 
 
 def main():

@@ -1,7 +1,9 @@
 """Rules of the port that hold without a GPU.
 
 - No file of afft_tpu_torch, and not chip_smoke.py, imports jax, afft_tpu,
-  ml_dtypes or lmdb; importing the data pipeline loads none of them.
+  ml_dtypes or lmdb; importing the data pipeline loads none of them;
+  tools/torch_turns.py and the code its workloads run import neither jax
+  nor afft_tpu.
 - afft_tpu_torch/conf is a byte-for-byte copy of afft_tpu/conf; the port's
   LMDB reader source is native/lmdb_reader.cpp but for its binding's path.
 - Entry points run on the card by default and raise without CUDA; the
@@ -17,6 +19,7 @@
 import ast
 import filecmp
 import glob
+import importlib.util
 import json
 import os
 import re
@@ -74,6 +77,29 @@ def test_port_imports_neither_jax_nor_afft_tpu():
            if m.split(".")[0] in ("jax", "jaxlib", "afft_tpu", "ml_dtypes",
                                   "lmdb")]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("workload", ["startup", "serve", "long"])
+def test_turns_tool_imports_neither_jax_nor_afft_tpu(workload):
+    """``tools/torch_turns.py`` and the code each of its workloads runs in a
+    tree's fresh process import torch and the trees' own code only, and
+    every workload has a default order of turns over both trees."""
+    path = os.path.join(REPO, "tools", "torch_turns.py")
+    spec = importlib.util.spec_from_file_location("torch_turns", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    child, order = tool.WORKLOADS[workload]
+    tree = ast.parse(child)
+    modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+               for a in n.names]
+    modules += [n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom)]
+    modules += list(_imported_modules(path))
+    assert not [m for m in modules
+                if m.split(".")[0] in ("jax", "jaxlib", "afft_tpu")], modules
+    assert set(order) == {"p", "c"}
+    with pytest.raises(SystemExit):
+        tool.main([workload])  # both trees are required
 
 
 def test_data_pipeline_imports_neither_jax_nor_afft_tpu():
@@ -414,7 +440,8 @@ def test_hopper_gemm_only_on_the_bf16_path():
     forward's small_attention_drop, the training backward's
     small_attention_drop_bwd, strided_attention and the packed attention
     launcher are gone. Past the short kernels' lengths the training
-    attention and its backward take the long route (long_attention.cuh)."""
+    attention and its backward take the long route (long_attention.cuh),
+    on the tensor-core forms for bf16 with rounded probabilities."""
     header = _source("gemm_sm90.cuh")
     bf16_branch, fp32_branch = _body(header, "gemm_kn").split("} else {")
     assert "if constexpr (std::is_same<T, bf16>::value)" in bf16_branch
@@ -499,6 +526,14 @@ def test_hopper_gemm_only_on_the_bf16_path():
     assert long.count("launch_long_attention_bwd<T, GPT2, true>") == 1
     assert "launch_long_attention<T, GPT2, true>" in _body(
         train, "attention_drop")
+    # the long route's launchers pick the form by type: the tensor-core
+    # kernels (long_attention_mma and its backward) for bf16 with ROUND,
+    # the CUDA-core ones (long_attention_f32rows) otherwise
+    la = _source("long_attention.cu")
+    assert la.count(
+        "if constexpr (std::is_same<T, bf16>::value && ROUND)") == 2
+    for mma in ("launch_long_mma", "launch_long_mma_bwd"):
+        assert "f32rows" not in _body(la, mma)
     gpt2_branch, fuser_branch = _body(train, "launch_dx").split("} else {")
     assert "if constexpr (GPT2)" in gpt2_branch
     assert "gemm_nk<EPI, T, T, TOut>" in gpt2_branch

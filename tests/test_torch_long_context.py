@@ -338,15 +338,22 @@ def test_wrappers_take_long_rows_on_the_cpu():
     assert sum(long_launch_counts().values()) == 0
 
 
+CSRC = os.path.join(REPO, "afft_tpu_torch", "csrc")
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
 def test_length_rule_matches_the_kernels():
     """The Python rule's lengths are the CUDA sources' own: the short
-    kernels' limits (``FR_MAX_N``, ``AS_MAX_N``, ``FS_MAX_KEYS``) and the
-    long route's head width (``LA_MAX_HD``)."""
-    csrc = os.path.join(REPO, "afft_tpu_torch", "csrc")
-
+    kernels' limits (``FR_MAX_N``, ``AS_MAX_N``, ``FS_MAX_KEYS``), the
+    long route's head width (``LA_MAX_HD``) and its query count: the
+    smallest query tile of either form's grids (``LA_TILE``, the tensor-core
+    forms' 16-query strip) at most 65,535 tiles, as the launchers check."""
     def constant(source, name):
-        with open(os.path.join(csrc, source)) as f:
-            m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+        m = re.search(rf"constexpr int {name} = (\d+);", _source(source))
         assert m, (source, name)
         return int(m.group(1))
     assert _common.SHORT_LENGTH == {
@@ -354,3 +361,61 @@ def test_length_rule_matches_the_kernels():
         "gpt2": constant("staged_attention.cuh", "AS_MAX_N"),
         "keys": constant("fuser_attention.cuh", "FS_MAX_KEYS")}
     assert _common.LONG_MAX_HD == constant("long_attention.cuh", "LA_MAX_HD")
+    tile = constant("long_attention.cuh", "LA_TILE")
+    assert _common.LONG_MAX_QUERIES == 65535 * tile
+    text = _source("long_attention.cu")
+    assert "constexpr int LM_KT = LA_TILE;" in text
+    assert "static constexpr int QT = 16 * MT" in text
+    for grid in ("(a.Nq + LA_TILE - 1) / LA_TILE > 65535",
+                 "(a.Nk + LA_TILE - 1) / LA_TILE > 65535"):
+        assert grid in text
+
+
+# Each entry's long route, by the instance it launches: launch_long_attention
+# picks the tensor-core forms for bf16 with ROUND (the probabilities rounded:
+# rows 2, 4-6, 11, 15) and the CUDA-core forms for fp32 and for the fuser's
+# fp32 probabilities (rows 1, 7, 9)
+LONG_ENTRIES = [
+    ("fused_gpt2.cu", "launch_long_attention<T, true, false>"),        # 2
+    ("fuser_attention.cuh", "launch_long_attention<T, true, false>"),  # 4-6
+    ("fused_block.cu", "launch_long_attention<T, false, false>"),      # 1
+    ("train_block.cuh", "launch_long_attention<T, GPT2, true>"),        # 7, 11
+    ("train_block.cuh", "launch_long_attention_bwd<T, GPT2, true>"),    # 9, 15
+]
+
+
+@pytest.mark.parametrize("source, call", LONG_ENTRIES)
+def test_long_route_entries(source, call):
+    """Each entry reaches the long route through the dispatching launcher
+    with its own cast chain (never a form's launcher directly)."""
+    text = _source(source)
+    assert call in text
+    assert "launch_long_mma" not in text and "f32rows" not in text
+
+
+def _body(text, head):
+    start = text.index(head)
+    return text[start:text.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("head, mma, cuda_core", [
+    ("cudaError_t launch_long_attention(const LongAttn& a, cudaStream_t",
+     "launch_long_mma<DROP>(a, lm_rows_aligned(a, false), stream)",
+     "launch_long_f32rows<T, ROUND, DROP>(a, stream)"),
+    ("cudaError_t launch_long_attention_bwd(const LongAttn& a,",
+     "launch_long_mma_bwd<DROP>(a, stream)",
+     "launch_long_f32rows_bwd<T, ROUND, DROP>(a, stream)")])
+def test_long_route_dispatch(head, mma, cuda_core):
+    """The forward and the backward pick their form by type: bf16 with
+    ROUND the tensor-core kernels, else the CUDA-core ones; no form falls
+    back to another (the tensor-core launchers never reach the CUDA-core
+    kernels)."""
+    text = _source("long_attention.cu")
+    body = _body(text, head)
+    route = "if constexpr (std::is_same<T, bf16>::value && ROUND)"
+    assert route in body
+    assert body.index(route) < body.index(mma) < body.index(cuda_core)
+    assert "try" not in body.split()
+    for launcher in ("static cudaError_t launch_long_mma(",
+                     "static cudaError_t launch_long_mma_bwd("):
+        assert "f32rows" not in _body(text, launcher)
