@@ -32,7 +32,7 @@
 // operands on the CUDA cores.
 //
 // Limits: any B, Nq >= 1, Nk >= 1 (past 1,024 keys the long route of
-// long_attention.cuh, hd <= LA_MAX_HD), any H and hd with unit stride along
+// long_attention.cuh), any H and hd with unit stride along
 // hd (16-byte copies where hd and the strides are multiples of 16 bytes and
 // the operands 16-byte aligned, else element by element), fp32 or bf16,
 // optional fp32 (Nq, Nk) additive mask.

@@ -24,7 +24,7 @@
 // hidden) do round-trip through HBM/L2, which adds ~0.5 GB of traffic
 // (~0.15 ms at 3.35 TB/s) the TPU kernel avoided.
 //
-// Limits: any R and N (past 8 tokens hd <= LA_MAX_HD), H * hd = C (any hd),
+// Limits: any R and N (past 8 tokens the long route), H * hd = C (any hd),
 // C % 8 == 0, hidden % 8 == 0, fp32 or bf16; norm affine and qkv bias
 // optional (null pointers).
 

@@ -32,7 +32,7 @@
 // takes dqkv in the same pass (bound by 377 MB, ~0.11 ms).
 //
 // Limits: any R and N (past 8 tokens the attention's long route,
-// long_attention.cuh: hd <= LA_MAX_HD), H * hd = C (any hd), C % 8 == 0,
+// long_attention.cuh), H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
 // contiguous, 16-byte aligned operands (the wrapper checks them); norm
 // affines and the qkv bias optional.

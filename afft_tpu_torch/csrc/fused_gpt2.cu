@@ -26,7 +26,7 @@
 // that on the long route (long_attention.cuh). In fp32 every product is
 // gemm_f32 (true fp32, for the parity checks).
 //
-// Limits: any B and T (past 32 tokens hd <= LA_MAX_HD), H * hd = C (any
+// Limits: any B and T (past 32 tokens the long route), H * hd = C (any
 // hd), C % 8 == 0, hidden % 8 == 0, fp32 or bf16.
 
 #include "common.cuh"

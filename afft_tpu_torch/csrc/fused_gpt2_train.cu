@@ -39,7 +39,7 @@
 // in the same pass.
 //
 // Limits: any B and T (past 32 tokens the attention's long route,
-// long_attention.cuh: hd <= LA_MAX_HD), H * hd = C (any hd), C % 8 == 0,
+// long_attention.cuh), H * hd = C (any hd), C % 8 == 0,
 // hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
 // contiguous, 16-byte aligned operands (the wrapper checks them).
 

@@ -24,22 +24,28 @@
 //   mma_tiles.cuh); the operands stream through rings of cp.async copies,
 //   16 bytes at a time where the rows allow (else element by element, so any
 //   hd is taken; the head columns are padded to the mma's k of 16 with
-//   zeros). Shared memory depends on hd, never on the lengths.
-//   - Forward: one block a (sequence, head, tile of 16 or 32 queries),
-//     its q rows resident. The softmax takes two passes, which keeps the
-//     plain version's rounding point: pass 1 streams the key chunks (64
-//     keys x 128 head columns) for each query's max m and sum l (online,
-//     each warp over its keys, the warps' partials combined in a fixed
-//     order); pass 2 rebuilds each chunk's scores on the same fragments in
-//     the same order and forms p = exp(s - m) / l, times its keep
-//     multiplier, rounded to bf16 into a shared P tile, then O += P . V over
-//     16-key items of v. O stays in registers, split over the warps: a warp
-//     keeps 16 queries x 64 columns (32 registers, so two blocks fit an
-//     SM); a tile of 32 queries takes hd <= 256 in one sweep of O, 16
-//     queries hd <= 512 (the tile is chosen so), and hd 768 takes two
-//     sweeps (each rebuilding the scores). Two passes
-//     cost 1.5x the products of a one-pass online softmax and need no
-//     rescaling of O.
+//   zeros). Shared memory never depends on the lengths, and past LA_RES_HD
+//   (768) head columns not on hd either: there the rows each kernel keeps
+//   resident below it (q in the forward and dQ, dao in dQ, k and v in dK /
+//   dV) stream through the ring beside the chunk they multiply, chunk by
+//   chunk in the same column order (the same products, so the same bits),
+//   at 48-71 KB a block whatever hd is.
+//   - Forward: one block a (sequence, head, tile of 16 or 32 queries), its q
+//     rows resident (up to LA_RES_HD). The softmax takes two passes, which
+//     keeps the plain version's rounding point: pass 1 streams the key chunks
+//     (64 keys x 128 head columns) for each query's max m and sum l (online,
+//     each warp over its keys, the warps' partials combined in a fixed order);
+//     pass 2 rebuilds each chunk's scores on the same fragments in the same
+//     order and forms p = exp(s - m) / l, times its keep multiplier, rounded to
+//     bf16 into a shared P tile, then O += P . V over 16-key items of v. O
+//     stays in registers, split over the warps: a warp keeps 16 queries x 64
+//     columns (32 registers, so two blocks fit an SM); a tile of 32 queries
+//     takes hd <= 256 in one sweep of O, 16 queries hd <= 512 (the tile is
+//     chosen so), and past 512 head columns each further 512 take one more
+//     sweep, which rebuilds the scores: 2 sweeps at hd 768 / 1,024, 4 at 2,048.
+//     Two passes cost 1.5x the products of a one-pass online softmax (4 pairs
+//     hd) in one sweep and need no rescaling of O; s sweeps cost (2 + s) / 2
+//     times them (2x at hd 1,024, 3x at 2,048).
 //   - Backward: three launches, no atomics. (1) The forward's own instance
 //     again: O bit for bit (dWproj's operand), the stash (m, l), D =
 //     rowsum(dao . O) (dao rounded to bf16, as the plain version reads it)
@@ -50,11 +56,12 @@
 //     order (so P is the forward's bit for bit), dS = p (dP keep - D)
 //     rounded, then dV += (P keep)^T . dao and dK += dS^T . q through
 //     transposed shared tiles. Two 16 x hd fp32 accumulators split over 8
-//     warps (64 registers at hd 512, two blocks an SM; hd 768 takes two
-//     sweeps, rebuilding the scores). (3) dQ over query tiles (as the
-//     forward's, dQ kept as O), looping over key chunks: dQ += dS . k,
-//     written over the block's own copy of dao. Every gradient is the same
-//     bit for bit from run to run.
+//     warps (64 registers at hd 512, two blocks an SM; each further 512
+//     head columns take one more sweep, rebuilding S and dP: 8 pairs hd of
+//     products at hd 512, 12 at 1,024, 20 at 2,048). (3) dQ over query
+//     tiles (as the forward's, dQ kept as O), looping over key chunks: dQ
+//     += dS . k, written over the block's own copy of dao. Every gradient
+//     is the same bit for bit from run to run.
 //   - Chunks: each tile first reads its rows of the (Nq, Nk) mask for the
 //     first and last key (query) it sees; the chunks outside that range are
 //     neither staged nor multiplied: the causal upper triangle, the
@@ -88,16 +95,20 @@
 //   (sequence, head, tile of 16 queries), 256 threads, thread (r, c) =
 //   (tid / 16, tid % 16): the tile's q rows staged once (fp32, all head
 //   columns); the key tiles of 16 stream through shared memory, each thread
-//   the score of query r and key c; a first sweep keeps each query's running
+//   the score of query r and key c (past LA_RES_HD head columns, CH: q and
+//   the key tile stream in chunks of LA_HC columns, the FMA chain carried in
+//   a register across them, and v and the backward's row operands are
+//   staged over one sweep's columns, so shared memory stays under 101 KB a
+//   block whatever hd is); a first sweep keeps each query's running
 //   max and sum, a second forms p = exp(s - max) / sum as the plain version
 //   does (times the dropout multiplier, rounded to T under ROUND), and
 //   thread (r, c) keeps O's columns c, c + 16, ... (up to 512 columns a
 //   sweep) in registers. Every score is a sequential fp32 FMA chain over the
-//   head columns in order, every other step explicitly rounded, so the
-//   backward's kernels recompute the same bits. Their backward: the forward
-//   again (O, the stash, D), then long_attention_f32rows_dkdv (a tile of 16
-//   keys over every query tile) and long_attention_f32rows_dq (a tile of 16
-//   queries over every key tile). A masked key scores -inf and a zero
+//   head columns in order, so the backward's kernels recompute the same
+//   bits. Their backward: the forward again (O, the stash, D), then
+//   long_attention_f32rows_dkdv (a tile of 16 keys over every query tile)
+//   and long_attention_f32rows_dq (a tile of 16 queries over every key
+//   tile). A masked key scores -inf and a zero
 //   coefficient is skipped in every product. Products on the CUDA cores
 //   from shared memory: PERF.md has their times.
 //
@@ -105,8 +116,8 @@
 // version sums p * keep unrounded: a difference of bf16 rounding in ds.
 //
 // Limits: any lengths (Nq, Nk >= 1; a grid's y takes cdiv(Nq, 16) and
-// cdiv(Nk, 16) <= 65,535), 1 <= hd <= LA_MAX_HD (shared memory), any
-// strides with unit stride along hd.
+// cdiv(Nk, 16) <= 65,535), any hd >= 1, any strides with unit stride along
+// hd.
 
 #include "long_attention.cuh"
 #include "mma_tiles.cuh"
@@ -160,12 +171,18 @@ __device__ __forceinline__ float la_mask(const LongAttn& a, int qi, int ki) {
   return a.mask != nullptr ? a.mask[(size_t)qi * a.Nk + ki] : 0.f;
 }
 
+// The score of a pair from its dot and mask entry mk
+__device__ __forceinline__ float la_score_of(float dot, float mk,
+                                             float scale) {
+  return mk == -INFINITY ? -INFINITY : __fadd_rn(__fmul_rn(dot, scale), mk);
+}
+
 // The score of query row qr (of qsm) and key row kr (of ksm), mask entry mk
 __device__ __forceinline__ float la_score(const float* qrow,
                                           const float* krow, int hd,
                                           float mk, float scale) {
   if (mk == -INFINITY) return -INFINITY;
-  return __fadd_rn(__fmul_rn(la_dot(qrow, krow, hd), scale), mk);
+  return la_score_of(la_dot(qrow, krow, hd), mk, scale);
 }
 
 // p = exp(s - m) / l from the row's max m and sum l
@@ -190,37 +207,106 @@ __device__ __forceinline__ float la_keep(const LongAttn& a, int seq, int h,
   return drop_scale(a.drop, idx);
 }
 
+// The dots of thread (r, c)'s pair over all hd head columns, LA_HC columns
+// a chunk (the CH forms, past LA_RES_HD): q row q0 + r . k row k0 + c (s)
+// and, with TWO, dao row q0 + r (rounded to T under ROUND) . v row k0 + c
+// (dp), each chunk's rows staged into buf (four [16][LA_HC + 1] tiles: q,
+// k, dao, v). Each sum is la_dot's sequential fp32 FMA chain over the
+// columns in order, carried across the chunks, so the bits are the same in
+// the forward and in both backward kernels. Block-wide: it starts with a
+// barrier (the block's earlier reads of shared memory are done) and leaves
+// the last chunk's tiles in buf.
+template <typename T, bool ROUND, bool TWO>
+__device__ __forceinline__ void la_dots(float* buf, const LongAttn& a,
+                                        const T* qb, const float* gb,
+                                        long long gld, int q0, const T* kb,
+                                        const T* vb, int k0, int r, int c,
+                                        float& s, float& dp) {
+  constexpr int L = LA_HC + 1;
+  float* qc = buf;
+  float* kc = qc + LA_TILE * L;
+  float* gc = kc + LA_TILE * L;
+  float* vc = gc + LA_TILE * L;
+  s = 0.f, dp = 0.f;
+  for (int c0 = 0; c0 < a.hd; c0 += LA_HC) {
+    const int w = min(LA_HC, a.hd - c0);
+    __syncthreads();  // the previous chunk (or the caller's tiles) is read
+    la_stage<T, false>(qc, L, qb + c0, a.qs.t, q0, a.Nq, w);
+    la_stage<T, false>(kc, L, kb + c0, a.ks.t, k0, a.Nk, w);
+    if (TWO) {
+      la_stage<T, ROUND>(gc, L, gb + c0, gld, q0, a.Nq, w);
+      la_stage<T, false>(vc, L, vb + c0, a.vs.t, k0, a.Nk, w);
+    }
+    __syncthreads();
+    const float *qr = qc + r * L, *kr = kc + c * L;
+#pragma unroll 4
+    for (int j = 0; j < w; ++j) s = fmaf(qr[j], kr[j], s);
+    if (TWO) {
+      const float *gr = gc + r * L, *vr = vc + c * L;
+#pragma unroll 4
+      for (int j = 0; j < w; ++j) dp = fmaf(gr[j], vr[j], dp);
+    }
+  }
+}
+
 static size_t la_lds(int hd) { return (size_t)hd + 1; }
+// the row stride of a tile over one output sweep's columns (the CH forms)
+__host__ __device__ __forceinline__ int la_sweep_ld(int hd) {
+  return (hd < LA_COLS ? hd : LA_COLS) + 1;
+}
+// the elements of one of la_dots' chunk tiles
+__host__ __device__ __forceinline__ int la_chunk_tile() {
+  return LA_TILE * (LA_HC + 1);
+}
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, bool ROUND, bool DROP>
+// CH (past LA_RES_HD head columns): q and k stream through la_dots' chunk
+// tiles and v through a tile of the sweep's columns, so shared memory does
+// not grow with hd; else q's rows stay whole and k and v are staged whole.
+template <typename T, bool ROUND, bool DROP, bool CH>
 __global__ void __launch_bounds__(LA_THREADS)
 long_attention_f32rows(LongAttn a) {
   extern __shared__ __align__(16) float la_smem[];
   const int hd = a.hd, lds = hd + 1;
+  const int vld = CH ? la_sweep_ld(hd) : lds;
   float* qsm = la_smem;             // [16][lds] the tile's queries
   float* ksm = qsm + LA_TILE * lds;  // [16][lds] a key tile
-  float* vsm = ksm + LA_TILE * lds;  // [16][lds] its values
-  float* psm = vsm + LA_TILE * lds;  // [16][LA_PLD] coefficients
+  float* vsm = CH ? la_smem + 2 * la_chunk_tile()  // [16][vld] its values
+                  : ksm + LA_TILE * lds;
+  float* psm = vsm + LA_TILE * vld;  // [16][LA_PLD] coefficients
   const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int q0 = blockIdx.y * LA_TILE;
   const int r = threadIdx.x >> 4, c = threadIdx.x & 15, qi = q0 + r;
   const T* qb = static_cast<const T*>(a.q) + seq * a.qs.b + h * a.qs.h;
   const T* kb = static_cast<const T*>(a.k) + seq * a.ks.b + h * a.ks.h;
   const T* vb = static_cast<const T*>(a.v) + seq * a.vs.b + h * a.vs.h;
-  la_stage<T, false>(qsm, lds, qb, a.qs.t, q0, a.Nq, hd);
+  if constexpr (!CH) la_stage<T, false>(qsm, lds, qb, a.qs.t, q0, a.Nq, hd);
+
+  // the score of (qi, key k0 + c)
+  auto score = [&](int k0) {
+    const float mk = la_mask(a, qi, k0 + c);
+    if constexpr (CH) {
+      float d, unused;
+      la_dots<T, false, false>(la_smem, a, qb, nullptr, 0, q0, kb, nullptr,
+                               k0, r, c, d, unused);
+      return la_score_of(d, mk, a.scale);
+    } else {
+      return la_score(qsm + r * lds, ksm + c * lds, hd, mk, a.scale);
+    }
+  };
 
   // 1. each query's running max m and sum l over the key tiles
   float m = -INFINITY, l = 0.f;
   for (int k0 = 0; k0 < a.Nk; k0 += LA_TILE) {
-    __syncthreads();  // q is staged; the previous tile is read
-    la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
-    __syncthreads();
-    const float s = la_score(qsm + r * lds, ksm + c * lds, hd,
-                             la_mask(a, qi, k0 + c), a.scale);
+    if constexpr (!CH) {
+      __syncthreads();  // q is staged; the previous tile is read
+      la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
+      __syncthreads();
+    }
+    const float s = score(k0);
     const float mn = fmaxf(m, la_max16(s));
     const float e =
         mn != -INFINITY && s != -INFINITY ? expf(__fsub_rn(s, mn)) : 0.f;
@@ -246,20 +332,25 @@ long_attention_f32rows(LongAttn a) {
 #pragma unroll
     for (int i = 0; i < LA_PER; ++i) o[i] = 0.f;
     for (int k0 = 0; k0 < a.Nk; k0 += LA_TILE) {
-      __syncthreads();  // the previous tile is read
-      la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
-      la_stage<T, false>(vsm, lds, vb, a.vs.t, k0, a.Nk, hd);
-      __syncthreads();
+      if constexpr (!CH) {
+        __syncthreads();  // the previous tile is read
+        la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
+        la_stage<T, false>(vsm, lds, vb, a.vs.t, k0, a.Nk, hd);
+        __syncthreads();
+      }
       const int ki = k0 + c;
-      const float s = la_score(qsm + r * lds, ksm + c * lds, hd,
-                               la_mask(a, qi, ki), a.scale);
+      const float s = score(k0);
+      // CH: la_dots' first barrier ordered the previous tile's reads
+      if constexpr (CH)
+        la_stage<T, false>(vsm, vld, vb + cb, a.vs.t, k0, a.Nk,
+                           min(LA_COLS, hd - cb));
       psm[r * LA_PLD + c] = la_coef<T, ROUND, DROP>(
           la_prob(s, m, l), la_keep<DROP>(a, seq, h, qi, ki));
       __syncthreads();
       for (int kk = 0; kk < LA_TILE; ++kk) {
         const float w = psm[r * LA_PLD + kk];
         if (w == 0.f) continue;  // a masked key, or one past Nk
-        const float* vr = vsm + kk * lds + cb + c;
+        const float* vr = vsm + kk * vld + (CH ? 0 : cb) + c;
 #pragma unroll
         for (int i = 0; i < LA_PER; ++i)
           if (cb + c + LA_TILE * i < hd)
@@ -284,27 +375,55 @@ long_attention_f32rows(LongAttn a) {
   if (a.dsum != nullptr && c == 0 && qi < a.Nq) a.dsum[row] = dsum;
 }
 
-template <typename T, bool ROUND, bool DROP>
-static cudaError_t launch_long_f32rows(const LongAttn& a,
-                                       cudaStream_t stream) {
+template <typename T, bool ROUND, bool DROP, bool CH>
+static cudaError_t launch_long_f32rows_as(const LongAttn& a,
+                                          cudaStream_t stream) {
   const size_t smem =
-      (3 * LA_TILE * la_lds(a.hd) + LA_TILE * LA_PLD) * sizeof(float);
+      (CH ? 2 * la_chunk_tile() + LA_TILE * la_sweep_ld(a.hd)
+          : 3 * LA_TILE * la_lds(a.hd)) * sizeof(float) +
+      LA_TILE * LA_PLD * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      long_attention_f32rows<T, ROUND, DROP>,
+      long_attention_f32rows<T, ROUND, DROP, CH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_seq * a.H, (a.Nq + LA_TILE - 1) / LA_TILE);
-  long_attention_f32rows<T, ROUND, DROP><<<grid, LA_THREADS, smem, stream>>>(a);
+  long_attention_f32rows<T, ROUND, DROP, CH>
+      <<<grid, LA_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, bool ROUND, bool DROP>
+static cudaError_t launch_long_f32rows(const LongAttn& a,
+                                       cudaStream_t stream) {
+  return a.hd > LA_RES_HD
+             ? launch_long_f32rows_as<T, ROUND, DROP, true>(a, stream)
+             : launch_long_f32rows_as<T, ROUND, DROP, false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
 
+// The pair (query qi, key ki) of mask entry mk (not -inf) from its dots
+// (q . k and dao . v): its coefficient of P . V (pk) and ds, from the stash
+// (m, l) and D of the query.
+template <typename T, bool ROUND, bool DROP>
+__device__ __forceinline__ void la_pair_of(const LongAttn& a, int seq, int h,
+                                           int qi, int ki, float mk,
+                                           float sdot, float dpr, float& pk,
+                                           float& ds) {
+  const size_t row = ((size_t)seq * a.H + h) * a.Nq + qi;
+  const float m = a.stats[2 * row], l = a.stats[2 * row + 1];
+  const float p = la_prob(la_score_of(sdot, mk, a.scale), m, l);
+  const float keep = la_keep<DROP>(a, seq, h, qi, ki);
+  pk = la_coef<T, ROUND, DROP>(p, keep);
+  const float dp = DROP ? __fmul_rn(dpr, keep) : dpr;
+  ds = __fmul_rn(p, __fsub_rn(dp, a.dsum[row]));
+  if (ROUND) ds = to_f32(from_f32<T>(ds));
+}
+
 // The pair (query qi = row r of qsm / gsm, key ki = row c of ksm / vsm):
-// its coefficient of P . V (pk) and ds, from the stash (m, l) and D of the
-// query. Zeros for a masked pair or one past the extent.
+// pk and ds, zeros for a masked pair or one past the extent.
 template <typename T, bool ROUND, bool DROP>
 __device__ __forceinline__ void la_pair_grad(const LongAttn& a, int seq,
                                              int h, int qi, int ki,
@@ -316,27 +435,40 @@ __device__ __forceinline__ void la_pair_grad(const LongAttn& a, int seq,
   pk = 0.f, ds = 0.f;
   const float mk = la_mask(a, qi, ki);
   if (mk == -INFINITY) return;
-  const size_t row = ((size_t)seq * a.H + h) * a.Nq + qi;
-  const float m = a.stats[2 * row], l = a.stats[2 * row + 1];
-  const float s = la_score(qrow, krow, a.hd, mk, a.scale);
-  const float p = la_prob(s, m, l);
-  const float keep = la_keep<DROP>(a, seq, h, qi, ki);
-  pk = la_coef<T, ROUND, DROP>(p, keep);
-  const float dpr = la_dot(grow, vrow, a.hd);
-  const float dp = DROP ? __fmul_rn(dpr, keep) : dpr;
-  ds = __fmul_rn(p, __fsub_rn(dp, a.dsum[row]));
-  if (ROUND) ds = to_f32(from_f32<T>(ds));
+  la_pair_of<T, ROUND, DROP>(a, seq, h, qi, ki, mk, la_dot(qrow, krow, a.hd),
+                             la_dot(grow, vrow, a.hd), pk, ds);
 }
 
-// One block a tile of 16 keys: dK and dV over every query tile.
+// The pair of thread (r, c), query q0 + r and key k0 + c, in the CH forms:
+// its dots streamed through la_dots (block-wide), then pk and ds.
 template <typename T, bool ROUND, bool DROP>
+__device__ __forceinline__ void la_pair_chunked(float* buf, const LongAttn& a,
+                                                int seq, int h, const T* qb,
+                                                const float* gb, long long gld,
+                                                int q0, const T* kb,
+                                                const T* vb, int k0, int r,
+                                                int c, float& pk, float& ds) {
+  float sd, dd;
+  la_dots<T, ROUND, true>(buf, a, qb, gb, gld, q0, kb, vb, k0, r, c, sd, dd);
+  pk = 0.f, ds = 0.f;
+  const float mk = la_mask(a, q0 + r, k0 + c);
+  if (mk != -INFINITY)
+    la_pair_of<T, ROUND, DROP>(a, seq, h, q0 + r, k0 + c, mk, sd, dd, pk, ds);
+}
+
+// One block a tile of 16 keys: dK and dV over every query tile. CH: the
+// dots through la_dots' chunk tiles, then the query tile's q and dao rows
+// over the sweep's columns; else k, v whole and resident, q and dao whole.
+template <typename T, bool ROUND, bool DROP, bool CH>
 __global__ void __launch_bounds__(LA_THREADS)
 long_attention_f32rows_dkdv(LongAttn a) {
   extern __shared__ __align__(16) float la_smem[];
-  const int hd = a.hd, lds = hd + 1;
+  const int hd = a.hd, lds = CH ? la_sweep_ld(hd) : hd + 1;
+  // resident: k, v, q, dao rows; CH: la_dots' tiles, then q and dao
   float* ksm = la_smem;              // [16][lds] this block's keys
   float* vsm = ksm + LA_TILE * lds;  // [16][lds] their values
-  float* qsm = vsm + LA_TILE * lds;  // [16][lds] a query tile
+  float* qsm = CH ? la_smem + 4 * la_chunk_tile()  // [16][lds] a query tile
+                  : vsm + LA_TILE * lds;
   float* gsm = qsm + LA_TILE * lds;  // [16][lds] its dao rows
   float* psm = gsm + LA_TILE * lds;  // [16][LA_PLD] pk
   float* dsm = psm + LA_TILE * LA_PLD;  // [16][LA_PLD] ds
@@ -348,30 +480,41 @@ long_attention_f32rows_dkdv(LongAttn a) {
   const T* vb = static_cast<const T*>(a.v) + seq * a.vs.b + h * a.vs.h;
   const long long gld = (long long)a.H * hd;  // dao's row stride
   const float* gb = a.dao + (size_t)seq * a.Nq * gld + (size_t)h * hd;
-  la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
-  la_stage<T, false>(vsm, lds, vb, a.vs.t, k0, a.Nk, hd);
+  if constexpr (!CH) {
+    la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
+    la_stage<T, false>(vsm, lds, vb, a.vs.t, k0, a.Nk, hd);
+  }
   const int kr = k0 + r;  // the key whose gradients this thread sums
   for (int cb = 0; cb < hd; cb += LA_COLS) {
+    const int co = CH ? 0 : cb;  // the sweep's first column in q / dao rows
     float dk[LA_PER], dv[LA_PER];
 #pragma unroll
     for (int i = 0; i < LA_PER; ++i) dk[i] = 0.f, dv[i] = 0.f;
     for (int q0 = 0; q0 < a.Nq; q0 += LA_TILE) {
-      __syncthreads();  // k, v are staged; the previous tile is read
-      la_stage<T, false>(qsm, lds, qb, a.qs.t, q0, a.Nq, hd);
-      la_stage<T, ROUND>(gsm, lds, gb, gld, q0, a.Nq, hd);
-      __syncthreads();
       float pk, ds;
-      la_pair_grad<T, ROUND, DROP>(a, seq, h, q0 + r, k0 + c, qsm + r * lds,
-                                   gsm + r * lds, ksm + c * lds,
-                                   vsm + c * lds, pk, ds);
+      if constexpr (CH) {
+        la_pair_chunked<T, ROUND, DROP>(la_smem, a, seq, h, qb, gb, gld, q0,
+                                        kb, vb, k0, r, c, pk, ds);
+        const int w = min(LA_COLS, hd - cb);
+        la_stage<T, false>(qsm, lds, qb + cb, a.qs.t, q0, a.Nq, w);
+        la_stage<T, ROUND>(gsm, lds, gb + cb, gld, q0, a.Nq, w);
+      } else {
+        __syncthreads();  // k, v are staged; the previous tile is read
+        la_stage<T, false>(qsm, lds, qb, a.qs.t, q0, a.Nq, hd);
+        la_stage<T, ROUND>(gsm, lds, gb, gld, q0, a.Nq, hd);
+        __syncthreads();
+        la_pair_grad<T, ROUND, DROP>(a, seq, h, q0 + r, k0 + c,
+                                     qsm + r * lds, gsm + r * lds,
+                                     ksm + c * lds, vsm + c * lds, pk, ds);
+      }
       psm[r * LA_PLD + c] = pk;
       dsm[r * LA_PLD + c] = ds;
       __syncthreads();
       // thread (key r, columns c + 16 i): sums over the tile's queries
       for (int qq = 0; qq < LA_TILE; ++qq) {
         const float wd = dsm[qq * LA_PLD + r], wp = psm[qq * LA_PLD + r];
-        const float* qr = qsm + qq * lds + cb + c;
-        const float* gr = gsm + qq * lds + cb + c;
+        const float* qr = qsm + qq * lds + co + c;
+        const float* gr = gsm + qq * lds + co + c;
         if (wd != 0.f) {
 #pragma unroll
           for (int i = 0; i < LA_PER; ++i)
@@ -403,17 +546,21 @@ long_attention_f32rows_dkdv(LongAttn a) {
   }
 }
 
-// One block a tile of 16 queries: dQ over every key tile.
-template <typename T, bool ROUND, bool DROP>
+// One block a tile of 16 queries: dQ over every key tile. CH: the dots
+// through la_dots' chunk tiles, then the key tile's k rows over the sweep's
+// columns; else q and dao whole and resident, k and v whole.
+template <typename T, bool ROUND, bool DROP, bool CH>
 __global__ void __launch_bounds__(LA_THREADS)
 long_attention_f32rows_dq(LongAttn a) {
   extern __shared__ __align__(16) float la_smem[];
-  const int hd = a.hd, lds = hd + 1;
+  const int hd = a.hd, lds = CH ? la_sweep_ld(hd) : hd + 1;
   float* qsm = la_smem;              // [16][lds] this block's queries
   float* gsm = qsm + LA_TILE * lds;  // [16][lds] their dao rows
-  float* ksm = gsm + LA_TILE * lds;  // [16][lds] a key tile
+  float* ksm = CH ? la_smem + 4 * la_chunk_tile()  // [16][lds] a key tile
+                  : gsm + LA_TILE * lds;
   float* vsm = ksm + LA_TILE * lds;  // [16][lds] its values
-  float* dsm = vsm + LA_TILE * lds;  // [16][LA_PLD] ds
+  float* dsm = CH ? ksm + LA_TILE * lds  // [16][LA_PLD] ds
+                  : vsm + LA_TILE * lds;
   const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int q0 = blockIdx.y * LA_TILE;
   const int r = threadIdx.x >> 4, c = threadIdx.x & 15, qi = q0 + r;
@@ -422,28 +569,38 @@ long_attention_f32rows_dq(LongAttn a) {
   const T* vb = static_cast<const T*>(a.v) + seq * a.vs.b + h * a.vs.h;
   const long long gld = (long long)a.H * hd;
   const float* gb = a.dao + (size_t)seq * a.Nq * gld + (size_t)h * hd;
-  la_stage<T, false>(qsm, lds, qb, a.qs.t, q0, a.Nq, hd);
-  la_stage<T, ROUND>(gsm, lds, gb, gld, q0, a.Nq, hd);
+  if constexpr (!CH) {
+    la_stage<T, false>(qsm, lds, qb, a.qs.t, q0, a.Nq, hd);
+    la_stage<T, ROUND>(gsm, lds, gb, gld, q0, a.Nq, hd);
+  }
   for (int cb = 0; cb < hd; cb += LA_COLS) {
+    const int co = CH ? 0 : cb;  // the sweep's first column in k rows
     float dq[LA_PER];
 #pragma unroll
     for (int i = 0; i < LA_PER; ++i) dq[i] = 0.f;
     for (int k0 = 0; k0 < a.Nk; k0 += LA_TILE) {
-      __syncthreads();  // q, dao are staged; the previous tile is read
-      la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
-      la_stage<T, false>(vsm, lds, vb, a.vs.t, k0, a.Nk, hd);
-      __syncthreads();
       float pk, ds;
-      la_pair_grad<T, ROUND, DROP>(a, seq, h, qi, k0 + c, qsm + r * lds,
-                                   gsm + r * lds, ksm + c * lds,
-                                   vsm + c * lds, pk, ds);
+      if constexpr (CH) {
+        la_pair_chunked<T, ROUND, DROP>(la_smem, a, seq, h, qb, gb, gld, q0,
+                                        kb, vb, k0, r, c, pk, ds);
+        la_stage<T, false>(ksm, lds, kb + cb, a.ks.t, k0, a.Nk,
+                           min(LA_COLS, hd - cb));
+      } else {
+        __syncthreads();  // q, dao are staged; the previous tile is read
+        la_stage<T, false>(ksm, lds, kb, a.ks.t, k0, a.Nk, hd);
+        la_stage<T, false>(vsm, lds, vb, a.vs.t, k0, a.Nk, hd);
+        __syncthreads();
+        la_pair_grad<T, ROUND, DROP>(a, seq, h, qi, k0 + c, qsm + r * lds,
+                                     gsm + r * lds, ksm + c * lds,
+                                     vsm + c * lds, pk, ds);
+      }
       dsm[r * LA_PLD + c] = ds;
       __syncthreads();
       // thread (query r, columns c + 16 i): sums over the tile's keys
       for (int kk = 0; kk < LA_TILE; ++kk) {
         const float w = dsm[r * LA_PLD + kk];
         if (w == 0.f) continue;
-        const float* kr = ksm + kk * lds + cb + c;
+        const float* kr = ksm + kk * lds + co + c;
 #pragma unroll
         for (int i = 0; i < LA_PER; ++i)
           if (cb + c + LA_TILE * i < hd)
@@ -464,31 +621,44 @@ long_attention_f32rows_dq(LongAttn a) {
 
 // The CUDA-core backward: the forward kernel again (O, the stash, D), then
 // dK / dV over key tiles and dQ over query tiles.
-template <typename T, bool ROUND, bool DROP>
-static cudaError_t launch_long_f32rows_bwd(const LongAttn& a,
-                                           cudaStream_t stream) {
-  cudaError_t err = launch_long_f32rows<T, ROUND, DROP>(a, stream);
+template <typename T, bool ROUND, bool DROP, bool CH>
+static cudaError_t launch_long_f32rows_bwd_as(const LongAttn& a,
+                                              cudaStream_t stream) {
+  cudaError_t err = launch_long_f32rows_as<T, ROUND, DROP, CH>(a, stream);
   if (err != cudaSuccess) return err;
-  const size_t rows = 4 * LA_TILE * la_lds(a.hd) * sizeof(float);
+  const size_t rows =
+      (CH ? 4 * la_chunk_tile() + 2 * LA_TILE * la_sweep_ld(a.hd)
+          : 4 * LA_TILE * la_lds(a.hd)) * sizeof(float);
+  const size_t rows_q =
+      (CH ? 4 * la_chunk_tile() + LA_TILE * la_sweep_ld(a.hd)
+          : 4 * LA_TILE * la_lds(a.hd)) * sizeof(float);
   const size_t smem_kv = rows + 2 * LA_TILE * LA_PLD * sizeof(float);
-  const size_t smem_q = rows + LA_TILE * LA_PLD * sizeof(float);
-  err = cudaFuncSetAttribute(long_attention_f32rows_dkdv<T, ROUND, DROP>,
+  const size_t smem_q = rows_q + LA_TILE * LA_PLD * sizeof(float);
+  err = cudaFuncSetAttribute(long_attention_f32rows_dkdv<T, ROUND, DROP, CH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_kv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(long_attention_f32rows_dq<T, ROUND, DROP>,
+  err = cudaFuncSetAttribute(long_attention_f32rows_dq<T, ROUND, DROP, CH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return err;
   const dim3 gk(a.n_seq * a.H, (a.Nk + LA_TILE - 1) / LA_TILE);
-  long_attention_f32rows_dkdv<T, ROUND, DROP>
+  long_attention_f32rows_dkdv<T, ROUND, DROP, CH>
       <<<gk, LA_THREADS, smem_kv, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 gq(a.n_seq * a.H, (a.Nq + LA_TILE - 1) / LA_TILE);
-  long_attention_f32rows_dq<T, ROUND, DROP>
+  long_attention_f32rows_dq<T, ROUND, DROP, CH>
       <<<gq, LA_THREADS, smem_q, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, bool ROUND, bool DROP>
+static cudaError_t launch_long_f32rows_bwd(const LongAttn& a,
+                                           cudaStream_t stream) {
+  return a.hd > LA_RES_HD
+             ? launch_long_f32rows_bwd_as<T, ROUND, DROP, true>(a, stream)
+             : launch_long_f32rows_bwd_as<T, ROUND, DROP, false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -665,12 +835,15 @@ __device__ __forceinline__ void lm_query_range(const LongAttn& a, int k0,
 
 // -- forward ----------------------------------------------------------------
 
-template <int MT>
+// QS: q's rows stream through the ring beside k's (past LA_RES_HD head
+// columns), else they stay resident
+template <int MT, bool QS>
 static size_t lm_fwd_smem(int hd) {
   using Tile = LmTile<MT>;
   const int hdp = lm_hdp(hd);
-  const int stage = lm_max(LM_KC * (LM_HC + 8), 16 * lm_old(Tile::CW, hdp));
-  return ((size_t)Tile::QT * (hdp + 8) + LM_NST * (size_t)stage +
+  const int stage = lm_max((LM_KC + (QS ? Tile::QT : 0)) * (LM_HC + 8),
+                           16 * lm_old(Tile::CW, hdp));
+  return ((QS ? 0 : (size_t)Tile::QT * (hdp + 8)) + LM_NST * (size_t)stage +
           (size_t)Tile::QT * LM_PLD) * sizeof(bf16) +
          (size_t)Tile::QT * Tile::WPM * 2 * sizeof(float);
 }
@@ -688,7 +861,10 @@ static size_t lm_fwd_smem(int hd) {
 // into a shared P tile, then O += P . V. With a.stats / a.dao / a.dsum the
 // stash (m, l), D = rowsum(dao . O) and, with a.dq, dao rounded to bf16 in
 // dQ's place (the backward's operand, read there before dQ overwrites it).
-template <int MT, bool DROP>
+// QS (past LA_RES_HD head columns): each score item also stages the tile's
+// q rows over its LM_HC columns, after the chunk's k rows, so shared memory
+// does not grow with hd; the products and their order are the same.
+template <int MT, bool DROP, bool QS>
 __global__ void __launch_bounds__(LM_THREADS, 2)
 long_attention_mma(LongAttn a, bool vec) {
   using Tile = LmTile<MT>;
@@ -698,9 +874,9 @@ long_attention_mma(LongAttn a, bool vec) {
   __shared__ int range[2];
   const int hd = a.hd, hdp = lm_hdp(hd), QLD = hdp + 8;
   const int VLD = lm_old(CW, hdp);
-  const int STAGE = lm_max(LM_KC * KLD, 16 * VLD);
+  const int STAGE = lm_max((LM_KC + (QS ? QT : 0)) * KLD, 16 * VLD);
   bf16* qsm = reinterpret_cast<bf16*>(lm_smem);  // [QT][QLD] the tile's q
-  bf16* ring = qsm + QT * QLD;                     // NST stages
+  bf16* ring = QS ? qsm : qsm + QT * QLD;          // NST stages
   bf16* psm = ring + NST * STAGE;                  // [QT][LM_PLD] P
   float* part = reinterpret_cast<float*>(psm + QT * LM_PLD);  // [QT][WPM][2]
   const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
@@ -718,8 +894,9 @@ long_attention_mma(LongAttn a, bool vec) {
   const size_t srow = ((size_t)seq * a.H + h) * a.Nq;  // stash of query 0
   const size_t obase = ((size_t)seq * a.Nq * a.H + h) * hd;
   const size_t orow = (size_t)a.H * hd;  // elements between output rows
-  stage_rows<LM_THREADS>(qsm, QLD, qb, a.qs.t, q0, QT, 0, a.Nq - 1, nullptr,
-                         hdp, hd, vec);
+  if constexpr (!QS)
+    stage_rows<LM_THREADS>(qsm, QLD, qb, a.qs.t, q0, QT, 0, a.Nq - 1, nullptr,
+                           hdp, hd, vec);
   int klo, khi;
   lm_key_range(a, q0, nq, range, klo, khi);
   const int c_lo = klo / LM_KC;
@@ -748,6 +925,10 @@ long_attention_mma(LongAttn a, bool vec) {
       const int c0 = x * LM_HC;
       stage_rows<LM_THREADS>(st, KLD, kb + c0, a.ks.t, k0, LM_KC, klo, khi,
                              nullptr, lm_min(LM_HC, hdp - c0), hd - c0, vec);
+      if constexpr (QS)
+        stage_rows<LM_THREADS>(st + LM_KC * KLD, KLD, qb + c0, a.qs.t, q0, QT,
+                               0, a.Nq - 1, nullptr, lm_min(LM_HC, hdp - c0),
+                               hd - c0, vec);
     } else {
       const int c0 = sw * CW;
       stage_rows<LM_THREADS>(st, VLD, vb + c0, a.vs.t, k0 + 16 * (x - nhc), 16,
@@ -884,9 +1065,14 @@ long_attention_mma(LongAttn a, bool vec) {
       const int c0 = x * LM_HC;
       // a warp whose keys all lie outside [klo, khi] keeps zeros: its
       // scores are masked
-      if (rows && k0 + n0 <= khi && k0 + n0 + 8 * MT > klo)
-        lm_mma_abt<MT>(acc, qsm + m0 * QLD + c0, QLD, st + n0 * KLD, KLD,
-                       lm_min(LM_HC, hdp - c0) / 16, MT);
+      if (rows && k0 + n0 <= khi && k0 + n0 + 8 * MT > klo) {
+        if constexpr (QS)
+          lm_mma_abt<MT>(acc, st + (LM_KC + m0) * KLD, KLD, st + n0 * KLD,
+                         KLD, lm_min(LM_HC, hdp - c0) / 16, MT);
+        else
+          lm_mma_abt<MT>(acc, qsm + m0 * QLD + c0, QLD, st + n0 * KLD, KLD,
+                         lm_min(LM_HC, hdp - c0) / 16, MT);
+      }
       if (x == nhc - 1) scores(ci, sw, k0);
     } else {
       const int xq = x - nhc;
@@ -935,27 +1121,30 @@ long_attention_mma(LongAttn a, bool vec) {
   }
 }
 
-template <int MT, bool DROP>
+template <int MT, bool DROP, bool QS>
 static cudaError_t lm_launch_fwd(const LongAttn& a, bool vec,
                                  cudaStream_t stream) {
-  const size_t smem = lm_fwd_smem<MT>(a.hd);
+  const size_t smem = lm_fwd_smem<MT, QS>(a.hd);
   const cudaError_t err = cudaFuncSetAttribute(
-      long_attention_mma<MT, DROP>,
+      long_attention_mma<MT, DROP, QS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_seq * a.H, cdiv(a.Nq, LmTile<MT>::QT));
-  long_attention_mma<MT, DROP><<<grid, LM_THREADS, smem, stream>>>(a, vec);
+  long_attention_mma<MT, DROP, QS><<<grid, LM_THREADS, smem, stream>>>(a,
+                                                                         vec);
   return cudaGetLastError();
 }
 
 // The forward's tile: 16 queries up to 16 queries or past 256 head columns
-// (hd 512 in one sweep of O), else 32 (hd 256 in one sweep), as dQ's.
+// (hd 512 in one sweep of O, hd 1,024 in two, ...), else 32 (hd 256 in one
+// sweep), as dQ's; past LA_RES_HD head columns q streams (QS).
 template <bool DROP>
 static cudaError_t launch_long_mma(const LongAttn& a, bool vec,
                                    cudaStream_t stream) {
+  if (a.hd > LA_RES_HD) return lm_launch_fwd<1, DROP, true>(a, vec, stream);
   return a.Nq <= 16 || lm_hdp(a.hd) > 256
-             ? lm_launch_fwd<1, DROP>(a, vec, stream)
-             : lm_launch_fwd<2, DROP>(a, vec, stream);
+             ? lm_launch_fwd<1, DROP, false>(a, vec, stream)
+             : lm_launch_fwd<2, DROP, false>(a, vec, stream);
 }
 
 // Every row and 16-byte column group of q, k, v (and, with dq, of dQ's
@@ -973,14 +1162,32 @@ static bool lm_rows_aligned(const LongAttn& a, bool with_dq) {
 
 // -- backward ---------------------------------------------------------------
 
-template <int MT>
+// Rows r0 .. r0 + n of an fp32 operand (row t at src + t * ld) rounded to
+// bf16, columns 0 .. width, into dst (row stride ldd), element by element:
+// rows past hi and the columns at or past w are zeros and are not read
+template <int NTHR>
+__device__ __forceinline__ void stage_rows_rounded(bf16* dst, int ldd,
+                                                   const float* src,
+                                                   long long ld, int r0, int n,
+                                                   int hi, int width, int w) {
+  for (int i = threadIdx.x; i < n * width; i += NTHR) {
+    const int r = i / width, c = i - r * width, t = r0 + r;
+    dst[r * ldd + c] =
+        __float2bfloat16(t <= hi && c < w ? src[t * ld + c] : 0.f);
+  }
+}
+
+// QS: q's and dao's rows stream through the ring (past LA_RES_HD head
+// columns), else they stay resident
+template <int MT, bool QS>
 static size_t lm_dq_smem(int hd) {
   using Tile = LmTile<MT>;
   const int hdp = lm_hdp(hd);
-  const int stage =
-      lm_max(2 * LM_KC * (LM_HC2 + 8), 16 * lm_old(Tile::CW, hdp));
-  return (2 * (size_t)Tile::QT * (hdp + 8) + LM_NST_DQ * (size_t)stage +
-          (size_t)Tile::QT * LM_PLD) * sizeof(bf16);
+  const int stage = lm_max(2 * (LM_KC + (QS ? Tile::QT : 0)) * (LM_HC2 + 8),
+                           16 * lm_old(Tile::CW, hdp));
+  return ((QS ? 0 : 2 * (size_t)Tile::QT * (hdp + 8)) +
+          LM_NST_DQ * (size_t)stage + (size_t)Tile::QT * LM_PLD) *
+         sizeof(bf16);
 }
 
 // dQ: one block a (sequence, head, tile of 16 MT queries), its q rows and
@@ -990,8 +1197,11 @@ static size_t lm_dq_smem(int hd) {
 // the forward's column order), then its output items (16 of its k rows over
 // the sweep's columns). dS = p (dp - D) (dp = dao . v^T * keep), rounded,
 // into a shared tile; dQ += dS . k; dQ = scale * dQ, rounded, overwrites
-// the block's own dao rows.
-template <int MT, bool DROP>
+// the block's own dao rows. QS (past LA_RES_HD head columns): each score
+// item also stages the tile's q rows and its dao rows (from the fp32 dao,
+// rounded as the forward rounded them, since a sweep's dQ overwrites the
+// copy in dQ's place) over its LM_HC2 columns, after the chunk's k and v.
+template <int MT, bool DROP, bool QS>
 __global__ void __launch_bounds__(LM_THREADS, 2)
 long_attention_mma_dq(LongAttn a, bool vec) {
   using Tile = LmTile<MT>;
@@ -1002,10 +1212,10 @@ long_attention_mma_dq(LongAttn a, bool vec) {
   __shared__ int range[2];
   const int hd = a.hd, hdp = lm_hdp(hd), QLD = hdp + 8;
   const int VLD = lm_old(CW, hdp);
-  const int STAGE = lm_max(2 * LM_KC * KLD, 16 * VLD);
+  const int STAGE = lm_max(2 * (LM_KC + (QS ? QT : 0)) * KLD, 16 * VLD);
   bf16* qsm = reinterpret_cast<bf16*>(lm_smem);  // [QT][QLD] q
   bf16* gsm = qsm + QT * QLD;                      // [QT][QLD] dao, rounded
-  bf16* ring = gsm + QT * QLD;                     // NST stages
+  bf16* ring = QS ? qsm : gsm + QT * QLD;          // NST stages
   bf16* dssm = ring + NST * STAGE;                 // [QT][LM_PLD] dS
   const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int q0 = blockIdx.y * QT, nq = min(QT, a.Nq - q0);
@@ -1019,10 +1229,14 @@ long_attention_mma_dq(LongAttn a, bool vec) {
   const bf16* vb = static_cast<const bf16*>(a.v) + seq * a.vs.b + h * a.vs.h;
   bf16* dqb = static_cast<bf16*>(a.dq) + seq * a.dqs.b + h * a.dqs.h;
   const size_t srow = ((size_t)seq * a.H + h) * a.Nq;
-  stage_rows<LM_THREADS>(qsm, QLD, qb, a.qs.t, q0, QT, 0, a.Nq - 1, nullptr,
-                         hdp, hd, vec);
-  stage_rows<LM_THREADS>(gsm, QLD, dqb, a.dqs.t, q0, QT, 0, a.Nq - 1, nullptr,
-                         hdp, hd, vec);
+  const long long gld = (long long)a.H * hd;  // the fp32 dao's row stride
+  const float* gb = a.dao + (size_t)seq * a.Nq * gld + (size_t)h * hd;
+  if constexpr (!QS) {
+    stage_rows<LM_THREADS>(qsm, QLD, qb, a.qs.t, q0, QT, 0, a.Nq - 1, nullptr,
+                           hdp, hd, vec);
+    stage_rows<LM_THREADS>(gsm, QLD, dqb, a.dqs.t, q0, QT, 0, a.Nq - 1,
+                           nullptr, hdp, hd, vec);
+  }
   int klo, khi;
   lm_key_range(a, q0, nq, range, klo, khi);
   const int c_lo = klo / LM_KC;
@@ -1056,6 +1270,13 @@ long_attention_mma_dq(LongAttn a, bool vec) {
                              nullptr, w, hd - c0, vec);
       stage_rows<LM_THREADS>(st + LM_KC * KLD, KLD, vb + c0, a.vs.t, k0, LM_KC,
                              klo, khi, nullptr, w, hd - c0, vec);
+      if constexpr (QS) {
+        stage_rows<LM_THREADS>(st + 2 * LM_KC * KLD, KLD, qb + c0, a.qs.t, q0,
+                               QT, 0, a.Nq - 1, nullptr, w, hd - c0, vec);
+        stage_rows_rounded<LM_THREADS>(st + (2 * LM_KC + QT) * KLD, KLD,
+                                       gb + c0, gld, q0, QT, a.Nq - 1, w,
+                                       hd - c0);
+      }
     } else {
       const int c0 = sw * CW;
       stage_rows<LM_THREADS>(st, VLD, kb + c0, a.ks.t, k0 + 16 * (x - nhc), 16,
@@ -1074,10 +1295,13 @@ long_attention_mma_dq(LongAttn a, bool vec) {
       if (x == 0) lm_zero(acc_s), lm_zero(acc_p);
       const int c0 = x * LM_HC2, ks = lm_min(LM_HC2, hdp - c0) / 16;
       if (rows && k0 + n0 <= khi && k0 + n0 + 8 * MT > klo) {
-        lm_mma_abt<MT>(acc_s, qsm + m0 * QLD + c0, QLD, st + n0 * KLD, KLD,
-                       ks, MT);
-        lm_mma_abt<MT>(acc_p, gsm + m0 * QLD + c0, QLD,
-                       st + (LM_KC + n0) * KLD, KLD, ks, MT);
+        // q's and dao's fragments: resident, or this item's (QS)
+        const bf16* qa = QS ? st + (2 * LM_KC + m0) * KLD : qsm + m0 * QLD + c0;
+        const bf16* ga =
+            QS ? st + (2 * LM_KC + QT + m0) * KLD : gsm + m0 * QLD + c0;
+        const int lda = QS ? KLD : QLD;
+        lm_mma_abt<MT>(acc_s, qa, lda, st + n0 * KLD, KLD, ks, MT);
+        lm_mma_abt<MT>(acc_p, ga, lda, st + (LM_KC + n0) * KLD, KLD, ks, MT);
       }
       if (x == nhc - 1) {
 #pragma unroll
@@ -1138,12 +1362,16 @@ long_attention_mma_dq(LongAttn a, bool vec) {
     }
 }
 
+// KS: k's and v's rows stream through the ring (past LA_RES_HD head
+// columns), else they stay resident
+template <bool KS>
 static size_t lm_dkdv_smem(int hd) {
   const int hdp = lm_hdp(hd);
-  const int stage =
-      lm_max(2 * LM_KC * (LM_HC2 + 8), 2 * 16 * lm_old(LM_KCW, hdp));
-  return (2 * (size_t)LM_KT * (hdp + 8) + LM_NST_KV * (size_t)stage +
-          2 * (size_t)LM_KT * LM_PLD) * sizeof(bf16);
+  const int stage = lm_max(2 * (LM_KC + (KS ? LM_KT : 0)) * (LM_HC2 + 8),
+                           2 * 16 * lm_old(LM_KCW, hdp));
+  return ((KS ? 0 : 2 * (size_t)LM_KT * (hdp + 8)) +
+          LM_NST_KV * (size_t)stage + 2 * (size_t)LM_KT * LM_PLD) *
+         sizeof(bf16);
 }
 
 // dK and dV: one block a (sequence, head, tile of 16 keys), its k and v rows
@@ -1155,8 +1383,10 @@ static size_t lm_dkdv_smem(int hd) {
 // its dao and q rows over the sweep's columns; warp w takes the LM_NTK
 // 8-column tiles from 8 LM_NTK w on). P (times keep, rounded) and dS
 // (rounded) go transposed into shared tiles; dV += (P keep)^T . dao, dK +=
-// dS^T . q, dK = scale * dK.
-template <bool DROP>
+// dS^T . q, dK = scale * dK. KS (past LA_RES_HD head columns): each score
+// item also stages the tile's k and v rows over its LM_HC2 columns, after
+// the chunk's q and dao rows.
+template <bool DROP, bool KS>
 __global__ void __launch_bounds__(LM_THREADS, 2)
 long_attention_mma_dkdv(LongAttn a, bool vec) {
   constexpr int NST = LM_NST_KV, KLD = LM_HC2 + 8, CW = LM_KCW;
@@ -1164,10 +1394,11 @@ long_attention_mma_dkdv(LongAttn a, bool vec) {
   __shared__ int range[2];
   const int hd = a.hd, hdp = lm_hdp(hd), RLD = hdp + 8;
   const int OLD = lm_old(CW, hdp);
-  const int STAGE = lm_max(2 * LM_KC * KLD, 2 * 16 * OLD);
+  const int STAGE =
+      lm_max(2 * (LM_KC + (KS ? LM_KT : 0)) * KLD, 2 * 16 * OLD);
   bf16* ksm = reinterpret_cast<bf16*>(lm_smem);  // [16][RLD] the tile's k
   bf16* vsm = ksm + LM_KT * RLD;                   // [16][RLD] its v
-  bf16* ring = vsm + LM_KT * RLD;                  // NST stages
+  bf16* ring = KS ? ksm : vsm + LM_KT * RLD;       // NST stages
   bf16* ptsm = ring + NST * STAGE;                 // [16 keys][LM_PLD] P^T
   bf16* dstsm = ptsm + LM_KT * LM_PLD;             // [16 keys][LM_PLD] dS^T
   const int seq = blockIdx.x / a.H, h = blockIdx.x % a.H;
@@ -1182,10 +1413,12 @@ long_attention_mma_dkdv(LongAttn a, bool vec) {
   const bf16* gb = static_cast<const bf16*>(a.dq) + seq * a.dqs.b +
                    h * a.dqs.h;  // dao, rounded, in dQ's place
   const size_t srow = ((size_t)seq * a.H + h) * a.Nq;
-  stage_rows<LM_THREADS>(ksm, RLD, kb, a.ks.t, k0, LM_KT, 0, a.Nk - 1, nullptr,
-                         hdp, hd, vec);
-  stage_rows<LM_THREADS>(vsm, RLD, vb, a.vs.t, k0, LM_KT, 0, a.Nk - 1, nullptr,
-                         hdp, hd, vec);
+  if constexpr (!KS) {
+    stage_rows<LM_THREADS>(ksm, RLD, kb, a.ks.t, k0, LM_KT, 0, a.Nk - 1,
+                           nullptr, hdp, hd, vec);
+    stage_rows<LM_THREADS>(vsm, RLD, vb, a.vs.t, k0, LM_KT, 0, a.Nk - 1,
+                           nullptr, hdp, hd, vec);
+  }
   int qlo, qhi;
   lm_query_range(a, k0, nk, range, qlo, qhi);
   const int c_lo = qlo / LM_KC;
@@ -1209,6 +1442,13 @@ long_attention_mma_dkdv(LongAttn a, bool vec) {
                              nullptr, w, hd - c0, vec);
       stage_rows<LM_THREADS>(st + LM_KC * KLD, KLD, gb + c0, a.dqs.t, r0, LM_KC,
                              qlo, qhi, nullptr, w, hd - c0, vec);
+      if constexpr (KS) {
+        bf16* kv = st + 2 * LM_KC * KLD;
+        stage_rows<LM_THREADS>(kv, KLD, kb + c0, a.ks.t, k0, LM_KT, 0,
+                               a.Nk - 1, nullptr, w, hd - c0, vec);
+        stage_rows<LM_THREADS>(kv + LM_KT * KLD, KLD, vb + c0, a.vs.t, k0,
+                               LM_KT, 0, a.Nk - 1, nullptr, w, hd - c0, vec);
+      }
     } else {
       const int c0 = sw * CW, w = lm_min(CW, hdp - c0);
       const int rq = r0 + 16 * (x - nhc);
@@ -1229,10 +1469,13 @@ long_attention_mma_dkdv(LongAttn a, bool vec) {
       if (x == 0) lm_zero(acc_s), lm_zero(acc_p);
       const int c0 = x * LM_HC2, ks = lm_min(LM_HC2, hdp - c0) / 16;
       if (n0 < nk && r0 + qs0 <= qhi && r0 + qs0 + 16 > qlo) {
-        lm_mma_abt<1>(acc_s, st + qs0 * KLD, KLD, ksm + n0 * RLD + c0, RLD,
-                      ks, 1);
-        lm_mma_abt<1>(acc_p, st + (LM_KC + qs0) * KLD, KLD,
-                      vsm + n0 * RLD + c0, RLD, ks, 1);
+        // k's and v's fragments: resident, or this item's (KS)
+        const bf16* kf = KS ? st + (2 * LM_KC + n0) * KLD : ksm + n0 * RLD + c0;
+        const bf16* vf =
+            KS ? st + (2 * LM_KC + LM_KT + n0) * KLD : vsm + n0 * RLD + c0;
+        const int ldb = KS ? KLD : RLD;
+        lm_mma_abt<1>(acc_s, st + qs0 * KLD, KLD, kf, ldb, ks, 1);
+        lm_mma_abt<1>(acc_p, st + (LM_KC + qs0) * KLD, KLD, vf, ldb, ks, 1);
       }
       if (x == nhc - 1) {
 #pragma unroll
@@ -1305,41 +1548,55 @@ long_attention_mma_dkdv(LongAttn a, bool vec) {
     }
 }
 
-template <int MT, bool DROP>
+template <int MT, bool DROP, bool QS>
 static cudaError_t lm_launch_dq(const LongAttn& a, bool vec,
                                 cudaStream_t stream) {
-  const size_t smem = lm_dq_smem<MT>(a.hd);
+  const size_t smem = lm_dq_smem<MT, QS>(a.hd);
   const cudaError_t err = cudaFuncSetAttribute(
-      long_attention_mma_dq<MT, DROP>,
+      long_attention_mma_dq<MT, DROP, QS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_seq * a.H, cdiv(a.Nq, LmTile<MT>::QT));
-  long_attention_mma_dq<MT, DROP><<<grid, LM_THREADS, smem, stream>>>(a, vec);
+  long_attention_mma_dq<MT, DROP, QS><<<grid, LM_THREADS, smem, stream>>>(
+      a, vec);
+  return cudaGetLastError();
+}
+
+template <bool DROP, bool KS>
+static cudaError_t lm_launch_dkdv(const LongAttn& a, bool vec,
+                                  cudaStream_t stream) {
+  const size_t smem = lm_dkdv_smem<KS>(a.hd);
+  const cudaError_t err = cudaFuncSetAttribute(
+      long_attention_mma_dkdv<DROP, KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_seq * a.H, cdiv(a.Nk, LM_KT));
+  long_attention_mma_dkdv<DROP, KS><<<grid, LM_THREADS, smem, stream>>>(a,
+                                                                        vec);
   return cudaGetLastError();
 }
 
 // The backward: (1) the forward's own instance again (O bit for bit, the
 // stash, D, dao rounded into dQ's place), (2) dK / dV over key tiles, (3) dQ
 // over query tiles (16 queries up to 16 or past 256 head columns, else
-// 32), which overwrites the copy of dao.
+// 32), which overwrites the copy of dao. Past LA_RES_HD head columns each
+// kernel streams the operand rows it otherwise keeps (QS / KS).
 template <bool DROP>
 static cudaError_t launch_long_mma_bwd(const LongAttn& a,
                                        cudaStream_t stream) {
   const bool vec = lm_rows_aligned(a, true);
   cudaError_t err = launch_long_mma<DROP>(a, vec, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = lm_dkdv_smem(a.hd);
-  err = cudaFuncSetAttribute(long_attention_mma_dkdv<DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 gk(a.n_seq * a.H, cdiv(a.Nk, LM_KT));
-  long_attention_mma_dkdv<DROP><<<gk, LM_THREADS, smem, stream>>>(a, vec);
-  err = cudaGetLastError();
+  if (a.hd > LA_RES_HD) {
+    err = lm_launch_dkdv<DROP, true>(a, vec, stream);
+    if (err != cudaSuccess) return err;
+    return lm_launch_dq<1, DROP, true>(a, vec, stream);
+  }
+  err = lm_launch_dkdv<DROP, false>(a, vec, stream);
   if (err != cudaSuccess) return err;
   return a.Nq <= 16 || lm_hdp(a.hd) > 256
-             ? lm_launch_dq<1, DROP>(a, vec, stream)
-             : lm_launch_dq<2, DROP>(a, vec, stream);
+             ? lm_launch_dq<1, DROP, false>(a, vec, stream)
+             : lm_launch_dq<2, DROP, false>(a, vec, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1348,7 +1605,7 @@ static cudaError_t launch_long_mma_bwd(const LongAttn& a,
 
 template <typename T, bool ROUND, bool DROP>
 cudaError_t launch_long_attention(const LongAttn& a, cudaStream_t stream) {
-  if (a.Nq < 1 || a.Nk < 1 || a.hd < 1 || a.hd > LA_MAX_HD ||
+  if (a.Nq < 1 || a.Nk < 1 || a.hd < 1 ||
       (a.Nq + LA_TILE - 1) / LA_TILE > 65535)
     return cudaErrorInvalidValue;
   if (a.n_seq * a.H == 0) return cudaSuccess;
@@ -1366,7 +1623,7 @@ template <typename T, bool ROUND, bool DROP>
 cudaError_t launch_long_attention_bwd(const LongAttn& a,
                                       cudaStream_t stream) {
   if (a.stats == nullptr || a.dao == nullptr || a.dsum == nullptr ||
-      a.Nq < 1 || a.Nk < 1 || a.hd < 1 || a.hd > LA_MAX_HD ||
+      a.Nq < 1 || a.Nk < 1 || a.hd < 1 ||
       (a.Nq + LA_TILE - 1) / LA_TILE > 65535 ||
       (a.Nk + LA_TILE - 1) / LA_TILE > 65535)
     return cudaErrorInvalidValue;

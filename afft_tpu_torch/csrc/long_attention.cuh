@@ -24,7 +24,11 @@ constexpr int LA_TILE = 16;                // queries and keys a tile
 constexpr int LA_COLS = 512;               // head columns a sweep keeps
 constexpr int LA_PER = LA_COLS / LA_TILE;  // columns a thread keeps
 constexpr int LA_PLD = LA_TILE + 1;        // row stride of a 16 x 16 tile
-constexpr int LA_MAX_HD = 768;
+// Up to LA_RES_HD head columns the kernels keep whole operand rows in
+// shared memory; past it they stream them in column chunks (LA_HC columns
+// a chunk in the CUDA-core forms), so shared memory is bounded at any hd.
+constexpr int LA_RES_HD = 768;
+constexpr int LA_HC = 128;
 
 // One attention at any length. out is (n_seq, Nq, H, hd) contiguous. The
 // backward's fields: stats (n_seq * H * Nq, 2) fp32 (each query's row max
@@ -51,8 +55,8 @@ struct LongAttn {
 
 // The forward: out = softmax(q . k^T * scale + mask) [* keep] . v, with the
 // stash (m, l) and D where a.stats / a.dsum are set (see long_attention.cu).
-// cudaErrorInvalidValue for Nq or Nk < 1, hd outside 1..LA_MAX_HD or more
-// than 65,535 query tiles (nothing launched). ROUND: the probabilities
+// cudaErrorInvalidValue for Nq or Nk < 1, hd < 1 or more than 65,535 query
+// tiles (nothing launched). ROUND: the probabilities
 // rounded to T before P . V; DROP: the dropout multipliers of a.drop.
 template <typename T, bool ROUND, bool DROP>
 cudaError_t launch_long_attention(const LongAttn& a, cudaStream_t stream);

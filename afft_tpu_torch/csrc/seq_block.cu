@@ -39,7 +39,7 @@
 // so launch latency and partly filled GEMM tiles weigh on it.
 //
 // Limits: any B and S >= 1 (past 1,024 tokens both attentions take the long
-// route of long_attention.cuh, hd <= LA_MAX_HD), H * hd = C (any hd), C % 8
+// route of long_attention.cuh), H * hd = C (any hd), C % 8
 // == 0, hidden % 8 == 0, fp32 or bf16; every LayerNorm affine and the qkv / w_q /
 // w_k / w_v biases are optional (null pointers); the decoder's memory
 // stream has x's shape.

@@ -88,7 +88,7 @@
 // whole layer's: the proj and MLP sites index the whole C, and the attention
 // site maps a local head to the global one (DropSite span / gap).
 //
-// Limits: any R, N >= 1 (past short_tokens hd <= LA_MAX_HD, and the
+// Limits: any R, N >= 1 (past short_tokens the long route, any hd, whose
 // attention backward needs its stats / dsum scratch), H * hd = C (any hd),
 // C % 8 == 0, hidden % 8 == 0
 // (gemm_sm90's K % 8 and N % 8), fp32 or bf16; in bf16 every operand of a

@@ -77,7 +77,6 @@ def check_heads(name: str, C: int, num_heads: int, hidden=None) -> int:
 # and the sequence attention over keys (fuser_attention.cuh FS_MAX_KEYS,
 # rows 4-6). Past it an entry takes the long route (long_attention.cuh).
 SHORT_LENGTH = {"fuser": 8, "gpt2": 32, "keys": 1024}
-LONG_MAX_HD = 768            # long_attention.cuh LA_MAX_HD
 LONG_MAX_QUERIES = 65535 * 16  # 16-query tiles (LA_TILE) in a grid's y
 
 # The launches whose attention took the long route, by wrapper (each is in
@@ -99,20 +98,20 @@ def check_length(name: str, kind: str, n: int, hd: int,
                  n_queries=None) -> bool:
     """The kernels' length rule, beside ``check_heads``: any length n >= 1
     of tokens (``kind`` "fuser" or "gpt2") or keys ("keys"); past
-    ``SHORT_LENGTH[kind]`` the long route, which takes hd <=
-    ``LONG_MAX_HD`` (its shared memory) and up to ``LONG_MAX_QUERIES``
-    queries (``n_queries``, else n). Returns whether the long route
-    applies."""
+    ``SHORT_LENGTH[kind]`` the long route, which takes any head width
+    ``hd`` (past 768 columns it streams its operand rows, so its shared
+    memory stays bounded) and up to ``LONG_MAX_QUERIES`` queries
+    (``n_queries``, else n). Returns whether the long route applies."""
     if n < 1:
         raise ValueError(f"{name}: needs at least one token, got {n}")
     if not long_route(kind, n):
         return False
     queries = n if n_queries is None else n_queries
-    if hd > LONG_MAX_HD or queries > LONG_MAX_QUERIES:
+    if queries > LONG_MAX_QUERIES:
         raise ValueError(
             f"{name}: past {SHORT_LENGTH[kind]} the long attention route "
-            f"takes hd <= {LONG_MAX_HD} and <= {LONG_MAX_QUERIES} queries "
-            f"(hd={hd}, queries={queries})")
+            f"takes <= {LONG_MAX_QUERIES} queries (hd={hd}, "
+            f"queries={queries})")
     return True
 
 
@@ -236,6 +235,21 @@ def matmul32(a, w, w_in_out: bool):
 
 def add_bias(acc32, bias):
     return acc32 if bias is None else acc32 + bias.float()
+
+
+def gelu_erf_grad(v):
+    """d/dv [0.5 v (1 + erf(v / sqrt 2))] in fp32 (common.cuh
+    gelu_erf_grad)."""
+    return (0.5 * (1.0 + torch.erf(v * 0.70710678118654752))
+            + v * 0.3989422804014327 * torch.exp(-0.5 * v * v))
+
+
+def gelu_tanh_grad(v):
+    """The derivative of gelu_new in fp32 (common.cuh gelu_tanh_grad,
+    pallas_gpt2_train.py:157-164)."""
+    t = torch.tanh(0.79788456080286536 * (v + 0.044715 * v * v * v))
+    du = 0.79788456080286536 * (1.0 + 3 * 0.044715 * v * v)
+    return 0.5 * (1.0 + t) + 0.5 * v * (1.0 - t * t) * du
 
 
 def softmax_attention32(q, k, v, mask, round_p_to=None):

@@ -60,15 +60,17 @@ from __future__ import annotations
 
 import ctypes
 import math
+from functools import partial
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ._common import (DTYPE_CODES, LONG_LAUNCHES, add_bias, check_heads,
-                      check_length, check_operands, check_shard, launch,
-                      layer_norm32, lead_only, long_route, mask_operand,
-                      matmul32, ptr, ptr_array, tn_slices)
+                      check_length, check_operands, check_shard,
+                      gelu_erf_grad, gelu_tanh_grad, launch, layer_norm32,
+                      lead_only, long_route, mask_operand, matmul32, ptr,
+                      ptr_array, tn_slices)
 from .fused_block import _unpack, block_operands
 
 LAUNCHES = {"fused_block_train_fwd": 0, "fused_block_train_bwd_mlp": 0,
@@ -460,23 +462,154 @@ def fused_block_train_shard_plain(x, params, mask, masks, *, num_heads: int,
     return shard.comm.g(part).to(dt).reshape(R, N, C)
 
 
-def fused_block_train_plain(x, params, mask, masks, *, num_heads: int,
-                            eps: float = 1e-6, return_residuals=False):
-    """The training block in differentiable PyTorch ops with the kernel's
-    forward cast chain, given the five explicit masks of ``draw_masks``
-    (the counterpart of ``pallas_block_train.block_reference_with_masks``).
-    Returns (R, N, C) in x.dtype, and with ``return_residuals`` also the
-    stashed ``y, qkv, pre1``. ``torch.autograd`` through it is the plain
-    version of the two backward kernels."""
+def _block_train_fwd_plain(x, params, mask, masks, num_heads, eps):
+    """The training block's forward in PyTorch ops: (out (R, N, C), and
+    the stashed y, qkv, pre1), all in x.dtype."""
     R, N, C = x.shape
     dt = x.dtype
     y, qkv = attn_half_train_plain(x, params, mask, masks,
                                    num_heads=num_heads, eps=eps)
     out, pre1 = mlp_half_train_plain(y, params, masks, dt, N, eps=eps)
-    out = out.reshape(R, N, C)
+    return out.reshape(R, N, C), y.to(dt), qkv, pre1.to(dt)
+
+
+def _ln_stats32(x32, eps):
+    """LayerNorm's (xhat, rstd) of fp32 rows."""
+    mu = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mu).square().mean(-1, keepdim=True) + eps)
+    return (x32 - mu) * rstd, rstd
+
+
+def _ln_bwd32(dout, xhat, rstd, weight):
+    """LayerNorm's input gradient from dout (fp32) at its output, and its
+    affine's gradients (weight, bias)."""
+    dxhat = dout if weight is None else dout * weight.float()
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, (dout * xhat).sum(0), dout.sum(0)
+
+
+def block_train_bwd_plain(x, y, qkv, pre1, dout, tensors, mask, masks, *,
+                          num_heads: int, eps: float, gpt2: bool = False):
+    """The plain version of a training layer's two backward kernels (8,
+    then 9; or the GPT-2 layer's, 13 + 14, then 15) with their cast chain
+    (``csrc/train_block.cuh``; ``pallas_block_train.py:260-330``,
+    ``pallas_gpt2_train.py:225-330``): from x, the stashed y, qkv, pre1 and
+    dout (all in the working dtype), the MLP half recomputes LN2 from the
+    stashed y and the GELU from the stashed pre1; dh2, dpre1, dy, dproj and
+    dqkv are rounded to the working dtype, dh1, dg, dxn and the attention's
+    d(output) stay fp32 (the fp32 products of ``_dot``) and the attention
+    backward is ``attention_drop_bwd_plain``: fp32 in the fuser, with its
+    d(output), p * keep and ds rounded in the GPT-2 layer (``gpt2``: also
+    HF Conv1D (in, out) weights, gelu_new, no drop-path; ``masks`` its
+    three). ``tensors`` in ``_unpack``'s order. Returns (dx in x's shape
+    and dtype, the fp32 gradients of ``tensors``, None for an absent
+    one)."""
+    R, N, C = x.shape
+    dt = x.dtype
+    rd = dt if gpt2 else None
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    def lin_grads(dy, inp, bias):
+        """A product's weight (in its own layout) and bias gradients."""
+        return (inp.t() @ dy if gpt2 else dy.t() @ inp,
+                None if bias is None else dy.sum(0))
+
+    def back(dy, w):
+        """d(input) of a product from d(output)."""
+        return dy @ (w.float().t() if gpt2 else w.float())
+
+    (ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, wfc1, bfc1, wfc2,
+     bfc2) = tensors
+    if gpt2:
+        (mattn, mproj, mmlp), dp1, dp2 = masks, 1.0, 1.0
+        gelu, gelu_grad = partial(F.gelu, approximate="tanh"), gelu_tanh_grad
+    else:
+        mattn, mproj, dp1, mmlp, dp2 = masks
+        dp1, dp2 = _token_rows(dp1, R, N), _token_rows(dp2, R, N)
+        gelu, gelu_grad = F.gelu, gelu_erf_grad
+    do = dout.reshape(R * N, C).float()
+    # MLP half
+    y32 = y.float()
+    xhat2, rstd2 = _ln_stats32(y32, eps)
+    g = rnd(layer_norm32(y32, ln2g, ln2b, eps))
+    pre = pre1.float()
+    dh2 = rnd(do * dp2 * mmlp)
+    dw2, db2 = lin_grads(dh2, rnd(gelu(pre)), bfc2)
+    dpre1 = rnd(back(dh2, wfc2) * gelu_grad(pre))
+    dw1, db1 = lin_grads(dpre1, g, bfc1)
+    dyln, dg2, db2ln = _ln_bwd32(back(dpre1, wfc1), xhat2, rstd2, ln2g)
+    dy = rnd(do + dyln)
+    # attention half
+    x32 = x.reshape(R * N, C).float()
+    xhat1, rstd1 = _ln_stats32(x32, eps)
+    xn = rnd(layer_norm32(x32, ln1g, ln1b, eps))
+    attn = rnd(attention_drop_plain(qkv, mask, mattn, N, num_heads, rd))
+    dproj = rnd(dy * dp1 * mproj)
+    dwproj, dbproj = lin_grads(dproj, attn, bproj)
+    dqkv = rnd(attention_drop_bwd_plain(qkv, mask, mattn, back(dproj, wproj),
+                                        N, num_heads, rd)[1])
+    dwqkv, dbqkv = lin_grads(dqkv, xn, bqkv)
+    dxln, dg1, db1ln = _ln_bwd32(back(dqkv, wqkv), xhat1, rstd1, ln1g)
+    dx = (dy + dxln).to(dt).reshape(x.shape)
+    grads = (dg1, db1ln, dwqkv, dbqkv, dwproj, dbproj, dg2, db2ln, dw1, db1,
+             dw2, db2)
+    return dx, [None if t is None else gr for t, gr in zip(tensors, grads)]
+
+
+class PlainBlockTrainFunction(torch.autograd.Function):
+    """A training layer's plain version under autograd. ``cfg``: (its
+    forward in PyTorch ops, (x, params, mask, masks, num_heads, eps) ->
+    (out, and the stashed y, qkv, pre1), its parameter names in
+    ``_unpack``'s order, masks, num_heads, eps, gpt2); the backward is
+    ``block_train_bwd_plain``, the backward kernels' plain version with
+    their cast chain."""
+
+    @staticmethod
+    def forward(ctx, x, mask, cfg, *tensors):
+        forward, names, masks, num_heads, eps, _ = cfg
+        out, y, qkv, pre1 = forward(x, dict(zip(names, tensors)), mask,
+                                    masks, num_heads, eps)
+        ctx.save_for_backward(x, y, qkv, pre1, mask, *tensors)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, y, qkv, pre1, mask, *tensors = ctx.saved_tensors
+        _, _, masks, num_heads, eps, gpt2 = ctx.cfg
+        dx, grads = block_train_bwd_plain(x, y, qkv, pre1, dout, tensors,
+                                          mask, masks, num_heads=num_heads,
+                                          eps=eps, gpt2=gpt2)
+        return (dx, None, None,
+                *[None if g is None else g.to(t.dtype)
+                  for g, t in zip(grads, tensors)])
+
+
+# the parameter names in ``_unpack``'s order
+_PARAM_NAMES = ("norm1.weight", "norm1.bias", "attn.qkv.weight",
+                "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
+                "norm2.weight", "norm2.bias", "mlp.mlp.0.weight",
+                "mlp.mlp.0.bias", "mlp.mlp.2.weight", "mlp.mlp.2.bias")
+
+
+def fused_block_train_plain(x, params, mask, masks, *, num_heads: int,
+                            eps: float = 1e-6, return_residuals=False):
+    """The training block in PyTorch ops with the kernel's forward cast
+    chain, given the five explicit masks of ``draw_masks`` (the counterpart
+    of ``pallas_block_train.block_reference_with_masks``). Returns (R, N, C)
+    in x.dtype, differentiable in x and the parameters: its backward is
+    ``block_train_bwd_plain``, the backward kernels' plain version with
+    their cast chain (``PlainBlockTrainFunction``). With
+    ``return_residuals`` the forward alone, with the stashed ``y, qkv,
+    pre1``."""
     if return_residuals:
-        return out, y.to(dt), qkv, pre1.to(dt)
-    return out
+        return _block_train_fwd_plain(x, params, mask, masks, num_heads, eps)
+    return PlainBlockTrainFunction.apply(
+        x, mask, (_block_train_fwd_plain, _PARAM_NAMES, masks, num_heads, eps,
+                  False), *_unpack(params))
 
 
 # -- the kernels under autograd -----------------------------------------------

@@ -58,9 +58,9 @@ from ._common import (add_bias, check_heads, check_length, check_operands,
                       check_shape, check_shard, launch, layer_norm32,
                       lead_only, mask_operand, matmul32, ptr_array)
 from .fused_block_train import (BlockTrainFunction, Layer,
-                                ShardTrainFunction, attention_drop_plain,
-                                check_row0, check_seeds, masks_plain,
-                                rate_arrays)
+                                PlainBlockTrainFunction, ShardTrainFunction,
+                                attention_drop_plain, check_row0,
+                                check_seeds, masks_plain, rate_arrays)
 from .fused_block_train import rates_operands as _rates_operands
 
 LAUNCHES = {"fused_gpt2_train_fwd": 0, "fused_gpt2_train_bwd_mlp": 0,
@@ -164,23 +164,31 @@ def gpt2_mlp_half_train_plain(y, params, masks, *, eps: float = 1e-5):
     return (y32 + h2 * masks[2]).to(dt), pre1
 
 
-def fused_gpt2_block_train_plain(x, params, mask, masks, *, num_heads: int,
-                                 eps: float = 1e-5, return_residuals=False):
-    """The training layer in differentiable PyTorch ops with the kernels'
-    forward cast chain, given the three explicit masks of
-    ``draw_masks_gpt2`` (the counterpart of
-    ``pallas_gpt2_train.gpt2_block_reference_with_masks``). Returns
-    (B, T, C) in x.dtype, and with ``return_residuals`` also the stashed
-    ``y, qkv, pre1``. ``torch.autograd`` through it is the plain version of
-    the two backward kernels."""
+def _gpt2_train_fwd_plain(x, params, mask, masks, num_heads, eps):
+    """The training layer's forward in PyTorch ops: (out (B, T, C), and the
+    stashed y, qkv, pre1), all in x.dtype."""
     B, T, C = x.shape
     y, qkv = gpt2_attn_half_train_plain(x, params, mask, masks,
                                         num_heads=num_heads, eps=eps)
     out, pre1 = gpt2_mlp_half_train_plain(y, params, masks, eps=eps)
-    out = out.reshape(B, T, C)
+    return out.reshape(B, T, C), y, qkv, pre1.to(x.dtype)
+
+
+def fused_gpt2_block_train_plain(x, params, mask, masks, *, num_heads: int,
+                                 eps: float = 1e-5, return_residuals=False):
+    """The training layer in PyTorch ops with the kernels' forward cast
+    chain, given the three explicit masks of ``draw_masks_gpt2`` (the
+    counterpart of ``pallas_gpt2_train.gpt2_block_reference_with_masks``).
+    Returns (B, T, C) in x.dtype, differentiable in x and the parameters:
+    its backward is ``fused_block_train.block_train_bwd_plain`` with the
+    GPT-2 layer's cast chain, the backward kernels' plain version
+    (``PlainBlockTrainFunction``). With ``return_residuals`` the forward
+    alone, with the stashed ``y, qkv, pre1``."""
     if return_residuals:
-        return out, y, qkv, pre1.to(x.dtype)
-    return out
+        return _gpt2_train_fwd_plain(x, params, mask, masks, num_heads, eps)
+    return PlainBlockTrainFunction.apply(
+        x, mask, (_gpt2_train_fwd_plain, KEYS, masks, num_heads, eps, True),
+        *[params.get(k) for k in KEYS])
 
 
 # -- the shard mode's plain version (tensor parallelism) ----------------------

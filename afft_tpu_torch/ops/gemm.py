@@ -48,8 +48,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._common import (add_bias, check_operands, check_shape, launch,
-                      matmul32, ptr, tn_slices)
+from ._common import (add_bias, check_operands, check_shape, gelu_erf_grad,
+                      gelu_tanh_grad, launch, matmul32, ptr, tn_slices)
 from .fused_block_train import rate_arrays, rates_operands, site_mask_plain
 
 LAUNCHES = {"gemm": 0, "gemm_tn": 0}
@@ -86,21 +86,6 @@ def drop_masks(M, N, tokens, seeds, block_idx, drop_rate, dp_rate,
     rows = site_mask_plain(-(-M // tokens), seeds, block_idx, _SITE_ROW,
                            thr[2], inv[2], device)
     return elem, rows.repeat_interleave(tokens)[:M].reshape(M, 1)
-
-
-def gelu_erf_grad(v):
-    """d/dv [0.5 v (1 + erf(v / sqrt 2))] in fp32 (common.cuh
-    gelu_erf_grad)."""
-    return (0.5 * (1.0 + torch.erf(v * 0.70710678118654752))
-            + v * 0.3989422804014327 * torch.exp(-0.5 * v * v))
-
-
-def gelu_tanh_grad(v):
-    """The derivative of gelu_new in fp32 (common.cuh gelu_tanh_grad,
-    pallas_gpt2_train.py:157-164)."""
-    t = torch.tanh(0.79788456080286536 * (v + 0.044715 * v * v * v))
-    du = 0.79788456080286536 * (1.0 + 3 * 0.044715 * v * v)
-    return 0.5 * (1.0 + t) + 0.5 * v * (1.0 - t * t) * du
 
 
 def gemm_plain(a, w, epi, bias=None, res=None, masks=None, stash=False,

@@ -134,7 +134,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                epoch, resumed for a second, and two in one run, the
                features in CUDA memory (data_on_device), and one epoch
                from the host loader (data_on_device=false: pinned
-               batches). Each run exits 0, the uninterrupted one with a
+               batches; it runs beside the layer checks and the first two
+               runs). Each run exits 0, the uninterrupted one with a
                finite loss that falls; checkpoint_best and checkpoint_last
                reload, and their logits through the kernels agree with the
                plain path's; the training entries are launched once per
@@ -158,7 +159,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                exported file, ``python -m afft_tpu_torch.challenge``
                packaging it, the serving kernels 6 times a batch each
                (eval_launches in the kernels line), clips/s over the eval's
-               window;
+               window (the export's; the accuracies mode and the challenge
+               tool run beside the comparisons with the plain path);
  10. dp      - ``-n 1`` through torchrun over NCCL: a cut-set epoch bit for
                bit the one-process run (phase 8's host-loader run); the
                training layers at a data-parallel rank's row offset against
@@ -168,7 +170,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                one process at 64 over the same global batches of the
                flagship: losses within 2e-2 relative, the training kernels
                launched on each rank, step times logged (one card: no
-               multi-GPU number);
+               multi-GPU number; the two processes run beside the rest);
  11. variants - the variant models at full width: expts 00
                (IndividualFuturePrediction, one GPT-2 predictor) and 05
                (CMFPScoreFusion with MATT, four predictors) served through
@@ -225,7 +227,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                data_on_device_dtype=int8 (exit 0, 6 / 6 / 6 a batch), and
                ``-m visualize_attention`` (exit 0, the JAX entry point's
                dump keys, attention rows summing to 1 within bf16
-               rounding);
+               rounding; it runs beside the int8 checks);
  13. options - the training options at full width: the flagship
                (expts/01_SA-Fuser_ek100_train.txt, bf16 over fp32 masters,
                B=256) at train.grad_accum 1 / 2 / 4 (the first step with
@@ -247,7 +249,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                on two processes on the one card over gloo: losses and every
                element of the weights within 1e-5, each rank holding 1/R of
                the optimizer state (options_launches in the kernels line;
-               one card: no multi-GPU number);
+               one card: no multi-GPU number; the ZeRO-1 runs beside the
+               launcher's);
  14. pipeline - GPipe (train.pipeline_stages) with the stages as gloo
                processes on the one card (--device cuda:0): the GPT-2
                training layers at a stage's global layer index and a
@@ -271,7 +274,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                second), -m test in one process on its checkpoint, held
                against the pipelined eval of it (pipeline_launches in the
                kernels line; step times and peak memory per rank are
-               one-card stand-ins, no pipeline speed);
+               one-card stand-ins, no pipeline speed; data2 x pipe2 runs
+               beside the flagship's stages);
  15. tp      - tensor and sequence parallelism with the model ranks as gloo
                processes on the one card (--device cuda:0): the flagship at
                full width (expts/01_SA-Fuser_ek100_train.txt, bf16 over fp32
@@ -281,7 +285,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                within 2e-2 of its update), each rank's parameter and
                optimizer-state bytes (about half of one process's), peak
                memory, and the launches in shard mode of every training
-               entry asserted (tp_launches in the kernels line); then
+               entry asserted (tp_launches in the kernels line); beside it
                ``python -m afft_tpu_torch.tools.dryrun_multichip -n 8``:
                every mode of the JAX driver's dry run on 8 processes on the
                card, the 3-axis loss within rtol 1e-3 of one process's (one
@@ -293,11 +297,18 @@ Phases, in order; any failure exits non-zero and prints no result:
                function (6 gpt2_attn_half launches a forward on the long
                route; logits against the plain path at 5e-2 of max|logit|
                with the top-1 form; a CUDA graph at bucket 64 replayed bit
-               for bit the eager forward); (b) trained at 48 frames: one
+               for bit the eager forward); (a') again with the predictor
+               in 2 heads of 1,024 (model.common.fp_heads=2: the long
+               route's streamed forms); (b) trained at 48 frames: one
                step's gradients against impl="plain" at B 8 (fp32 every
-               tensor within 1e-4 of its max|grad|, bf16 the GPT-2
-               predictor's within 2e-2), then 5 bf16 steps at B 64 with
-               falling losses; (c) its rollout in
+               tensor within 1e-4 of its max|grad|, bf16 every tensor
+               within 2e-2, and each bf16 tensor's distances kernel /
+               plain fp32, plain bf16 / plain fp32 and kernel / plain bf16
+               logged, the table in build/chip_smoke/long_grad_rel.json),
+               then 5 bf16 steps at B 64 with falling losses; (b') the
+               one-step comparison in 2 heads of 1,024, its kernel steps
+               profiled (bf16: the tensor-core long kernels, fp32: the
+               CUDA-core ones); (c) its rollout in
                training (T 16, fp_output_len 20: 35 tokens in the last
                pass), 3 bf16 steps at B 32; every step's launches and long
                launches asserted; (d) every long route at full width
@@ -306,21 +317,26 @@ Phases, in order; any failure exits non-zero and prints no result:
                4,096 bf16, 512 fp32), rows 11-15 in shard mode at tp = 2, T
                64, rows 1, 7, 9 at C 1024, N 9 / 12 / 16, row 4 at 16
                queries over 1,025 / 2,048 keys, rows 5 and 6 at S 1,280 /
-               2,048; its keep pattern bit for bit the plain generator's;
+               2,048; past hd 768 rows 1, 2, 5-9, 11-15 at hd 1,024 /
+               2,048 and the GPT-2 long attention timed at hd 1,024 /
+               2,048; its keep pattern bit for bit the plain generator's
+               (hd 48 and 1,024);
                each long attention timed beside its plain version, SDPA and
                its bound (``long_*`` items of its row's entry). The bf16
                forms with rounded probabilities (rows 2, 4, 5, 6, 11, 15)
                are the tensor-core kernels (long_attention_mma and its
                backward): ptxas must report no spill; (a) and (b) are
                profiled and must launch them and no CUDA-core long kernel;
-               their edges (hd 12 / 24 / 256 / 512 / 768, Nq and Nk 33 /
-               65 / 1,025 / 2,048, no mask, causal, the cache mask with
-               NaN in the unwritten slots; the GPT-2 backward bit for bit
-               on relaunch, its O the forward's) agree with the plain
-               versions; each is held to a quarter of the CUDA-core
-               route's time at T >= 256 and S >= 1,280
-               (``LONG_CUDA_CORE_MS``);
- 17. report  - one JSON line of per-kernel numbers, then the result line.
+               their edges (hd 12 / 24 / 256 / 512 / 768 / 1,024 / 2,048,
+               Nq and Nk 33 / 65 / 1,025 / 2,048, no mask, causal, the
+               cache mask with NaN in the unwritten slots; the GPT-2
+               backward bit for bit on relaunch, its O the forward's; past
+               hd 768 also the CUDA-core forms in fp32 and the fuser's
+               chain) agree with the plain versions; each is held to a
+               quarter of the CUDA-core route's time at T >= 256 and S >=
+               1,280 (``LONG_CUDA_CORE_MS``);
+ 17. report  - each phase's seconds (phase_seconds), one JSON line of
+               per-kernel numbers, then the result line.
 
 Imports torch and afft_tpu_torch only (no JAX).
 """
@@ -2134,12 +2150,11 @@ NO_SPILL_KERNELS = ("long_attention_mma",)
 
 def report_build(lib_path):
     """ptxas's report of the wgmma / TMA GEMM and the staged, fuser and long
-    attentions (registers, shared memory, spills), the compiler's warnings,
-    no spill in the tensor-core long route (``NO_SPILL_KERNELS``), and proof
-    that the wgmma path compiled: the library's SASS holds HGMMA
-    instructions (where the toolkit has cuobjdump). Fails otherwise."""
+    attentions (registers, shared memory, spills), the compiler's warnings
+    and no spill in the tensor-core long route (``NO_SPILL_KERNELS``); fails
+    otherwise. The proof that the wgmma path compiled (``start_sass_check``)
+    runs beside the phases that follow."""
     import re
-    import shutil
     from afft_tpu_torch.ops import _build
     seen = set()
     for src in _build.sources():
@@ -2164,14 +2179,29 @@ def report_build(lib_path):
         if not any(kernel in e for e in seen):
             raise AssertionError(f"no ptxas report of {kernel} in the build "
                                  "log")
+
+
+def start_sass_check(lib_path):
+    """cuobjdump's SASS of the library, started (``_start_run``) to run
+    beside the next phases (it takes tens of seconds of one CPU core);
+    None where the toolkit has no cuobjdump."""
+    import shutil
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cuobjdump = shutil.which("cuobjdump") or os.path.join(home, "bin",
                                                           "cuobjdump")
     if not os.path.exists(cuobjdump):
         log("build: no cuobjdump in the toolkit: the SASS is not checked")
         return None
-    sass = subprocess.run([cuobjdump, "--dump-sass", lib_path],
-                          capture_output=True, text=True, timeout=300).stdout
+    return _start_run([cuobjdump, "--dump-sass", lib_path],
+                      os.path.dirname(lib_path), "sass")
+
+
+def finish_sass_check(run):
+    """The proof that the wgmma path compiled: the library's SASS (from
+    ``start_sass_check``) holds HGMMA instructions. Fails otherwise."""
+    if run is None:
+        return None
+    sass, _ = _finish_run(run, 600)
     hgmma = sass.count("HGMMA")
     log(f"build: {hgmma} HGMMA (wgmma) instructions in the library's SASS")
     if hgmma == 0:
@@ -3395,17 +3425,50 @@ BARE_STEPS = 20
 SERVE_NAMES = ("fused_block", "gpt2_attn_half", "gpt2_mlp_half")
 
 
-def _logged_run(cmd, workdir, name, timeout):
-    """Run ``cmd`` in ``workdir`` with its output in ``<workdir>/<name>.log``;
-    a failed run fails the phase. Returns (log text, seconds)."""
+# the runs of _start_run not yet finished: main() stops them if a phase
+# fails
+RUNNING = []
+
+
+def _start_run(cmd, workdir, name):
+    """Start ``cmd`` in ``workdir`` with its output in
+    ``<workdir>/<name>.log``; returns the handle ``_finish_run`` takes."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
-    t0 = time.perf_counter()
-    with open(os.path.join(workdir, f"{name}.log"), "w") as out:
-        proc = subprocess.run(cmd, cwd=workdir, env=env, stdout=out,
-                              stderr=subprocess.STDOUT, timeout=timeout)
+    out = open(os.path.join(workdir, f"{name}.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=out,
+                            stderr=subprocess.STDOUT)
+    run = (proc, out, os.path.join(workdir, f"{name}.log"), name,
+           time.perf_counter())
+    RUNNING.append(run)
+    return run
+
+
+def _stop_runs():
+    """Kill every run of ``_start_run`` still going."""
+    while RUNNING:
+        proc, out = RUNNING.pop()[:2]
+        proc.kill()
+        proc.wait()
+        out.close()
+
+
+def _finish_run(run, timeout):
+    """Wait for a run of ``_start_run`` (killed past ``timeout`` seconds
+    from its start); a failed run fails the phase. Returns (log text,
+    seconds from its start)."""
+    proc, out, path, name, t0 = run
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        out.close()
+        RUNNING.remove(run)
     seconds = time.perf_counter() - t0
-    with open(os.path.join(workdir, f"{name}.log")) as f:
+    with open(path) as f:
         text = f.read()
     if proc.returncode != 0:
         raise AssertionError(f"{name}: exit code {proc.returncode}\n"
@@ -3413,15 +3476,33 @@ def _logged_run(cmd, workdir, name, timeout):
     return text, seconds
 
 
+def _logged_run(cmd, workdir, name, timeout):
+    """Run ``cmd`` in ``workdir`` with its output in ``<workdir>/<name>.log``;
+    a failed run fails the phase. Returns (log text, seconds)."""
+    return _finish_run(_start_run(cmd, workdir, name), timeout)
+
+
+def _launch_cmd(overrides):
+    """``python -m afft_tpu_torch.run -c expts/<LAUNCH_EXPT> -m train`` with
+    ``overrides``."""
+    return [sys.executable, "-m", "afft_tpu_torch.run", "-c",
+            os.path.join(EXPTS, LAUNCH_EXPT), "-m", "train",
+            *LAUNCH_OVERRIDES, *overrides]
+
+
 def _launch(workdir, name, overrides):
-    """One run of ``python -m afft_tpu_torch.run -c expts/<LAUNCH_EXPT> -m
-    train`` in ``workdir``; returns (its checkpoint directory, its epochs'
-    metrics, its run record, seconds). Its output goes to
-    ``<workdir>/<name>.log``; a failed run fails the phase."""
-    cmd = [sys.executable, "-m", "afft_tpu_torch.run", "-c",
-           os.path.join(EXPTS, LAUNCH_EXPT), "-m", "train",
-           *LAUNCH_OVERRIDES, *overrides]
-    _, seconds = _logged_run(cmd, workdir, name, LAUNCH_TIMEOUT)
+    """One run of ``_launch_cmd(overrides)`` in ``workdir``; returns (its
+    checkpoint directory, its epochs' metrics, its run record, seconds). Its
+    output goes to ``<workdir>/<name>.log``; a failed run fails the
+    phase."""
+    _, seconds = _logged_run(_launch_cmd(overrides), workdir, name,
+                             LAUNCH_TIMEOUT)
+    return _launch_record(workdir, name, overrides, seconds)
+
+
+def _launch_record(workdir, name, overrides, seconds):
+    """A finished launcher run's (checkpoint directory, epochs' metrics, run
+    record, seconds), logged."""
     exp = [l for l in overrides if l.startswith("experiment_name=")][0]
     ckpt_dir = os.path.join(workdir, "checkpoints",
                             "CMFPEarly_ModalTokenCMFuser_rgb_objects_audio_"
@@ -3541,12 +3622,14 @@ def phase_launcher():
     train.resume=true for a second, once for two epochs in one run (with a
     turn of the bare Runner.train_step at the same batch just before and
     one just after it), and for one epoch from the host loader
-    (data_on_device=false). Asserted: exit 0, a finite loss that falls,
-    checkpoint_best / checkpoint_last that reload and whose logits through
-    the kernels agree with the plain path's, the launch counts per
-    iteration and per validation batch, the feature cache in CUDA memory,
-    and the resumed weights equal to the uninterrupted run's. Returns (the
-    uninterrupted run's launches, numbers)."""
+    (data_on_device=false), which runs beside the layer checks and the
+    first two runs (so its window is a shared card's). Asserted: exit 0, a
+    finite loss that falls, checkpoint_best / checkpoint_last that reload
+    and whose logits through the kernels agree with the plain path's, the
+    launch counts per iteration and per validation batch, the feature
+    cache in CUDA memory, and the resumed weights equal to the
+    uninterrupted run's. Returns (the uninterrupted run's launches,
+    numbers)."""
     import shutil
     import torch
     from afft_tpu_torch import serve
@@ -3575,6 +3658,11 @@ def phase_launcher():
         f"256), written by afft_tpu_torch.tools.make_accept_dataset in "
         f"{gen_s:.1f} s; {LAUNCH_EPOCHS} epochs (the expt: 15), batch "
         f"{batch}, data_on_device={cfg.get('data_on_device')}")
+
+    # the host loader's path (pinned batches from its producer thread)
+    host = ("experiment_name=launch-host", "train.num_epochs=1",
+            "data_on_device=false")
+    host_run = _start_run(_launch_cmd(host), workdir, "host-loader")
 
     # the training layers at the launcher's own shapes: a batch of clips
     # of T frames gives the fuser batch * T rows of its tokens (one a
@@ -3607,6 +3695,9 @@ def phase_launcher():
         f"train.num_epochs={LAUNCH_EPOCHS - 1}",))
     _, resumed, run_b, _ = _launch(workdir, "resume", parts + (
         f"train.num_epochs={LAUNCH_EPOCHS}", "train.resume=true"))
+    _, host_epochs, run_h, _ = _launch_record(
+        workdir, "host-loader", host, _finish_run(host_run,
+                                                  LAUNCH_TIMEOUT)[1])
     # the bare step at the same batch (seeded weights, batches on the card)
     # in a turn just before and one just after the uninterrupted run
     num_classes = {"action": N_CLASSES}
@@ -3622,10 +3713,6 @@ def phase_launcher():
     bare.append(_bare_turn(runner, batches))
     del runner, batches
     torch.cuda.empty_cache()
-    # the host loader's path (pinned batches from its producer thread)
-    _, host_epochs, run_h, _ = _launch(workdir, "host-loader", (
-        "experiment_name=launch-host", "train.num_epochs=1",
-        "data_on_device=false"))
     _launch_counts_ok("host-loader", run_h, depth, layers)
     for name, r in (("parts", run_a), ("resume", run_b), ("whole", run)):
         counts = _launch_counts_ok(name, r, depth, layers)
@@ -3729,13 +3816,23 @@ EVAL_MODEL = "CMFPEarly_ModalTokenCMFuser_rgb_objects_audio_flow_launch-whole"
 EVAL_TIMEOUT = 300  # seconds an eval or challenge run may take
 
 
-def _eval_run(workdir, name, overrides, expt=None):
+def _eval_cmd(overrides, expt=None):
     """``python -m afft_tpu_torch.run -c expts/<EVAL_EXPT> -m test`` (or
-    ``-c expt``) in ``workdir``; returns the run's ``eval run:`` record."""
-    text, seconds = _logged_run(
-        [sys.executable, "-m", "afft_tpu_torch.run", "-c",
-         expt or os.path.join(EXPTS, EVAL_EXPT), "-m", "test",
-         *LAUNCH_OVERRIDES, *overrides], workdir, name, EVAL_TIMEOUT)
+    ``-c expt``) with ``overrides``."""
+    return [sys.executable, "-m", "afft_tpu_torch.run", "-c",
+            expt or os.path.join(EXPTS, EVAL_EXPT), "-m", "test",
+            *LAUNCH_OVERRIDES, *overrides]
+
+
+def _eval_run(workdir, name, overrides, expt=None):
+    """``_eval_cmd`` run in ``workdir``; returns the run's ``eval run:``
+    record."""
+    return _eval_record(name, *_logged_run(_eval_cmd(overrides, expt),
+                                           workdir, name, EVAL_TIMEOUT))
+
+
+def _eval_record(name, text, seconds):
+    """The ``eval run:`` record of an eval run's log, with its seconds."""
     lines = [l for l in text.splitlines() if "eval run: " in l]
     if len(lines) != 1:
         raise AssertionError(f"{name}: no eval run record\n{text[-4000:]}")
@@ -3777,8 +3874,11 @@ def phase_eval():
     and the kernels against the plain path in fp32 at 1e-4); the accuracies
     mode against the challenge's numbers from the exported file; the
     challenge tool (``python -m afft_tpu_torch.challenge``) packages it; the
-    serving kernels launched 6 times a batch each. Returns (the export
-    run's launches, numbers)."""
+    serving kernels launched 6 times a batch each. The export runs alone
+    (its clips/s is the eval CLI's); the accuracies mode and the challenge
+    tool run beside the comparisons with the plain path, so the accuracies
+    run's clips/s is a shared card's. Returns (the export run's launches,
+    numbers)."""
     import numpy as np
     import torch
     from afft_tpu_torch import challenge as PCHALLENGE
@@ -3791,8 +3891,15 @@ def phase_eval():
 
     workdir = os.path.join(REPO, "build", "launcher")
     init = f"init_from_model={EVAL_MODEL}/checkpoint_best"
-    accs_run = _eval_run(workdir, "eval-accuracies", (init, "save_name=null"))
     export = _eval_run(workdir, "eval-export", (init, "save_name=test.h5"))
+    overrides = [l for l in read_expt_file(os.path.join(EXPTS, EVAL_EXPT))
+                 if l.startswith("dataset")]
+    accs_h = _start_run(_eval_cmd((init, "save_name=null")), workdir,
+                        "eval-accuracies")
+    chall_h = _start_run(
+        [sys.executable, "-m", "afft_tpu_torch.challenge", "--prefix_h5",
+         "test", "--models", EVAL_MODEL, "--weights", "1", "--override",
+         *overrides], workdir, "challenge")
     path = export["logits_file"]
     (res,) = PC.gen_load_resfiles(os.path.dirname(path), "test")
     exported = torch.from_numpy(res["logits/action_all-fused"])
@@ -3840,9 +3947,11 @@ def phase_eval():
     del plain, state
     torch.cuda.empty_cache()
 
+    accs_run = _eval_record("eval-accuracies",
+                            *_finish_run(accs_h, EVAL_TIMEOUT))
+    _, chall_s = _finish_run(chall_h, EVAL_TIMEOUT)
+
     # the accuracies mode equals the challenge's numbers from the file
-    overrides = [l for l in read_expt_file(os.path.join(EXPTS, EVAL_EXPT))
-                 if l.startswith("dataset")]
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
@@ -3858,10 +3967,6 @@ def phase_eval():
         if not same:
             raise AssertionError(f"eval: the accuracies mode's {k} "
                                  f"{accs[k]} differs from the file's {v}")
-    _, chall_s = _logged_run(
-        [sys.executable, "-m", "afft_tpu_torch.challenge", "--prefix_h5",
-         "test", "--models", EVAL_MODEL, "--weights", "1", "--override",
-         *overrides], workdir, "challenge", EVAL_TIMEOUT)
     with open(os.path.join(workdir, "logits", "test.json")) as f:
         sub = json.load(f)
     n_total = len(ds) + (0 if ds.discarded_df is None
@@ -3914,8 +4019,8 @@ def phase_dp():
     relative, the training kernels launched on each rank; before it the
     training layers at rank 1's row offset against their plain versions
     and their masks against the one-process masks of those rows, bit for
-    bit. One card measures no multi-GPU scaling: the step times are logged
-    as what they are."""
+    bit; (ii)'s two processes run beside the rest. One card measures no
+    multi-GPU scaling: the step times are logged as what they are."""
     import torch
     from afft_tpu_torch import serve
     from afft_tpu_torch.config import read_expt_file
@@ -3931,6 +4036,21 @@ def phase_dp():
     depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
     fuser, common = cfg.model.fuser, cfg.model.common
     numbers = {}
+
+    # (ii) two processes on the one card over gloo against one process,
+    # started first
+    sched = O.build_schedule(cfg.opt, 2, 1)
+    job = {"kind": "train", "name": "flagship", "expt": expt,
+           "overrides": list(LAUNCH_OVERRIDES), "classes": DP_CLASSES,
+           "batch": DP_GLOBAL_BATCH, "steps": DP_STEPS, "seed": 9,
+           "lrs": [sched(i, float(cfg.opt.lr)) for i in range(DP_STEPS)],
+           "invalid": [DP_GLOBAL_BATCH - 1], "keep_state": False}
+    out = os.path.join(workdir, "dp-out")
+    spec = os.path.join(workdir, "dp-spec.json")
+    with open(spec, "w") as f:
+        json.dump({"device": "cuda:0", "out": out, "jobs": [job]}, f)
+    gloo = _start_run(_dp_torchrun(2, ["afft_tpu_torch.tools.dp_check",
+                                       spec]), workdir, "dp-gloo")
 
     # (i) one process through torchrun on NCCL against phase 8's run
     text, secs = _logged_run(
@@ -4004,20 +4124,7 @@ def phase_dp():
         del case
     torch.cuda.empty_cache()
 
-    # (ii) two processes on the one card over gloo against one process
-    sched = O.build_schedule(cfg.opt, 2, 1)
-    job = {"kind": "train", "name": "flagship", "expt": expt,
-           "overrides": list(LAUNCH_OVERRIDES), "classes": DP_CLASSES,
-           "batch": DP_GLOBAL_BATCH, "steps": DP_STEPS, "seed": 9,
-           "lrs": [sched(i, float(cfg.opt.lr)) for i in range(DP_STEPS)],
-           "invalid": [DP_GLOBAL_BATCH - 1], "keep_state": False}
-    out = os.path.join(workdir, "dp-out")
-    spec = os.path.join(workdir, "dp-spec.json")
-    with open(spec, "w") as f:
-        json.dump({"device": "cuda:0", "out": out, "jobs": [job]}, f)
-    _, secs = _logged_run(_dp_torchrun(2, ["afft_tpu_torch.tools.dp_check",
-                                           spec]),
-                          workdir, "dp-gloo", LAUNCH_TIMEOUT)
+    _, secs = _finish_run(gloo, LAUNCH_TIMEOUT)
     ranks = [torch.load(os.path.join(out, f"flagship.rank{r}.pt"),
                         weights_only=False) for r in (0, 1)]
     one = D.run_train(job, torch.device("cuda"))
@@ -4261,24 +4368,25 @@ def _gpt2_per_step(cfg):
     return int(common.fp_layers) * preds
 
 
-def _grad_rel(run_k, run_p, where=None):
-    """Per tensor max|g_kernel - g_plain| over max|g_plain|: the worst
-    (value, tensor), over the tensors whose names ``where`` takes (all
-    without it)."""
-    worst = (0.0, "")
+def _grad_rels(run_k, run_p):
+    """Per tensor max|g_k - g_p| over max|g_p| of two runners' last steps
+    (their fp32 masters' gradients), by name."""
+    rels = {}
     for (name, pk), pp in zip(run_k.model.named_parameters(),
                               run_p.masters):
-        if where is not None and not where(name):
-            continue
         if pp.grad is None:
             if pk.grad is not None:
                 raise AssertionError(f"{name}: a gradient on one path only")
             continue
-        rel = float((pk.grad - pp.grad).abs().max()) / max(
+        rels[name] = float((pk.grad - pp.grad).abs().max()) / max(
             float(pp.grad.abs().max()), 1e-30)
-        if rel > worst[0]:
-            worst = (rel, name)
-    return worst
+    return rels
+
+
+def _grad_rel(run_k, run_p):
+    """The worst (value, tensor) of ``_grad_rels``."""
+    return max(((v, k) for k, v in _grad_rels(run_k, run_p).items()),
+               default=(0.0, ""))
 
 
 def _variant_fp32(cfg, label, classes, expected_kernel, expected_plain):
@@ -4935,7 +5043,9 @@ def phase_serving_data():
     """On phase 8's cut set and checkpoint: the int8 device cache against the
     bf16 one (half the payload; the gather within the int8 bound), ``-m
     test`` with ``data_on_device_dtype=int8`` and ``-m
-    visualize_attention`` (its dumps' keys and rows). Returns numbers."""
+    visualize_attention`` (its dumps' keys and rows), which runs beside the
+    rest (so the int8 run's clips/s is a shared card's). Returns
+    numbers."""
     import shutil
     import numpy as np
     import torch
@@ -4946,6 +5056,13 @@ def phase_serving_data():
 
     workdir = os.path.join(REPO, "build", "launcher")
     init = f"init_from_model={EVAL_MODEL}/checkpoint_best"
+    out_dir = os.path.join(workdir, "attention_maps")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    vis = _start_run(
+        [sys.executable, "-m", "afft_tpu_torch.run", "-c",
+         os.path.join(EXPTS, EVAL_EXPT), "-m", "visualize_attention",
+         *LAUNCH_OVERRIDES, init, f"+attn_out_dir={out_dir}",
+         "+attn_max_batches=1"], workdir, "visualize")
     cfg = serve.load_config(os.path.join(EXPTS, EVAL_EXPT),
                             (f"cwd={workdir}", init, *LAUNCH_OVERRIDES))
     dataset = get_dataset(cfg.dataset_eval, cfg.data_eval,
@@ -4993,13 +5110,7 @@ def phase_serving_data():
     numbers["eval_int8"] = {k: run[k] for k in ("clips", "batches",
                                                 "clips_per_s", "seconds")}
 
-    out_dir = os.path.join(workdir, "attention_maps")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    _, vis_s = _logged_run(
-        [sys.executable, "-m", "afft_tpu_torch.run", "-c",
-         os.path.join(EXPTS, EVAL_EXPT), "-m", "visualize_attention",
-         *LAUNCH_OVERRIDES, init, f"+attn_out_dir={out_dir}",
-         "+attn_max_batches=1"], workdir, "visualize", EVAL_TIMEOUT)
+    _, vis_s = _finish_run(vis, EVAL_TIMEOUT)
     dump = np.load(os.path.join(out_dir, "batch_0000.npz"),
                    allow_pickle=False)
     want = {"uids", "all-fused/modality_attns",
@@ -5145,7 +5256,8 @@ def _stochastic_rounding_on_card():
 def phase_options():
     """13. The training options through ``Runner.train_step`` and the
     launcher: gradient accumulation, bf16 masters with stochastic rounding
-    and bf16 optimizer state, ZeRO-1. Returns (the launches of its
+    and bf16 optimizer state, ZeRO-1 (its runs beside the launcher's, so
+    their step times are a shared card's). Returns (the launches of its
     in-process training steps and its launcher run, numbers)."""
     import numpy as np
     import torch
@@ -5296,6 +5408,35 @@ def phase_options():
     lcfg = serve.load_config(os.path.join(EXPTS, LAUNCH_EXPT))
     ldepth = int(lcfg.model.fuser.depth)
     llayers = int(lcfg.model.common.fp_layers)
+    # (e) ZeRO-1 against plain data parallelism over the same global
+    # batches, every element of every weight compared in the process that
+    # ran both: (i) one process through torchrun on NCCL (at world 1 the
+    # NCCL reduce-scatter and all-gather still run); (ii) two processes on
+    # the one card over gloo; both start here and run beside (d)
+    sched = O.build_schedule(lcfg.opt, 2, 1)
+    zero_runs = {}
+    for tag, nproc, device in (("nccl-n1", 1, "cuda"),
+                               ("gloo", 2, "cuda:0")):
+        jobs = [{"kind": "train", "name": f"zero-{z}", "expt": os.path.join(
+                     EXPTS, LAUNCH_EXPT),
+                 "overrides": [*LAUNCH_OVERRIDES,
+                               f"train.zero_sharding={z}"],
+                 "classes": DP_CLASSES, "batch": DP_GLOBAL_BATCH,
+                 "steps": OPTIONS_ZERO_STEPS, "seed": 9,
+                 "lrs": [sched(i, float(lcfg.opt.lr))
+                         for i in range(OPTIONS_ZERO_STEPS)],
+                 "invalid": [DP_GLOBAL_BATCH - 1],
+                 **({"keep_state": "host"} if z == "false" else
+                    {"keep_state": False, "against": "zero-false"})}
+                for z in ("false", "true")]
+        out = os.path.join(workdir, f"zero-{tag}-out")
+        spec = os.path.join(workdir, f"zero-{tag}-spec.json")
+        with open(spec, "w") as f:
+            json.dump({"device": device, "out": out, "jobs": jobs}, f)
+        zero_runs[tag] = nproc, out, _start_run(_dp_torchrun(
+            nproc, ["afft_tpu_torch.tools.dp_check", spec]), workdir,
+            f"zero-{tag}")
+
     name = ("experiment_name=launch-options", "train.grad_accum=2",
             "model.compute_dtype=bfloat16", "train.master_dtype=bfloat16")
     opt_dir, _, run_a, secs_a = _launch(workdir, "options-parts", name + (
@@ -5353,34 +5494,10 @@ def phase_options():
     del ck, plain
     torch.cuda.empty_cache()
 
-    # (e) ZeRO-1 against plain data parallelism over the same global
-    # batches, every element of every weight compared in the process that
-    # ran both: (i) one process through torchrun on NCCL (at world 1 the
-    # NCCL reduce-scatter and all-gather still run); (ii) two processes on
-    # the one card over gloo
-    sched = O.build_schedule(lcfg.opt, 2, 1)
+    # (e): the ZeRO-1 runs' records
     zero1 = {}
-    for tag, nproc, device in (("nccl-n1", 1, "cuda"),
-                               ("gloo", 2, "cuda:0")):
-        jobs = [{"kind": "train", "name": f"zero-{z}", "expt": os.path.join(
-                     EXPTS, LAUNCH_EXPT),
-                 "overrides": [*LAUNCH_OVERRIDES,
-                               f"train.zero_sharding={z}"],
-                 "classes": DP_CLASSES, "batch": DP_GLOBAL_BATCH,
-                 "steps": OPTIONS_ZERO_STEPS, "seed": 9,
-                 "lrs": [sched(i, float(lcfg.opt.lr))
-                         for i in range(OPTIONS_ZERO_STEPS)],
-                 "invalid": [DP_GLOBAL_BATCH - 1],
-                 **({"keep_state": "host"} if z == "false" else
-                    {"keep_state": False, "against": "zero-false"})}
-                for z in ("false", "true")]
-        out = os.path.join(workdir, f"zero-{tag}-out")
-        spec = os.path.join(workdir, f"zero-{tag}-spec.json")
-        with open(spec, "w") as f:
-            json.dump({"device": device, "out": out, "jobs": jobs}, f)
-        _, secs = _logged_run(_dp_torchrun(
-            nproc, ["afft_tpu_torch.tools.dp_check", spec]),
-            workdir, f"zero-{tag}", LAUNCH_TIMEOUT)
+    for tag, (nproc, out, run) in zero_runs.items():
+        _, secs = _finish_run(run, LAUNCH_TIMEOUT)
         recs = {z: [torch.load(os.path.join(out, f"zero-{z}.rank{r}.pt"),
                                weights_only=False) for r in range(nproc)]
                 for z in ("false", "true")}
@@ -5458,20 +5575,33 @@ def _pipe_job(name, expt, overrides, classes, lrs, **more):
             "invalid": [PIPE_BATCH - 1], **more}
 
 
-def _pipe_records(name, spec_jobs, nproc):
-    """Run ``spec_jobs`` through dp_check on ``nproc`` gloo processes on the
-    card; ({job: [record by rank]}, seconds)."""
-    import torch
+def _pipe_spec(name, spec_jobs):
+    """Write dp_check's spec of ``spec_jobs`` (gloo on the card); returns
+    (its path, the records' directory)."""
     out = os.path.join(PIPE_DIR, f"{name}-out")
     spec = os.path.join(PIPE_DIR, f"{name}-spec.json")
     with open(spec, "w") as f:
         json.dump({"device": "cuda:0", "out": out, "jobs": spec_jobs}, f)
+    return spec, out
+
+
+def _pipe_load(spec_jobs, nproc, out):
+    """The records of a dp_check run of ``spec_jobs`` on ``nproc``
+    processes: {job: [record by rank]}."""
+    import torch
+    return {j["name"]: [torch.load(os.path.join(out, f"{j['name']}.rank{r}"
+                                                ".pt"), weights_only=False)
+                        for r in range(nproc)] for j in spec_jobs}
+
+
+def _pipe_records(name, spec_jobs, nproc):
+    """Run ``spec_jobs`` through dp_check on ``nproc`` gloo processes on the
+    card; ({job: [record by rank]}, seconds)."""
+    spec, out = _pipe_spec(name, spec_jobs)
     _, secs = _logged_run(_dp_torchrun(nproc, ["afft_tpu_torch.tools.dp_check",
                                                spec]),
                           PIPE_DIR, name, LAUNCH_TIMEOUT)
-    return {j["name"]: [torch.load(os.path.join(out, f"{j['name']}.rank{r}"
-                                                ".pt"), weights_only=False)
-                        for r in range(nproc)] for j in spec_jobs}, secs
+    return _pipe_load(spec_jobs, nproc, out), secs
 
 
 def _loss_rel(got, want):
@@ -5578,10 +5708,10 @@ def phase_pipeline():
     for one epoch and resumed for a second, -m test on its checkpoint in one
     process, whose logits the pipelined eval of that checkpoint (2 gloo
     processes, with (i)'s jobs) equals within 1e-4 of max|logit|. (iii)
-    runs first. Step times and peak memory
-    per rank are one-card stand-ins: both stages share the H100, so they
-    measure no pipeline speed. Returns (launches by kernel of each run,
-    numbers)."""
+    runs first; (ii)'s four processes run beside (i)'s two. Step times and
+    peak memory per rank are one-card stand-ins: both stages share the
+    H100 (and the two runs share it), so they measure no pipeline speed.
+    Returns (launches by kernel of each run, numbers)."""
     import numpy as np
     import torch
     from afft_tpu_torch import serve
@@ -5696,6 +5826,34 @@ def phase_pipeline():
     one, spans = _one_process(
         _pipe_job("one", expt, [bf16], TRAIN_CLASSES, lrs), cfg,
         TRAIN_CLASSES, one_path)
+    # (ii) data2 x pipe2 on four processes: plain data parallelism against
+    # one process in bf16 (the expt's) and in fp32, ZeRO-1 against plain
+    # data parallelism on the same grid: its one-process references here,
+    # its four processes beside (i)'s two (so both runs' step times are a
+    # shared card's)
+    lexpt = os.path.join(EXPTS, LAUNCH_EXPT)
+    lcfg = serve.load_config(lexpt)
+    lsched = O.build_schedule(lcfg.opt, 2, 1)
+    llrs = [lsched(i, float(lcfg.opt.lr)) for i in range(PIPE_STEPS)]
+    fp32 = ["model.compute_dtype=float32"]
+    lone, lspans, lpaths = {}, {}, {}
+    for dt, more in (("bf16", []), ("fp32", fp32)):
+        lpaths[dt] = os.path.join(PIPE_DIR, f"one98_{dt}_state.pt")
+        lone[dt], lspans[dt] = _one_process(
+            _pipe_job(f"one98-{dt}", lexpt, [*LAUNCH_OVERRIDES, *more],
+                      DP_CLASSES, llrs),
+            serve.load_config(lexpt, more), DP_CLASSES, lpaths[dt])
+    grid = [f"train.pipeline_stages={PIPE_STAGES}", *LAUNCH_OVERRIDES]
+    jobs2 = [_pipe_job("plain", lexpt, grid, DP_CLASSES, llrs,
+                       keep_state="host", against_file=lpaths["bf16"]),
+             _pipe_job("zero", lexpt, grid + ["train.zero_sharding=true"],
+                       DP_CLASSES, llrs, keep_state=False, against="plain"),
+             _pipe_job("plain-fp32", lexpt, grid + fp32, DP_CLASSES, llrs,
+                       keep_state=False, against_file=lpaths["fp32"])]
+    d2p_spec, d2p_out = _pipe_spec("data2xpipe2", jobs2)
+    d2p = _start_run(_dp_torchrun(2 * PIPE_STAGES, [
+        "afft_tpu_torch.tools.dp_check", d2p_spec]), PIPE_DIR, "data2xpipe2")
+
     jobs = [_pipe_job(f"flagship-m{micro}", expt,
                       [bf16, f"train.pipeline_stages={PIPE_STAGES}",
                        f"train.pipeline_microbatches={micro}"],
@@ -5775,33 +5933,12 @@ def phase_pipeline():
     del recs
     torch.cuda.empty_cache()
 
-    # (ii) data2 x pipe2 on four processes: plain data parallelism against
-    # one process in bf16 (the expt's) and in fp32, ZeRO-1 against plain
-    # data parallelism on the same grid
-    lexpt = os.path.join(EXPTS, LAUNCH_EXPT)
-    lcfg = serve.load_config(lexpt)
-    lsched = O.build_schedule(lcfg.opt, 2, 1)
-    llrs = [lsched(i, float(lcfg.opt.lr)) for i in range(PIPE_STEPS)]
-    fp32 = ["model.compute_dtype=float32"]
-    lone, lspans, lpaths = {}, {}, {}
-    for dt, more in (("bf16", []), ("fp32", fp32)):
-        lpaths[dt] = os.path.join(PIPE_DIR, f"one98_{dt}_state.pt")
-        lone[dt], lspans[dt] = _one_process(
-            _pipe_job(f"one98-{dt}", lexpt, [*LAUNCH_OVERRIDES, *more],
-                      DP_CLASSES, llrs),
-            serve.load_config(lexpt, more), DP_CLASSES, lpaths[dt])
-    grid = [f"train.pipeline_stages={PIPE_STAGES}", *LAUNCH_OVERRIDES]
-    jobs = [_pipe_job("plain", lexpt, grid, DP_CLASSES, llrs,
-                      keep_state="host", against_file=lpaths["bf16"]),
-            _pipe_job("zero", lexpt, grid + ["train.zero_sharding=true"],
-                      DP_CLASSES, llrs, keep_state=False, against="plain"),
-            _pipe_job("plain-fp32", lexpt, grid + fp32, DP_CLASSES, llrs,
-                      keep_state=False, against_file=lpaths["fp32"])]
-    recs, secs = _pipe_records("data2xpipe2", jobs, 2 * PIPE_STAGES)
+    _, secs = _finish_run(d2p, LAUNCH_TIMEOUT)
+    recs = _pipe_load(jobs2, 2 * PIPE_STAGES, d2p_out)
     for path in lpaths.values():
         os.remove(path)
     lper = int(lcfg.model.common.fp_layers) // PIPE_STAGES
-    for job in jobs:
+    for job in jobs2:
         for rec in recs[job["name"]]:
             _stage_launches(f"pipeline data2xpipe2 {job['name']} rank "
                             f"{rec['rank']}", rec, lper,
@@ -5910,8 +6047,9 @@ def phase_tp(reference):
     holds; its reading stands beside the sound run's margin. (ii)
     ``python -m afft_tpu_torch.tools.dryrun_multichip -n 8`` on the card:
     every mode of the JAX driver, the 3-axis loss within rtol 1e-3 of one
-    process's. Both ranks share one card through host copies: no TP speed.
-    Returns (shard-mode launches by run and rank, numbers)."""
+    process's; it runs beside (i). Both ranks share one card through host
+    copies: no TP speed. Returns (shard-mode launches by run and rank,
+    numbers)."""
     import torch
     from afft_tpu_torch import serve
 
@@ -5935,6 +6073,10 @@ def phase_tp(reference):
     with open(spec, "w") as f:
         json.dump({"device": "cuda:0", "out": out, "jobs": [job, planted]},
                   f)
+    # (ii)'s dry run starts first and runs beside (i)
+    dry = _start_run([sys.executable, "-m",
+                      "afft_tpu_torch.tools.dryrun_multichip", "-n",
+                      str(TP_DRYRUN_N)], TP_DIR, "dryrun")
     _, secs = _logged_run(_dp_torchrun(2, ["afft_tpu_torch.tools.dp_check",
                                            spec]), TP_DIR, "flagship",
                           LAUNCH_TIMEOUT)
@@ -6013,24 +6155,16 @@ def phase_tp(reference):
     torch.cuda.empty_cache()
 
     # (ii) the dry run: every mode on 8 processes on the card
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "afft_tpu_torch.tools.dryrun_multichip", "-n",
-         str(TP_DRYRUN_N)], cwd=REPO, capture_output=True, text=True,
-        timeout=TP_DRYRUN_TIMEOUT)
-    dry_s = time.perf_counter() - t0
-    with open(os.path.join(TP_DIR, "dryrun.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    lines = [l for l in proc.stdout.splitlines()
+    text, dry_s = _finish_run(dry, TP_DRYRUN_TIMEOUT)
+    lines = [l for l in text.splitlines()
              if l.startswith("dryrun_multichip(")]
     for line in lines:
         log(f"tp (ii) {line}")
     want = list(TP_DRYRUN_MODES)
-    if proc.returncode != 0 or len(lines) != len(want) or not all(
+    if len(lines) != len(want) or not all(
             m in l for l, m in zip(lines, want)):
-        raise AssertionError(f"tp: dryrun_multichip -n {TP_DRYRUN_N} failed "
-                             f"(rc {proc.returncode}):\n"
-                             f"{proc.stderr[-3000:]}")
+        raise AssertionError(f"tp: dryrun_multichip -n {TP_DRYRUN_N} failed:"
+                             f"\n{text[-3000:]}")
     numbers["dryrun_multichip"] = {"n": TP_DRYRUN_N, "run_s": dry_s,
                                    "lines": lines}
     log(f"tp (ii) dryrun_multichip -n {TP_DRYRUN_N} on the card: every mode "
@@ -6061,7 +6195,15 @@ LONG_SEQ_S = (1280, 2048)           # rows 5 and 6
 # tokens, each head width at a head count that keeps C % 8 == 0, and the
 # sequence attention (row 4's route past 1,024 keys) at (Nq, Nk)
 LONG_EDGE_N = (33, 65, 1025)
-LONG_EDGE_HD = {12: 2, 24: 1, 256: 1, 512: 1, 768: 1}  # hd: H
+LONG_EDGE_HD = {12: 2, 24: 1, 256: 1, 512: 1, 768: 1, 1024: 1, 2048: 1}
+LONG_RES_HD = 768   # long_attention.cuh LA_RES_HD: past it rows stream
+# the CUDA-core forms past LONG_RES_HD (fp32, and the fuser's fp32
+# probabilities in bf16): (dtype tag, GPT-2 chain, causal) at N tokens
+LONG_EDGE_CC = (("fp32", True, True), ("fp32", False, False),
+                ("bf16", False, False))
+LONG_EDGE_CC_N = (33, 1025)
+# (a') and (b'): the flagship with its GPT-2 predictor in 2 heads of 1,024
+LONG_WIDE = ["model.common.fp_heads=2"]
 LONG_EDGE_KEYS = ((33, 1025), (65, 1025), (1025, 1025), (1025, 2048))
 LONG_EDGE_JUNK = 7          # unwritten cache slots (NaN) of the cache mask
 # The CUDA-core long route's readings at these shapes (this phase's (d)
@@ -6081,6 +6223,10 @@ LONG_MMA = {"serve": {"long_attention_mma<": 1},
             "train": {"long_attention_mma<": 2, "long_attention_mma_dkdv<": 1,
                       "long_attention_mma_dq<": 1}}
 LONG_CUDA_CORE = "long_attention_f32rows"
+# the CUDA-core long kernels a GPT-2 layer's fp32 training step launches
+LONG_CC = {"train": {"long_attention_f32rows<": 2,
+                     "long_attention_f32rows_dkdv<": 1,
+                     "long_attention_f32rows_dq<": 1}}
 # each long route's row: the kernels-line entry it stands under
 LONG_ROWS = {"fused_block": "1", "gpt2_attn_half": "2",
              "fused_attention": "4", "fused_seq_block": "5",
@@ -6171,30 +6317,35 @@ def _long_profile(fn, what, want, grad=False):
 
 def _long_profile_ok(what, kernels, want):
     """A main path's profile (``profile_forward``'s kernels by full name)
-    shows each tensor-core long kernel of ``want`` and no CUDA-core long
-    kernel."""
+    shows each long kernel of ``want`` and none of the other family: no
+    CUDA-core long kernel where ``want`` names the tensor-core ones, no
+    tensor-core one where it names the CUDA-core ones (LONG_CC)."""
     names = list(kernels)
     missing = [w for w in want if not any(w in n for n in names)]
-    old = [n for n in names if LONG_CUDA_CORE in n]
+    other = "long_attention_mma" if any(LONG_CUDA_CORE in w for w in want) \
+        else LONG_CUDA_CORE
+    old = [n for n in names if other in n]
     long = {n[:60]: c for n, c in kernels.items() if "long_attention" in n}
     log(f"long profile {what}: {long}")
     if missing or old:
         raise AssertionError(f"long profile {what}: missing {missing}, "
-                             f"CUDA-core long kernels {old}")
+                             f"the other family's long kernels {old}")
 
 
 def _long_edges(gen):
-    """The tensor-core forms at their edges, bf16: the GPT-2 training
-    attention forward and backward (``_check_attention_bwd``: O and dqkv
-    against the plain version, bit for bit on relaunch, O bit for bit the
-    forward kernel's output) at N 33 / 65 / 1,025 x hd 12 / 24 / 256 / 512
-    / 768, causal and unmasked, at rate 0.1; the sequence attention
+    """The long forms at their edges: the tensor-core forms (bf16), the
+    GPT-2 training attention forward and backward (``_check_attention_bwd``:
+    O and dqkv against the plain version, bit for bit on relaunch, O bit for
+    bit the forward kernel's output) at N 33 / 65 / 1,025 x hd 12 / 24 /
+    256 / 512 / 768 / 1,024 / 2,048, causal and unmasked, at rate 0.1; past
+    LONG_RES_HD also the CUDA-core forms (LONG_EDGE_CC: fp32 in both chains,
+    the fuser's in bf16) at N 33 / 1,025; the sequence attention
     (``fused_attention``, row 4's route past 1,024 keys; q a packed slice,
-    k / v caches) at (Nq, Nk) in LONG_EDGE_KEYS x the same head widths
-    under no mask, the causal mask and, where Nq < Nk, the rollout's cache
-    mask whose LONG_EDGE_JUNK unwritten slots hold NaN in the caches the
-    kernel reads (finite in the plain version's). Returns (checks, worst
-    absolute error)."""
+    k / v caches) at (Nq, Nk) in LONG_EDGE_KEYS x the same head widths (past
+    LONG_RES_HD in fp32 too) under no mask, the causal mask and, where Nq <
+    Nk, the rollout's cache mask whose LONG_EDGE_JUNK unwritten slots hold
+    NaN in the caches the kernel reads (finite in the plain version's).
+    Returns (checks, worst absolute error)."""
     import torch
     from afft_tpu_torch.ops import attention as FA
     n, worst = 0, 0.0
@@ -6206,7 +6357,13 @@ def _long_edges(gen):
                     2 if N < 1024 else 1, N, H, hd, dt, True, 0.1, causal,
                     gen))
                 n += 1
-    rn = _randn(gen, dt)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for hd in (h for h in LONG_EDGE_HD if h > LONG_RES_HD):
+        for N in LONG_EDGE_CC_N:
+            for tag, gpt2, causal in LONG_EDGE_CC:
+                worst = max(worst, _check_attention_bwd(
+                    1, N, 1, hd, dtypes[tag], gpt2, 0.1, causal, gen))
+                n += 1
     for n_q, n_k in LONG_EDGE_KEYS:
         key = torch.arange(n_k, device="cuda")[None, :]
         query = torch.arange(n_q, device="cuda")[:, None]
@@ -6218,8 +6375,10 @@ def _long_edges(gen):
             kinds.append(("cache", zeros.masked_fill(key > pos + query,
                                                      -math.inf),
                           LONG_EDGE_JUNK))
-        for hd in LONG_EDGE_HD:
+        for hd, tag in ((h, t) for h in LONG_EDGE_HD for t in dtypes
+                        if t == "bf16" or h > LONG_RES_HD):
             B, H = 2, 2
+            rn = _randn(gen, dtypes[tag])
             q = rn(B, n_q, 3, H, hd)[:, :, 0]
             k, v = rn(B, n_k, H, hd), rn(B, n_k, H, hd)
             for kind, mask, junk in kinds:
@@ -6230,9 +6389,9 @@ def _long_edges(gen):
                     vc[:, n_k - junk:] = math.nan
                 got = FA.fused_attention(q, kc, vc, mask)
                 want = FA.attention_plain(q, k, v, mask)[0]
-                n += _edge_ok(f"long fused_attention bf16 B={B} Nq={n_q} "
+                n += _edge_ok(f"long fused_attention {tag} B={B} Nq={n_q} "
                               f"Nk={n_k} H={H} hd={hd} mask={kind} ({junk} "
-                              "NaN slots)", "bf16", got, want)
+                              "NaN slots)", tag, got, want)
                 worst = max(worst, errors(got, want)[1])
     log(f"long edges: {n} checks of the tensor-core forms against their "
         f"plain versions (worst absolute error {worst:.3g})")
@@ -6261,15 +6420,18 @@ def _long_keep_pattern(gen):
     O[q][k] = p * keep(q, k) (rounded to bf16 in the bf16 GPT-2 chain, the
     tensor-core form); the pattern (and each value) equals
     draw_masks_plain's / draw_masks_gpt2_plain's at the same site bit for
-    bit: the fuser's form in fp32, the GPT-2 layer's in fp32 and bf16."""
+    bit: the fuser's form in fp32, the GPT-2 layer's in fp32 and bf16, each
+    at hd 48 and at hd 1,024 (past LONG_RES_HD: the streamed forms)."""
     import torch
     from afft_tpu_torch.models.layers import neg_inf_causal_mask
     from afft_tpu_torch.ops import fused_block_train as FT
     from afft_tpu_torch.ops import fused_gpt2_train as FGT
     n = 0
-    for gpt2, N, dt in ((False, 12, torch.float32), (True, 40, torch.float32),
-                        (True, 40, torch.bfloat16)):
-        R, H, hd = 3, 2, 48
+    for gpt2, N, dt, hd in ((g, n, d, h) for h in (48, 1024)
+                            for g, n, d in ((False, 12, torch.float32),
+                                            (True, 40, torch.float32),
+                                            (True, 40, torch.bfloat16))):
+        R, H = 3, 2
         C = H * hd
         qkv = torch.zeros(R * N, 3 * C, device="cuda", dtype=dt)
         eye = torch.eye(N, hd, device="cuda", dtype=dt)
@@ -6294,12 +6456,133 @@ def _long_keep_pattern(gen):
         if not (torch.equal(got != 0, (mattn != 0) & (visible != 0))
                 and torch.equal(got.float(), (p * mattn).to(dt).float())):
             raise AssertionError(f"long route keep pattern (gpt2={gpt2} "
-                                 f"N={N} {dt}): differs from the plain "
-                                 "generator's")
+                                 f"N={N} hd={hd} {dt}): differs from the "
+                                 "plain generator's")
         n += int((mattn != 0).sum())
     log(f"long keep pattern: fuser N 12 (fp32) and GPT-2 T 40 (fp32, bf16) "
-        f"at rate 0.5, {n} kept elements, bit for bit draw_masks_plain / "
-        "draw_masks_gpt2_plain's")
+        f"at hd 48 and 1,024, rate 0.5, {n} kept elements, bit for bit "
+        "draw_masks_plain / draw_masks_gpt2_plain's")
+    return n
+
+
+def _long_gpt2_attention(peaks, gen, B, T, H, hd):
+    """The GPT-2 layer's long attention alone (bf16, causal, rate 0.1: rows
+    2 / 11 forward, row 15 backward) at (B, T) in H heads of hd, checked
+    (``_check_attention_bwd``) and timed beside its plain version, SDPA and
+    its bound (``_long_numbers``). Returns (forward, backward) numbers."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+    C = H * hd
+    mask = neg_inf_causal_mask(T, device="cuda")
+    pairs = T * (T + 1) // 2
+    qkv = _randn(gen, torch.bfloat16)(B * T, 3 * C)
+    dao = _randn(gen, torch.float32)(B * T, C)
+    kw = dict(n_tokens=T, num_heads=H, block_idx=4, attn_rate=0.1, gpt2=True)
+    # the attention site's mask is the same generator in both layers
+    mattn = FT.draw_masks_plain(B, T, C, H, TRAIN_SEEDS, 4, 0.1, 0.0, 0.0,
+                                device="cuda")[0]
+    err = _check_attention_bwd(B, T, H, hd, torch.bfloat16, True, 0.1, True,
+                               gen)
+    q, k, v = qkv.view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
+    g = dao.to(torch.bfloat16).view(B, T, H, hd).transpose(1, 2)
+    shape = f"(B, T)=({B}, {T}) H={H} hd={hd}"
+    fwd = _long_numbers(
+        peaks, f"row 2 / 11 attention bf16 {shape}",
+        lambda: FT.attention_drop(qkv, mask, TRAIN_SEEDS, **kw),
+        lambda: FT.attention_drop_plain(qkv, mask, mattn, T, H,
+                                        torch.bfloat16),
+        _sdpa_heads(q, k, v, True), _long_work(B, H, pairs, T, T, hd, 2),
+        err)
+    bwd = _long_numbers(
+        peaks, f"row 15 attention backward bf16 {shape}",
+        lambda: FT.attention_drop_bwd(qkv, mask, dao, TRAIN_SEEDS, **kw),
+        lambda: FT.attention_drop_bwd_plain(qkv, mask, mattn, dao, T, H,
+                                            torch.bfloat16),
+        _sdpa_heads(q, k, v, True, grad=g),
+        _long_work(B, H, pairs, T, T, hd, 2, backward=True), err)
+    del qkv, dao, mattn, q, k, v, g
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+# past LONG_RES_HD: the GPT-2 long attention timed at (B, T) x hd (C 2,048)
+LONG_WIDE_TIMES = ((64, 64), (4, 1024))
+
+
+def _long_wide_rows(peaks, gen, kernels):
+    """The entries past LONG_RES_HD head columns against their plain
+    versions, bf16 and fp32: row 1 (``fused_block``) and rows 7-9 (the
+    training block, ``check_train_block``) at C 1,024 in one head of 1,024,
+    N 9; rows 5 and 6 at C 1,024 in one head, S 1,040; row 2
+    (``gpt2_attn_half``) and rows 11-15 (``check_gpt2_train_layer``) at C
+    2,048 in one head of 2,048, T 40. Then the GPT-2 long attention at hd
+    1,024 and 2,048 timed (``_long_gpt2_attention``) at LONG_WIDE_TIMES,
+    under its rows' entries in ``kernels`` (``long_t{T}_hd{hd}``). Returns
+    the checks."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block as FB
+    from afft_tpu_torch.ops import fused_gpt2 as FG
+    from afft_tpu_torch.ops import fused_seq_block as FS
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        rn = _randn(gen, dt)
+
+        def hold(what, got, want):
+            fin, _, rel = errors(got, want)
+            if not (fin and rel <= KERNEL_TOL[tag]):
+                raise AssertionError(f"long wide {what} {tag}: rel_err="
+                                     f"{rel:.3g}")
+            return 1
+        C, hidden, eps = 1024, 4096, 1e-6
+        p = block_params(C, hidden, dt, gen)
+        x = rn(64, 9, C)
+        with torch.no_grad():
+            n += hold("fused_block (64, 9, 1024) H=1", FB.fused_block(
+                x, p, None, num_heads=1, eps=eps), FB.fused_block_plain(
+                    x, p, None, num_heads=1, eps=eps))
+        check_train_block(tag, dt, 64, 9, C, 1, hidden, gen)
+        S = 1040
+        x, mem = rn(1, S, C), rn(1, S, C)
+        pd = decoder_params(C, hidden, dt, gen)
+        mask = tiled_causal_mask(S // 4, 4)
+        causal = neg_inf_causal_mask(S, device="cuda")
+        with torch.no_grad():
+            n += hold(f"fused_seq_block (1, {S}, 1024) H=1",
+                      FS.fused_seq_block(x, p, mask, num_heads=1, eps=eps),
+                      FS.fused_seq_block_plain(x, p, mask, num_heads=1,
+                                               eps=eps))
+            n += hold(f"fused_decoder_block (1, {S}, 1024) H=1",
+                      FS.fused_decoder_block(x, mem, pd, causal, num_heads=1,
+                                             eps=eps),
+                      FS.fused_decoder_block_plain(x, mem, pd, causal,
+                                                   num_heads=1, eps=eps))
+        del p, pd, x, mem
+        C, hidden, eps, T = 2048, 8192, 1e-5, 40
+        pg = gpt2_params(C, hidden, dt, gen)
+        y = rn(8, T, C)
+        causal = neg_inf_causal_mask(T, device="cuda")
+        with torch.no_grad():
+            n += hold(f"gpt2_attn_half (8, {T}, 2048) H=1",
+                      FG.gpt2_attn_half(y, pg, causal, num_heads=1, eps=eps),
+                      FG.gpt2_attn_half_plain(y, pg, causal, num_heads=1,
+                                              eps=eps))
+        del pg, y
+        check_gpt2_train_layer(tag, dt, 8, T, C, 1, hidden, gen)
+        n += 2
+        torch.cuda.empty_cache()
+    log(f"long wide rows: rows 1, 2, 5-9, 11-15 at hd 1,024 / 2,048 in bf16 "
+        f"and fp32 against their plain versions: {n} checks ok")
+    for hd in (h for h in LONG_EDGE_HD if h > LONG_RES_HD):
+        for B, T in LONG_WIDE_TIMES:
+            fwd, bwd = _long_gpt2_attention(peaks, gen, B, T, 2048 // hd, hd)
+            label = f"long_t{T}_hd{hd}"
+            for name, numbers in (("gpt2_attn_half", fwd),
+                                  ("fused_gpt2_train_fwd", fwd),
+                                  ("fused_gpt2_train_bwd_attn", bwd)):
+                kernels[name][label] = {**numbers, "shape": [B, T, 2048]}
     return n
 
 
@@ -6312,13 +6595,11 @@ def _long_gpt2_rows(peaks, gen, kernels, floors):
     ``floors``); then rows 11-15 in shard mode at tp = 2, T 64."""
     import torch
     from afft_tpu_torch.models.layers import neg_inf_causal_mask
-    from afft_tpu_torch.ops import fused_block_train as FT
     from afft_tpu_torch.ops import fused_gpt2 as FG
     C, H, hidden, eps = 2048, 4, 8192, 1e-5
     hd = C // H
     for T in LONG_GPT2_T:
         mask = neg_inf_causal_mask(T, device="cuda")
-        pairs = T * (T + 1) // 2
         worst = {"attn_half": 0.0, "train": 0.0}
         for dt, rows in ((torch.float32, LONG_FP32_ROWS),
                          (torch.bfloat16, LONG_GPT2_ROWS)):
@@ -6343,33 +6624,8 @@ def _long_gpt2_rows(peaks, gen, kernels, floors):
                 f"{case['worst'][1]:.3g} (tol {GRAD_TOL[tag]:g})")
             del case
             torch.cuda.empty_cache()
-        # the long attention alone, bf16, the layer's arithmetic (GPT-2)
         B = LONG_GPT2_ROWS // T
-        qkv = _randn(gen, torch.bfloat16)(B * T, 3 * C)
-        dao = _randn(gen, torch.float32)(B * T, C)
-        kw = dict(n_tokens=T, num_heads=H, block_idx=4, attn_rate=0.1,
-                  gpt2=True)
-        # the attention site's mask is the same generator in both layers
-        mattn = FT.draw_masks_plain(B, T, C, H, TRAIN_SEEDS, 4, 0.1, 0.0,
-                                    0.0, device="cuda")[0]
-        err = _check_attention_bwd(B, T, H, hd, torch.bfloat16, True, 0.1,
-                                   True, gen)
-        q, k, v = qkv.view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
-        g = dao.to(torch.bfloat16).view(B, T, H, hd).transpose(1, 2)
-        fwd = _long_numbers(
-            peaks, f"row 2 / 11 attention bf16 (B, T)=({B}, {T})",
-            lambda: FT.attention_drop(qkv, mask, TRAIN_SEEDS, **kw),
-            lambda: FT.attention_drop_plain(qkv, mask, mattn, T, H,
-                                            torch.bfloat16),
-            _sdpa_heads(q, k, v, True),
-            _long_work(B, H, pairs, T, T, hd, 2), err)
-        bwd = _long_numbers(
-            peaks, f"row 15 attention backward bf16 (B, T)=({B}, {T})",
-            lambda: FT.attention_drop_bwd(qkv, mask, dao, TRAIN_SEEDS, **kw),
-            lambda: FT.attention_drop_bwd_plain(qkv, mask, mattn, dao, T, H,
-                                                torch.bfloat16),
-            _sdpa_heads(q, k, v, True, grad=g),
-            _long_work(B, H, pairs, T, T, hd, 2, backward=True), err)
+        fwd, bwd = _long_gpt2_attention(peaks, gen, B, T, H, hd)
         if ("fwd", T) in LONG_CUDA_CORE_MS:
             _long_floor(("fwd", T), fwd, floors)
             _long_floor(("bwd", T), bwd, floors)
@@ -6380,7 +6636,6 @@ def _long_gpt2_rows(peaks, gen, kernels, floors):
             **fwd, "max_abs_err": worst["train"], "shape": [B, T, C]}
         kernels["fused_gpt2_train_bwd_attn"][label] = {
             **bwd, "max_abs_err": worst["train"], "shape": [B, T, C]}
-        del qkv, dao, mattn, q, k, v, g
         torch.cuda.empty_cache()
     # rows 11-15 in shard mode, tp = 2: the long route on 2 of 4 heads
     for dt, B in ((torch.float32, LONG_FP32_ROWS // 64),
@@ -6547,19 +6802,21 @@ def _long_seq_rows(peaks, gen, kernels, floors):
         torch.cuda.empty_cache()
 
 
-def _long_serve():
+def _long_serve(over=(), label="a", graph=True):
     """(a) The flagship served at a 64-frame context, B 64 bf16, through
     ``serve.Server``'s served function: the GPT-2 attention half on the
-    long route (6 launches a forward); logits against the plain path; one
-    CUDA graph of the forward at bucket 64 replayed, bit for bit the eager
-    kernel forward. Returns (main-path long launches, numbers)."""
+    long route (6 launches a forward, the tensor-core forms in its
+    profile); logits against the plain path; with ``graph`` one CUDA graph
+    of the forward at bucket 64 replayed, bit for bit the eager kernel
+    forward. ``over``: further overrides ((a'): LONG_WIDE). Returns
+    (main-path long launches, numbers)."""
     import torch
     from afft_tpu_torch import serve
     from afft_tpu_torch.ops import (launch_counts, long_launch_counts,
                                     reset_launches)
     from afft_tpu_torch.serving.graphs import GraphServer
     cfg = serve.load_config(FLAGSHIP,
-                            [f"data_eval.num_frames={LONG_SERVE_T}"])
+                            [f"data_eval.num_frames={LONG_SERVE_T}", *over])
     depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
     server = serve.Server(cfg, {"action": 3806}, "bfloat16", "cuda")
     gen = torch.Generator(device="cuda")
@@ -6573,23 +6830,27 @@ def _long_serve():
     with torch.no_grad():
         out = fn(feats)
     torch.cuda.synchronize()
+    what = f"long serve ({label}) T={LONG_SERVE_T} B={LONG_BATCH} {over}"
     expected = {"fused_block": depth, "gpt2_attn_half": layers,
                 "gpt2_mlp_half": layers}
-    _counts_ok("long serve T=64", launch_counts(), expected)
+    _counts_ok(what, launch_counts(), expected)
     long = long_launch_counts()
-    _counts_ok("long serve T=64 (long route)", long,
-               {"gpt2_attn_half": layers})
-    numbers = {"plain": _hold_plain(f"long serve T={LONG_SERVE_T} "
-                                    f"B={LONG_BATCH}", server, feats, out)}
+    _counts_ok(f"{what} (long route)", long, {"gpt2_attn_half": layers})
+    numbers = {"plain": _hold_plain(what, server, feats, out),
+               "overrides": list(over)}
     with torch.no_grad():
         numbers["forward_ms"] = time_ms(lambda: fn(feats), iters=10)
-    prof = _long_profile(lambda: fn(feats), f"long serve T={LONG_SERVE_T} "
-                         f"B={LONG_BATCH} forward",
+    prof = _long_profile(lambda: fn(feats), f"{what} forward",
                          {k: n * layers for k, n in LONG_MMA["serve"].items()})
-    _long_profile_ok(f"serve T={LONG_SERVE_T}", prof["kernels"],
-                     LONG_MMA["serve"])
+    _long_profile_ok(what, prof["kernels"], LONG_MMA["serve"])
     numbers["profile"] = {k: prof[k] for k in ("busy_ms", "wall_ms",
                                                 "groups_ms")}
+    log(f"{what}: launches {expected} ({layers} gpt2_attn_half on the long "
+        f"route), forward {numbers['forward_ms']:.3f} ms")
+    if not graph:
+        del server, feats
+        torch.cuda.empty_cache()
+        return {k: n for k, n in long.items() if n}, numbers
     graphs = GraphServer(server, [LONG_BATCH])
     if graphs.capture_launches[LONG_BATCH] != expected:
         raise AssertionError(f"long serve graph: launches at capture "
@@ -6601,10 +6862,8 @@ def _long_serve():
         eager = fn(feats)
     torch.cuda.synchronize()
     same = torch.equal(replay, eager)
-    log(f"long serve T={LONG_SERVE_T} B={LONG_BATCH}: launches {expected} "
-        f"({layers} gpt2_attn_half on the long route), forward "
-        f"{numbers['forward_ms']:.3f} ms; CUDA graph at bucket {LONG_BATCH}: "
-        f"replay bit for bit the eager forward: {same}")
+    log(f"{what}: CUDA graph at bucket {LONG_BATCH}: replay bit for bit the "
+        f"eager forward: {same}")
     if not same:
         raise AssertionError("long serve: graph replay differs from the "
                              "eager forward")
@@ -6614,12 +6873,133 @@ def _long_serve():
     return {k: n for k, n in long.items() if n}, numbers
 
 
+def _long_grad_step(label, over, three_way=False, profile=False):
+    """One step's gradients at T 48 (``over``: further overrides) through
+    the kernels against ``impl="plain"`` from the same weights on the same
+    masks, B LONG_GRAD_BATCH, each step's launches asserted (the GPT-2
+    entries on the long route): fp32, every tensor within 1e-4 of its
+    max|grad|; bf16, every tensor within 2e-2. ``three_way``: in bf16 a
+    third runner, the plain path in fp32 from the same weights, and each
+    tensor's three distances logged (kernel bf16 and plain bf16 against
+    plain fp32, kernel against plain bf16; the table in LONG_GRAD_TABLE).
+    ``profile``: one more kernel step of each dtype traced, bf16 launching
+    the tensor-core long kernels (LONG_MMA), fp32 the CUDA-core ones
+    (LONG_CC). Returns (the kernel steps' launches on the long route,
+    numbers)."""
+    import torch
+    from afft_tpu_torch import serve
+    from afft_tpu_torch.ops import (launch_counts, long_launch_counts,
+                                    reset_launches)
+    from afft_tpu_torch.train.runner import Runner
+    cfg = serve.load_config(os.path.join(EXPTS, TRAIN_EXPT), [
+        f"data_train.num_frames={LONG_TRAIN_T}", *over])
+    depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
+    warmup = int(cfg.opt.warmup.num_epochs)
+    expected = {**{n: depth for n, _ in TRAIN_KERNELS["fused_block_train"][:3]},
+                **{n: layers for n, _ in TRAIN_KERNELS["fused_gpt2_train"][:3]}}
+    expected_long = {"fused_gpt2_train_fwd": layers,
+                     "fused_gpt2_train_bwd_attn": layers}
+    what = f"long train ({label}) T={LONG_TRAIN_T} B={LONG_GRAD_BATCH} {over}"
+    batch = synthetic_batches(cfg, LONG_GRAD_BATCH, 1, seed=48)[0]
+    numbers, long_total = {"overrides": list(over)}, {}
+    for dt, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        kernel = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                                    iters_per_epoch=1, compute_dtype=dt)
+        weights = kernel.model.state_dict()
+        plain = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
+                                   iters_per_epoch=1, compute_dtype=dt,
+                                   impl="plain", weights=weights)
+        # the masters' state_dict is live: every runner from the same
+        # weights is built before the first step
+        plain32 = Runner.from_config(
+            cfg, TRAIN_CLASSES, device="cuda", iters_per_epoch=1,
+            compute_dtype="float32", impl="plain", weights=weights) \
+            if three_way and dt == "bfloat16" else None
+        lr = kernel.lr_schedule(warmup, kernel.base_lr)
+        reset_launches()
+        loss_k = float(kernel.train_step(batch, lr, kernel.base_lr)[0]
+                       ["total_loss"])
+        _counts_ok(f"{what} {dt} kernels", launch_counts(), expected)
+        _counts_ok(f"{what} {dt} kernels (long route)", long_launch_counts(),
+                   expected_long)
+        for k, n in expected_long.items():
+            long_total[k] = long_total.get(k, 0) + n
+        loss_p = float(plain.train_step(batch, lr, plain.base_lr)[0]
+                       ["total_loss"])
+        rels = _grad_rels(kernel, plain)
+        worst = max((v, k) for k, v in rels.items())
+        if plain32 is not None:
+            plain32.train_step(batch, lr, plain32.base_lr)
+            numbers["three_way"] = _long_three_way(kernel, plain, plain32,
+                                                   rels)
+            del plain32
+        log(f"{what} {dt}: one step through the kernels (loss {loss_k:.6f}) "
+            f"and through the plain versions ({loss_p:.6f}) on the same "
+            f"masks: every tensor within {worst[0]:.3g} of max|grad| "
+            f"({worst[1]}; tol {tol:g})")
+        if not (math.isfinite(loss_k) and worst[0] <= tol):
+            raise AssertionError(f"{what} {dt}: the kernel path's gradients "
+                                 "stray from the plain path's")
+        numbers[f"grad_rel_{dt}"] = list(worst)
+        if profile:
+            forms, tag = (LONG_MMA, "tensor-core") if dt == "bfloat16" \
+                else (LONG_CC, "CUDA-core")
+            prof = _long_profile(
+                lambda: kernel.train_step(batch, lr, kernel.base_lr),
+                f"{what} {dt} step",
+                {k: n * layers for k, n in forms["train"].items()}, grad=True)
+            _long_profile_ok(f"{what} {dt} ({tag})", prof["kernels"],
+                             forms["train"])
+            numbers[f"profile_{dt}"] = {k: prof[k] for k in (
+                "busy_ms", "wall_ms", "groups_ms")}
+        del kernel, plain, weights
+        torch.cuda.empty_cache()
+    return long_total, numbers
+
+
+LONG_GRAD_TABLE = os.path.join(REPO, "build", "chip_smoke",
+                               "long_grad_rel.json")
+
+
+def _long_three_way(kernel, plain, plain32, rels):
+    """The bf16 step's three distances per tensor (``_long_grad_step``):
+    kernel bf16 against plain fp32, plain bf16 against plain fp32 (a plain
+    fp32 runner's step from the same weights, on the same masks: Philox of
+    the element index), kernel against plain bf16 (``rels``). Logs each
+    tensor, writes the table to LONG_GRAD_TABLE; returns each distance's
+    worst tensor, the fuser's and the GPT-2 predictor's worst, and
+    ``fuser.modal_token``'s."""
+    table = {"kernel_bf16_vs_plain_fp32": _grad_rels(kernel, plain32),
+             "plain_bf16_vs_plain_fp32": _grad_rels(plain, plain32),
+             "kernel_bf16_vs_plain_bf16": rels}
+    for name in rels:
+        log(f"long grad3 {name}: " + " ".join(
+            f"{key.replace('_vs_', '/')} {t[name]:.3e}"
+            for key, t in table.items()))
+    os.makedirs(os.path.dirname(LONG_GRAD_TABLE), exist_ok=True)
+    with open(LONG_GRAD_TABLE, "w") as f:
+        json.dump(table, f, indent=1)
+    out = {}
+    for key, t in table.items():
+        out[key] = {"worst": max((v, k) for k, v in t.items()),
+                    **{f"{part}_worst": max(((v, k) for k, v in t.items()
+                                             if f".{part}." in k),
+                                            default=None)
+                       for part in ("fuser", "gpt_model")},
+                    "modal_token": [v for k, v in t.items()
+                                    if k.endswith(".fuser.modal_token")]}
+    log(f"long grad3 worst: {out}")
+    return out
+
+
 def _long_train():
     """(b) The flagship trained at 48 frames: one step's gradients through
-    the kernels against ``impl="plain"`` at B 8 (fp32: every tensor within
-    1e-4 of its max|grad|; bf16: the GPT-2 predictor's within 2e-2, every
-    tensor's reported), then 5 bf16 steps at B 64 with finite, falling
-    losses; (c) the rollout in training (T 16,
+    the kernels against ``impl="plain"`` at B 8 (``_long_grad_step``: fp32
+    every tensor within 1e-4 of its max|grad|, bf16 every tensor within
+    2e-2, and the bf16 step's three distances per tensor), then 5 bf16
+    steps at B 64 with finite, falling losses; (b') the same one-step
+    comparison with the predictor in 2 heads of 1,024 (LONG_WIDE), the
+    kernel steps profiled; (c) the rollout in training (T 16,
     fp_output_len 20: 35 tokens in the last pass), 3 bf16 steps at B 32.
     Every step's launches asserted. Returns (main-path long launches,
     numbers)."""
@@ -6641,44 +7021,13 @@ def _long_train():
                 {"fused_gpt2_train_fwd": layers * long_passes,
                  "fused_gpt2_train_bwd_attn": layers * long_passes})
 
-    numbers, long_total = {}, {}
-    expected, expected_long = per_step(1, 1)
-    batch = synthetic_batches(cfg, LONG_GRAD_BATCH, 1, seed=48)[0]
-    for dt, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
-        kernel = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
-                                    iters_per_epoch=1, compute_dtype=dt)
-        plain = Runner.from_config(cfg, TRAIN_CLASSES, device="cuda",
-                                   iters_per_epoch=1, compute_dtype=dt,
-                                   impl="plain",
-                                   weights=kernel.model.state_dict())
-        lr = kernel.lr_schedule(warmup, kernel.base_lr)
-        reset_launches()
-        loss_k = float(kernel.train_step(batch, lr, kernel.base_lr)[0]
-                       ["total_loss"])
-        _counts_ok(f"long train T=48 {dt} kernels", launch_counts(),
-                   expected)
-        _counts_ok(f"long train T=48 {dt} kernels (long route)",
-                   long_launch_counts(), expected_long)
-        loss_p = float(plain.train_step(batch, lr, plain.base_lr)[0]
-                       ["total_loss"])
-        worst = _grad_rel(kernel, plain)
-        # fp32: every tensor; bf16: the GPT-2 predictor's, the layers on the
-        # long route (the fuser's short-route tensors read up to 2.02e-2 in
-        # bf16 against the plain path, a reading of the whole model's bf16
-        # rounding that this phase reports and does not hold)
-        held = worst if dt == "float32" else _grad_rel(
-            kernel, plain, lambda name: ".gpt_model." in name)
-        log(f"long train T={LONG_TRAIN_T} {dt} B={LONG_GRAD_BATCH}: one step "
-            f"through the kernels (loss {loss_k:.6f}) and through the plain "
-            f"versions ({loss_p:.6f}) on the same masks: gradients per "
-            f"tensor within {worst[0]:.3g} of max|grad| ({worst[1]}); held: "
-            f"{held[0]:.3g} ({held[1]}; tol {tol:g})")
-        if not (math.isfinite(loss_k) and held[0] <= tol):
-            raise AssertionError(f"long train T=48 {dt}: the kernel path's "
-                                 "gradients stray from the plain path's")
-        numbers[f"grad_rel_{dt}"] = {"all": list(worst), "held": list(held)}
-        del kernel, plain
-        torch.cuda.empty_cache()
+    long_total, numbers = {}, {}
+    for key, label, over, kw in (("grads", "b", [], dict(three_way=True)),
+                                 ("grads_wide", "b'", LONG_WIDE,
+                                  dict(profile=True))):
+        long, numbers[key] = _long_grad_step(label, over, **kw)
+        for k, n in long.items():
+            long_total[k] = long_total.get(k, 0) + n
     for label, over, B, steps, passes, long_passes in (
             ("t48", [f"data_train.num_frames={LONG_TRAIN_T}"], LONG_BATCH,
              LONG_STEPS, 1, 1),
@@ -6748,13 +7097,16 @@ def _long_train():
 
 
 def phase_long(peaks, kernels):
-    """16. Long contexts on the long attention route (ROADMAP §C.3, §B.2):
-    (a) the flagship served at T 64, (b) trained at T 48, (c) its rollout in
-    training over 35 tokens, each through the entry points a user calls,
-    the profiles of (a) and (b) showing the tensor-core forms and no
-    CUDA-core long kernel; (d) every long route at full width against
-    its plain version, the tensor-core forms at their edges
-    (``_long_edges``), its keep pattern bit for bit, each timed beside
+    """16. Long contexts on the long attention route (ROADMAP §C.3, §C.7,
+    §B.2): (a) the flagship served at T 64, (a') again with its predictor
+    in 2 heads of 1,024 (LONG_WIDE), (b) trained at T 48 (and (b') one
+    step in 2 heads of 1,024), (c) its rollout in training over 35 tokens,
+    each through the entry points a user calls, the profiles of (a), (a')
+    and (b) showing the tensor-core forms and no CUDA-core long kernel
+    ((b')'s fp32 step the CUDA-core ones); (d) every long route at full
+    width against its plain version, the long forms at their edges
+    (``_long_edges``, hd to 2,048), the entries past LONG_RES_HD
+    (``_long_wide_rows``), its keep pattern bit for bit, each timed beside
     its plain version, SDPA and its bound, under its row's entry in
     ``kernels`` (``long_*``), the tensor-core forms held to a quarter of
     the CUDA-core route's times (``floors`` of the numbers returned: the
@@ -6766,9 +7118,10 @@ def phase_long(peaks, kernels):
     from afft_tpu_torch.ops import long_launch_counts, reset_launches
     t0 = time.perf_counter()
     serve_long, serve_numbers = _long_serve()
+    wide_long, wide_numbers = _long_serve(LONG_WIDE, "a'", graph=False)
     train_long, train_numbers = _long_train()
     main = dict(serve_long)
-    for k, n in train_long.items():
+    for k, n in (*wide_long.items(), *train_long.items()):
         main[k] = main.get(k, 0) + n
     gen = torch.Generator(device="cuda")
     gen.manual_seed(16)
@@ -6779,6 +7132,7 @@ def phase_long(peaks, kernels):
     _long_gpt2_rows(peaks, gen, kernels, floors)
     _long_fuser_rows(peaks, gen, kernels)
     _long_seq_rows(peaks, gen, kernels, floors)
+    wide = _long_wide_rows(peaks, gen, kernels)
     checks = long_launch_counts()
     for name in LONG_ROWS:
         kernels[name]["long_launches"] = main.get(name, 0)
@@ -6791,8 +7145,9 @@ def phase_long(peaks, kernels):
     seconds = time.perf_counter() - t0
     log(f"long: main-path launches on the long route {main}; kernel-level "
         f"{ {k: n for k, n in checks.items() if n} }; phase {seconds:.1f} s")
-    return {"serve": serve_numbers, "train": train_numbers,
-            "keep_elements": keep, "edge_checks": edges,
+    return {"serve": serve_numbers, "serve_wide": wide_numbers,
+            "train": train_numbers, "keep_elements": keep,
+            "edge_checks": edges, "wide_row_checks": wide,
             "edge_worst_abs_err": edge_worst, "floors": floors,
             "main_path_long_launches": main, "seconds": seconds}
 
@@ -6811,6 +7166,14 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     try:
+        # each phase's seconds (phase_seconds, logged before the report)
+        seconds, t_mark = {}, [time.perf_counter()]
+
+        def mark(phase):
+            now = time.perf_counter()
+            seconds[phase] = round(now - t_mark[0], 1)
+            t_mark[0] = now
+
         # 1. device
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6832,12 +7195,15 @@ def main():
         log(f"build: {time.perf_counter() - t0:.2f} s -> "
             f"{os.path.relpath(lib_path, REPO)}")
         report_build(lib_path)
+        sass = start_sass_check(lib_path)
 
+        mark("2 build")
         # 3. gemm
         gen = torch.Generator(device="cuda")
         gen.manual_seed(2)
         log(json.dumps({"gemm": phase_gemm(peaks, gen)}))
 
+        mark("3 gemm")
         # 4. kernels
         kernels = phase_kernels(peaks)
         gen = torch.Generator(device="cuda")
@@ -6847,10 +7213,12 @@ def main():
         for name, numbers in phase_tp_kernels(peaks, gen).items():
             kernels[name]["tp"] = numbers
 
+        mark("4 kernels")
         # 5. serve
         launches, serve_numbers = phase_serve()
         log(json.dumps({"serve": serve_numbers}))
 
+        mark("5 serve")
         # 6. train
         train_launches, train_numbers = phase_train()
         launches.update({k: n for k, n in train_launches.items() if n})
@@ -6870,24 +7238,30 @@ def main():
             k["launches"] = launches[k["name"]]
         log(json.dumps({"train": train_numbers}))
 
+        mark("6 train")
         # 7. expt 99
         log(json.dumps({"expt99": phase_expt99()}))
 
+        mark("7 expt 99")
         # 8. the launcher (this slice's main path, in its own processes)
         launcher_launches, launcher_numbers = phase_launcher()
         for k in kernels.values():
             k["launcher_launches"] = launcher_launches[k["name"]]
         log(json.dumps({"launcher": launcher_numbers}))
+        finish_sass_check(sass)
 
+        mark("8 launcher")
         # 9. eval (the eval CLI on the launcher's checkpoint)
         eval_launches, eval_numbers = phase_eval()
         for k in kernels.values():
             k["eval_launches"] = eval_launches[k["name"]]
         log(json.dumps({"eval": eval_numbers}))
 
+        mark("9 eval")
         # 10. dp (torchrun: -n 1 over NCCL, two processes over gloo)
         log(json.dumps({"dp": phase_dp()}))
 
+        mark("10 dp")
         # 11. variants (expts 00 and 05 served and trained, 03 and 04
         # trained, expt 05's model through the launcher)
         t0 = time.perf_counter()
@@ -6897,6 +7271,7 @@ def main():
         variant_numbers["seconds"] = time.perf_counter() - t0
         log(json.dumps({"variants": variant_numbers}))
 
+        mark("11 variants")
         # 12. serving extras (bundles as CUDA graphs per bucket, int8
         # transport and top-k, the concurrent server; the int8 device cache,
         # -m test on it and -m visualize_attention on phase 8's checkpoint)
@@ -6908,6 +7283,7 @@ def main():
         extras["seconds"] = time.perf_counter() - t0
         log(json.dumps({"serving_extras": extras}))
 
+        mark("12 serving extras")
         # 13. training options (grad_accum, bf16 masters and optimizer
         # state, stochastic rounding, the launcher with them, ZeRO-1)
         t0 = time.perf_counter()
@@ -6917,6 +7293,7 @@ def main():
         options["seconds"] = time.perf_counter() - t0
         log(json.dumps({"options": options}))
 
+        mark("13 training options")
         # 14. pipeline parallelism (GPipe stages as gloo processes on the
         # card: the flagship against one process, data2 x pipe2 with
         # ZeRO-1, the launcher and -m test on its checkpoint)
@@ -6927,6 +7304,7 @@ def main():
                 for run, by_rank in pipeline_launches.items()}
         log(json.dumps({"pipeline": pipeline}))
 
+        mark("14 pipeline")
         # 15. tensor and sequence parallelism (model ranks as gloo processes
         # on the card: the flagship at data1 x model2 against phase 14's one
         # process, the dry run of every parallel layout on 8 processes)
@@ -6937,12 +7315,16 @@ def main():
                 for run, by_rank in tp_launches.items()}
         log(json.dumps({"tp": tp}))
 
+        mark("15 tp")
         # 16. long contexts (the long attention route: the flagship served
         # at T 64, trained at T 48 and over a 35-token rollout; every long
         # route at full width against its plain version)
         log(json.dumps({"long": phase_long(peaks, kernels)}))
+        mark("16 long")
+        log(json.dumps({"phase_seconds": seconds}))
     except Exception:  # noqa: BLE001 - any failure fails the smoke test
         traceback.print_exc()
+        _stop_runs()
         log("FAIL")
         return 1
 

@@ -1,14 +1,16 @@
 """The GPT-2 training layer of the port against the JAX package, on the CPU.
 
 ``ops.fused_gpt2_train.fused_gpt2_block_train`` on CPU tensors runs its plain
-version, whose backward is torch.autograd. The references are the JAX
-package's own: ``pallas_gpt2_train.fused_gpt2_block_train`` in interpret
-mode (custom VJP through the Pallas backward kernels and the XLA dW / db
-products), ``pallas_gpt2_train.gpt2_block_reference_with_masks`` and
+version, whose backward is the backward kernels' plain version
+(``fused_block_train.block_train_bwd_plain``) under torch.autograd. The
+references are the JAX package's own:
+``pallas_gpt2_train.fused_gpt2_block_train`` in interpret mode (custom VJP
+through the Pallas backward kernels and the XLA dW / db products),
+``pallas_gpt2_train.gpt2_block_reference_with_masks`` and
 ``BaseFuturePredictor._block(train=False)`` under ``jax.grad``. Inputs come
-from numpy seeds; fp32 throughout. Parameters and gradients cross over
-through ``weights.gpt2_block_from_jax`` (c_attn re-interleaved from the JAX
-heads-major packing to [q | k | v]).
+from numpy seeds; fp32 but in the bf16 cast-chain tests. Parameters and
+gradients cross over through ``weights.gpt2_block_from_jax`` (c_attn
+re-interleaved from the JAX heads-major packing to [q | k | v]).
 
 Tolerances (only the summation order differs between the two frameworks):
 forward 2e-5; dx rtol 1e-4, atol 2e-5; parameter gradients rtol 1e-4, atol
@@ -199,6 +201,60 @@ def test_bf16_forward_follows_the_pallas_cast_chain():
         diff = np.abs(g.float().numpy() - want)
         assert (diff == 0).mean() >= 0.99, name
         assert diff.max() <= 2.0 ** -7 * np.abs(want).max(), name
+
+
+def test_bf16_gradients_follow_the_pallas_cast_chain():
+    """bf16 at rates 0 (B 4, T 4, C 128, H 1): the plain version's output,
+    dx and every parameter gradient (its backward
+    ``block_train_bwd_plain`` with the GPT-2 layer's cast chain) against
+    the Pallas custom VJP in interpret mode, per tensor within 8e-3 of the
+    tensor's max |value| (two bf16 ulps): only the order of fp32 sums
+    differs. Worst reading 3.1e-3 (``attn.c_attn.weight``). Plain autograd
+    through the same forward, which rounds where the forward's casts lie,
+    strays further (6.6e-3)."""
+    B, T, C, H = 4, 4, 128, 1
+    bf = jnp.bfloat16
+    params = jax.tree.map(lambda a: a.astype(bf), _jax_layer(C, seed=3))
+    x_np, cot_np = _inputs(B, T, C, seed=4)
+    mask = _causal(T)
+
+    def pallas(x, p):
+        return PGT.fused_gpt2_block_train(
+            x, p, jnp.asarray(mask), jnp.asarray(SEEDS, jnp.int32),
+            num_heads=H, layer_idx=2, block_b=B,
+            interpret=PGT._interpret_params(True))
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+    xb = jnp.asarray(x_np).astype(bf)
+    gx, gp = jax.grad(
+        lambda x, p: jnp.sum(pallas(x, p).astype(jnp.float32)
+                             * jnp.asarray(cot_np)), argnums=(0, 1))(xb, params)
+    refs = {"out": f32(pallas(xb, params)), "dx": f32(gx),
+            **{k: v.numpy() for k, v in W.gpt2_block_from_jax(
+                jax.tree.map(f32, gp), H).items()}}
+    assert len(refs) == 2 + len(FGT.KEYS)
+    masks = FGT.draw_masks_gpt2_plain(B, T, C, H, SEEDS, 2, 0.0, 0.0)
+
+    def worst(fn):
+        """The largest per-tensor distance of ``fn``'s output, dx and
+        gradients from the Pallas VJP's, over max|ref|."""
+        x = torch.tensor(f32(xb)).to(torch.bfloat16).requires_grad_(True)
+        p = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in
+             W.gpt2_block_from_jax(jax.tree.map(f32, params), H).items()}
+        out = fn(x, p)
+        out.float().backward(torch.tensor(cot_np))
+        got = {"out": out.detach(), "dx": x.grad,
+               **{k: v.grad for k, v in p.items()}}
+        assert set(got) == set(refs)
+        return max((np.abs(got[k].float().numpy() - ref).max()
+                    / np.abs(ref).max(), k) for k, ref in refs.items())
+    kernels_chain = worst(lambda x, p: FGT.fused_gpt2_block_train_plain(
+        x, p, torch.tensor(mask), masks, num_heads=H))
+    assert kernels_chain[0] <= 8e-3, kernels_chain
+    autograd = worst(lambda x, p: FGT._gpt2_train_fwd_plain(
+        x, p, torch.tensor(mask), masks, H, 1e-5)[0])
+    assert kernels_chain[0] < autograd[0], (kernels_chain, autograd)
 
 
 def masks_to_jax_tile(masks, B, T, C, H):

@@ -63,9 +63,13 @@ def _configs(expt, more=()):
             compose(CONF_DIR, overrides))
 
 
-def _models(jcfg, tcfg, seed=7):
+def _models(jcfg, tcfg, seed=7, jit_init=False):
+    """The JAX model, its parameters (drawn by ``init``, jitted with
+    ``jit_init``: one compile in place of an op-by-op draw) and the port's
+    model on the same weights."""
     jmodel = JaxBaseModel(jcfg.model, num_classes=NUM_CLASSES)
-    jparams = jmodel.init(jax.random.key(seed))
+    init = jax.jit(jmodel.init) if jit_init else jmodel.init
+    jparams = init(jax.random.key(seed))
     model = BaseModel(tcfg.model, num_classes=NUM_CLASSES)
     model.load_state_dict(W.state_dict_from_jax(
         model, jax.tree.map(np.asarray, jparams)), strict=True)
@@ -142,6 +146,24 @@ def test_predictor_past_32_tokens_matches_jax(T):
     got = _outputs_match(*_models(jcfg, tcfg), _features(tcfg, 2, seed=T))
     assert got["logits/action//all-fused"].shape == (2, 1, 23)
     assert got["past_logits/action//all-fused"].shape == (2, T, 23)
+
+
+def test_gpt2_head_width_1024_matches_jax():
+    """Past 32 tokens at a head width over 768 (the long route's streamed
+    form on the card): a 1-layer GPT-2 at n_embd 1,024 with one head (hd
+    1,024), T 40: every output of the eval forward, then every parameter's
+    gradient of the training pass (dropout 0)."""
+    jcfg, tcfg = _configs(VAL, NARROW + NO_DROPOUT + [
+        "model.common.fp_inter_dim=1024", "model.common.fp_layers=1",
+        "model.common.fp_heads=1", "data_eval.num_frames=40"])
+    jmodel, jparams, model = _models(jcfg, tcfg, seed=10, jit_init=True)
+    predictor = model.future_predictor.predictors()["shared"]
+    assert predictor.n_head == 1 and predictor.gpt_model.wpe.weight.shape[1] \
+        == 1024 and len(predictor.gpt_model.h) == 1
+    feats = _features(tcfg, 2, seed=1024)
+    got = _outputs_match(jmodel, jparams, model, feats)
+    assert got["past_logits/action//all-fused"].shape == (2, 40, 23)
+    _gradients_match(jmodel, jparams, model, feats)
 
 
 def test_train_step_at_40_frames_matches_jax():
@@ -285,14 +307,16 @@ def test_synth_smoke_slice_at_40_frames_matches_jax():
                                          ("keys", 1024)])
 def test_length_rule(kind, short):
     """``check_length``: any length from 1; past the short kernel's the long
-    route, which takes hd up to ``LONG_MAX_HD`` and a bounded query
-    count; no length is refused below those."""
+    route, which takes any head width (past 768 columns its kernels stream
+    their operand rows) and a bounded query count; no length is refused
+    below that count."""
     rule = _common.check_length
     assert rule("t", kind, 1, 64) is False
     assert rule("t", kind, short, 4096) is False       # short: any hd
-    assert rule("t", kind, short + 1, _common.LONG_MAX_HD) is True
+    for hd in (768, 769, 1024, 4096):                  # long: any hd
+        assert rule("t", kind, short + 1, hd) is True
     assert rule("t", kind, 100_000, 64) is True
-    for n, hd, queries in ((0, 64, None), (short + 1, 769, None),
+    for n, hd, queries in ((0, 64, None),
                            (short + 1, 64, _common.LONG_MAX_QUERIES + 1)):
         with pytest.raises(ValueError):
             rule("t", kind, n, hd, n_queries=queries)
@@ -348,10 +372,12 @@ def _source(name):
 
 def test_length_rule_matches_the_kernels():
     """The Python rule's lengths are the CUDA sources' own: the short
-    kernels' limits (``FR_MAX_N``, ``AS_MAX_N``, ``FS_MAX_KEYS``), the
-    long route's head width (``LA_MAX_HD``) and its query count: the
-    smallest query tile of either form's grids (``LA_TILE``, the tensor-core
-    forms' 16-query strip) at most 65,535 tiles, as the launchers check."""
+    kernels' limits (``FR_MAX_N``, ``AS_MAX_N``, ``FS_MAX_KEYS``) and the
+    long route's query count: the smallest query tile of either form's
+    grids (``LA_TILE``, the tensor-core forms' 16-query strip) at most
+    65,535 tiles, as the launchers check. Like the rule, neither launcher
+    refuses a head width above 0: their checks bound hd from below only,
+    and neither source names a largest hd."""
     def constant(source, name):
         m = re.search(rf"constexpr int {name} = (\d+);", _source(source))
         assert m, (source, name)
@@ -360,7 +386,6 @@ def test_length_rule_matches_the_kernels():
         "fuser": constant("fuser_attention.cuh", "FR_MAX_N"),
         "gpt2": constant("staged_attention.cuh", "AS_MAX_N"),
         "keys": constant("fuser_attention.cuh", "FS_MAX_KEYS")}
-    assert _common.LONG_MAX_HD == constant("long_attention.cuh", "LA_MAX_HD")
     tile = constant("long_attention.cuh", "LA_TILE")
     assert _common.LONG_MAX_QUERIES == 65535 * tile
     text = _source("long_attention.cu")
@@ -369,6 +394,16 @@ def test_length_rule_matches_the_kernels():
     for grid in ("(a.Nq + LA_TILE - 1) / LA_TILE > 65535",
                  "(a.Nk + LA_TILE - 1) / LA_TILE > 65535"):
         assert grid in text
+    assert not hasattr(_common, "LONG_MAX_HD")
+    for source in ("long_attention.cuh", "long_attention.cu"):
+        assert "MAX_HD" not in _source(source)
+    for head in ("cudaError_t launch_long_attention(const LongAttn& a, "
+                 "cudaStream_t", "cudaError_t launch_long_attention_bwd("
+                 "const LongAttn& a,"):
+        body = _body(text, head)
+        checks = body[:body.index("return cudaErrorInvalidValue")]
+        assert "a.hd < 1" in checks
+        assert not re.search(r"\ba\.hd\s*(>|<=)", checks), checks
 
 
 # Each entry's long route, by the instance it launches: launch_long_attention

@@ -1,12 +1,14 @@
 """The training block of the port against the JAX package, on the CPU.
 
 ``ops.fused_block_train`` on CPU tensors runs its plain version, whose
-backward is torch.autograd. The references are the JAX package's own:
+backward is the backward kernels' plain version (``block_train_bwd_plain``)
+under torch.autograd. The references are the JAX package's own:
 ``pallas_block_train.fused_block_train`` in interpret mode (custom VJP
 through the Pallas backward kernels), ``blocks.block_apply`` and
 ``pallas_block_train.block_reference_with_masks`` under ``jax.grad``. Inputs
-come from numpy seeds; fp32 throughout. Parameters and gradients cross over
-through ``weights.block_from_jax`` (Linear weights transposed).
+come from numpy seeds; fp32 but in the bf16 cast-chain test. Parameters and
+gradients cross over through ``weights.block_from_jax`` (Linear weights
+transposed).
 
 Tolerances (only the summation order differs between the two frameworks):
 forward 2e-5; dx rtol 1e-4, atol 2e-5; parameter gradients rtol 1e-4, atol
@@ -192,6 +194,65 @@ def test_nonzero_rates_keep_all_masks_match_pallas_vjp():
     zero = FT.fused_block_train(torch.tensor(x_np), W.block_from_jax(
         jax.tree.map(np.asarray, params)), None, SEEDS, num_heads=H)
     assert not np.allclose(out, zero.numpy(), atol=1e-3)
+
+
+def test_bf16_cast_chain_matches_pallas_vjp():
+    """bf16 at rates 0 (N 5, C 128, H 1, R 16): ``fused_block_train_plain``
+    (its backward ``block_train_bwd_plain``, the backward kernels' cast
+    chain) against the Pallas custom VJP in interpret mode, which rounds
+    qkv, the stashed pre1 and y, dh2, dpre1, dy, dproj and dqkv to bf16 and
+    keeps dh1, dg, d(attention output) and dxn in fp32
+    (pallas_block_train.py:203-330). The output, dx and every parameter
+    gradient per tensor within 8e-3 of the tensor's max |value| (two bf16
+    ulps): the two differ only in the order of fp32 sums, which moves a
+    value across a rounding boundary now and then. Worst reading 3.6e-3
+    (the output; the gradients up to 3.5e-3, ``mlp.mlp.0.weight``). Plain
+    autograd through the same forward, which rounds where the forward's
+    casts lie, strays further (7.2e-3)."""
+    N, C, H, R = 5, 128, 1, 16
+    bf16 = jnp.bfloat16
+    params = jax.tree.map(lambda a: a.astype(bf16), _jax_block(C, H, seed=7))
+    x_np, cot_np = _inputs(R, N, C, seed=8)
+    x_tm = jnp.asarray(x_np.transpose(1, 0, 2)).astype(bf16)
+    cot_tm = jnp.asarray(cot_np.transpose(1, 0, 2))
+
+    def pallas(x, p):
+        return PBT.fused_block_train(x, p, None, jnp.asarray(SEEDS, jnp.int32),
+                                     num_heads=H, block_idx=2, eps=1e-6,
+                                     block_r=16, interpret=True)
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+    want = f32(pallas(x_tm, params)).transpose(1, 0, 2)
+    gx, gp = jax.grad(
+        lambda x, p: jnp.sum(pallas(x, p).astype(jnp.float32) * cot_tm),
+        argnums=(0, 1))(x_tm, params)
+    refs = {"out": want, "dx": f32(gx).transpose(1, 0, 2),
+            **{k: v.numpy() for k, v in W.block_from_jax(
+                jax.tree.map(f32, gp)).items()}}
+    masks = FT.draw_masks_plain(R, N, C, H, SEEDS, 2, 0.0, 0.0, 0.0)
+
+    def worst(fn):
+        """The largest per-tensor distance of ``fn``'s output, dx and
+        gradients from the Pallas VJP's, over max|ref|."""
+        x = torch.tensor(f32(x_tm).transpose(1, 0, 2))
+        x = x.to(torch.bfloat16).requires_grad_(True)
+        p = {k: v.to(torch.bfloat16).requires_grad_(True)
+             for k, v in W.block_from_jax(jax.tree.map(f32, params)).items()}
+        out = fn(x, p)
+        assert out.dtype == torch.bfloat16
+        out.float().backward(torch.tensor(cot_np))
+        got = {"out": out.detach(), "dx": x.grad,
+               **{k: v.grad for k, v in p.items()}}
+        assert set(got) == set(refs)
+        return max((np.abs(got[k].float().numpy() - ref).max()
+                    / np.abs(ref).max(), k) for k, ref in refs.items())
+    kernels_chain = worst(lambda x, p: FT.fused_block_train_plain(
+        x, p, None, masks, num_heads=H))
+    assert kernels_chain[0] <= 8e-3, kernels_chain
+    autograd = worst(lambda x, p: FT._block_train_fwd_plain(
+        x, p, None, masks, H, 1e-6)[0])
+    assert kernels_chain[0] < autograd[0], (kernels_chain, autograd)
 
 
 def masks_to_jax_tile(masks, R, N, C, H):
