@@ -25,8 +25,9 @@
 // (~0.15 ms at 3.35 TB/s) the TPU kernel avoided.
 //
 // Limits: any R and N (past 8 tokens the long route), H * hd = C (any hd),
-// C % 8 == 0, hidden % 8 == 0, fp32 or bf16; norm affine and qkv bias
-// optional (null pointers).
+// any hidden, fp32 or bf16; in bf16, where C or hidden is not a multiple of
+// 8, the pack arena the wrapper sets (gemm_sm90.cuh PackArena); norm affine
+// and qkv bias optional (null pointers).
 
 #include "fuser_attention.cuh"
 #include "gemm_sm90.cuh"

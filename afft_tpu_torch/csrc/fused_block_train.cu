@@ -32,10 +32,10 @@
 // takes dqkv in the same pass (bound by 377 MB, ~0.11 ms).
 //
 // Limits: any R and N (past 8 tokens the attention's long route,
-// long_attention.cuh), H * hd = C (any hd), C % 8 == 0,
-// hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
-// contiguous, 16-byte aligned operands (the wrapper checks them); norm
-// affines and the qkv bias optional.
+// long_attention.cuh), H * hd = C (any hd), any hidden, fp32 or bf16; in
+// bf16 contiguous, 16-byte aligned operands (the wrapper checks them) and,
+// where C or hidden is not a multiple of 8, the pack arena the wrapper sets
+// (gemm_sm90.cuh PackArena); norm affines and the qkv bias optional.
 
 #include "train_block.cuh"
 

@@ -27,7 +27,9 @@
 // gemm_f32 (true fp32, for the parity checks).
 //
 // Limits: any B and T (past 32 tokens the long route), H * hd = C (any
-// hd), C % 8 == 0, hidden % 8 == 0, fp32 or bf16.
+// hd), any hidden, fp32 or bf16; in bf16, where C or hidden is not a
+// multiple of 8, the pack arena the wrapper sets (gemm_sm90.cuh
+// PackArena).
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"

@@ -39,9 +39,10 @@
 // in the same pass.
 //
 // Limits: any B and T (past 32 tokens the attention's long route,
-// long_attention.cuh), H * hd = C (any hd), C % 8 == 0,
-// hidden % 8 == 0 (the GEMM's K % 8 and N % 8), fp32 or bf16; in bf16
-// contiguous, 16-byte aligned operands (the wrapper checks them).
+// long_attention.cuh), H * hd = C (any hd), any hidden, fp32 or bf16; in
+// bf16 contiguous, 16-byte aligned operands (the wrapper checks them) and,
+// where C or hidden is not a multiple of 8, the pack arena the wrapper sets
+// (gemm_sm90.cuh PackArena).
 
 #include "train_block.cuh"
 

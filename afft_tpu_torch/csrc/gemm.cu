@@ -25,6 +25,11 @@
 // over ``slices`` slices of M (0: as many as tn_slices gives; scratch holds
 // slices * I * J fp32 when there are more than one); afft_gemm_tn_slices:
 // that count.
+// afft_set_pack: the pack arena of the calling thread (gemm_sm90.cuh
+// PackArena), which every entry's bf16 products take their operands' packs
+// from; the wrappers set it around an entry's launch and clear it after.
+// afft_pack_rows: the pack kernel alone, dst (rows, pad8(cols)) <- src
+// (rows, cols) for a 16-byte aligned dst.
 
 #include "gemm_sm90.cuh"
 #include "train_block.cuh"
@@ -121,4 +126,21 @@ extern "C" int afft_gemm_tn(const void* a, const void* b, void* out,
 
 extern "C" int afft_gemm_tn_slices(int I, int J, int M) {
   return tn_slices(I, J, M);
+}
+
+extern "C" int afft_pack_rows(const void* src, void* dst, int rows, int cols,
+                              void* stream) {
+  if (rows < 1 || cols < 1 || (uintptr_t)dst % 16)
+    return (int)cudaErrorInvalidValue;
+  launch_pack_rows(static_cast<const bf16*>(src), static_cast<bf16*>(dst),
+                   rows, cols, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// Sets the calling thread's pack arena to buf (cap bf16 elements; null:
+// none) and returns the pack_rows launches made under the one it replaces.
+extern "C" long long afft_set_pack(void* buf, long long cap) {
+  const long long n = pack_arena.launches;
+  pack_arena = PackArena{static_cast<bf16*>(buf), (size_t)cap, 0};
+  return n;
 }

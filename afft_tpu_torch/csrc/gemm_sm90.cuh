@@ -36,20 +36,33 @@
 //   * the epilogue stages the fp32 tile through shared memory (over the
 //     drained ring), then each lane takes 8 consecutive columns of a row:
 //     the bias is read once per column, residuals, stashes and outputs move
-//     as 16-byte vectors, and the element arithmetic is common.cuh
-//     epilogue()'s, in the same order with the same rounding points (acc +
-//     bias, then the exact or tanh GELU, dropout / drop-path / residual, the
-//     stashed pre-activation, or the exact or tanh GELU derivative of the
-//     stashed pre-activation; the residual bf16 or fp32).
+//     as 16-byte vectors where N % 8 == 0 and their bases are on the 16-byte
+//     grid (else element by element, a lane taking every 32nd column so that
+//     a warp's accesses to a row are consecutive, the columns past N
+//     masked: with N % 8 != 0 most rows start off that grid), and the
+//     element arithmetic is
+//     common.cuh epilogue()'s, in the same order with the same rounding
+//     points on either route (acc + bias, then the exact or tanh GELU,
+//     dropout / drop-path / residual, the stashed pre-activation, or the
+//     exact or tanh GELU derivative of the stashed pre-activation; the
+//     residual bf16 or fp32).
 //     The dropout multiplier of an element is drop_scale() of its (row, col)
 //     index, so the masks do not change.
 // TMA zero-fills out of bounds, so M, N and K need not be multiples of the
 // tile (the zero rows of a ragged reduction add nothing); the epilogue masks
-// rows and (8-column) column groups. Requires K % 8 == 0, N % 8 == 0 (I % 8,
-// J % 8 for the weight gradient) and 16-byte aligned operands, bias,
-// residual and outputs; the launchers return cudaErrorInvalidValue
-// otherwise. One block per output tile walks all of K in a fixed order, no
-// atomics: the result is the same from run to run. The TN route alone may
+// rows and columns. TMA also needs an operand's base and row stride on the
+// 16-byte grid: an operand whose row (K, or a (K, N) weight's N; I and J for
+// the weight gradient) is not a multiple of 8 columns, or whose base is off
+// that grid, is first copied by pack_rows into the calling thread's
+// PackArena at a row stride of the next multiple of 8, the tensor map
+// keeping its own column count (so TMA reads the padding as zeros). So any
+// M, N, K >= 1 is taken; the launchers return cudaErrorInvalidValue where
+// an operand needs a pack and the arena has no room. At N, K (I, J) that are
+// multiples of 8, with aligned operands, nothing is packed and the vector
+// epilogue runs: the tiles, the reduction order and the roundings are those
+// of every width. One block per output tile walks all of K in a fixed
+// order, no atomics: the result is the same from run to run. The TN route
+// alone may
 // split its reduction over M (tn_slices) where its output tiles would leave
 // most SMs idle (the fuser's dWproj: 32 tiles on 132 SMs): a grid over
 // (tile, slice of M), each slice writing its fp32 partial tile into the
@@ -231,8 +244,37 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
   q[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
+// The element route's column step: a lane's 8 columns are GS_SPREAD apart.
+constexpr int GS_SPREAD = 32;
+
+// The 8 columns of a lane from p, or into p: with VEC 8 consecutive ones
+// as 16-byte vectors, else every GS_SPREAD-th element by element, the first
+// n alone (the others read as 0 and are not written).
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_cols(const T* p, float* v, int n) {
+  if constexpr (VEC) {
+    load8(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i < n ? to_f32(p[i * GS_SPREAD]) : 0.f;
+  }
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_cols(T* p, const float* v, int n) {
+  if constexpr (VEC) {
+    store8(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < n) p[i * GS_SPREAD] = from_f32<T>(v[i]);
+  }
+}
+
 // The epilogues of the entries on this GEMM (common.cuh epilogue(), element
-// for element) on 8 consecutive columns of one row; b the bias values. The
+// for element) on 8 columns of one row from col on, consecutive with VEC
+// (the 16-byte route), else GS_SPREAD apart, of which the first n are
+// inside it (8 with VEC); b the bias values. The
 // output is bf16, or fp32 with EPI_BIAS (the fp32 dX products and the
 // weight gradients), EPI_BIAS_RES (the fuser's serving proj into the fp32
 // residual stream y) or EPI_RES_DROP (its training proj into y, y stashed in
@@ -243,10 +285,10 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 // stashes are bf16. res may be out (y += ...): the thread that
 // loads res + at stores out + at in the same call, and output tiles are
 // disjoint, so no element is read after it is written.
-template <int EPI, typename TRes, typename TOut>
+template <int EPI, bool VEC, typename TRes, typename TOut>
 __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
                                           int N, const float* acc,
-                                          const float* b) {
+                                          const float* b, int n) {
   constexpr bool out_bf16 = std::is_same<TOut, bf16>::value;
   constexpr bool res_bf16 = std::is_same<TRes, bf16>::value;
   static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_RES ||
@@ -261,14 +303,15 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
                 "EPI_RES_DROP");
   static_assert(res_bf16 || EPI == EPI_BIAS_RES || EPI == EPI_RES_DROP,
                 "an fp32 residual takes EPI_BIAS_RES or EPI_RES_DROP");
+  constexpr int S = VEC ? 1 : GS_SPREAD;
   const size_t at = (size_t)row * N + col;
   float v[8], r[8], o2[8];
   if (EPI == EPI_BIAS_RES || EPI == EPI_GELU_BWD || EPI == EPI_GELU_TANH_BWD)
-    load8(static_cast<const TRes*>(ea.res) + at, r);
+    load_cols<VEC>(static_cast<const TRes*>(ea.res) + at, r, n);
   if (EPI == EPI_RES_DROP) {
     // a tensor-parallel partial sum of a rank other than 0 has no residual
     if (ea.res != nullptr) {
-      load8(static_cast<const TRes*>(ea.res) + at, r);
+      load_cols<VEC>(static_cast<const TRes*>(ea.res) + at, r, n);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) r[e] = 0.f;
@@ -296,7 +339,7 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
     } else if (EPI == EPI_GELU_TANH_BWD) {
       x *= gelu_tanh_grad(r[e]);
     } else if (EPI == EPI_RES_DROP) {
-      x *= drop_scale(ea.drop, at + e);
+      x *= drop_scale(ea.drop, at + e * S);
       x *= keep_row;
       x = r[e] + x;
       o2[e] = x;
@@ -305,11 +348,11 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
     }
     v[e] = x;
   }
-  store8(static_cast<TOut*>(ea.out) + at, v);
+  store_cols<VEC>(static_cast<TOut*>(ea.out) + at, v, n);
   if ((EPI == EPI_PRE_GELU || EPI == EPI_PRE_GELU_TANH ||
        EPI == EPI_RES_DROP) &&
       ea.out2 != nullptr)
-    store8(static_cast<bf16*>(ea.out2) + at, o2);
+    store_cols<VEC>(static_cast<bf16*>(ea.out2) + at, o2, n);
 }
 
 // One 128x256 output tile, C[m0.., n0..] = A . B over the k-tiles kt0 ..
@@ -318,12 +361,13 @@ __device__ __forceinline__ void epilogue8(const EpiArgs& ea, int row, int col,
 // two 64x64 boxes; B is MN-major (K, N) in four 64x64 boxes, or with B_NK
 // K-major (N, K) in one 256x64 box (the same 32 KB). Either way consumer
 // cw's 64 rows start 8 KB into the stage. tmA / tmB point at the kernel's
-// __grid_constant__ tensor maps.
+// __grid_constant__ tensor maps; vec: the epilogue's 16-byte route
+// (epi_vec).
 template <int EPI, bool A_MN, bool B_NK, typename TRes, typename TOut>
 __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
                                                const CUtensorMap* tmB, int M,
                                                int N, int kt0, int kt1,
-                                               const EpiArgs& ea) {
+                                               const EpiArgs& ea, int vec) {
   static_assert(GS_A_BYTES == 2 * GS_B_BOX_BYTES, "A: two 64-column boxes");
   static_assert(GS_N * GS_K * 2 == 4 * GS_B_BOX_BYTES, "B: one K-major box");
   extern __shared__ __align__(1024) unsigned char gs_smem[];
@@ -436,22 +480,36 @@ __device__ __forceinline__ void gemm_sm90_tile(const CUtensorMap* tmA,
     }
     named_bar_sync(2 + cw, 128);  // this consumer's 64 rows are staged
 
-    // lane: columns 8 lane .. 8 lane + 7; warp: rows warp, warp + 4, ...
-    const int col = n0 + 8 * lane;
-    if (col < N) {  // N % 8 == 0: a lane's 8 columns are all in or all out
+    // lane: columns 8 lane .. 8 lane + 7 with vec (N % 8 == 0: all 8 are in),
+    // else lane, lane + 32, ..., lane + 224; warp: rows warp, warp + 4, ...
+    const int col = n0 + (vec ? 8 * lane : lane);
+    if (col < N) {
+      const int n = vec ? 8 : min(8, (N - col + GS_SPREAD - 1) / GS_SPREAD);
       float bias[8];
-      if (ea.bias != nullptr)
-        load8(static_cast<const bf16*>(ea.bias) + col, bias);
+      if (ea.bias != nullptr) {
+        const bf16* b = static_cast<const bf16*>(ea.bias) + col;
+        if (vec)
+          load_cols<true>(b, bias, 8);
+        else
+          load_cols<false>(b, bias, n);
+      }
       for (int i = 0; i < 16; ++i) {
         const int rl = cw * 64 + warp + 4 * i, row = m0 + rl;
         if (row >= M) break;
         float v[8];
-        const float4* src =
-            reinterpret_cast<const float4*>(stage_f32 + rl * GS_LD + 8 * lane);
-        const float4 lo = src[0], hi = src[1];
-        v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-        v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-        epilogue8<EPI, TRes, TOut>(ea, row, col, N, v, bias);
+        if (vec) {
+          const float4* src = reinterpret_cast<const float4*>(
+              stage_f32 + rl * GS_LD + 8 * lane);
+          const float4 lo = src[0], hi = src[1];
+          v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+          v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+          epilogue8<EPI, true, TRes, TOut>(ea, row, col, N, v, bias, 8);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = stage_f32[rl * GS_LD + lane + GS_SPREAD * e];
+          epilogue8<EPI, false, TRes, TOut>(ea, row, col, N, v, bias, n);
+        }
       }
     }
   }
@@ -463,9 +521,10 @@ template <int EPI, bool B_NK, typename TRes, typename TOut>
 __global__ void __launch_bounds__(GS_THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap tmA,
           const __grid_constant__ CUtensorMap tmB, int M, int N, int K,
-          EpiArgs ea) {
+          EpiArgs ea, int vec) {
   gemm_sm90_tile<EPI, false, B_NK, TRes, TOut>(&tmA, &tmB, M, N, 0,
-                                                (K + GS_K - 1) / GS_K, ea);
+                                                (K + GS_K - 1) / GS_K, ea,
+                                                vec);
 }
 
 // The weight gradient out (I, J) = A^T . B, fp32, over the M rows of A
@@ -475,12 +534,12 @@ gemm_sm90(const __grid_constant__ CUtensorMap tmA,
 static __global__ void __launch_bounds__(GS_THREADS, 1)
 gemm_tn_sm90(const __grid_constant__ CUtensorMap tmA,
              const __grid_constant__ CUtensorMap tmB, int I, int J, int M,
-             int per, float* out) {
+             int per, float* out, int vec) {
   const int kt0 = blockIdx.z * per;
   const int kt1 = min((M + GS_K - 1) / GS_K, kt0 + per);
   gemm_sm90_tile<EPI_BIAS, true, false, bf16, float>(
       &tmA, &tmB, I, J, kt0, kt1,
-      EpiArgs{nullptr, nullptr, out + (size_t)blockIdx.z * I * J});
+      EpiArgs{nullptr, nullptr, out + (size_t)blockIdx.z * I * J}, vec);
 }
 
 // out[i] = part[0][i] + part[1][i] + ... + part[S - 1][i] in slice order,
@@ -495,6 +554,19 @@ static __global__ void sum_slices(const float4* __restrict__ part,
       const float4 b = part[(size_t)z * n4 + i];
       a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
     }
+    out[i] = a;
+  }
+}
+
+// The same one element at a time, in the same order (I * J % 4 != 0, or a
+// base off the 16-byte grid)
+static __global__ void sum_slices_scalar(const float* __restrict__ part,
+                                         float* __restrict__ out, size_t n,
+                                         int S) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float a = part[i];
+    for (int z = 1; z < S; ++z) a += part[(size_t)z * n + i];
     out[i] = a;
   }
 }
@@ -528,14 +600,15 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A row-major (rows, cols) bf16 matrix read in (box_rows, box_cols) boxes
-// with 128-byte swizzle; out-of-bounds elements read as zeros.
+// A row-major (rows, cols) bf16 matrix at row stride ld (a multiple of 8)
+// read in (box_rows, box_cols) boxes with 128-byte swizzle; out-of-bounds
+// elements, the columns from cols to ld included, read as zeros.
 static bool bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
-                            int cols, int box_rows, int box_cols) {
+                            int cols, int ld, int box_rows, int box_cols) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
@@ -544,31 +617,113 @@ static bool bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The scratch an entry's wrapper gives its products for their packed
+// operands (see the header), set around one entry's launch on the calling
+// thread (gemm.cu afft_set_pack; ops/_common.py launch and pack_scratch): buf
+// 16-byte aligned, cap bf16 elements, launches the pack_rows launches made
+// since it was set. Each product packs from the arena's start: the products
+// of an entry run one after the other on one stream.
+struct PackArena {
+  bf16* buf;
+  size_t cap;
+  long long launches;
+};
+inline thread_local PackArena pack_arena{nullptr, 0, 0};
+
+// dst (rows, pad8(cols)) <- src (rows, cols), both row-major, dst 16-byte
+// aligned: one warp a row, each lane 8 columns at a time (8 element loads,
+// one 16-byte store); dst's columns past cols are written as zeros.
+constexpr int PR_WARPS = 8;
+
+static __global__ void __launch_bounds__(PR_WARPS * 32)
+pack_rows(const bf16* __restrict__ src, bf16* __restrict__ dst, int rows,
+          int cols) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = (cols + 7) / 8;
+  for (int r = blockIdx.x * PR_WARPS + warp; r < rows;
+       r += gridDim.x * PR_WARPS) {
+    const bf16* s = src + (size_t)r * cols;
+    uint4* d = reinterpret_cast<uint4*>(dst + (size_t)r * chunks * 8);
+    for (int j = lane; j < chunks; j += 32) {
+      uint4 u;
+      bf16* h = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = 8 * j + e;
+        h[e] = c < cols ? s[c] : __float2bfloat16(0.f);
+      }
+      d[j] = u;
+    }
+  }
+}
+
+static inline int pad8(int n) { return (n + 7) / 8 * 8; }
+
+static void launch_pack_rows(const bf16* src, bf16* dst, int rows, int cols,
+                             cudaStream_t stream) {
+  const int blocks = cdiv(rows, PR_WARPS);
+  pack_rows<<<blocks < (1 << 20) ? blocks : (1 << 20), PR_WARPS * 32, 0,
+              stream>>>(src, dst, rows, cols);
+}
+
+// The contiguous (rows, cols) operand at *p where TMA can read it as it
+// lies (cols % 8 == 0, a 16-byte aligned base; *ld = cols), else packed
+// into the arena after its first *used elements (*p moved there, *ld =
+// pad8(cols)).
+static cudaError_t tma_operand(const bf16** p, int rows, int cols, int* ld,
+                               size_t* used, cudaStream_t stream) {
+  *ld = cols;
+  if (cols % 8 == 0 && (uintptr_t)*p % 16 == 0) return cudaSuccess;
+  PackArena& a = pack_arena;
+  const size_t n = (size_t)rows * pad8(cols);
+  if (a.buf == nullptr || (uintptr_t)a.buf % 16 || *used + n > a.cap)
+    return cudaErrorInvalidValue;
+  bf16* dst = a.buf + *used;
+  launch_pack_rows(*p, dst, rows, cols, stream);
+  ++a.launches;
+  *used += n;
+  *p = dst;
+  *ld = pad8(cols);
+  return cudaGetLastError();
+}
+
+// Whether the epilogue takes its 16-byte route: N % 8 == 0 and bias, res,
+// out and out2 on the 16-byte grid (every row then starts on it).
+static int epi_vec(const EpiArgs& ea, int N) {
+  return N % 8 == 0 && ((uintptr_t)ea.bias | (uintptr_t)ea.res |
+                        (uintptr_t)ea.out | (uintptr_t)ea.out2) %
+                               16 ==
+                           0;
+}
+
 // C = A . W (+ epilogue EPI) for A (M, K) and W (K, N), or with B_NK W
-// (N, K), bf16; out TOut and residual TRes bf16 or fp32 as epilogue8
-// takes them, out2 bf16. Returns the launch's error.
+// (N, K), bf16 and contiguous; out TOut and residual TRes bf16 or fp32 as
+// epilogue8 takes them, out2 bf16. Returns the launch's error.
 template <int EPI, typename TOut = bf16, bool B_NK = false,
           typename TRes = bf16>
 static cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, int M, int N,
                                     int K, EpiArgs ea, cudaStream_t stream) {
-  // the epilogue moves bias, res, out and out2 as 16-byte vectors too
-  if (M < 1 || N < 8 || K < 8 || N % 8 || K % 8 ||
-      ((uintptr_t)A | (uintptr_t)W | (uintptr_t)ea.bias | (uintptr_t)ea.res |
-       (uintptr_t)ea.out | (uintptr_t)ea.out2) % 16)
-    return cudaErrorInvalidValue;
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
   // on every launch: the attribute belongs to the current device
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       gemm_sm90<EPI, B_NK, TRes, TOut>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
   if (err != cudaSuccess) return err;
+  size_t used = 0;
+  int lda, ldw;
+  err = tma_operand(&A, M, K, &lda, &used, stream);
+  if (err == cudaSuccess)
+    err = B_NK ? tma_operand(&W, N, K, &ldw, &used, stream)
+               : tma_operand(&W, K, N, &ldw, &used, stream);
+  if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
-  if (!bf16_tensor_map(&ta, A, M, K, GS_M, GS_K) ||
-      !(B_NK ? bf16_tensor_map(&tb, W, N, K, GS_N, GS_K)
-             : bf16_tensor_map(&tb, W, K, N, GS_K, GS_BOX_N)))
+  if (!bf16_tensor_map(&ta, A, M, K, lda, GS_M, GS_K) ||
+      !(B_NK ? bf16_tensor_map(&tb, W, N, K, ldw, GS_N, GS_K)
+             : bf16_tensor_map(&tb, W, K, N, ldw, GS_K, GS_BOX_N)))
     return cudaErrorInvalidValue;
   const dim3 grid(cdiv(N, GS_N), cdiv(M, GS_M));
   gemm_sm90<EPI, B_NK, TRes, TOut><<<grid, GS_THREADS, GS_SMEM, stream>>>(
-      ta, tb, M, N, K, ea);
+      ta, tb, M, N, K, ea, epi_vec(ea, N));
   return cudaGetLastError();
 }
 
@@ -609,31 +764,43 @@ static cudaError_t launch_gemm_tn_sm90(const bf16* A, const bf16* B,
                                        float* out, int I, int J, int M,
                                        cudaStream_t stream, int slices = 1,
                                        float* scratch = nullptr) {
-  if (M < 1 || I < 8 || J < 8 || I % 8 || J % 8 || slices < 1 ||
+  if (M < 1 || I < 1 || J < 1 || slices < 1 ||
       (slices > 1 && scratch == nullptr) ||
-      ((uintptr_t)A | (uintptr_t)B | (uintptr_t)out | (uintptr_t)scratch) %
-          16)
+      ((uintptr_t)out | (uintptr_t)scratch) % 4)
     return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       gemm_tn_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
   if (err != cudaSuccess) return err;
+  size_t used = 0;
+  int lda, ldb;
+  err = tma_operand(&A, M, I, &lda, &used, stream);
+  if (err == cudaSuccess) err = tma_operand(&B, M, J, &ldb, &used, stream);
+  if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
-  if (!bf16_tensor_map(&ta, A, M, I, GS_K, GS_BOX_N) ||
-      !bf16_tensor_map(&tb, B, M, J, GS_K, GS_BOX_N))
+  if (!bf16_tensor_map(&ta, A, M, I, lda, GS_K, GS_BOX_N) ||
+      !bf16_tensor_map(&tb, B, M, J, ldb, GS_K, GS_BOX_N))
     return cudaErrorInvalidValue;
   const int nk = cdiv(M, GS_K), per = cdiv(nk, slices);
   slices = cdiv(nk, per);  // no empty slice
+  float* dst = slices > 1 ? scratch : out;
+  // J % 8 == 0 keeps every slice's rows on the 16-byte grid, and I * J % 4
+  // == 0 for the float4 sum
+  const int vec = J % 8 == 0 && ((uintptr_t)out | (uintptr_t)dst) % 16 == 0;
   const dim3 grid(cdiv(J, GS_N), cdiv(I, GS_M), slices);
-  gemm_tn_sm90<<<grid, GS_THREADS, GS_SMEM, stream>>>(
-      ta, tb, I, J, M, per, slices > 1 ? scratch : out);
+  gemm_tn_sm90<<<grid, GS_THREADS, GS_SMEM, stream>>>(ta, tb, I, J, M, per,
+                                                       dst, vec);
   if (slices > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    const size_t n4 = (size_t)I * J / 4;
+    const size_t n = (size_t)I * J, n4 = vec ? n / 4 : n;
     const size_t blocks = (n4 + 255) / 256;
-    sum_slices<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-        reinterpret_cast<const float4*>(scratch),
-        reinterpret_cast<float4*>(out), n4, slices);
+    const int b = (int)(blocks < 4096 ? blocks : 4096);
+    if (vec)
+      sum_slices<<<b, 256, 0, stream>>>(reinterpret_cast<const float4*>(dst),
+                                        reinterpret_cast<float4*>(out), n4,
+                                        slices);
+    else
+      sum_slices_scalar<<<b, 256, 0, stream>>>(dst, out, n, slices);
   }
   return cudaGetLastError();
 }

@@ -39,10 +39,11 @@
 // so launch latency and partly filled GEMM tiles weigh on it.
 //
 // Limits: any B and S >= 1 (past 1,024 tokens both attentions take the long
-// route of long_attention.cuh), H * hd = C (any hd), C % 8
-// == 0, hidden % 8 == 0, fp32 or bf16; every LayerNorm affine and the qkv / w_q /
-// w_k / w_v biases are optional (null pointers); the decoder's memory
-// stream has x's shape.
+// route of long_attention.cuh), H * hd = C (any hd), any hidden, fp32 or
+// bf16; in bf16, where C or hidden is not a multiple of 8, the pack arena
+// the wrapper sets (gemm_sm90.cuh PackArena); every LayerNorm affine and the
+// qkv / w_q / w_k / w_v biases are optional (null pointers); the decoder's
+// memory stream has x's shape.
 
 #include "fuser_attention.cuh"
 #include "gemm_sm90.cuh"

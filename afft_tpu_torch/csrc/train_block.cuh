@@ -90,11 +90,12 @@
 //
 // Limits: any R, N >= 1 (past short_tokens the long route, any hd, whose
 // attention backward needs its stats / dsum scratch), H * hd = C (any hd),
-// C % 8 == 0, hidden % 8 == 0
-// (gemm_sm90's K % 8 and N % 8), fp32 or bf16; in bf16 every operand of a
-// product 16-byte aligned (the GEMM returns cudaErrorInvalidValue
-// otherwise); norm affines and the qkv bias optional (null pointers, and
-// then no gradient is written for them).
+// any hidden and any local width of a shard, fp32 or bf16; in bf16, where a
+// product's operand rows are off TMA's 16-byte grid (C, A or hidden not a
+// multiple of 8), the pack arena the wrapper sets (gemm_sm90.cuh
+// PackArena; the GEMM returns cudaErrorInvalidValue where it is short);
+// norm affines and the qkv bias optional (null pointers, and then no
+// gradient is written for them).
 
 #pragma once
 

@@ -41,7 +41,7 @@ from . import gemm as _gemm
 _COUNTERS = (_fused_block.LAUNCHES, _fused_gpt2.LAUNCHES,
              _attention.LAUNCHES, _fused_seq_block.LAUNCHES,
              _fused_block_train.LAUNCHES, _fused_gpt2_train.LAUNCHES,
-             _gemm.LAUNCHES)
+             _gemm.LAUNCHES, _common.PACK_LAUNCHES)
 
 
 def launch_counts() -> dict:

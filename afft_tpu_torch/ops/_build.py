@@ -59,7 +59,11 @@ SIGNATURES = {
     "afft_gemm": [_I] * 4 + [_P] * 6 + [_IP, _IP, _FP] + [_I] * 4 + [_P],
     "afft_gemm_tn": [_P] * 4 + [_I] * 4 + [_P],
     "afft_gemm_tn_slices": [_I] * 3,
+    "afft_set_pack": [_P, _L],
+    "afft_pack_rows": [_P] * 2 + [_I] * 2 + [_P],
 }
+# the entry points that return another type than int
+RESTYPES = {"afft_set_pack": ctypes.c_longlong}
 # the GPT-2 layer's training entries take the fuser block's arguments
 for _kind in ("fwd", "bwd_mlp", "bwd_attn"):
     SIGNATURES[f"afft_gpt2_train_{_kind}"] = SIGNATURES[
@@ -158,6 +162,6 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib

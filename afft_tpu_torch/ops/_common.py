@@ -58,17 +58,39 @@ def check_operands(name: str, x: torch.Tensor, operands: dict,
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
-def check_heads(name: str, C: int, num_heads: int, hidden=None) -> int:
-    """The kernels' shape rule: H * hd == C with any head width hd (the
-    attentions read scalars, or 16-byte chunks where rows allow), C % 8 ==
-    0 and hidden % 8 == 0 (the GEMMs move 16-byte rows of K and N). Returns
-    hd."""
+def check_heads(name: str, C: int, num_heads: int) -> int:
+    """The kernels' shape rule: H * hd == C with any head width hd >= 1 (the
+    attentions read scalars, or 16-byte chunks where rows allow; the Hopper
+    GEMM takes any K and N, packing an operand whose rows are off TMA's
+    16-byte grid, ``pack_scratch``). Returns hd."""
     hd = C // num_heads if num_heads > 0 else 0
-    if hd < 1 or hd * num_heads != C or C % 8 or (hidden is not None
-                                                  and hidden % 8):
-        raise ValueError(f"{name}: needs H*hd == C, C % 8 == 0 and hidden % "
-                         f"8 == 0 (C={C}, H={num_heads}, hidden={hidden})")
+    if hd < 1 or hd * num_heads != C:
+        raise ValueError(f"{name}: needs H*hd == C with hd >= 1 (C={C}, "
+                         f"H={num_heads})")
     return hd
+
+
+def pad8(n: int) -> int:
+    """n rounded up to a multiple of 8."""
+    return -(-n // 8) * 8
+
+
+def pack_scratch(like, M: int, *widths: int):
+    """The pack arena of one entry's launch over M rows on like's device
+    (``launch``), or None where it needs none: in fp32 (the products run on
+    gemm_f32) and where each of ``widths``, every dimension of the entry's
+    weights, is a multiple of 8 (every operand then lies on TMA's 16-byte
+    grid). The Hopper GEMM (``csrc/gemm_sm90.cuh`` ``tma_operand``) packs an
+    operand whose rows are off that grid into rows of ``pad8`` columns, and
+    a product packs at most two operands, each of at most w columns, w the
+    largest width: an M-row input and a weight (forward, dX), or two M-row
+    operands (a weight gradient). So 2 M pad8(w) + w pad8(w) elements hold
+    any product of the entry."""
+    if like.dtype != torch.bfloat16 or not any(w % 8 for w in widths):
+        return None
+    w = max(widths)
+    return torch.empty((2 * M + w) * pad8(w), dtype=torch.bfloat16,
+                       device=like.device)
 
 
 # The longest sequence each short attention kernel takes: the fuser blocks'
@@ -137,19 +159,17 @@ class Shard(NamedTuple):
 def shard_reason(C: int, heads: int, hidden: int, count: int,
                  split_heads: bool = True) -> Optional[str]:
     """Why a layer of width C, ``heads`` heads and ``hidden`` MLP columns
-    cannot run sharded over ``count`` model ranks (None: it can):
-    ``check_heads``'s rule on the local widths, with the heads
-    (``split_heads``) and the MLP columns split evenly. Stricter than the
-    JAX package's placement, which shards any dimension that divides: a
-    layer whose C / tp or hidden / tp is not a multiple of 8 stays whole
-    here."""
-    if hidden % count or (hidden // count) % 8:
-        return f"hidden / tp = {hidden} / {count} is not a multiple of 8"
+    cannot run sharded over ``count`` model ranks (None: it can): the MLP
+    columns and, with ``split_heads``, the heads and C must divide evenly,
+    as the JAX package's placement shards a dimension that divides; the
+    kernels take any local width."""
+    if hidden % count:
+        return f"hidden {hidden} does not divide over tp = {count}"
     if split_heads:
         if heads % count:
             return f"the {heads} heads do not divide over tp = {count}"
-        if C % count or (C // count) % 8:
-            return f"C / tp = {C} / {count} is not a multiple of 8"
+        if C % count:
+            return f"C {C} does not divide over tp = {count}"
     return None
 
 
@@ -186,13 +206,28 @@ def mask_operand(name: str, mask, n: int, device, n_keys=None):
     return mask.to(device=device, dtype=torch.float32).contiguous()
 
 
-def launch(name: str, entry: str, *args, device) -> None:
+# The launches of pack_rows (csrc/gemm_sm90.cuh), which the entries' bf16
+# products make inside their own launch sequences for an operand off TMA's
+# 16-byte grid; ``launch`` adds them.
+PACK_LAUNCHES = {"pack_rows": 0}
+
+
+def launch(name: str, entry: str, *args, device, pack=None) -> None:
     """Call the C entry point ``entry`` with ``args`` on ``device`` and its
     current stream (the stream is the last argument); raise if it reports
-    a launch error."""
+    a launch error. ``pack`` (``pack_scratch``) is the entry's pack arena,
+    set on this thread around the call; the pack_rows launches it made are
+    counted in ``PACK_LAUNCHES``."""
     with torch.cuda.device(device):
-        err = getattr(_build.library(), entry)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+        lib = _build.library()
+        if pack is not None:
+            lib.afft_set_pack(pack.data_ptr(), pack.numel())
+        try:
+            err = getattr(lib, entry)(
+                *args, torch.cuda.current_stream(device).cuda_stream)
+        finally:
+            if pack is not None:
+                PACK_LAUNCHES["pack_rows"] += lib.afft_set_pack(None, 0)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from ._common import (DTYPE_CODES, LONG_LAUNCHES, SHORT_LENGTH, add_bias,
                       attention32, check_heads, check_length, check_operands,
                       check_shape, launch, layer_norm32, mask_operand,
-                      matmul32, ptr)
+                      matmul32, pack_scratch, ptr)
 
 LAUNCHES = {"fused_block": 0}
 
@@ -81,7 +81,7 @@ def block_operands(name, x, params, num_heads, differentiable=False):
     (ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, wfc1, bfc1, wfc2,
      bfc2) = tensors
     hidden = wfc1.shape[0]
-    check_heads(name, C, num_heads, hidden)
+    check_heads(name, C, num_heads)
     keys = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
             "attn.proj.weight", "attn.proj.bias", "norm2.weight",
             "norm2.bias", "mlp.mlp.0.weight", "mlp.mlp.0.bias",
@@ -124,7 +124,7 @@ def fused_block(x, params, mask=None, *, num_heads: int, eps: float = 1e-6):
     launch(name, "afft_fused_block", DTYPE_CODES[dt], ptr(x),
            *[ptr(t) for t in tensors], ptr(mask32), ptr(tmp), ptr(qkv),
            ptr(y), ptr(h1), ptr(out), R, N, C, num_heads, hidden, eps,
-           device=dev)
+           device=dev, pack=pack_scratch(x, M, C, 3 * C, hidden))
     LAUNCHES[name] += 1
     LONG_LAUNCHES[name] += long
     return out

@@ -30,10 +30,12 @@ whose backward needs stats / dsum scratch (``long_scratch``) and recomputes
 its own forward's output (``attention_drop`` and ``attention_drop_bwd``
 reach those kernels alone, for their checks; ``attention_drop_bwd_plain``
 is the backward's plain version). So a CUDA call takes the GEMM's operand
-rules, which ``block_operands`` applies and raises on: C and hidden
-multiples of 8 (K % 8, N % 8), one dtype (bf16, or fp32 for the parity
-checks, on the fp32 GEMM), contiguous and 16-byte aligned tensors; and the
-length rule of ``_common.check_length``.
+rules, which ``block_operands`` applies and raises on: one dtype (bf16, or
+fp32 for the parity checks, on the fp32 GEMM), contiguous and 16-byte
+aligned tensors, any C and hidden (a product whose rows are off TMA's
+16-byte grid packs its operands into the launch's scratch,
+``_common.pack_scratch``); and the length rule of
+``_common.check_length``.
 
 Masks. Each dropout multiplier (0 or 1 / keep) is a pure function of (two
 seed words, block index, site, logical element index): a Philox4x32-10 draw
@@ -69,8 +71,8 @@ import torch.nn.functional as F
 from ._common import (DTYPE_CODES, LONG_LAUNCHES, add_bias, check_heads,
                       check_length, check_operands, check_shard,
                       gelu_erf_grad, gelu_tanh_grad, launch, layer_norm32,
-                      lead_only, long_route, mask_operand, matmul32, ptr,
-                      ptr_array, tn_slices)
+                      lead_only, long_route, mask_operand, matmul32,
+                      pack_scratch, ptr, ptr_array, tn_slices)
 from .fused_block import _unpack, block_operands
 
 LAUNCHES = {"fused_block_train_fwd": 0, "fused_block_train_bwd_mlp": 0,
@@ -673,7 +675,8 @@ def block_train_bwd_mlp(x, y, dout, pre1, tensors, grads, cfg, shard=None):
            ptr_array(tensors), ptr_array(grads), *arrays,
            None if shard is None else shard.array(PART_BOTH, False),
            ptr_array([tmp, dh2, h1, dpre1, dg, mu, rstd, partial, dy]),
-           R, N, C, hidden, eps, device=x.device)
+           R, N, C, hidden, eps, device=x.device,
+           pack=pack_scratch(x, R * N, C, hidden))
     _count(layer, "bwd_mlp", shard, N)
     return dy
 
@@ -713,7 +716,8 @@ def block_train_bwd_attn(x, dy, qkv, mask32, tensors, grads, cfg,
            None if shard is None else shard.array(PART_BOTH, True),
            ptr_array([tmp, dproj, dqkv, dattn, mu, rstd, partial, dx, tn,
                       stats, dsum]),
-           R, N, C, num_heads, eps, device=x.device)
+           R, N, C, num_heads, eps, device=x.device,
+           pack=pack_scratch(x, R * N, C, 3 * A))
     _count(layer, "bwd_attn", shard, N)
     return dx
 
@@ -737,7 +741,8 @@ class BlockTrainFunction(torch.autograd.Function):
         launch(layer.name, f"afft_{layer.entry}_fwd",
                DTYPE_CODES[x.dtype], ptr(x), ptr_array(tensors), ptr(mask32),
                *arrays, None, ptr_array([tmp, y32, h1, out, y, qkv, pre1]),
-               R, N, C, num_heads, hidden, eps, device=x.device)
+               R, N, C, num_heads, hidden, eps, device=x.device,
+               pack=pack_scratch(x, M, C, 3 * C, hidden))
         _count(layer, "fwd", None, N)
         ctx.save_for_backward(x, y, qkv, pre1, mask32, *tensors)
         ctx.cfg = cfg
@@ -783,7 +788,8 @@ def train_fwd_shard(x, mask32, cfg, tensors, shard, part, y=None):
     launch(layer.name, f"afft_{layer.entry}_fwd", DTYPE_CODES[dt], ptr(x),
            ptr_array(tensors), ptr(mask32), *arrays, shard.array(part, gpt2),
            ptr_array([tmp, y32, h1, out["part"], y, qkv, pre1]), R, N, C,
-           num_heads, hidden, eps, device=x.device)
+           num_heads, hidden, eps, device=x.device,
+           pack=pack_scratch(x, M, C, 3 * A, hidden))
     _count(layer, "fwd", shard, N)
     return out
 

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from ._common import (DTYPE_CODES, LONG_LAUNCHES, add_bias, attention32,
                       check_heads, check_length, check_operands, check_shape,
-                      launch, layer_norm32, mask_operand, matmul32, ptr)
+                      launch, layer_norm32, mask_operand, matmul32,
+                      pack_scratch, ptr)
 
 LAUNCHES = {"gpt2_attn_half": 0, "gpt2_mlp_half": 0}
 
@@ -113,7 +114,8 @@ def gpt2_attn_half(x, params, mask, *, num_heads: int, eps: float = 1e-5):
            ptr(ops["ln_1.bias"]), ptr(ops["attn.c_attn.weight"]),
            ptr(ops["attn.c_attn.bias"]), ptr(ops["attn.c_proj.weight"]),
            ptr(ops["attn.c_proj.bias"]), ptr(mask32), ptr(tmp), ptr(qkv),
-           ptr(out), B, T, C, num_heads, eps, device=dev)
+           ptr(out), B, T, C, num_heads, eps, device=dev,
+           pack=pack_scratch(x, B * T, C, 3 * C))
     LAUNCHES[name] += 1
     LONG_LAUNCHES[name] += long
     return out
@@ -130,9 +132,6 @@ def gpt2_mlp_half(y, params, *, eps: float = 1e-5):
     B, T, C = y.shape
     wfc = params["mlp.c_fc.weight"]
     hidden = wfc.shape[-1]
-    if hidden % 8 or C % 8:
-        raise ValueError(f"{name}: needs C % 8 == 0 and hidden % 8 == 0 "
-                         f"(C={C}, hidden={hidden})")
     ops = {"ln_2.weight": params.get("ln_2.weight"),
            "ln_2.bias": params.get("ln_2.bias"),
            "mlp.c_fc.weight": wfc,
@@ -158,7 +157,8 @@ def gpt2_mlp_half(y, params, *, eps: float = 1e-5):
            DTYPE_CODES[dt], ptr(y), ptr(ops["ln_2.weight"]),
            ptr(ops["ln_2.bias"]), ptr(wfc), ptr(ops["mlp.c_fc.bias"]),
            ptr(ops["mlp.c_proj.weight"]), ptr(ops["mlp.c_proj.bias"]),
-           ptr(tmp), ptr(h), ptr(out), B * T, C, hidden, eps, device=dev)
+           ptr(tmp), ptr(h), ptr(out), B * T, C, hidden, eps, device=dev,
+           pack=pack_scratch(y, B * T, C, hidden))
     LAUNCHES[name] += 1
     return out
 

@@ -31,10 +31,11 @@ the forward reads the Conv1D (in, out) weights as its (K, N) operand, the
 backward's dX (dpre1, dg, dattn, dxn) reads them where they lie as its
 K-major (N, K) operand, the weight gradients take its TN route. So a CUDA
 call takes the GEMM's operand rules, which ``gpt2_operands`` applies and
-raises on: C and hidden multiples of 8 (K % 8, N % 8), one dtype (bf16, or
-fp32 for the parity checks, on the fp32 GEMM), contiguous and 16-byte
-aligned tensors; and the length rule of ``_common.check_length`` (past 32
-tokens the attention and its backward take ``csrc/long_attention.cuh``).
+raises on: one dtype (bf16, or fp32 for the parity checks, on the fp32
+GEMM), contiguous and 16-byte aligned tensors, any C and hidden (packed
+where a product's rows are off TMA's 16-byte grid); and the length rule of
+``_common.check_length`` (past 32 tokens the attention and its backward
+take ``csrc/long_attention.cuh``).
 
 Masks: those of ``ops.fused_block_train`` (Philox4x32-10 of the two seed
 words, the layer index, the site and the logical element index) at the TPU
@@ -280,7 +281,7 @@ def gpt2_operands(name, x, params, num_heads, count: int = 1):
     hidden = tensors[8].shape[-1]
     if count > 1:
         check_shard(name, C, num_heads * count, hidden * count, count)
-    check_heads(name, A, num_heads, hidden)
+    check_heads(name, A, num_heads)
     shapes = ((C,), (C,), (C, 3 * A), (3 * A,), (A, C), (C,), (C,), (C,),
               (C, hidden), (hidden,), (hidden, C), (C,))
     for key, t, shape in zip(KEYS, tensors, shapes):

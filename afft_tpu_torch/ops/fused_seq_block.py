@@ -25,8 +25,8 @@ normalised from its fp32 upcast.
 
 Kernel limits: any B and S >= 1 (past 1,024 tokens both attentions take
 the long route of ``csrc/long_attention.cuh``: ``_common.check_length``),
-H * hd == C (any hd), C % 8 == 0, hidden % 8 == 0, float32 or bfloat16,
-contiguous 16-byte aligned operands; the mask is an additive (S, S)
+H * hd == C (any hd), any hidden, float32 or bfloat16, contiguous
+16-byte aligned operands; the mask is an additive (S, S)
 tensor or None and gates both attention stages of the decoder block; mem
 has x's shape.
 """
@@ -37,8 +37,8 @@ import torch
 
 from ._common import (DTYPE_CODES, LONG_LAUNCHES, add_bias, attention32,
                       check_heads, check_length, check_operands, check_shape,
-                      launch, layer_norm32, mask_operand, matmul32, ptr,
-                      ptr_array)
+                      launch, layer_norm32, mask_operand, matmul32,
+                      pack_scratch, ptr, ptr_array)
 from .attention import attention_plain
 from .fused_block import block_operands, block_plain, mlp_plain
 
@@ -114,7 +114,8 @@ def fused_seq_block(x, params, mask=None, *, num_heads: int,
     launch(name, "afft_fused_seq_block", DTYPE_CODES[x.dtype], ptr(x),
            ptr_array(tensors), ptr(mask32), ptr(tmp), ptr(qkv), ptr(y),
            ptr(h1), ptr(out), B, S, C, num_heads, hidden, eps,
-           device=x.device)
+           device=x.device,
+           pack=pack_scratch(x, B * S, C, 3 * C, hidden))
     LAUNCHES[name] += 1
     LONG_LAUNCHES[name] += long
     return out
@@ -177,7 +178,7 @@ def fused_decoder_block(x, mem, params, mask=None, *, num_heads: int,
     if missing:
         raise KeyError(f"{name}: params lack {missing}")
     hidden = params["mlp.mlp.0.weight"].shape[0]
-    check_heads(name, C, num_heads, hidden)
+    check_heads(name, C, num_heads)
     dims = {"C": C, "3C": 3 * C, "hidden": hidden}
     operands = {key: params.get(key) for key, _ in _DECODER_PARAMS}
     for key, shape in _DECODER_PARAMS:
@@ -197,7 +198,8 @@ def fused_decoder_block(x, mem, params, mask=None, *, num_heads: int,
     launch(name, "afft_fused_decoder_block", DTYPE_CODES[x.dtype], ptr(x),
            ptr(mem), ptr_array(list(operands.values())), ptr(mask32),
            ptr(tmp), ptr(tmp2), ptr(qkv), ptr(y), ptr(h1), ptr(out), B, S, C,
-           num_heads, hidden, eps, device=x.device)
+           num_heads, hidden, eps, device=x.device,
+           pack=pack_scratch(x, B * S, C, 3 * C, hidden))
     LAUNCHES[name] += 1
     LONG_LAUNCHES[name] += long
     return out

@@ -37,10 +37,13 @@ both fp32, into ``out`` given as the residual itself (the decoder block's
 cross proj, y += cross . Wcproj^T + b, in place); ``res_drop`` takes only
 the two mixed forms there, the training forward's.
 
-Limits of the kernels, which both wrappers apply on every device: K % 8 ==
-0 and N % 8 == 0 (I % 8 and J % 8 for ``gemm_tn``), the epilogue and dtype
-combinations above; on CUDA, bf16 operands (the fp32 residual and out
-aside), contiguous and 16-byte aligned.
+Limits of the kernels, which both wrappers apply on every device: any M, N
+and K >= 1 (I and J for ``gemm_tn``), the epilogue and dtype combinations
+above; on CUDA, bf16 operands (the fp32 residual and out aside), contiguous
+and 16-byte aligned. An operand whose rows are not a multiple of 8 columns
+is packed first (``pack_rows``, into the scratch ``_common.pack_scratch``
+gives the launch), and an output whose rows are not takes the epilogue's
+element-by-element route.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._common import (add_bias, check_operands, check_shape, gelu_erf_grad,
-                      gelu_tanh_grad, launch, matmul32, ptr, tn_slices)
+from ._common import (PACK_LAUNCHES, add_bias, check_operands, check_shape,
+                      gelu_erf_grad, gelu_tanh_grad, launch, matmul32,
+                      pack_scratch, pad8, ptr, tn_slices)
 from .fused_block_train import rate_arrays, rates_operands, site_mask_plain
 
 LAUNCHES = {"gemm": 0, "gemm_tn": 0}
@@ -189,9 +193,9 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
                          f"{tuple(a.shape)} and {tuple(w.shape)}")
     M, K = a.shape
     N = w.shape[1 - k_dim]
-    if M < 1 or N % 8 or K % 8 or N < 8 or K < 8 or tokens < 1:
-        raise ValueError(f"{name}: needs M >= 1, K % 8 == 0, N % 8 == 0 and "
-                         f"tokens >= 1 (M={M}, N={N}, K={K}, tokens={tokens})")
+    if min(M, N, K, tokens) < 1:
+        raise ValueError(f"{name}: needs M, N, K and tokens >= 1 (M={M}, "
+                         f"N={N}, K={K}, tokens={tokens})")
     if epi in _NEEDS_RES:
         if res is None:
             raise ValueError(f"{name}: epilogue {epi} needs res")
@@ -228,9 +232,41 @@ def gemm(a, w, epi="bias", bias=None, res=None, *, seeds=(0, 0),
            int(not w_in_out), int(res_f32), ptr(a), ptr(w),
            ptr(bias), ptr(res), ptr(out), ptr(out2),
            *rate_arrays(seeds, block_idx, 0.0, drop_rate, dp_rate), M, N, K,
-           tokens, device=a.device)
+           tokens, device=a.device, pack=pack_scratch(a, M, N, K))
     LAUNCHES[name] += 1
     return out, out2
+
+
+def pack_rows_plain(x):
+    """x (rows, cols) copied into a (rows, pad8(cols)) buffer, its columns
+    past cols zero; returns the (rows, cols) view."""
+    rows, cols = x.shape
+    out = torch.zeros((rows, pad8(cols)), dtype=x.dtype, device=x.device)
+    return out[:, :cols].copy_(x)
+
+
+def pack_rows(x):
+    """x (rows, cols) in bf16 copied to rows of ``pad8(cols)`` columns, as
+    the entries' products pack an operand whose rows are off TMA's 16-byte
+    grid (``csrc/gemm_sm90.cuh`` ``pack_rows``, counted in
+    ``_common.PACK_LAUNCHES`` there and here); returns the (rows, cols) view
+    of the (rows, pad8(cols)) buffer, whose columns past cols are zero. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    name = "pack_rows"
+    if x.dim() != 2 or min(x.shape) < 1:
+        raise ValueError(f"{name}: needs x (rows, cols) with rows, cols >= "
+                         f"1, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return pack_rows_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    check_kernel_operands(name, x, {})
+    rows, cols = x.shape
+    out = torch.empty((rows, pad8(cols)), dtype=x.dtype, device=x.device)
+    launch(name, "afft_pack_rows", ptr(x), ptr(out), rows, cols,
+           device=x.device)
+    PACK_LAUNCHES[name] += 1
+    return out[:, :cols]
 
 
 def gemm_tn_plain(a, b):
@@ -251,9 +287,9 @@ def gemm_tn(a, b, slices=None):
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     M, I = a.shape
     J = b.shape[1]
-    if M < 1 or I % 8 or J % 8 or I < 8 or J < 8:
-        raise ValueError(f"{name}: needs M >= 1, I % 8 == 0 and J % 8 == 0 "
-                         f"(M={M}, I={I}, J={J})")
+    if min(M, I, J) < 1:
+        raise ValueError(f"{name}: needs M, I and J >= 1 (M={M}, I={I}, "
+                         f"J={J})")
     if slices is not None and slices < 1:
         raise ValueError(f"{name}: slices must be >= 1, got {slices}")
     if a.device.type == "cpu":
@@ -267,6 +303,7 @@ def gemm_tn(a, b, slices=None):
     scratch = torch.empty((slices, I, J), dtype=torch.float32,
                           device=a.device) if slices > 1 else None
     launch(name, "afft_gemm_tn", ptr(a), ptr(b), ptr(out), ptr(scratch), I,
-           J, M, slices, device=a.device)
+           J, M, slices, device=a.device,
+           pack=pack_scratch(a, M, I, J))
     LAUNCHES[name] += 1
     return out

@@ -19,12 +19,11 @@ nn.Linear (out, in): the other way round):
   before the losses.
 
 A tensor whose dimension does not divide stays whole (JAX's rule), and so
-does a whole layer whose shard the kernels cannot take
-(``ops._common.shard_reason``: the heads over tp, C / tp and hidden / tp
-multiples of 8), logged once: placement never changes the numbers. That
-second rule is the port's alone: JAX shards any dimension that divides, so
-at such a width a rank here holds a whole layer where a JAX rank holds a
-shard (the flagship and the tests' configs have no such layer at tp = 2).
+does a whole layer whose heads, C or MLP width do not divide over tp
+(``ops._common.shard_reason``), logged once: placement never changes the
+numbers. The kernels take any local width, so a layer shards wherever JAX
+shards its tensors; only a GPT-2 layer whose heads do not divide stays
+whole here where JAX would still shard its MLP.
 Each rank holds its shards (``shard_state``); ``canonical_state`` gathers
 them back over the model group for a checkpoint, which stays the
 one-process file. The layers run

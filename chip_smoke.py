@@ -41,7 +41,13 @@ Phases, in order; any failure exits non-zero and prints no result:
                cached-block shapes against cuBLAS addmm; the wgmma GEMM
                must keep 2x the rate, and half the time at the cross
                stage's shape, of the deleted wmma GEMM's last readings
-               (WMMA_TFLOPS, WMMA_MS);
+               (WMMA_TFLOPS, WMMA_MS); every model width (ROADMAP §C.8):
+               every epilogue of both weight layouts and the TN route in
+               1 / 2 / 3 slices at N and K (I and J) in 1 / 5 / 12 / 20 /
+               36 / 100 / 1,025 over 133 rows, operands off TMA's 16-byte
+               grid packed by pack_rows, bit for bit on relaunch; and
+               pack_rows alone against its plain version (a copy), timed
+               beside it and F.pad;
   4. kernels - each kernel (fused_block, gpt2_attn_half, gpt2_mlp_half,
                fused_attention, fused_seq_block, fused_decoder_block; the
                fuser block's and the GPT-2 layer's training entries, forward
@@ -81,14 +87,25 @@ Phases, in order; any failure exits non-zero and prints no result:
                6 / 12 / 256 / 512, no mask, causal or the rollout's cache
                mask with NaN in the unwritten slots, q a packed slice);
                each training backward entry run twice on the same inputs
-               gives the same gradients bit for bit; then the training
+               gives the same gradients bit for bit; every model width
+               (ROADMAP §C.8): rows 1-9 and 11-16 at C 20 / 36 (4 heads of
+               5 / 9) and MLP 36 / 100, fp32 and bf16, on their short route
+               and past it, against their plain versions, masks bit for
+               bit, bit for bit on relaunch; then the training
                entries in shard mode (tensor parallelism, rows 7, 8 and
-               11-15 at tp = 2, row 9 whole), in bf16 at the flagship's
+               11-15 at tp = 2, row 9 whole; first at C 36 / MLP 100, local
+               18 / 50), in bf16 at the flagship's
                shapes and in fp32 at a reduced batch: each model rank's
                partial sums and stashes against the plain version on the
                same shard, the sums over the ranks against the unsharded
                kernel, rank 0's local work timed beside the plain shard
-               version and its bound (the "tp" item of their entries);
+               version and its bound (the "tp" item of their entries); at
+               full width off the grid, bf16: rows 1-3, 7-9 and 11-15 at a
+               fuser C 1,025 (5 heads of 205, MLP 4,100, 4,096 rows of 5
+               tokens) and a GPT-2 C 2,045 (5 heads of 409, MLP 8,180, B
+               256, T 16) against their plain versions, each timed beside
+               the same entry at C 1,024 / 2,048 ("wide_off_grid",
+               "wide_aligned" items of their entries);
   5. serve   - the Server on five paths at full width (bf16, batch 256,
                seeded weights): the flagship
                expts/01_SA-Fuser_ek100_val_Swin.txt, its multi-step rollout
@@ -121,7 +138,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                C 24 with 2 heads of 12, GPT-2 C 32): served, and trained
                three steps, through the kernels in bf16 and fp32 against the
                plain path from the same weights, with the launch counts
-               asserted;
+               asserted; then again off the 8-column grid (the fuser at C
+               25, 5 heads of 5, MLP 100; GPT-2 at C 27, 3 heads of 9, MLP
+               108), whose bf16 kernel runs must launch pack_rows
+               (off_grid_launches in its entry; the flagship's paths launch
+               none);
   8. launcher - the port's own entry point, ``python -m afft_tpu_torch.run
                -c expts/98_synth_accept_train.txt -m train``, as
                subprocesses on a cut-down accept set at full widths
@@ -275,7 +296,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                against the pipelined eval of it (pipeline_launches in the
                kernels line; step times and peak memory per rank are
                one-card stand-ins, no pipeline speed; data2 x pipe2 runs
-               beside the flagship's stages);
+               beside the flagship's stages, the launcher's two runs
+               beside the layer checks and the one-process references);
  15. tp      - tensor and sequence parallelism with the model ranks as gloo
                processes on the one card (--device cuda:0): the flagship at
                full width (expts/01_SA-Fuser_ek100_train.txt, bf16 over fp32
@@ -955,6 +977,347 @@ def _edge_ok(what, tag, got, want):
     return 1
 
 
+# -- any model width (ROADMAP §C.8) -------------------------------------------
+
+# The Hopper GEMM at widths off TMA's 16-byte grid: an operand whose rows
+# are not a multiple of 8 columns is packed first (pack_rows), an output
+# whose rows are not goes through the element-wise epilogue. Its checks: N
+# and K (I and J for the TN route) from WIDTH_SET over WIDTH_M rows.
+WIDTH_SET = (1, 5, 12, 20, 36, 100, 1025)
+WIDTH_M = 133
+# (rows, cols) of pack_rows alone: the largest operand the full-width
+# off-grid fuser block packs (fc2's input: 4,096 rows of 5 tokens x MLP
+# 4,100), and expt 99's fuser fc2 input at C 25 (64 clips x 10 frames x 3
+# tokens x MLP 100)
+PACK_SHAPES = ((20480, 4100), (1920, 100))
+# (C, heads, MLP width) of the entries' checks off the grid: hd 5 and 9
+WIDTH_CASES = ((20, 4, 36), (20, 4, 100), (36, 4, 36), (36, 4, 100))
+# each entry on its short route and once past its short length: fuser
+# tokens, GPT-2 tokens, keys
+WIDTH_LENGTHS = {"fuser": (5, 12), "gpt2": (16, 40), "keys": (40, 1100)}
+# the full-width off-grid layers beside the aligned ones, (C, heads, MLP):
+# one fuser block over 4,096 rows of 5 tokens, one GPT-2 layer at (256, 16)
+WIDE_FUSER = {"off": (1025, 5, 4100), "aligned": (1024, 4, 4096)}
+WIDE_GPT2 = {"off": (2045, 5, 8180), "aligned": (2048, 4, 8192)}
+WIDE_ROWS, WIDE_BATCH = (4096, 5), (256, 16)
+# expt 99 with both layers off the grid: the fuser at C 25 (5 heads of 5,
+# MLP 100), GPT-2 at C 27 (3 heads of 9, MLP 108)
+EXPT99_OFF_GRID = ("model.common_dim=25", "model.fuser.num_heads=5",
+                   "model.common.fp_inter_dim=27", "model.common.fp_heads=3")
+
+
+def _check_gemm_widths(G, gen):
+    """Every epilogue of both weight layouts (the (K, N) route's six and its
+    fp32 out, the (N, K) route's ten forms and its in-place cross proj) and
+    the TN route in 1, 2 and 3 slices of M, at every (N, K) of WIDTH_SET
+    (the TN route's (I, J)) over WIDTH_M rows: against the fp32 product at
+    the gemm phase's tolerances, masks bit for bit, each bit for bit on a
+    second launch. Returns (checks, worst rel_err, pack_rows launches)."""
+    import itertools
+    import torch
+    from afft_tpu_torch.ops import launch_counts
+    before = launch_counts()["pack_rows"]
+    n, worst = 0, 0.0
+    M = WIDTH_M
+    for N, K in itertools.product(WIDTH_SET, WIDTH_SET):
+        rels = [_check_gemm(G, M, N, K, epi, gen)[0]
+                for epi in G.ROUTE_EPILOGUES[True]]
+        rels.append(_check_gemm(G, M, N, K, "bias", gen, torch.float32)[0])
+        rels += [_check_gemm_nk(G, M, N, K, epi, variant, gen)
+                 for epi, variant in NK_VARIANTS]
+        rels.append(_check_gemm_nk_inplace(G, M, N, K, gen))
+        rels += [_check_tn_split(G, M, N, K, slices, gen)
+                 for slices in (1, 2, 3)]
+        n += len(rels)
+        worst = max(worst, *rels)
+    packs = launch_counts()["pack_rows"] - before
+    if not packs:
+        raise AssertionError("gemm widths: no operand was packed")
+    log(f"gemm widths: {n} checks at N, K (I, J) in {WIDTH_SET} over M "
+        f"{M} (both weight layouts, every epilogue, the TN route in 1 / 2 / "
+        f"3 slices) agree with the fp32 product (worst rel_err {worst:.3g}), "
+        f"bit for bit on relaunch; {packs} pack_rows launches")
+    return n, worst, packs
+
+
+def _pack_rows_numbers(G, peaks, gen):
+    """pack_rows alone at PACK_SHAPES: bit for bit its plain version (a
+    copy into the padded rows) and on relaunch, timed beside it and F.pad
+    (one PyTorch call to the same rows), and its bound (each element read
+    and written once). Returns {label: numbers}, the first shape's at the
+    top."""
+    import torch
+    import torch.nn.functional as F
+    from afft_tpu_torch.ops._common import pad8
+    out = {}
+    rn = _randn(gen, torch.bfloat16)
+    for rows, cols in PACK_SHAPES:
+        x, ld = rn(rows, cols), pad8(cols)
+        got, again = G.pack_rows(x), G.pack_rows(x)
+        want = G.pack_rows_plain(x)
+        torch.cuda.synchronize()
+        if not (got.stride() == (ld, 1) and torch.equal(got, want)
+                and torch.equal(got, again)):
+            raise AssertionError(f"pack_rows ({rows}, {cols}): differs from "
+                                 "its plain version or on relaunch")
+        ms = time_ms(lambda: G.pack_rows(x))
+        plain_ms = time_ms(lambda: G.pack_rows_plain(x))
+        library_ms = time_ms(lambda: F.pad(x, (0, ld - cols)))
+        nbytes = rows * (cols + ld) * x.element_size()
+        numbers = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
+                       bound_ms=nbytes / peaks["bytes"] * 1e3,
+                       bound_by="bytes", bytes=nbytes, shape=(rows, cols),
+                       ld=ld)
+        log(f"kernel pack_rows bf16 ({rows}, {cols}) -> ld {ld}: kernel_ms="
+            f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms (F.pad)="
+            f"{library_ms:.4f} bound_ms={numbers['bound_ms']:.4f} (bytes: "
+            f"{nbytes / 1e6:.1f} MB) achieved {nbytes / ms / 1e6:.1f} GB/s; "
+            "bit for bit its plain version")
+        out[f"{rows}x{cols}"] = numbers
+    return out
+
+
+def _same_twice(what, run):
+    """``run()`` twice gives the same tensors bit for bit."""
+    import torch
+    first, second = run(), run()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{what}: two launches differ")
+
+
+def check_width_entries(gen):
+    """Rows 1-6 at every WIDTH_CASES width, in fp32 and bf16, on their
+    short route and once past it (WIDTH_LENGTHS), against their plain
+    versions (KERNEL_TOL), each bit for bit on a second launch. Returns the
+    number of checks."""
+    import torch
+    from afft_tpu_torch.models.layers import (cross_attention_diag_mask,
+                                              neg_inf_causal_mask)
+    from afft_tpu_torch.ops import (attention as FA, fused_block as FB,
+                                    fused_gpt2 as FG, fused_seq_block as FS)
+    n = 0
+
+    def hold(what, tag, kernel, plain):
+        _same_twice(what, lambda: [kernel()])
+        return _edge_ok(what, tag, kernel(), plain())
+
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        rn = _randn(gen, dt)
+        for C, H, hidden in WIDTH_CASES:
+            label = f"{tag} C={C} H={H} hidden={hidden}"
+            p = block_params(C, hidden, dt, gen, True, True)
+            for N in WIDTH_LENGTHS["fuser"]:
+                x, mask = rn(37, N, C), cross_attention_diag_mask(
+                    N, device="cuda")
+                n += hold(f"fused_block {label} N={N}", tag,
+                          lambda: FB.fused_block(x, p, mask, num_heads=H),
+                          lambda: FB.fused_block_plain(x, p, mask,
+                                                       num_heads=H))
+            g = gpt2_params(C, hidden, dt, gen)
+            for T in WIDTH_LENGTHS["gpt2"]:
+                x, mask = rn(5, T, C), neg_inf_causal_mask(T, device="cuda")
+                n += hold(f"gpt2_attn_half {label} T={T}", tag,
+                          lambda: FG.gpt2_attn_half(x, g, mask, num_heads=H),
+                          lambda: FG.gpt2_attn_half_plain(x, g, mask,
+                                                          num_heads=H))
+                n += hold(f"gpt2_mlp_half {label} T={T}", tag,
+                          lambda: FG.gpt2_mlp_half(x, g),
+                          lambda: FG.gpt2_mlp_half_plain(x, g))
+            d = decoder_params(C, hidden, dt, gen, True, True)
+            hd = C // H
+            for S in WIDTH_LENGTHS["keys"]:
+                x, mem = rn(2, S, C), rn(2, S, C)
+                mask = tiled_causal_mask(S, 1)
+                n += hold(f"fused_seq_block {label} S={S}", tag,
+                          lambda: FS.fused_seq_block(x, p, mask, num_heads=H),
+                          lambda: FS.fused_seq_block_plain(x, p, mask,
+                                                           num_heads=H))
+                n += hold(f"fused_decoder_block {label} S={S}", tag,
+                          lambda: FS.fused_decoder_block(x, mem, d, mask,
+                                                         num_heads=H),
+                          lambda: FS.fused_decoder_block_plain(
+                              x, mem, d, mask, num_heads=H))
+                q, k, v = (rn(2, n_, H, hd) for n_ in (16, S, S))
+                n += hold(f"fused_attention {label} Nq=16 Nk={S}", tag,
+                          lambda: FA.fused_attention(q, k, v, None),
+                          lambda: FA.attention_plain(q, k, v, None)[0])
+    log(f"kernels widths: {n} checks of rows 1-6 at (C, H, hidden) in "
+        f"{WIDTH_CASES}, fp32 and bf16, short and long routes, agree with "
+        "the plain versions, each bit for bit on relaunch")
+    return n
+
+
+def _train_grads(fn, x, p, dout):
+    """The output, dx and every parameter gradient of one forward and
+    backward of ``fn(x, p)`` from fresh leaves."""
+    xk = x.detach().clone().requires_grad_(True)
+    pk = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    out = fn(xk, pk)
+    out.backward(dout)
+    return [out.detach(), xk.grad] + [pk[k].grad for k in sorted(pk)]
+
+
+def check_width_train(gen):
+    """Rows 7-10 and 11-16 at every WIDTH_CASES width, in fp32 and bf16, on
+    the short route and once past it: the masks bit for bit the plain
+    generator's, the forward against the plain version on those masks, dx
+    and every gradient against fp32 autograd (check_train_block,
+    check_gpt2_train_layer), then forward and backward again bit for bit.
+    Returns the number of checks."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    n = 0
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for C, H, hidden in WIDTH_CASES:
+            for N in WIDTH_LENGTHS["fuser"]:
+                case = check_train_block(tag, dt, 37, N, C, H, hidden, gen)
+                _same_twice(case["what"], lambda: _train_grads(
+                    lambda x, p: FT.fused_block_train(
+                        x, p, None, TRAIN_SEEDS, num_heads=H, block_idx=5,
+                        **TRAIN_RATES), case["x"], case["p"], case["dout"]))
+                n += 1
+            for T in WIDTH_LENGTHS["gpt2"]:
+                case = check_gpt2_train_layer(tag, dt, 5, T, C, H, hidden,
+                                              gen)
+                mask = neg_inf_causal_mask(T, device="cuda")
+                _same_twice(case["what"], lambda: _train_grads(
+                    lambda x, p: FGT.fused_gpt2_block_train(
+                        x, p, mask, TRAIN_SEEDS, num_heads=H, layer_idx=3,
+                        **GPT2_RATES), case["x"], case["p"], case["dout"]))
+                n += 1
+    log(f"kernels widths: {n} checks of rows 7-10 and 11-16 at (C, H, "
+        f"hidden) in {WIDTH_CASES}, fp32 and bf16, short and long routes: "
+        "masks bit for bit, forward, dx and gradients within their "
+        "tolerances, bit for bit on relaunch")
+    return n
+
+
+def _time_train_entries(fn, x, p, dout):
+    """The three training entries of one layer, timed alone (CUDA events,
+    time_ms) on the forward's own stashes."""
+    import torch
+    from afft_tpu_torch.ops import fused_block_train as FT
+    R, N, C = x.shape
+    dflat = dout.reshape(R * N, C)
+    out = fn(x.detach().clone().requires_grad_(True),
+             {k: v.detach().clone().requires_grad_(True)
+              for k, v in p.items()})
+    saved = out.grad_fn.saved_tensors
+    y, qkv, pre1, mask32 = saved[1:5]
+    tensors, cfg = list(saved[5:]), out.grad_fn.cfg
+    grads = FT.new_grads(tensors)
+    dy = FT.block_train_bwd_mlp(x, y, dflat, pre1, tensors, grads, cfg)
+    with torch.no_grad():
+        ms = {"fwd": time_ms(lambda: fn(x, p)),
+              "bwd_mlp": time_ms(lambda: FT.block_train_bwd_mlp(
+                  x, y, dflat, pre1, tensors, grads, cfg)),
+              "bwd_attn": time_ms(lambda: FT.block_train_bwd_attn(
+                  x, dy, qkv, mask32, tensors, grads, cfg))}
+    del out, saved, y, qkv, pre1, dy, grads
+    return ms
+
+
+def check_full_width_off_grid(gen):
+    """At full width off the grid, in bf16: one fuser block at C 1,025 (5
+    heads of 205, MLP 4,100) over 4,096 rows of 5 tokens and one GPT-2
+    layer at C 2,045 (5 heads of 409, MLP 8,180) at (256, 16): the serving
+    rows 1-3 against their plain versions, the training rows 7-9 and 11-15
+    (masks, forward, gradients) as the kernel phase holds them; each entry
+    timed (CUDA events) beside the same entry at C 1,024 / 2,048 in this
+    call (no floor), the serving rows profiled by kernel group (where the
+    off-grid time goes: pack_rows, the products, the attention). Returns
+    {entry: {"off": ..., "aligned": ...}}."""
+    import torch
+    from afft_tpu_torch.models.layers import neg_inf_causal_mask
+    from afft_tpu_torch.ops import fused_block as FB
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2 as FG
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    dt = torch.bfloat16
+    rn = _randn(gen, dt)
+    out = {}
+
+    def put(name, key, **numbers):
+        out.setdefault(name, {})[key] = numbers
+
+    R, N = WIDE_ROWS
+    B, T = WIDE_BATCH
+    mask = neg_inf_causal_mask(T, device="cuda")
+    for key in ("off", "aligned"):
+        C, H, hidden = WIDE_FUSER[key]
+        p, x = block_params(C, hidden, dt, gen), rn(R, N, C)
+        with torch.no_grad():
+            got = FB.fused_block(x, p, num_heads=H)
+            torch.cuda.synchronize()
+            finite, max_abs, rel = errors(got, FB.fused_block_plain(
+                x, p, num_heads=H))
+            if not (finite and rel <= KERNEL_TOL["bf16"]):
+                raise AssertionError(f"fused_block bf16 C={C}: rel_err="
+                                     f"{rel:.3g}")
+            put("fused_block", key, shape=(R, N, C), hidden=hidden,
+                max_abs_err=max_abs,
+                ms=time_ms(lambda: FB.fused_block(x, p, num_heads=H)),
+                profile_ms=profile_forward(
+                    lambda: FB.fused_block(x, p, num_heads=H),
+                    f"fused_block bf16 C {C}")["groups_ms"])
+        del got
+        case = check_train_block("bf16", dt, R, N, C, H, hidden, gen)
+        _log_case(case, "bf16")
+        ms = _time_train_entries(
+            lambda x, p: FT.fused_block_train(x, p, None, TRAIN_SEEDS,
+                                              num_heads=H, block_idx=5,
+                                              **TRAIN_RATES),
+            case["x"], case["p"], case["dout"])
+        for entry, t in ms.items():
+            put(f"fused_block_train_{entry}", key, shape=(R, N, C),
+                hidden=hidden, max_abs_err=case["errs"][entry], ms=t)
+        del case, p, x
+        torch.cuda.empty_cache()
+
+        C, H, hidden = WIDE_GPT2[key]
+        g, x = gpt2_params(C, hidden, dt, gen), rn(B, T, C)
+        with torch.no_grad():
+            for name, kernel, plain in (
+                    ("gpt2_attn_half",
+                     lambda: FG.gpt2_attn_half(x, g, mask, num_heads=H),
+                     lambda: FG.gpt2_attn_half_plain(x, g, mask,
+                                                     num_heads=H)),
+                    ("gpt2_mlp_half", lambda: FG.gpt2_mlp_half(x, g),
+                     lambda: FG.gpt2_mlp_half_plain(x, g))):
+                got = kernel()
+                torch.cuda.synchronize()
+                finite, max_abs, rel = errors(got, plain())
+                if not (finite and rel <= KERNEL_TOL["bf16"]):
+                    raise AssertionError(f"{name} bf16 C={C}: rel_err="
+                                         f"{rel:.3g}")
+                put(name, key, shape=(B, T, C), hidden=hidden,
+                    max_abs_err=max_abs, ms=time_ms(kernel),
+                    profile_ms=profile_forward(
+                        kernel, f"{name} bf16 C {C}")["groups_ms"])
+        case = check_gpt2_train_layer("bf16", dt, B, T, C, H, hidden, gen)
+        _log_case(case, "bf16")
+        ms = _time_train_entries(
+            lambda x, p: FGT.fused_gpt2_block_train(
+                x, p, mask, TRAIN_SEEDS, num_heads=H, layer_idx=3,
+                **GPT2_RATES), case["x"], case["p"], case["dout"])
+        for entry, t in ms.items():
+            put(f"fused_gpt2_train_{entry}", key, shape=(B, T, C),
+                hidden=hidden, max_abs_err=case["errs"][entry], ms=t)
+        del case, g, x
+        torch.cuda.empty_cache()
+    for name, pair in out.items():
+        pair["off_over_aligned"] = pair["off"]["ms"] / pair["aligned"]["ms"]
+        log(f"kernel {name} bf16 off the grid {pair['off']['shape']} hidden "
+            f"{pair['off']['hidden']}: {pair['off']['ms']:.4f} ms beside "
+            f"{pair['aligned']['ms']:.4f} ms at {pair['aligned']['shape']} "
+            f"hidden {pair['aligned']['hidden']} "
+            f"({pair['off_over_aligned']:.3f}x)")
+    return out
+
+
 # -- the training kernels (fused_block_train forward, two backward halves,
 #    draw_masks) --------------------------------------------------------------
 
@@ -1565,6 +1928,7 @@ def phase_train_kernels(peaks, gen):
 
     log(json.dumps({"attention_bwd": check_attention_bwd(peaks, gen)}))
     check_train_edge_shapes(gen)
+    check_width_train(gen)
     results = {}
 
     # the fuser block
@@ -1965,9 +2329,17 @@ def phase_tp_kernels(peaks, gen):
     row 9 runs whole): the fuser block at R = 4096 rows of 5 tokens, C 1024,
     hidden 4096 and the GPT-2 layer at B = 256 samples of 16 tokens, C 2048,
     4 heads, hidden 8192, in bf16 (timed: rank 0's local work) and in fp32
-    at a reduced batch (check_tp_layer). Returns {entry: numbers}."""
+    at a reduced batch (check_tp_layer); first both off the 8-column grid
+    (C 36, 4 heads of 9, hidden 100) in fp32 and bf16. Returns {entry:
+    numbers}."""
     import torch
     out = {}
+    # off the 8-column grid: C 36, hidden 100 (local 18 / 50 for the GPT-2
+    # layer, hidden 50 for the fuser)
+    C, H, hidden = WIDTH_CASES[-1]
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        check_tp_layer(tag, dt, False, 37, 5, C, H, hidden, gen)
+        check_tp_layer(tag, dt, True, 5, 16, C, H, hidden, gen)
     for gpt2, shape, small in ((False, (4096, 5, 1024, 4, 4096), 512),
                                (True, (256, 16, 2048, 4, 8192), 32)):
         R, N, C, H, hidden = shape
@@ -2084,6 +2456,7 @@ def phase_kernels(peaks):
     gen.manual_seed(0)
     with torch.no_grad():
         check_edge_shapes(gen)
+        check_width_entries(gen)
     results = {}
     for name, source, replaces, make in KERNEL_CASES:
         numbers = {}
@@ -2141,7 +2514,7 @@ def phase_kernels(peaks):
 # -- the build and the GEMM of the GPT-2 entries ------------------------------
 
 # the kernels whose ptxas report the build phase prints
-REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "sum_slices",
+REPORTED_KERNELS = ("gemm_sm90", "gemm_tn_sm90", "sum_slices", "pack_rows",
                     "staged_attention", "fuser_attention", "attention_bwd",
                     "long_attention", "long_attention_mma")
 # kernels whose ptxas report must show no spill
@@ -2287,12 +2660,15 @@ def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
     the bias as drawn every dropped element must be 0, and a kept element
     may be 0 only where acc + bias is 0 within the fp32 rounding of the
     K-term sum (bound K * 2^-24 * (sum |a w| + |bias|), from the fp64
-    product). Returns (worst rel_err, kept elements that were 0)."""
+    product). A second launch must give out and out2 bit for bit.
+    Returns (worst rel_err, kept elements that were 0)."""
     import torch
     rn = _randn(gen, torch.bfloat16)
     a, w, b, r = rn(M, K), rn(K, N, std=K ** -0.5), rn(N, std=0.1), rn(M, N)
     got = G.gemm(a, w, epi, b, r, stash=True, out_dtype=out_dtype,
                  **GEMM_RATES)
+    again = G.gemm(a, w, epi, b, r, stash=True, out_dtype=out_dtype,
+                   **GEMM_RATES)
     masks = G.drop_masks(M, N, GEMM_RATES["tokens"], TRAIN_SEEDS, 3,
                          GEMM_RATES["drop_rate"], GEMM_RATES["dp_rate"],
                          "cuda") if epi == "res_drop" else None
@@ -2314,6 +2690,9 @@ def _check_gemm(G, M, N, K, epi, gen, out_dtype=None):
         if not (finite and rel <= KERNEL_TOL["bf16"]):
             raise AssertionError(f"{what}: {which} rel_err={rel:.3g} "
                                  f"finite={finite}")
+    if not all(torch.equal(g, h) for g, h in zip(got, again)
+               if g is not None):
+        raise AssertionError(f"{what}: two launches differ")
     if epi == "res_drop":
         dropped = (masks[0] * masks[1]) == 0
         zero = torch.zeros_like(r)
@@ -2627,6 +3006,8 @@ def phase_gemm(peaks, gen):
         f"{ip_worst:.3g} and {tn_worst:.3g}, tol {KERNEL_TOL['bf16']:g} of "
         "max|ref|; res_drop masks bit for bit; the (N, K) and TN routes bit "
         "for bit from launch to launch, in place as out of place)")
+    width_checks, width_worst, width_packs = _check_gemm_widths(G, gen)
+    pack_rows = _pack_rows_numbers(G, peaks, gen)
     torch.cuda.empty_cache()
 
     rn = _randn(gen, torch.bfloat16)
@@ -2724,6 +3105,9 @@ def phase_gemm(peaks, gen):
             "tn_split_worst_rel_err": split_worst,
             "nk_worst_rel_err": nk_worst, "res_drop_kept_zeros": kept_zeros,
             "inplace_checks": n_ip, "inplace_worst_rel_err": ip_worst,
+            "width_checks": width_checks,
+            "width_worst_rel_err": width_worst,
+            "width_pack_launches": width_packs, "pack_rows": pack_rows,
             "wmma_floor": {"tflops": WMMA_TFLOPS, "ms": WMMA_MS},
             "cached_block_sm90_over_addmm": cached,
             "timings": rows}
@@ -3290,18 +3674,42 @@ def _counts_ok(what, counts, expected):
 
 def phase_expt99():
     """expts/99_synth_smoke_{val,train}.txt on the card: the fuser at C 24
-    with 2 heads of 12 and the GPT-2 predictor at C 32 with 2 heads of 16.
-    Served in bf16 and fp32 against the plain path (one answer's launch
-    counts asserted), and trained: three steps through the kernels against
-    three through the plain versions on the same masks, in fp32 and in
-    bf16, with the launch counts of every step. Returns the numbers."""
+    with 2 heads of 12 and the GPT-2 predictor at C 32 with 2 heads of 16;
+    then again with both off the 8-column grid (EXPT99_OFF_GRID: the fuser
+    at C 25, 5 heads of 5, MLP 100; GPT-2 at C 27, 3 heads of 9, MLP 108).
+    Each served in bf16 and fp32 against the plain path (one answer's
+    launch counts asserted), and trained: three steps through the kernels
+    against three through the plain versions on the same masks, in fp32
+    and in bf16, with the launch counts of every step. The bf16 kernel runs
+    off the grid must launch pack_rows (the same count every step), no
+    other run may. Returns the numbers, and the off-grid runs' pack_rows
+    launches."""
+    numbers = _expt99(())
+    numbers["off_grid"] = _expt99(EXPT99_OFF_GRID)
+    return numbers, numbers["off_grid"].pop("pack_rows_launches")
+
+
+def _packs_ok(what, counts, off_grid, dtype, per_call=None):
+    """pop pack_rows from ``counts``: some in a bf16 kernel run off the grid
+    (``per_call`` of them, where given), else none. Returns the count."""
+    n = counts.pop("pack_rows")
+    if (n > 0) != (off_grid and dtype in ("bfloat16", "bf16")) or (
+            per_call is not None and n != per_call):
+        raise AssertionError(f"{what}: {n} pack_rows launches")
+    return n
+
+
+def _expt99(overrides):
+    """phase_expt99 at the expt's widths with ``overrides``."""
     import torch
     from afft_tpu_torch import serve
     from afft_tpu_torch.ops import launch_counts, reset_launches
     from afft_tpu_torch.train.runner import Runner
 
-    numbers = {}
-    cfg = serve.load_config(os.path.join(EXPTS, SMOKE_EXPTS[0]))
+    numbers, packs = {"overrides": list(overrides)}, {}
+    off = bool(overrides)
+    tag = "expt 99" + (" off the grid" if off else "")
+    cfg = serve.load_config(os.path.join(EXPTS, SMOKE_EXPTS[0]), overrides)
     depth, layers = int(cfg.model.fuser.depth), int(cfg.model.common.fp_layers)
     modal_dims = {m: int(d) for m, d in
                   cfg.model.modal_dims.to_container().items()}
@@ -3319,7 +3727,10 @@ def phase_expt99():
         reset_launches()
         answers = server.answer(requests)
         torch.cuda.synchronize()
-        _counts_ok(f"expt 99 serve {dtype}", launch_counts(), serving)
+        counts = launch_counts()
+        packs[f"serve_{dtype}"] = _packs_ok(f"{tag} serve {dtype}", counts,
+                                            off, dtype)
+        _counts_ok(f"{tag} serve {dtype}", counts, serving)
         feats = server.to_device({m: torch.cat([r[m] for r in requests])
                                   for m in requests[0]})
         with torch.no_grad():
@@ -3327,16 +3738,17 @@ def phase_expt99():
             plain = server.head_logits(server.model(feats, impl="plain"))
         torch.cuda.synchronize()
         finite, max_abs, rel = errors(logits, plain)
-        log(f"expt99 serve {dtype} B={SMOKE_BATCH}: {len(answers)} answers, "
-            f"launches {serving}, logits max_abs_diff={max_abs:.6g} "
+        log(f"{tag} serve {dtype} B={SMOKE_BATCH}: {len(answers)} answers, "
+            f"launches {serving}, pack_rows {packs[f'serve_{dtype}']}, "
+            f"logits max_abs_diff={max_abs:.6g} "
             f"rel={rel:.3g} (tol {tol:g} of max|logit|) finite={finite}")
         if not (finite and rel <= tol and len(answers) == 2):
-            raise AssertionError(f"expt 99 serve {dtype}: the kernel path "
+            raise AssertionError(f"{tag} serve {dtype}: the kernel path "
                                  "disagrees with the plain path")
         numbers[f"serve_{dtype}_rel"] = rel
         del server
 
-    cfg = serve.load_config(os.path.join(EXPTS, SMOKE_EXPTS[1]))
+    cfg = serve.load_config(os.path.join(EXPTS, SMOKE_EXPTS[1]), overrides)
     train_names = [n for n, _ in TRAIN_KERNELS["fused_block_train"][:3]]
     gpt2_names = [n for n, _ in TRAIN_KERNELS["fused_gpt2_train"][:3]]
     per_step = {**dict.fromkeys(train_names, depth),
@@ -3370,8 +3782,12 @@ def phase_expt99():
             # 0 one iteration after its warmup, where no step moves a weight
             step, _ = run.train_step(batch, run.base_lr, run.base_lr)
             losses[key].append(float(step["total_loss"]))
-            _counts_ok(f"expt 99 train {key} step {i + 1}", launch_counts(),
-                       expected)
+            counts = launch_counts()
+            packs[key] = _packs_ok(
+                f"{tag} train {key} step {i + 1}", counts,
+                off and key.endswith("kernel"), key.split("_")[0],
+                packs.get(key))
+            _counts_ok(f"{tag} train {key} step {i + 1}", counts, expected)
     diffs = {}
     for dtype, run_k, run_p in (("fp32", kernel, plain),
                                 ("bf16", bf16, bf16_plain)):
@@ -3392,19 +3808,21 @@ def phase_expt99():
             "update_rel": upd[worst], "worst_update": worst,
             "moved": moved}
         tol = EXPT99_TRAIN_TOL[dtype]
-        log(f"expt99 train {dtype} B={SMOKE_BATCH}: 3 steps through the "
+        log(f"{tag} train {dtype} B={SMOKE_BATCH}: 3 steps through the "
             f"kernels {got} vs the plain versions {want}: loss rel diff "
             f"{d['loss_rel']:.3g} (tol {tol['loss_rel']:g}), weights "
             f"{d['weight_rel']:.3g} of max|w| (tol {tol['weight_rel']:g}), "
             f"updates {d['update_rel']:.3g} of max|update| (tol "
             f"{tol['update_rel']:g}; {worst}), per tensor; the steps moved "
-            f"{moved} of {len(sd_p)} tensors; launches per step {per_step}")
+            f"{moved} of {len(sd_p)} tensors; launches per step {per_step}, "
+            f"pack_rows {packs[f'{dtype}_kernel']} a step")
         if not (d["finite"] and moved > len(sd_p) // 2
                 and all(d[k] <= t for k, t in tol.items())):
-            raise AssertionError(f"expt 99 train {dtype}: the kernel path "
+            raise AssertionError(f"{tag} train {dtype}: the kernel path "
                                  "disagrees with the plain path")
     numbers.update(train_losses=losses, train_diffs=diffs,
-                   launches_per_step=per_step)
+                   launches_per_step=per_step, pack_rows_launches={
+                       k: n for k, n in packs.items() if n})
     del kernel, plain, bf16, bf16_plain, start
     torch.cuda.empty_cache()
     return numbers
@@ -5707,10 +6125,12 @@ def phase_pipeline():
     bytes. (iii) The launcher: expts/99_synth_smoke_pipe.txt -m train -n 2
     for one epoch and resumed for a second, -m test on its checkpoint in one
     process, whose logits the pipelined eval of that checkpoint (2 gloo
-    processes, with (i)'s jobs) equals within 1e-4 of max|logit|. (iii)
-    runs first; (ii)'s four processes run beside (i)'s two. Step times and
-    peak memory per rank are one-card stand-ins: both stages share the
-    H100 (and the two runs share it), so they measure no pipeline speed.
+    processes, with (i)'s jobs) equals within 1e-4 of max|logit|. (iii)'s
+    two training runs go beside (i)'s layer checks and the one-process
+    references of (i) and (ii); (ii)'s four processes run beside (i)'s two.
+    Step times and peak memory per rank are one-card stand-ins: both stages
+    share the H100 (and the runs beside each other share it), so they
+    measure no pipeline speed.
     Returns (launches by kernel of each run, numbers)."""
     import numpy as np
     import torch
@@ -5738,8 +6158,9 @@ def phase_pipeline():
 
     t_phase = time.perf_counter()
 
-    # (iii) the launcher: 2 stages, one epoch and a resumed second; -m test
-    # in one process (the pipelined eval of that checkpoint runs with (i))
+    # (iii) the launcher: 2 stages, one epoch and a resumed second, beside
+    # (i)'s layer checks and the one-process references; then -m test in
+    # one process (the pipelined eval of that checkpoint runs with (i))
     pexpt = os.path.join(EXPTS, PIPE_EXPT)
     run = [sys.executable, "-m", "afft_tpu_torch.run", "-c", pexpt,
            *LAUNCH_OVERRIDES]
@@ -5747,42 +6168,8 @@ def phase_pipeline():
                    "cuda:0"]
     name = "CMFPEarly_ModalTokenCMFuser_rgb_flow_synth-smoke-pipe"
     ckpt_dir = os.path.join(PIPE_DIR, "checkpoints", name)
-    _, secs_a = _logged_run(train + ["train.num_epochs=1", "+overwrite=true"],
-                            PIPE_DIR, "launch-pipe", LAUNCH_TIMEOUT)
-    text, secs_b = _logged_run(train + ["train.resume=true"], PIPE_DIR,
-                               "launch-pipe-resume", LAUNCH_TIMEOUT)
-    if "Resumed from" not in text:
-        raise AssertionError("pipeline launcher: the second run did not "
-                             "resume")
-    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
-        epochs = [json.loads(line) for line in f]
-    with open(os.path.join(ckpt_dir, "summary.jsonl")) as f:
-        summary = [json.loads(line) for line in f][-1]["run"]
-    losses = [e["train_total_loss"] for e in epochs]
-    pcfg = serve.load_config(pexpt)
-    pper = int(pcfg.model.common.fp_layers) // PIPE_STAGES
-    pmicro = int(pcfg.train.get("pipeline_microbatches") or PIPE_STAGES)
-    want = {n: pper * pmicro * summary["train_iters"] for n, _ in
-            TRAIN_KERNELS["fused_gpt2_train"][:3]}
-    want.update({n: pper * pmicro * summary["val_batches"]
-                 for n in ("gpt2_attn_half", "gpt2_mlp_half")})
-    got = {n: summary["launches"][n] for n in want}
-    if not (len(epochs) == 2 and all(math.isfinite(v) for v in losses)
-            and summary["pipeline_stages"] == PIPE_STAGES and got == want):
-        raise AssertionError(f"pipeline launcher: epochs {len(epochs)}, "
-                             f"losses {losses}, launches {got} vs {want}")
-    launches["launcher_rank0"] = [summary["launches"]]
-    ck = load_checkpoint(os.path.join(ckpt_dir, "checkpoint_last"))
-    model_path = os.path.join(PIPE_DIR, "pipe_model.pt")
-    torch.save(ck["model"], model_path)
-    export = _eval_run(PIPE_DIR, "pipe-test",
-                       (f"init_from_model={name}/checkpoint_last",
-                        "+save_name=pipe.h5"), expt=pexpt)
-    if export["world_size"] != 1:
-        raise AssertionError("pipeline: -m test did not run in one process")
-    (res,) = PC.gen_load_resfiles(os.path.dirname(export["logits_file"]),
-                                  "pipe")
-    exported = res["logits/action_all-fused"]
+    pipe_run = _start_run(train + ["train.num_epochs=1", "+overwrite=true"],
+                          PIPE_DIR, "launch-pipe")
 
     # (i) first the stages' layers at their global layer index and their
     # microbatches' first global rows
@@ -5826,6 +6213,9 @@ def phase_pipeline():
     one, spans = _one_process(
         _pipe_job("one", expt, [bf16], TRAIN_CLASSES, lrs), cfg,
         TRAIN_CLASSES, one_path)
+    _, secs_a = _finish_run(pipe_run, LAUNCH_TIMEOUT)
+    pipe_run = _start_run(train + ["train.resume=true"], PIPE_DIR,
+                          "launch-pipe-resume")
     # (ii) data2 x pipe2 on four processes: plain data parallelism against
     # one process in bf16 (the expt's) and in fp32, ZeRO-1 against plain
     # data parallelism on the same grid: its one-process references here,
@@ -5843,6 +6233,40 @@ def phase_pipeline():
             _pipe_job(f"one98-{dt}", lexpt, [*LAUNCH_OVERRIDES, *more],
                       DP_CLASSES, llrs),
             serve.load_config(lexpt, more), DP_CLASSES, lpaths[dt])
+    text, secs_b = _finish_run(pipe_run, LAUNCH_TIMEOUT)
+    if "Resumed from" not in text:
+        raise AssertionError("pipeline launcher: the second run did not "
+                             "resume")
+    with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    with open(os.path.join(ckpt_dir, "summary.jsonl")) as f:
+        summary = [json.loads(line) for line in f][-1]["run"]
+    losses = [e["train_total_loss"] for e in epochs]
+    pcfg = serve.load_config(pexpt)
+    pper = int(pcfg.model.common.fp_layers) // PIPE_STAGES
+    pmicro = int(pcfg.train.get("pipeline_microbatches") or PIPE_STAGES)
+    want = {n: pper * pmicro * summary["train_iters"] for n, _ in
+            TRAIN_KERNELS["fused_gpt2_train"][:3]}
+    want.update({n: pper * pmicro * summary["val_batches"]
+                 for n in ("gpt2_attn_half", "gpt2_mlp_half")})
+    got = {n: summary["launches"][n] for n in want}
+    if not (len(epochs) == 2 and all(math.isfinite(v) for v in losses)
+            and summary["pipeline_stages"] == PIPE_STAGES and got == want):
+        raise AssertionError(f"pipeline launcher: epochs {len(epochs)}, "
+                             f"losses {losses}, launches {got} vs {want}")
+    launches["launcher_rank0"] = [summary["launches"]]
+    ck = load_checkpoint(os.path.join(ckpt_dir, "checkpoint_last"))
+    model_path = os.path.join(PIPE_DIR, "pipe_model.pt")
+    torch.save(ck["model"], model_path)
+    export = _eval_run(PIPE_DIR, "pipe-test",
+                       (f"init_from_model={name}/checkpoint_last",
+                        "+save_name=pipe.h5"), expt=pexpt)
+    if export["world_size"] != 1:
+        raise AssertionError("pipeline: -m test did not run in one process")
+    (res,) = PC.gen_load_resfiles(os.path.dirname(export["logits_file"]),
+                                  "pipe")
+    exported = res["logits/action_all-fused"]
+
     grid = [f"train.pipeline_stages={PIPE_STAGES}", *LAUNCH_OVERRIDES]
     jobs2 = [_pipe_job("plain", lexpt, grid, DP_CLASSES, llrs,
                        keep_state="host", against_file=lpaths["bf16"]),
@@ -7201,7 +7625,8 @@ def main():
         # 3. gemm
         gen = torch.Generator(device="cuda")
         gen.manual_seed(2)
-        log(json.dumps({"gemm": phase_gemm(peaks, gen)}))
+        gemm_numbers = phase_gemm(peaks, gen)
+        log(json.dumps({"gemm": gemm_numbers}))
 
         mark("3 gemm")
         # 4. kernels
@@ -7212,6 +7637,19 @@ def main():
         # rows 7, 8 and 11-15 in shard mode (tensor parallelism, tp = 2)
         for name, numbers in phase_tp_kernels(peaks, gen).items():
             kernels[name]["tp"] = numbers
+        # every model width (ROADMAP §C.8): the pack kernel of the Hopper
+        # GEMM's products off the 16-byte grid, timed at the full-width
+        # fuser block's largest pack (its other shape beside it), and the
+        # entries at full width off the grid beside C 1,024 / 2,048
+        top, *more = gemm_numbers["pack_rows"].items()
+        kernels["pack_rows"] = dict(
+            name="pack_rows", route="cuda",
+            source="afft_tpu_torch/csrc/gemm_sm90.cuh",
+            replaces="afft_tpu/ops/pallas_block.py:69", **top[1],
+            **{label: numbers for label, numbers in more})
+        for name, pair in check_full_width_off_grid(gen).items():
+            kernels[name]["wide_off_grid"] = pair["off"]
+            kernels[name]["wide_aligned"] = pair["aligned"]
 
         mark("4 kernels")
         # 5. serve
@@ -7233,14 +7671,21 @@ def main():
                 main_path=False, plain_path_launches=train_numbers["fp32"]
                 ["launches_plain"][name])
             launches.setdefault(name, 0)
+        # the flagship's widths are on the 16-byte grid: no operand is
+        # packed there (the served and trained paths assert 0); phase 7's
+        # runs off the grid launch it (off_grid_launches)
+        kernels["pack_rows"]["main_path"] = False
+        launches.setdefault("pack_rows", 0)
         for k in kernels.values():
             # KeyError if no driven path launched the kernel
             k["launches"] = launches[k["name"]]
         log(json.dumps({"train": train_numbers}))
 
         mark("6 train")
-        # 7. expt 99
-        log(json.dumps({"expt99": phase_expt99()}))
+        # 7. expt 99 (and again at widths off the 8-column grid)
+        expt99, off_grid_packs = phase_expt99()
+        kernels["pack_rows"]["off_grid_launches"] = off_grid_packs
+        log(json.dumps({"expt99": expt99}))
 
         mark("7 expt 99")
         # 8. the launcher (this slice's main path, in its own processes)
@@ -7335,6 +7780,7 @@ def main():
     log(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("main_path", "plain_path_launches",
+                              "off_grid_launches",
                               "launcher_launches", "eval_launches",
                               "variants_launches", "serving_graph_launches",
                               "options_launches", "pipeline_launches",
@@ -7345,7 +7791,8 @@ def main():
             for label, sub in e.items()
             if isinstance(sub, dict)
             and label not in ("redesign", "serving_graph_launches",
-                              "pipeline_launches", "tp_launches")}}
+                              "pipeline_launches", "tp_launches",
+                              "off_grid_launches")}}
         for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

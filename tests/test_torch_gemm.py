@@ -409,9 +409,12 @@ def test_nk_route_refuses_what_the_kernel_does_not_take():
         G.gemm(a, w_nk, "res_drop", b, r, w_in_out=False)
     with pytest.raises(ValueError, match=r"w \(N, K\), got"):
         G.gemm(a, w, "bias", b, w_in_out=False)
-    with pytest.raises(ValueError, match="K % 8 == 0, N % 8 == 0"):
-        G.gemm(a[:, :4].contiguous(), w_nk[:, :4].contiguous(), "bias", b,
-               w_in_out=False)
+    # K 4, off the 16-byte grid: taken (the kernel packs the operands)
+    a4, w4 = a[:, :4].contiguous(), w_nk[:, :4].contiguous()
+    got, _ = G.gemm(a4, w4, "bias", b, w_in_out=False)
+    np.testing.assert_allclose(
+        got.float().numpy(), _jax_epilogue("bias", a4, w4.t(), b, r, None),
+        rtol=2 ** -7, atol=1e-6)
     # the fp32 residual on CUDA: float32, contiguous and 16-byte aligned
     r32 = r.float()
     with pytest.raises(TypeError, match="expected torch.float32"):
@@ -443,16 +446,38 @@ def test_gemm_refuses_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("M,N,K", [(4, 16, 12), (4, 12, 8), (4, 4, 8)])
 def test_gemm_refuses_widths_off_the_16_byte_grid(M, N, K):
-    a, w, b, _ = _operands(M, N, K, seed=1)
-    with pytest.raises(ValueError, match="K % 8 == 0, N % 8 == 0"):
-        G.gemm(a, w, "bias", b)
+    """Widths off the 16-byte grid (K or N not a multiple of 8), which the
+    wrapper refused while the kernel took only those on it, are taken on
+    both weight layouts (the kernel packs such an operand first, and its
+    epilogue goes element by element) and computed as JAX computes them;
+    only widths below 1 are refused."""
+    a, w, b, r = _operands(M, N, K, seed=1)
+    for w_in_out in (True, False):
+        got, _ = G.gemm(a, w if w_in_out else w.t().contiguous(), "bias", b,
+                        w_in_out=w_in_out)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   _jax_epilogue("bias", a, w, b, r, None),
+                                   rtol=2 ** -7, atol=1e-6)
+    with pytest.raises(ValueError, match="M, N, K and tokens >= 1"):
+        G.gemm(a[:, :0], w[:0], "bias", b)
 
 
 @pytest.mark.parametrize("M,I,J", [(4, 12, 16), (4, 16, 20), (0, 16, 16)])
 def test_gemm_tn_refuses_what_the_kernel_does_not_take(M, I, J):
-    a, b = torch.zeros(M, I).bfloat16(), torch.zeros(M, J).bfloat16()
-    with pytest.raises(ValueError, match="I % 8 == 0 and J % 8 == 0"):
-        G.gemm_tn(a, b)
+    """I and J off the 16-byte grid are taken (the kernel packs A and B)
+    and give JAX's product; M = 0 and mismatched rows are refused."""
+    rng = np.random.default_rng(M + I + J)
+    a, b = (torch.from_numpy(rng.standard_normal((M, n)).astype(
+        np.float32)).bfloat16() for n in (I, J))
+    if M == 0:
+        with pytest.raises(ValueError, match="M, I and J >= 1"):
+            G.gemm_tn(a, b)
+    else:
+        want = jnp.dot(jnp.asarray(a.float().numpy()).T,
+                       jnp.asarray(b.float().numpy()),
+                       precision=jax.lax.Precision.HIGHEST)
+        np.testing.assert_allclose(G.gemm_tn(a, b).numpy(),
+                                   np.asarray(want), rtol=1e-6, atol=1e-5)
     with pytest.raises(ValueError, match=r"\(M, I\)"):
         G.gemm_tn(a, torch.zeros(M + 1, J).bfloat16())
 

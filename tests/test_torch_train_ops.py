@@ -478,17 +478,19 @@ def _layer_params(layer, C, hidden):
 def test_training_wrappers_apply_the_gemm_operand_rules(layer):
     """What both training wrappers check before a CUDA launch, where every
     bf16 product runs on gemm_sm90 (the fuser's forward and the GPT-2
-    layer's backward dX on its (N, K) route): K % 8 and N % 8 (C and hidden
-    multiples of 8), one dtype, contiguous and 16-byte aligned operands."""
+    layer's backward dX on its (N, K) route): one dtype, contiguous and
+    16-byte aligned operands; any C and hidden (C 20 and hidden 124, off
+    the 16-byte grid, are taken: the GEMM packs such operands)."""
     check = (FB.block_operands if layer == "fuser"
              else FGT.gpt2_operands)
     x = torch.zeros(2, 3, 32)
     tensors, hidden = check("t", x, _layer_params(layer, 32, 128), 4)
     assert hidden == 128 and len(tensors) == 12
-    with pytest.raises(ValueError, match="C % 8 == 0"):
-        check("t", torch.zeros(2, 3, 20), _layer_params(layer, 20, 80), 4)
-    with pytest.raises(ValueError, match="hidden % 8 == 0"):
-        check("t", x, _layer_params(layer, 32, 124), 4)
+    tensors, hidden = check("t", torch.zeros(2, 3, 20),
+                            _layer_params(layer, 20, 80), 4)
+    assert hidden == 80 and len(tensors) == 12
+    tensors, hidden = check("t", x, _layer_params(layer, 32, 124), 4)
+    assert hidden == 124 and len(tensors) == 12
     shifted = torch.zeros(2 * 3 * 32 + 1)[1:].view(2, 3, 32)
     with pytest.raises(ValueError, match="16-byte aligned"):
         check("t", shifted, _layer_params(layer, 32, 128), 4)
