@@ -134,21 +134,47 @@ struct DropSite {
 
 constexpr unsigned DROP_KEEP_ALL = 1u << 24;
 
+// The draw's constants: the round multipliers and the key schedule's Weyl
+// increments. Every caller draws through philox_word0 below, the one copy.
+constexpr unsigned PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
+constexpr unsigned PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
+
+// hi:lo = a * m, one widening multiply (mul.wide.u32: IMAD.WIDE.U32, both
+// halves from one instruction; on an H100 it takes about two issue slots of
+// the FMA-heavy pipe, as IMAD.HI and IMAD would: philox_bound.py --probe)
+__device__ __forceinline__ void philox_mul(unsigned a, unsigned m,
+                                           unsigned& hi, unsigned& lo) {
+  const unsigned long long p = (unsigned long long)a * m;
+  hi = (unsigned)(p >> 32);
+  lo = (unsigned)p;
+}
+
+// Word 0 of Philox4x32-10. Round r's keys are seed + r * W, each a function
+// of the seed alone, so a loop over elements computes them once (or the
+// compiler folds them into its operands); each round is two widening
+// multiplies and two 3-input XORs (LOP3), and the last round keeps only the
+// high half of the product that word 0 needs. Where a caller draws several
+// elements whose counters share words 1-3 (drop_scales), the compiler shares
+// round 0's product of the block word and round 1's of word 0 among them.
 __device__ __forceinline__ unsigned philox_word0(unsigned k0, unsigned k1,
                                                  unsigned c0, unsigned c1,
                                                  unsigned c2, unsigned c3) {
 #pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
+  for (int r = 0; r < 9; ++r) {
+    unsigned hi0, lo0, hi1, lo1;
+    philox_mul(c0, PHILOX_M0, hi0, lo0);
+    philox_mul(c2, PHILOX_M1, hi1, lo1);
+    c0 = hi1 ^ c1 ^ (k0 + (unsigned)r * PHILOX_W0);
     c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
+    c2 = hi0 ^ c3 ^ (k1 + (unsigned)r * PHILOX_W1);
     c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
   }
-  return c0;
+  return __umulhi(c2, PHILOX_M1) ^ c1 ^ (k0 + 9u * PHILOX_W0);
+}
+
+// keep iff (draw >> 8) < thr, as draw < (thr << 8): thr < 2^24 here
+__device__ __forceinline__ float drop_keep(const DropSite& d, unsigned w) {
+  return w < (d.thr << 8) ? d.inv : 0.f;
 }
 
 __device__ __forceinline__ float drop_scale(const DropSite& d,
@@ -156,9 +182,36 @@ __device__ __forceinline__ float drop_scale(const DropSite& d,
   if (d.thr >= DROP_KEEP_ALL) return d.inv;
   if (d.span != 0) idx += idx / d.span * d.gap;
   idx += d.base;
-  const unsigned w = philox_word0(d.seed0, d.seed1, (unsigned)idx,
-                                  (unsigned)(idx >> 32), d.block, d.site);
-  return (w >> 8) < d.thr ? d.inv : 0.f;
+  return drop_keep(d, philox_word0(d.seed0, d.seed1, (unsigned)idx,
+                                   (unsigned)(idx >> 32), d.block, d.site));
+}
+
+// The multipliers of V logical elements whose indices (after base; a site
+// without a remap, span 0) are hi:lo .. hi:lo + V - 1, one high word: the
+// caller keeps lo + V - 1 from carrying. drop_scale of each, bit for bit;
+// the V chains are independent, so they interleave, and share their first
+// two rounds' element-free products.
+template <int V>
+__device__ __forceinline__ void drop_scales(const DropSite& d, unsigned lo,
+                                            unsigned hi, float (&m)[V]) {
+  if (d.thr >= DROP_KEEP_ALL) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) m[j] = d.inv;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    m[j] = drop_keep(d, philox_word0(d.seed0, d.seed1, lo + (unsigned)j, hi,
+                                     d.block, d.site));
+}
+
+// Whether the logical indices base + e .. base + e + count - 1 share one
+// high word (the condition of drop_scales), for count >= 1.
+__device__ __forceinline__ bool drop_one_word(const DropSite& d,
+                                              unsigned long long e,
+                                              unsigned count) {
+  const unsigned lo = (unsigned)(d.base + e);
+  return lo <= 0xFFFFFFFFu - (count - 1);
 }
 
 __device__ __forceinline__ float gelu_erf(float v) {

@@ -82,7 +82,7 @@ extern "C" int afft_block_train_bwd_attn(int dtype, const void* x,
 
 // The five masks of one block, each already scaled by 1 / keep, fp32:
 // bufs = attention (R, H, N, N), proj (R * N, C), drop-path 1 (R), MLP
-// (R * N, C), drop-path 2 (R).
+// (R * N, C), drop-path 2 (R); one launch of train_block.cuh's mask kernel.
 extern "C" int afft_draw_masks(const int* seeds, const int* thr,
                                const float* inv, void* const* bufs, int R,
                                int N, int C, int H, void* stream) {
@@ -91,4 +91,50 @@ extern "C" int afft_draw_masks(const int* seeds, const int* thr,
   const int sites[5] = {SITE_ATTN, SITE_PROJ, SITE_DP1, SITE_MLP, SITE_DP2};
   return fill_masks(rates_of(seeds, thr, inv, N, C, H), bufs, n, sites, 5,
                     static_cast<cudaStream_t>(stream));
+}
+
+// One site's mask through the same kernel, from every field of its DropSite
+// (the checks' entry: the tensor-parallel span / gap remap and any base):
+// seeds = {seed0, seed1, block, site}; out (n,) fp32.
+extern "C" int afft_draw_mask_site(const int* seeds, int thr, float inv,
+                                   long long base, long long span,
+                                   long long gap, void* out, long long n,
+                                   void* stream) {
+  if (n < 0 || base < 0 || span < 0 || gap < 0)
+    return (int)cudaErrorInvalidValue;
+  const DropSite d{(unsigned)seeds[0], (unsigned)seeds[1],
+                   (unsigned)seeds[2], (unsigned)seeds[3], (unsigned)thr,
+                   inv, (unsigned long long)base, (unsigned long long)span,
+                   (unsigned long long)gap};
+  void* bufs[1] = {out};
+  const size_t sizes[1] = {(size_t)n};
+  return fill_masks(Rates{}, bufs, sizes, nullptr, 1,
+                    static_cast<cudaStream_t>(stream), &d);
+}
+
+// The backward entries' drop pass alone (train_block.cuh drop_grad): out =
+// (d * drop-path multiplier of its row) * dropout multiplier, rounded to
+// the dtype, over (R * N, C) elements; ``branch`` 0 the attention branch
+// (the proj and drop-path 1 sites), 1 the MLP branch (MLP, drop-path 2);
+// seeds, thr, inv as the training entries'.
+extern "C" int afft_drop_grad(int dtype, const void* d, void* out,
+                              const int* seeds, const int* thr,
+                              const float* inv, int R, int N, int C,
+                              int branch, void* stream) {
+  if (R < 0 || N < 1 || C < 1 || (branch != 0 && branch != 1))
+    return (int)cudaErrorInvalidValue;
+  const Rates rt = rates_of(seeds, thr, inv, N, C, 0);
+  const DropSite drop = site_of(rt, branch ? SITE_MLP : SITE_PROJ);
+  const DropSite row = site_of(rt, branch ? SITE_DP2 : SITE_DP1);
+  const size_t n = (size_t)R * N * C;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_drop_grad<float>(static_cast<const float*>(d),
+                                        static_cast<float*>(out), n, C, N,
+                                        drop, row, s);
+  if (dtype == 1)
+    return (int)launch_drop_grad<bf16>(static_cast<const bf16*>(d),
+                                       static_cast<bf16*>(out), n, C, N, drop,
+                                       row, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -88,7 +88,8 @@ extern "C" int afft_gpt2_train_bwd_attn(int dtype, const void* x,
 }
 
 // The three masks of one layer, each already scaled by 1 / keep, fp32:
-// bufs = attention (B, H, T, T), proj (B * T, C), MLP (B * T, C).
+// bufs = attention (B, H, T, T), proj (B * T, C), MLP (B * T, C); one
+// launch of train_block.cuh's mask kernel.
 extern "C" int afft_draw_masks_gpt2(const int* seeds, const int* thr,
                                     const float* inv, void* const* bufs,
                                     int B, int T, int C, int H,

@@ -82,9 +82,11 @@
 //     GFLOP, 0.017 / 0.035 ms at 989 TFLOP/s) against bytes (q, k, v read
 //     and out written once; the backward's fp32 dao read and dq, dk, dv and
 //     O written once: 0.020 / 0.045 ms at 3.35 TB/s). Under DROP, Philox
-//     adds about 57 SASS integer instructions a visible pair and kernel
-//     (tools/philox_bound.py): 0.48 G a kernel at T 1,024, ~0.03 ms of
-//     integer issue. The kernels run 1.5x (forward), 2.5x (backward) the
+//     adds one draw a visible pair and kernel (common.cuh drop_scale: ~19
+//     multiplies on the FMA-heavy pipe, a widening one taking about two
+//     issue slots, and ~20 ALU instructions; tools/philox_bound.py counts
+//     the drop passes' draws): at T 1,024 8.4 M pairs, ~0.35 G FMA-heavy
+//     slots, ~0.02 ms of that pipe. The kernels run 1.5x (forward), 2.5x (backward) the
 //     bound's products: the second pass, the backward's recomputed forward
 //     and scores. PERF.md has their times.
 //

@@ -205,19 +205,141 @@ static Rates rates_of(const int* seeds, const int* thr, const float* inv,
 // Elementwise passes
 // ---------------------------------------------------------------------------
 
-// out = (d * row_drop[row / tokens]) * drop[row, col], rounded to T: the
-// gradient entering a branch's last GEMM.
-template <typename T>
-__global__ void drop_grad(const T* __restrict__ d, T* __restrict__ out,
-                          size_t n, int C, int tokens, DropSite drop,
-                          DropSite row_drop) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t row = i / C;
-    const float v = (to_f32(d[i]) * drop_scale(row_drop, row / tokens)) *
-                    drop_scale(drop, i);
-    out[i] = from_f32<T>(v);
+// The drop passes below (drop_grad, and the mask kernel of rows 10 and 16)
+// are bound by the draw's integer work, not by their bytes: one Philox4x32-10
+// draw an element (common.cuh philox_word0, ~40 SASS instructions on the
+// FMA-heavy pipe and the ALU; tools/philox_bound.py counts them) against
+// 4 to 8 bytes moved. So each thread takes several consecutive elements a
+// turn (independent chains that interleave and share their first two
+// rounds' element-free products), moves them with 16-byte accesses, and
+// indexes them with 32-bit offsets from a 64-bit tile start (a tile whose
+// logical indices cross a 2^32 boundary, a ragged tail or an unaligned
+// buffer takes drop_scale's 64-bit route element by element). Both loop over
+// their tiles with a resident grid, so a thread's round keys and the
+// block word's product are computed once.
+
+constexpr int DG_THREADS = 128;
+constexpr unsigned DG_TILE = 1024;  // elements a block's turn
+
+// VEC elements of T as one 16-byte (or narrower) access
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// store a Pack as one access (the compiler splits a 16-byte struct of bf16
+// into 2-byte stores otherwise)
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& x) {
+  if constexpr (sizeof(T) * VEC == 16) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(x.v);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *reinterpret_cast<Pack<T, VEC>*>(p) = x;
   }
+}
+
+// out = (d * row_drop[row]) * drop[e], rounded to T: the gradient entering a
+// branch's last GEMM, over ``rows`` drop-path rows of ``rowlen`` (tokens * C)
+// elements. The drop-path multiplier is drawn once a row by each block
+// that walks it (one where the rows fill the grid), the
+// element's mask in VEC-element vectors (VEC = 16 / sizeof(T) where C and
+// both buffers allow it, else 1): DG_TILE / (DG_THREADS * VEC) vectors a
+// thread a turn.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(DG_THREADS)
+    drop_grad(const T* __restrict__ d, T* __restrict__ out,
+              unsigned long long rows, unsigned rowlen, DropSite drop,
+              DropSite row_drop) {
+  constexpr int U = DG_TILE / (DG_THREADS * VEC);
+  static_assert(U * DG_THREADS * VEC == (int)DG_TILE, "tile");
+  const unsigned chunks = (rowlen + DG_TILE - 1) / DG_TILE;
+  for (unsigned long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float rm = drop_scale(row_drop, row);
+    const unsigned long long r0 = row * rowlen;
+    for (unsigned c = blockIdx.y; c < chunks; c += gridDim.y) {
+      const unsigned c0 = c * DG_TILE;
+      if (c0 + DG_TILE <= rowlen && drop.span == 0 &&
+          drop_one_word(drop, r0 + c0, DG_TILE)) {
+        const unsigned long long first = drop.base + r0 + c0;
+        const unsigned lo = (unsigned)first, hi = (unsigned)(first >> 32);
+        const T* src = d + r0 + c0;
+        T* dst = out + r0 + c0;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const unsigned off = (u * DG_THREADS + threadIdx.x) * VEC;
+          const Pack<T, VEC> x =
+              *reinterpret_cast<const Pack<T, VEC>*>(src + off);
+          float m[VEC];
+          drop_scales<VEC>(drop, lo + off, hi, m);
+          Pack<T, VEC> y;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            y.v[j] = from_f32<T>((to_f32(x.v[j]) * rm) * m[j]);
+          store_pack<T, VEC>(dst + off, y);
+        }
+      } else {
+        for (unsigned j = threadIdx.x; j < DG_TILE; j += DG_THREADS) {
+          if (c0 + j >= rowlen) break;
+          const unsigned long long e = r0 + c0 + j;
+          out[e] = from_f32<T>((to_f32(d[e]) * rm) * drop_scale(drop, e));
+        }
+      }
+    }
+  }
+}
+
+// blocks of ``threads`` threads of ``kernel`` resident on the device at once
+template <typename K>
+static int resident_blocks(K kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0) != cudaSuccess)
+    return 0;
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+template <typename T, int VEC>
+static cudaError_t launch_drop_grad_as(const T* d, T* out, size_t n, int C,
+                                       int tokens, const DropSite& drop,
+                                       const DropSite& row_drop,
+                                       cudaStream_t s) {
+  static const int resident = resident_blocks(drop_grad<T, VEC>, DG_THREADS);
+  const unsigned long long rowlen = (unsigned long long)tokens * C;
+  const unsigned long long rows = n / rowlen;
+  const unsigned long long chunks = (rowlen + DG_TILE - 1) / DG_TILE;
+  // a block walks whole rows (one row draw for all its chunks) where the
+  // rows fill the resident grid; otherwise a row's chunks are split over
+  // several blocks
+  const unsigned long long cap = resident > 0 ? resident : 1056;
+  const unsigned gx = (unsigned)(rows < cap ? rows : cap);
+  const unsigned long long want = (cap + gx - 1) / gx;
+  const unsigned gy = (unsigned)(chunks < want ? chunks : want);
+  drop_grad<T, VEC><<<dim3(gx, gy), DG_THREADS, 0, s>>>(
+      d, out, rows, (unsigned)rowlen, drop, row_drop);
+  return cudaGetLastError();
+}
+
+// drop_grad over n = M * C elements (rows of C, drop-path rows of ``tokens``
+// of them); the vector route where C and both buffers allow it.
+template <typename T>
+static cudaError_t launch_drop_grad(const T* d, T* out, size_t n, int C,
+                                    int tokens, const DropSite& drop,
+                                    const DropSite& row_drop,
+                                    cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (n == 0) return cudaSuccess;
+  if (C < 1 || tokens < 1 || n % ((size_t)tokens * C) != 0 ||
+      (unsigned long long)tokens * C > 0x7FFFFFFFull)
+    return cudaErrorInvalidValue;
+  if (C % VEC == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    return launch_drop_grad_as<T, VEC>(d, out, n, C, tokens, drop, row_drop,
+                                       s);
+  return launch_drop_grad_as<T, 1>(d, out, n, C, tokens, drop, row_drop, s);
 }
 
 // h1 = gelu(pre1) (gelu_new with TANH, else exact), rounded to T, from the
@@ -232,28 +354,94 @@ __global__ void gelu_rows(const T* __restrict__ pre, T* __restrict__ out,
   }
 }
 
-// out[i] = the site's multiplier of logical element i (0 or 1 / keep).
-static __global__ void fill_mask(float* __restrict__ out, size_t n,
-                                 DropSite site) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    out[i] = drop_scale(site, i);
-}
-
 static int ew_blocks(size_t n) {
   const size_t b = (n + 255) / 256;
   return (int)(b < 65535 * 4 ? (b > 0 ? b : 1) : 65535 * 4);
 }
 
-// One mask a site into bufs[i] (n[i] elements; sizes of 0 are skipped).
+// The mask kernel of rows 10 and 16 (draw_masks, draw_masks_gpt2): every
+// site of a block or layer in one launch, from a table of sites in the
+// kernel's parameters; out[s][e] = site s's multiplier of its logical
+// element e (0 or 1 / keep), MASK_VEC consecutive elements a vector,
+// MASK_UNROLL vectors a thread a tile (16-byte stores). Sizes of 0 are left
+// out of the table.
+constexpr int MASK_SITES = 5, MASK_THREADS = 256, MASK_VEC = 4,
+              MASK_UNROLL = 2;
+constexpr unsigned MASK_TILE = MASK_THREADS * MASK_VEC * MASK_UNROLL;
+
+struct MaskTable {
+  float* out[MASK_SITES];
+  unsigned long long n[MASK_SITES];
+  DropSite site[MASK_SITES];
+  int count;
+  unsigned aligned;  // bit s: out[s] lies on the 16-byte grid
+};
+
+static __global__ void __launch_bounds__(MASK_THREADS)
+    fill_masks_kernel(const __grid_constant__ MaskTable t) {
+  for (int s = 0; s < t.count; ++s) {
+    const DropSite d = t.site[s];
+    float* __restrict__ out = t.out[s];
+    const unsigned long long n = t.n[s];
+    const unsigned tiles = (unsigned)((n + MASK_TILE - 1) / MASK_TILE);
+    if (d.thr >= DROP_KEEP_ALL) {  // rate 0: 1 / keep everywhere, no draw
+      for (unsigned long long e = (unsigned long long)blockIdx.x *
+                                      MASK_THREADS + threadIdx.x;
+           e < n; e += (unsigned long long)gridDim.x * MASK_THREADS)
+        out[e] = d.inv;
+      continue;
+    }
+    const bool vec = ((t.aligned >> s) & 1u) != 0 && d.span == 0;
+    for (unsigned tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const unsigned long long e0 = (unsigned long long)tile * MASK_TILE;
+      if (vec && e0 + MASK_TILE <= n && drop_one_word(d, e0, MASK_TILE)) {
+        const unsigned long long first = d.base + e0;
+        const unsigned lo = (unsigned)first, hi = (unsigned)(first >> 32);
+        float* dst = out + e0;
+#pragma unroll
+        for (int u = 0; u < MASK_UNROLL; ++u) {
+          const unsigned off = (u * MASK_THREADS + threadIdx.x) * MASK_VEC;
+          float m[MASK_VEC];
+          drop_scales<MASK_VEC>(d, lo + off, hi, m);
+          *reinterpret_cast<float4*>(dst + off) =
+              make_float4(m[0], m[1], m[2], m[3]);
+        }
+      } else {
+        for (unsigned j = threadIdx.x; j < MASK_TILE; j += MASK_THREADS) {
+          const unsigned long long e = e0 + j;
+          if (e >= n) break;
+          out[e] = drop_scale(d, e);
+        }
+      }
+    }
+  }
+}
+
+// count <= MASK_SITES masks into bufs[i] (n[i] elements of site site_of(rt,
+// sites[i]) each, or ``drops`` where given), in one launch.
 static int fill_masks(const Rates& rt, void* const* bufs, const size_t* n,
-                      const int* sites, int count, cudaStream_t s) {
+                      const int* sites, int count, cudaStream_t s,
+                      const DropSite* drops = nullptr) {
+  static const int resident = resident_blocks(fill_masks_kernel,
+                                              MASK_THREADS);
+  if (count < 0 || count > MASK_SITES) return (int)cudaErrorInvalidValue;
+  MaskTable t{};
+  unsigned long long most = 0;
   for (int i = 0; i < count; ++i) {
     if (n[i] == 0) continue;
-    fill_mask<<<ew_blocks(n[i]), 256, 0, s>>>(static_cast<float*>(bufs[i]),
-                                              n[i], site_of(rt, sites[i]));
-    AFFT_CHECK_LAUNCH();
+    const int k = t.count++;
+    t.out[k] = static_cast<float*>(bufs[i]);
+    t.n[k] = n[i];
+    t.site[k] = drops != nullptr ? drops[i] : site_of(rt, sites[i]);
+    if (reinterpret_cast<uintptr_t>(bufs[i]) % 16 == 0) t.aligned |= 1u << k;
+    const unsigned long long tiles = (n[i] + MASK_TILE - 1) / MASK_TILE;
+    if (tiles > most) most = tiles;
   }
+  if (t.count == 0) return 0;
+  const unsigned long long cap = resident > 0 ? resident : 1056;
+  fill_masks_kernel<<<(unsigned)(most < cap ? most : cap), MASK_THREADS, 0,
+                      s>>>(t);
+  AFFT_CHECK_LAUNCH();
   return 0;
 }
 
@@ -438,10 +626,8 @@ static int run_bwd_mlp(const T* y, const T* dout, const T* pre1,
   const T* const* p = reinterpret_cast<const T* const*>(pv);
   const int M = R * N;
   const size_t n = (size_t)M * C, nh = (size_t)M * hidden;
-  drop_grad<T><<<ew_blocks(n), 256, 0, s>>>(dout, dh2, n, C, N,
-                                            site_of(rt, SITE_MLP),
-                                            site_of(rt, SITE_DP2));
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_drop_grad<T>(dout, dh2, n, C, N, site_of(rt, SITE_MLP),
+                                  site_of(rt, SITE_DP2), s)));
   launch_layernorm<T, T>(y, p[TP_LN2G], p[TP_LN2B], tmp, M, C, eps, s);
   AFFT_CHECK_LAUNCH();
   gelu_rows<T, GPT2><<<ew_blocks(nh), 256, 0, s>>>(pre1, h1, nh);
@@ -500,10 +686,8 @@ static int run_bwd_attn(const T* x, const T* dy, const T* qkv,
   const T* const* p = reinterpret_cast<const T* const*>(pv);
   const int M = R * N, A = sh.width(C);
   const size_t n = (size_t)M * C;
-  drop_grad<T><<<ew_blocks(n), 256, 0, s>>>(dy, dproj, n, C, N,
-                                            site_of(rt, SITE_PROJ),
-                                            site_of(rt, SITE_DP1));
-  AFFT_CHECK_LAUNCH();
+  AFFT_CHECK((launch_drop_grad<T>(dy, dproj, n, C, N, site_of(rt, SITE_PROJ),
+                                  site_of(rt, SITE_DP1), s)));
   // dattn = dproj . Wproj^T, fp32
   AFFT_CHECK((launch_dx<EPI_BIAS, GPT2, float>(
       dproj, p[TP_WPROJ], M, A, C, EpiArgs{nullptr, nullptr, dattn}, s)));

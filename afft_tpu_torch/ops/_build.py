@@ -52,6 +52,8 @@ SIGNATURES = {
     "afft_block_train_bwd_attn": [_I, _P, _P, _P, _PP, _PP, _P, _IP, _IP, _FP,
                                   _IP, _PP] + [_I] * 4 + [_F, _P],
     "afft_draw_masks": [_IP, _IP, _FP, _PP] + [_I] * 4 + [_P],
+    "afft_draw_mask_site": [_IP, _I, _F, _L, _L, _L, _P, _L, _P],
+    "afft_drop_grad": [_I, _P, _P, _IP, _IP, _FP] + [_I] * 4 + [_P],
     "afft_attention_drop": [_I, _I, _P, _P, _P, _IP, _IP, _FP] + [_I] * 4
                            + [_P],
     "afft_attention_drop_bwd": [_I, _I] + [_P] * 7 + [_IP, _IP, _FP]

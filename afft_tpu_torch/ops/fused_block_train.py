@@ -77,7 +77,8 @@ from .fused_block import _unpack, block_operands
 
 LAUNCHES = {"fused_block_train_fwd": 0, "fused_block_train_bwd_mlp": 0,
             "fused_block_train_bwd_attn": 0, "draw_masks": 0,
-            "attention_drop": 0, "attention_drop_bwd": 0}
+            "attention_drop": 0, "attention_drop_bwd": 0,
+            "draw_site_mask": 0, "drop_grad": 0}
 
 # the launches in shard mode (tensor parallelism) of both training layers'
 # entries, by entry; each is counted in its layer's LAUNCHES too
@@ -140,10 +141,16 @@ def philox_word0(idx, seed0: int, seed1: int, block: int, site: int):
 
 
 def site_mask_plain(n: int, seeds, block_idx: int, site: int, thr: int,
-                    inv: float, device="cpu", offset: int = 0):
-    """The multipliers of a site's logical elements offset .. offset + n -
-    1, fp32 (n,)."""
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+                    inv: float, device="cpu", offset: int = 0, span: int = 0,
+                    gap: int = 0):
+    """The multipliers of a site's local elements 0 .. n - 1, fp32 (n,):
+    local element i is logical element offset + i, moved on by (i // span)
+    * gap where ``span`` is not 0 (``csrc/common.cuh`` DropSite: a
+    tensor-parallel shard's span / gap remap, ``offset`` its base)."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if span:
+        idx = idx + idx // span * gap
+    idx = idx + offset
     draw = philox_word0(idx, seeds[0], seeds[1], block_idx, site) >> 8
     scale = torch.tensor(inv, dtype=torch.float32, device=device)
     return torch.where(draw < thr, scale, torch.zeros_like(scale))
@@ -214,6 +221,79 @@ def draw_masks(R, N, C, num_heads, seeds, block_idx, attn_rate, drop_rate,
            C, num_heads, device=device)
     LAUNCHES["draw_masks"] += 1
     return masks
+
+
+def draw_site_mask(n, seeds, block_idx, site, rate, *, offset=0, span=0,
+                   gap=0, device="cuda"):
+    """One site's multipliers (``site_mask_plain``'s, with its remap) from
+    the mask kernel of ``draw_masks``: the plain version on the CPU, the
+    kernel on a CUDA device. No path draws through it: it reaches every
+    field of the kernel's site (any offset, a shard's span / gap) for the
+    checks."""
+    seeds = check_seeds(seeds)
+    thr, inv = rates_operands(rate, rate, rate)
+    device = torch.device(device)
+    if not 0 <= site < 5 or min(n, offset, span, gap) < 0:
+        raise ValueError("draw_site_mask: site in 0..4 and n, offset, span, "
+                         "gap >= 0")
+    if device.type == "cpu":
+        return site_mask_plain(n, seeds, block_idx, site, thr[0], inv[0],
+                               offset=offset, span=span, gap=gap)
+    if device.type != "cuda":
+        raise ValueError(f"draw_site_mask: unsupported device {device}")
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    words = (ctypes.c_int * 4)(seeds[0], seeds[1], int(block_idx), site)
+    launch("draw_site_mask", "afft_draw_mask_site", words, thr[0], inv[0],
+           offset, span, gap, ptr(out), n, device=device)
+    LAUNCHES["draw_site_mask"] += 1
+    return out
+
+
+# the sites (element dropout, drop-path) of a branch's drop pass
+_BRANCH_SITES = {"attn": (1, 2), "mlp": (3, 4)}
+
+
+def drop_grad_plain(d, seeds, block_idx, drop_rate, dp_rate, *, branch,
+                    row0: int = 0):
+    """(d * the drop-path multiplier of its row) * the element's dropout
+    multiplier, rounded to d's dtype, for d (R, N, C): the gradient that
+    enters a branch's last product in the backward entries (``branch``
+    "attn": the proj and drop-path 1 sites; "mlp": the MLP and drop-path 2
+    sites)."""
+    R, N, C = d.shape
+    seeds = check_seeds(seeds)
+    thr, inv = rates_operands(0.0, drop_rate, dp_rate)
+    site, dp_site = _BRANCH_SITES[branch]
+    elem, rows = masks_plain(((R, N * C), (R, 1)), (site, dp_site), (1, 2),
+                             seeds, block_idx, thr, inv, check_row0(row0),
+                             d.device)
+    return ((d.float() * rows.reshape(R, 1, 1))
+            * elem.reshape(R, N, C)).to(d.dtype)
+
+
+def drop_grad(d, seeds, block_idx, drop_rate, dp_rate, *, branch,
+              row0: int = 0):
+    """``drop_grad_plain`` through the backward entries' drop pass
+    (``csrc/train_block.cuh`` drop_grad) on a CUDA tensor, the plain
+    version on a CPU one. No path calls it: the backward entries launch the
+    pass themselves; it serves the checks and the pass's timing."""
+    if branch not in _BRANCH_SITES:
+        raise ValueError(f"drop_grad: branch 'attn' or 'mlp', got {branch!r}")
+    if d.device.type == "cpu":
+        return drop_grad_plain(d, seeds, block_idx, drop_rate, dp_rate,
+                               branch=branch, row0=row0)
+    if d.device.type != "cuda" or d.dtype not in DTYPE_CODES or \
+            d.dim() != 3 or not d.is_contiguous():
+        raise ValueError("drop_grad: a contiguous (R, N, C) fp32 or bf16 "
+                         "CUDA tensor")
+    R, N, C = d.shape
+    arrays = rate_arrays(seeds, block_idx, 0.0, drop_rate, dp_rate, row0)
+    out = torch.empty_like(d)
+    launch("drop_grad", "afft_drop_grad", DTYPE_CODES[d.dtype], ptr(d),
+           ptr(out), *arrays, R, N, C, 0 if branch == "attn" else 1,
+           device=d.device)
+    LAUNCHES["drop_grad"] += 1
+    return out
 
 
 # -- the plain version --------------------------------------------------------

@@ -1481,6 +1481,184 @@ def check_gpt2_train_layer(tag, dt, B, T, C, H, hidden, gen, *, rates=None,
             x, p, mask, masks, num_heads=H, **kw))
 
 
+# -- the drop passes: rows 10 and 16's mask kernel and drop_grad, on the one
+#    Philox draw of csrc/common.cuh --------------------------------------------
+
+# row0 values that put the fuser's / GPT-2 layer's proj and MLP indices past
+# 2^32 (their per-row elements N * C: 5,120 / 32,768), the first of each
+# pair with its range across a 2^32 boundary
+MASK_ROW0 = {"fuser": (838860, 2 ** 31 - 1), "gpt2": (131071, 2 ** 31 - 1)}
+MASK_EDGE_RATES = (0.0, 0.5, 0.999)
+# the numbers of the drop passes (check_drop_grad), logged with their
+# integer bounds once the library's SASS is read (drop_pass_bounds)
+DROP_PASSES = {}
+
+
+def check_mask_edges():
+    """Rows 10 and 16's mask kernel (draw_masks, draw_masks_gpt2, and
+    draw_site_mask on the same kernel) against the plain generator bit for
+    bit at its edges: indices past 2^32 (row0 from MASK_ROW0) and a range
+    across a 2^32 boundary; the tensor-parallel span / gap remap of the
+    attention site at tp = 2 (each rank's mask equal to the whole mask's
+    heads, kernel and plain); ragged sizes (no multiple of the 4-element
+    vector, below one block); rates 0 and 0.999."""
+    import torch
+    from afft_tpu_torch.ops import fused_block_train as FT
+    from afft_tpu_torch.ops import fused_gpt2_train as FGT
+    n = 0
+
+    def fuser(R, N, C, H, rate, row0=0, block=5):
+        args = (R, N, C, H, TRAIN_SEEDS, block, rate, rate, rate)
+        _check_masks(f"draw_masks edge R={R} N={N} C={C} H={H} rate={rate} "
+                     f"row0={row0}", FT.draw_masks(*args, row0=row0),
+                     FT.draw_masks_plain(*args, device="cuda", row0=row0),
+                     [rate] * 5)
+
+    def gpt2(B, T, C, H, rate, row0=0, layer=3):
+        args = (B, T, C, H, TRAIN_SEEDS, layer, rate, rate)
+        _check_masks(f"draw_masks_gpt2 edge B={B} T={T} C={C} H={H} rate="
+                     f"{rate} row0={row0}", FGT.draw_masks_gpt2(
+                         *args, row0=row0), FGT.draw_masks_gpt2_plain(
+                         *args, device="cuda", row0=row0), [rate] * 3)
+
+    for row0 in MASK_ROW0["fuser"]:
+        fuser(8, 5, 1024, 4, 0.1, row0)
+        n += 1
+    for row0 in MASK_ROW0["gpt2"]:
+        gpt2(4, 16, 2048, 4, 0.1, row0)
+        n += 1
+    for rate in MASK_EDGE_RATES:
+        for shape in ((1, 1, 3, 1), (3, 7, 13, 1), (1001, 5, 1023, 3)):
+            fuser(*shape, rate)
+            gpt2(*shape, rate)
+            n += 2
+    # the remap: rank r of 2 holds heads r * H .. of the layer's 2 H
+    for label, (R, N, C, H), whole in (
+            ("fuser", (256, 5, 1024, 4), lambda row0: FT.draw_masks(
+                256, 5, 1024, 4, TRAIN_SEEDS, 5, 0.1, 0.1, 0.1,
+                row0=row0)[0]),
+            ("gpt2", (256, 16, 2048, 4), lambda row0: FGT.draw_masks_gpt2(
+                256, 16, 2048, 4, TRAIN_SEEDS, 3, 0.1, 0.1, row0=row0)[0])):
+        block = 5 if label == "fuser" else 3
+        local, nn = H // TP, N * N
+        thr, inv = (v[0] for v in FT.rates_operands(0.1, 0.1, 0.1))
+        for row0 in (0, MASK_ROW0[label][1]):
+            full = whole(row0)
+            for rank in range(TP):
+                kw = dict(offset=row0 * H * nn + rank * local * nn,
+                          span=local * nn, gap=(H - local) * nn)
+                got = FT.draw_site_mask(R * local * nn, TRAIN_SEEDS, block,
+                                        0, 0.1, **kw)
+                plain = FT.site_mask_plain(R * local * nn, TRAIN_SEEDS,
+                                           block, 0, thr, inv,
+                                           device="cuda", **kw)
+                want = full[:, rank * local:(rank + 1) * local].reshape(-1)
+                if not (torch.equal(got, want) and torch.equal(plain, want)):
+                    raise AssertionError(
+                        f"draw_site_mask {label} tp={TP} rank {rank} row0="
+                        f"{row0}: the remapped mask differs from the whole "
+                        "mask's heads")
+                n += 1
+    log(f"kernels: {n} mask-kernel edge checks bit for bit (indices past "
+        "2^32, the tp = 2 remap, ragged sizes, rates 0 / 0.5 / 0.999)")
+    return n
+
+
+# (label, R, N, C, drop_rate, dp_rate): the drop pass at both layers'
+# flagship shapes and off the vector grid (C 1,025 / 2,045: the scalar
+# route), at the training rates (the GPT-2 layer has no drop-path)
+DROP_GRAD_SHAPES = (("fuser", 4096, 5, 1024, 0.1, 0.1),
+                    ("gpt2", 256, 16, 2048, 0.1, 0.0),
+                    ("fuser off-grid", 4096, 5, 1025, 0.1, 0.1),
+                    ("gpt2 off-grid", 256, 16, 2045, 0.1, 0.0))
+
+
+def check_drop_grad(peaks, gen):
+    """The backward entries' drop pass alone (FT.drop_grad) against
+    drop_grad_plain, d x row multiplier x element multiplier rounded to
+    the dtype, bit for bit: DROP_GRAD_SHAPES in bf16 and fp32, both
+    branches, row0 0 and one past 2^32 (across a 2^32 boundary for the
+    fuser); timed in bf16 at each shape beside the plain version and the
+    bytes' bound (the draw's integer bound joins it from the SASS:
+    drop_pass_bounds). Fills DROP_PASSES."""
+    import torch
+    from afft_tpu_torch.ops import fused_block_train as FT
+    n = 0
+    for label, R, N, C, drop, dp in DROP_GRAD_SHAPES:
+        layer = label.split()[0]
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            d = _randn(gen, dt)(R, N, C)
+            for branch in ("attn", "mlp"):
+                for row0 in (0, MASK_ROW0[layer][0]):
+                    kw = dict(branch=branch, row0=row0)
+                    got = FT.drop_grad(d, TRAIN_SEEDS, 5, drop, dp, **kw)
+                    want = FT.drop_grad_plain(d, TRAIN_SEEDS, 5, drop, dp,
+                                              **kw)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"drop_grad {label} {tag} {branch} row0={row0}: "
+                            "differs from d x row x element multiplier")
+                    n += 1
+            if tag != "bf16":
+                continue
+            kw = dict(branch="mlp")
+            def run():
+                return FT.drop_grad(d, TRAIN_SEEDS, 5, drop, dp, **kw)
+            ms = time_ms(run)
+            device_ms = _device_ms(run, what=f"drop_grad {label}")
+            plain_ms = time_ms(lambda: FT.drop_grad_plain(
+                d, TRAIN_SEEDS, 5, drop, dp, **kw), iters=5)
+            nbytes = 2 * d.numel() * d.element_size()
+            DROP_PASSES[label] = dict(
+                name="drop_grad", shape=[R, N, C], dtype=tag,
+                route="vector" if C % 8 == 0 else "scalar", ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
+                byte_bound_ms=nbytes / peaks["bytes"] * 1e3,
+                elements=d.numel(), library_ms=None)
+            log(f"kernel drop_grad bf16 {label} {(R, N, C)} kernel_ms="
+                f"{ms:.4f} device_ms={device_ms:.4f} plain_ms="
+                f"{plain_ms:.4f} byte_bound_ms="
+                f"{DROP_PASSES[label]['byte_bound_ms']:.4f}")
+            del d
+    log(f"kernels: {n} drop_grad checks bit for bit")
+    return n
+
+
+def drop_pass_bounds(sass, kernels):
+    """The draw's integer bound from the library's SASS
+    (afft_tpu_torch.tools.philox_bound): rows 10 and 16's kernels-line
+    bound becomes the larger of it and their bytes' (bound_by then
+    "operations"), and each timed drop pass's joins its byte bound; logs the
+    drop passes' line."""
+    from afft_tpu_torch.tools import philox_bound as PB
+    hz = PB.max_sm_clock_hz()
+    # an IMAD.WIDE's issue slots on the FMA-heavy pipe, measured here
+    wide, probe = PB.wide_slots()
+    counted = PB.bounds(sass, hz, 0, wide)
+    per_sm = 1e3 / (PB.SMS * hz)
+    for name, row in (("draw_masks", "10 draw_masks"),
+                      ("draw_masks_gpt2", "16 draw_masks_gpt2")):
+        e, t_int = kernels[name], counted["rows"][row]["integer_bound_ms"]
+        e["integer_bound_ms"] = t_int
+        if t_int > e["bound_ms"]:
+            e["bound_ms"], e["bound_by"] = t_int, "operations"
+    clocks = counted["kernels"]["drop_grad bf16"]["sm_clocks_per_element"]
+    for entry in DROP_PASSES.values():
+        entry["integer_bound_ms"] = (entry["elements"] * clocks * per_sm
+                                     if entry["route"] == "vector" else None)
+        t_int = entry["integer_bound_ms"] or 0.0
+        entry["bound_ms"] = max(t_int, entry["byte_bound_ms"])
+        entry["bound_by"] = ("operations" if t_int > entry["byte_bound_ms"]
+                             else "bytes")
+    log(json.dumps({"philox_bound": {
+        k: {"per_element": v["per_element"],
+            "sm_clocks_per_element": v["sm_clocks_per_element"]}
+        for k, v in counted["kernels"].items() if v is not None},
+        "max_sm_clock_mhz": hz / 1e6, "imad_wide_slots": wide,
+        "probe": probe}))
+    log(json.dumps({"drop_passes": DROP_PASSES}))
+
+
 def check_train_edge_shapes(gen):
     """The training kernels at the edges of their limits: for the fuser
     block 1 to 8 tokens, row counts that fill no tile, head widths 6 / 8 /
@@ -1878,6 +2056,9 @@ def time_train_layer(peaks, case, layer):
     torch.cuda.empty_cache()
 
     max_abs = (errs["fwd"], errs["bwd_mlp"], errs["bwd_attn"], 0.0)
+    # the mask kernel's device time alone (its CUDA-event time above holds
+    # the wrapper's host work, which is longer than the kernel)
+    draw_device_ms = _device_ms(layer["draw"], what=names[3])
     results = {}
     for i, (name, replaces) in enumerate(TRAIN_KERNELS[label]):
         flops, nbytes = layer["work"][i]
@@ -1890,6 +2071,8 @@ def time_train_layer(peaks, case, layer):
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, bytes=nbytes)
+        if i == 3:
+            results[name]["device_ms"] = draw_device_ms
         lib = library_ms[i]
         log(f"kernel {name} bf16 {tuple(x.shape)} kernel_ms={ms[i]:.4f} "
             f"plain_ms={plain_ms[i]:.4f} library_ms="
@@ -1929,6 +2112,9 @@ def phase_train_kernels(peaks, gen):
     log(json.dumps({"attention_bwd": check_attention_bwd(peaks, gen)}))
     check_train_edge_shapes(gen)
     check_width_train(gen)
+    check_mask_edges()
+    check_drop_grad(peaks, gen)
+    torch.cuda.empty_cache()
     results = {}
 
     # the fuser block
@@ -2569,12 +2755,14 @@ def start_sass_check(lib_path):
                       os.path.dirname(lib_path), "sass")
 
 
-def finish_sass_check(run):
+def finish_sass_check(run, kernels):
     """The proof that the wgmma path compiled: the library's SASS (from
-    ``start_sass_check``) holds HGMMA instructions. Fails otherwise."""
+    ``start_sass_check``) holds HGMMA instructions. Fails otherwise. The
+    same SASS gives the drop passes' integer bounds (drop_pass_bounds)."""
     if run is None:
         return None
     sass, _ = _finish_run(run, 600)
+    drop_pass_bounds(sass, kernels)
     hgmma = sass.count("HGMMA")
     log(f"build: {hgmma} HGMMA (wgmma) instructions in the library's SASS")
     if hgmma == 0:
@@ -5230,11 +5418,8 @@ def _graph_bundle(label, lines, buckets, expected, **kw):
         numbers["plain"][str(b)] = _hold_plain(
             f"{label} bucket {b}", runner.server, feats,
             graph if len(graph) > 1 else graph[0])
-        prof = {"eager": profile_forward(lambda: eager.fn(*runner.inputs[b]),
-                                         f"{label} b{b} eager forward")}
-        prof["graph"] = profile_forward(lambda: runner.replay(b),
-                                        f"{label} b{b} graph replay",
-                                        want=prof["eager"]["kernels"])
+        prof = _graph_profiles(lambda: eager.fn(*runner.inputs[b]),
+                               lambda: runner.replay(b), f"{label} b{b}")
         numbers["busy"][str(b)] = {
             k: {"busy_ms": v["busy_ms"], "wall_ms": v["wall_ms"],
                 "busy_share": v["busy_share"]} for k, v in prof.items()}
@@ -5244,6 +5429,28 @@ def _graph_bundle(label, lines, buckets, expected, **kw):
             f"forward's {sum(prof['graph']['kernels'].values())} launches "
             f"of {len(prof['graph']['kernels'])} afft kernels")
     return runner, eager, meta, numbers
+
+
+def _graph_profiles(eager_fn, replay_fn, what, attempts=3):
+    """The eager forward's profile and the graph replay's, whose afft
+    launches must be the eager trace's exactly. The profiler now and then
+    drops the first device events of a trace, the eager one's too (a
+    replay held to a partial eager trace can never match it), so a replay
+    that matches no trace of ``profile_forward``'s retakes is held to a
+    new eager trace, up to ``attempts`` eager traces in all."""
+    for attempt in range(attempts):
+        prof = {"eager": profile_forward(eager_fn, f"{what} eager forward")}
+        try:
+            prof["graph"] = profile_forward(replay_fn, f"{what} graph replay",
+                                            want=prof["eager"]["kernels"])
+            return prof
+        except RuntimeError:
+            if attempt + 1 == attempts:
+                raise
+            log(f"profile: {what}: no replay trace matched the eager trace "
+                f"of {sum(prof['eager']['kernels'].values())} launches; the "
+                f"eager forward is traced again (attempt {attempt + 2} of "
+                f"{attempts})")
 
 
 def phase_serving_graphs():
@@ -7693,7 +7900,7 @@ def main():
         for k in kernels.values():
             k["launcher_launches"] = launcher_launches[k["name"]]
         log(json.dumps({"launcher": launcher_numbers}))
-        finish_sass_check(sass)
+        finish_sass_check(sass, kernels)
 
         mark("8 launcher")
         # 9. eval (the eval CLI on the launcher's checkpoint)
@@ -7780,6 +7987,7 @@ def main():
     log(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("main_path", "plain_path_launches",
+                              "device_ms", "integer_bound_ms",
                               "off_grid_launches",
                               "launcher_launches", "eval_launches",
                               "variants_launches", "serving_graph_launches",

@@ -47,7 +47,8 @@ NO_LAUNCHES = {"fused_block": 0, "gpt2_attn_half": 0, "gpt2_mlp_half": 0,
                "attention_drop": 0, "attention_drop_bwd": 0,
                "fused_gpt2_train_fwd": 0, "fused_gpt2_train_bwd_mlp": 0,
                "fused_gpt2_train_bwd_attn": 0, "draw_masks_gpt2": 0,
-               "gemm": 0, "gemm_tn": 0, "pack_rows": 0}
+               "gemm": 0, "gemm_tn": 0, "pack_rows": 0,
+               "draw_site_mask": 0, "drop_grad": 0}
 
 
 def _perturbed(tree, rng):
