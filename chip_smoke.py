@@ -181,7 +181,22 @@ Phases, in order; any failure exits non-zero and prints no result:
                packaging it, the serving kernels 6 times a batch each
                (eval_launches in the kernels line), clips/s over the eval's
                window (the export's; the accuracies mode and the challenge
-               tool run beside the comparisons with the plain path);
+               tool run beside the comparisons with the plain path); the
+               reference parity tool (``python -m
+               afft_tpu_torch.tools.reproduce_reference``) on the same
+               checkpoint, as the port's checkpoint and written as a
+               reference-layout .pth ({"model": state dict}), each expecting
+               the accuracies mode's MT5R within 1e-6 (exit 0, its OK line)
+               with 6 launches a batch of each serving kernel
+               (reproduce_launches in the kernels line); the flagship
+               training check (``python -m afft_tpu_torch.tools.train_check``,
+               200 steps at B=64 on 8 synthetic batches, fp32 masters, then
+               bf16 masters with --against the fp32 record): a falling loss,
+               rows 7-9 and 11-15 launched 6 times a step each and no other
+               kernel (rows 10 / 16: 0; train_check_launches in the kernels
+               line), ms a step on a shared card, the trace_delta of the two
+               runs; the training check starts after the export and the
+               bf16 run and both parity runs go on beside phase 10;
  10. dp      - ``-n 1`` through torchrun over NCCL: a cut-set epoch bit for
                bit the one-process run (phase 8's host-loader run); the
                training layers at a data-parallel rank's row offset against
@@ -4452,6 +4467,86 @@ def _eval_record(name, text, seconds):
     return run
 
 
+# the flagship training check (afft_tpu_torch.tools.train_check) beside
+# phases 9 and 10: its command line's flagship at B=64, fp32 then bf16
+# masters over the same seed and batches
+TRAIN_CHECK_DIR = os.path.join(REPO, "build", "train_check")
+TRAIN_CHECK_STEPS = 200
+TRAIN_CHECK_BATCH = 64
+TRAIN_CHECK_TIMEOUT = 400  # seconds a run may take (the card is shared)
+# the reference parity tool on phase 8's checkpoint expects the accuracies
+# mode's MT5R within REPRODUCE_TOL
+REPRODUCE_METRIC = "amt5r"
+REPRODUCE_TOL = 1e-6
+
+
+def _train_check_cmd(master_dtype, against=None):
+    """``python -m afft_tpu_torch.tools.train_check`` at the smoke's steps
+    and batch, its record in ``TRAIN_CHECK_DIR/<master_dtype>.json``."""
+    cmd = [sys.executable, "-m", "afft_tpu_torch.tools.train_check",
+           "--steps", str(TRAIN_CHECK_STEPS), "--batch",
+           str(TRAIN_CHECK_BATCH), "--master-dtype", master_dtype, "--out",
+           os.path.join(TRAIN_CHECK_DIR, f"{master_dtype}.json")]
+    return cmd + (["--against", against] if against else [])
+
+
+def _train_check_record(master_dtype, seconds):
+    """A finished train_check run's record, held: a falling loss, and the
+    training entries of rows 7-9 and 11-15 launched 6 times a step each,
+    no other kernel (the masks of rows 10 / 16 are drawn in registers)."""
+    with open(os.path.join(TRAIN_CHECK_DIR, f"{master_dtype}.json")) as f:
+        rec = json.load(f)
+    names = [n for layer in TRAIN_KERNELS.values() for n, _ in layer[:3]]
+    want = dict.fromkeys(names, 6 * TRAIN_CHECK_STEPS)
+    if rec["launches"] != want:
+        raise AssertionError(f"train_check {master_dtype}: launches "
+                             f"{rec['launches']}, expected {want} and 0 of "
+                             "every other kernel")
+    if not (rec["loss_decreased"] and math.isfinite(rec["loss_last"])):
+        raise AssertionError(f"train_check {master_dtype}: the loss did not "
+                             f"fall: {rec['loss_first']} -> "
+                             f"{rec['loss_last']}")
+    rec["seconds"] = seconds
+    delta = rec.get("trace_delta")
+    log(f"train_check {master_dtype} masters: {rec['steps']} steps at B="
+        f"{rec['batch']}, {rec['model_params'] / 1e6:.1f} M params, loss "
+        f"{rec['loss_first']:.4f} -> {rec['loss_last']:.4f}, every 50 steps "
+        f"{[round(v, 4) for v in rec['loss_every_50']]}, ms_per_step="
+        f"{rec['ms_per_step']:.3f} (CUDA events, the card shared with phases "
+        f"9-10) host_ms_per_step={rec['host_ms_per_step']:.3f}, 6 launches "
+        "a step of each training entry"
+        f"{'; trace_delta ' + json.dumps(delta) if delta else ''} "
+        f"({seconds:.1f} s)")
+    return rec
+
+
+def _reproduce_cmd(ckpt, expect):
+    """``python -m afft_tpu_torch.tools.reproduce_reference`` on the eval
+    expt and ``ckpt``, expecting ``expect`` of ``REPRODUCE_METRIC``."""
+    return [sys.executable, "-m", "afft_tpu_torch.tools.reproduce_reference",
+            "--expt", os.path.join(EXPTS, EVAL_EXPT), "--ckpt", ckpt,
+            "--metric", REPRODUCE_METRIC, "--expect", repr(expect),
+            "--tolerance", repr(REPRODUCE_TOL),
+            *(f"--override={o}" for o in LAUNCH_OVERRIDES)]
+
+
+def _reproduce_record(name, text, seconds, per_batch):
+    """A finished reference parity run: exit 0 (``_finish_run``), its
+    report line ``-> OK`` (the measured metric within ``REPRODUCE_TOL`` of
+    the expected one), and the serving kernels launched ``per_batch`` times
+    a batch each. Returns its ``eval run:`` record with the measured metric
+    (as the report prints it)."""
+    run = _eval_record(name, text, seconds)
+    lines = [l for l in text.splitlines() if "[reproduce_reference]" in l]
+    if len(lines) != 1 or not lines[0].endswith("-> OK"):
+        raise AssertionError(f"{name}: no OK report\n{text[-4000:]}")
+    _counts_ok(name, run["launches"], {k: n * run["batches"]
+                                       for k, n in per_batch.items()})
+    log(f"{name}: {lines[0]}")
+    run["measured"] = float(lines[0].split(" measured ")[1].split()[0])
+    return run
+
+
 def _eval_logits(cfg, dataset, state, impl, dtype):
     """The eval set's logits through ``Runner.eval_step`` on the card from
     ``state``, through ``impl`` in ``dtype``."""
@@ -4481,10 +4576,15 @@ def phase_eval():
     mode against the challenge's numbers from the exported file; the
     challenge tool (``python -m afft_tpu_torch.challenge``) packages it; the
     serving kernels launched 6 times a batch each. The export runs alone
-    (its clips/s is the eval CLI's); the accuracies mode and the challenge
-    tool run beside the comparisons with the plain path, so the accuracies
-    run's clips/s is a shared card's. Returns (the export run's launches,
-    numbers)."""
+    (its clips/s is the eval CLI's); the accuracies mode, the challenge
+    tool and the fp32-master training check run beside the comparisons with
+    the plain path, so the accuracies run's clips/s is a shared card's. At
+    its end it starts the reference parity tool on the checkpoint (as the
+    port's checkpoint and as a reference-layout .pth, each expecting the
+    accuracies mode's MT5R) and the bf16-master training check against the
+    fp32 one. Returns (the export run's launches, numbers, ``finish``: a
+    function that waits for those runs and holds them, to call after
+    phase 10)."""
     import numpy as np
     import torch
     from afft_tpu_torch import challenge as PCHALLENGE
@@ -4498,6 +4598,10 @@ def phase_eval():
     workdir = os.path.join(REPO, "build", "launcher")
     init = f"init_from_model={EVAL_MODEL}/checkpoint_best"
     export = _eval_run(workdir, "eval-export", (init, "save_name=test.h5"))
+    # the flagship training check beside the rest (fp32 masters first)
+    os.makedirs(TRAIN_CHECK_DIR, exist_ok=True)
+    check_fp32 = _start_run(_train_check_cmd("float32"), TRAIN_CHECK_DIR,
+                            "train-check-fp32")
     overrides = [l for l in read_expt_file(os.path.join(EXPTS, EVAL_EXPT))
                  if l.startswith("dataset")]
     accs_h = _start_run(_eval_cmd((init, "save_name=null")), workdir,
@@ -4523,6 +4627,9 @@ def phase_eval():
                           get_transforms(cfg, train=False))
     state = load_checkpoint(os.path.join(workdir, "checkpoints", EVAL_MODEL,
                                          "checkpoint_best"))["model"]
+    # the same weights as a reference-layout .pth ({"model": state dict})
+    pth = os.path.join(workdir, "checkpoints", "reference_layout.pth")
+    torch.save({"model": state}, pth)
     numbers = {}
     plain, idx = _eval_logits(cfg, dataset, state, "plain", "bfloat16")
     if not (len(idx) == len(exported) and
@@ -4596,7 +4703,55 @@ def phase_eval():
         "run_s": {"accuracies": accs_run["seconds"],
                   "export": export["seconds"], "challenge": chall_s},
         "accuracies": {k: accs[k] for k in keys}})
-    return export["launches"], numbers
+
+    # the reference parity tool on the checkpoint, as the port's checkpoint
+    # and as the reference-layout .pth, expecting the accuracies mode's
+    # metric; then the bf16-master training check against the fp32 one.
+    # They run beside phase 10 (``finish`` waits for them).
+    expected = accs[REPRODUCE_METRIC]
+    repro = {label: _start_run(_reproduce_cmd(ckpt, expected), workdir,
+                               f"reproduce-{label}")
+             for label, ckpt in (("checkpoint",
+                                  f"{EVAL_MODEL}/checkpoint_best"),
+                                 ("pth", pth))}
+    checks = {"float32": _train_check_record(
+        "float32", _finish_run(check_fp32, TRAIN_CHECK_TIMEOUT)[1])}
+    check_bf16 = _start_run(
+        _train_check_cmd("bfloat16", os.path.join(TRAIN_CHECK_DIR,
+                                                  "float32.json")),
+        TRAIN_CHECK_DIR, "train-check-bf16")
+    per_batch = {"fused_block": depth, "gpt2_attn_half": layers,
+                 "gpt2_mlp_half": layers}
+
+    def finish():
+        """Wait for the runs started above; returns ({label: the parity
+        run's launches}, {master dtype: the training check's launches},
+        their numbers)."""
+        runs = {label: _reproduce_record(f"reproduce-{label}",
+                                         *_finish_run(h, EVAL_TIMEOUT),
+                                         per_batch)
+                for label, h in repro.items()}
+        os.remove(pth)
+        checks["bfloat16"] = _train_check_record(
+            "bfloat16", _finish_run(check_bf16, TRAIN_CHECK_TIMEOUT)[1])
+        out = {
+            "reproduce": {label: {"metric": REPRODUCE_METRIC,
+                                  "measured": r["measured"],
+                                  "expected": expected,
+                                  "seconds": r["seconds"],
+                                  "launches": {k: n for k, n in
+                                               r["launches"].items() if n}}
+                          for label, r in runs.items()},
+            "train_check": {dt: {k: rec[k] for k in (
+                "steps", "batch", "model_params", "ms_per_step",
+                "host_ms_per_step", "loss_first", "loss_last",
+                "loss_every_50", "seconds", "device") + (
+                    ("trace_delta",) if "trace_delta" in rec else ())}
+                for dt, rec in checks.items()}}
+        return ({label: r["launches"] for label, r in runs.items()},
+                {dt: rec["launches"] for dt, rec in checks.items()}, out)
+
+    return export["launches"], numbers, finish
 
 
 # -- data parallelism: torchrun on the card ----------------------------------
@@ -7904,14 +8059,24 @@ def main():
 
         mark("8 launcher")
         # 9. eval (the eval CLI on the launcher's checkpoint)
-        eval_launches, eval_numbers = phase_eval()
+        eval_launches, eval_numbers, finish_eval = phase_eval()
         for k in kernels.values():
             k["eval_launches"] = eval_launches[k["name"]]
         log(json.dumps({"eval": eval_numbers}))
 
         mark("9 eval")
-        # 10. dp (torchrun: -n 1 over NCCL, two processes over gloo)
+        # 10. dp (torchrun: -n 1 over NCCL, two processes over gloo), beside
+        # phase 9's reference parity runs and bf16-master training check
         log(json.dumps({"dp": phase_dp()}))
+        repro_launches, check_launches, checks = finish_eval()
+        for k in kernels.values():
+            k["reproduce_launches"] = {
+                label: counts.get(k["name"], 0)
+                for label, counts in repro_launches.items()}
+            k["train_check_launches"] = {
+                dt: counts.get(k["name"], 0)
+                for dt, counts in check_launches.items()}
+        log(json.dumps({"eval_tools": checks}))
 
         mark("10 dp")
         # 11. variants (expts 00 and 05 served and trained, 03 and 04
@@ -7990,6 +8155,7 @@ def main():
                               "device_ms", "integer_bound_ms",
                               "off_grid_launches",
                               "launcher_launches", "eval_launches",
+                              "reproduce_launches", "train_check_launches",
                               "variants_launches", "serving_graph_launches",
                               "options_launches", "pipeline_launches",
                               "tp_launches", "long_launches",
@@ -8000,7 +8166,8 @@ def main():
             if isinstance(sub, dict)
             and label not in ("redesign", "serving_graph_launches",
                               "pipeline_launches", "tp_launches",
-                              "off_grid_launches")}}
+                              "off_grid_launches", "reproduce_launches",
+                              "train_check_launches")}}
         for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

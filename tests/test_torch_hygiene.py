@@ -71,7 +71,8 @@ def test_port_imports_neither_jax_nor_afft_tpu():
             "train/runner.py", "train/loop.py", "train/checkpoint.py",
             "train/metrics.py", "data/readers.py", "data/dataset.py",
             "data/loader.py", "data/device_cache.py", "data/lmdb_native.py",
-            "run.py", "tools/make_accept_dataset.py"} <= names
+            "run.py", "tools/make_accept_dataset.py",
+            "tools/reproduce_reference.py", "tools/train_check.py"} <= names
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "afft_tpu", "ml_dtypes",
@@ -170,6 +171,17 @@ def test_runner_default_device_raises_without_cuda():
         Runner.from_config(cfg, {"action": 5})
     runner = Runner.from_config(cfg, {"action": 5}, device="cpu")
     assert runner.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("tool, argv", [
+    ("reproduce_reference", ["--expt", "99_synth_smoke_val", "--metric",
+                             "atop1", "--expect", "0"]),
+    ("train_check", ["--steps", "2"])])
+def test_check_tools_default_device_raises_without_cuda(tool, argv):
+    _skip_with_cuda()
+    module = importlib.import_module(f"afft_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(argv)
 
 
 def test_serve_cli_default_device_exits_nonzero():
